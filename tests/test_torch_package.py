@@ -1,0 +1,82 @@
+"""Package-level contracts of the PyTorch port: it imports with JAX
+absent, no module of it (nor chip_smoke.py) imports JAX or the JAX
+package, and its serving entry point runs end to end on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "tfmesos_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "tfmesos_tpu"}
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil, tfmesos_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    tfmesos_tpu_torch.__path__, 'tfmesos_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 10
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_no_jax_imports_in_port_or_chip_smoke():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = {str(f.relative_to(ROOT)): sorted(FORBIDDEN & set(
+        _imported_roots(f))) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_serve_cli_writes_one_jsonl_row_per_prompt():
+    out = subprocess.run(
+        [sys.executable, "-m", "tfmesos_tpu_torch.serve", "--tiny",
+         "--device", "cpu", "--n-prompts", "4", "--new-tokens", "4"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    assert len(rows) == 4
+    assert sorted(r["rid"] for r in rows) == [0, 1, 2, 3]
+    assert all(len(r["tokens"]) == 4 for r in rows)
+
+
+def test_kernel_sources_carry_their_note():
+    """Each CUDA source names the TPU kernel it replaces, its bound and
+    its design, and every source has a kernel library to build."""
+    from tfmesos_tpu_torch.kernels import build
+
+    srcs = build.sources()
+    assert {p.stem for p in srcs} == {"flash_fwd", "flash_decode_paged"}
+    for p in srcs:
+        head = p.read_text()[:3000]
+        assert "Replaces: tfmesos_tpu/ops/attention.py" in head
+        assert "What bounds it on this card" in head
+        assert "What this design does about it" in head
+    assert build.build_dir(srcs).parent == build.BUILD_ROOT

@@ -1,0 +1,388 @@
+"""Attention ops: plain PyTorch references and the wrappers of the two
+hand-written Hopper kernels on the serving path (port of
+``tfmesos_tpu/ops/attention.py``, prefill half ``:69-243, 480-531`` and
+decode half ``:534-593, 831-1152``).
+
+Every wrapper follows one rule: a CPU tensor runs the plain PyTorch
+version of the kernel (same function, same signature); a CUDA tensor
+launches the kernel or raises — there is no fallback from the card to
+the plain version.  Layouts are the JAX package's: ``[batch, seq,
+heads, head_dim]`` at the public functions, stacked paged pools
+``[L, P, KV, page, D]``.
+
+Kernels (``tfmesos_tpu_torch/csrc``):
+
+* ``flash_fwd.cu`` replaces ``_flash_kernel`` (blocked online-softmax
+  forward: causal/full, sliding window, q_offset, GQA, per-row lse);
+* ``flash_decode_paged.cu`` replaces ``_flash_decode_paged_kernel``
+  (decode through a per-row page table, ragged positions, t-row chunks,
+  deferred ``self_kv`` with intra-chunk causality).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+
+from tfmesos_tpu_torch.kernels import build
+
+NEG_INF = float("-inf")
+
+#: Kernel launch counts: each wrapper adds one where it launches its
+#: kernel and nowhere else (the plain CPU path never counts).  A run
+#: that zeroes these before serving and reads them after proves that
+#: the serving path went through the kernels.
+LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0}
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: head_dim the flash_fwd kernel takes, per dtype (bf16 runs on the
+#: tensor cores in 16-wide k-steps; float32 on the FMA units).
+_FLASH_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128),
+                    torch.float32: (8, 16, 32, 64, 128)}
+#: Shared memory one Hopper CTA may use (232,448 bytes).
+_MAX_SMEM = 232448
+
+_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                   _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _p]
+_PAGED_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+               _i, _i, _i, _f, _i, _p]
+
+
+def _check_gqa_heads(q, k, v):
+    """One clear failure for bad GQA shapes (q heads must be a multiple
+    of the kv heads, which K and V must agree on)."""
+    if q.shape[2] % k.shape[2] or k.shape[2] != v.shape[2]:
+        raise ValueError(
+            f"q heads ({q.shape[2]}) must be a multiple of kv heads "
+            f"({k.shape[2]}/{v.shape[2]}, which must agree)")
+
+
+def _check_window(causal: bool, window: Optional[int]) -> None:
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _causal_mask(tq: int, tk: int, q_offset: int, window: Optional[int],
+                 device) -> torch.Tensor:
+    """[tq, tk] True where query i (global position i + q_offset) must
+    NOT see key j."""
+    qpos = torch.arange(tq, device=device)[:, None] + q_offset
+    kpos = torch.arange(tk, device=device)[None, :]
+    bad = kpos > qpos
+    if window is not None:
+        bad = bad | (kpos < qpos - (window - 1))
+    return bad
+
+
+def mha_reference(q, k, v, causal: bool = False,
+                  scale: Optional[float] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Plain scaled-dot-product attention (``mha_reference`` of the JAX
+    package): scores in the input dtype cast to float32, softmax in
+    float32, probabilities cast to ``v.dtype``.  GQA K/V are broadcast
+    up to the q heads here; ``window`` (causal only) lets query i see
+    keys [i - window + 1, i]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_window(causal, window)
+    _check_gqa_heads(q, k, v)
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        bad = _causal_mask(scores.shape[-2], scores.shape[-1], 0, window,
+                           q.device)
+        scores = scores.masked_fill(bad, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_attention_reference(q, k, v, causal: bool = False,
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None,
+                              q_offset: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``_flash_kernel``: ``(o, lse)`` with ``o``
+    [B, Tq, H, D] in q's dtype and the per-row logsumexp of the scaled
+    scores ``lse`` [B, H, Tq, 1] float32.  Scores, softmax and the
+    probability-value product are float32 (the kernel's accumulation).
+    Query i sits at global position i + ``q_offset``; a row that sees no
+    key gives zeros and lse -inf, as the kernel does."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_window(causal, window)
+    _check_gqa_heads(q, k, v)
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)                           # [B, H, Tq, D]
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)) * scale                  # [B, H, Tq, Tk]
+    if causal:
+        s = s.masked_fill(_causal_mask(s.shape[-2], s.shape[-1], q_offset,
+                                       window, q.device), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)  # empty rows
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    lse = m + torch.log(l)                     # -inf where l == 0
+    p = e / torch.where(l == 0, torch.ones_like(l), l)
+    o = (p @ vf).transpose(1, 2).to(q.dtype)
+    return o, lse
+
+
+def flash_forward(q, k, v, causal: bool = False,
+                  scale: Optional[float] = None,
+                  window: Optional[int] = None, q_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of blocked attention (counterpart of
+    ``_flash_forward``): the ``flash_fwd.cu`` kernel on CUDA tensors,
+    :func:`flash_attention_reference` on CPU tensors.  Any sequence
+    length runs — the kernel masks the ragged edge itself."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_window(causal, window)
+    _check_gqa_heads(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale,
+                                         window=window, q_offset=q_offset)
+    return _flash_forward_cuda(q, k, v, bool(causal), float(scale), window,
+                               int(q_offset))
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blocked attention output [B, Tq, H, D] (the model's entry point;
+    see :func:`flash_forward` for the kernel-or-plain rule).  GQA: ``k``
+    and ``v`` may carry H // g heads; q head h reads kv head h // g."""
+    return flash_forward(q, k, v, causal=causal, scale=scale, window=window,
+                         q_offset=q_offset)[0]
+
+
+def _check_cuda_operands(what: str, *tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: operands on {t.device} and {dev}")
+    dt = tensors[0].dtype
+    if dt not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: the CUDA kernel takes bfloat16 or float32 "
+                        f"operands, got {dt}")
+    for t in tensors:
+        if t.dtype != dt:
+            raise TypeError(f"{what}: mixed operand dtypes {t.dtype} and "
+                            f"{dt}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
+                        window: Optional[int], q_offset: int):
+    _check_cuda_operands("flash_forward", q, k, v)
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    if d not in _FLASH_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_forward: the CUDA kernel takes {q.dtype} "
+                         f"head_dim in {_FLASH_HEAD_DIMS[q.dtype]}, got {d}")
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_forward: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    # The kernel reads head_dim with unit stride and (bf16) element pairs
+    # as 32-bit words, so every other stride must be even.
+    def fits(t):
+        return t.stride(3) == 1 and all(s % 2 == 0 for s in t.stride()[:3])
+
+    if not fits(q):
+        q = q.contiguous()
+    if not fits(k) or v.stride() != k.stride():
+        k, v = k.contiguous(), v.contiguous()
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    fn = build.kernel("flash_fwd", "tfm_flash_fwd", _FLASH_FWD_ARGS)
+    with torch.cuda.device(q.device):
+        LAUNCHES["flash_fwd"] += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, tq, tk, h, kvh, d,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 int(causal), 0 if window is None else int(window),
+                 q_offset, scale, int(q.dtype == torch.bfloat16),
+                 _stream(q.device))
+    build.check("flash_fwd", err, "flash_forward")
+    return o, lse[..., None]
+
+
+# -- decode ----------------------------------------------------------------
+
+
+def _decode_reference(q, k_cache, v_cache, pos, scale: float):
+    """Dense masked attention of a query chunk over a KV cache (the
+    JAX ``_decode_reference``): a grouped einsum with the cache at kv
+    width, q heads grouped kv-major as [kv, g].  ``q`` is [B, H, D] or
+    [B, t, H, D] (token tt sees positions <= pos + tt); the cache is
+    [B, KV, M, D]."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, t, h, d = q.shape
+    kv, m = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    q5 = q.reshape(b, t, kv, g, d)
+    s = torch.einsum("btkgd,bkmd->bkgtm", q5, k_cache).float() * scale
+    posv = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+    kpos = torch.arange(m, device=q.device)
+    tt = torch.arange(t, device=q.device)
+    bad = kpos[None, None, :] > posv[:, None, None] + tt[None, :, None]
+    s = s.masked_fill(bad[:, None, None], NEG_INF)          # [b,kv,g,t,m]
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgtm,bkmd->btkgd", p, v_cache).reshape(b, t, h, d)
+    return o[:, 0] if squeeze else o
+
+
+def _stacked(k_pool, v_pool, layer) -> Tuple[torch.Tensor, torch.Tensor,
+                                             int]:
+    """(kp, vp, layer index) with the pools in their stacked
+    [L, P, KV, page, D] form; a 4-D pool lifts to L = 1."""
+    if k_pool.dim() == 4:
+        if layer not in (None, 0):
+            raise ValueError("layer index needs a stacked 5-D pool")
+        return k_pool[None], v_pool[None], 0
+    return k_pool, v_pool, 0 if layer is None else int(layer)
+
+
+def _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
+                            scale: float, layer=None, self_kv=None):
+    """Gather-the-pages ground truth (the JAX
+    ``_paged_decode_reference``): materialize each row's logical cache
+    from the pool ([P, KV, page, D], or the stacked [L, P, KV, page, D]
+    with ``layer``) and run :func:`_decode_reference`.  ``self_kv``
+    (deferred-write decode): the uncommitted chunk's [B, t, KV, D] K/V
+    is written into each row's view at positions [pos, pos + t - 1]
+    (start clamped into the view, as a dynamic slice update clamps),
+    where the pool slots are stale."""
+    kp, vp, li = _stacked(k_pool, v_pool, layer)
+    kp, vp = kp[li], vp[li]                                  # [P,KV,ps,D]
+    b = q.shape[0]
+    kv, ps, d = kp.shape[1], kp.shape[2], kp.shape[3]
+    table = torch.as_tensor(page_table, device=q.device).long()
+    np_ = table.shape[1]
+
+    def gather(pool):        # [B, NP, KV, ps, D] -> [B, KV, NP*ps, D]
+        return pool[table].transpose(1, 2).reshape(b, kv, np_ * ps, d)
+
+    k_view, v_view = gather(kp), gather(vp)
+    if self_kv is not None:
+        t = self_kv[0].shape[1]
+        posv = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+        start = posv.clamp(0, np_ * ps - t)
+        rows = torch.arange(b, device=q.device)[:, None]
+        cols = start[:, None] + torch.arange(t, device=q.device)[None]
+        # Advanced indices around the head slice front the [b, t] dims:
+        # the update is [b, t, KV, D], the chunk's own layout.
+        k_view[rows, :, cols] = self_kv[0].to(k_view.dtype)
+        v_view[rows, :, cols] = self_kv[1].to(v_view.dtype)
+    return _decode_reference(q, k_view, v_view, pos, scale)
+
+
+def flash_decode_paged(q, k_pool, v_pool, page_table,
+                       pos: Union[int, torch.Tensor],
+                       scale: Optional[float] = None, layer=None,
+                       self_kv=None) -> torch.Tensor:
+    """Decode attention over a PAGED KV cache (counterpart of the JAX
+    ``flash_decode_paged``): logical block j of row b lives at
+    ``pool[page_table[b, j]]``.  The ``flash_decode_paged.cu`` kernel on
+    CUDA tensors, :func:`_paged_decode_reference` on CPU tensors.
+
+    ``q``: [B, H, D] or [B, t, H, D]; pools [P, KV, page, D] or the
+    stacked [L, P, KV, page, D] with ``layer`` (read in place — no
+    per-layer slice); ``page_table`` [B, NP] int; ``pos`` int or [B].
+    Without ``self_kv`` the pool already holds the chunk (token tt sees
+    positions <= pos + tt); with ``self_kv`` = ([B, t, KV, D],
+    [B, t, KV, D]) the pool holds positions < pos only and the chunk
+    attends from the self operand, causally within itself.  Returns
+    q's shape."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    kp, vp, li = _stacked(k_pool, v_pool, layer)
+    if q.shape[2] % kp.shape[2] or kp.shape[2] != vp.shape[2]:
+        raise ValueError(f"q heads ({q.shape[2]}) must be a multiple of "
+                         f"pool kv heads ({kp.shape[2]}/{vp.shape[2]})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        out = _paged_decode_reference(q, kp, vp, page_table, pos, scale,
+                                      layer=li, self_kv=self_kv)
+    else:
+        out = _flash_decode_paged_cuda(q, kp, vp, page_table, pos,
+                                       float(scale), li, self_kv)
+    return out[:, 0] if squeeze else out
+
+
+def _flash_decode_paged_cuda(q, kp, vp, page_table, pos, scale: float,
+                             layer: int, self_kv):
+    if kp.dtype == torch.int8:
+        raise NotImplementedError(
+            "flash_decode_paged: int8 pools (the scale fold) are not "
+            "ported to the CUDA kernel yet")
+    _check_cuda_operands("flash_decode_paged", q, kp, vp)
+    b, t, h, d = q.shape
+    n_layers, n_pages, kvh, ps, dp = kp.shape
+    if dp != d or vp.shape != kp.shape:
+        raise ValueError(f"flash_decode_paged: pools {tuple(kp.shape)} / "
+                         f"{tuple(vp.shape)} do not match q {tuple(q.shape)}")
+    if not (kp.is_contiguous() and vp.is_contiguous()):
+        raise ValueError("flash_decode_paged: pools must be contiguous "
+                         "(the kernel reads them in place)")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"flash_decode_paged: layer {layer} out of range "
+                         f"for {n_layers} layers")
+    smem = build.kernel("flash_decode_paged", "tfm_flash_decode_paged_smem",
+                        [_i] * 5, ctypes.c_longlong)(t, h, kvh, d, ps)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"flash_decode_paged: page {ps} x head_dim {d} x "
+                         f"{t * (h // kvh)} query rows needs {smem} bytes "
+                         f"of shared memory (> {_MAX_SMEM})")
+    table = torch.as_tensor(page_table, device=q.device).to(
+        torch.int32).contiguous()
+    if table.dim() != 2 or table.shape[0] != b:
+        raise ValueError(f"flash_decode_paged: page table "
+                         f"{tuple(table.shape)} for {b} rows")
+    posv = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(
+        -1).expand(b).contiguous()
+    q = q.contiguous()
+    ks = vs = None
+    if self_kv is not None:
+        ks, vs = (c.to(q.dtype).contiguous() for c in self_kv)
+        if ks.shape != (b, t, kvh, d) or vs.shape != ks.shape:
+            raise ValueError(f"flash_decode_paged: self_kv "
+                             f"{tuple(ks.shape)} / {tuple(vs.shape)}, want "
+                             f"{(b, t, kvh, d)}")
+        _check_cuda_operands("flash_decode_paged", q, ks, vs)
+    out = torch.empty_like(q)
+    fn = build.kernel("flash_decode_paged", "tfm_flash_decode_paged",
+                      _PAGED_ARGS)
+    with torch.cuda.device(q.device):
+        LAUNCHES["flash_decode_paged"] += 1
+        err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 table.data_ptr(), posv.data_ptr(),
+                 None if ks is None else ks.data_ptr(),
+                 None if vs is None else vs.data_ptr(), out.data_ptr(),
+                 b, t, h, kvh, d, n_pages, ps, table.shape[1], layer,
+                 int(self_kv is not None), scale,
+                 int(q.dtype == torch.bfloat16), _stream(q.device))
+    build.check("flash_decode_paged", err, "flash_decode_paged")
+    return out
