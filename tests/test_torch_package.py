@@ -1,6 +1,7 @@
 """Package-level contracts of the PyTorch port: it imports with JAX
 absent, no module of it (nor chip_smoke.py) imports JAX or the JAX
-package, and its serving entry point runs end to end on the CPU."""
+package, its serving and training entry points run end to end on the
+CPU, and its kernel builds follow their sources."""
 
 import ast
 import json
@@ -55,6 +56,15 @@ def test_no_jax_imports_in_port_or_chip_smoke():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_train_cli_runs_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
+         "--tiny", "--device", "cpu", "--steps", "10"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "step 10: loss=" in out.stdout and "tokens/sec" in out.stdout
+
+
 def test_serve_cli_writes_one_jsonl_row_per_prompt():
     out = subprocess.run(
         [sys.executable, "-m", "tfmesos_tpu_torch.serve", "--tiny",
@@ -73,10 +83,35 @@ def test_kernel_sources_carry_their_note():
     from tfmesos_tpu_torch.kernels import build
 
     srcs = build.sources()
-    assert {p.stem for p in srcs} == {"flash_fwd", "flash_decode_paged"}
+    assert {p.stem for p in srcs} == {"flash_fwd", "flash_decode_paged",
+                                      "flash_bwd"}
     for p in srcs:
         head = p.read_text()[:3000]
         assert "Replaces: tfmesos_tpu/ops/attention.py" in head
         assert "What bounds it on this card" in head
         assert "What this design does about it" in head
-    assert build.build_dir(srcs).parent == build.BUILD_ROOT
+    assert build.build_dir().parent == build.BUILD_ROOT
+
+
+def test_build_dir_follows_every_csrc_file(tmp_path, monkeypatch):
+    """A change to a shared header (not compiled on its own) must move
+    the build directory, as a change to a .cu does; only the .cu files
+    are compiled."""
+    import shutil
+
+    from tfmesos_tpu_torch.kernels import build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(build.SOURCE_DIR, src)
+    monkeypatch.setattr(build, "SOURCE_DIR", src)
+    before = build.build_dir()
+    assert build.build_dir() == before
+    header = src / "mma_bf16.cuh"
+    assert header.is_file()
+    header.write_text(header.read_text() + "\n// touched\n")
+    after_header = build.build_dir()
+    assert after_header != before
+    cu = src / "flash_bwd.cu"
+    cu.write_text(cu.read_text() + "\n")
+    assert build.build_dir() not in (before, after_header)
+    assert all(p.suffix == ".cu" for p in build.sources())

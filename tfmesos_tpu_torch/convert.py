@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the JAX package's ``init_params`` tree after
 ``jax.tree_util.tree_map(np.asarray, ...)`` (this module imports no
 JAX: the caller does the ``np.asarray``) and returns the same nested
-dict of torch tensors.  ``save_npz``/``load_npz`` store a params dict
+dict of torch tensors; ``params_to_numpy`` is the way back (float32
+master leaves stay float32, so updated weights can be handed to the JAX
+package).  ``save_npz``/``load_npz`` store a params dict
 as one ``.npz`` of ``/``-joined paths (``layers/wq``), so one set of
 weights can be handed to several replicas.
 """
@@ -37,6 +39,16 @@ def params_from_jax(tree: Mapping[str, Any],
     ``device``, dtypes kept (float32 masters stay float32)."""
     return {k: (params_from_jax(v, device) if isinstance(v, Mapping)
                 else _leaf_to_torch(v, device)) for k, v in tree.items()}
+
+
+def params_to_numpy(params: Params) -> Dict[str, Any]:
+    """Nested dict of torch tensors -> the same dict of numpy arrays on
+    the host (a bf16 leaf comes back as float32, which holds its values
+    exactly)."""
+    return {k: (params_to_numpy(v) if isinstance(v, Mapping) else
+                v.detach().cpu().float().numpy()
+                if v.dtype == torch.bfloat16 else v.detach().cpu().numpy())
+            for k, v in params.items()}
 
 
 def flatten(params: Params, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -41,12 +41,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using tfm::bf16;
+using tfm::mma_bf16_smem;
+using tfm::pack_a;
 
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int THREADS = 128;  // 4 warps
-
-typedef __nv_bfloat16 bf16;
 
 struct Geometry {
   int Tq, Tk, H, G;
@@ -74,21 +78,6 @@ __device__ __forceinline__ bool masked(const Geometry& g, int qrow, int kp) {
 }
 
 // ---------------------------------------------------------------- bf16 ---
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -160,9 +149,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int t = 0; t < KS; ++t) {
-        const bf16* kr = &ks[n * 8 + gr][t * 16 + tg * 2];
-        mma_bf16(s[n], qa[t], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+        mma_bf16_smem(s[n], qa[t], &ks[n * 8 + gr][t * 16 + tg * 2]);
       }
     }
     // Scale, mask, and the tile's row maxima (rows lo: c0/c1, hi: c2/c3).
@@ -210,16 +197,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < BK / 16; ++t) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      pa[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      pa[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      pa[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+      pack_a(pa, s[2 * t], s[2 * t + 1]);
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vr = &vt[n * 8 + gr][t * 16 + tg * 2];
-        mma_bf16(acc[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
+      for (int n = 0; n < NO; ++n)
+        mma_bf16_smem(acc[n], pa, &vt[n * 8 + gr][t * 16 + tg * 2]);
     }
   }
 
@@ -239,7 +220,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + tg * 2) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+          tfm::pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if (tg == 0)
       lse[((long long)b * g.H + h) * g.Tq + row] =
           empty ? -INFINITY : m[r] + logf(l[r]);

@@ -5,9 +5,9 @@ Every ``tfmesos_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds,
 not minutes.  All sources compile in parallel (one ``nvcc`` process
 each, started together).  Output goes under ``build/tfmesos_tpu_torch/``
-at the root of the checkout, in a directory named by a hash of the
-sources and flags, so an unchanged tree reuses its build and a changed
-one rebuilds.
+at the root of the checkout, in a directory named by a hash of every
+file under ``csrc/`` (the shared ``*.cuh`` headers too) and the flags,
+so an unchanged tree reuses its build and any change rebuilds.
 
 Nothing here runs at import: the first kernel launch builds.  Each C
 entry point returns ``cudaGetLastError()`` after its launch; callers
@@ -22,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -36,8 +36,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> List[Path]:
-    """Every kernel source of the package, sorted by name."""
+    """Every kernel source of the package (one library each), sorted by
+    name."""
     return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def _hashed_files() -> List[Path]:
+    """Every file under ``csrc/`` — the sources and the headers they
+    include — sorted by path."""
+    return sorted(p for p in SOURCE_DIR.rglob("*") if p.is_file())
 
 
 def _nvcc() -> str:
@@ -53,11 +60,11 @@ def _nvcc() -> str:
     return found
 
 
-def build_dir(srcs: Optional[Sequence[Path]] = None) -> Path:
-    """The build directory for the current sources and flags."""
+def build_dir() -> Path:
+    """The build directory for the current ``csrc/`` files and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs if srcs is not None else sources():
-        h.update(p.name.encode())
+    for p in _hashed_files():
+        h.update(p.relative_to(SOURCE_DIR).as_posix().encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
@@ -71,7 +78,7 @@ def build(clean: bool = False) -> Dict[str, Path]:
     if clean and BUILD_ROOT.exists():
         shutil.rmtree(BUILD_ROOT)
     srcs = sources()
-    out_dir = build_dir(srcs)
+    out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {p.stem: out_dir / f"lib{p.stem}.so" for p in srcs}
     todo = [p for p in srcs if not libs[p.stem].is_file()]

@@ -1,6 +1,7 @@
 """Flagship decoder-only transformer, single device (port of
 ``tfmesos_tpu/models/transformer.py``: config and params ``:42-209``,
-the trunk ``:251-262, 581-743``, paged decode ``:791-980, 1304-1560``).
+the trunk ``:251-262, 581-743``, paged decode ``:791-980, 1304-1560``,
+the training loss ``:2103-2176``).
 
 Same parameter dict as the JAX package — stacked per-layer leaves
 ``layers/<name>`` of shape [L, ...] — with the same shapes and init
@@ -11,7 +12,8 @@ cast to the compute dtype at use.
 
 Attention goes through ``ops/attention.py``: the prompt prefill and
 ``forward`` through ``flash_attention`` (the ``flash_fwd.cu`` kernel on
-the card), every paged decode step through ``flash_decode_paged`` (the
+the card, and under autograd the ``flash_bwd.cu`` kernels for its
+gradient), every paged decode step through ``flash_decode_paged`` (the
 ``flash_decode_paged.cu`` kernel) — on the card every call launches
 its kernel, whatever the context length or chunk size.
 """
@@ -27,7 +29,9 @@ import torch
 
 from tfmesos_tpu_torch.ops.attention import (flash_attention,
                                              flash_decode_paged)
-from tfmesos_tpu_torch.ops.layers import rms_norm, rope, swiglu
+from tfmesos_tpu_torch.ops.layers import (cross_entropy_loss,
+                                          fused_linear_cross_entropy,
+                                          rms_norm, rope, swiglu)
 
 Params = Dict[str, Any]
 
@@ -37,7 +41,10 @@ class TransformerConfig:
     """Dense decoder-only transformer configuration (the JAX
     ``TransformerConfig``'s dense fields).  ``n_kv_heads < n_heads`` is
     grouped-query attention; ``window`` a sliding attention window
-    (``forward`` only — paged caches refuse it, as in JAX)."""
+    (``forward`` only — paged caches refuse it, as in JAX).  Training:
+    ``fused_ce`` (None = auto, which is the fused head + cross entropy
+    on one device; False = materialize the logits), ``ce_chunk`` tokens
+    per fused chunk, ``z_loss`` the LM-head z-loss weight."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -50,7 +57,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16         # compute dtype
     param_dtype: torch.dtype = torch.float32    # master params
+    remat: bool = False
     n_experts: int = 0
+    fused_ce: Optional[bool] = None
+    ce_chunk: int = 2048
+    z_loss: float = 0.0
 
     def __post_init__(self):
         if self.window is not None and self.window < 1:
@@ -59,6 +70,10 @@ class TransformerConfig:
         if self.n_experts > 0:
             raise NotImplementedError(
                 "MoE configs (n_experts > 0) are not ported yet")
+        if self.remat:
+            raise NotImplementedError(
+                "remat (recomputing each block in the backward) is not "
+                "ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -178,6 +193,34 @@ def forward(cfg: TransformerConfig, params: Params,
     """tokens [B, T] -> logits [B, T, V] in the compute dtype."""
     return _qmm(forward_hidden(cfg, params, tokens), params["head"],
                 cfg.dtype)
+
+
+def _fused_ce_mode(cfg: TransformerConfig) -> Optional[str]:
+    """Which head + cross-entropy path :func:`loss_fn` takes on one
+    device: ``"dense"`` (the fused, chunked form) unless
+    ``cfg.fused_ce`` is False, then None (materialize the logits)."""
+    return None if cfg.fused_ce is False else "dense"
+
+
+def loss_fn(cfg: TransformerConfig, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token prediction: ``batch = {"tokens": [B, T+1]}`` ->
+    ``(loss, {"perplexity"})``, loss the float32 mean cross entropy of
+    positions 1..T given 0..T-1."""
+    tokens = batch["tokens"]
+    labels = tokens[:, 1:].long()
+    if _fused_ce_mode(cfg) == "dense":
+        x = forward_hidden(cfg, params, tokens[:, :-1])
+        # The master-dtype head: the op computes in x's dtype and
+        # accumulates dw in float32 at the param dtype.
+        loss = fused_linear_cross_entropy(x, params["head"], labels,
+                                          z_loss=cfg.z_loss,
+                                          chunk=cfg.ce_chunk)
+    else:
+        loss = cross_entropy_loss(forward(cfg, params, tokens[:, :-1]),
+                                  labels, z_loss=cfg.z_loss)
+    return loss, {"perplexity": torch.exp(loss)}
 
 
 def entry(device: Union[str, torch.device, None] = None

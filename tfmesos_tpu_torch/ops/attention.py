@@ -1,7 +1,7 @@
-"""Attention ops: plain PyTorch references and the wrappers of the two
-hand-written Hopper kernels on the serving path (port of
-``tfmesos_tpu/ops/attention.py``, prefill half ``:69-243, 480-531`` and
-decode half ``:534-593, 831-1152``).
+"""Attention ops: plain PyTorch references and the wrappers of the
+hand-written Hopper kernels on the serving and training paths (port of
+``tfmesos_tpu/ops/attention.py``: prefill and its gradient
+``:69-531``, decode ``:534-593, 831-1152``).
 
 Every wrapper follows one rule: a CPU tensor runs the plain PyTorch
 version of the kernel (same function, same signature); a CUDA tensor
@@ -14,6 +14,10 @@ Kernels (``tfmesos_tpu_torch/csrc``):
 
 * ``flash_fwd.cu`` replaces ``_flash_kernel`` (blocked online-softmax
   forward: causal/full, sliding window, q_offset, GQA, per-row lse);
+* ``flash_bwd.cu`` replaces ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel`` (the gradient from the stored lse; dk/dv
+  summed over each GQA group), the backward of :func:`flash_attention`'s
+  autograd Function;
 * ``flash_decode_paged.cu`` replaces ``_flash_decode_paged_kernel``
   (decode through a per-row page table, ragged positions, t-row chunks,
   deferred ``self_kv`` with intra-chunk causality).
@@ -33,9 +37,10 @@ NEG_INF = float("-inf")
 
 #: Kernel launch counts: each wrapper adds one where it launches its
 #: kernel and nowhere else (the plain CPU path never counts).  A run
-#: that zeroes these before serving and reads them after proves that
-#: the serving path went through the kernels.
-LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0}
+#: that zeroes these before serving or training and reads them after
+#: proves that the path went through the kernels.
+LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: head_dim the flash_fwd kernel takes, per dtype (bf16 runs on the
@@ -51,6 +56,11 @@ _FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                    _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _p]
 _PAGED_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
                _i, _i, _i, _f, _i, _p]
+# Backward entries: operand and output pointers, then B, Tq, Tk, H, KV,
+# D, causal, window, q_offset, scale, is_bf16, out_f32, stream.
+_BWD_TAIL = [_i] * 9 + [_f, _i, _i, _p]
+_BWD_DQ_ARGS = [_p] * 7 + _BWD_TAIL
+_BWD_DKV_ARGS = [_p] * 8 + _BWD_TAIL
 
 
 def _check_gqa_heads(q, k, v):
@@ -140,6 +150,42 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     return o, lse
 
 
+def _flash_forward_impl(q, k, v, causal: bool, scale: float,
+                        window: Optional[int], q_offset: int):
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, scale=scale,
+                                         window=window, q_offset=q_offset)
+    return _flash_forward_cuda(q, k, v, causal, scale, window, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable blocked attention (counterpart of the JAX
+    ``custom_vjp`` ``_flash``): the forward is the ``flash_fwd`` kernel
+    (its plain version on CPU tensors) and saves (q, k, v, o, lse); the
+    backward is :func:`flash_backward` — Δ in one PyTorch pass, then
+    the two ``flash_bwd`` kernels (their plain versions on CPU tensors).
+    ``lse`` is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, q_offset):
+        o, lse = _flash_forward_impl(q, k, v, causal, scale, window,
+                                     q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, scale, window, q_offset)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, window, q_offset = ctx.cfg
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, causal=causal,
+                                    scale=scale, window=window,
+                                    q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_forward(q, k, v, causal: bool = False,
                   scale: Optional[float] = None,
                   window: Optional[int] = None, q_offset: int = 0
@@ -147,16 +193,18 @@ def flash_forward(q, k, v, causal: bool = False,
     """``(o, lse)`` of blocked attention (counterpart of
     ``_flash_forward``): the ``flash_fwd.cu`` kernel on CUDA tensors,
     :func:`flash_attention_reference` on CPU tensors.  Any sequence
-    length runs — the kernel masks the ragged edge itself."""
+    length runs — the kernel masks the ragged edge itself.  When autograd
+    records (grad enabled and q, k or v requires grad) the call goes
+    through :class:`_FlashAttention`, so ``o`` carries the gradient of
+    the backward kernels."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     _check_window(causal, window)
     _check_gqa_heads(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, scale=scale,
-                                         window=window, q_offset=q_offset)
-    return _flash_forward_cuda(q, k, v, bool(causal), float(scale), window,
-                               int(q_offset))
+    args = (q, k, v, bool(causal), float(scale), window, int(q_offset))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(*args)
+    return _flash_forward_impl(*args)
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -164,10 +212,146 @@ def flash_attention(q, k, v, causal: bool = False,
                     window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """Blocked attention output [B, Tq, H, D] (the model's entry point;
-    see :func:`flash_forward` for the kernel-or-plain rule).  GQA: ``k``
-    and ``v`` may carry H // g heads; q head h reads kv head h // g."""
+    see :func:`flash_forward` for the kernel-or-plain rule and the
+    gradient).  GQA: ``k`` and ``v`` may carry H // g heads; q head h
+    reads kv head h // g."""
     return flash_forward(q, k, v, causal=causal, scale=scale, window=window,
                          q_offset=q_offset)[0]
+
+
+# -- backward ----------------------------------------------------------------
+
+
+def _bwd_delta(o, do) -> torch.Tensor:
+    """Δ = rowsum(do ⊙ o) in float32, [B, H, Tq, 1]: one elementwise and
+    reduce pass, as the JAX package leaves it to XLA."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal: bool, scale: float,
+               window: Optional[int], q_offset: int):
+    """Shared body of the plain backward: ``(p, ds, qf, kf, dof)`` with
+    p = exp(s·scale − lse) [B, H, Tq, Tk] float32 (masked by a select —
+    a row that sees no key has lse −inf, where exp(s − lse) is +inf),
+    ds = p ⊙ (do·vᵀ − Δ) rounded through the operand dtype, and the
+    operands as float32 [B, H, T, D] with K/V broadcast to the q
+    heads."""
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    lse = lse.reshape(*lse.shape[:3], 1)
+    delta = delta.reshape(*delta.shape[:3], 1)
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse)
+    if causal:
+        p = p.masked_fill(_causal_mask(p.shape[-2], p.shape[-1], q_offset,
+                                       window, q.device), 0.0)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    return p, ds, qf, kf, dof
+
+
+def _flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
+                            scale: float, window: Optional[int] = None,
+                            q_offset: int = 0, out_dtype=None):
+    """Plain version of ``_flash_bwd_dq_kernel``: dq = scale·ds·k
+    [B, Tq, H, D] in ``out_dtype`` (default q's dtype)."""
+    _, ds, _, kf, _ = _bwd_probs(q, k, v, do, lse, delta, causal, scale,
+                                 window, q_offset)
+    return (scale * (ds @ kf)).transpose(1, 2).to(out_dtype or q.dtype)
+
+
+def _flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool,
+                             scale: float, window: Optional[int] = None,
+                             q_offset: int = 0, out_dtype=None):
+    """Plain version of ``_flash_bwd_dkv_kernel``: (dk, dv)
+    [B, Tk, KV, D] in ``out_dtype`` (default k's dtype), dk = scale·dsᵀ·q
+    and dv = pᵀ·do with p rounded to do's dtype, each summed over the q
+    heads of its GQA group."""
+    p, ds, qf, _, dof = _bwd_probs(q, k, v, do, lse, delta, causal, scale,
+                                   window, q_offset)
+    b, tk, kvh, d = k.shape
+    g = q.shape[2] // kvh
+    dk = scale * (ds.transpose(-1, -2) @ qf)                 # [B, H, Tk, D]
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
+
+    def group(x):
+        return x.reshape(b, kvh, g, tk, d).sum(2).transpose(1, 2).to(
+            out_dtype or k.dtype)
+
+    return group(dk), group(dv)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                                  scale: Optional[float] = None,
+                                  window: Optional[int] = None,
+                                  q_offset: int = 0, out_dtype=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version of ``_mha_bwd_pallas``: ``(dq, dk, dv)`` of
+    blocked attention from the forward's ``o`` and ``lse`` and the
+    output gradient ``do``, written with the explicit formulas (Δ =
+    rowsum(do⊙o), p from the stored lse, dp = do·vᵀ, ds = p⊙(dp − Δ)
+    cast to the operand dtype, dq = scale·ds·k, dk = scale·dsᵀ·q,
+    dv = pᵀ·do with p cast to do's dtype; dk/dv summed over the GQA
+    group) — not through autograd.  Products are float32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_window(causal, window)
+    _check_gqa_heads(q, k, v)
+    delta = _bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, bool(causal), float(scale), window,
+            int(q_offset), out_dtype)
+    return (_flash_bwd_dq_reference(*args),) + _flash_bwd_dkv_reference(
+        *args)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                 window: Optional[int] = None, q_offset: int = 0,
+                 out_dtype=None) -> torch.Tensor:
+    """dq from the stored ``lse`` and Δ (``delta``, [B, H, Tq(, 1)]
+    float32): the ``flash_bwd.cu`` dq kernel on CUDA tensors,
+    :func:`_flash_bwd_dq_reference` on CPU tensors."""
+    if q.device.type == "cpu":
+        return _flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                       scale, window, q_offset, out_dtype)
+    return _flash_bwd_cuda("flash_bwd_dq", q, k, v, do, lse, delta, causal,
+                           scale, window, q_offset, out_dtype)[0]
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  window: Optional[int] = None, q_offset: int = 0,
+                  out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each summed over its GQA group: the ``flash_bwd.cu``
+    dk/dv kernel on CUDA tensors, :func:`_flash_bwd_dkv_reference` on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return _flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                        scale, window, q_offset, out_dtype)
+    return _flash_bwd_cuda("flash_bwd_dkv", q, k, v, do, lse, delta, causal,
+                           scale, window, q_offset, out_dtype)
+
+
+def flash_backward(q, k, v, o, lse, do, causal: bool = False,
+                   scale: Optional[float] = None,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """``(dq, dk, dv)`` of blocked attention (counterpart of
+    ``_mha_bwd_pallas``): Δ = rowsum(do⊙o) in one PyTorch pass, then
+    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` — the two kernels on
+    CUDA tensors, their plain versions on CPU tensors.  ``out_dtype``
+    (default: the operands' dtype; float32 is the other choice on the
+    card) sets the gradients' dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_window(causal, window)
+    _check_gqa_heads(q, k, v)
+    delta = _bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, bool(causal), float(scale), window,
+            int(q_offset), out_dtype)
+    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
 
 
 def _check_cuda_operands(what: str, *tensors) -> None:
@@ -223,6 +407,55 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
                  _stream(q.device))
     build.check("flash_fwd", err, "flash_forward")
     return o, lse[..., None]
+
+
+def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta, causal: bool,
+                    scale: float, window: Optional[int], q_offset: int,
+                    out_dtype) -> Tuple[torch.Tensor, ...]:
+    """Launch one of the two ``flash_bwd.cu`` kernels (``which`` is its
+    LAUNCHES key): ``(dq,)`` or ``(dk, dv)``."""
+    _check_cuda_operands(which, q, k, v, do)
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    if d not in _FLASH_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{which}: the CUDA kernel takes {q.dtype} "
+                         f"head_dim in {_FLASH_HEAD_DIMS[q.dtype]}, got {d}")
+    if (do.shape != q.shape or v.shape != k.shape or k.shape[0] != b
+            or k.shape[3] != d or tq == 0 or tk == 0):
+        raise ValueError(f"{which}: q {tuple(q.shape)}, do "
+                         f"{tuple(do.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not fit together")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"{which}: {name} must be float32 on "
+                            f"{q.device}, got {t.dtype} on {t.device}")
+        if t.numel() != b * h * tq or tuple(t.shape[:3]) != (b, h, tq):
+            raise ValueError(f"{which}: {name} {tuple(t.shape)}, want "
+                             f"{(b, h, tq, 1)}")
+    out = q.dtype if out_dtype is None else out_dtype
+    if out not in (q.dtype, torch.float32):
+        raise TypeError(f"{which}: gradients in {q.dtype} or float32, "
+                        f"got {out}")
+    # The kernels index contiguous [B, T, heads, D] operands.
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse, delta = (t.reshape(b, h, tq).contiguous() for t in (lse, delta))
+    common = (b, tq, tk, h, kvh, d, int(causal),
+              0 if window is None else int(window), q_offset, scale,
+              int(q.dtype == torch.bfloat16), int(out == torch.float32),
+              _stream(q.device))
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    if which == "flash_bwd_dq":
+        outs = (torch.empty((b, tq, h, d), dtype=out, device=q.device),)
+        fn = build.kernel("flash_bwd", "tfm_flash_bwd_dq", _BWD_DQ_ARGS)
+    else:
+        outs = tuple(torch.empty((b, tk, kvh, d), dtype=out,
+                                 device=q.device) for _ in range(2))
+        fn = build.kernel("flash_bwd", "tfm_flash_bwd_dkv", _BWD_DKV_ARGS)
+    with torch.cuda.device(q.device):
+        LAUNCHES[which] += 1
+        err = fn(*ptrs, *(t.data_ptr() for t in outs), *common)
+    build.check("flash_bwd", err, which)
+    return outs
 
 
 # -- decode ----------------------------------------------------------------
