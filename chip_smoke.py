@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on an
-NVIDIA card.
+"""Drive the PyTorch port's serving, training and generation paths once
+on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,15 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    accumulation in a different order), and times kernel, plain version
    and one PyTorch library call as a yardstick (CUDA-event medians),
    beside the bound; then, for correctness only, GQA in bf16 and the
-   float32 kernels at the tiny preset's head_dim 8 (atol 1e-4);
+   float32 kernels at the tiny preset's head_dim 8 (atol 1e-4); then
+   the linear-cache decode kernel (bf16 [4, KV 8, M 16384, 64] at pos
+   1024, int8 [8, M 384] at pos 300; checks of a ragged 16-token GQA
+   int8 chunk and float32 at head_dim 8: atol 2e-2 bf16, 1e-4 float32),
+   the paged kernel's int8 fold at the serving shape (t=1 and t=4 with
+   self_kv, atol 2e-2), and the int8 quantize kernel at every flagship
+   weight leaf's shape and a cache write's (round-to-nearest and seeded
+   stochastic rounding BIT-exact to the plain versions, the dither
+   unbiased);
 4. does the same for the two backward kernels (dq, dk/dv) at the
    training shape [8, 2048, 8, 64] and at [1, 512, 8, 64], causal bf16,
    against the plain backward from the same bf16 inputs (tolerance
@@ -43,7 +51,25 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
 9. runs one ``loss_fn`` + backward at full width on the card (bf16) and
    on the CPU (float32) from the same float32 master weights and batch
    at [1, 1024]: |dloss| <= 2e-2 and every leaf's gradient at cosine
-   >= 0.99 to the CPU's.
+   >= 0.99 to the CPU's;
+10. generates with the full int8 configuration (flagship weights seeded
+    0 through ``quantize_params`` on the card, an int8 KV cache; batch 8,
+    prompt 128, 256 new tokens, greedy): exactly 9 + 2 x 8 x 256
+    quant_int8, 8 flash_fwd and 8 x 255 flash_decode launches, and the
+    tokens teacher-forced against a float32 CPU run with the same int8
+    weights over an int8 cache (the phase-6 margin rule); prints decode
+    tokens/s without the prefill, ms per step and a profile of 16 steps;
+11. generates in bf16 at long context (batch 4 over a 16384-slot cache,
+    prompt 1024, 64 new tokens): exactly 8 flash_fwd and 8 x 63
+    flash_decode launches, the tokens teacher-forced against the card's
+    own ``forward``; tokens/s, ms per step and a profile of 16 steps;
+12. serves phase 5's 16 requests with int8 weights over an int8 page
+    pool: 8 flash_decode_paged launches per tick, 8 flash_fwd per
+    prefill, 2 quant_int8 per prefill and 18 per tick, and two requests
+    teacher-forced as in phase 10.
+
+Every path phase zeroes all launch counts (``attention.LAUNCHES`` and
+``quant.LAUNCHES``) just before it runs and reads them just after.
 
 It prints a ``kernels`` JSON line, the card's name and power limit,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -67,10 +93,17 @@ ROOT = Path(__file__).resolve().parent
 # Published peaks of one H100 SXM (dense, full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12          # outside the tensor cores
 
 FLASH_O_ATOL = 2e-2
 FLASH_LSE_ATOL = 1e-3
 PAGED_ATOL = 2e-2
+# Linear-cache decode kernel vs its plain version: bf16 operands and
+# float32 accumulation in another order (the kernel rounds p to bf16
+# before P.V, the plain version after normalizing); float32 differs in
+# summation order and where an int8 scale multiplies.
+DECODE_ATOL = 2e-2
+DECODE_F32_ATOL = 1e-4
 # Teacher-forced check: a generated position counts when the float32
 # CPU logits' top-1 beats top-2 by more than this.  bf16 compute on the
 # card rounds activations at ~2^-8 relative through 8 layers; the card's
@@ -127,10 +160,28 @@ def cuda_ms(torch, fn, reps: int = 5, n: int = 20) -> float:
     return statistics.median(out)
 
 
-def bound(bytes_: float, flops: float):
+def bound(bytes_: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0."""
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    for counts in (ta.LAUNCHES, tq.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches():
+    """Every kernel's launch count since the last :func:`zero_launches`."""
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    return {**ta.LAUNCHES, **tq.LAUNCHES}
 
 
 def phase_device(torch):
@@ -139,7 +190,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/9] device")
+    say("[1/12] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -153,7 +204,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/9] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/12] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -167,7 +218,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/9] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/12] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -323,7 +374,7 @@ def check_other_paths(torch, ta, gen):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/9] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/12] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -409,10 +460,9 @@ def phase_backward(torch):
 
 def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
-    from tfmesos_tpu_torch.ops import attention as ta
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/9] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/12] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -422,15 +472,14 @@ def phase_serve(torch, np):
     rng = np.random.RandomState(0)
     lens = rng.randint(8, 701, size=16)
     reqs = [Request(rng.randint(0, cfg.vocab_size, n), 32) for n in lens]
-    for key in ta.LAUNCHES:
-        ta.LAUNCHES[key] = 0
     batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
     batcher.decode_seconds = 0.0
+    zero_launches()
     t0 = time.perf_counter()
     comps = list(batcher.run(reqs))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ta.LAUNCHES)
+    launches = read_launches()
     need(len(comps) == 16, f"{len(comps)} of 16 requests completed")
     need(all(len(c.tokens) == 32 for c in comps),
          "a request finished with other than 32 tokens")
@@ -443,6 +492,9 @@ def phase_serve(torch, np):
     need(launches["flash_decode_paged"] == L * batcher.decode_ticks,
          f"flash_decode_paged launches {launches['flash_decode_paged']} "
          f"!= {L} x {batcher.decode_ticks} decode ticks")
+    need(launches["flash_decode"] == launches["quant_int8"] == 0,
+         f"bf16 serving launched the linear decode or quant kernel: "
+         f"{launches}")
     ttft = sorted(c.ttft_s * 1e3 for c in comps)
     stats = {"requests": len(comps), "wall_s": wall,
              "prefills": batcher.prefills,
@@ -505,7 +557,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/9] teacher-forced check vs float32 CPU forward "
+    say(f"[6/12] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -556,28 +608,26 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/9] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/12] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
 
 def phase_train(torch):
     from tfmesos_tpu_torch import transformer_train as tr
-    from tfmesos_tpu_torch.ops import attention as ta
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/9] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/12] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
     # Two warm-up steps (cuBLAS handles, the allocator's pools) outside
     # the measured run; their losses still count for the loss check.
     warm = tr.train(run, 2, log=None)
-    for key in ta.LAUNCHES:
-        ta.LAUNCHES[key] = 0
+    zero_launches()
     out = tr.train(run, TRAIN_STEPS, log=lambda line: say("  " + line))
-    launches = dict(ta.LAUNCHES)
+    launches = read_launches()
     losses = warm["losses"] + out["losses"]
     need(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     need(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -585,7 +635,8 @@ def phase_train(torch):
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         need(launches[key] == L * TRAIN_STEPS,
              f"{key} launches {launches[key]} != {L} x {TRAIN_STEPS} steps")
-    need(launches["flash_decode_paged"] == 0, "decode kernel in training")
+    for key in ("flash_decode_paged", "flash_decode", "quant_int8"):
+        need(launches[key] == 0, f"{key} launched in training")
     # The host cost of the input stream, alone: its Python loop over T.
     stream = token_batches(args.batch_size, run.seq_len, run.cfg.vocab_size,
                            seed=tr.DATA_SEED + 1)
@@ -635,7 +686,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/9] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/12] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -670,6 +721,443 @@ def phase_train_vs_cpu(torch, cfg):
     return out
 
 
+def _lane_int8(tq, cache):
+    """An int8 QTensor of a [..., M, D] cache, scales lane-major."""
+    vals, scales = tq.quantize_int8_reference(cache)
+    return tq.QTensor(vals, scales.squeeze(-1).unsqueeze(-2).contiguous())
+
+
+def phase_decode_kernels(torch):
+    """Phase 3, continued: the linear-cache decode kernel, the paged
+    kernel's int8 fold and the int8 quantize kernel, each against its
+    plain version on the card (inputs from generators of their own, so
+    the earlier cases keep their inputs)."""
+    import torch.nn.functional as F
+
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    decode_rows = []
+
+    def decode_case(b, t, h, kv, m, d, pos, dtype, int8, time_it):
+        layer = 1
+        q = randn((b, t, h, d), dtype)
+        kc, vc = randn((2, b, kv, m, d), dtype), randn((2, b, kv, m, d), dtype)
+        if int8:
+            kc, vc = _lane_int8(tq, kc), _lane_int8(tq, vc)
+        posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+        out = ta.flash_decode(q, kc, vc, posv, layer=layer)
+        ref = ta.flash_decode_reference(q, kc, vc, posv, layer=layer)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = DECODE_ATOL if dtype == torch.bfloat16 else DECODE_F32_ATOL
+        shape = {"b": b, "t": t, "h": h, "kv": kv, "m": m, "d": d,
+                 "pos": pos, "dtype": str(dtype).split(".")[-1],
+                 "int8": int8}
+        need(bool(torch.isfinite(out).all()) and err <= tol,
+             f"flash_decode {shape}: err {err} > {tol}")
+        row = {"shape": shape, "max_abs_err": err, "tol": tol}
+        if time_it:
+            row["ms"] = cuda_ms(torch, lambda: ta.flash_decode(
+                q, kc, vc, posv, layer=layer))
+            row["plain_ms"] = cuda_ms(torch, lambda: ta.flash_decode_reference(
+                q, kc, vc, posv, layer=layer))
+            # Yardstick: SDPA over the live prefix of the layer's cache
+            # (MHA, t = 1, every row at the same position; an int8 cache
+            # dequantized first, outside the timing).
+            if int8:
+                kl, vl = (ta._dequant_lane_major(tq.QTensor(
+                    c.values[layer], c.scales[layer]), dtype)
+                    for c in (kc, vc))
+            else:
+                kl, vl = kc[layer], vc[layer]
+            kl, vl = kl[:, :, :pos[0] + 1], vl[:, :, :pos[0] + 1]
+            qh = q.transpose(1, 2)
+            row["library_ms"] = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(qh, kl, vl))
+            live = sum(p + t for p in pos)       # positions read per head
+            item = 1 if int8 else torch.finfo(dtype).bits // 8
+            qbytes = b * t * h * d * torch.finfo(dtype).bits // 8
+            bytes_ = (2 * live * kv * d * item + (8 * live * kv if int8
+                                                   else 0)
+                      + 2 * qbytes + 4 * b)
+            keys = sum(p + tt + 1 for p in pos for tt in range(t))
+            row["bound_ms"], row["bound_by"] = bound(bytes_,
+                                                     4 * keys * h * d)
+            say(f"  flash_decode {shape}: kernel_ms {row['ms']:.4f} "
+                f"plain_ms {row['plain_ms']:.4f} library_ms "
+                f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+                f"({row['bound_by']}) err {err:.2e}")
+        else:
+            say(f"  flash_decode check {shape}: err {err:.2e} (tol {tol})")
+        decode_rows.append(row)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    decode_case(4, 1, 8, 8, 16384, 64, [1024] * 4, bf16, False, True)
+    decode_case(8, 1, 8, 8, 384, 64, [300] * 8, bf16, True, True)
+    decode_case(3, 16, 8, 2, 512, 64, [7, 200, 400], bf16, True, False)
+    decode_case(4, 1, 8, 2, 1024, 64, [0, 5, 511, 1000], bf16, False, False)
+    decode_case(2, 4, 4, 2, 300, 8, [0, 250], f32, False, False)
+    decode_case(2, 40, 4, 1, 300, 8, [3, 250], f32, True, False)
+
+    # The paged kernel's int8 fold at the serving shape.
+    n_layers, rows, kv, ps, np_, h, d, layer = 8, 8, 8, 64, 16, 8, 64, 3
+    n_pages = rows * np_ + 1
+    kpool = _lane_int8(tq, randn((n_layers, n_pages, kv, ps, d)))
+    vpool = _lane_int8(tq, randn((n_layers, n_pages, kv, ps, d)))
+    perm = torch.randperm(n_pages - 1, generator=gen) + 1    # 0 = sink
+    table = perm[:rows * np_].reshape(rows, np_).to(dev, torch.int32)
+    scale = 1.0 / math.sqrt(d)
+    paged_rows = []
+    for t in (1, 4):
+        pos = torch.randint(1, 1001, (rows,), generator=gen)
+        pos = pos.clamp(max=np_ * ps - t).to(dev, torch.int32)
+        q = randn((rows, t, h, d))
+        # As decode_step hands it over: the chunk quantize-dequantized.
+        self_kv = tuple(tq.QTensor(*tq.quantize_int8_reference(
+            randn((rows, t, kv, d)))).dequantize(torch.bfloat16)
+            for _ in range(2))
+        out_k = ta.flash_decode_paged(q, kpool, vpool, table, pos,
+                                      layer=layer, self_kv=self_kv)
+        out_p = ta._paged_decode_reference(q, kpool, vpool, table, pos,
+                                           scale, layer=layer,
+                                           self_kv=self_kv)
+        torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        need(err <= PAGED_ATOL, f"flash_decode_paged int8 t={t}: err {err}")
+        ms = cuda_ms(torch, lambda: ta.flash_decode_paged(
+            q, kpool, vpool, table, pos, layer=layer, self_kv=self_kv))
+        plain = cuda_ms(torch, lambda: ta._paged_decode_reference(
+            q, kpool, vpool, table, pos, scale, layer=layer,
+            self_kv=self_kv))
+        # Yardstick: SDPA over the gathered, dequantized view with the
+        # chunk written at its positions (built outside the timing).
+        tl = table.long()
+        m = np_ * ps
+        kview, vview = (ta._dequant_lane_major(tq.QTensor(
+            p_.values[layer], p_.scales[layer]), torch.bfloat16)[tl]
+            .transpose(1, 2).reshape(rows, kv, m, d)
+            for p_ in (kpool, vpool))
+        ridx = torch.arange(rows, device=dev)[:, None]
+        cols = pos.long()[:, None] + torch.arange(t, device=dev)[None]
+        kview[ridx, :, cols] = self_kv[0]
+        vview[ridx, :, cols] = self_kv[1]
+        allow = (torch.arange(m, device=dev)[None, None, :]
+                 <= cols[:, :, None])[:, None]
+        qh = q.transpose(1, 2).contiguous()
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kview, vview, attn_mask=allow))
+        live = int(pos.sum())
+        keys = int((pos.long()[:, None] + torch.arange(
+            1, t + 1, device=dev)[None]).sum())
+        bytes_ = (2 * live * kv * d + 8 * live * kv
+                  + 2 * rows * t * kv * d * 2 + 2 * rows * t * h * d * 2
+                  + rows * np_ * 4 + rows * 4)
+        bms, by = bound(bytes_, 4 * keys * h * d)
+        row = {"shape": {"layers": n_layers, "rows": rows, "t": t, "kv": kv,
+                         "page": ps, "d": d, "np": np_, "int8": True},
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": bms, "bound_by": by,
+               "pos": [int(x) for x in pos.tolist()]}
+        paged_rows.append(row)
+        say(f"  flash_decode_paged int8 t={t}: kernel_ms {ms:.4f} plain_ms "
+            f"{plain:.4f} library_ms {lib:.4f} bound_ms {bms:.5f} ({by}) "
+            f"err {err:.2e}")
+
+    # The quantize kernel: every flagship weight leaf (float32 masters,
+    # rows = leading dims flattened) and a cache write's K chunk (bf16,
+    # one row per (row, token, kv head)).
+    quant_rows = []
+    leaves = [("embed", 8192, 512, 1), ("wq|wk|wv|wo", 4096, 512, 4),
+              ("w_gate|w_up", 4096, 1408, 2), ("w_down", 11264, 512, 1),
+              ("head", 512, 8192, 1)]
+    cases = [(n, r, c, k, f32) for n, r, c, k in leaves] + [
+        ("cache write, t=1", 64, 64, 0, bf16),
+        ("cache write, prefill 128", 8192, 64, 0, bf16)]
+    for name, r, c, n_leaves, dtype in cases:
+        x = randn((r, c), dtype)
+        v, s_ = tq.quantize_int8(x)
+        rv, rs = tq.quantize_int8_reference(x)
+        sv, ss = tq.quantize_int8(x, stochastic=True, seed=11)
+        pv, ps_ = tq.quantize_int8_reference(x, stochastic=True, seed=11)
+        torch.cuda.synchronize()
+        err = max(float((v.float() - rv.float()).abs().max()),
+                  float((s_ - rs).abs().max()),
+                  float((sv.float() - pv.float()).abs().max()))
+        need(torch.equal(v, rv) and torch.equal(s_, rs),
+             f"quant_int8 {name} [{r}, {c}]: round-to-nearest not "
+             f"bit-exact (err {err})")
+        need(torch.equal(sv, pv) and torch.equal(ss, ps_),
+             f"quant_int8 {name} [{r}, {c}]: stochastic not bit-exact to "
+             f"its plain version")
+        # The dither is unbiased: the mean rounding error in steps is ~0
+        # (its standard error is ~0.29 / sqrt(n)).
+        bias = float(((sv.float() * ss - x.float()) / ss).mean())
+        need(abs(bias) < 0.02 and int(sv.min()) >= -127,
+             f"quant_int8 {name}: stochastic bias {bias} steps")
+        ms = cuda_ms(torch, lambda: tq.quantize_int8(x))
+        plain = cuda_ms(torch, lambda: tq.quantize_int8_reference(x))
+        n = r * c
+        bytes_ = n * (torch.finfo(dtype).bits // 8) + n + 4 * r
+        bms, by = bound(bytes_, 5 * n, F32_FLOPS)
+        row = {"shape": [r, c], "leaf": name, "leaves": n_leaves,
+               "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+               "stochastic_bias_steps": bias, "ms": ms, "plain_ms": plain,
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        quant_rows.append(row)
+        say(f"  quant_int8 {name} [{r}, {c}] {row['dtype']}: kernel_ms "
+            f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.5f} ({by}) "
+            f"bit-exact (RTN and stochastic), bias {bias:+.4f} steps")
+    x = torch.full((8, 128), 0.5, device=dev)
+    x[:, 0] = 127.0                           # every row's scale is 1
+    means = [float(tq.quantize_int8(x, stochastic=True, seed=sd)[0][:, 1:]
+                   .float().mean()) for sd in range(8)]
+    need(0.3 < statistics.mean(means) < 0.7 and len(set(means)) > 1,
+         f"quant_int8: stochastic half-step means {means}")
+    total = {k: sum(r_[k] * r_["leaves"] for r_ in quant_rows)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    say(f"  quantize_params (9 leaves): kernel_ms {total['ms']:.4f} "
+        f"plain_ms {total['plain_ms']:.4f} bound_ms "
+        f"{total['bound_ms']:.5f}; half-step stochastic means "
+        f"{statistics.mean(means):.3f}")
+    return decode_rows, paged_rows, quant_rows, total
+
+
+def _to(params, dev):
+    """A params tree on ``dev`` (QTensor leaves keep their dtypes)."""
+    from tfmesos_tpu_torch.ops.quant import QTensor
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return _to(v, dev)
+        if isinstance(v, QTensor):
+            return QTensor(v.values.to(dev), v.scales.to(dev))
+        return v.to(dev)
+
+    return {k: leaf(v) for k, v in params.items()}
+
+
+def teacher_forced_int8(torch, cfg, qparams, prompt, gen):
+    """float32 CPU logits for each generated token from the SAME int8
+    weights over an int8 linear cache, teacher-forced with the card's
+    tokens: the prompt prefilled, then every generated token but the
+    last decoded as one chunk (a chunk writes each position's K/V before
+    attending, as token-by-token decoding does).  Fails where the card's
+    token differs from the CPU argmax at a top-1/top-2 margin above
+    MARGIN; returns (positions above the margin, argmax agreement at
+    every position, positions)."""
+    from tfmesos_tpu_torch.models import transformer as tt
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = _to(qparams, "cpu")
+    prompt, gen = prompt.cpu().long(), gen.cpu().long()
+    b, p = prompt.shape
+    n = gen.shape[1]
+    with torch.no_grad():
+        cache = tt.init_cache(cpu_cfg, b, p + n, quantized=True)
+        first, cache = tt.decode_step(cpu_cfg, cpu_params, cache, prompt, 0)
+        ref = first[:, -1:]
+        if n > 1:
+            rest, _ = tt.decode_step(cpu_cfg, cpu_params, cache,
+                                     gen[:, :-1], p)
+            ref = torch.cat([ref, rest], dim=1)
+    top = ref.float().topk(2, dim=-1)
+    margin = top.values[..., 0] - top.values[..., 1]
+    clear = margin > MARGIN
+    agree = top.indices[..., 0] == gen
+    bad = clear & ~agree
+    need(not bool(bad.any()), f"teacher-forced: card token differs from "
+         f"the CPU argmax at {int(bad.sum())} positions above the margin")
+    return int(clear.sum()), int(agree.sum()), agree.numel()
+
+
+def _generate_rate(torch, run, prefill, new_tokens, batch, reps=2):
+    """(seconds of a whole run, of its prefill alone, decode tokens/s
+    without the prefill, ms per decode step), each the best of ``reps``
+    host-clock timings that end in a synchronize."""
+    def best(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return min(out)
+
+    whole, pre = best(run), best(prefill)
+    decode = whole - pre
+    return whole, pre, batch * (new_tokens - 1) / decode, \
+        decode / (new_tokens - 1) * 1e3
+
+
+def phase_generate_int8(torch):
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+
+    batch, plen, new = 8, 128, 256
+    say(f"[10/12] generate: flagship, int8 weights + int8 KV cache, batch "
+        f"{batch}, prompt {plen}, {new} new tokens, greedy")
+    cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(4)).cuda()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    qparams = tt.quantize_params(cfg, params)
+    with torch.no_grad():
+        out = tt.generate(cfg, qparams, prompt, new, quantized_cache=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    L = cfg.n_layers
+    want = {"quant_int8": 9 + 2 * L * new, "flash_fwd": L,
+            "flash_decode": L * (new - 1), "flash_decode_paged": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(launches == want, f"int8 generate launches {launches} != {want}")
+    need(tuple(out.shape) == (batch, plen + new)
+         and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+         and torch.equal(out[:, :plen], prompt),
+         f"int8 generate output {tuple(out.shape)}")
+
+    def run(n=new):
+        with torch.no_grad():
+            return tt.generate(cfg, qparams, prompt, n, quantized_cache=True)
+
+    rerun_identical = bool(torch.equal(run(), out))
+    whole, pre, tok_s, step_ms = _generate_rate(
+        torch, run, lambda: run(1), new, batch)
+    t0 = time.perf_counter()
+    checked, agree, n_pos = teacher_forced_int8(torch, cfg, qparams, prompt,
+                                                out[:, plen:])
+    cpu_s = time.perf_counter() - t0
+    need(checked >= MIN_CHECKED, f"only {checked} positions above the "
+         f"margin (need {MIN_CHECKED})")
+    stats = {"batch": batch, "prompt": plen, "new_tokens": new,
+             "first_run_s": first_s, "run_s": whole, "prefill_s": pre,
+             "decode_tok_per_s": tok_s, "ms_per_step": step_ms,
+             "launches": launches, "rerun_identical": rerun_identical,
+             "teacher_forced_checked": checked, "argmax_agree": agree,
+             "positions": n_pos, "cpu_check_s": cpu_s}
+    say("  " + json.dumps(stats))
+    stats["profile"] = profile(torch, lambda: run(16))
+    say("  profile (16 new tokens): " + json.dumps(stats["profile"]))
+    return stats
+
+
+def phase_generate_long(torch):
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+
+    batch, plen, new, max_len = 4, 1024, 64, 16384
+    say(f"[11/12] generate: flagship bf16, batch {batch} over a {max_len}-"
+        f"slot cache, prompt {plen}, {new} new tokens, greedy")
+    cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(5)).cuda()
+    cache = tt.init_cache(cfg, batch, max_len, device="cuda")
+    torch.cuda.synchronize()
+    zero_launches()
+    with torch.no_grad():
+        out = tt.generate(cfg, params, prompt, new, cache=cache)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    L = cfg.n_layers
+    want = {"quant_int8": 0, "flash_fwd": L, "flash_decode": L * (new - 1),
+            "flash_decode_paged": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(launches == want, f"long-context generate launches {launches} != "
+         f"{want}")
+
+    def run(n=new):
+        with torch.no_grad():
+            return tt.generate(cfg, params, prompt, n, cache=cache)
+
+    whole, pre, tok_s, step_ms = _generate_rate(
+        torch, run, lambda: run(1), new, batch)
+    # Teacher-forced on the card: the forward kernel over the whole
+    # sequence must agree with the decode path's tokens wherever its
+    # top-1/top-2 margin is clear.
+    with torch.no_grad():
+        logits = tt.forward(cfg, params, out[:, :-1].long())[:, plen - 1:]
+    top = logits.float().topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > MARGIN
+    gen = out[:, plen:].long()
+    bad = clear & (top.indices[..., 0] != gen)
+    need(bool(torch.isfinite(logits).all()) and not bool(bad.any()),
+         f"long-context generate: {int(bad.sum())} tokens differ from the "
+         f"forward's clear argmax")
+    checked = int(clear.sum())
+    need(checked >= MIN_CHECKED, f"only {checked} positions above the "
+         f"margin (need {MIN_CHECKED})")
+    stats = {"batch": batch, "prompt": plen, "new_tokens": new,
+             "cache_slots": max_len, "run_s": whole, "prefill_s": pre,
+             "decode_tok_per_s": tok_s, "ms_per_step": step_ms,
+             "launches": launches, "forward_checked": checked}
+    say("  " + json.dumps(stats))
+    stats["profile"] = profile(torch, lambda: run(16))
+    say("  profile (16 new tokens): " + json.dumps(stats["profile"]))
+    return stats
+
+
+def phase_serve_int8(torch, np, reqs):
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    say("[12/12] serve int8: phase 5's 16 requests, int8 weights and an "
+        "int8 page pool")
+    cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
+    qparams = tt.quantize_params(cfg, params)
+    batcher = ContinuousBatcher(cfg, qparams, rows=8, page_size=64,
+                                prefill_bucket=64, quantized_cache=True,
+                                device="cuda")
+    list(batcher.run([Request(np.arange(1, 9), 2)]))          # warm-up
+    batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
+    batcher.decode_seconds = 0.0
+    zero_launches()
+    t0 = time.perf_counter()
+    comps = list(batcher.run(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    L, n_pre, ticks = cfg.n_layers, batcher.prefills, batcher.decode_ticks
+    need(len(comps) == 16 and all(len(c.tokens) == 32 for c in comps),
+         "int8 serving: a request did not complete its 32 tokens")
+    want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
+            "quant_int8": 2 * n_pre + (2 * L + 2) * ticks,
+            "flash_decode": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(n_pre == 16 and ticks > 0 and launches == want,
+         f"int8 serving launches {launches} != {want} ({n_pre} prefills, "
+         f"{ticks} ticks)")
+    checked = agree = n_pos = 0
+    for c in sorted(comps, key=lambda c: c.rid)[:2]:
+        prompt = torch.tensor([[int(x) for x in c.request.prompt]])
+        ch, ag, n = teacher_forced_int8(torch, cfg, qparams, prompt,
+                                        torch.tensor([c.tokens]))
+        checked, agree, n_pos = checked + ch, agree + ag, n_pos + n
+    need(checked >= MIN_CHECKED, f"only {checked} positions above the "
+         f"margin (need {MIN_CHECKED})")
+    ttft = sorted(c.ttft_s * 1e3 for c in comps)
+    stats = {"requests": len(comps), "wall_s": wall, "prefills": n_pre,
+             "decode_ticks": ticks, "decode_tokens": batcher.decode_tokens,
+             "decode_tok_per_s": batcher.decode_tokens
+             / batcher.decode_seconds,
+             "ms_per_tick": batcher.decode_seconds / ticks * 1e3,
+             "ttft_ms_mean": statistics.mean(ttft),
+             "ttft_ms_p50": statistics.median(ttft),
+             "peak_pages": batcher.peak_pages_used, "launches": launches,
+             "teacher_forced_checked": checked, "argmax_agree": agree,
+             "positions": n_pos}
+    say("  " + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -691,36 +1179,43 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     flash_rows, paged_rows = phase_kernels(torch)
+    decode_rows, paged8_rows, quant_rows, quant_total = \
+        phase_decode_kernels(torch)
     bwd_rows, bwd_checks = phase_backward(torch)
-    cfg, params, _, comps, stats = phase_serve(torch, np)
+    cfg, params, reqs, comps, stats = phase_serve(torch, np)
     phase_teacher_forced(torch, cfg, params, comps)
     phase_forward(torch)
     train_cfg, train = phase_train(torch)
     phase_train_vs_cpu(torch, train_cfg)
+    gen8 = phase_generate_int8(torch)
+    gen_long = phase_generate_long(torch)
+    serve8 = phase_serve_int8(torch, np, reqs)
 
-    serve_l, train_l = stats["launches"], train["launches"]
+    paths = {"serve": stats["launches"], "train": train["launches"],
+             "generate_int8": gen8["launches"],
+             "generate_long": gen_long["launches"],
+             "serve_int8": serve8["launches"]}
 
-    def entry_of(name, source, replaces, rows, rep):
+    def launches_of(name):
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
+    def entry_of(name, source, replaces, rows, rep, **extra):
         r = rows[rep]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": serve_l[name] + train_l[name],
-                "launches_by_path": {"serve": serve_l[name],
-                                     "train": train_l[name]},
+                "replaces": replaces, **launches_of(name),
                 "max_abs_err": max(x["max_abs_err"] for x in rows),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "shape": r["shape"],
-                "shapes": rows}
+                "shapes": rows, **extra}
 
     def bwd_entry(name, key, replaces, errs):
         r = bwd_rows[0]                      # the training shape
         return {"name": name, "route": "cuda",
                 "source": "tfmesos_tpu_torch/csrc/flash_bwd.cu",
-                "replaces": replaces,
-                "launches": serve_l[name] + train_l[name],
-                "launches_by_path": {"serve": serve_l[name],
-                                     "train": train_l[name]},
+                "replaces": replaces, **launches_of(name),
                 "max_abs_err": max(r[f"{e}_err"] for e in errs),
                 "ms": r[f"{key}_ms"], "plain_ms": r[f"{key}_plain_ms"],
                 "bound_ms": r[f"{key}_bound_ms"],
@@ -735,11 +1230,17 @@ def main() -> int:
                  "tfmesos_tpu/ops/attention.py:127", flash_rows, 1),
         entry_of("flash_decode_paged",
                  "tfmesos_tpu_torch/csrc/flash_decode_paged.cu",
-                 "tfmesos_tpu/ops/attention.py:871", paged_rows, 0),
+                 "tfmesos_tpu/ops/attention.py:871",
+                 paged_rows + paged8_rows, 0),
+        entry_of("flash_decode", "tfmesos_tpu_torch/csrc/flash_decode.cu",
+                 "tfmesos_tpu/ops/attention.py:596", decode_rows, 0),
         bwd_entry("flash_bwd_dq", "dq", "tfmesos_tpu/ops/attention.py:246",
                   ("dq",)),
         bwd_entry("flash_bwd_dkv", "dkv", "tfmesos_tpu/ops/attention.py:302",
                   ("dk", "dv")),
+        entry_of("quant_int8", "tfmesos_tpu_torch/csrc/quant_int8.cu",
+                 "tfmesos_tpu/ops/quant.py:40", quant_rows, 0,
+                 quantize_params_9_leaves=quant_total),
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -166,6 +166,8 @@ def test_cuda_wrappers_validate_before_launch():
         ta._flash_forward_cuda(q, q, q, True, 1.0, None, 0)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         ta._check_cuda_operands("x", q.half())
-    pool = torch.zeros(1, 4, 2, 16, 48, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ta._flash_decode_paged_cuda(q, pool, pool, None, 0, 1.0, 0, None)
+    # An int8 pool must come as a QTensor with lane-major float32 scales.
+    pool = torch.zeros(1, 4, 2, 16, 24, dtype=torch.int8)
+    with pytest.raises(TypeError, match="int8 QTensor"):
+        ta._flash_decode_paged_cuda(q, pool, pool, None, None, None, 0, 1.0,
+                                    0, None)

@@ -38,6 +38,24 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 10
 
 
+def test_slice_modules_import_with_jax_blocked():
+    """The int8 generation slice's modules by name (the walk above
+    covers them too; this names them so a rename cannot drop one)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import tfmesos_tpu_torch.ops.quant as q\n"
+        "import tfmesos_tpu_torch.generate as g\n"
+        "from tfmesos_tpu_torch.ops.attention import LAUNCHES\n"
+        "print(sorted(q.LAUNCHES), 'flash_decode' in LAUNCHES,\n"
+        "      callable(g.main))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["['quant_int8']", "True", "True"]
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -77,6 +95,30 @@ def test_serve_cli_writes_one_jsonl_row_per_prompt():
     assert all(len(r["tokens"]) == 4 for r in rows)
 
 
+def test_generate_cli_runs_int8_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "tfmesos_tpu_torch.generate", "--tiny",
+         "--device", "cpu", "--int8", "--int8-kv", "--ragged",
+         "--new-tokens", "6"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "generated 2x6 tokens in" in out.stdout
+    assert "tok/s incl. prefill" in out.stdout
+    assert "ragged prompt lens:" in out.stdout
+
+
+def test_serve_cli_serves_int8_on_the_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "tfmesos_tpu_torch.serve", "--tiny",
+         "--device", "cpu", "--int8", "--int8-kv", "--n-prompts", "3",
+         "--new-tokens", "3"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    assert sorted(r["rid"] for r in rows) == [0, 1, 2]
+    assert all(len(r["tokens"]) == 3 for r in rows)
+
+
 def test_kernel_sources_carry_their_note():
     """Each CUDA source names the TPU kernel it replaces, its bound and
     its design, and every source has a kernel library to build."""
@@ -84,10 +126,11 @@ def test_kernel_sources_carry_their_note():
 
     srcs = build.sources()
     assert {p.stem for p in srcs} == {"flash_fwd", "flash_decode_paged",
-                                      "flash_bwd"}
+                                      "flash_decode", "flash_bwd",
+                                      "quant_int8"}
     for p in srcs:
         head = p.read_text()[:3000]
-        assert "Replaces: tfmesos_tpu/ops/attention.py" in head
+        assert "Replaces: tfmesos_tpu/ops/" in head
         assert "What bounds it on this card" in head
         assert "What this design does about it" in head
     assert build.build_dir().parent == build.BUILD_ROOT

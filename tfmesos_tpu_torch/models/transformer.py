@@ -1,7 +1,8 @@
 """Flagship decoder-only transformer, single device (port of
-``tfmesos_tpu/models/transformer.py``: config and params ``:42-209``,
-the trunk ``:251-262, 581-743``, paged decode ``:791-980, 1304-1560``,
-the training loss ``:2103-2176``).
+``tfmesos_tpu/models/transformer.py``: config, params and int8 weights
+``:42-262``, the trunk ``:581-743``, linear and paged caches and decode
+``:746-1076, 1248-1560``, greedy ``generate`` ``:1603-1774``, the
+training loss ``:2103-2176``).
 
 Same parameter dict as the JAX package — stacked per-layer leaves
 ``layers/<name>`` of shape [L, ...] — with the same shapes and init
@@ -14,8 +15,17 @@ Attention goes through ``ops/attention.py``: the prompt prefill and
 ``forward`` through ``flash_attention`` (the ``flash_fwd.cu`` kernel on
 the card, and under autograd the ``flash_bwd.cu`` kernels for its
 gradient), every paged decode step through ``flash_decode_paged`` (the
-``flash_decode_paged.cu`` kernel) — on the card every call launches
-its kernel, whatever the context length or chunk size.
+``flash_decode_paged.cu`` kernel) and every other linear-cache step
+through ``flash_decode`` (the ``flash_decode.cu`` kernel) — on the card
+every call launches its kernel, whatever the context length or chunk
+size.
+
+int8 serving (``quantize_params`` plus an int8 KV cache) goes through
+``ops/quant.py``: weights quantize once per leaf and every int8 cache
+write quantizes its chunk through the ``quant_int8.cu`` kernel (its
+round-to-nearest result is bit-identical to the JAX package's
+``quantize_int8_reference``); weight scales fold into the activation
+at each matmul (``_qmm``) and cache scales into the decode kernels.
 """
 
 from __future__ import annotations
@@ -27,11 +37,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from tfmesos_tpu_torch.ops.attention import (flash_attention,
+from tfmesos_tpu_torch.ops.attention import (_dequant_lane_major,
+                                             flash_attention, flash_decode,
                                              flash_decode_paged)
 from tfmesos_tpu_torch.ops.layers import (cross_entropy_loss,
                                           fused_linear_cross_entropy,
-                                          rms_norm, rope, swiglu)
+                                          rms_norm, rope)
+from tfmesos_tpu_torch.ops.quant import (QTensor, quantize_int8,
+                                         quantize_tensor)
 
 Params = Dict[str, Any]
 
@@ -123,26 +136,65 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
+#: Weight leaves quantize_params converts: the big matmul operands
+#: (norms are tiny and precision-critical).  The JAX set also names the
+#: MoE expert leaves, which come with the MoE configs.
+_QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
+                         "w_down"})
+
+
+def quantize_params(cfg: TransformerConfig, params: Params) -> Params:
+    """Weight-only int8 quantization (per-row absmax, ``ops/quant.py``):
+    the embedding table, the head and every per-layer projection become
+    :class:`QTensor` s (one ``quant_int8.cu`` launch per leaf on the
+    card); norms stay as they are.  The tree drops into ``forward``,
+    ``decode_step``, ``generate`` and the batcher unchanged."""
+    layers = {k: (quantize_tensor(v) if k in _QUANT_KEYS else v)
+              for k, v in params["layers"].items()}
+    return {"embed": quantize_tensor(params["embed"]), "layers": layers,
+            "norm_f": params["norm_f"],
+            "head": quantize_tensor(params["head"])}
+
+
 def layer_params(params: Params, li: int) -> Params:
-    """Layer ``li``'s slice of the stacked ``layers`` leaves (views)."""
-    return {k: v[li] for k, v in params["layers"].items()}
+    """Layer ``li``'s slice of the stacked ``layers`` leaves (views; a
+    :class:`QTensor` slices its values and scales alike)."""
+    return {k: (QTensor(v.values[li], v.scales[li])
+                if isinstance(v, QTensor) else v[li])
+            for k, v in params["layers"].items()}
 
 
-def _qmm(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype):
-    """``x @ W`` with the weight cast to the compute dtype at use."""
+def _qmm(x: torch.Tensor, w, dtype: torch.dtype):
+    """``x @ W`` for a plain or int8 weight.  A plain weight is cast to
+    the compute dtype at use; a :class:`QTensor`'s per-input-channel
+    scales ([K, 1], K the contraction dim) commute across the product,
+    so they fold into the activation — ``(x * s) @ values`` — and the
+    weight is read as int8 widened to the compute dtype."""
+    if isinstance(w, QTensor):
+        s = w.scales.reshape(w.scales.shape[:-2] + (-1,)).to(dtype)
+        return (x * s) @ w.values.to(dtype)
     return x @ w.to(dtype)
 
 
-def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+def _embed_lookup(table, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Embedding gather; casting the gathered rows equals gathering the
-    cast table (the cast is elementwise)."""
+    cast table (the cast is elementwise).  An int8 table gathers values
+    and scales, then dequantizes only the gathered rows."""
+    if isinstance(table, QTensor):
+        return table.values[tokens].to(dtype) * table.scales[tokens].to(dtype)
     return table[tokens].to(dtype)
 
 
+def _qswiglu(h: torch.Tensor, w_gate, w_up, w_down, dtype: torch.dtype):
+    """SwiGLU, silu(h·Wg) ⊙ (h·Wu) · Wd, over :func:`_qmm`, so int8
+    weights take the activation-folded form at every product."""
+    g = torch.nn.functional.silu(_qmm(h, w_gate, dtype))
+    return _qmm(g * _qmm(h, w_up, dtype), w_down, dtype)
+
+
 def _mlp(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
-    return swiglu(h, *(lp[n].to(cfg.dtype)
-                       for n in ("w_gate", "w_up", "w_down")))
+    return _qswiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.dtype)
 
 
 def _qkv(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
@@ -195,11 +247,16 @@ def forward(cfg: TransformerConfig, params: Params,
                 cfg.dtype)
 
 
-def _fused_ce_mode(cfg: TransformerConfig) -> Optional[str]:
+def _fused_ce_mode(cfg: TransformerConfig,
+                   params: Optional[Params] = None) -> Optional[str]:
     """Which head + cross-entropy path :func:`loss_fn` takes on one
     device: ``"dense"`` (the fused, chunked form) unless
-    ``cfg.fused_ce`` is False, then None (materialize the logits)."""
-    return None if cfg.fused_ce is False else "dense"
+    ``cfg.fused_ce`` is False or the head is an int8 :class:`QTensor`
+    (a serving tree), then None (materialize the logits)."""
+    if cfg.fused_ce is False or (params is not None
+                                 and isinstance(params["head"], QTensor)):
+        return None
+    return "dense"
 
 
 def loss_fn(cfg: TransformerConfig, params: Params,
@@ -210,7 +267,7 @@ def loss_fn(cfg: TransformerConfig, params: Params,
     positions 1..T given 0..T-1."""
     tokens = batch["tokens"]
     labels = tokens[:, 1:].long()
-    if _fused_ce_mode(cfg) == "dense":
+    if _fused_ce_mode(cfg, params) == "dense":
         x = forward_hidden(cfg, params, tokens[:, :-1])
         # The master-dtype head: the op computes in x's dtype and
         # accumulates dw in float32 at the param dtype.
@@ -243,18 +300,56 @@ def entry(device: Union[str, torch.device, None] = None
     return fn, (params, tokens)
 
 
-# -- paged decode -----------------------------------------------------------
+# -- KV caches ----------------------------------------------------------------
+
+
+def _kv_buffer(shape: Tuple[int, ...], dtype: Optional[torch.dtype],
+               quantized: bool, cfg: TransformerConfig, device, what: str):
+    """One K or V buffer of ``shape`` ([L, ..., M|page, head_dim]): the
+    compute dtype (or ``dtype``), or an int8 :class:`QTensor` whose
+    float32 scales are LANE-MAJOR ([L, ..., 1, M|page] — positions on the
+    trailing dim, as the decode kernels read them)."""
+    if not quantized:
+        return torch.zeros(shape, dtype=dtype or cfg.dtype, device=device)
+    if dtype is not None:
+        raise ValueError(f"{what}: dtype and quantized=True conflict (an "
+                         f"int8 cache's dtypes are fixed)")
+    return QTensor(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.ones(shape[:-2] + (1, shape[-2]),
+                              dtype=torch.float32, device=device))
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, quantized: bool = False,
+               device: Union[str, torch.device] = "cpu"
+               ) -> Dict[str, Any]:
+    """A linear KV cache for :func:`generate`: stacked
+    [L, B, KV, M, head_dim] K/V buffers (kv-head-major with positions and
+    head_dim trailing, the ``flash_decode`` kernel's layout), written in
+    place one chunk at a time at its layer index.  ``quantized=True``
+    stores int8 :class:`QTensor` s with one float32 scale per (layer,
+    row, head, position), held lane-major [L, B, KV, 1, M].  Sliding
+    windows need a rolling cache, which is not ported yet."""
+    if cfg.window is not None:
+        raise NotImplementedError("rolling (sliding-window) caches are not "
+                                  "ported yet")
+    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {name: _kv_buffer(shape, dtype, quantized, cfg, device,
+                             "init_cache") for name in ("k", "v")}
 
 
 def init_paged_cache(cfg: TransformerConfig, n_pages: int,
                      page_size: int = 128,
                      dtype: Optional[torch.dtype] = None,
+                     quantized: bool = False,
                      device: Union[str, torch.device] = "cpu"
-                     ) -> Dict[str, torch.Tensor]:
+                     ) -> Dict[str, Any]:
     """A PAGED KV cache: one pool of ``n_pages`` pages per layer shared
     by every sequence, stacked [L, P, KV, page, head_dim] (page and
-    head_dim trailing, the kernel's layout).  Pass ``{"k", "v",
-    "pages"}`` (this dict plus a page table) to :func:`decode_step`."""
+    head_dim trailing, the kernel's layout); ``quantized=True`` stores
+    int8 :class:`QTensor` pools with lane-major scales
+    [L, P, KV, 1, page].  Pass ``{"k", "v", "pages"}`` (this dict plus a
+    page table) to :func:`decode_step`."""
     if cfg.window is not None:
         raise ValueError("paged caches do not compose with sliding-window "
                          "configs (rolling caches address by slot)")
@@ -262,9 +357,8 @@ def init_paged_cache(cfg: TransformerConfig, n_pages: int,
         raise ValueError(f"page_size ({page_size}) must be a multiple of "
                          f"8 and <= 1024")
     shape = (cfg.n_layers, n_pages, cfg.kv_heads, page_size, cfg.head_dim)
-    dt = dtype or cfg.dtype
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {name: _kv_buffer(shape, dtype, quantized, cfg, device,
+                             "init_paged_cache") for name in ("k", "v")}
 
 
 class PageAllocator:
@@ -318,18 +412,80 @@ class PageAllocator:
         return torch.from_numpy(t)
 
 
-def _paged_cache_write_all(pool: torch.Tensor, chunks: torch.Tensor,
+def _cache_logical_len(cache_leaf, pages=None) -> int:
+    """Logical attended length of a stacked cache leaf: slots of a
+    [L, B, KV, M, Dh] linear buffer, or table width x page for a
+    [L, P, KV, page, Dh] pool (the position axis is 3 in both)."""
+    buf = cache_leaf.values if isinstance(cache_leaf, QTensor) else \
+        cache_leaf
+    return (pages.shape[1] * buf.shape[3] if pages is not None
+            else buf.shape[3])
+
+
+def _cache_read(cache, li: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``li`` of a linear cache as [B, KV, M, Dh]: an int8 cache
+    dequantized in ``dtype``, a plain one at its own dtype."""
+    if isinstance(cache, QTensor):
+        return _dequant_lane_major(QTensor(cache.values[li],
+                                           cache.scales[li]), dtype)
+    return cache[li]
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-position int8 quantization of K/V rows ([..., Dh]): the
+    ``quant_int8.cu`` kernel on the card; (values [..., Dh], scales
+    [...])."""
+    vals, scale = quantize_int8(x.reshape(-1, x.shape[-1]))
+    return vals.reshape(x.shape), scale.reshape(x.shape[:-1])
+
+
+def _put_positions(lay: torch.Tensor, x: torch.Tensor, pos) -> None:
+    """Write ``x`` [B, t, KV, ...] into one layer ``lay`` [B, KV, M, ...]
+    at positions pos..pos+t-1 of each row, IN PLACE; ``pos`` an int or a
+    [B] tensor (ragged rows).  The start clamps so the chunk fits, as a
+    dynamic slice update clamps."""
+    b, t = x.shape[:2]
+    m = lay.shape[2]
+    if isinstance(pos, int):
+        start = min(max(pos, 0), m - t)
+        lay[:, :, start:start + t] = x.transpose(1, 2)
+        return
+    start = torch.as_tensor(pos, device=lay.device).long().reshape(
+        -1).expand(b).clamp(0, m - t)
+    rows = torch.arange(b, device=lay.device)[:, None]
+    cols = start[:, None] + torch.arange(t, device=lay.device)[None]
+    # Advanced indices around the head slice front the [b, t] dims.
+    lay[rows, :, cols] = x
+
+
+def _cache_write(cache, chunk: torch.Tensor, li: int, pos) -> None:
+    """Insert a [B, t, KV, Dh] K or V chunk at position ``pos`` (int, or
+    [B] for ragged rows) of layer ``li`` of the stacked linear cache
+    [L, B, KV, M, Dh], IN PLACE; an int8 cache quantizes the chunk per
+    position on the way in (values and lane-major scales)."""
+    if isinstance(cache, QTensor):
+        vals, scale = _quantize_rows(chunk)
+        _put_positions(cache.values[li], vals, pos)
+        _put_positions(cache.scales[li, :, :, 0], scale, pos)
+    else:
+        _put_positions(cache[li], chunk.to(cache.dtype), pos)
+
+
+def _paged_cache_write_all(pool, chunks: torch.Tensor,
                            page_table: torch.Tensor,
-                           pos: Union[int, torch.Tensor]) -> torch.Tensor:
+                           pos: Union[int, torch.Tensor]) -> None:
     """Commit ALL layers' deferred chunks ([L, B, t, KV, Dh]) into the
     stacked pool at logical positions pos..pos+t-1 per row, chasing the
-    page table, in ONE indexed write — IN PLACE (the pool is the
-    batcher's long-lived buffer; a copy would double its memory).  The
-    block index is clamped to the table width: a parked row's position
-    can sit one block past it, and its whole table row is the sink."""
+    page table, in ONE indexed write per buffer — IN PLACE (the pool is
+    the batcher's long-lived buffer; a copy would double its memory).
+    An int8 pool quantizes every (row, token, layer, head) slot on the
+    way in.  The block index is clamped to the table width: a parked
+    row's position can sit one block past it, and its whole table row is
+    the sink."""
     L, b, t, kvh, dh = chunks.shape
-    ps = pool.shape[3]
-    dev = pool.device
+    buf = pool.values if isinstance(pool, QTensor) else pool
+    ps = buf.shape[3]
+    dev = buf.device
     table = torch.as_tensor(page_table, device=dev).long()
     posv = torch.as_tensor(pos, device=dev).long().reshape(-1).expand(b)
     lpos = posv[:, None] + torch.arange(t, device=dev)[None]      # [B, t]
@@ -339,44 +495,73 @@ def _paged_cache_write_all(pool: torch.Tensor, chunks: torch.Tensor,
     # [L, B, t, KV, Dh] -> [B*t, L, KV, Dh]: the advanced indices
     # (pages, offs) around the head slice front the update's row dim.
     x = chunks.permute(1, 2, 0, 3, 4).reshape(b * t, L, kvh, dh)
-    pool[:, pages, :, offs] = x.to(pool.dtype)
-    return pool
+    if isinstance(pool, QTensor):
+        vals, scale = _quantize_rows(x)
+        pool.values[:, pages, :, offs] = vals
+        pool.scales[:, :, :, 0][:, pages, :, offs] = scale
+    else:
+        pool[:, pages, :, offs] = x.to(pool.dtype)
+
+
+def _quant_dequant(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The chunk as an int8 pool slot holds it, back in ``dtype``: the
+    deferred self operand of an int8 pool matches a committed slot up to
+    where the scale multiplies (the kernel folds a slot's scale after
+    the dot in float32)."""
+    vals, scale = _quantize_rows(c)
+    return vals.to(dtype) * scale[..., None].to(dtype)
+
+
+# -- decode ----------------------------------------------------------------
 
 
 def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
-                  cache: Dict[str, torch.Tensor], li: int,
-                  positions: torch.Tensor, pos: Union[int, torch.Tensor]):
-    """One block over a token chunk against the paged pool.  A
-    multi-token chunk at python-int ``pos == 0`` is a prefill from an
-    empty cache and attends only to itself; any other chunk attends
-    the committed pool plus itself through the deferred ``self_kv``
-    operand.  Either way the pool is NOT written here: the chunk's K/V
-    comes back for :func:`decode_step`'s single commit."""
+                  cache: Dict[str, Any], li: int, positions: torch.Tensor,
+                  pos: Union[int, torch.Tensor]):
+    """One block over a token chunk with cached history.  A multi-token
+    chunk at python-int ``pos == 0`` is a prefill from an empty cache and
+    attends only to itself.  A LINEAR cache (no ``"pages"``) is written
+    first and then attended through ``flash_decode``; a PAGED pool is
+    NOT written here: other chunks attend the committed pool plus
+    themselves through the deferred ``self_kv`` operand, and the chunk's
+    K/V comes back for :func:`decode_step`'s single commit."""
     t = x.shape[1]
     q, k, v = _qkv(cfg, lp, x, positions)
-    if t > 1 and isinstance(pos, int) and pos == 0:
-        o = flash_attention(q, k, v, causal=True, window=cfg.window)
+    prefill = t > 1 and isinstance(pos, int) and pos == 0
+    pages = cache.get("pages")
+    if pages is None:
+        _cache_write(cache["k"], k, li, pos)
+        _cache_write(cache["v"], v, li, pos)
+        chunk = None
     else:
-        o = flash_decode_paged(q, cache["k"], cache["v"], cache["pages"],
-                               positions[:, 0], layer=li, self_kv=(k, v))
-    return _finish_block(cfg, lp, x, o), (k, v)
+        chunk = (k, v)
+    if prefill:
+        o = flash_attention(q, k, v, causal=True, window=cfg.window)
+    elif pages is None:
+        o = flash_decode(q, cache["k"], cache["v"], positions[:, 0],
+                         layer=li)
+    else:
+        self_kv = ((_quant_dequant(k, cfg.dtype),
+                    _quant_dequant(v, cfg.dtype))
+                   if isinstance(cache["k"], QTensor) else (k, v))
+        o = flash_decode_paged(q, cache["k"], cache["v"], pages,
+                               positions[:, 0], layer=li, self_kv=self_kv)
+    return _finish_block(cfg, lp, x, o), chunk
 
 
 def decode_step(cfg: TransformerConfig, params: Params,
-                cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                cache: Dict[str, Any], tokens: torch.Tensor,
                 pos: Union[int, torch.Tensor]):
-    """Advance decoding by a token chunk over a PAGED cache.
+    """Advance decoding by a token chunk.
 
     ``tokens``: [B, t]; ``pos``: first global position of the chunk — a
     python int (0 = prefill from empty) or a [B] tensor of ragged
-    per-row positions.  ``cache``: ``{"k", "v", "pages"}`` with stacked
-    pools [L, P, KV, page, D] and the page table [B, NP].  Returns
-    (logits [B, t, V], cache); the pools are updated IN PLACE by one
-    commit of every layer's chunk after the layer loop."""
-    pages = cache.get("pages")
-    if pages is None:
-        raise ValueError("decode_step serves paged caches: pass "
-                         "{'k', 'v', 'pages'}")
+    per-row positions.  ``cache``: a LINEAR cache ``{"k", "v"}``
+    (:func:`init_cache`; each layer writes its chunk, then attends) or a
+    PAGED one ``{"k", "v", "pages"}`` with stacked pools
+    [L, P, KV, page, D] and the page table [B, NP] (one commit of every
+    layer's chunk after the layer loop).  Either is plain or int8.
+    Returns (logits [B, t, V], cache); the buffers update IN PLACE."""
     b, t = tokens.shape
     dev = tokens.device
     offs = torch.arange(t, device=dev)
@@ -388,11 +573,148 @@ def decode_step(cfg: TransformerConfig, params: Params,
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for li in range(cfg.n_layers):
-        x, (k, v) = _block_decode(cfg, x, layer_params(params, li), cache,
-                                  li, positions, pos)
-        ks.append(k)
-        vs.append(v)
-    _paged_cache_write_all(cache["k"], torch.stack(ks), pages, pos)
-    _paged_cache_write_all(cache["v"], torch.stack(vs), pages, pos)
+        x, chunk = _block_decode(cfg, x, layer_params(params, li), cache,
+                                 li, positions, pos)
+        if chunk is not None:
+            ks.append(chunk[0])
+            vs.append(chunk[1])
+    if ks:
+        _paged_cache_write_all(cache["k"], torch.stack(ks), cache["pages"],
+                               pos)
+        _paged_cache_write_all(cache["v"], torch.stack(vs), cache["pages"],
+                               pos)
     x = rms_norm(x, params["norm_f"].to(cfg.dtype))
     return _qmm(x, params["head"], cfg.dtype), cache
+
+
+# -- generation ----------------------------------------------------------------
+
+
+def _check_greedy(temperature: float) -> None:
+    if temperature > 0.0:
+        raise NotImplementedError("sampling (temperature > 0) is not "
+                                  "ported yet; generation is greedy")
+
+
+def sample_logits(logits: torch.Tensor, temperature: float = 0.0
+                  ) -> torch.Tensor:
+    """Token ids from ``logits`` [..., V]: greedy (the float32 argmax)
+    when ``temperature <= 0``.  Sampling needs the JAX package's
+    threefry bits to match its streams and is not ported yet."""
+    _check_greedy(temperature)
+    return torch.argmax(logits.float(), dim=-1)
+
+
+def _prefill(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+             depth: int, quantized: bool = False, prefix=None, cache=None):
+    """Fresh-cache prefill shared by the generation entry points: with a
+    ``prefix``, prefill it ONCE at batch 1, broadcast the cache to the
+    prompt's batch, then decode the per-row prompt chunk at position t0
+    over it.  ``cache`` supplies a caller-managed cache instead (linear
+    or paged; not with a prefix).  Returns (prompt-chunk logits,
+    cache)."""
+    b = prompt.shape[0]
+    if cache is not None:
+        if prefix is not None:
+            raise ValueError("generate: prefix and a caller-provided cache "
+                             "cannot combine (the prefix broadcast owns "
+                             "the buffer layout)")
+        return decode_step(cfg, params, cache, prompt, 0)
+    cache = init_cache(cfg, 1 if prefix is not None else b, depth,
+                       quantized=quantized, device=prompt.device)
+    if prefix is None:
+        return decode_step(cfg, params, cache, prompt, 0)
+    _, cache = decode_step(cfg, params, cache, prefix[None, :], 0)
+
+    def rows(leaf):
+        return leaf.repeat_interleave(b, dim=1)
+
+    cache = {k: (QTensor(rows(c.values), rows(c.scales))
+                 if isinstance(c, QTensor) else rows(c))
+             for k, c in cache.items()}
+    return decode_step(cfg, params, cache, prompt, prefix.shape[0])
+
+
+def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+             max_new_tokens: int, temperature: float = 0.0,
+             quantized_cache: bool = False, prompt_lens=None, prefix=None,
+             stop_token: Optional[int] = None, cache=None) -> torch.Tensor:
+    """Greedy autoregressive generation (counterpart of the JAX
+    ``generate``): prefill the prompt in one pass, then one
+    :func:`decode_step` per token over a linear KV cache
+    (:func:`init_cache`; ``quantized_cache`` stores it int8 — with
+    :func:`quantize_params` weights the full int8 serving
+    configuration).  Runs where ``prompt`` and ``params`` live.
+
+    ``prompt``: [B, Tp] token ids.  Returns [B, Tp + max_new_tokens]
+    ([B, T0 + Tp + max_new_tokens] with a ``prefix``).  ``prompt_lens``
+    ([B]) serves a ragged batch: row i's real prompt is ``prompt[i,
+    :prompt_lens[i]]`` and its continuation lands right after it (later
+    entries are padding, 0).  ``prefix`` ([T0]) is a shared prompt
+    prefix, prefilled once at batch 1.  ``stop_token``: rows that emit
+    it freeze (their tail fills with it) and decoding stops once every
+    row has.  ``cache``: a caller-managed linear or paged cache that
+    backs every position of the run."""
+    b, tp = prompt.shape
+    t0 = 0 if prefix is None else prefix.shape[0]
+    dev = prompt.device
+    if max_new_tokens <= 0:
+        if prefix is None:
+            return prompt
+        return torch.cat([prefix.to(prompt.dtype).expand(b, t0), prompt], 1)
+    _check_greedy(temperature)
+    tokens = prompt.long()
+    if cache is not None and _cache_logical_len(
+            cache["k"], cache.get("pages")) < tp + max_new_tokens - 1:
+        raise ValueError(f"generate: the cache holds "
+                         f"{_cache_logical_len(cache['k'], cache.get('pages'))}"
+                         f" positions; the run needs "
+                         f"{tp + max_new_tokens - 1}")
+    logits, cache = _prefill(
+        cfg, params, tokens, t0 + tp + max_new_tokens,
+        quantized=quantized_cache,
+        prefix=None if prefix is None else prefix.to(dev).long(),
+        cache=cache)
+    if prompt_lens is None:
+        next_logits = logits[:, -1]
+        pos: Union[int, torch.Tensor] = t0 + tp
+    else:
+        lens = torch.as_tensor(prompt_lens, device=dev).long()
+        # Row i's next token follows its LAST REAL token, not the padding.
+        next_logits = logits[torch.arange(b, device=dev), lens - 1]
+        pos = t0 + lens
+    tok = sample_logits(next_logits)
+    if stop_token is None:
+        toks = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = decode_step(cfg, params, cache, tok[:, None], pos)
+            tok = sample_logits(logits[:, -1])
+            toks.append(tok)
+            pos = pos + 1
+        generated = torch.stack(toks, dim=1)
+    else:
+        # The real token keeps feeding the model — only the recorded
+        # output freezes — so tokens up to each row's first stop equal a
+        # stop-free run; one host sync per step decides the early exit.
+        generated = torch.full((b, max_new_tokens), int(stop_token),
+                               dtype=tok.dtype, device=dev)
+        generated[:, 0] = tok
+        done = tok == stop_token
+        i = 0
+        while i < max_new_tokens - 1 and not bool(done.all()):
+            logits, cache = decode_step(cfg, params, cache, tok[:, None], pos)
+            nxt = sample_logits(logits[:, -1])
+            generated[:, i + 1] = torch.where(done, generated[:, i + 1], nxt)
+            done = done | (nxt == stop_token)
+            tok = nxt
+            pos = pos + 1
+            i += 1
+    generated = generated.to(prompt.dtype)
+    lead = ([prefix.to(prompt.dtype).expand(b, t0)]
+            if prefix is not None else [])
+    if prompt_lens is None:
+        return torch.cat([*lead, prompt, generated], dim=1)
+    out = torch.cat([*lead, prompt, prompt.new_zeros((b, max_new_tokens))],
+                    dim=1)
+    idx = (t0 + lens)[:, None] + torch.arange(max_new_tokens, device=dev)
+    return out.scatter_(1, idx, generated)       # row i's continuation

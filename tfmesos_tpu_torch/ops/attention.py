@@ -20,7 +20,15 @@ Kernels (``tfmesos_tpu_torch/csrc``):
   autograd Function;
 * ``flash_decode_paged.cu`` replaces ``_flash_decode_paged_kernel``
   (decode through a per-row page table, ragged positions, t-row chunks,
-  deferred ``self_kv`` with intra-chunk causality).
+  deferred ``self_kv`` with intra-chunk causality, int8 pools);
+* ``flash_decode.cu`` replaces ``_flash_decode_kernel`` (decode over a
+  linear stacked cache, ragged positions, chunks of any length, int8
+  caches).  The two decode kernels share their score tile and
+  online-softmax step (``csrc/decode_common.cuh``).
+
+int8 caches are :class:`~tfmesos_tpu_torch.ops.quant.QTensor` s with
+lane-major per-position scales; the kernels fold the scales into the
+score and probability rows, the plain versions dequantize in q's dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from tfmesos_tpu_torch.kernels import build
+from tfmesos_tpu_torch.ops.quant import QTensor
 
 NEG_INF = float("-inf")
 
@@ -39,8 +48,8 @@ NEG_INF = float("-inf")
 #: kernel and nowhere else (the plain CPU path never counts).  A run
 #: that zeroes these before serving or training and reads them after
 #: proves that the path went through the kernels.
-LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0, "flash_decode": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: head_dim the flash_fwd kernel takes, per dtype (bf16 runs on the
@@ -54,8 +63,10 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                    _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _p]
-_PAGED_ARGS = [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-               _i, _i, _i, _f, _i, _p]
+# Decode entries: operand and output pointers, then the int sizes, scale,
+# is_bf16, kv_int8, stream.
+_PAGED_ARGS = [_p] * 10 + [_i] * 10 + [_f, _i, _i, _p]
+_DECODE_ARGS = [_p] * 7 + [_i] * 7 + [_f, _i, _i, _p]
 # Backward entries: operand and output pointers, then B, Tq, Tk, H, KV,
 # D, causal, window, q_offset, scale, is_bf16, out_f32, stream.
 _BWD_TAIL = [_i] * 9 + [_f, _i, _i, _p]
@@ -485,15 +496,153 @@ def _decode_reference(q, k_cache, v_cache, pos, scale: float):
     return o[:, 0] if squeeze else o
 
 
-def _stacked(k_pool, v_pool, layer) -> Tuple[torch.Tensor, torch.Tensor,
-                                             int]:
-    """(kp, vp, layer index) with the pools in their stacked
-    [L, P, KV, page, D] form; a 4-D pool lifts to L = 1."""
-    if k_pool.dim() == 4:
+def _dequant_lane_major(qt: QTensor, dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize a lane-major QTensor cache ([..., M, D] values, scales
+    [..., 1, M]) in ``dtype``: the per-position scales move back over the
+    position dim and multiply (the plain path; the kernels fold them)."""
+    return qt.values.to(dtype) * qt.scales.transpose(-1, -2).to(dtype)
+
+
+def _stacked_cache(k_cache, v_cache, layer):
+    """Normalize a decode cache or pool to its stacked form: ``(kc, vc,
+    k_scales, v_scales, layer index)`` with kc/vc
+    [L, ..., M|page, D] and lane-major scales [L, ..., 1, M|page] (None
+    unless the cache is an int8 :class:`QTensor`).  A 4-D cache lifts to
+    L = 1 (``layer`` must then be None or 0)."""
+    quantized = isinstance(k_cache, QTensor)
+    if quantized != isinstance(v_cache, QTensor):
+        raise TypeError("K and V caches must both be int8 QTensors or both "
+                        "plain tensors")
+    kc = k_cache.values if quantized else k_cache
+    vc = v_cache.values if quantized else v_cache
+    ks = k_cache.scales if quantized else None
+    vs = v_cache.scales if quantized else None
+    if kc.dim() == 4:
         if layer not in (None, 0):
-            raise ValueError("layer index needs a stacked 5-D pool")
-        return k_pool[None], v_pool[None], 0
-    return k_pool, v_pool, 0 if layer is None else int(layer)
+            raise ValueError("layer index needs a stacked 5-D cache")
+        kc, vc = kc[None], vc[None]
+        if quantized:
+            ks, vs = ks[None], vs[None]
+        layer = 0
+    return kc, vc, ks, vs, 0 if layer is None else int(layer)
+
+
+def _layer_view(kc, vc, ks, vs, li: int, dtype: torch.dtype):
+    """Layer ``li`` of a stacked cache as plain [..., M, D] K and V,
+    int8 caches dequantized in ``dtype``."""
+    if ks is None:
+        return kc[li], vc[li]
+    return (_dequant_lane_major(QTensor(kc[li], ks[li]), dtype),
+            _dequant_lane_major(QTensor(vc[li], vs[li]), dtype))
+
+
+def flash_decode_reference(q, k_cache, v_cache,
+                           pos: Union[int, torch.Tensor],
+                           scale: Optional[float] = None,
+                           layer=None) -> torch.Tensor:
+    """Plain version of ``flash_decode.cu`` (the JAX ``flash_decode``
+    off the kernel): :func:`_decode_reference` over layer ``layer`` of
+    the cache, an int8 cache dequantized in q's dtype first."""
+    kc, vc, ks, vs, li = _stacked_cache(k_cache, v_cache, layer)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    k_l, v_l = _layer_view(kc, vc, ks, vs, li, q.dtype)
+    return _decode_reference(q, k_l, v_l, pos, scale)
+
+
+def flash_decode(q, k_cache, v_cache, pos: Union[int, torch.Tensor],
+                 scale: Optional[float] = None, layer=None) -> torch.Tensor:
+    """Decode attention over a linear KV cache bounded at ``pos``
+    (counterpart of the JAX ``flash_decode``): the ``flash_decode.cu``
+    kernel on CUDA tensors, :func:`flash_decode_reference` on CPU
+    tensors.
+
+    ``q``: [B, H, D] or [B, t, H, D] (token tt sees positions <=
+    pos + tt; the cache already holds the chunk); caches [B, KV, M, D] or
+    the stacked [L, B, KV, M, D] with ``layer`` (read in place — no
+    per-layer slice), plain tensors or int8 :class:`QTensor` s with
+    lane-major scales [(L,) B, KV, 1, M]; ``pos``: int or [B] (ragged
+    rows).  Returns q's shape."""
+    kc, vc, ks, vs, li = _stacked_cache(k_cache, v_cache, layer)
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    if q.shape[2] % kc.shape[2] or kc.shape[2] != vc.shape[2]:
+        raise ValueError(f"q heads ({q.shape[2]}) must be a multiple of "
+                         f"cache kv heads ({kc.shape[2]}/{vc.shape[2]})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        out = flash_decode_reference(q, k_cache, v_cache, pos, scale, layer)
+    else:
+        out = _flash_decode_cuda(q, kc, vc, ks, vs, pos, float(scale), li)
+    return out[:, 0] if squeeze else out
+
+
+def _check_kv(what: str, q, kc, vc, ks, vs) -> bool:
+    """Validate a stacked cache or pool for a decode kernel against q;
+    True when it is int8 (with float32 lane-major scales)."""
+    _check_cuda_operands(what, q)
+    if kc.shape != vc.shape or kc.shape[-1] != q.shape[-1]:
+        raise ValueError(f"{what}: caches {tuple(kc.shape)} / "
+                         f"{tuple(vc.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    tensors = (kc, vc) if ks is None else (kc, vc, ks, vs)
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{what}: cache on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: caches must be contiguous (the "
+                             f"kernel reads them in place)")
+    if ks is None:
+        if kc.dtype != q.dtype or vc.dtype != q.dtype:
+            raise TypeError(f"{what}: cache dtype {kc.dtype} must be q's "
+                            f"({q.dtype}) or an int8 QTensor")
+        return False
+    want = kc.shape[:-2] + (1, kc.shape[-2])
+    if (kc.dtype != torch.int8 or vc.dtype != torch.int8
+            or ks.dtype != torch.float32 or vs.dtype != torch.float32
+            or ks.shape != want or vs.shape != want):
+        raise TypeError(f"{what}: an int8 cache needs int8 values and "
+                        f"float32 lane-major scales {tuple(want)}, got "
+                        f"{kc.dtype}/{ks.dtype} {tuple(ks.shape)}")
+    return True
+
+
+def _row_positions(pos, b: int, device) -> torch.Tensor:
+    return torch.as_tensor(pos, device=device).to(torch.int32).reshape(
+        -1).expand(b).contiguous()
+
+
+def _flash_decode_cuda(q, kc, vc, ks, vs, pos, scale: float, layer: int):
+    kv_int8 = _check_kv("flash_decode", q, kc, vc, ks, vs)
+    b, t, h, d = q.shape
+    n_layers, cb, kvh, m, _ = kc.shape
+    if cb != b:
+        raise ValueError(f"flash_decode: cache batch {cb} for {b} rows")
+    if not 0 <= layer < n_layers:
+        raise ValueError(f"flash_decode: layer {layer} out of range for "
+                         f"{n_layers} layers")
+    smem = build.kernel("flash_decode", "tfm_flash_decode_smem", [_i] * 4,
+                        ctypes.c_longlong)(t, h, kvh, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"flash_decode: head_dim {d} needs {smem} bytes of "
+                         f"shared memory (> {_MAX_SMEM})")
+    posv = _row_positions(pos, b, q.device)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    fn = build.kernel("flash_decode", "tfm_flash_decode", _DECODE_ARGS)
+    with torch.cuda.device(q.device):
+        LAUNCHES["flash_decode"] += 1
+        err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                 ks.data_ptr() if kv_int8 else None,
+                 vs.data_ptr() if kv_int8 else None, posv.data_ptr(),
+                 out.data_ptr(), b, t, h, kvh, m, d, layer, scale,
+                 int(q.dtype == torch.bfloat16), int(kv_int8),
+                 _stream(q.device))
+    build.check("flash_decode", err, "flash_decode")
+    return out
 
 
 def _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
@@ -501,13 +650,14 @@ def _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
     """Gather-the-pages ground truth (the JAX
     ``_paged_decode_reference``): materialize each row's logical cache
     from the pool ([P, KV, page, D], or the stacked [L, P, KV, page, D]
-    with ``layer``) and run :func:`_decode_reference`.  ``self_kv``
-    (deferred-write decode): the uncommitted chunk's [B, t, KV, D] K/V
-    is written into each row's view at positions [pos, pos + t - 1]
-    (start clamped into the view, as a dynamic slice update clamps),
-    where the pool slots are stale."""
-    kp, vp, li = _stacked(k_pool, v_pool, layer)
-    kp, vp = kp[li], vp[li]                                  # [P,KV,ps,D]
+    with ``layer``; int8 QTensor pools dequantize in q's dtype) and run
+    :func:`_decode_reference`.  ``self_kv`` (deferred-write decode): the
+    uncommitted chunk's [B, t, KV, D] K/V is written into each row's
+    view at positions [pos, pos + t - 1] (start clamped into the view,
+    as a dynamic slice update clamps), where the pool slots are
+    stale."""
+    kc, vc, ks, vs, li = _stacked_cache(k_pool, v_pool, layer)
+    kp, vp = _layer_view(kc, vc, ks, vs, li, q.dtype)        # [P,KV,ps,D]
     b = q.shape[0]
     kv, ps, d = kp.shape[1], kp.shape[2], kp.shape[3]
     table = torch.as_tensor(page_table, device=q.device).long()
@@ -541,81 +691,75 @@ def flash_decode_paged(q, k_pool, v_pool, page_table,
 
     ``q``: [B, H, D] or [B, t, H, D]; pools [P, KV, page, D] or the
     stacked [L, P, KV, page, D] with ``layer`` (read in place — no
-    per-layer slice); ``page_table`` [B, NP] int; ``pos`` int or [B].
-    Without ``self_kv`` the pool already holds the chunk (token tt sees
-    positions <= pos + tt); with ``self_kv`` = ([B, t, KV, D],
-    [B, t, KV, D]) the pool holds positions < pos only and the chunk
-    attends from the self operand, causally within itself.  Returns
-    q's shape."""
+    per-layer slice), plain tensors or int8 :class:`QTensor` s with
+    lane-major scales [(L,) P, KV, 1, page]; ``page_table`` [B, NP] int;
+    ``pos`` int or [B].  Without ``self_kv`` the pool already holds the
+    chunk (token tt sees positions <= pos + tt); with ``self_kv`` =
+    ([B, t, KV, D], [B, t, KV, D]) in q's dtype the pool holds positions
+    < pos only and the chunk attends from the self operand, causally
+    within itself (int8 pools: the caller quantize-dequantizes the chunk
+    so it matches a committed slot).  Returns q's shape."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
-    kp, vp, li = _stacked(k_pool, v_pool, layer)
-    if q.shape[2] % kp.shape[2] or kp.shape[2] != vp.shape[2]:
+    kc, vc, ks, vs, li = _stacked_cache(k_pool, v_pool, layer)
+    if q.shape[2] % kc.shape[2] or kc.shape[2] != vc.shape[2]:
         raise ValueError(f"q heads ({q.shape[2]}) must be a multiple of "
-                         f"pool kv heads ({kp.shape[2]}/{vp.shape[2]})")
+                         f"pool kv heads ({kc.shape[2]}/{vc.shape[2]})")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        out = _paged_decode_reference(q, kp, vp, page_table, pos, scale,
-                                      layer=li, self_kv=self_kv)
+        out = _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
+                                      scale, layer=layer, self_kv=self_kv)
     else:
-        out = _flash_decode_paged_cuda(q, kp, vp, page_table, pos,
+        out = _flash_decode_paged_cuda(q, kc, vc, ks, vs, page_table, pos,
                                        float(scale), li, self_kv)
     return out[:, 0] if squeeze else out
 
 
-def _flash_decode_paged_cuda(q, kp, vp, page_table, pos, scale: float,
-                             layer: int, self_kv):
-    if kp.dtype == torch.int8:
-        raise NotImplementedError(
-            "flash_decode_paged: int8 pools (the scale fold) are not "
-            "ported to the CUDA kernel yet")
-    _check_cuda_operands("flash_decode_paged", q, kp, vp)
+def _flash_decode_paged_cuda(q, kp, vp, ks, vs, page_table, pos,
+                             scale: float, layer: int, self_kv):
+    kv_int8 = _check_kv("flash_decode_paged", q, kp, vp, ks, vs)
     b, t, h, d = q.shape
-    n_layers, n_pages, kvh, ps, dp = kp.shape
-    if dp != d or vp.shape != kp.shape:
-        raise ValueError(f"flash_decode_paged: pools {tuple(kp.shape)} / "
-                         f"{tuple(vp.shape)} do not match q {tuple(q.shape)}")
-    if not (kp.is_contiguous() and vp.is_contiguous()):
-        raise ValueError("flash_decode_paged: pools must be contiguous "
-                         "(the kernel reads them in place)")
+    n_layers, n_pages, kvh, ps, _ = kp.shape
     if not 0 <= layer < n_layers:
         raise ValueError(f"flash_decode_paged: layer {layer} out of range "
                          f"for {n_layers} layers")
     smem = build.kernel("flash_decode_paged", "tfm_flash_decode_paged_smem",
                         [_i] * 5, ctypes.c_longlong)(t, h, kvh, d, ps)
     if smem > _MAX_SMEM:
-        raise ValueError(f"flash_decode_paged: page {ps} x head_dim {d} x "
-                         f"{t * (h // kvh)} query rows needs {smem} bytes "
-                         f"of shared memory (> {_MAX_SMEM})")
+        raise ValueError(f"flash_decode_paged: page {ps} x head_dim {d} "
+                         f"needs {smem} bytes of shared memory (> "
+                         f"{_MAX_SMEM})")
     table = torch.as_tensor(page_table, device=q.device).to(
         torch.int32).contiguous()
     if table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"flash_decode_paged: page table "
                          f"{tuple(table.shape)} for {b} rows")
-    posv = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(
-        -1).expand(b).contiguous()
+    posv = _row_positions(pos, b, q.device)
     q = q.contiguous()
-    ks = vs = None
+    kself = vself = None
     if self_kv is not None:
-        ks, vs = (c.to(q.dtype).contiguous() for c in self_kv)
-        if ks.shape != (b, t, kvh, d) or vs.shape != ks.shape:
+        kself, vself = (c.to(q.dtype).contiguous() for c in self_kv)
+        if kself.shape != (b, t, kvh, d) or vself.shape != kself.shape:
             raise ValueError(f"flash_decode_paged: self_kv "
-                             f"{tuple(ks.shape)} / {tuple(vs.shape)}, want "
-                             f"{(b, t, kvh, d)}")
-        _check_cuda_operands("flash_decode_paged", q, ks, vs)
+                             f"{tuple(kself.shape)} / {tuple(vself.shape)}, "
+                             f"want {(b, t, kvh, d)}")
+        _check_cuda_operands("flash_decode_paged", q, kself, vself)
     out = torch.empty_like(q)
     fn = build.kernel("flash_decode_paged", "tfm_flash_decode_paged",
                       _PAGED_ARGS)
     with torch.cuda.device(q.device):
         LAUNCHES["flash_decode_paged"] += 1
         err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                 ks.data_ptr() if kv_int8 else None,
+                 vs.data_ptr() if kv_int8 else None,
                  table.data_ptr(), posv.data_ptr(),
-                 None if ks is None else ks.data_ptr(),
-                 None if vs is None else vs.data_ptr(), out.data_ptr(),
+                 None if kself is None else kself.data_ptr(),
+                 None if vself is None else vself.data_ptr(), out.data_ptr(),
                  b, t, h, kvh, d, n_pages, ps, table.shape[1], layer,
                  int(self_kv is not None), scale,
-                 int(q.dtype == torch.bfloat16), _stream(q.device))
+                 int(q.dtype == torch.bfloat16), int(kv_int8),
+                 _stream(q.device))
     build.check("flash_decode_paged", err, "flash_decode_paged")
     return out

@@ -2,15 +2,17 @@
 (port of ``examples/serve.py --continuous``, greedy).
 
     python -m tfmesos_tpu_torch.serve [--tiny] [--device cpu] \\
-        [--batch 8] [--n-prompts 24] [--new-tokens 32] [--seed 0]
+        [--batch 8] [--n-prompts 24] [--new-tokens 32] [--seed 0] \\
+        [--int8] [--int8-kv]
 
 Prompts of 4..32 random tokens (seeded) go through
 :class:`~tfmesos_tpu_torch.serving.ContinuousBatcher` with ``--batch``
 concurrent rows; each completion is written as one JSON line
 ``{"rid", "prompt_len", "tokens"}`` on stdout and a summary goes to
 stderr.  Weights are random from ``--seed`` (the flagship
-config by default, ``--tiny`` for the CI model).  Runs on the card
-unless ``--device cpu``.
+config by default, ``--tiny`` for the CI model).  ``--int8`` serves
+weight-only int8 params (``quantize_params``), ``--int8-kv`` keeps the
+page pool int8.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -33,22 +35,30 @@ def main(argv=None) -> int:
     p.add_argument("--n-prompts", type=int, default=24, dest="n_prompts")
     p.add_argument("--new-tokens", type=int, default=32, dest="new_tokens")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--int8", action="store_true",
+                   help="serve weight-only int8 params (quantize_params)")
+    p.add_argument("--int8-kv", action="store_true", dest="int8_kv",
+                   help="store the page pool as int8 (per-position absmax)")
     args = p.parse_args(argv)
 
     import numpy as np
 
     from tfmesos_tpu_torch.device import resolve_device
     from tfmesos_tpu_torch.models.presets import flagship_model, tiny_model
+    from tfmesos_tpu_torch.models.transformer import quantize_params
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
     device = resolve_device(args.device)
-    cfg, params = (tiny_model(args.seed) if args.tiny
-                   else flagship_model(args.seed))
+    cfg, params = (tiny_model(args.seed, device=device) if args.tiny
+                   else flagship_model(args.seed, device=device))
+    if args.int8:
+        params = quantize_params(cfg, params)
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(4, 33))
                for _ in range(args.n_prompts)]
     batcher = ContinuousBatcher(cfg, params, rows=args.batch, page_size=64,
-                                prefill_bucket=64, device=device)
+                                prefill_bucket=64,
+                                quantized_cache=args.int8_kv, device=device)
     reqs = [Request(prompt=t, max_new_tokens=args.new_tokens)
             for t in prompts]
     for r in reqs:

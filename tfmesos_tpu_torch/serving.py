@@ -37,6 +37,7 @@ from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
                                                   TransformerConfig,
                                                   decode_step,
                                                   init_paged_cache)
+from tfmesos_tpu_torch.ops.quant import QTensor
 
 __all__ = ["Request", "Completion", "ContinuousBatcher", "SubmissionQueue"]
 
@@ -221,9 +222,12 @@ class ContinuousBatcher:
     max_len`` plus the sink page); prompts pad up to a multiple of
     ``prefill_bucket``; ``rid_seed`` is the first request id.  Runs on
     the card unless ``device="cpu"`` (no card and no ``device`` raises).
-    ``params`` are the float32 masters; the batcher keeps a copy cast
-    once to the compute dtype (the model casts every weight at use, so
-    the bits are the same).
+    ``params`` are the float32 masters or a ``quantize_params`` tree;
+    the batcher keeps a copy cast once to the compute dtype (the model
+    casts every weight and int8 scale at use, so the bits are the same).
+    ``quantized_cache=True`` stores the page pool as int8 with
+    per-position scales (the full int8 serving configuration with int8
+    params).
 
     Counters for measurement: ``prefills`` (prefill calls),
     ``decode_ticks``, ``decode_tokens`` and ``decode_seconds`` (wall
@@ -234,7 +238,7 @@ class ContinuousBatcher:
                  max_len: Optional[int] = None, page_size: int = 64,
                  n_pages: Optional[int] = None, prefill_bucket: int = 64,
                  temperature: float = 0.0, rid_seed: int = 0,
-                 device=None):
+                 quantized_cache: bool = False, device=None):
         if rows < 1:
             raise ValueError(f"rows must be >= 1, got {rows}")
         if not 0 <= int(rid_seed) < 2 ** 30:
@@ -263,6 +267,7 @@ class ContinuousBatcher:
         self.t_side = _PagedSide(self.n_pages, self.page_size, self.rows,
                                  self.np_max)
         self.pool = init_paged_cache(cfg, self.n_pages, self.page_size,
+                                     quantized=quantized_cache,
                                      device=self.device)
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
@@ -524,9 +529,15 @@ class ContinuousBatcher:
 
 def _to_device(params: Params, device: torch.device,
                dtype: torch.dtype) -> Params:
-    """Every leaf on ``device`` in ``dtype``.  The model casts each
-    weight to the compute dtype at use, so params cast once give the
-    same bits while skipping the per-call casts."""
+    """Every leaf on ``device`` in ``dtype`` (an int8 :class:`QTensor`
+    keeps its int8 values and casts its scales).  The model casts each
+    weight and scale to the compute dtype at use, so params cast once
+    give the same bits while skipping the per-call casts."""
+    def leaf(v):
+        if isinstance(v, QTensor):
+            return QTensor(v.values.to(device),
+                           v.scales.to(device=device, dtype=dtype))
+        return v.to(device=device, dtype=dtype)
+
     return {k: (_to_device(v, device, dtype) if isinstance(v, dict)
-                else v.to(device=device, dtype=dtype))
-            for k, v in params.items()}
+                else leaf(v)) for k, v in params.items()}
