@@ -15,11 +15,23 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    atol 1e-3; paged decode: atol 2e-2 — bf16 operands, fp32
    accumulation in a different order), and times kernel, plain version
    and one PyTorch library call as a yardstick (CUDA-event medians),
-   beside the bound; then, for correctness only, GQA in bf16 and the
-   float32 kernels at the tiny preset's head_dim 8 (atol 1e-4); then
-   the linear-cache decode kernel (bf16 [4, KV 8, M 16384, 64] at pos
-   1024, int8 [8, M 384] at pos 300; checks of a ragged 16-token GQA
-   int8 chunk and float32 at head_dim 8: atol 2e-2 bf16, 1e-4 float32),
+   beside the bound, with the flash_fwd route (wgmma / mma.sync / fma)
+   and query rows per CTA as the C entry reports its launch (for
+   flash_fwd and the timed flash_decode cases also the host microseconds
+   a call takes to enqueue); the forward also at q_offset 64 with a
+   window over 364 keys, [4, 1000] and GQA at the training shape; then,
+   for correctness only, GQA in bf16, the float32 kernels at the tiny
+   preset's head_dim 8 (atol 1e-4), head_dim 128 and full attention on
+   wgmma, and bf16 head_dim 16 and 32 on mma.sync; then the linear-cache
+   decode kernel with the split count S its launch reports (bf16
+   [4, KV 8, M 16384, 64] at pos 1024, int8 [8, M 384] at pos 300, and
+   the long-context one cold: 8 layers in turn, so their live K/V exceed
+   L2, beside SDPA cycled the same way; checks of a ragged 16-token GQA
+   int8 chunk, float32 at head_dim 8, ragged long context pos [0, 1024,
+   9000, 16383] in bf16, int8 and float32, and M = 301: 2e-2 bf16, 1e-4
+   float32, both absolute and per output row over the row's own
+   magnitude; and per row against ``_decode_split_reference`` at the
+   launch's S, 1e-2 bf16, 1e-5 float32),
    the paged kernel's int8 fold at the serving shape (t=1 and t=4 with
    self_kv, atol 2e-2), and the int8 quantize kernel at every flagship
    weight leaf's shape and a cache write's (round-to-nearest and seeded
@@ -55,14 +67,16 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
 10. generates with the full int8 configuration (flagship weights seeded
     0 through ``quantize_params`` on the card, an int8 KV cache; batch 8,
     prompt 128, 256 new tokens, greedy): exactly 9 + 2 x 8 x 256
-    quant_int8, 8 flash_fwd and 8 x 255 flash_decode launches, and the
+    quant_int8, 8 flash_fwd and 8 x 255 flash_decode launches (and as
+    many flash_decode_merge where the shapes split the cache), and the
     tokens teacher-forced against a float32 CPU run with the same int8
     weights over an int8 cache (the phase-6 margin rule); prints decode
     tokens/s without the prefill, ms per step and a profile of 16 steps;
 11. generates in bf16 at long context (batch 4 over a 16384-slot cache,
     prompt 1024, 64 new tokens): exactly 8 flash_fwd and 8 x 63
-    flash_decode launches, the tokens teacher-forced against the card's
-    own ``forward``; tokens/s, ms per step and a profile of 16 steps;
+    flash_decode launches (and merges), the tokens teacher-forced against
+    the card's own ``forward``; tokens/s, ms per step and a profile of
+    16 steps;
 12. serves phase 5's 16 requests with int8 weights over an int8 page
     pool: 8 flash_decode_paged launches per tick, 8 flash_fwd per
     prefill, 2 quant_int8 per prefill and 18 per tick, and two requests
@@ -104,6 +118,14 @@ PAGED_ATOL = 2e-2
 # summation order and where an int8 scale multiplies.
 DECODE_ATOL = 2e-2
 DECODE_F32_ATOL = 1e-4
+# The same kernel against ``_decode_split_reference`` at its split count:
+# that plain version partitions as the kernel does (splits, and each
+# warp's 16-key slice of a block), so p rounds to bf16 at the same
+# points and what remains is summation order and the output's own
+# rounding — 1e-2 of a row's magnitude is ~2.5 bf16 ulps of its largest
+# element.
+SPLIT_BF16_TOL = 1e-2
+SPLIT_F32_TOL = 1e-5
 # Teacher-forced check: a generated position counts when the float32
 # CPU logits' top-1 beats top-2 by more than this.  bf16 compute on the
 # card rounds activations at ~2^-8 relative through 8 layers; the card's
@@ -158,6 +180,78 @@ def cuda_ms(torch, fn, reps: int = 5, n: int = 20) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / n)
     return statistics.median(out)
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Median over 5 runs of the host microseconds one call of ``fn``
+    takes to enqueue its work: a device-side sleep ahead of each run
+    keeps the device from ever stalling the host.  The decode paths are
+    host-bound, so this is their wrappers' cost."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(5):
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def row_err(out, ref) -> float:
+    """Largest error of any output row (the last dim) over that row's own
+    magnitude, the magnitude capped at 1 so the measure is never looser
+    than the absolute error.  A decode row over 16k positions averages
+    them into values ~100x smaller than a row at position 0, whose bf16
+    rounding would otherwise set the whole tensor's maximum."""
+    d = out.shape[-1]
+    o, r = out.float().reshape(-1, d), ref.float().reshape(-1, d)
+    mag = r.abs().amax(-1).clamp(min=1e-12, max=1.0)
+    return float(((o - r).abs().amax(-1) / mag).max())
+
+
+def last_launch(lib: str, symbol: str, n: int):
+    """The ``n`` ints a kernel library reports about this thread's last
+    launch (its ``tfm_*_last_launch`` entry): what the C side ran, read
+    back rather than recomputed from the wrapper's plan."""
+    import ctypes
+
+    from tfmesos_tpu_torch.kernels import build
+
+    out = (ctypes.c_int * n)()
+    build.kernel(lib, symbol, [ctypes.c_void_p], None)(out)
+    return list(out)
+
+
+FWD_ROUTES = ("fma", "mma.sync", "wgmma")
+
+
+def fwd_launched(torch, ta, q):
+    """(route, query rows per CTA) of the last flash_fwd launch as the C
+    entry reports it, required to equal the wrapper's static rule."""
+    code, rows = last_launch("flash_fwd", "tfm_flash_fwd_last_launch", 5)[:2]
+    b, t, h, d = q.shape
+    plan = ta._flash_fwd_route(q.dtype, d, b, t, h, ta._sm_count(q.device))
+    got = (FWD_ROUTES[code], rows)
+    need(got == plan, f"flash_fwd {tuple(q.shape)} launched {got}, the "
+         f"wrapper's rule says {plan}")
+    return got
+
+
+def decode_launched(ta, q, kc):
+    """Split count S of the last flash_decode launch as the C entry
+    reports it (its grid's z), required to equal ``_decode_plan`` and to
+    come with a merge exactly when S > 1."""
+    grid = last_launch("flash_decode", "tfm_flash_decode_last_launch", 4)
+    qq = q if q.dim() == 4 else q[:, None]
+    plan = ta._decode_plan(qq, kc)
+    need(grid[2] == plan and (grid[3] > 0) == (plan > 1),
+         f"flash_decode {tuple(q.shape)} launched grid {grid[:3]} merge "
+         f"{grid[3]}, the wrapper's plan says S {plan}")
+    return grid[2]
 
 
 def bound(bytes_: float, flops: float, peak: float = BF16_FLOPS):
@@ -229,41 +323,52 @@ def phase_kernels(torch):
     scale = 1.0 / math.sqrt(d)
     flash_rows = []
 
-    def flash_case(b, t, window, draw):
-        q, k, v = draw(b, t, h, d), draw(b, t, h, d), draw(b, t, h, d)
-        o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window)
-        o_p, lse_p = ta.flash_attention_reference(q, k, v, causal=True,
-                                                  scale=scale, window=window)
+    def flash_case(b, t, window, draw, kv=h, tk=None, q_offset=0):
+        tk = t if tk is None else tk
+        q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
+        o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window,
+                                      q_offset=q_offset)
+        route, rows = fwd_launched(torch, ta, q)
+        o_p, lse_p = ta.flash_attention_reference(
+            q, k, v, causal=True, scale=scale, window=window,
+            q_offset=q_offset)
         torch.cuda.synchronize()
         err_o = float((o_k.float() - o_p.float()).abs().max())
         err_l = float((lse_k - lse_p).abs().max())
         need(err_o <= FLASH_O_ATOL and err_l <= FLASH_LSE_ATOL,
-             f"flash_fwd [{b},{t},{h},{d}] window={window}: o err {err_o} "
-             f"lse err {err_l}")
-        ms = cuda_ms(torch, lambda: ta.flash_forward(q, k, v, causal=True,
-                                                     window=window))
+             f"flash_fwd [{b},{t},{h},{d}] kv={kv} tk={tk} window={window} "
+             f"q_offset={q_offset}: o err {err_o} lse err {err_l}")
+        ms = cuda_ms(torch, lambda: ta.flash_forward(
+            q, k, v, causal=True, window=window, q_offset=q_offset))
+        enqueue = host_us(torch, lambda: ta.flash_forward(
+            q, k, v, causal=True, window=window, q_offset=q_offset))
         plain = cuda_ms(torch, lambda: ta.flash_attention_reference(
-            q, k, v, causal=True, scale=scale, window=window))
+            q, k, v, causal=True, scale=scale, window=window,
+            q_offset=q_offset))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if window is None:
+        gqa = {"enable_gqa": True} if kv != h else {}
+        allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
+        if window is None and q_offset == 0 and tk == t:
             lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-            pairs = b * t * (t + 1) // 2
+                qt, kt, vt, is_causal=True, **gqa))
         else:
-            allow = ~ta._causal_mask(t, t, 0, window, dev)
             lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=allow))
-            pairs = b * int(allow.sum())
+                qt, kt, vt, attn_mask=allow, **gqa))
+        pairs = b * int(allow.sum())
         flops = 4 * pairs * h * d
-        bytes_ = 4 * b * t * h * d * 2 + b * h * t * 4
+        bytes_ = (2 * b * t * h * d + 2 * b * tk * kv * d) * 2 + b * h * t * 4
         bms, by = bound(bytes_, flops)
-        row = {"shape": [b, t, h, d], "window": window, "max_abs_err": err_o,
-               "lse_err": err_l, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": bms, "bound_by": by}
+        row = {"shape": [b, t, h, d], "kv": kv, "tk": tk, "window": window,
+               "q_offset": q_offset, "route": route, "block_rows": rows,
+               "max_abs_err": err_o, "lse_err": err_l, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+               "bound_by": by, "host_us": enqueue}
         flash_rows.append(row)
-        say(f"  flash_fwd {row['shape']} window={window}: kernel_ms "
-            f"{ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-            f"{bms:.5f} ({by}) o_err {err_o:.2e} lse_err {err_l:.2e}")
+        say(f"  flash_fwd {row['shape']} kv={kv} tk={tk} window={window} "
+            f"q_offset={q_offset} [{route}, BQ {rows}]: kernel_ms {ms:.4f} "
+            f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+            f"{bms:.5f} ({by}) o_err {err_o:.2e} lse_err {err_l:.2e} "
+            f"host_us {enqueue:.1f}")
 
     for b, t, window in [(1, 64, None), (1, 512, None), (1, 1000, None),
                          (4, 1024, None), (1, 512, 128)]:
@@ -331,6 +436,18 @@ def phase_kernels(torch):
     gen_train = torch.Generator().manual_seed(2)
     flash_case(8, 2048, None, lambda *shape: torch.randn(
         shape, generator=gen_train).to(dev, torch.bfloat16))
+    # Cases added with the wgmma kernel, from a generator of their own:
+    # q_offset with a window over a longer key sequence, a 1000-token
+    # batch of 4 (a ragged T at BQ 128), GQA at the training shape.
+    gen_new = torch.Generator().manual_seed(6)
+
+    def draw_new(*shape):
+        return torch.randn(shape, generator=gen_new).to(dev, torch.bfloat16)
+
+    flash_case(2, 300, 100, draw_new, tk=364, q_offset=64)
+    flash_case(4, 1000, None, draw_new)
+    flash_case(8, 2048, None, draw_new, kv=2)
+    check_forward_routes(torch, ta, draw_new)
     return flash_rows, paged_rows
 
 
@@ -369,6 +486,40 @@ def check_other_paths(torch, ta, gen):
     say(f"  other paths: flash_fwd GQA bf16 err {err:.2e}, flash_fwd "
         f"float32 head_dim 8 err {err32:.2e}, flash_decode_paged float32 "
         f"head_dim 8 err {errd:.2e}")
+
+
+def check_forward_routes(torch, ta, draw):
+    """Correctness only (o atol 2e-2, lse atol 1e-3): the wgmma forward at
+    head_dim 128 (both query block sizes, GQA, a window) and without the
+    causal mask over a longer key sequence; then the mma.sync kernel that
+    bf16 head_dim 16 and 32 take — causal with GQA, a window with
+    q_offset over more keys than queries, and full attention."""
+    out = []
+    for b, t, tk, h, kv, d, causal, window, q_offset in [
+            (4, 1000, 1000, 8, 8, 128, True, None, 0),
+            (1, 300, 300, 4, 2, 128, True, 100, 0),
+            (2, 200, 333, 4, 4, 64, False, None, 0),
+            (2, 300, 300, 8, 2, 16, True, None, 0),
+            (1, 200, 264, 4, 4, 32, True, 50, 64),
+            (2, 130, 200, 4, 2, 32, False, None, 0),
+            (1, 100, 100, 4, 1, 16, True, 30, 0)]:
+        q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
+        o_k, lse_k = ta.flash_forward(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+        route = fwd_launched(torch, ta, q)
+        o_p, lse_p = ta.flash_attention_reference(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
+        torch.cuda.synchronize()
+        err_o = float((o_k.float() - o_p.float()).abs().max())
+        err_l = float((lse_k - lse_p).abs().max())
+        need(err_o <= FLASH_O_ATOL and err_l <= FLASH_LSE_ATOL,
+             f"flash_fwd check [{b},{t},{h},{d}] kv={kv} tk={tk} "
+             f"causal={causal} window={window} q_offset={q_offset} "
+             f"{route}: o err {err_o} lse err {err_l}")
+        out.append(f"[{b},{t},{h},{d}] kv {kv} tk {tk} causal {causal} "
+                   f"window {window} q_offset {q_offset} {route[0]} BQ "
+                   f"{route[1]}: o {err_o:.2e} lse {err_l:.2e}")
+    say("  flash_fwd checks: " + "; ".join(out))
 
 
 def phase_backward(torch):
@@ -492,7 +643,8 @@ def phase_serve(torch, np):
     need(launches["flash_decode_paged"] == L * batcher.decode_ticks,
          f"flash_decode_paged launches {launches['flash_decode_paged']} "
          f"!= {L} x {batcher.decode_ticks} decode ticks")
-    need(launches["flash_decode"] == launches["quant_int8"] == 0,
+    need(launches["flash_decode"] == launches["flash_decode_merge"]
+         == launches["quant_int8"] == 0,
          f"bf16 serving launched the linear decode or quant kernel: "
          f"{launches}")
     ttft = sorted(c.ttft_s * 1e3 for c in comps)
@@ -529,10 +681,18 @@ def profile_serving(torch, np, batcher, cfg):
     return out
 
 
+# The port's kernel functions (csrc/*.cu), as the profiler names them.
+PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
+                "flash_fwd_fma_kernel", "split_decode_kernel",
+                "merge_partials", "paged_decode_kernel", "flash_bwd_dq_",
+                "flash_bwd_dkv_", "quant_kernel")
+
+
 def profile(torch, fn):
     """Run ``fn`` once under torch.profiler: wall ms, device ms, the
-    device-busy share (device time over wall time) and the top six
-    device kernels by time."""
+    device-busy share (device time over wall time), the top six device
+    kernels by time, and the device ms and launches of each of the
+    port's kernels that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -548,10 +708,18 @@ def profile(torch, fn):
                if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    port = {}
+    for e in kernels:
+        for name in PORT_KERNELS:
+            if name in e.key:
+                ms, n = port.get(name, (0.0, 0))
+                port[name] = (ms + e.self_device_time_total / 1e3,
+                              n + e.count)
     return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
             "device_busy_share": dev_us / wall_us,
             "top_kernels": [(e.key[:60], e.self_device_time_total / 1e3,
-                             e.count) for e in top]}
+                             e.count) for e in top],
+            "port_kernels": port}
 
 
 def phase_teacher_forced(torch, cfg, params, comps):
@@ -635,7 +803,8 @@ def phase_train(torch):
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         need(launches[key] == L * TRAIN_STEPS,
              f"{key} launches {launches[key]} != {L} x {TRAIN_STEPS} steps")
-    for key in ("flash_decode_paged", "flash_decode", "quant_int8"):
+    for key in ("flash_decode_paged", "flash_decode", "flash_decode_merge",
+                "quant_int8"):
         need(launches[key] == 0, f"{key} launched in training")
     # The host cost of the input stream, alone: its Python loop over T.
     stream = token_batches(args.batch_size, run.seq_len, run.cfg.vocab_size,
@@ -734,10 +903,14 @@ def phase_decode_kernels(torch):
     the earlier cases keep their inputs)."""
     import torch.nn.functional as F
 
+    from tfmesos_tpu_torch.kernels import build
     from tfmesos_tpu_torch.ops import attention as ta
     from tfmesos_tpu_torch.ops import quant as tq
 
     dev = torch.device("cuda")
+    rt = build.kernel("flash_decode", "tfm_flash_decode_row_tile", [])()
+    need(rt == ta._DECODE_ROW_TILE, f"flash_decode row tile: kernel {rt}, "
+         f"wrapper {ta._DECODE_ROW_TILE}")
     gen = torch.Generator().manual_seed(3)
 
     def randn(shape, dtype=torch.bfloat16):
@@ -753,18 +926,32 @@ def phase_decode_kernels(torch):
             kc, vc = _lane_int8(tq, kc), _lane_int8(tq, vc)
         posv = torch.tensor(pos, dtype=torch.int32, device=dev)
         out = ta.flash_decode(q, kc, vc, posv, layer=layer)
+        splits = decode_launched(ta, q, kc.values if int8 else kc)
         ref = ta.flash_decode_reference(q, kc, vc, posv, layer=layer)
+        split_ref = ta._decode_split_reference(q, kc, vc, posv, None, splits,
+                                               layer=layer)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        tol = DECODE_ATOL if dtype == torch.bfloat16 else DECODE_F32_ATOL
+        err_row = row_err(out, ref)
+        err_split = row_err(out, split_ref)
+        bf = dtype == torch.bfloat16
+        tol = DECODE_ATOL if bf else DECODE_F32_ATOL
+        split_tol = SPLIT_BF16_TOL if bf else SPLIT_F32_TOL
         shape = {"b": b, "t": t, "h": h, "kv": kv, "m": m, "d": d,
                  "pos": pos, "dtype": str(dtype).split(".")[-1],
                  "int8": int8}
-        need(bool(torch.isfinite(out).all()) and err <= tol,
-             f"flash_decode {shape}: err {err} > {tol}")
-        row = {"shape": shape, "max_abs_err": err, "tol": tol}
+        need(bool(torch.isfinite(out).all()) and err <= tol
+             and err_row <= tol and err_split <= split_tol,
+             f"flash_decode {shape}: err {err}, per row {err_row} (tol "
+             f"{tol}); per row against the S {splits} split reference "
+             f"{err_split} (tol {split_tol})")
+        row = {"shape": shape, "max_abs_err": err, "row_err": err_row,
+               "tol": tol, "split_ref_row_err": err_split,
+               "split_tol": split_tol, "splits": splits}
         if time_it:
             row["ms"] = cuda_ms(torch, lambda: ta.flash_decode(
+                q, kc, vc, posv, layer=layer))
+            row["host_us"] = host_us(torch, lambda: ta.flash_decode(
                 q, kc, vc, posv, layer=layer))
             row["plain_ms"] = cuda_ms(torch, lambda: ta.flash_decode_reference(
                 q, kc, vc, posv, layer=layer))
@@ -790,12 +977,16 @@ def phase_decode_kernels(torch):
             keys = sum(p + tt + 1 for p in pos for tt in range(t))
             row["bound_ms"], row["bound_by"] = bound(bytes_,
                                                      4 * keys * h * d)
-            say(f"  flash_decode {shape}: kernel_ms {row['ms']:.4f} "
-                f"plain_ms {row['plain_ms']:.4f} library_ms "
-                f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
-                f"({row['bound_by']}) err {err:.2e}")
+            say(f"  flash_decode {shape} [S {splits}]: kernel_ms "
+                f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+                f"library_ms {row['library_ms']:.4f} bound_ms "
+                f"{row['bound_ms']:.5f} ({row['bound_by']}) err {err:.2e} "
+                f"row_err {err_row:.2e} split_ref_row_err {err_split:.2e} "
+                f"host_us {row['host_us']:.1f}")
         else:
-            say(f"  flash_decode check {shape}: err {err:.2e} (tol {tol})")
+            say(f"  flash_decode check {shape} [S {splits}]: err {err:.2e} "
+                f"row_err {err_row:.2e} (tol {tol}) split_ref_row_err "
+                f"{err_split:.2e} (tol {split_tol})")
         decode_rows.append(row)
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -805,6 +996,24 @@ def phase_decode_kernels(torch):
     decode_case(4, 1, 8, 2, 1024, 64, [0, 5, 511, 1000], bf16, False, False)
     decode_case(2, 4, 4, 2, 300, 8, [0, 250], f32, False, False)
     decode_case(2, 40, 4, 1, 300, 8, [3, 250], f32, True, False)
+    cold = decode_cold(torch, ta, F)
+    # Cases added with the split kernel, from a generator of their own
+    # (the draws below keep their inputs): ragged long context, bf16 and
+    # int8, and M = 301, whose odd heads' spans are not 16-byte aligned
+    # (the producer warp loads them itself).
+    main_gen, gen = gen, torch.Generator().manual_seed(7)
+    ragged = [0, 1024, 9000, 16383]
+    decode_case(4, 1, 8, 8, 16384, 64, ragged, bf16, False, False)
+    decode_case(4, 1, 8, 8, 16384, 64, ragged, bf16, True, False)
+    decode_case(3, 2, 8, 4, 301, 64, [0, 150, 298], bf16, True, False)
+    decode_case(3, 1, 4, 4, 301, 8, [0, 150, 300], bf16, False, False)
+    decode_case(2, 3, 8, 2, 700, 128, [0, 600], bf16, True, False)
+    # Ragged long context in float32, from a generator of its own: at S 9
+    # the pos-16383 row's shares are 29 blocks, so the 4-stage ring wraps
+    # seven times under the tight float32 tolerance.
+    gen = torch.Generator().manual_seed(8)
+    decode_case(4, 1, 8, 8, 16384, 64, ragged, f32, False, False)
+    gen = main_gen
 
     # The paged kernel's int8 fold at the serving shape.
     n_layers, rows, kv, ps, np_, h, d, layer = 8, 8, 8, 64, 16, 8, 64, 3
@@ -926,7 +1135,58 @@ def phase_decode_kernels(torch):
         f"plain_ms {total['plain_ms']:.4f} bound_ms "
         f"{total['bound_ms']:.5f}; half-step stochastic means "
         f"{statistics.mean(means):.3f}")
-    return decode_rows, paged_rows, quant_rows, total
+    return decode_rows, cold, paged_rows, quant_rows, total
+
+
+def decode_cold(torch, ta, F):
+    """flash_decode as generate calls it: bf16 [4, KV 8, M 16384, 64] at
+    pos 1024, one launch per layer of an 8-layer stacked cache in turn,
+    so the ~67 MB of live K/V (8 layers x 4 rows x 8 heads x 1,025
+    positions x 64 x 2 bytes x 2) exceed the 50 MB L2 and every launch
+    reads its layer from device memory; SDPA over the live prefix cycled
+    the same way.  Warm numbers are phase 3's first decode row."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    n_layers, b, kv, m, d, pos = 8, 4, 8, 16384, 64, 1024
+    q = torch.randn((b, 1, kv, d), generator=gen).to(dev, torch.bfloat16)
+    kc, vc = (torch.randn((n_layers, b, kv, m, d), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    posv = torch.full((b,), pos, dtype=torch.int32, device=dev)
+    turn = [0]
+
+    def next_layer():
+        turn[0] = (turn[0] + 1) % n_layers
+        return turn[0]
+
+    out = ta.flash_decode(q, kc, vc, posv, layer=5)
+    splits = decode_launched(ta, q, kc)
+    ref = ta.flash_decode_reference(q, kc, vc, posv, layer=5)
+    split_ref = ta._decode_split_reference(q, kc, vc, posv, None, splits,
+                                           layer=5)
+    err = float((out.float() - ref.float()).abs().max())
+    err_row, err_split = row_err(out, ref), row_err(out, split_ref)
+    need(err <= DECODE_ATOL and err_row <= DECODE_ATOL
+         and err_split <= SPLIT_BF16_TOL,
+         f"flash_decode cold case: err {err}, per row {err_row}, per row "
+         f"against the split reference {err_split}")
+    ms = cuda_ms(torch, lambda: ta.flash_decode(q, kc, vc, posv,
+                                                layer=next_layer()), n=32)
+    qh = q.transpose(1, 2)
+    live = [(kc[i][:, :, :pos + 1], vc[i][:, :, :pos + 1])
+            for i in range(n_layers)]
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, *live[next_layer()]), n=32)
+    bytes_ = 2 * b * kv * (pos + 1) * d * 2 + 2 * b * kv * d * 2 + 4 * b
+    bms, by = bound(bytes_, 4 * b * (pos + 1) * kv * d)
+    row = {"shape": {"layers": n_layers, "b": b, "kv": kv, "m": m, "d": d,
+                     "pos": pos}, "max_abs_err": err, "row_err": err_row,
+           "split_ref_row_err": err_split, "splits": splits, "ms": ms,
+           "library_ms": lib, "bound_ms": bms, "bound_by": by}
+    say(f"  flash_decode cold L2 (8 layers in turn) [S {splits}]: kernel_ms "
+        f"{ms:.4f} library_ms {lib:.4f} bound_ms {bms:.5f} ({by}) err "
+        f"{err:.2e} row_err {err_row:.2e} split_ref_row_err "
+        f"{err_split:.2e}")
+    return row
 
 
 def _to(params, dev):
@@ -997,6 +1257,16 @@ def _generate_rate(torch, run, prefill, new_tokens, batch, reps=2):
         decode / (new_tokens - 1) * 1e3
 
 
+def decode_splits(cfg, batch, slots):
+    """Split count of a generate step's flash_decode launch (t = 1) over a
+    cache of ``slots`` positions on this card."""
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    tiles = -(-(cfg.n_heads // cfg.kv_heads) // ta._DECODE_ROW_TILE)
+    return ta._decode_splits(batch, cfg.kv_heads, tiles, slots,
+                             ta._sm_count("cuda"))
+
+
 def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
@@ -1017,9 +1287,13 @@ def phase_generate_int8(torch):
     first_s = time.perf_counter() - t0
     launches = read_launches()
     L = cfg.n_layers
+    # The merge kernel runs after every decode launch whose shapes split
+    # the cache (static: batch, kv heads, row tiles, cache slots).
+    merges = L * (new - 1) if decode_splits(cfg, batch, plen + new) > 1 \
+        else 0
     want = {"quant_int8": 9 + 2 * L * new, "flash_fwd": L,
-            "flash_decode": L * (new - 1), "flash_decode_paged": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode": L * (new - 1), "flash_decode_merge": merges,
+            "flash_decode_paged": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     need(launches == want, f"int8 generate launches {launches} != {want}")
     need(tuple(out.shape) == (batch, plen + new)
          and bool(((out >= 0) & (out < cfg.vocab_size)).all())
@@ -1069,8 +1343,10 @@ def phase_generate_long(torch):
     torch.cuda.synchronize()
     launches = read_launches()
     L = cfg.n_layers
+    merges = L * (new - 1) if decode_splits(cfg, batch, max_len) > 1 else 0
     want = {"quant_int8": 0, "flash_fwd": L, "flash_decode": L * (new - 1),
-            "flash_decode_paged": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode_merge": merges, "flash_decode_paged": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     need(launches == want, f"long-context generate launches {launches} != "
          f"{want}")
 
@@ -1131,7 +1407,8 @@ def phase_serve_int8(torch, np, reqs):
          "int8 serving: a request did not complete its 32 tokens")
     want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
             "quant_int8": 2 * n_pre + (2 * L + 2) * ticks,
-            "flash_decode": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode": 0, "flash_decode_merge": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     need(n_pre == 16 and ticks > 0 and launches == want,
          f"int8 serving launches {launches} != {want} ({n_pre} prefills, "
          f"{ticks} ticks)")
@@ -1179,7 +1456,7 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     flash_rows, paged_rows = phase_kernels(torch)
-    decode_rows, paged8_rows, quant_rows, quant_total = \
+    decode_rows, decode_cold_row, paged8_rows, quant_rows, quant_total = \
         phase_decode_kernels(torch)
     bwd_rows, bwd_checks = phase_backward(torch)
     cfg, params, reqs, comps, stats = phase_serve(torch, np)
@@ -1227,13 +1504,18 @@ def main() -> int:
 
     kernels = [
         entry_of("flash_fwd", "tfmesos_tpu_torch/csrc/flash_fwd.cu",
-                 "tfmesos_tpu/ops/attention.py:127", flash_rows, 1),
+                 "tfmesos_tpu/ops/attention.py:127", flash_rows, 1,
+                 routes={f"{r['shape']} kv {r['kv']} tk {r['tk']}":
+                         [r["route"], r["block_rows"]] for r in flash_rows}),
         entry_of("flash_decode_paged",
                  "tfmesos_tpu_torch/csrc/flash_decode_paged.cu",
                  "tfmesos_tpu/ops/attention.py:871",
                  paged_rows + paged8_rows, 0),
         entry_of("flash_decode", "tfmesos_tpu_torch/csrc/flash_decode.cu",
-                 "tfmesos_tpu/ops/attention.py:596", decode_rows, 0),
+                 "tfmesos_tpu/ops/attention.py:596", decode_rows, 0,
+                 splits=decode_rows[0]["splits"],
+                 merge_launches=launches_of("flash_decode_merge"),
+                 cold_l2=decode_cold_row),
         bwd_entry("flash_bwd_dq", "dq", "tfmesos_tpu/ops/attention.py:246",
                   ("dq",)),
         bwd_entry("flash_bwd_dkv", "dkv", "tfmesos_tpu/ops/attention.py:302",

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Loaded libraries by kernel name: a memo of the idempotent build, kept
 # for the life of the process so each launch is one ctypes call.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def sources() -> List[Path]:
@@ -110,14 +111,21 @@ def kernel(name: str, symbol: str, argtypes: Sequence,
     """The C entry ``symbol`` of kernel library ``name`` with its
     argument and result types declared (building and loading on first
     use).  Pointers and the stream are ``c_void_p``, ints ``c_int``; a
-    launch entry returns an ``int`` CUDA error code."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build()[name]))
-        _LIBS[name] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = restype
+    launch entry returns an ``int`` CUDA error code.  The declared entry
+    is memoized: a wrapper asks for it on every launch."""
+    key = (name, symbol, tuple(argtypes), restype)
+    fn = _FNS.get(key)
+    if fn is None:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build()[name]))
+            _LIBS[name] = lib
+        # A fresh function object per declaration, so two declarations
+        # of one symbol never overwrite each other's types.
+        fn = lib[symbol]
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _FNS[key] = fn
     return fn
 
 

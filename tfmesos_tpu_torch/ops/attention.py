@@ -23,8 +23,9 @@ Kernels (``tfmesos_tpu_torch/csrc``):
   deferred ``self_kv`` with intra-chunk causality, int8 pools);
 * ``flash_decode.cu`` replaces ``_flash_decode_kernel`` (decode over a
   linear stacked cache, ragged positions, chunks of any length, int8
-  caches).  The two decode kernels share their score tile and
-  online-softmax step (``csrc/decode_common.cuh``).
+  caches), each row's live blocks split over S CTAs whose partials a
+  second kernel merges (``flash_decode_merge``).  The two decode kernels
+  share their rounding rules (``csrc/decode_common.cuh``).
 
 int8 caches are :class:`~tfmesos_tpu_torch.ops.quant.QTensor` s with
 lane-major per-position scales; the kernels fold the scales into the
@@ -49,7 +50,7 @@ NEG_INF = float("-inf")
 #: that zeroes these before serving or training and reads them after
 #: proves that the path went through the kernels.
 LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0, "flash_decode": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: head_dim the flash_fwd kernel takes, per dtype (bf16 runs on the
@@ -58,15 +59,24 @@ _FLASH_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128),
                     torch.float32: (8, 16, 32, 64, 128)}
 #: Shared memory one Hopper CTA may use (232,448 bytes).
 _MAX_SMEM = 232448
+#: flash_decode: keys per block (a split's unit), query rows per CTA (the
+#: kernel's tfm_flash_decode_row_tile), consumer warps per CTA (each owns
+#: a contiguous slice of every block's keys), the most splits, and the
+#: head_dims its kernel takes.
+_DECODE_BLOCK = 64
+_DECODE_ROW_TILE = 4
+_DECODE_WARPS = 4
+_DECODE_MAX_SPLITS = 64
+_DECODE_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-                   _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _p]
+                   _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _i, _p]
 # Decode entries: operand and output pointers, then the int sizes, scale,
 # is_bf16, kv_int8, stream.
 _PAGED_ARGS = [_p] * 10 + [_i] * 10 + [_f, _i, _i, _p]
-_DECODE_ARGS = [_p] * 7 + [_i] * 7 + [_f, _i, _i, _p]
+_DECODE_ARGS = [_p] * 10 + [_i] * 8 + [_f, _i, _i, _p]
 # Backward entries: operand and output pointers, then B, Tq, Tk, H, KV,
 # D, causal, window, q_offset, scale, is_bf16, out_f32, stream.
 _BWD_TAIL = [_i] * 9 + [_f, _i, _i, _p]
@@ -384,6 +394,72 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (memoized)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _flash_fwd_block_rows(b: int, tq: int, h: int, sms: int) -> int:
+    """Query rows per CTA of the wgmma forward kernel: 128 (two consumer
+    warpgroups) when ceil(tq / 128) x h x b CTAs fill the ``sms``
+    streaming multiprocessors, else 64 (one warpgroup: twice the CTAs,
+    for the short serving prefills)."""
+    return 128 if -(-tq // 128) * h * b >= sms else 64
+
+
+def _flash_fwd_route(dtype, d: int, b: int, tq: int, h: int,
+                     sms: int) -> Tuple[str, int]:
+    """``(route, query rows per CTA)`` that ``flash_fwd.cu`` takes for
+    these shapes: bf16 at head_dim 64 or 128 on wgmma, other bf16 head
+    dims on mma.sync, float32 on the FMA units."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "wgmma", _flash_fwd_block_rows(b, tq, h, sms)
+    return ("mma.sync" if dtype == torch.bfloat16 else "fma"), 64
+
+
+def _tensor_map_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """Element strides of dims 0-2 of a [B, T, heads, D] operand when a
+    tensor map can read it in place, else None.  In place means: unit
+    stride on head_dim, a 16-byte aligned base, and strides that are
+    multiples of 16 bytes and nest without overlap (each at least the
+    extent of the dims inside it).  A dim of size 1 takes the dense
+    stride, whatever PyTorch recorded for it.  The flash_fwd wrapper
+    copies an operand that fails."""
+    shape, size = t.shape, t.element_size()
+    if t.data_ptr() % 16:
+        return None
+    if t.is_contiguous():          # the usual case, without the walk below
+        if (shape[3] * size) % 16:
+            return None
+        return (shape[1] * shape[2] * shape[3], shape[2] * shape[3],
+                shape[3])
+    stride = t.stride()
+    if stride[3] != 1 and shape[3] > 1:
+        return None
+    out = [0, 0, 0]
+    span = shape[3]
+    for dim in (2, 1, 0):
+        s = span if shape[dim] == 1 else stride[dim]
+        if (s * size) % 16 or s < span:
+            return None
+        out[dim] = s
+        span = s * shape[dim]
+    return tuple(out)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy (a new allocation, so 16-byte aligned)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
                         window: Optional[int], q_offset: int):
     _check_cuda_operands("flash_forward", q, k, v)
@@ -395,27 +471,29 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_forward: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    # The kernel reads head_dim with unit stride and (bf16) element pairs
-    # as 32-bit words, so every other stride must be even.
-    def fits(t):
-        return t.stride(3) == 1 and all(s % 2 == 0 for s in t.stride()[:3])
-
-    if not fits(q):
-        q = q.contiguous()
-    if not fits(k) or v.stride() != k.stride():
-        k, v = k.contiguous(), v.contiguous()
+    if not scale > 0:
+        raise ValueError(f"flash_forward: the CUDA kernel takes a positive "
+                         f"scale, got {scale}")
+    # One stride rule for every route, a tensor map's: operands that
+    # fail it (or K and V with different strides) are copied dense.
+    sq = _tensor_map_strides(q)
+    if sq is None:
+        q = _dense(q)
+        sq = _tensor_map_strides(q)
+    sk = _tensor_map_strides(k)
+    if sk is None or _tensor_map_strides(v) != sk:
+        k, v = _dense(k), _dense(v)
+        sk = _tensor_map_strides(k)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    rows = _flash_fwd_route(q.dtype, d, b, tq, h, _sm_count(q.device))[1]
     fn = build.kernel("flash_fwd", "tfm_flash_fwd", _FLASH_FWD_ARGS)
     with torch.cuda.device(q.device):
         LAUNCHES["flash_fwd"] += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, tq, tk, h, kvh, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 int(causal), 0 if window is None else int(window),
-                 q_offset, scale, int(q.dtype == torch.bfloat16),
-                 _stream(q.device))
+                 lse.data_ptr(), b, tq, tk, h, kvh, d, *sq, *sk, int(causal),
+                 0 if window is None else int(window), q_offset, scale,
+                 int(q.dtype == torch.bfloat16), rows, _stream(q.device))
     build.check("flash_fwd", err, "flash_forward")
     return o, lse[..., None]
 
@@ -550,6 +628,132 @@ def flash_decode_reference(q, k_cache, v_cache,
     return _decode_reference(q, k_l, v_l, pos, scale)
 
 
+def _decode_splits(b: int, kv: int, row_tiles: int, m: int,
+                   sms: int) -> int:
+    """Split count S of the ``flash_decode`` kernel: enough CTAs for
+    about two waves over ``sms`` streaming multiprocessors
+    (b x kv x row_tiles x S >= 2 x sms), never more splits than the
+    cache's ``m`` slots hold 64-key blocks, and at most 64.  Static
+    shapes only — never pos — so no step reads the positions back from
+    the card."""
+    want = -(-2 * sms // (b * kv * row_tiles))
+    blocks = -(-m // _DECODE_BLOCK)
+    return max(1, min(want, blocks, _DECODE_MAX_SPLITS))
+
+
+def _split_share(nb: torch.Tensor, splits: int,
+                 s) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocks ``[j0, j1)`` of a row's ``nb`` live ones (an integer
+    tensor, elementwise) that split ``s`` of ``splits`` owns
+    (``decode_split.cuh``'s split_share): shares of ceil(nb / splits), the
+    last ones short or empty."""
+    per = -(-nb // splits)
+    j0 = torch.minimum(nb, s * per)
+    return j0, torch.minimum(nb, j0 + per)
+
+
+def _merge_partials(pm, pl, po, dim: int):
+    """Merge softmax partials along ``dim`` as ``decode_split.cuh`` does:
+    m* = max m_s, weights e^(m_s - m*) (0 for an empty, -inf partial),
+    l = sum l_s w_s and o = sum o_s w_s; returns (m*, l, o) with ``dim``
+    gone (pm, pl [..., S, ...], po with a trailing head_dim)."""
+    mx = pm.amax(dim)
+    w = torch.where(pm == NEG_INF, 0.0, torch.exp(pm - mx.unsqueeze(dim)))
+    return mx, (pl * w).sum(dim), (po * w.unsqueeze(-1)).sum(dim)
+
+
+def _decode_split_reference(q, k_cache, v_cache,
+                            pos: Union[int, torch.Tensor],
+                            scale: Optional[float], splits: int,
+                            layer=None) -> torch.Tensor:
+    """Plain version of ``flash_decode.cu``'s partition, in float32 with
+    JAX's rounding rules.  As in the kernel, each (row, kv head, tile of
+    ``_DECODE_ROW_TILE`` query rows) computes its live 64-key blocks from
+    its last row's position and splits them into ``splits`` contiguous
+    shares; within a share each of ``_DECODE_WARPS`` warps owns a
+    16-key slice of every block and keeps its own running (m, l, o)
+    (:func:`flash_decode`'s rounding: score ``dot * scale`` then
+    ``* kscale``; l from the unscaled, unrounded p; p rounded to bf16
+    against its warp's running max before a bf16 V block, multiplied by
+    the v-scale and unrounded before an int8 one).  The warps merge into
+    the split's partial and the partials merge into the output
+    (:func:`_merge_partials`).  Same arguments as :func:`flash_decode`
+    plus ``splits``."""
+    kc, vc, ks, vs, li = _stacked_cache(k_cache, v_cache, layer)
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    b, t, h, d = q.shape
+    kvh, m = kc.shape[2], kc.shape[3]
+    g = h // kvh
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dev, rt, blk = q.device, _DECODE_ROW_TILE, _DECODE_BLOCK
+    rows = t * g
+    tiles = -(-rows // rt)
+    # Query rows t-major per kv head, padded to whole tiles:
+    # [B, KV, tiles, RT, D]; a padding row sees nothing (limit -1).
+    qr = q.float().reshape(b, t, kvh, g, d).permute(0, 2, 1, 3, 4)
+    qr = torch.nn.functional.pad(qr.reshape(b, kvh, rows, d),
+                                 (0, 0, 0, tiles * rt - rows))
+    qr = qr.reshape(b, kvh, tiles, rt, d)
+    posv = _row_positions(pos, b, dev).long()
+    r = torch.arange(tiles * rt, device=dev)
+    lim = torch.where(r < rows, posv[:, None] + r // g, -1)
+    lim = lim.reshape(b, tiles, rt)
+    last = posv[:, None] + (torch.clamp(
+        (torch.arange(tiles, device=dev) + 1) * rt, max=rows) - 1) // g
+    nb = torch.where(last < 0, 0, torch.clamp(last // blk + 1,
+                                              max=-(-m // blk)))
+    j0, j1 = _split_share(nb[..., None], splits,
+                          torch.arange(splits, device=dev))  # [B, tiles, S]
+    # Key offsets of each warp's slice of a block: [W, 16].
+    kw = blk // _DECODE_WARPS
+    offs = (torch.arange(_DECODE_WARPS, device=dev)[:, None] * kw
+            + torch.arange(kw, device=dev))
+    kl, vl = kc[li], vc[li]                                  # [B, KV, M, D]
+    ksl = None if ks is None else ks[li, :, :, 0]            # [B, KV, M]
+    vsl = None if vs is None else vs[li, :, :, 0]
+    bi = torch.arange(b, device=dev).reshape(b, 1, 1, 1, 1, 1)
+    hi = torch.arange(kvh, device=dev).reshape(1, kvh, 1, 1, 1, 1)
+    state = (b, kvh, tiles, splits, _DECODE_WARPS, rt)
+    mw = torch.full(state, NEG_INF, device=dev)
+    lw = torch.zeros(state, device=dev)
+    ow = torch.zeros(state + (d,), device=dev)
+    for step in range(int((j1 - j0).max())):
+        j = j0 + step
+        kpos = (j * blk)[..., None, None] + offs        # [B, tiles, S, W, 16]
+        live = (j < j1)[..., None, None] & (kpos < m)
+        idx = torch.where(live, kpos, 0)[:, None]        # [B, 1, ..., 16]
+        kb = kl[bi, hi, idx].float()                     # [..., W, 16, D]
+        s = torch.einsum("bkprd,bkpswnd->bkpswrn", qr, kb) * scale
+        if ksl is not None:
+            s = s * ksl[bi, hi, idx][..., None, :]
+        seen = live[:, None, :, :, :, None, :] & (
+            kpos[:, None, :, :, :, None, :]
+            <= lim[:, None, :, None, None, :, None])
+        s = s.masked_fill(~seen, NEG_INF)                # [..., W, RT, 16]
+        m_new = torch.maximum(mw, s.amax(-1))
+        corr = torch.where(mw == NEG_INF, 0.0, torch.exp(mw - m_new))
+        p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_new[..., None]))
+        lw = lw * corr + p.sum(-1)
+        vb = vl[bi, hi, idx]
+        if vsl is not None:
+            p = p * vsl[bi, hi, idx][..., None, :]
+        elif vb.dtype == torch.bfloat16:
+            p = p.to(torch.bfloat16).float()
+        ow = ow * corr[..., None] + p @ vb.float()
+        mw = m_new
+    # Warps into each split's partial, then the splits into the output.
+    _, lsum, osum = _merge_partials(*_merge_partials(mw, lw, ow, 4), dim=3)
+    o = torch.where(lsum[..., None] > 0, osum / torch.where(
+        lsum > 0, lsum, 1.0)[..., None], 0.0)           # [B, KV, tiles, RT, D]
+    o = o.reshape(b, kvh, tiles * rt, d)[:, :, :rows]
+    out = o.reshape(b, kvh, t, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, t, h, d).to(q.dtype)
+    return out[:, 0] if squeeze else out
+
+
 def flash_decode(q, k_cache, v_cache, pos: Union[int, torch.Tensor],
                  scale: Optional[float] = None, layer=None) -> torch.Tensor:
     """Decode attention over a linear KV cache bounded at ``pos``
@@ -615,6 +819,22 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
         -1).expand(b).contiguous()
 
 
+_PLANS = {}
+
+
+def _decode_plan(q, kc) -> int:
+    """Split count of a ``flash_decode`` launch for q [B, t, H, D] over the
+    stacked cache ``kc`` [L, B, KV, M, D] on q's device (memoized by
+    shapes: every layer of every step asks again)."""
+    b, t, h, _ = q.shape
+    key = (b, t, h, kc.shape[2], kc.shape[3], q.device)
+    if key not in _PLANS:
+        tiles = -(-t * (h // kc.shape[2]) // _DECODE_ROW_TILE)
+        _PLANS[key] = _decode_splits(b, kc.shape[2], tiles, kc.shape[3],
+                                     _sm_count(q.device))
+    return _PLANS[key]
+
+
 def _flash_decode_cuda(q, kc, vc, ks, vs, pos, scale: float, layer: int):
     kv_int8 = _check_kv("flash_decode", q, kc, vc, ks, vs)
     b, t, h, d = q.shape
@@ -624,21 +844,34 @@ def _flash_decode_cuda(q, kc, vc, ks, vs, pos, scale: float, layer: int):
     if not 0 <= layer < n_layers:
         raise ValueError(f"flash_decode: layer {layer} out of range for "
                          f"{n_layers} layers")
-    smem = build.kernel("flash_decode", "tfm_flash_decode_smem", [_i] * 4,
-                        ctypes.c_longlong)(t, h, kvh, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"flash_decode: head_dim {d} needs {smem} bytes of "
-                         f"shared memory (> {_MAX_SMEM})")
+    if d not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"flash_decode: the CUDA kernel takes head_dim in "
+                         f"{_DECODE_HEAD_DIMS}, got {d}")
+    splits = _decode_plan(q, kc)
     posv = _row_positions(pos, b, q.device)
     q = q.contiguous()
     out = torch.empty_like(q)
+    # Partials of the S > 1 splits (m, l, unnormalized o: float32
+    # [S, B*t*H], [S, B*t*H], [S, B*t*H, D] back to back in one
+    # allocation), merged by the second kernel; none when one CTA covers
+    # a row.
+    parts = (None, None, None)
+    if splits > 1:
+        n = splits * b * t * h
+        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        parts = (base, base + 4 * n, base + 8 * n)
     fn = build.kernel("flash_decode", "tfm_flash_decode", _DECODE_ARGS)
     with torch.cuda.device(q.device):
         LAUNCHES["flash_decode"] += 1
+        if splits > 1:
+            LAUNCHES["flash_decode_merge"] += 1
         err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                  ks.data_ptr() if kv_int8 else None,
                  vs.data_ptr() if kv_int8 else None, posv.data_ptr(),
-                 out.data_ptr(), b, t, h, kvh, m, d, layer, scale,
+                 out.data_ptr(), *parts,
+                 b, t, h, kvh, m, d, layer, splits, scale,
                  int(q.dtype == torch.bfloat16), int(kv_int8),
                  _stream(q.device))
     build.check("flash_decode", err, "flash_decode")
