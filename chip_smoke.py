@@ -43,9 +43,19 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    2e-2 x max(1, max|grad|): a bf16 gradient's rounding is relative, and
    2e-2 is about one bf16 ulp on values of order 1), with
    ``torch.autograd.grad`` through SDPA's backward as the yardstick of
-   the pair; then, for correctness only, GQA, a window with q_offset, a
-   ragged T with float32 gradients, and the float32 kernels at head_dim
-   8 (atol 1e-4);
+   the pair and ``flash_backward`` whole (delta included) timed beside
+   it; then, for correctness only, GQA, a window with q_offset, a ragged
+   T with float32 gradients, the float32 kernels at head_dim 8 (atol
+   1e-4), and on the wgmma route head_dim 128 (ragged T at 128 rows a
+   CTA, GQA with a ragged Tq, window 100 and q_offset 37 over T 700, GQA
+   at [8, 2048] with 128 keys a dk/dv CTA), the same edges at head_dim
+   64, GQA with a ragged T, full attention over more keys than queries;
+   and bf16 head_dim 16 and 32 on mma.sync (causal, GQA, window with
+   q_offset).  Every case reads each kernel's route, rows a CTA and rows
+   a streamed tile back from ``tfm_flash_bwd_last_launch`` and requires
+   them equal to ``_flash_bwd_route`` and the kernel's design, launches
+   both kernels twice, and calls ``flash_backward``: all three sets of
+   gradients must be bit-identical;
 5. serves 16 seeded requests (prompts of 8..700 tokens, 32 new tokens
    each) through ``ContinuousBatcher`` on the flagship config (rows 8,
    page 64, bucket 64), and checks that every prefill and every decode
@@ -96,6 +106,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -241,6 +252,37 @@ def fwd_launched(torch, ta, q):
     return got
 
 
+def bwd_tile(route: str, d: int, name: str) -> int:
+    """Rows a streamed tile of a flash_bwd kernel holds by its design
+    (keys for dq, q rows for dk/dv): 32 where head_dim 128 would not fit
+    64 (the FMA kernels' shared tiles, the wgmma dk/dv's registers), else
+    64."""
+    if d == 128 and (route == "fma" or (route == "wgmma" and name == "dkv")):
+        return 32
+    return 64
+
+
+def bwd_launched(ta, q, k):
+    """{"dq": (route, q rows per CTA, keys a streamed tile), "dkv": (route,
+    keys per CTA, q rows a streamed tile)} of the last two flash_bwd
+    launches as the C entry reports them, each required to equal
+    ``_flash_bwd_route`` on its own grid and the design's tile."""
+    got = last_launch("flash_bwd", "tfm_flash_bwd_last_launch", 12)
+    b, tq, h, d = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    sms = ta._sm_count(q.device)
+    out = {}
+    for name, (code, rows, tile), t, heads in (("dq", got[:3], tq, h),
+                                               ("dkv", got[6:9], tk, kv)):
+        plan = ta._flash_bwd_route(q.dtype, d, b, t, heads, sms)
+        plan = (*plan, bwd_tile(plan[0], d, name))
+        out[name] = (FWD_ROUTES[code], rows, tile)
+        need(out[name] == plan, f"flash_bwd {name} q {tuple(q.shape)} k "
+             f"{tuple(k.shape)} launched {out[name]}, the wrapper's rule "
+             f"and the kernel's design say {plan}")
+    return out
+
+
 def decode_launched(ta, q, kc):
     """Split count S of the last flash_decode launch as the C entry
     reports it (its grid's z), required to equal ``_decode_plan`` and to
@@ -302,7 +344,14 @@ def phase_build():
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                # The mangled name without its namespace prefix: the
+                # kernel and its template arguments (ILi64ELi2E: <64, 2>).
+                name = re.sub(r"^_ZN\d+_GLOBAL__N__.*?_cu_[0-9a-f]{8}\d+",
+                              "", line.split("'")[1])
+                say(f"  {log.stem}: {name[:48]}")
+            elif ("registers" in line or "spill" in line
+                  or "Performance" in line):
                 say(f"  {log.stem}: {line.strip()}")
     return secs
 
@@ -530,23 +579,45 @@ def phase_backward(torch):
     gen = torch.Generator().manual_seed(1)
 
     def case(b, t, h, kv, d, window=None, q_offset=0,
-             dtype=torch.bfloat16, out_dtype=None, time_it=False):
+             dtype=torch.bfloat16, out_dtype=None, time_it=False, tk=None,
+             causal=True, dkv_rows=None):
+        tk = t if tk is None else tk
         q, k, v, do = (torch.randn(s, generator=gen).to(dev, dtype)
-                       for s in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d),
-                                 (b, t, h, d)))
+                       for s in ((b, t, h, d), (b, tk, kv, d),
+                                 (b, tk, kv, d), (b, t, h, d)))
         scale = 1.0 / math.sqrt(d)
-        o, lse = ta.flash_forward(q, k, v, causal=True, window=window,
+        o, lse = ta.flash_forward(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
         delta = ta._bwd_delta(o, do)
-        args = (q, k, v, do, lse, delta, True, scale, window, q_offset,
+        args = (q, k, v, do, lse, delta, causal, scale, window, q_offset,
                 out_dtype)
         got = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
+        routes = bwd_launched(ta, q, k)
+        # Deterministic: no atomics, so a second launch on the same
+        # inputs gives the same bits.
+        again = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
+        # flash_backward (what training calls: delta, then both kernels on
+        # operands checked and mapped once) gives the same bits as well.
+        whole = ta.flash_backward(q, k, v, o, lse, do, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  out_dtype=out_dtype)
         ref = ((ta._flash_bwd_dq_reference(*args),)
                + ta._flash_bwd_dkv_reference(*args))
         torch.cuda.synchronize()
-        row = {"shape": [b, t, h, kv, d], "window": window,
-               "q_offset": q_offset, "dtype": str(dtype).split(".")[-1],
-               "out_dtype": str(got[0].dtype).split(".")[-1]}
+        row = {"shape": [b, t, h, kv, d], "tk": tk, "causal": causal,
+               "window": window, "q_offset": q_offset,
+               "dtype": str(dtype).split(".")[-1],
+               "out_dtype": str(got[0].dtype).split(".")[-1],
+               "dq_route": list(routes["dq"]),
+               "dkv_route": list(routes["dkv"])}
+        need(dkv_rows is None or routes["dkv"][1] == dkv_rows,
+             f"flash_bwd {row}: dk/dv took {routes['dkv'][1]} keys a CTA, "
+             f"the case is built for {dkv_rows}")
+        need(all(torch.equal(x, y) for x, y in zip(got, again)),
+             f"flash_bwd {row}: two launches on the same inputs differ")
+        need(all(torch.equal(x, y) for x, y in zip(got, whole)),
+             f"flash_bwd {row}: flash_backward differs from the two "
+             f"kernels launched alone")
         for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
             err = float((g_.float() - r_.float()).abs().max())
             mag = float(r_.float().abs().max())
@@ -558,9 +629,9 @@ def phase_backward(torch):
             row[f"{name}_err"], row[f"{name}_tol"] = err, tol
         if not time_it:
             return row
-        allow = ~ta._causal_mask(t, t, q_offset, window, dev)
+        allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
         pairs = b * h * int(allow.sum())            # visible (q, k) pairs
-        qbytes, kbytes = b * t * h * d * 2, b * t * kv * d * 2
+        qbytes, kbytes = b * t * h * d * 2, b * tk * kv * d * 2
         ins = 2 * qbytes + 2 * kbytes + 2 * b * h * t * 4
         row["dq_bound_ms"], row["dq_bound_by"] = bound(ins + qbytes,
                                                        6 * d * pairs)
@@ -570,6 +641,11 @@ def phase_backward(torch):
         reps, n = (3, 5) if big else (5, 20)
         row["dq_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dq(*args))
         row["dkv_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dkv(*args))
+        # The whole backward as training calls it (delta included), like
+        # for like with SDPA's backward below.
+        row["backward_ms"] = cuda_ms(torch, lambda: ta.flash_backward(
+            q, k, v, o, lse, do, causal=causal, window=window,
+            q_offset=q_offset))
         row["dq_plain_ms"] = cuda_ms(
             torch, lambda: ta._flash_bwd_dq_reference(*args), reps, n)
         row["dkv_plain_ms"] = cuda_ms(
@@ -582,14 +658,22 @@ def phase_backward(torch):
         dot = do.transpose(1, 2).contiguous()
         row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True))
-        say(f"  flash_bwd {row['shape']}: dq kernel_ms {row['dq_ms']:.4f} "
+        row["pair_over_library"] = ((row["dq_ms"] + row["dkv_ms"])
+                                    / row["library_ms"])
+        say(f"  flash_bwd {row['shape']} [dq {routes['dq'][0]} BQ "
+            f"{routes['dq'][1]} BK {routes['dq'][2]}, dkv "
+            f"{routes['dkv'][0]} BKV {routes['dkv'][1]} BT "
+            f"{routes['dkv'][2]}]: dq kernel_ms {row['dq_ms']:.4f} "
             f"plain_ms {row['dq_plain_ms']:.4f} bound_ms "
             f"{row['dq_bound_ms']:.5f} ({row['dq_bound_by']}); dkv "
             f"kernel_ms {row['dkv_ms']:.4f} plain_ms "
             f"{row['dkv_plain_ms']:.4f} bound_ms {row['dkv_bound_ms']:.5f} "
-            f"({row['dkv_bound_by']}); SDPA backward library_ms "
-            f"{row['library_ms']:.4f}; err dq {row['dq_err']:.2e} dk "
-            f"{row['dk_err']:.2e} dv {row['dv_err']:.2e}")
+            f"({row['dkv_bound_by']}); flash_backward (delta included) "
+            f"{row['backward_ms']:.4f}; SDPA backward library_ms "
+            f"{row['library_ms']:.4f}; (dq + dkv) / library "
+            f"{row['pair_over_library']:.2f}; err dq {row['dq_err']:.2e} "
+            f"dk {row['dk_err']:.2e} dv {row['dv_err']:.2e}; two launches "
+            f"and flash_backward bit-identical")
         return row
 
     timed = [case(8, 2048, 8, 8, 64, time_it=True),
@@ -600,12 +684,32 @@ def phase_backward(torch):
               case(2, 100, 4, 2, 8, dtype=torch.float32),
               case(1, 200, 4, 2, 16, window=16, q_offset=32,
                    dtype=torch.float32)]
+    # Cases added with the wgmma kernels, from a generator of their own:
+    # head_dim 128 (ragged T at 128 rows a CTA, GQA with a ragged Tq, a
+    # window edge and q_offset mid-tile), the same edges at head_dim 64,
+    # GQA with a ragged T, GQA whose dk/dv grid fills the card (128 keys
+    # a CTA: the two-warpgroup CTA walks the group's q heads through its
+    # ring), full attention over more keys than queries; then bf16
+    # head_dim 16 and 32 on mma.sync (causal, GQA, window with q_offset).
+    gen = torch.Generator().manual_seed(10)
+    for d in (128, 64):
+        checks += [case(4, 1000, 8, 8 if d == 128 else 2, d),
+                   case(1, 333, 8, 2, d),
+                   case(1, 700, 4, 4, d, window=100, q_offset=37, tk=737),
+                   case(8, 2048, 8, 2, d, dkv_rows=128)]
+    checks.append(case(2, 200, 4, 4, 64, tk=333, causal=False))
+    for d in (16, 32):
+        checks += [case(2, 300, 8, 8, d), case(1, 300, 8, 2, d),
+                   case(1, 200, 4, 4, d, window=50, q_offset=37, tk=237)]
     for r in checks:
-        say(f"  flash_bwd check {r['shape']} window={r['window']} "
-            f"q_offset={r['q_offset']} {r['dtype']}->{r['out_dtype']}: err "
-            f"dq {r['dq_err']:.2e} dk {r['dk_err']:.2e} dv "
-            f"{r['dv_err']:.2e} (tol {r['dq_tol']:.2e}/{r['dk_tol']:.2e}/"
-            f"{r['dv_tol']:.2e})")
+        say(f"  flash_bwd check {r['shape']} tk={r['tk']} "
+            f"causal={r['causal']} window={r['window']} "
+            f"q_offset={r['q_offset']} {r['dtype']}->{r['out_dtype']} [dq "
+            f"{' '.join(map(str, r['dq_route']))}, dkv "
+            f"{' '.join(map(str, r['dkv_route']))}]: err dq "
+            f"{r['dq_err']:.2e} dk {r['dk_err']:.2e} dv {r['dv_err']:.2e} "
+            f"(tol {r['dq_tol']:.2e}/{r['dk_tol']:.2e}/{r['dv_tol']:.2e}); "
+            f"deterministic, flash_backward the same bits")
     return timed, checks
 
 
@@ -1499,6 +1603,10 @@ def main() -> int:
                 "bound_by": r[f"{key}_bound_by"],
                 "library_ms": r["library_ms"],
                 "library_covers": "SDPA backward: dq, dk and dv together",
+                "kernel_route": r[f"{key}_route"][0],
+                "block_rows": r[f"{key}_route"][1],
+                "tile_rows": r[f"{key}_route"][2],
+                "backward_ms": r["backward_ms"],
                 "shape": r["shape"], "shapes": bwd_rows,
                 "checks": bwd_checks}
 

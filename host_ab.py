@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch port on one CUDA card: the host
-cost of the attention kernels' wrappers and the wall time of a generate
-step, which the host's dispatch bounds.
+cost of the attention kernels' wrappers, the wall time of a generate
+step, which the host's dispatch bounds, and the wall time of a training
+step.
 
     python3 host_ab.py A_DIR B_DIR [--rounds 20]
 
@@ -18,11 +19,19 @@ on both trees alike.  Nothing of JAX is imported.
   keeps the device from stalling the host): flash_forward at
   [8, 2048, 8, 64] and [1, 512, 8, 64] (bf16, causal), flash_decode bf16
   [4, KV 8, M 16384, 64] at pos 1024 and int8 [8, KV 8, M 384, 64] at
-  pos 300;
+  pos 300, and flash_backward (delta and both backward kernels) at
+  [8, 2048, 8, 64] causal over 50 calls (each launches five kernels);
+* ``device_ms``: per round, the mean device ms (CUDA events) of one call
+  of each backward kernel's wrapper, ``flash_bwd_dq`` and
+  ``flash_bwd_dkv``, over 20 back-to-back calls at [8, 2048, 8, 64]
+  causal bf16;
 * ``generate_ms``: per round, ms a decode step of the flagship's greedy
   generate, prefill excluded (a run of N new tokens less a one-token
   run, over N - 1 steps): int8 weights and cache at batch 8, prompt 128,
-  N 64; bf16 over a 16384-slot cache at batch 4, prompt 1024, N 32.
+  N 64; bf16 over a 16384-slot cache at batch 4, prompt 1024, N 32;
+* ``train_ms``: per round, ms a step of the flagship's training step
+  (``transformer_train``'s setup: B 8, T 2048, AdamW) over 5 steps with
+  the batch already on the card, ending in the loss read back.
 
 For each metric it prints each tree's median and minimum over the rounds
 and the median of the per-round differences B - A, then the card's name
@@ -32,6 +41,7 @@ and power limit, and last a JSON line with every round's numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import statistics
@@ -56,7 +66,8 @@ def load(root: Path) -> SimpleNamespace:
         pkg = importlib.import_module(PKG)
         mods = {n: importlib.import_module(f"{PKG}.{n}") for n in (
             "ops.attention", "ops.quant", "models.transformer",
-            "models.presets")}
+            "models.presets", "transformer_train", "train.data",
+            "train.optim", "train.trainer", "device")}
     finally:
         sys.path.remove(str(root))
     got = Path(pkg.__file__).resolve().parent.parent
@@ -64,7 +75,30 @@ def load(root: Path) -> SimpleNamespace:
         raise SystemExit(f"imported {PKG} from {got}, not {root}")
     return SimpleNamespace(ta=mods["ops.attention"], tq=mods["ops.quant"],
                            tt=mods["models.transformer"],
-                           presets=mods["models.presets"])
+                           presets=mods["models.presets"],
+                           tr=mods["transformer_train"], modules=_own())
+
+
+def _own() -> dict:
+    return {m: mod for m, mod in sys.modules.items()
+            if m == PKG or m.startswith(PKG + ".")}
+
+
+@contextlib.contextmanager
+def active(p: SimpleNamespace):
+    """``sys.modules`` holding tree ``p``'s package while the block runs,
+    so that imports inside its functions (``transformer_train.setup``
+    imports lazily) resolve to the same tree."""
+    saved = _own()
+    for m in saved:
+        del sys.modules[m]
+    sys.modules.update(p.modules)
+    try:
+        yield
+    finally:
+        for m in _own():
+            del sys.modules[m]
+        sys.modules.update(saved)
 
 
 def alternate(rounds: int, measure, fns):
@@ -86,6 +120,19 @@ def enqueue_us(torch, fn, n: int = 200) -> float:
     us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def device_ms(torch, fn, n: int = 20) -> float:
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)      # the host enqueues all n calls first
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def step_ms(torch, run, new: int) -> float:
@@ -128,7 +175,23 @@ def wrappers(torch, p: SimpleNamespace) -> dict:
         calls[f"flash_decode {name}"] = (
             lambda q=q, kc=kc, vc=vc, posv=posv: p.ta.flash_decode(
                 q, kc, vc, posv, layer=1))
+    q, k, v, do = (randn(8, 2048, 8, 64) for _ in range(4))
+    o, lse = p.ta.flash_forward(q, k, v, causal=True)
+    calls["flash_backward [8,2048,8,64]"] = (
+        lambda: p.ta.flash_backward(q, k, v, o, lse, do, causal=True))
     return calls
+
+
+def backward_kernels(torch, p: SimpleNamespace) -> dict:
+    """The two backward kernels' wrappers of one tree at [8, 2048, 8, 64]
+    causal bf16, on inputs from seed 0."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((8, 2048, 8, 64), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    o, lse = p.ta.flash_forward(q, k, v, causal=True)
+    args = (q, k, v, do, lse, p.ta._bwd_delta(o, do), True, 0.125)
+    return {"flash_bwd_dq [8,2048,8,64]": lambda: p.ta.flash_bwd_dq(*args),
+            "flash_bwd_dkv [8,2048,8,64]": lambda: p.ta.flash_bwd_dkv(*args)}
 
 
 def generators(torch, p: SimpleNamespace) -> dict:
@@ -151,6 +214,31 @@ def generators(torch, p: SimpleNamespace) -> dict:
             cfg, params, prompt, n, cache=cache))}
 
 
+def trainer(torch, p: SimpleNamespace):
+    """One tree's training step on a fixed batch already on the card
+    (``transformer_train``'s setup: weights seeded 0, the first batch of
+    its stream)."""
+    with active(p):
+        run = p.tr.setup(p.tr.parse_args([]), torch.device("cuda"))
+    batch = {"tokens": torch.from_numpy(next(run.batches)["tokens"]).cuda()}
+
+    def step():
+        run.params, run.opt_state, m = run.step(run.params, run.opt_state,
+                                                batch)
+        return m
+
+    return step
+
+
+def train_ms(torch, step, n: int = 5) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        m = step()
+    float(m["loss"])
+    return (time.perf_counter() - t0) / n * 1e3
+
+
 def build(root: Path) -> subprocess.Popen:
     code = (f"import sys; sys.path.insert(0, {str(root)!r}); "
             f"from {PKG}.kernels import build; build.build()")
@@ -159,7 +247,7 @@ def build(root: Path) -> subprocess.Popen:
 
 def summary(group: str, key: str, vals: dict) -> str:
     diffs = [b - a for a, b in zip(vals["A"], vals["B"])]
-    fmt = "{:.1f}" if group == "host_us" else "{:.2f}"
+    fmt = {"host_us": "{:.1f}", "device_ms": "{:.4f}"}.get(group, "{:.2f}")
     return (f"{group} {key}: A median {fmt.format(statistics.median(vals['A']))}"
             f" min {fmt.format(min(vals['A']))} | B median "
             f"{fmt.format(statistics.median(vals['B']))} min "
@@ -173,7 +261,8 @@ def main() -> int:
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=20,
                     help="rounds of each wrapper measurement (generate "
-                         "runs take a quarter as many)")
+                         "runs take a quarter as many, training steps "
+                         "half, at least 4)")
     args = ap.parse_args()
     trees = {"A": args.a.resolve(), "B": args.b.resolve()}
     for tree in trees.values():
@@ -191,16 +280,31 @@ def main() -> int:
     print(f"built both trees in {time.perf_counter() - t0:.1f} s",
           flush=True)
     pkgs = {label: load(tree) for label, tree in trees.items()}
-    results = {"host_us": {}, "generate_ms": {}}
+    results = {"host_us": {}, "device_ms": {}, "generate_ms": {},
+               "train_ms": {}}
     calls = {label: wrappers(torch, p) for label, p in pkgs.items()}
     for key in calls["A"]:
         fns = {label: calls[label][key] for label in calls}
         for fn in fns.values():
             for _ in range(3):
                 fn()
+        # A backward call launches five kernels: 50 calls stay inside the
+        # card's launch queue, so the host never waits on it.
+        n = 50 if key.startswith("flash_backward") else 200
         results["host_us"][key] = alternate(
-            args.rounds, lambda fn: enqueue_us(torch, fn), fns)
+            args.rounds, lambda fn: enqueue_us(torch, fn, n), fns)
         print(summary("host_us", key, results["host_us"][key]), flush=True)
+    del calls
+    calls = {label: backward_kernels(torch, p) for label, p in pkgs.items()}
+    for key in calls["A"]:
+        fns = {label: calls[label][key] for label in calls}
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
+        results["device_ms"][key] = alternate(
+            args.rounds, lambda fn: device_ms(torch, fn), fns)
+        print(summary("device_ms", key, results["device_ms"][key]),
+              flush=True)
     del calls
     with torch.no_grad():
         gens = {label: generators(torch, p) for label, p in pkgs.items()}
@@ -214,6 +318,14 @@ def main() -> int:
                 lambda fn: step_ms(torch, fn, new), fns)
             print(summary("generate_ms", key, results["generate_ms"][key]),
                   flush=True)
+    del gens
+    steps = {label: trainer(torch, p) for label, p in pkgs.items()}
+    for fn in steps.values():
+        train_ms(torch, fn, 2)                                 # warm-up
+    key = "train step, batch ready (B 8, T 2048)"
+    results["train_ms"][key] = alternate(
+        max(4, args.rounds // 2), lambda fn: train_ms(torch, fn), steps)
+    print(summary("train_ms", key, results["train_ms"][key]), flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
                           "power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -158,9 +158,14 @@ def test_flash_decode_paged_single_token_squeezes():
     assert torch.equal(sq, full[:, 0])
 
 
-def test_cuda_wrappers_validate_before_launch():
+def test_cuda_wrappers_validate_before_launch(monkeypatch):
     """The CUDA paths refuse what their kernels do not take before any
-    build or launch (checked here on CPU-side shapes/dtypes)."""
+    build or launch (checked here on CPU-side shapes/dtypes; reaching a
+    kernel build fails the test)."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel build was reached")
+
+    monkeypatch.setattr(ta.build, "kernel", no_build)
     q = torch.zeros(1, 8, 4, 24)
     with pytest.raises(ValueError, match="head_dim"):
         ta._flash_forward_cuda(q, q, q, True, 1.0, None, 0)
@@ -171,3 +176,28 @@ def test_cuda_wrappers_validate_before_launch():
     with pytest.raises(TypeError, match="int8 QTensor"):
         ta._flash_decode_paged_cuda(q, pool, pool, None, None, None, 0, 1.0,
                                     0, None)
+    # The backward kernels (each, and both as flash_backward launches
+    # them): a head_dim they do not take, lse or delta not float32 or of
+    # the wrong shape, gradients in a dtype other than the operands' or
+    # float32.
+    b, t, h = 1, 8, 4
+    qb = torch.zeros(b, t, h, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(b, h, t, 1)
+
+    def bwd(which, q_=qb, lse_=lse, delta_=lse, out=None):
+        ta._flash_bwd_cuda(which, q_, q_, q_, q_, lse_, delta_, True, 0.125,
+                           None, 0, out)
+
+    for which in ("flash_bwd_dq", "flash_bwd_dkv", "flash_backward"):
+        with pytest.raises(ValueError, match="head_dim"):
+            bwd(which, torch.zeros(b, t, h, 48, dtype=torch.bfloat16))
+        with pytest.raises(TypeError, match="lse must be float32"):
+            bwd(which, lse_=lse.bfloat16())
+        with pytest.raises(TypeError, match="delta must be float32"):
+            bwd(which, delta_=lse.double())
+        with pytest.raises(ValueError, match="lse"):
+            bwd(which, lse_=torch.zeros(b, h, t - 1, 1))
+        with pytest.raises(ValueError, match="delta"):
+            bwd(which, delta_=torch.zeros(b, h + 1, t, 1))
+        with pytest.raises(TypeError, match="gradients"):
+            bwd(which, out=torch.float16)

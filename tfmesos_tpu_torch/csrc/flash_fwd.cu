@@ -65,10 +65,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
 #include "hopper_async.cuh"
 #include "mma_bf16.cuh"
+#include "tensor_map.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -353,7 +352,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------- bf16 wgmma ---
 
-constexpr int PANEL = 64;            // bf16 columns of one 128-byte row
+using tfm_tmap::PANEL;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D> struct WgTile;
@@ -602,87 +601,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once through the
-// runtime (the library is not linked against libcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// What a tensor map encodes: a bf16 [B, T, heads, D] operand at `base`
-// (element strides sb, st, sh; unit stride on D), read in boxes of 64
-// columns x `rows` rows of one (head, batch).
-struct MapArgs {
-  const void* base;
-  long long sb, st, sh;
-  int B, T, heads, D, rows;
-  bool operator==(const MapArgs& o) const {
-    return base == o.base && sb == o.sb && st == o.st && sh == o.sh &&
-           B == o.B && T == o.T && heads == o.heads && D == o.D &&
-           rows == o.rows;
-  }
-};
-
-// The 4-D tensor map of `a`: 128-byte swizzle, zero fill out of bounds.
-bool encode(CUtensorMap* map, const MapArgs& a) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)a.heads,
-                              (cuuint64_t)a.T, (cuuint64_t)a.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)a.sh * 2, (cuuint64_t)a.st * 2,
-                                 (cuuint64_t)a.sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)PANEL, 1, (cuuint32_t)a.rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(a.base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// A map is a pure function of its MapArgs, so the last MAPS encoded are
-// kept and a call on the same buffers (PyTorch's caching allocator hands
-// every layer of a step the same blocks) skips the driver's encoder.
+// Tensor maps kept (tensor_map.cuh): three a layer.
 constexpr int MAPS = 48;
-bool encode_cached(CUtensorMap* map, const MapArgs& a) {
-  static MapArgs keys[MAPS];
-  static CUtensorMap maps[MAPS];
-  static int filled = 0, next = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < filled; ++i) {
-    if (keys[i] == a) {
-      *map = maps[i];
-      return true;
-    }
-  }
-  if (!encode(map, a)) return false;
-  keys[next] = a;
-  maps[next] = *map;
-  next = (next + 1) % MAPS;
-  if (filled < MAPS) ++filled;
-  return true;
-}
 
 // What this thread's last tfm_flash_fwd launched: route (0 the FMA
 // kernel, 1 mma.sync, 2 wgmma), query rows per CTA, and the grid.
@@ -702,12 +622,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const Geometry& g, cudaStream_t stream) {
   using L = WgLayout<D, NWG>;
   CUtensorMap mq, mk, mv;
+  using tfm_tmap::encode_cached;
   // Tk = 0 leaves every row empty and loads no K/V tile; its maps get
   // one (never read) row so that they encode.
   const int tk = g.Tk > 0 ? g.Tk : 1;
-  if (!encode_cached(&mq, {q, g.sqb, g.sqt, g.sqh, B, g.Tq, g.H, D, L::BQ}) ||
-      !encode_cached(&mk, {k, g.skb, g.skt, g.skh, B, tk, KV, D, L::BK}) ||
-      !encode_cached(&mv, {v, g.skb, g.skt, g.skh, B, tk, KV, D, L::BK}))
+  if (!encode_cached<MAPS>(
+          &mq, {q, g.sqb, g.sqt, g.sqh, B, g.Tq, g.H, D, L::BQ}) ||
+      !encode_cached<MAPS>(
+          &mk, {k, g.skb, g.skt, g.skh, B, tk, KV, D, L::BK}) ||
+      !encode_cached<MAPS>(
+          &mv, {v, g.skb, g.skt, g.skh, B, tk, KV, D, L::BK}))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_wgmma_kernel<D, NWG>;
   static std::atomic<unsigned> smem_set{0};

@@ -1,6 +1,7 @@
 // Hopper's warpgroup matrix multiply (wgmma), bf16 in, fp32 accumulate,
-// for flash_fwd.cu: the instruction wrappers and the shared-memory
-// descriptors of tiles that TMA wrote with 128-byte swizzling.
+// for flash_fwd.cu and flash_bwd.cu: the instruction wrappers and the
+// shared-memory descriptors of tiles that TMA wrote with 128-byte
+// swizzling.
 //
 // A warpgroup is 4 consecutive warps (the first a multiple of 4).  One
 // m64nNk16 product multiplies a 64 x 16 A tile by a 16 x N B tile into a
@@ -40,15 +41,30 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of this warpgroup's committed groups are still
+// in flight (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
-// Pins accumulator registers in place around an asynchronous product:
-// the compiler sees the wgmma's outputs as written at issue, so without
-// this it could move their reads above the wait (or writes below the
-// issue).
+// Pins registers in place around an asynchronous product, fenced before
+// fence() and again after the wait.  Accumulators: the compiler sees the
+// wgmma's outputs as written at issue, so without this it could move
+// their reads above the wait (or writes below the issue).  Register A
+// operands: it sees them as read at issue, so it could reuse or move
+// their registers while the tensor cores still read them.
 template <int N>
 __device__ __forceinline__ void fence_operand(float (&x)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
+                 "+r"(a[i][3])::"memory");
 }
 
 // Descriptor of a SW128 tile at p (see above): layout type 1 (128-byte
@@ -59,6 +75,26 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return (uint64_t)((a & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d[16] (+)= A (shared, K-major) x B (shared, K-major): m64n32k16;
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d[32] (+)= A (shared, K-major) x B (shared, K-major): m64n64k16;
@@ -116,6 +152,19 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// A warpgroup's register budget: every warp of the warpgroup executes the
+// same call.  A producer warpgroup gives registers back (dealloc) so that
+// the consumer warpgroups can take them (alloc, which waits until the
+// registers are free); N is a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // d[32] += A (registers) x B (shared, MN-major: the transpose bit

@@ -78,8 +78,9 @@ _FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
 _PAGED_ARGS = [_p] * 10 + [_i] * 10 + [_f, _i, _i, _p]
 _DECODE_ARGS = [_p] * 10 + [_i] * 8 + [_f, _i, _i, _p]
 # Backward entries: operand and output pointers, then B, Tq, Tk, H, KV,
-# D, causal, window, q_offset, scale, is_bf16, out_f32, stream.
-_BWD_TAIL = [_i] * 9 + [_f, _i, _i, _p]
+# D, the strides of q, do and k/v (3 each), causal, window, q_offset,
+# scale, is_bf16, out_f32, block_rows, stream.
+_BWD_TAIL = [_i] * 6 + [_ll] * 9 + [_i] * 3 + [_f, _i, _i, _i, _p]
 _BWD_DQ_ARGS = [_p] * 7 + _BWD_TAIL
 _BWD_DKV_ARGS = [_p] * 8 + _BWD_TAIL
 
@@ -362,7 +363,8 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = False,
     """``(dq, dk, dv)`` of blocked attention (counterpart of
     ``_mha_bwd_pallas``): Δ = rowsum(do⊙o) in one PyTorch pass, then
     :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` — the two kernels on
-    CUDA tensors, their plain versions on CPU tensors.  ``out_dtype``
+    CUDA tensors (validated and mapped once for both launches), their
+    plain versions on CPU tensors.  ``out_dtype``
     (default: the operands' dtype; float32 is the other choice on the
     card) sets the gradients' dtype."""
     if scale is None:
@@ -372,7 +374,9 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = False,
     delta = _bwd_delta(o, do)
     args = (q, k, v, do, lse, delta, bool(causal), float(scale), window,
             int(q_offset), out_dtype)
-    return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+    if q.device.type == "cpu":
+        return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+    return _flash_bwd_cuda("flash_backward", *args)
 
 
 def _check_cuda_operands(what: str, *tensors) -> None:
@@ -425,6 +429,17 @@ def _flash_fwd_route(dtype, d: int, b: int, tq: int, h: int,
     return ("mma.sync" if dtype == torch.bfloat16 else "fma"), 64
 
 
+def _flash_bwd_route(dtype, d: int, b: int, t: int, h: int,
+                     sms: int) -> Tuple[str, int]:
+    """``(route, rows per CTA)`` of a ``flash_bwd.cu`` kernel: the
+    forward's rule on the kernel's own grid — for dq ``t`` = Tq and ``h``
+    the q heads (q rows a CTA), for dk/dv ``t`` = Tk and ``h`` the kv
+    heads (keys a CTA).  bf16 at head_dim 64 or 128 on wgmma (128 rows
+    where ceil(t / 128) x h x b CTAs fill the ``sms``, else 64), other
+    bf16 head dims on mma.sync, float32 on the FMA units (64 each)."""
+    return _flash_fwd_route(dtype, d, b, t, h, sms)
+
+
 def _tensor_map_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     """Element strides of dims 0-2 of a [B, T, heads, D] operand when a
     tensor map can read it in place, else None.  In place means: unit
@@ -460,6 +475,27 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _mapped(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """``(t, strides)`` for a tensor map: ``t`` itself where
+    :func:`_tensor_map_strides` takes it in place, else a dense copy."""
+    s = _tensor_map_strides(t)
+    if s is None:
+        t = _dense(t)
+        s = _tensor_map_strides(t)
+    return t, s
+
+
+def _mapped_kv(k: torch.Tensor, v: torch.Tensor):
+    """``(k, v, strides)``: K and V share one set of tensor-map strides,
+    so both are copied dense unless both take the rule in place with the
+    same strides."""
+    sk = _tensor_map_strides(k)
+    if sk is None or _tensor_map_strides(v) != sk:
+        k, v = _dense(k), _dense(v)
+        sk = _tensor_map_strides(k)
+    return k, v, sk
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
                         window: Optional[int], q_offset: int):
     _check_cuda_operands("flash_forward", q, k, v)
@@ -476,14 +512,8 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
                          f"scale, got {scale}")
     # One stride rule for every route, a tensor map's: operands that
     # fail it (or K and V with different strides) are copied dense.
-    sq = _tensor_map_strides(q)
-    if sq is None:
-        q = _dense(q)
-        sq = _tensor_map_strides(q)
-    sk = _tensor_map_strides(k)
-    if sk is None or _tensor_map_strides(v) != sk:
-        k, v = _dense(k), _dense(v)
-        sk = _tensor_map_strides(k)
+    q, sq = _mapped(q)
+    k, v, sk = _mapped_kv(k, v)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     rows = _flash_fwd_route(q.dtype, d, b, tq, h, _sm_count(q.device))[1]
@@ -502,7 +532,9 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta, causal: bool,
                     scale: float, window: Optional[int], q_offset: int,
                     out_dtype) -> Tuple[torch.Tensor, ...]:
     """Launch one of the two ``flash_bwd.cu`` kernels (``which`` is its
-    LAUNCHES key): ``(dq,)`` or ``(dk, dv)``."""
+    LAUNCHES key): ``(dq,)`` or ``(dk, dv)``; or, for ``which`` =
+    "flash_backward", both on the same checked and mapped operands:
+    ``(dq, dk, dv)``."""
     _check_cuda_operands(which, q, k, v, do)
     b, tq, h, d = q.shape
     tk, kvh = k.shape[1], k.shape[2]
@@ -525,26 +557,52 @@ def _flash_bwd_cuda(which: str, q, k, v, do, lse, delta, causal: bool,
     if out not in (q.dtype, torch.float32):
         raise TypeError(f"{which}: gradients in {q.dtype} or float32, "
                         f"got {out}")
-    # The kernels index contiguous [B, T, heads, D] operands.
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse, delta = (t.reshape(b, h, tq).contiguous() for t in (lse, delta))
-    common = (b, tq, tk, h, kvh, d, int(causal),
-              0 if window is None else int(window), q_offset, scale,
-              int(q.dtype == torch.bfloat16), int(out == torch.float32),
-              _stream(q.device))
-    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    if which == "flash_bwd_dq":
-        outs = (torch.empty((b, tq, h, d), dtype=out, device=q.device),)
-        fn = build.kernel("flash_bwd", "tfm_flash_bwd_dq", _BWD_DQ_ARGS)
+    names = (("flash_bwd_dq", "flash_bwd_dkv") if which == "flash_backward"
+             else (which,))
+    # Each kernel's rows a CTA, by the rule on its own grid (the route is
+    # the same for both: it follows dtype and head_dim).
+    grid = {"flash_bwd_dq": (tq, h), "flash_bwd_dkv": (tk, kvh)}
+    sms = _sm_count(q.device)
+    plans = {n: _flash_bwd_route(q.dtype, d, b, *grid[n], sms)
+             for n in names}
+    if plans[names[0]][0] == "wgmma":
+        # A tensor map's stride rule: operands that fail it (autograd's
+        # do may be strided), or K and V with different strides, are
+        # copied dense.
+        q, sq = _mapped(q)
+        do, so = _mapped(do)
+        k, v, sk = _mapped_kv(k, v)
     else:
-        outs = tuple(torch.empty((b, tk, kvh, d), dtype=out,
-                                 device=q.device) for _ in range(2))
-        fn = build.kernel("flash_bwd", "tfm_flash_bwd_dkv", _BWD_DKV_ARGS)
+        # The mma.sync and FMA kernels index contiguous operands.
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+        sq = so = (tq * h * d, h * d, d)
+        sk = (tk * kvh * d, kvh * d, d)
+    lse, delta = (t.reshape(b, h, tq).contiguous() for t in (lse, delta))
+    common = (b, tq, tk, h, kvh, d, *sq, *so, *sk, int(causal),
+              0 if window is None else int(window), q_offset, scale,
+              int(q.dtype == torch.bfloat16), int(out == torch.float32))
+    stream = _stream(q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    outs = []
     with torch.cuda.device(q.device):
-        LAUNCHES[which] += 1
-        err = fn(*ptrs, *(t.data_ptr() for t in outs), *common)
-    build.check("flash_bwd", err, which)
-    return outs
+        for name in names:
+            if name == "flash_bwd_dq":
+                grads = (torch.empty((b, tq, h, d), dtype=out,
+                                     device=q.device),)
+                fn = build.kernel("flash_bwd", "tfm_flash_bwd_dq",
+                                  _BWD_DQ_ARGS)
+            else:
+                grads = tuple(torch.empty((b, tk, kvh, d), dtype=out,
+                                          device=q.device)
+                              for _ in range(2))
+                fn = build.kernel("flash_bwd", "tfm_flash_bwd_dkv",
+                                  _BWD_DKV_ARGS)
+            LAUNCHES[name] += 1
+            err = fn(*ptrs, *(t.data_ptr() for t in grads), *common,
+                     plans[name][1], stream)
+            build.check("flash_bwd", err, name)
+            outs.extend(grads)
+    return tuple(outs)
 
 
 # -- decode ----------------------------------------------------------------
