@@ -31,12 +31,21 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    9000, 16383] in bf16, int8 and float32, and M = 301: 2e-2 bf16, 1e-4
    float32, both absolute and per output row over the row's own
    magnitude; and per row against ``_decode_split_reference`` at the
-   launch's S, 1e-2 bf16, 1e-5 float32),
-   the paged kernel's int8 fold at the serving shape (t=1 and t=4 with
-   self_kv, atol 2e-2), and the int8 quantize kernel at every flagship
-   weight leaf's shape and a cache write's (round-to-nearest and seeded
-   stochastic rounding BIT-exact to the plain versions, the dither
-   unbiased);
+   launch's S, 1e-2 bf16, 1e-5 float32); the paged decode kernel at the
+   serving shape (8 layers, rows 8, KV 8, 16 pages of 64, pos 1..1000,
+   the deferred chunk of t=1 and t=4) over bf16 and int8 pools, an int8
+   pool taking the raw chunk with ``round_self``, and at phase 11's
+   long-context bytes laid out in 256 pages beside ``flash_decode.cu``
+   over the same bytes; then, for correctness only, pages of 16 and
+   128, head_dim 128, float32 at head_dim 8, a GQA chunk of 8 over a
+   parked row, a 70-token chunk: every paged case with the S its launch
+   reports (equal to the wrapper's plan), within 2e-2 bf16 / 1e-4
+   float32 of the plain version and per row within 1e-2 / 1e-5 of
+   ``_paged_split_reference`` at that S, two launches bit-identical, and
+   ``round_self`` bit-identical to the chunk rounded first; and the int8
+   quantize kernel at every flagship weight leaf's shape and a cache
+   write's (round-to-nearest and seeded stochastic rounding BIT-exact to
+   the plain versions, the dither unbiased);
 4. does the same for the two backward kernels (dq, dk/dv) at the
    training shape [8, 2048, 8, 64] and at [1, 512, 8, 64], causal bf16,
    against the plain backward from the same bf16 inputs (tolerance
@@ -59,7 +68,8 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
 5. serves 16 seeded requests (prompts of 8..700 tokens, 32 new tokens
    each) through ``ContinuousBatcher`` on the flagship config (rows 8,
    page 64, bucket 64), and checks that every prefill and every decode
-   tick launched the kernels once per layer;
+   tick launched the kernels once per layer, and the paged kernel's merge
+   once per layer of each tick whose table width splits it;
 6. reruns two served requests teacher-forced through ``forward`` on the
    CPU in float32 with the same float32 master weights, and requires
    the card's token wherever the CPU's top-1/top-2 margin is clear;
@@ -88,9 +98,10 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     the card's own ``forward``; tokens/s, ms per step and a profile of
     16 steps;
 12. serves phase 5's 16 requests with int8 weights over an int8 page
-    pool: 8 flash_decode_paged launches per tick, 8 flash_fwd per
-    prefill, 2 quant_int8 per prefill and 18 per tick, and two requests
-    teacher-forced as in phase 10.
+    pool: 8 flash_decode_paged launches per tick (and merges as in phase
+    5), 8 flash_fwd per prefill, 2 quant_int8 per prefill and 2 per tick
+    (the commit: the kernel rounds the deferred chunk itself), and two
+    requests teacher-forced as in phase 10.
 
 Every path phase zeroes all launch counts (``attention.LAUNCHES`` and
 ``quant.LAUNCHES``) just before it runs and reads them just after.
@@ -287,11 +298,18 @@ def decode_launched(ta, q, kc):
     """Split count S of the last flash_decode launch as the C entry
     reports it (its grid's z), required to equal ``_decode_plan`` and to
     come with a merge exactly when S > 1."""
-    grid = last_launch("flash_decode", "tfm_flash_decode_last_launch", 4)
+    return split_launched(ta, "flash_decode", q, kc.shape[2], kc.shape[3])
+
+
+def split_launched(ta, lib, q, kv, slots):
+    """Split count S of the last launch of decode kernel ``lib`` as its C
+    entry reports it (its grid's z), required to equal ``_decode_plan``
+    and to come with a merge exactly when S > 1."""
+    grid = last_launch(lib, f"tfm_{lib}_last_launch", 4)
     qq = q if q.dim() == 4 else q[:, None]
-    plan = ta._decode_plan(qq, kc)
+    plan = ta._decode_plan(qq, kv, slots)
     need(grid[2] == plan and (grid[3] > 0) == (plan > 1),
-         f"flash_decode {tuple(q.shape)} launched grid {grid[:3]} merge "
+         f"{lib} {tuple(q.shape)} launched grid {grid[:3]} merge "
          f"{grid[3]}, the wrapper's plan says S {plan}")
     return grid[2]
 
@@ -354,6 +372,160 @@ def phase_build():
                   or "Performance" in line):
                 say(f"  {log.stem}: {line.strip()}")
     return secs
+
+
+def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
+               int8=False, with_self=True, time_it=False, n_layers=8,
+               layer=3, linear=False, park_last=False):
+    """One flash_decode_paged case on the card, inputs drawn from ``gen``:
+    a stacked pool of ``n_layers`` with a scrambled table (page 0 the
+    sink), ``pos`` per row, and (``with_self``) a deferred chunk, which an
+    int8 pool takes raw with ``round_self`` as serving passes it.  Checks
+    the launch's S and merge against the wrapper's plan; the output within
+    PAGED_ATOL (bf16) / 1e-4 (float32) of ``_paged_decode_reference`` and
+    per row within 1e-2 / 1e-5 of ``_paged_split_reference`` at that S;
+    a second launch bit-identical; an int8 pool's ``round_self`` launch
+    bit-identical to the launch with the chunk already rounded.  With
+    ``time_it`` it times kernel (merge included), plain version and SDPA
+    over the gathered (dequantized) view with the chunk written at its
+    positions, and the host cost of a call, beside the bound; with
+    ``linear`` also ``flash_decode.cu`` over the same K/V laid out as a
+    linear cache, and SDPA over its live prefix.  ``park_last``: the last
+    row's table row is all sink, as the batcher parks an idle row."""
+    import torch.nn.functional as F
+
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    n_pages = rows * np_ + 1
+    kpool = randn(n_layers, n_pages, kv, ps, d)
+    vpool = randn(n_layers, n_pages, kv, ps, d)
+    if int8:
+        kpool, vpool = _lane_int8(tq, kpool), _lane_int8(tq, vpool)
+    perm = torch.randperm(n_pages - 1, generator=gen) + 1    # 0 = sink
+    table = perm[:rows * np_].reshape(rows, np_).to(dev, torch.int32)
+    if park_last:
+        table[-1] = 0
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q = randn(rows, t, h, d)
+    chunk = (randn(rows, t, kv, d), randn(rows, t, kv, d)) \
+        if with_self else None
+    rs = int8 and with_self
+    scale = 1.0 / math.sqrt(d)
+
+    def call():
+        return ta.flash_decode_paged(q, kpool, vpool, table, posv,
+                                     layer=layer, self_kv=chunk,
+                                     round_self=rs)
+
+    out = call()
+    splits = split_launched(ta, "flash_decode_paged", q, kv, np_ * ps)
+    again = call()
+    self_ops = ta._self_operands(q, chunk, rs)
+    ref = ta._paged_decode_reference(q, kpool, vpool, table, posv, scale,
+                                     layer=layer, self_kv=self_ops)
+    split_ref = ta._paged_split_reference(q, kpool, vpool, table, posv,
+                                          None, splits, layer=layer,
+                                          self_kv=chunk, round_self=rs)
+    pre = ta.flash_decode_paged(q, kpool, vpool, table, posv, layer=layer,
+                                self_kv=self_ops) if rs else out
+    torch.cuda.synchronize()
+    bf = dtype == torch.bfloat16
+    tol = PAGED_ATOL if bf else DECODE_F32_ATOL
+    split_tol = SPLIT_BF16_TOL if bf else SPLIT_F32_TOL
+    err = float((out.float() - ref.float()).abs().max())
+    err_split = row_err(out, split_ref)
+    shape = {"layers": n_layers, "rows": rows, "t": t, "h": h, "kv": kv,
+             "page": ps, "np": np_, "d": d,
+             "dtype": str(dtype).split(".")[-1], "int8": int8,
+             "self": with_self}
+    need(bool(torch.isfinite(out).all()) and err <= tol
+         and err_split <= split_tol,
+         f"flash_decode_paged {label} {shape}: err {err} (tol {tol}); per "
+         f"row against the S {splits} split reference {err_split} (tol "
+         f"{split_tol})")
+    need(torch.equal(out, again), f"flash_decode_paged {label}: two "
+         f"launches differ")
+    need(torch.equal(out, pre), f"flash_decode_paged {label}: round_self "
+         f"differs from the pre-rounded chunk")
+    row = {"shape": shape, "pos": list(pos), "max_abs_err": err, "tol": tol,
+           "split_ref_row_err": err_split, "split_tol": split_tol,
+           "splits": splits, "rerun_identical": True,
+           "round_self_identical": True if rs else None}
+    if not time_it:
+        say(f"  flash_decode_paged check {label} [S {splits}]: err "
+            f"{err:.2e} (tol {tol}) split_ref_row_err {err_split:.2e} (tol "
+            f"{split_tol}), reruns bit-identical"
+            + (", round_self bit-identical" if rs else ""))
+        return row
+    row["ms"] = cuda_ms(torch, call)
+    row["host_us"] = host_us(torch, call)
+    row["plain_ms"] = cuda_ms(torch, lambda: ta._paged_decode_reference(
+        q, kpool, vpool, table, posv, scale, layer=layer,
+        self_kv=ta._self_operands(q, chunk, rs)))
+    # Yardstick: SDPA over the gathered contiguous view (int8 dequantized,
+    # the chunk written at its positions), ragged mask precomputed.
+    tl = table.long()
+    m = np_ * ps
+
+    def view(pool):
+        if int8:
+            pool = ta._dequant_lane_major(tq.QTensor(
+                pool.values[layer], pool.scales[layer]), dtype)
+        else:
+            pool = pool[layer]
+        return pool[tl].transpose(1, 2).reshape(rows, kv, m, d)
+
+    kview, vview = view(kpool), view(vpool)
+    cols = posv.long()[:, None] + torch.arange(t, device=dev)[None]
+    if with_self:
+        ridx = torch.arange(rows, device=dev)[:, None]
+        kview[ridx, :, cols] = self_ops[0]
+        vview[ridx, :, cols] = self_ops[1]
+    allow = (torch.arange(m, device=dev)[None, None, :]
+             <= cols[:, :, None])[:, None]            # [B, 1, t, M]
+    qh = q.transpose(1, 2).contiguous()
+    gqa = {"enable_gqa": True} if kv != h else {}
+    row["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kview, vview, attn_mask=allow, **gqa))
+    # Bytes: the live positions' K and V (and int8 scales) — committed
+    # positions < pos with a chunk, else <= pos + t - 1 —, the chunk, q
+    # and the output, the live table entries and pos.
+    live = [p_ if with_self else p_ + t for p_ in pos]
+    item = 1 if int8 else torch.finfo(dtype).bits // 8
+    qitem = torch.finfo(dtype).bits // 8
+    bytes_ = (2 * sum(live) * kv * d * item
+              + (8 * sum(live) * kv if int8 else 0)
+              + (2 * rows * t * kv * d * qitem if with_self else 0)
+              + 2 * rows * t * h * d * qitem
+              + 4 * sum(-(-n // ps) for n in live) + 4 * rows)
+    keys = sum(p_ + tt + 1 for p_ in pos for tt in range(t))
+    row["bound_ms"], row["bound_by"] = bound(bytes_, 4 * keys * h * d)
+    extra = ""
+    if linear:
+        # The same K/V as a linear stacked cache [1, rows, KV, M, D].
+        kc, vc = kview[None].contiguous(), vview[None].contiguous()
+        row["linear_ms"] = cuda_ms(torch, lambda: ta.flash_decode(
+            q, kc, vc, posv, layer=0))
+        row["linear_splits"] = decode_launched(ta, q, kc)
+        prefix = max(pos) + t
+        kl, vl = kview[:, :, :prefix], vview[:, :, :prefix]
+        row["linear_library_ms"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(qh, kl, vl, **gqa))
+        extra = (f" | flash_decode over the same bytes linear [S "
+                 f"{row['linear_splits']}] {row['linear_ms']:.4f}, SDPA "
+                 f"over its live prefix {row['linear_library_ms']:.4f}")
+    say(f"  flash_decode_paged {label} [S {splits}]: kernel_ms "
+        f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+        f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+        f"({row['bound_by']}) err {err:.2e} split_ref_row_err "
+        f"{err_split:.2e} host_us {row['host_us']:.1f}{extra}")
+    return row
 
 
 def phase_kernels(torch):
@@ -423,62 +595,15 @@ def phase_kernels(torch):
                          (4, 1024, None), (1, 512, 128)]:
         flash_case(b, t, window, randn)
 
-    n_layers, rows, kv, ps, np_, layer = 8, 8, 8, 64, 16, 3
-    n_pages = rows * np_ + 1
-    kpool = randn(n_layers, n_pages, kv, ps, d)
-    vpool = randn(n_layers, n_pages, kv, ps, d)
-    perm = torch.randperm(n_pages - 1, generator=gen) + 1    # 0 = sink
-    table = perm[:rows * np_].reshape(rows, np_).to(dev, torch.int32)
+    # The paged kernel at the serving shape: 8 layers, rows 8, KV 8, 16
+    # pages of 64, pos 1..1000, the deferred chunk of 1 and 4 tokens.
     paged_rows = []
     for t in (1, 4):
-        pos = torch.randint(1, 1001, (rows,), generator=gen)
-        pos = pos.clamp(max=np_ * ps - t).to(dev, torch.int32)
-        q = randn(rows, t, h, d)
-        self_kv = (randn(rows, t, kv, d), randn(rows, t, kv, d))
-        out_k = ta.flash_decode_paged(q, kpool, vpool, table, pos,
-                                      layer=layer, self_kv=self_kv)
-        out_p = ta._paged_decode_reference(q, kpool, vpool, table, pos,
-                                           scale, layer=layer,
-                                           self_kv=self_kv)
-        torch.cuda.synchronize()
-        err = float((out_k.float() - out_p.float()).abs().max())
-        need(err <= PAGED_ATOL, f"flash_decode_paged t={t}: err {err}")
-        ms = cuda_ms(torch, lambda: ta.flash_decode_paged(
-            q, kpool, vpool, table, pos, layer=layer, self_kv=self_kv))
-        plain = cuda_ms(torch, lambda: ta._paged_decode_reference(
-            q, kpool, vpool, table, pos, scale, layer=layer,
-            self_kv=self_kv))
-        # Yardstick: SDPA over the gathered contiguous view (the chunk
-        # written at its positions), ragged mask precomputed.
-        tl = table.long()
-        m = np_ * ps
-        kview = kpool[layer][tl].transpose(1, 2).reshape(rows, kv, m, d)
-        vview = vpool[layer][tl].transpose(1, 2).reshape(rows, kv, m, d)
-        ridx = torch.arange(rows, device=dev)[:, None]
-        cols = pos.long()[:, None] + torch.arange(t, device=dev)[None]
-        kview[ridx, :, cols] = self_kv[0]
-        vview[ridx, :, cols] = self_kv[1]
-        allow = (torch.arange(m, device=dev)[None, None, :]
-                 <= cols[:, :, None])[:, None]            # [B, 1, t, M]
-        qh = q.transpose(1, 2).contiguous()
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kview, vview, attn_mask=allow))
-        live = int(pos.sum())                     # committed positions read
-        keys = int((pos.long()[:, None] + torch.arange(
-            1, t + 1, device=dev)[None]).sum())   # keys seen per query row
-        bytes_ = (2 * live * kv * d * 2 + 2 * rows * t * kv * d * 2
-                  + 2 * rows * t * h * d * 2 + rows * np_ * 4 + rows * 4)
-        flops = 4 * keys * h * d
-        bms, by = bound(bytes_, flops)
-        row = {"shape": {"layers": n_layers, "rows": rows, "t": t, "kv": kv,
-                         "page": ps, "d": d, "np": np_}, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": bms, "bound_by": by,
-               "pos": [int(x) for x in pos.tolist()]}
-        paged_rows.append(row)
-        say(f"  flash_decode_paged t={t}: kernel_ms {ms:.4f} plain_ms "
-            f"{plain:.4f} library_ms {lib:.4f} bound_ms {bms:.5f} ({by}) "
-            f"err {err:.2e}")
+        pos = torch.randint(1, 1001, (8,), generator=gen).clamp(
+            max=16 * 64 - t).tolist()
+        paged_rows.append(paged_case(torch, gen, f"bf16 t={t}", 8, t, h, 8,
+                                     64, 16, d, pos, torch.bfloat16,
+                                     time_it=True))
     check_other_paths(torch, ta, gen)
     # The training shape, from a generator of its own: drawing it from
     # the shared one would move the paged-decode inputs above.
@@ -501,8 +626,8 @@ def phase_kernels(torch):
 
 
 def check_other_paths(torch, ta, gen):
-    """Correctness only, off the flagship path: GQA in bf16, and the
-    float32 kernels at the tiny preset's head_dim 8 (FMA route),
+    """Correctness only, off the flagship path: flash_fwd with GQA in
+    bf16, and at float32 with the tiny preset's head_dim 8 (FMA route),
     atol 1e-4 — float32 throughout, summed in another order."""
     dev = torch.device("cuda")
     q, k, v = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
@@ -518,23 +643,8 @@ def check_other_paths(torch, ta, gen):
     err32 = max(float((o_k - o_p).abs().max()),
                 float((lse_k - lse_p).abs().max()))
     need(err32 <= 1e-4, f"flash_fwd float32: err {err32}")
-    kpool, vpool = (torch.randn((2, 9, 4, 64, 8), generator=gen).to(dev)
-                    for _ in range(2))
-    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
-    pos = torch.tensor([70, 5], dtype=torch.int32, device=dev)
-    qd = torch.randn((2, 1, 4, 8), generator=gen).to(dev)
-    self_kv = tuple(torch.randn((2, 1, 4, 8), generator=gen).to(dev)
-                    for _ in range(2))
-    out_k = ta.flash_decode_paged(qd, kpool, vpool, table, pos, layer=1,
-                                  self_kv=self_kv)
-    out_p = ta._paged_decode_reference(qd, kpool, vpool, table, pos,
-                                       1 / math.sqrt(8), layer=1,
-                                       self_kv=self_kv)
-    errd = float((out_k - out_p).abs().max())
-    need(errd <= 1e-4, f"flash_decode_paged float32: err {errd}")
     say(f"  other paths: flash_fwd GQA bf16 err {err:.2e}, flash_fwd "
-        f"float32 head_dim 8 err {err32:.2e}, flash_decode_paged float32 "
-        f"head_dim 8 err {errd:.2e}")
+        f"float32 head_dim 8 err {err32:.2e}")
 
 
 def check_forward_routes(torch, ta, draw):
@@ -724,6 +834,7 @@ def phase_serve(torch, np):
     # Warm-up request (cuBLAS handles, kernel library loads) outside the
     # measured run.
     list(batcher.run([Request(np.arange(1, 9), 2)]))
+    widths = table_widths(batcher)
     rng = np.random.RandomState(0)
     lens = rng.randint(8, 701, size=16)
     reqs = [Request(rng.randint(0, cfg.vocab_size, n), 32) for n in lens]
@@ -747,6 +858,12 @@ def phase_serve(torch, np):
     need(launches["flash_decode_paged"] == L * batcher.decode_ticks,
          f"flash_decode_paged launches {launches['flash_decode_paged']} "
          f"!= {L} x {batcher.decode_ticks} decode ticks")
+    merges = paged_merges(cfg, batcher, widths)
+    need(len(widths) == batcher.decode_ticks
+         and launches["flash_decode_paged_merge"] == merges,
+         f"flash_decode_paged_merge launches "
+         f"{launches['flash_decode_paged_merge']} != {merges} ({L} for "
+         f"each of the {len(widths)} ticks whose table width splits)")
     need(launches["flash_decode"] == launches["flash_decode_merge"]
          == launches["quant_int8"] == 0,
          f"bf16 serving launched the linear decode or quant kernel: "
@@ -769,6 +886,34 @@ def phase_serve(torch, np):
     return cfg, params, reqs, comps, stats
 
 
+def table_widths(batcher):
+    """From now on, record the page-table width (pages) of every decode
+    tick of ``batcher``: the paged kernel's split count follows it."""
+    widths = []
+    read = batcher._decode_table
+
+    def recorded():
+        table = read()
+        widths.append(int(table.shape[1]))
+        return table
+
+    batcher._decode_table = recorded
+    return widths
+
+
+def paged_merges(cfg, batcher, widths):
+    """flash_decode_paged_merge launches of a serving run: n_layers for
+    each decode tick whose table width (``widths``) splits the kernel
+    (S > 1 by ``_decode_splits`` at t = 1)."""
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    tiles = -(-(cfg.n_heads // cfg.kv_heads) // ta._DECODE_ROW_TILE)
+    sms = ta._sm_count("cuda")
+    return cfg.n_layers * sum(
+        ta._decode_splits(batcher.rows, cfg.kv_heads, tiles,
+                          w * batcher.page_size, sms) > 1 for w in widths)
+
+
 def profile_serving(torch, np, batcher, cfg):
     """Device busy share of a short serving run (8 requests of 64 prompt
     tokens, 16 new tokens) under torch.profiler, and the top device
@@ -788,7 +933,7 @@ def profile_serving(torch, np, batcher, cfg):
 # The port's kernel functions (csrc/*.cu), as the profiler names them.
 PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
                 "flash_fwd_fma_kernel", "split_decode_kernel",
-                "merge_partials", "paged_decode_kernel", "flash_bwd_dq_",
+                "merge_partials", "paged_split_kernel", "flash_bwd_dq_",
                 "flash_bwd_dkv_", "quant_kernel")
 
 
@@ -907,8 +1052,8 @@ def phase_train(torch):
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         need(launches[key] == L * TRAIN_STEPS,
              f"{key} launches {launches[key]} != {L} x {TRAIN_STEPS} steps")
-    for key in ("flash_decode_paged", "flash_decode", "flash_decode_merge",
-                "quant_int8"):
+    for key in ("flash_decode_paged", "flash_decode_paged_merge",
+                "flash_decode", "flash_decode_merge", "quant_int8"):
         need(launches[key] == 0, f"{key} launched in training")
     # The host cost of the input stream, alone: its Python loop over T.
     stream = token_batches(args.batch_size, run.seq_len, run.cfg.vocab_size,
@@ -1119,69 +1264,49 @@ def phase_decode_kernels(torch):
     decode_case(4, 1, 8, 8, 16384, 64, ragged, f32, False, False)
     gen = main_gen
 
-    # The paged kernel's int8 fold at the serving shape.
-    n_layers, rows, kv, ps, np_, h, d, layer = 8, 8, 8, 64, 16, 8, 64, 3
-    n_pages = rows * np_ + 1
-    kpool = _lane_int8(tq, randn((n_layers, n_pages, kv, ps, d)))
-    vpool = _lane_int8(tq, randn((n_layers, n_pages, kv, ps, d)))
-    perm = torch.randperm(n_pages - 1, generator=gen) + 1    # 0 = sink
-    table = perm[:rows * np_].reshape(rows, np_).to(dev, torch.int32)
-    scale = 1.0 / math.sqrt(d)
+    # The paged kernel over an int8 pool at the serving shape, the chunk
+    # handed over raw with round_self as serving does.
     paged_rows = []
     for t in (1, 4):
-        pos = torch.randint(1, 1001, (rows,), generator=gen)
-        pos = pos.clamp(max=np_ * ps - t).to(dev, torch.int32)
-        q = randn((rows, t, h, d))
-        # As decode_step hands it over: the chunk quantize-dequantized.
-        self_kv = tuple(tq.QTensor(*tq.quantize_int8_reference(
-            randn((rows, t, kv, d)))).dequantize(torch.bfloat16)
-            for _ in range(2))
-        out_k = ta.flash_decode_paged(q, kpool, vpool, table, pos,
-                                      layer=layer, self_kv=self_kv)
-        out_p = ta._paged_decode_reference(q, kpool, vpool, table, pos,
-                                           scale, layer=layer,
-                                           self_kv=self_kv)
-        torch.cuda.synchronize()
-        err = float((out_k.float() - out_p.float()).abs().max())
-        need(err <= PAGED_ATOL, f"flash_decode_paged int8 t={t}: err {err}")
-        ms = cuda_ms(torch, lambda: ta.flash_decode_paged(
-            q, kpool, vpool, table, pos, layer=layer, self_kv=self_kv))
-        plain = cuda_ms(torch, lambda: ta._paged_decode_reference(
-            q, kpool, vpool, table, pos, scale, layer=layer,
-            self_kv=self_kv))
-        # Yardstick: SDPA over the gathered, dequantized view with the
-        # chunk written at its positions (built outside the timing).
-        tl = table.long()
-        m = np_ * ps
-        kview, vview = (ta._dequant_lane_major(tq.QTensor(
-            p_.values[layer], p_.scales[layer]), torch.bfloat16)[tl]
-            .transpose(1, 2).reshape(rows, kv, m, d)
-            for p_ in (kpool, vpool))
-        ridx = torch.arange(rows, device=dev)[:, None]
-        cols = pos.long()[:, None] + torch.arange(t, device=dev)[None]
-        kview[ridx, :, cols] = self_kv[0]
-        vview[ridx, :, cols] = self_kv[1]
-        allow = (torch.arange(m, device=dev)[None, None, :]
-                 <= cols[:, :, None])[:, None]
-        qh = q.transpose(1, 2).contiguous()
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kview, vview, attn_mask=allow))
-        live = int(pos.sum())
-        keys = int((pos.long()[:, None] + torch.arange(
-            1, t + 1, device=dev)[None]).sum())
-        bytes_ = (2 * live * kv * d + 8 * live * kv
-                  + 2 * rows * t * kv * d * 2 + 2 * rows * t * h * d * 2
-                  + rows * np_ * 4 + rows * 4)
-        bms, by = bound(bytes_, 4 * keys * h * d)
-        row = {"shape": {"layers": n_layers, "rows": rows, "t": t, "kv": kv,
-                         "page": ps, "d": d, "np": np_, "int8": True},
-               "max_abs_err": err, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": bms, "bound_by": by,
-               "pos": [int(x) for x in pos.tolist()]}
-        paged_rows.append(row)
-        say(f"  flash_decode_paged int8 t={t}: kernel_ms {ms:.4f} plain_ms "
-            f"{plain:.4f} library_ms {lib:.4f} bound_ms {bms:.5f} ({by}) "
-            f"err {err:.2e}")
+        pos = torch.randint(1, 1001, (8,), generator=gen).clamp(
+            max=16 * 64 - t).tolist()
+        paged_rows.append(paged_case(torch, gen, f"int8 t={t}", 8, t, 8, 8,
+                                     64, 16, 64, pos, bf16, int8=True,
+                                     time_it=True))
+    # From a generator of its own: phase 11's long-context bytes laid out
+    # in pages ([4 rows, KV 8, 256 pages of 64], pos 1024, the pool holding
+    # the chunk) beside flash_decode.cu over the same bytes, so the cost
+    # of the table shows; then correctness at the edges of the design:
+    # pages of 16 (four a block) and 128 (half a block), head_dim 128,
+    # float32 at head_dim 8, a GQA chunk of 8 over a parked row, and a
+    # 70-token chunk (two self blocks).
+    pgen = torch.Generator().manual_seed(10)
+    paged_rows.append(paged_case(torch, pgen, "long context", 4, 1, 8, 8, 64,
+                                 256, 64, [1024] * 4, bf16, with_self=False,
+                                 time_it=True, n_layers=2, layer=1,
+                                 linear=True))
+    for label, args, kw in [
+            ("page 16 GQA", (3, 2, 8, 2, 16, 20, 64, [0, 150, 318], bf16),
+             {}),
+            ("page 128 int8", (3, 1, 8, 4, 128, 6, 64, [0, 400, 767], bf16),
+             {"int8": True}),
+            ("page 32 float32, no chunk",
+             (3, 2, 8, 2, 32, 10, 64, [0, 100, 318], f32),
+             {"with_self": False}),
+            ("head_dim 128", (4, 1, 8, 8, 64, 8, 128, [0, 100, 300, 511],
+                              bf16), {}),
+            ("head_dim 128 int8 GQA t=3",
+             (2, 3, 8, 2, 64, 8, 128, [0, 509], bf16), {"int8": True}),
+            ("float32 head_dim 8", (2, 1, 4, 4, 64, 2, 8, [70, 5], f32), {}),
+            ("float32 head_dim 8 int8", (2, 1, 4, 4, 64, 2, 8, [70, 5], f32),
+             {"int8": True}),
+            ("GQA t=8 int8, a parked row",
+             (3, 8, 8, 2, 64, 8, 64, [200, 504, 0], bf16),
+             {"int8": True, "park_last": True}),
+            ("float32 t=70 over pages of 16",
+             (2, 70, 4, 2, 16, 10, 16, [0, 90], f32), {})]:
+        paged_rows.append(paged_case(torch, pgen, label, *args, n_layers=2,
+                                     layer=1, **kw))
 
     # The quantize kernel: every flagship weight leaf (float32 masters,
     # rows = leading dims flattened) and a cache write's K chunk (bf16,
@@ -1397,7 +1522,8 @@ def phase_generate_int8(torch):
         else 0
     want = {"quant_int8": 9 + 2 * L * new, "flash_fwd": L,
             "flash_decode": L * (new - 1), "flash_decode_merge": merges,
-            "flash_decode_paged": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode_paged": 0, "flash_decode_paged_merge": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     need(launches == want, f"int8 generate launches {launches} != {want}")
     need(tuple(out.shape) == (batch, plen + new)
          and bool(((out >= 0) & (out < cfg.vocab_size)).all())
@@ -1450,7 +1576,8 @@ def phase_generate_long(torch):
     merges = L * (new - 1) if decode_splits(cfg, batch, max_len) > 1 else 0
     want = {"quant_int8": 0, "flash_fwd": L, "flash_decode": L * (new - 1),
             "flash_decode_merge": merges, "flash_decode_paged": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_decode_paged_merge": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     need(launches == want, f"long-context generate launches {launches} != "
          f"{want}")
 
@@ -1498,6 +1625,7 @@ def phase_serve_int8(torch, np, reqs):
                                 prefill_bucket=64, quantized_cache=True,
                                 device="cuda")
     list(batcher.run([Request(np.arange(1, 9), 2)]))          # warm-up
+    widths = table_widths(batcher)
     batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
     batcher.decode_seconds = 0.0
     zero_launches()
@@ -1510,10 +1638,11 @@ def phase_serve_int8(torch, np, reqs):
     need(len(comps) == 16 and all(len(c.tokens) == 32 for c in comps),
          "int8 serving: a request did not complete its 32 tokens")
     want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
-            "quant_int8": 2 * n_pre + (2 * L + 2) * ticks,
-            "flash_decode": 0, "flash_decode_merge": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
-    need(n_pre == 16 and ticks > 0 and launches == want,
+            "flash_decode_paged_merge": paged_merges(cfg, batcher, widths),
+            "quant_int8": 2 * n_pre + 2 * ticks, "flash_decode": 0,
+            "flash_decode_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(n_pre == 16 and ticks > 0 and len(widths) == ticks
+         and launches == want,
          f"int8 serving launches {launches} != {want} ({n_pre} prefills, "
          f"{ticks} ticks)")
     checked = agree = n_pos = 0
@@ -1618,7 +1747,9 @@ def main() -> int:
         entry_of("flash_decode_paged",
                  "tfmesos_tpu_torch/csrc/flash_decode_paged.cu",
                  "tfmesos_tpu/ops/attention.py:871",
-                 paged_rows + paged8_rows, 0),
+                 paged_rows + paged8_rows, 0,
+                 splits=paged_rows[0]["splits"],
+                 merge_launches=launches_of("flash_decode_paged_merge")),
         entry_of("flash_decode", "tfmesos_tpu_torch/csrc/flash_decode.cu",
                  "tfmesos_tpu/ops/attention.py:596", decode_rows, 0,
                  splits=decode_rows[0]["splits"],

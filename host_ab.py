@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch port on one CUDA card: the host
 cost of the attention kernels' wrappers, the wall time of a generate
-step, which the host's dispatch bounds, and the wall time of a training
-step.
+step or a serving tick, which the host's dispatch bounds, and the wall
+time of a training step.
 
-    python3 host_ab.py A_DIR B_DIR [--rounds 20]
+    python3 host_ab.py A_DIR B_DIR [--rounds 20] [--groups host_us,serve_ms]
 
 Each directory is the root of a checkout holding ``tfmesos_tpu_torch``.
 Both checkouts' kernels are built first (the two builds in parallel).
@@ -19,19 +19,36 @@ on both trees alike.  Nothing of JAX is imported.
   keeps the device from stalling the host): flash_forward at
   [8, 2048, 8, 64] and [1, 512, 8, 64] (bf16, causal), flash_decode bf16
   [4, KV 8, M 16384, 64] at pos 1024 and int8 [8, KV 8, M 384, 64] at
-  pos 300, and flash_backward (delta and both backward kernels) at
-  [8, 2048, 8, 64] causal over 50 calls (each launches five kernels);
+  pos 300, and over 50 calls (each launches several kernels)
+  flash_decode_paged at the serving shape (below) and flash_backward
+  (delta and both backward kernels) at [8, 2048, 8, 64] causal;
 * ``device_ms``: per round, the mean device ms (CUDA events) of one call
-  of each backward kernel's wrapper, ``flash_bwd_dq`` and
-  ``flash_bwd_dkv``, over 20 back-to-back calls at [8, 2048, 8, 64]
-  causal bf16;
+  over 20 back-to-back calls: each backward kernel's wrapper,
+  ``flash_bwd_dq`` and ``flash_bwd_dkv``, at [8, 2048, 8, 64] causal
+  bf16, and flash_decode_paged at the serving shape;
+* flash_decode_paged's serving shape is chip_smoke's phase 3: a pool of
+  8 layers, rows 8, KV 8, 16 pages of 64 (a scrambled table), head_dim
+  64, pos 1..1000, the deferred chunk of t = 1 (bf16 and int8 pools)
+  and t = 4 (int8), called as each tree's decode step calls it: where
+  the tree's ``flash_decode_paged`` takes ``round_self``, an int8 pool
+  gets the raw chunk with it; else the chunk rounded first by the tree's
+  own ``models.transformer._quant_dequant``;
 * ``generate_ms``: per round, ms a decode step of the flagship's greedy
   generate, prefill excluded (a run of N new tokens less a one-token
   run, over N - 1 steps): int8 weights and cache at batch 8, prompt 128,
   N 64; bf16 over a 16384-slot cache at batch 4, prompt 1024, N 32;
+* ``serve_ms``: per round, ms a decode tick of the flagship's
+  ``ContinuousBatcher`` (rows 8, page 64, prefill bucket 64) on
+  chip_smoke's phase-5 traffic (16 seeded requests, prompts of 8..700
+  tokens, 32 new tokens each; ``--serve-requests`` cuts it), the
+  batcher's own decode seconds over its decode ticks, bf16 and in the
+  full int8 configuration (int8 weights and page pool);
 * ``train_ms``: per round, ms a step of the flagship's training step
   (``transformer_train``'s setup: B 8, T 2048, AdamW) over 5 steps with
   the batch already on the card, ending in the loss read back.
+
+``--groups`` picks which of host_us, device_ms, generate_ms, serve_ms and
+train_ms run (all by default).
 
 For each metric it prints each tree's median and minimum over the rounds
 and the median of the per-round differences B - A, then the card's name
@@ -66,7 +83,7 @@ def load(root: Path) -> SimpleNamespace:
         pkg = importlib.import_module(PKG)
         mods = {n: importlib.import_module(f"{PKG}.{n}") for n in (
             "ops.attention", "ops.quant", "models.transformer",
-            "models.presets", "transformer_train", "train.data",
+            "models.presets", "serving", "transformer_train", "train.data",
             "train.optim", "train.trainer", "device")}
     finally:
         sys.path.remove(str(root))
@@ -76,6 +93,7 @@ def load(root: Path) -> SimpleNamespace:
     return SimpleNamespace(ta=mods["ops.attention"], tq=mods["ops.quant"],
                            tt=mods["models.transformer"],
                            presets=mods["models.presets"],
+                           serving=mods["serving"],
                            tr=mods["transformer_train"], modules=_own())
 
 
@@ -175,6 +193,7 @@ def wrappers(torch, p: SimpleNamespace) -> dict:
         calls[f"flash_decode {name}"] = (
             lambda q=q, kc=kc, vc=vc, posv=posv: p.ta.flash_decode(
                 q, kc, vc, posv, layer=1))
+    calls.update(paged_calls(torch, p))
     q, k, v, do = (randn(8, 2048, 8, 64) for _ in range(4))
     o, lse = p.ta.flash_forward(q, k, v, causal=True)
     calls["flash_backward [8,2048,8,64]"] = (
@@ -182,16 +201,96 @@ def wrappers(torch, p: SimpleNamespace) -> dict:
     return calls
 
 
-def backward_kernels(torch, p: SimpleNamespace) -> dict:
-    """The two backward kernels' wrappers of one tree at [8, 2048, 8, 64]
-    causal bf16, on inputs from seed 0."""
+def paged_calls(torch, p: SimpleNamespace) -> dict:
+    """flash_decode_paged of one tree at the serving shape (inputs from
+    seed 1), as the tree's decode step calls it."""
+    import inspect
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def lane_int8(cache):
+        vals, scales = p.tq.quantize_int8_reference(cache)
+        return p.tq.QTensor(vals,
+                            scales.squeeze(-1).unsqueeze(-2).contiguous())
+
+    raw = "round_self" in inspect.signature(
+        p.ta.flash_decode_paged).parameters
+    calls = {}
+    for name, t, int8 in (("bf16 t=1", 1, False), ("int8 t=1", 1, True),
+                          ("int8 t=4", 4, True)):
+        kp, vp = randn(8, 129, 8, 64, 64), randn(8, 129, 8, 64, 64)
+        if int8:
+            kp, vp = lane_int8(kp), lane_int8(vp)
+        table = (torch.randperm(128, generator=gen) + 1).reshape(8, 16).to(
+            dev, torch.int32)
+        pos = torch.randint(1, 1001, (8,), generator=gen).clamp(
+            max=1024 - t).to(dev, torch.int32)
+        q = randn(8, t, 8, 64)
+        chunk = (randn(8, t, 8, 64), randn(8, t, 8, 64))
+        if int8 and raw:
+            def call(q=q, kp=kp, vp=vp, table=table, pos=pos, chunk=chunk):
+                return p.ta.flash_decode_paged(q, kp, vp, table, pos,
+                                               layer=3, self_kv=chunk,
+                                               round_self=True)
+        elif int8:
+            def call(q=q, kp=kp, vp=vp, table=table, pos=pos, chunk=chunk):
+                return p.ta.flash_decode_paged(
+                    q, kp, vp, table, pos, layer=3, self_kv=tuple(
+                        p.tt._quant_dequant(c, torch.bfloat16)
+                        for c in chunk))
+        else:
+            def call(q=q, kp=kp, vp=vp, table=table, pos=pos, chunk=chunk):
+                return p.ta.flash_decode_paged(q, kp, vp, table, pos,
+                                               layer=3, self_kv=chunk)
+        calls[f"flash_decode_paged {name}"] = call
+    return calls
+
+
+def device_calls(torch, p: SimpleNamespace) -> dict:
+    """The device-timed calls of one tree: the two backward kernels'
+    wrappers at [8, 2048, 8, 64] causal bf16 (inputs from seed 0) and
+    flash_decode_paged at the serving shape."""
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((8, 2048, 8, 64), generator=gen).to(
         "cuda", torch.bfloat16) for _ in range(4))
     o, lse = p.ta.flash_forward(q, k, v, causal=True)
     args = (q, k, v, do, lse, p.ta._bwd_delta(o, do), True, 0.125)
     return {"flash_bwd_dq [8,2048,8,64]": lambda: p.ta.flash_bwd_dq(*args),
-            "flash_bwd_dkv [8,2048,8,64]": lambda: p.ta.flash_bwd_dkv(*args)}
+            "flash_bwd_dkv [8,2048,8,64]": lambda: p.ta.flash_bwd_dkv(*args),
+            **paged_calls(torch, p)}
+
+
+def servers(torch, np, p: SimpleNamespace, n_requests: int) -> dict:
+    """One tree's batchers (flagship weights from seed 0; bf16, and int8
+    weights over an int8 pool) and ``run()``, which serves chip_smoke's
+    phase-5 requests (the first ``n_requests``) and returns ms a decode
+    tick."""
+    cfg, params = p.presets.flagship_model(seed=0, max_len=1024,
+                                           device="cuda")
+    rng = np.random.RandomState(0)
+    lens = rng.randint(8, 701, size=16)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens][:n_requests]
+    Request = p.serving.Request
+    out = {}
+    for name, weights, int8 in (
+            ("bf16", params, False),
+            ("int8", p.tt.quantize_params(cfg, params), True)):
+        batcher = p.serving.ContinuousBatcher(
+            cfg, weights, rows=8, page_size=64, prefill_bucket=64,
+            quantized_cache=int8, device="cuda")
+
+        def run(batcher=batcher):
+            batcher.decode_ticks = 0
+            batcher.decode_seconds = 0.0
+            list(batcher.run([Request(x, 32) for x in prompts]))
+            return batcher.decode_seconds / batcher.decode_ticks * 1e3
+
+        out[f"serve {name}, ms a tick ({len(prompts)} requests)"] = run
+    return out
 
 
 def generators(torch, p: SimpleNamespace) -> dict:
@@ -261,9 +360,18 @@ def main() -> int:
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=20,
                     help="rounds of each wrapper measurement (generate "
-                         "runs take a quarter as many, training steps "
-                         "half, at least 4)")
+                         "runs and serving take a quarter as many, "
+                         "training steps half, at least 4)")
+    groups = ("host_us", "device_ms", "generate_ms", "serve_ms", "train_ms")
+    ap.add_argument("--groups", default=",".join(groups),
+                    help="comma-separated measurements to run")
+    ap.add_argument("--serve-requests", type=int, default=16,
+                    help="requests of phase 5's traffic each serve_ms "
+                         "round serves")
     args = ap.parse_args()
+    todo = set(args.groups.split(","))
+    if not todo <= set(groups):
+        ap.error(f"--groups takes {groups}")
     trees = {"A": args.a.resolve(), "B": args.b.resolve()}
     for tree in trees.values():
         if not (tree / PKG).is_dir():
@@ -280,52 +388,74 @@ def main() -> int:
     print(f"built both trees in {time.perf_counter() - t0:.1f} s",
           flush=True)
     pkgs = {label: load(tree) for label, tree in trees.items()}
-    results = {"host_us": {}, "device_ms": {}, "generate_ms": {},
-               "train_ms": {}}
-    calls = {label: wrappers(torch, p) for label, p in pkgs.items()}
-    for key in calls["A"]:
-        fns = {label: calls[label][key] for label in calls}
+    results = {g: {} for g in groups if g in todo}
+
+    def warmed(fns, n=3):
         for fn in fns.values():
-            for _ in range(3):
+            for _ in range(n):
                 fn()
-        # A backward call launches five kernels: 50 calls stay inside the
-        # card's launch queue, so the host never waits on it.
-        n = 50 if key.startswith("flash_backward") else 200
-        results["host_us"][key] = alternate(
-            args.rounds, lambda fn: enqueue_us(torch, fn, n), fns)
-        print(summary("host_us", key, results["host_us"][key]), flush=True)
-    del calls
-    calls = {label: backward_kernels(torch, p) for label, p in pkgs.items()}
-    for key in calls["A"]:
-        fns = {label: calls[label][key] for label in calls}
-        for fn in fns.values():
-            for _ in range(3):
-                fn()
-        results["device_ms"][key] = alternate(
-            args.rounds, lambda fn: device_ms(torch, fn), fns)
-        print(summary("device_ms", key, results["device_ms"][key]),
-              flush=True)
-    del calls
-    with torch.no_grad():
-        gens = {label: generators(torch, p) for label, p in pkgs.items()}
-        for key in gens["A"]:
-            new = gens["A"][key][0]
-            fns = {label: gens[label][key][1] for label in gens}
-            for fn in fns.values():
-                fn(new)                                        # warm-up
-            results["generate_ms"][key] = alternate(
-                max(2, args.rounds // 4),
-                lambda fn: step_ms(torch, fn, new), fns)
-            print(summary("generate_ms", key, results["generate_ms"][key]),
+        return fns
+
+    if "host_us" in todo:
+        calls = {label: wrappers(torch, p) for label, p in pkgs.items()}
+        for key in calls["A"]:
+            fns = warmed({label: calls[label][key] for label in calls})
+            # A backward call launches five kernels, and a paged call that
+            # rounds the chunk in the caller about ten: 50 calls stay
+            # inside the card's launch queue, so the host never waits on
+            # it.
+            n = 50 if key.startswith(("flash_backward",
+                                      "flash_decode_paged")) else 200
+            results["host_us"][key] = alternate(
+                args.rounds, lambda fn: enqueue_us(torch, fn, n), fns)
+            print(summary("host_us", key, results["host_us"][key]),
                   flush=True)
-    del gens
-    steps = {label: trainer(torch, p) for label, p in pkgs.items()}
-    for fn in steps.values():
-        train_ms(torch, fn, 2)                                 # warm-up
-    key = "train step, batch ready (B 8, T 2048)"
-    results["train_ms"][key] = alternate(
-        max(4, args.rounds // 2), lambda fn: train_ms(torch, fn), steps)
-    print(summary("train_ms", key, results["train_ms"][key]), flush=True)
+        del calls
+    if "device_ms" in todo:
+        calls = {label: device_calls(torch, p) for label, p in pkgs.items()}
+        for key in calls["A"]:
+            fns = warmed({label: calls[label][key] for label in calls})
+            results["device_ms"][key] = alternate(
+                args.rounds, lambda fn: device_ms(torch, fn), fns)
+            print(summary("device_ms", key, results["device_ms"][key]),
+                  flush=True)
+        del calls
+    with torch.no_grad():
+        if "generate_ms" in todo:
+            gens = {label: generators(torch, p) for label, p in pkgs.items()}
+            for key in gens["A"]:
+                new = gens["A"][key][0]
+                fns = {label: gens[label][key][1] for label in gens}
+                for fn in fns.values():
+                    fn(new)                                    # warm-up
+                results["generate_ms"][key] = alternate(
+                    max(2, args.rounds // 4),
+                    lambda fn: step_ms(torch, fn, new), fns)
+                print(summary("generate_ms", key,
+                              results["generate_ms"][key]), flush=True)
+            del gens
+        if "serve_ms" in todo:
+            import numpy as np
+
+            serves = {label: servers(torch, np, p, args.serve_requests)
+                      for label, p in pkgs.items()}
+            for key in serves["A"]:
+                fns = warmed({label: serves[label][key] for label in serves},
+                             1)
+                results["serve_ms"][key] = alternate(
+                    max(2, args.rounds // 4), lambda fn: fn(), fns)
+                print(summary("serve_ms", key, results["serve_ms"][key]),
+                      flush=True)
+            del serves
+    if "train_ms" in todo:
+        steps = {label: trainer(torch, p) for label, p in pkgs.items()}
+        for fn in steps.values():
+            train_ms(torch, fn, 2)                             # warm-up
+        key = "train step, batch ready (B 8, T 2048)"
+        results["train_ms"][key] = alternate(
+            max(4, args.rounds // 2), lambda fn: train_ms(torch, fn), steps)
+        print(summary("train_ms", key, results["train_ms"][key]),
+              flush=True)
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
                           "power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -1,6 +1,6 @@
-// Flash-decoding's bookkeeping, for any decode kernel that splits a
-// row's live key blocks over S CTAs (flash_decode.cu today; the paged
-// kernel can adopt it): which blocks a split owns, how a split leaves
+// Flash-decoding's bookkeeping, shared by the decode kernels that split
+// a row's live key blocks over S CTAs (flash_decode.cu,
+// flash_decode_paged.cu): which blocks a split owns, how a split leaves
 // its partial softmax state, and the merge of the S partials.
 //
 // A split's partial for one query row is (m, l, o): its running max, its
@@ -19,12 +19,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+#include <type_traits>
+
 #include "decode_common.cuh"
+#include "hopper_async.cuh"
 
 namespace tfm_split {
-
-// Keys per block: the unit a split owns.
-constexpr int BLOCK_KEYS = 64;
 
 // Split s of S owns the contiguous blocks [j0, j1) of a row's nb live
 // blocks: shares of ceil(nb / S), the last ones short or empty.
@@ -77,6 +78,46 @@ merge_partials(const float* __restrict__ pm, const float* __restrict__ pl,
   }
 }
 
+// After every consumer warp parked its (m, l, o) (wm, wl [CWARPS][RT],
+// wo [CWARPS][RT][D]; call after a CTA barrier): merge the warps of the
+// tile's R rows and write the output (S = 1: pm is null; out contiguous
+// [B, t, H, D]) or split `split`'s partial, in the output's row order.
+template <typename TQ, int D>
+__device__ __forceinline__ void finish_tile(
+    const float* wm, const float* wl, const float* wo, int R, int r0, int G,
+    int b, int t, int H, int kvh, int B, int split, TQ* out, float* pm,
+    float* pl, float* po) {
+  using tfm_decode::CWARPS;
+  using tfm_decode::RT;
+  const int out_rows = B * t * H;
+  for (int idx = threadIdx.x; idx < R * D; idx += tfm_decode::THREADS) {
+    const int r = idx / D, d = idx % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < CWARPS; ++w) mx = fmaxf(mx, wm[w * RT + r]);
+    float lsum = 0.f, osum = 0.f;
+#pragma unroll
+    for (int w = 0; w < CWARPS; ++w) {
+      const float wt = merge_weight(wm[w * RT + r], mx);
+      lsum += wl[w * RT + r] * wt;
+      osum += wo[(w * RT + r) * D + d] * wt;
+    }
+    const int tt = (r0 + r) / G, gi = (r0 + r) % G;
+    const long long row = ((long long)b * t + tt) * H + kvh * G + gi;
+    if (pm == nullptr) {
+      out[row * D + d] = tfm_decode::from_f<TQ>(lsum > 0.f ? osum / lsum
+                                                           : 0.f);
+    } else {
+      const long long prow = (long long)split * out_rows + row;
+      po[prow * D + d] = osum;
+      if (d == 0) {
+        pm[prow] = mx;
+        pl[prow] = lsum;
+      }
+    }
+  }
+}
+
 // CTAs of the merge over `rows` output rows (four warps, a row each).
 inline int merge_blocks(int rows) { return (rows + 3) / 4; }
 
@@ -87,6 +128,45 @@ cudaError_t launch_merge(const float* pm, const float* pl, const float* po,
   merge_partials<TQ><<<merge_blocks(rows), 128, 0, stream>>>(pm, pl, po,
                                                              out, rows, S, D);
   return cudaGetLastError();
+}
+
+// Launch a split decode kernel — grid (KV, B x row tiles, S) of THREADS
+// threads and `bytes` of dynamic shared memory, the limit raised once per
+// instance through `smem_set` — and, with S > 1, the merge.  The grids go
+// to `report`: x, y, z = S, and the merge's CTAs (0: none ran).  `a` is
+// the kernel's argument struct (KV, B, tiles, S, t, H, out, pm, pl, po).
+template <typename TQ, int D, typename Args>
+int launch_split(void (*kernel)(Args), int bytes,
+                 std::atomic<unsigned>& smem_set, const Args& a, int* report,
+                 cudaStream_t s) {
+  cudaError_t err = tfm_async::smem_limit_once(
+      smem_set, reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.KV, a.B * a.tiles, a.S);
+  kernel<<<grid, tfm_decode::THREADS, bytes, s>>>(a);
+  err = cudaGetLastError();
+  const int rows = a.B * a.t * a.H;
+  report[0] = grid.x;
+  report[1] = grid.y;
+  report[2] = grid.z;
+  report[3] = a.S > 1 ? merge_blocks(rows) : 0;
+  if (err != cudaSuccess || a.S == 1) return err;
+  return launch_merge<TQ>(a.pm, a.pl, a.po, static_cast<TQ*>(a.out), rows,
+                          a.S, D, s);
+}
+
+// f(std::integral_constant<int, D>()) for a head_dim the decode kernels
+// are built for, else cudaErrorInvalidValue.
+template <typename F>
+int with_head_dim(int D, F f) {
+  switch (D) {
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tfm_split

@@ -50,6 +50,9 @@
 //   to the producer through the `empty` barrier; warps merge once, after
 //   their last block.  p is rounded against its warp's running max, not
 //   the whole row's: other bits than the JAX kernel, the same function.
+//   The consumer code is decode_common.cuh's, shared with the paged
+//   kernel; a one-row tile (t = 1 without GQA, every generate step of
+//   the flagship) runs an instance that computes only its row.
 
 #include "decode_split.cuh"
 #include "hopper_async.cuh"
@@ -59,22 +62,14 @@ namespace {
 using tfm_async::mbar_arrive;
 using tfm_async::mbar_arrive_expect_tx;
 using tfm_async::mbar_wait;
-using tfm_decode::from_f;
-using tfm_decode::PV;
-using tfm_decode::to_f;
-using tfm_split::BLOCK_KEYS;
-
-constexpr int CWARPS = 4;                    // consumer warps
-constexpr int THREADS = (CWARPS + 1) * 32;   // + one producer warp
-constexpr int RT = 4;                        // query rows per CTA
-constexpr int VEC = 8;                       // head_dim elements per lane
-constexpr int KW = BLOCK_KEYS / CWARPS;      // keys per warp per block
+using tfm_decode::aligned16;
+using tfm_decode::BLOCK_KEYS;
+using tfm_decode::CWARPS;
+using tfm_decode::RT;
+using tfm_decode::THREADS;
 
 template <typename TKV, int D>
 struct Plan {
-  static constexpr int LPK = D / VEC;              // lanes per key
-  static constexpr int KPS = 32 / LPK;             // keys per warp step
-  static constexpr int STEPS = KW > KPS ? KW / KPS : 1;
   static constexpr int KV_BYTES = BLOCK_KEYS * D * (int)sizeof(TKV);
   static constexpr int STAGE = 2 * KV_BYTES + 2 * BLOCK_KEYS * 4;
   static constexpr int NST = 4 * STAGE <= 160 * 1024 ? 4 : 3;
@@ -87,36 +82,6 @@ struct Plan {
   static constexpr int LIM_OFF = WO_OFF + CWARPS * RT * D * 4;
   static constexpr int BYTES = LIM_OFF + RT * 4;
 };
-
-// 8 consecutive elements of T at p (aligned to their size) as floats.
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, float* x);
-template <>
-__device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                     float* x) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = to_f(e[i]);
-}
-template <>
-__device__ __forceinline__ void load8<float>(const float* p, float* x) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-template <>
-__device__ __forceinline__ void load8<int8_t>(const int8_t* p, float* x) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = to_f(e[i]);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
 
 struct Args {
   const void *q, *kc, *vc;
@@ -164,14 +129,8 @@ split_decode_kernel(const Args a) {
     }
     tfm_async::fence_barrier_init();
   }
-  const TQ* q = static_cast<const TQ*>(a.q);
-  for (int idx = tid; idx < RT * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int tt = (r0 + r) / G, gi = (r0 + r) % G;
-    qs[idx] = r < R ? to_f(q[(((long long)b * a.t + tt) * a.H + kvh * G +
-                              gi) * D + d])
-                    : 0.f;
-  }
+  tfm_decode::load_rows<TQ, D>(static_cast<const TQ*>(a.q), qs, b, a.t,
+                               a.H, G, kvh, r0, R);
   for (int r = tid; r < RT; r += THREADS)
     lim[r] = r < R ? p0 + (r0 + r) / G : -1;    // -1: sees nothing
   __syncthreads();
@@ -228,189 +187,56 @@ split_decode_kernel(const Args a) {
     }
   } else {
     // ---- consumers: warp `warp` owns keys [warp * KW, + KW) of a block --
-    const int li = lane % P::LPK, g = lane / P::LPK;
-    float qr[RT][VEC], o[RT][VEC], m[RT], l[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        qr[r][e] = qs[r * D + li * VEC + e];
-        o[r][e] = 0.f;
-      }
-      m[r] = -INFINITY;
-      l[r] = 0.f;
-    }
+    tfm_decode::WarpRows<D> w;
+    w.init(qs, lane);
     int lims[RT];
 #pragma unroll
     for (int r = 0; r < RT; ++r) lims[r] = lim[r];
-
-    for (int j = j0; j < j1; ++j) {
-      const int i = j - j0, st = i % P::NST;
-      mbar_wait(&full[st], (i / P::NST) & 1);
-      const unsigned char* stage = smem + st * P::STAGE;
-      const TKV* ks = reinterpret_cast<const TKV*>(stage);
-      const TKV* vs = reinterpret_cast<const TKV*>(stage + P::KV_BYTES);
-      const float* kss =
-          reinterpret_cast<const float*>(stage + 2 * P::KV_BYTES);
-      const float* vss = kss + BLOCK_KEYS;
-      const int k0 = j * BLOCK_KEYS, n = min(BLOCK_KEYS, a.M - k0);
-
-      // Scores of this warp's keys: sc[r][step] for key
-      // warp * KW + step * KPS + g (invalid lanes keep -inf).
-      float sc[RT][P::STEPS];
-#pragma unroll
-      for (int step = 0; step < P::STEPS; ++step) {
-        const int kin = step * P::KPS + g;
-        const int key = warp * KW + kin;
-        const bool valid = kin < KW && key < n;
-        float kx[VEC];
-        load8<TKV>(ks + (valid ? key : 0) * D + li * VEC, kx);
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) dot += qr[r][e] * kx[e];
-#pragma unroll
-          for (int off = 1; off < P::LPK; off <<= 1)
-            dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          float s = dot * a.scale;
-          if (ksb != nullptr) s = s * kss[valid ? key : 0];
-          sc[r][step] = valid && k0 + key <= lims[r] ? s : -INFINITY;
-        }
+    // A one-row tile computes one row's products (NR 1), else all RT.
+    auto consume = [&](auto nr) {
+      for (int j = j0; j < j1; ++j) {
+        const int i = j - j0, st = i % P::NST;
+        mbar_wait(&full[st], (i / P::NST) & 1);
+        const unsigned char* stage = smem + st * P::STAGE;
+        const float* kss =
+            reinterpret_cast<const float*>(stage + 2 * P::KV_BYTES);
+        const int k0 = j * BLOCK_KEYS;
+        w.template step<decltype(nr)::value, TKV>(
+            lims, reinterpret_cast<const TKV*>(stage),
+            reinterpret_cast<const TKV*>(stage + P::KV_BYTES), kss,
+            kss + BLOCK_KEYS, min(BLOCK_KEYS, a.M - k0), k0, a.scale, false,
+            warp, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
       }
-      // The warp's running (m, l) per row; o rescaled once per block.
-      float corr[RT];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        float mt = -INFINITY;
-#pragma unroll
-        for (int step = 0; step < P::STEPS; ++step)
-          mt = fmaxf(mt, sc[r][step]);
-#pragma unroll
-        for (int off = P::LPK; off < 32; off <<= 1)
-          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-        const float m_new = fmaxf(m[r], mt);
-        corr[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
-        m[r] = m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int step = 0; step < P::STEPS; ++step) {
-          const float p =
-              sc[r][step] == -INFINITY ? 0.f : expf(sc[r][step] - m_new);
-          sc[r][step] = p;
-          sum += p;
-        }
-        l[r] = l[r] * corr[r] + sum;     // this lane group's keys only
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) o[r][e] *= corr[r];
-      }
-#pragma unroll
-      for (int step = 0; step < P::STEPS; ++step) {
-        const int kin = step * P::KPS + g;
-        const int key = warp * KW + kin;
-        if (kin < KW && key < n) {
-          float vx[VEC];
-          load8<TKV>(vs + key * D + li * VEC, vx);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            const float pv = PV<TKV>::operand(sc[r][step], vss, key);
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) o[r][e] += pv * vx[e];
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[st]);
-    }
-    // Sum the lane groups (each holds its keys' l and o; m is uniform).
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-#pragma unroll
-      for (int off = P::LPK; off < 32; off <<= 1) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          o[r][e] += __shfl_xor_sync(0xffffffffu, o[r][e], off);
-      }
-      if (g == 0) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          wo[(warp * RT + r) * D + li * VEC + e] = o[r][e];
-      }
-      if (lane == 0) {
-        wm[warp * RT + r] = m[r];
-        wl[warp * RT + r] = l[r];
-      }
-    }
+    };
+    if (R == 1)
+      consume(std::integral_constant<int, 1>());
+    else
+      consume(std::integral_constant<int, RT>());
+    w.park(wm, wl, wo, warp, lane);
   }
   __syncthreads();
 
   // Merge the warps; write the output (S = 1) or this split's partial.
-  const int out_rows = a.B * a.t * a.H;
-  for (int idx = tid; idx < R * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < CWARPS; ++w) mx = fmaxf(mx, wm[w * RT + r]);
-    float lsum = 0.f, osum = 0.f;
-#pragma unroll
-    for (int w = 0; w < CWARPS; ++w) {
-      const float wt = tfm_split::merge_weight(wm[w * RT + r], mx);
-      lsum += wl[w * RT + r] * wt;
-      osum += wo[(w * RT + r) * D + d] * wt;
-    }
-    const int tt = (r0 + r) / G, gi = (r0 + r) % G;
-    const long long row = ((long long)b * a.t + tt) * a.H + kvh * G + gi;
-    if (a.pm == nullptr) {
-      static_cast<TQ*>(a.out)[row * D + d] =
-          from_f<TQ>(lsum > 0.f ? osum / lsum : 0.f);
-    } else {
-      const long long prow = (long long)split * out_rows + row;
-      a.po[prow * D + d] = osum;
-      if (d == 0) {
-        a.pm[prow] = mx;
-        a.pl[prow] = lsum;
-      }
-    }
-  }
+  tfm_split::finish_tile<TQ, D>(wm, wl, wo, R, r0, G, b, a.t, a.H, kvh, a.B,
+                                split, static_cast<TQ*>(a.out), a.pm, a.pl,
+                                a.po);
 }
 
 // The grids of this thread's last tfm_flash_decode call: the split
 // kernel's (x, y, z = S) and the merge's x (0: no merge ran).
 thread_local int last_launch[4] = {0, 0, 0, 0};
 
-template <typename TQ, typename TKV, int D>
-int launch(const Args& a, cudaStream_t s) {
-  using P = Plan<TKV, D>;
-  auto kernel = split_decode_kernel<TQ, TKV, D>;
-  static std::atomic<unsigned> smem_set{0};
-  cudaError_t err = tfm_async::smem_limit_once(
-      smem_set, reinterpret_cast<const void*>(kernel), P::BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.KV, a.B * a.tiles, a.S);
-  kernel<<<grid, THREADS, P::BYTES, s>>>(a);
-  err = cudaGetLastError();
-  const int rows = a.B * a.t * a.H;
-  last_launch[0] = grid.x;
-  last_launch[1] = grid.y;
-  last_launch[2] = grid.z;
-  last_launch[3] = a.S > 1 ? tfm_split::merge_blocks(rows) : 0;
-  if (err != cudaSuccess || a.S == 1) return err;
-  return tfm_split::launch_merge<TQ>(a.pm, a.pl, a.po,
-                                     static_cast<TQ*>(a.out), rows, a.S, D,
-                                     s);
-}
-
 template <typename TQ, typename TKV>
-int launch_d(const Args& a, int D, cudaStream_t s) {
-  switch (D) {
-    case 8: return launch<TQ, TKV, 8>(a, s);
-    case 16: return launch<TQ, TKV, 16>(a, s);
-    case 32: return launch<TQ, TKV, 32>(a, s);
-    case 64: return launch<TQ, TKV, 64>(a, s);
-    case 128: return launch<TQ, TKV, 128>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
+int launch(const Args& a, int D, cudaStream_t s) {
+  return tfm_split::with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    static std::atomic<unsigned> smem_set{0};
+    return tfm_split::launch_split<TQ, kD>(
+        split_decode_kernel<TQ, TKV, kD>, Plan<TKV, kD>::BYTES, smem_set, a,
+        last_launch, s);
+  });
 }
 
 }  // namespace
@@ -463,8 +289,8 @@ extern "C" int tfm_flash_decode(const void* q, const void* kc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using TQ = __nv_bfloat16;
-    return kv_int8 ? launch_d<TQ, int8_t>(a, D, s) : launch_d<TQ, TQ>(a, D, s);
+    return kv_int8 ? launch<TQ, int8_t>(a, D, s) : launch<TQ, TQ>(a, D, s);
   }
-  return kv_int8 ? launch_d<float, int8_t>(a, D, s)
-                 : launch_d<float, float>(a, D, s);
+  return kv_int8 ? launch<float, int8_t>(a, D, s)
+                 : launch<float, float>(a, D, s);
 }

@@ -92,6 +92,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Orders this thread's earlier ordinary shared-memory writes before later
+// asynchronous-proxy accesses (a bulk copy into the same bytes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // TMA load of one box of a 4-D tensor map at element coordinates
 // (c0 innermost .. c3), completing on `bar`.  Out-of-bounds elements of
 // the box arrive as zeros.

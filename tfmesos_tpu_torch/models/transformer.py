@@ -503,15 +503,6 @@ def _paged_cache_write_all(pool, chunks: torch.Tensor,
         pool[:, pages, :, offs] = x.to(pool.dtype)
 
 
-def _quant_dequant(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The chunk as an int8 pool slot holds it, back in ``dtype``: the
-    deferred self operand of an int8 pool matches a committed slot up to
-    where the scale multiplies (the kernel folds a slot's scale after
-    the dot in float32)."""
-    vals, scale = _quantize_rows(c)
-    return vals.to(dtype) * scale[..., None].to(dtype)
-
-
 # -- decode ----------------------------------------------------------------
 
 
@@ -541,11 +532,11 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
         o = flash_decode(q, cache["k"], cache["v"], positions[:, 0],
                          layer=li)
     else:
-        self_kv = ((_quant_dequant(k, cfg.dtype),
-                    _quant_dequant(v, cfg.dtype))
-                   if isinstance(cache["k"], QTensor) else (k, v))
+        # An int8 pool's kernel rounds the chunk as a committed slot holds
+        # it (quant.int8_round_trip) before attending it.
         o = flash_decode_paged(q, cache["k"], cache["v"], pages,
-                               positions[:, 0], layer=li, self_kv=self_kv)
+                               positions[:, 0], layer=li, self_kv=(k, v),
+                               round_self=isinstance(cache["k"], QTensor))
     return _finish_block(cfg, lp, x, o), chunk
 
 

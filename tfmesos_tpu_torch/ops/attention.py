@@ -23,9 +23,12 @@ Kernels (``tfmesos_tpu_torch/csrc``):
   deferred ``self_kv`` with intra-chunk causality, int8 pools);
 * ``flash_decode.cu`` replaces ``_flash_decode_kernel`` (decode over a
   linear stacked cache, ragged positions, chunks of any length, int8
-  caches), each row's live blocks split over S CTAs whose partials a
-  second kernel merges (``flash_decode_merge``).  The two decode kernels
-  share their rounding rules (``csrc/decode_common.cuh``).
+  caches).
+
+The two decode kernels split each row's live blocks over S CTAs whose
+partials a second kernel merges (``flash_decode_merge``,
+``flash_decode_paged_merge``), and share their consumer warps' math and
+JAX's rounding rules (``csrc/decode_common.cuh``, ``decode_split.cuh``).
 
 int8 caches are :class:`~tfmesos_tpu_torch.ops.quant.QTensor` s with
 lane-major per-position scales; the kernels fold the scales into the
@@ -41,7 +44,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from tfmesos_tpu_torch.kernels import build
-from tfmesos_tpu_torch.ops.quant import QTensor
+from tfmesos_tpu_torch.ops.quant import QTensor, int8_round_trip
 
 NEG_INF = float("-inf")
 
@@ -49,7 +52,8 @@ NEG_INF = float("-inf")
 #: kernel and nowhere else (the plain CPU path never counts).  A run
 #: that zeroes these before serving or training and reads them after
 #: proves that the path went through the kernels.
-LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0, "flash_decode": 0,
+LAUNCHES = {"flash_fwd": 0, "flash_decode_paged": 0,
+            "flash_decode_paged_merge": 0, "flash_decode": 0,
             "flash_decode_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -59,10 +63,11 @@ _FLASH_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128),
                     torch.float32: (8, 16, 32, 64, 128)}
 #: Shared memory one Hopper CTA may use (232,448 bytes).
 _MAX_SMEM = 232448
-#: flash_decode: keys per block (a split's unit), query rows per CTA (the
-#: kernel's tfm_flash_decode_row_tile), consumer warps per CTA (each owns
-#: a contiguous slice of every block's keys), the most splits, and the
-#: head_dims its kernel takes.
+#: The decode kernels (flash_decode, flash_decode_paged): keys per block
+#: (a split's unit), query rows per CTA (the kernel's
+#: tfm_flash_decode_row_tile), consumer warps per CTA (each owns a
+#: contiguous slice of every block's keys), the most splits, and the
+#: head_dims they take.
 _DECODE_BLOCK = 64
 _DECODE_ROW_TILE = 4
 _DECODE_WARPS = 4
@@ -73,9 +78,9 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _FLASH_FWD_ARGS = [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                    _ll, _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _i, _i, _p]
-# Decode entries: operand and output pointers, then the int sizes, scale,
-# is_bf16, kv_int8, stream.
-_PAGED_ARGS = [_p] * 10 + [_i] * 10 + [_f, _i, _i, _p]
+# Decode entries: operand, output and partials pointers, then the int
+# sizes, scale, is_bf16, kv_int8, stream.
+_PAGED_ARGS = [_p] * 13 + [_i] * 11 + [_f, _i, _i, _p]
 _DECODE_ARGS = [_p] * 10 + [_i] * 8 + [_f, _i, _i, _p]
 # Backward entries: operand and output pointers, then B, Tq, Tk, H, KV,
 # D, the strides of q, do and k/v (3 each), causal, window, q_offset,
@@ -720,32 +725,46 @@ def _merge_partials(pm, pl, po, dim: int):
     return mx, (pl * w).sum(dim), (po * w.unsqueeze(-1)).sum(dim)
 
 
-def _decode_split_reference(q, k_cache, v_cache,
-                            pos: Union[int, torch.Tensor],
-                            scale: Optional[float], splits: int,
-                            layer=None) -> torch.Tensor:
-    """Plain version of ``flash_decode.cu``'s partition, in float32 with
-    JAX's rounding rules.  As in the kernel, each (row, kv head, tile of
-    ``_DECODE_ROW_TILE`` query rows) computes its live 64-key blocks from
-    its last row's position and splits them into ``splits`` contiguous
-    shares; within a share each of ``_DECODE_WARPS`` warps owns a
-    16-key slice of every block and keeps its own running (m, l, o)
-    (:func:`flash_decode`'s rounding: score ``dot * scale`` then
-    ``* kscale``; l from the unscaled, unrounded p; p rounded to bf16
-    against its warp's running max before a bf16 V block, multiplied by
-    the v-scale and unrounded before an int8 one).  The warps merge into
-    the split's partial and the partials merge into the output
-    (:func:`_merge_partials`).  Same arguments as :func:`flash_decode`
-    plus ``splits``."""
-    kc, vc, ks, vs, li = _stacked_cache(k_cache, v_cache, layer)
-    squeeze = q.dim() == 3
-    if squeeze:
-        q = q[:, None]
+def _softmax_step(mw, lw, ow, s, vb, vscale=None):
+    """One online-softmax step of each warp's running (m, l, o) (the
+    consumer warps of ``csrc/decode_common.cuh``): masked scores ``s``
+    [..., RT, keys] against the V slice ``vb`` [..., keys, D] (l from the
+    unscaled, unrounded p; p rounded to bf16 before a bf16 V, multiplied
+    by the per-position ``vscale`` [..., keys] and unrounded before an
+    int8 one)."""
+    m_new = torch.maximum(mw, s.amax(-1))
+    corr = torch.where(mw == NEG_INF, 0.0, torch.exp(mw - m_new))
+    p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_new[..., None]))
+    lw = lw * corr + p.sum(-1)
+    if vscale is not None:
+        p = p * vscale[..., None, :]
+    elif vb.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+    return m_new, lw, ow * corr[..., None] + p @ vb.float()
+
+
+def _split_core(q, kview, vview, kscale, vscale, pos, scale: float,
+                splits: int, self_kv=None) -> torch.Tensor:
+    """The decode kernels' partition, in float32 with JAX's rounding rules
+    (the plain version behind :func:`_decode_split_reference` and
+    :func:`_paged_split_reference`).  ``q`` [B, t, H, D]; each row's
+    logical cache ``kview``/``vview`` [B, KV, M, D] (int8 with per-position
+    ``kscale``/``vscale`` [B, KV, M], else None).
+
+    As in the kernels, each (row, kv head, tile of ``_DECODE_ROW_TILE``
+    query rows) computes its live 64-key blocks from its last visible
+    position and splits them into ``splits`` contiguous shares; within a
+    share each of ``_DECODE_WARPS`` warps owns a 16-key slice of every
+    block and keeps its own running (m, l, o) (:func:`_softmax_step`;
+    score ``dot * scale`` then ``* kscale``).  Without ``self_kv`` token
+    tt sees positions <= pos + tt.  With ``self_kv`` ([B, t, KV, D] each,
+    in q's dtype) every token sees positions <= pos - 1 and the last split
+    also takes the chunk, 64 slots a block (each warp its 16-slot slice),
+    token tt seeing slots <= tt.  The warps merge into the split's partial
+    and the partials into the output (:func:`_merge_partials`)."""
     b, t, h, d = q.shape
-    kvh, m = kc.shape[2], kc.shape[3]
+    kvh, m = kview.shape[1], kview.shape[2]
     g = h // kvh
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     dev, rt, blk = q.device, _DECODE_ROW_TILE, _DECODE_BLOCK
     rows = t * g
     tiles = -(-rows // rt)
@@ -757,10 +776,17 @@ def _decode_split_reference(q, k_cache, v_cache,
     qr = qr.reshape(b, kvh, tiles, rt, d)
     posv = _row_positions(pos, b, dev).long()
     r = torch.arange(tiles * rt, device=dev)
-    lim = torch.where(r < rows, posv[:, None] + r // g, -1)
-    lim = lim.reshape(b, tiles, rt)
-    last = posv[:, None] + (torch.clamp(
-        (torch.arange(tiles, device=dev) + 1) * rt, max=rows) - 1) // g
+    tok = (r // g).reshape(tiles, rt)              # each row's chunk token
+    real = (r < rows).reshape(tiles, rt)
+    tt_last = (torch.clamp((torch.arange(tiles, device=dev) + 1) * rt,
+                           max=rows) - 1) // g     # each tile's last token
+    if self_kv is None:
+        lim = posv[:, None, None] + tok
+        last = posv[:, None] + tt_last
+    else:
+        lim = (posv - 1)[:, None, None].expand(b, tiles, rt)
+        last = (posv - 1)[:, None].expand(b, tiles)
+    lim = torch.where(real, lim, -1)                       # [B, tiles, RT]
     nb = torch.where(last < 0, 0, torch.clamp(last // blk + 1,
                                               max=-(-m // blk)))
     j0, j1 = _split_share(nb[..., None], splits,
@@ -769,9 +795,6 @@ def _decode_split_reference(q, k_cache, v_cache,
     kw = blk // _DECODE_WARPS
     offs = (torch.arange(_DECODE_WARPS, device=dev)[:, None] * kw
             + torch.arange(kw, device=dev))
-    kl, vl = kc[li], vc[li]                                  # [B, KV, M, D]
-    ksl = None if ks is None else ks[li, :, :, 0]            # [B, KV, M]
-    vsl = None if vs is None else vs[li, :, :, 0]
     bi = torch.arange(b, device=dev).reshape(b, 1, 1, 1, 1, 1)
     hi = torch.arange(kvh, device=dev).reshape(1, kvh, 1, 1, 1, 1)
     state = (b, kvh, tiles, splits, _DECODE_WARPS, rt)
@@ -783,32 +806,59 @@ def _decode_split_reference(q, k_cache, v_cache,
         kpos = (j * blk)[..., None, None] + offs        # [B, tiles, S, W, 16]
         live = (j < j1)[..., None, None] & (kpos < m)
         idx = torch.where(live, kpos, 0)[:, None]        # [B, 1, ..., 16]
-        kb = kl[bi, hi, idx].float()                     # [..., W, 16, D]
+        kb = kview[bi, hi, idx].float()                  # [..., W, 16, D]
         s = torch.einsum("bkprd,bkpswnd->bkpswrn", qr, kb) * scale
-        if ksl is not None:
-            s = s * ksl[bi, hi, idx][..., None, :]
+        if kscale is not None:
+            s = s * kscale[bi, hi, idx][..., None, :]
         seen = live[:, None, :, :, :, None, :] & (
             kpos[:, None, :, :, :, None, :]
             <= lim[:, None, :, None, None, :, None])
         s = s.masked_fill(~seen, NEG_INF)                # [..., W, RT, 16]
-        m_new = torch.maximum(mw, s.amax(-1))
-        corr = torch.where(mw == NEG_INF, 0.0, torch.exp(mw - m_new))
-        p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_new[..., None]))
-        lw = lw * corr + p.sum(-1)
-        vb = vl[bi, hi, idx]
-        if vsl is not None:
-            p = p * vsl[bi, hi, idx][..., None, :]
-        elif vb.dtype == torch.bfloat16:
-            p = p.to(torch.bfloat16).float()
-        ow = ow * corr[..., None] + p @ vb.float()
-        mw = m_new
+        mw, lw, ow = _softmax_step(
+            mw, lw, ow, s, vview[bi, hi, idx],
+            None if vscale is None else vscale[bi, hi, idx])
+    if self_kv is not None:
+        ksf, vsf = (c.permute(0, 2, 1, 3) for c in self_kv)  # [B, KV, t, D]
+        self_lim = torch.where(real, tok, -1)                 # [tiles, RT]
+        for s0 in range(0, int(tt_last.max()) + 1, blk):
+            slot = s0 + offs                                  # [W, 16]
+            idx = slot.clamp(max=t - 1)
+            s = torch.einsum("bkprd,bkwnd->bkpwrn", qr,
+                             ksf[:, :, idx].float()) * scale
+            seen = (slot < t)[None, :, None, :] & (
+                slot[None, :, None, :] <= self_lim[:, None, :, None])
+            s = s.masked_fill(~seen, NEG_INF)    # [B, KV, tiles, W, RT, 16]
+            last_split = _softmax_step(mw[:, :, :, -1], lw[:, :, :, -1],
+                                       ow[:, :, :, -1], s,
+                                       vsf[:, :, idx][:, :, None])
+            for acc, new in zip((mw, lw, ow), last_split):
+                acc[:, :, :, -1] = new
     # Warps into each split's partial, then the splits into the output.
     _, lsum, osum = _merge_partials(*_merge_partials(mw, lw, ow, 4), dim=3)
     o = torch.where(lsum[..., None] > 0, osum / torch.where(
         lsum > 0, lsum, 1.0)[..., None], 0.0)           # [B, KV, tiles, RT, D]
     o = o.reshape(b, kvh, tiles * rt, d)[:, :, :rows]
-    out = o.reshape(b, kvh, t, g, d).permute(0, 2, 1, 3, 4).reshape(
+    return o.reshape(b, kvh, t, g, d).permute(0, 2, 1, 3, 4).reshape(
         b, t, h, d).to(q.dtype)
+
+
+def _decode_split_reference(q, k_cache, v_cache,
+                            pos: Union[int, torch.Tensor],
+                            scale: Optional[float], splits: int,
+                            layer=None) -> torch.Tensor:
+    """Plain version of ``flash_decode.cu``'s partition (:func:`_split_core`
+    over layer ``layer`` of the linear cache).  Same arguments as
+    :func:`flash_decode` plus ``splits``."""
+    kc, vc, ks, vs, li = _stacked_cache(k_cache, v_cache, layer)
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    out = _split_core(q, kc[li], vc[li],
+                      None if ks is None else ks[li, :, :, 0],
+                      None if vs is None else vs[li, :, :, 0],
+                      pos, scale, splits)
     return out[:, 0] if squeeze else out
 
 
@@ -880,17 +930,32 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
 _PLANS = {}
 
 
-def _decode_plan(q, kc) -> int:
-    """Split count of a ``flash_decode`` launch for q [B, t, H, D] over the
-    stacked cache ``kc`` [L, B, KV, M, D] on q's device (memoized by
-    shapes: every layer of every step asks again)."""
+def _decode_plan(q, kv: int, slots: int) -> int:
+    """Split count of a decode kernel's launch for q [B, t, H, D] over
+    ``kv`` kv heads and ``slots`` cache positions a row can hold (a linear
+    cache's M; a paged table's NP x page) on q's device, by
+    :func:`_decode_splits` (memoized by shapes: every layer of every step
+    asks again)."""
     b, t, h, _ = q.shape
-    key = (b, t, h, kc.shape[2], kc.shape[3], q.device)
+    key = (b, t, h, kv, slots, q.device)
     if key not in _PLANS:
-        tiles = -(-t * (h // kc.shape[2]) // _DECODE_ROW_TILE)
-        _PLANS[key] = _decode_splits(b, kc.shape[2], tiles, kc.shape[3],
+        tiles = -(-t * (h // kv) // _DECODE_ROW_TILE)
+        _PLANS[key] = _decode_splits(b, kv, tiles, slots,
                                      _sm_count(q.device))
     return _PLANS[key]
+
+
+def _split_scratch(splits: int, rows: int, d: int, device):
+    """Pointers to the partials of a split decode launch (m, l and the
+    unnormalized o: float32 [S, rows], [S, rows], [S, rows, D] back to back
+    in one allocation) and the allocation, which the caller keeps alive
+    until the launch is enqueued; none when one CTA covers a row."""
+    if splits == 1:
+        return (None, None, None), None
+    n = splits * rows
+    scratch = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    base = scratch.data_ptr()
+    return (base, base + 4 * n, base + 8 * n), scratch
 
 
 def _flash_decode_cuda(q, kc, vc, ks, vs, pos, scale: float, layer: int):
@@ -905,21 +970,11 @@ def _flash_decode_cuda(q, kc, vc, ks, vs, pos, scale: float, layer: int):
     if d not in _DECODE_HEAD_DIMS:
         raise ValueError(f"flash_decode: the CUDA kernel takes head_dim in "
                          f"{_DECODE_HEAD_DIMS}, got {d}")
-    splits = _decode_plan(q, kc)
+    splits = _decode_plan(q, kvh, m)
     posv = _row_positions(pos, b, q.device)
     q = q.contiguous()
     out = torch.empty_like(q)
-    # Partials of the S > 1 splits (m, l, unnormalized o: float32
-    # [S, B*t*H], [S, B*t*H], [S, B*t*H, D] back to back in one
-    # allocation), merged by the second kernel; none when one CTA covers
-    # a row.
-    parts = (None, None, None)
-    if splits > 1:
-        n = splits * b * t * h
-        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
-                              device=q.device)
-        base = scratch.data_ptr()
-        parts = (base, base + 4 * n, base + 8 * n)
+    parts, _scratch = _split_scratch(splits, b * t * h, d, q.device)
     fn = build.kernel("flash_decode", "tfm_flash_decode", _DECODE_ARGS)
     with torch.cuda.device(q.device):
         LAUNCHES["flash_decode"] += 1
@@ -971,10 +1026,58 @@ def _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
     return _decode_reference(q, k_view, v_view, pos, scale)
 
 
+def _paged_split_reference(q, k_pool, v_pool, page_table,
+                           pos: Union[int, torch.Tensor],
+                           scale: Optional[float], splits: int, layer=None,
+                           self_kv=None, round_self: bool = False
+                           ) -> torch.Tensor:
+    """Plain version of ``flash_decode_paged.cu``'s partition
+    (:func:`_split_core` over each row's pages, gathered through the
+    table with page ids clamped into the pool as the kernel clamps them).
+    Same arguments as :func:`flash_decode_paged` plus ``splits``."""
+    kc, vc, ks, vs, li = _stacked_cache(k_pool, v_pool, layer)
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    b = q.shape[0]
+    n_pages, kvh, ps = kc.shape[1], kc.shape[2], kc.shape[3]
+    table = torch.as_tensor(page_table, device=q.device).long().clamp(
+        0, n_pages - 1)
+    np_ = table.shape[1]
+
+    def view(pool):   # [P, KV, ps, ...] -> [B, KV, NP * ps, ...]
+        x = pool[table].transpose(1, 2)
+        return x.reshape(b, kvh, np_ * ps, *x.shape[4:])
+
+    out = _split_core(
+        q, view(kc[li]), view(vc[li]),
+        None if ks is None else view(ks[li, :, :, 0]),
+        None if vs is None else view(vs[li, :, :, 0]), pos, scale, splits,
+        _self_operands(q, self_kv, round_self))
+    return out[:, 0] if squeeze else out
+
+
+def _self_operands(q, self_kv, round_self: bool):
+    """The deferred chunk in q's dtype, rounded as an int8 slot holds it
+    when ``round_self`` (the plain versions' part of what the kernel
+    does in its consumer warps)."""
+    if self_kv is None:
+        if round_self:
+            raise ValueError("round_self needs a self_kv chunk")
+        return None
+    chunk = tuple(c.to(q.dtype) for c in self_kv)
+    if round_self:
+        chunk = tuple(int8_round_trip(c, q.dtype) for c in chunk)
+    return chunk
+
+
 def flash_decode_paged(q, k_pool, v_pool, page_table,
                        pos: Union[int, torch.Tensor],
                        scale: Optional[float] = None, layer=None,
-                       self_kv=None) -> torch.Tensor:
+                       self_kv=None, round_self: bool = False
+                       ) -> torch.Tensor:
     """Decode attention over a PAGED KV cache (counterpart of the JAX
     ``flash_decode_paged``): logical block j of row b lives at
     ``pool[page_table[b, j]]``.  The ``flash_decode_paged.cu`` kernel on
@@ -988,8 +1091,11 @@ def flash_decode_paged(q, k_pool, v_pool, page_table,
     chunk (token tt sees positions <= pos + tt); with ``self_kv`` =
     ([B, t, KV, D], [B, t, KV, D]) in q's dtype the pool holds positions
     < pos only and the chunk attends from the self operand, causally
-    within itself (int8 pools: the caller quantize-dequantizes the chunk
-    so it matches a committed slot).  Returns q's shape."""
+    within itself.  As in JAX, the caller of an int8 pool
+    quantize-dequantizes the chunk so it matches a committed slot; the
+    port's own callers pass the raw chunk with ``round_self=True`` and the
+    kernel rounds it (:func:`~tfmesos_tpu_torch.ops.quant.int8_round_trip`
+    on the CPU).  Returns q's shape."""
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -1000,28 +1106,28 @@ def flash_decode_paged(q, k_pool, v_pool, page_table,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        out = _paged_decode_reference(q, k_pool, v_pool, page_table, pos,
-                                      scale, layer=layer, self_kv=self_kv)
+        out = _paged_decode_reference(
+            q, k_pool, v_pool, page_table, pos, scale, layer=layer,
+            self_kv=_self_operands(q, self_kv, round_self))
     else:
         out = _flash_decode_paged_cuda(q, kc, vc, ks, vs, page_table, pos,
-                                       float(scale), li, self_kv)
+                                       float(scale), li, self_kv,
+                                       round_self)
     return out[:, 0] if squeeze else out
 
 
 def _flash_decode_paged_cuda(q, kp, vp, ks, vs, page_table, pos,
-                             scale: float, layer: int, self_kv):
+                             scale: float, layer: int, self_kv,
+                             round_self: bool = False):
     kv_int8 = _check_kv("flash_decode_paged", q, kp, vp, ks, vs)
     b, t, h, d = q.shape
     n_layers, n_pages, kvh, ps, _ = kp.shape
     if not 0 <= layer < n_layers:
         raise ValueError(f"flash_decode_paged: layer {layer} out of range "
                          f"for {n_layers} layers")
-    smem = build.kernel("flash_decode_paged", "tfm_flash_decode_paged_smem",
-                        [_i] * 5, ctypes.c_longlong)(t, h, kvh, d, ps)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"flash_decode_paged: page {ps} x head_dim {d} "
-                         f"needs {smem} bytes of shared memory (> "
-                         f"{_MAX_SMEM})")
+    if d not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"flash_decode_paged: the CUDA kernel takes "
+                         f"head_dim in {_DECODE_HEAD_DIMS}, got {d}")
     table = torch.as_tensor(page_table, device=q.device).to(
         torch.int32).contiguous()
     if table.dim() != 2 or table.shape[0] != b:
@@ -1037,19 +1143,25 @@ def _flash_decode_paged_cuda(q, kp, vp, ks, vs, page_table, pos,
                              f"{tuple(kself.shape)} / {tuple(vself.shape)}, "
                              f"want {(b, t, kvh, d)}")
         _check_cuda_operands("flash_decode_paged", q, kself, vself)
+    elif round_self:
+        raise ValueError("round_self needs a self_kv chunk")
+    splits = _decode_plan(q, kvh, table.shape[1] * ps)
     out = torch.empty_like(q)
+    parts, _scratch = _split_scratch(splits, b * t * h, d, q.device)
     fn = build.kernel("flash_decode_paged", "tfm_flash_decode_paged",
                       _PAGED_ARGS)
     with torch.cuda.device(q.device):
         LAUNCHES["flash_decode_paged"] += 1
+        if splits > 1:
+            LAUNCHES["flash_decode_paged_merge"] += 1
         err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                  ks.data_ptr() if kv_int8 else None,
                  vs.data_ptr() if kv_int8 else None,
                  table.data_ptr(), posv.data_ptr(),
                  None if kself is None else kself.data_ptr(),
                  None if vself is None else vself.data_ptr(), out.data_ptr(),
-                 b, t, h, kvh, d, n_pages, ps, table.shape[1], layer,
-                 int(self_kv is not None), scale,
+                 *parts, b, t, h, kvh, d, n_pages, ps, table.shape[1], layer,
+                 splits, int(round_self), scale,
                  int(q.dtype == torch.bfloat16), int(kv_int8),
                  _stream(q.device))
     build.check("flash_decode_paged", err, "flash_decode_paged")

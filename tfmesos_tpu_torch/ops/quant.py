@@ -76,6 +76,18 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor
     return values.float() * scales
 
 
+def int8_round_trip(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` [..., D] as an int8 slot holds it, back in ``dtype``: each
+    D-element row quantized by :func:`quantize_int8` (the kernel on the
+    card), then values x scale in ``dtype``.  An int8 value times a scale
+    rounded to ``dtype`` is exact in float32, so the slot rounds once.
+    The deferred self chunk over an int8 pool is this: it matches a
+    committed slot up to where the scale multiplies (the decode kernels
+    fold a slot's scale after the dot, in float32)."""
+    vals, scale = quantize_int8(x.reshape(-1, x.shape[-1]))
+    return (vals.to(dtype) * scale.to(dtype)).reshape(x.shape)
+
+
 class QTensor(NamedTuple):
     """A tensor stored as int8 ``values`` with float32 ``scales`` (``w ≈
     values * scales``).  Weights carry scales over the last dim's rows
