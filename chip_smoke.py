@@ -43,9 +43,19 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    float32 of the plain version and per row within 1e-2 / 1e-5 of
    ``_paged_split_reference`` at that S, two launches bit-identical, and
    ``round_self`` bit-identical to the chunk rounded first; and the int8
-   quantize kernel at every flagship weight leaf's shape and a cache
-   write's (round-to-nearest and seeded stochastic rounding BIT-exact to
-   the plain versions, the dither unbiased);
+   kernel: its quantize entry at every flagship weight leaf's shape and
+   a cache write's, each on the row plan's 16-byte vector path
+   (round-to-nearest and seeded stochastic rounding BIT-exact to the
+   plain versions, the dither unbiased), and the nine leaves of
+   ``quantize_params`` in one launch (bit-exact both ways, timed against
+   their bytes bound); its commit entry (K and V quantized straight into
+   an int8 cache, one launch) at int8 generate's linear cache (t = 1 at
+   ragged positions with a clamped start, and the t = 128 prefill) and
+   int8 serving's pool (t = 1 and 4, two parked rows on the sink page),
+   the whole cache bit-equal to the plain commit but for the sink page,
+   timed beside the plain commit and the sequence it replaced (a
+   quantize launch and indexed writes for each of K and V), with the
+   device operations each puts on the card (torch.profiler);
 4. does the same for the two backward kernels (dq, dk/dv) at the
    training shape [8, 2048, 8, 64] and at [1, 512, 8, 64], causal bf16,
    against the plain backward from the same bf16 inputs (tolerance
@@ -86,8 +96,9 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    >= 0.99 to the CPU's;
 10. generates with the full int8 configuration (flagship weights seeded
     0 through ``quantize_params`` on the card, an int8 KV cache; batch 8,
-    prompt 128, 256 new tokens, greedy): exactly 9 + 2 x 8 x 256
-    quant_int8, 8 flash_fwd and 8 x 255 flash_decode launches (and as
+    prompt 128, 256 new tokens, greedy): exactly 1 quant_int8 (the nine
+    leaves), 8 x 256 quant_int8_commit (K and V of a layer, for the
+    prefill and each step), 8 flash_fwd and 8 x 255 flash_decode launches (and as
     many flash_decode_merge where the shapes split the cache), and the
     tokens teacher-forced against a float32 CPU run with the same int8
     weights over an int8 cache (the phase-6 margin rule); prints decode
@@ -99,12 +110,14 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     16 steps;
 12. serves phase 5's 16 requests with int8 weights over an int8 page
     pool: 8 flash_decode_paged launches per tick (and merges as in phase
-    5), 8 flash_fwd per prefill, 2 quant_int8 per prefill and 2 per tick
-    (the commit: the kernel rounds the deferred chunk itself), and two
-    requests teacher-forced as in phase 10.
+    5), 8 flash_fwd per prefill, 1 quant_int8_commit per prefill and 1
+    per tick (K and V of every layer; the paged kernel rounds the
+    deferred chunk itself), two requests teacher-forced as in phase 10,
+    and a profile as in phase 5.
 
 Every path phase zeroes all launch counts (``attention.LAUNCHES`` and
-``quant.LAUNCHES``) just before it runs and reads them just after.
+``quant.LAUNCHES``) just before it runs and reads them just after; the
+bf16 paths launch neither quant_int8 entry.
 
 It prints a ``kernels`` JSON line, the card's name and power limit,
 then as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -865,7 +878,7 @@ def phase_serve(torch, np):
          f"{launches['flash_decode_paged_merge']} != {merges} ({L} for "
          f"each of the {len(widths)} ticks whose table width splits)")
     need(launches["flash_decode"] == launches["flash_decode_merge"]
-         == launches["quant_int8"] == 0,
+         == launches["quant_int8"] == launches["quant_int8_commit"] == 0,
          f"bf16 serving launched the linear decode or quant kernel: "
          f"{launches}")
     ttft = sorted(c.ttft_s * 1e3 for c in comps)
@@ -935,6 +948,21 @@ PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
                 "flash_fwd_fma_kernel", "split_decode_kernel",
                 "merge_partials", "paged_split_kernel", "flash_bwd_dq_",
                 "flash_bwd_dkv_", "quant_kernel")
+
+
+def device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    puts on the card, counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def profile(torch, fn):
@@ -1053,7 +1081,8 @@ def phase_train(torch):
         need(launches[key] == L * TRAIN_STEPS,
              f"{key} launches {launches[key]} != {L} x {TRAIN_STEPS} steps")
     for key in ("flash_decode_paged", "flash_decode_paged_merge",
-                "flash_decode", "flash_decode_merge", "quant_int8"):
+                "flash_decode", "flash_decode_merge", "quant_int8",
+                "quant_int8_commit"):
         need(launches[key] == 0, f"{key} launched in training")
     # The host cost of the input stream, alone: its Python loop over T.
     stream = token_batches(args.batch_size, run.seq_len, run.cfg.vocab_size,
@@ -1308,9 +1337,23 @@ def phase_decode_kernels(torch):
         paged_rows.append(paged_case(torch, pgen, label, *args, n_layers=2,
                                      layer=1, **kw))
 
-    # The quantize kernel: every flagship weight leaf (float32 masters,
-    # rows = leading dims flattened) and a cache write's K chunk (bf16,
-    # one row per (row, token, kv head)).
+    quant_rows, total = check_quantize(torch, randn)
+    commit_rows = check_commit(torch, randn)
+    return decode_rows, cold, paged_rows, quant_rows, total, commit_rows
+
+
+def check_quantize(torch, randn):
+    """Phase 3, the int8 kernel's quantize entry: every flagship weight
+    leaf (float32 masters, rows = leading dims flattened) and a cache
+    write's K chunk (bf16, one row per (row, token, kv head)), each on
+    the vector path of the row plan, round-to-nearest and seeded
+    stochastic rounding BIT-exact to the plain versions, the dither
+    unbiased; then the nine leaves of ``quantize_params`` in one launch,
+    bit-exact both ways, timed against their bytes bound."""
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    dev = torch.device("cuda")
     quant_rows = []
     leaves = [("embed", 8192, 512, 1), ("wq|wk|wv|wo", 4096, 512, 4),
               ("w_gate|w_up", 4096, 1408, 2), ("w_down", 11264, 512, 1),
@@ -1320,6 +1363,12 @@ def phase_decode_kernels(torch):
         ("cache write, prefill 128", 8192, 64, 0, bf16)]
     for name, r, c, n_leaves, dtype in cases:
         x = randn((r, c), dtype)
+        size = x.element_size()
+        plan = tq.row_plan(r, c, size, True)
+        need(tq.vector_ok(x.data_ptr(), x.stride()[:1], c, size)
+             and (n_leaves == 0 or plan.ctas >= 132),
+             f"quant_int8 {name} [{r}, {c}]: not on the vector path or "
+             f"under 132 CTAs ({plan})")
         v, s_ = tq.quantize_int8(x)
         rv, rs = tq.quantize_int8_reference(x)
         sv, ss = tq.quantize_int8(x, stochastic=True, seed=11)
@@ -1342,29 +1391,226 @@ def phase_decode_kernels(torch):
         ms = cuda_ms(torch, lambda: tq.quantize_int8(x))
         plain = cuda_ms(torch, lambda: tq.quantize_int8_reference(x))
         n = r * c
-        bytes_ = n * (torch.finfo(dtype).bits // 8) + n + 4 * r
-        bms, by = bound(bytes_, 5 * n, F32_FLOPS)
+        bms, by = bound(n * size + n + 4 * r, 5 * n, F32_FLOPS)
         row = {"shape": [r, c], "leaf": name, "leaves": n_leaves,
                "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
                "stochastic_bias_steps": bias, "ms": ms, "plain_ms": plain,
-               "library_ms": None, "bound_ms": bms, "bound_by": by}
+               "library_ms": None, "bound_ms": bms, "bound_by": by,
+               "plan": plan._asdict()}
         quant_rows.append(row)
         say(f"  quant_int8 {name} [{r}, {c}] {row['dtype']}: kernel_ms "
             f"{ms:.4f} plain_ms {plain:.4f} bound_ms {bms:.5f} ({by}) "
-            f"bit-exact (RTN and stochastic), bias {bias:+.4f} steps")
+            f"bit-exact (RTN and stochastic), bias {bias:+.4f} steps; "
+            f"{plan.threads} threads a row, {plan.ctas} CTAs")
+    # The kernel divides without a division instruction (quant_int8.cu:
+    # quotient), so it is held bit-exact on rows across the float32
+    # range: rows with absmax from 2^-140 (subnormal rows) to 2^120,
+    # elements reaching 40 binades below their row's top (subnormals),
+    # exact ties (absmax 127 2^k, elements (j + 1/2) 2^k), zero rows.
+    edge = edge_rows(torch).to(dev)
+    for name, vector in (("edge magnitudes", True),
+                         ("edge magnitudes, scalar path", False)):
+        # The same rows as a view of row stride 257: no 16-byte loads.
+        xe = edge if vector else torch.cat([edge, edge[:, :1]], 1)[:, :256]
+        v, s_ = tq.quantize_int8(xe)
+        sv, ss = tq.quantize_int8(xe, stochastic=True, seed=5)
+        rv, rs = tq.quantize_int8_reference(xe)
+        pv, ps_ = tq.quantize_int8_reference(xe, stochastic=True, seed=5)
+        torch.cuda.synchronize()
+        bad = int((v != rv).sum() + (sv != pv).sum())
+        need(bad == 0 and torch.equal(s_, rs) and torch.equal(ss, ps_)
+             and tq.vector_ok(xe.data_ptr(), xe.stride()[:1],
+                              xe.shape[1], 4) is vector,
+             f"quant_int8 {name}: {bad} values off the plain version (RTN "
+             f"and stochastic), scales equal "
+             f"{torch.equal(s_, rs)}/{torch.equal(ss, ps_)}")
+        say(f"  quant_int8 {name} {list(xe.shape)}: bit-exact (RTN and "
+            f"stochastic)")
     x = torch.full((8, 128), 0.5, device=dev)
     x[:, 0] = 127.0                           # every row's scale is 1
     means = [float(tq.quantize_int8(x, stochastic=True, seed=sd)[0][:, 1:]
                    .float().mean()) for sd in range(8)]
     need(0.3 < statistics.mean(means) < 0.7 and len(set(means)) > 1,
          f"quant_int8: stochastic half-step means {means}")
-    total = {k: sum(r_[k] * r_["leaves"] for r_ in quant_rows)
-             for k in ("ms", "plain_ms", "bound_ms")}
-    say(f"  quantize_params (9 leaves): kernel_ms {total['ms']:.4f} "
-        f"plain_ms {total['plain_ms']:.4f} bound_ms "
-        f"{total['bound_ms']:.5f}; half-step stochastic means "
+    # quantize_params' nine leaves in one launch.
+    nine = [randn((r, c), f32) for _, r, c, k in leaves for _ in range(k)]
+    zero_launches()
+    got = tq.quantize_int8_many(nine)
+    got_sr = tq.quantize_int8_many(nine, stochastic=True, seed=11)
+    launched = read_launches()["quant_int8"]
+    for x, (v, s_), (sv, ss) in zip(nine, got, got_sr):
+        rv, rs = tq.quantize_int8_reference(x)
+        pv, ps_ = tq.quantize_int8_reference(x, stochastic=True, seed=11)
+        need(torch.equal(v, rv) and torch.equal(s_, rs)
+             and torch.equal(sv, pv) and torch.equal(ss, ps_),
+             f"quant_int8, nine leaves in one launch: leaf "
+             f"{tuple(x.shape)} not bit-exact to its plain version")
+    need(launched == 2, f"quant_int8: the nine leaves took {launched} "
+         f"launches for two calls, not 2")
+    ms = cuda_ms(torch, lambda: tq.quantize_int8_many(nine))
+    plain = cuda_ms(torch, lambda: [tq.quantize_int8_reference(x)
+                                    for x in nine])
+    bms, by = bound(sum(x.numel() * 5 + 4 * x.shape[0] for x in nine),
+                    sum(5 * x.numel() for x in nine), F32_FLOPS)
+    total = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+             "launches": 1,
+             "per_leaf_launches_ms": sum(r_["ms"] * r_["leaves"]
+                                         for r_ in quant_rows)}
+    say(f"  quantize_params (9 leaves, one launch): kernel_ms {ms:.4f} "
+        f"plain_ms {plain:.4f} bound_ms {bms:.5f} ({by}), "
+        f"{bms / ms:.0%} of the bound; nine launches "
+        f"{total['per_leaf_launches_ms']:.4f}; bit-exact (RTN and "
+        f"stochastic); half-step stochastic means "
         f"{statistics.mean(means):.3f}")
-    return decode_rows, cold, paged_rows, quant_rows, total
+    return quant_rows, total
+
+
+def edge_rows(torch):
+    """[2048, 256] float32 rows across the float32 range (seeded, on the
+    CPU): row i's top at 2^e_i, e_i in [-140, 120], its elements' own
+    exponents up to 40 below it (into the subnormals); the first 256
+    rows exact ties (column 0 at 127 2^k, the rest (j + 1/2) 2^k, so the
+    scale is 2^k); 8 zero rows."""
+    g = torch.Generator().manual_seed(21)
+    rows, cols = 2048, 256
+    top = torch.randint(-140, 121, (rows, 1), generator=g).double()
+    below = torch.randint(-40, 1, (rows, cols), generator=g).double()
+    mant = torch.rand((rows, cols), generator=g, dtype=torch.float64) * 4 - 2
+    x = (mant * torch.pow(2.0, top + below)).float()
+    k = torch.randint(-140, 100, (256, 1), generator=g).double()
+    steps = torch.randint(-127, 127, (256, cols), generator=g).double() + 0.5
+    steps[:, 0] = 127.0
+    x[:256] = (steps * torch.pow(2.0, k)).float()
+    x[256:264] = 0.0
+    return x
+
+
+def _today_linear(tq, kc, vc, k, v, pos, li):
+    """The linear int8 cache write as the tree before the commit entry
+    ran it, for timing: for each of K and V, a quantize launch and two
+    indexed copies (values, then lane-major scales)."""
+    for cache, x in ((kc, k), (vc, v)):
+        vals, scale = tq.quantize_int8(x.reshape(-1, x.shape[-1]))
+        tq._put_positions(cache.values[li], vals.reshape(x.shape), pos)
+        tq._put_positions(cache.scales[li, :, :, 0],
+                          scale.reshape(x.shape[:-1]), pos)
+
+
+def _today_paged(torch, tq, kp, vp, ks, vs, table, pos):
+    """The paged int8 commit as the tree before the commit entry ran it,
+    for timing: for each of K and V, the stack of the layers' chunks,
+    the page-table index math, a quantize launch and two indexed
+    writes."""
+    for pool, chunks in ((kp, ks), (vp, vs)):
+        x = torch.stack(chunks)
+        n, b, t, kvh, dh = x.shape
+        pages, offs = tq._paged_slots(table, pos, b, t, pool.values.shape[3])
+        vals, scale = tq.quantize_int8(
+            x.permute(1, 2, 0, 3, 4).reshape(-1, dh))
+        pool.values[:, pages, :, offs] = vals.reshape(b * t, n, kvh, dh)
+        pool.scales[:, :, :, 0][:, pages, :, offs] = scale.reshape(
+            b * t, n, kvh)
+
+
+def check_commit(torch, randn):
+    """Phase 3, the int8 kernel's commit entry: K and V chunks quantized
+    into an int8 cache in one launch, the whole cache bit-equal to the
+    plain commit (every page but the sink of a pool, where parked rows
+    race as JAX's scatter leaves them): int8 generate's linear cache
+    [8, 8, 8, 384, 64] at t = 1 over ragged positions with a clamped
+    start and at the prefill t = 128 from 0; int8 serving's pool (rows
+    8, KV 8, pages of 64, NP 16) at t = 1 and 4 with two parked rows.
+    Each timed beside the plain commit and the sequence the tree ran
+    before it (timed at one position for every row, as generate passes
+    a python int)."""
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    dev = torch.device("cuda")
+    L, B, KV, D = 8, 8, 8, 64
+
+    def clone(q):
+        return tq.QTensor(q.values.clone(), q.scales.clone())
+
+    rows = []
+
+    def case(label, kc, vc, ks, vs, pos, today, layer=0, table=None):
+        got_k, got_v, ref_k, ref_v = clone(kc), clone(vc), clone(kc), clone(vc)
+        zero_launches()
+        tq.commit_int8(got_k, got_v, ks, vs, pos, layer=layer,
+                       page_table=table)
+        launched = read_launches()["quant_int8_commit"]
+        tq.commit_int8_reference(ref_k, ref_v, ks, vs, pos, layer=layer,
+                                 page_table=table)
+        torch.cuda.synchronize()
+        keep = slice(None) if table is None else slice(1, None)  # no sink
+        err = 0.0
+        for got, ref in ((got_k, ref_k), (got_v, ref_v)):
+            gv, rv = got.values[:, keep], ref.values[:, keep]
+            gs, rs = got.scales[:, keep], ref.scales[:, keep]
+            err = max(err, float((gv.float() - rv.float()).abs().max()),
+                      float((gs - rs).abs().max()))
+            need(torch.equal(gv, rv) and torch.equal(gs, rs),
+                 f"quant_int8 commit {label}: cache not bit-equal to the "
+                 f"plain commit (err {err})")
+        need(launched == 1, f"quant_int8 commit {label}: {launched} "
+             f"launches, not 1")
+        ms = cuda_ms(torch, lambda: tq.commit_int8(
+            got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
+        plain = cuda_ms(torch, lambda: tq.commit_int8_reference(
+            ref_k, ref_v, ks, vs, pos, layer=layer, page_table=table))
+        seq = cuda_ms(torch, lambda: today(ref_k, ref_v))
+        ops = device_ops(torch, lambda: tq.commit_int8(
+            got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
+        seq_ops = device_ops(torch, lambda: today(ref_k, ref_v))
+        n = sum(x.numel() for x in list(ks) + list(vs))
+        slots = n // D
+        by_table = 0 if table is None else 4 * table.numel()
+        bms, by = bound(n * ks[0].element_size() + n + 4 * slots
+                        + 8 * B + by_table, 5 * n, F32_FLOPS)
+        row = {"shape": [len(ks), *ks[0].shape], "leaf": f"commit {label}",
+               "leaves": 0, "dtype": str(ks[0].dtype).split(".")[-1],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "today_sequence_ms": seq, "device_ops": ops,
+               "today_sequence_device_ops": seq_ops, "library_ms": None,
+               "bound_ms": bms, "bound_by": by}
+        rows.append(row)
+        say(f"  quant_int8 commit {label}: kernel_ms {ms:.4f} ({ops} device "
+            f"op) today's sequence {seq:.4f} ({seq_ops} device ops) "
+            f"plain_ms {plain:.4f} bound_ms {bms:.6f} ({by}); cache "
+            f"bit-equal to the plain commit")
+
+    # int8 generate: the linear cache of phase 10, layer 3.
+    kc = _lane_int8(tq, randn((L, B, KV, 384, D)))
+    vc = _lane_int8(tq, randn((L, B, KV, 384, D)))
+    for label, t, pos in (
+            ("generate t=1, ragged, one start clamped", 1,
+             [0, 17, 100, 255, 300, 382, 383, 500]),
+            ("generate prefill t=128", 128, [0] * B)):
+        k, v = randn((B, t, KV, D)), randn((B, t, KV, D))
+        p0 = 300 if t == 1 else 0
+        case(label, kc, vc, [k], [v],
+             torch.tensor(pos, dtype=torch.int64, device=dev),
+             lambda rk, rv, k=k, v=v, p0=p0: _today_linear(tq, rk, rv, k, v,
+                                                         p0, 3), layer=3)
+    del kc, vc
+    # int8 serving: the pool of phase 12 (129 pages of 64, page 0 the
+    # sink), rows 6 and 7 parked one block past their all-sink tables.
+    kp = _lane_int8(tq, randn((L, 129, KV, 64, D)))
+    vp = _lane_int8(tq, randn((L, 129, KV, 64, D)))
+    gen = torch.Generator().manual_seed(12)
+    table = torch.zeros((B, 16), dtype=torch.int32)
+    table[:6] = (torch.randperm(128, generator=gen)[:96] + 1).reshape(6, 16)
+    table = table.to(dev)
+    for t in (1, 4):
+        pos = torch.randint(0, 1024 - t + 1, (B,), generator=gen)
+        pos[6:] = 16 * 64
+        pos = pos.to(dev)
+        ks = [randn((B, t, KV, D)) for _ in range(L)]
+        vs = [randn((B, t, KV, D)) for _ in range(L)]
+        case(f"serve t={t}, two parked rows", kp, vp, ks, vs, pos,
+             lambda rk, rv, ks=ks, vs=vs, pos=pos: _today_paged(
+                 torch, tq, rk, rv, ks, vs, table, pos), table=table)
+    return rows
 
 
 def decode_cold(torch, ta, F):
@@ -1520,7 +1766,9 @@ def phase_generate_int8(torch):
     # the cache (static: batch, kv heads, row tiles, cache slots).
     merges = L * (new - 1) if decode_splits(cfg, batch, plen + new) > 1 \
         else 0
-    want = {"quant_int8": 9 + 2 * L * new, "flash_fwd": L,
+    # quantize_params: one launch for the nine leaves; the cache: one
+    # commit (K and V) a layer for the prefill and for each step.
+    want = {"quant_int8": 1, "quant_int8_commit": L * new, "flash_fwd": L,
             "flash_decode": L * (new - 1), "flash_decode_merge": merges,
             "flash_decode_paged": 0, "flash_decode_paged_merge": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -1574,7 +1822,8 @@ def phase_generate_long(torch):
     launches = read_launches()
     L = cfg.n_layers
     merges = L * (new - 1) if decode_splits(cfg, batch, max_len) > 1 else 0
-    want = {"quant_int8": 0, "flash_fwd": L, "flash_decode": L * (new - 1),
+    want = {"quant_int8": 0, "quant_int8_commit": 0, "flash_fwd": L,
+            "flash_decode": L * (new - 1),
             "flash_decode_merge": merges, "flash_decode_paged": 0,
             "flash_decode_paged_merge": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
@@ -1639,7 +1888,8 @@ def phase_serve_int8(torch, np, reqs):
          "int8 serving: a request did not complete its 32 tokens")
     want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
             "flash_decode_paged_merge": paged_merges(cfg, batcher, widths),
-            "quant_int8": 2 * n_pre + 2 * ticks, "flash_decode": 0,
+            "quant_int8": 0, "quant_int8_commit": n_pre + ticks,
+            "flash_decode": 0,
             "flash_decode_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     need(n_pre == 16 and ticks > 0 and len(widths) == ticks
          and launches == want,
@@ -1665,7 +1915,24 @@ def phase_serve_int8(torch, np, reqs):
              "teacher_forced_checked": checked, "argmax_agree": agree,
              "positions": n_pos}
     say("  " + json.dumps(stats))
+    stats["profile"] = profile_serving(torch, np, batcher, cfg)
     return stats
+
+
+def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
+    """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
+    then its commit rows, launches of both entries together (and each
+    apart), and the nine leaves in one launch."""
+    entry = entry_of("quant_int8", "tfmesos_tpu_torch/csrc/quant_int8.cu",
+                     "tfmesos_tpu/ops/quant.py:40", quant_rows + commit_rows,
+                     0, quantize_params_9_leaves=total)
+    q, c = launches_of("quant_int8"), launches_of("quant_int8_commit")
+    entry["launches"] = q["launches"] + c["launches"]
+    entry["launches_by_path"] = {
+        p: n + c["launches_by_path"][p]
+        for p, n in q["launches_by_path"].items()}
+    entry["quantize_launches"], entry["commit_launches"] = q, c
+    return entry
 
 
 def main() -> int:
@@ -1689,8 +1956,8 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     flash_rows, paged_rows = phase_kernels(torch)
-    decode_rows, decode_cold_row, paged8_rows, quant_rows, quant_total = \
-        phase_decode_kernels(torch)
+    (decode_rows, decode_cold_row, paged8_rows, quant_rows, quant_total,
+     commit_rows) = phase_decode_kernels(torch)
     bwd_rows, bwd_checks = phase_backward(torch)
     cfg, params, reqs, comps, stats = phase_serve(torch, np)
     phase_teacher_forced(torch, cfg, params, comps)
@@ -1759,9 +2026,8 @@ def main() -> int:
                   ("dq",)),
         bwd_entry("flash_bwd_dkv", "dkv", "tfmesos_tpu/ops/attention.py:302",
                   ("dk", "dv")),
-        entry_of("quant_int8", "tfmesos_tpu_torch/csrc/quant_int8.cu",
-                 "tfmesos_tpu/ops/quant.py:40", quant_rows, 0,
-                 quantize_params_9_leaves=quant_total),
+        quant_entry(entry_of, launches_of, quant_rows, quant_total,
+                    commit_rows),
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

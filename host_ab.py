@@ -21,11 +21,19 @@ on both trees alike.  Nothing of JAX is imported.
   [4, KV 8, M 16384, 64] at pos 1024 and int8 [8, KV 8, M 384, 64] at
   pos 300, and over 50 calls (each launches several kernels)
   flash_decode_paged at the serving shape (below) and flash_backward
-  (delta and both backward kernels) at [8, 2048, 8, 64] causal;
+  (delta and both backward kernels) at [8, 2048, 8, 64] causal; and the
+  int8 KV-cache write of one decode step as each tree's model calls it:
+  one layer's K and V chunks [8, 1, 8, 64] bf16 into the linear cache
+  [8, 8, 8, 384, 64] at position 300 (a tree with ``quant.commit_int8``:
+  one commit of both, reading the start from the device tensor
+  ``decode_step`` builds; else its ``_cache_write`` for K, then V, at a
+  python int), and every layer's chunks into the serving pool (below;
+  ``_paged_cache_write_all`` once, or once a buffer on stacked chunks);
 * ``device_ms``: per round, the mean device ms (CUDA events) of one call
   over 20 back-to-back calls: each backward kernel's wrapper,
   ``flash_bwd_dq`` and ``flash_bwd_dkv``, at [8, 2048, 8, 64] causal
-  bf16, and flash_decode_paged at the serving shape;
+  bf16, flash_decode_paged at the serving shape and the two int8
+  cache writes above;
 * flash_decode_paged's serving shape is chip_smoke's phase 3: a pool of
   8 layers, rows 8, KV 8, 16 pages of 64 (a scrambled table), head_dim
   64, pos 1..1000, the deferred chunk of t = 1 (bf16 and int8 pools)
@@ -194,6 +202,7 @@ def wrappers(torch, p: SimpleNamespace) -> dict:
             lambda q=q, kc=kc, vc=vc, posv=posv: p.ta.flash_decode(
                 q, kc, vc, posv, layer=1))
     calls.update(paged_calls(torch, p))
+    calls.update(commit_calls(torch, p))
     q, k, v, do = (randn(8, 2048, 8, 64) for _ in range(4))
     o, lse = p.ta.flash_forward(q, k, v, causal=True)
     calls["flash_backward [8,2048,8,64]"] = (
@@ -250,10 +259,59 @@ def paged_calls(torch, p: SimpleNamespace) -> dict:
     return calls
 
 
+def commit_calls(torch, p: SimpleNamespace) -> dict:
+    """One decode step's int8 KV-cache writes of one tree (inputs from
+    seed 2), as the tree's model makes them: a linear cache's layer 3
+    (int8 generate's [8, 8, 8, 384, 64] at position 300), and the
+    serving pool's commit of every layer (8 layers, rows 8, KV 8, 129
+    pages of 64, a scrambled table, ragged positions)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def lane_int8(cache):
+        vals, scales = p.tq.quantize_int8_reference(cache)
+        return p.tq.QTensor(vals,
+                            scales.squeeze(-1).unsqueeze(-2).contiguous())
+
+    kc, vc = lane_int8(randn(8, 8, 8, 384, 64)), lane_int8(
+        randn(8, 8, 8, 384, 64))
+    k, v = randn(8, 1, 8, 64), randn(8, 1, 8, 64)
+    # decode_step's positions at a python-int pos, and its row starts.
+    start = (300 + torch.arange(1, device=dev)).expand(8, 1)[:, 0]
+    kp, vp = lane_int8(randn(8, 129, 8, 64, 64)), lane_int8(
+        randn(8, 129, 8, 64, 64))
+    ks = [randn(8, 1, 8, 64) for _ in range(8)]
+    vs = [randn(8, 1, 8, 64) for _ in range(8)]
+    table = (torch.randperm(128, generator=gen) + 1).reshape(8, 16).to(
+        dev, torch.int32)
+    pos = torch.randint(0, 1024, (8,), generator=gen).to(dev)
+    if hasattr(p.tq, "commit_int8"):
+        def linear():
+            p.tt._cache_write({"k": kc, "v": vc}, k, v, 3, 300, start)
+
+        def paged():
+            p.tt._paged_cache_write_all({"k": kp, "v": vp, "pages": table},
+                                        ks, vs, pos)
+    else:
+        def linear():
+            p.tt._cache_write(kc, k, 3, 300)
+            p.tt._cache_write(vc, v, 3, 300)
+
+        def paged():
+            p.tt._paged_cache_write_all(kp, torch.stack(ks), table, pos)
+            p.tt._paged_cache_write_all(vp, torch.stack(vs), table, pos)
+    return {"int8 cache write, linear, a layer [8,1,8,64]": linear,
+            "int8 cache write, paged, 8 layers [8,1,8,64]": paged}
+
+
 def device_calls(torch, p: SimpleNamespace) -> dict:
     """The device-timed calls of one tree: the two backward kernels'
-    wrappers at [8, 2048, 8, 64] causal bf16 (inputs from seed 0) and
-    flash_decode_paged at the serving shape."""
+    wrappers at [8, 2048, 8, 64] causal bf16 (inputs from seed 0),
+    flash_decode_paged at the serving shape and the int8 cache
+    writes."""
     gen = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((8, 2048, 8, 64), generator=gen).to(
         "cuda", torch.bfloat16) for _ in range(4))
@@ -261,7 +319,7 @@ def device_calls(torch, p: SimpleNamespace) -> dict:
     args = (q, k, v, do, lse, p.ta._bwd_delta(o, do), True, 0.125)
     return {"flash_bwd_dq [8,2048,8,64]": lambda: p.ta.flash_bwd_dq(*args),
             "flash_bwd_dkv [8,2048,8,64]": lambda: p.ta.flash_bwd_dkv(*args),
-            **paged_calls(torch, p)}
+            **paged_calls(torch, p), **commit_calls(torch, p)}
 
 
 def servers(torch, np, p: SimpleNamespace, n_requests: int) -> dict:
@@ -404,8 +462,8 @@ def main() -> int:
             # rounds the chunk in the caller about ten: 50 calls stay
             # inside the card's launch queue, so the host never waits on
             # it.
-            n = 50 if key.startswith(("flash_backward",
-                                      "flash_decode_paged")) else 200
+            n = 50 if key.startswith(("flash_backward", "flash_decode_paged",
+                                      "int8 cache write, paged")) else 200
             results["host_us"][key] = alternate(
                 args.rounds, lambda fn: enqueue_us(torch, fn, n), fns)
             print(summary("host_us", key, results["host_us"][key]),

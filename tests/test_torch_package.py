@@ -53,7 +53,8 @@ def test_slice_modules_import_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["['quant_int8']", "True", "True"]
+    assert out.stdout.split() == ["['quant_int8',", "'quant_int8_commit']",
+                                  "True", "True"]
 
 
 def _imported_roots(path: Path):

@@ -21,11 +21,13 @@ every call launches its kernel, whatever the context length or chunk
 size.
 
 int8 serving (``quantize_params`` plus an int8 KV cache) goes through
-``ops/quant.py``: weights quantize once per leaf and every int8 cache
-write quantizes its chunk through the ``quant_int8.cu`` kernel (its
-round-to-nearest result is bit-identical to the JAX package's
-``quantize_int8_reference``); weight scales fold into the activation
-at each matmul (``_qmm``) and cache scales into the decode kernels.
+``ops/quant.py``'s ``quant_int8.cu`` kernel (its round-to-nearest result
+is bit-identical to the JAX package's ``quantize_int8_reference``):
+every weight leaf in one launch, and each int8 cache commit — a linear
+cache's K and V of one layer, or a paged pool's K and V of every layer
+after a decode step — in one launch that quantizes the chunks straight
+into their cache slots.  Weight scales fold into the activation at
+each matmul (``_qmm``) and cache scales into the decode kernels.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ from tfmesos_tpu_torch.ops.attention import (_dequant_lane_major,
 from tfmesos_tpu_torch.ops.layers import (cross_entropy_loss,
                                           fused_linear_cross_entropy,
                                           rms_norm, rope)
-from tfmesos_tpu_torch.ops.quant import (QTensor, quantize_int8,
-                                         quantize_tensor)
+from tfmesos_tpu_torch.ops.quant import (QTensor, _paged_slots,
+                                         _put_positions, commit_int8,
+                                         quantize_tensors)
 
 Params = Dict[str, Any]
 
@@ -146,14 +149,16 @@ _QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
 def quantize_params(cfg: TransformerConfig, params: Params) -> Params:
     """Weight-only int8 quantization (per-row absmax, ``ops/quant.py``):
     the embedding table, the head and every per-layer projection become
-    :class:`QTensor` s (one ``quant_int8.cu`` launch per leaf on the
-    card); norms stay as they are.  The tree drops into ``forward``,
+    :class:`QTensor` s (all of them in one ``quant_int8.cu`` launch on
+    the card); norms stay as they are.  The tree drops into ``forward``,
     ``decode_step``, ``generate`` and the batcher unchanged."""
-    layers = {k: (quantize_tensor(v) if k in _QUANT_KEYS else v)
-              for k, v in params["layers"].items()}
-    return {"embed": quantize_tensor(params["embed"]), "layers": layers,
-            "norm_f": params["norm_f"],
-            "head": quantize_tensor(params["head"])}
+    keys = [k for k in params["layers"] if k in _QUANT_KEYS]
+    embed, *qlayers, head = quantize_tensors(
+        [params["embed"], *(params["layers"][k] for k in keys),
+         params["head"]])
+    layers = dict(params["layers"], **dict(zip(keys, qlayers)))
+    return {"embed": embed, "layers": layers, "norm_f": params["norm_f"],
+            "head": head}
 
 
 def layer_params(params: Params, li: int) -> Params:
@@ -431,75 +436,49 @@ def _cache_read(cache, li: int, dtype: torch.dtype) -> torch.Tensor:
     return cache[li]
 
 
-def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-position int8 quantization of K/V rows ([..., Dh]): the
-    ``quant_int8.cu`` kernel on the card; (values [..., Dh], scales
-    [...])."""
-    vals, scale = quantize_int8(x.reshape(-1, x.shape[-1]))
-    return vals.reshape(x.shape), scale.reshape(x.shape[:-1])
-
-
-def _put_positions(lay: torch.Tensor, x: torch.Tensor, pos) -> None:
-    """Write ``x`` [B, t, KV, ...] into one layer ``lay`` [B, KV, M, ...]
-    at positions pos..pos+t-1 of each row, IN PLACE; ``pos`` an int or a
-    [B] tensor (ragged rows).  The start clamps so the chunk fits, as a
-    dynamic slice update clamps."""
-    b, t = x.shape[:2]
-    m = lay.shape[2]
-    if isinstance(pos, int):
-        start = min(max(pos, 0), m - t)
-        lay[:, :, start:start + t] = x.transpose(1, 2)
+def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
+                 li: int, pos, start: torch.Tensor) -> None:
+    """Insert layer ``li``'s K and V chunks ([B, t, KV, Dh]) into the
+    stacked linear cache [L, B, KV, M, Dh] at positions pos..pos+t-1 of
+    each row, IN PLACE (the start clamps so the chunk fits, as a dynamic
+    slice update clamps).  An int8 cache takes both in one
+    :func:`~tfmesos_tpu_torch.ops.quant.commit_int8` (one
+    ``quant_int8.cu`` launch on the card), reading the rows' starts from
+    the device tensor ``start`` [B]; a plain one takes two indexed
+    writes at ``pos`` (an int, or [B] for ragged rows)."""
+    if isinstance(cache["k"], QTensor):
+        commit_int8(cache["k"], cache["v"], [k], [v], start, layer=li)
         return
-    start = torch.as_tensor(pos, device=lay.device).long().reshape(
-        -1).expand(b).clamp(0, m - t)
-    rows = torch.arange(b, device=lay.device)[:, None]
-    cols = start[:, None] + torch.arange(t, device=lay.device)[None]
-    # Advanced indices around the head slice front the [b, t] dims.
-    lay[rows, :, cols] = x
+    for buf, x in ((cache["k"], k), (cache["v"], v)):
+        _put_positions(buf[li], x.to(buf.dtype), pos)
 
 
-def _cache_write(cache, chunk: torch.Tensor, li: int, pos) -> None:
-    """Insert a [B, t, KV, Dh] K or V chunk at position ``pos`` (int, or
-    [B] for ragged rows) of layer ``li`` of the stacked linear cache
-    [L, B, KV, M, Dh], IN PLACE; an int8 cache quantizes the chunk per
-    position on the way in (values and lane-major scales)."""
-    if isinstance(cache, QTensor):
-        vals, scale = _quantize_rows(chunk)
-        _put_positions(cache.values[li], vals, pos)
-        _put_positions(cache.scales[li, :, :, 0], scale, pos)
-    else:
-        _put_positions(cache[li], chunk.to(cache.dtype), pos)
-
-
-def _paged_cache_write_all(pool, chunks: torch.Tensor,
-                           page_table: torch.Tensor,
-                           pos: Union[int, torch.Tensor]) -> None:
-    """Commit ALL layers' deferred chunks ([L, B, t, KV, Dh]) into the
-    stacked pool at logical positions pos..pos+t-1 per row, chasing the
-    page table, in ONE indexed write per buffer — IN PLACE (the pool is
-    the batcher's long-lived buffer; a copy would double its memory).
-    An int8 pool quantizes every (row, token, layer, head) slot on the
-    way in.  The block index is clamped to the table width: a parked
-    row's position can sit one block past it, and its whole table row is
-    the sink."""
-    L, b, t, kvh, dh = chunks.shape
-    buf = pool.values if isinstance(pool, QTensor) else pool
-    ps = buf.shape[3]
-    dev = buf.device
-    table = torch.as_tensor(page_table, device=dev).long()
-    posv = torch.as_tensor(pos, device=dev).long().reshape(-1).expand(b)
-    lpos = posv[:, None] + torch.arange(t, device=dev)[None]      # [B, t]
-    blk = torch.clamp(lpos // ps, max=table.shape[1] - 1)
-    pages = torch.take_along_dim(table, blk, dim=1).reshape(-1)
-    offs = (lpos % ps).reshape(-1)
-    # [L, B, t, KV, Dh] -> [B*t, L, KV, Dh]: the advanced indices
-    # (pages, offs) around the head slice front the update's row dim.
-    x = chunks.permute(1, 2, 0, 3, 4).reshape(b * t, L, kvh, dh)
-    if isinstance(pool, QTensor):
-        vals, scale = _quantize_rows(x)
-        pool.values[:, pages, :, offs] = vals
-        pool.scales[:, :, :, 0][:, pages, :, offs] = scale
-    else:
+def _paged_cache_write_all(cache: Dict[str, Any],
+                           ks: Sequence[torch.Tensor],
+                           vs: Sequence[torch.Tensor],
+                           start: torch.Tensor) -> None:
+    """Commit ALL layers' deferred K and V chunks (``ks[li]``,
+    ``vs[li]``: [B, t, KV, Dh]) into the stacked pools at logical
+    positions start..start+t-1 per row (``start`` [B] on the device),
+    chasing the page table ``cache["pages"]``, IN PLACE (the pool is the
+    batcher's long-lived buffer; a copy would double its memory).  The
+    block index is clamped to the table width: a parked row's position
+    can sit one block past it, and its whole table row is the sink.  An
+    int8 pool quantizes every (row, token, layer, head) slot on the way
+    in, K and V of every layer in one
+    :func:`~tfmesos_tpu_torch.ops.quant.commit_int8`; a plain pool takes
+    one indexed write a buffer."""
+    table = cache["pages"]
+    if isinstance(cache["k"], QTensor):
+        commit_int8(cache["k"], cache["v"], ks, vs, start, page_table=table)
+        return
+    b, t, kvh, dh = ks[0].shape
+    pages, offs = _paged_slots(table, start, b, t, cache["k"].shape[3])
+    for pool, chunks in ((cache["k"], ks), (cache["v"], vs)):
+        # [L, B, t, KV, Dh] -> [B*t, L, KV, Dh]: the advanced indices
+        # (pages, offs) around the head slice front the update's row dim.
+        x = torch.stack(list(chunks)).permute(1, 2, 0, 3, 4).reshape(
+            b * t, len(chunks), kvh, dh)
         pool[:, pages, :, offs] = x.to(pool.dtype)
 
 
@@ -521,8 +500,7 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
     prefill = t > 1 and isinstance(pos, int) and pos == 0
     pages = cache.get("pages")
     if pages is None:
-        _cache_write(cache["k"], k, li, pos)
-        _cache_write(cache["v"], v, li, pos)
+        _cache_write(cache, k, v, li, pos, positions[:, 0])
         chunk = None
     else:
         chunk = (k, v)
@@ -570,10 +548,7 @@ def decode_step(cfg: TransformerConfig, params: Params,
             ks.append(chunk[0])
             vs.append(chunk[1])
     if ks:
-        _paged_cache_write_all(cache["k"], torch.stack(ks), cache["pages"],
-                               pos)
-        _paged_cache_write_all(cache["v"], torch.stack(vs), cache["pages"],
-                               pos)
+        _paged_cache_write_all(cache, ks, vs, positions[:, 0])
     x = rms_norm(x, params["norm_f"].to(cfg.dtype))
     return _qmm(x, params["head"], cfg.dtype), cache
 
