@@ -75,11 +75,18 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    them equal to ``_flash_bwd_route`` and the kernel's design, launches
    both kernels twice, and calls ``flash_backward``: all three sets of
    gradients must be bit-identical;
-5. serves 16 seeded requests (prompts of 8..700 tokens, 32 new tokens
-   each) through ``ContinuousBatcher`` on the flagship config (rows 8,
-   page 64, bucket 64), and checks that every prefill and every decode
-   tick launched the kernels once per layer, and the paged kernel's merge
-   once per layer of each tick whose table width splits it;
+5. warms a ``ContinuousBatcher`` on the flagship config (rows 8, page
+   64, bucket 64) with ``warmup()`` (a prefill at each prompt width and
+   the decode tick captured as a CUDA graph at each table width; prints
+   the names, seconds and the graphs' pool memory), serves 16 seeded
+   requests (prompts of 8..700 tokens, 32 new tokens each) through the
+   graphed ticks, and checks that every prefill and every decode tick
+   launched the kernels once per layer, and the paged kernel's merge
+   once per layer of each tick whose table width splits it (a replay
+   counts what its capture counted); then serves the same traffic with
+   every tick eager (the graph helper's diagnostic switch): identical
+   streams, the same exact counts; prints ms a tick, TTFT, tokens/s and
+   a profile's busy share for both;
 6. reruns two served requests teacher-forced through ``forward`` on the
    CPU in float32 with the same float32 master weights, and requires
    the card's token wherever the CPU's top-1/top-2 margin is clear;
@@ -96,24 +103,38 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    >= 0.99 to the CPU's;
 10. generates with the full int8 configuration (flagship weights seeded
     0 through ``quantize_params`` on the card, an int8 KV cache; batch 8,
-    prompt 128, 256 new tokens, greedy): exactly 1 quant_int8 (the nine
+    prompt 128, 256 new tokens, greedy; the step a CUDA graph, replayed
+    after one eager step and its capture): exactly 1 quant_int8 (the nine
     leaves), 8 x 256 quant_int8_commit (K and V of a layer, for the
     prefill and each step), 8 flash_fwd and 8 x 255 flash_decode launches (and as
     many flash_decode_merge where the shapes split the cache), and the
     tokens teacher-forced against a float32 CPU run with the same int8
     weights over an int8 cache (the phase-6 margin rule); prints decode
     tokens/s without the prefill, ms per step and a profile of 16 steps;
+    then the same run with every step eager: identical tokens, the same
+    counts, and its rate and profile;
 11. generates in bf16 at long context (batch 4 over a 16384-slot cache,
     prompt 1024, 64 new tokens): exactly 8 flash_fwd and 8 x 63
     flash_decode launches (and merges), the tokens teacher-forced against
     the card's own ``forward``; tokens/s, ms per step and a profile of
-    16 steps;
+    16 steps, graphed and eager as in phase 10;
 12. serves phase 5's 16 requests with int8 weights over an int8 page
     pool: 8 flash_decode_paged launches per tick (and merges as in phase
     5), 8 flash_fwd per prefill, 1 quant_int8_commit per prefill and 1
     per tick (K and V of every layer; the paged kernel rounds the
     deferred chunk itself), two requests teacher-forced as in phase 10,
-    and a profile as in phase 5.
+    warmup, the eager run and the profiles as in phase 5;
+13. samples: the threefry golden values (jax 0.9.0's) computed on the
+    card bit-exact, and a chi-square test of ``categorical`` on the card
+    against softmax over 16 fixed logits (200,000 draws, one key for the
+    batch and a key a row; p > 1e-3); phase 5's traffic at temperature
+    0.8 with top-k 50 and with top-p 0.9, bf16 and int8 (warmed, graphed
+    against eager: identical streams, exact counts; two requests each
+    held to the margin rule on ``filter_logits`` of the float32 CPU
+    logits plus the gumbel noise of the same ``fold_in(fold_in(rng,
+    rid), step)`` keys); and int8 generate at temperature 0.8 (batch 8,
+    prompt 128, 64 new tokens; graphed against eager, exact counts, the
+    margin rule under the reference's split-a-step key schedule).
 
 Every path phase zeroes all launch counts (``attention.LAUNCHES`` and
 ``quant.LAUNCHES``) just before it runs and reads them just after; the
@@ -357,7 +378,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/12] device")
+    say("[1/13] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -371,7 +392,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/12] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/13] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -546,7 +567,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/12] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/13] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -697,7 +718,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/12] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/13] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -840,68 +861,54 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/12] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/13] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
-    # Warm-up request (cuBLAS handles, kernel library loads) outside the
+    warm = warm_batcher(batcher)
+    # Warm-up request (cuBLAS handles, allocator pools) outside the
     # measured run.
     list(batcher.run([Request(np.arange(1, 9), 2)]))
-    widths = table_widths(batcher)
-    rng = np.random.RandomState(0)
-    lens = rng.randint(8, 701, size=16)
-    reqs = [Request(rng.randint(0, cfg.vocab_size, n), 32) for n in lens]
-    batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
-    batcher.decode_seconds = 0.0
-    zero_launches()
-    t0 = time.perf_counter()
-    comps = list(batcher.run(reqs))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    need(len(comps) == 16, f"{len(comps)} of 16 requests completed")
-    need(all(len(c.tokens) == 32 for c in comps),
-         "a request finished with other than 32 tokens")
-    L = cfg.n_layers
-    need(batcher.prefills == 16 and batcher.decode_ticks > 0,
-         f"prefills {batcher.prefills} ticks {batcher.decode_ticks}")
-    need(launches["flash_fwd"] == L * batcher.prefills,
-         f"flash_fwd launches {launches['flash_fwd']} != {L} x "
-         f"{batcher.prefills} prefills")
-    need(launches["flash_decode_paged"] == L * batcher.decode_ticks,
-         f"flash_decode_paged launches {launches['flash_decode_paged']} "
-         f"!= {L} x {batcher.decode_ticks} decode ticks")
-    merges = paged_merges(cfg, batcher, widths)
-    need(len(widths) == batcher.decode_ticks
-         and launches["flash_decode_paged_merge"] == merges,
-         f"flash_decode_paged_merge launches "
-         f"{launches['flash_decode_paged_merge']} != {merges} ({L} for "
-         f"each of the {len(widths)} ticks whose table width splits)")
-    need(launches["flash_decode"] == launches["flash_decode_merge"]
-         == launches["quant_int8"] == launches["quant_int8_commit"] == 0,
-         f"bf16 serving launched the linear decode or quant kernel: "
-         f"{launches}")
-    ttft = sorted(c.ttft_s * 1e3 for c in comps)
-    stats = {"requests": len(comps), "wall_s": wall,
-             "prefills": batcher.prefills,
-             "decode_ticks": batcher.decode_ticks,
-             "decode_tokens": batcher.decode_tokens,
-             "decode_tok_per_s": batcher.decode_tokens
-             / batcher.decode_seconds,
-             "ms_per_tick": batcher.decode_seconds / batcher.decode_ticks
-             * 1e3,
-             "ttft_ms_mean": statistics.mean(ttft),
-             "ttft_ms_p50": statistics.median(ttft),
-             "peak_pages": batcher.peak_pages_used,
-             "n_pages": batcher.n_pages, "launches": launches}
-    say("  " + json.dumps(stats))
+    reqs = phase5_requests(np, cfg)
+    comps, stats = serve_run(torch, cfg, batcher, reqs, int8=False)
+    stats["warmup"] = warm
+    say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile_serving(torch, np, batcher, cfg)
+    stats["eager"] = serve_eager(torch, np, cfg, batcher, reqs, comps, False)
     return cfg, params, reqs, comps, stats
 
 
-def table_widths(batcher):
-    """From now on, record the page-table width (pages) of every decode
-    tick of ``batcher``: the paged kernel's split count follows it."""
+def phase5_requests(np, cfg):
+    """Phase 5's traffic: 16 seeded requests, prompts of 8..700 tokens,
+    32 new tokens each."""
+    from tfmesos_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(0)
+    lens = rng.randint(8, 701, size=16)
+    return [Request(rng.randint(0, cfg.vocab_size, n), 32) for n in lens]
+
+
+def warm_batcher(batcher):
+    """``batcher.warmup()``: prints the names it prepared, its seconds
+    and the device memory its graphs' pool reserved."""
+    info = batcher.warmup()
+    out = {"compiled": info["compiled"], "seconds": info["seconds"],
+           "graph_pool_mib": batcher._graphs.pool_bytes / 2 ** 20}
+    need(any(n.startswith("decode[") for n in info["compiled"])
+         and all(n[:n.index("[")] in ("decode", "prefill")
+                 for n in info["compiled"]),
+         f"warmup prepared {info['compiled']}")
+    say(f"  warmup: {json.dumps(out)}")
+    return out
+
+
+def serve_run(torch, cfg, batcher, reqs, int8: bool):
+    """Serve ``reqs`` once (the batcher's counters reset and every launch
+    count zeroed just before, read just after) and require exact launch
+    counts: n_layers flash_fwd a prefill and flash_decode_paged a tick,
+    n_layers merges for each tick whose table width splits the paged
+    kernel, and with an int8 pool one quant_int8_commit a prefill and a
+    tick.  Returns (completions, stats)."""
     widths = []
     read = batcher._decode_table
 
@@ -911,7 +918,64 @@ def table_widths(batcher):
         return table
 
     batcher._decode_table = recorded
-    return widths
+    batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
+    batcher.decode_seconds = 0.0
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        comps = list(batcher.run(reqs))
+        torch.cuda.synchronize()
+    finally:
+        del batcher._decode_table
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    L, n_pre, ticks = cfg.n_layers, batcher.prefills, batcher.decode_ticks
+    new = reqs[0].max_new_tokens
+    need(len(comps) == len(reqs)
+         and all(len(c.tokens) == new for c in comps),
+         f"serving: {len(comps)} of {len(reqs)} requests completed their "
+         f"{new} tokens")
+    want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
+            "flash_decode_paged_merge": paged_merges(cfg, batcher, widths),
+            "quant_int8": 0, "quant_int8_commit": n_pre + ticks if int8
+            else 0, "flash_decode": 0, "flash_decode_merge": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(n_pre == len(reqs) and ticks > 0 and len(widths) == ticks
+         and launches == want,
+         f"serving launches {launches} != {want} ({n_pre} prefills, "
+         f"{ticks} ticks)")
+    ttft = sorted(c.ttft_s * 1e3 for c in comps)
+    return comps, {
+        "requests": len(comps), "wall_s": wall, "prefills": n_pre,
+        "decode_ticks": ticks, "decode_tokens": batcher.decode_tokens,
+        "decode_tok_per_s": batcher.decode_tokens / batcher.decode_seconds,
+        "ms_per_tick": batcher.decode_seconds / ticks * 1e3,
+        "ttft_ms_mean": statistics.mean(ttft),
+        "ttft_ms_p50": statistics.median(ttft),
+        "peak_pages": batcher.peak_pages_used, "n_pages": batcher.n_pages,
+        "launches": launches}
+
+
+def streams(comps):
+    """Token streams in admission order."""
+    return [c.tokens for c in sorted(comps, key=lambda c: c.rid)]
+
+
+def serve_eager(torch, np, cfg, batcher, reqs, comps, int8: bool):
+    """The same traffic once more with every tick run eagerly (the
+    graph helper's diagnostic switch): the streams must be identical to
+    the graphed run's and the launch counts exact; then its profile."""
+    batcher._graphs.eager = True
+    try:
+        eager_comps, stats = serve_run(torch, cfg, batcher, reqs, int8)
+        need(streams(eager_comps) == streams(comps),
+             "serving: the graphed ticks' streams differ from the eager "
+             "ticks'")
+        say("  eager: " + json.dumps(stats))
+        stats["profile"] = profile_serving(torch, np, batcher, cfg)
+    finally:
+        batcher._graphs.eager = False
+    return stats
 
 
 def paged_merges(cfg, batcher, widths):
@@ -1002,7 +1066,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/12] teacher-forced check vs float32 CPU forward "
+    say(f"[6/13] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1053,7 +1117,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/12] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/13] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1063,7 +1127,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/12] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/13] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1133,7 +1197,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/12] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/13] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1678,15 +1742,12 @@ def _to(params, dev):
     return {k: leaf(v) for k, v in params.items()}
 
 
-def teacher_forced_int8(torch, cfg, qparams, prompt, gen):
-    """float32 CPU logits for each generated token from the SAME int8
-    weights over an int8 linear cache, teacher-forced with the card's
-    tokens: the prompt prefilled, then every generated token but the
-    last decoded as one chunk (a chunk writes each position's K/V before
-    attending, as token-by-token decoding does).  Fails where the card's
-    token differs from the CPU argmax at a top-1/top-2 margin above
-    MARGIN; returns (positions above the margin, argmax agreement at
-    every position, positions)."""
+def cpu_logits_int8(torch, cfg, qparams, prompt, gen):
+    """float32 CPU logits [B, n, V] for each generated token from the
+    SAME int8 weights over an int8 linear cache, teacher-forced with the
+    card's tokens: the prompt prefilled, then every generated token but
+    the last decoded as one chunk (a chunk writes each position's K/V
+    before attending, as token-by-token decoding does)."""
     from tfmesos_tpu_torch.models import transformer as tt
 
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1702,13 +1763,31 @@ def teacher_forced_int8(torch, cfg, qparams, prompt, gen):
             rest, _ = tt.decode_step(cpu_cfg, cpu_params, cache,
                                      gen[:, :-1], p)
             ref = torch.cat([ref, rest], dim=1)
-    top = ref.float().topk(2, dim=-1)
+    return ref.float()
+
+
+def teacher_forced_int8(torch, cfg, qparams, prompt, gen):
+    """:func:`cpu_logits_int8` against the card's tokens: fails where the
+    card's token differs from the CPU argmax at a top-1/top-2 margin
+    above MARGIN; returns (positions above the margin, argmax agreement
+    at every position, positions)."""
+    return margin_check(torch, cpu_logits_int8(torch, cfg, qparams, prompt,
+                                                gen), gen.cpu().long(),
+                        "teacher-forced")
+
+
+def margin_check(torch, ref, gen, what):
+    """The phase-6 margin rule over scores ``ref`` [..., V] (CPU) and the
+    card's tokens ``gen`` [...]: wherever the top-1 beats the top-2 by
+    more than MARGIN the token must be the top-1.  Returns (positions
+    above the margin, top-1 agreement at every position, positions)."""
+    top = ref.topk(2, dim=-1)
     margin = top.values[..., 0] - top.values[..., 1]
     clear = margin > MARGIN
     agree = top.indices[..., 0] == gen
     bad = clear & ~agree
-    need(not bool(bad.any()), f"teacher-forced: card token differs from "
-         f"the CPU argmax at {int(bad.sum())} positions above the margin")
+    need(not bool(bad.any()), f"{what}: card token differs from the CPU "
+         f"top-1 at {int(bad.sum())} positions above the margin")
     return int(clear.sum()), int(agree.sum()), agree.numel()
 
 
@@ -1747,7 +1826,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/12] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/13] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1778,13 +1857,16 @@ def phase_generate_int8(torch):
          and torch.equal(out[:, :plen], prompt),
          f"int8 generate output {tuple(out.shape)}")
 
-    def run(n=new):
+    def run(n=new, eager=False):
         with torch.no_grad():
-            return tt.generate(cfg, qparams, prompt, n, quantized_cache=True)
+            return tt.generate(cfg, qparams, prompt, n, quantized_cache=True,
+                               _eager=eager)
 
     rerun_identical = bool(torch.equal(run(), out))
     whole, pre, tok_s, step_ms = _generate_rate(
         torch, run, lambda: run(1), new, batch)
+    eager = generate_eager(torch, run, out, dict(want, quant_int8=0), new,
+                           batch)
     t0 = time.perf_counter()
     checked, agree, n_pos = teacher_forced_int8(torch, cfg, qparams, prompt,
                                                 out[:, plen:])
@@ -1797,9 +1879,10 @@ def phase_generate_int8(torch):
              "launches": launches, "rerun_identical": rerun_identical,
              "teacher_forced_checked": checked, "argmax_agree": agree,
              "positions": n_pos, "cpu_check_s": cpu_s}
-    say("  " + json.dumps(stats))
+    say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile(torch, lambda: run(16))
     say("  profile (16 new tokens): " + json.dumps(stats["profile"]))
+    stats["eager"] = eager_profile(torch, eager, lambda: run(16, True))
     return stats
 
 
@@ -1808,7 +1891,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/12] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/13] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1830,12 +1913,14 @@ def phase_generate_long(torch):
     need(launches == want, f"long-context generate launches {launches} != "
          f"{want}")
 
-    def run(n=new):
+    def run(n=new, eager=False):
         with torch.no_grad():
-            return tt.generate(cfg, params, prompt, n, cache=cache)
+            return tt.generate(cfg, params, prompt, n, cache=cache,
+                               _eager=eager)
 
     whole, pre, tok_s, step_ms = _generate_rate(
         torch, run, lambda: run(1), new, batch)
+    eager = generate_eager(torch, run, out, want, new, batch)
     # Teacher-forced on the card: the forward kernel over the whole
     # sequence must agree with the decode path's tokens wherever its
     # top-1/top-2 margin is clear.
@@ -1855,9 +1940,35 @@ def phase_generate_long(torch):
              "cache_slots": max_len, "run_s": whole, "prefill_s": pre,
              "decode_tok_per_s": tok_s, "ms_per_step": step_ms,
              "launches": launches, "forward_checked": checked}
-    say("  " + json.dumps(stats))
+    say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile(torch, lambda: run(16))
     say("  profile (16 new tokens): " + json.dumps(stats["profile"]))
+    stats["eager"] = eager_profile(torch, eager, lambda: run(16, True))
+    return stats
+
+
+def generate_eager(torch, run, out, want, new, batch):
+    """``run(new, eager=True)`` (every step eager, the diagnostic switch)
+    with the launch counts zeroed: the tokens must be identical to the
+    graphed run's ``out`` and the counts ``want``; then its rate."""
+    zero_launches()
+    eager_out = run(new, True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    need(torch.equal(eager_out, out), "generate: the graphed step's tokens "
+         "differ from the eager step's")
+    need(launches == want, f"eager generate launches {launches} != {want}")
+    whole, pre, tok_s, step_ms = _generate_rate(
+        torch, lambda: run(new, True), lambda: run(1, True), new, batch)
+    return {"run_s": whole, "prefill_s": pre, "decode_tok_per_s": tok_s,
+            "ms_per_step": step_ms, "launches": launches,
+            "tokens_identical": True}
+
+
+def eager_profile(torch, stats, fn):
+    say("  eager: " + json.dumps(stats))
+    stats["profile"] = profile(torch, fn)
+    say("  eager profile (16 new tokens): " + json.dumps(stats["profile"]))
     return stats
 
 
@@ -1866,35 +1977,16 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/12] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/13] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
     batcher = ContinuousBatcher(cfg, qparams, rows=8, page_size=64,
                                 prefill_bucket=64, quantized_cache=True,
                                 device="cuda")
+    warm = warm_batcher(batcher)
     list(batcher.run([Request(np.arange(1, 9), 2)]))          # warm-up
-    widths = table_widths(batcher)
-    batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
-    batcher.decode_seconds = 0.0
-    zero_launches()
-    t0 = time.perf_counter()
-    comps = list(batcher.run(reqs))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    L, n_pre, ticks = cfg.n_layers, batcher.prefills, batcher.decode_ticks
-    need(len(comps) == 16 and all(len(c.tokens) == 32 for c in comps),
-         "int8 serving: a request did not complete its 32 tokens")
-    want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
-            "flash_decode_paged_merge": paged_merges(cfg, batcher, widths),
-            "quant_int8": 0, "quant_int8_commit": n_pre + ticks,
-            "flash_decode": 0,
-            "flash_decode_merge": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    need(n_pre == 16 and ticks > 0 and len(widths) == ticks
-         and launches == want,
-         f"int8 serving launches {launches} != {want} ({n_pre} prefills, "
-         f"{ticks} ticks)")
+    comps, stats = serve_run(torch, cfg, batcher, reqs, int8=True)
     checked = agree = n_pos = 0
     for c in sorted(comps, key=lambda c: c.rid)[:2]:
         prompt = torch.tensor([[int(x) for x in c.request.prompt]])
@@ -1903,19 +1995,197 @@ def phase_serve_int8(torch, np, reqs):
         checked, agree, n_pos = checked + ch, agree + ag, n_pos + n
     need(checked >= MIN_CHECKED, f"only {checked} positions above the "
          f"margin (need {MIN_CHECKED})")
-    ttft = sorted(c.ttft_s * 1e3 for c in comps)
-    stats = {"requests": len(comps), "wall_s": wall, "prefills": n_pre,
-             "decode_ticks": ticks, "decode_tokens": batcher.decode_tokens,
-             "decode_tok_per_s": batcher.decode_tokens
-             / batcher.decode_seconds,
-             "ms_per_tick": batcher.decode_seconds / ticks * 1e3,
-             "ttft_ms_mean": statistics.mean(ttft),
-             "ttft_ms_p50": statistics.median(ttft),
-             "peak_pages": batcher.peak_pages_used, "launches": launches,
-             "teacher_forced_checked": checked, "argmax_agree": agree,
-             "positions": n_pos}
-    say("  " + json.dumps(stats))
+    stats.update(warmup=warm, teacher_forced_checked=checked,
+                 argmax_agree=agree, positions=n_pos)
+    say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile_serving(torch, np, batcher, cfg)
+    stats["eager"] = serve_eager(torch, np, cfg, batcher, reqs, comps, True)
+    return stats
+
+
+# Phase 13's draws: the chi-square check's categories and draws, and
+# its floor on the p-value (a right kernel fails it once in 1000 runs).
+CHI2_CATEGORIES = 16
+CHI2_DRAWS = 200_000
+CHI2_MIN_P = 1e-3
+GOLDEN = {"fold_in": [2467461003, 3840466878],
+          "split": [[1797259609, 2579123966], [928981903, 3453687069]],
+          "bits": [4070199207, 4202968722, 1427181096, 2012915765,
+                   2447653815],
+          "categorical": [1296, 3306]}
+SAMPLED_MODES = ({"temperature": 0.8, "top_k": 50},
+                 {"temperature": 0.8, "top_p": 0.9})
+
+
+def check_prng(torch):
+    """The threefry golden values (jax 0.9.0's) computed on the card,
+    bit-exact, and a chi-square test of ``categorical`` on the card
+    against softmax over fixed logits: one key for a [N, C] batch, and a
+    key a row (the batcher's draw)."""
+    from scipy.stats import chisquare
+
+    from tfmesos_tpu_torch.ops import prng
+
+    key = prng.PRNGKey(0, "cuda")
+    got = {"fold_in": prng.fold_in(key, 3).tolist(),
+           "split": prng.split(key).tolist(),
+           "bits": prng.bits(key, (5,)).tolist(),
+           "categorical": prng.categorical(
+               key, torch.zeros(2, 8192, device="cuda")).tolist()}
+    need(got == GOLDEN, f"threefry on the card: {got} != {GOLDEN}")
+    logits = torch.randn(CHI2_CATEGORIES,
+                         generator=torch.Generator().manual_seed(13)) * 1.5
+    expected = torch.softmax(logits.double(), -1) * CHI2_DRAWS
+    batch = logits.cuda().expand(CHI2_DRAWS, CHI2_CATEGORIES).contiguous()
+    out = {}
+    for name, keys in (
+            ("one key", prng.PRNGKey(1, "cuda")),
+            ("a key a row", prng.fold_in(prng.PRNGKey(2, "cuda"),
+                                         torch.arange(CHI2_DRAWS,
+                                                      device="cuda")))):
+        draws = prng.categorical(keys, batch)
+        counts = torch.bincount(draws, minlength=CHI2_CATEGORIES).cpu()
+        p = float(chisquare(counts.double().numpy(),
+                            expected.numpy()).pvalue)
+        need(p > CHI2_MIN_P, f"categorical on the card ({name}): "
+             f"chi-square p {p:.2e} <= {CHI2_MIN_P}")
+        out[name] = p
+    say(f"  threefry golden values bit-exact on the card; categorical "
+        f"chi-square p over {CHI2_DRAWS} draws of {CHI2_CATEGORIES}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def sampled_margin(torch, ref, gen, noise, mode):
+    """The phase-6 margin rule on the sampled draw: the scores are the
+    float32 CPU logits ``ref`` [n, V] filtered as the card filtered them,
+    plus ``noise`` [n, V], the gumbel draws of the card's keys."""
+    from tfmesos_tpu_torch.models import transformer as tt
+
+    f = tt.filter_logits(ref, mode["temperature"], mode.get("top_k"),
+                         mode.get("top_p"))
+    return margin_check(torch, f + noise, gen, "sampled teacher-forced")
+
+
+def phase_sampled(torch, reqs):
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.ops import prng
+    from tfmesos_tpu_torch.serving import ContinuousBatcher
+
+    say("[13/13] sampled serving and generation: phase 5's traffic at "
+        "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
+        "int8 generate at temperature 0.8")
+    out = {"chi2_p": check_prng(torch)}
+    cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = _to(params, "cpu")
+    qparams = tt.quantize_params(cfg, params)
+    seed = 7
+    for name, weights, int8 in (("bf16", params, False),
+                                ("int8", qparams, True)):
+        for mode in SAMPLED_MODES:
+            label = f"serve {name} " + ", ".join(
+                f"{k} {v}" for k, v in mode.items())
+            runs = {}
+            for eager in (False, True):
+                b = ContinuousBatcher(cfg, weights, rows=8, page_size=64,
+                                      prefill_bucket=64, rid_seed=0,
+                                      rng=prng.PRNGKey(seed, "cuda"),
+                                      quantized_cache=int8, device="cuda",
+                                      **mode)
+                b._graphs.eager = eager
+                b.warmup()          # eager: the same calls, no capture
+                runs[eager] = serve_run(torch, cfg, b, reqs, int8)
+            (comps, stats), (eager_comps, eager_stats) = runs[False], \
+                runs[True]
+            need(streams(comps) == streams(eager_comps),
+                 f"{label}: graphed and eager streams differ")
+            checked = positions = 0
+            for c in sorted(comps, key=lambda c: c.rid)[:2]:
+                prompt = [int(x) for x in c.request.prompt]
+                gen = torch.tensor(c.tokens)
+                if int8:
+                    ref = cpu_logits_int8(torch, cfg, qparams,
+                                          torch.tensor([prompt]),
+                                          gen[None])[0]
+                else:
+                    seq = torch.tensor([prompt + c.tokens[:-1]])
+                    with torch.no_grad():
+                        ref = tt.forward(cpu_cfg, cpu_params, seq)[
+                            0, len(prompt) - 1:].float()
+                keys = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), c.rid),
+                                    torch.arange(len(c.tokens)))
+                noise = prng.gumbel(keys, (cfg.vocab_size,))
+                ch, _, n = sampled_margin(torch, ref, gen, noise, mode)
+                checked, positions = checked + ch, positions + n
+            need(checked >= MIN_CHECKED, f"{label}: only {checked} "
+                 f"positions above the margin (need {MIN_CHECKED})")
+            row = {"graphed": stats, "eager": eager_stats,
+                   "streams_identical": True, "margin_checked": checked,
+                   "positions": positions}
+            say(f"  {label}: " + json.dumps(row))
+            out[label] = row
+    out["generate"] = sampled_generate(torch, cfg, qparams)
+    return out
+
+
+def sampled_generate(torch, cfg, qparams):
+    """int8 generate at temperature 0.8 (batch 8, prompt 128, 64 new
+    tokens, key PRNGKey(3)): graphed against eager, exact launch counts,
+    and the margin rule against the float32 CPU run under the
+    reference's key schedule (one split before the first token, one a
+    step; one key for the batch's [B, V] draw)."""
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.ops import prng
+
+    batch, plen, new, seed = 8, 128, 64, 3
+    mode = {"temperature": 0.8}
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(6)).cuda()
+    cache_len = plen + new
+
+    def run(n=new, eager=False):
+        with torch.no_grad():
+            return tt.generate(cfg, qparams, prompt, n,
+                               rng=prng.PRNGKey(seed, "cuda"),
+                               quantized_cache=True, _eager=eager, **mode)
+
+    run(4)
+    zero_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    L = cfg.n_layers
+    merges = L * (new - 1) if decode_splits(cfg, batch, cache_len) > 1 \
+        else 0
+    want = {"quant_int8": 0, "quant_int8_commit": L * new, "flash_fwd": L,
+            "flash_decode": L * (new - 1), "flash_decode_merge": merges,
+            "flash_decode_paged": 0, "flash_decode_paged_merge": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    need(launches == want, f"sampled generate launches {launches} != "
+         f"{want}")
+    whole, pre, tok_s, step_ms = _generate_rate(
+        torch, run, lambda: run(1), new, batch)
+    eager = generate_eager(torch, run, out, want, new, batch)
+    gen = out[:, plen:].cpu().long()
+    ref = cpu_logits_int8(torch, cfg, qparams, prompt, gen)
+    rng, noise = prng.PRNGKey(seed), []
+    for _ in range(new):
+        keys = prng.split(rng)
+        rng = keys[0]
+        noise.append(prng.gumbel(keys[1], (batch, cfg.vocab_size)))
+    checked, _, positions = sampled_margin(
+        torch, ref.reshape(-1, cfg.vocab_size), gen.reshape(-1),
+        torch.stack(noise, 1).reshape(-1, cfg.vocab_size), mode)
+    need(checked >= MIN_CHECKED, f"sampled generate: only {checked} "
+         f"positions above the margin (need {MIN_CHECKED})")
+    stats = {"batch": batch, "prompt": plen, "new_tokens": new,
+             "run_s": whole, "prefill_s": pre, "decode_tok_per_s": tok_s,
+             "ms_per_step": step_ms, "launches": launches,
+             "margin_checked": checked, "positions": positions,
+             "eager": eager}
+    say("  generate int8, temperature 0.8: " + json.dumps(stats))
     return stats
 
 
@@ -1967,11 +2237,16 @@ def main() -> int:
     gen8 = phase_generate_int8(torch)
     gen_long = phase_generate_long(torch)
     serve8 = phase_serve_int8(torch, np, reqs)
+    sampled = phase_sampled(torch, reqs)
 
     paths = {"serve": stats["launches"], "train": train["launches"],
              "generate_int8": gen8["launches"],
              "generate_long": gen_long["launches"],
-             "serve_int8": serve8["launches"]}
+             "serve_int8": serve8["launches"],
+             "generate_int8_sampled": sampled["generate"]["launches"],
+             **{f"{label} (graphed)": row["graphed"]["launches"]
+                for label, row in sampled.items()
+                if label.startswith("serve")}}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

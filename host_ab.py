@@ -44,13 +44,20 @@ on both trees alike.  Nothing of JAX is imported.
 * ``generate_ms``: per round, ms a decode step of the flagship's greedy
   generate, prefill excluded (a run of N new tokens less a one-token
   run, over N - 1 steps): int8 weights and cache at batch 8, prompt 128,
-  N 64; bf16 over a 16384-slot cache at batch 4, prompt 1024, N 32;
+  N 64; bf16 over a 16384-slot cache at batch 4, prompt 1024, N 32; and
+  the int8 run sampled at temperature 0.8 (key ``PRNGKey(2)``);
 * ``serve_ms``: per round, ms a decode tick of the flagship's
   ``ContinuousBatcher`` (rows 8, page 64, prefill bucket 64) on
   chip_smoke's phase-5 traffic (16 seeded requests, prompts of 8..700
   tokens, 32 new tokens each; ``--serve-requests`` cuts it), the
   batcher's own decode seconds over its decode ticks, bf16 and in the
-  full int8 configuration (int8 weights and page pool);
+  full int8 configuration (int8 weights and page pool), and bf16
+  sampled at temperature 0.8;
+* both call each tree's own entry points as a user does
+  (``ContinuousBatcher.run``, ``generate``), so a tree that replays CUDA
+  graphs is measured graphed and one that runs eagerly, eagerly; a
+  sampled variant runs only on a tree whose entry point takes
+  ``top_k`` (sampling), and is reported for that tree alone;
 * ``train_ms``: per round, ms a step of the flagship's training step
   (``transformer_train``'s setup: B 8, T 2048, AdamW) over 5 steps with
   the batch already on the card, ending in the loss read back.
@@ -68,6 +75,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -128,13 +136,20 @@ def active(p: SimpleNamespace):
 
 
 def alternate(rounds: int, measure, fns):
-    """``measure(fns[label])`` for A and B in every round, the order
-    flipping each round; returns {label: [values]}."""
-    out = {"A": [], "B": []}
+    """``measure(fns[label])`` for A and B (those of the two that ``fns``
+    holds) in every round, the order flipping each round; returns
+    {label: [values]}."""
+    out = {label: [] for label in ("A", "B") if label in fns}
     for r in range(rounds):
         for label in (("A", "B") if r % 2 == 0 else ("B", "A")):
-            out[label].append(measure(fns[label]))
+            if label in fns:
+                out[label].append(measure(fns[label]))
     return out
+
+
+def samples(p: SimpleNamespace) -> bool:
+    """Whether tree ``p``'s entry points take sampling arguments."""
+    return "top_k" in inspect.signature(p.tt.generate).parameters
 
 
 def enqueue_us(torch, fn, n: int = 200) -> float:
@@ -334,12 +349,15 @@ def servers(torch, np, p: SimpleNamespace, n_requests: int) -> dict:
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens][:n_requests]
     Request = p.serving.Request
     out = {}
-    for name, weights, int8 in (
-            ("bf16", params, False),
-            ("int8", p.tt.quantize_params(cfg, params), True)):
+    runs = [("bf16", params, False, {}),
+            ("int8", p.tt.quantize_params(cfg, params), True, {})]
+    if samples(p):
+        runs.append(("bf16 sampled T 0.8", params, False,
+                     {"temperature": 0.8}))
+    for name, weights, int8, sampling in runs:
         batcher = p.serving.ContinuousBatcher(
             cfg, weights, rows=8, page_size=64, prefill_bucket=64,
-            quantized_cache=int8, device="cuda")
+            quantized_cache=int8, device="cuda", **sampling)
 
         def run(batcher=batcher):
             batcher.decode_ticks = 0
@@ -364,11 +382,18 @@ def generators(torch, p: SimpleNamespace) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (4, 1024),
                            generator=torch.Generator().manual_seed(5)).cuda()
     cache = p.tt.init_cache(cfg, 4, 16384, device="cuda")
-    return {
+    out = {
         "int8 generate, batch 8": (64, lambda n: p.tt.generate(
             cfg8, qparams, prompt8, n, quantized_cache=True)),
         "bf16 long-context generate, batch 4": (32, lambda n: p.tt.generate(
             cfg, params, prompt, n, cache=cache))}
+    if samples(p):
+        key = p.modules[f"{PKG}.ops.prng"].PRNGKey(2, "cuda")
+        out["int8 generate sampled T 0.8, batch 8"] = (
+            64, lambda n: p.tt.generate(cfg8, qparams, prompt8, n, rng=key,
+                                        temperature=0.8,
+                                        quantized_cache=True))
+    return out
 
 
 def trainer(torch, p: SimpleNamespace):
@@ -403,13 +428,16 @@ def build(root: Path) -> subprocess.Popen:
 
 
 def summary(group: str, key: str, vals: dict) -> str:
-    diffs = [b - a for a, b in zip(vals["A"], vals["B"])]
     fmt = {"host_us": "{:.1f}", "device_ms": "{:.4f}"}.get(group, "{:.2f}")
-    return (f"{group} {key}: A median {fmt.format(statistics.median(vals['A']))}"
-            f" min {fmt.format(min(vals['A']))} | B median "
-            f"{fmt.format(statistics.median(vals['B']))} min "
-            f"{fmt.format(min(vals['B']))} | B - A per round, median "
-            f"{fmt.format(statistics.median(diffs))}")
+    parts = [f"{label} median {fmt.format(statistics.median(v))} min "
+             f"{fmt.format(min(v))}" for label, v in vals.items()]
+    if len(vals) == 2:
+        diffs = [b - a for a, b in zip(vals["A"], vals["B"])]
+        parts.append(f"B - A per round, median "
+                     f"{fmt.format(statistics.median(diffs))}")
+    else:
+        parts.append("the other tree does not sample")
+    return f"{group} {key}: " + " | ".join(parts)
 
 
 def main() -> int:
@@ -481,9 +509,10 @@ def main() -> int:
     with torch.no_grad():
         if "generate_ms" in todo:
             gens = {label: generators(torch, p) for label, p in pkgs.items()}
-            for key in gens["A"]:
-                new = gens["A"][key][0]
-                fns = {label: gens[label][key][1] for label in gens}
+            for key in dict.fromkeys([*gens["A"], *gens["B"]]):
+                fns = {label: gens[label][key][1] for label in gens
+                       if key in gens[label]}
+                new = next(gens[label][key][0] for label in fns)
                 for fn in fns.values():
                     fn(new)                                    # warm-up
                 results["generate_ms"][key] = alternate(
@@ -497,9 +526,9 @@ def main() -> int:
 
             serves = {label: servers(torch, np, p, args.serve_requests)
                       for label, p in pkgs.items()}
-            for key in serves["A"]:
-                fns = warmed({label: serves[label][key] for label in serves},
-                             1)
+            for key in dict.fromkeys([*serves["A"], *serves["B"]]):
+                fns = warmed({label: serves[label][key] for label in serves
+                              if key in serves[label]}, 1)
                 results["serve_ms"][key] = alternate(
                     max(2, args.rounds // 4), lambda fn: fn(), fns)
                 print(summary("serve_ms", key, results["serve_ms"][key]),

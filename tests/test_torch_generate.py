@@ -186,8 +186,10 @@ def test_generate_refusals(models):
     _, tcfg, params = models
     tp = params[False][1]
     prompt = _t(_prompt())
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tt.generate(tcfg, tp, prompt, 4, temperature=0.8)
+    with pytest.raises(ValueError, match="top_k"):
+        tt.generate(tcfg, tp, prompt, 4, temperature=0.8, top_k=0)
+    with pytest.raises(ValueError, match="top_p"):
+        tt.generate(tcfg, tp, prompt, 4, temperature=0.8, top_p=1.5)
     with pytest.raises(ValueError, match="positions"):
         tt.generate(tcfg, tp, prompt, 8, cache=tt.init_cache(tcfg, 2, 12))
     with pytest.raises(NotImplementedError, match="rolling"):

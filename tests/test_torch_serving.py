@@ -74,9 +74,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_sampling_is_refused_until_ported():
+    """Sampling is ported (tests/test_torch_sampling.py): temperature > 0
+    is served, and only the reference's own argument checks refuse."""
     cfg, params = presets.tiny_model()
-    with pytest.raises(NotImplementedError):
-        ts.ContinuousBatcher(cfg, params, temperature=0.7, device="cpu")
+    b = ts.ContinuousBatcher(cfg, params, temperature=0.7, device="cpu",
+                             **KW)
+    done = list(b.run([ts.Request(np.arange(5), 3)]))
+    assert len(done) == 1 and len(done[0].tokens) == 3
+    with pytest.raises(ValueError, match="top_k"):
+        ts.ContinuousBatcher(cfg, params, temperature=0.7, top_k=0,
+                             device="cpu")
+    with pytest.raises(ValueError, match="top_p"):
+        ts.ContinuousBatcher(cfg, params, temperature=0.7, top_p=0.0,
+                             device="cpu")
 
 
 def test_online_submit_serve_close_matches_run():

@@ -1,12 +1,17 @@
-"""Greedy autoregressive generation on the flagship transformer with a
-linear KV cache (port of ``examples/generate.py``, greedy).
+"""Autoregressive generation on the flagship transformer with a linear
+KV cache (port of ``examples/generate.py``).
 
     python -m tfmesos_tpu_torch.generate [--tiny] [--device cpu] \\
         [--batch 2] [--prompt-len 32] [--new-tokens 64] [--seed 0] \\
+        [--temperature 0.8] [--top-k K] [--top-p P] \\
         [--int8] [--int8-kv] [--ragged]
 
 Prefills a seeded random prompt batch once, then one decode step per
-token (:func:`~tfmesos_tpu_torch.models.transformer.generate`).
+token (:func:`~tfmesos_tpu_torch.models.transformer.generate`; on the
+card the step replays a CUDA graph).  Tokens are drawn at
+``--temperature`` (0 is greedy) from the ``--top-k`` / ``--top-p``
+filtered distribution with the threefry key ``PRNGKey(seed + 2)``, as
+the JAX example draws them.
 ``--int8`` serves weight-only int8 params (``quantize_params``),
 ``--int8-kv`` stores the KV cache as int8 (per-position absmax); both
 together are the full int8 serving configuration.  ``--ragged`` serves
@@ -30,6 +35,10 @@ def main(argv=None) -> int:
     p.add_argument("--prompt-len", type=int, default=32, dest="prompt_len")
     p.add_argument("--new-tokens", type=int, default=64, dest="new_tokens")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--temperature", type=float, default=0.8,
+                   help="sampling temperature (0: greedy)")
+    p.add_argument("--top-k", type=int, default=None, dest="top_k")
+    p.add_argument("--top-p", type=float, default=None, dest="top_p")
     p.add_argument("--tiny", action="store_true",
                    help="a 2-layer float32 model instead of the flagship")
     p.add_argument("--int8", action="store_true",
@@ -50,6 +59,7 @@ def main(argv=None) -> int:
     from tfmesos_tpu_torch.models.transformer import (TransformerConfig,
                                                       generate, init_params,
                                                       quantize_params)
+    from tfmesos_tpu_torch.ops.prng import PRNGKey
 
     device = resolve_device(args.device)
     max_len = args.prompt_len + args.new_tokens
@@ -79,7 +89,9 @@ def main(argv=None) -> int:
     def run():
         with torch.no_grad():
             return generate(cfg, params, prompt, args.new_tokens,
-                            quantized_cache=args.int8_kv,
+                            rng=PRNGKey(args.seed + 2, device),
+                            temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, quantized_cache=args.int8_kv,
                             prompt_lens=prompt_lens)
 
     run()                                       # build + warm up

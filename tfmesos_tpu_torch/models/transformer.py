@@ -1,8 +1,8 @@
 """Flagship decoder-only transformer, single device (port of
 ``tfmesos_tpu/models/transformer.py``: config, params and int8 weights
 ``:42-262``, the trunk ``:581-743``, linear and paged caches and decode
-``:746-1076, 1248-1560``, greedy ``generate`` ``:1603-1774``, the
-training loss ``:2103-2176``).
+``:746-1076, 1248-1560``, sampling and ``generate`` ``:1563-1774``,
+the training loss ``:2103-2176``).
 
 Same parameter dict as the JAX package — stacked per-layer leaves
 ``layers/<name>`` of shape [L, ...] — with the same shapes and init
@@ -39,6 +39,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tfmesos_tpu_torch import graphs
+from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.attention import (_dequant_lane_major,
                                              flash_attention, flash_decode,
                                              flash_decode_paged)
@@ -445,7 +447,7 @@ def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
     :func:`~tfmesos_tpu_torch.ops.quant.commit_int8` (one
     ``quant_int8.cu`` launch on the card), reading the rows' starts from
     the device tensor ``start`` [B]; a plain one takes two indexed
-    writes at ``pos`` (an int, or [B] for ragged rows)."""
+    writes at ``pos`` (the prefill's int 0, else [B] on the device)."""
     if isinstance(cache["k"], QTensor):
         commit_int8(cache["k"], cache["v"], [k], [v], start, layer=li)
         return
@@ -524,20 +526,26 @@ def decode_step(cfg: TransformerConfig, params: Params,
     """Advance decoding by a token chunk.
 
     ``tokens``: [B, t]; ``pos``: first global position of the chunk — a
-    python int (0 = prefill from empty) or a [B] tensor of ragged
-    per-row positions.  ``cache``: a LINEAR cache ``{"k", "v"}``
-    (:func:`init_cache`; each layer writes its chunk, then attends) or a
-    PAGED one ``{"k", "v", "pages"}`` with stacked pools
-    [L, P, KV, page, D] and the page table [B, NP] (one commit of every
-    layer's chunk after the layer loop).  Either is plain or int8.
-    Returns (logits [B, t, V], cache); the buffers update IN PLACE."""
+    [B] tensor of per-row positions (a 0-d tensor or an int for every
+    row alike; a python int 0 with t > 1 is a prefill from empty).
+    Every other chunk reads its positions from a device tensor, so a
+    captured step replays at whatever position its buffer holds.
+    ``cache``: a LINEAR cache ``{"k", "v"}`` (:func:`init_cache`; each
+    layer writes its chunk, then attends) or a PAGED one ``{"k", "v",
+    "pages"}`` with stacked pools [L, P, KV, page, D] and the page table
+    [B, NP] (one commit of every layer's chunk after the layer loop).
+    Either is plain or int8.  Returns (logits [B, t, V], cache); the
+    buffers update IN PLACE."""
     b, t = tokens.shape
     dev = tokens.device
     offs = torch.arange(t, device=dev)
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        positions = pos.to(dev).long()[:, None] + offs[None]
+    if isinstance(pos, int) and pos == 0 and t > 1:
+        positions = offs.expand(b, t)
     else:
-        positions = (int(pos) + offs).expand(b, t)
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((b,), int(pos), dtype=torch.long, device=dev)
+        pos = pos.to(dev).long().reshape(-1).expand(b)
+        positions = pos[:, None] + offs[None]
     x = _embed_lookup(params["embed"], tokens, cfg.dtype)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
@@ -556,19 +564,58 @@ def decode_step(cfg: TransformerConfig, params: Params,
 # -- generation ----------------------------------------------------------------
 
 
-def _check_greedy(temperature: float) -> None:
-    if temperature > 0.0:
-        raise NotImplementedError("sampling (temperature > 0) is not "
-                                  "ported yet; generation is greedy")
+def _check_sampling_args(top_k: Optional[int], top_p: Optional[float]):
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
 
-def sample_logits(logits: torch.Tensor, temperature: float = 0.0
-                  ) -> torch.Tensor:
-    """Token ids from ``logits`` [..., V]: greedy (the float32 argmax)
-    when ``temperature <= 0``.  Sampling needs the JAX package's
-    threefry bits to match its streams and is not ported yet."""
-    _check_greedy(temperature)
-    return torch.argmax(logits.float(), dim=-1)
+def filter_logits(logits: torch.Tensor, temperature: float = 1.0,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """Temperature-scale ``logits`` [..., V] in float32 and mask to -inf
+    everything outside the ``top_k`` highest logits and/or the ``top_p``
+    nucleus (the JAX ``filter_logits``): top-k keeps what is not below
+    the k-th value; top-p sorts descending and keeps each token whose
+    PRECEDING softmax mass is < ``top_p`` (so the argmax always
+    survives).  Static shapes throughout (``topk``, ``sort``, masks), so
+    a CUDA graph can hold it.  Requires ``temperature > 0``."""
+    if temperature <= 0.0:
+        raise ValueError("filter_logits needs temperature > 0 (greedy "
+                         "sampling has no distribution to filter)")
+    _check_sampling_args(top_k, top_p)
+    # A tensor divisor: PyTorch's CUDA division by a python scalar
+    # multiplies by its reciprocal, one ulp off the reference.
+    x = logits.float() / torch.full((), float(np.float32(temperature)),
+                                    dtype=torch.float32,
+                                    device=logits.device)
+    if top_k is not None and top_k < x.shape[-1]:
+        kth = torch.topk(x, top_k, dim=-1).values[..., -1:]
+        x = x.masked_fill(x < kth, float("-inf"))
+    if top_p is not None and top_p < 1.0:
+        ordered = torch.sort(x, dim=-1, descending=True).values
+        probs = torch.softmax(ordered, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        threshold = torch.where(keep, ordered, float("inf")).amin(
+            dim=-1, keepdim=True)
+        x = x.masked_fill(x < threshold, float("-inf"))
+    return x
+
+
+def sample_logits(logits: torch.Tensor, key: Optional[torch.Tensor],
+                  temperature: float = 1.0, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """Token ids from ``logits`` [..., V] (the JAX ``sample_logits``):
+    the float32 argmax when ``temperature <= 0`` (``key`` unused), else
+    a categorical draw from :func:`filter_logits` with the threefry
+    ``key`` (``ops/prng.py``): one [2] key for the whole batch, or a key
+    a row ([B, 2] for logits [B, V], the reference's ``vmap``)."""
+    if temperature <= 0.0:
+        _check_sampling_args(top_k, top_p)
+        return torch.argmax(logits.float(), dim=-1)
+    filtered = filter_logits(logits, temperature, top_k, top_p)
+    return prng.categorical(key, filtered, axis=-1)
 
 
 def _prefill(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
@@ -601,16 +648,29 @@ def _prefill(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
     return decode_step(cfg, params, cache, prompt, prefix.shape[0])
 
 
+@torch.no_grad()
 def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
-             max_new_tokens: int, temperature: float = 0.0,
-             quantized_cache: bool = False, prompt_lens=None, prefix=None,
-             stop_token: Optional[int] = None, cache=None) -> torch.Tensor:
-    """Greedy autoregressive generation (counterpart of the JAX
-    ``generate``): prefill the prompt in one pass, then one
-    :func:`decode_step` per token over a linear KV cache
-    (:func:`init_cache`; ``quantized_cache`` stores it int8 — with
-    :func:`quantize_params` weights the full int8 serving
-    configuration).  Runs where ``prompt`` and ``params`` live.
+             max_new_tokens: int, rng: Optional[torch.Tensor] = None,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None, quantized_cache: bool = False,
+             prompt_lens=None, prefix=None,
+             stop_token: Optional[int] = None, cache=None,
+             _eager: bool = False) -> torch.Tensor:
+    """Autoregressive generation (counterpart of the JAX ``generate``):
+    prefill the prompt in one pass, then one :func:`decode_step` per
+    token over a linear KV cache (:func:`init_cache`; ``quantized_cache``
+    stores it int8 — with :func:`quantize_params` weights the full int8
+    serving configuration); greedy, or temperature / top-k / top-p
+    sampling (:func:`sample_logits`) with the reference's key schedule:
+    ``rng`` (a threefry key, ``ops/prng.py``; default ``PRNGKey(0)``) is
+    split once before the first token and once a step.  Runs where
+    ``prompt`` and ``params`` live.
+
+    On the card the step is a CUDA graph (``graphs.py``): it runs
+    eagerly once, is captured, and is replayed for the remaining steps,
+    advancing its token, position, key and output column in the graph
+    (no graph is kept across calls; ``_eager`` is a diagnostic that
+    runs every step eagerly).
 
     ``prompt``: [B, Tp] token ids.  Returns [B, Tp + max_new_tokens]
     ([B, T0 + Tp + max_new_tokens] with a ``prefix``).  ``prompt_lens``
@@ -619,8 +679,8 @@ def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
     entries are padding, 0).  ``prefix`` ([T0]) is a shared prompt
     prefix, prefilled once at batch 1.  ``stop_token``: rows that emit
     it freeze (their tail fills with it) and decoding stops once every
-    row has.  ``cache``: a caller-managed linear or paged cache that
-    backs every position of the run."""
+    row has (one host sync a step).  ``cache``: a caller-managed linear
+    or paged cache that backs every position of the run."""
     b, tp = prompt.shape
     t0 = 0 if prefix is None else prefix.shape[0]
     dev = prompt.device
@@ -628,53 +688,66 @@ def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
         if prefix is None:
             return prompt
         return torch.cat([prefix.to(prompt.dtype).expand(b, t0), prompt], 1)
-    _check_greedy(temperature)
-    tokens = prompt.long()
+    _check_sampling_args(top_k, top_p)
     if cache is not None and _cache_logical_len(
             cache["k"], cache.get("pages")) < tp + max_new_tokens - 1:
         raise ValueError(f"generate: the cache holds "
                          f"{_cache_logical_len(cache['k'], cache.get('pages'))}"
                          f" positions; the run needs "
                          f"{tp + max_new_tokens - 1}")
+    rng = prng.PRNGKey(0, dev) if rng is None else rng.to(dev).long()
+
+    def sample(logits, key):
+        return sample_logits(logits, key, temperature, top_k, top_p)
+
     logits, cache = _prefill(
-        cfg, params, tokens, t0 + tp + max_new_tokens,
+        cfg, params, prompt.long(), t0 + tp + max_new_tokens,
         quantized=quantized_cache,
         prefix=None if prefix is None else prefix.to(dev).long(),
         cache=cache)
+    keys = prng.split(rng)
     if prompt_lens is None:
         next_logits = logits[:, -1]
-        pos: Union[int, torch.Tensor] = t0 + tp
+        pos = torch.full((b,), t0 + tp, dtype=torch.long, device=dev)
     else:
         lens = torch.as_tensor(prompt_lens, device=dev).long()
         # Row i's next token follows its LAST REAL token, not the padding.
         next_logits = logits[torch.arange(b, device=dev), lens - 1]
         pos = t0 + lens
-    tok = sample_logits(next_logits)
-    if stop_token is None:
-        toks = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = decode_step(cfg, params, cache, tok[:, None], pos)
-            tok = sample_logits(logits[:, -1])
-            toks.append(tok)
-            pos = pos + 1
-        generated = torch.stack(toks, dim=1)
-    else:
-        # The real token keeps feeding the model — only the recorded
-        # output freezes — so tokens up to each row's first stop equal a
-        # stop-free run; one host sync per step decides the early exit.
-        generated = torch.full((b, max_new_tokens), int(stop_token),
-                               dtype=tok.dtype, device=dev)
-        generated[:, 0] = tok
-        done = tok == stop_token
-        i = 0
-        while i < max_new_tokens - 1 and not bool(done.all()):
-            logits, cache = decode_step(cfg, params, cache, tok[:, None], pos)
-            nxt = sample_logits(logits[:, -1])
-            generated[:, i + 1] = torch.where(done, generated[:, i + 1], nxt)
-            done = done | (nxt == stop_token)
-            tok = nxt
-            pos = pos + 1
-            i += 1
+    tok = sample(next_logits, keys[1])
+    # The step's static buffers: the token it feeds, its position, the
+    # key, the output and the index of the column it writes.  The real
+    # token keeps feeding the model after a stop — only the recorded
+    # output freezes — so tokens up to each row's first stop equal a
+    # stop-free run.
+    rng = keys[0].clone()
+    generated = torch.full((b, max_new_tokens),
+                           0 if stop_token is None else int(stop_token),
+                           dtype=torch.long, device=dev)
+    generated[:, 0] = tok
+    col = torch.zeros((1,), dtype=torch.long, device=dev)
+    done = None if stop_token is None else tok == stop_token
+
+    def step():
+        logits, _ = decode_step(cfg, params, cache, tok[:, None], pos)
+        keys = prng.split(rng)
+        nxt = sample(logits[:, -1], keys[1])
+        rng.copy_(keys[0])
+        rec = nxt
+        if done is not None:
+            rec = nxt.masked_fill(done, int(stop_token))
+            done.logical_or_(nxt == stop_token)
+        col.add_(1)
+        generated.index_copy_(1, col, rec[:, None])
+        tok.copy_(nxt)
+        pos.add_(1)
+
+    steps = graphs.StepGraphs(dev)
+    steps.eager = steps.eager or _eager
+    for _ in range(max_new_tokens - 1):
+        if done is not None and bool(done.all()):
+            break
+        steps.run("step", step)
     generated = generated.to(prompt.dtype)
     lead = ([prefix.to(prompt.dtype).expand(b, t0)]
             if prefix is not None else [])

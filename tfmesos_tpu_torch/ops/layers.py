@@ -41,8 +41,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # A fill, not a host-to-device copy: a CUDA graph can capture it.
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     angles = positions[..., None].to(torch.float32) * freqs   # [..., T, half]
     cos = torch.cos(angles)[..., None, :]                     # over heads
     sin = torch.sin(angles)[..., None, :]

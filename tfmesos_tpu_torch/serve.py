@@ -1,9 +1,9 @@
-"""Continuous-batching greedy serving of the seeded synthetic workload
-(port of ``examples/serve.py --continuous``, greedy).
+"""Continuous-batching serving of the seeded synthetic workload (port
+of ``examples/serve.py --continuous``).
 
     python -m tfmesos_tpu_torch.serve [--tiny] [--device cpu] \\
         [--batch 8] [--n-prompts 24] [--new-tokens 32] [--seed 0] \\
-        [--int8] [--int8-kv]
+        [--temperature 0.0] [--warmup] [--int8] [--int8-kv]
 
 Prompts of 4..32 random tokens (seeded) go through
 :class:`~tfmesos_tpu_torch.serving.ContinuousBatcher` with ``--batch``
@@ -12,7 +12,11 @@ concurrent rows; each completion is written as one JSON line
 stderr.  Weights are random from ``--seed`` (the flagship
 config by default, ``--tiny`` for the CI model).  ``--int8`` serves
 weight-only int8 params (``quantize_params``), ``--int8-kv`` keeps the
-page pool int8.  Runs on the card unless ``--device cpu``.
+page pool int8.  ``--temperature`` above 0 samples (the batcher's
+per-row threefry keys); ``--warmup`` runs ``ContinuousBatcher.warmup``
+before the stream starts (on the card: every decode width's CUDA graph
+captured ahead of the first request).  Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ def main(argv=None) -> int:
     p.add_argument("--n-prompts", type=int, default=24, dest="n_prompts")
     p.add_argument("--new-tokens", type=int, default=32, dest="new_tokens")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--warmup", action="store_true",
+                   help="capture every decode width's graph and prefill "
+                        "every prompt width before the stream starts "
+                        "(ContinuousBatcher.warmup)")
     p.add_argument("--int8", action="store_true",
                    help="serve weight-only int8 params (quantize_params)")
     p.add_argument("--int8-kv", action="store_true", dest="int8_kv",
@@ -58,6 +67,7 @@ def main(argv=None) -> int:
                for _ in range(args.n_prompts)]
     batcher = ContinuousBatcher(cfg, params, rows=args.batch, page_size=64,
                                 prefill_bucket=64,
+                                temperature=args.temperature,
                                 quantized_cache=args.int8_kv, device=device)
     reqs = [Request(prompt=t, max_new_tokens=args.new_tokens)
             for t in prompts]
@@ -67,6 +77,10 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"serve: {e}", file=sys.stderr)
             return 1
+    if args.warmup:
+        info = batcher.warmup()
+        print(f"warmed {len(info['compiled'])} entry points in "
+              f"{info['seconds']:.1f}s", file=sys.stderr)
     served = 0
     t0 = time.perf_counter()
     for c in batcher.run(reqs):

@@ -1,9 +1,10 @@
-"""Continuous batching over the paged KV cache — the greedy core (port
+"""Continuous batching over the paged KV cache — the base loop (port
 of ``tfmesos_tpu/serving.py``: ``Request``/``Completion``/``_Row``
 ``:256-330, 444-525``, ``_PagedSide`` ``:603-776``, the
 ``ContinuousBatcher`` base loop ``:3799-4163``, uncached admission
-``:4210-4284``, the prefill and decode calls ``:2101-2197,
-2472-2540`` and the decode tick ``:4539-4586``).
+``:4210-4284``, the prefill and decode calls and per-row sampling keys
+``:2101-2197, 2472-2540``, ``warmup`` ``:2700-2760`` and the decode
+tick ``:4539-4586``).
 
 A persistent page pool plus an admission loop that feeds new prompts
 into a RUNNING batched decode: rows free on stop token or quota,
@@ -13,30 +14,40 @@ page count against the pool up front while pages are backed
 incrementally as the row grows, so memory use tracks live tokens and
 mid-flight pool exhaustion is impossible by construction.
 
-Greedy streams are the JAX batcher's: the same admission order,
-padding buckets, page tables (inactive rows write to a reserved sink
-page) and argmax.  Each prompt-width prefill and each table-width
-decode tick is a plain eager call; on the card every layer of either
-launches the hand-written attention kernel (``ops/attention.py``).
+Streams are the JAX batcher's: the same admission order, padding
+buckets, page tables (inactive rows write to a reserved sink page) and
+argmax, or with ``temperature > 0`` the same draws (each row's key is
+``fold_in(fold_in(rng, rid), step)``, threefry in ``ops/prng.py``).
+Each prompt-width prefill is an eager call.  On the card each
+table-width decode tick is a CUDA graph (``graphs.py``), captured at
+:meth:`ContinuousBatcher.warmup` or at the width's first tick and
+replayed after: the tick copies its inputs in one host-to-device copy,
+replays, and syncs once for its tokens.  Every layer of either launches
+the hand-written attention kernel (``ops/attention.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue as _queue
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tfmesos_tpu_torch.device import resolve_device
+from tfmesos_tpu_torch.graphs import StepGraphs
 from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
                                                   TransformerConfig,
+                                                  _check_sampling_args,
                                                   decode_step,
-                                                  init_paged_cache)
+                                                  init_paged_cache,
+                                                  sample_logits)
+from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.quant import QTensor
 
 __all__ = ["Request", "Completion", "ContinuousBatcher", "SubmissionQueue"]
@@ -216,12 +227,17 @@ class _PagedSide:
 
 class ContinuousBatcher:
     """Admit a stream of :class:`Request` s into a persistent paged
-    decode of ``rows`` concurrent sequences (greedy).
+    decode of ``rows`` concurrent sequences.
 
     ``n_pages`` sizes the pool (default: fully backs ``rows x
     max_len`` plus the sink page); prompts pad up to a multiple of
-    ``prefill_bucket``; ``rid_seed`` is the first request id.  Runs on
-    the card unless ``device="cpu"`` (no card and no ``device`` raises).
+    ``prefill_bucket``; ``rid_seed`` is the first request id.
+    ``temperature`` 0 is greedy; above it every token is drawn from
+    ``sample_logits`` (with ``top_k`` / ``top_p``) under the row's key
+    ``fold_in(fold_in(rng, rid), step)`` (``rng`` a threefry key,
+    default ``PRNGKey(0)``; the prefill's token is step 0).  Runs on
+    the card unless ``device="cpu"`` (no card and no ``device`` raises);
+    on the card the decode ticks replay CUDA graphs (:meth:`warmup`).
     ``params`` are the float32 masters or a ``quantize_params`` tree;
     the batcher keeps a copy cast once to the compute dtype (the model
     casts every weight and int8 scale at use, so the bits are the same).
@@ -237,17 +253,16 @@ class ContinuousBatcher:
     def __init__(self, cfg: TransformerConfig, params: Params, rows: int = 8,
                  max_len: Optional[int] = None, page_size: int = 64,
                  n_pages: Optional[int] = None, prefill_bucket: int = 64,
-                 temperature: float = 0.0, rid_seed: int = 0,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 rng: Optional[torch.Tensor] = None, rid_seed: int = 0,
                  quantized_cache: bool = False, device=None):
         if rows < 1:
             raise ValueError(f"rows must be >= 1, got {rows}")
         if not 0 <= int(rid_seed) < 2 ** 30:
             raise ValueError(f"rid_seed must be in [0, 2^30), got "
                              f"{rid_seed}")
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampled serving (temperature > 0) is not ported yet; "
-                "the batcher serves greedy")
+        _check_sampling_args(top_k, top_p)
         if prefill_bucket < 1:
             raise ValueError(f"prefill_bucket must be >= 1, got "
                              f"{prefill_bucket}")
@@ -264,6 +279,10 @@ class ContinuousBatcher:
         self.n_pages = int(n_pages or self.rows * self.np_max + 1)
         self.prefill_bucket = int(prefill_bucket)
         self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self._rng = (prng.PRNGKey(0, self.device) if rng is None
+                     else rng.to(self.device).long())
         self.t_side = _PagedSide(self.n_pages, self.page_size, self.rows,
                                  self.np_max)
         self.pool = init_paged_cache(cfg, self.n_pages, self.page_size,
@@ -272,9 +291,24 @@ class ContinuousBatcher:
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
         self._submissions_lock = threading.Lock()
-        # (host table, its device copy): re-uploaded only when the
-        # allocation changes the host table.
-        self._table_dev: Optional[Tuple[np.ndarray, torch.Tensor]] = None
+        self._loop_lock = threading.Lock()
+        self._loop_active = False
+        # The decode tick's static buffers: its inputs (tokens, positions
+        # clamped to max_len, rids, steps; one row each) packed for one
+        # host-to-device copy from pinned memory, its tokens, and a page
+        # table a width, re-copied only when the allocation changes.
+        pin = self.device.type == "cuda"
+        self._tick_host = torch.zeros((4, self.rows), dtype=torch.long,
+                                      pin_memory=pin)
+        self._tick_in = torch.zeros((4, self.rows), dtype=torch.long,
+                                    device=self.device)
+        self._tick_out = torch.zeros((self.rows,), dtype=torch.long,
+                                     device=self.device)
+        self._out_host = torch.zeros((self.rows,), dtype=torch.long,
+                                     pin_memory=pin)
+        # width -> (host table last copied, pinned staging, device table)
+        self._tables: Dict[int, Tuple[Any, torch.Tensor, torch.Tensor]] = {}
+        self._graphs = StepGraphs(self.device)
         self.prefills = 0
         self.decode_ticks = 0
         self.decode_tokens = 0
@@ -347,6 +381,8 @@ class ContinuousBatcher:
             except StopIteration:
                 exhausted = True
 
+        with self._loop_lock:
+            self._loop_active = True
         try:
             while True:
                 # Admit while a row is free and the pool can take the
@@ -388,6 +424,8 @@ class ContinuousBatcher:
         finally:
             for row in list(active):
                 self._finish(row, active, free_rows)
+            with self._loop_lock:
+                self._loop_active = False
 
     # -- admission --------------------------------------------------------
 
@@ -428,6 +466,18 @@ class ContinuousBatcher:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _sample(self, last: torch.Tensor, rids: torch.Tensor,
+                steps: torch.Tensor) -> torch.Tensor:
+        """[n, V] logits -> [n] tokens: the float32 argmax, or a draw
+        under each row's key ``fold_in(fold_in(rng, rid), step)``, folded
+        on the device (inside the tick's graph)."""
+        if self.temperature <= 0.0:
+            return torch.argmax(last.float(), dim=-1)
+        keys = prng.fold_in(prng.fold_in(self._rng, rids), steps)
+        return sample_logits(last, keys, self.temperature, self.top_k,
+                             self.top_p)
+
+    @torch.no_grad()
     def _admit_dispatch(self, row: int, rid: int, req: Request, wt: int,
                         need: int, active: Dict[int, _Row]) -> tuple:
         """Reserve pages for ``req`` in ``row`` and dispatch its prefill
@@ -444,7 +494,10 @@ class ContinuousBatcher:
         logits, _ = decode_step(self.cfg, self.params, cache,
                                 self._dev(padded).long(), 0)
         self.prefills += 1
-        tok = torch.argmax(logits[0, length - 1].float(), dim=-1)
+        tok = self._sample(
+            logits[0, length - 1][None],
+            torch.full((1,), rid, dtype=torch.long, device=self.device),
+            torch.zeros((1,), dtype=torch.long, device=self.device))[0]
         state = _Row(rid=rid, req=req, pos=length, step=1, last=0, out=[],
                      worst_pages=wt, t_admit=t_admit, limit=need)
         active[row] = state
@@ -470,30 +523,59 @@ class ContinuousBatcher:
 
     # -- decode -----------------------------------------------------------
 
+    def _put_table(self, table: np.ndarray) -> torch.Tensor:
+        """The device table of ``table``'s width, holding ``table``:
+        copied from pinned staging only when the host table changed."""
+        w = table.shape[1]
+        entry = self._tables.get(w)
+        if entry is None:
+            pin = self.device.type == "cuda"
+            entry = (None, torch.zeros((self.rows, w), dtype=torch.int32,
+                                       pin_memory=pin),
+                     torch.zeros((self.rows, w), dtype=torch.int32,
+                                 device=self.device))
+        if entry[0] is not table:
+            entry[1].numpy()[:] = table
+            entry[2].copy_(entry[1], non_blocking=True)
+            entry = (table, entry[1], entry[2])
+        self._tables[w] = entry
+        return entry[2]
+
     def _decode_table(self) -> torch.Tensor:
-        t = self.t_side.decode_table()
-        if self._table_dev is None or self._table_dev[0] is not t:
-            self._table_dev = (t, self._dev(t))
-        return self._table_dev[1]
+        return self._put_table(self.t_side.decode_table())
+
+    @torch.no_grad()
+    def _tick(self, width: int) -> None:
+        """The decode tick over the static buffers (what a graph holds):
+        every row's next token into ``_tick_out``."""
+        inp = self._tick_in
+        cache = dict(self.pool, pages=self._tables[width][2])
+        logits, _ = decode_step(self.cfg, self.params, cache,
+                                inp[0][:, None], inp[1])
+        self._tick_out.copy_(self._sample(logits[:, -1], inp[2], inp[3]))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _step(self, active: Dict[int, _Row],
               free_rows: List[int]) -> Iterator[Completion]:
         """One decode tick: every active row advances one token in one
-        batched call; inactive rows ride along at position 0 on the
-        sink page.  One host sync per tick."""
-        toks = np.zeros((self.rows,), np.int32)
-        positions = np.zeros((self.rows,), np.int32)
+        batched call (a graph replay on the card); inactive rows ride
+        along at position 0 on the sink page.  One host sync per tick."""
+        host = self._tick_host.numpy()
+        host[:] = 0
         for r, row in active.items():
             self.t_side.ensure(r, min(row.pos + 1, row.limit))
-            toks[r] = row.last
-            positions[r] = row.pos
-        table = self._decode_table()
+            host[:, r] = (row.last, min(row.pos, self.max_len), row.rid,
+                          row.step)
+        width = self._decode_table().shape[1]
         t0 = time.perf_counter()
-        cache = dict(self.pool, pages=table)
-        logits, _ = decode_step(
-            self.cfg, self.params, cache, self._dev(toks).long()[:, None],
-            self._dev(np.minimum(positions, self.max_len)))
-        nxt = torch.argmax(logits[:, -1].float(), dim=-1).tolist()
+        self._tick_in.copy_(self._tick_host, non_blocking=True)
+        self._graphs.run(width, functools.partial(self._tick, width))
+        self._out_host.copy_(self._tick_out, non_blocking=True)
+        self._sync()
+        nxt = self._out_host.tolist()
         self.decode_seconds += time.perf_counter() - t0
         self.decode_ticks += 1
         self.decode_tokens += len(active)
@@ -509,6 +591,59 @@ class ContinuousBatcher:
                 done = self._completion(row)
                 self._finish(r, active, free_rows)
                 yield done
+
+    # -- ahead-of-time warmup ---------------------------------------------
+
+    def _decode_widths(self) -> List[int]:
+        """Every table width a decode tick can take, through the same
+        ``_PagedSide.width_for`` the live tick buckets with."""
+        np_max = self.t_side.np_max
+        return sorted({_PagedSide.width_for(occ, np_max)
+                       for occ in range(1, np_max + 1)})
+
+    def _prefill_widths(self) -> List[int]:
+        """Every padded prompt width admission can dispatch: multiples of
+        ``prefill_bucket`` up to ``max_len``."""
+        b = self.prefill_bucket
+        return list(range(b, (self.max_len // b) * b + 1, b)) or [b]
+
+    @torch.no_grad()
+    def warmup(self, decode: bool = True,
+               prefill: bool = True) -> Dict[str, Any]:
+        """Prepare every shape the serve loop dispatches, before it runs:
+        one eager prefill at each reachable prompt width (``prefill[w]``:
+        the kernels' builds and one-time host work), and on the card the
+        decode tick captured as a CUDA graph at each table width
+        (``decode[w]``; without warmup a width is captured at its first
+        tick).  Every write lands on the sink page (all-sink tables, zero
+        tokens and positions), so a warmed batcher's streams are
+        bit-identical to a cold one's.  Raises while the serve loop is
+        active.  Returns ``{"compiled": [...], "seconds": float}``."""
+        t0 = time.perf_counter()
+        compiled: List[str] = []
+        with self._loop_lock:
+            if self._loop_active:
+                raise RuntimeError(
+                    "warmup() cannot run while the batcher's serve loop "
+                    "is active — warm at boot, before serve()/run()")
+            zero = torch.zeros((1,), dtype=torch.long, device=self.device)
+            sink = self.t_side.sink
+            for w in self._prefill_widths() if prefill else ():
+                table = np.full((1, self.np_max), sink, np.int32)
+                logits, _ = decode_step(
+                    self.cfg, self.params,
+                    dict(self.pool, pages=self._dev(table)),
+                    torch.zeros((1, w), dtype=torch.long,
+                                device=self.device), 0)
+                self._sample(logits[0, :1], zero, zero).tolist()
+                compiled.append(f"prefill[{w}]")
+            for w in self._decode_widths() if decode else ():
+                self._put_table(np.full((self.rows, w), sink, np.int32))
+                self._tick_in.zero_()
+                self._graphs.warm(w, functools.partial(self._tick, w))
+                self._sync()
+                compiled.append(f"decode[{w}]")
+        return {"compiled": compiled, "seconds": time.perf_counter() - t0}
 
     # -- finish -----------------------------------------------------------
 
