@@ -38,7 +38,14 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    long-context bytes laid out in 256 pages beside ``flash_decode.cu``
    over the same bytes; then, for correctness only, pages of 16 and
    128, head_dim 128, float32 at head_dim 8, a GQA chunk of 8 over a
-   parked row, a 70-token chunk: every paged case with the S its launch
+   parked row, a 70-token chunk; and at the prefill chunk's shape (1
+   row, KV 8, t = 64, pages of 64, pos 0, 64, 448 and 896 at the table
+   width the batcher gives each, bf16 and int8 with ``round_self``,
+   timed beside SDPA over the gathered view with the chunk's causal
+   mask), then a chunk whose pad positions run past the row's last
+   allocated column onto the sink, and each prefix-cache tail phase 14
+   dispatches (1 bf16 row at pos 512, t = 64, 128 and 192, timed):
+   every paged case with the S its launch
    reports (equal to the wrapper's plan), within 2e-2 bf16 / 1e-4
    float32 of the plain version and per row within 1e-2 / 1e-5 of
    ``_paged_split_reference`` at that S, two launches bit-identical, and
@@ -51,11 +58,13 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    their bytes bound); its commit entry (K and V quantized straight into
    an int8 cache, one launch) at int8 generate's linear cache (t = 1 at
    ragged positions with a clamped start, and the t = 128 prefill) and
-   int8 serving's pool (t = 1 and 4, two parked rows on the sink page),
-   the whole cache bit-equal to the plain commit but for the sink page,
-   timed beside the plain commit and the sequence it replaced (a
-   quantize launch and indexed writes for each of K and V), with the
-   device operations each puts on the card (torch.profiler);
+   int8 serving's pool (t = 1 and 4, two parked rows on the sink page;
+   one row's t = 64 chunk page-aligned at pos 896, and at pos 480 with
+   its pads on the sink page), the whole cache bit-equal to the plain
+   commit but for the sink page, timed beside the plain commit and the
+   sequence it replaced (a quantize launch and indexed writes for each
+   of K and V), with the device operations each puts on the card
+   (torch.profiler);
 4. does the same for the two backward kernels (dq, dk/dv) at the
    training shape [8, 2048, 8, 64] and at [1, 512, 8, 64], causal bf16,
    against the plain backward from the same bf16 inputs (tolerance
@@ -134,7 +143,38 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     logits plus the gumbel noise of the same ``fold_in(fold_in(rng,
     rid), step)`` keys); and int8 generate at temperature 0.8 (batch 8,
     prompt 128, 64 new tokens; graphed against eager, exact counts, the
-    margin rule under the reference's split-a-step key schedule).
+    margin rule under the reference's split-a-step key schedule);
+14. chunked prefill and the prefix cache: the flagship (rows 8, page 64,
+    bucket 64) serves 16 seeded requests sharing a 512-token system
+    prompt plus 8..188 tokens of their own, 32 new tokens each, greedy:
+    (a) with the prefix cache unchunked, (b) with ``prefill_chunk=64``
+    and the cache, (c) as (b) over an int8 pool, where the cache
+    bypasses.  Each run on a fresh batcher, warmed, graphed, then
+    again eager: identical streams and exact launch counts (8
+    flash_decode_paged for each tick, tail and chunk, merges where the
+    shape splits, 8 flash_fwd for each cold prefill, and with the int8
+    pool 1 quant_int8_commit for each call); two warm requests held to
+    the margin rule against a float32 CPU teacher-forced run; prints
+    the prefix-cache stats, TTFT cold vs warm, ms a tick and tok/s;
+15. four requests exported by one batcher and, through
+    ``pack_prefilled``/``unpack_prefilled`` bytes, imported by a second
+    (bf16 and int8): packed arrays and the pages installed and gathered
+    back bit-equal to the export, the import's launches exactly those
+    of its ticks (no prefill; merges where a tick's width splits, no
+    quantize launch), and its streams identical to the unified
+    batcher's; ``preempt_all`` while 8 rows decode, the Suspended items
+    resumed on a second batcher, both runs with exact launch counts
+    (the first's prefills and ticks, the resume's ticks alone), every
+    stream held to the uninterrupted
+    run's by the margin rule at its first difference (it prints how
+    many are identical) and two teacher-forced; and ``generate`` with a
+    256-token window at the flagship's width (batch 4, prompt 512, 64
+    new tokens): graphed and eager tokens identical, exactly 8
+    flash_fwd launches and no decode kernel (the rolling read is plain
+    torch, as in JAX), the tokens teacher-forced against the card's own
+    windowed ``forward``.
+
+It prints each phase's seconds.
 
 Every path phase zeroes all launch counts (``attention.LAUNCHES`` and
 ``quant.LAUNCHES``) just before it runs and reads them just after; the
@@ -205,6 +245,13 @@ TRAIN_MIN_COS = 0.99
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# Phase 3's prefill-chunk positions (t = 64 over pages of 64), and the
+# prefix-cache tails' (phase 14: the own tokens, padded to the 64-token
+# bucket, after the 512 cached system-prompt positions).
+CHUNK_POS = (0, 64, 448, 896)
+TAIL_POS, TAIL_TS = 512, (64, 128, 192)
 
 
 def need(cond: bool, msg: str) -> None:
@@ -378,7 +425,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/13] device")
+    say("[1/15] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -392,7 +439,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/13] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/15] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -410,7 +457,7 @@ def phase_build():
 
 def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
                int8=False, with_self=True, time_it=False, n_layers=8,
-               layer=3, linear=False, park_last=False):
+               layer=3, linear=False, park_last=False, sink_from=None):
     """One flash_decode_paged case on the card, inputs drawn from ``gen``:
     a stacked pool of ``n_layers`` with a scrambled table (page 0 the
     sink), ``pos`` per row, and (``with_self``) a deferred chunk, which an
@@ -425,7 +472,9 @@ def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
     positions, and the host cost of a call, beside the bound; with
     ``linear`` also ``flash_decode.cu`` over the same K/V laid out as a
     linear cache, and SDPA over its live prefix.  ``park_last``: the last
-    row's table row is all sink, as the batcher parks an idle row."""
+    row's table row is all sink, as the batcher parks an idle row;
+    ``sink_from``: table columns from this one on are the sink, as past a
+    row's last allocated page (a chunk's pad positions land there)."""
     import torch.nn.functional as F
 
     from tfmesos_tpu_torch.ops import attention as ta
@@ -445,6 +494,8 @@ def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
     table = perm[:rows * np_].reshape(rows, np_).to(dev, torch.int32)
     if park_last:
         table[-1] = 0
+    if sink_from is not None:
+        table[:, sink_from:] = 0
     posv = torch.tensor(pos, dtype=torch.int32, device=dev)
     q = randn(rows, t, h, d)
     chunk = (randn(rows, t, kv, d), randn(rows, t, kv, d)) \
@@ -567,7 +618,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/13] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/15] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -718,7 +769,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/13] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/15] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -861,7 +912,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/13] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/15] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -903,47 +954,22 @@ def warm_batcher(batcher):
 
 
 def serve_run(torch, cfg, batcher, reqs, int8: bool):
-    """Serve ``reqs`` once (the batcher's counters reset and every launch
-    count zeroed just before, read just after) and require exact launch
+    """Serve ``reqs`` once through :func:`counted_run` (exact launch
     counts: n_layers flash_fwd a prefill and flash_decode_paged a tick,
-    n_layers merges for each tick whose table width splits the paged
-    kernel, and with an int8 pool one quant_int8_commit a prefill and a
-    tick.  Returns (completions, stats)."""
-    widths = []
-    read = batcher._decode_table
-
-    def recorded():
-        table = read()
-        widths.append(int(table.shape[1]))
-        return table
-
-    batcher._decode_table = recorded
-    batcher.prefills = batcher.decode_ticks = batcher.decode_tokens = 0
-    batcher.decode_seconds = 0.0
-    zero_launches()
-    t0 = time.perf_counter()
-    try:
-        comps = list(batcher.run(reqs))
-        torch.cuda.synchronize()
-    finally:
-        del batcher._decode_table
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    L, n_pre, ticks = cfg.n_layers, batcher.prefills, batcher.decode_ticks
+    merges where a tick's table width splits the paged kernel, and with
+    an int8 pool one quant_int8_commit a prefill and a tick); every
+    request prefilled once.  Returns (completions, stats)."""
+    comps, launches, wall, _ = counted_run(torch, cfg, batcher, reqs,
+                                           int8, "serving")
+    n_pre, ticks = batcher.prefills, batcher.decode_ticks
     new = reqs[0].max_new_tokens
     need(len(comps) == len(reqs)
          and all(len(c.tokens) == new for c in comps),
          f"serving: {len(comps)} of {len(reqs)} requests completed their "
          f"{new} tokens")
-    want = {"flash_fwd": L * n_pre, "flash_decode_paged": L * ticks,
-            "flash_decode_paged_merge": paged_merges(cfg, batcher, widths),
-            "quant_int8": 0, "quant_int8_commit": n_pre + ticks if int8
-            else 0, "flash_decode": 0, "flash_decode_merge": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    need(n_pre == len(reqs) and ticks > 0 and len(widths) == ticks
-         and launches == want,
-         f"serving launches {launches} != {want} ({n_pre} prefills, "
-         f"{ticks} ticks)")
+    need(n_pre == len(reqs) and ticks > 0,
+         f"serving: {n_pre} prefills for {len(reqs)} requests, {ticks} "
+         f"ticks")
     ttft = sorted(c.ttft_s * 1e3 for c in comps)
     return comps, {
         "requests": len(comps), "wall_s": wall, "prefills": n_pre,
@@ -976,19 +1002,6 @@ def serve_eager(torch, np, cfg, batcher, reqs, comps, int8: bool):
     finally:
         batcher._graphs.eager = False
     return stats
-
-
-def paged_merges(cfg, batcher, widths):
-    """flash_decode_paged_merge launches of a serving run: n_layers for
-    each decode tick whose table width (``widths``) splits the kernel
-    (S > 1 by ``_decode_splits`` at t = 1)."""
-    from tfmesos_tpu_torch.ops import attention as ta
-
-    tiles = -(-(cfg.n_heads // cfg.kv_heads) // ta._DECODE_ROW_TILE)
-    sms = ta._sm_count("cuda")
-    return cfg.n_layers * sum(
-        ta._decode_splits(batcher.rows, cfg.kv_heads, tiles,
-                          w * batcher.page_size, sms) > 1 for w in widths)
 
 
 def profile_serving(torch, np, batcher, cfg):
@@ -1066,7 +1079,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/13] teacher-forced check vs float32 CPU forward "
+    say(f"[6/15] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1117,7 +1130,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/13] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/15] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1127,7 +1140,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/13] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/15] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1197,7 +1210,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/13] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/15] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1401,6 +1414,36 @@ def phase_decode_kernels(torch):
         paged_rows.append(paged_case(torch, pgen, label, *args, n_layers=2,
                                      layer=1, **kw))
 
+    # From a generator of its own: the prefill chunk's shape (chunked
+    # prefill and prefix-cache tails: 1 row, t = 64, pages of 64, the
+    # table width the batcher gives a chunk at each pos), bf16 and int8
+    # with round_self, timed; then a chunk whose pad positions run past
+    # the row's last allocated column onto the sink.
+    from tfmesos_tpu_torch.serving import ContinuousBatcher
+
+    cgen = torch.Generator().manual_seed(14)
+    for pos in CHUNK_POS:
+        w = ContinuousBatcher.chunk_width(pos, 64, 64, 16)
+        for int8 in (False, True):
+            paged_rows.append(paged_case(
+                torch, cgen, f"chunk t=64 pos {pos}"
+                + (" int8" if int8 else ""), 1, 64, 8, 8, 64, w, 64, [pos],
+                bf16, int8=int8, time_it=True))
+    for int8 in (False, True):
+        paged_rows.append(paged_case(
+            torch, cgen, "chunk t=64 pos 480, pads past the last page"
+            + (" int8" if int8 else ""), 1, 64, 8, 8, 64, 16, 64, [480],
+            bf16, int8=int8, sink_from=8))
+    # From a generator of its own: each prefix-cache tail width phase 14
+    # dispatches (one bf16 row at pos 512, the cache bypassing int8
+    # pools), at the table width the batcher gives it.
+    tgen = torch.Generator().manual_seed(18)
+    for t in TAIL_TS:
+        w = ContinuousBatcher.chunk_width(TAIL_POS, t, 64, 16)
+        paged_rows.append(paged_case(
+            torch, tgen, f"tail t={t} pos {TAIL_POS}", 1, t, 8, 8, 64, w,
+            64, [TAIL_POS], bf16, time_it=True))
+
     quant_rows, total = check_quantize(torch, randn)
     commit_rows = check_commit(torch, randn)
     return decode_rows, cold, paged_rows, quant_rows, total, commit_rows
@@ -1583,7 +1626,9 @@ def check_commit(torch, randn):
     race as JAX's scatter leaves them): int8 generate's linear cache
     [8, 8, 8, 384, 64] at t = 1 over ragged positions with a clamped
     start and at the prefill t = 128 from 0; int8 serving's pool (rows
-    8, KV 8, pages of 64, NP 16) at t = 1 and 4 with two parked rows.
+    8, KV 8, pages of 64, NP 16) at t = 1 and 4 with two parked rows,
+    and one row's t = 64 prefill chunk (page-aligned, and a tail whose
+    pad positions land on the sink page).
     Each timed beside the plain commit and the sequence the tree ran
     before it (timed at one position for every row, as generate passes
     a python int)."""
@@ -1630,7 +1675,7 @@ def check_commit(torch, randn):
         slots = n // D
         by_table = 0 if table is None else 4 * table.numel()
         bms, by = bound(n * ks[0].element_size() + n + 4 * slots
-                        + 8 * B + by_table, 5 * n, F32_FLOPS)
+                        + 8 * pos.numel() + by_table, 5 * n, F32_FLOPS)
         row = {"shape": [len(ks), *ks[0].shape], "leaf": f"commit {label}",
                "leaves": 0, "dtype": str(ks[0].dtype).split(".")[-1],
                "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1674,6 +1719,20 @@ def check_commit(torch, randn):
         case(f"serve t={t}, two parked rows", kp, vp, ks, vs, pos,
              lambda rk, rv, ks=ks, vs=vs, pos=pos: _today_paged(
                  torch, tq, rk, rv, ks, vs, table, pos), table=table)
+    # int8 chunked serving: one row's t = 64 chunk, page-aligned at pos
+    # 896, and a tail at pos 480 whose pad positions past column 7 land
+    # on the sink page.
+    for pos, sink_from in ((896, None), (480, 8)):
+        ctable = table[:1].clone()
+        if sink_from is not None:
+            ctable[:, sink_from:] = 0
+        cpos = torch.tensor([pos], dtype=torch.int64, device=dev)
+        ks = [randn((1, 64, KV, D)) for _ in range(L)]
+        vs = [randn((1, 64, KV, D)) for _ in range(L)]
+        case(f"serve chunk t=64 pos {pos}"
+             + (", pads on the sink" if sink_from else ""), kp, vp, ks, vs,
+             cpos, lambda rk, rv, ks=ks, vs=vs, cpos=cpos, ct=ctable:
+             _today_paged(torch, tq, rk, rv, ks, vs, ct, cpos), table=ctable)
     return rows
 
 
@@ -1826,7 +1885,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/13] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/15] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1891,7 +1950,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/13] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/15] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1977,7 +2036,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/13] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/15] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2073,7 +2132,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/13] sampled serving and generation: phase 5's traffic at "
+    say("[13/15] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2189,6 +2248,389 @@ def sampled_generate(torch, cfg, qparams):
     return stats
 
 
+# Phase 14's traffic: a 512-token system prompt shared by 16 requests,
+# each with 8..188 tokens of its own, 32 new tokens each, greedy.
+SYSTEM_LEN = 512
+
+
+def phase14_requests(np, cfg):
+    from tfmesos_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(14)
+    system = rng.randint(0, cfg.vocab_size, SYSTEM_LEN)
+    lens = rng.randint(8, 189, size=16)
+    return [Request(np.concatenate([system, rng.randint(0, cfg.vocab_size,
+                                                        n)]), 32)
+            for n in lens]
+
+
+def paged_split(ta, cfg, rows, t, slots):
+    """Whether a paged launch of ``rows`` rows of ``t`` query tokens over
+    ``slots`` table positions splits (S > 1, so a merge follows)."""
+    tiles = -(-t * (cfg.n_heads // cfg.kv_heads) // ta._DECODE_ROW_TILE)
+    return ta._decode_splits(rows, cfg.kv_heads, tiles, slots,
+                             ta._sm_count("cuda")) > 1
+
+
+def counted_run(torch, cfg, batcher, items, int8: bool, label: str):
+    """Run ``items`` through ``batcher`` once, its counters reset and
+    every launch count zeroed just before and read just after, recording
+    each decode tick's table width and each chunk call's (tokens, table
+    width); require exact counts: n_layers flash_fwd a full prefill,
+    n_layers flash_decode_paged a tick, a prefix-cache tail and a
+    prefill chunk, n_layers merges for each of those whose shape splits
+    the kernel, no quantize launch, and over an int8 pool one
+    quant_int8_commit a call.  Returns (outputs, launches, wall s, the
+    chunk calls' shapes)."""
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    widths, chunks = [], []
+    read, width = batcher._decode_table, batcher._chunk_width
+
+    def recorded(*a):
+        table = read(*a)
+        widths.append(int(table.shape[1]))
+        return table
+
+    def chunk_width(pos, t):
+        w = width(pos, t)
+        chunks.append((t, w))
+        return w
+
+    batcher._decode_table, batcher._chunk_width = recorded, chunk_width
+    for name in ("prefills", "tail_prefills", "prefill_chunks",
+                 "decode_ticks", "decode_tokens"):
+        setattr(batcher, name, 0)
+    batcher.decode_seconds = 0.0
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        outs = list(batcher.run(items))
+        torch.cuda.synchronize()
+    finally:
+        del batcher._decode_table, batcher._chunk_width
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    L, ps = cfg.n_layers, batcher.page_size
+    pre, tails, nch = (batcher.prefills, batcher.tail_prefills,
+                       batcher.prefill_chunks)
+    ticks = batcher.decode_ticks
+    need(len(widths) == ticks and len(chunks) == tails + nch,
+         f"{label}: {len(widths)} tick widths for {ticks} ticks, "
+         f"{len(chunks)} chunk widths for {tails + nch} chunk calls")
+    merges = L * (sum(paged_split(ta, cfg, batcher.rows, 1, w * ps)
+                      for w in widths)
+                  + sum(paged_split(ta, cfg, 1, t, w * ps)
+                        for t, w in chunks))
+    calls = ticks + tails + nch
+    want = {"flash_fwd": L * pre, "flash_decode_paged": L * calls,
+            "flash_decode_paged_merge": merges, "quant_int8": 0,
+            "quant_int8_commit": pre + calls if int8 else 0,
+            "flash_decode": 0, "flash_decode_merge": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    need(launches == want, f"{label} launches {launches} != {want} ({pre} "
+         f"prefills, {tails} tails, {nch} chunks, {ticks} ticks)")
+    return outs, launches, wall, sorted({f"t {t} w {w}" for t, w in chunks})
+
+
+def fleet_run(torch, cfg, batcher, reqs, int8: bool, label: str):
+    """Serve ``reqs`` once through :func:`counted_run`; every request
+    completes its tokens.  Returns (completions, stats)."""
+    comps, launches, wall, shapes = counted_run(torch, cfg, batcher, reqs,
+                                                int8, label)
+    new = reqs[0].max_new_tokens
+    need(len(comps) == len(reqs)
+         and all(len(c.tokens) == new for c in comps),
+         f"{label}: {len(comps)} of {len(reqs)} requests completed")
+    ticks = batcher.decode_ticks
+    by_rid = sorted(comps, key=lambda c: c.rid)
+    warm = [c.ttft_s * 1e3 for c in by_rid[1:]]
+    return comps, {
+        "requests": len(comps), "wall_s": wall,
+        "prefills": batcher.prefills, "tail_prefills": batcher.tail_prefills,
+        "prefill_chunks": batcher.prefill_chunks,
+        "chunk_shapes": shapes,
+        "decode_ticks": ticks, "decode_tokens": batcher.decode_tokens,
+        "decode_tok_per_s": batcher.decode_tokens / batcher.decode_seconds,
+        "ms_per_tick": batcher.decode_seconds / ticks * 1e3,
+        "ttft_ms_cold": by_rid[0].ttft_s * 1e3,
+        "ttft_ms_warm_mean": statistics.mean(warm),
+        "ttft_ms_warm_p50": statistics.median(warm),
+        "prefix_cache": batcher.prefix_cache_stats(),
+        "peak_pages": batcher.peak_pages_used, "launches": launches}
+
+
+def fp32_margin(torch, cfg, cpu_params, comps, what):
+    """The phase-6 margin rule on ``comps`` against the float32 CPU
+    forward over each prompt and its tokens, teacher-forced."""
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    checked = positions = 0
+    for c in comps:
+        prompt = [int(x) for x in c.request.prompt]
+        seq = torch.tensor([prompt + c.tokens[:-1]])
+        with torch.no_grad():
+            ref = forward(cpu_cfg, cpu_params, seq)[0, len(prompt) - 1:]
+        ch, _, n = margin_check(torch, ref.float(), torch.tensor(c.tokens),
+                                what)
+        checked, positions = checked + ch, positions + n
+    need(checked >= MIN_CHECKED, f"{what}: only {checked} positions above "
+         f"the margin (need {MIN_CHECKED})")
+    return checked, positions
+
+
+def phase_prefix_chunked(torch, np):
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.serving import ContinuousBatcher
+
+    say("[14/15] chunked prefill and the prefix cache: flagship, rows 8, "
+        "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
+    cfg, params = flagship_model(seed=0, max_len=1024)
+    card = _cuda(params)
+    qparams = tt.quantize_params(cfg, card)
+    reqs = phase14_requests(np, cfg)
+    out = {}
+    for label, kw, int8 in (
+            ("prefix cache", {"prefix_cache_pages": 64}, False),
+            ("chunk 64 + prefix cache", {"prefix_cache_pages": 64,
+                                         "prefill_chunk": 64}, False),
+            ("chunk 64 + prefix cache, int8", {"prefix_cache_pages": 64,
+                                               "prefill_chunk": 64}, True)):
+        runs = {}
+        for eager in (False, True):
+            b = ContinuousBatcher(cfg, qparams if int8 else card, rows=8,
+                                  page_size=64, prefill_bucket=64,
+                                  quantized_cache=int8, device="cuda", **kw)
+            b._graphs.eager = eager
+            info = b.warmup()
+            mode = "eager" if eager else "graphed"
+            runs[eager] = fleet_run(torch, cfg, b, reqs, int8,
+                                    f"{label} ({mode})")
+            runs[eager][1]["warmup"] = info["compiled"]
+        (comps, stats), (ecomps, estats) = runs[False], runs[True]
+        need(streams(comps) == streams(ecomps),
+             f"{label}: graphed and eager streams differ")
+        need((b.prefix_cache_active, b.prefix_cache_bypass_reason)
+             == ((False, "quantized kv cache") if int8 else (True, None)),
+             f"{label}: prefix cache {b.prefix_cache_bypass_reason}")
+        warm = sorted(comps, key=lambda c: c.rid)[1:3]
+        if int8:
+            checked = positions = 0
+            for c in warm:
+                ch, _, n = teacher_forced_int8(
+                    torch, cfg, qparams,
+                    torch.tensor([[int(x) for x in c.request.prompt]]),
+                    torch.tensor([c.tokens]))
+                checked, positions = checked + ch, positions + n
+            need(checked >= MIN_CHECKED, f"{label}: only {checked} "
+                 f"positions above the margin")
+        else:
+            checked, positions = fp32_margin(torch, cfg, params, warm, label)
+        row = {"graphed": stats, "eager": estats, "streams_identical": True,
+               "margin_checked": checked, "positions": positions}
+        say(f"  {label}: " + json.dumps(row))
+        out[label] = row
+    return out
+
+
+def _host_tensor(a):
+    """An artifact array (numpy, or a bf16 CPU tensor) as a tensor."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.array(a)) if isinstance(a, np.ndarray) \
+        else a
+
+
+def phase_disagg_preempt_rolling(torch, np):
+    from tfmesos_tpu_torch import serving as ts
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+
+    say("[15/15] export/import, preemption and rolling caches: flagship")
+    cfg, params = flagship_model(seed=0, max_len=1024)
+    card = _cuda(params)
+    qparams = tt.quantize_params(cfg, card)
+    kw = dict(rows=8, page_size=64, prefill_bucket=64, device="cuda")
+    rng = np.random.RandomState(15)
+    out = {}
+    # Four requests exported by one batcher, their artifacts through
+    # pack_prefilled bytes, imported by a second; the unified batcher
+    # serves the same four.
+    reqs = [ts.Request(rng.randint(0, cfg.vocab_size, n), 32)
+            for n in (100, 250, 400, 600)]
+    for name, weights, int8 in (("bf16", card, False),
+                                ("int8", qparams, True)):
+        exp = ts.ContinuousBatcher(cfg, weights, quantized_cache=int8, **kw)
+        arts, nbytes = [], 0
+        for r in reqs:
+            art = exp.export_kv(r)
+            meta, body = ts.pack_prefilled(art)
+            nbytes += len(body)
+            back = ts.unpack_prefilled(json.loads(json.dumps(meta)),
+                                       bytes(body))
+            for key in ("k", "v", "k_scales", "v_scales"):
+                if key in art:
+                    a, b = _host_tensor(art[key]), _host_tensor(back[key])
+                    need(a.dtype == b.dtype and torch.equal(a, b),
+                         f"export {name}: {key} changed in packing")
+            arts.append(back)
+        # The installed pages, gathered back, equal the artifact's bits.
+        chk = ts.ContinuousBatcher(cfg, weights, quantized_cache=int8, **kw)
+        for r, art in zip(reqs, arts):
+            active = {}
+            wt, need_len = chk._worst_pages(r)
+            row, state, first = chk._admit_import(
+                0, ts.Prefilled(r, art), wt, need_len, active)
+            state.out = [first]
+            again = chk._export_row(row, state)
+            chk._finish(row, active, [])
+            for key in ("k", "v", "k_scales", "v_scales"):
+                if key in art:
+                    need(torch.equal(_host_tensor(art[key]),
+                                     _host_tensor(again[key])),
+                         f"import {name}: {key} pages not bit-equal after "
+                         f"the round trip")
+        imp = ts.ContinuousBatcher(cfg, weights, quantized_cache=int8, **kw)
+        imp.warmup(prefill=False)
+        comps, launches, _, _ = counted_run(
+            torch, cfg, imp, [ts.Prefilled(r, a) for r, a in zip(reqs, arts)],
+            int8, f"import {name}")
+        need((imp.prefills, imp.tail_prefills, imp.prefill_chunks)
+             == (0, 0, 0), f"import {name}: an import prefilled")
+        uni = ts.ContinuousBatcher(cfg, weights, quantized_cache=int8, **kw)
+        want = list(uni.run(reqs))
+        need(streams(comps) == streams(want), f"import {name}: streams "
+             f"differ from the unified batcher's")
+        out[f"import {name}"] = {
+            "requests": len(reqs), "artifact_bytes": nbytes,
+            "ticks": imp.decode_ticks, "launches": launches,
+            "streams_identical": True, "pages_bit_equal": True}
+        say(f"  export/import {name}: " + json.dumps(out[f"import {name}"]))
+    out["preempt"] = preempt_resume(torch, np, cfg, params, card, kw)
+    out["rolling"] = windowed_generate(torch, cfg, card)
+    return out
+
+
+def preempt_resume(torch, np, cfg, params, card, kw):
+    """``preempt_all`` while 8 rows decode (48 new tokens each; fired
+    once request 0 has streamed 16), the Suspended items resumed on a
+    second batcher: every request completes, each stream held to the
+    uninterrupted run's by the margin rule at its first difference (the
+    resumed row's table width, and with it the kernel's split count and
+    merge order, may differ), and two resumed streams teacher-forced."""
+    from tfmesos_tpu_torch import serving as ts
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    rng = np.random.RandomState(16)
+    mk = [(rng.randint(0, cfg.vocab_size, n), 48)
+          for n in rng.randint(64, 301, size=8)]
+    ref = {c.rid: c.tokens for c in ts.ContinuousBatcher(
+        cfg, card, **kw).run(ts.Request(p, n) for p, n in mk)}
+    b1 = ts.ContinuousBatcher(cfg, card, **kw)
+    reqs = [ts.Request(p, n) for p, n in mk]
+
+    def trigger(chunk, off):
+        if off + len(chunk) >= 16:
+            reqs[0].on_tokens = None
+            b1.preempt_all()
+
+    reqs[0].on_tokens = trigger
+    first, launches1, _, _ = counted_run(torch, cfg, b1, reqs, False,
+                                         "preempt_all")
+    susp = [x for x in first if isinstance(x, ts.Suspended)]
+    done = {c.rid: c.tokens for c in first if isinstance(c, ts.Completion)}
+    need(susp and all(s.artifact is not None for s in susp),
+         f"preempt_all: {len(susp)} suspended, artifacts "
+         f"{[s.artifact is not None for s in susp]}")
+    b2 = ts.ContinuousBatcher(cfg, card, **kw)
+    resumed_out, launches2, _, _ = counted_run(
+        torch, cfg, b2, [ts.Prefilled(s.request, s.artifact) for s in susp],
+        False, "resume")
+    need(b2.prefills == 0, f"resume: {b2.prefills} prefills")
+    for c in resumed_out:
+        done[c.rid] = c.tokens
+    need(sorted(done) == sorted(ref), f"resume: rids {sorted(done)}")
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    identical, gaps = 0, []
+    for rid, want in ref.items():
+        got = done[rid]
+        if got == want:
+            identical += 1
+            continue
+        i = next(j for j in range(len(want)) if got[j] != want[j])
+        prompt = [int(x) for x in mk[rid][0]]
+        with torch.no_grad():
+            logits = forward(cpu_cfg, params,
+                             torch.tensor([prompt + want[:i]]))[0, -1]
+        gap = abs(float(logits[got[i]]) - float(logits[want[i]]))
+        need(gap <= MARGIN, f"resume rid {rid}: diverged at token {i} "
+             f"with a CPU logit gap {gap:.3f} > {MARGIN}")
+        gaps.append(gap)
+    resumed = [ts.Completion(rid=s.rid, request=s.request,
+                             tokens=done[s.rid]) for s in susp[:2]]
+    checked, positions = fp32_margin(torch, cfg, params, resumed,
+                                     "resumed teacher-forced")
+    stats = {"requests": len(ref), "suspended": len(susp),
+             "suspended_steps": [s.artifact["step"] for s in susp],
+             "streams_identical": identical, "divergence_gaps": gaps,
+             "margin_checked": checked, "positions": positions,
+             "launches_preempt_all": launches1, "launches_resume": launches2}
+    say("  preempt_all + resume: " + json.dumps(stats))
+    return stats
+
+
+def windowed_generate(torch, cfg, card):
+    """``generate`` with window 256 at the flagship's width (batch 4,
+    prompt 512, 64 new tokens): graphed and eager tokens identical,
+    exactly n_layers flash_fwd launches (the windowed prefill) and no
+    decode kernel (the rolling read is plain torch, as in JAX), the
+    tokens teacher-forced against the card's own windowed forward."""
+    from tfmesos_tpu_torch.models import transformer as tt
+
+    wcfg = dataclasses.replace(cfg, window=256)
+    batch, plen, new = 4, 512, 64
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(17)).cuda()
+
+    def run(n=new, eager=False):
+        with torch.no_grad():
+            return tt.generate(wcfg, card, prompt, n, _eager=eager)
+
+    run(4)
+    zero_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: 0 for k in launches}
+    want["flash_fwd"] = cfg.n_layers
+    need(launches == want, f"windowed generate launches {launches} != "
+         f"{want}")
+    eager = generate_eager(torch, run, out, want, new, batch)
+    whole, pre, tok_s, step_ms = _generate_rate(
+        torch, run, lambda: run(1), new, batch)
+    with torch.no_grad():
+        logits = tt.forward(wcfg, card, out[:, :-1].long())[:, plen - 1:]
+    top = logits.float().topk(2, dim=-1)
+    clear = (top.values[..., 0] - top.values[..., 1]) > MARGIN
+    bad = clear & (top.indices[..., 0] != out[:, plen:].long())
+    need(bool(torch.isfinite(logits).all()) and not bool(bad.any()),
+         f"windowed generate: {int(bad.sum())} tokens differ from the "
+         f"windowed forward's clear argmax")
+    checked = int(clear.sum())
+    need(checked >= MIN_CHECKED, f"windowed generate: only {checked} "
+         f"positions above the margin")
+    stats = {"window": 256, "batch": batch, "prompt": plen,
+             "new_tokens": new, "run_s": whole, "prefill_s": pre,
+             "decode_tok_per_s": tok_s, "ms_per_step": step_ms,
+             "launches": launches, "forward_checked": checked,
+             "eager": eager}
+    say("  windowed generate: " + json.dumps(stats))
+    return stats
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -2223,21 +2665,34 @@ def main() -> int:
     need(pkg_root == ROOT, f"tfmesos_tpu_torch imported from {pkg_root}, "
          f"not from this checkout ({ROOT})")
 
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        say(f"  ({name}: {seconds[name]} s)")
+        return out
+
     smi = phase_device(torch)
-    phase_build()
-    flash_rows, paged_rows = phase_kernels(torch)
+    timed("build", phase_build)
+    flash_rows, paged_rows = timed("kernels", phase_kernels, torch)
     (decode_rows, decode_cold_row, paged8_rows, quant_rows, quant_total,
-     commit_rows) = phase_decode_kernels(torch)
-    bwd_rows, bwd_checks = phase_backward(torch)
-    cfg, params, reqs, comps, stats = phase_serve(torch, np)
-    phase_teacher_forced(torch, cfg, params, comps)
-    phase_forward(torch)
-    train_cfg, train = phase_train(torch)
-    phase_train_vs_cpu(torch, train_cfg)
-    gen8 = phase_generate_int8(torch)
-    gen_long = phase_generate_long(torch)
-    serve8 = phase_serve_int8(torch, np, reqs)
-    sampled = phase_sampled(torch, reqs)
+     commit_rows) = timed("decode kernels", phase_decode_kernels, torch)
+    bwd_rows, bwd_checks = timed("backward", phase_backward, torch)
+    cfg, params, reqs, comps, stats = timed("serve", phase_serve, torch, np)
+    timed("teacher-forced", phase_teacher_forced, torch, cfg, params, comps)
+    timed("forward", phase_forward, torch)
+    train_cfg, train = timed("train", phase_train, torch)
+    timed("train vs cpu", phase_train_vs_cpu, torch, train_cfg)
+    gen8 = timed("generate int8", phase_generate_int8, torch)
+    gen_long = timed("generate long", phase_generate_long, torch)
+    serve8 = timed("serve int8", phase_serve_int8, torch, np, reqs)
+    sampled = timed("sampled", phase_sampled, torch, reqs)
+    fleet = timed("prefix cache and chunks", phase_prefix_chunked, torch, np)
+    moves = timed("export, preempt, rolling", phase_disagg_preempt_rolling,
+                  torch, np)
+    say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
              "generate_int8": gen8["launches"],
@@ -2246,7 +2701,14 @@ def main() -> int:
              "generate_int8_sampled": sampled["generate"]["launches"],
              **{f"{label} (graphed)": row["graphed"]["launches"]
                 for label, row in sampled.items()
-                if label.startswith("serve")}}
+                if label.startswith("serve")},
+             **{f"serve {label} (graphed)": row["graphed"]["launches"]
+                for label, row in fleet.items()},
+             **{f"serve {label}": row["launches"]
+                for label, row in moves.items() if label.startswith("import")},
+             "serve preempt_all": moves["preempt"]["launches_preempt_all"],
+             "serve resume": moves["preempt"]["launches_resume"],
+             "generate windowed": moves["rolling"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -12,6 +12,8 @@ of matmuls summed in different orders); dequantized cache contents
 atol 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -192,6 +194,11 @@ def test_generate_refusals(models):
         tt.generate(tcfg, tp, prompt, 4, temperature=0.8, top_p=1.5)
     with pytest.raises(ValueError, match="positions"):
         tt.generate(tcfg, tp, prompt, 8, cache=tt.init_cache(tcfg, 2, 12))
-    with pytest.raises(NotImplementedError, match="rolling"):
-        tt.init_cache(tt.TransformerConfig(window=8), 1, 16)
+    # Rolling caches are ported (tests/test_torch_rolling.py): a window
+    # config's cache holds the window, and the reference's refusals stay.
+    wcfg = tt.TransformerConfig(window=8)
+    assert tt.init_cache(wcfg, 1, 16)["k"].shape[3] == 8
+    wtcfg = dataclasses.replace(tcfg, window=8)
+    with pytest.raises(ValueError, match="rolling"):
+        tt.generate(wtcfg, tp, prompt, 4, prompt_lens=[2, 3])
     assert torch.equal(tt.generate(tcfg, tp, prompt, 0), prompt)

@@ -39,8 +39,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_slice_modules_import_with_jax_blocked():
-    """The int8 generation slice's modules by name (the walk above
-    covers them too; this names them so a rename cannot drop one)."""
+    """The slices' modules by name (the walk above covers them too; this
+    names them so a rename cannot drop one): int8 generation, and the
+    batcher's fleet surface with the prefix hashing and rolling caches."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
@@ -49,12 +50,24 @@ def test_slice_modules_import_with_jax_blocked():
         "import tfmesos_tpu_torch.generate as g\n"
         "from tfmesos_tpu_torch.ops.attention import LAUNCHES\n"
         "print(sorted(q.LAUNCHES), 'flash_decode' in LAUNCHES,\n"
-        "      callable(g.main))\n")
+        "      callable(g.main))\n"
+        "import tfmesos_tpu_torch.prefixhash as ph\n"
+        "import tfmesos_tpu_torch.serving as s\n"
+        "import tfmesos_tpu_torch.serve as sv\n"
+        "from tfmesos_tpu_torch.models.transformer import (\n"
+        "    _rolling_decode, init_cache)\n"
+        "print(len(ph.prompt_digests(list(range(20)), 8)),\n"
+        "      sorted(s.BYPASS_ALLOWLIST)[0], callable(s.pack_prefilled),\n"
+        "      callable(s.unpack_prefilled), callable(sv.main),\n"
+        "      all(hasattr(s.ContinuousBatcher, a) for a in (\n"
+        "          'export_kv', 'preempt_all', 'kv_headroom',\n"
+        "          'prefix_cache_summary')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["['quant_int8',", "'quant_int8_commit']",
-                                  "True", "True"]
+                                  "True", "True", "2", "fused_prefill",
+                                  "True", "True", "True", "True"]
 
 
 def _imported_roots(path: Path):
@@ -118,6 +131,19 @@ def test_serve_cli_serves_int8_on_the_cpu():
     rows = [json.loads(line) for line in out.stdout.splitlines()]
     assert sorted(r["rid"] for r in rows) == [0, 1, 2]
     assert all(len(r["tokens"]) == 3 for r in rows)
+
+
+def test_serve_cli_chunked_prefill_with_the_prefix_cache():
+    out = subprocess.run(
+        [sys.executable, "-m", "tfmesos_tpu_torch.serve", "--tiny",
+         "--device", "cpu", "--n-prompts", "3", "--new-tokens", "3",
+         "--prefill-chunk", "16", "--prefix-cache-pages", "8"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    assert sorted(r["rid"] for r in rows) == [0, 1, 2]
+    assert all(len(r["tokens"]) == 3 for r in rows)
+    assert "prefix cache: {" in out.stderr
 
 
 def test_kernel_sources_carry_their_note():

@@ -59,7 +59,8 @@ class TransformerConfig:
     """Dense decoder-only transformer configuration (the JAX
     ``TransformerConfig``'s dense fields).  ``n_kv_heads < n_heads`` is
     grouped-query attention; ``window`` a sliding attention window
-    (``forward`` only — paged caches refuse it, as in JAX).  Training:
+    (``forward``, and rolling linear caches in decode — paged caches
+    refuse it, as in JAX).  Training:
     ``fused_ce`` (None = auto, which is the fused head + cross entropy
     on one device; False = materialize the logits), ``ce_chunk`` tokens
     per fused chunk, ``z_loss`` the LM-head z-loss weight."""
@@ -335,11 +336,15 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     head_dim trailing, the ``flash_decode`` kernel's layout), written in
     place one chunk at a time at its layer index.  ``quantized=True``
     stores int8 :class:`QTensor` s with one float32 scale per (layer,
-    row, head, position), held lane-major [L, B, KV, 1, M].  Sliding
-    windows need a rolling cache, which is not ported yet."""
+    row, head, position), held lane-major [L, B, KV, 1, M].
+
+    With sliding-window attention (``cfg.window``) the buffer is a
+    ROLLING cache of ``min(max_len, window)`` slots (slot = position mod
+    slots): a position's slot is reclaimed exactly when it leaves the
+    window, so memory and per-step cache reads stay O(window) however
+    long generation runs."""
     if cfg.window is not None:
-        raise NotImplementedError("rolling (sliding-window) caches are not "
-                                  "ported yet")
+        max_len = min(max_len, cfg.window)
     shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
     return {name: _kv_buffer(shape, dtype, quantized, cfg, device,
                              "init_cache") for name in ("k", "v")}
@@ -378,10 +383,19 @@ class PageAllocator:
         self.page_size = int(page_size)
         self.free = list(range(n_pages - 1, -1, -1))
         self.rows: Dict[int, list] = {}
+        # Optional allocation-pressure hook: called with the free list
+        # empty, returns True after putting at least one page back on it
+        # (the serving prefix cache reclaims zero-ref cached pages this
+        # way, so retained pages never block an allocation).
+        self.reclaim: Optional[Callable[[], bool]] = None
 
     def _take(self) -> int:
         if not self.free:
-            raise RuntimeError("page pool exhausted")
+            while self.reclaim is not None and self.reclaim():
+                if self.free:
+                    break
+            if not self.free:
+                raise RuntimeError("page pool exhausted")
         return self.free.pop()
 
     def ensure(self, row: int, length: int) -> None:
@@ -439,7 +453,8 @@ def _cache_read(cache, li: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
-                 li: int, pos, start: torch.Tensor) -> None:
+                 li: int, pos, start: torch.Tensor,
+                 rolling: bool = False) -> None:
     """Insert layer ``li``'s K and V chunks ([B, t, KV, Dh]) into the
     stacked linear cache [L, B, KV, M, Dh] at positions pos..pos+t-1 of
     each row, IN PLACE (the start clamps so the chunk fits, as a dynamic
@@ -447,12 +462,47 @@ def _cache_write(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
     :func:`~tfmesos_tpu_torch.ops.quant.commit_int8` (one
     ``quant_int8.cu`` launch on the card), reading the rows' starts from
     the device tensor ``start`` [B]; a plain one takes two indexed
-    writes at ``pos`` (the prefill's int 0, else [B] on the device)."""
+    writes at ``pos`` (the prefill's int 0, else [B] on the device).
+
+    ``rolling`` (window configs, the JAX ``_cache_write(rolling=True)``):
+    position p writes slot p mod M.  A one-token step is one write at
+    the slot computed from the device tensor ``start``; a longer chunk
+    needs a python-int ``pos`` (the prefill) and keeps its last M
+    tokens, rotated into slot order and written from slot 0 (each
+    position quantizes on its own, so an int8 cache holds what the
+    reference's modular scatter writes)."""
+    if rolling:
+        k, v, start, pos = _rolling_chunk(cache, k, v, pos, start)
     if isinstance(cache["k"], QTensor):
         commit_int8(cache["k"], cache["v"], [k], [v], start, layer=li)
         return
     for buf, x in ((cache["k"], k), (cache["v"], v)):
         _put_positions(buf[li], x.to(buf.dtype), pos)
+
+
+def _rolling_chunk(cache: Dict[str, Any], k: torch.Tensor, v: torch.Tensor,
+                   pos, start: torch.Tensor):
+    """A rolling write as a plain one: ``(k, v, start, pos)`` for
+    :func:`_cache_write` (every row at row 0's position: rolling caches
+    are never ragged, which :func:`decode_step` enforces).  A
+    multi-token chunk needs a python-int ``pos``, as the reference's
+    static-position rule."""
+    buf = cache["k"].values if isinstance(cache["k"], QTensor) else \
+        cache["k"]
+    m = buf.shape[3]
+    t = k.shape[1]
+    if t == 1:
+        slot = start % m
+        return k, v, slot, slot
+    if not isinstance(pos, int):
+        raise ValueError("multi-token rolling-cache writes need a "
+                         "static position (prefill); decode rolls one "
+                         "token at a time")
+    if pos + t <= m:
+        return k, v, start, pos
+    shift = (pos + t) % m
+    k, v = (torch.roll(x[:, t - m:], shifts=shift, dims=1) for x in (k, v))
+    return k, v, torch.zeros_like(start), 0
 
 
 def _paged_cache_write_all(cache: Dict[str, Any],
@@ -501,13 +551,20 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
     q, k, v = _qkv(cfg, lp, x, positions)
     prefill = t > 1 and isinstance(pos, int) and pos == 0
     pages = cache.get("pages")
+    rolling = cfg.window is not None
+    if rolling and t > 1 and not prefill:
+        raise ValueError("chunked decode over a rolling windowed cache is "
+                         "not supported; decode one token per step after "
+                         "the prefill")
     if pages is None:
-        _cache_write(cache, k, v, li, pos, positions[:, 0])
+        _cache_write(cache, k, v, li, pos, positions[:, 0], rolling=rolling)
         chunk = None
     else:
         chunk = (k, v)
     if prefill:
         o = flash_attention(q, k, v, causal=True, window=cfg.window)
+    elif rolling:
+        o = _rolling_decode(cfg, q, cache, li, positions)
     elif pages is None:
         o = flash_decode(q, cache["k"], cache["v"], positions[:, 0],
                          layer=li)
@@ -518,6 +575,32 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
                                positions[:, 0], layer=li, self_kv=(k, v),
                                round_self=isinstance(cache["k"], QTensor))
     return _finish_block(cfg, lp, x, o), chunk
+
+
+def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
+                    cache: Dict[str, Any], li: int,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """One token's attention over layer ``li`` of a ROLLING cache (the
+    reference's grouped einsum, ``_block_decode``'s window branch — plain
+    math there too, not a kernel): slot j holds global position
+    ``p - ((p - j) % M)``, the latest position congruent to j not after
+    p; negative slot positions are not written yet, and positions older
+    than the window are masked.  Rolling caches are never ragged, so
+    every row reads row 0's position."""
+    b, t, h, d = q.shape
+    kc = _cache_read(cache["k"], li, cfg.dtype)
+    vc = _cache_read(cache["v"], li, cfg.dtype)
+    kv, m = kc.shape[1], kc.shape[2]
+    q5 = q.reshape(b, t, kv, h // kv, d)
+    s = torch.einsum("btkgd,bkmd->bkgtm", q5, kc).float()
+    s = s / math.sqrt(cfg.head_dim)
+    p0 = positions[0, 0]
+    slot = torch.arange(m, device=q.device)
+    spos = p0 - torch.remainder(p0 - slot, m)
+    bad = (spos < 0) | (spos < p0 - (cfg.window - 1))
+    s = s.masked_fill(bad, float("-inf"))
+    probs = torch.softmax(s, dim=-1).to(vc.dtype)
+    return torch.einsum("bkgtm,bkmd->btkgd", probs, vc).reshape(b, t, h, d)
 
 
 def decode_step(cfg: TransformerConfig, params: Params,
@@ -538,6 +621,10 @@ def decode_step(cfg: TransformerConfig, params: Params,
     buffers update IN PLACE."""
     b, t = tokens.shape
     dev = tokens.device
+    if (cfg.window is not None and isinstance(pos, torch.Tensor)
+            and pos.dim() == 1):
+        raise ValueError("ragged positions do not compose with "
+                         "sliding-window (rolling-cache) configs")
     offs = torch.arange(t, device=dev)
     if isinstance(pos, int) and pos == 0 and t > 1:
         positions = offs.expand(b, t)
@@ -708,7 +795,10 @@ def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
     keys = prng.split(rng)
     if prompt_lens is None:
         next_logits = logits[:, -1]
-        pos = torch.full((b,), t0 + tp, dtype=torch.long, device=dev)
+        # A window config's step reads one position for every row (a
+        # rolling cache is never ragged); others keep a position a row.
+        pos = torch.full(() if cfg.window is not None else (b,), t0 + tp,
+                         dtype=torch.long, device=dev)
     else:
         lens = torch.as_tensor(prompt_lens, device=dev).long()
         # Row i's next token follows its LAST REAL token, not the padding.

@@ -3,7 +3,8 @@ of ``examples/serve.py --continuous``).
 
     python -m tfmesos_tpu_torch.serve [--tiny] [--device cpu] \\
         [--batch 8] [--n-prompts 24] [--new-tokens 32] [--seed 0] \\
-        [--temperature 0.0] [--warmup] [--int8] [--int8-kv]
+        [--temperature 0.0] [--warmup] [--int8] [--int8-kv] \\
+        [--prefill-chunk N] [--prefix-cache-pages N]
 
 Prompts of 4..32 random tokens (seeded) go through
 :class:`~tfmesos_tpu_torch.serving.ContinuousBatcher` with ``--batch``
@@ -15,7 +16,10 @@ weight-only int8 params (``quantize_params``), ``--int8-kv`` keeps the
 page pool int8.  ``--temperature`` above 0 samples (the batcher's
 per-row threefry keys); ``--warmup`` runs ``ContinuousBatcher.warmup``
 before the stream starts (on the card: every decode width's CUDA graph
-captured ahead of the first request).  Runs on the card unless
+captured ahead of the first request).  ``--prefill-chunk N`` writes
+prompts N tokens a tick (chunked prefill); ``--prefix-cache-pages N``
+keeps up to N prompt pages resident for later requests sharing a
+prefix.  Both are off by default.  Runs on the card unless
 ``--device cpu``.
 """
 
@@ -48,6 +52,15 @@ def main(argv=None) -> int:
                    help="serve weight-only int8 params (quantize_params)")
     p.add_argument("--int8-kv", action="store_true", dest="int8_kv",
                    help="store the page pool as int8 (per-position absmax)")
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   dest="prefill_chunk",
+                   help="chunked prefill: write prompts this many tokens "
+                        "a tick (a positive multiple of 8), interleaved "
+                        "with the decode ticks")
+    p.add_argument("--prefix-cache-pages", type=int, default=0,
+                   dest="prefix_cache_pages",
+                   help="cross-request prefix cache: keep up to this many "
+                        "prompt pages resident (0 = off)")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -68,7 +81,10 @@ def main(argv=None) -> int:
     batcher = ContinuousBatcher(cfg, params, rows=args.batch, page_size=64,
                                 prefill_bucket=64,
                                 temperature=args.temperature,
-                                quantized_cache=args.int8_kv, device=device)
+                                quantized_cache=args.int8_kv,
+                                prefill_chunk=args.prefill_chunk,
+                                prefix_cache_pages=args.prefix_cache_pages,
+                                device=device)
     reqs = [Request(prompt=t, max_new_tokens=args.new_tokens)
             for t in prompts]
     for r in reqs:
@@ -93,6 +109,9 @@ def main(argv=None) -> int:
           f"{device} (peak pages {batcher.peak_pages_used}/"
           f"{batcher.n_pages}, {batcher.decode_ticks} decode ticks)",
           file=sys.stderr)
+    if batcher.prefix_cache_active:
+        print(f"prefix cache: {json.dumps(batcher.prefix_cache_stats())}",
+              file=sys.stderr)
     return 0
 
 

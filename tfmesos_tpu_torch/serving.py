@@ -1,10 +1,11 @@
-"""Continuous batching over the paged KV cache — the base loop (port
-of ``tfmesos_tpu/serving.py``: ``Request``/``Completion``/``_Row``
-``:256-330, 444-525``, ``_PagedSide`` ``:603-776``, the
-``ContinuousBatcher`` base loop ``:3799-4163``, uncached admission
-``:4210-4284``, the prefill and decode calls and per-row sampling keys
-``:2101-2197, 2472-2540``, ``warmup`` ``:2700-2760`` and the decode
-tick ``:4539-4586``).
+"""Continuous batching over the paged KV cache (port of
+``tfmesos_tpu/serving.py``: the bypass registry ``:75-183``, ``Request``
+/ ``Prefilled`` / the artifact packing / ``Completion`` / ``Suspended``
+/ ``Expired`` / ``_Row`` ``:256-525``, ``_PagedSide`` ``:603-776``, the
+prefix cache ``:779-1196``, the ``ContinuousBatcher`` loop and
+admission ``:2499-2700, 3799-4445``, chunked prefill ``:2389-2410,
+4398-4443``, warmup ``:2722``, KV export/import ``:2930-3326``, the
+decode tick ``:4539-4586``, deadlines and preemption ``:4909-5043``).
 
 A persistent page pool plus an admission loop that feeds new prompts
 into a RUNNING batched decode: rows free on stop token or quota,
@@ -18,12 +19,20 @@ Streams are the JAX batcher's: the same admission order, padding
 buckets, page tables (inactive rows write to a reserved sink page) and
 argmax, or with ``temperature > 0`` the same draws (each row's key is
 ``fold_in(fold_in(rng, rid), step)``, threefry in ``ops/prng.py``).
+The fleet surface is the reference's too: chunked prefill
+(``prefill_chunk``), the cross-request prefix cache
+(``prefix_cache_pages``), disaggregated KV export/import with artifacts
+either side can read (:func:`pack_prefilled`), priority preemption with
+the :meth:`ContinuousBatcher.preempt_all` drain, and deadlines.
+
 Each prompt-width prefill is an eager call.  On the card each
-table-width decode tick is a CUDA graph (``graphs.py``), captured at
-:meth:`ContinuousBatcher.warmup` or at the width's first tick and
-replayed after: the tick copies its inputs in one host-to-device copy,
-replays, and syncs once for its tokens.  Every layer of either launches
-the hand-written attention kernel (``ops/attention.py``).
+table-width decode tick, and each table-width prefill chunk, is a CUDA
+graph (``graphs.py``), captured at :meth:`ContinuousBatcher.warmup` or
+at its first call and replayed after: it copies its inputs in one
+host-to-device copy and replays.  Every layer of every call launches
+the hand-written attention kernel (``ops/attention.py``).  Graphs hold
+the pool's addresses, so nothing here reallocates it: copy-on-write
+copies, imports and commits write into the existing tensors.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tfmesos_tpu_torch import prefixhash as _ph
 from tfmesos_tpu_torch.device import resolve_device
 from tfmesos_tpu_torch.graphs import StepGraphs
 from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
@@ -50,28 +60,74 @@ from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
 from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.quant import QTensor
 
-__all__ = ["Request", "Completion", "ContinuousBatcher", "SubmissionQueue"]
+__all__ = ["Request", "Completion", "Suspended", "Expired",
+           "ContinuousBatcher", "SubmissionQueue", "Prefilled",
+           "pack_prefilled", "unpack_prefilled",
+           "BYPASS_ALLOWLIST", "compute_bypass_reasons"]
 
 # SubmissionQueue.poll's end-of-stream marker (distinct from None, which
 # means "nothing available right now, more may come").
 _CLOSED = object()
 
+#: The bypass registry's allowlist (the reference's, key for key): every
+#: reason a ``*_bypass_reason`` attribute may carry, per registry.
+BYPASS_ALLOWLIST = {
+    # An int8 pool's tail-recompute path is not bit-stable against the
+    # cold fused prefill, so shared pages could break warm == cold.
+    "prefix_cache": ("quantized kv cache",),
+    "kv_tier": ("mesh data sharding", "quantized kv cache"),
+    "pipeline": ("speculative decoding",),
+    "overlap": ("pipelined decode carry",),
+    "multi_step": ("speculative overlap round carry",),
+    "suspend": ("mesh data sharding", "lagged decode carry"),
+    "fused_prefill": ("mesh data sharding", "speculative decoding",
+                      "lagged decode carry"),
+}
+
+
+def compute_bypass_reasons(*, speculative: bool = False,
+                           n_shards: int = 1,
+                           quantized_cache: bool = False,
+                           draft_quantized_cache: bool = False,
+                           pipeline_depth: int = 0,
+                           overlap: bool = False,
+                           multi_step: int = 1
+                           ) -> Dict[str, Optional[str]]:
+    """The ``*_bypass_reason`` values a :class:`ContinuousBatcher` built
+    from these mode flags records (keys of :data:`BYPASS_ALLOWLIST`;
+    None = the feature composes), computed as the reference computes
+    them.  A mode the port does not have yet — speculative decoding, a
+    mesh, ``pipeline_depth``, ``overlap``, ``multi_step`` — raises
+    ``NotImplementedError`` when asked for."""
+    unported = {"speculative decoding": speculative or draft_quantized_cache,
+                "mesh data sharding (n_shards != 1)": n_shards != 1,
+                "pipeline_depth": bool(pipeline_depth),
+                "overlap": bool(overlap), "multi_step > 1": multi_step != 1}
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    out: Dict[str, Optional[str]] = {key: None for key in BYPASS_ALLOWLIST}
+    if quantized_cache:
+        out["prefix_cache"] = "quantized kv cache"
+        out["kv_tier"] = "quantized kv cache"
+    return out
+
 
 class SubmissionQueue:
-    """Thread-safe incremental :class:`Request` source for
-    :meth:`ContinuousBatcher.run`.  Any thread may :meth:`submit`;
-    :meth:`close` ends the stream (later submissions raise).  The run
-    loop polls non-blocking while rows decode and blocks only when
-    idle."""
+    """Thread-safe incremental :class:`Request` (or :class:`Prefilled`)
+    source for :meth:`ContinuousBatcher.run`.  Any thread may
+    :meth:`submit`; :meth:`close` ends the stream (later submissions
+    raise).  The run loop polls non-blocking while rows decode and
+    blocks only when idle."""
 
     def __init__(self) -> None:
         self._q: "_queue.Queue" = _queue.Queue()
         self._closed = False
         self._lock = threading.Lock()
 
-    def submit(self, request: "Request") -> None:
-        if not isinstance(request, Request):
-            raise TypeError(f"submit() takes a Request, got "
+    def submit(self, request) -> None:
+        if not isinstance(request, (Request, Prefilled)):
+            raise TypeError(f"submit() takes a Request or Prefilled, got "
                             f"{type(request).__name__}")
         with self._lock:
             if self._closed:
@@ -101,11 +157,27 @@ class SubmissionQueue:
 class Request:
     """One generation request: ``prompt`` is a non-empty 1-D int32 token
     array; generation stops after ``max_new_tokens`` or at
-    ``stop_token`` (which is emitted)."""
+    ``stop_token`` (which is emitted).
+
+    ``priority`` is the preemption rank (higher = more important): under
+    allocation pressure a strictly-higher-priority arrival may suspend
+    the lowest-priority resident row, whose stream later resumes
+    token-identically.  ``deadline_ms`` is the request's remaining
+    end-to-end budget at construction: an expired arrival is shed before
+    its prefill and an expired resident row is cancelled (an
+    :class:`Expired` in the stream).  ``session_id`` is carried for the
+    fleet (parking a session needs the KV tier, not ported yet).
+    ``trace`` (a trace context with ``event`` and ``span_between``) and
+    ``on_tokens(new_tokens, offset)`` (incremental streaming, called
+    once a tick with the tokens since the last call) are attributes the
+    caller may set; both default to None."""
 
     prompt: np.ndarray
     max_new_tokens: int
     stop_token: Optional[int] = None
+    priority: int = 0
+    deadline_ms: Optional[float] = None
+    session_id: Optional[str] = None
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32)
@@ -116,6 +188,147 @@ class Request:
         if self.max_new_tokens < 1:
             raise ValueError(f"Request.max_new_tokens must be >= 1, got "
                              f"{self.max_new_tokens}")
+        self.priority = int(self.priority)
+        if self.session_id is not None:
+            self.session_id = str(self.session_id)
+        self.trace = None
+        self.on_tokens = None
+        self.deadline: Optional[float] = None
+        if self.deadline_ms is not None:
+            if not self.deadline_ms > 0:
+                raise ValueError(f"Request.deadline_ms must be > 0, got "
+                                 f"{self.deadline_ms}")
+            self.deadline = (time.perf_counter()
+                             + float(self.deadline_ms) / 1000.0)
+
+    @property
+    def expired(self) -> bool:
+        """Whether the end-to-end deadline has passed (always False
+        without one)."""
+        return (self.deadline is not None
+                and time.perf_counter() >= self.deadline)
+
+
+@dataclasses.dataclass
+class Prefilled:
+    """One IMPORTED prefill: the original :class:`Request` plus the KV
+    artifact a batcher exported for it (:meth:`ContinuousBatcher.
+    export_kv`, or a :class:`Suspended` item's).  Admission installs the
+    artifact's pages into the local pool and the row enters decode with
+    its emitted tokens already in place — no prefill runs here."""
+
+    request: Request
+    artifact: dict
+
+    def __post_init__(self):
+        if not isinstance(self.request, Request):
+            raise TypeError("Prefilled.request must be a Request")
+        if not isinstance(self.artifact, dict):
+            raise TypeError("Prefilled.artifact must be an export_kv() "
+                            "artifact dict")
+
+
+# Artifact array leaves, in their fixed wire order, and the small
+# header keys: the reference's lists as they are (the draft and session
+# keys are carried through packing though this port writes none).
+_KV_ARRAY_KEYS = ("k", "v", "k_scales", "v_scales",
+                  "dk", "dv", "dk_scales", "dv_scales")
+_KV_META_KEYS = ("version", "page_size", "prefix_len", "shared_len",
+                 "pos", "prompt_len", "first_token", "rid", "quantized",
+                 "model", "step", "tokens", "history", "draft")
+
+# A bf16 page travels as its raw 16-bit words under numpy's name for the
+# type, "bfloat16" (what the reference's ml_dtypes arrays are called), so
+# neither side needs a numpy bf16 type to read the other's bytes.
+_BF16 = "bfloat16"
+_TORCH_NAMES = {torch.bfloat16: _BF16, torch.float32: "float32",
+                torch.float16: "float16", torch.int8: "int8"}
+
+
+def _dtype_name(a) -> str:
+    """numpy's name of an artifact array's dtype (a numpy array, or a
+    CPU tensor: bf16 pages are tensors here)."""
+    if isinstance(a, torch.Tensor):
+        return _TORCH_NAMES.get(a.dtype, str(a.dtype))
+    return str(a.dtype)
+
+
+def _array_bytes(a):
+    """The raw bytes of an artifact array, zero-copy where numpy can."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous()
+        a = a.view(torch.int16).numpy() if a.dtype == torch.bfloat16 \
+            else a.numpy()
+    a = np.ascontiguousarray(a)
+    try:
+        return memoryview(a).cast("B")
+    except (ValueError, TypeError):     # extension dtypes (a numpy bf16)
+        return a.tobytes()
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """An artifact array as a CPU tensor (a numpy bf16 array — the
+    reference's own artifacts — through its 16-bit words)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if str(a.dtype) == _BF16:
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def pack_prefilled(artifact: dict) -> tuple:
+    """Split an :meth:`~ContinuousBatcher.export_kv` artifact into a
+    small JSON-encodable ``meta`` dict and one contiguous ``body``
+    buffer, byte for byte the reference's encoding (bf16 pages as their
+    raw words under dtype "bfloat16")."""
+    meta = {k: artifact[k] for k in _KV_META_KEYS if k in artifact}
+    specs, parts = [], []
+    for name in _KV_ARRAY_KEYS:
+        a = artifact.get(name)
+        if a is None:
+            continue
+        specs.append({"name": name, "dtype": _dtype_name(a),
+                      "shape": list(a.shape)})
+        parts.append(_array_bytes(a))
+    meta["arrays"] = specs
+    return meta, b"".join(parts)
+
+
+def unpack_prefilled(meta: dict, body) -> dict:
+    """Inverse of :func:`pack_prefilled` (and of the reference's): the
+    artifact dict from a received frame.  Array leaves are numpy views
+    into ``body``, but bf16 pages, which become bf16 CPU tensors;
+    malformed frames raise ``ValueError``."""
+    art = {k: meta[k] for k in _KV_META_KEYS if k in meta}
+    specs = meta.get("arrays")
+    if not isinstance(specs, (list, tuple)):
+        raise ValueError("prefilled meta carries no array manifest")
+    view = memoryview(body).cast("B")
+    off = 0
+    for spec in specs:
+        try:
+            name = spec["name"]
+            bf16 = spec["dtype"] == _BF16
+            dtype = np.dtype(np.int16 if bf16 else spec["dtype"])
+            shape = tuple(int(d) for d in spec["shape"])
+        except (TypeError, KeyError, ValueError) as e:
+            raise ValueError(f"bad prefilled array spec {spec!r}") from e
+        if name not in _KV_ARRAY_KEYS:
+            raise ValueError(f"unexpected prefilled array {name!r}")
+        count = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        nbytes = count * dtype.itemsize
+        if off + nbytes > len(view):
+            raise ValueError("prefilled body shorter than its manifest")
+        a = np.frombuffer(view, dtype=dtype, count=count,
+                          offset=off).reshape(shape)
+        art[name] = (torch.from_numpy(a.copy()).view(torch.bfloat16)
+                     if bf16 else a)
+        off += nbytes
+    if off != len(view):
+        raise ValueError(f"prefilled body has {len(view) - off} trailing "
+                         f"bytes beyond its manifest")
+    return art
 
 
 @dataclasses.dataclass
@@ -133,6 +346,30 @@ class Completion:
 
 
 @dataclasses.dataclass
+class Suspended:
+    """An in-flight request the batcher gave back after
+    :meth:`ContinuousBatcher.preempt_all`: ``artifact`` (an
+    ``export_kv``-shaped dict with the row's pages and emitted tokens)
+    resumes it token-identically through ``submit(request,
+    prefilled=artifact)``; None when it held no resumable state (queued
+    or still prefilling) and simply reruns."""
+
+    rid: int
+    request: Request
+    artifact: Optional[dict] = None
+
+
+@dataclasses.dataclass
+class Expired:
+    """A request cancelled because its deadline passed, yielded where
+    its Completion would have gone; ``rid`` is -1 when it never reached
+    admission."""
+
+    rid: int
+    request: Request
+
+
+@dataclasses.dataclass
 class _Row:
     """Host-side state of one in-flight row."""
 
@@ -145,13 +382,39 @@ class _Row:
     worst_pages: int    # admission-time page reservation
     t_admit: float = 0.0
     t_first: float = 0.0
+    # Chunked prefill: the padded prompt and how much of it is written;
+    # the row decodes only once filled.
+    padded: Optional[np.ndarray] = None
+    filled: int = 0
+    decoding: bool = True
     limit: int = 0      # absolute position cap the reservation covers
+    streamed: int = 0   # tokens of ``out`` already passed to on_tokens
+
+
+@dataclasses.dataclass
+class _PrefixPlan:
+    """Admission's decision to serve a request's leading prompt pages
+    from the prefix cache: map ``nodes``' pages read-only and prefill
+    from ``tail_start`` on.  ``cow`` marks the page-aligned full hit,
+    whose deepest page is copied into an own page before the one-token
+    logits chunk rewrites its last position."""
+
+    nodes: list
+    cow: bool
+    tail_start: int     # first ABSOLUTE position the prefill writes
+
+    @property
+    def save(self) -> int:
+        """Own-page reservations the mapping saves."""
+        return len(self.nodes) - (1 if self.cow else 0)
 
 
 class _PagedSide:
     """Host-side state of the paged pool: the allocator, the reserved
-    sink page and the cached page tables the model calls consume.  A
-    row with no allocation is all-sink."""
+    sink page, the prefix-cache pages each row maps read-only, and the
+    cached page tables the model calls consume.  A row's table is
+    [cached-prefix pages | own pages | sink ...]; a row with neither is
+    all-sink."""
 
     def __init__(self, n_pages: int, page_size: int, rows: int,
                  np_max: int):
@@ -165,17 +428,23 @@ class _PagedSide:
         # request owns.
         self.sink = self.alloc.reserve_page()
         self.peak = 0                       # high-water mark of pages used
+        self.pcache: Optional["_PrefixCache"] = None
+        self.row_cached: Dict[int, List[int]] = {}
         self._cache_np: Optional[np.ndarray] = None
-        self._sliced = None                 # (width, sliced table)
+        self._masked = None                 # ((masked rows, width), table)
 
     def dirty(self) -> None:
-        """Invalidate the derived tables after any page-mapping change."""
-        self._cache_np = self._sliced = None
+        """Invalidate the derived tables after any page-mapping change
+        (growth, release, a cached-prefix mapping or its COW remap)."""
+        self._cache_np = self._masked = None
 
     def ensure(self, row: int, length: int) -> None:
-        """Back positions [0, length) of ``row``."""
+        """Back positions [0, length) of ``row``: its mapped cached
+        pages cover the first ``len(row_cached[row]) * page_size``, its
+        own allocation the rest."""
         before = self.alloc.allocated(row)
-        self.alloc.ensure(row, max(0, length))
+        covered = self.page_size * len(self.row_cached.get(row, ()))
+        self.alloc.ensure(row, max(0, length - covered))
         if self.alloc.allocated(row) != before:
             self.dirty()
         used = self.n_pages - self.alloc.free_count()
@@ -183,46 +452,351 @@ class _PagedSide:
             self.peak = used
 
     def release(self, row: int) -> None:
+        if self.pcache is not None:
+            self.pcache.release_row(row)
         self.alloc.release(row)
         self.dirty()
 
     def headroom(self, active: Dict[int, _Row]) -> int:
-        """Free pages not spoken for by in-flight rows' reservations."""
+        """Free pages not spoken for by in-flight rows' reservations;
+        zero-ref cached pages count as free (the allocator reclaims
+        them on demand), so the cache never blocks admission."""
         outstanding = sum(row.worst_pages - self.alloc.allocated(r)
                           for r, row in active.items())
-        return self.alloc.free_count() - outstanding
+        reclaimable = (self.pcache.reclaimable(0)
+                       if self.pcache is not None else 0)
+        return self.alloc.free_count() + reclaimable - outstanding
 
     def table_np(self) -> np.ndarray:
-        """Host master copy of the [rows, np_max] table: own pages, then
-        sink."""
+        """Host master copy of the [rows, np_max] table."""
         if self._cache_np is None:
             t = np.full((self.rows, self.np_max), self.sink, np.int32)
-            for r, own in self.alloc.rows.items():
-                t[r, :len(own)] = own
+            for r in range(self.rows):
+                own = self.alloc.rows.get(r) or []
+                cached = self.row_cached.get(r) or []
+                nc = len(cached)
+                t[r, :nc] = cached
+                t[r, nc:nc + len(own)] = own
             self._cache_np = t
         return self._cache_np
 
+    def occupied(self, row: int) -> int:
+        """Table columns ``row`` maps (cached plus own pages)."""
+        return (len(self.row_cached.get(row, ()))
+                + self.alloc.allocated(row))
+
     def bucket_width(self) -> int:
-        """Smallest power-of-two table width covering every allocated
-        row, capped at ``np_max``: a decode tick reads no wider table
-        than the live rows need, and the width is strictly greater than
-        the widest allocation, so a clamped write lands on a sink
-        column, never a live page."""
-        occ = max((len(p) for p in self.alloc.rows.values() if p),
+        """Smallest power-of-two table width covering every mapped row,
+        capped at ``np_max``: a decode tick reads no wider table than
+        the live rows need, and the width is strictly greater than the
+        widest mapping, so a clamped write lands on a sink column,
+        never a live page."""
+        occ = max((self.occupied(r) for r in
+                   set(self.alloc.rows) | set(self.row_cached)),
                   default=1)
-        return self.width_for(occ, self.np_max)
+        return self.width_for(max(occ, 1), self.np_max)
 
     @staticmethod
     def width_for(occ: int, np_max: int) -> int:
         return min(1 << occ.bit_length(), np_max)
 
-    def decode_table(self) -> np.ndarray:
+    def decode_table(self, active: Optional[Dict[int, _Row]] = None,
+                     decoding: Optional[Dict[int, _Row]] = None
+                     ) -> np.ndarray:
         """The decode tick's table, sliced to :meth:`bucket_width`
-        columns; cached until the allocation changes."""
+        columns, with rows of ``active`` not in ``decoding`` (still-
+        filling chunked prefills own their pages) pinned to the sink
+        (none without ``active``); cached
+        until the allocation or the masked set changes."""
         w = self.bucket_width()
-        if self._sliced is None or self._sliced[0] != w:
-            self._sliced = (w, np.ascontiguousarray(self.table_np()[:, :w]))
-        return self._sliced[1]
+        masked = (frozenset() if active is None
+                  or len(decoding) == len(active)
+                  else frozenset(r for r in active if r not in decoding))
+        if self._masked is None or self._masked[0] != (masked, w):
+            t = self.table_np()[:, :w].copy()
+            for r in masked:
+                t[r, :] = self.sink
+            self._masked = ((masked, w), t)
+        return self._masked[1]
+
+
+class _PrefixNode:
+    """One cached page-aligned chunk: a trie node owning one resident
+    pool page.  ``ref`` counts the live rows mapping it; a zero-ref node
+    keeps its page resident (that is the cache) until the LRU evictor
+    reclaims it under allocation pressure or the budget."""
+
+    __slots__ = ("digest", "page", "ref", "parent", "children", "last",
+                 "shard")
+
+    def __init__(self, digest: bytes, page: int, parent, last: int,
+                 shard: int):
+        self.digest = digest
+        self.page = page
+        self.ref = 1
+        self.parent = parent        # _PrefixNode or None (root level)
+        self.children: Dict[bytes, "_PrefixNode"] = {}
+        self.last = last            # LRU tick of the last touch
+        self.shard = shard
+
+
+class _PrefixCache:
+    """Cross-request prefix cache over one :class:`_PagedSide`: a hash
+    trie (``prefixhash`` chain digests of page-aligned prompt chunks) of
+    resident pool pages with refcounts.  Admission maps the longest
+    cached prefix read-only (``acquire``) and prefills only the tail;
+    the tail's full prompt pages are then published (``insert_row``:
+    ownership moves from the row's allocation to the cache).  Finished
+    rows drop their references; zero-ref pages stay resident and the
+    allocator's ``reclaim`` hook evicts LRU leaves only when an
+    allocation would otherwise fail; ``budget`` caps resident pages at
+    insert time.
+
+    The port serves one shard: the ``shard`` arguments of the
+    reference's per-shard tries are kept, and are always 0.  Every
+    public method takes the lock (``stats`` and ``summary`` are read
+    from a heartbeat thread)."""
+
+    def __init__(self, side: _PagedSide, page_size: int, first: int,
+                 seed: bytes, budget: int, n_shards: int = 1):
+        self.side = side
+        self.page_size = int(page_size)
+        self.first = int(first)     # width of chunk 0
+        self.seed = seed            # chain seed
+        self.budget = int(budget)   # max cached pages per shard
+        self.n_shards = int(n_shards)
+        self.roots: List[Dict[bytes, _PrefixNode]] = [
+            {} for _ in range(self.n_shards)]
+        self.row_nodes: Dict[int, List[_PrefixNode]] = {}
+        self._n_nodes = [0] * self.n_shards
+        self._n_zero = [0] * self.n_shards
+        self._tick = 0
+        self._lock = threading.Lock()
+        self._stats = {"hits": 0, "misses": 0, "hit_pages": 0,
+                       "hit_tokens": 0, "inserted": 0, "evicted": 0,
+                       "cow_copies": 0, "skipped": 0, "promoted": 0}
+        side.pcache = self
+        side.alloc.reclaim = functools.partial(self._reclaim_cb, 0)
+
+    # -- trie walks (call under the lock) ---------------------------------
+
+    def _walk(self, shard: int):
+        stack = list(self.roots[shard].values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            yield n
+
+    def match(self, shard: int, digests) -> List[_PrefixNode]:
+        """Longest cached path for ``digests`` (read-only)."""
+        with self._lock:
+            level = self.roots[shard]
+            path: List[_PrefixNode] = []
+            for d in digests:
+                node = level.get(d)
+                if node is None:
+                    break
+                path.append(node)
+                level = node.children
+            return path
+
+    # -- row mapping -------------------------------------------------------
+
+    def acquire(self, row: int, nodes: List[_PrefixNode]) -> None:
+        """Map ``nodes``' pages read-only into ``row``'s table."""
+        with self._lock:
+            self._tick += 1
+            for n in nodes:
+                n.ref += 1
+                if n.ref == 1:
+                    self._n_zero[n.shard] -= 1
+                n.last = self._tick
+            self.row_nodes[row] = list(nodes)
+            self.side.row_cached[row] = [n.page for n in nodes]
+        self.side.dirty()
+
+    def unmap_last(self, row: int) -> _PrefixNode:
+        """Drop the deepest mapped page from ``row``'s table (the COW
+        remap); its reference stays held until ``release_nodes``, so the
+        evictor cannot reclaim the source mid-copy."""
+        with self._lock:
+            node = self.row_nodes[row][-1]
+            self.side.row_cached[row].pop()
+        self.side.dirty()
+        return node
+
+    def _drop_ref(self, n: _PrefixNode) -> None:
+        n.ref -= 1
+        if n.ref == 0:
+            self._n_zero[n.shard] += 1
+        n.last = self._tick
+
+    def release_nodes(self, row: int, nodes) -> None:
+        with self._lock:
+            self._tick += 1
+            held = self.row_nodes.get(row, [])
+            for n in nodes:
+                self._drop_ref(n)
+                held.remove(n)
+
+    def release_row(self, row: int) -> None:
+        """The row finished: drop every reference it holds (idempotent);
+        its pages stay resident up to the budget."""
+        with self._lock:
+            self._tick += 1
+            for n in self.row_nodes.pop(row, []):
+                self._drop_ref(n)
+            self.side.row_cached.pop(row, None)
+
+    def insert_row(self, row: int, shard: int, digests, state) -> None:
+        """Publish ``row``'s freshly prefilled full prompt pages: the
+        leading own pages move to the cache (the row keeps referencing
+        them at the same table slots), extending the path it already
+        holds.  Stops at a chunk another row published first, or when
+        the budget cannot be met by evicting."""
+        with self._lock:
+            self._tick += 1
+            held = self.row_nodes.setdefault(row, [])
+            own = self.side.alloc.rows.get(row, [])
+            cached = self.side.row_cached.setdefault(row, [])
+            level = (held[-1].children if held else self.roots[shard])
+            moved = 0
+            for d in digests[len(held):]:
+                if not own or d in level:
+                    break
+                while (self._n_nodes[shard] >= self.budget
+                       and self._evict_one(shard)):
+                    pass
+                if self._n_nodes[shard] >= self.budget:
+                    self._stats["skipped"] += 1
+                    break
+                node = _PrefixNode(d, own.pop(0),
+                                   held[-1] if held else None,
+                                   self._tick, shard)
+                level[d] = node
+                self._n_nodes[shard] += 1
+                held.append(node)
+                cached.append(node.page)
+                level = node.children
+                moved += 1
+            self._stats["inserted"] += moved
+        # The moved pages still back the row's positions: its
+        # reservation shrinks with its allocation, keeping headroom exact.
+        state.worst_pages -= moved
+
+    # -- eviction ----------------------------------------------------------
+
+    def reclaimable(self, shard: int) -> int:
+        """Zero-ref nodes (a referenced descendant keeps its ancestors
+        referenced, so a zero-ref subtree is entirely evictable)."""
+        return self._n_zero[shard]
+
+    def _evict_one(self, shard: int) -> bool:
+        """Reclaim the LRU zero-ref LEAF; its page returns to the free
+        list.  Caller holds the lock."""
+        best = None
+        for n in self._walk(shard):
+            if n.ref == 0 and not n.children:
+                if best is None or n.last < best.last:
+                    best = n
+        if best is None:
+            return False
+        level = (best.parent.children if best.parent is not None
+                 else self.roots[shard])
+        del level[best.digest]
+        self._n_nodes[shard] -= 1
+        self._n_zero[shard] -= 1
+        self.side.alloc.free.append(best.page)
+        self._stats["evicted"] += 1
+        return True
+
+    def _reclaim_cb(self, shard: int) -> bool:
+        with self._lock:
+            return self._evict_one(shard)
+
+    def clear(self) -> int:
+        """Drop every cached node, returning its page to the free list
+        (only with no row referencing one).  Returns the nodes
+        dropped."""
+        with self._lock:
+            if self.row_nodes:
+                raise RuntimeError("prefix cache clear with live row "
+                                   "references — drain resident rows "
+                                   "first")
+            dropped = 0
+            for shard in range(self.n_shards):
+                for n in self._walk(shard):
+                    self.side.alloc.free.append(n.page)
+                    dropped += 1
+                self.roots[shard] = {}
+                self._n_nodes[shard] = self._n_zero[shard] = 0
+            self._stats["evicted"] += dropped
+        if dropped:
+            self.side.dirty()
+        return dropped
+
+    # -- accounting / export ----------------------------------------------
+
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._stats[name] += n
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            out = dict(self._stats)
+            out["cached_pages"] = sum(self._n_nodes)
+            out["retained_pages"] = sum(self._n_zero)
+        return out
+
+    def summary(self, max_entries: int = 64) -> Dict[str, Any]:
+        """The heartbeat summary: chunk geometry plus the most recently
+        touched chain digests (what the fleet router matches prompts
+        against), and the stats."""
+        with self._lock:
+            nodes = [n for s in range(self.n_shards)
+                     for n in self._walk(s)]
+            nodes.sort(key=lambda n: n.last, reverse=True)
+            return {"page": self.page_size, "first": self.first,
+                    "seed": self.seed.hex(),
+                    "hashes": [n.digest.hex()
+                               for n in nodes[:max_entries]],
+                    "stats": dict(self._stats)}
+
+
+def _pool_leaves(pool: Dict[str, Any]) -> List[torch.Tensor]:
+    """The pool's tensors: K and V, or an int8 pool's values and
+    scales, each with pages on axis 1."""
+    out = []
+    for name in ("k", "v"):
+        buf = pool[name]
+        out.extend((buf.values, buf.scales) if isinstance(buf, QTensor)
+                   else (buf,))
+    return out
+
+
+def _gather_pages(pool: Dict[str, Any], ids: torch.Tensor
+                  ) -> List[torch.Tensor]:
+    """Pool pages ``ids`` of every layer and leaf, on the host: the
+    device side of :meth:`ContinuousBatcher.export_kv`."""
+    return [buf[:, ids].cpu() for buf in _pool_leaves(pool)]
+
+
+@torch.no_grad()
+def _install_pages(pool: Dict[str, Any], payload: List[torch.Tensor],
+                   ids: torch.Tensor) -> None:
+    """Write an imported page payload (:func:`_pool_leaves` order) into
+    pool pages ``ids`` IN PLACE: the device side of the import
+    admission."""
+    for buf, src in zip(_pool_leaves(pool), payload):
+        buf[:, ids] = src.to(device=buf.device, dtype=buf.dtype)
+
+
+@torch.no_grad()
+def _copy_page(pool: Dict[str, Any], src: int, dst: int) -> None:
+    """Copy pool page ``src`` into ``dst`` on every layer and leaf, IN
+    PLACE: the copy-on-write of a prefix-cache full hit."""
+    for buf in _pool_leaves(pool):
+        buf[:, dst].copy_(buf[:, src])
 
 
 class ContinuousBatcher:
@@ -237,32 +811,99 @@ class ContinuousBatcher:
     ``fold_in(fold_in(rng, rid), step)`` (``rng`` a threefry key,
     default ``PRNGKey(0)``; the prefill's token is step 0).  Runs on
     the card unless ``device="cpu"`` (no card and no ``device`` raises);
-    on the card the decode ticks replay CUDA graphs (:meth:`warmup`).
-    ``params`` are the float32 masters or a ``quantize_params`` tree;
-    the batcher keeps a copy cast once to the compute dtype (the model
-    casts every weight and int8 scale at use, so the bits are the same).
-    ``quantized_cache=True`` stores the page pool as int8 with
-    per-position scales (the full int8 serving configuration with int8
-    params).
+    on the card the decode ticks and prefill chunks replay CUDA graphs
+    (:meth:`warmup`).  ``params`` are the float32 masters or a
+    ``quantize_params`` tree; the batcher keeps a copy cast once to the
+    compute dtype (the model casts every weight and int8 scale at use,
+    so the bits are the same).  ``quantized_cache=True`` stores the page
+    pool as int8 with per-position scales.
 
-    Counters for measurement: ``prefills`` (prefill calls),
+    ``prefill_chunk`` (a positive multiple of 8) turns on CHUNKED
+    PREFILL: admission writes the prompt in chunks of that many tokens,
+    one per tick of the oldest filling row, interleaved with the decode
+    tick, so a long prompt stalls decoding rows by one chunk a tick.
+    The chunk size becomes the prompt padding bucket.  A chunk runs
+    ``decode_step`` over the pool (cache attention, the paged kernel
+    with the chunk as its self operand), so greedy streams may differ
+    from the unchunked batcher's at float ties, as in the reference.
+
+    ``prefix_cache_pages`` (> 0 enables; the value caps resident cached
+    pages) turns on the CROSS-REQUEST PREFIX CACHE: full page-aligned
+    prompt chunks are published after prefill, later requests sharing a
+    leading prompt run map those pages read-only and prefill only the
+    uncached tail at its true offset; a page-aligned full hit copies its
+    deepest page first (copy-on-write).  Finished requests leave
+    zero-ref pages resident, reclaimed LRU-first under allocation
+    pressure.  An int8 pool bypasses it (``prefix_cache_bypass_reason``).
+
+    Disaggregated serving: :meth:`export_kv` prefills a request and
+    returns its KV pages and sampler state as a host artifact;
+    ``submit(request, prefilled=artifact)`` on a matching batcher
+    installs the pages and decodes from there, token-identically
+    (:func:`pack_prefilled` carries artifacts between processes, and
+    between this port and the reference).  Priority preemption suspends
+    the lowest-priority resident row for a strictly-higher-priority
+    arrival and resumes it later from its artifact;
+    :meth:`preempt_all` gives back every in-flight request as a
+    :class:`Suspended`.  Deadlines shed an expired arrival before its
+    prefill and cancel an expired resident row (:class:`Expired`).
+
+    The reference's other modes (``multi_step``, ``pipeline_depth``,
+    ``overlap``, ``fused_prefill``, a static ``prefix``, ``kv_tier``,
+    speculative decoding, a ``mesh``) are not ported yet: asking for one
+    raises ``NotImplementedError``.
+
+    Counters for measurement: ``prefills`` (full-prompt prefill calls),
+    ``tail_prefills`` (prefix-cache tails), ``prefill_chunks``,
     ``decode_ticks``, ``decode_tokens`` and ``decode_seconds`` (wall
     time of the decode ticks, each ending in the host sync of its
-    tokens)."""
+    tokens), ``preemptions``, ``resumes`` and ``deadline_cancels``."""
 
     def __init__(self, cfg: TransformerConfig, params: Params, rows: int = 8,
                  max_len: Optional[int] = None, page_size: int = 64,
                  n_pages: Optional[int] = None, prefill_bucket: int = 64,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
-                 rng: Optional[torch.Tensor] = None, rid_seed: int = 0,
-                 quantized_cache: bool = False, device=None):
+                 rng: Optional[torch.Tensor] = None,
+                 quantized_cache: bool = False, prefix=None,
+                 prefill_chunk: Optional[int] = None,
+                 draft_cfg=None, draft_params=None, n_draft: int = 4,
+                 draft_n_pages: Optional[int] = None, mesh=None,
+                 overlap: bool = False, draft_quantized_cache: bool = False,
+                 multi_step: int = 1, prefix_cache_pages: int = 0,
+                 pipeline_depth: int = 0, kv_tier=None, rid_seed: int = 0,
+                 fused_prefill: bool = False,
+                 tokens_per_tick: Optional[int] = None, device=None):
         if rows < 1:
             raise ValueError(f"rows must be >= 1, got {rows}")
         if not 0 <= int(rid_seed) < 2 ** 30:
             raise ValueError(f"rid_seed must be in [0, 2^30), got "
                              f"{rid_seed}")
+        if prefix_cache_pages < 0:
+            raise ValueError(f"prefix_cache_pages must be >= 0, got "
+                             f"{prefix_cache_pages}")
+        unported = {"mesh": mesh is not None,
+                    "prefix": prefix is not None,
+                    "kv_tier": kv_tier is not None,
+                    "fused_prefill": bool(fused_prefill),
+                    "tokens_per_tick": tokens_per_tick is not None,
+                    "draft_params": draft_params is not None,
+                    "draft_n_pages": draft_n_pages is not None}
+        asked = [name for name, on in unported.items() if on]
+        if asked:
+            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        self._bypass = compute_bypass_reasons(
+            speculative=draft_cfg is not None,
+            quantized_cache=quantized_cache,
+            draft_quantized_cache=draft_quantized_cache,
+            pipeline_depth=pipeline_depth, overlap=overlap,
+            multi_step=multi_step)
         _check_sampling_args(top_k, top_p)
+        if prefill_chunk is not None:
+            if prefill_chunk < 1 or prefill_chunk % 8:
+                raise ValueError(f"prefill_chunk ({prefill_chunk}) must be "
+                                 f"a positive multiple of 8")
+            prefill_bucket = prefill_chunk
         if prefill_bucket < 1:
             raise ValueError(f"prefill_bucket must be >= 1, got "
                              f"{prefill_bucket}")
@@ -277,7 +918,9 @@ class ContinuousBatcher:
         self.page_size = int(page_size)
         self.np_max = -(-self.max_len // self.page_size)
         self.n_pages = int(n_pages or self.rows * self.np_max + 1)
+        self.prefill_chunk = prefill_chunk
         self.prefill_bucket = int(prefill_bucket)
+        self.prefix_len = 0     # the static ``prefix=`` is not ported
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
@@ -288,11 +931,25 @@ class ContinuousBatcher:
         self.pool = init_paged_cache(cfg, self.n_pages, self.page_size,
                                      quantized=quantized_cache,
                                      device=self.device)
+        self.suspend_bypass_reason: Optional[str] = self._bypass["suspend"]
+        self._pcache: Optional[_PrefixCache] = None
+        self.prefix_cache_bypass_reason: Optional[str] = None
+        if prefix_cache_pages:
+            self.prefix_cache_bypass_reason = self._bypass["prefix_cache"]
+            if self.prefix_cache_bypass_reason is None:
+                self._pcache = _PrefixCache(self.t_side, self.page_size,
+                                            self.page_size, b"",
+                                            prefix_cache_pages)
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
         self._submissions_lock = threading.Lock()
+        # Fences export_kv's row borrowing and warmup against the loop.
         self._loop_lock = threading.Lock()
         self._loop_active = False
+        # Preempted rows' artifacts waiting for a row to resume through
+        # the import path, and the drain-migration request.
+        self._parked: deque = deque()
+        self._preempt_event = threading.Event()
         # The decode tick's static buffers: its inputs (tokens, positions
         # clamped to max_len, rids, steps; one row each) packed for one
         # host-to-device copy from pinned memory, its tokens, and a page
@@ -308,20 +965,77 @@ class ContinuousBatcher:
                                      pin_memory=pin)
         # width -> (host table last copied, pinned staging, device table)
         self._tables: Dict[int, Tuple[Any, torch.Tensor, torch.Tensor]] = {}
+        # (chunk tokens, table width) -> the chunk step's static input
+        # (tokens, pos, cap, rid, the row's table) and output buffers.
+        self._chunk_bufs: Dict[Tuple[int, int],
+                               Tuple[torch.Tensor, torch.Tensor]] = {}
         self._graphs = StepGraphs(self.device)
         self.prefills = 0
+        self.tail_prefills = 0
+        self.prefill_chunks = 0
         self.decode_ticks = 0
         self.decode_tokens = 0
         self.decode_seconds = 0.0
+        self.preemptions = 0        # rows suspended for a higher class
+        self.resumes = 0            # parked rows re-admitted locally
+        self.deadline_cancels = 0   # arrivals shed + resident rows cancelled
 
     @property
     def peak_pages_used(self) -> int:
         return self.t_side.peak
 
+    @property
+    def alloc(self) -> PageAllocator:
+        return self.t_side.alloc
+
+    @property
+    def prefix_cache_active(self) -> bool:
+        return self._pcache is not None
+
+    @property
+    def preemptible(self) -> bool:
+        """Whether a resident row can be suspended (the ``suspend``
+        registry entry is None): always, on the port's single-shard,
+        host-synchronous loop."""
+        return self.suspend_bypass_reason is None
+
+    def prefix_cache_stats(self) -> Optional[Dict[str, int]]:
+        """Hit/miss/eviction counters plus occupancy of the prefix cache
+        (None when disabled or bypassed); thread-safe."""
+        return None if self._pcache is None else self._pcache.stats()
+
+    def prefix_cache_summary(self, max_entries: int = 64
+                             ) -> Optional[dict]:
+        """The heartbeat summary of what the prefix cache holds (chunk
+        geometry plus recent chain digests); None when disabled."""
+        return (None if self._pcache is None
+                else self._pcache.summary(max_entries))
+
+    def kv_headroom(self) -> int:
+        """Free pool pages a new request could take now: the free list
+        plus zero-ref cached pages (a heartbeat-grade load signal; it
+        does not subtract in-flight reservations)."""
+        free = self.t_side.alloc.free_count()
+        if self._pcache is not None:
+            free += self._pcache.reclaimable(0)
+        return free
+
+    def preempt_all(self) -> None:
+        """Ask the serve loop to give back EVERY in-flight request as a
+        :class:`Suspended` on its next tick (the drain-migration side):
+        resident decoding rows carry their KV artifact, everything else
+        requeues with ``artifact=None``.  Thread-safe."""
+        self._preempt_event.set()
+
     # -- validation / online submission -----------------------------------
 
-    def validate(self, req: Request) -> None:
-        """Raise ``ValueError`` if ``req`` can never be served here."""
+    def validate(self, req) -> None:
+        """Raise ``ValueError`` if ``req`` (a :class:`Request` or
+        :class:`Prefilled`) can never be served here."""
+        if isinstance(req, Prefilled):
+            self._worst_pages(req.request)
+            self._validate_artifact(req.artifact, req.request)
+            return
         self._worst_pages(req)
 
     def _submission_source(self) -> SubmissionQueue:
@@ -330,9 +1044,13 @@ class ContinuousBatcher:
                 self._submissions = SubmissionQueue()
             return self._submissions
 
-    def submit(self, request: Request) -> None:
+    def submit(self, request: Request, prefilled: Optional[dict] = None
+               ) -> None:
         """Thread-safe online admission: queue ``request`` for
-        :meth:`serve`; raises after :meth:`close`."""
+        :meth:`serve`; raises after :meth:`close`.  ``prefilled`` (an
+        :meth:`export_kv` artifact) puts it on the import path."""
+        if prefilled is not None:
+            request = Prefilled(request, prefilled)
         self._submission_source().submit(request)
 
     def close(self) -> None:
@@ -345,12 +1063,16 @@ class ContinuousBatcher:
 
     # -- the loop ---------------------------------------------------------
 
-    def run(self, requests: Iterable[Request]) -> Iterator[Completion]:
-        """Serve ``requests`` (any iterable, or a :class:`SubmissionQueue`
-        via :meth:`serve`), yielding :class:`Completion` s in finish
-        order.  Requests are pulled lazily, only when a row and pages are
-        free.  An invalid request raises — after every admitted request
-        has drained.  Abandoning the iterator releases every row."""
+    def run(self, requests: Iterable) -> Iterator:
+        """Serve ``requests`` (any iterable of :class:`Request` or
+        :class:`Prefilled`, or a :class:`SubmissionQueue` via
+        :meth:`serve`), yielding :class:`Completion` s in finish order,
+        and :class:`Expired` / :class:`Suspended` items where deadlines
+        and :meth:`preempt_all` say.  Requests are pulled lazily, only
+        when a row and pages are free; queued online arrivals admit by
+        priority, FIFO within a priority.  An invalid request raises —
+        after every admitted request has drained.  Abandoning the
+        iterator releases every row."""
         incremental = isinstance(requests, SubmissionQueue)
         source = None if incremental else iter(requests)
         pending: deque = deque()
@@ -358,6 +1080,17 @@ class ContinuousBatcher:
         free_rows = list(range(self.rows))
         exhausted = False
         bad_request: Optional[Exception] = None
+
+        def rank_of(item):
+            return (item.request if isinstance(item, Prefilled)
+                    else item).priority
+
+        def rank_insert(item):
+            p = rank_of(item)
+            i = len(pending)
+            while i > 0 and rank_of(pending[i - 1]) < p:
+                i -= 1
+            pending.insert(i, item)
 
         def pull(block=True):
             nonlocal exhausted
@@ -373,7 +1106,7 @@ class ContinuousBatcher:
                         return
                     if item is None:
                         return
-                    pending.append(item)
+                    rank_insert(item)
             if pending:
                 return
             try:
@@ -385,9 +1118,47 @@ class ContinuousBatcher:
             self._loop_active = True
         try:
             while True:
-                # Admit while a row is free and the pool can take the
-                # newcomer's worst case; first tokens sync in one burst.
+                if self._preempt_event.is_set():
+                    yield from self._preempt_everything(
+                        pending, active, free_rows,
+                        requests if incremental else None)
+                yield from self._cancel_expired(active, free_rows)
                 burst: list = []
+                # Parked (preempted) artifacts resume first, unless a
+                # queued arrival strictly outranks them.
+                if self._parked and incremental:
+                    pull(block=False)
+                while free_rows and self._parked and bad_request is None:
+                    pre = self._parked[0]
+                    if pre.request.expired:
+                        self._parked.popleft()
+                        self.deadline_cancels += 1
+                        self._trace_event(pre.request, "deadline_cancel",
+                                          where="parked")
+                        yield Expired(rid=int(pre.artifact.get("rid", -1)),
+                                      request=pre.request)
+                        continue
+                    if pending and rank_of(pending[0]) > \
+                            pre.request.priority:
+                        break
+                    try:
+                        wt, need = self._worst_pages(pre.request)
+                        row, _ = self._admit_row(free_rows, active, wt,
+                                                 pre.request,
+                                                 use_cache=False)
+                    except RuntimeError:
+                        # The import can never fit this pool: rerun it
+                        # from scratch through the normal path.
+                        self._parked.popleft()
+                        pending.appendleft(pre.request)
+                        continue
+                    if row is None:
+                        break       # resume once pages free up
+                    self._parked.popleft()
+                    self.resumes += 1
+                    self._trace_event(pre.request, "resume")
+                    burst.append(self._admit_import(row, pre, wt, need,
+                                                    active))
                 while free_rows and bad_request is None:
                     if not pending and not exhausted and burst \
                             and not incremental:
@@ -398,34 +1169,102 @@ class ContinuousBatcher:
                     pull(block=False)
                     if not pending:
                         break
-                    req = pending[0]
+                    item = pending[0]
+                    imported = isinstance(item, Prefilled)
+                    req0 = item.request if imported else item
+                    if req0.expired:
+                        # Shed before any prefill (or import) dispatches.
+                        pending.popleft()
+                        self.deadline_cancels += 1
+                        self._trace_event(req0, "deadline_cancel",
+                                          where="queued")
+                        yield Expired(
+                            rid=(int(item.artifact.get("rid", -1))
+                                 if imported else -1), request=req0)
+                        continue
                     try:
-                        wt, need = self._worst_pages(req)
+                        wt, need = self._worst_pages(req0)
+                        if imported:
+                            self._validate_artifact(item.artifact, req0)
                     except ValueError as e:
                         bad_request = e     # raise after draining
                         break
-                    row = self._admit_row(free_rows, active, wt)
+                    row, plan = self._admit_row(free_rows, active, wt, req0,
+                                                use_cache=not imported)
                     if row is None:
+                        # Allocation pressure: a strictly-higher-priority
+                        # head may suspend the lowest-priority resident
+                        # row and retry.
+                        if self._maybe_preempt(req0.priority, active,
+                                               free_rows):
+                            continue
                         break   # wait for an in-flight row to finish
                     pending.popleft()
-                    rid = self._next_rid
-                    self._next_rid += 1
-                    burst.append(self._admit_dispatch(row, rid, req, wt,
-                                                      need, active))
+                    if imported:
+                        # Imports keep their exporter's rid (the sampling
+                        # folds continue that stream).
+                        res = self._admit_import(row, item, wt, need,
+                                                 active)
+                    else:
+                        rid = self._next_rid
+                        self._next_rid += 1
+                        res = self._admit_dispatch(row, rid, item, wt,
+                                                   need, active, plan)
+                    if res is not None:
+                        burst.append(res)
+                # Every row busy: one eager pull lets a strictly
+                # higher-priority online arrival preempt now.
+                if (not free_rows and incremental and self.preemptible
+                        and bad_request is None):
+                    pull(block=False)
+                    if pending and self._maybe_preempt(
+                            rank_of(pending[0]), active, free_rows):
+                        yield from self._finalize_burst(burst, active,
+                                                        free_rows)
+                        continue
                 yield from self._finalize_burst(burst, active, free_rows)
+                self._flush_streams(active)
                 if not active:
                     if bad_request is not None:
                         raise bad_request
+                    if self._parked:
+                        continue    # resume parked work before idling
                     pull()
                     if not pending and exhausted:
                         return
                     continue
-                yield from self._step(active, free_rows)
+                if self.prefill_chunk is not None:
+                    done_row = self._advance_prefill(active)
+                    if done_row is not None:
+                        done = self._completion(active[done_row])
+                        self._finish(done_row, active, free_rows)
+                        yield done
+                if any(row.decoding for row in active.values()):
+                    yield from self._step(active, free_rows)
+                    self._flush_streams(active)
         finally:
+            self._parked.clear()    # pages already released at suspend
             for row in list(active):
                 self._finish(row, active, free_rows)
             with self._loop_lock:
                 self._loop_active = False
+
+    def _flush_streams(self, active: Dict[int, _Row]) -> None:
+        """Pass each streaming row's not-yet-streamed tokens to its
+        ``Request.on_tokens``; a raising callback is disarmed (it costs
+        its stream, never the request)."""
+        for row in active.values():
+            cb = row.req.on_tokens
+            n = len(row.out)
+            if cb is None or n <= row.streamed:
+                continue
+            chunk = [int(t) for t in row.out[row.streamed:n]]
+            off = row.streamed
+            row.streamed = n
+            try:
+                cb(chunk, off)
+            except Exception:
+                row.req.on_tokens = None
 
     # -- admission --------------------------------------------------------
 
@@ -449,19 +1288,90 @@ class ContinuousBatcher:
                 f"({self.max_len})")
         return -(-need_len // self.page_size), need_len
 
-    def _admit_row(self, free_rows: List[int], active: Dict[int, _Row],
-                   wt: int) -> Optional[int]:
-        """Pop a free row when the pool can take ``wt`` more reserved
-        pages; ``None`` means wait.  Raises when nothing is in flight
-        and it still cannot fit (waiting would deadlock)."""
-        if wt <= self.t_side.headroom(active):
-            return free_rows.pop(0)
-        if not active:
-            raise RuntimeError(
-                f"request needs {wt} pages but only "
-                f"{self.t_side.alloc.free_count()} are free with nothing "
-                f"in flight to wait for — raise n_pages")
+    def _req_digests(self, req: Request) -> list:
+        """Chain digests of ``req``'s complete page-aligned prompt
+        chunks, memoized on the request (keyed by the chunk geometry)."""
+        pc = self._pcache
+        key = (pc.page_size, pc.first, pc.seed)
+        memo = getattr(req, "_pfx_digests", None)
+        if memo is None or memo[0] != key:
+            memo = (key, _ph.prompt_digests(req.prompt, pc.page_size,
+                                            pc.first, pc.seed))
+            req._pfx_digests = memo
+        return memo[1]
+
+    def _prefix_plan(self, req: Request, shard: int = 0,
+                     max_nodes: Optional[int] = None
+                     ) -> Optional[_PrefixPlan]:
+        """The longest USABLE cached prefix for ``req`` (at most
+        ``max_nodes`` pages): the trie match, trimmed until the uncached
+        tail's padded prefill window fits the page table and, in chunked
+        mode, starts on the chunk grid.  A page-aligned full hit keeps
+        its deepest page and marks it COW."""
+        digs = self._req_digests(req)
+        if not digs:
+            return None
+        nodes = self._pcache.match(shard, digs)
+        if not nodes:
+            return None
+        E = int(req.prompt.size)
+        ps, bucket = self.page_size, self.prefill_bucket
+        n = len(nodes)
+        if max_nodes is not None:
+            n = min(n, max_nodes)
+            if not n:
+                return None
+        if self.prefill_chunk is not None:
+            c = self.prefill_chunk
+            while n and (n * ps > E - 1 or (n * ps) % c):
+                n -= 1
+            return _PrefixPlan(nodes[:n], False, n * ps) if n else None
+        while n:
+            cow = n * ps >= E
+            ts = E - 1 if cow else n * ps
+            w = -(-(E - ts) // bucket) * bucket
+            if ts + w <= self.np_max * ps:
+                return _PrefixPlan(nodes[:n], cow, ts)
+            n -= 1
         return None
+
+    def _admit_row(self, free_rows: List[int], active: Dict[int, _Row],
+                   wt: int, req: Request, use_cache: bool = True
+                   ) -> Tuple[Optional[int], Optional[_PrefixPlan]]:
+        """Pop a free row when the pool can take ``wt`` more reserved
+        pages, with the longest prefix-cache plan that fits: ``(row,
+        plan)``, or ``(None, None)`` to wait.  Raises when nothing is in
+        flight and it still cannot fit (waiting would deadlock)."""
+        ht = self.t_side.headroom(active)
+        plan = (self._prefix_plan(req)
+                if self._pcache is not None and use_cache else None)
+        while True:
+            save = plan.save if plan is not None else 0
+            # headroom() counts zero-ref cached pages as reclaimable, but
+            # a plan that maps them makes them unevictable for this very
+            # admission: discounting wt by the plan's saving AND counting
+            # them free would over-admit (a "page pool exhausted" crash
+            # out of the serve loop).
+            zref = (sum(1 for n in plan.nodes if n.ref == 0)
+                    if plan is not None else 0)
+            ok = (wt - save) <= ht - zref
+            if ok or plan is None:
+                break
+            # A deep plan that does not fit (a COW full hit needs a fresh
+            # page on top of every mapped one) retries shallower, down to
+            # the cold admission, which evicts unused cached pages.
+            depth = len(plan.nodes) - 1
+            plan = self._prefix_plan(req, max_nodes=depth) if depth else None
+        if ok:
+            return free_rows.pop(0), plan
+        if not active:
+            free = self.t_side.alloc.free_count()
+            if self._pcache is not None:
+                free += self._pcache.reclaimable(0)
+            raise RuntimeError(
+                f"request needs {wt} pages but only {free} are free with "
+                f"nothing in flight to wait for — raise n_pages")
+        return None, None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -470,7 +1380,7 @@ class ContinuousBatcher:
                 steps: torch.Tensor) -> torch.Tensor:
         """[n, V] logits -> [n] tokens: the float32 argmax, or a draw
         under each row's key ``fold_in(fold_in(rng, rid), step)``, folded
-        on the device (inside the tick's graph)."""
+        on the device (inside the graphs)."""
         if self.temperature <= 0.0:
             return torch.argmax(last.float(), dim=-1)
         keys = prng.fold_in(prng.fold_in(self._rng, rids), steps)
@@ -479,13 +1389,43 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _admit_dispatch(self, row: int, rid: int, req: Request, wt: int,
-                        need: int, active: Dict[int, _Row]) -> tuple:
+                        need: int, active: Dict[int, _Row],
+                        plan: Optional[_PrefixPlan] = None
+                        ) -> Optional[tuple]:
         """Reserve pages for ``req`` in ``row`` and dispatch its prefill
-        (one call at the padded width); the first token stays on the
-        device until the burst syncs."""
+        (one call at the padded width, or the uncached tail of a
+        prefix-cache ``plan``); the first token stays on the device
+        until the burst syncs.  Chunked mode makes no call here (the
+        loop writes a chunk a tick) and returns None."""
         t_admit = time.perf_counter()
+        self._trace_event(req, "admit", rid=rid, row=row,
+                          prompt_len=int(req.prompt.size),
+                          cached=plan is not None)
         length = req.prompt.size
         width = -(-length // self.prefill_bucket) * self.prefill_bucket
+        if plan is not None:
+            # Map the cached pages read-only BEFORE any ensure(): the
+            # references protect them from the evictor.
+            self._pcache.acquire(row, plan.nodes)
+            self._pcache.count("hits")
+            self._pcache.count("hit_pages", len(plan.nodes))
+            self._pcache.count("hit_tokens", plan.tail_start)
+            wt -= plan.save
+        elif self._pcache is not None and self._req_digests(req):
+            self._pcache.count("misses")
+        if self.prefill_chunk is not None:
+            self.t_side.ensure(row, width)
+            padded = np.zeros((width,), np.int32)
+            padded[:length] = req.prompt
+            active[row] = _Row(
+                rid=rid, req=req, pos=length, step=1, last=0, out=[],
+                worst_pages=wt, t_admit=t_admit, padded=padded,
+                filled=0 if plan is None else plan.tail_start,
+                decoding=False, limit=need)
+            return None
+        if plan is not None:
+            return self._admit_cached(row, rid, req, wt, need, active,
+                                      plan, t_admit)
         self.t_side.ensure(row, width)
         padded = np.zeros((1, width), np.int32)
         padded[0, :length] = req.prompt
@@ -501,18 +1441,133 @@ class ContinuousBatcher:
         state = _Row(rid=rid, req=req, pos=length, step=1, last=0, out=[],
                      worst_pages=wt, t_admit=t_admit, limit=need)
         active[row] = state
+        self._pcache_insert(row, state)
         return row, state, tok
+
+    def _admit_cached(self, row: int, rid: int, req: Request, wt: int,
+                      need: int, active: Dict[int, _Row],
+                      plan: _PrefixPlan, t_admit: float) -> tuple:
+        """Admission over a mapped cached prefix: prefill ONLY the
+        uncached tail at its true offset (cache attention through the
+        paged kernel) and sample the first token at the prompt's last
+        position.  A page-aligned full hit first copies the deepest
+        cached page into a fresh own page, so the last-token rewrite
+        never touches shared state."""
+        side = self.t_side
+        E = int(req.prompt.size)
+        if plan.cow:
+            node = plan.nodes[-1]
+            self._pcache.unmap_last(row)
+            side.ensure(row, len(plan.nodes) * self.page_size)
+            _copy_page(self.pool, node.page, side.alloc.rows[row][0])
+            # The reference protected the source through the ensure()
+            # above; the copy is enqueued, so it may go now.
+            self._pcache.release_nodes(row, [node])
+            self._pcache.count("cow_copies")
+        ts = plan.tail_start
+        tlen = E - ts
+        w = -(-tlen // self.prefill_bucket) * self.prefill_bucket
+        # Allocation clamps at the reservation: pad positions past
+        # ``need`` land in reserved-but-unread slots or on sink columns.
+        side.ensure(row, min(ts + w, need))
+        padded = np.zeros((w,), np.int32)
+        padded[:tlen] = req.prompt[E - tlen:]
+        tok = self._chunk_call(row, padded, ts, tlen - 1, rid)
+        self.tail_prefills += 1
+        state = _Row(rid=rid, req=req, pos=E, step=1, last=0, out=[],
+                     worst_pages=wt, t_admit=t_admit, limit=need)
+        active[row] = state
+        self._pcache_insert(row, state)
+        return row, state, tok
+
+    def _chunk_width(self, pos: int, t: int) -> int:
+        return self.chunk_width(pos, t, self.page_size, self.np_max)
+
+    @staticmethod
+    def chunk_width(pos: int, t: int, page_size: int, np_max: int) -> int:
+        """The table width a chunk call at ``pos`` of ``t`` tokens takes:
+        a decode width (``_decode_widths``) whose columns cover every
+        position the chunk writes, so none clamps onto a live page."""
+        cols = -(-(pos + t) // page_size)
+        return _PagedSide.width_for(max(cols - 1, 1), np_max)
+
+    def _chunk_buffers(self, t: int, w: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The chunk step's static input (tokens, pos, cap, rid, the
+        row's table) and output buffers at (``t``, ``w``), allocated at
+        first use."""
+        if (t, w) not in self._chunk_bufs:
+            self._chunk_bufs[(t, w)] = (
+                torch.zeros((t + 3 + w,), dtype=torch.long,
+                            device=self.device),
+                torch.zeros((1,), dtype=torch.long, device=self.device))
+        return self._chunk_bufs[(t, w)]
+
+    def _chunk_call(self, row: int, tokens: np.ndarray, pos: int,
+                    cap: int, rid: int) -> torch.Tensor:
+        """One call of ``decode_step`` over the pool for ``row``'s chunk
+        ``tokens`` [t] at position ``pos``: its K/V ride the paged
+        kernel's self operand and are committed once; returns the token
+        sampled at chunk index ``cap`` (clamped into the chunk) on the
+        device.  The inputs and the row's table travel in one copy from
+        pinned memory into static buffers; at the chunked-prefill width
+        the call is a graph a table width."""
+        t = int(tokens.size)
+        w = self._chunk_width(pos, t)
+        inp, out = self._chunk_buffers(t, w)
+        # A fresh pinned buffer a call: the caching host allocator keeps
+        # it until its copy has run, however late the sync comes.
+        host = torch.empty((t + 3 + w,), dtype=torch.long,
+                           pin_memory=self.device.type == "cuda")
+        h = host.numpy()
+        h[:t] = tokens
+        h[t:t + 3] = (pos, cap, rid)
+        h[t + 3:] = self.t_side.table_np()[row, :w]
+        inp.copy_(host, non_blocking=True)
+        step = functools.partial(self._chunk_step, t, w)
+        if t == self.prefill_chunk:
+            self._graphs.run(("chunk", t, w), step)
+        else:
+            step()
+        return out.clone()
+
+    @torch.no_grad()
+    def _chunk_step(self, t: int, w: int) -> None:
+        """The chunk call over its static buffers (what a graph holds)."""
+        inp, out = self._chunk_bufs[(t, w)]
+        table = inp[t + 3:].to(torch.int32)[None]
+        logits, _ = decode_step(self.cfg, self.params,
+                                dict(self.pool, pages=table),
+                                inp[:t][None], inp[t:t + 1])
+        last = logits[0].index_select(0, inp[t + 1:t + 2].clamp(0, t - 1))
+        rid = inp[t + 2:t + 3]
+        out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
+
+    def _pcache_insert(self, row: int, state: _Row) -> None:
+        """Publish ``row``'s freshly prefilled full prompt pages into the
+        prefix cache (no-op without one)."""
+        if self._pcache is None:
+            return
+        digs = self._req_digests(state.req)
+        if digs:
+            self._pcache.insert_row(row, 0, digs, state)
 
     def _finalize_burst(self, burst: list, active: Dict[int, _Row],
                         free_rows: List[int]) -> Iterator[Completion]:
-        """Fetch every admission's first token in one host sync and yield
-        the requests that already finished.  Clears ``burst``."""
+        """Fetch every admission's first token in one host sync (an
+        import's is already on the host) and yield the requests that
+        already finished.  Clears ``burst``."""
         if not burst:
             return
-        toks = torch.stack([tok for _, _, tok in burst]).tolist()
+        dev = [tok for _, _, tok in burst if isinstance(tok, torch.Tensor)]
+        synced = iter(torch.stack(dev).reshape(-1).tolist() if dev else ())
+        toks = [next(synced) if isinstance(tok, torch.Tensor) else tok
+                for _, _, tok in burst]
         now = time.perf_counter()
         for (row, state, _), tok in zip(burst, toks):
             state.t_first = now
+            if state.out:
+                continue    # a resumed import: its stream is in place
             state.last = tok
             state.out = [tok]
             if tok == state.req.stop_token or state.req.max_new_tokens == 1:
@@ -520,6 +1575,38 @@ class ContinuousBatcher:
                 self._finish(row, active, free_rows)
                 yield done
         burst.clear()
+
+    @torch.no_grad()
+    def _advance_prefill(self, active: Dict[int, _Row]) -> Optional[int]:
+        """Write ONE chunk of the oldest still-filling row; it turns to
+        decoding once its whole padded prompt is in (the only chunk whose
+        token is synced).  Returns the row when that finished its
+        request outright (first token the stop, or max_new_tokens 1)."""
+        filling = [(row.rid, r) for r, row in active.items()
+                   if not row.decoding]
+        if not filling:
+            return None
+        _, r = min(filling)
+        row = active[r]
+        c = self.prefill_chunk
+        chunk = row.padded[row.filled:row.filled + c]
+        cap = row.req.prompt.size - 1 - row.filled
+        tok = self._chunk_call(r, chunk, row.filled, cap, row.rid)
+        self.prefill_chunks += 1
+        row.filled += c
+        if row.filled < row.padded.size:
+            return None
+        tok = int(tok.item())
+        row.t_first = time.perf_counter()
+        row.last = tok
+        row.out.append(tok)
+        row.decoding = True
+        # Published only now: before, a concurrent hit would have mapped
+        # pages whose chunks were not written yet.
+        self._pcache_insert(r, row)
+        if tok == row.req.stop_token or row.req.max_new_tokens == 1:
+            return r
+        return None
 
     # -- decode -----------------------------------------------------------
 
@@ -541,8 +1628,10 @@ class ContinuousBatcher:
         self._tables[w] = entry
         return entry[2]
 
-    def _decode_table(self) -> torch.Tensor:
-        return self._put_table(self.t_side.decode_table())
+    def _decode_table(self, active: Optional[Dict[int, _Row]] = None,
+                      decoding: Optional[Dict[int, _Row]] = None
+                      ) -> torch.Tensor:
+        return self._put_table(self.t_side.decode_table(active, decoding))
 
     @torch.no_grad()
     def _tick(self, width: int) -> None:
@@ -560,16 +1649,18 @@ class ContinuousBatcher:
 
     def _step(self, active: Dict[int, _Row],
               free_rows: List[int]) -> Iterator[Completion]:
-        """One decode tick: every active row advances one token in one
-        batched call (a graph replay on the card); inactive rows ride
-        along at position 0 on the sink page.  One host sync per tick."""
+        """One decode tick: every decoding row advances one token in one
+        batched call (a graph replay on the card); other rows ride along
+        at position 0 on sink table rows (a still-filling row's pages
+        belong to its chunks).  One host sync per tick."""
         host = self._tick_host.numpy()
         host[:] = 0
-        for r, row in active.items():
+        decoding = {r: row for r, row in active.items() if row.decoding}
+        for r, row in decoding.items():
             self.t_side.ensure(r, min(row.pos + 1, row.limit))
             host[:, r] = (row.last, min(row.pos, self.max_len), row.rid,
                           row.step)
-        width = self._decode_table().shape[1]
+        width = self._decode_table(active, decoding).shape[1]
         t0 = time.perf_counter()
         self._tick_in.copy_(self._tick_host, non_blocking=True)
         self._graphs.run(width, functools.partial(self._tick, width))
@@ -578,8 +1669,8 @@ class ContinuousBatcher:
         nxt = self._out_host.tolist()
         self.decode_seconds += time.perf_counter() - t0
         self.decode_ticks += 1
-        self.decode_tokens += len(active)
-        for r in list(active):
+        self.decode_tokens += len(decoding)
+        for r in list(decoding):
             row = active[r]
             tok = int(nxt[r])
             row.out.append(tok)
@@ -591,6 +1682,297 @@ class ContinuousBatcher:
                 done = self._completion(row)
                 self._finish(r, active, free_rows)
                 yield done
+
+    # -- disaggregated serving: KV export / import ------------------------
+
+    @torch.no_grad()
+    def export_kv(self, request: Request) -> dict:
+        """PREFILL-ONLY execution: run ``request``'s prompt through this
+        batcher's (chunked) prefill on a borrowed row and return its
+        paged-KV state as a host artifact (every page covering its
+        positions, int8 values and scales bit-exactly; geometry; the
+        first token and the ``rid`` whose key folds drew it).  The row's
+        pages are released before returning; prefix-cache hits apply and
+        the new pages are published.  Must not run while this batcher's
+        serve loop does."""
+        if not isinstance(request, Request):
+            raise TypeError(f"export_kv() takes a Request, got "
+                            f"{type(request).__name__}")
+        with self._loop_lock:
+            if self._loop_active:
+                raise RuntimeError(
+                    "export_kv cannot run concurrently with this "
+                    "batcher's serve loop (prefill-role batchers never "
+                    "start one)")
+            wt, need = self._worst_pages(request)
+            active: Dict[int, _Row] = {}
+            row, plan = self._admit_row([0], active, wt, request)
+            rid = self._next_rid
+            self._next_rid += 1
+            try:
+                res = self._admit_dispatch(row, rid, request, wt, need,
+                                           active, plan)
+                state = active[row]
+                if res is not None:
+                    first = int(res[2].item())
+                    state.t_first = time.perf_counter()
+                    state.last = first
+                    state.out = [first]
+                else:
+                    while not state.decoding:
+                        if self._advance_prefill(active) is not None:
+                            break
+                return self._export_row(row, state)
+            finally:
+                self._finish(row, active, [])
+
+    def _export_row(self, row: int, state: _Row) -> dict:
+        """Snapshot ``row``'s KV into a host artifact: the pages covering
+        positions [0, pos) in table order (cached prefix pages and own
+        pages alike), plus the sampler state (``step`` and the emitted
+        ``tokens``, so a suspended row resumes mid-stream).  bf16 pages
+        are CPU tensors (numpy has no bf16); the rest numpy arrays."""
+        n = -(-state.pos // self.page_size)
+        ids = torch.as_tensor(self.t_side.table_np()[row, :n].astype(
+            np.int64), device=self.device)
+        leaves = _gather_pages(self.pool, ids)
+        quantized = isinstance(self.pool["k"], QTensor)
+        art = {
+            "version": 1, "page_size": self.page_size,
+            "prefix_len": self.prefix_len, "shared_len": 0,
+            "pos": int(state.pos), "prompt_len": int(state.req.prompt.size),
+            "first_token": int(state.out[0]), "step": int(state.step),
+            "tokens": [int(t) for t in state.out], "rid": int(state.rid),
+            "quantized": quantized,
+            "model": {"n_layers": int(self.cfg.n_layers),
+                      "kv_heads": int(self.cfg.kv_heads),
+                      "head_dim": int(self.cfg.head_dim)}}
+        names = (("k", "k_scales", "v", "v_scales") if quantized
+                 else ("k", "v"))
+        for name, a in zip(names, leaves):
+            art[name] = a if a.dtype == torch.bfloat16 else a.numpy()
+        return art
+
+    def _pool_dtype_name(self) -> str:
+        k = self.pool["k"]
+        return _TORCH_NAMES[(k.values if isinstance(k, QTensor) else k).dtype]
+
+    def _validate_artifact(self, art: dict, req: Request) -> None:
+        """Reject an import whose artifact cannot drop into THIS pool
+        bit-exactly (the reference's checks, each a ``ValueError``)."""
+        if art.get("version") != 1:
+            raise ValueError(f"unknown KV artifact version "
+                             f"{art.get('version')!r}")
+        quantized = isinstance(self.pool["k"], QTensor)
+        for key, want in (("page_size", self.page_size),
+                          ("prefix_len", self.prefix_len),
+                          ("shared_len", 0), ("quantized", quantized)):
+            if art.get(key) != want:
+                raise ValueError(
+                    f"KV artifact {key} {art.get(key)!r} does not match "
+                    f"this batcher's {want!r}")
+        model = art.get("model") or {}
+        for key, want in (("n_layers", int(self.cfg.n_layers)),
+                          ("kv_heads", int(self.cfg.kv_heads)),
+                          ("head_dim", int(self.cfg.head_dim))):
+            if model.get(key) != want:
+                raise ValueError(
+                    f"KV artifact model {key} {model.get(key)!r} does "
+                    f"not match this config's {want}")
+        try:
+            step = int(art.get("step", 1))
+        except (TypeError, ValueError):
+            raise ValueError(f"KV artifact step {art.get('step')!r} is "
+                             f"not an int") from None
+        if step < 1:
+            raise ValueError(f"KV artifact step {step} must be >= 1")
+        toks = art.get("tokens")
+        if step > 1 or toks is not None:
+            if not isinstance(toks, (list, tuple)) or len(toks) != step:
+                raise ValueError(
+                    f"KV artifact tokens must list exactly step "
+                    f"({step}) emitted tokens, got {toks!r}")
+            if int(toks[0]) != int(art.get("first_token", -1)):
+                raise ValueError("KV artifact tokens[0] does not match "
+                                 "its first_token")
+        if step > 1:
+            if step >= req.max_new_tokens:
+                raise ValueError(
+                    f"suspended KV artifact already emitted {step} of "
+                    f"{req.max_new_tokens} tokens — a finished request "
+                    f"is never suspended")
+            if req.stop_token is not None \
+                    and int(toks[-1]) == int(req.stop_token):
+                raise ValueError("suspended KV artifact ends at the "
+                                 "stop token — nothing to resume")
+        E = art.get("pos")
+        if E != self.prefix_len + int(req.prompt.size) + step - 1 \
+                or art.get("prompt_len", -1) != int(req.prompt.size):
+            raise ValueError(
+                f"KV artifact covers {E!r} positions; this request needs "
+                f"prefix {self.prefix_len} + prompt {req.prompt.size} "
+                f"(+ {step - 1} resumed tokens)")
+        n = -(-E // self.page_size)
+        self._check_payload_arrays(art, quantized, n)
+        if art.get("draft") is not None or art.get("dk") is not None:
+            raise ValueError(
+                "KV artifact carries a draft-side payload but this "
+                "batcher has no draft model (speculative exports "
+                "resume on speculative batchers)")
+
+    def _check_payload_arrays(self, art: dict, quantized: bool,
+                              n: int) -> None:
+        """The payload's shape and dtype contract against this pool."""
+        cfg = self.cfg
+        want_shape = (int(cfg.n_layers), n, int(cfg.kv_heads),
+                      self.page_size, int(cfg.head_dim))
+        names = (("k", "v", "k_scales", "v_scales") if quantized
+                 else ("k", "v"))
+        for name in names:
+            a = art.get(name)
+            if not isinstance(a, (np.ndarray, torch.Tensor)):
+                raise ValueError(f"KV artifact is missing array {name!r}")
+            if name.endswith("_scales"):
+                want, dtype = want_shape[:3] + (1, self.page_size), \
+                    "float32"
+            else:
+                want, dtype = want_shape, self._pool_dtype_name()
+            if tuple(a.shape) != want:
+                raise ValueError(f"KV artifact {name} shape "
+                                 f"{tuple(a.shape)} != expected {want}")
+            if _dtype_name(a) != dtype:
+                raise ValueError(f"KV artifact {name} dtype "
+                                 f"{_dtype_name(a)} != pool dtype {dtype}")
+
+    def _admit_import(self, row: int, pre: Prefilled, wt: int, need: int,
+                      active: Dict[int, _Row]) -> tuple:
+        """Admission of an imported prefill: back the payload's positions
+        with own pages, write its pages into them, and enter the row
+        straight into decode at the exported position with the exported
+        tokens (a suspended artifact resumes mid-stream at its ``step``,
+        its ``rid``'s key folds continuing).  The imported full prompt
+        pages then seed the prefix cache like a local prefill's."""
+        t_admit = time.perf_counter()
+        art = pre.artifact
+        req = pre.request
+        self._trace_event(req, "import", rid=int(art.get("rid", -1)),
+                          row=row, pos=int(art.get("pos", 0)),
+                          resumed=int(art.get("step", 1)) > 1)
+        side = self.t_side
+        n = art["k"].shape[1]
+        side.ensure(row, n * self.page_size)
+        ids = torch.as_tensor(side.alloc.rows[row], dtype=torch.long,
+                              device=self.device)
+        names = (("k", "k_scales", "v", "v_scales") if art["quantized"]
+                 else ("k", "v"))
+        _install_pages(self.pool, [_as_tensor(art[k]) for k in names], ids)
+        step = int(art.get("step", 1))
+        toks = [int(t) for t in (art.get("tokens") or ())]
+        resumed = step > 1
+        state = _Row(rid=int(art["rid"]), req=req, pos=int(art["pos"]),
+                     step=step, last=toks[-1] if resumed else 0,
+                     out=list(toks) if resumed else [], worst_pages=wt,
+                     t_admit=t_admit, limit=need)
+        active[row] = state
+        self._pcache_insert(row, state)
+        return row, state, int(art["first_token"])
+
+    # -- deadlines ----------------------------------------------------------
+
+    def _cancel_expired(self, active: Dict[int, _Row],
+                        free_rows: List[int]) -> Iterator[Expired]:
+        """Cancel every resident row whose deadline has passed, exactly
+        like a finish (pages released, row freed) but yielding an
+        :class:`Expired`."""
+        for r in [r for r, row in active.items()
+                  if row.req.deadline is not None and row.req.expired]:
+            row = active[r]
+            self.deadline_cancels += 1
+            self._trace_event(row.req, "deadline_cancel", rid=row.rid,
+                              where="resident", step=row.step)
+            self._finish(r, active, free_rows)
+            yield Expired(rid=row.rid, request=row.req)
+
+    # -- priority preemption / drain migration ----------------------------
+
+    def _suspendable(self, state: _Row) -> bool:
+        """Decoding, with its first token fetched: a still-filling row
+        has no complete KV to export."""
+        return (self.preemptible and state.decoding and bool(state.out)
+                and state.t_first > 0)
+
+    def _suspend_row(self, r: int, active: Dict[int, _Row],
+                     free_rows: List[int]) -> dict:
+        """Export row ``r`` (pages plus emitted tokens) and release it:
+        a suspended request IS a KV export."""
+        art = self._export_row(r, active[r])
+        self._finish(r, active, free_rows)
+        return art
+
+    def _resume_fits(self, req: Request) -> bool:
+        """Whether ``req``'s artifact could ever re-import here: an
+        import backs every position with own pages (no cache discount),
+        so a row admitted only thanks to a deep cache plan on a tight
+        pool must not be suspended locally."""
+        wt, _ = self._worst_pages(req)
+        return wt <= self.t_side.n_pages - 1        # the sink is reserved
+
+    def _maybe_preempt(self, priority: int, active: Dict[int, _Row],
+                       free_rows: List[int]) -> bool:
+        """Suspend the lowest-priority suspendable row STRICTLY below
+        ``priority`` (ties: the newest) and park its artifact; False when
+        there is none (equal priorities never preempt)."""
+        if not self.preemptible:
+            return False
+        victims = [(row.req.priority, -row.rid, r)
+                   for r, row in active.items()
+                   if self._suspendable(row) and row.req.priority < priority
+                   and self._resume_fits(row.req)]
+        if not victims:
+            return False
+        _, _, r = min(victims)
+        req = active[r].req
+        self._trace_event(req, "preempt", by_priority=priority,
+                          priority=req.priority)
+        self._parked.append(Prefilled(req, self._suspend_row(r, active,
+                                                             free_rows)))
+        self.preemptions += 1
+        return True
+
+    def _preempt_everything(self, pending: deque, active: Dict[int, _Row],
+                            free_rows: List[int],
+                            source: Optional[SubmissionQueue]
+                            ) -> Iterator[Suspended]:
+        """:meth:`preempt_all`'s loop side: a :class:`Suspended` for every
+        in-flight request — resident rows (with their artifact when
+        suspendable), parked artifacts, queued arrivals and imports."""
+        if source is not None:
+            while True:
+                item = source.poll(False)
+                if item is None or item is _CLOSED:
+                    break
+                pending.append(item)
+        for r in sorted(active):
+            state = active[r]
+            art = (self._export_row(r, state)
+                   if self._suspendable(state) else None)
+            self._trace_event(state.req, "suspend", rid=state.rid,
+                              exported=art is not None)
+            self._finish(r, active, free_rows)
+            yield Suspended(rid=state.rid, request=state.req, artifact=art)
+        while self._parked:
+            pre = self._parked.popleft()
+            yield Suspended(rid=int(pre.artifact.get("rid", -1)),
+                            request=pre.request, artifact=pre.artifact)
+        while pending:
+            item = pending.popleft()
+            if isinstance(item, Prefilled):
+                yield Suspended(rid=int(item.artifact.get("rid", -1)),
+                                request=item.request,
+                                artifact=item.artifact)
+            else:
+                yield Suspended(rid=-1, request=item, artifact=None)
+        self._preempt_event.clear()
 
     # -- ahead-of-time warmup ---------------------------------------------
 
@@ -612,13 +1994,16 @@ class ContinuousBatcher:
                prefill: bool = True) -> Dict[str, Any]:
         """Prepare every shape the serve loop dispatches, before it runs:
         one eager prefill at each reachable prompt width (``prefill[w]``:
-        the kernels' builds and one-time host work), and on the card the
-        decode tick captured as a CUDA graph at each table width
-        (``decode[w]``; without warmup a width is captured at its first
-        tick).  Every write lands on the sink page (all-sink tables, zero
-        tokens and positions), so a warmed batcher's streams are
-        bit-identical to a cold one's.  Raises while the serve loop is
-        active.  Returns ``{"compiled": [...], "seconds": float}``."""
+        the kernels' builds and one-time host work); with the prefix
+        cache, one eager tail call at each width (``chunk_prefill[w]``);
+        in chunked mode the chunk step captured at each table width
+        (``chunk_prefill[c]``); and on the card the decode tick captured
+        as a CUDA graph at each table width (``decode[w]``; without
+        warmup a width is captured at its first call).  Every write lands
+        on the sink page (all-sink tables, zero tokens and positions), so
+        a warmed batcher's streams are bit-identical to a cold one's.
+        Raises while the serve loop is active.  Returns ``{"compiled":
+        [...], "seconds": float}``."""
         t0 = time.perf_counter()
         compiled: List[str] = []
         with self._loop_lock:
@@ -628,7 +2013,9 @@ class ContinuousBatcher:
                     "is active — warm at boot, before serve()/run()")
             zero = torch.zeros((1,), dtype=torch.long, device=self.device)
             sink = self.t_side.sink
-            for w in self._prefill_widths() if prefill else ():
+            chunked = self.prefill_chunk is not None
+            for w in self._prefill_widths() if prefill and not chunked \
+                    else ():
                 table = np.full((1, self.np_max), sink, np.int32)
                 logits, _ = decode_step(
                     self.cfg, self.params,
@@ -637,6 +2024,15 @@ class ContinuousBatcher:
                                 device=self.device), 0)
                 self._sample(logits[0, :1], zero, zero).tolist()
                 compiled.append(f"prefill[{w}]")
+            if prefill and chunked:
+                c = self.prefill_chunk
+                for w in self._decode_widths():
+                    self._warm_chunk(c, w)
+                compiled.append(f"chunk_prefill[{c}]")
+            elif prefill and self._pcache is not None:
+                for t in self._prefill_widths():
+                    self._warm_chunk(t, self._chunk_width(0, t))
+                    compiled.append(f"chunk_prefill[{t}]")
             for w in self._decode_widths() if decode else ():
                 self._put_table(np.full((self.rows, w), sink, np.int32))
                 self._tick_in.zero_()
@@ -645,11 +2041,38 @@ class ContinuousBatcher:
                 compiled.append(f"decode[{w}]")
         return {"compiled": compiled, "seconds": time.perf_counter() - t0}
 
+    def _warm_chunk(self, t: int, w: int) -> None:
+        """One chunk call of ``t`` tokens over an all-sink table of width
+        ``w`` (captured at the chunked-prefill width, else eager)."""
+        inp, out = self._chunk_buffers(t, w)
+        inp.zero_()
+        inp[t + 3:] = self.t_side.sink
+        step = functools.partial(self._chunk_step, t, w)
+        if t == self.prefill_chunk:
+            self._graphs.warm(("chunk", t, w), step)
+        else:
+            step()
+        out.tolist()
+
     # -- finish -----------------------------------------------------------
+
+    @staticmethod
+    def _trace_event(req: Request, name: str, **attrs) -> None:
+        """One batcher event on the request's trace (no-op without)."""
+        tr = getattr(req, "trace", None)
+        if tr is not None:
+            tr.event("batcher", name, **attrs)
 
     @staticmethod
     def _completion(row: _Row) -> Completion:
         now = time.perf_counter()
+        tr = getattr(row.req, "trace", None)
+        if tr is not None:
+            tr.span_between("batcher", "prefill", row.t_admit,
+                            max(row.t_first, row.t_admit), rid=row.rid)
+            tr.span_between("batcher", "decode",
+                            max(row.t_first, row.t_admit), now,
+                            rid=row.rid, tokens=len(row.out))
         return Completion(rid=row.rid, request=row.req,
                           tokens=list(row.out),
                           ttft_s=row.t_first - row.t_admit,
