@@ -44,8 +44,10 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    timed beside SDPA over the gathered view with the chunk's causal
    mask), then a chunk whose pad positions run past the row's last
    allocated column onto the sink, and each prefix-cache tail phase 14
-   dispatches (1 bf16 row at pos 512, t = 64, 128 and 192, timed):
-   every paged case with the S its launch
+   dispatches (1 bf16 row at pos 512, t = 64, 128 and 192, timed), and
+   the fused tick's chunk slots (S = 4 and 8 rows of t = 64 at pos 0 /
+   448 / 896 mixed across rows over 16-column tables, bf16 and int8 with
+   ``round_self``, timed): every paged case with the S its launch
    reports (equal to the wrapper's plan), within 2e-2 bf16 / 1e-4
    float32 of the plain version and per row within 1e-2 / 1e-5 of
    ``_paged_split_reference`` at that S, two launches bit-identical, and
@@ -60,7 +62,9 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    ragged positions with a clamped start, and the t = 128 prefill) and
    int8 serving's pool (t = 1 and 4, two parked rows on the sink page;
    one row's t = 64 chunk page-aligned at pos 896, and at pos 480 with
-   its pads on the sink page), the whole cache bit-equal to the plain
+   its pads on the sink page; the fused tick's S = 4 and 8 slots of t =
+   64, two of the eight dummy slots on the sink page), the whole cache
+   bit-equal to the plain
    commit but for the sink page, timed beside the plain commit and the
    sequence it replaced (a quantize launch and indexed writes for each
    of K and V), with the device operations each puts on the card
@@ -85,17 +89,18 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    both kernels twice, and calls ``flash_backward``: all three sets of
    gradients must be bit-identical;
 5. warms a ``ContinuousBatcher`` on the flagship config (rows 8, page
-   64, bucket 64) with ``warmup()`` (a prefill at each prompt width and
-   the decode tick captured as a CUDA graph at each table width; prints
-   the names, seconds and the graphs' pool memory), serves 16 seeded
-   requests (prompts of 8..700 tokens, 32 new tokens each) through the
-   graphed ticks, and checks that every prefill and every decode tick
+   64, bucket 64) with ``warmup()`` (the admission prefill at each
+   prompt width and the decode tick at each table width captured as
+   CUDA graphs; prints the names, seconds and the graphs' pool memory),
+   serves 16 seeded requests (prompts of 8..700 tokens, 32 new tokens
+   each) through the graphed prefills and ticks, and checks that every prefill and every decode tick
    launched the kernels once per layer, and the paged kernel's merge
    once per layer of each tick whose table width splits it (a replay
    counts what its capture counted); then serves the same traffic with
    every tick eager (the graph helper's diagnostic switch): identical
-   streams, the same exact counts; prints ms a tick, TTFT, tokens/s and
-   a profile's busy share for both;
+   streams, the same exact counts; prints ms a tick, TTFT (graphed
+   prefills beside eager ones), tokens/s and a profile's busy share for
+   both;
 6. reruns two served requests teacher-forced through ``forward`` on the
    CPU in float32 with the same float32 master weights, and requires
    the card's token wherever the CPU's top-1/top-2 margin is clear;
@@ -149,13 +154,15 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     prompt plus 8..188 tokens of their own, 32 new tokens each, greedy:
     (a) with the prefix cache unchunked, (b) with ``prefill_chunk=64``
     and the cache, (c) as (b) over an int8 pool, where the cache
-    bypasses.  Each run on a fresh batcher, warmed, graphed, then
+    bypasses.  Each run on a fresh batcher, warmed, graphed (serving
+    captures no graph warmup did not), then
     again eager: identical streams and exact launch counts (8
     flash_decode_paged for each tick, tail and chunk, merges where the
     shape splits, 8 flash_fwd for each cold prefill, and with the int8
     pool 1 quant_int8_commit for each call); two warm requests held to
     the margin rule against a float32 CPU teacher-forced run; prints
-    the prefix-cache stats, TTFT cold vs warm, ms a tick and tok/s;
+    the prefix-cache stats, TTFT cold vs warm (graphed prefills and
+    tails beside eager ones), ms a tick and tok/s;
 15. four requests exported by one batcher and, through
     ``pack_prefilled``/``unpack_prefilled`` bytes, imported by a second
     (bf16 and int8): packed arrays and the pages installed and gathered
@@ -172,7 +179,26 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     new tokens): graphed and eager tokens identical, exactly 8
     flash_fwd launches and no decode kernel (the rolling read is plain
     torch, as in JAX), the tokens teacher-forced against the card's own
-    windowed ``forward``.
+    windowed ``forward``;
+16. the batcher's schedule modes, each on a fresh warmed batcher with
+    exact launch counts (K x n_layers paged launches a K-step block, the
+    fused tick's slots n_layers more, merges where a shape splits, an
+    int8 pool one commit a step): phase 5's traffic under (a)
+    ``multi_step=4``, (b) ``overlap``, (c) ``pipeline_depth=1``, (d) the
+    pipeline with ``multi_step=4`` and (e) (a) with int8 weights and
+    pool, every stream identical to phase 5's (12's) synchronous run;
+    phase 14(b)'s traffic under (h) ``overlap``, (i) ``overlap`` with
+    ``multi_step=4``, (j) ``pipeline_depth=1`` and (k) the pipeline with
+    ``multi_step=4`` (chunk calls and table changes between a lagged
+    block's dispatch and its retire), every stream identical to phase
+    14(b)'s phase-split run; no run captures a graph warmup did not;
+    phase 14(b)'s and (c)'s traffic with ``fused_prefill`` under (f) the
+    default token budget and (g) ``tokens_per_tick`` rows + 8 x 64,
+    streams identical to phase 14's phase-split runs or differing first
+    at a near-tie by the margin rule (counted), the fused counters
+    moving; prints ms a block and a step, blocks, TTFT and the graphs'
+    pool beside the synchronous runs', and for (a)-(e) a profile's busy
+    share.
 
 It prints each phase's seconds.
 
@@ -252,6 +278,9 @@ class SmokeFailure(RuntimeError):
 # bucket, after the 512 cached system-prompt positions).
 CHUNK_POS = (0, 64, 448, 896)
 TAIL_POS, TAIL_TS = 512, (64, 128, 192)
+# Phase 3's fused chunk-slot counts (phase 16's fused ticks pad their
+# slots to 1, 2, 4 or 8 rows).
+FUSED_SLOTS = (4, 8)
 
 
 def need(cond: bool, msg: str) -> None:
@@ -425,7 +454,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/15] device")
+    say("[1/16] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -439,7 +468,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/15] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/16] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -618,7 +647,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/15] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/16] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -769,7 +798,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/15] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/16] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -912,7 +941,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/15] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/16] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -926,7 +955,17 @@ def phase_serve(torch, np):
     say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile_serving(torch, np, batcher, cfg)
     stats["eager"] = serve_eager(torch, np, cfg, batcher, reqs, comps, False)
+    ttft_line(stats)
     return cfg, params, reqs, comps, stats
+
+
+def ttft_line(stats):
+    """TTFT of the graphed run (prefills replaying their graphs) beside
+    the eager run's (every prefill an eager call)."""
+    g, e = stats, stats["eager"]
+    say(f"  TTFT ms, prefill graphs vs eager prefills: mean "
+        f"{g['ttft_ms_mean']:.3f} vs {e['ttft_ms_mean']:.3f}, p50 "
+        f"{g['ttft_ms_p50']:.3f} vs {e['ttft_ms_p50']:.3f}")
 
 
 def phase5_requests(np, cfg):
@@ -1079,7 +1118,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/15] teacher-forced check vs float32 CPU forward "
+    say(f"[6/16] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1130,7 +1169,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/15] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/16] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1140,7 +1179,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/15] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/16] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1210,7 +1249,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/15] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/16] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1444,6 +1483,19 @@ def phase_decode_kernels(torch):
             torch, tgen, f"tail t={t} pos {TAIL_POS}", 1, t, 8, 8, 64, w,
             64, [TAIL_POS], bf16, time_it=True))
 
+    # From a generator of its own: the fused tick's chunk slots (phase
+    # 16): S rows of t = 64 at positions 0 / 448 / 896 mixed across rows
+    # over the np_max-wide (16) tables the slots take, bf16 and int8
+    # with round_self, timed.
+    fgen = torch.Generator().manual_seed(20)
+    for n in FUSED_SLOTS:
+        pos = [CHUNK_POS[(0, 2, 3)[i % 3]] for i in range(n)]
+        for int8 in (False, True):
+            paged_rows.append(paged_case(
+                torch, fgen, f"fused slots S={n} t=64"
+                + (" int8" if int8 else ""), n, 64, 8, 8, 64, 16, 64, pos,
+                bf16, int8=int8, time_it=True))
+
     quant_rows, total = check_quantize(torch, randn)
     commit_rows = check_commit(torch, randn)
     return decode_rows, cold, paged_rows, quant_rows, total, commit_rows
@@ -1628,7 +1680,8 @@ def check_commit(torch, randn):
     start and at the prefill t = 128 from 0; int8 serving's pool (rows
     8, KV 8, pages of 64, NP 16) at t = 1 and 4 with two parked rows,
     and one row's t = 64 prefill chunk (page-aligned, and a tail whose
-    pad positions land on the sink page).
+    pad positions land on the sink page); the fused tick's S = 4 and 8
+    chunk slots of t = 64 (at S = 8 two dummy slots on the sink page).
     Each timed beside the plain commit and the sequence the tree ran
     before it (timed at one position for every row, as generate passes
     a python int)."""
@@ -1733,6 +1786,18 @@ def check_commit(torch, randn):
              + (", pads on the sink" if sink_from else ""), kp, vp, ks, vs,
              cpos, lambda rk, rv, ks=ks, vs=vs, cpos=cpos, ct=ctable:
              _today_paged(torch, tq, rk, rv, ks, vs, ct, cpos), table=ctable)
+    # int8 fused ticks: S chunk slots of t = 64 committed at once, at
+    # positions 0 / 448 / 896 mixed across rows; at S = 8 two dummy slots
+    # (rows 6 and 7: all-sink tables) write to the sink page.
+    for n in FUSED_SLOTS:
+        stable = table[:n].clone()
+        spos = torch.tensor([CHUNK_POS[(0, 2, 3)[i % 3]] for i in range(n)],
+                            dtype=torch.int64, device=dev)
+        ks = [randn((n, 64, KV, D)) for _ in range(L)]
+        vs = [randn((n, 64, KV, D)) for _ in range(L)]
+        case(f"fused slots S={n} t=64", kp, vp, ks, vs, spos,
+             lambda rk, rv, ks=ks, vs=vs, spos=spos, st=stable:
+             _today_paged(torch, tq, rk, rv, ks, vs, st, spos), table=stable)
     return rows
 
 
@@ -1885,7 +1950,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/15] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/16] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -1950,7 +2015,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/15] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/16] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2036,7 +2101,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/15] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/16] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2059,7 +2124,8 @@ def phase_serve_int8(torch, np, reqs):
     say("  graphed: " + json.dumps(stats))
     stats["profile"] = profile_serving(torch, np, batcher, cfg)
     stats["eager"] = serve_eager(torch, np, cfg, batcher, reqs, comps, True)
-    return stats
+    ttft_line(stats)
+    return stats, comps
 
 
 # Phase 13's draws: the chi-square check's categories and draws, and
@@ -2132,7 +2198,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/15] sampled serving and generation: phase 5's traffic at "
+    say("[13/16] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2275,17 +2341,24 @@ def paged_split(ta, cfg, rows, t, slots):
 def counted_run(torch, cfg, batcher, items, int8: bool, label: str):
     """Run ``items`` through ``batcher`` once, its counters reset and
     every launch count zeroed just before and read just after, recording
-    each decode tick's table width and each chunk call's (tokens, table
-    width); require exact counts: n_layers flash_fwd a full prefill,
-    n_layers flash_decode_paged a tick, a prefix-cache tail and a
-    prefill chunk, n_layers merges for each of those whose shape splits
-    the kernel, no quantize launch, and over an int8 pool one
-    quant_int8_commit a call.  Returns (outputs, launches, wall s, the
-    chunk calls' shapes)."""
+    each decode block's table width, each chunk call's (tokens, table
+    width) and each fused tick's slot count; require exact counts:
+    n_layers flash_fwd a full prefill, n_layers flash_decode_paged a
+    prefix-cache tail, a prefill chunk and a fused tick's chunk slots
+    and K x n_layers a K-step block, n_layers merges for each of those
+    calls (each step of a block) whose shape splits the kernel, no
+    quantize launch, and over an int8 pool one quant_int8_commit a call
+    (a step).  Returns (outputs, launches, wall s, the chunk calls'
+    shapes)."""
     from tfmesos_tpu_torch.ops import attention as ta
 
-    widths, chunks = [], []
+    widths, chunks, slots = [], [], []
     read, width = batcher._decode_table, batcher._chunk_width
+    slot_buffers = batcher._slot_buffers
+
+    def recorded_slots(n):
+        slots.append(n)
+        return slot_buffers(n)
 
     def recorded(*a):
         table = read(*a)
@@ -2298,8 +2371,10 @@ def counted_run(torch, cfg, batcher, items, int8: bool, label: str):
         return w
 
     batcher._decode_table, batcher._chunk_width = recorded, chunk_width
+    batcher._slot_buffers = recorded_slots
     for name in ("prefills", "tail_prefills", "prefill_chunks",
-                 "decode_ticks", "decode_tokens"):
+                 "decode_ticks", "decode_tokens", "fused_ticks",
+                 "fused_chunk_tokens", "fused_decode_tokens"):
         setattr(batcher, name, 0)
     batcher.decode_seconds = 0.0
     zero_launches()
@@ -2309,54 +2384,72 @@ def counted_run(torch, cfg, batcher, items, int8: bool, label: str):
         torch.cuda.synchronize()
     finally:
         del batcher._decode_table, batcher._chunk_width
+        del batcher._slot_buffers
     wall = time.perf_counter() - t0
     launches = read_launches()
-    L, ps = cfg.n_layers, batcher.page_size
+    L, ps, K = cfg.n_layers, batcher.page_size, batcher.multi_step
     pre, tails, nch = (batcher.prefills, batcher.tail_prefills,
                        batcher.prefill_chunks)
     ticks = batcher.decode_ticks
-    need(len(widths) == ticks and len(chunks) == tails + nch,
+    need(len(widths) == ticks and len(chunks) == tails + nch
+         and len(slots) == batcher.fused_ticks,
          f"{label}: {len(widths)} tick widths for {ticks} ticks, "
-         f"{len(chunks)} chunk widths for {tails + nch} chunk calls")
-    merges = L * (sum(paged_split(ta, cfg, batcher.rows, 1, w * ps)
-                      for w in widths)
+         f"{len(chunks)} chunk widths for {tails + nch} chunk calls, "
+         f"{len(slots)} slot counts for {batcher.fused_ticks} fused ticks")
+    c, slot_keys = batcher.prefill_chunk, batcher.np_max * ps
+    merges = L * (K * sum(paged_split(ta, cfg, batcher.rows, 1, w * ps)
+                          for w in widths)
                   + sum(paged_split(ta, cfg, 1, t, w * ps)
-                        for t, w in chunks))
-    calls = ticks + tails + nch
+                        for t, w in chunks)
+                  + sum(paged_split(ta, cfg, n, c, slot_keys)
+                        for n in slots))
+    calls = K * ticks + tails + nch + len(slots)
     want = {"flash_fwd": L * pre, "flash_decode_paged": L * calls,
             "flash_decode_paged_merge": merges, "quant_int8": 0,
             "quant_int8_commit": pre + calls if int8 else 0,
             "flash_decode": 0, "flash_decode_merge": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
     need(launches == want, f"{label} launches {launches} != {want} ({pre} "
-         f"prefills, {tails} tails, {nch} chunks, {ticks} ticks)")
-    return outs, launches, wall, sorted({f"t {t} w {w}" for t, w in chunks})
+         f"prefills, {tails} tails, {nch} chunks, {ticks} ticks of K "
+         f"{K}, fused slot counts {slots})")
+    return outs, launches, wall, sorted(
+        {f"t {t} w {w}" for t, w in chunks}
+        | {f"fused slots {n} x t {c} w {batcher.np_max}" for n in slots})
 
 
 def fleet_run(torch, cfg, batcher, reqs, int8: bool, label: str):
-    """Serve ``reqs`` once through :func:`counted_run`; every request
-    completes its tokens.  Returns (completions, stats)."""
+    """Serve ``reqs`` once through :func:`counted_run` (exact launch
+    counts); every request completes its tokens.  Returns (completions,
+    stats: ticks — decode dispatches, K steps each —, ms a tick and a
+    step, decode tokens/s, TTFT mean and p50, cold (rid 0) and warm, the
+    prefix-cache and fused counters)."""
     comps, launches, wall, shapes = counted_run(torch, cfg, batcher, reqs,
                                                 int8, label)
     new = reqs[0].max_new_tokens
     need(len(comps) == len(reqs)
          and all(len(c.tokens) == new for c in comps),
          f"{label}: {len(comps)} of {len(reqs)} requests completed")
-    ticks = batcher.decode_ticks
+    ticks, K = batcher.decode_ticks, batcher.multi_step
     by_rid = sorted(comps, key=lambda c: c.rid)
+    ttft = sorted(c.ttft_s * 1e3 for c in comps)
     warm = [c.ttft_s * 1e3 for c in by_rid[1:]]
     return comps, {
-        "requests": len(comps), "wall_s": wall,
+        "requests": len(comps), "wall_s": wall, "multi_step": K,
         "prefills": batcher.prefills, "tail_prefills": batcher.tail_prefills,
-        "prefill_chunks": batcher.prefill_chunks,
-        "chunk_shapes": shapes,
+        "prefill_chunks": batcher.prefill_chunks, "chunk_shapes": shapes,
         "decode_ticks": ticks, "decode_tokens": batcher.decode_tokens,
         "decode_tok_per_s": batcher.decode_tokens / batcher.decode_seconds,
         "ms_per_tick": batcher.decode_seconds / ticks * 1e3,
+        "ms_per_step": batcher.decode_seconds / (ticks * K) * 1e3,
+        "ttft_ms_mean": statistics.mean(ttft),
+        "ttft_ms_p50": statistics.median(ttft),
         "ttft_ms_cold": by_rid[0].ttft_s * 1e3,
         "ttft_ms_warm_mean": statistics.mean(warm),
         "ttft_ms_warm_p50": statistics.median(warm),
         "prefix_cache": batcher.prefix_cache_stats(),
+        "fused_ticks": batcher.fused_ticks,
+        "fused_chunk_tokens": batcher.fused_chunk_tokens,
+        "fused_decode_tokens": batcher.fused_decode_tokens,
         "peak_pages": batcher.peak_pages_used, "launches": launches}
 
 
@@ -2380,18 +2473,26 @@ def fp32_margin(torch, cfg, cpu_params, comps, what):
     return checked, positions
 
 
+def no_new_graphs(b, warmed, label: str) -> None:
+    """Fail if serving on ``b`` captured a graph that its warmup, which
+    left ``warmed``, did not."""
+    new = b._graphs.keys() - warmed
+    need(not new, f"{label}: captured {sorted(map(str, new))} after "
+         f"warmup")
+
+
 def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/15] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/16] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
     reqs = phase14_requests(np, cfg)
-    out = {}
+    out, bases = {}, {}
     for label, kw, int8 in (
             ("prefix cache", {"prefix_cache_pages": 64}, False),
             ("chunk 64 + prefix cache", {"prefix_cache_pages": 64,
@@ -2405,10 +2506,15 @@ def phase_prefix_chunked(torch, np):
                                   quantized_cache=int8, device="cuda", **kw)
             b._graphs.eager = eager
             info = b.warmup()
+            warmed = b._graphs.keys()
             mode = "eager" if eager else "graphed"
             runs[eager] = fleet_run(torch, cfg, b, reqs, int8,
                                     f"{label} ({mode})")
-            runs[eager][1]["warmup"] = info["compiled"]
+            no_new_graphs(b, warmed, f"{label} ({mode})")
+            runs[eager][1].update(warmup=info["compiled"],
+                                  warmup_seconds=info["seconds"],
+                                  graph_pool_mib=b._graphs.pool_bytes
+                                  / 2 ** 20)
         (comps, stats), (ecomps, estats) = runs[False], runs[True]
         need(streams(comps) == streams(ecomps),
              f"{label}: graphed and eager streams differ")
@@ -2431,8 +2537,18 @@ def phase_prefix_chunked(torch, np):
         row = {"graphed": stats, "eager": estats, "streams_identical": True,
                "margin_checked": checked, "positions": positions}
         say(f"  {label}: " + json.dumps(row))
+        say(f"  {label}: TTFT ms, graphed prefills and tails vs eager: "
+            f"cold {stats['ttft_ms_cold']:.3f} vs "
+            f"{estats['ttft_ms_cold']:.3f}, warm mean "
+            f"{stats['ttft_ms_warm_mean']:.3f} vs "
+            f"{estats['ttft_ms_warm_mean']:.3f}, warm p50 "
+            f"{stats['ttft_ms_warm_p50']:.3f} vs "
+            f"{estats['ttft_ms_warm_p50']:.3f}; warmup "
+            f"{stats['warmup_seconds']:.3f} s, {len(stats['warmup'])} "
+            f"names, graph pool {stats['graph_pool_mib']:.1f} MiB")
         out[label] = row
-    return out
+        bases[label] = comps
+    return out, bases
 
 
 def _host_tensor(a):
@@ -2449,7 +2565,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/15] export/import, preemption and rolling caches: flagship")
+    say("[15/16] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -2554,21 +2670,14 @@ def preempt_resume(torch, np, cfg, params, card, kw):
         done[c.rid] = c.tokens
     need(sorted(done) == sorted(ref), f"resume: rids {sorted(done)}")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    identical, gaps = 0, []
-    for rid, want in ref.items():
-        got = done[rid]
-        if got == want:
-            identical += 1
-            continue
-        i = next(j for j in range(len(want)) if got[j] != want[j])
+
+    def next_logits(rid, prefix):
         prompt = [int(x) for x in mk[rid][0]]
         with torch.no_grad():
-            logits = forward(cpu_cfg, params,
-                             torch.tensor([prompt + want[:i]]))[0, -1]
-        gap = abs(float(logits[got[i]]) - float(logits[want[i]]))
-        need(gap <= MARGIN, f"resume rid {rid}: diverged at token {i} "
-             f"with a CPU logit gap {gap:.3f} > {MARGIN}")
-        gaps.append(gap)
+            return forward(cpu_cfg, params,
+                           torch.tensor([prompt + prefix]))[0, -1]
+
+    identical, gaps = divergence_gaps(ref, done, next_logits, "resume")
     resumed = [ts.Completion(rid=s.rid, request=s.request,
                              tokens=done[s.rid]) for s in susp[:2]]
     checked, positions = fp32_margin(torch, cfg, params, resumed,
@@ -2580,6 +2689,28 @@ def preempt_resume(torch, np, cfg, params, card, kw):
              "launches_preempt_all": launches1, "launches_resume": launches2}
     say("  preempt_all + resume: " + json.dumps(stats))
     return stats
+
+
+def divergence_gaps(ref, got, next_logits, what):
+    """Streams ``got`` against ``ref`` (both {key: tokens}): how many are
+    identical, and at each other stream's first difference the CPU
+    logit gap between the two tokens (``next_logits(key, prefix)``: the
+    float32 CPU logits after the prompt and ``prefix`` of the reference
+    stream), each required within MARGIN — a near-tie, where rounding
+    alone may pick either token."""
+    identical, gaps = 0, []
+    for key, want in ref.items():
+        have = got[key]
+        if have == want:
+            identical += 1
+            continue
+        i = next(j for j in range(len(want)) if have[j] != want[j])
+        logits = next_logits(key, want[:i])
+        gap = abs(float(logits[have[i]]) - float(logits[want[i]]))
+        need(gap <= MARGIN, f"{what} {key}: diverged at token {i} with a "
+             f"CPU logit gap {gap:.3f} > {MARGIN}")
+        gaps.append({"stream": key, "token": i, "gap": gap})
+    return identical, gaps
 
 
 def windowed_generate(torch, cfg, card):
@@ -2629,6 +2760,189 @@ def windowed_generate(torch, cfg, card):
              "eager": eager}
     say("  windowed generate: " + json.dumps(stats))
     return stats
+
+
+# Phase 16's schedule modes over phase 5's traffic: (label, batcher
+# arguments, int8 weights and pool).
+MODE_RUNS = (("a multi_step=4", {"multi_step": 4}, False),
+             ("b overlap", {"overlap": True}, False),
+             ("c pipeline_depth=1", {"pipeline_depth": 1}, False),
+             ("d pipeline_depth=1 multi_step=4",
+              {"pipeline_depth": 1, "multi_step": 4}, False),
+             ("e multi_step=4 int8", {"multi_step": 4}, True))
+# Overlap and the pipeline over phase 14(b)'s chunked prefix-cache
+# traffic, where chunk calls and decode-table changes fall between a
+# lagged block's dispatch and its retire: (label, batcher arguments).
+LAGGED14_RUNS = (("h overlap", {"overlap": True}),
+                 ("i overlap multi_step=4", {"overlap": True,
+                                             "multi_step": 4}),
+                 ("j pipeline_depth=1", {"pipeline_depth": 1}),
+                 ("k pipeline_depth=1 multi_step=4",
+                  {"pipeline_depth": 1, "multi_step": 4}))
+# The fused tick over phase 14(b)'s and (c)'s traffic: (label,
+# tokens_per_tick).  The default budget is rows x K + one chunk (72 at K
+# = 1): one chunk slot a tick.  rows + 8 x 64 lets every filling row
+# take a slot, so slot counts of 1 to 8 run.
+FUSED_RUNS = (("f fused, default budget", None),
+              ("g fused, tokens_per_tick rows + 8 x 64", 8 + 8 * 64))
+
+
+def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
+                         sync14):
+    """Phase 16: the batcher's schedule modes on the flagship.  Phase 5's
+    traffic (``reqs``) under (a) multi_step=4, (b) overlap, (c)
+    pipeline_depth=1, (d) pipeline_depth=1 with multi_step=4 and (e) (a)
+    over int8 weights and an int8 pool: streams identical to phase 5's
+    and 12's synchronous runs (``base``, ``base8``: the same shapes, only
+    the sync point moves), exact launch counts.  Phase 14(b)'s and (c)'s
+    traffic with ``fused_prefill`` under (f) the default budget and (g)
+    rows + 8 x 64: streams identical to phase 14's phase-split runs
+    (``bases14``) or, where one differs, differing first at a near-tie
+    by the margin rule (the fused slots run [S, 64] GEMMs over
+    16-column tables; counted and printed), the fused counters moving,
+    exact launch counts.  Phase 14(b)'s traffic under (h)-(k), overlap
+    and the pipeline at K 1 and 4: streams identical to phase 14(b)'s
+    phase-split run, exact launch counts.  Each run on a fresh batcher,
+    warmed, capturing no graph after warmup; prints ms a block and a
+    step, TTFT and blocks beside the synchronous run's, and for (a)-(e)
+    a profile's busy share."""
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.models.transformer import forward
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    say("[16/16] schedule modes: multi_step, overlap, pipeline_depth and "
+        "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
+    cfg, params = flagship_model(seed=0, max_len=1024)
+    card = _cuda(params)
+    qparams = tt.quantize_params(cfg, card)
+    out = {}
+    for label, kw, int8 in MODE_RUNS:
+        b = ContinuousBatcher(cfg, qparams if int8 else card, rows=8,
+                              page_size=64, prefill_bucket=64,
+                              quantized_cache=int8, device="cuda", **kw)
+        info = b.warmup()
+        warmed = b._graphs.keys()
+        list(b.run([Request(np.arange(1, 9), 2)]))          # warm-up
+        comps, stats = fleet_run(torch, cfg, b, reqs, int8, label)
+        no_new_graphs(b, warmed, label)
+        need(streams(comps) == streams(base8 if int8 else base),
+             f"{label}: streams differ from the synchronous run's")
+        ref = sync8 if int8 else sync
+        stats.update(streams_identical=True,
+                     warmup_seconds=info["seconds"],
+                     warmup_graphs=len(info["compiled"]),
+                     graph_pool_mib=b._graphs.pool_bytes / 2 ** 20,
+                     sync_ms_per_tick=ref["ms_per_tick"],
+                     sync_ttft_ms_mean=ref["ttft_ms_mean"],
+                     sync_ttft_ms_p50=ref["ttft_ms_p50"],
+                     sync_ticks=ref["decode_ticks"])
+        say(f"  {label}: " + json.dumps(stats))
+        stats["profile"] = profile_serving(torch, np, b, cfg)
+        say(f"  {label}: ms a step {stats['ms_per_step']:.4f} (sync "
+            f"{ref['ms_per_tick']:.4f}), blocks {stats['decode_ticks']} "
+            f"(sync ticks {ref['decode_ticks']}), TTFT mean "
+            f"{stats['ttft_ms_mean']:.3f} p50 {stats['ttft_ms_p50']:.3f} "
+            f"(sync {ref['ttft_ms_mean']:.3f} / {ref['ttft_ms_p50']:.3f}); "
+            f"streams identical")
+        out[label] = stats
+        del b
+        torch.cuda.empty_cache()
+    reqs14 = phase14_requests(np, cfg)
+    traffic = "chunk 64 + prefix cache"
+    ref = sync14[traffic]["graphed"]
+    for label, kw in LAGGED14_RUNS:
+        name = f"{label} ({traffic})"
+        b = ContinuousBatcher(cfg, card, rows=8, page_size=64,
+                              prefill_bucket=64, prefix_cache_pages=64,
+                              prefill_chunk=64, device="cuda", **kw)
+        info = b.warmup()
+        warmed = b._graphs.keys()
+        comps, stats = fleet_run(torch, cfg, b, reqs14, False, name)
+        no_new_graphs(b, warmed, name)
+        need(streams(comps) == streams(bases14[traffic]),
+             f"{name}: streams differ from phase 14's phase-split run's")
+        stats.update(streams_identical=True,
+                     warmup_seconds=info["seconds"],
+                     warmup_graphs=len(info["compiled"]),
+                     graph_pool_mib=b._graphs.pool_bytes / 2 ** 20,
+                     sync_ms_per_tick=ref["ms_per_tick"],
+                     sync_ticks=ref["decode_ticks"],
+                     sync_ttft_ms_mean=ref["ttft_ms_mean"],
+                     sync_ttft_ms_warm_mean=ref["ttft_ms_warm_mean"],
+                     sync_ttft_ms_warm_p50=ref["ttft_ms_warm_p50"])
+        say(f"  {name}: " + json.dumps(stats))
+        say(f"  {name}: ms a step {stats['ms_per_step']:.4f} (phase-split "
+            f"{ref['ms_per_tick']:.4f}), blocks {stats['decode_ticks']} "
+            f"(ticks {ref['decode_ticks']}), TTFT mean "
+            f"{stats['ttft_ms_mean']:.3f} warm p50 "
+            f"{stats['ttft_ms_warm_p50']:.3f} (phase-split "
+            f"{ref['ttft_ms_mean']:.3f} / {ref['ttft_ms_warm_p50']:.3f}); "
+            f"streams identical")
+        out[name] = stats
+        del b
+        torch.cuda.empty_cache()
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    for label, budget in FUSED_RUNS:
+        for traffic, int8 in (("chunk 64 + prefix cache", False),
+                              ("chunk 64 + prefix cache, int8", True)):
+            name = f"{label} ({traffic})"
+            b = ContinuousBatcher(cfg, qparams if int8 else card, rows=8,
+                                  page_size=64, prefill_bucket=64,
+                                  quantized_cache=int8, prefix_cache_pages=64,
+                                  prefill_chunk=64, fused_prefill=True,
+                                  tokens_per_tick=budget, device="cuda")
+            info = b.warmup()
+            warmed = b._graphs.keys()
+            need(sum(n.startswith("fused[") for n in info["compiled"])
+                 == len(b._decode_widths()) * len(b._fused_slot_buckets()),
+                 f"{name}: warmup prepared {info['compiled']}")
+            comps, stats = fleet_run(torch, cfg, b, reqs14, int8, name)
+            no_new_graphs(b, warmed, name)
+            need(b.fused_prefill_bypass_reason is None
+                 and min(stats["fused_ticks"], stats["fused_chunk_tokens"],
+                         stats["fused_decode_tokens"]) > 0,
+                 f"{name}: fused counters {stats}")
+
+            def next_logits(i, prefix, int8=int8):
+                prompt = [int(x) for x in reqs14[i].prompt]
+                if int8:
+                    return cpu_logits_int8(
+                        torch, cfg, qparams, torch.tensor([prompt]),
+                        torch.tensor([prefix + [0]]))[0, len(prefix)]
+                with torch.no_grad():
+                    return forward(cpu_cfg, params,
+                                   torch.tensor([prompt + prefix]))[0, -1]
+
+            identical, gaps = divergence_gaps(
+                dict(enumerate(streams(bases14[traffic]))),
+                dict(enumerate(streams(comps))), next_logits, name)
+            ref = sync14[traffic]["graphed"]
+            stats.update(streams_identical=identical, divergence_gaps=gaps,
+                         warmup_seconds=info["seconds"],
+                         warmup_graphs=len(info["compiled"]),
+                         graph_pool_mib=b._graphs.pool_bytes / 2 ** 20,
+                         tokens_per_tick=b.tokens_per_tick,
+                         sync_ms_per_tick=ref["ms_per_tick"],
+                         sync_ticks=ref["decode_ticks"],
+                         sync_prefill_chunks=ref["prefill_chunks"],
+                         sync_ttft_ms_cold=ref["ttft_ms_cold"],
+                         sync_ttft_ms_warm_mean=ref["ttft_ms_warm_mean"],
+                         sync_ttft_ms_warm_p50=ref["ttft_ms_warm_p50"])
+            say(f"  {name}: " + json.dumps(stats))
+            say(f"  {name}: {identical} of {len(comps)} streams identical "
+                f"to the phase-split run's, {len(gaps)} differ first at a "
+                f"near-tie; {stats['fused_ticks']} fused ticks of "
+                f"{stats['fused_chunk_tokens']} chunk and "
+                f"{stats['fused_decode_tokens']} decode tokens; ms a "
+                f"tick {stats['ms_per_tick']:.4f} (phase-split tick "
+                f"{ref['ms_per_tick']:.4f}), TTFT warm mean "
+                f"{stats['ttft_ms_warm_mean']:.3f} (phase-split "
+                f"{ref['ttft_ms_warm_mean']:.3f})")
+            out[name] = stats
+            del b
+            torch.cuda.empty_cache()
+    return out
 
 
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
@@ -2687,11 +3001,14 @@ def main() -> int:
     timed("train vs cpu", phase_train_vs_cpu, torch, train_cfg)
     gen8 = timed("generate int8", phase_generate_int8, torch)
     gen_long = timed("generate long", phase_generate_long, torch)
-    serve8 = timed("serve int8", phase_serve_int8, torch, np, reqs)
+    serve8, comps8 = timed("serve int8", phase_serve_int8, torch, np, reqs)
     sampled = timed("sampled", phase_sampled, torch, reqs)
-    fleet = timed("prefix cache and chunks", phase_prefix_chunked, torch, np)
+    fleet, bases14 = timed("prefix cache and chunks", phase_prefix_chunked,
+                           torch, np)
     moves = timed("export, preempt, rolling", phase_disagg_preempt_rolling,
                   torch, np)
+    modes = timed("schedule modes", phase_schedule_modes, torch, np, reqs,
+                  comps, comps8, stats, serve8, bases14, fleet)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -2708,7 +3025,9 @@ def main() -> int:
                 for label, row in moves.items() if label.startswith("import")},
              "serve preempt_all": moves["preempt"]["launches_preempt_all"],
              "serve resume": moves["preempt"]["launches_resume"],
-             "generate windowed": moves["rolling"]["launches"]}
+             "generate windowed": moves["rolling"]["launches"],
+             **{f"serve {label}": row["launches"]
+                for label, row in modes.items()}}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -1,14 +1,18 @@
 """The port's bypass registry against the reference's
-(``serving.compute_bypass_reasons``): over every flag combination the
-port accepts, the same reasons; every reason within
-``BYPASS_ALLOWLIST`` (the same allowlist, key for key); a mode the port
-does not have yet raises ``NotImplementedError``, in the registry and in
-the batcher alike, never silently ignored."""
+(``serving.compute_bypass_reasons``): over the whole flag grid the
+port accepts (the schedule modes ``pipeline_depth``, ``overlap``,
+``multi_step``, and ``fused_prefill`` with ``tokens_per_tick``), the
+same reasons, on the registry and on a live batcher alike; every reason
+within ``BYPASS_ALLOWLIST`` (the same allowlist, key for key); a mode
+the port does not have yet (speculation, a mesh, a static prefix, the
+KV tier, the draft arguments) raises ``NotImplementedError``, never
+silently ignored."""
 
 import itertools
 
 import numpy as np
 import pytest
+from torch_parity import jax_compile_cache_off  # noqa: F401
 
 from tfmesos_tpu import serving as js
 from tfmesos_tpu_torch import serving as ts
@@ -39,8 +43,7 @@ def test_reasons_equal_the_references_over_every_ported_config(quantized):
 
 
 UNPORTED = [dict(speculative=True), dict(draft_quantized_cache=True),
-            dict(n_shards=2), dict(pipeline_depth=1), dict(overlap=True),
-            dict(multi_step=2)]
+            dict(n_shards=2)]
 
 
 @pytest.mark.parametrize("flags", UNPORTED,
@@ -52,26 +55,79 @@ def test_unported_modes_raise(flags):
         js.compute_bypass_reasons(quantized_cache=q, **flags)
 
 
-def test_every_unported_combination_raises():
-    for spec, shards, pd, ov, ms in itertools.product(
-            (False, True), (1, 2), (0, 1), (False, True), (1, 4)):
+LAG_MODES = [dict(pipeline_depth=1), dict(overlap=True), dict(multi_step=2)]
+
+
+@pytest.mark.parametrize("flags", LAG_MODES, ids=lambda f: next(iter(f)))
+def test_schedule_modes_equal_the_references(flags):
+    for q in (False, True):
+        got = ts.compute_bypass_reasons(quantized_cache=q, **flags)
+        assert got == js.compute_bypass_reasons(quantized_cache=q, **flags)
+
+
+GRID = list(itertools.product((False, True), (1, 2), (0, 1), (False, True),
+                              (1, 4)))
+
+
+@pytest.mark.parametrize("spec,shards,pd,ov,ms", GRID,
+                         ids=lambda v: str(int(v)))
+def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
+                                                           ov, ms):
+    """The whole flag grid: without speculation or a mesh the port's
+    reasons are the reference's (and within the allowlist); with either
+    it raises."""
+    for q in (False, True):
         flags = dict(speculative=spec, n_shards=shards, pipeline_depth=pd,
-                     overlap=ov, multi_step=ms)
-        if flags == dict(speculative=False, n_shards=1, pipeline_depth=0,
-                         overlap=False, multi_step=1):
+                     overlap=ov, multi_step=ms, quantized_cache=q)
+        want = js.compute_bypass_reasons(**flags)
+        if spec or shards != 1:
+            with pytest.raises(NotImplementedError):
+                ts.compute_bypass_reasons(**flags)
             continue
-        with pytest.raises(NotImplementedError):
-            ts.compute_bypass_reasons(**flags)
+        got = ts.compute_bypass_reasons(**flags)
+        assert got == want
+        for reg, val in got.items():
+            assert val is None or val in ts.BYPASS_ALLOWLIST[reg]
 
 
 @pytest.mark.parametrize("kw", [
-    dict(overlap=True), dict(multi_step=2), dict(pipeline_depth=1),
     dict(mesh=object()), dict(prefix=np.arange(4)), dict(kv_tier=object()),
-    dict(fused_prefill=True, prefill_chunk=16), dict(tokens_per_tick=8),
-    dict(draft_cfg=object(), draft_params={})],
+    dict(draft_cfg=object(), draft_params={}), dict(draft_n_pages=8)],
     ids=lambda kw: next(iter(kw)))
 def test_batcher_refuses_unported_modes(kw):
     cfg, params = presets.tiny_model()
     with pytest.raises(NotImplementedError):
         ts.ContinuousBatcher(cfg, params, rows=2, max_len=64, page_size=16,
                              device="cpu", **kw)
+
+
+MODES = {"overlap": dict(overlap=True), "multi_step": dict(multi_step=2),
+         "pipeline_depth": dict(pipeline_depth=1),
+         "overlap+pipeline": dict(overlap=True, pipeline_depth=1),
+         "fused_prefill": dict(fused_prefill=True, prefill_chunk=16),
+         "fused+overlap": dict(fused_prefill=True, prefill_chunk=16,
+                               overlap=True),
+         "tokens_per_tick": dict(fused_prefill=True, prefill_chunk=16,
+                                 tokens_per_tick=8)}
+
+
+@pytest.mark.parametrize("name", list(MODES))
+def test_batcher_records_the_mode_reasons(name):
+    """A live batcher built with the mode records the reference's
+    reasons, and its effective modes are the reference batcher's."""
+    from tfmesos_tpu.fleet.replica import tiny_model as jax_tiny_model
+
+    kw = dict(rows=2, max_len=64, page_size=16, prefill_bucket=16,
+              **MODES[name])
+    cfg, params = presets.tiny_model()
+    b = ts.ContinuousBatcher(cfg, params, device="cpu", **kw)
+    jcfg, jparams = jax_tiny_model(seed=0)
+    jb = js.ContinuousBatcher(jcfg, jparams, **kw)
+    for attr in ("pipeline_bypass_reason", "overlap_bypass_reason",
+                 "multi_step_bypass_reason", "suspend_bypass_reason",
+                 "fused_prefill_bypass_reason", "prefix_cache_bypass_reason",
+                 "_pipelined", "overlap", "multi_step", "preemptible",
+                 "_fused", "tokens_per_tick"):
+        assert getattr(b, attr) == getattr(jb, attr), attr
+    assert b.paged_launches_per_block() == jb.paged_launches_per_block()
+    assert b.fused_tokens_per_tick() == jb.fused_tokens_per_tick()

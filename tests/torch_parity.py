@@ -33,3 +33,53 @@ def jax_compile_cache_off():
 def to_torch(a) -> torch.Tensor:
     """A numpy (or numpy-convertible) array as a CPU tensor."""
     return torch.from_numpy(np.array(a))
+
+
+def tiny_models():
+    """(JAX config, JAX params, port config, port params): the JAX tiny
+    model (seed 0) and the same weights carried across by
+    ``convert.params_from_jax``."""
+    import jax
+
+    from tfmesos_tpu.fleet.replica import tiny_model as jax_tiny_model
+    from tfmesos_tpu_torch import convert
+    from tfmesos_tpu_torch.models import presets
+
+    jcfg, jparams = jax_tiny_model(seed=0)
+    tparams = convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams))
+    return jcfg, jparams, presets.tiny_model()[0], tparams
+
+
+def batcher_streams(completions) -> dict:
+    """{rid: tokens} of a batcher run's completions."""
+    return {c.rid: list(c.tokens) for c in completions}
+
+
+class Golden:
+    """Streams of the JAX batcher in its synchronous, phase-split, one
+    token a tick mode (the golden every schedule mode is held to),
+    computed once per (requests, config) and kept for the module."""
+
+    def __init__(self, models):
+        self.models = models
+        self._memo = {}
+
+    def __call__(self, name: str, specs, **kw) -> dict:
+        """``specs``: [(prompt, max_new_tokens)]; ``kw``: the batcher's
+        arguments (``rng`` as a seed int, made a JAX key here)."""
+        import jax
+
+        from tfmesos_tpu import serving as js
+
+        key = (name, tuple(sorted((k, repr(v)) for k, v in kw.items())))
+        if key not in self._memo:
+            jcfg, jparams = self.models[:2]
+            if "rng" in kw:
+                kw = dict(kw, rng=jax.random.PRNGKey(kw["rng"]))
+            b = js.ContinuousBatcher(jcfg, jparams, **kw)
+            self._memo[key] = batcher_streams(b.run(
+                js.Request(prompt=p.copy(), max_new_tokens=n)
+                for p, n in specs))
+            assert b.alloc.rows == {}
+        return self._memo[key]

@@ -32,7 +32,7 @@ paths on the card) every call runs the step eagerly.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Tuple, Union
+from typing import Callable, Dict, Hashable, Set, Tuple, Union
 
 import torch
 
@@ -71,6 +71,10 @@ class StepGraphs:
 
     def __contains__(self, key: Hashable) -> bool:
         return key in self._graphs
+
+    def keys(self) -> Set[Hashable]:
+        """The keys captured so far."""
+        return set(self._graphs)
 
     def run(self, key: Hashable, step: Step) -> None:
         """Run ``step`` once: the replay of ``key``'s graph, or, at the

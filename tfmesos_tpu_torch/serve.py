@@ -4,7 +4,9 @@ of ``examples/serve.py --continuous``).
     python -m tfmesos_tpu_torch.serve [--tiny] [--device cpu] \\
         [--batch 8] [--n-prompts 24] [--new-tokens 32] [--seed 0] \\
         [--temperature 0.0] [--warmup] [--int8] [--int8-kv] \\
-        [--prefill-chunk N] [--prefix-cache-pages N]
+        [--prefill-chunk N] [--prefix-cache-pages N] [--multi-step K] \\
+        [--overlap] [--pipeline-depth {0,1}] [--fused-prefill] \\
+        [--tokens-per-tick N]
 
 Prompts of 4..32 random tokens (seeded) go through
 :class:`~tfmesos_tpu_torch.serving.ContinuousBatcher` with ``--batch``
@@ -19,8 +21,14 @@ before the stream starts (on the card: every decode width's CUDA graph
 captured ahead of the first request).  ``--prefill-chunk N`` writes
 prompts N tokens a tick (chunked prefill); ``--prefix-cache-pages N``
 keeps up to N prompt pages resident for later requests sharing a
-prefix.  Both are off by default.  Runs on the card unless
-``--device cpu``.
+prefix.  Both are off by default.  The schedule modes (the JAX serving
+CLI's flags): ``--multi-step K`` decodes K tokens a dispatch with one
+host sync; ``--overlap`` dispatches the next block before syncing the
+last; ``--pipeline-depth 1`` keeps the decode carry on the device as
+well; ``--fused-prefill`` (with ``--prefill-chunk``) runs the decode
+block and up to ``--tokens-per-tick`` tokens of chunk slots in one
+dispatch.  Streams are the synchronous batcher's in every mode.  Runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -61,7 +69,28 @@ def main(argv=None) -> int:
                    dest="prefix_cache_pages",
                    help="cross-request prefix cache: keep up to this many "
                         "prompt pages resident (0 = off)")
+    p.add_argument("--multi-step", type=int, default=1, dest="multi_step",
+                   help="decode K tokens per dispatch (one host sync "
+                        "per K tokens)")
+    p.add_argument("--overlap", action="store_true",
+                   help="dispatch decode block N+1 before syncing "
+                        "block N")
+    p.add_argument("--pipeline-depth", type=int, default=0, choices=(0, 1),
+                   dest="pipeline_depth",
+                   help="1 = the decode carry (tokens, positions, steps) "
+                        "stays on the device, block N synced one block "
+                        "behind")
+    p.add_argument("--fused-prefill", action="store_true",
+                   dest="fused_prefill",
+                   help="with --prefill-chunk: one dispatch a tick for the "
+                        "decode block and the prefill chunk slots")
+    p.add_argument("--tokens-per-tick", type=int, default=None,
+                   dest="tokens_per_tick",
+                   help="the fused tick's token budget (default: rows x "
+                        "multi-step + one chunk)")
     args = p.parse_args(argv)
+    if args.fused_prefill and args.prefill_chunk is None:
+        p.error("--fused-prefill requires --prefill-chunk")
 
     import numpy as np
 
@@ -84,6 +113,11 @@ def main(argv=None) -> int:
                                 quantized_cache=args.int8_kv,
                                 prefill_chunk=args.prefill_chunk,
                                 prefix_cache_pages=args.prefix_cache_pages,
+                                multi_step=args.multi_step,
+                                overlap=args.overlap,
+                                pipeline_depth=args.pipeline_depth,
+                                fused_prefill=args.fused_prefill,
+                                tokens_per_tick=args.tokens_per_tick,
                                 device=device)
     reqs = [Request(prompt=t, max_new_tokens=args.new_tokens)
             for t in prompts]
@@ -105,9 +139,13 @@ def main(argv=None) -> int:
                           "tokens": c.tokens}), flush=True)
         served += 1
     dt = time.perf_counter() - t0
+    fused = (f", {batcher.fused_ticks} fused ticks of "
+             f"{batcher.fused_chunk_tokens} chunk and "
+             f"{batcher.fused_decode_tokens} decode tokens"
+             if args.fused_prefill else "")
     print(f"served {served} prompts continuously in {dt:.2f}s on "
           f"{device} (peak pages {batcher.peak_pages_used}/"
-          f"{batcher.n_pages}, {batcher.decode_ticks} decode ticks)",
+          f"{batcher.n_pages}, {batcher.decode_ticks} decode ticks{fused})",
           file=sys.stderr)
     if batcher.prefix_cache_active:
         print(f"prefix cache: {json.dumps(batcher.prefix_cache_stats())}",

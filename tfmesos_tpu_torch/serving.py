@@ -5,7 +5,9 @@
 prefix cache ``:779-1196``, the ``ContinuousBatcher`` loop and
 admission ``:2499-2700, 3799-4445``, chunked prefill ``:2389-2410,
 4398-4443``, warmup ``:2722``, KV export/import ``:2930-3326``, the
-decode tick ``:4539-4586``, deadlines and preemption ``:4909-5043``).
+schedule modes — the K-step block, overlap, the pipeline and the fused
+prefill tick — ``:2116-2197, 2412-2470, 4445-4751``, deadlines and
+preemption ``:4909-5043``).
 
 A persistent page pool plus an admission loop that feeds new prompts
 into a RUNNING batched decode: rows free on stop token or quota,
@@ -25,14 +27,16 @@ The fleet surface is the reference's too: chunked prefill
 either side can read (:func:`pack_prefilled`), priority preemption with
 the :meth:`ContinuousBatcher.preempt_all` drain, and deadlines.
 
-Each prompt-width prefill is an eager call.  On the card each
-table-width decode tick, and each table-width prefill chunk, is a CUDA
-graph (``graphs.py``), captured at :meth:`ContinuousBatcher.warmup` or
-at its first call and replayed after: it copies its inputs in one
-host-to-device copy and replays.  Every layer of every call launches
-the hand-written attention kernel (``ops/attention.py``).  Graphs hold
-the pool's addresses, so nothing here reallocates it: copy-on-write
-copies, imports and commits write into the existing tensors.
+On the card every device call is a CUDA graph (``graphs.py``): the
+admission prefill a prompt width, a prefill chunk or prefix-cache tail a
+(tokens, table width), the decode block a table width and the fused
+tick a (table width, slot count), each captured at
+:meth:`ContinuousBatcher.warmup` or at its first call and replayed
+after: the host copies its inputs in one host-to-device copy and
+replays.  Every layer of every call launches the hand-written attention
+kernel (``ops/attention.py``).  Graphs hold the pool's addresses, so
+nothing here reallocates it: copy-on-write copies, imports and commits
+write into the existing tensors.
 """
 
 from __future__ import annotations
@@ -97,12 +101,9 @@ def compute_bypass_reasons(*, speculative: bool = False,
     from these mode flags records (keys of :data:`BYPASS_ALLOWLIST`;
     None = the feature composes), computed as the reference computes
     them.  A mode the port does not have yet — speculative decoding, a
-    mesh, ``pipeline_depth``, ``overlap``, ``multi_step`` — raises
-    ``NotImplementedError`` when asked for."""
+    mesh — raises ``NotImplementedError`` when asked for."""
     unported = {"speculative decoding": speculative or draft_quantized_cache,
-                "mesh data sharding (n_shards != 1)": n_shards != 1,
-                "pipeline_depth": bool(pipeline_depth),
-                "overlap": bool(overlap), "multi_step > 1": multi_step != 1}
+                "mesh data sharding (n_shards != 1)": n_shards != 1}
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
@@ -110,6 +111,15 @@ def compute_bypass_reasons(*, speculative: bool = False,
     if quantized_cache:
         out["prefix_cache"] = "quantized kv cache"
         out["kv_tier"] = "quantized kv cache"
+    # Without speculation the pipeline always takes effect, and overlap
+    # yields to it; either lag leaves no settled per-row state to
+    # suspend, and a chunk slot's first token is host-synchronous.
+    pipelined = bool(pipeline_depth)
+    if pipelined and overlap:
+        out["overlap"] = "pipelined decode carry"
+    if overlap or pipelined:
+        out["suspend"] = "lagged decode carry"
+        out["fused_prefill"] = "lagged decode carry"
     return out
 
 
@@ -811,9 +821,9 @@ class ContinuousBatcher:
     ``fold_in(fold_in(rng, rid), step)`` (``rng`` a threefry key,
     default ``PRNGKey(0)``; the prefill's token is step 0).  Runs on
     the card unless ``device="cpu"`` (no card and no ``device`` raises);
-    on the card the decode ticks and prefill chunks replay CUDA graphs
-    (:meth:`warmup`).  ``params`` are the float32 masters or a
-    ``quantize_params`` tree; the batcher keeps a copy cast once to the
+    on the card every device call replays a CUDA graph (:meth:`warmup`).
+    ``params`` are the float32 masters or a ``quantize_params`` tree;
+    the batcher keeps a copy cast once to the
     compute dtype (the model casts every weight and int8 scale at use,
     so the bits are the same).  ``quantized_cache=True`` stores the page
     pool as int8 with per-position scales.
@@ -848,16 +858,30 @@ class ContinuousBatcher:
     :class:`Suspended`.  Deadlines shed an expired arrival before its
     prefill and cancel an expired resident row (:class:`Expired`).
 
-    The reference's other modes (``multi_step``, ``pipeline_depth``,
-    ``overlap``, ``fused_prefill``, a static ``prefix``, ``kv_tier``,
+    Schedule modes, each token-identical to the synchronous one-token
+    tick (the same ops and ``(rid, step)`` folds; only the sync point
+    moves): ``multi_step=K`` decodes K tokens a dispatch and syncs a
+    [rows, K] block, a row's tokens past its stop or quota discarded;
+    ``overlap=True`` dispatches block N+1 before syncing block N, rows
+    chaining from its last token on the device; ``pipeline_depth=1``
+    also keeps positions and steps on the device, uploading host inputs
+    only when the dispatch set changes; ``fused_prefill=True`` (with
+    ``prefill_chunk``) runs the decode block and up to
+    ``(tokens_per_tick - n_decode * K) / chunk`` chunk slots in one
+    dispatch.  Bypasses are the reference's (``*_bypass_reason``):
+    overlap yields to the pipeline, and under either lag rows are not
+    suspendable and the fused tick falls back to the phase-split one.
+    The reference's other modes (a static ``prefix``, ``kv_tier``,
     speculative decoding, a ``mesh``) are not ported yet: asking for one
     raises ``NotImplementedError``.
 
     Counters for measurement: ``prefills`` (full-prompt prefill calls),
     ``tail_prefills`` (prefix-cache tails), ``prefill_chunks``,
-    ``decode_ticks``, ``decode_tokens`` and ``decode_seconds`` (wall
-    time of the decode ticks, each ending in the host sync of its
-    tokens), ``preemptions``, ``resumes`` and ``deadline_cancels``."""
+    ``decode_ticks`` (decode dispatches, fused ones included),
+    ``decode_tokens`` (tokens they committed) and ``decode_seconds``
+    (wall time of the decode dispatches and their host syncs),
+    ``fused_ticks``, ``fused_chunk_tokens``, ``fused_decode_tokens``,
+    ``preemptions``, ``resumes`` and ``deadline_cancels``."""
 
     def __init__(self, cfg: TransformerConfig, params: Params, rows: int = 8,
                  max_len: Optional[int] = None, page_size: int = 64,
@@ -882,11 +906,21 @@ class ContinuousBatcher:
         if prefix_cache_pages < 0:
             raise ValueError(f"prefix_cache_pages must be >= 0, got "
                              f"{prefix_cache_pages}")
+        if multi_step < 1:
+            raise ValueError(f"multi_step must be >= 1, got {multi_step}")
+        if pipeline_depth not in (0, 1):
+            raise ValueError(f"pipeline_depth must be 0 (synchronous "
+                             f"host sync) or 1 (one block of device-"
+                             f"resident lag), got {pipeline_depth}")
+        if fused_prefill and prefill_chunk is None:
+            raise ValueError("fused_prefill requires prefill_chunk "
+                             "(chunked prefill is the lane being fused)")
+        if tokens_per_tick is not None and tokens_per_tick < 1:
+            raise ValueError(f"tokens_per_tick must be >= 1, got "
+                             f"{tokens_per_tick}")
         unported = {"mesh": mesh is not None,
                     "prefix": prefix is not None,
                     "kv_tier": kv_tier is not None,
-                    "fused_prefill": bool(fused_prefill),
-                    "tokens_per_tick": tokens_per_tick is not None,
                     "draft_params": draft_params is not None,
                     "draft_n_pages": draft_n_pages is not None}
         asked = [name for name, on in unported.items() if on]
@@ -898,6 +932,29 @@ class ContinuousBatcher:
             draft_quantized_cache=draft_quantized_cache,
             pipeline_depth=pipeline_depth, overlap=overlap,
             multi_step=multi_step)
+        self.multi_step = int(multi_step)
+        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline_bypass_reason: Optional[str] = self._bypass["pipeline"]
+        self.overlap_bypass_reason: Optional[str] = self._bypass["overlap"]
+        self.multi_step_bypass_reason: Optional[str] = \
+            self._bypass["multi_step"]
+        # Overlap yields to an active pipeline (its carry covers it).
+        self.overlap = bool(overlap) and self.overlap_bypass_reason is None
+        self.fused_prefill_bypass_reason: Optional[str] = (
+            self._bypass["fused_prefill"] if fused_prefill else None)
+        self._fused = bool(fused_prefill) and \
+            self.fused_prefill_bypass_reason is None
+        #: The fused tick's token budget: by default every row decoding a
+        #: full block plus one chunk.
+        self.tokens_per_tick = int(tokens_per_tick or rows * self.multi_step
+                                   + (prefill_chunk or 0))
+        # The lagged modes' state: the block in flight (its host output
+        # and event, and its {row: rid} ticket), and under the pipeline
+        # the device carry in use and the key of the host inputs last
+        # uploaded.
+        self._inflight = None
+        self._pipe_carry = None
+        self._pipe_host = None
         _check_sampling_args(top_k, top_p)
         if prefill_chunk is not None:
             if prefill_chunk < 1 or prefill_chunk % 8:
@@ -950,25 +1007,33 @@ class ContinuousBatcher:
         # the import path, and the drain-migration request.
         self._parked: deque = deque()
         self._preempt_event = threading.Event()
-        # The decode tick's static buffers: its inputs (tokens, positions
-        # clamped to max_len, rids, steps; one row each) packed for one
-        # host-to-device copy from pinned memory, its tokens, and a page
-        # table a width, re-copied only when the allocation changes.
-        pin = self.device.type == "cuda"
-        self._tick_host = torch.zeros((4, self.rows), dtype=torch.long,
-                                      pin_memory=pin)
-        self._tick_in = torch.zeros((4, self.rows), dtype=torch.long,
+        # The decode block's static buffers: its inputs (tokens,
+        # positions, rids, steps, and the lagged modes' merge flag; one
+        # row each), uploaded in one host-to-device copy, its [rows, K]
+        # tokens, the pipeline's device carry (last token, position,
+        # step), and a page table a width, re-copied only when the
+        # allocation changes.  Host staging is a fresh pinned buffer a
+        # copy: the caching host allocator keeps it until its copy has
+        # run, so a lagged block never races a reused one.
+        self._pin = self.device.type == "cuda"
+        self._tick_in = torch.zeros((5, self.rows), dtype=torch.long,
                                     device=self.device)
-        self._tick_out = torch.zeros((self.rows,), dtype=torch.long,
-                                     device=self.device)
-        self._out_host = torch.zeros((self.rows,), dtype=torch.long,
-                                     pin_memory=pin)
-        # width -> (host table last copied, pinned staging, device table)
-        self._tables: Dict[int, Tuple[Any, torch.Tensor, torch.Tensor]] = {}
+        self._tick_out = torch.zeros((self.rows, self.multi_step),
+                                     dtype=torch.long, device=self.device)
+        self._carry = torch.zeros((3, self.rows), dtype=torch.long,
+                                  device=self.device)
+        # width -> (host table last copied, device table)
+        self._tables: Dict[int, Tuple[Any, torch.Tensor]] = {}
         # (chunk tokens, table width) -> the chunk step's static input
         # (tokens, pos, cap, rid, the row's table) and output buffers.
         self._chunk_bufs: Dict[Tuple[int, int],
                                Tuple[torch.Tensor, torch.Tensor]] = {}
+        # prompt width -> the admission prefill's static input (tokens,
+        # length - 1, rid, the row's table) and output buffers.
+        self._prefill_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # fused slot count S -> the chunk slots' static input ([S] rows
+        # of chunk tokens, position, cap, rid, table) and first tokens.
+        self._slot_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._graphs = StepGraphs(self.device)
         self.prefills = 0
         self.tail_prefills = 0
@@ -979,6 +1044,9 @@ class ContinuousBatcher:
         self.preemptions = 0        # rows suspended for a higher class
         self.resumes = 0            # parked rows re-admitted locally
         self.deadline_cancels = 0   # arrivals shed + resident rows cancelled
+        self.fused_ticks = 0          # fused prefill+decode dispatches
+        self.fused_chunk_tokens = 0   # prefill tokens they coalesced
+        self.fused_decode_tokens = 0  # decode tokens they covered
 
     @property
     def peak_pages_used(self) -> int:
@@ -993,11 +1061,36 @@ class ContinuousBatcher:
         return self._pcache is not None
 
     @property
+    def _pipelined(self) -> bool:
+        """Pipelined decode is in effect (requested and not bypassed)."""
+        return self.pipeline_depth > 0 and self.pipeline_bypass_reason is None
+
+    @property
     def preemptible(self) -> bool:
         """Whether a resident row can be suspended (the ``suspend``
-        registry entry is None): always, on the port's single-shard,
-        host-synchronous loop."""
+        registry entry is None): not under a lagged decode carry
+        (``overlap``, ``pipeline_depth=1``), whose host view of a row
+        runs a block behind its pages."""
         return self.suspend_bypass_reason is None
+
+    def paged_launches_per_block(self, block_tokens: int = 16) -> int:
+        """Paged-attention launches per layer needed to retire
+        ``block_tokens`` decode tokens of one row: one a token (the
+        reference's analytic metric; only speculation, not ported,
+        retires more a launch)."""
+        return int(block_tokens)
+
+    def fused_tokens_per_tick(self, n_decode: Optional[int] = None) -> int:
+        """Tokens one dispatch covers on a tick with ``n_decode``
+        decoding rows (default: all rows): the decode block, plus under
+        ``fused_prefill`` the chunk slots the ``tokens_per_tick`` budget
+        leaves room for, at least one."""
+        n = self.rows if n_decode is None else int(n_decode)
+        dt = n * self.multi_step
+        if not self._fused:
+            return dt
+        c = self.prefill_chunk
+        return dt + max(1, (self.tokens_per_tick - dt) // c) * c
 
     def prefix_cache_stats(self) -> Optional[Dict[str, int]]:
         """Hit/miss/eviction counters plus occupancy of the prefix cache
@@ -1233,6 +1326,15 @@ class ContinuousBatcher:
                     if not pending and exhausted:
                         return
                     continue
+                if (self._fused
+                        and any(row.decoding for row in active.values())
+                        and any(not row.decoding
+                                for row in active.values())):
+                    # Both lanes live: the decode block and the budgeted
+                    # chunk slots in one dispatch.
+                    yield from self._step_fused(active, free_rows)
+                    self._flush_streams(active)
+                    continue
                 if self.prefill_chunk is not None:
                     done_row = self._advance_prefill(active)
                     if done_row is not None:
@@ -1240,9 +1342,15 @@ class ContinuousBatcher:
                         self._finish(done_row, active, free_rows)
                         yield done
                 if any(row.decoding for row in active.values()):
-                    yield from self._step(active, free_rows)
+                    if self._pipelined or self.overlap:
+                        yield from self._step_lagged(active, free_rows)
+                    else:
+                        yield from self._step(active, free_rows)
                     self._flush_streams(active)
         finally:
+            # A stale lagged block and its device carry die with the loop.
+            self._inflight = None
+            self._pipe_carry = self._pipe_host = None
             self._parked.clear()    # pages already released at suspend
             for row in list(active):
                 self._finish(row, active, free_rows)
@@ -1373,9 +1481,6 @@ class ContinuousBatcher:
                 f"nothing in flight to wait for — raise n_pages")
         return None, None
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def _sample(self, last: torch.Tensor, rids: torch.Tensor,
                 steps: torch.Tensor) -> torch.Tensor:
         """[n, V] logits -> [n] tokens: the float32 argmax, or a draw
@@ -1427,17 +1532,8 @@ class ContinuousBatcher:
             return self._admit_cached(row, rid, req, wt, need, active,
                                       plan, t_admit)
         self.t_side.ensure(row, width)
-        padded = np.zeros((1, width), np.int32)
-        padded[0, :length] = req.prompt
-        table = self.t_side.table_np()[row:row + 1]
-        cache = dict(self.pool, pages=self._dev(table))
-        logits, _ = decode_step(self.cfg, self.params, cache,
-                                self._dev(padded).long(), 0)
+        tok = self._prefill_call(row, req.prompt, width, rid)
         self.prefills += 1
-        tok = self._sample(
-            logits[0, length - 1][None],
-            torch.full((1,), rid, dtype=torch.long, device=self.device),
-            torch.zeros((1,), dtype=torch.long, device=self.device))[0]
         state = _Row(rid=rid, req=req, pos=length, step=1, last=0, out=[],
                      worst_pages=wt, t_admit=t_admit, limit=need)
         active[row] = state
@@ -1480,6 +1576,51 @@ class ContinuousBatcher:
         self._pcache_insert(row, state)
         return row, state, tok
 
+    def _staging(self, *shape: int, dtype=torch.long) -> torch.Tensor:
+        """A fresh host buffer for one host-to-device copy (pinned on the
+        card: the caching host allocator keeps it until the copy ran)."""
+        return torch.zeros(shape, dtype=dtype, pin_memory=self._pin)
+
+    def _prefill_call(self, row: int, prompt: np.ndarray, width: int,
+                      rid: int) -> torch.Tensor:
+        """The admission prefill of ``prompt`` padded to ``width`` into
+        ``row``'s pages, from an empty cache: one graph a prompt width,
+        its inputs (tokens, ``length - 1``, rid, the row's table) in one
+        copy from pinned memory.  Returns the first token (sampled at
+        step 0) on the device."""
+        inp, out = self._prefill_buffers(width)
+        host = self._staging(width + 2 + self.np_max)
+        h = host.numpy()
+        h[:prompt.size] = prompt
+        h[width:width + 2] = (prompt.size - 1, rid)
+        h[width + 2:] = self.t_side.table_np()[row]
+        inp.copy_(host, non_blocking=True)
+        self._graphs.run(("prefill", width),
+                         functools.partial(self._prefill_step, width))
+        return out.clone()[0]
+
+    def _prefill_buffers(self, width: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if width not in self._prefill_bufs:
+            self._prefill_bufs[width] = (
+                torch.zeros((width + 2 + self.np_max,), dtype=torch.long,
+                            device=self.device),
+                torch.zeros((1,), dtype=torch.long, device=self.device))
+        return self._prefill_bufs[width]
+
+    @torch.no_grad()
+    def _prefill_step(self, width: int) -> None:
+        """The admission prefill over its static buffers (what a graph
+        holds): ``pos`` is the python int 0, a prefill from empty."""
+        inp, out = self._prefill_bufs[width]
+        table = inp[width + 2:].to(torch.int32)[None]
+        logits, _ = decode_step(self.cfg, self.params,
+                                dict(self.pool, pages=table),
+                                inp[:width][None], 0)
+        last = logits[0].index_select(0, inp[width:width + 1])
+        rid = inp[width + 1:width + 2]
+        out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
+
     def _chunk_width(self, pos: int, t: int) -> int:
         return self.chunk_width(pos, t, self.page_size, self.np_max)
 
@@ -1510,25 +1651,20 @@ class ContinuousBatcher:
         kernel's self operand and are committed once; returns the token
         sampled at chunk index ``cap`` (clamped into the chunk) on the
         device.  The inputs and the row's table travel in one copy from
-        pinned memory into static buffers; at the chunked-prefill width
-        the call is a graph a table width."""
+        pinned memory into static buffers; the call is a graph a (chunk
+        tokens, table width): the chunked-prefill width, and each
+        prefix-cache tail width."""
         t = int(tokens.size)
         w = self._chunk_width(pos, t)
         inp, out = self._chunk_buffers(t, w)
-        # A fresh pinned buffer a call: the caching host allocator keeps
-        # it until its copy has run, however late the sync comes.
-        host = torch.empty((t + 3 + w,), dtype=torch.long,
-                           pin_memory=self.device.type == "cuda")
+        host = self._staging(t + 3 + w)
         h = host.numpy()
         h[:t] = tokens
         h[t:t + 3] = (pos, cap, rid)
         h[t + 3:] = self.t_side.table_np()[row, :w]
         inp.copy_(host, non_blocking=True)
-        step = functools.partial(self._chunk_step, t, w)
-        if t == self.prefill_chunk:
-            self._graphs.run(("chunk", t, w), step)
-        else:
-            step()
+        self._graphs.run(("chunk", t, w),
+                         functools.partial(self._chunk_step, t, w))
         return out.clone()
 
     @torch.no_grad()
@@ -1612,21 +1748,20 @@ class ContinuousBatcher:
 
     def _put_table(self, table: np.ndarray) -> torch.Tensor:
         """The device table of ``table``'s width, holding ``table``:
-        copied from pinned staging only when the host table changed."""
+        copied only when the host table changed, from a fresh staging
+        buffer (under a lag the previous table's copy may still wait
+        behind a block in flight)."""
         w = table.shape[1]
-        entry = self._tables.get(w)
-        if entry is None:
-            pin = self.device.type == "cuda"
-            entry = (None, torch.zeros((self.rows, w), dtype=torch.int32,
-                                       pin_memory=pin),
-                     torch.zeros((self.rows, w), dtype=torch.int32,
-                                 device=self.device))
-        if entry[0] is not table:
-            entry[1].numpy()[:] = table
-            entry[2].copy_(entry[1], non_blocking=True)
-            entry = (table, entry[1], entry[2])
-        self._tables[w] = entry
-        return entry[2]
+        held, dev = self._tables.get(w, (None, None))
+        if dev is None:
+            dev = torch.zeros((self.rows, w), dtype=torch.int32,
+                              device=self.device)
+        if held is not table:
+            host = self._staging(self.rows, w, dtype=torch.int32)
+            host.numpy()[:] = table
+            dev.copy_(host, non_blocking=True)
+        self._tables[w] = (table, dev)
+        return dev
 
     def _decode_table(self, active: Optional[Dict[int, _Row]] = None,
                       decoding: Optional[Dict[int, _Row]] = None
@@ -1635,52 +1770,314 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _tick(self, width: int) -> None:
-        """The decode tick over the static buffers (what a graph holds):
-        every row's next token into ``_tick_out``."""
+        """The decode block over the static buffers (what a graph holds):
+        every row's next ``multi_step`` tokens into ``_tick_out``.  Under
+        a lag the flag row of ``_tick_in`` marks the rows that take the
+        host's values; every other row continues on the device: under
+        ``overlap`` from the previous block's last token, still in
+        ``_tick_out``; under the pipeline from the device carry, which
+        the block then advances (clamped at ``max_len + K``)."""
         inp = self._tick_in
-        cache = dict(self.pool, pages=self._tables[width][2])
-        logits, _ = decode_step(self.cfg, self.params, cache,
-                                inp[0][:, None], inp[1])
-        self._tick_out.copy_(self._sample(logits[:, -1], inp[2], inp[3]))
+        tok, pos, rids, steps = inp[0], inp[1], inp[2], inp[3]
+        flag = inp[4].bool()
+        K = self.multi_step
+        if self._pipelined:
+            carry = self._carry
+            tok = torch.where(flag, tok, carry[0])
+            pos = torch.where(flag, pos, carry[1])
+            steps = torch.where(flag, steps, carry[2])
+        elif self.overlap:
+            tok = torch.where(flag, tok, self._tick_out[:, -1])
+        cache = dict(self.pool, pages=self._tables[width][1])
+        for j in range(K):
+            logits, _ = decode_step(self.cfg, self.params, cache,
+                                    tok[:, None],
+                                    torch.clamp(pos + j, max=self.max_len))
+            tok = self._sample(logits[:, -1], rids, steps + j)
+            self._tick_out[:, j].copy_(tok)
+        if self._pipelined:
+            cap = self.max_len + K
+            self._carry[0].copy_(tok)
+            self._carry[1].copy_(torch.clamp(pos + K, max=cap))
+            self._carry[2].copy_(torch.clamp(steps + K, max=cap))
+
+    def _fetch(self, src: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+        """Start copying ``src`` to a fresh host buffer; returns it and
+        the event its copy completes (None on the CPU, where the copy
+        already has)."""
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=self._pin)
+        host.copy_(src, non_blocking=True)
+        if self.device.type != "cuda":
+            return host, None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    @staticmethod
+    def _read(fetched: Tuple[torch.Tensor, Any]) -> np.ndarray:
+        """Wait for a :meth:`_fetch` copy (its own event, never the whole
+        stream) and return its values."""
+        host, event = fetched
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _step(self, active: Dict[int, _Row],
-              free_rows: List[int]) -> Iterator[Completion]:
-        """One decode tick: every decoding row advances one token in one
-        batched call (a graph replay on the card); other rows ride along
-        at position 0 on sink table rows (a still-filling row's pages
-        belong to its chunks).  One host sync per tick."""
-        host = self._tick_host.numpy()
-        host[:] = 0
-        decoding = {r: row for r, row in active.items() if row.decoding}
-        for r, row in decoding.items():
-            self.t_side.ensure(r, min(row.pos + 1, row.limit))
-            host[:, r] = (row.last, min(row.pos, self.max_len), row.rid,
-                          row.step)
-        width = self._decode_table(active, decoding).shape[1]
-        t0 = time.perf_counter()
-        self._tick_in.copy_(self._tick_host, non_blocking=True)
-        self._graphs.run(width, functools.partial(self._tick, width))
-        self._out_host.copy_(self._tick_out, non_blocking=True)
-        self._sync()
-        nxt = self._out_host.tolist()
-        self.decode_seconds += time.perf_counter() - t0
-        self.decode_ticks += 1
-        self.decode_tokens += len(decoding)
-        for r in list(decoding):
-            row = active[r]
-            tok = int(nxt[r])
+    def _block_inputs(self, rows: Dict[int, _Row]) -> torch.Tensor:
+        """The host staging of a synchronous block: each row's last
+        token, position, rid and step (no merge flags)."""
+        host = self._staging(5, self.rows)
+        h = host.numpy()
+        for r, row in rows.items():
+            h[:4, r] = (row.last, row.pos, row.rid, row.step)
+        return host
+
+    def _commit_block(self, r: int, row: _Row, toks, active: Dict[int, _Row],
+                      free_rows: List[int], lagged: bool = False
+                      ) -> Optional[Completion]:
+        """Append a row's block ``toks`` up to its stop or quota (the
+        rest of the block is discarded); returns its Completion when it
+        finished.  A synchronous block advances ``pos`` and ``step``
+        here, a lagged one advanced them at dispatch."""
+        for tok in toks:
+            tok = int(tok)
             row.out.append(tok)
-            row.step += 1
-            row.pos += 1
             row.last = tok
+            self.decode_tokens += 1
+            if not lagged:
+                row.step += 1
+                row.pos += 1
             if tok == row.req.stop_token or \
-                    row.step >= row.req.max_new_tokens:
+                    len(row.out) >= row.req.max_new_tokens:
                 done = self._completion(row)
                 self._finish(r, active, free_rows)
+                return done
+        return None
+
+    def _step(self, active: Dict[int, _Row],
+              free_rows: List[int]) -> Iterator[Completion]:
+        """One K-step block (``multi_step``; K = 1 the per-token tick):
+        every decoding row advances K tokens in one batched call (a
+        graph replay on the card) and the host syncs one [rows, K] block.
+        A row that stops or meets its quota mid-block keeps the tokens up
+        to there; its later in-block writes landed inside its clamped
+        reservation or on sink columns.  Other rows ride along at
+        position 0 on sink table rows (a still-filling row's pages belong
+        to its chunks)."""
+        K = self.multi_step
+        decoding = {r: row for r, row in active.items() if row.decoding}
+        for r, row in decoding.items():
+            self.t_side.ensure(r, min(row.pos + K, row.limit))
+        host = self._block_inputs(decoding)
+        width = self._decode_table(active, decoding).shape[1]
+        t0 = time.perf_counter()
+        self._tick_in.copy_(host, non_blocking=True)
+        self._graphs.run(width, functools.partial(self._tick, width))
+        nxt = self._read(self._fetch(self._tick_out))
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_ticks += 1
+        for r in list(decoding):
+            done = self._commit_block(r, active[r], nxt[r], active,
+                                      free_rows)
+            if done is not None:
+                yield done
+
+    def _dispatch_set(self, active: Dict[int, _Row]) -> Dict[int, _Row]:
+        """The rows a lagged block decodes: decoding, quota not yet
+        dispatched (the host's ``step`` runs a block ahead)."""
+        return {r: row for r, row in active.items()
+                if row.decoding and row.step < row.req.max_new_tokens}
+
+    def _step_lagged(self, active: Dict[int, _Row],
+                     free_rows: List[int]) -> Iterator[Completion]:
+        """One lagged block (``overlap``, or ``pipeline_depth=1``):
+        dispatch the next K-step block before syncing the previous one.
+        A row that was in the previous block continues on the device
+        (overlap: from its last token; the pipeline: from the carry of
+        token, position and step); the rest take the host's values (the
+        flag row).  ``pos`` and ``step`` advance at dispatch, while
+        ``out``, ``last`` and stop detection wait for :meth:`_retire`,
+        one block late.  Overlap uploads its host inputs every block;
+        the pipeline only when the dispatch set changes — the ticket
+        plus its fresh rows — so a steady-state block uploads nothing.
+        Streams are the synchronous batcher's: the same ops on the same
+        inputs, only the sync point moves."""
+        K = self.multi_step
+        dispatch = self._dispatch_set(active)
+        prev = self._inflight
+        t0 = time.perf_counter()
+        if dispatch:
+            prev_ticket = {} if prev is None else prev[1]
+            ticket = {r: row.rid for r, row in dispatch.items()}
+            # Rows entering from host values: fresh admissions, chunk
+            # flips, re-admissions into a freed row; rows outside the
+            # block ride along on zeros.
+            fresh = frozenset(r for r, rid in ticket.items()
+                              if prev_ticket.get(r) != rid)
+            for r, row in dispatch.items():
+                self.t_side.ensure(r, min(row.pos + K, row.limit))
+            width = self._decode_table(active, dispatch).shape[1]
+            key = (tuple(sorted(ticket.items())), fresh)
+            if not self._pipelined or self._pipe_host != key:
+                host = self._staging(5, self.rows)
+                h = host.numpy()
+                h[4] = 1
+                for r, row in dispatch.items():
+                    h[:4, r] = (row.last, row.pos, row.rid, row.step)
+                    h[4, r] = r in fresh
+                self._tick_in.copy_(host, non_blocking=True)
+                self._pipe_host = key if self._pipelined else None
+            if self._pipelined and self._pipe_carry is None:
+                self._carry.zero_()          # pipeline start
+                self._pipe_carry = self._carry
+            self._graphs.run(width, functools.partial(self._tick, width))
+            self._inflight = (self._fetch(self._tick_out), ticket)
+            self.decode_ticks += 1
+            for row in dispatch.values():
+                row.pos += K
+                row.step += K
+        else:
+            self._inflight = None
+            self._pipe_carry = self._pipe_host = None
+        if prev is not None:
+            yield from self._retire(prev, active, free_rows, t0)
+        else:
+            self.decode_seconds += time.perf_counter() - t0
+
+    def _retire(self, inflight, active: Dict[int, _Row],
+                free_rows: List[int], t0: float) -> Iterator[Completion]:
+        """Sync one lagged block (a block behind the newest) and commit
+        its tokens; a row that finished at an earlier retire, or was
+        re-admitted since, fails the rid check and its block is
+        dropped."""
+        fetched, ticket = inflight
+        nxt = self._read(fetched)
+        self.decode_seconds += time.perf_counter() - t0
+        for r, rid in ticket.items():
+            row = active.get(r)
+            if row is None or row.rid != rid:
+                continue            # the overshoot block of a freed row
+            done = self._commit_block(r, row, nxt[r], active, free_rows,
+                                      lagged=True)
+            if done is not None:
+                yield done
+
+    # -- the fused prefill + decode tick ----------------------------------
+
+    @staticmethod
+    def _pow2(n: int) -> int:
+        return 1 << max(0, int(n) - 1).bit_length()
+
+    def _fused_slot_buckets(self) -> List[int]:
+        """Every chunk-slot count a fused tick pads to: powers of two up
+        to ``rows`` (at most every row is filling)."""
+        return sorted({self._pow2(s) for s in range(1, self.rows + 1)})
+
+    def _slot_buffers(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ``n`` chunk slots' static input ([n] rows of the chunk's
+        tokens, position, cap, rid and an ``np_max``-wide table) and
+        first-token buffers, allocated at first use."""
+        if n not in self._slot_bufs:
+            c = self.prefill_chunk
+            self._slot_bufs[n] = (
+                torch.zeros((n, c + 3 + self.np_max), dtype=torch.long,
+                            device=self.device),
+                torch.zeros((n,), dtype=torch.long, device=self.device))
+        return self._slot_bufs[n]
+
+    def _slot_inputs(self, rows: List[Tuple[int, _Row]], n: int
+                     ) -> torch.Tensor:
+        """Host staging of ``n`` chunk slots: each picked row's next
+        chunk at its own offset, the rest dummy slots (all-sink table,
+        cap -1: their token is discarded)."""
+        c = self.prefill_chunk
+        host = self._staging(n, c + 3 + self.np_max)
+        h = host.numpy()
+        h[:, c + 1] = -1
+        h[:, c + 3:] = self.t_side.sink
+        tbl = self.t_side.table_np()
+        for i, (r, row) in enumerate(rows):
+            h[i, :c] = row.padded[row.filled:row.filled + c]
+            h[i, c:c + 3] = (row.filled, row.req.prompt.size - 1 - row.filled,
+                             row.rid)
+            h[i, c + 3:] = tbl[r]
+        return host
+
+    @torch.no_grad()
+    def _fused_step(self, width: int, n: int) -> None:
+        """The fused tick over its static buffers (what a graph holds):
+        ``n`` chunk slots through ``decode_step`` at [n, chunk], each at
+        its own position, their first tokens sampled at their caps;
+        then the K-step block."""
+        inp, first = self._slot_bufs[n]
+        c = self.prefill_chunk
+        table = inp[:, c + 3:].to(torch.int32)
+        logits, _ = decode_step(self.cfg, self.params,
+                                dict(self.pool, pages=table), inp[:, :c],
+                                inp[:, c])
+        cap = inp[:, c + 1].clamp(0, c - 1)
+        last = torch.take_along_dim(logits, cap[:, None, None], dim=1)[:, 0]
+        rids = inp[:, c + 2]
+        first.copy_(self._sample(last, rids, torch.zeros_like(rids)))
+        self._tick(width)
+
+    def _step_fused(self, active: Dict[int, _Row],
+                    free_rows: List[int]) -> Iterator[Completion]:
+        """One fused tick: the decode block over every decoding row plus
+        up to ``(tokens_per_tick - n_decode * K) // chunk`` chunk slots
+        (the oldest filling rows, one chunk each, at least one slot) in
+        one dispatch and one host sync.  A row whose last chunk lands
+        here turns to decoding with its first token and joins the next
+        tick's block; decode commits are :meth:`_step`'s."""
+        K = self.multi_step
+        c = self.prefill_chunk
+        decoding = {r: row for r, row in active.items() if row.decoding}
+        filling = sorted((row.rid, r) for r, row in active.items()
+                         if not row.decoding)
+        slots = max(1, (self.tokens_per_tick - len(decoding) * K) // c)
+        picks = [r for _, r in filling[:slots]]
+        n = self._pow2(len(picks))
+        for r, row in decoding.items():
+            self.t_side.ensure(r, min(row.pos + K, row.limit))
+        host = self._block_inputs(decoding)
+        slot_host = self._slot_inputs([(r, active[r]) for r in picks], n)
+        width = self._decode_table(active, decoding).shape[1]
+        inp, first = self._slot_buffers(n)
+        t0 = time.perf_counter()
+        self._tick_in.copy_(host, non_blocking=True)
+        inp.copy_(slot_host, non_blocking=True)
+        self._graphs.run(("fused", width, n),
+                         functools.partial(self._fused_step, width, n))
+        fetched = self._fetch(first)
+        nxt = self._read(self._fetch(self._tick_out))
+        firsts = self._read(fetched)    # one sync covers slots and block
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_ticks += 1
+        self.fused_ticks += 1
+        self.fused_chunk_tokens += len(picks) * c
+        self.fused_decode_tokens += len(decoding) * K
+        for i, r in enumerate(picks):
+            row = active[r]
+            row.filled += c
+            if row.filled < row.padded.size:
+                continue
+            tok = int(firsts[i])
+            row.t_first = time.perf_counter()
+            row.last = tok
+            row.out.append(tok)
+            row.decoding = True
+            self._pcache_insert(r, row)
+            if tok == row.req.stop_token or row.req.max_new_tokens == 1:
+                done = self._completion(row)
+                self._finish(r, active, free_rows)
+                yield done
+        for r in list(decoding):
+            done = self._commit_block(r, active[r], nxt[r], active,
+                                      free_rows)
+            if done is not None:
                 yield done
 
     # -- disaggregated serving: KV export / import ------------------------
@@ -1952,6 +2349,9 @@ class ContinuousBatcher:
                 if item is None or item is _CLOSED:
                     break
                 pending.append(item)
+        # A lagged block in flight dies with its rows.
+        self._inflight = None
+        self._pipe_carry = self._pipe_host = None
         for r in sorted(active):
             state = active[r]
             art = (self._export_row(r, state)
@@ -1992,18 +2392,20 @@ class ContinuousBatcher:
     @torch.no_grad()
     def warmup(self, decode: bool = True,
                prefill: bool = True) -> Dict[str, Any]:
-        """Prepare every shape the serve loop dispatches, before it runs:
-        one eager prefill at each reachable prompt width (``prefill[w]``:
-        the kernels' builds and one-time host work); with the prefix
-        cache, one eager tail call at each width (``chunk_prefill[w]``);
-        in chunked mode the chunk step captured at each table width
-        (``chunk_prefill[c]``); and on the card the decode tick captured
-        as a CUDA graph at each table width (``decode[w]``; without
-        warmup a width is captured at its first call).  Every write lands
-        on the sink page (all-sink tables, zero tokens and positions), so
-        a warmed batcher's streams are bit-identical to a cold one's.
-        Raises while the serve loop is active.  Returns ``{"compiled":
-        [...], "seconds": float}``."""
+        """Prepare every shape the serve loop dispatches, before it runs,
+        under the reference's names: the admission prefill at each
+        reachable prompt width (``prefill[w]``); with the prefix cache,
+        the tail call at each width (``chunk_prefill[w]``, at every table
+        width its start can give it); in chunked
+        mode the chunk step at each table width (``chunk_prefill[c]``);
+        the decode block at each table width (``decode[w]``) and, under
+        ``fused_prefill``, the fused tick at each width and slot count
+        (``fused[w,S]``).  On the card each is a CUDA graph captured here
+        (without warmup a shape is captured at its first call).  Every
+        write lands on the sink page (all-sink tables, zero tokens and
+        positions), so a warmed batcher's streams are bit-identical to a
+        cold one's.  Raises while the serve loop is active.  Returns
+        ``{"compiled": [...], "seconds": float}``."""
         t0 = time.perf_counter()
         compiled: List[str] = []
         with self._loop_lock:
@@ -2011,18 +2413,16 @@ class ContinuousBatcher:
                 raise RuntimeError(
                     "warmup() cannot run while the batcher's serve loop "
                     "is active — warm at boot, before serve()/run()")
-            zero = torch.zeros((1,), dtype=torch.long, device=self.device)
             sink = self.t_side.sink
             chunked = self.prefill_chunk is not None
             for w in self._prefill_widths() if prefill and not chunked \
                     else ():
-                table = np.full((1, self.np_max), sink, np.int32)
-                logits, _ = decode_step(
-                    self.cfg, self.params,
-                    dict(self.pool, pages=self._dev(table)),
-                    torch.zeros((1, w), dtype=torch.long,
-                                device=self.device), 0)
-                self._sample(logits[0, :1], zero, zero).tolist()
+                inp, out = self._prefill_buffers(w)
+                inp.zero_()
+                inp[w + 2:] = sink
+                self._graphs.warm(("prefill", w),
+                                  functools.partial(self._prefill_step, w))
+                out.tolist()
                 compiled.append(f"prefill[{w}]")
             if prefill and chunked:
                 c = self.prefill_chunk
@@ -2031,7 +2431,8 @@ class ContinuousBatcher:
                 compiled.append(f"chunk_prefill[{c}]")
             elif prefill and self._pcache is not None:
                 for t in self._prefill_widths():
-                    self._warm_chunk(t, self._chunk_width(0, t))
+                    for w in self._tail_widths(t):
+                        self._warm_chunk(t, w)
                     compiled.append(f"chunk_prefill[{t}]")
             for w in self._decode_widths() if decode else ():
                 self._put_table(np.full((self.rows, w), sink, np.int32))
@@ -2039,19 +2440,34 @@ class ContinuousBatcher:
                 self._graphs.warm(w, functools.partial(self._tick, w))
                 self._sync()
                 compiled.append(f"decode[{w}]")
+                for n in self._fused_slot_buckets() if self._fused else ():
+                    inp, _ = self._slot_buffers(n)
+                    c = self.prefill_chunk
+                    inp.zero_()
+                    inp[:, c + 1] = -1
+                    inp[:, c + 3:] = sink
+                    self._graphs.warm(("fused", w, n), functools.partial(
+                        self._fused_step, w, n))
+                    self._sync()
+                    compiled.append(f"fused[{w},{n}]")
         return {"compiled": compiled, "seconds": time.perf_counter() - t0}
 
+    def _tail_widths(self, t: int) -> List[int]:
+        """Every table width a prefix-cache tail of ``t`` padded tokens
+        can take: ``chunk_width`` grows with the tail's start, which the
+        prefix plan keeps within ``np_max`` pages with the tail."""
+        lo = self._chunk_width(0, t)
+        hi = self._chunk_width(max(self.np_max * self.page_size - t, 0), t)
+        return [w for w in self._decode_widths() if lo <= w <= hi]
+
     def _warm_chunk(self, t: int, w: int) -> None:
-        """One chunk call of ``t`` tokens over an all-sink table of width
-        ``w`` (captured at the chunked-prefill width, else eager)."""
+        """Capture the chunk call of ``t`` tokens at table width ``w``
+        over an all-sink table."""
         inp, out = self._chunk_buffers(t, w)
         inp.zero_()
         inp[t + 3:] = self.t_side.sink
-        step = functools.partial(self._chunk_step, t, w)
-        if t == self.prefill_chunk:
-            self._graphs.warm(("chunk", t, w), step)
-        else:
-            step()
+        self._graphs.warm(("chunk", t, w),
+                          functools.partial(self._chunk_step, t, w))
         out.tolist()
 
     # -- finish -----------------------------------------------------------
