@@ -198,7 +198,34 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     at a near-tie by the margin rule (counted), the fused counters
     moving; prints ms a block and a step, blocks, TTFT and the graphs'
     pool beside the synchronous runs', and for (a)-(e) a profile's busy
-    share.
+    share;
+17. the fleet replica (``tfmesos_tpu_torch.fleet.replica``) on the
+    flagship (rows 8, page 64, bucket 64, ``--warmup``), built in this
+    process through ``start_replica`` and driven over TCP with the
+    port's ``MuxConnection``: (a) phase 5's 16 requests on 4
+    connections, 4 of them streamed — every request completes, each
+    stream equal to phase 5's or first differing at a near-tie by the
+    margin rule (counted), streamed partials a prefix of the final list
+    at contiguous offsets, no graph captured after warmup, exact launch
+    counts against the batcher's prefill and tick counters; prints TTFT
+    (the replies' ``ttft_ms``), ms a tick, the wall time and the wire's
+    share of the streamed requests' client-side TTFT; (b) two replicas:
+    8 requests whose rows stay at three pages (so a row's arithmetic
+    does not depend on its neighbours) served by A alone, then again
+    with ``migrate`` sent to A after its first tick, every suspended
+    raw frame resubmitted to B as a raw generate — and once more with
+    ``push_to`` B (``kv_stage``, then ``kv_ref``): every resumed stream
+    equal to A's own token for token, B running no prefill, exact
+    launch counts over both; (c) a prefill-role replica answers phase
+    5's requests with raw ``prefilled`` frames (exact counts: 8
+    flash_fwd an export) and a decode-role replica imports them (no
+    flash_fwd), streams by the margin rule; (d) ``python -m
+    tfmesos_tpu_torch.fleet.replica --warmup --rows 8`` as a process:
+    its warmed and serving lines, phase 5's 16 requests sent from this
+    process (4 streamed and traced) held to phase 5's by the margin
+    rule, exit code 0 on SIGTERM. (a) and (d) print the replies' TTFT,
+    the streamed requests' client-side TTFT and what it adds: the wait
+    for a free row (the trace's spans) and the wire with the handler.
 
 It prints each phase's seconds.
 
@@ -215,6 +242,7 @@ card, or a directory without the package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -454,7 +482,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/16] device")
+    say("[1/17] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -468,7 +496,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/16] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/17] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -647,7 +675,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/16] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/17] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -798,7 +826,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/16] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/17] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -941,7 +969,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/16] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/17] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1118,7 +1146,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/16] teacher-forced check vs float32 CPU forward "
+    say(f"[6/17] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1169,7 +1197,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/16] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/17] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1179,7 +1207,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/16] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/17] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1249,7 +1277,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/16] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/17] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1950,7 +1978,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/16] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/17] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2015,7 +2043,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/16] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/17] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2101,7 +2129,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/16] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/17] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2198,7 +2226,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/16] sampled serving and generation: phase 5's traffic at "
+    say("[13/17] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2338,83 +2366,109 @@ def paged_split(ta, cfg, rows, t, slots):
                              ta._sm_count("cuda")) > 1
 
 
-def counted_run(torch, cfg, batcher, items, int8: bool, label: str):
-    """Run ``items`` through ``batcher`` once, its counters reset and
-    every launch count zeroed just before and read just after, recording
-    each decode block's table width, each chunk call's (tokens, table
-    width) and each fused tick's slot count; require exact counts:
-    n_layers flash_fwd a full prefill, n_layers flash_decode_paged a
-    prefix-cache tail, a prefill chunk and a fused tick's chunk slots
-    and K x n_layers a K-step block, n_layers merges for each of those
-    calls (each step of a block) whose shape splits the kernel, no
-    quantize launch, and over an int8 pool one quant_int8_commit a call
-    (a step).  Returns (outputs, launches, wall s, the chunk calls'
-    shapes)."""
-    from tfmesos_tpu_torch.ops import attention as ta
+class Counted:
+    """Record what ``batcher`` dispatches from here on, its counters
+    reset: each decode block's table width, each chunk call's (tokens,
+    table width) and each fused tick's slot count.  :meth:`want` is the
+    launch counts that must follow — n_layers flash_fwd a full prefill,
+    n_layers flash_decode_paged a prefix-cache tail, a prefill chunk
+    and a fused tick's chunk slots and K x n_layers a K-step block,
+    n_layers merges for each of those calls (each step of a block)
+    whose shape splits the kernel, no quantize launch, and over an int8
+    pool one quant_int8_commit a call (a step).  Works while another
+    thread (a replica's serve loop) runs the batcher."""
 
-    widths, chunks, slots = [], [], []
-    read, width = batcher._decode_table, batcher._chunk_width
-    slot_buffers = batcher._slot_buffers
+    COUNTERS = ("prefills", "tail_prefills", "prefill_chunks",
+                "decode_ticks", "decode_tokens", "fused_ticks",
+                "fused_chunk_tokens", "fused_decode_tokens")
 
-    def recorded_slots(n):
-        slots.append(n)
-        return slot_buffers(n)
+    def __init__(self, batcher):
+        self.b = b = batcher
+        self.widths, self.chunks, self.slots = [], [], []
+        read, width = b._decode_table, b._chunk_width
+        slot_buffers = b._slot_buffers
 
-    def recorded(*a):
-        table = read(*a)
-        widths.append(int(table.shape[1]))
-        return table
+        def recorded_slots(n):
+            self.slots.append(n)
+            return slot_buffers(n)
 
-    def chunk_width(pos, t):
-        w = width(pos, t)
-        chunks.append((t, w))
-        return w
+        def recorded(*a):
+            table = read(*a)
+            self.widths.append(int(table.shape[1]))
+            return table
 
-    batcher._decode_table, batcher._chunk_width = recorded, chunk_width
-    batcher._slot_buffers = recorded_slots
-    for name in ("prefills", "tail_prefills", "prefill_chunks",
-                 "decode_ticks", "decode_tokens", "fused_ticks",
-                 "fused_chunk_tokens", "fused_decode_tokens"):
-        setattr(batcher, name, 0)
-    batcher.decode_seconds = 0.0
+        def chunk_width(pos, t):
+            w = width(pos, t)
+            self.chunks.append((t, w))
+            return w
+
+        b._decode_table, b._chunk_width = recorded, chunk_width
+        b._slot_buffers = recorded_slots
+        for name in self.COUNTERS:
+            setattr(b, name, 0)
+        b.decode_seconds = 0.0
+
+    def close(self) -> None:
+        del self.b._decode_table, self.b._chunk_width
+        del self.b._slot_buffers
+
+    def want(self, cfg, int8: bool, label: str):
+        """(expected launches, the chunk calls' shapes)."""
+        from tfmesos_tpu_torch.ops import attention as ta
+
+        b = self.b
+        L, ps, K = cfg.n_layers, b.page_size, b.multi_step
+        pre, tails, nch = b.prefills, b.tail_prefills, b.prefill_chunks
+        ticks = b.decode_ticks
+        need(len(self.widths) == ticks
+             and len(self.chunks) == tails + nch
+             and len(self.slots) == b.fused_ticks,
+             f"{label}: {len(self.widths)} tick widths for {ticks} ticks, "
+             f"{len(self.chunks)} chunk widths for {tails + nch} chunk "
+             f"calls, {len(self.slots)} slot counts for {b.fused_ticks} "
+             f"fused ticks")
+        c, slot_keys = b.prefill_chunk, b.np_max * ps
+        merges = L * (K * sum(paged_split(ta, cfg, b.rows, 1, w * ps)
+                              for w in self.widths)
+                      + sum(paged_split(ta, cfg, 1, t, w * ps)
+                            for t, w in self.chunks)
+                      + sum(paged_split(ta, cfg, n, c, slot_keys)
+                            for n in self.slots))
+        calls = K * ticks + tails + nch + len(self.slots)
+        want = {"flash_fwd": L * pre, "flash_decode_paged": L * calls,
+                "flash_decode_paged_merge": merges, "quant_int8": 0,
+                "quant_int8_commit": pre + calls if int8 else 0,
+                "flash_decode": 0, "flash_decode_merge": 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        return want, sorted(
+            {f"t {t} w {w}" for t, w in self.chunks}
+            | {f"fused slots {n} x t {c} w {b.np_max}" for n in self.slots})
+
+
+def counted_run(torch, cfg, batcher, items, int8: bool, label: str,
+                drive=None):
+    """Run ``items`` through ``batcher`` once (or call ``drive()``, which
+    makes another thread run it: a replica's serve loop fed over the
+    wire), under :class:`Counted` with every launch count zeroed just
+    before and read just after, and require the exact counts.  Returns
+    (outputs, launches, wall s, the chunk calls' shapes)."""
+    counted = Counted(batcher)
     zero_launches()
     t0 = time.perf_counter()
     try:
-        outs = list(batcher.run(items))
+        outs = drive() if drive is not None else list(batcher.run(items))
         torch.cuda.synchronize()
     finally:
-        del batcher._decode_table, batcher._chunk_width
-        del batcher._slot_buffers
+        counted.close()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    L, ps, K = cfg.n_layers, batcher.page_size, batcher.multi_step
-    pre, tails, nch = (batcher.prefills, batcher.tail_prefills,
-                       batcher.prefill_chunks)
-    ticks = batcher.decode_ticks
-    need(len(widths) == ticks and len(chunks) == tails + nch
-         and len(slots) == batcher.fused_ticks,
-         f"{label}: {len(widths)} tick widths for {ticks} ticks, "
-         f"{len(chunks)} chunk widths for {tails + nch} chunk calls, "
-         f"{len(slots)} slot counts for {batcher.fused_ticks} fused ticks")
-    c, slot_keys = batcher.prefill_chunk, batcher.np_max * ps
-    merges = L * (K * sum(paged_split(ta, cfg, batcher.rows, 1, w * ps)
-                          for w in widths)
-                  + sum(paged_split(ta, cfg, 1, t, w * ps)
-                        for t, w in chunks)
-                  + sum(paged_split(ta, cfg, n, c, slot_keys)
-                        for n in slots))
-    calls = K * ticks + tails + nch + len(slots)
-    want = {"flash_fwd": L * pre, "flash_decode_paged": L * calls,
-            "flash_decode_paged_merge": merges, "quant_int8": 0,
-            "quant_int8_commit": pre + calls if int8 else 0,
-            "flash_decode": 0, "flash_decode_merge": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
-    need(launches == want, f"{label} launches {launches} != {want} ({pre} "
-         f"prefills, {tails} tails, {nch} chunks, {ticks} ticks of K "
-         f"{K}, fused slot counts {slots})")
-    return outs, launches, wall, sorted(
-        {f"t {t} w {w}" for t, w in chunks}
-        | {f"fused slots {n} x t {c} w {batcher.np_max}" for n in slots})
+    want, shapes = counted.want(cfg, int8, label)
+    b = batcher
+    need(launches == want, f"{label} launches {launches} != {want} "
+         f"({b.prefills} prefills, {b.tail_prefills} tails, "
+         f"{b.prefill_chunks} chunks, {b.decode_ticks} ticks of K "
+         f"{b.multi_step}, fused slot counts {counted.slots})")
+    return outs, launches, wall, shapes
 
 
 def fleet_run(torch, cfg, batcher, reqs, int8: bool, label: str):
@@ -2486,7 +2540,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/16] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/17] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2565,7 +2619,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/16] export/import, preemption and rolling caches: flagship")
+    say("[15/17] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -2811,7 +2865,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/16] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/17] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2945,6 +2999,501 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     return out
 
 
+# Phase 17's migration traffic: every prompt 130..150 tokens plus 40 new
+# ones stays at three pages of 64 from its prefill to its last token, so
+# the decode tick's table width — and with it every row's arithmetic —
+# does not depend on which rows share a tick, and a migrated stream must
+# equal the unmigrated one token for token.
+MIGRATE_LENS = (130, 151)
+MIGRATE_NEW = 40
+
+
+def replica_up(token, *argv):
+    """One flagship replica in this process through the port's own
+    ``start_replica`` (rows 8, page 64, bucket 64, ``--warmup``, weights
+    seeded 0, no registry): (server, serving, batcher, the graph keys
+    its warmup captured)."""
+    from tfmesos_tpu_torch.fleet import replica
+
+    args = replica.build_parser().parse_args(
+        ["--rows", "8", "--page-size", "64", "--prefill-bucket", "64",
+         "--warmup", "--seed", "0", *argv])
+    server, serving, b = replica.start_replica(args, token=token,
+                                               environ={})
+    return server, serving, b, b._graphs.keys()
+
+
+def replica_down(torch, rep) -> None:
+    server, serving = rep[:2]
+    server.stop()
+    if serving is not None:
+        serving.close()
+    torch.cuda.synchronize()
+
+
+def wire_calls(links, msgs, bodies=None, timeout=300.0):
+    """Send ``msgs`` (raw frames where ``bodies`` has a body) over
+    ``links`` round robin, one thread a call, all at once.  Returns
+    (replies, each call's partial frames, client-side ms from send to
+    first partial or None)."""
+    import threading
+
+    n = len(msgs)
+    replies, parts, first = [None] * n, [[] for _ in msgs], [None] * n
+    errors = []
+
+    def call(i):
+        t0 = time.perf_counter()
+
+        def on_partial(frame):
+            if first[i] is None:
+                first[i] = (time.perf_counter() - t0) * 1e3
+            parts[i].append(frame)
+
+        try:
+            link = links[i % len(links)]
+            body = bodies[i] if bodies is not None else None
+            replies[i] = (link.call(msgs[i], timeout=timeout,
+                                    on_partial=on_partial)
+                          if body is None else
+                          link.call_raw(msgs[i], body, timeout=timeout,
+                                        on_partial=on_partial))
+        except Exception as e:         # reported below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    need(not errors, f"replica calls failed: {errors}")
+    return replies, parts, first
+
+
+def head(reply):
+    """A reply's JSON part: the dict, or a raw frame's meta."""
+    return reply if isinstance(reply, dict) else reply.meta
+
+
+def completions(replies, what):
+    """The token lists of ``replies``, each required a completion."""
+    bad = [head(r) for r in replies
+           if not (isinstance(r, dict) and r.get("op") == "completion")]
+    need(not bad, f"{what}: {len(bad)} replies are not completions: "
+         f"{bad[:2]}")
+    return [r["tokens"] for r in replies]
+
+
+def rebuilt(parts, tokens, what):
+    """Partial frames must carry contiguous offsets from 0 whose tokens
+    are the final list's prefix (the last block may come only with the
+    completion)."""
+    got = []
+    for p in parts:
+        need(p.get("op") == "tokens" and p.get("off") == len(got),
+             f"{what}: partial frame {p} at stream length {len(got)}")
+        got += p["tokens"]
+    need(0 < len(got) <= len(tokens) and got == tokens[:len(got)],
+         f"{what}: partials {got} are not a prefix of {tokens}")
+
+
+def generate_msg(prompt, new, **kw):
+    return {"op": "generate", "prompt": [int(t) for t in prompt],
+            "max_new_tokens": int(new), **kw}
+
+
+def phase_replica(torch, np, cfg, params, reqs, base, stats5):
+    """Phase 17: the fleet replica on the card, built through the port's
+    ``start_replica`` and driven over TCP with the port's
+    ``MuxConnection``.  (a) phase 5's 16 requests on 4 connections, 4 of
+    them streamed: every request completes, streams held to phase 5's by
+    the margin rule, partials rebuild the list, no capture after
+    warmup, exact launch counts; TTFT, ms a tick, wall time and the
+    wire's share of TTFT.  (b) two replicas: ``migrate`` to A after its
+    first tokens, the suspended raw frames resubmitted to B as raw
+    generates, then once with ``push_to`` (``kv_stage``, then
+    ``kv_ref``): every stream equal to A's own, token for token.  (c) a
+    prefill-role replica's raw ``prefilled`` frames imported by a
+    decode-role replica, which runs no flash_fwd; streams by the margin
+    rule.  (d) ``python -m tfmesos_tpu_torch.fleet.replica --warmup
+    --rows 8`` as a process: its warmed and serving lines, phase 5's
+    requests served (timed, as in (a)), exit 0 on SIGTERM."""
+    from tfmesos_tpu_torch import wire
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    say("[17/17] the replica: flagship, rows 8, page 64, bucket 64, "
+        "--warmup, over TCP")
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    token = wire.new_token()
+    ref = dict(enumerate(base))
+
+    def next_logits(i, prefix):
+        prompt = [int(x) for x in reqs[i].prompt]
+        with torch.no_grad():
+            return forward(cpu_cfg, params,
+                           torch.tensor([prompt + prefix]))[0, -1]
+
+    out = {}
+    a = replica_up(token)
+    b = replica_up(token)
+    try:
+        out["a"] = replica_serve(torch, cfg, a, token, reqs, ref,
+                                 next_logits, stats5)
+        out["b"] = replica_migrate(torch, np, cfg, a, b, token)
+    finally:
+        replica_down(torch, a)
+        replica_down(torch, b)
+    # A replica is cyclic garbage once stopped (its server and handler
+    # refer to each other): collect it here, not at a random allocation.
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = replica_disagg(torch, cfg, token, reqs, ref, next_logits)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = replica_process(torch, token, reqs, ref, next_logits,
+                               stats5)
+    return out
+
+
+def phase5_msgs(reqs):
+    """Phase 5's requests as generate messages; every fourth streamed
+    and traced (its reply carries the replica's hop-local spans)."""
+    return [generate_msg(r.prompt, r.max_new_tokens,
+                         **({"stream": True, "trace_id": f"p17-{i}",
+                             "trace_detail": True} if i % 4 == 0 else {}))
+            for i, r in enumerate(reqs)]
+
+
+def wire_ttft(replies, parts, first, what):
+    """TTFT over the wire: the replies' ``ttft_ms`` (admission to first
+    token in the batcher), and for the streamed requests the client's
+    (send to first partial), their difference (the wire's share as the
+    client sees it: the wire, the handler and the wait for a free row),
+    the wait for a row (the trace's ``batcher/admit`` after
+    ``replica/recv``) and what remains without it; ms a token (each
+    reply's decode time over its tokens after the first)."""
+    streamed = [i for i, f in enumerate(first) if f is not None]
+    for i in streamed:
+        rebuilt(parts[i], replies[i]["tokens"], f"{what} request {i}")
+    need(len(streamed) == 4, f"{what}: {len(streamed)} streamed requests "
+         f"had partials")
+    queue, rest = [], []
+    for i in streamed:
+        spans = {(x["component"], x["name"]): x
+                 for x in replies[i].get("trace", ())}
+        need(("replica", "recv") in spans and ("batcher", "prefill") in
+             spans, f"{what} request {i}: spans {sorted(spans)}")
+        pre = spans[("batcher", "prefill")]
+        queue.append(pre["t0"] - spans[("replica", "recv")]["t0"])
+        rest.append(first[i] - (pre["t0"] + pre["dur"]))
+    ttft = [r["ttft_ms"] for r in replies]
+    client = [first[i] for i in streamed]
+    wire = [first[i] - replies[i]["ttft_ms"] for i in streamed]
+    per_token = [(r["total_ms"] - r["ttft_ms"]) / (len(r["tokens"]) - 1)
+                 for r in replies]
+    return {"ttft_ms_mean": statistics.mean(ttft),
+            "ttft_ms_p50": statistics.median(ttft),
+            "client_ttft_ms_mean_streamed": statistics.mean(client),
+            "wire_ms_mean_streamed": statistics.mean(wire),
+            "wire_share_of_ttft": statistics.mean(wire)
+            / statistics.mean(client),
+            "row_wait_ms_mean_streamed": statistics.mean(queue),
+            "wire_ms_without_row_wait": statistics.mean(rest),
+            "ms_per_token_mean": statistics.mean(per_token)}
+
+
+def ttft_say(label, stats, stats5):
+    say(f"  {label} TTFT mean {stats['ttft_ms_mean']:.3f} p50 "
+        f"{stats['ttft_ms_p50']:.3f} ms (phase 5 "
+        f"{stats5['ttft_ms_mean']:.3f}); streamed at the client "
+        f"{stats['client_ttft_ms_mean_streamed']:.3f} ms, of it "
+        f"{stats['wire_ms_mean_streamed']:.3f} beyond ttft_ms (share "
+        f"{stats['wire_share_of_ttft']:.3f}): "
+        f"{stats['row_wait_ms_mean_streamed']:.3f} waiting for a row, "
+        f"{stats['wire_ms_without_row_wait']:.3f} the wire and the "
+        f"handler; ms a token {stats['ms_per_token_mean']:.4f}")
+
+
+def replica_serve(torch, cfg, rep, token, reqs, ref, next_logits, stats5):
+    """Phase 17 (a)."""
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    server, _, b, warmed = rep
+    links = [MuxConnection(server.addr, token) for _ in range(4)]
+    try:
+        # Warm-up request (cuBLAS handles, allocator pools) outside the
+        # measured run.
+        completions(wire_calls(links[:1], [generate_msg(range(1, 9), 2)])[0],
+                    "17 (a) warm-up")
+        msgs = phase5_msgs(reqs)
+        (replies, parts, first), launches, wall, _ = counted_run(
+            torch, cfg, b, None, False, "17 (a) replica",
+            drive=lambda: wire_calls(links, msgs))
+    finally:
+        for link in links:
+            link.close()
+    no_new_graphs(b, warmed, "17 (a) replica")
+    got = completions(replies, "17 (a)")
+    need(all(len(t) == r.max_new_tokens for t, r in zip(got, reqs)),
+         "17 (a): a request did not complete its tokens")
+    identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                      next_logits, "17 (a)")
+    stats = {"requests": len(replies), "wall_s": wall,
+             "prefills": b.prefills, "decode_ticks": b.decode_ticks,
+             "ms_per_tick": b.decode_seconds / b.decode_ticks * 1e3,
+             **wire_ttft(replies, parts, first, "17 (a)"),
+             "streams_identical": identical, "divergence_gaps": gaps,
+             "graphs_after_warmup": 0, "launches": launches,
+             "phase5_ttft_ms_mean": stats5["ttft_ms_mean"],
+             "phase5_ms_per_tick": stats5["ms_per_tick"]}
+    say("  (a) " + json.dumps(stats))
+    say(f"  (a) {identical} of {len(got)} streams identical to phase 5's, "
+        f"{len(gaps)} differ first at a near-tie; ms a tick "
+        f"{stats['ms_per_tick']:.4f} (phase 5 {stats5['ms_per_tick']:.4f}); "
+        f"wall {wall:.3f} s")
+    ttft_say("(a)", stats, stats5)
+    return stats
+
+
+def replica_migrate(torch, np, cfg, a, b, token):
+    """Phase 17 (b): A's own streams of 8 requests, then the same
+    requests migrated from A to B mid-stream, relayed and pushed."""
+    import threading
+
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(*MIGRATE_LENS, size=8)]
+    la, lb = MuxConnection(a[0].addr, token), MuxConnection(b[0].addr, token)
+    control = MuxConnection(a[0].addr, token)
+    out = {}
+    try:
+        want = completions(wire_calls(
+            [la], [generate_msg(p, MIGRATE_NEW) for p in prompts])[0],
+            "17 (b) A alone")
+        for mode in ("relay", "push_to"):
+            counted = [Counted(a[2]), Counted(b[2])]
+            zero_launches()
+
+            t0 = time.perf_counter()
+            sent = {}
+            t = threading.Thread(target=lambda: sent.update(a=wire_calls(
+                [la], [generate_msg(p, MIGRATE_NEW, stream=True)
+                       for p in prompts])))
+            t.start()
+            # Migrate once every request is admitted and A has ticked.
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and not (
+                    a[2].decode_ticks >= 1
+                    and a[2].prefills == len(prompts)):
+                time.sleep(0.0005)
+            msg = {"op": "migrate"}
+            if mode == "push_to":
+                msg["push_to"] = b[0].addr
+            need(control.call(msg, timeout=30.0)["op"] == "migrated",
+                 "17 (b): migrate not acked")
+            t.join()
+            replies, parts, _ = sent["a"]
+            ops = [head(r).get("op") for r in replies]
+            suspended = ops.count("suspended")
+            need(suspended == len(prompts),
+                 f"17 (b) {mode}: {suspended} of {len(prompts)} requests "
+                 f"suspended ({ops})")
+            msgs, bodies = [], []
+            for p, r in zip(prompts, replies):
+                if mode == "relay":
+                    need(not isinstance(r, dict), f"17 (b) relay: {r}")
+                    meta = {k: v for k, v in r.meta.items()
+                            if k not in ("op", "id", "gen",
+                                         "weights_version", "trace")}
+                    meta.update(generate_msg(p, MIGRATE_NEW))
+                    msgs.append(meta)
+                    bodies.append(r.body)
+                else:
+                    need(isinstance(r, dict) and r.get("pushed"),
+                         f"17 (b) push_to: {r}")
+                    msgs.append(generate_msg(p, MIGRATE_NEW,
+                                             kv_ref=r["xfer"]))
+                    bodies.append(None)
+            resumed = completions(wire_calls([lb], msgs, bodies)[0],
+                                  f"17 (b) {mode} resumed")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            for c in counted:
+                c.close()
+            launches = read_launches()
+            wa, _ = counted[0].want(cfg, False, "17 (b) A")
+            wb, _ = counted[1].want(cfg, False, "17 (b) B")
+            expect = {k: wa[k] + wb[k] for k in wa}
+            need(launches == expect and b[2].prefills == 0,
+                 f"17 (b) {mode} launches {launches} != {expect} (B "
+                 f"prefills {b[2].prefills})")
+            steps = [len(head(r).get("tokens") or ()) or None
+                     for r in replies]
+            need(resumed == want, f"17 (b) {mode}: resumed streams differ "
+                 f"from A's own")
+            for i, ps in enumerate(parts):
+                rebuilt(ps, want[i], f"17 (b) {mode} request {i}")
+            no_new_graphs(a[2], a[3], f"17 (b) {mode} A")
+            no_new_graphs(b[2], b[3], f"17 (b) {mode} B")
+            out[mode] = {"requests": len(prompts), "suspended":
+                         suspended, "identical": len(prompts),
+                         "tokens_before_migrate": steps,
+                         "a_ticks": a[2].decode_ticks,
+                         "b_ticks": b[2].decode_ticks, "wall_s": wall,
+                         "launches": launches}
+            say(f"  (b) {mode}: " + json.dumps(out[mode]))
+            say(f"  (b) {mode}: {len(prompts)} of {len(prompts)} requests "
+                f"migrated from A to B mid-stream, every resumed stream "
+                f"identical to A's own")
+    finally:
+        for link in (la, lb, control):
+            link.close()
+    return out
+
+
+def replica_disagg(torch, cfg, token, reqs, ref, next_logits):
+    """Phase 17 (c): phase 5's requests prefilled by a prefill-role
+    replica (raw ``prefilled`` frames) and imported by a decode-role
+    replica."""
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    p = replica_up(token, "--role", "prefill")
+    d = replica_up(token, "--role", "decode")
+    out = {}
+    try:
+        pl = [MuxConnection(p[0].addr, token) for _ in range(4)]
+        dl = [MuxConnection(d[0].addr, token) for _ in range(4)]
+        counted = Counted(p[2])
+        zero_launches()
+        t0 = time.perf_counter()
+        # Two waves of 8: the prefill handler sheds past 8 queued
+        # (``overloaded``; the router would retry another replica).
+        msgs = [dict(generate_msg(r.prompt, r.max_new_tokens), op="prefill")
+                for r in reqs]
+        frames = (wire_calls(pl, msgs[:8])[0]
+                  + wire_calls(pl, msgs[8:])[0])
+        torch.cuda.synchronize()
+        export_wall = time.perf_counter() - t0
+        counted.close()
+        exports = read_launches()
+        want, _ = counted.want(cfg, False, "17 (c) prefill")
+        need(exports == want and p[2].prefills == len(reqs),
+             f"17 (c) prefill launches {exports} != {want}")
+        need(all(not isinstance(f, dict) and head(f).get("op") == "prefilled"
+                 for f in frames), "17 (c): a prefill reply is not a raw "
+             "prefilled frame")
+        msgs, bodies = [], []
+        for r, f in zip(reqs, frames):
+            meta = {k: v for k, v in f.meta.items()
+                    if k not in ("op", "id", "prefill_ms", "trace")}
+            meta.update(generate_msg(r.prompt, r.max_new_tokens))
+            msgs.append(meta)
+            bodies.append(f.body)
+        (replies, _, _), imports, wall, _ = counted_run(
+            torch, cfg, d[2], None, False, "17 (c) decode import",
+            drive=lambda: wire_calls(dl, msgs, bodies))
+        need(d[2].prefills == 0 and imports["flash_fwd"] == 0,
+             f"17 (c): the import path ran {imports['flash_fwd']} flash_fwd")
+        no_new_graphs(p[2], p[3], "17 (c) prefill")
+        no_new_graphs(d[2], d[3], "17 (c) decode")
+        got = completions(replies, "17 (c)")
+        identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                          next_logits, "17 (c)")
+        mb = sum(len(x) for x in bodies) / 1e6
+        out = {"requests": len(got), "artifact_mb": mb,
+               "export_wall_s": export_wall, "import_wall_s": wall,
+               "prefill_ms_mean": statistics.mean(
+                   f.meta["prefill_ms"] for f in frames),
+               "decode_ticks": d[2].decode_ticks,
+               "ms_per_tick": d[2].decode_seconds / d[2].decode_ticks * 1e3,
+               "streams_identical": identical, "divergence_gaps": gaps,
+               "launches_export": exports, "launches": imports}
+        say("  (c) " + json.dumps(out))
+        say(f"  (c) {identical} of {len(got)} disaggregated streams "
+            f"identical to phase 5's, {len(gaps)} differ first at a "
+            f"near-tie; {mb:.1f} MB of artifacts over the wire; the "
+            f"import path ran no flash_fwd")
+        for link in pl + dl:
+            link.close()
+    finally:
+        replica_down(torch, p)
+        replica_down(torch, d)
+    return out
+
+
+def replica_process(torch, token, reqs, ref, next_logits, stats5):
+    """Phase 17 (d): the replica as its own process on the card, phase
+    5's traffic sent to it from this one (so no client thread contends
+    with its serve thread for the interpreter)."""
+    import os
+    import signal
+    import threading
+
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    env = dict(os.environ, TPUMESOS_TOKEN=token)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TPUMESOS_TOKEN_FILE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tfmesos_tpu_torch.fleet.replica",
+         "--warmup", "--rows", "8"], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    timer = threading.Timer(300.0, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("replica serving on"):
+                break
+        timer.cancel()
+        need(lines and lines[-1].startswith("replica serving on")
+             and lines[-1].endswith("(role unified)"),
+             f"17 (d): no serving line: {lines[-20:]}")
+        need(any(x.startswith("replica warmed in") for x in lines),
+             f"17 (d): no warmed line: {lines[-20:]}")
+        up_s = time.perf_counter() - t0
+        addr = lines[-1].split()[3]
+        links = [MuxConnection(addr, token) for _ in range(4)]
+        try:
+            completions(wire_calls(links[:1],
+                                   [generate_msg(range(1, 9), 2)])[0],
+                        "17 (d) warm-up")
+            t1 = time.perf_counter()
+            replies, parts, first = wire_calls(links, phase5_msgs(reqs))
+            wall = time.perf_counter() - t1
+        finally:
+            for link in links:
+                link.close()
+        got = completions(replies, "17 (d)")
+        identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                          next_logits, "17 (d)")
+        timing = wire_ttft(replies, parts, first, "17 (d)")
+        proc.send_signal(signal.SIGTERM)
+        tail, _ = proc.communicate(timeout=60)
+        need(proc.returncode == 0, f"17 (d): exit code {proc.returncode}: "
+             f"{tail[-2000:]}")
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = {"lines": [x for x in lines if x.startswith("replica ")],
+           "up_s": up_s, "requests": len(got), "wall_s": wall, **timing,
+           "streams_identical": identical, "divergence_gaps": gaps,
+           "exit_code": proc.returncode}
+    say("  (d) " + json.dumps(out))
+    say(f"  (d) the replica process: up in {up_s:.1f} s, {identical} of "
+        f"{len(got)} streams identical to phase 5's, {len(gaps)} differ "
+        f"first at a near-tie, exit code 0 on SIGTERM")
+    ttft_say("(d)", out, stats5)
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -3009,6 +3558,8 @@ def main() -> int:
                   torch, np)
     modes = timed("schedule modes", phase_schedule_modes, torch, np, reqs,
                   comps, comps8, stats, serve8, bases14, fleet)
+    replica = timed("replica", phase_replica, torch, np, cfg, params, reqs,
+                    streams(comps), stats)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -3027,7 +3578,12 @@ def main() -> int:
              "serve resume": moves["preempt"]["launches_resume"],
              "generate windowed": moves["rolling"]["launches"],
              **{f"serve {label}": row["launches"]
-                for label, row in modes.items()}}
+                for label, row in modes.items()},
+             "replica serve (wire)": replica["a"]["launches"],
+             **{f"replica migrate {mode} (wire)": row["launches"]
+                for mode, row in replica["b"].items()},
+             "replica prefill export (wire)": replica["c"]["launches_export"],
+             "replica decode import (wire)": replica["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -31,11 +31,17 @@ def test_every_module_imports_with_jax_blocked():
         "    tfmesos_tpu_torch.__path__, 'tfmesos_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(len(names), *names)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10
+    count, *names = out.stdout.split()
+    assert int(count) >= 10
+    assert {"tfmesos_tpu_torch.wire", "tfmesos_tpu_torch.utils.logging",
+            "tfmesos_tpu_torch.fleet.replica",
+            "tfmesos_tpu_torch.fleet.client",
+            "tfmesos_tpu_torch.fleet.tracing",
+            "tfmesos_tpu_torch.fleet.kvtier"} <= set(names)
 
 
 def test_slice_modules_import_with_jax_blocked():
@@ -70,6 +76,31 @@ def test_slice_modules_import_with_jax_blocked():
                                   "True", "True", "True", "True"]
 
 
+def test_fleet_modules_import_with_jax_blocked():
+    """The replica slice's modules by name: the wire, the logging copy
+    and the fleet subpackage (client, tracing, kvtier, replica)."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import tfmesos_tpu_torch.wire as w\n"
+        "import tfmesos_tpu_torch.utils.logging as lg\n"
+        "import tfmesos_tpu_torch.fleet as f\n"
+        "from tfmesos_tpu_torch.fleet import client, kvtier, replica, "
+        "tracing\n"
+        "print(w.MAX_FRAME, w.MAX_RAW_FRAME, w.MAX_RAW_META,\n"
+        "      callable(lg.get_logger), callable(client.MuxConnection),\n"
+        "      callable(kvtier.fabric_rpc), callable(replica.start_replica),\n"
+        "      callable(tracing.TraceContext), sorted(f.__all__)[0],\n"
+        "      replica.rid_seed_for_node('replica:3'))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(64 << 20), str(1 << 30), str(1 << 20),
+                                  "True", "True", "True", "True", "True",
+                                  "CallTimeout", "276169728"]
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -83,9 +114,50 @@ def _imported_roots(path: Path):
 def test_no_jax_imports_in_port_or_chip_smoke():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"wire.py", "replica.py", "client.py", "logging.py"} <= {
+        f.name for f in files}
     bad = {str(f.relative_to(ROOT)): sorted(FORBIDDEN & set(
         _imported_roots(f))) for f in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def _jax_package_names(path: Path):
+    """Every name of the JAX package a file imports or asks an importer
+    for by string (``import_module``, ``__import__``, ``run_module``,
+    ``find_spec``), in any form."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def jax_pkg(name):
+        return isinstance(name, str) and (
+            name == "tfmesos_tpu" or name.startswith("tfmesos_tpu."))
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names if jax_pkg(a.name))
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and jax_pkg(node.module):
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            arg = node.args[0]
+            if name in ("import_module", "__import__", "run_module",
+                        "find_spec") and isinstance(arg, ast.Constant) \
+                    and jax_pkg(arg.value):
+                yield arg.value
+
+
+def test_no_module_of_the_port_imports_the_jax_package():
+    """No port module (nor chip_smoke.py) imports ``tfmesos_tpu`` or a
+    module of it, by statement or by string, jax-free modules included
+    (the port keeps its own copies)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = {str(f.relative_to(ROOT)): sorted(set(_jax_package_names(f)))
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    probe = ROOT / "tests" / "test_torch_replica.py"
+    assert "tfmesos_tpu.fleet.client" in set(_jax_package_names(probe))
 
 
 def test_train_cli_runs_on_the_cpu():

@@ -223,3 +223,41 @@ def test_graphed_and_eager_ticks_count_alike(monkeypatch, zero_launches):
     assert runs[True][0] == runs[False][0]
     assert runs[True][1] == runs[False][1] == cfg.n_layers * runs[True][2]
     assert made                                  # the ticks were captured
+
+
+def test_capture_pauses_the_cyclic_collector(monkeypatch):
+    """A capture records with the garbage collector paused (a dead
+    owner's graphs or events freed mid-capture would invalidate it) and
+    restores it afterwards, also when the step raises."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    class Graph:
+        def replay(self):
+            pass
+
+    @contextlib.contextmanager
+    def record(graph, pool=None, stream=None):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", record)
+    g = graphs.StepGraphs("cpu")
+    assert gc.isenabled()
+    g._capture(lambda: seen.append(gc.isenabled()))
+    assert seen == [False] and gc.isenabled()
+
+    def failing():
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        g._capture(failing)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        g._capture(lambda: None)
+        assert not gc.isenabled()      # left as the caller had it
+    finally:
+        gc.enable()

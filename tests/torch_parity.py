@@ -83,3 +83,204 @@ class Golden:
                 for p, n in specs))
             assert b.alloc.rows == {}
         return self._memo[key]
+
+
+# -- fleet replicas of both packages in one process --------------------------
+
+
+def replica_environ(generation: int = 0, job: str = "", index: str = ""
+                    ) -> dict:
+    """The task env a replica reads its launch identity from."""
+    env = {"TPUMESOS_GENERATION": str(generation)}
+    if job:
+        env.update(TPUMESOS_JOB_NAME=job, TPUMESOS_TASK_INDEX=index)
+    return env
+
+
+def jax_replica(argv, token: str, environ=None):
+    """A JAX replica in this process, assembled as
+    ``tfmesos_tpu/fleet/replica.py:main`` assembles it (``:1366-1629``:
+    build, handler, heartbeat fields, register, warm up, serve) without
+    the gang, the KV tier, adoption and the signal wait.  Returns
+    (server, serving or None, batcher)."""
+    from tfmesos_tpu.fleet import replica as jr
+
+    args = jr.build_parser().parse_args(argv)
+    environ = replica_environ() if environ is None else environ
+    generation = int(environ.get("TPUMESOS_GENERATION", "0") or 0)
+    job = environ.get("TPUMESOS_JOB_NAME", "")
+    idx = environ.get("TPUMESOS_TASK_INDEX", "")
+    node = f"{job}:{idx}" if job and idx != "" else ""
+    batcher = jr.build_batcher(args, token, generation, node=node)
+    model_state = {"model_id": args.model_id or "", "warm_pool": False,
+                   "pool_capable": False}
+    cell = []
+
+    def self_addr():
+        return cell[0].addr if cell else ""
+
+    serving = None
+    if args.role == "prefill":
+        handler = jr.prefill_handler(batcher, token=token,
+                                     self_addr=self_addr)
+    else:
+        serving = jr.BatcherServing(batcher)
+        handler = jr.batcher_handler(serving, generation=generation,
+                                     weights_version=args.weights_version,
+                                     model_state=model_state, token=token,
+                                     self_addr=self_addr)
+
+    def extra():        # fleet/replica.py:1535-1583, for these builds
+        beat = {"role": args.role, "kv_headroom": batcher.kv_headroom(),
+                "gen": generation}
+        if args.weights_version:
+            beat["weights_version"] = args.weights_version
+        if node:
+            beat["node"] = node
+        if model_state["model_id"]:
+            beat["model_id"] = model_state["model_id"]
+        beat["adapter_version"] = getattr(batcher, "adapter_version", "")
+        if batcher.prefix_cache_active:
+            beat["prefix_cache"] = batcher.prefix_cache_summary()
+        return beat
+
+    server = jr.ReplicaServer(
+        handler, token=token, capacity=args.rows, host=args.host,
+        port=args.port, registry_addr=args.registry,
+        heartbeat_interval=args.heartbeat_interval, extra_info=extra,
+        status="warming" if args.warmup else None)
+    cell.append(server)
+    server.start()
+    if args.warmup:
+        batcher.warmup(decode=args.role != "prefill",
+                       prefill=args.role != "decode")
+    if serving is not None:
+        serving.start()
+    server.set_status(None)
+    return server, serving, batcher
+
+
+def port_replica(argv, token: str, params=None, environ=None):
+    """The port's replica in this process through its own
+    ``start_replica`` (``--device cpu`` appended)."""
+    from tfmesos_tpu_torch.fleet import replica as pr
+
+    args = pr.build_parser().parse_args(list(argv) + ["--device", "cpu"])
+    environ = replica_environ() if environ is None else environ
+    return pr.start_replica(args, token=token, params=params,
+                            environ=environ)
+
+
+def stop_replica(replica) -> None:
+    server, serving, _ = replica
+    server.stop()
+    if serving is not None:
+        serving.close()
+
+
+def wait_for(cond, timeout: float = 20.0, what: str = "condition"):
+    """Poll ``cond()`` until it is truthy; returns its value."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+class JaxFleet:
+    """The JAX registry, router and gateway in this process (the pattern
+    of ``tests/test_disagg.py:390-464``); replicas register themselves.
+    ``client()`` dials the gateway with ``FleetClient``."""
+
+    def __init__(self, token: str, workers: int = 8):
+        from tfmesos_tpu.fleet.admission import AdmissionController
+        from tfmesos_tpu.fleet.gateway import Gateway
+        from tfmesos_tpu.fleet.metrics import FleetMetrics
+        from tfmesos_tpu.fleet.registry import ReplicaRegistry
+        from tfmesos_tpu.fleet.router import Router
+
+        self.token = token
+        self.registry = ReplicaRegistry(token=token, suspect_after=5.0,
+                                        dead_after=10.0,
+                                        sweep_interval=0.05).start()
+        self.metrics = FleetMetrics()
+        self.router = Router(self.registry, self.metrics, token=token,
+                             request_timeout=120.0)
+        self.gateway = Gateway(self.router,
+                               AdmissionController(max_queue=64),
+                               self.metrics, token=token,
+                               workers=workers).start()
+        self._clients = []
+
+    @property
+    def addr(self) -> str:
+        return self.registry.addr
+
+    def info(self, addr: str):
+        for r in self.registry.members():
+            if r.addr == addr:
+                return r
+        return None
+
+    def wait_routable(self, *addrs) -> None:
+        wait_for(lambda: set(addrs) <= {r.addr for r in
+                                        self.registry.alive()},
+                 what=f"{addrs} routable")
+
+    def client(self):
+        from tfmesos_tpu.fleet.client import FleetClient
+
+        c = FleetClient(self.gateway.addr, self.token, timeout=120.0)
+        self._clients.append(c)
+        return c
+
+    def close(self) -> None:
+        for c in self._clients:
+            c.close()
+        self.gateway.stop()
+        self.registry.stop()
+
+
+def offline_generate(jcfg, jparams, prompts, new_tokens: int) -> list:
+    """The JAX package's offline greedy ``generate`` of each prompt (one
+    ragged batch, one compile): the continuation lists."""
+    import jax.numpy as jnp
+
+    from tfmesos_tpu.models import transformer as jt
+
+    lens = [len(p) for p in prompts]
+    batch = np.zeros((len(prompts), max(lens)), np.int32)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    out = np.asarray(jt.generate(jcfg, jparams, jnp.asarray(batch),
+                                 new_tokens,
+                                 prompt_lens=jnp.asarray(lens, jnp.int32)))
+    return [out[i, n:n + new_tokens].tolist() for i, n in enumerate(lens)]
+
+
+def slow_streams(server, delay: float):
+    """Make ``server``'s streamed requests flush each tick's partial
+    frame ``delay`` seconds late (the batcher's serve thread sends the
+    partials, so its ticks slow down): a request stays in flight long
+    enough for a ``migrate`` or a ``cancel`` to land mid-stream.
+    Returns the handler to put back."""
+    import time
+
+    inner = server.handler
+
+    def handler(msg, reply):
+        send = reply.partial
+
+        def slow(out):
+            time.sleep(delay)
+            send(out)
+
+        reply.partial = slow
+        inner(msg, reply)
+
+    server.handler = handler
+    return inner

@@ -23,6 +23,10 @@ step):
   of one owner.  A step leaves no tensor of its capture alive (results go
   into buffers allocated outside), and one owner replays its graphs one
   at a time on one stream, so they can share the pool in any order.
+- **No garbage collection inside a capture.**  The cyclic collector may
+  free a dead owner's graphs or events at any allocation, and a CUDA
+  call of that kind inside a capture invalidates it: the collector
+  pauses while a step records.
 - **Failures raise.**  A capture or replay error propagates; nothing
   falls back to eager on the card.
 
@@ -32,6 +36,7 @@ paths on the card) every call runs the step eagerly.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Hashable, Set, Tuple, Union
 
 import torch
@@ -129,8 +134,16 @@ class StepGraphs:
         return torch.cuda.memory_reserved(self.device)
 
     def _capture(self, step: Step) -> Callable[[], None]:
-        """Record ``step`` into a new graph; returns its replay."""
+        """Record ``step`` into a new graph, the cyclic collector paused;
+        returns its replay."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            step()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                step()
+        finally:
+            if collecting:
+                gc.enable()
         return graph.replay

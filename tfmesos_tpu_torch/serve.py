@@ -27,8 +27,10 @@ host sync; ``--overlap`` dispatches the next block before syncing the
 last; ``--pipeline-depth 1`` keeps the decode carry on the device as
 well; ``--fused-prefill`` (with ``--prefill-chunk``) runs the decode
 block and up to ``--tokens-per-tick`` tokens of chunk slots in one
-dispatch.  Streams are the synchronous batcher's in every mode.  Runs on
-the card unless ``--device cpu``.
+dispatch.  Streams are the synchronous batcher's in every mode, but for
+the fused tick at more than one chunk slot on the card, where a stream
+may first differ at a near-tie (``ContinuousBatcher``'s docstring).
+Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations

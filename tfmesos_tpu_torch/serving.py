@@ -858,17 +858,25 @@ class ContinuousBatcher:
     :class:`Suspended`.  Deadlines shed an expired arrival before its
     prefill and cancel an expired resident row (:class:`Expired`).
 
-    Schedule modes, each token-identical to the synchronous one-token
-    tick (the same ops and ``(rid, step)`` folds; only the sync point
-    moves): ``multi_step=K`` decodes K tokens a dispatch and syncs a
-    [rows, K] block, a row's tokens past its stop or quota discarded;
-    ``overlap=True`` dispatches block N+1 before syncing block N, rows
-    chaining from its last token on the device; ``pipeline_depth=1``
-    also keeps positions and steps on the device, uploading host inputs
-    only when the dispatch set changes; ``fused_prefill=True`` (with
-    ``prefill_chunk``) runs the decode block and up to
-    ``(tokens_per_tick - n_decode * K) / chunk`` chunk slots in one
-    dispatch.  Bypasses are the reference's (``*_bypass_reason``):
+    Schedule modes: ``multi_step=K`` decodes K tokens a dispatch and
+    syncs a [rows, K] block, a row's tokens past its stop or quota
+    discarded; ``overlap=True`` dispatches block N+1 before syncing
+    block N, rows chaining from its last token on the device;
+    ``pipeline_depth=1`` also keeps positions and steps on the device,
+    uploading host inputs only when the dispatch set changes;
+    ``fused_prefill=True`` (with ``prefill_chunk``) runs the decode block
+    and up to ``(tokens_per_tick - n_decode * K) / chunk`` chunk slots in
+    one dispatch.  Each mode runs the same ops and ``(rid, step)`` folds
+    as the synchronous one-token tick, so its streams are the
+    synchronous tick's — but for the fused tick at S > 1 chunk slots on
+    the card, whose [S, chunk] slot call rounds its bf16 GEMMs otherwise
+    than one chunk does: there a stream may first differ from the
+    synchronous one at a near-tie, within the 0.25 logit margin rule
+    that ``chip_smoke.py`` phase 16 (g) holds it to.  On the CPU
+    (float32) every mode is exactly the synchronous tick:
+    ``tests/test_torch_multistep.py``, ``tests/test_torch_lagged.py``
+    and ``tests/test_torch_fused.py`` hold each against the JAX
+    batcher's synchronous streams token for token.  Bypasses are the reference's (``*_bypass_reason``):
     overlap yields to the pipeline, and under either lag rows are not
     suspendable and the fused tick falls back to the phase-split one.
     The reference's other modes (a static ``prefix``, ``kv_tier``,
@@ -1390,10 +1398,10 @@ class ContinuousBatcher:
         need_len = max(width, req.prompt.size + req.max_new_tokens - 1)
         if need_len > self.max_len:
             raise ValueError(
-                f"request needs {need_len} cache positions (prompt "
-                f"{req.prompt.size} padded to {width}, plus "
-                f"{req.max_new_tokens} new tokens) > max_len "
-                f"({self.max_len})")
+                f"request needs {need_len} cache positions (prefix "
+                f"{self.prefix_len} + prompt {req.prompt.size} padded to "
+                f"{width}, plus {req.max_new_tokens} new tokens) > "
+                f"max_len ({self.max_len})")
         return -(-need_len // self.page_size), need_len
 
     def _req_digests(self, req: Request) -> list:
