@@ -225,7 +225,41 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     process (4 streamed and traced) held to phase 5's by the margin
     rule, exit code 0 on SIGTERM. (a) and (d) print the replies' TTFT,
     the streamed requests' client-side TTFT and what it adds: the wait
-    for a free row (the trace's spans) and the wire with the handler.
+    for a free row (the trace's spans) and the wire with the handler;
+18. the port's front door on the card: (a) ``FleetServer(replicas=2,
+    warmup=True)`` (flagship, rows 8, max_len 1024, page 64, bucket 64,
+    seed 0) launches two replica processes through the port's
+    scheduler, ``LocalBackend`` and ``tfmesos_tpu_torch.server``; phase
+    5's 16 requests through ``fleet.client()`` from 4 threads, 4 of
+    them streamed with ``on_tokens``: 16 completions held to phase 5's
+    by the margin rule, each streamed concatenation equal to its reply,
+    the gateway's received == admitted == completed == 16, both
+    replicas served (the router's attempt spans in the trace book), and
+    each replica process on the card by its own ``stats`` answer (its
+    pid one of this process's replica children, its batcher on a CUDA
+    device, at least the bf16 weights' bytes allocated there), the
+    card's compute apps grown by both replicas' weights; prints
+    the fleet's up seconds, the client's TTFT, the replies' ``ttft_ms``,
+    requests per replica and the wall time; (b) phase 17 (b)'s 8
+    requests streamed through that fleet; once each has its first token
+    the replica holding most of them is drained (pinned, as a
+    scale-down drains) and ``fleet.request_migration`` asks it to
+    suspend them: 8 of 8 complete with streams equal to an undisturbed
+    run through the fleet, ``migrations_requested`` >= 1 and at least
+    one request moved; (c) ``FleetServer(
+    replicas=0, prefill_replicas=1, decode_replicas=1, warmup=True)``
+    serves phase 5's 16 requests: the margin rule on every stream,
+    ``disagg_requests`` == 16 and ``kv_transfer_bytes`` > 0; prints the
+    MB of KV moved and the replies' ``decode_ms``; (d) ``python -m
+    tfmesos_tpu_torch.cli serve --replicas 1 --rows 8 --warmup -p 0
+    --gateway-host 127.0.0.1`` as a process: its banner, ``cli submit``
+    of phase 5's first prompt for 8 tokens (one JSON line, the margin
+    rule against phase 5's first 8), ``cli metrics`` exits 0, and on
+    SIGINT ``tfserve`` exits 0 with no replica process left.  Each fleet
+    is stopped before the next starts.  The replicas are processes of
+    their own: (a), (b) and (c) set their launch counts to 0 through
+    the ``stats`` op just before the run and read them just after, each
+    replica's held to its batcher's prefill and decode counters.
 
 It prints each phase's seconds.
 
@@ -241,6 +275,7 @@ card, or a directory without the package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -482,7 +517,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/17] device")
+    say("[1/18] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -496,7 +531,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/17] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/18] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -675,7 +710,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/17] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/18] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -826,7 +861,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/17] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/18] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -969,7 +1004,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/17] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/18] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1146,7 +1181,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/17] teacher-forced check vs float32 CPU forward "
+    say(f"[6/18] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1197,7 +1232,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/17] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/18] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1207,7 +1242,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/17] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/18] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1277,7 +1312,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/17] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/18] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1978,7 +2013,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/17] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/18] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2043,7 +2078,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/17] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/18] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2129,7 +2164,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/17] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/18] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2226,7 +2261,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/17] sampled serving and generation: phase 5's traffic at "
+    say("[13/18] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2540,7 +2575,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/17] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/18] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2619,7 +2654,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/17] export/import, preemption and rolling caches: flagship")
+    say("[15/18] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -2865,7 +2900,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/17] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/18] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3121,7 +3156,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/17] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/18] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3494,6 +3529,556 @@ def replica_process(torch, token, reqs, ref, next_logits, stats5):
     return out
 
 
+#: a request as :func:`fleet_requests` reads it.
+FleetReq = collections.namedtuple("FleetReq", "prompt max_new_tokens")
+
+FRONT_DOOR = dict(rows=8, max_len=1024, page_size=64, prefill_bucket=64,
+                  seed=0, warmup=True, request_timeout=300.0,
+                  start_timeout=300.0, gateway_host="127.0.0.1")
+
+
+#: phase 18 (d)'s ``tfserve`` flags.
+CLI_SERVE = ["--replicas", "1", "--rows", "8", "--warmup", "-p", "0",
+             "--gateway-host", "127.0.0.1"]
+
+
+def proc_table():
+    """{pid: (ppid, state)} of every process on this machine."""
+    import os
+
+    table = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        table[int(name)] = (int(fields[1]), fields[0])
+    return table
+
+
+def descendants(root):
+    """Live (not zombie) processes below ``root``."""
+    table = proc_table()
+    out, frontier = [], [root]
+    while frontier:
+        parent = frontier.pop()
+        for pid, (ppid, state) in table.items():
+            if ppid == parent:
+                frontier.append(pid)
+                if state != "Z":
+                    out.append(pid)
+    return out
+
+
+def replica_pids(roots):
+    """The replica processes (``-m tfmesos_tpu_torch.fleet.replica``)
+    below ``roots``."""
+    out = []
+    for root in roots:
+        for pid in descendants(root):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().split(b"\0")
+            except OSError:
+                continue
+            if b"tfmesos_tpu_torch.fleet.replica" in argv:
+                out.append(pid)
+    return sorted(out)
+
+
+def pids_alive(pids):
+    table = proc_table()
+    return [p for p in pids if p in table and table[p][1] != "Z"]
+
+
+def smi_apps():
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: {pid: MiB}
+    (summed per pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    need(out.returncode == 0, f"nvidia-smi compute-apps: {out.stderr}")
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(","))
+        apps[int(pid)] = apps.get(int(pid), 0.0) + float(mem)
+    return apps
+
+
+def tree_numel(tree):
+    """Elements of every tensor in a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def replica_stats(addrs, token, reset=False):
+    """Each replica's answer to the ``stats`` op, {addr: reply}; with
+    ``reset`` its launch counts are set to 0 first."""
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    out = {}
+    for addr in addrs:
+        link = MuxConnection(addr, token)
+        try:
+            reply = link.call({"op": "stats", "reset_launches": reset},
+                              timeout=60.0)
+        finally:
+            link.close()
+        need(isinstance(reply, dict) and reply.get("op") == "stats",
+             f"stats of replica {addr}: {reply}")
+        out[addr] = reply
+    return out
+
+
+def settled_stats(addrs, token):
+    """:func:`replica_stats` once two reads 0.2 s apart agree on every
+    count (a replica may still be counting its last tick when its last
+    reply has arrived)."""
+    def counts(stats):
+        return {a: (s["launches"], s["counters"]) for a, s in stats.items()}
+
+    last = replica_stats(addrs, token)
+    for _ in range(50):
+        time.sleep(0.2)
+        now = replica_stats(addrs, token)
+        if counts(now) == counts(last):
+            return now
+        last = now
+    need(False, f"replica counts did not settle: {counts(last)}")
+
+
+def on_the_card(stats, pids, weights_bytes, before, what):
+    """Each replica is on the card, by its own ``stats`` answer: it is
+    one of this fleet's replica processes ``pids``, its batcher runs on
+    a CUDA device, and it holds at least the model's bf16 weights
+    (``weights_bytes``) in device memory.  And the card's compute apps
+    (nvidia-smi, summed: on the card's machine it lists every process
+    under one pid) grew from ``before`` (MiB) by at least the weights
+    of every replica.  Returns what was read."""
+    by_pid = {s["pid"]: s for s in stats.values()}
+    need(sorted(by_pid) == sorted(pids), f"{what}: the replicas answer "
+         f"as pids {sorted(by_pid)}, the fleet's processes are {pids}")
+    for pid, s in by_pid.items():
+        need(s["device"].startswith("cuda")
+             and s["memory_allocated"] >= weights_bytes,
+             f"{what}: replica pid {pid} on {s['device']} holds "
+             f"{s['memory_allocated']} bytes, the weights are "
+             f"{weights_bytes}")
+    apps = smi_apps()
+    grew = sum(apps.values()) - sum(before.values())
+    need(grew * 2 ** 20 >= len(pids) * weights_bytes,
+         f"{what}: the compute apps grew {grew} MiB ({before} -> {apps}) "
+         f"for {len(pids)} replicas of {weights_bytes} weight bytes")
+    return {"replicas": {str(p): {"device": s["device"],
+                                  "memory_allocated": s["memory_allocated"]}
+                         for p, s in sorted(by_pid.items())},
+            "weights_bytes": weights_bytes, "smi_apps_mib": apps,
+            "smi_apps_mib_before": before, "apps_mib_grew": grew}
+
+
+#: The kernels no replica of phase 18 may launch (no int8 pool, no
+#: linear-cache generate, no training).
+IDLE_IN_A_REPLICA = ("quant_int8", "quant_int8_commit", "flash_decode",
+                     "flash_decode_merge", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def replica_launches(cfg, before, after, what):
+    """The kernels the replicas launched between two ``stats`` reads
+    (their launch counts set to 0 at ``before``), summed over replicas.
+    Each replica's counts are held to its batcher's dispatch counters:
+    n_layers flash_fwd a prefill, n_layers flash_decode_paged a call
+    (K a decode block, one a prefix-cache tail or prefill chunk), no
+    fused tick and none of :data:`IDLE_IN_A_REPLICA`.  The merges are
+    counted, not derived: their number depends on each call's table
+    width, which the counters do not carry."""
+    total = {}
+    for addr, a in after.items():
+        d = {k: n - before[addr]["counters"][k]
+             for k, n in a["counters"].items()}
+        got = a["launches"]
+        calls = (a["multi_step"] * d["decode_ticks"] + d["tail_prefills"]
+                 + d["prefill_chunks"])
+        need(d["fused_ticks"] == 0
+             and got["flash_fwd"] == cfg.n_layers * d["prefills"]
+             and got["flash_decode_paged"] == cfg.n_layers * calls
+             and not any(got[k] for k in IDLE_IN_A_REPLICA),
+             f"{what}: replica {addr} launched {got} for its counters {d}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def fleet_counters(fleet):
+    return dict(fleet.snapshot()["counters"])
+
+
+def delta(after, before, key):
+    return after.get(key, 0) - before.get(key, 0)
+
+
+def fleet_requests(fleet, reqs, streamed_every=4, threads=4):
+    """Phase 5's requests through ``fleet.client()`` from ``threads``
+    threads (each sends its share in turn), every ``streamed_every``-th
+    streamed with ``on_tokens``, all traced in full.  Returns (replies,
+    streamed tokens {i: list}, client-side ms to the first streamed
+    token {i: ms}, wall seconds)."""
+    import threading
+
+    client = fleet.client(timeout=300.0)
+    n = len(reqs)
+    replies, streamed, first, errors = [None] * n, {}, {}, []
+
+    def worker(k):
+        for i in range(k, n, threads):
+            kw = {}
+            t0 = time.perf_counter()
+            if i % streamed_every == 0:
+                streamed[i] = []
+
+                def on_tokens(toks, i=i, t0=t0):
+                    if not streamed[i]:
+                        first[i] = (time.perf_counter() - t0) * 1e3
+                    streamed[i].extend(toks)
+
+                kw["on_tokens"] = on_tokens
+            try:
+                replies[i] = client.generate(
+                    [int(x) for x in reqs[i].prompt],
+                    reqs[i].max_new_tokens, trace=True, **kw)
+            except Exception as e:         # reported below
+                errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=worker, args=(k,))
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    wall = time.perf_counter() - t0
+    client.close()
+    need(not errors, f"fleet requests failed: {errors}")
+    for i, toks in streamed.items():
+        need(toks == replies[i]["tokens"], f"request {i}: the streamed "
+             f"concatenation differs from the reply's tokens")
+    return replies, streamed, first, wall
+
+
+def served_by(fleet, replies):
+    """{replica addr: requests} from the router's ``attempt`` spans of
+    each reply's trace (the last successful attempt served it)."""
+    count = {}
+    for r in replies:
+        rec = fleet.tracebook.get(r["trace_id"])
+        need(rec is not None and rec.get("spans"),
+             f"no trace detail for {r['trace_id']}")
+        ok = [s["addr"] for s in rec["spans"]
+              if s["component"] == "router" and s["name"] == "attempt"
+              and s.get("outcome") == "ok"]
+        need(len(ok) == 1, f"trace {r['trace_id']}: attempts {ok}")
+        count[ok[0]] = count.get(ok[0], 0) + 1
+    return count
+
+
+def phase_front_door(torch, np, cfg, params, reqs, base):
+    """Phase 18: the port's front door (``FleetServer``, ``tfserve``)
+    on the card, its replicas launched as processes of their own."""
+    import os
+
+    from tfmesos_tpu_torch.fleet.launcher import FleetServer
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    say("[18/18] the front door: FleetServer and tfserve, flagship, rows "
+        "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = dict(enumerate(base))
+
+    def next_logits(i, prefix):
+        prompt = [int(x) for x in reqs[i].prompt]
+        with torch.no_grad():
+            return forward(cpu_cfg, params,
+                           torch.tensor([prompt + prefix]))[0, -1]
+
+    # This process's own pools stay out of the replicas' way.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    before = smi_apps()
+    t0 = time.perf_counter()
+    fleet = FleetServer(replicas=2, **FRONT_DOOR).start()
+    try:
+        up_s = time.perf_counter() - t0
+        pids = replica_pids([os.getpid()])
+        out["a"] = front_unified(np, cfg, fleet, reqs, ref, next_logits,
+                                 up_s, pids, before, 2 * tree_numel(params))
+        out["b"] = front_migrate(np, cfg, fleet)
+    finally:
+        fleet.stop()
+    need(not pids_alive(pids), f"18 (a): replica processes "
+         f"{pids_alive(pids)} outlived FleetServer.stop()")
+    out["c"] = front_disagg(FleetServer, cfg, reqs, ref, next_logits)
+    out["d"] = front_cli(reqs, ref, next_logits)
+    return out
+
+
+def front_unified(np, cfg, fleet, reqs, ref, next_logits, up_s, pids,
+                  before, weights_bytes):
+    """Phase 18 (a)."""
+    need(len(pids) == 2, f"18 (a): replica processes {pids}")
+    addrs = sorted(r.addr for r in fleet.registry.alive())
+    card = on_the_card(replica_stats(addrs, fleet.token), pids,
+                       weights_bytes, before, "18 (a)")
+    # One request a replica first (cuBLAS handles and allocator pools of
+    # each process), outside the measured run.
+    warm = [FleetReq(list(range(1, 9)), 2)] * 4
+    fleet_requests(fleet, warm, streamed_every=len(warm) + 1)
+    before = fleet_counters(fleet)
+    zero = replica_stats(addrs, fleet.token, reset=True)
+    replies, streamed, first, wall = fleet_requests(fleet, reqs)
+    launches = replica_launches(cfg, zero, settled_stats(addrs, fleet.token),
+                                "18 (a)")
+    after = fleet_counters(fleet)
+    need(launches["flash_fwd"] > 0 and launches["flash_decode_paged"] > 0,
+         f"18 (a): the replicas launched {launches}")
+    got = [r["tokens"] for r in replies]
+    need(all(len(t) == r.max_new_tokens for t, r in zip(got, reqs)),
+         "18 (a): a request did not complete its tokens")
+    identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                      next_logits, "18 (a)")
+    books = {k: delta(after, before, k)
+             for k in ("received", "admitted", "completed", "failed")}
+    need(books["received"] == books["admitted"] == books["completed"]
+         == len(reqs) and books["failed"] == 0,
+         f"18 (a): gateway counters {books}")
+    per = served_by(fleet, replies)
+    need(len(per) == 2 and min(per.values()) >= 1,
+         f"18 (a): requests per replica {per}")
+    ttft = [r["ttft_ms"] for r in replies]
+    client = [first[i] for i in sorted(first)]
+    stats = {"fleet_up_s": up_s, "requests": len(replies),
+             "wall_s": wall, "ttft_ms_mean": statistics.mean(ttft),
+             "ttft_ms_p50": statistics.median(ttft), "ttft_ms": ttft,
+             "client_ttft_ms_mean_streamed": statistics.mean(client),
+             "client_ttft_ms_p50_streamed": statistics.median(client),
+             "requests_per_replica": sorted(per.values()),
+             "replica_pids": pids, "card": card, "counters": books,
+             "launches": launches, "streams_identical": identical,
+             "divergence_gaps": gaps}
+    say("  (a) " + json.dumps(stats))
+    say(f"  (a) fleet up in {up_s:.1f} s; {identical} of {len(got)} "
+        f"streams identical to phase 5's, {len(gaps)} differ first at a "
+        f"near-tie; replies' ttft_ms mean {stats['ttft_ms_mean']:.3f} p50 "
+        f"{stats['ttft_ms_p50']:.3f}; client TTFT of the streamed mean "
+        f"{stats['client_ttft_ms_mean_streamed']:.3f} p50 "
+        f"{stats['client_ttft_ms_p50_streamed']:.3f} ms; requests per "
+        f"replica {sorted(per.values())}; wall {wall:.3f} s; both "
+        f"replica processes on the card (compute apps "
+        f"+{card['apps_mib_grew']:.0f} MiB); launches {launches}")
+    return stats
+
+
+def front_migrate(np, cfg, fleet):
+    """Phase 18 (b)."""
+    import threading
+
+    rng = np.random.RandomState(17)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(*MIGRATE_LENS, size=8)]
+    reqs = [FleetReq(p, MIGRATE_NEW) for p in prompts]
+    want = [r["tokens"] for r in fleet_requests(fleet, reqs,
+                                                len(reqs) + 1)[0]]
+    before = fleet_counters(fleet)
+    addrs = sorted(r.addr for r in fleet.registry.alive())
+    zero = replica_stats(addrs, fleet.token, reset=True)
+    client = fleet.client(timeout=300.0)
+    streamed = [[] for _ in prompts]
+    firsts = threading.Semaphore(0)
+    replies, errors = [None] * len(prompts), []
+
+    def call(i):
+        def on_tokens(toks):
+            if not streamed[i]:
+                firsts.release()
+            streamed[i].extend(toks)
+
+        try:
+            replies[i] = client.generate(prompts[i], MIGRATE_NEW,
+                                         on_tokens=on_tokens)
+        except Exception as e:             # reported below
+            errors.append((i, repr(e)))
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=call, args=(i,))
+            for i in range(len(prompts))]
+    victim = None
+    try:
+        for t in pool:
+            t.start()
+        for _ in prompts:
+            need(firsts.acquire(timeout=60.0), "18 (b): no first token")
+        # Every request is decoding: drain the replica holding the most
+        # of them (pinned, as a scale-down does) and ask it to migrate.
+        victim = max((r.addr for r in fleet.registry.alive()),
+                     key=fleet.router.outstanding)
+        in_flight = fleet.router.outstanding(victim)
+        fleet.registry.begin_drain(victim, pinned=True)
+        asked = fleet.request_migration(victim)
+        for t in pool:
+            t.join()
+    finally:
+        if victim is not None:
+            fleet.registry.clear_drain(victim)
+        client.close()
+    wall = time.perf_counter() - t0
+    need(not errors, f"18 (b): {errors}")
+    launches = replica_launches(cfg, zero, settled_stats(addrs, fleet.token),
+                                "18 (b)")
+    after = fleet_counters(fleet)
+    got = [r["tokens"] for r in replies]
+    stats = {"requests": len(got), "victim_in_flight": in_flight,
+             "identical": sum(g == w for g, w in zip(got, want)),
+             "wall_s": wall, "launches": launches,
+             **{k: delta(after, before, k) for k in (
+                 "migrations_requested", "migration_resumes",
+                 "migration_direct", "migration_reruns")}}
+    say("  (b) " + json.dumps(stats))
+    need(asked and stats["migrations_requested"] >= 1,
+         "18 (b): no migration requested")
+    need(stats["migration_resumes"] + stats["migration_reruns"] >= 1,
+         "18 (b): the migration moved no request")
+    need(got == want, "18 (b): the migrated streams differ from the "
+         "undisturbed run's")
+    need(all(s == g for s, g in zip(streamed, got)),
+         "18 (b): a streamed concatenation differs from its reply")
+    say(f"  (b) {len(got)} of {len(got)} requests complete, the victim "
+        f"held {in_flight} when drained and migrated "
+        f"({stats['migration_resumes']} resumed, "
+        f"{stats['migration_direct']} pushed directly, "
+        f"{stats['migration_reruns']} rerun); every stream equal to the "
+        f"undisturbed run's")
+    return stats
+
+
+def front_disagg(FleetServer, cfg, reqs, ref, next_logits):
+    """Phase 18 (c)."""
+    import os
+
+    t0 = time.perf_counter()
+    fleet = FleetServer(replicas=0, prefill_replicas=1, decode_replicas=1,
+                        **FRONT_DOOR).start()
+    try:
+        up_s = time.perf_counter() - t0
+        pids = replica_pids([os.getpid()])
+        need(len(pids) == 2, f"18 (c): replica processes {pids}")
+        addrs = sorted(r.addr for r in fleet.registry.alive())
+        fleet_requests(fleet, [FleetReq(list(range(1, 9)), 2)] * 2, 3)
+        before = fleet_counters(fleet)
+        zero = replica_stats(addrs, fleet.token, reset=True)
+        replies, _, first, wall = fleet_requests(fleet, reqs)
+        launches = replica_launches(
+            cfg, zero, settled_stats(addrs, fleet.token), "18 (c)")
+        after = fleet_counters(fleet)
+    finally:
+        fleet.stop()
+    need(not pids_alive(pids), f"18 (c): replica processes "
+         f"{pids_alive(pids)} outlived FleetServer.stop()")
+    got = [r["tokens"] for r in replies]
+    identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                      next_logits, "18 (c)")
+    moved = delta(after, before, "kv_transfer_bytes")
+    need(delta(after, before, "disagg_requests") == len(reqs)
+         and moved > 0, f"18 (c): disagg_requests "
+         f"{delta(after, before, 'disagg_requests')}, kv bytes {moved}")
+    need(launches["flash_fwd"] > 0 and launches["flash_decode_paged"] > 0,
+         f"18 (c): the replicas launched {launches}")
+    decode_ms = [r["decode_ms"] for r in replies]
+    stats = {"fleet_up_s": up_s, "requests": len(got), "wall_s": wall,
+             "launches": launches,
+             "kv_mb": moved / 1e6, "decode_ms": decode_ms,
+             "decode_ms_mean": statistics.mean(decode_ms),
+             "ttft_ms_mean": statistics.mean(r["ttft_ms"] for r in replies),
+             "streams_identical": identical, "divergence_gaps": gaps}
+    say("  (c) " + json.dumps(stats))
+    say(f"  (c) disaggregated fleet up in {up_s:.1f} s; {identical} of "
+        f"{len(got)} streams identical to phase 5's, {len(gaps)} differ "
+        f"first at a near-tie; {moved / 1e6:.1f} MB of KV moved; replies' "
+        f"decode_ms mean {stats['decode_ms_mean']:.3f}")
+    return stats
+
+
+def front_cli(reqs, ref, next_logits):
+    """Phase 18 (d): ``tfserve`` as a process."""
+    import os
+    import signal
+    import threading
+
+    token = "front-door-cli"
+    env = dict(os.environ, TPUMESOS_TOKEN=token)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TPUMESOS_TOKEN_FILE", None)
+    cli = [sys.executable, "-m", "tfmesos_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["serve"] + CLI_SERVE,
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    timer = threading.Timer(300.0, proc.kill)
+    timer.start()
+    lines, pids = [], []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("tfserve: gateway on"):
+                break
+        timer.cancel()
+        need(lines and lines[-1].startswith("tfserve: gateway on"),
+             f"18 (d): no banner: {lines[-20:]}")
+        up_s = time.perf_counter() - t0
+        gw = lines[-1].split()[3]
+        pids = replica_pids([proc.pid])
+        need(len(pids) == 1, f"18 (d): replica processes {pids}")
+        prompt = ",".join(str(int(x)) for x in reqs[0].prompt)
+        sub = subprocess.run(cli + ["submit", "-g", gw, "--prompt", prompt,
+                                    "-n", "8"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        need(sub.returncode == 0, f"18 (d): submit: {sub.stderr[-2000:]}")
+        rows = sub.stdout.strip().splitlines()
+        need(len(rows) == 1, f"18 (d): submit printed {rows}")
+        tokens = json.loads(rows[0])["tokens"]
+        identical, gaps = divergence_gaps({0: ref[0][:8]}, {0: tokens},
+                                          next_logits, "18 (d)")
+        met = subprocess.run(cli + ["metrics", "-g", gw], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        need(met.returncode == 0, f"18 (d): metrics: {met.stderr[-2000:]}")
+        proc.send_signal(signal.SIGINT)
+        tail, _ = proc.communicate(timeout=120)
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    need(proc.returncode == 0, f"18 (d): tfserve exit code "
+         f"{proc.returncode}: {tail[-2000:]}")
+    need(not pids_alive(pids), f"18 (d): replica {pids_alive(pids)} "
+         f"outlived tfserve")
+    out = {"up_s": up_s, "banner": lines[-1], "submit_tokens": tokens,
+           "identical": identical, "divergence_gaps": gaps,
+           "metrics_rc": met.returncode, "exit_code": proc.returncode,
+           "replica_pids": pids}
+    say("  (d) " + json.dumps(out))
+    say(f"  (d) tfserve up in {up_s:.1f} s; submit's 8 tokens "
+        f"{'identical to' if identical else 'within the margin of'} "
+        f"phase 5's; metrics exit 0; exit 0 on SIGINT, no replica left")
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -3560,6 +4145,8 @@ def main() -> int:
                   comps, comps8, stats, serve8, bases14, fleet)
     replica = timed("replica", phase_replica, torch, np, cfg, params, reqs,
                     streams(comps), stats)
+    front = timed("front door", phase_front_door, torch, np, cfg, params,
+                  reqs, streams(comps))
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -3583,7 +4170,10 @@ def main() -> int:
              **{f"replica migrate {mode} (wire)": row["launches"]
                 for mode, row in replica["b"].items()},
              "replica prefill export (wire)": replica["c"]["launches_export"],
-             "replica decode import (wire)": replica["c"]["launches"]}
+             "replica decode import (wire)": replica["c"]["launches"],
+             "front door unified (processes)": front["a"]["launches"],
+             "front door migrate (processes)": front["b"]["launches"],
+             "front door disaggregated (processes)": front["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

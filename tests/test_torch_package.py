@@ -13,6 +13,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tfmesos_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "tfmesos_tpu"}
+#: the front door's modules: the control plane, the scheduler and its
+#: backend, the node runtime and tfserve.
+FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
+              "tfmesos_tpu_torch.fleet.router",
+              "tfmesos_tpu_torch.fleet.gateway",
+              "tfmesos_tpu_torch.fleet.admission",
+              "tfmesos_tpu_torch.fleet.containment",
+              "tfmesos_tpu_torch.fleet.metrics",
+              "tfmesos_tpu_torch.fleet.launcher",
+              "tfmesos_tpu_torch.scheduler", "tfmesos_tpu_torch.spec",
+              "tfmesos_tpu_torch.backends",
+              "tfmesos_tpu_torch.backends.local",
+              "tfmesos_tpu_torch.server", "tfmesos_tpu_torch.runtime",
+              "tfmesos_tpu_torch.logpump", "tfmesos_tpu_torch.cli")
 
 
 def _env():
@@ -42,6 +56,7 @@ def test_every_module_imports_with_jax_blocked():
             "tfmesos_tpu_torch.fleet.client",
             "tfmesos_tpu_torch.fleet.tracing",
             "tfmesos_tpu_torch.fleet.kvtier"} <= set(names)
+    assert set(FRONT_DOOR) <= set(names)
 
 
 def test_slice_modules_import_with_jax_blocked():
@@ -98,7 +113,34 @@ def test_fleet_modules_import_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [str(64 << 20), str(1 << 30), str(1 << 20),
                                   "True", "True", "True", "True", "True",
-                                  "CallTimeout", "276169728"]
+                                  "AdmissionController", "276169728"]
+
+
+def test_front_door_modules_import_with_jax_blocked():
+    """The front door's modules by name, with JAX and the JAX package
+    blocked: each imports, the package exports the launcher surface,
+    and the node runtime and the launcher name the port's modules."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for n in {FRONT_DOOR!r}:\n"
+        "    importlib.import_module(n)\n"
+        "import tfmesos_tpu_torch.fleet as f\n"
+        "from tfmesos_tpu_torch import spec, wire\n"
+        "from tfmesos_tpu_torch.fleet import client, launcher\n"
+        "ti = spec.Task('replica', 0, cmd='true').to_task_info(\n"
+        "    spec.Offer('o', 'a', 'h', 1, 1), '127.0.0.1:1', 't')\n"
+        "print(all(hasattr(f, n) for n in ('FleetServer', 'FleetClient',\n"
+        "      'Gateway', 'Router', 'ReplicaRegistry')),\n"
+        "      client.Overloaded is f.admission.Overloaded,\n"
+        "      '-m tfmesos_tpu_torch.server' in ti['command']['value'],\n"
+        "      callable(wire.WireServer), sorted(launcher.TIER_JOBS))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", "True", "True", "True",
+                                  "['decode',", "'prefill',", "'unified']"]
 
 
 def _imported_roots(path: Path):
@@ -153,11 +195,24 @@ def test_no_module_of_the_port_imports_the_jax_package():
     module of it, by statement or by string, jax-free modules included
     (the port keeps its own copies)."""
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    checked = {".".join(f.relative_to(ROOT).with_suffix("").parts)
+               for f in files}
+    assert {n if n in checked else n + ".__init__"
+            for n in FRONT_DOOR} <= checked
     bad = {str(f.relative_to(ROOT)): sorted(set(_jax_package_names(f)))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
     probe = ROOT / "tests" / "test_torch_replica.py"
     assert "tfmesos_tpu.fleet.client" in set(_jax_package_names(probe))
+
+
+def test_no_port_file_names_the_native_library_of_the_jax_package():
+    """The port's log pump is pure Python: no port file (nor
+    chip_smoke.py) loads or names the JAX package's native build."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert not [str(f.relative_to(ROOT)) for f in files
+                if "tfmesos_tpu/native/" in f.read_text()
+                or "liblogpump" in f.read_text()]
 
 
 def test_train_cli_runs_on_the_cpu():

@@ -230,3 +230,193 @@ def test_mux_against_the_other_replica_server(server, client):
     with pytest.raises(mux_mod.ConnectionLost):
         link.call({"op": "ping"}, timeout=10.0)
     link.close()
+
+
+# -- the event-loop serve core: the port's WireServer -----------------------
+#
+# The JAX ``tests/test_wire.py`` smokes of ``WireServer``, run against the
+# port's, with blocking clients of either package.
+
+
+def _echo_server(allow_raw=False, **kw):
+    def handler(conn, msg):
+        if isinstance(msg, tw.RawFrame):
+            conn.send_raw(dict(msg.meta, echoed=True), msg.body)
+        else:
+            conn.send({"echo": msg})
+
+    return tw.WireServer(handler, token=TOKEN, allow_raw=allow_raw,
+                         **kw).start()
+
+
+@pytest.mark.parametrize("client", sorted(SIDES))
+def test_port_wire_server_echo_smoke(client):
+    """Round trips of JSON frames; a wrong-token peer is dropped at its
+    first frame and the healthy connection never notices."""
+    cw = SIDES[client]
+    srv = _echo_server()
+    try:
+        c = cw.connect(srv.addr)
+        for i in range(50):
+            cw.send_msg(c, {"op": "ping", "i": i}, TOKEN)
+        for i in range(50):
+            assert cw.recv_msg(c, TOKEN) == {"echo": {"op": "ping", "i": i}}
+        bad = cw.connect(srv.addr)
+        cw.send_msg(bad, {"op": "x"}, "wrong-token")
+        with pytest.raises((OSError, cw.WireError)):
+            for _ in range(10):
+                cw.recv_msg(bad, "wrong-token")
+        bad.close()
+        cw.send_msg(c, "still-here", TOKEN)
+        assert cw.recv_msg(c, TOKEN) == {"echo": "still-here"}
+        c.close()
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("client", sorted(SIDES))
+def test_port_wire_server_connection_flood(client):
+    """Hundreds of concurrent connections on the one serve thread, every
+    request answered."""
+    cw = SIDES[client]
+    srv = _echo_server(name="port-wire-flood")
+    socks = []
+    try:
+        for i in range(256):
+            s = cw.connect(srv.addr, timeout=10.0)
+            socks.append(s)
+            cw.send_msg(s, {"i": i}, TOKEN)
+        for i, s in enumerate(socks):
+            assert cw.recv_msg(s, TOKEN) == {"echo": {"i": i}}
+        assert len([t for t in threading.enumerate()
+                    if t.name == "port-wire-flood"]) == 1
+    finally:
+        for s in socks:
+            s.close()
+        srv.stop()
+
+
+@pytest.mark.parametrize("client", sorted(SIDES))
+def test_port_wire_server_interleaved_raw_and_json(client):
+    cw = SIDES[client]
+    srv = _echo_server(allow_raw=True)
+    try:
+        c = cw.connect(srv.addr)
+        body = bytes(range(256)) * 32
+        cw.send_msg(c, {"op": "a"}, TOKEN)
+        cw.send_raw_msg(c, {"op": "kv", "id": 1}, body, TOKEN)
+        cw.send_msg(c, {"op": "b"}, TOKEN)
+        assert cw.recv_msg(c, TOKEN, allow_raw=True) == {
+            "echo": {"op": "a"}}
+        raw = cw.recv_msg(c, TOKEN, allow_raw=True)
+        assert raw.meta == {"op": "kv", "id": 1, "echoed": True}
+        assert raw.body == body
+        assert cw.recv_msg(c, TOKEN, allow_raw=True) == {
+            "echo": {"op": "b"}}
+        c.close()
+    finally:
+        srv.stop()
+
+
+def test_port_wire_server_rejects_at_the_prefix_and_drops_slow_readers():
+    """An oversized length and the raw bit on a plain listener drop the
+    connection at the 4-byte prefix; a peer that never reads its replies
+    is dropped past ``max_buffer``; the loop keeps serving."""
+    import struct
+
+    srv = _echo_server(max_buffer=256 * 1024)
+    try:
+        for prefix in (struct.pack(">I", tw.MAX_FRAME + 1),
+                       struct.pack(">I", tw.RAW_FLAG | (1 << 29))):
+            c = tw.connect(srv.addr)
+            c.sendall(prefix)
+            c.settimeout(5.0)
+            with pytest.raises((OSError, tw.WireError)):
+                tw.recv_msg(c, TOKEN)
+            c.close()
+        slow = tw.connect(srv.addr)
+        slow.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        dropped = False
+        try:
+            for _ in range(200):
+                tw.send_msg(slow, {"op": "flood", "pad": "x" * 65536},
+                            TOKEN)
+        except OSError:
+            dropped = True
+        if not dropped:
+            slow.settimeout(5.0)
+            with pytest.raises((OSError, tw.WireError)):
+                while True:
+                    tw.recv_msg(slow, TOKEN)
+        slow.close()
+        ok = tw.connect(srv.addr)
+        tw.send_msg(ok, "fine", TOKEN)
+        assert tw.recv_msg(ok, TOKEN) == {"echo": "fine"}
+        ok.close()
+    finally:
+        srv.stop()
+
+
+def test_port_wire_server_wake_listener_and_threaded_sends():
+    """``conn.send`` from many threads lands every frame intact; with
+    the internal waker out of the picture, ``wake_listener`` alone ends
+    the loop once the stop flag is set."""
+
+    def handler(conn, msg):
+        def work(k):
+            for j in range(10):
+                conn.send({"k": k, "j": j})
+
+        for k in range(4):
+            threading.Thread(target=work, args=(k,), daemon=True).start()
+
+    srv = tw.WireServer(handler, token=TOKEN).start()
+    try:
+        c = tw.connect(srv.addr)
+        tw.send_msg(c, {"op": "go"}, TOKEN)
+        c.settimeout(10.0)
+        got = [tw.recv_msg(c, TOKEN) for _ in range(40)]
+        assert all([m["j"] for m in got if m["k"] == k] == list(range(10))
+                   for k in range(4))
+        c.close()
+        srv._wake = lambda: None
+        srv._stop.set()
+        tw.wake_listener(srv._listen)
+        srv._thread.join(timeout=3.0)
+        assert not srv._thread.is_alive()
+    finally:
+        srv._thread = None
+        srv.stop()
+
+
+def test_port_chaos_hooks_drop_and_sever():
+    """``set_chaos``: a send hook returning True swallows the frame on
+    both paths (blocking ``send_msg`` and ``WireConn.send``); a recv hook
+    raising OSError severs the blocking read."""
+    srv = _echo_server()
+    c = tw.connect(srv.addr)
+    c.settimeout(0.5)
+    try:
+        tw.set_chaos(send=lambda sock, frame: True)
+        tw.send_msg(c, {"op": "lost"}, TOKEN)
+        with pytest.raises(socket.timeout):
+            tw.recv_msg(c, TOKEN)
+        tw.set_chaos()
+        tw.send_msg(c, {"op": "kept"}, TOKEN)
+        assert tw.recv_msg(c, TOKEN) == {"echo": {"op": "kept"}}
+
+        def sever(sock):
+            raise OSError("chaos sever")
+
+        tw.set_chaos(recv=sever)
+        with pytest.raises(OSError, match="chaos sever"):
+            tw.recv_msg(c, TOKEN)
+    finally:
+        tw.set_chaos()
+        c.close()
+        srv.stop()
+    assert tw.reuseport_available() == jw.reuseport_available()
+    s = socket.socket()
+    tw.tag_socket(s, "10.0.0.1:5")
+    assert tw.sock_ident(s) == "10.0.0.1:5"
+    s.close()

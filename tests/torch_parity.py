@@ -194,26 +194,28 @@ def wait_for(cond, timeout: float = 20.0, what: str = "condition"):
 class JaxFleet:
     """The JAX registry, router and gateway in this process (the pattern
     of ``tests/test_disagg.py:390-464``); replicas register themselves.
-    ``client()`` dials the gateway with ``FleetClient``."""
+    ``client()`` dials the gateway with ``FleetClient``.  ``side="port"``
+    builds the same from the port's ``tfmesos_tpu_torch.fleet``."""
 
-    def __init__(self, token: str, workers: int = 8):
-        from tfmesos_tpu.fleet.admission import AdmissionController
-        from tfmesos_tpu.fleet.gateway import Gateway
-        from tfmesos_tpu.fleet.metrics import FleetMetrics
-        from tfmesos_tpu.fleet.registry import ReplicaRegistry
-        from tfmesos_tpu.fleet.router import Router
-
+    def __init__(self, token: str, workers: int = 8, side: str = "jax"):
+        if side == "jax":
+            from tfmesos_tpu.fleet import (admission, client, gateway,
+                                           metrics, registry, router)
+        else:
+            from tfmesos_tpu_torch.fleet import (admission, client,
+                                                 gateway, metrics,
+                                                 registry, router)
+        self._client_mod = client
         self.token = token
-        self.registry = ReplicaRegistry(token=token, suspect_after=5.0,
-                                        dead_after=10.0,
-                                        sweep_interval=0.05).start()
-        self.metrics = FleetMetrics()
-        self.router = Router(self.registry, self.metrics, token=token,
-                             request_timeout=120.0)
-        self.gateway = Gateway(self.router,
-                               AdmissionController(max_queue=64),
-                               self.metrics, token=token,
-                               workers=workers).start()
+        self.registry = registry.ReplicaRegistry(
+            token=token, suspect_after=5.0, dead_after=10.0,
+            sweep_interval=0.05).start()
+        self.metrics = metrics.FleetMetrics()
+        self.router = router.Router(self.registry, self.metrics,
+                                    token=token, request_timeout=120.0)
+        self.gateway = gateway.Gateway(
+            self.router, admission.AdmissionController(max_queue=64),
+            self.metrics, token=token, workers=workers).start()
         self._clients = []
 
     @property
@@ -231,10 +233,11 @@ class JaxFleet:
                                         self.registry.alive()},
                  what=f"{addrs} routable")
 
-    def client(self):
-        from tfmesos_tpu.fleet.client import FleetClient
-
-        c = FleetClient(self.gateway.addr, self.token, timeout=120.0)
+    def client(self, client_mod=None):
+        """A ``FleetClient`` on the gateway: this side's, or the one of
+        ``client_mod`` (the other package's ``fleet.client``)."""
+        mod = client_mod if client_mod is not None else self._client_mod
+        c = mod.FleetClient(self.gateway.addr, self.token, timeout=120.0)
         self._clients.append(c)
         return c
 

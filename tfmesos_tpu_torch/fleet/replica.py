@@ -8,11 +8,13 @@ It builds the model, runs the batcher's incremental serve loop on a
 thread of its own, accepts multiplexed ``generate`` requests over the
 authenticated wire (``wire.py``, byte-compatible with the JAX
 package's) and sends each completion back on the connection it came
-from as soon as the batcher finishes it.  The same messages, replies
-and heartbeats as the JAX replica: a port replica registers with the
-JAX registry and serves behind the JAX router and gateway, and KV
-artifacts move between the two (drain migration, disaggregated
-prefill/decode) in either direction.
+from as soon as the batcher finishes it.  The port's ``FleetServer``
+(:mod:`~tfmesos_tpu_torch.fleet.launcher`) launches it as a Mode-B task
+and its registry, router and gateway front it.  It speaks the same
+messages, replies and heartbeats as the JAX replica, so it also serves
+behind the JAX registry, router and gateway, a JAX replica serves
+behind the port's, and KV artifacts move between the two frameworks
+(drain migration, disaggregated prefill/decode) in either direction.
 
 The cluster token comes from ``TPUMESOS_TOKEN_FILE`` /
 ``TPUMESOS_TOKEN`` (:func:`~tfmesos_tpu_torch.wire.load_token`).  A
@@ -30,7 +32,10 @@ Weights are the port preset's (``models/presets.py``) drawn from
 ``--role kv``, ``--kv-tier-mb`` / ``--kv-tier-dir`` and
 ``--kv-replication`` above 1 (the KV tier), ``--draft`` (speculative
 decoding), ``--warm-pool`` (weight swaps) and a gang launch env.  The
-``swap_adapter`` and ``adopt`` ops answer ``bad_request``.
+``swap_adapter`` and ``adopt`` ops answer ``bad_request``.  One op is
+the port's own: ``stats`` answers the replica's pid, device, the device
+memory it holds, its kernels' launch counts and the batcher's dispatch
+counters.
 
 :class:`ReplicaServer` serves whatever ``handler(msg, reply)`` it is
 given; only :func:`batcher_handler`, :func:`prefill_handler` and the
@@ -66,6 +71,9 @@ _LOG = "tfmesos_tpu_torch.fleet.replica"
 GANG_ENV_ID = "TPUMESOS_GANG_ID"
 #: The registry's model-id charset (``tfmesos_tpu/fleet/registry.py``).
 MODEL_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
+#: The batcher's dispatch counters the ``stats`` op reports.
+STATS_COUNTERS = ("prefills", "tail_prefills", "prefill_chunks",
+                  "decode_ticks", "fused_ticks")
 
 
 class ReplicaRefused(ValueError):
@@ -129,7 +137,9 @@ class ReplicaServer:
                  registry_addr: Optional[str] = None,
                  heartbeat_interval: float = 0.3,
                  extra_info: Optional[Callable[[], Dict[str, Any]]] = None,
-                 status: Optional[str] = None):
+                 status: Optional[str] = None,
+                 stats: Optional[Callable[[Dict[str, Any]],
+                                          Dict[str, Any]]] = None):
         self.handler = handler
         self.token = token
         self.capacity = int(capacity)
@@ -143,6 +153,9 @@ class ReplicaServer:
         # Lifecycle status on the hello and every beat ("warming" while
         # the batcher captures its shapes; None = routable).
         self._status = status
+        # The ``stats`` op's answer (None: the op is unknown, as on the
+        # JAX replica).
+        self.stats = stats
         self.log = get_logger(_LOG)
         self.addr: Optional[str] = None
         self._listen: Optional[socket.socket] = None
@@ -261,6 +274,10 @@ class ReplicaServer:
         mid = head.get("id")
         if op == "ping":
             self._send(conn, send_lock, {"op": "pong", "id": mid})
+            return
+        if op == "stats" and self.stats is not None:
+            self._send(conn, send_lock,
+                       {"op": "stats", "id": mid, **self.stats(head)})
             return
         if op not in ("generate", "prefill", "migrate", "adopt",
                       "swap_adapter", "kv_put", "kv_fetch", "kv_stage",
@@ -997,11 +1014,31 @@ def start_replica(args, token: Optional[str] = None, params=None,
             beat["prefix_cache"] = batcher.prefix_cache_summary()
         return beat
 
+    def stats(msg: Dict[str, Any]) -> Dict[str, Any]:
+        """Where this replica runs, the device memory it holds, its
+        kernels' launch counts (zeroed first when ``reset_launches`` is
+        set) and the batcher's dispatch counters: how a launcher in
+        another process sees that the replica is on the card and which
+        kernels its requests ran."""
+        import torch
+
+        from tfmesos_tpu_torch import graphs
+
+        if msg.get("reset_launches"):
+            graphs.zero_launches()
+        dev = batcher.device
+        return {"pid": os.getpid(), "device": str(dev),
+                "memory_allocated": (torch.cuda.memory_allocated(dev)
+                                     if dev.type == "cuda" else 0),
+                "launches": graphs.launch_counts(),
+                "multi_step": batcher.multi_step,
+                "counters": {k: getattr(batcher, k) for k in STATS_COUNTERS}}
+
     server = ReplicaServer(
         handler, token=token, capacity=args.rows, host=args.host,
         port=args.port, registry_addr=args.registry,
         heartbeat_interval=args.heartbeat_interval, extra_info=extra,
-        status="warming" if args.warmup else None)
+        status="warming" if args.warmup else None, stats=stats)
     srv_cell.append(server)
     server.start()
     if args.warmup:

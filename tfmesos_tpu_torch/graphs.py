@@ -51,6 +51,13 @@ def launch_counts() -> Dict[str, int]:
     return {**attention.LAUNCHES, **quant.LAUNCHES}
 
 
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for counters in (attention.LAUNCHES, quant.LAUNCHES):
+        for name in counters:
+            counters[name] = 0
+
+
 def add_launches(delta: Dict[str, int], sign: int = 1) -> None:
     """Add ``sign`` x ``delta`` to the wrappers' counters."""
     for name, n in delta.items():
