@@ -44,10 +44,12 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
    timed beside SDPA over the gathered view with the chunk's causal
    mask), then a chunk whose pad positions run past the row's last
    allocated column onto the sink, and each prefix-cache tail phase 14
-   dispatches (1 bf16 row at pos 512, t = 64, 128 and 192, timed), and
-   the fused tick's chunk slots (S = 4 and 8 rows of t = 64 at pos 0 /
-   448 / 896 mixed across rows over 16-column tables, bf16 and int8 with
-   ``round_self``, timed): every paged case with the S its launch
+   dispatches (1 bf16 row at pos 512, t = 64, 128 and 192, timed), the
+   session tails phase 19 dispatches (1 bf16 row at an unaligned start,
+   its chunk straddling a page: t = 64 at pos 541 and 831, t = 128 at
+   pos 700, timed), and the fused tick's chunk slots (S = 4 and 8 rows
+   of t = 64 at pos 0 / 448 / 896 mixed across rows over 16-column
+   tables, bf16 and int8 with ``round_self``, timed): every paged case with the S its launch
    reports (equal to the wrapper's plan), within 2e-2 bf16 / 1e-4
    float32 of the plain version and per row within 1e-2 / 1e-5 of
    ``_paged_split_reference`` at that S, two launches bit-identical, and
@@ -259,7 +261,40 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     is stopped before the next starts.  The replicas are processes of
     their own: (a), (b) and (c) set their launch counts to 0 through
     the ``stats`` op just before the run and read them just after, each
-    replica's held to its batcher's prefill and decode counters.
+    replica's held to its batcher's prefill and decode counters;
+19. the KV tier and sessions on the flagship (rows 8, page 64, bucket
+    64, warmed): 8 conversations (seed 19) of 4 turns, turn 0 a prompt
+    of 200..400 tokens, each later turn the history plus 40..120 new
+    tokens, 32 new tokens a turn; (a) in process, a batcher with a
+    ``KVTierStore`` (512 MB of RAM) and ``prefix_cache_pages=64``
+    against one without, turn by turn on the same prompts: 32 parks and
+    24 resumes, no flash_fwd on a resumed turn (8 paged launches a tail
+    and a tick, exact counts a run), no graph captured after warmup,
+    every reply identical to the cold batcher's or first differing at a
+    near-tie by the margin rule (counted); prints TTFT resumed against
+    cold, a park's ms and MB, an install's ms (in the run; and synced,
+    beside the export gather) and ms a tick with parks against without;
+    (b) phase 14's shared-prompt traffic with a prefix cache of one
+    system prompt (8 pages) and a tier: system prompt A, then B (A's
+    pages spill), then A again (promoted back): spills and promotions
+    counted, every stream equal to a 64-page cache's that keeps both;
+    (c) ``FleetServer(replicas=2, kv_tier_mb=24)``, RAM for about two
+    parks over the disk directory the fleet shares between them: (a)'s
+    prompts through ``FleetClient.generate(session=...)``, 4 threads at
+    a time; session affinity on at least 18 of the 24 later turns, each
+    replica's resumes read through its ``stats`` op (every later turn
+    whose history matches resumes); before the last turn the replica
+    holding more sessions is stopped, and the other resumes exactly
+    those of its sessions whose directory entry extends into the new
+    prompt, with no fabric fetch; replies by the margin rule against
+    (a)'s; the directory is gone after ``stop()``; (d)
+    ``FleetServer(replicas=2, kv_tier_mb=512, kv_replicas=1,
+    kv_replication=2)``: turn 0's parks replicate to the ``--role kv``
+    holder, whose ``stats`` shows no torch, no CUDA context and no card
+    memory and lists every session; the replica holding more sessions is
+    stopped and turn 1 resumes them on the other by ``kv_fetch`` from
+    the holder; replies by the margin rule; no process left after
+    ``stop()``.
 
 It prints each phase's seconds.
 
@@ -344,6 +379,10 @@ TAIL_POS, TAIL_TS = 512, (64, 128, 192)
 # Phase 3's fused chunk-slot counts (phase 16's fused ticks pad their
 # slots to 1, 2, 4 or 8 rows).
 FUSED_SLOTS = (4, 8)
+# Phase 3's session tails (phase 19: a resumed turn's tail starts at
+# the parked history's last position, almost never on a page boundary,
+# so the self chunk straddles a page): (t, pos).
+SESSION_TAILS = ((64, 541), (64, 831), (128, 700))
 
 
 def need(cond: bool, msg: str) -> None:
@@ -517,7 +556,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/18] device")
+    say("[1/19] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -531,7 +570,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/18] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/19] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -710,7 +749,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/18] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/19] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -861,7 +900,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/18] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/19] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1004,7 +1043,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/18] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/19] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1181,7 +1220,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/18] teacher-forced check vs float32 CPU forward "
+    say(f"[6/19] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1232,7 +1271,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/18] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/19] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1242,7 +1281,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/18] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/19] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1312,7 +1351,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/18] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/19] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1545,6 +1584,16 @@ def phase_decode_kernels(torch):
         paged_rows.append(paged_case(
             torch, tgen, f"tail t={t} pos {TAIL_POS}", 1, t, 8, 8, 64, w,
             64, [TAIL_POS], bf16, time_it=True))
+
+    # From a generator of its own: phase 19's session tails (one bf16
+    # row at an unaligned start, its chunk straddling a page; the tier
+    # bypasses int8 pools), at the table width the batcher gives each.
+    sgen = torch.Generator().manual_seed(22)
+    for t, pos in SESSION_TAILS:
+        w = ContinuousBatcher.chunk_width(pos, t, 64, 16)
+        paged_rows.append(paged_case(
+            torch, sgen, f"session tail t={t} pos {pos}", 1, t, 8, 8, 64,
+            w, 64, [pos], bf16, time_it=True))
 
     # From a generator of its own: the fused tick's chunk slots (phase
     # 16): S rows of t = 64 at positions 0 / 448 / 896 mixed across rows
@@ -2013,7 +2062,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/18] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/19] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2078,7 +2127,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/18] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/19] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2164,7 +2213,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/18] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/19] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2261,7 +2310,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/18] sampled serving and generation: phase 5's traffic at "
+    say("[13/19] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2575,7 +2624,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/18] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/19] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2654,7 +2703,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/18] export/import, preemption and rolling caches: flagship")
+    say("[15/19] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -2900,7 +2949,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/18] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/19] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3156,7 +3205,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/18] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/19] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3795,7 +3844,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/18] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/19] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4079,6 +4128,645 @@ def front_cli(reqs, ref, next_logits):
     return out
 
 
+# Phase 19's traffic: 8 conversations (seed 19) of 4 turns, as a chat
+# client sends them: turn 0 a prompt of 200..400 tokens, each later turn
+# the whole history (prompts and replies) plus 40..120 new tokens, 32
+# new tokens a turn, greedy.
+SESSIONS, SESSION_TURNS, SESSION_NEW = 8, 4, 32
+SESSION_SHAPE = dict(rows=8, page_size=64, prefill_bucket=64)
+SESSION_TIER_BYTES = int(512e6)
+
+
+def session_traffic(np, cfg):
+    """(turn 0's prompts, each conversation's new tokens of turns 1..3),
+    token lists."""
+    rng = np.random.RandomState(19)
+    firsts = [rng.randint(0, cfg.vocab_size, n).tolist()
+              for n in rng.randint(200, 401, size=SESSIONS)]
+    news = [[rng.randint(0, cfg.vocab_size, n).tolist()
+             for n in rng.randint(40, 121, size=SESSION_TURNS - 1)]
+            for _ in range(SESSIONS)]
+    return firsts, news
+
+
+def add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def session_logits(torch, cfg, params, prompts):
+    """``next_logits((i, t), prefix)``: the float32 CPU logits after
+    conversation i's turn-t prompt and ``prefix``."""
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def next_logits(key, prefix):
+        i, t = key
+        with torch.no_grad():
+            return forward(cpu_cfg, params, torch.tensor(
+                [prompts[t][i] + prefix]))[0, -1]
+
+    return next_logits
+
+
+def sync_ms(torch, fn, reps=5):
+    """Median wall ms of ``fn`` between two device syncs."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sessions(torch, np):
+    """Phase 19: the KV tier and sessions.  (a) in process, a batcher with
+    a tier against one without, over the same full-history prompts; (b)
+    prefix pages spilled and promoted; (c) the front door over two
+    replica processes with a tier each and a shared directory, the
+    busier one stopped before the last turn and its sessions resumed
+    from the directory; (d) the fabric: a ``--role
+    kv`` holder keeps the replicated parks, the parking replica is
+    stopped and the other resumes from the holder."""
+    from tfmesos_tpu_torch.fleet.launcher import FleetServer
+    from tfmesos_tpu_torch.models.presets import flagship_model
+
+    say("[19/19] the KV tier and sessions: flagship, rows 8, page 64, "
+        "bucket 64, 8 conversations of 4 turns")
+    cfg, params = flagship_model(seed=0, max_len=1024)
+    card = _cuda(params)
+    out = {}
+    out["a"], prompts, replies = sessions_in_process(torch, np, cfg,
+                                                     params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = sessions_spill(torch, np, cfg, card)
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    next_logits = session_logits(torch, cfg, params, prompts)
+    out["c"] = sessions_front_door(cfg, FleetServer, prompts, replies,
+                                   next_logits)
+    out["d"] = sessions_fabric(cfg, FleetServer, prompts, replies,
+                               next_logits)
+    return out
+
+
+def sessions_in_process(torch, np, cfg, params, card):
+    """Phase 19 (a): the conversations on a warmed batcher with a tier
+    (``prefix_cache_pages=64``, 512 MB of RAM) and, turn by turn, the
+    same prompts on a warmed batcher without one.  Parks 32 and resumes
+    24; every resumed turn runs no flash_fwd and one tail call (exact
+    launch counts a run); no graph captured after warmup; the replies by
+    the margin rule against the cold ones.  Times the parks (host ms
+    and MB), the installs (host ms in the run; and with the device
+    synced, beside the export gather), TTFT and ms a tick."""
+    from tfmesos_tpu_torch import serving as ts
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
+
+    tier = KVTierStore(ram_bytes=SESSION_TIER_BYTES)
+    b = ts.ContinuousBatcher(cfg, card, prefix_cache_pages=64, kv_tier=tier,
+                             device="cuda", **SESSION_SHAPE)
+    cold = ts.ContinuousBatcher(cfg, card, device="cuda", **SESSION_SHAPE)
+    need(b.kv_tier_bypass_reason is None, f"19 (a): the tier bypassed: "
+         f"{b.kv_tier_bypass_reason}")
+    warmed = {}
+    for name, x in (("tier", b), ("cold", cold)):
+        info = x.warmup()
+        warmed[name] = (x._graphs.keys(), info)
+        list(x.run([ts.Request(np.arange(1, 9), 2)]))   # handles, pools
+    park_ms, park_bytes, install_ms = [], [], []
+    park, store_park, install = b._park_session, tier.park, ts._install_pages
+
+    def timed_park(r, state):
+        t0 = time.perf_counter()
+        park(r, state)
+        park_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def sized_park(sid, meta, body):
+        park_bytes.append(len(body))
+        return store_park(sid, meta, body)
+
+    def timed_install(pool, payload, ids):
+        t0 = time.perf_counter()
+        install(pool, payload, ids)
+        install_ms.append(((time.perf_counter() - t0) * 1e3, ids.numel()))
+
+    b._park_session, tier.park, ts._install_pages = (timed_park, sized_park,
+                                                     timed_install)
+    runs = {"tier": [], "cold": []}
+    cold_replies = []
+
+    def serve_turn(t, prompts):
+        got = {}
+        for name, x in (("tier", b), ("cold", cold)):
+            reqs = [ts.Request(np.asarray(p), SESSION_NEW, session_id=(
+                f"conv-{i}" if name == "tier" else None))
+                for i, p in enumerate(prompts)]
+            label = f"19 (a) {name} turn {t}"
+            comps, launches, wall, shapes = counted_run(
+                torch, cfg, x, reqs, False, label)
+            by = {id(c.request): c for c in comps}
+            done = [by[id(r)] for r in reqs]
+            need(all(len(c.tokens) == SESSION_NEW for c in done),
+                 f"{label}: a request did not complete its tokens")
+            if name == "tier" and t:
+                need(x.prefills == 0 and x.tail_prefills == SESSIONS
+                     and launches["flash_fwd"] == 0,
+                     f"{label}: {x.prefills} prefills, {x.tail_prefills} "
+                     f"tails, launches {launches}")
+            runs[name].append({
+                "ttft_ms": [c.ttft_s * 1e3 for c in done],
+                "wall_s": wall, "ticks": x.decode_ticks,
+                "decode_s": x.decode_seconds, "prefills": x.prefills,
+                "tails": x.tail_prefills, "chunk_shapes": shapes,
+                "launches": launches})
+            got[name] = [list(c.tokens) for c in done]
+        cold_replies.append(got["cold"])
+        return got["tier"]
+
+    firsts, news = session_traffic(np, cfg)
+    prompts, replies = [firsts], []
+    try:
+        for t in range(SESSION_TURNS):
+            replies.append(serve_turn(t, prompts[t]))
+            if t + 1 < SESSION_TURNS:
+                prompts.append([p + r + news[i][t] for i, (p, r) in
+                                enumerate(zip(prompts[t], replies[t]))])
+    finally:
+        ts._install_pages = install
+        del b._park_session, tier.park
+    need(max(map(len, prompts[-1])) + SESSION_NEW <= 992,
+         f"19 (a): a history outgrew 992 positions")
+    for name, x in (("tier", b), ("cold", cold)):
+        no_new_graphs(x, warmed[name][0], f"19 (a) {name}")
+    st = tier.stats()
+    need(st["park"] == SESSIONS * SESSION_TURNS
+         and st["resume"] == SESSIONS * (SESSION_TURNS - 1),
+         f"19 (a): parks {st['park']}, resumes {st['resume']}")
+    key = [(i, t) for t in range(SESSION_TURNS) for i in range(SESSIONS)]
+    identical, gaps = divergence_gaps(
+        {k: cold_replies[k[1]][k[0]] for k in key},
+        {k: replies[k[1]][k[0]] for k in key},
+        session_logits(torch, cfg, params, prompts), "19 (a)")
+    # The install and the export gather alone, the device synced: the
+    # largest parked artifact written onto (and read from) the sink page.
+    art = ts.unpack_prefilled(*tier.get("session", max(
+        (f"conv-{i}" for i in range(SESSIONS)),
+        key=lambda s: len(prompts[-1][int(s[5:])]))))
+    n = art["k"].shape[1]
+    sink = torch.full((n,), b.t_side.sink, dtype=torch.long, device=b.device)
+    payload = [ts._as_tensor(art["k"]), ts._as_tensor(art["v"])]
+    alone = {"pages": n, "mb": sum(x.numel() * x.element_size()
+                                   for x in payload) / 1e6,
+             "install_ms": sync_ms(torch, lambda: ts._install_pages(
+                 b.pool, payload, sink)),
+             "gather_ms": sync_ms(torch, lambda: ts._gather_pages(
+                 b.pool, sink))}
+
+    def resumed(name, key):
+        return [x for r in runs[name][1:] for x in r[key]]
+
+    def per_tick(name, key):
+        rs = runs[name][1:]
+        return sum(r[key] for r in rs) / sum(r["ticks"] for r in rs) * 1e3
+
+    session_installs = [ms for ms, _ in install_ms]
+    stats = {
+        "conversations": SESSIONS, "turns": SESSION_TURNS,
+        "history_positions_max": max(map(len, prompts[-1])) + SESSION_NEW,
+        "tier": {k: st[k] for k in ("park", "resume", "spills", "promotions",
+                                    "hits", "misses", "evictions")},
+        "prefix_cache": b.prefix_cache_stats(),
+        "streams_identical": identical, "divergence_gaps": gaps,
+        "ttft_ms_resumed_mean": statistics.mean(resumed("tier", "ttft_ms")),
+        "ttft_ms_resumed_p50": statistics.median(resumed("tier", "ttft_ms")),
+        "ttft_ms_cold_mean": statistics.mean(resumed("cold", "ttft_ms")),
+        "ttft_ms_cold_p50": statistics.median(resumed("cold", "ttft_ms")),
+        "ttft_ms_turn0_mean": statistics.mean(runs["tier"][0]["ttft_ms"]),
+        "park_ms_mean": statistics.mean(park_ms),
+        "park_ms_max": max(park_ms),
+        "park_mb_mean": statistics.mean(park_bytes) / 1e6,
+        "park_mb_max": max(park_bytes) / 1e6,
+        "install_ms_in_run_mean": statistics.mean(session_installs),
+        "install_ms_in_run_max": max(session_installs),
+        "install_pages": [p for _, p in install_ms],
+        "synced_largest": alone,
+        "ms_per_tick_with_parks": per_tick("tier", "decode_s"),
+        "ms_per_tick_without": per_tick("cold", "decode_s"),
+        "wall_ms_per_tick_with_parks": per_tick("tier", "wall_s"),
+        "wall_ms_per_tick_without": per_tick("cold", "wall_s"),
+        "warmup_names": {k: len(v[1]["compiled"])
+                         for k, v in warmed.items()},
+        "warmup_s": {k: v[1]["seconds"] for k, v in warmed.items()},
+        "launches": {f"{name} turn {t}": r["launches"]
+                     for name, rs in runs.items()
+                     for t, r in enumerate(rs)}}
+    say("  (a) " + json.dumps(stats))
+    say(f"  (a) {identical} of {len(key)} replies identical to the cold "
+        f"batcher's, {len(gaps)} differ first at a near-tie; parks "
+        f"{st['park']}, resumes {st['resume']}, no flash_fwd on a resumed "
+        f"turn; TTFT resumed mean {stats['ttft_ms_resumed_mean']:.3f} p50 "
+        f"{stats['ttft_ms_resumed_p50']:.3f} ms against cold mean "
+        f"{stats['ttft_ms_cold_mean']:.3f} p50 "
+        f"{stats['ttft_ms_cold_p50']:.3f}; a park {stats['park_ms_mean']:.3f}"
+        f" ms of {stats['park_mb_mean']:.2f} MB (max "
+        f"{stats['park_ms_max']:.3f} ms, {stats['park_mb_max']:.2f} MB), an "
+        f"install {stats['install_ms_in_run_mean']:.3f} ms host (synced: "
+        f"{alone['install_ms']:.3f} ms for {n} pages, the export gather "
+        f"{alone['gather_ms']:.3f}); ms a tick "
+        f"{stats['ms_per_tick_with_parks']:.4f} with parks, "
+        f"{stats['ms_per_tick_without']:.4f} without (wall a tick "
+        f"{stats['wall_ms_per_tick_with_parks']:.4f} vs "
+        f"{stats['wall_ms_per_tick_without']:.4f})")
+    return stats, prompts, replies
+
+
+def sessions_spill(torch, np, cfg, card):
+    """Phase 19 (b): phase 14's shared-prompt traffic with a prefix cache
+    of 8 pages, the size of one system prompt, and a tier: its first 8
+    requests (system prompt A), 8 of another system prompt B (whose
+    pages evict A's: spills), then its last 8 (A's pages promoted back):
+    streams equal to a batcher whose 64-page cache keeps both, exact
+    launch counts."""
+    from tfmesos_tpu_torch import serving as ts
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
+
+    reqs14 = phase14_requests(np, cfg)
+    rng = np.random.RandomState(119)
+    sys_b = rng.randint(0, cfg.vocab_size, SYSTEM_LEN)
+    traffic = (("A", [r.prompt for r in reqs14[:8]]),
+               ("B", [np.concatenate([sys_b, rng.randint(
+                   0, cfg.vocab_size, r.prompt.size - SYSTEM_LEN)])
+                      for r in reqs14[8:]]),
+               ("A again", [r.prompt for r in reqs14[8:]]))
+    tier = KVTierStore(ram_bytes=SESSION_TIER_BYTES)
+    sides = {"tier": ts.ContinuousBatcher(cfg, card, prefix_cache_pages=8,
+                                          kv_tier=tier, device="cuda",
+                                          **SESSION_SHAPE),
+             "reference": ts.ContinuousBatcher(cfg, card,
+                                               prefix_cache_pages=64,
+                                               device="cuda",
+                                               **SESSION_SHAPE)}
+    warmed = {}
+    for name, x in sides.items():
+        x.warmup()
+        warmed[name] = x._graphs.keys()
+        list(x.run([ts.Request(np.arange(1, 9), 2)]))
+    runs = {}
+    for label, prompts in traffic:
+        got = {}
+        for name, x in sides.items():
+            comps, launches, wall, _ = counted_run(
+                torch, cfg, x, [ts.Request(p, 32) for p in prompts], False,
+                f"19 (b) {label} {name}")
+            got[name] = streams(comps)
+            ttft = [c.ttft_s * 1e3 for c in comps]
+            runs[f"{label} {name}"] = {
+                "ttft_ms_mean": statistics.mean(ttft),
+                "tails": x.tail_prefills, "prefills": x.prefills,
+                "launches": launches, "tier": dict(tier.stats())
+                if name == "tier" else None}
+        need(got["tier"] == got["reference"], f"19 (b) {label}: the tier "
+             f"batcher's streams differ from the reference's")
+    for name, x in sides.items():
+        no_new_graphs(x, warmed[name], f"19 (b) {name}")
+    st = tier.stats()
+    need(st["spills"] > 0 and st["promotions"] > 0,
+         f"19 (b): spills {st['spills']}, promotions {st['promotions']}")
+    stats = {"spills": st["spills"], "promotions": st["promotions"],
+             "prefix_cache": sides["tier"].prefix_cache_stats(),
+             "runs": runs,
+             "streams_identical": sum(len(p) for _, p in traffic)}
+    say("  (b) " + json.dumps(stats))
+    say(f"  (b) {st['spills']} pages spilled, {st['promotions']} promoted; "
+        f"{stats['streams_identical']} streams identical to the 64-page "
+        f"cache's; TTFT of A "
+        f"again {runs['A again tier']['ttft_ms_mean']:.3f} ms (promoted) "
+        f"against {runs['A again reference']['ttft_ms_mean']:.3f} "
+        f"(resident)")
+    return stats
+
+
+def fleet_turn(client, prompts, new, threads=4, only=None):
+    """One turn of the conversations (those numbered ``only``, else all)
+    through ``client``, ``threads`` at a time: the replies' token lists
+    (None for a conversation not in ``only``)."""
+    import threading
+
+    idx = list(range(len(prompts))) if only is None else list(only)
+    got, errors = [None] * len(prompts), []
+
+    def worker(k):
+        for i in idx[k::threads]:
+            try:
+                got[i] = client.generate(prompts[i], new,
+                                         session=f"conv-{i}")["tokens"]
+            except Exception as e:         # reported below
+                errors.append((i, repr(e)))
+
+    pool = [threading.Thread(target=worker, args=(k,))
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    need(not errors, f"session requests failed: {errors}")
+    return got
+
+
+def advertised(fleet):
+    """{replica addr: the parked sessions its last heartbeat listed}."""
+    return {r.addr: list((r.kv_tier or {}).get("sessions") or ())
+            for r in fleet.registry.members()
+            if isinstance(r.kv_tier, dict)}
+
+
+def wait_parked(fleet, sessions, what):
+    """Until every one of ``sessions`` rides some replica's heartbeat."""
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline:
+        held = {s for v in advertised(fleet).values() for s in v}
+        if set(sessions) <= held:
+            return
+        time.sleep(0.05)
+    need(False, f"{what}: parked sessions never advertised: "
+         f"{advertised(fleet)}")
+
+
+def expected_resumes(got, replies, turns):
+    """Resumed turns expected: a later turn resumes exactly when the
+    previous turn's reply equals phase 19 (a)'s (its prompt, (a)'s
+    history, then extends the parked one)."""
+    return sum(got[t - 1][i] == replies[t - 1][i]
+               for t in turns if t for i in range(SESSIONS))
+
+
+def stop_replica(fleet, addr, what):
+    """Kill the replica serving on ``addr`` and wait until the registry
+    no longer counts it alive."""
+    node = [r.node for r in fleet.registry.members() if r.addr == addr][0]
+    need(fleet.kill_replica(node), f"{what}: kill {node}")
+    deadline = time.monotonic() + 30.0
+    while addr in {r.addr for r in fleet.registry.alive()} \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    need(addr not in {r.addr for r in fleet.registry.alive()},
+         f"{what}: {addr} still alive after its kill")
+
+
+def tier_dir_of(pids):
+    """The ``--kv-tier-dir`` every replica process ``pids`` was given
+    (one directory, or the check fails)."""
+    dirs = set()
+    for pid in pids:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = [a.decode() for a in f.read().split(b"\0")]
+        need("--kv-tier-dir" in argv, f"replica {pid} has no disk tier: "
+             f"{argv}")
+        dirs.add(argv[argv.index("--kv-tier-dir") + 1])
+    need(len(dirs) == 1, f"replicas {pids} got the disk tiers {dirs}")
+    return dirs.pop()
+
+
+def disk_histories(tier_dir, token, sessions):
+    """{session: parked history} of the sessions with an entry in the
+    disk tier ``tier_dir``, read as a replica reads it (the HMAC under
+    ``token`` checked); a RAM-less store writes nothing back."""
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
+
+    store = KVTierStore(ram_bytes=0, disk_dir=tier_dir, disk_bytes=1,
+                        token=token)
+    out = {}
+    for sid in sessions:
+        got = store.resume(sid)
+        if got is not None:
+            out[sid] = [int(t) for t in got[0]["history"]]
+    return out
+
+
+def tier_delta(after, before, key):
+    return after["kv_tier"].get(key, 0) - before["kv_tier"].get(key, 0)
+
+
+def sessions_front_door(cfg, FleetServer, prompts, replies, next_logits):
+    """Phase 19 (c): ``FleetServer(replicas=2, kv_tier_mb=24)``: each
+    replica's RAM tier holds about two parks (8-12 MB each), so the rest
+    demote to the one disk directory the fleet makes for both, whose
+    budget (4x RAM) holds every conversation: no disk eviction races a
+    resume.  (a)'s prompts go through ``FleetClient.generate(
+    session=...)``, 4 threads at a time.  Before the last turn the
+    replica holding more sessions is stopped: the other resumes its own
+    sessions, then the stopped one's from the shared directory (no
+    fabric copy exists: one is held to 0 fetches)."""
+    import os
+
+    t0 = time.perf_counter()
+    fleet = FleetServer(replicas=2, kv_tier_mb=24, **FRONT_DOOR).start()
+    try:
+        up_s = time.perf_counter() - t0
+        pids = replica_pids([os.getpid()])
+        need(len(pids) == 2, f"19 (c): replica processes {pids}")
+        tier_dir = tier_dir_of(pids)
+        addrs = sorted(r.addr for r in fleet.registry.alive())
+        fleet_requests(fleet, [FleetReq(list(range(1, 9)), 2)] * 4, 5)
+        before = fleet_counters(fleet)
+        zero = replica_stats(addrs, fleet.token, reset=True)
+        client = fleet.client(timeout=300.0)
+        last = SESSION_TURNS - 1
+        sessions = [f"conv-{i}" for i in range(SESSIONS)]
+        try:
+            got = []
+            for t in range(last):
+                got.append(fleet_turn(client, prompts[t], SESSION_NEW))
+                wait_parked(fleet, sessions, f"19 (c) turn {t}")
+            mid = settled_stats(addrs, fleet.token)
+            launches = replica_launches(cfg, zero, mid, "19 (c) turns 0-2")
+            held = advertised(fleet)
+            victim = max(addrs, key=lambda a: len(held.get(a, ())))
+            survivor = [a for a in addrs if a != victim][0]
+            mine = set(held.get(survivor, ()))
+            theirs = [i for i in range(SESSIONS)
+                      if sessions[i] not in mine]
+            own = [i for i in range(SESSIONS) if i not in theirs]
+            on_disk = disk_histories(tier_dir, fleet.token,
+                                     [sessions[i] for i in theirs])
+            stop_replica(fleet, victim, "19 (c)")
+            zero2 = replica_stats([survivor], fleet.token, reset=True)
+            turn = fleet_turn(client, prompts[last], SESSION_NEW, only=own)
+            part = settled_stats([survivor], fleet.token)
+            moved = fleet_turn(client, prompts[last], SESSION_NEW,
+                               threads=max(1, len(theirs)), only=theirs)
+            end = settled_stats([survivor], fleet.token)
+            add_counts(launches, replica_launches(
+                cfg, zero2, end, "19 (c) the last turn"))
+            got.append([moved[i] if i in theirs else turn[i]
+                        for i in range(SESSIONS)])
+        finally:
+            client.close()
+        counters = fleet_counters(fleet)
+    finally:
+        fleet.stop()
+    need(not pids_alive(pids), f"19 (c): replica processes "
+         f"{pids_alive(pids)} outlived FleetServer.stop()")
+    need(not os.path.exists(tier_dir), f"19 (c): the fleet's disk tier "
+         f"{tier_dir} outlived FleetServer.stop()")
+    later = SESSIONS * (SESSION_TURNS - 1)
+    hits = delta(counters, before, "session_affinity_hits")
+    need(hits >= 18, f"19 (c): session affinity hit {hits} of {later} "
+         f"later turns")
+    early = sum(tier_delta(mid[a], zero[a], "resume") for a in addrs)
+    want = expected_resumes(got, replies, range(last))
+    need(early == want, f"19 (c): turns 0-2 resumed {early}, {want} "
+         f"expected")
+    # The survivor's own sessions resume from its RAM or the directory;
+    # one both replicas list may have either copy.
+    both = [i for i in own if sessions[i] in held.get(victim, ())]
+    lo = sum(got[last - 1][i] == replies[last - 1][i]
+             for i in own if i not in both)
+    own_resumes = tier_delta(part[survivor], zero2[survivor], "resume")
+    need(lo <= own_resumes <= lo + len(both), f"19 (c): the survivor "
+         f"resumed {own_resumes} of its own, {lo}..{lo + len(both)} "
+         f"expected")
+    # The stopped replica's: exactly those whose directory entry extends
+    # into the new prompt, none through the fabric.
+    from_disk = sum(
+        sessions[i] in on_disk
+        and prompts[last][i][:len(on_disk[sessions[i]])]
+        == on_disk[sessions[i]] for i in theirs)
+    moved_resumes = tier_delta(end[survivor], part[survivor], "resume")
+    fetched = tier_delta(end[survivor], zero2[survivor], "fabric_fetch_hit")
+    need(mid[victim]["kv_tier"]["disk_entries"] > 0 and from_disk > 0,
+         f"19 (c): the stopped replica left {len(on_disk)} sessions in "
+         f"the directory ({mid[victim]['kv_tier']})")
+    need(moved_resumes == from_disk and fetched == 0, f"19 (c): the "
+         f"survivor resumed {moved_resumes} of the stopped replica's "
+         f"{len(theirs)} sessions ({from_disk} resumable from the "
+         f"directory) and fetched {fetched} through the fabric")
+    key = [(i, t) for t in range(SESSION_TURNS) for i in range(SESSIONS)]
+    identical, gaps = divergence_gaps(
+        {k: replies[k[1]][k[0]] for k in key},
+        {k: got[k[1]][k[0]] for k in key}, next_logits, "19 (c)")
+    tiers = {a: mid[a]["kv_tier"] for a in addrs}
+    stats = {"fleet_up_s": up_s, "affinity_hits": hits, "later_turns": later,
+             "affinity_misses": delta(counters, before,
+                                      "session_affinity_misses"),
+             "sessions_held_before_stop": {a: len(v)
+                                           for a, v in held.items()},
+             "resumes_turns_0_2": {a: tier_delta(mid[a], zero[a], "resume")
+                                   for a in addrs},
+             "demotions_turns_0_2": {a: tier_delta(mid[a], zero[a],
+                                                   "demotions")
+                                     for a in addrs},
+             "disk_entries_before_stop": {a: s["disk_entries"]
+                                          for a, s in tiers.items()},
+             "ram_entries_before_stop": {a: s["ram_entries"]
+                                         for a, s in tiers.items()},
+             "stopped_sessions": len(theirs),
+             "stopped_sessions_on_disk": len(on_disk),
+             "survivor_own_resumes": own_resumes,
+             "survivor_disk_resumes": moved_resumes,
+             "survivor_fabric_fetch_hits": fetched,
+             "streams_identical": identical, "divergence_gaps": gaps,
+             "launches": launches}
+    say("  (c) " + json.dumps(stats))
+    say(f"  (c) fleet up in {up_s:.1f} s; session affinity {hits} of "
+        f"{later} later turns; turns 0-2 resumed {early}; the stopped "
+        f"replica held {len(theirs)} sessions, {len(on_disk)} in the "
+        f"shared directory; the survivor resumed {moved_resumes} of them "
+        f"from it and {own_resumes} of its own {len(own)}, 0 through the "
+        f"fabric; {identical} of {len(key)} replies identical to (a)'s, "
+        f"{len(gaps)} differ first at a near-tie")
+    return stats
+
+
+def sessions_fabric(cfg, FleetServer, prompts, replies, next_logits):
+    """Phase 19 (d): ``FleetServer(replicas=2, kv_tier_mb=512,
+    kv_replicas=1, kv_replication=2)``: turn 0 parks replicate to the
+    ``--role kv`` holder, which holds no card memory and lists them; the
+    replica holding more sessions is stopped and turn 1 resumes them on
+    the other by ``kv_fetch`` from the holder."""
+    import os
+
+    t0 = time.perf_counter()
+    fleet = FleetServer(replicas=2, kv_tier_mb=512, kv_replicas=1,
+                        kv_replication=2, **FRONT_DOOR).start()
+    try:
+        up_s = time.perf_counter() - t0
+        pids = replica_pids([os.getpid()])
+        need(len(pids) == 3, f"19 (d): replica processes {pids}")
+        members = fleet.registry.members()
+        holder = [r.addr for r in members if r.role == "kv"]
+        servers = sorted(r.addr for r in members if r.role != "kv")
+        need(len(holder) == 1 and len(servers) == 2,
+             f"19 (d): holder {holder}, servers {servers}")
+        fleet_requests(fleet, [FleetReq(list(range(1, 9)), 2)] * 4, 5)
+        zero = replica_stats(servers, fleet.token, reset=True)
+        client = fleet.client(timeout=300.0)
+        try:
+            got = [fleet_turn(client, prompts[0], SESSION_NEW)]
+            sessions = [f"conv-{i}" for i in range(SESSIONS)]
+            wait_parked(fleet, sessions, "19 (d) turn 0")
+            first = settled_stats(servers, fleet.token)
+            launches = replica_launches(cfg, zero, first, "19 (d) turn 0")
+            kept = replica_stats(holder, fleet.token)[holder[0]]
+            held = advertised(fleet)
+            victim = max(servers, key=lambda a: len(held.get(a, ())))
+            survivor = [a for a in servers if a != victim][0]
+            stop_replica(fleet, victim, "19 (d)")
+            zero = replica_stats([survivor], fleet.token, reset=True)
+            got.append(fleet_turn(client, prompts[1], SESSION_NEW))
+            last = settled_stats([survivor], fleet.token)
+            add_counts(launches, replica_launches(cfg, zero, last,
+                                                  "19 (d) turn 1"))
+        finally:
+            client.close()
+    finally:
+        fleet.stop()
+    need(not pids_alive(pids), f"19 (d): processes {pids_alive(pids)} "
+         f"outlived FleetServer.stop()")
+    need(kept["torch_imported"] is False and kept["cuda_initialized"]
+         is False and kept["memory_allocated"] == 0,
+         f"19 (d): the holder {kept}")
+    need(set(sessions) <= set(kept["summary"]["sessions"]),
+         f"19 (d): the holder lists {kept['summary']['sessions']}")
+    moved = len(held.get(victim, ()))
+    tier = last[survivor]["kv_tier"]
+    want = expected_resumes(got, replies, (0, 1))
+    need(tier["resume"] == want and tier["fabric_fetch_hit"] >= min(
+        moved, want), f"19 (d): the survivor resumed {tier['resume']} "
+         f"({want} expected), fetched {tier.get('fabric_fetch_hit')} of "
+         f"the victim's {moved}")
+    key = [(i, t) for t in range(2) for i in range(SESSIONS)]
+    identical, gaps = divergence_gaps(
+        {k: replies[k[1]][k[0]] for k in key},
+        {k: got[k[1]][k[0]] for k in key}, next_logits, "19 (d)")
+    stats = {"fleet_up_s": up_s, "holder": {
+        k: kept[k] for k in ("torch_imported", "cuda_initialized",
+                             "memory_allocated", "device")},
+        "holder_sessions": len(kept["summary"]["sessions"]),
+        "holder_fabric_store": kept["kv_tier"].get("fabric_store", 0),
+        "victim_sessions": moved, "survivor_resumes": tier["resume"],
+        "survivor_fabric_fetch_hits": tier.get("fabric_fetch_hit", 0),
+        "replicated": {a: s["kv_tier"].get("park_replicated", 0)
+                       for a, s in first.items()},
+        "streams_identical": identical, "divergence_gaps": gaps,
+        "launches": launches}
+    say("  (d) " + json.dumps(stats))
+    say(f"  (d) fleet of two and a holder up in {up_s:.1f} s; the holder "
+        f"(no torch, no CUDA context, 0 bytes on the card) kept "
+        f"{stats['holder_sessions']} sessions; the stopped replica held "
+        f"{moved}, the survivor resumed {tier['resume']} of 8, "
+        f"{stats['survivor_fabric_fetch_hits']} fetched from the holder; "
+        f"{identical} of {len(key)} replies identical to (a)'s, "
+        f"{len(gaps)} differ first at a near-tie; no process left")
+    return stats
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -4147,6 +4835,7 @@ def main() -> int:
                     streams(comps), stats)
     front = timed("front door", phase_front_door, torch, np, cfg, params,
                   reqs, streams(comps))
+    sessions = timed("sessions", phase_sessions, torch, np)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -4173,7 +4862,14 @@ def main() -> int:
              "replica decode import (wire)": replica["c"]["launches"],
              "front door unified (processes)": front["a"]["launches"],
              "front door migrate (processes)": front["b"]["launches"],
-             "front door disaggregated (processes)": front["c"]["launches"]}
+             "front door disaggregated (processes)": front["c"]["launches"],
+             **{f"sessions (a) {label}": counts for label, counts
+                in sessions["a"]["launches"].items()},
+             **{f"sessions (b) {label}": row["launches"]
+                for label, row in sessions["b"]["runs"].items()},
+             "sessions (c) front door (processes)":
+                 sessions["c"]["launches"],
+             "sessions (d) fabric (processes)": sessions["d"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

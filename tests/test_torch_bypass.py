@@ -5,8 +5,8 @@ port accepts (the schedule modes ``pipeline_depth``, ``overlap``,
 same reasons, on the registry and on a live batcher alike; every reason
 within ``BYPASS_ALLOWLIST`` (the same allowlist, key for key); a mode
 the port does not have yet (speculation, a mesh, a static prefix, the
-KV tier, the draft arguments) raises ``NotImplementedError``, never
-silently ignored."""
+draft arguments) raises ``NotImplementedError``, never silently
+ignored."""
 
 import itertools
 
@@ -91,7 +91,7 @@ def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(prefix=np.arange(4)), dict(kv_tier=object()),
+    dict(mesh=object()), dict(prefix=np.arange(4)),
     dict(draft_cfg=object(), draft_params={}), dict(draft_n_pages=8)],
     ids=lambda kw: next(iter(kw)))
 def test_batcher_refuses_unported_modes(kw):

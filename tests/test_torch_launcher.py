@@ -221,8 +221,7 @@ def test_no_card_no_fallback(capfd):
 
 @pytest.mark.parametrize("option,value", [
     ("autoscale", True), ("models", ["chat"]), ("warm_pool", 1),
-    ("gang_size", 2), ("kv_tier_mb", 8.0), ("kv_replicas", 1),
-    ("draft", True), ("gateway_processes", 2), ("http_port", 0),
+    ("gang_size", 2), ("draft", True), ("gateway_processes", 2), ("http_port", 0),
     ("batch_lane", True), ("master", "zk://x")])
 def test_options_not_ported_are_refused_by_name(option, value):
     """Each waits with its ROADMAP item; its JAX default asks for

@@ -140,7 +140,8 @@ def test_front_door_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["True", "True", "True", "True",
-                                  "['decode',", "'prefill',", "'unified']"]
+                                  "['decode',", "'kv',", "'prefill',",
+                                  "'unified']"]
 
 
 def _imported_roots(path: Path):

@@ -314,10 +314,6 @@ def test_rid_seed_for_node_matches_jax(node):
 
 
 REFUSED = {
-    "role_kv": (["--role", "kv", "--kv-tier-mb", "4"], None),
-    "kv_tier_mb": (["--kv-tier-mb", "4"], None),
-    "kv_tier_dir": (["--kv-tier-dir", "/nonexistent"], None),
-    "kv_replication": (["--kv-replication", "2"], None),
     "draft": (["--draft"], None),
     "warm_pool": (["--warm-pool"], None),
     "gang": ([], {"TPUMESOS_GANG_ID": "g1", "TPUMESOS_GANG_SIZE": "2",

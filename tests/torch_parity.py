@@ -100,9 +100,10 @@ def replica_environ(generation: int = 0, job: str = "", index: str = ""
 def jax_replica(argv, token: str, environ=None):
     """A JAX replica in this process, assembled as
     ``tfmesos_tpu/fleet/replica.py:main`` assembles it (``:1366-1629``:
-    build, handler, heartbeat fields, register, warm up, serve) without
-    the gang, the KV tier, adoption and the signal wait.  Returns
-    (server, serving or None, batcher)."""
+    build, the KV fabric behind ``--registry`` when ``--kv-tier-mb`` /
+    ``--kv-tier-dir`` give a tier, handler, heartbeat fields, register,
+    warm up, serve) without the gang, adoption and the signal wait.
+    Returns (server, serving or None, batcher)."""
     from tfmesos_tpu.fleet import replica as jr
 
     args = jr.build_parser().parse_args(argv)
@@ -112,6 +113,17 @@ def jax_replica(argv, token: str, environ=None):
     idx = environ.get("TPUMESOS_TASK_INDEX", "")
     node = f"{job}:{idx}" if job and idx != "" else ""
     batcher = jr.build_batcher(args, token, generation, node=node)
+    tiered = (batcher.kv_tier is not None
+              and batcher.kv_tier_bypass_reason is None)
+    fabric = None
+    if args.registry and tiered:        # fleet/replica.py:1423-1438
+        from tfmesos_tpu.fleet.kvtier import KVFabric
+
+        fabric = KVFabric(batcher.kv_tier, token=token,
+                          registry_addr=args.registry,
+                          replication=args.kv_replication,
+                          placement=args.kv_placement)
+        batcher.kv_tier = fabric
     model_state = {"model_id": args.model_id or "", "warm_pool": False,
                    "pool_capable": False}
     cell = []
@@ -129,6 +141,8 @@ def jax_replica(argv, token: str, environ=None):
                                      weights_version=args.weights_version,
                                      model_state=model_state, token=token,
                                      self_addr=self_addr)
+    if fabric is not None:              # fleet/replica.py:1530-1533
+        handler = jr.fabric_handler(fabric, handler)
 
     def extra():        # fleet/replica.py:1535-1583, for these builds
         beat = {"role": args.role, "kv_headroom": batcher.kv_headroom(),
@@ -142,6 +156,8 @@ def jax_replica(argv, token: str, environ=None):
         beat["adapter_version"] = getattr(batcher, "adapter_version", "")
         if batcher.prefix_cache_active:
             beat["prefix_cache"] = batcher.prefix_cache_summary()
+        if tiered:
+            beat["kv_tier"] = batcher.kv_tier.summary()
         return beat
 
     server = jr.ReplicaServer(
@@ -151,6 +167,8 @@ def jax_replica(argv, token: str, environ=None):
         status="warming" if args.warmup else None)
     cell.append(server)
     server.start()
+    if fabric is not None:              # fleet/replica.py:1597-1598
+        fabric.self_addr = server.addr or ""
     if args.warmup:
         batcher.warmup(decode=args.role != "prefill",
                        prefill=args.role != "decode")

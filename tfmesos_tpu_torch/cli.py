@@ -45,11 +45,6 @@ NOT_PORTED_FLAGS = (
     ("--gang-size", "gang_size", 1, "A.9"),
     ("--gateway-processes", "gateway_processes", 0, "A.12"),
     ("--http-port", "http_port", None, "A.12"),
-    ("--kv-tier-mb", "kv_tier_mb", 0.0, "A.4 item 3"),
-    ("--kv-tier-dir", "kv_tier_dir", None, "A.4 item 3"),
-    ("--kv-replicas", "kv_replicas", 0, "A.4 item 3"),
-    ("--kv-replication", "kv_replication", 1, "A.4 item 3"),
-    ("--kv-placement", "kv_placement", "rendezvous", "A.4 item 3"),
     ("--draft", "draft", False, "A.8"),
     ("--n-draft", "n_draft", 4, "A.8"),
     ("--batch-lane", "batch_lane", False, "A.12"),
@@ -755,6 +750,10 @@ def _build_fleet(args, roles, classes, token):
         pipeline_depth=args.pipeline_depth,
         fused_prefill=args.fused_prefill,
         tokens_per_tick=args.tokens_per_tick,
+        kv_tier_mb=args.kv_tier_mb, kv_tier_dir=args.kv_tier_dir,
+        kv_replication=args.kv_replication,
+        kv_replicas=args.kv_replicas,
+        kv_placement=args.kv_placement,
         warmup=args.warmup,
         report_interval=args.metrics_interval or None,
         metrics_port=args.metrics_port,
@@ -770,15 +769,11 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] in NOT_PORTED_SUBCOMMANDS:
         return _refused(argv[0], NOT_PORTED_SUBCOMMANDS[argv[0]])
     args = build_serve_parser().parse_args(argv)
-    # The JAX fleet's own range checks of two refused flags come first,
-    # so a bad value reads as it does there.
+    # The JAX fleet's own range check of a refused flag comes first, so
+    # a bad value reads as it does there.
     if args.gang_size < 1:
         print(f"tfserve: gang_size must be >= 1, got {args.gang_size}",
               file=sys.stderr)
-        return 2
-    if not 1 <= args.kv_replication <= 8:
-        print(f"tfserve: kv_replication must be in [1, 8], got "
-              f"{args.kv_replication}", file=sys.stderr)
         return 2
     for flag, dest, default, item in NOT_PORTED_FLAGS:
         if getattr(args, dest) != default:

@@ -29,13 +29,15 @@ same module names): online multi-replica inference over port replicas.
 * :mod:`~tfmesos_tpu_torch.fleet.launcher` — ``FleetServer``: registry
   + gateway + replicas launched as Mode-B tasks through the port's
   scheduler and ``LocalBackend``.
-* :mod:`~tfmesos_tpu_torch.fleet.kvtier` — the direct KV push.
+* :mod:`~tfmesos_tpu_torch.fleet.kvtier` — the tiered KV store (bounded
+  host RAM over an HMAC-framed disk directory, byte-compatible with the
+  JAX store's), the cross-host KV fabric and the direct KV push.
 
 The wire is byte-compatible with the JAX package's, so a port replica
 serves behind the JAX registry and gateway and a JAX replica behind the
 port's.  Not ported yet: the autoscaler, the model catalog, gang
-replicas, the KV tier, gateway processes, the HTTP edge, the simulator
-(ROADMAP A.4, A.8, A.9, A.12).
+replicas, gateway processes, the HTTP edge, the simulator (ROADMAP A.4,
+A.8, A.9, A.12).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from tfmesos_tpu_torch.fleet.client import (CallTimeout, ConnectionLost,
 from tfmesos_tpu_torch.fleet.containment import (BreakerBoard, BreakerConfig,
                                                  RetryBudget)
 from tfmesos_tpu_torch.fleet.gateway import Gateway
+from tfmesos_tpu_torch.fleet.kvtier import KVTierFull, KVTierStore
 from tfmesos_tpu_torch.fleet.launcher import FleetServer
 from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
 from tfmesos_tpu_torch.fleet.registry import (DECODE, PREFILL, UNIFIED,
@@ -64,7 +67,8 @@ __all__ = [
     "BreakerBoard", "BreakerConfig", "RetryBudget",
     "CallTimeout", "ConnectionLost", "FleetClient", "MuxConnection",
     "ReaderDied", "RequestFailed",
-    "Gateway", "FleetServer", "FleetMetrics", "ReplicaInfo",
+    "Gateway", "FleetServer", "FleetMetrics", "KVTierFull",
+    "KVTierStore", "ReplicaInfo",
     "ReplicaRegistry", "Router", "RoutingError",
     "FlightRecorder", "TraceBook", "TraceContext", "format_waterfall",
     "new_trace_id",

@@ -18,11 +18,18 @@ a target count — ``launch_replica`` / ``kill_replica`` grow and shrink
 it one Mode-B task at a time.  Replica death is a serving event, not a
 cluster event: the router routes around a dead replica.
 
+The KV tier rides the replica command line: ``kv_tier_mb`` gives every
+replica a RAM tier and, unless ``kv_tier_dir`` names one, one disk
+directory the fleet creates and removes on stop, which its replicas
+share (a session parked by one resumes on another); ``kv_replication``
+and ``kv_placement`` set the fabric's copies, and ``kv_replicas``
+launches that many ``--role kv`` holders (capacity 0, never routed).
+
 Not ported yet, refused by name at construction (each with its ROADMAP
 item): the autoscaler, the model catalog with its warm pool and trader,
-gang replicas, the KV tier and its dedicated holders, speculative
-decoding, gateway processes, the HTTP edge, the offline lane and the
-Mesos master.  Blue-green rollouts (``rollout``) wait too.
+gang replicas, speculative decoding, gateway processes, the HTTP edge,
+the offline lane and the Mesos master.  Blue-green rollouts
+(``rollout``) wait too.
 """
 
 from __future__ import annotations
@@ -38,21 +45,39 @@ from tfmesos_tpu_torch.fleet.admission import AdmissionController, PriorityClass
 from tfmesos_tpu_torch.fleet.client import FleetClient
 from tfmesos_tpu_torch.fleet.gateway import Gateway
 from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
-from tfmesos_tpu_torch.fleet.registry import (ALIVE, DEAD, DECODE, PREFILL,
-                                              UNIFIED, ReplicaRegistry)
+from tfmesos_tpu_torch.fleet.registry import (ALIVE, DEAD, DECODE, KV,
+                                              PREFILL, UNIFIED,
+                                              ReplicaRegistry)
 from tfmesos_tpu_torch.fleet.router import Router
 from tfmesos_tpu_torch.fleet.tracing import TraceBook
 from tfmesos_tpu_torch.scheduler import (MAX_FAILURE_COUNT, ClusterError,
                                          TPUMesosScheduler)
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["FleetServer", "NotPorted", "TIER_JOBS"]
+__all__ = ["FleetServer", "NotPorted", "TIER_JOBS",
+           "validate_kv_tier_dir"]
 
 #: tier role -> the scheduler job name its Mode-B tasks launch under.
-TIER_JOBS = {UNIFIED: "replica", PREFILL: "prefill", DECODE: "decode"}
+TIER_JOBS = {UNIFIED: "replica", PREFILL: "prefill", DECODE: "decode",
+             KV: "kv"}
 
 #: weights_version labels join the replica command line (shell=True).
 _VERSION_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
+
+#: the KV tier's directory joins the same command line: a conservative
+#: path charset, no whitespace or shell metacharacters, no leading '-'.
+_KV_DIR_RE = re.compile(r"[A-Za-z0-9/._~][A-Za-z0-9/._~+-]{0,255}")
+
+
+def validate_kv_tier_dir(path: str) -> str:
+    path = str(path)
+    if not _KV_DIR_RE.fullmatch(path):
+        raise ValueError(
+            f"kv_tier_dir {path!r} is not a safe path: want 1-256 "
+            f"chars of [A-Za-z0-9/._~+-] not starting with '-' or '+' "
+            f"(it joins the replica command line, so the charset is a "
+            f"security boundary)")
+    return path
 
 #: the JAX FleetServer's options that wait: name -> (what, ROADMAP item,
 #: the value that asks for nothing).  Passing any other value refuses.
@@ -67,13 +92,6 @@ _NOT_PORTED = {
     "model_budget": ("model_budget, the catalog's budget", "A.12", None),
     "trader_config": ("trader_config, the model trader", "A.12", None),
     "gang_size": ("gang_size above 1, gang replicas", "A.9", 1),
-    "kv_tier_mb": ("kv_tier_mb, the KV tier", "A.4 item 3", 0.0),
-    "kv_tier_dir": ("kv_tier_dir, the KV tier", "A.4 item 3", None),
-    "kv_replication": ("kv_replication above 1, the KV fabric",
-                       "A.4 item 3", 1),
-    "kv_replicas": ("kv_replicas, dedicated KV holders", "A.4 item 3", 0),
-    "kv_placement": ("kv_placement, the KV fabric", "A.4 item 3",
-                     "rendezvous"),
     "draft": ("draft, speculative decoding", "A.8", False),
     "n_draft": ("n_draft, speculative decoding", "A.8", 4),
     "gateway_processes": ("gateway_processes, gateway processes",
@@ -110,6 +128,11 @@ class FleetServer:
                  fused_prefill: bool = False,
                  tokens_per_tick: Optional[int] = None,
                  warmup: bool = False,
+                 kv_tier_mb: float = 0.0,
+                 kv_tier_dir: Optional[str] = None,
+                 kv_replication: int = 1,
+                 kv_placement: str = "rendezvous",
+                 kv_replicas: int = 0,
                  prefill_replicas: int = 0,
                  decode_replicas: int = 0,
                  device: Optional[str] = None,
@@ -187,6 +210,32 @@ class FleetServer:
             raise ValueError(f"tokens_per_tick must be >= 1, got "
                              f"{tokens_per_tick}")
         self.warmup = bool(warmup)
+        # The KV tier and fabric (each value joins the replica command
+        # line, so each is validated: ints, a closed set, a path
+        # charset).  kv_tier_mb > 0 without a directory shares one the
+        # fleet creates at start and removes at stop.
+        if kv_tier_mb < 0:
+            raise ValueError(f"kv_tier_mb must be >= 0, got {kv_tier_mb}")
+        self.kv_tier_mb = float(kv_tier_mb)
+        self.kv_tier_dir = (validate_kv_tier_dir(kv_tier_dir)
+                            if kv_tier_dir is not None else None)
+        self._kv_tier_tmp: Optional[str] = None
+        self.kv_replication = int(kv_replication)
+        if not 1 <= self.kv_replication <= 8:
+            raise ValueError(
+                f"kv_replication must be in [1, 8], got {kv_replication}")
+        if kv_placement not in ("rendezvous", "loaded"):
+            raise ValueError(f"kv_placement must be 'rendezvous' or "
+                             f"'loaded', got {kv_placement!r}")
+        self.kv_placement = kv_placement
+        self.kv_replicas = int(kv_replicas)
+        if self.kv_replicas < 0:
+            raise ValueError(
+                f"kv_replicas must be >= 0, got {kv_replicas}")
+        if self.kv_replicas and self.kv_tier_mb <= 0:
+            raise ValueError(
+                "dedicated KV-role replicas hold tier artifacts — they "
+                "need kv_tier_mb > 0")
         self.backend = backend
         self.replica_cpus = float(replica_cpus)
         self.replica_mem = float(replica_mem)
@@ -279,6 +328,17 @@ class FleetServer:
             parts.append("--fused-prefill")
         if self.tokens_per_tick is not None:
             parts += ["--tokens-per-tick", str(self.tokens_per_tick)]
+        if self.kv_tier_mb > 0:
+            parts += ["--kv-tier-mb", str(self.kv_tier_mb)]
+            tier_dir = self.kv_tier_dir or self._kv_tier_tmp
+            if tier_dir:
+                parts += ["--kv-tier-dir", tier_dir]
+        elif self.kv_tier_dir:
+            parts += ["--kv-tier-dir", self.kv_tier_dir]
+        if self.kv_replication > 1:
+            parts += ["--kv-replication", str(self.kv_replication)]
+        if self.kv_placement != "rendezvous":
+            parts += ["--kv-placement", self.kv_placement]
         if self.warmup:
             # Every launch of this cmd — boot or a later relaunch —
             # registers warming, captures its graphs, then takes traffic.
@@ -293,6 +353,14 @@ class FleetServer:
     def start(self) -> "FleetServer":
         self.token = self._token or wire.new_token()
         self.metrics = FleetMetrics()
+        if self.kv_tier_mb > 0 and self.kv_tier_dir is None \
+                and self._kv_tier_tmp is None:
+            import tempfile
+
+            # One disk tier for every replica of this host: a parked
+            # session resumes on any same-version sibling.  mkdtemp is
+            # mode 0700 and entries are HMAC-framed with the token.
+            self._kv_tier_tmp = tempfile.mkdtemp(prefix="tfserve-kvtier-")
         try:
             # Liveness thresholds scale with the heartbeat cadence: a
             # slower (legal) interval must not make healthy replicas
@@ -348,6 +416,13 @@ class FleetServer:
                     self.set_target(role, n)
                     for _ in range(n):
                         self.launch_replica(role)
+            if self.kv_replicas:
+                # Dedicated KV holders converge like a tier (a crashed one
+                # relaunches at bring-up) but heartbeat capacity 0: the
+                # router never sends them tokens.
+                self.set_target(KV, self.kv_replicas)
+                for _ in range(self.kv_replicas):
+                    self.launch_replica(KV)
             self._wait_replicas()
         except Exception:
             self.stop()
@@ -356,11 +431,12 @@ class FleetServer:
         if self.report_interval:
             self.metrics.start_reporter(self.log, self.report_interval)
         self.log.info("fleet up: gateway%s %s, %d replica(s) "
-                      "(%d unified / %d prefill / %d decode)",
-                      "s" if self.n_gateways > 1 else "",
+                      "(%d unified / %d prefill / %d decode), %d KV "
+                      "holder(s)", "s" if self.n_gateways > 1 else "",
                       ", ".join(self.addrs),
                       self.total_replicas, self.replicas,
-                      self.prefill_replicas, self.decode_replicas)
+                      self.prefill_replicas, self.decode_replicas,
+                      self.kv_replicas)
         return self
 
     @property
@@ -555,6 +631,11 @@ class FleetServer:
         if self.registry is not None:
             self.registry.stop()
             self.registry = None
+        if self._kv_tier_tmp is not None:
+            import shutil
+
+            shutil.rmtree(self._kv_tier_tmp, ignore_errors=True)
+            self._kv_tier_tmp = None
 
     def __enter__(self) -> "FleetServer":
         return self.start()

@@ -1,5 +1,6 @@
 """A serving replica: one ``ContinuousBatcher`` behind a TCP server
-(port of ``tfmesos_tpu/fleet/replica.py:53-922, 1037-1112, 1220-1646``).
+(port of ``tfmesos_tpu/fleet/replica.py:53-960, 1037-1112, 1162-1217,
+1220-1646``).
 
     python -m tfmesos_tpu_torch.fleet.replica [--registry HOST:PORT] \\
         [--tiny] [--device cpu] [--rows 4] [--warmup] [--role ROLE] ...
@@ -28,14 +29,20 @@ graphs on the card), and only then drops the status.
 Runs on the card unless ``--device cpu``; a missing card is an error.
 Weights are the port preset's (``models/presets.py``) drawn from
 ``--seed``; :func:`build_batcher` takes other weights in process
-(``params=``).  Not ported yet, refused with exit code 2:
-``--role kv``, ``--kv-tier-mb`` / ``--kv-tier-dir`` and
-``--kv-replication`` above 1 (the KV tier), ``--draft`` (speculative
-decoding), ``--warm-pool`` (weight swaps) and a gang launch env.  The
+(``params=``).  ``--kv-tier-mb`` / ``--kv-tier-dir`` give the batcher a
+KV tier (``fleet/kvtier.py``: spilled prefix pages and parked
+sessions); behind ``--registry`` the tier is wrapped in the KV fabric
+(``--kv-replication`` copies of each park, fetch from peers on a miss)
+and the replica serves ``kv_put`` / ``kv_fetch``.  ``--role kv`` is a
+dedicated holder: a bare tier behind the wire, with no model, no batcher
+and no torch import, so it never touches the card.  Not ported yet,
+refused with exit code 2: ``--draft`` (speculative decoding),
+``--warm-pool`` (weight swaps) and a gang launch env.  The
 ``swap_adapter`` and ``adopt`` ops answer ``bad_request``.  One op is
 the port's own: ``stats`` answers the replica's pid, device, the device
-memory it holds, its kernels' launch counts and the batcher's dispatch
-counters.
+memory it holds, its kernels' launch counts, the batcher's dispatch
+counters and its tier's counters (a holder: that torch is not even
+imported, and its tier's summary).
 
 :class:`ReplicaServer` serves whatever ``handler(msg, reply)`` it is
 given; only :func:`batcher_handler`, :func:`prefill_handler` and the
@@ -62,8 +69,9 @@ from tfmesos_tpu_torch.fleet import tracing
 from tfmesos_tpu_torch.utils.logging import get_logger
 
 __all__ = ["ReplicaServer", "BatcherServing", "batcher_handler",
-           "prefill_handler", "rid_seed_for_node", "build_batcher",
-           "build_parser", "start_replica", "main", "ReplicaRefused"]
+           "prefill_handler", "fabric_handler", "rid_seed_for_node",
+           "build_batcher", "build_parser", "start_replica",
+           "start_kv_holder", "main", "ReplicaRefused"]
 
 _LOG = "tfmesos_tpu_torch.fleet.replica"
 #: The gang launch env (``tfmesos_tpu/fleet/gang.py``): a replica launched
@@ -800,6 +808,47 @@ def prefill_handler(batcher, max_queue: int = 8, token: str = "",
     return handler
 
 
+def fabric_handler(fabric, inner: Optional[Callable] = None) -> Callable:
+    """Wrap a replica handler with the KV fabric's wire ops: ``kv_put``
+    lands a peer's replicated park, ``kv_fetch`` serves a peer's resume
+    from this replica's tier; everything else goes to ``inner``.  With
+    no ``inner`` (a ``--role kv`` holder) ``migrate`` is acknowledged
+    (nothing to suspend) and every other op refused: a holder never
+    decodes."""
+
+    def handler(msg, reply: Callable) -> None:
+        raw = isinstance(msg, wire.RawFrame)
+        head = msg.meta if raw else msg
+        op = head.get("op")
+        mid = head.get("id")
+        if op == "kv_put":
+            if not raw:
+                reply(_error(mid, "bad_request",
+                             "kv_put ships its artifact as a raw frame"))
+                return
+            out = fabric.handle_put(msg)
+            out.setdefault("id", mid)
+            reply(out)
+            return
+        if op == "kv_fetch":
+            out = fabric.handle_fetch(head)
+            (out.meta if isinstance(out, wire.RawFrame)
+             else out).setdefault("id", mid)
+            reply(out)
+            return
+        if inner is not None:
+            inner(msg, reply)
+            return
+        if op == "migrate":
+            reply({"op": "migrated", "id": mid})
+            return
+        reply(_error(mid, "bad_request",
+                     f"this replica holds KV state only (role: kv); it "
+                     f"does not serve {op!r}"))
+
+    return handler
+
+
 # -- batcher assembly --------------------------------------------------------
 
 
@@ -813,14 +862,20 @@ def rid_seed_for_node(node: str) -> int:
     return (zlib.crc32(node.encode("utf-8")) & 0xFFFFF) << 10
 
 
-def build_batcher(args, node: str = "", params=None):
+def build_batcher(args, node: str = "", params=None, token: str = "",
+                  generation: int = 0):
     """The model and ``ContinuousBatcher`` one replica runs, from the
     parsed flags: the port's tiny or flagship preset drawn from
     ``--model-seed`` (default ``--seed``), or ``params`` (the same
     preset's shapes, e.g. ``convert.params_from_jax`` of the JAX
     preset's weights), on ``--device`` (default: the card).  ``node``
-    ("job:index") sets the request-id base."""
+    ("job:index") sets the request-id base.  ``--kv-tier-mb`` /
+    ``--kv-tier-dir`` give it a :class:`~tfmesos_tpu_torch.fleet.kvtier.
+    KVTierStore` keyed by ``token`` and stamped with the rollout
+    identity (``--weights-version``, composed with ``--model-id``, and
+    ``generation``), so another version's parked KV reads as a miss."""
     from tfmesos_tpu_torch.device import resolve_device
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
     from tfmesos_tpu_torch.models import presets
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
@@ -830,6 +885,15 @@ def build_batcher(args, node: str = "", params=None):
     cfg, drawn = (presets.tiny_model(seed) if args.tiny
                   else presets.flagship_model(seed,
                                               max_len=args.max_len or 1024))
+    kv_tier = None
+    if args.kv_tier_mb > 0 or args.kv_tier_dir:
+        wv_stamp = args.weights_version
+        if args.model_id:
+            wv_stamp = f"{args.weights_version or 'v0'}@{args.model_id}"
+        kv_tier = KVTierStore(
+            ram_bytes=int(max(0.0, args.kv_tier_mb) * 1e6),
+            disk_dir=args.kv_tier_dir, token=token,
+            stamp={"weights_version": wv_stamp, "gen": generation})
     return ContinuousBatcher(
         cfg, drawn if params is None else params, rows=args.rows,
         max_len=args.max_len, page_size=args.page_size,
@@ -840,7 +904,7 @@ def build_batcher(args, node: str = "", params=None):
         # chunk width.
         prefill_chunk=args.prefill_bucket if args.fused_prefill else None,
         fused_prefill=args.fused_prefill,
-        tokens_per_tick=args.tokens_per_tick,
+        tokens_per_tick=args.tokens_per_tick, kv_tier=kv_tier,
         rid_seed=rid_seed_for_node(node), device=device)
 
 
@@ -852,11 +916,6 @@ def refuse_unported(args, environ=None) -> None:
     if not 1 <= args.kv_replication <= 8:
         raise ReplicaRefused("--kv-replication must be in [1, 8]")
     unported = (
-        (args.role == "kv", "--role kv (the KV tier, ROADMAP A.4 item 3)"),
-        (args.kv_tier_mb > 0 or bool(args.kv_tier_dir),
-         "--kv-tier-mb / --kv-tier-dir (the KV tier, ROADMAP A.4 item 3)"),
-        (args.kv_replication > 1,
-         "--kv-replication above 1 (the KV fabric, ROADMAP A.4 item 3)"),
         (args.draft, "--draft (speculative decoding, ROADMAP A.8)"),
         (args.warm_pool,
          "--warm-pool (set_weights, ROADMAP A.4 item 4)"),
@@ -908,23 +967,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-request prefix cache budget in pool pages "
                         "(0 disables); its summary rides the heartbeats")
     p.add_argument("--kv-tier-mb", type=float, default=0.0,
-                   dest="kv_tier_mb", help="host-RAM KV tier (not ported "
-                                           "yet: refused above 0)")
+                   dest="kv_tier_mb",
+                   help="host-RAM KV tier budget in MB (0 disables): "
+                        "prefix pages the device pool evicts spill here "
+                        "and promote back on the next hit, and "
+                        "session-labelled requests park their KV "
+                        "between turns")
     p.add_argument("--kv-tier-dir", type=str, default=None,
                    dest="kv_tier_dir",
-                   help="disk KV tier (not ported yet: refused)")
+                   help="disk tier directory (default: RAM only): "
+                        "RAM-evicted entries spill into HMAC-framed "
+                        "files, and replicas sharing the directory "
+                        "resume each other's parked sessions (bounded "
+                        "at 4x the RAM budget)")
     p.add_argument("--role", choices=("unified", "prefill", "decode", "kv"),
                    default="unified",
                    help="'unified' serves whole requests; 'prefill' only "
                         "exports prompts' KV; 'decode' also imports "
-                        "exported KV; 'kv' is not ported yet (refused)")
+                        "exported KV; 'kv' serves no model: a holder of "
+                        "the KV fabric's replicated parks, which never "
+                        "imports torch (needs --kv-tier-mb or "
+                        "--kv-tier-dir)")
     p.add_argument("--kv-replication", type=int, default=1,
                    dest="kv_replication",
-                   help="replicated session parking (not ported yet: "
-                        "refused above 1)")
+                   help="K-way replicated session parking (default 1, "
+                        "local only): a park lands here and on K-1 "
+                        "fabric peers, so it survives this replica; "
+                        "needs --registry and a KV tier")
     p.add_argument("--kv-placement", choices=("rendezvous", "loaded"),
                    default="rendezvous", dest="kv_placement",
-                   help="fabric peer choice (with the KV fabric)")
+                   help="fabric peer choice for replicated parks: "
+                        "'rendezvous' (hash order) or 'loaded' (the same "
+                        "order re-scored by the peers' tier occupancy)")
     p.add_argument("--pipeline-depth", type=int, default=0,
                    choices=(0, 1), dest="pipeline_depth",
                    help="1 keeps the decode carry on the device, block N "
@@ -970,18 +1044,37 @@ def start_replica(args, token: Optional[str] = None, params=None,
                   environ=None) -> tuple:
     """Build, register and start one replica from parsed flags; returns
     ``(server, serving, batcher)`` (``serving`` None for the prefill
-    role, which never runs a serve loop).  Registers (as ``warming``
-    under ``--warmup``) before warming up, then prints ``replica warmed
-    ...`` and ``replica serving on ADDR (role R)``.  ``token`` defaults
-    to the task env's, ``params`` to the preset's draw.  Raises
-    :class:`ReplicaRefused` for an option not ported yet."""
+    role, which never runs a serve loop; ``--role kv`` is
+    :func:`start_kv_holder`'s, returned as ``(server, None, fabric)``).
+    Registers (as ``warming`` under ``--warmup``) before warming up,
+    then prints ``replica warmed ...`` and ``replica serving on ADDR
+    (role R)``.  ``token`` defaults to the task env's, ``params`` to the
+    preset's draw.  Behind ``--registry`` a KV tier is wrapped in a
+    :class:`~tfmesos_tpu_torch.fleet.kvtier.KVFabric` (the batcher's
+    ``kv_tier`` becomes the fabric) and the replica serves ``kv_put`` /
+    ``kv_fetch``.  Raises :class:`ReplicaRefused` for an option not
+    ported yet."""
     environ = os.environ if environ is None else environ
     refuse_unported(args, environ)
     token = wire.load_token(environ) if token is None else token
+    if args.role == "kv":
+        server, fabric = start_kv_holder(args, token=token, environ=environ)
+        return server, None, fabric
     log = get_logger(_LOG)
     generation, node = _identity(environ)
     model_state = {"model_id": args.model_id or ""}
-    batcher = build_batcher(args, node=node, params=params)
+    batcher = build_batcher(args, node=node, params=params, token=token,
+                            generation=generation)
+    fabric = None
+    if args.registry and batcher.kv_tier is not None \
+            and batcher.kv_tier_bypass_reason is None:
+        from tfmesos_tpu_torch.fleet.kvtier import KVFabric
+
+        fabric = KVFabric(batcher.kv_tier, token=token,
+                          registry_addr=args.registry,
+                          replication=args.kv_replication,
+                          placement=args.kv_placement)
+        batcher.kv_tier = fabric
     srv_cell: List[ReplicaServer] = []
 
     def self_addr() -> str:
@@ -997,6 +1090,10 @@ def start_replica(args, token: Optional[str] = None, params=None,
                                   weights_version=args.weights_version,
                                   model_state=model_state, token=token,
                                   self_addr=self_addr)
+    if fabric is not None:
+        handler = fabric_handler(fabric, handler)
+    tiered = batcher.kv_tier is not None \
+        and batcher.kv_tier_bypass_reason is None
 
     def extra() -> Dict[str, Any]:
         beat: Dict[str, Any] = {"role": args.role,
@@ -1012,14 +1109,18 @@ def start_replica(args, token: Optional[str] = None, params=None,
         beat["adapter_version"] = ""
         if batcher.prefix_cache_active:
             beat["prefix_cache"] = batcher.prefix_cache_summary()
+        if tiered:
+            # Parked session ids (the router's session affinity), spilled
+            # prefix digests, counters and occupancy.
+            beat["kv_tier"] = batcher.kv_tier.summary()
         return beat
 
     def stats(msg: Dict[str, Any]) -> Dict[str, Any]:
         """Where this replica runs, the device memory it holds, its
         kernels' launch counts (zeroed first when ``reset_launches`` is
-        set) and the batcher's dispatch counters: how a launcher in
-        another process sees that the replica is on the card and which
-        kernels its requests ran."""
+        set), the batcher's dispatch counters and its KV tier's
+        counters: how a launcher in another process sees that the
+        replica is on the card and which kernels its requests ran."""
         import torch
 
         from tfmesos_tpu_torch import graphs
@@ -1032,7 +1133,8 @@ def start_replica(args, token: Optional[str] = None, params=None,
                                      if dev.type == "cuda" else 0),
                 "launches": graphs.launch_counts(),
                 "multi_step": batcher.multi_step,
-                "counters": {k: getattr(batcher, k) for k in STATS_COUNTERS}}
+                "counters": {k: getattr(batcher, k) for k in STATS_COUNTERS},
+                "kv_tier": batcher.kv_tier.stats() if tiered else None}
 
     server = ReplicaServer(
         handler, token=token, capacity=args.rows, host=args.host,
@@ -1041,6 +1143,8 @@ def start_replica(args, token: Optional[str] = None, params=None,
         status="warming" if args.warmup else None, stats=stats)
     srv_cell.append(server)
     server.start()
+    if fabric is not None:
+        fabric.self_addr = server.addr or ""
     if args.warmup:
         # A role replica warms only the surface it serves.
         info = batcher.warmup(decode=args.role != "prefill",
@@ -1055,6 +1159,60 @@ def start_replica(args, token: Optional[str] = None, params=None,
     print(f"replica serving on {server.addr} (role {args.role})",
           flush=True)
     return server, serving, batcher
+
+
+def start_kv_holder(args, token: Optional[str] = None,
+                    environ=None) -> tuple:
+    """Start a ``--role kv`` replica: a bare KV tier behind the replica
+    wire (``kv_put`` / ``kv_fetch``), heartbeating as role ``kv`` with
+    capacity 0, so the router never sends it tokens.  It builds no model
+    and no batcher and imports no torch, so it never holds card memory;
+    its ``stats`` op says so and lists its tier.  Its store has an empty
+    stamp: it keeps other replicas' artifacts verbatim, and the replica
+    that fetches one judges the writer's stamp.  Returns ``(server,
+    fabric)``; raises :class:`ReplicaRefused` without a tier."""
+    from tfmesos_tpu_torch.fleet.kvtier import KVFabric, KVTierStore
+
+    environ = os.environ if environ is None else environ
+    refuse_unported(args, environ)
+    if args.kv_tier_mb <= 0 and not args.kv_tier_dir:
+        raise ReplicaRefused("--role kv needs a tier to hold "
+                             "(--kv-tier-mb and/or --kv-tier-dir)")
+    token = wire.load_token(environ) if token is None else token
+    generation, node = _identity(environ)
+    store = KVTierStore(ram_bytes=int(max(0.0, args.kv_tier_mb) * 1e6),
+                        disk_dir=args.kv_tier_dir, token=token, stamp={})
+    fabric = KVFabric(store, token=token, registry_addr=args.registry,
+                      replication=1, placement=args.kv_placement)
+
+    def extra() -> Dict[str, Any]:
+        beat: Dict[str, Any] = {"role": "kv", "gen": generation,
+                                "kv_tier": store.summary()}
+        if args.weights_version:
+            beat["weights_version"] = args.weights_version
+        if node:
+            beat["node"] = node
+        return beat
+
+    def stats(msg: Dict[str, Any]) -> Dict[str, Any]:
+        torch = sys.modules.get("torch")
+        cuda = bool(torch is not None and torch.cuda.is_initialized())
+        return {"pid": os.getpid(), "device": None, "role": "kv",
+                "torch_imported": torch is not None,
+                "cuda_initialized": cuda,
+                "memory_allocated": (torch.cuda.memory_allocated()
+                                     if cuda else 0),
+                "kv_tier": store.stats(), "summary": store.summary()}
+
+    server = ReplicaServer(
+        fabric_handler(fabric), token=token, capacity=0, host=args.host,
+        port=args.port, registry_addr=args.registry,
+        heartbeat_interval=args.heartbeat_interval, extra_info=extra,
+        stats=stats)
+    server.start()
+    fabric.self_addr = server.addr or ""
+    print(f"replica serving on {server.addr} (role kv)", flush=True)
+    return server, fabric
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -7,7 +7,9 @@ admission ``:2499-2700, 3799-4445``, chunked prefill ``:2389-2410,
 4398-4443``, warmup ``:2722``, KV export/import ``:2930-3326``, the
 schedule modes — the K-step block, overlap, the pipeline and the fused
 prefill tick — ``:2116-2197, 2412-2470, 4445-4751``, deadlines and
-preemption ``:4909-5043``).
+preemption ``:4909-5043``, the KV tier's prefix spill/promote and
+session park/resume ``:857-866, 1097-1138, 1703-1727, 3040-3100,
+3383-3791, 4018-4060``).
 
 A persistent page pool plus an admission loop that feeds new prompts
 into a RUNNING batched decode: rows free on stop token or quota,
@@ -25,7 +27,8 @@ The fleet surface is the reference's too: chunked prefill
 (``prefill_chunk``), the cross-request prefix cache
 (``prefix_cache_pages``), disaggregated KV export/import with artifacts
 either side can read (:func:`pack_prefilled`), priority preemption with
-the :meth:`ContinuousBatcher.preempt_all` drain, and deadlines.
+the :meth:`ContinuousBatcher.preempt_all` drain, deadlines, and the KV
+tier (``kv_tier``: spilled prefix pages and parked sessions).
 
 On the card every device call is a CUDA graph (``graphs.py``): the
 admission prefill a prompt width, a prefill chunk or prefix-cache tail a
@@ -175,8 +178,10 @@ class Request:
     token-identically.  ``deadline_ms`` is the request's remaining
     end-to-end budget at construction: an expired arrival is shed before
     its prefill and an expired resident row is cancelled (an
-    :class:`Expired` in the stream).  ``session_id`` is carried for the
-    fleet (parking a session needs the KV tier, not ported yet).
+    :class:`Expired` in the stream).  ``session_id`` names a multi-turn
+    conversation: on a batcher with a KV tier the finished request's KV
+    parks under it, and a later request whose prompt extends the parked
+    history installs that KV and prefills only its new tokens.
     ``trace`` (a trace context with ``event`` and ``span_between``) and
     ``on_tokens(new_tokens, offset)`` (incremental streaming, called
     once a tick with the tokens since the last call) are attributes the
@@ -582,6 +587,11 @@ class _PrefixCache:
         self._n_zero = [0] * self.n_shards
         self._tick = 0
         self._lock = threading.Lock()
+        # The eviction seam (the KV tier's spill): called as
+        # ``on_evict(shard, digest, page)`` before the page frees, while
+        # it still holds the published chunk.  A raising callback costs
+        # the spill, never the eviction.
+        self.on_evict = None
         self._stats = {"hits": 0, "misses": 0, "hit_pages": 0,
                        "hit_tokens": 0, "inserted": 0, "evicted": 0,
                        "cow_copies": 0, "skipped": 0, "promoted": 0}
@@ -711,6 +721,11 @@ class _PrefixCache:
                     best = n
         if best is None:
             return False
+        if self.on_evict is not None:
+            try:
+                self.on_evict(shard, best.digest, best.page)
+            except Exception:
+                pass    # the spill is best-effort; the eviction stands
         level = (best.parent.children if best.parent is not None
                  else self.roots[shard])
         del level[best.digest]
@@ -718,6 +733,43 @@ class _PrefixCache:
         self._n_zero[shard] -= 1
         self.side.alloc.free.append(best.page)
         self._stats["evicted"] += 1
+        return True
+
+    def insert_chain(self, shard: int, parent_digests, digest: bytes,
+                     page: int) -> bool:
+        """Insert ONE resident page as a zero-ref node under the path
+        ``parent_digests``: the KV tier's promotion (the caller took
+        ``page`` off the free list and wrote the tier's content into it;
+        on True the cache owns it, reclaimable like any zero-ref page).
+        False when the parent path is gone, the chunk is already cached,
+        or the budget cannot be met: the caller frees the page."""
+        with self._lock:
+            self._tick += 1
+            # Budget first: evicting after the walk could reclaim a leaf
+            # of the very path just validated.
+            while (self._n_nodes[shard] >= self.budget
+                   and self._evict_one(shard)):
+                pass
+            if self._n_nodes[shard] >= self.budget:
+                self._stats["skipped"] += 1
+                return False
+            level = self.roots[shard]
+            parent = None
+            for d in parent_digests:
+                node = level.get(d)
+                if node is None:
+                    return False
+                parent = node
+                level = node.children
+            if digest in level:
+                return False
+            node = _PrefixNode(digest, int(page), parent, self._tick,
+                               shard)
+            node.ref = 0            # resident, unreferenced: the cache
+            self._n_zero[shard] += 1
+            level[digest] = node
+            self._n_nodes[shard] += 1
+            self._stats["promoted"] += 1
         return True
 
     def _reclaim_cb(self, shard: int) -> bool:
@@ -879,12 +931,22 @@ class ContinuousBatcher:
     batcher's synchronous streams token for token.  Bypasses are the reference's (``*_bypass_reason``):
     overlap yields to the pipeline, and under either lag rows are not
     suspendable and the fused tick falls back to the phase-split one.
-    The reference's other modes (a static ``prefix``, ``kv_tier``,
-    speculative decoding, a ``mesh``) are not ported yet: asking for one
-    raises ``NotImplementedError``.
+
+    ``kv_tier`` (a ``fleet.kvtier.KVTierStore``, or a ``KVFabric`` over
+    one) adds the host tiers below the pool: prefix pages the cache
+    evicts spill into it and promote back at the next matching
+    admission, and a finished request with a ``session_id`` parks its KV
+    there (at the committed boundary, in every decode mode), so the next
+    turn, whose prompt extends the parked history, installs those pages
+    and prefills only its new tokens through the prefix-cache tail's
+    call.  Every miss (no entry, another weights_version, a corrupt
+    entry, a prompt that diverges) prefills cold.  An int8 pool bypasses
+    the tier (``kv_tier_bypass_reason``).  The reference's other modes
+    (a static ``prefix``, speculative decoding, a ``mesh``) are not
+    ported yet: asking for one raises ``NotImplementedError``.
 
     Counters for measurement: ``prefills`` (full-prompt prefill calls),
-    ``tail_prefills`` (prefix-cache tails), ``prefill_chunks``,
+    ``tail_prefills`` (prefix-cache and session tails), ``prefill_chunks``,
     ``decode_ticks`` (decode dispatches, fused ones included),
     ``decode_tokens`` (tokens they committed) and ``decode_seconds``
     (wall time of the decode dispatches and their host syncs),
@@ -928,7 +990,6 @@ class ContinuousBatcher:
                              f"{tokens_per_tick}")
         unported = {"mesh": mesh is not None,
                     "prefix": prefix is not None,
-                    "kv_tier": kv_tier is not None,
                     "draft_params": draft_params is not None,
                     "draft_n_pages": draft_n_pages is not None}
         asked = [name for name, on in unported.items() if on]
@@ -1005,6 +1066,20 @@ class ContinuousBatcher:
                 self._pcache = _PrefixCache(self.t_side, self.page_size,
                                             self.page_size, b"",
                                             prefix_cache_pages)
+        # The KV tier: prefix pages the pool evicts spill into it and
+        # promote back at the next matching admission; finished
+        # session-labelled requests park their KV in it for the next
+        # turn.  An int8 pool bypasses it (kv_tier_bypass_reason).
+        self.kv_tier = kv_tier
+        self.kv_tier_bypass_reason: Optional[str] = None
+        if kv_tier is not None:
+            self.kv_tier_bypass_reason = self._bypass["kv_tier"]
+            if self.kv_tier_bypass_reason is None \
+                    and self._pcache is not None:
+                self._pcache.on_evict = self._spill_page
+                kv_tier.prefix_geometry = {
+                    "page": self.page_size, "first": self._pcache.first,
+                    "seed": self._pcache.seed.hex()}
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
         self._submissions_lock = threading.Lock()
@@ -1290,8 +1365,17 @@ class ContinuousBatcher:
                     except ValueError as e:
                         bad_request = e     # raise after draining
                         break
-                    row, plan = self._admit_row(free_rows, active, wt, req0,
-                                                use_cache=not imported)
+                    # KV tier: a usable parked session takes the resume
+                    # path (its pages come from the artifact, so no
+                    # prefix plan and no promotion); otherwise spilled
+                    # prefix pages this prompt could map promote first.
+                    sess_art = (None if imported
+                                else self._session_lookup(req0))
+                    if not imported and sess_art is None:
+                        self._tier_promote(req0)
+                    row, plan = self._admit_row(
+                        free_rows, active, wt, req0,
+                        use_cache=not imported and sess_art is None)
                     if row is None:
                         # Allocation pressure: a strictly-higher-priority
                         # head may suspend the lowest-priority resident
@@ -1306,6 +1390,11 @@ class ContinuousBatcher:
                         # folds continue that stream).
                         res = self._admit_import(row, item, wt, need,
                                                  active)
+                    elif sess_art is not None:
+                        rid = self._next_rid
+                        self._next_rid += 1
+                        res = self._admit_session(row, rid, item, wt, need,
+                                                  active, sess_art)
                     else:
                         rid = self._next_rid
                         self._next_rid += 1
@@ -1347,7 +1436,7 @@ class ContinuousBatcher:
                     done_row = self._advance_prefill(active)
                     if done_row is not None:
                         done = self._completion(active[done_row])
-                        self._finish(done_row, active, free_rows)
+                        self._finish_completed(done_row, active, free_rows)
                         yield done
                 if any(row.decoding for row in active.values()):
                     if self._pipelined or self.overlap:
@@ -1703,8 +1792,11 @@ class ContinuousBatcher:
         already finished.  Clears ``burst``."""
         if not burst:
             return
-        dev = [tok for _, _, tok in burst if isinstance(tok, torch.Tensor)]
-        synced = iter(torch.stack(dev).reshape(-1).tolist() if dev else ())
+        # A prefill's token is a scalar, a chunk call's (a prefix-cache
+        # or session tail) a [1] vector: one burst may hold both.
+        dev = [tok.reshape(1) for _, _, tok in burst
+               if isinstance(tok, torch.Tensor)]
+        synced = iter(torch.cat(dev).tolist() if dev else ())
         toks = [next(synced) if isinstance(tok, torch.Tensor) else tok
                 for _, _, tok in burst]
         now = time.perf_counter()
@@ -1716,7 +1808,7 @@ class ContinuousBatcher:
             state.out = [tok]
             if tok == state.req.stop_token or state.req.max_new_tokens == 1:
                 done = self._completion(state)
-                self._finish(row, active, free_rows)
+                self._finish_completed(row, active, free_rows)
                 yield done
         burst.clear()
 
@@ -1861,7 +1953,7 @@ class ContinuousBatcher:
             if tok == row.req.stop_token or \
                     len(row.out) >= row.req.max_new_tokens:
                 done = self._completion(row)
-                self._finish(r, active, free_rows)
+                self._finish_completed(r, active, free_rows)
                 return done
         return None
 
@@ -2080,7 +2172,7 @@ class ContinuousBatcher:
             self._pcache_insert(r, row)
             if tok == row.req.stop_token or row.req.max_new_tokens == 1:
                 done = self._completion(row)
-                self._finish(r, active, free_rows)
+                self._finish_completed(r, active, free_rows)
                 yield done
         for r in list(decoding):
             done = self._commit_block(r, active[r], nxt[r], active,
@@ -2110,6 +2202,7 @@ class ContinuousBatcher:
                     "batcher's serve loop (prefill-role batchers never "
                     "start one)")
             wt, need = self._worst_pages(request)
+            self._tier_promote(request)
             active: Dict[int, _Row] = {}
             row, plan = self._admit_row([0], active, wt, request)
             rid = self._next_rid
@@ -2131,23 +2224,36 @@ class ContinuousBatcher:
             finally:
                 self._finish(row, active, [])
 
-    def _export_row(self, row: int, state: _Row) -> dict:
+    def _export_row(self, row: int, state: _Row,
+                    final: bool = False) -> dict:
         """Snapshot ``row``'s KV into a host artifact: the pages covering
         positions [0, pos) in table order (cached prefix pages and own
         pages alike), plus the sampler state (``step`` and the emitted
         ``tokens``, so a suspended row resumes mid-stream).  bf16 pages
-        are CPU tensors (numpy has no bf16); the rest numpy arrays."""
-        n = -(-state.pos // self.page_size)
-        ids = torch.as_tensor(self.t_side.table_np()[row, :n].astype(
-            np.int64), device=self.device)
-        leaves = _gather_pages(self.pool, ids)
+        are CPU tensors (numpy has no bf16); the rest numpy arrays.
+
+        ``final`` exports a finished row at its committed boundary,
+        ``prompt + len(out) - 1``: under ``overlap`` and
+        ``pipeline_depth=1`` ``pos`` and ``step`` advance at dispatch and
+        may run a block past the committed stream, but every position
+        below the boundary was written once with the true tokens, so a
+        session parks in every decode mode."""
+        E, step = int(state.pos), int(state.step)
+        toks = [int(t) for t in state.out]
+        if final:
+            step = len(toks)
+            E = self.prefix_len + int(state.req.prompt.size) + step - 1
+        n = -(-E // self.page_size)
+        ids = self.t_side.table_np()[row, :n].astype(np.int64)
+        leaves = _gather_pages(self.pool, torch.as_tensor(
+            ids, device=self.device))
         quantized = isinstance(self.pool["k"], QTensor)
         art = {
             "version": 1, "page_size": self.page_size,
             "prefix_len": self.prefix_len, "shared_len": 0,
-            "pos": int(state.pos), "prompt_len": int(state.req.prompt.size),
-            "first_token": int(state.out[0]), "step": int(state.step),
-            "tokens": [int(t) for t in state.out], "rid": int(state.rid),
+            "pos": E, "prompt_len": int(state.req.prompt.size),
+            "first_token": int(state.out[0]), "step": step,
+            "tokens": toks, "rid": int(state.rid),
             "quantized": quantized,
             "model": {"n_layers": int(self.cfg.n_layers),
                       "kv_heads": int(self.cfg.kv_heads),
@@ -2282,6 +2388,242 @@ class ContinuousBatcher:
         self._pcache_insert(row, state)
         return row, state, int(art["first_token"])
 
+    # -- the KV tier: prefix spill/promote, session park/resume ----------
+
+    @property
+    def _tier_active(self) -> bool:
+        return (self.kv_tier is not None
+                and self.kv_tier_bypass_reason is None)
+
+    def _tier_geom(self) -> Dict[str, Any]:
+        """The geometry stamped on every spilled prefix page and checked
+        at promotion, the reference's field for field (``dtype`` is
+        numpy's name, e.g. "bfloat16"), so either framework's spilled
+        pages promote in the other; ``draft`` stays None (speculative
+        decoding is not ported)."""
+        return {"page_size": self.page_size,
+                "n_layers": int(self.cfg.n_layers),
+                "kv_heads": int(self.cfg.kv_heads),
+                "head_dim": int(self.cfg.head_dim),
+                "dtype": self._pool_dtype_name(), "draft": None}
+
+    def _page_elems(self) -> int:
+        cfg = self.cfg
+        return (int(cfg.n_layers) * int(cfg.kv_heads) * self.page_size
+                * int(cfg.head_dim))
+
+    def _spill_page(self, shard: int, digest: bytes, page: int) -> None:
+        """The prefix cache's eviction callback: copy the evicted page to
+        the host and park it in the tier under its chain digest (body:
+        K then V, each [layers, 1, kv_heads, page, head_dim]).  Runs on
+        the serve thread while the page still holds its chunk; a page
+        the tier could never hold costs no copy."""
+        tier = self.kv_tier
+        item = self.pool["k"].element_size()
+        if not tier.would_accept(2 * self._page_elems() * item + 512):
+            tier.count("evictions")
+            return
+        k, v = _gather_pages(self.pool, torch.tensor(
+            [int(page)], device=self.device))
+        meta = dict(self._tier_geom())
+        meta["k_bytes"] = k.numel() * item
+        tier.put_prefix(digest.hex(), meta,
+                        bytes(_array_bytes(k)) + bytes(_array_bytes(v)))
+
+    def _tier_page_payload(self, meta: dict, body: bytes
+                           ) -> Optional[List[torch.Tensor]]:
+        """A spilled page's [K, V] (each [layers, 1, kv_heads, page,
+        head_dim] on the host), or None when the entry was cut for
+        another geometry or is malformed."""
+        geom = self._tier_geom()
+        if any(meta.get(k) != geom[k] for k in geom):
+            return None
+        count = self._page_elems()
+        item = self.pool["k"].element_size()
+        kb = meta.get("k_bytes")
+        if not isinstance(kb, int) or kb != count * item \
+                or len(body) != 2 * kb:
+            return None
+        shape = (int(self.cfg.n_layers), 1, int(self.cfg.kv_heads),
+                 self.page_size, int(self.cfg.head_dim))
+        dtype = np.int16 if geom["dtype"] == _BF16 else geom["dtype"]
+        out = []
+        for off in (0, kb):
+            a = torch.from_numpy(np.frombuffer(
+                body, dtype=dtype, count=count, offset=off).reshape(
+                    shape).copy())
+            out.append(a.view(torch.bfloat16) if geom["dtype"] == _BF16
+                       else a)
+        return out
+
+    def _tier_promote(self, req: Request) -> None:
+        """At admission, for each of ``req``'s prompt chunks past the
+        trie's longest match, install a tier hit into a free pool page
+        and insert it as a zero-ref node, so the prefix plan maps it like
+        a resident hit.  Free pages only (a promotion never evicts the
+        resident cache for room), and once per request."""
+        if not self._tier_active or self._pcache is None:
+            return
+        if getattr(req, "_tier_checked", False):
+            return
+        req._tier_checked = True
+        digs = self._req_digests(req)
+        pc, alloc = self._pcache, self.t_side.alloc
+        n = len(pc.match(0, digs)) if digs else 0
+        while n < len(digs):
+            d = digs[n]
+            got = self.kv_tier.get_prefix(d.hex())
+            if got is None:
+                break
+            payload = self._tier_page_payload(got[0], got[1])
+            if payload is None or not alloc.free:
+                break
+            page = alloc.free.pop()
+            if not pc.insert_chain(0, digs[:n], d, page):
+                alloc.free.append(page)
+                break
+            _install_pages(self.pool, payload,
+                           torch.tensor([page], device=self.device))
+            self.kv_tier.count("promotions")
+            self._trace_event(req, "tier_promote", digest=d.hex()[:16],
+                              depth=n + 1)
+            n += 1
+
+    def _validate_session(self, art: dict, req: Request) -> None:
+        """Reject a parked session artifact that cannot resume ``req``
+        exactly (each mismatch a ``ValueError``: the lookup then misses
+        and the turn prefills cold)."""
+        if art.get("version") != 1:
+            raise ValueError(f"unknown session artifact version "
+                             f"{art.get('version')!r}")
+        for key, want in (("page_size", self.page_size),
+                          ("prefix_len", self.prefix_len),
+                          ("shared_len", 0), ("quantized", False)):
+            if art.get(key) != want:
+                raise ValueError(
+                    f"session artifact {key} {art.get(key)!r} does not "
+                    f"match this batcher's {want!r}")
+        model = art.get("model") or {}
+        for key, want in (("n_layers", int(self.cfg.n_layers)),
+                          ("kv_heads", int(self.cfg.kv_heads)),
+                          ("head_dim", int(self.cfg.head_dim))):
+            if model.get(key) != want:
+                raise ValueError(
+                    f"session artifact model {key} {model.get(key)!r} "
+                    f"does not match this config's {want}")
+        hist = art.get("history")
+        if not isinstance(hist, (list, tuple)) or len(hist) < 2:
+            raise ValueError("session artifact carries no usable history")
+        if req.prompt.size < len(hist):
+            raise ValueError(
+                f"request prompt ({req.prompt.size} tokens) does not "
+                f"extend the parked history ({len(hist)} tokens)")
+        if not np.array_equal(req.prompt[:len(hist)],
+                              np.asarray(hist, np.int32)):
+            raise ValueError("request prompt diverges from the parked "
+                             "session history")
+        covered = len(hist) - 1     # the last token is the tail's input
+        E_art = art.get("pos")
+        if E_art != self.prefix_len + covered:
+            raise ValueError(
+                f"session artifact covers {E_art!r} positions; its "
+                f"history implies {self.prefix_len + covered}")
+        if art.get("draft") is not None or art.get("dk") is not None:
+            raise ValueError("session artifact carries a draft payload "
+                             "this batcher has no draft model for")
+        self._check_payload_arrays(art, False,
+                                   -(-E_art // self.page_size))
+        # The tail's padded window must fit the page table.
+        E = self.prefix_len + int(req.prompt.size)
+        w = -(-(E - E_art) // self.prefill_bucket) * self.prefill_bucket
+        if E_art + w > self.np_max * self.page_size:
+            raise ValueError("session tail window exceeds the page "
+                             "table; resuming cold instead")
+
+    def _session_lookup(self, req: Request) -> Optional[dict]:
+        """The usable parked artifact for ``req.session_id``, or None (no
+        tier, no entry, stale weights, corrupt, or not a prefix of this
+        prompt: every miss means a cold full-history prefill).  Memoized
+        on the request, so a queued arrival reads the tier once."""
+        if not self._tier_active or not req.session_id:
+            return None
+        memo = getattr(req, "_session_art", None)
+        if memo is not None:
+            return memo[0]
+        art = None
+        got = self.kv_tier.resume(req.session_id)
+        if got is not None:
+            try:
+                art = unpack_prefilled(dict(got[0]), got[1])
+                self._validate_session(art, req)
+            except ValueError:
+                art = None
+        if art is not None:
+            self.kv_tier.count("resume")
+        req._session_art = (art,)
+        return art
+
+    @torch.no_grad()
+    def _admit_session(self, row: int, rid: int, req: Request, wt: int,
+                       need: int, active: Dict[int, _Row],
+                       art: dict) -> tuple:
+        """Admission of a session resume: install the parked pages (the
+        conversation so far) and prefill only the new turn's tail at its
+        true offset, a prefix-cache tail's call (the paged kernel with
+        the tail as its self chunk).  Returns the burst tuple."""
+        t_admit = time.perf_counter()
+        side = self.t_side
+        n = art["k"].shape[1]
+        ts = int(art["pos"])
+        self._trace_event(req, "session_resume", rid=rid, row=row,
+                          session=str(req.session_id), covered=ts)
+        side.ensure(row, n * self.page_size)
+        _install_pages(self.pool, [_as_tensor(art["k"]),
+                                   _as_tensor(art["v"])],
+                       torch.as_tensor(side.alloc.rows[row],
+                                       dtype=torch.long, device=self.device))
+        E = self.prefix_len + int(req.prompt.size)
+        tlen = E - ts
+        w = -(-tlen // self.prefill_bucket) * self.prefill_bucket
+        # Allocation clamps at the reservation, as for a prefix-cache
+        # tail: pad positions past ``need`` land on sink columns.
+        side.ensure(row, min(ts + w, need))
+        padded = np.zeros((w,), np.int32)
+        padded[:tlen] = req.prompt[req.prompt.size - tlen:]
+        tok = self._chunk_call(row, padded, ts, tlen - 1, rid)
+        self.tail_prefills += 1
+        state = _Row(rid=rid, req=req, pos=E, step=1, last=0, out=[],
+                     worst_pages=wt, t_admit=t_admit, limit=need)
+        active[row] = state
+        self._pcache_insert(row, state)
+        return row, state, tok
+
+    def _park_session(self, r: int, state: _Row) -> None:
+        """Park a finished session-labelled row's KV before its pages
+        free: the row's export at its committed boundary plus the whole
+        conversation (``history``: prompt and output), so the next turn
+        resumes from it here, or through a shared disk tier or the
+        fabric on another replica.  A full tier is a counted rejected
+        park; the completion stands either way."""
+        if not self._tier_active:
+            return
+        sid = state.req.session_id
+        if not sid or not state.out or state.t_first <= 0:
+            return
+        try:
+            art = self._export_row(r, state, final=True)
+            art["history"] = ([int(t) for t in state.req.prompt]
+                              + [int(t) for t in state.out])
+            meta, body = pack_prefilled(art)
+        except Exception:
+            return      # parking is best-effort
+        try:
+            self.kv_tier.park(str(sid), meta, body)
+        except Exception:
+            return      # KVTierFull: counted park_rejected by the store
+        self._trace_event(state.req, "session_park", session=str(sid),
+                          bytes=len(body))
+
     # -- deadlines ----------------------------------------------------------
 
     def _cancel_expired(self, active: Dict[int, _Row],
@@ -2402,9 +2744,9 @@ class ContinuousBatcher:
                prefill: bool = True) -> Dict[str, Any]:
         """Prepare every shape the serve loop dispatches, before it runs,
         under the reference's names: the admission prefill at each
-        reachable prompt width (``prefill[w]``); with the prefix cache,
-        the tail call at each width (``chunk_prefill[w]``, at every table
-        width its start can give it); in chunked
+        reachable prompt width (``prefill[w]``); with the prefix cache or
+        a KV tier, the tail call at each width (``chunk_prefill[w]``, at
+        every table width its start can give it); in chunked
         mode the chunk step at each table width (``chunk_prefill[c]``);
         the decode block at each table width (``decode[w]``) and, under
         ``fused_prefill``, the fused tick at each width and slot count
@@ -2437,11 +2779,16 @@ class ContinuousBatcher:
                 for w in self._decode_widths():
                     self._warm_chunk(c, w)
                 compiled.append(f"chunk_prefill[{c}]")
-            elif prefill and self._pcache is not None:
+            # A session resume dispatches a tail call at every width, in
+            # chunked mode too, so a KV tier widens the set as the
+            # prefix cache does.
+            if prefill and (self._tier_active or (
+                    self._pcache is not None and not chunked)):
                 for t in self._prefill_widths():
                     for w in self._tail_widths(t):
                         self._warm_chunk(t, w)
-                    compiled.append(f"chunk_prefill[{t}]")
+                    if f"chunk_prefill[{t}]" not in compiled:
+                        compiled.append(f"chunk_prefill[{t}]")
             for w in self._decode_widths() if decode else ():
                 self._put_table(np.full((self.rows, w), sink, np.int32))
                 self._tick_in.zero_()
@@ -2501,6 +2848,15 @@ class ContinuousBatcher:
                           tokens=list(row.out),
                           ttft_s=row.t_first - row.t_admit,
                           total_s=now - row.t_admit)
+
+    def _finish_completed(self, row: int, active: Dict[int, _Row],
+                          free_rows: List[int]) -> None:
+        """Finish a completed row: park its session KV first (while its
+        pages still hold it), then :meth:`_finish`."""
+        state = active.get(row)
+        if state is not None:
+            self._park_session(row, state)
+        self._finish(row, active, free_rows)
 
     def _finish(self, row: int, active: Dict[int, _Row],
                 free_rows: List[int]) -> None:
