@@ -295,6 +295,37 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     stopped and turn 1 resumes them on the other by ``kv_fetch`` from
     the holder; replies by the margin rule; no process left after
     ``stop()``.
+20. speculative decoding, the static prefix and weight swaps on the
+    flagship (rows 8, page 64, bucket 64, n_draft 4; the draft
+    ``flagship_draft_model`` seed 1, or the target as its own draft):
+    phase 5's traffic with (a) the preset draft, (b) the self-draft, (c)
+    (b) at multi_step=8 (2 rounds a dispatch), (d) (b) under overlap,
+    (e) (b) with an int8 draft pool, each against phase 5's run by the
+    margin rule, with exact launch counts (k+1 draft steps of the
+    draft's layers and one verify of the target's a round, the draft's
+    prompt chunks, merges where a shape splits), no capture after
+    warmup, tokens a round, the acceptance rate (above 0.9 for the
+    self-draft), ms a dispatch, decode tokens/s and TTFT beside phase
+    5's; (f) (b) sampled at T 0.8 / top-k 50 / top-p 0.9 against the
+    target-only sampled run (each stream by the sampled margin rule up
+    to its first fork, a round's bonus or correction draw); (g) phase
+    14's traffic with ``prefix=`` its 512-token system prompt and the
+    self-draft, against phase 14 (a)'s prefix-cache run; (h) on a
+    warmed batcher, ``set_weights`` to the seed-1 flagship between two
+    halves of phase 5's traffic, then a ``swap_adapter`` delta on
+    ``embed``: the parameter addresses kept, nothing captured, exact
+    launch counts, each post-swap run's streams equal to a fresh
+    batcher's on those weights;
+    (i) ``speculative_generate`` in bf16 (batch 4, prompt 128, 256 new)
+    with the preset draft and the self-draft against ``generate``, exact
+    launch counts; (j) a ``--draft`` replica process behind the port's
+    registry serving phase 5's traffic over the wire, its launches held
+    to its counters and the registry's spec gauge reading its rounds.
+    Phase 3 holds the kernels at these shapes: the paged kernel at the
+    verify chunk (t = 5) and the draft's t = 1 step and t = 64 chunk
+    (KV 4, head_dim 32), the forward kernel at [1, 512, 4, 32], the
+    linear-cache kernel at t = 5 and at t = 1 head_dim 32, and the int8
+    commit of a [8, 5] chunk into a KV 4 head_dim 32 pool.
 
 It prints each phase's seconds.
 
@@ -556,7 +587,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/19] device")
+    say("[1/20] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -570,7 +601,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/19] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/20] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -749,7 +780,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/19] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/20] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -760,8 +791,11 @@ def phase_kernels(torch):
     scale = 1.0 / math.sqrt(d)
     flash_rows = []
 
-    def flash_case(b, t, window, draw, kv=h, tk=None, q_offset=0):
+    def flash_case(b, t, window, draw, kv=None, tk=None, q_offset=0, h=h,
+                   d=d):
+        kv = h if kv is None else kv
         tk = t if tk is None else tk
+        scale = 1.0 / math.sqrt(d)
         q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
         o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window,
                                       q_offset=q_offset)
@@ -838,6 +872,11 @@ def phase_kernels(torch):
     flash_case(4, 1000, None, draw_new)
     flash_case(8, 2048, None, draw_new, kv=2)
     check_forward_routes(torch, ta, draw_new)
+    # The flagship draft's prefill (phase 20): 4 heads of head_dim 32,
+    # whose bf16 route is mma.sync, from a generator of its own.
+    gen_draft = torch.Generator().manual_seed(30)
+    flash_case(1, 512, None, lambda *shape: torch.randn(
+        shape, generator=gen_draft).to(dev, torch.bfloat16), h=4, d=32)
     return flash_rows, paged_rows
 
 
@@ -900,7 +939,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/19] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/20] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1043,7 +1082,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/19] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/20] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1220,7 +1259,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/19] teacher-forced check vs float32 CPU forward "
+    say(f"[6/20] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1271,7 +1310,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/19] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/20] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1281,7 +1320,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/19] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/20] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1351,7 +1390,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/19] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/20] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1608,6 +1647,31 @@ def phase_decode_kernels(torch):
                 + (" int8" if int8 else ""), n, 64, 8, 8, 64, 16, 64, pos,
                 bf16, int8=int8, time_it=True))
 
+    # From generators of their own: phase 20's shapes.  The paged kernel
+    # at the verify chunk (t = n_draft + 1 = 5, 8 rows at mixed
+    # positions, KV 8, head_dim 64, bf16 and int8), at the flagship
+    # draft's round step (t = 1, 8 rows, KV 4, head_dim 32) and at its
+    # prompt chunk (t = 64, 1 row); the linear-cache kernel at
+    # speculative_generate's verify (t = 5, head_dim 64) and draft step
+    # (t = 1, KV 4, head_dim 32) over its 393-slot cache (prompt 128,
+    # 256 new, 2 x 4 + 1 slack).
+    vgen = torch.Generator().manual_seed(32)
+    vpos = [3, 90, 200, 333, 512, 640, 800, 1000]
+    for int8 in (False, True):
+        paged_rows.append(paged_case(
+            torch, vgen, "verify t=5" + (" int8" if int8 else ""), 8, 5, 8,
+            8, 64, 16, 64, vpos, bf16, int8=int8, time_it=True))
+    paged_rows.append(paged_case(torch, vgen, "draft t=1 head_dim 32", 8, 1,
+                                 4, 4, 64, 16, 32, vpos, bf16, time_it=True,
+                                 n_layers=2, layer=1))
+    paged_rows.append(paged_case(torch, vgen, "draft chunk t=64 head_dim 32",
+                                 1, 64, 4, 4, 64, 16, 32, [448], bf16,
+                                 time_it=True, n_layers=2, layer=1))
+    main_gen, gen = gen, torch.Generator().manual_seed(33)
+    decode_case(4, 5, 8, 8, 393, 64, [128, 200, 300, 383], bf16, False, True)
+    decode_case(4, 1, 4, 4, 393, 32, [128, 200, 300, 388], bf16, False, True)
+    gen = main_gen
+
     quant_rows, total = check_quantize(torch, randn)
     commit_rows = check_commit(torch, randn)
     return decode_rows, cold, paged_rows, quant_rows, total, commit_rows
@@ -1837,7 +1901,7 @@ def check_commit(torch, randn):
             got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
         seq_ops = device_ops(torch, lambda: today(ref_k, ref_v))
         n = sum(x.numel() for x in list(ks) + list(vs))
-        slots = n // D
+        slots = n // ks[0].shape[-1]
         by_table = 0 if table is None else 4 * table.numel()
         bms, by = bound(n * ks[0].element_size() + n + 4 * slots
                         + 8 * pos.numel() + by_table, 5 * n, F32_FLOPS)
@@ -1910,6 +1974,20 @@ def check_commit(torch, randn):
         case(f"fused slots S={n} t=64", kp, vp, ks, vs, spos,
              lambda rk, rv, ks=ks, vs=vs, spos=spos, st=stable:
              _today_paged(torch, tq, rk, rv, ks, vs, st, spos), table=stable)
+    # Phase 20's int8 draft pool (the flagship draft: 2 layers, KV 4,
+    # head_dim 32): a [8, 5] chunk of every layer committed at mixed
+    # positions, as the verify-sized chunk lands in a pool of this shape.
+    del kp, vp
+    dgen = torch.Generator().manual_seed(31)
+    dl, dkv, dd = 2, 4, 32
+    dkp = _lane_int8(tq, randn((dl, 129, dkv, 64, dd)))
+    dvp = _lane_int8(tq, randn((dl, 129, dkv, 64, dd)))
+    dpos = torch.randint(0, 1024 - 5 + 1, (B,), generator=dgen).to(dev)
+    ks = [randn((B, 5, dkv, dd)) for _ in range(dl)]
+    vs = [randn((B, 5, dkv, dd)) for _ in range(dl)]
+    case("draft pool [8, 5] KV 4 head_dim 32", dkp, dvp, ks, vs, dpos,
+         lambda rk, rv, ks=ks, vs=vs, p=dpos: _today_paged(
+             torch, tq, rk, rv, ks, vs, table, p), table=table)
     return rows
 
 
@@ -2062,7 +2140,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/19] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/20] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2127,7 +2205,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/19] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/20] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2213,7 +2291,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/19] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/20] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2310,7 +2388,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/19] sampled serving and generation: phase 5's traffic at "
+    say("[13/20] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2624,7 +2702,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/19] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/20] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2703,7 +2781,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/19] export/import, preemption and rolling caches: flagship")
+    say("[15/20] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -2735,9 +2813,9 @@ def phase_disagg_preempt_rolling(torch, np):
         chk = ts.ContinuousBatcher(cfg, weights, quantized_cache=int8, **kw)
         for r, art in zip(reqs, arts):
             active = {}
-            wt, need_len = chk._worst_pages(r)
+            wt, wd, need_len = chk._worst_pages(r)
             row, state, first = chk._admit_import(
-                0, ts.Prefilled(r, art), wt, need_len, active)
+                0, ts.Prefilled(r, art), wt, wd, need_len, active)
             state.out = [first]
             again = chk._export_row(row, state)
             chk._finish(row, active, [])
@@ -2949,7 +3027,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/19] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/20] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3205,7 +3283,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/19] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/20] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3844,7 +3922,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/19] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/20] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4195,7 +4273,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/19] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/20] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -4767,6 +4845,682 @@ def sessions_fabric(cfg, FleetServer, prompts, replies, next_logits):
     return stats
 
 
+# -- phase 20: speculative decoding, the static prefix, weight swaps -------
+
+#: Phase 20's proposals a round.
+SPEC_N_DRAFT = 4
+#: Phase 20's schedule variants: (case, draft, batcher flags); "preset" is
+#: flagship_draft_model (seed 1), "self" the target as its own draft.
+SPEC_RUNS = (("a preset draft", "preset", {}),
+             ("b self-draft", "self", {}),
+             ("c self-draft multi_step=8", "self", {"multi_step": 8}),
+             ("d self-draft overlap", "self", {"overlap": True}),
+             ("e self-draft int8 draft pool", "self",
+              {"draft_quantized_cache": True}))
+#: (f)'s sampling.
+SPEC_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+
+
+class SpecCounted:
+    """Record what a speculative ``batcher`` dispatches from here on, its
+    counters reset: each round dispatch's (target, draft) table widths,
+    each draft prompt chunk's tokens, each target chunk call's (tokens,
+    table width) and each admission prefill's width.  :meth:`want` is the
+    launch counts that must follow: per dispatch R rounds (``multi_step``
+    composed), each the draft's k+1 steps (draft-layers paged launches
+    at t = 1) and the verify (target-layers paged launches at t = k+1);
+    a full prefill's target-layers flash_fwd (or, after a static prefix,
+    paged launches at the prompt width over an np_max-wide table); a
+    draft chunk's draft-layers paged launches; merges wherever a
+    launch's shape splits the kernel; one quant_int8_commit a call on an
+    int8 pool (a draft step, a draft chunk, a verify, a prefill)."""
+
+    def __init__(self, batcher):
+        self.b = b = batcher
+        self.rounds, self.dchunks, self.chunks, self.prefill_ws = \
+            [], [], [], []
+        dispatch, dchunk = b._spec_dispatch, b._draft_chunk_call
+        width, prefill = b._chunk_width, b._prefill_call
+
+        def rec_dispatch(*a):
+            self.rounds.append(dispatch(*a))
+            return self.rounds[-1]
+
+        def rec_dchunk(row, tokens, pos):
+            self.dchunks.append(int(tokens.size))
+            return dchunk(row, tokens, pos)
+
+        def rec_width(pos, t):
+            w = width(pos, t)
+            self.chunks.append((t, w))
+            return w
+
+        def rec_prefill(row, prompt, w, rid):
+            self.prefill_ws.append(w)
+            return prefill(row, prompt, w, rid)
+
+        b._spec_dispatch, b._draft_chunk_call = rec_dispatch, rec_dchunk
+        b._chunk_width, b._prefill_call = rec_width, rec_prefill
+        for name in Counted.COUNTERS + ("spec_rounds", "spec_row_rounds",
+                                        "spec_committed"):
+            setattr(b, name, 0)
+        b.decode_seconds = 0.0
+
+    def close(self) -> None:
+        for name in ("_spec_dispatch", "_draft_chunk_call", "_chunk_width",
+                     "_prefill_call"):
+            delattr(self.b, name)
+
+    def want(self, cfg, label):
+        from tfmesos_tpu_torch.ops import attention as ta
+        from tfmesos_tpu_torch.ops.quant import QTensor
+
+        b = self.b
+        dcfg = b.draft_cfg
+        L, Ld, ps, k1 = cfg.n_layers, dcfg.n_layers, b.page_size, \
+            b.n_draft + 1
+        R = max(1, b._spec_rounds)
+        n = len(self.rounds)
+        need(n == b.decode_ticks and len(self.prefill_ws) == b.prefills
+             and len(self.chunks) == b.tail_prefills + b.prefill_chunks,
+             f"{label}: {n} round dispatches for {b.decode_ticks} ticks, "
+             f"{len(self.prefill_ws)} prefill widths for {b.prefills} "
+             f"prefills, {len(self.chunks)} chunk widths")
+        wide = b.np_max * ps
+        prefixed = b.prefix_len > 0
+        t_calls = R * n + len(self.chunks) + (len(self.prefill_ws)
+                                              if prefixed else 0)
+        merges = (L * (R * sum(paged_split(ta, cfg, b.rows, k1, tw * ps)
+                               for tw, _ in self.rounds)
+                       + sum(paged_split(ta, cfg, 1, t, w * ps)
+                             for t, w in self.chunks)
+                       + (sum(paged_split(ta, cfg, 1, w, wide)
+                              for w in self.prefill_ws) if prefixed else 0))
+                  + Ld * (R * k1 * sum(paged_split(ta, dcfg, b.rows, 1,
+                                                   dw * ps)
+                                       for _, dw in self.rounds)
+                          + sum(paged_split(ta, dcfg, 1, t, wide)
+                                for t in self.dchunks)))
+        int8_t = isinstance(b.pool["k"], QTensor)
+        int8_d = isinstance(b.dpool["k"], QTensor)
+        commits = ((len(self.prefill_ws) + t_calls - (
+            len(self.prefill_ws) if prefixed else 0)) if int8_t else 0) \
+            + ((R * k1 * n + len(self.dchunks)) if int8_d else 0)
+        return {"flash_fwd": 0 if prefixed else L * len(self.prefill_ws),
+                "flash_decode_paged": L * t_calls
+                + Ld * (R * k1 * n + len(self.dchunks)),
+                "flash_decode_paged_merge": merges, "quant_int8": 0,
+                "quant_int8_commit": commits, "flash_decode": 0,
+                "flash_decode_merge": 0, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+
+
+def spec_run(torch, cfg, batcher, reqs, label):
+    """Serve ``reqs`` once under :class:`SpecCounted`, every launch count
+    zeroed just before and read just after, the exact counts required.
+    Returns (completions, stats: rounds and dispatches, tokens a round,
+    the acceptance rate, ms a dispatch and a round, decode tokens/s,
+    TTFT mean and p50, launches)."""
+    counted = SpecCounted(batcher)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        comps = list(batcher.run(reqs))
+        torch.cuda.synchronize()
+    finally:
+        counted.close()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = counted.want(cfg, label)
+    b = batcher
+    need(launches == want, f"{label} launches {launches} != {want} "
+         f"({b.prefills} prefills, {b.tail_prefills} tails, "
+         f"{len(counted.dchunks)} draft chunks, {b.decode_ticks} dispatches "
+         f"of R {max(1, b._spec_rounds)})")
+    new = reqs[0].max_new_tokens
+    need(len(comps) == len(reqs)
+         and all(len(c.tokens) == new for c in comps),
+         f"{label}: {len(comps)} of {len(reqs)} requests completed")
+    ticks = b.decode_ticks
+    ttft = sorted(c.ttft_s * 1e3 for c in comps)
+    return comps, {
+        "requests": len(comps), "wall_s": wall, "dispatches": ticks,
+        "rounds": b.spec_rounds, "row_rounds": b.spec_row_rounds,
+        "committed": b.spec_committed,
+        "tokens_per_round": b.spec_committed / max(1, b.spec_row_rounds),
+        "acceptance_rate": b.acceptance_rate,
+        "decode_tokens": b.decode_tokens,
+        "decode_tok_per_s": b.decode_tokens / b.decode_seconds,
+        "ms_per_dispatch": b.decode_seconds / ticks * 1e3,
+        "ms_per_round": b.decode_seconds / max(1, b.spec_rounds) * 1e3,
+        "ttft_ms_mean": statistics.mean(ttft),
+        "ttft_ms_p50": statistics.median(ttft),
+        "table_widths": sorted({w for w in counted.rounds}),
+        "launches": launches}
+
+
+def spec_batcher(cfg, card, draft, **kw):
+    """A warmed flagship speculative batcher (rows 8, page 64, bucket 64,
+    n_draft 4): the preset draft (seed 1) or the target itself; returns
+    (batcher, warmup names, the graph keys warmup left)."""
+    from tfmesos_tpu_torch.models.presets import flagship_draft_model
+    from tfmesos_tpu_torch.serving import ContinuousBatcher
+
+    if draft == "self":
+        dcfg = dataclasses.replace(
+            cfg, max_seq_len=cfg.max_seq_len + SPEC_N_DRAFT + 1)
+        dparams = card
+    else:
+        dcfg, dparams = flagship_draft_model(seed=1, max_len=1024,
+                                             n_draft=SPEC_N_DRAFT,
+                                             device="cuda")
+    b = ContinuousBatcher(cfg, card, rows=8, page_size=64,
+                          prefill_bucket=64, draft_cfg=dcfg,
+                          draft_params=dparams, n_draft=SPEC_N_DRAFT,
+                          device="cuda", **kw)
+    info = b.warmup()
+    need(any(n.startswith("spec_round[") for n in info["compiled"])
+         and any(n.startswith("draft_chunk[") for n in info["compiled"])
+         and not any(n.startswith("decode[") for n in info["compiled"]),
+         f"speculative warmup prepared {info['compiled']}")
+    return b, info, b._graphs.keys()
+
+
+def spec_say(label, stats, ref):
+    say(f"  {label}: {stats['streams_identical']} of {stats['requests']} "
+        f"streams identical to the non-speculative run's, "
+        f"{len(stats['divergence_gaps'])} differ first at a near-tie; "
+        f"tokens a round {stats['tokens_per_round']:.3f}, acceptance "
+        f"{stats['acceptance_rate']:.4f}; ms a dispatch "
+        f"{stats['ms_per_dispatch']:.4f} (non-spec tick "
+        f"{ref['ms_per_tick']:.4f}), decode tok/s "
+        f"{stats['decode_tok_per_s']:.1f} (non-spec "
+        f"{ref['decode_tok_per_s']:.1f}), TTFT mean "
+        f"{stats['ttft_ms_mean']:.3f} p50 {stats['ttft_ms_p50']:.3f} "
+        f"(non-spec {ref['ttft_ms_mean']:.3f} / {ref['ttft_ms_p50']:.3f}); "
+        f"0 captures after warmup")
+
+
+def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
+    """Phase 20: speculative decoding, the static prefix and weight swaps
+    on the flagship (rows 8, page 64, bucket 64; the draft
+    ``flagship_draft_model`` seed 1 or the self-draft, n_draft 4).  (a)-(e)
+    phase 5's traffic under the variants of :data:`SPEC_RUNS`, (f) the
+    self-draft sampled at T 0.8 / top-k 50 / top-p 0.9, (g) phase 14's
+    traffic with ``prefix=`` its 512-token system prompt and the
+    self-draft, (h) weight swaps on a warmed batcher, (i)
+    ``speculative_generate`` against ``generate``, (j) a ``--draft``
+    replica process behind a registry.  Each serving case on a fresh
+    warmed batcher: streams against the non-speculative run of the same
+    traffic by the margin rule, exact launch counts, no capture after
+    warmup."""
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    say("[20/20] speculative decoding, the static prefix and weight swaps: "
+        f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
+    cfg, params = flagship_model(seed=0, max_len=1024)
+    card = _cuda(params)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = dict(enumerate(base))
+
+    def next_logits(i, prefix, reqs=reqs):
+        prompt = [int(x) for x in reqs[i].prompt]
+        with torch.no_grad():
+            return forward(cpu_cfg, params,
+                           torch.tensor([prompt + prefix]))[0, -1]
+
+    out = {}
+    for label, draft, kw in SPEC_RUNS:
+        b, info, warmed = spec_batcher(cfg, card, draft, **kw)
+        comps, stats = spec_run(torch, cfg, b, reqs, label)
+        no_new_graphs(b, warmed, label)
+        identical, gaps = divergence_gaps(ref, dict(enumerate(
+            streams(comps))), next_logits, label)
+        stats.update(streams_identical=identical, divergence_gaps=gaps,
+                     warmup_seconds=info["seconds"],
+                     warmup_graphs=len(info["compiled"]),
+                     graph_pool_mib=b._graphs.pool_bytes / 2 ** 20,
+                     captures_after_warmup=0)
+        if draft == "self":
+            need(stats["acceptance_rate"] >= 0.9, f"{label}: a self-draft "
+                 f"accepted only {stats['acceptance_rate']}")
+        say(f"  {label}: " + json.dumps(stats))
+        spec_say(label, stats, stats5)
+        out[label] = stats
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["f self-draft sampled"] = spec_sampled(torch, np, cfg, card, params,
+                                               reqs)
+    out["g static prefix"] = spec_prefix(torch, np, cfg, card, params,
+                                         base14, stats14)
+    out["h weight swaps"] = spec_swaps(torch, np, cfg, card, reqs)
+    out["i speculative_generate"] = spec_generate(torch, cfg, card)
+    out["j replica --draft"] = spec_replica(torch, cfg, reqs, ref,
+                                            next_logits, stats5)
+    return out
+
+
+def spec_sampled(torch, np, cfg, card, params, reqs):
+    """(f): phase 5's traffic sampled (:data:`SPEC_SAMPLED`, the same rng
+    key) without and with the self-draft.  A proposal is drawn under the
+    target-only stream's key of its position, but a round's last token
+    (the bonus after k accepted proposals, or the correction at a
+    rejection) under ``fold_in(key, 2)``: a stream follows the
+    target-only one up to its first round's bonus (token k+1) and forks
+    there, by design.  Every stream is held to the target-only draw by
+    the sampled margin rule up to its first difference, the forks are
+    counted and printed, and the self-draft's acceptance must be
+    high."""
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.ops import prng
+    from tfmesos_tpu_torch.serving import ContinuousBatcher
+
+    label = "f self-draft sampled"
+    seed = 7
+    rng = prng.PRNGKey(seed, "cuda")
+    plain = ContinuousBatcher(cfg, card, rows=8, page_size=64,
+                              prefill_bucket=64, rng=rng, device="cuda",
+                              **SPEC_SAMPLED)
+    plain.warmup()
+    want, wstats = serve_run(torch, cfg, plain, reqs, False)
+    del plain
+    b, info, warmed = spec_batcher(cfg, card, "self", rng=rng,
+                                   **SPEC_SAMPLED)
+    comps, stats = spec_run(torch, cfg, b, reqs, label)
+    no_new_graphs(b, warmed, label)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = _to(params, "cpu")
+    by_rid = {c.rid: c for c in want}
+    identical, forks, checked = 0, [], 0
+    for c in sorted(comps, key=lambda c: c.rid):
+        w = by_rid[c.rid].tokens
+        n = next((j for j in range(len(w)) if w[j] != c.tokens[j]), len(w))
+        if n == len(w):
+            identical += 1
+        else:
+            forks.append({"stream": c.rid, "token": n})
+        if n == 0 or c.rid >= 6:
+            continue
+        prompt = [int(x) for x in c.request.prompt]
+        seq = torch.tensor([prompt + c.tokens[:n - 1]])
+        with torch.no_grad():
+            ref = tt.forward(cpu_cfg, cpu_params, seq)[
+                0, len(prompt) - 1:].float()
+        keys = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), c.rid),
+                            torch.arange(n))
+        ch, _, _ = sampled_margin(torch, ref, torch.tensor(c.tokens[:n]),
+                                  prng.gumbel(keys, (cfg.vocab_size,)),
+                                  SPEC_SAMPLED)
+        checked += ch
+    need(checked >= MIN_CHECKED, f"{label}: only {checked} positions above "
+         f"the margin")
+    need(stats["acceptance_rate"] >= 0.9, f"{label}: a self-draft accepted "
+         f"only {stats['acceptance_rate']}")
+    stats.update(streams_identical=identical, forks=forks,
+                 margin_checked=checked, warmup_seconds=info["seconds"],
+                 divergence_gaps=forks, captures_after_warmup=0)
+    say(f"  {label}: " + json.dumps(stats))
+    say(f"  {label}: {identical} of {len(comps)} streams identical to the "
+        f"target-only sampled run's, {len(forks)} fork at a round's bonus "
+        f"or correction draw ({forks}); tokens a round "
+        f"{stats['tokens_per_round']:.3f}, "
+        f"acceptance {stats['acceptance_rate']:.4f}; ms a dispatch "
+        f"{stats['ms_per_dispatch']:.4f} (target-only tick "
+        f"{wstats['ms_per_tick']:.4f}), decode tok/s "
+        f"{stats['decode_tok_per_s']:.1f} (target-only "
+        f"{wstats['decode_tok_per_s']:.1f}), TTFT mean "
+        f"{stats['ttft_ms_mean']:.3f} (target-only "
+        f"{wstats['ttft_ms_mean']:.3f})")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def spec_prefix(torch, np, cfg, card, params, base14, stats14):
+    """(g): phase 14's traffic as prompts after ``prefix=`` its 512-token
+    system prompt (prefilled once into shared pages; the prompts then
+    prefill as chunks over the paged pool), with the self-draft, against
+    phase 14 (a)'s prefix-cache run of the whole prompts."""
+    from tfmesos_tpu_torch.serving import Request
+
+    label = "g static prefix + self-draft"
+    reqs14 = phase14_requests(np, cfg)
+    system = reqs14[0].prompt[:SYSTEM_LEN]
+    need(all(np.array_equal(r.prompt[:SYSTEM_LEN], system) for r in reqs14),
+         f"{label}: phase 14's prompts do not share their system prompt")
+    reqs = [Request(r.prompt[SYSTEM_LEN:], r.max_new_tokens)
+            for r in reqs14]
+    b, info, warmed = spec_batcher(cfg, card, "self", prefix=system)
+    need(b.prefix_len == SYSTEM_LEN and b.t_side.shared_len == SYSTEM_LEN
+         and b.d_side.shared_len == SYSTEM_LEN,
+         f"{label}: shared {b.t_side.shared_len}")
+    widths = [n for n in info["compiled"] if n.startswith("prefill[")]
+    need(widths == [f"prefill[{w}]" for w in b._prefill_widths()]
+         and b._prefill_widths()[-1] == b.max_len - SYSTEM_LEN,
+         f"{label}: prefill widths {widths}")
+    comps, stats = spec_run(torch, cfg, b, reqs, label)
+    no_new_graphs(b, warmed, label)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def next_logits(i, prefix):
+        prompt = [int(x) for x in reqs14[i].prompt]
+        with torch.no_grad():
+            return forward_cpu(prompt + prefix)
+
+    def forward_cpu(seq):
+        from tfmesos_tpu_torch.models.transformer import forward
+
+        return forward(cpu_cfg, params, torch.tensor([seq]))[0, -1]
+
+    identical, gaps = divergence_gaps(dict(enumerate(streams(base14))),
+                                      dict(enumerate(streams(comps))),
+                                      next_logits, label)
+    stats.update(streams_identical=identical, divergence_gaps=gaps,
+                 warmup_seconds=info["seconds"],
+                 warmup_graphs=len(info["compiled"]),
+                 captures_after_warmup=0)
+    ref = stats14["graphed"]
+    say(f"  {label}: " + json.dumps(stats))
+    say(f"  {label}: {identical} of {len(comps)} streams identical to "
+        f"phase 14 (a)'s prefix-cache run, {len(gaps)} differ first at a "
+        f"near-tie; TTFT mean {stats['ttft_ms_mean']:.3f} p50 "
+        f"{stats['ttft_ms_p50']:.3f} (phase 14 (a): "
+        f"{ref['ttft_ms_mean']:.3f} / {ref['ttft_ms_p50']:.3f}); ms a "
+        f"dispatch {stats['ms_per_dispatch']:.4f}, acceptance "
+        f"{stats['acceptance_rate']:.4f}")
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def param_ptrs(tree):
+    """Every tensor's address in a param tree, in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += param_ptrs(v)
+        elif hasattr(v, "values") and hasattr(v, "scales"):
+            out += [v.values.data_ptr(), v.scales.data_ptr()]
+        else:
+            out.append(v.data_ptr())
+    return out
+
+
+def spec_swaps(torch, np, cfg, card, reqs):
+    """(h): a warmed batcher serves the first half of phase 5's traffic,
+    ``set_weights`` to the seed-1 flagship, the second half, then a
+    ``swap_adapter`` delta on ``embed`` and the second half again.  The
+    updates copy into the captured graphs' parameter tensors (the same
+    addresses), nothing is captured after warmup, the post-swap runs'
+    launch counts are exact, and their streams equal a fresh batcher's
+    built on those weights."""
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    label = "h weight swaps"
+    kw = dict(rows=8, page_size=64, prefill_bucket=64, device="cuda")
+    b = ContinuousBatcher(cfg, card, **kw)
+    b.warmup()
+    warmed = b._graphs.keys()
+    ptrs = param_ptrs(b.params)
+    half = len(reqs) // 2
+
+    def again(rs):
+        return [Request(r.prompt.copy(), r.max_new_tokens) for r in rs]
+
+    list(b.run(again(reqs[:half])))
+    _, other = flagship_model(seed=1, max_len=1024)
+    t0 = time.perf_counter()
+    b.set_weights(other, version="seed1")
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    comps, launches, _, _ = counted_run(torch, cfg, b, again(reqs[half:]),
+                                        False, f"{label} (after set_weights)")
+    second = streams(comps)
+    rs = np.random.RandomState(20)
+    delta = {"embed": (0.5 * rs.standard_normal(
+        (cfg.vocab_size, cfg.d_model))).astype(np.float32)}
+    t0 = time.perf_counter()
+    b.swap_adapter(delta, "embed-noise")
+    torch.cuda.synchronize()
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    comps, launches3, _, _ = counted_run(torch, cfg, b, again(reqs[half:]),
+                                         False,
+                                         f"{label} (after swap_adapter)")
+    third = streams(comps)
+    no_new_graphs(b, warmed, label)
+    need(param_ptrs(b.params) == ptrs, f"{label}: a swap moved a parameter "
+         f"tensor (the graphs read the old address)")
+    fresh = ContinuousBatcher(cfg, _cuda(other), **kw)
+    want2 = streams(list(fresh.run(again(reqs[half:]))))
+    del fresh
+    folded = dict(other, embed=other["embed"] + torch.from_numpy(
+        delta["embed"]))
+    fresh = ContinuousBatcher(cfg, _cuda(folded), **kw)
+    want3 = streams(list(fresh.run(again(reqs[half:]))))
+    del fresh
+    need(second == want2, f"{label}: after set_weights the streams differ "
+         f"from a fresh batcher's on the seed-1 weights")
+    need(third == want3, f"{label}: after swap_adapter the streams differ "
+         f"from a fresh batcher's on the folded weights")
+    need(third != second, f"{label}: the fold changed no stream")
+    stats = {"weight_swaps": b.weight_swaps,
+             "adapter_version": b.adapter_version, "set_weights_ms": set_ms,
+             "swap_adapter_ms": fold_ms, "requests_per_half": half,
+             "post_swap_streams_equal_fresh": True,
+             "parameter_addresses_kept": True, "captures_after_warmup": 0,
+             "launches": {k: launches[k] + launches3[k] for k in launches}}
+    need(b.weight_swaps == 2, f"{label}: weight_swaps {b.weight_swaps}")
+    say(f"  {label}: " + json.dumps(stats))
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def spec_generate(torch, cfg, card):
+    """(i): ``speculative_generate`` in bf16, batch 4, prompt 128, 256 new
+    tokens, with the preset draft and with the self-draft, against
+    ``generate`` on the same prompt: the linear-cache kernel at the
+    verify's t = 5 and the draft's t = 1 (head_dim 32 for the preset),
+    the forward kernel for both prefills.  Streams by the margin rule
+    against generate's, exact launch counts (the round count read back
+    from them), ms a round and tokens/s beside generate's."""
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.models.presets import flagship_draft_model
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    batch, plen, new, k = 4, 128, 256, SPEC_N_DRAFT
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(40)).cuda()
+    with torch.no_grad():
+        tt.generate(cfg, card, prompt, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = tt.generate(cfg, card, prompt, new)
+        torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    depth = tt.speculative_cache_depth(plen, new, k)
+    out = {"generate_tok_per_s": batch * new / gen_s, "generate_s": gen_s}
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu = _to(card, "cpu")
+    for name in ("preset draft", "self-draft"):
+        if name == "self-draft":
+            dcfg, dparams = cfg, card
+        else:
+            dcfg, dparams = flagship_draft_model(seed=1, max_len=1024,
+                                                 n_draft=k, device="cuda")
+
+        def run():
+            with torch.no_grad():
+                return tt.speculative_generate(cfg, card, dcfg, dparams,
+                                               prompt, new, n_draft=k)
+
+        run()
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        L, Ld = cfg.n_layers, dcfg.n_layers
+        per_round = Ld * (k + 1) + L
+        rounds = launches["flash_decode"] // per_round
+        qt = torch.empty((batch, k + 1, cfg.n_heads, cfg.head_dim),
+                         device="cuda")
+        qd = torch.empty((batch, 1, dcfg.n_heads, dcfg.head_dim),
+                         device="cuda")
+        split_t = ta._decode_plan(qt, cfg.kv_heads, depth) > 1
+        split_d = ta._decode_plan(qd, dcfg.kv_heads, depth) > 1
+        want = {"flash_fwd": L + Ld, "flash_decode": rounds * per_round,
+                "flash_decode_merge": rounds * (Ld * (k + 1) * split_d
+                                                + L * split_t),
+                "flash_decode_paged": 0, "flash_decode_paged_merge": 0,
+                "quant_int8": 0, "quant_int8_commit": 0, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        need(launches == want and rounds >= -(-(new - 1) // (k + 1)),
+             f"speculative_generate ({name}) launches {launches} != {want}")
+        ref = {i: base[i, plen:].tolist() for i in range(batch)}
+        have = {i: got[i, plen:].tolist() for i in range(batch)}
+
+        def next_logits(i, prefix):
+            with torch.no_grad():
+                return tt.forward(cpu_cfg, cpu, torch.tensor(
+                    [prompt[i].tolist() + prefix]))[0, -1]
+
+        identical, gaps = divergence_gaps(ref, have, next_logits,
+                                          f"speculative_generate ({name})")
+        row = {"rounds": rounds, "tokens_per_round": batch * (new - 1)
+               / (rounds * batch), "seconds": secs,
+               "ms_per_round": secs / rounds * 1e3,
+               "tok_per_s": batch * new / secs,
+               "streams_identical": identical, "divergence_gaps": gaps,
+               "cache_slots": depth, "launches": launches}
+        say(f"  i speculative_generate ({name}): " + json.dumps(row))
+        say(f"  i speculative_generate ({name}): {identical} of {batch} "
+            f"rows identical to generate's, {len(gaps)} differ first at a "
+            f"near-tie; {rounds} rounds, {row['tokens_per_round']:.3f} "
+            f"tokens a round a row, ms a round {row['ms_per_round']:.4f}, "
+            f"tok/s {row['tok_per_s']:.1f} (generate "
+            f"{out['generate_tok_per_s']:.1f})")
+        out[name] = row
+    return out
+
+
+def spec_replica(torch, cfg, reqs, ref, next_logits, stats5):
+    """(j): ``python -m tfmesos_tpu_torch.fleet.replica --warmup --rows 8
+    --draft`` as a process behind the port's registry, phase 5's traffic
+    over the wire: streams by the margin rule against phase 5's, the
+    replica's launches held to its counters (n_layers flash_fwd a
+    prefill; paged launches n_layers a round and a prefill-time draft
+    chunk of the draft's layers, k+1 draft steps a round), and the
+    registry's spec gauge reading the replica's rounds and acceptance."""
+    import os
+    import signal
+    import threading
+
+    from tfmesos_tpu_torch import wire
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+    from tfmesos_tpu_torch.fleet.registry import ReplicaRegistry
+    from tfmesos_tpu_torch.models.presets import flagship_draft_model
+
+    token = wire.new_token()
+    registry = ReplicaRegistry(token=token).start()
+    env = dict(os.environ, TPUMESOS_TOKEN=token)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TPUMESOS_TOKEN_FILE", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tfmesos_tpu_torch.fleet.replica",
+         "--warmup", "--rows", "8", "--draft", "--n-draft",
+         str(SPEC_N_DRAFT), "--registry", registry.addr,
+         "--heartbeat-interval", "0.1"], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    timer = threading.Timer(300.0, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("replica serving on"):
+                break
+        timer.cancel()
+        need(lines and lines[-1].startswith("replica serving on"),
+             f"20 (j): no serving line: {lines[-20:]}")
+        addr = lines[-1].split()[3]
+        links = [MuxConnection(addr, token) for _ in range(4)]
+        try:
+            completions(wire_calls(links[:1],
+                                   [generate_msg(range(1, 9), 2)])[0],
+                        "20 (j) warm-up")
+            before = settled_stats([addr], token)
+            replica_stats([addr], token, reset=True)
+            t1 = time.perf_counter()
+            replies, parts, first = wire_calls(links, phase5_msgs(reqs))
+            wall = time.perf_counter() - t1
+            after = settled_stats([addr], token)
+        finally:
+            for link in links:
+                link.close()
+        got = completions(replies, "20 (j)")
+        identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                          next_logits, "20 (j)")
+        a, bef = after[addr], before[addr]
+        d = {k: n - bef["counters"][k] for k, n in a["counters"].items()}
+        dcfg = flagship_draft_model(max_len=1024)[0]
+        L, Ld, k1 = cfg.n_layers, dcfg.n_layers, SPEC_N_DRAFT + 1
+        launches = a["launches"]
+        need(launches["flash_fwd"] == L * d["prefills"]
+             and launches["flash_decode_paged"]
+             == L * d["decode_ticks"] + Ld * (k1 * d["decode_ticks"]
+                                              + d["prefills"])
+             and d["spec_rounds"] > 0
+             and not any(launches[x] for x in IDLE_IN_A_REPLICA),
+             f"20 (j): the replica launched {launches} for its counters "
+             f"{d}")
+        rounds = a["counters"]["spec_rounds"]
+        wait_deadline = time.monotonic() + 10.0
+        spec = None
+        while time.monotonic() < wait_deadline:
+            info = next((r for r in registry.members() if r.addr == addr),
+                        None)
+            spec = getattr(info, "spec", None)
+            if isinstance(spec, dict) and spec.get("rounds") == rounds:
+                break
+            time.sleep(0.1)
+        gauge = registry.spec_summary()
+        need(isinstance(spec, dict) and spec.get("rounds") == rounds
+             and gauge.get("replicas") == 1
+             and gauge.get("rounds") == rounds
+             and "acceptance_rate" in gauge,
+             f"20 (j): the registry's spec gauge {gauge} / beat {spec} for "
+             f"{rounds} rounds")
+        proc.send_signal(signal.SIGTERM)
+        tail, _ = proc.communicate(timeout=60)
+        need(proc.returncode == 0, f"20 (j): exit code {proc.returncode}: "
+             f"{tail[-2000:]}")
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        registry.stop()
+    timing = wire_ttft(replies, parts, first, "20 (j)")
+    out = {"requests": len(got), "wall_s": wall, **timing,
+           "streams_identical": identical, "divergence_gaps": gaps,
+           "spec_gauge": gauge, "launches": launches, "counters": d}
+    say("  (j) " + json.dumps(out))
+    say(f"  (j) the --draft replica process: {identical} of {len(got)} "
+        f"streams identical to phase 5's, {len(gaps)} differ first at a "
+        f"near-tie; the registry's spec gauge {json.dumps(gauge)}")
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -4836,6 +5590,8 @@ def main() -> int:
     front = timed("front door", phase_front_door, torch, np, cfg, params,
                   reqs, streams(comps))
     sessions = timed("sessions", phase_sessions, torch, np)
+    spec = timed("speculative", phase_spec, torch, np, reqs, streams(comps),
+                 stats, bases14["prefix cache"], fleet["prefix cache"])
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -4869,7 +5625,19 @@ def main() -> int:
                 for label, row in sessions["b"]["runs"].items()},
              "sessions (c) front door (processes)":
                  sessions["c"]["launches"],
-             "sessions (d) fabric (processes)": sessions["d"]["launches"]}
+             "sessions (d) fabric (processes)": sessions["d"]["launches"],
+             **{f"spec {label}": spec[label]["launches"]
+                for label in ("a preset draft", "b self-draft",
+                              "c self-draft multi_step=8",
+                              "d self-draft overlap",
+                              "e self-draft int8 draft pool",
+                              "f self-draft sampled", "g static prefix",
+                              "h weight swaps")},
+             **{f"spec i speculative_generate {name}":
+                spec["i speculative_generate"][name]["launches"]
+                for name in ("preset draft", "self-draft")},
+             "spec j replica --draft (process)":
+                 spec["j replica --draft"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

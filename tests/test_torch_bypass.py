@@ -1,12 +1,11 @@
 """The port's bypass registry against the reference's
 (``serving.compute_bypass_reasons``): over the whole flag grid the
-port accepts (the schedule modes ``pipeline_depth``, ``overlap``,
-``multi_step``, and ``fused_prefill`` with ``tokens_per_tick``), the
-same reasons, on the registry and on a live batcher alike; every reason
-within ``BYPASS_ALLOWLIST`` (the same allowlist, key for key); a mode
-the port does not have yet (speculation, a mesh, a static prefix, the
-draft arguments) raises ``NotImplementedError``, never silently
-ignored."""
+port accepts (speculation and its int8 draft pool, the schedule modes
+``pipeline_depth``, ``overlap``, ``multi_step``, and ``fused_prefill``
+with ``tokens_per_tick``), the same reasons, on the registry and on a
+live batcher alike; every reason within ``BYPASS_ALLOWLIST`` (the same
+allowlist, key for key); the one mode the port does not have yet, a
+mesh, raises ``NotImplementedError``, never silently ignored."""
 
 import itertools
 
@@ -49,10 +48,22 @@ UNPORTED = [dict(speculative=True), dict(draft_quantized_cache=True),
 @pytest.mark.parametrize("flags", UNPORTED,
                          ids=lambda f: next(iter(f)))
 def test_unported_modes_raise(flags):
+    """A mesh still raises; speculation and the int8 draft pool (with and
+    without speculation) now give the reference's reasons."""
     for q in (False, True):
-        with pytest.raises(NotImplementedError):
-            ts.compute_bypass_reasons(quantized_cache=q, **flags)
-        js.compute_bypass_reasons(quantized_cache=q, **flags)
+        for spec in (False, True):
+            kw = dict(flags, quantized_cache=q)
+            if "speculative" not in flags:
+                kw["speculative"] = spec
+            want = js.compute_bypass_reasons(**kw)
+            if "n_shards" in flags:
+                with pytest.raises(NotImplementedError):
+                    ts.compute_bypass_reasons(**kw)
+                continue
+            got = ts.compute_bypass_reasons(**kw)
+            assert got == want
+            for reg, val in got.items():
+                assert val is None or val in ts.BYPASS_ALLOWLIST[reg]
 
 
 LAG_MODES = [dict(pipeline_depth=1), dict(overlap=True), dict(multi_step=2)]
@@ -73,14 +84,15 @@ GRID = list(itertools.product((False, True), (1, 2), (0, 1), (False, True),
                          ids=lambda v: str(int(v)))
 def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
                                                            ov, ms):
-    """The whole flag grid: without speculation or a mesh the port's
-    reasons are the reference's (and within the allowlist); with either
-    it raises."""
-    for q in (False, True):
+    """The whole flag grid, an int8 target and draft pool each way:
+    without a mesh the port's reasons are the reference's (and within
+    the allowlist); with one it raises."""
+    for q, dq in itertools.product((False, True), repeat=2):
         flags = dict(speculative=spec, n_shards=shards, pipeline_depth=pd,
-                     overlap=ov, multi_step=ms, quantized_cache=q)
+                     overlap=ov, multi_step=ms, quantized_cache=q,
+                     draft_quantized_cache=dq)
         want = js.compute_bypass_reasons(**flags)
-        if spec or shards != 1:
+        if shards != 1:
             with pytest.raises(NotImplementedError):
                 ts.compute_bypass_reasons(**flags)
             continue
@@ -95,10 +107,41 @@ def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
     dict(draft_cfg=object(), draft_params={}), dict(draft_n_pages=8)],
     ids=lambda kw: next(iter(kw)))
 def test_batcher_refuses_unported_modes(kw):
+    """A mesh is refused; a static prefix, a draft model and the draft
+    pool's size build a batcher that records the reference batcher's
+    reasons and geometry."""
+    from tfmesos_tpu.fleet.replica import tiny_draft_model as jax_draft
+    from tfmesos_tpu.fleet.replica import tiny_model as jax_tiny_model
+
     cfg, params = presets.tiny_model()
-    with pytest.raises(NotImplementedError):
-        ts.ContinuousBatcher(cfg, params, rows=2, max_len=64, page_size=16,
-                             device="cpu", **kw)
+    base = dict(rows=2, max_len=64, page_size=16, prefill_bucket=16)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError):
+            ts.ContinuousBatcher(cfg, params, device="cpu", **base, **kw)
+        return
+    jkw, tkw = dict(kw), dict(kw)
+    if "draft_cfg" in kw or "draft_n_pages" in kw:
+        jkw.update(zip(("draft_cfg", "draft_params"),
+                       jax_draft(max_len=64)))
+        tkw.update(zip(("draft_cfg", "draft_params"),
+                       presets.tiny_draft_model(max_len=64)))
+    b = ts.ContinuousBatcher(cfg, params, device="cpu", **base, **tkw)
+    jcfg, jparams = jax_tiny_model(seed=0)
+    jb = js.ContinuousBatcher(jcfg, jparams, **base, **jkw)
+    for attr in ("prefix_len", "n_pages", "pipeline_bypass_reason",
+                 "overlap_bypass_reason", "multi_step_bypass_reason",
+                 "suspend_bypass_reason", "fused_prefill_bypass_reason",
+                 "preemptible", "_spec_rounds"):
+        assert getattr(b, attr) == getattr(jb, attr), attr
+    for side in ("t_side", "d_side"):
+        ps, js_ = getattr(b, side), getattr(jb, side)
+        assert (ps is None) == (js_ is None)
+        if ps is not None:
+            assert (ps.n_pages, ps.sink, ps.shared_pages, ps.shared_len,
+                    ps.tail_template) == (js_.n_pages, js_.sink,
+                                          js_.shared_pages, js_.shared_len,
+                                          js_.tail_template)
+    assert b.paged_launches_per_block() == jb.paged_launches_per_block()
 
 
 MODES = {"overlap": dict(overlap=True), "multi_step": dict(multi_step=2),

@@ -1,7 +1,9 @@
 """The port's ``tfserve`` (``python -m tfmesos_tpu_torch.cli``): its
 parser carries every flag of the JAX ``build_serve_parser`` with the
 same default, bad flags exit 2 with the JAX message, every flag and
-subcommand not ported yet exits 2 naming its ROADMAP item, ``serve``
+subcommand not ported yet exits 2 naming its ROADMAP item, ``--draft``
+and ``--n-draft`` reach the replica command line as the JAX fleet puts
+them there, ``serve``
 brings up a tiny CPU fleet and stops it on ctrl-c, and ``submit``,
 ``metrics``, ``trace`` and ``gateways`` work against it."""
 
@@ -75,6 +77,26 @@ def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
     rc, err = _run(cli.serve_main, [flag] + value, capsys)
     assert rc == 2
     assert err == [f"tfserve: not ported yet: {flag} (ROADMAP {item})"]
+
+
+@pytest.mark.parametrize("argv", [["--draft"], ["--draft", "--n-draft", "2"]],
+                         ids=["--draft", "--n-draft"])
+def test_draft_flags_reach_every_replica(argv):
+    """``--draft`` / ``--n-draft`` (speculative decoding, ported) build a
+    fleet whose replica command carries them as the JAX fleet's does."""
+    from tfmesos_tpu.fleet import launcher as jax_launcher
+
+    args = cli.build_serve_parser().parse_args(argv + ["--tiny"])
+    fleet = cli._build_fleet(args, {}, None, TOKEN)
+    jargs = jax_cli.build_serve_parser().parse_args(argv + ["--tiny"])
+    jfleet = jax_launcher.FleetServer(replicas=1, tiny=True,
+                                      draft=jargs.draft,
+                                      n_draft=jargs.n_draft)
+    stub = SimpleNamespace(addr="127.0.0.1:1")
+    fleet.registry = jfleet.registry = stub
+    want = f"--draft --n-draft {jargs.n_draft}"
+    assert (fleet.draft, fleet.n_draft) == (jfleet.draft, jfleet.n_draft)
+    assert want in fleet._replica_cmd() and want in jfleet._replica_cmd()
 
 
 @pytest.mark.parametrize("sub", sorted(cli.NOT_PORTED_SUBCOMMANDS))

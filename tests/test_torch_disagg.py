@@ -89,9 +89,9 @@ def test_jax_export_imports_into_port(models, int8):
 def _reexport_port(b, art, req):
     """Install ``art`` into a port row and export that row again."""
     active = {}
-    wt, need = b._worst_pages(req)
+    wt, wd, need = b._worst_pages(req)
     row, state, first = b._admit_import(0, ts.Prefilled(req, art), wt,
-                                        need, active)
+                                        wd, need, active)
     state.out = [first]                 # what the burst's sync records
     try:
         return b._export_row(row, active[row])

@@ -225,8 +225,21 @@ def test_no_card_no_fallback(capfd):
     ("batch_lane", True), ("master", "zk://x")])
 def test_options_not_ported_are_refused_by_name(option, value):
     """Each waits with its ROADMAP item; its JAX default asks for
-    nothing and is accepted."""
+    nothing and is accepted.  ``draft`` is ported: it is accepted and
+    puts ``--draft --n-draft`` on the replica command line, and a bad
+    ``n_draft`` is the JAX fleet's ValueError."""
     from tfmesos_tpu_torch.fleet.launcher import _NOT_PORTED
+
+    if option == "draft":
+        from types import SimpleNamespace
+
+        assert option not in _NOT_PORTED
+        fleet = FleetServer(replicas=1, draft=value, n_draft=3)
+        fleet.registry = SimpleNamespace(addr="127.0.0.1:1")
+        assert "--draft --n-draft 3" in fleet._replica_cmd()
+        with pytest.raises(ValueError, match="n_draft must be >= 1"):
+            FleetServer(replicas=1, draft=True, n_draft=0)
+        return
 
     with pytest.raises(NotPorted, match=f"not ported yet: {option}.*"
                                         r"\(ROADMAP A\."):

@@ -109,9 +109,13 @@ def test_default_device_is_the_card_with_no_fallback():
 
 
 def test_unported_option_exits_2_from_the_command_line():
+    """A gang launch (the mesh) is still refused from the command line,
+    with JAX blocked."""
+    env = dict(_env(), TPUMESOS_GANG_ID="g1", TPUMESOS_GANG_SIZE="2",
+               TPUMESOS_GANG_RANK="0")
     out = subprocess.run([sys.executable, "-c", BLOCKED, "--tiny",
                           "--device", "cpu", "--draft"],
-                         cwd=ROOT, env=_env(), capture_output=True,
+                         cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 2
-    assert "not ported yet: --draft" in out.stderr
+    assert "not ported yet: a gang launch" in out.stderr

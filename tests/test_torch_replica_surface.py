@@ -5,9 +5,11 @@ found and not found, ``kv_stage`` and its bounded stage (full, TTL
 expiry), unknown ``kv_ref``, ``wrong_model``, ``deadline_exceeded``,
 malformed prompts and artifacts, ``prefill`` to a unified replica,
 ``generate`` to a prefill replica, a full prefill queue, ``migrate``,
-``adopt``.  The hello and heartbeats carry the JAX replica's fields and
-the JAX registry reads them alike; ``rid_seed_for_node`` gives the JAX
-values; each option not ported yet is refused with exit code 2."""
+``adopt``, ``swap_adapter`` (raw and not).  The hello and heartbeats
+carry the JAX replica's fields and the JAX registry reads them alike;
+``rid_seed_for_node`` gives the JAX values; ``--draft`` and
+``--warm-pool`` replicas answer as the JAX ones do; a gang launch, not
+ported yet, is refused with exit code 2."""
 
 import threading
 import time
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 from torch_parity import (jax_compile_cache_off,  # noqa: F401
                           jax_replica, port_replica, replica_environ,
-                          slow_streams, stop_replica, tiny_models)
+                          slow_streams, stop_replica, tiny_draft_params,
+                          tiny_models)
 
 TOKEN = "replica-surface-token"
 ARGV = ["--tiny", "--rows", "4", "--model-id", "m1"]
@@ -297,11 +300,34 @@ def test_prefill_queue_full_same_reply():
 
 
 def test_swap_adapter_is_refused_as_not_ported(pair, prefill_pair):
+    """``swap_adapter`` on a unified and a prefill replica answers as the
+    JAX replica: a frame that is not raw, a bad label, an unknown path
+    and a malformed body are refused alike, and a raw frame applies and
+    answers ``adapter_swapped`` with the same swap count (a zero delta:
+    the module's later tests keep the weights)."""
+    from tfmesos_tpu.fleet import catalog as jcatalog
+    from tfmesos_tpu_torch.fleet import catalog
+
+    zero = {"embed": np.zeros((97, 32), np.float32)}
+    meta, body = catalog.pack_adapter(zero)
+    assert (meta, body) == jcatalog.pack_adapter(zero)
     for reps in (pair, prefill_pair):
-        got = _ask(reps["port"][0].addr, {"op": "swap_adapter",
-                                          "adapter_version": "a1"})
-        assert got["kind"] == "bad_request"
-        assert "not ported yet" in got["error"]
+        for msg, raw in (
+                ({"op": "swap_adapter", "adapter_version": "a1"}, None),
+                (dict(meta, op="swap_adapter", adapter_version="bad id"),
+                 body),
+                (dict(catalog.pack_adapter(
+                    {"nope": np.zeros(3, np.float32)})[0],
+                    op="swap_adapter", adapter_version="a1"), b"\0" * 12),
+                (dict(meta, op="swap_adapter", adapter_version="a1"),
+                 body[:-4]),
+                (dict(meta, op="swap_adapter", adapter_version="a1"),
+                 body)):
+            want, got = _both(reps, msg, raw)
+            assert got == want
+        assert got == {"op": "adapter_swapped", "id": 1,
+                       "adapter_version": "a1", "swaps": 1}
+        assert reps["port"][2].adapter_version == "a1"
 
 
 @pytest.mark.parametrize("node", ["", "replica:0", "replica:17",
@@ -322,14 +348,60 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_option_exits_2(case, monkeypatch, capsys):
+def test_unported_option_exits_2(case, monkeypatch, capsys, models):
+    """A gang launch is refused with exit code 2.  ``--draft`` and
+    ``--warm-pool`` are ported: a JAX and a port replica so started
+    answer alike (a speculative generate; ``adopt`` on a warm-pool
+    member, twice), and the adopted port replica's stream is a port
+    batcher's on that seed's preset (the JAX replica adopts the JAX
+    preset's weights, which differ)."""
     from tfmesos_tpu_torch.fleet import replica as pr
 
     argv, env = REFUSED[case]
-    for k, v in (env or {}).items():
-        monkeypatch.setenv(k, v)
-    assert pr.main(["--tiny", "--device", "cpu"] + argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    if case == "gang":
+        for k, v in (env or {}).items():
+            monkeypatch.setenv(k, v)
+        assert pr.main(["--tiny", "--device", "cpu"] + argv) == 2
+        assert "not ported yet" in capsys.readouterr().err
+        return
+    base = ["--tiny", "--rows", "2"] + argv
+    if case == "draft":
+        base += ["--n-draft", "3"]
+    draft = tiny_draft_params(n_draft=3)[2] if case == "draft" else None
+    reps = {"jax": jax_replica(base, TOKEN),
+            "port": port_replica(base, TOKEN, params=models[3],
+                                 draft_params=draft)}
+    try:
+        gen = {"op": "generate", "prompt": [5, 6, 7, 8],
+               "max_new_tokens": 9}
+        msgs = ([gen] if case == "draft" else
+                [{"op": "adopt", "model_id": "m2", "seed": 1},
+                 {"op": "adopt", "model_id": "m3", "seed": 2}])
+        for msg in msgs:
+            want, got = _both(reps, msg)
+            for r in (want, got):
+                r.pop("ttft_ms", None), r.pop("total_ms", None)
+            assert got == want
+        if case == "draft":
+            assert got["op"] == "completion"
+            for k in ("spec_rounds", "spec_row_rounds", "spec_committed"):
+                assert getattr(reps["port"][2], k) == \
+                    getattr(reps["jax"][2], k), k
+            return
+        from tfmesos_tpu_torch import serving as ts
+        from tfmesos_tpu_torch.models import presets
+
+        assert got["kind"] == "bad_request"     # adopted once only
+        got = _ask(reps["port"][0].addr, dict(gen, model="m2"))
+        fresh = ts.ContinuousBatcher(*presets.tiny_model(1), rows=2,
+                                     device="cpu")
+        want = next(iter(fresh.run([ts.Request(np.array(gen["prompt"]),
+                                               gen["max_new_tokens"])])))
+        assert got["op"] == "completion" and got["tokens"] == want.tokens
+        assert reps["port"][2].weight_swaps == 1
+    finally:
+        for r in reps.values():
+            stop_replica(r)
 
 
 @pytest.mark.parametrize("argv", [["--kv-replication", "9"],

@@ -384,12 +384,14 @@ def _seam_batcher(port):
 
 
 def test_on_evict_runs_before_the_page_frees(sides):
-    """``on_evict(shard, digest, page)`` sees the evicted node's page
-    while it is still off the free list."""
+    """``on_evict(shard, digest, page, dpage)`` sees the evicted node's
+    page while it is still off the free list (``dpage`` None: no draft
+    twin)."""
     _, port = sides
     b, seen = _seam_batcher(port), []
 
-    def hook(shard, digest, page):
+    def hook(shard, digest, page, dpage):
+        assert dpage is None
         seen.append((shard, digest, page, page in b.alloc.free))
 
     b._pcache.on_evict = hook

@@ -101,9 +101,9 @@ def jax_replica(argv, token: str, environ=None):
     """A JAX replica in this process, assembled as
     ``tfmesos_tpu/fleet/replica.py:main`` assembles it (``:1366-1629``:
     build, the KV fabric behind ``--registry`` when ``--kv-tier-mb`` /
-    ``--kv-tier-dir`` give a tier, handler, heartbeat fields, register,
-    warm up, serve) without the gang, adoption and the signal wait.
-    Returns (server, serving or None, batcher)."""
+    ``--kv-tier-dir`` give a tier, the warm-pool adoption, handler,
+    heartbeat fields, register, warm up, serve) without the gang and the
+    signal wait.  Returns (server, serving or None, batcher)."""
     from tfmesos_tpu.fleet import replica as jr
 
     args = jr.build_parser().parse_args(argv)
@@ -124,9 +124,46 @@ def jax_replica(argv, token: str, environ=None):
                           replication=args.kv_replication,
                           placement=args.kv_placement)
         batcher.kv_tier = fabric
-    model_state = {"model_id": args.model_id or "", "warm_pool": False,
-                   "pool_capable": False}
+    model_state = {"model_id": args.model_id or "",
+                   "warm_pool": bool(args.warm_pool),
+                   "pool_capable": bool(args.warm_pool)}
     cell = []
+
+    def adopt_fn(head, reply):          # fleet/replica.py:1440-1485
+        from tfmesos_tpu.fleet.registry import validate_model_id
+
+        mid = head.get("id")
+        try:
+            model_id = validate_model_id(head.get("model_id"))
+            seed = int(head.get("seed") or 0)
+        except (TypeError, ValueError) as e:
+            reply({"op": "error", "id": mid, "kind": "bad_request",
+                   "error": str(e)})
+            return
+        if model_state["model_id"] or model_state.get("adopting"):
+            reply({"op": "error", "id": mid, "kind": "bad_request",
+                   "error": f"already serving model "
+                            f"{model_state['model_id'] or '(adopting)'!r}"
+                            f"; adoption is a warm-pool-only "
+                            f"transition"})
+            return
+        model_state["adopting"] = True
+        if args.tiny:
+            _, new_params = jr.tiny_model(seed)
+        else:
+            _, new_params = jr.flagship_model(seed,
+                                              max_len=args.max_len or 1024)
+
+        def applied():
+            model_state["model_id"] = model_id
+            model_state["warm_pool"] = False
+            model_state["adopting"] = False
+            reply({"op": "adopted", "id": mid, "model_id": model_id})
+
+        batcher.set_weights(
+            new_params,
+            version=f"{args.weights_version or 'v0'}@{model_id}",
+            on_applied=applied)
 
     def self_addr():
         return cell[0].addr if cell else ""
@@ -139,7 +176,8 @@ def jax_replica(argv, token: str, environ=None):
         serving = jr.BatcherServing(batcher)
         handler = jr.batcher_handler(serving, generation=generation,
                                      weights_version=args.weights_version,
-                                     model_state=model_state, token=token,
+                                     model_state=model_state,
+                                     adopt_fn=adopt_fn, token=token,
                                      self_addr=self_addr)
     if fabric is not None:              # fleet/replica.py:1530-1533
         handler = jr.fabric_handler(fabric, handler)
@@ -153,11 +191,19 @@ def jax_replica(argv, token: str, environ=None):
             beat["node"] = node
         if model_state["model_id"]:
             beat["model_id"] = model_state["model_id"]
+        if model_state["pool_capable"]:
+            beat["warm_pool"] = bool(model_state["warm_pool"])
         beat["adapter_version"] = getattr(batcher, "adapter_version", "")
         if batcher.prefix_cache_active:
             beat["prefix_cache"] = batcher.prefix_cache_summary()
         if tiered:
             beat["kv_tier"] = batcher.kv_tier.summary()
+        if batcher.d_side is not None:
+            beat["spec"] = {"acceptance_rate": batcher.acceptance_rate,
+                            "rounds": batcher.spec_rounds,
+                            "row_rounds": batcher.spec_row_rounds,
+                            "committed": batcher.spec_committed,
+                            "n_draft": batcher.n_draft}
         return beat
 
     server = jr.ReplicaServer(
@@ -178,7 +224,8 @@ def jax_replica(argv, token: str, environ=None):
     return server, serving, batcher
 
 
-def port_replica(argv, token: str, params=None, environ=None):
+def port_replica(argv, token: str, params=None, environ=None,
+                 draft_params=None):
     """The port's replica in this process through its own
     ``start_replica`` (``--device cpu`` appended)."""
     from tfmesos_tpu_torch.fleet import replica as pr
@@ -186,7 +233,21 @@ def port_replica(argv, token: str, params=None, environ=None):
     args = pr.build_parser().parse_args(list(argv) + ["--device", "cpu"])
     environ = replica_environ() if environ is None else environ
     return pr.start_replica(args, token=token, params=params,
-                            environ=environ)
+                            environ=environ, draft_params=draft_params)
+
+
+def tiny_draft_params(max_len: int = 128, n_draft: int = 4):
+    """The JAX replica's tiny draft (``tiny_draft_model``: its default
+    seed) carried across to the port: (JAX config, JAX params, port
+    params)."""
+    import jax
+
+    from tfmesos_tpu.fleet.replica import tiny_draft_model
+    from tfmesos_tpu_torch import convert
+
+    dcfg, dparams = tiny_draft_model(max_len=max_len, n_draft=n_draft)
+    return dcfg, dparams, convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, dparams))
 
 
 def stop_replica(replica) -> None:

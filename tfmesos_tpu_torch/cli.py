@@ -45,8 +45,6 @@ NOT_PORTED_FLAGS = (
     ("--gang-size", "gang_size", 1, "A.9"),
     ("--gateway-processes", "gateway_processes", 0, "A.12"),
     ("--http-port", "http_port", None, "A.12"),
-    ("--draft", "draft", False, "A.8"),
-    ("--n-draft", "n_draft", 4, "A.8"),
     ("--batch-lane", "batch_lane", False, "A.12"),
     ("--master", "master", None, "A.12"),
 )
@@ -754,6 +752,7 @@ def _build_fleet(args, roles, classes, token):
         kv_replication=args.kv_replication,
         kv_replicas=args.kv_replicas,
         kv_placement=args.kv_placement,
+        draft=args.draft, n_draft=args.n_draft,
         warmup=args.warmup,
         report_interval=args.metrics_interval or None,
         metrics_port=args.metrics_port,

@@ -32,12 +32,14 @@ same module names): online multi-replica inference over port replicas.
 * :mod:`~tfmesos_tpu_torch.fleet.kvtier` — the tiered KV store (bounded
   host RAM over an HMAC-framed disk directory, byte-compatible with the
   JAX store's), the cross-host KV fabric and the direct KV push.
+* :mod:`~tfmesos_tpu_torch.fleet.catalog` — the adapter delta's wire
+  codec (the replica's ``swap_adapter`` op); the catalog itself waits.
 
 The wire is byte-compatible with the JAX package's, so a port replica
 serves behind the JAX registry and gateway and a JAX replica behind the
 port's.  Not ported yet: the autoscaler, the model catalog, gang
-replicas, gateway processes, the HTTP edge, the simulator (ROADMAP A.4,
-A.8, A.9, A.12).
+replicas, gateway processes, the HTTP edge, the simulator (ROADMAP A.9,
+A.12).
 """
 
 from __future__ import annotations

@@ -24,11 +24,13 @@ directory the fleet creates and removes on stop, which its replicas
 share (a session parked by one resumes on another); ``kv_replication``
 and ``kv_placement`` set the fabric's copies, and ``kv_replicas``
 launches that many ``--role kv`` holders (capacity 0, never routed).
+``draft`` / ``n_draft`` serve every replica speculatively (``--draft
+--n-draft``: the preset's draft model).
 
 Not ported yet, refused by name at construction (each with its ROADMAP
 item): the autoscaler, the model catalog with its warm pool and trader,
-gang replicas, speculative decoding, gateway processes, the HTTP edge,
-the offline lane and the Mesos master.  Blue-green rollouts
+gang replicas, gateway processes, the HTTP edge, the offline lane and
+the Mesos master.  Blue-green rollouts
 (``rollout``) wait too.
 """
 
@@ -92,8 +94,6 @@ _NOT_PORTED = {
     "model_budget": ("model_budget, the catalog's budget", "A.12", None),
     "trader_config": ("trader_config, the model trader", "A.12", None),
     "gang_size": ("gang_size above 1, gang replicas", "A.9", 1),
-    "draft": ("draft, speculative decoding", "A.8", False),
-    "n_draft": ("n_draft, speculative decoding", "A.8", 4),
     "gateway_processes": ("gateway_processes, gateway processes",
                           "A.12", 0),
     "http_port": ("http_port, the HTTP edge", "A.12", None),
@@ -135,6 +135,8 @@ class FleetServer:
                  kv_replicas: int = 0,
                  prefill_replicas: int = 0,
                  decode_replicas: int = 0,
+                 draft: bool = False,
+                 n_draft: int = 4,
                  device: Optional[str] = None,
                  weights_version: str = "v0",
                  backend=None,
@@ -210,6 +212,13 @@ class FleetServer:
             raise ValueError(f"tokens_per_tick must be >= 1, got "
                              f"{tokens_per_tick}")
         self.warmup = bool(warmup)
+        #: speculative decoding on every replica (the preset's draft
+        #: model, ``n_draft`` proposals a round); the acceptance rate
+        #: rides the heartbeats into the registry's spec gauge.
+        self.draft = bool(draft)
+        self.n_draft = int(n_draft)
+        if self.draft and self.n_draft < 1:
+            raise ValueError(f"n_draft must be >= 1, got {n_draft}")
         # The KV tier and fabric (each value joins the replica command
         # line, so each is validated: ints, a closed set, a path
         # charset).  kv_tier_mb > 0 without a directory shares one the
@@ -328,6 +337,8 @@ class FleetServer:
             parts.append("--fused-prefill")
         if self.tokens_per_tick is not None:
             parts += ["--tokens-per-tick", str(self.tokens_per_tick)]
+        if self.draft:
+            parts += ["--draft", "--n-draft", str(self.n_draft)]
         if self.kv_tier_mb > 0:
             parts += ["--kv-tier-mb", str(self.kv_tier_mb)]
             tier_dir = self.kv_tier_dir or self._kv_tier_tmp

@@ -35,14 +35,19 @@ sessions); behind ``--registry`` the tier is wrapped in the KV fabric
 (``--kv-replication`` copies of each park, fetch from peers on a miss)
 and the replica serves ``kv_put`` / ``kv_fetch``.  ``--role kv`` is a
 dedicated holder: a bare tier behind the wire, with no model, no batcher
-and no torch import, so it never touches the card.  Not ported yet,
-refused with exit code 2: ``--draft`` (speculative decoding),
-``--warm-pool`` (weight swaps) and a gang launch env.  The
-``swap_adapter`` and ``adopt`` ops answer ``bad_request``.  One op is
-the port's own: ``stats`` answers the replica's pid, device, the device
-memory it holds, its kernels' launch counts, the batcher's dispatch
-counters and its tier's counters (a holder: that torch is not even
-imported, and its tier's summary).
+and no torch import, so it never touches the card.  ``--draft`` serves
+speculatively with the preset's draft model (``--n-draft`` proposals a
+round; the acceptance rate rides every heartbeat as ``spec``).  The
+``swap_adapter`` op folds a weight delta (a raw frame,
+``fleet/catalog.py``'s codec) once no row is resident and answers when
+it has applied; ``--warm-pool`` starts the replica undedicated, and the
+``adopt`` op installs a catalog model's preset weights (``set_weights``)
+and gives it that ``model_id``.  Not ported yet, refused with exit code
+2: a gang launch env.  One op is the port's own: ``stats`` answers the
+replica's pid, device, the device memory it holds, its kernels' launch
+counts, the batcher's dispatch and speculative counters and its tier's
+counters (a holder: that torch is not even imported, and its tier's
+summary).
 
 :class:`ReplicaServer` serves whatever ``handler(msg, reply)`` it is
 given; only :func:`batcher_handler`, :func:`prefill_handler` and the
@@ -81,7 +86,8 @@ GANG_ENV_ID = "TPUMESOS_GANG_ID"
 MODEL_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
 #: The batcher's dispatch counters the ``stats`` op reports.
 STATS_COUNTERS = ("prefills", "tail_prefills", "prefill_chunks",
-                  "decode_ticks", "fused_ticks")
+                  "decode_ticks", "fused_ticks", "spec_rounds",
+                  "spec_row_rounds", "spec_committed", "weight_swaps")
 
 
 class ReplicaRefused(ValueError):
@@ -445,9 +451,42 @@ def _push(addr: str, meta: Dict[str, Any], body, token: str,
                       self_addr=self_addr() if self_addr else "")
 
 
+def _handle_swap_adapter(batcher, msg, reply: Callable) -> None:
+    """Serve one ``swap_adapter`` raw frame: unpack the delta, queue the
+    fold behind the batcher's weight-update fence, and reply once it has
+    applied (in-flight requests finish on the old delta first, so the
+    reply means every later stream runs the new one).  A prefill-role
+    batcher has no serve loop: its fold applies, and replies, at once."""
+    from tfmesos_tpu_torch.fleet import catalog
+    from tfmesos_tpu_torch.fleet.registry import validate_model_id
+
+    head = msg.meta if isinstance(msg, wire.RawFrame) else msg
+    mid = head.get("id")
+    if not isinstance(msg, wire.RawFrame):
+        reply(_error(mid, "bad_request",
+                     "swap_adapter ships its delta as a raw frame"))
+        return
+    try:
+        version = validate_model_id(head.get("adapter_version"))
+        delta = catalog.unpack_adapter(head, msg.body)
+    except (TypeError, ValueError) as e:
+        reply(_error(mid, "bad_request", str(e)))
+        return
+
+    def applied() -> None:
+        reply({"op": "adapter_swapped", "id": mid,
+               "adapter_version": version, "swaps": batcher.weight_swaps})
+
+    try:
+        batcher.swap_adapter(delta, version, on_applied=applied)
+    except ValueError as e:
+        reply(_error(mid, "bad_request", str(e)))
+
+
 def batcher_handler(serving: BatcherServing, generation: int = 0,
                     weights_version: str = "",
                     model_state: Optional[Dict[str, Any]] = None,
+                    adopt_fn: Optional[Callable] = None,
                     token: str = "",
                     self_addr: Optional[Callable[[], str]] = None
                     ) -> Callable:
@@ -458,6 +497,10 @@ def batcher_handler(serving: BatcherServing, generation: int = 0,
     staged here by ``kv_stage``, takes the KV-import path (a mid-stream
     suspended artifact resumes where it stopped).  ``stream`` requests
     get ``tokens`` partial frames with their offsets.
+
+    ``swap_adapter`` folds a weight delta (:func:`_handle_swap_adapter`);
+    ``adopt`` goes to ``adopt_fn`` (a ``--warm-pool`` replica's weight
+    install), refused without one.
 
     ``migrate`` asks the batcher to suspend every in-flight request:
     each pending generate then gets a ``suspended`` reply, a raw frame
@@ -535,14 +578,15 @@ def batcher_handler(serving: BatcherServing, generation: int = 0,
             reply({"op": "migrated", "id": mid})
             return
         if op == "swap_adapter":
-            reply(_error(mid, "bad_request",
-                         "this replica has no adapter-swap surface (not "
-                         "ported yet: ContinuousBatcher.swap_adapter)"))
+            _handle_swap_adapter(batcher, msg, reply)
             return
         if op == "adopt":
-            reply(_error(mid, "bad_request",
-                         "this replica has no model-adoption surface "
-                         "(started without a warm-pool role)"))
+            if adopt_fn is None:
+                reply(_error(mid, "bad_request",
+                             "this replica has no model-adoption surface "
+                             "(started without a warm-pool role)"))
+            else:
+                adopt_fn(head, reply)
             return
         if op == "prefill":
             reply(_error(mid, "bad_request",
@@ -646,6 +690,7 @@ def batcher_handler(serving: BatcherServing, generation: int = 0,
             # only on a replica serving the same model and weights.  A
             # migration hop's spans always go back (failed=True).
             model_id = (model_state or {}).get("model_id") or ""
+            adapter = getattr(batcher, "adapter_version", "")
             stamp = {"gen": generation, "weights_version": weights_version}
             if comp.artifact is None:
                 out = {"op": "suspended", "id": mid, "requeue": True,
@@ -655,7 +700,8 @@ def batcher_handler(serving: BatcherServing, generation: int = 0,
                 reply(_attach_trace(out, tr, failed=True))
                 return
             meta, body = serving_mod.pack_prefilled(comp.artifact)
-            meta.update(op="suspended", id=mid, adapter_version="", **stamp)
+            meta.update(op="suspended", id=mid, adapter_version=adapter,
+                        **stamp)
             if model_id:
                 meta["model_id"] = model_id
             pt = push_state["to"]
@@ -672,7 +718,7 @@ def batcher_handler(serving: BatcherServing, generation: int = 0,
                 if isinstance(ack, dict) and ack.get("op") == "kv_staged":
                     out = {"op": "suspended", "id": mid, "pushed": True,
                            "xfer": xfer, "push_to": pt, "bytes": len(body),
-                           "adapter_version": "", **stamp}
+                           "adapter_version": adapter, **stamp}
                     if model_id:
                         out["model_id"] = model_id
                     reply(_attach_trace(out, tr, failed=True))
@@ -766,9 +812,9 @@ def prefill_handler(batcher, max_queue: int = 8, token: str = "",
             reply({"op": "migrated", "id": mid})
             return
         if head.get("op") == "swap_adapter":
-            reply(_error(mid, "bad_request",
-                         "this replica has no adapter-swap surface (not "
-                         "ported yet: ContinuousBatcher.swap_adapter)"))
+            # Prefill replicas compute KV with the weights too; with no
+            # serve loop the fold applies at once.
+            _handle_swap_adapter(batcher, msg, reply)
             return
         if raw or head.get("op") != "prefill":
             reply(_error(mid, "bad_request",
@@ -863,13 +909,17 @@ def rid_seed_for_node(node: str) -> int:
 
 
 def build_batcher(args, node: str = "", params=None, token: str = "",
-                  generation: int = 0):
+                  generation: int = 0, draft_params=None):
     """The model and ``ContinuousBatcher`` one replica runs, from the
     parsed flags: the port's tiny or flagship preset drawn from
     ``--model-seed`` (default ``--seed``), or ``params`` (the same
     preset's shapes, e.g. ``convert.params_from_jax`` of the JAX
-    preset's weights), on ``--device`` (default: the card).  ``node``
-    ("job:index") sets the request-id base.  ``--kv-tier-mb`` /
+    preset's weights), on ``--device`` (default: the card).  ``--draft``
+    adds the preset's draft (``tiny_draft_model`` at its default seed,
+    or ``flagship_draft_model`` at ``--seed`` + 1, as the JAX replica
+    builds them; ``draft_params`` replaces its weights) with
+    ``--n-draft`` proposals a round.  ``node`` ("job:index") sets the
+    request-id base.  ``--kv-tier-mb`` /
     ``--kv-tier-dir`` give it a :class:`~tfmesos_tpu_torch.fleet.kvtier.
     KVTierStore` keyed by ``token`` and stamped with the rollout
     identity (``--weights-version``, composed with ``--model-id``, and
@@ -885,6 +935,14 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
     cfg, drawn = (presets.tiny_model(seed) if args.tiny
                   else presets.flagship_model(seed,
                                               max_len=args.max_len or 1024))
+    draft_cfg = None
+    if args.draft:
+        max_len = args.max_len or int(cfg.max_seq_len)
+        draft_cfg, ddrawn = (
+            presets.tiny_draft_model(max_len=max_len, n_draft=args.n_draft)
+            if args.tiny else presets.flagship_draft_model(
+                seed=args.seed + 1, max_len=max_len, n_draft=args.n_draft))
+        draft_params = ddrawn if draft_params is None else draft_params
     kv_tier = None
     if args.kv_tier_mb > 0 or args.kv_tier_dir:
         wv_stamp = args.weights_version
@@ -905,7 +963,10 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
         prefill_chunk=args.prefill_bucket if args.fused_prefill else None,
         fused_prefill=args.fused_prefill,
         tokens_per_tick=args.tokens_per_tick, kv_tier=kv_tier,
-        rid_seed=rid_seed_for_node(node), device=device)
+        draft_cfg=draft_cfg,
+        draft_params=draft_params if draft_cfg is not None else None,
+        n_draft=args.n_draft, rid_seed=rid_seed_for_node(node),
+        device=device)
 
 
 def refuse_unported(args, environ=None) -> None:
@@ -915,15 +976,9 @@ def refuse_unported(args, environ=None) -> None:
     environ = os.environ if environ is None else environ
     if not 1 <= args.kv_replication <= 8:
         raise ReplicaRefused("--kv-replication must be in [1, 8]")
-    unported = (
-        (args.draft, "--draft (speculative decoding, ROADMAP A.8)"),
-        (args.warm_pool,
-         "--warm-pool (set_weights, ROADMAP A.4 item 4)"),
-        (bool(environ.get(GANG_ENV_ID)),
-         f"a gang launch ({GANG_ENV_ID} set; the mesh, ROADMAP A.9)"))
-    asked = [name for on, name in unported if on]
-    if asked:
-        raise ReplicaRefused(f"not ported yet: {'; '.join(asked)}")
+    if environ.get(GANG_ENV_ID):
+        raise ReplicaRefused(f"not ported yet: a gang launch ({GANG_ENV_ID} "
+                             f"set; the mesh, ROADMAP A.9)")
     if args.model_id and not MODEL_ID_RE.fullmatch(args.model_id):
         raise ReplicaRefused(
             f"model_id {args.model_id!r} is not a valid label: want 1-64 "
@@ -1004,8 +1059,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="1 keeps the decode carry on the device, block N "
                         "synced one block behind")
     p.add_argument("--draft", action="store_true",
-                   help="speculative decoding (not ported yet: refused)")
-    p.add_argument("--n-draft", type=int, default=4, dest="n_draft")
+                   help="serve with the preset's draft model (speculative "
+                        "decoding): a row commits 1..n_draft+1 tokens a "
+                        "round, and the acceptance rate rides every "
+                        "heartbeat as 'spec'")
+    p.add_argument("--n-draft", type=int, default=4, dest="n_draft",
+                   help="draft proposals a speculative round (with "
+                        "--draft)")
     p.add_argument("--warmup", action="store_true",
                    help="capture every serving shape before taking "
                         "traffic, registered as 'warming' meanwhile")
@@ -1020,8 +1080,10 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="model_seed",
                    help="weight seed (default: --seed)")
     p.add_argument("--warm-pool", action="store_true", dest="warm_pool",
-                   help="an undedicated warm-pool member (not ported yet: "
-                        "refused)")
+                   help="register as an undedicated warm-pool member: "
+                        "warmed and alive, serving no model until the "
+                        "'adopt' op installs one (a weight copy: nothing "
+                        "is relaunched or recaptured)")
     p.add_argument("--weights-version", type=str, default="",
                    dest="weights_version",
                    help="weights version label; rides the hello and every "
@@ -1041,7 +1103,7 @@ def _identity(environ) -> tuple:
 
 
 def start_replica(args, token: Optional[str] = None, params=None,
-                  environ=None) -> tuple:
+                  environ=None, draft_params=None) -> tuple:
     """Build, register and start one replica from parsed flags; returns
     ``(server, serving, batcher)`` (``serving`` None for the prefill
     role, which never runs a serve loop; ``--role kv`` is
@@ -1049,7 +1111,8 @@ def start_replica(args, token: Optional[str] = None, params=None,
     Registers (as ``warming`` under ``--warmup``) before warming up,
     then prints ``replica warmed ...`` and ``replica serving on ADDR
     (role R)``.  ``token`` defaults to the task env's, ``params`` to the
-    preset's draw.  Behind ``--registry`` a KV tier is wrapped in a
+    preset's draw, ``draft_params`` the draft preset's (with
+    ``--draft``).  Behind ``--registry`` a KV tier is wrapped in a
     :class:`~tfmesos_tpu_torch.fleet.kvtier.KVFabric` (the batcher's
     ``kv_tier`` becomes the fabric) and the replica serves ``kv_put`` /
     ``kv_fetch``.  Raises :class:`ReplicaRefused` for an option not
@@ -1062,9 +1125,11 @@ def start_replica(args, token: Optional[str] = None, params=None,
         return server, None, fabric
     log = get_logger(_LOG)
     generation, node = _identity(environ)
-    model_state = {"model_id": args.model_id or ""}
+    model_state: Dict[str, Any] = {"model_id": args.model_id or "",
+                                   "warm_pool": bool(args.warm_pool),
+                                   "pool_capable": bool(args.warm_pool)}
     batcher = build_batcher(args, node=node, params=params, token=token,
-                            generation=generation)
+                            generation=generation, draft_params=draft_params)
     fabric = None
     if args.registry and batcher.kv_tier is not None \
             and batcher.kv_tier_bypass_reason is None:
@@ -1080,6 +1145,45 @@ def start_replica(args, token: Optional[str] = None, params=None,
     def self_addr() -> str:
         return (srv_cell[0].addr or "") if srv_cell else ""
 
+    def adopt_fn(head, reply) -> None:
+        """The ``adopt`` op: install one catalog model's preset weights
+        (``seed``) on this undedicated replica and take its
+        ``model_id``.  The same preset and max_len as the boot build,
+        so the shapes are the captured graphs' own: a weight copy, no
+        relaunch and no recapture.  Only a warm-pool member adopts, and
+        only once."""
+        from tfmesos_tpu_torch.fleet.registry import validate_model_id
+        from tfmesos_tpu_torch.models import presets
+
+        mid = head.get("id")
+        try:
+            model_id = validate_model_id(head.get("model_id"))
+            seed = int(head.get("seed") or 0)
+        except (TypeError, ValueError) as e:
+            reply(_error(mid, "bad_request", str(e)))
+            return
+        if model_state["model_id"] or model_state.get("adopting"):
+            reply(_error(mid, "bad_request",
+                         f"already serving model "
+                         f"{model_state['model_id'] or '(adopting)'!r}; "
+                         f"adoption is a warm-pool-only transition"))
+            return
+        model_state["adopting"] = True
+        _, new_params = (presets.tiny_model(seed) if args.tiny
+                         else presets.flagship_model(
+                             seed, max_len=args.max_len or 1024))
+
+        def applied() -> None:
+            model_state["model_id"] = model_id
+            model_state["warm_pool"] = False
+            model_state["adopting"] = False
+            log.info("adopted model %s (seed %d)", model_id, seed)
+            reply({"op": "adopted", "id": mid, "model_id": model_id})
+
+        batcher.set_weights(
+            new_params, version=f"{args.weights_version or 'v0'}@{model_id}",
+            on_applied=applied)
+
     serving = None
     if args.role == "prefill":
         handler = prefill_handler(batcher, token=token, self_addr=self_addr)
@@ -1088,7 +1192,8 @@ def start_replica(args, token: Optional[str] = None, params=None,
         serving = BatcherServing(batcher)
         handler = batcher_handler(serving, generation=generation,
                                   weights_version=args.weights_version,
-                                  model_state=model_state, token=token,
+                                  model_state=model_state,
+                                  adopt_fn=adopt_fn, token=token,
                                   self_addr=self_addr)
     if fabric is not None:
         handler = fabric_handler(fabric, handler)
@@ -1105,14 +1210,26 @@ def start_replica(args, token: Optional[str] = None, params=None,
             beat["node"] = node
         if model_state["model_id"]:
             beat["model_id"] = model_state["model_id"]
-        # No adapter swap yet: always the unswapped label.
-        beat["adapter_version"] = ""
+        if model_state["pool_capable"]:
+            # Always sent once pool-capable, so an adoption's False
+            # overwrites the registry's True.
+            beat["warm_pool"] = bool(model_state["warm_pool"])
+        # Sent even when "": a set after a fold resets it.
+        beat["adapter_version"] = batcher.adapter_version
         if batcher.prefix_cache_active:
             beat["prefix_cache"] = batcher.prefix_cache_summary()
         if tiered:
             # Parked session ids (the router's session affinity), spilled
             # prefix digests, counters and occupancy.
             beat["kv_tier"] = batcher.kv_tier.summary()
+        if batcher.d_side is not None:
+            # Speculative health: the acceptance rate (None before the
+            # first round) and the sums the registry re-aggregates.
+            beat["spec"] = {"acceptance_rate": batcher.acceptance_rate,
+                            "rounds": batcher.spec_rounds,
+                            "row_rounds": batcher.spec_row_rounds,
+                            "committed": batcher.spec_committed,
+                            "n_draft": batcher.n_draft}
         return beat
 
     def stats(msg: Dict[str, Any]) -> Dict[str, Any]:

@@ -4,7 +4,7 @@ KV cache (port of ``examples/generate.py``).
     python -m tfmesos_tpu_torch.generate [--tiny] [--device cpu] \\
         [--batch 2] [--prompt-len 32] [--new-tokens 64] [--seed 0] \\
         [--temperature 0.8] [--top-k K] [--top-p P] \\
-        [--int8] [--int8-kv] [--ragged]
+        [--int8] [--int8-kv] [--ragged] [--speculative]
 
 Prefills a seeded random prompt batch once, then one decode step per
 token (:func:`~tfmesos_tpu_torch.models.transformer.generate`; on the
@@ -15,7 +15,11 @@ the JAX example draws them.
 ``--int8`` serves weight-only int8 params (``quantize_params``),
 ``--int8-kv`` stores the KV cache as int8 (per-position absmax); both
 together are the full int8 serving configuration.  ``--ragged`` serves
-a mixed-length batch (random per-row prompt lengths).  Weights are
+a mixed-length batch (random per-row prompt lengths).  ``--speculative``
+decodes through :func:`~tfmesos_tpu_torch.models.transformer.
+speculative_generate` with the JAX example's half-size draft (half the
+width, half the layers, the same heads, weights from ``seed + 4``)
+proposing 4 tokens a round.  Weights are
 random from ``--seed`` (untrained: the point is the mechanics and the
 tokens/s).  The run is made twice — the first builds the kernels and
 warms up — and the second is timed.  Runs on the card unless
@@ -48,6 +52,10 @@ def main(argv=None) -> int:
     p.add_argument("--ragged", action="store_true",
                    help="serve a mixed-length batch: random per-row prompt "
                         "lengths, decoded together")
+    p.add_argument("--speculative", action="store_true",
+                   help="speculative decoding with a half-size draft model "
+                        "(temperature 0: exactly the target's greedy "
+                        "continuation; above 0: rejection-sampled)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -56,9 +64,12 @@ def main(argv=None) -> int:
     import torch
 
     from tfmesos_tpu_torch.device import resolve_device
+    import dataclasses
+
     from tfmesos_tpu_torch.models.transformer import (TransformerConfig,
                                                       generate, init_params,
-                                                      quantize_params)
+                                                      quantize_params,
+                                                      speculative_generate)
     from tfmesos_tpu_torch.ops.prng import PRNGKey
 
     device = resolve_device(args.device)
@@ -86,8 +97,23 @@ def main(argv=None) -> int:
         print("ragged prompt lens:", prompt_lens.tolist())
         prompt_lens = prompt_lens.to(device)
 
+    draft_cfg = draft_params = None
+    if args.speculative:
+        draft_cfg = dataclasses.replace(
+            cfg, d_model=cfg.d_model // 2,
+            n_layers=max(1, cfg.n_layers // 2), d_ff=cfg.d_ff // 2)
+        draft_params = init_params(
+            draft_cfg, torch.Generator().manual_seed(args.seed + 4), device)
+
     def run():
         with torch.no_grad():
+            if args.speculative:
+                return speculative_generate(
+                    cfg, params, draft_cfg, draft_params, prompt,
+                    args.new_tokens, n_draft=4, prompt_lens=prompt_lens,
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p, quantized_cache=args.int8_kv,
+                    rng=PRNGKey(args.seed + 2, device))
             return generate(cfg, params, prompt, args.new_tokens,
                             rng=PRNGKey(args.seed + 2, device),
                             temperature=args.temperature, top_k=args.top_k,

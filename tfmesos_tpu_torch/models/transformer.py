@@ -847,3 +847,202 @@ def generate(cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
                     dim=1)
     idx = (t0 + lens)[:, None] + torch.arange(max_new_tokens, device=dev)
     return out.scatter_(1, idx, generated)       # row i's continuation
+
+
+# -- speculative decoding -----------------------------------------------------
+
+
+def greedy_accept_counts(drafts: torch.Tensor, g: torch.Tensor
+                         ) -> torch.Tensor:
+    """Greedy speculative acceptance (the JAX ``greedy_accept_counts``):
+    draft proposals [B, k] against the target's greedy tokens over the
+    verify chunk [B, k+1] -> each row's commit count, the leading run of
+    matches plus one (the correction, or the bonus when all matched).
+    The argmin over [match | False] is the first mismatch, or k."""
+    k = drafts.shape[1]
+    match = drafts == g[:, :k]
+    ext = torch.cat([match, match.new_zeros((match.shape[0], 1))], dim=1)
+    return torch.argmin(ext.to(torch.int32), dim=1) + 1
+
+
+def rejection_accept(drafts: torch.Tensor, pd: torch.Tensor,
+                     pt: torch.Tensor, u: torch.Tensor):
+    """Speculative rejection sampling's accept/correct math (the JAX
+    ``rejection_accept``): ``drafts`` [B, k], their draft distributions
+    ``pd`` [B, k, V], the target's filtered distributions ``pt``
+    [B, k+1, V] and uniform draws ``u`` [B, k].  Proposal j is accepted
+    iff ``u * pd(x_j) < pt(x_j)``; ``a`` is the first rejection (k when
+    all pass).  Returns ``(a, dist)``, ``dist`` [B, V] the correction
+    distribution norm(max(0, pt - pd)) at index a (pd zero-padded at k,
+    so the all-accepted bonus draws from pt_k)."""
+    b, k = drafts.shape
+    idx = drafts[..., None]
+    ptx = torch.take_along_dim(pt[:, :k], idx, dim=-1)[..., 0]
+    pdx = torch.take_along_dim(pd, idx, dim=-1)[..., 0]
+    acc = u * pdx < ptx
+    a = torch.argmin(torch.cat([acc, acc.new_zeros((b, 1))], dim=1).to(
+        torch.int32), dim=1)
+    pd_pad = torch.cat([pd, pd.new_zeros((b, 1, pd.shape[-1]))], dim=1)
+    sel = a[:, None, None]
+    pt_a = torch.take_along_dim(pt, sel, dim=1)[:, 0]
+    pd_a = torch.take_along_dim(pd_pad, sel, dim=1)[:, 0]
+    resid = torch.clamp_min(pt_a - pd_a, 0.0)
+    norm = resid.sum(dim=-1, keepdim=True)
+    dist = torch.where(norm > 1e-9, resid / torch.clamp_min(norm, 1e-9),
+                       pt_a)
+    return a, dist
+
+
+def speculative_cache_depth(prompt_len: int, max_new_tokens: int,
+                            n_draft: int, prefix_len: int = 0) -> int:
+    """Cache positions :func:`speculative_generate` may touch, its
+    overshoot slack included: size a caller's cache with at least this
+    many positions a row."""
+    return prefix_len + prompt_len + max_new_tokens + 2 * n_draft + 1
+
+
+@torch.no_grad()
+def speculative_generate(cfg: TransformerConfig, params: Params,
+                         draft_cfg: TransformerConfig, draft_params: Params,
+                         prompt: torch.Tensor, max_new_tokens: int,
+                         n_draft: int = 4, prompt_lens=None,
+                         temperature: float = 0.0,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None,
+                         rng: Optional[torch.Tensor] = None,
+                         quantized_cache: bool = False, prefix=None,
+                         cache=None, stop_token: Optional[int] = None,
+                         _eager: bool = False) -> torch.Tensor:
+    """Speculative decoding (the JAX ``speculative_generate``): the
+    DRAFT model proposes ``n_draft`` tokens a round (t = 1 steps over
+    its own linear cache), the target scores them in ONE chunk of
+    ``n_draft + 1`` tokens (``flash_decode`` at t = k+1 over its cache,
+    or the paged kernel over a caller's paged ``cache``), and each row
+    commits its leading accepted run plus one correction or bonus token.
+
+    Greedy (``temperature <= 0``): the output is the target's own greedy
+    continuation whatever the draft proposes.  Sampled: Leviathan
+    rejection sampling with the reference's key schedule (``rng`` split
+    once for the first token, then ``split(rng, 4)`` a round: the draft
+    steps' keys from the second, the acceptance uniforms from the third,
+    the correction from the fourth), so the streams are the reference's
+    draws.  ``prompt`` [B, Tp], ``prompt_lens``, ``prefix`` and
+    ``cache`` as in :func:`generate` (the cache must back
+    :func:`speculative_cache_depth` positions); ``stop_token`` freezes a
+    row once a committed token is the stop, and the tail after a row's
+    first stop is unspecified (truncate there).
+
+    On the card the round is a CUDA graph (captured at the first round,
+    replayed after); the loop syncs once a round for its exit test."""
+    if cfg.window is not None or draft_cfg.window is not None:
+        raise ValueError("speculative decoding does not compose with "
+                         "sliding-window configs (rolling caches cannot "
+                         "be ragged)")
+    b, tp = prompt.shape
+    dev = prompt.device
+    if max_new_tokens <= 0:
+        if prefix is None:
+            return prompt
+        return torch.cat([prefix.to(dev, prompt.dtype).expand(
+            b, prefix.shape[0]), prompt], 1)
+    k = int(n_draft)
+    if k < 1:
+        raise ValueError(f"n_draft must be >= 1, got {n_draft}")
+    _check_sampling_args(top_k, top_p)
+    sampling = temperature > 0.0
+    rng = prng.PRNGKey(0, dev) if rng is None else rng.to(dev).long()
+    t0 = 0 if prefix is None else prefix.shape[0]
+    pfx = None if prefix is None else prefix.to(dev).long()
+    tokens = prompt.long()
+    depth = speculative_cache_depth(tp, max_new_tokens, k, prefix_len=t0)
+    logits, cache = _prefill(cfg, params, tokens, depth,
+                             quantized=quantized_cache, prefix=pfx,
+                             cache=cache)
+    _, dcache = _prefill(draft_cfg, draft_params, tokens, depth, prefix=pfx)
+    if prompt_lens is None:
+        lens = torch.full((b,), tp, dtype=torch.long, device=dev)
+    else:
+        lens = torch.as_tensor(prompt_lens, device=dev).long()
+    rows = torch.arange(b, device=dev)
+    keys = prng.split(rng)
+    tok = sample_logits(logits[rows, lens - 1], keys[1], temperature,
+                        top_k, top_p)
+    rng = keys[0].clone()
+    pos = t0 + lens                     # absolute positions from here on
+    width = t0 + tp + max_new_tokens
+    # One spare column past the output takes every masked commit (the
+    # reference's out-of-bounds scatter that drops).
+    lead = [pfx.expand(b, t0)] if pfx is not None else []
+    out = torch.cat([*lead, tokens, tokens.new_zeros((b, max_new_tokens
+                                                      + 1))], dim=1)
+    out[rows, pos] = tok
+    limit = pos + max_new_tokens
+    committed = torch.ones((b,), dtype=torch.long, device=dev)
+    if stop_token is not None:
+        committed.masked_fill_(tok == stop_token, max_new_tokens)
+    j = torch.arange(k + 1, device=dev)[None]
+
+    def draft_steps(draft_keys):
+        dtok, dpos = tok, pos
+        drafts, pds = [], []
+        for i in range(k + 1):
+            lg, _ = decode_step(draft_cfg, draft_params, dcache,
+                                dtok[:, None], dpos)
+            if sampling:
+                f = filter_logits(lg[:, -1], temperature, top_k, top_p)
+                dtok = prng.categorical(draft_keys[i], f, axis=-1)
+                pds.append(torch.softmax(f, dim=-1))
+            else:
+                dtok = torch.argmax(lg[:, -1].float(), dim=-1)
+            drafts.append(dtok)
+            dpos = dpos + 1
+        # k+1 steps: the extra one writes the last proposal's K/V at
+        # pos+k (its own proposal is dropped), so a fully accepted round
+        # leaves no hole in the draft's cache.
+        return torch.stack(drafts[:k], dim=1), pds[:k]
+
+    def finish(n_commit, vals, nxt_tok):
+        idx = pos[:, None] + 1 + j
+        keep = (j < n_commit[:, None]) & (idx < limit[:, None])
+        out.scatter_(1, torch.where(keep, idx, width), vals)
+        nxt = committed + n_commit
+        if stop_token is not None:
+            hit = ((vals == stop_token) & (j < n_commit[:, None])).any(1)
+            nxt = torch.where(hit, max_new_tokens, nxt)
+        active = committed < max_new_tokens
+        tok.copy_(torch.where(active, nxt_tok, tok))
+        pos.add_(n_commit)
+        committed.copy_(nxt)
+
+    def greedy_round():
+        drafts, _ = draft_steps(None)
+        lg, _ = decode_step(cfg, params, cache,
+                            torch.cat([tok[:, None], drafts], dim=1), pos)
+        g = torch.argmax(lg.float(), dim=-1)                 # [B, k+1]
+        counts = greedy_accept_counts(drafts, g)
+        n_commit = torch.where(committed < max_new_tokens, counts, 0)
+        finish(n_commit, g,
+               torch.take_along_dim(g, (counts - 1)[:, None], dim=1)[:, 0])
+
+    def sampling_round():
+        kr = prng.split(rng, 4)
+        rng.copy_(kr[0])
+        drafts, pds = draft_steps(prng.split(kr[1], k + 1))
+        lg, _ = decode_step(cfg, params, cache,
+                            torch.cat([tok[:, None], drafts], dim=1), pos)
+        pt = torch.softmax(filter_logits(lg, temperature, top_k, top_p),
+                           dim=-1)
+        u = prng.uniform(kr[2], (b, k))
+        a, dist = rejection_accept(drafts, torch.stack(pds, dim=1), pt, u)
+        repl = prng.categorical(kr[3], torch.log(dist + 1e-20), axis=-1)
+        n_commit = torch.where(committed < max_new_tokens, a + 1, 0)
+        cand = torch.cat([drafts, drafts.new_zeros((b, 1))], dim=1)
+        finish(n_commit, torch.where(j == a[:, None], repl[:, None], cand),
+               repl)
+
+    steps = graphs.StepGraphs(dev)
+    steps.eager = steps.eager or _eager
+    step = sampling_round if sampling else greedy_round
+    while bool((committed < max_new_tokens).any()):
+        steps.run("round", step)
+    return out[:, :width].to(prompt.dtype)

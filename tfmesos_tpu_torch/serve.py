@@ -6,7 +6,8 @@ of ``examples/serve.py --continuous``).
         [--temperature 0.0] [--warmup] [--int8] [--int8-kv] \\
         [--prefill-chunk N] [--prefix-cache-pages N] [--multi-step K] \\
         [--overlap] [--pipeline-depth {0,1}] [--fused-prefill] \\
-        [--tokens-per-tick N]
+        [--tokens-per-tick N] [--speculative] [--int8-draft-kv] \\
+        [--prefix-len N]
 
 Prompts of 4..32 random tokens (seeded) go through
 :class:`~tfmesos_tpu_torch.serving.ContinuousBatcher` with ``--batch``
@@ -30,7 +31,12 @@ block and up to ``--tokens-per-tick`` tokens of chunk slots in one
 dispatch.  Streams are the synchronous batcher's in every mode, but for
 the fused tick at more than one chunk slot on the card, where a stream
 may first differ at a near-tie (``ContinuousBatcher``'s docstring).
-Runs on the card unless ``--device cpu``.
+``--speculative`` serves with a half-size draft model (the JAX example's:
+half the width, half the layers, the same heads, weights from ``seed +
+4``) proposing 4 tokens a round, verified by the target in one chunk;
+``--int8-draft-kv`` keeps the draft's page pool int8.  ``--prefix-len
+N`` prepends a static shared prefix of N seeded tokens (a system prompt
+every row maps read-only).  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import argparse
 import json
 import sys
 import time
+
+SPEC_N_DRAFT = 4    # draft tokens a speculative round (--speculative)
 
 
 def main(argv=None) -> int:
@@ -90,15 +98,34 @@ def main(argv=None) -> int:
                    dest="tokens_per_tick",
                    help="the fused tick's token budget (default: rows x "
                         "multi-step + one chunk)")
+    p.add_argument("--speculative", action="store_true",
+                   help=f"speculative decoding: a half-size draft proposes "
+                        f"{SPEC_N_DRAFT} tokens a round, the target "
+                        f"verifies them in one chunk (greedy streams equal "
+                        f"target-only serving)")
+    p.add_argument("--int8-draft-kv", action="store_true",
+                   dest="int8_draft_kv",
+                   help="store the draft's page pool int8 (with "
+                        "--speculative)")
+    p.add_argument("--prefix-len", type=int, default=0, dest="prefix_len",
+                   help="a static shared prefix of this many seeded tokens "
+                        "(0 = none)")
     args = p.parse_args(argv)
     if args.fused_prefill and args.prefill_chunk is None:
         p.error("--fused-prefill requires --prefill-chunk")
+    if args.int8_draft_kv and not args.speculative:
+        p.error("--int8-draft-kv requires --speculative")
 
     import numpy as np
 
     from tfmesos_tpu_torch.device import resolve_device
     from tfmesos_tpu_torch.models.presets import flagship_model, tiny_model
-    from tfmesos_tpu_torch.models.transformer import quantize_params
+    import dataclasses
+
+    import torch
+
+    from tfmesos_tpu_torch.models.transformer import (init_params,
+                                                      quantize_params)
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
     device = resolve_device(args.device)
@@ -109,6 +136,17 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(4, 33))
                for _ in range(args.n_prompts)]
+    prefix = (np.random.RandomState(args.seed + 5).randint(
+        0, cfg.vocab_size, size=args.prefix_len) if args.prefix_len
+        else None)
+    draft_cfg = draft_params = None
+    if args.speculative:
+        draft_cfg = dataclasses.replace(
+            cfg, d_model=cfg.d_model // 2,
+            n_layers=max(1, cfg.n_layers // 2), d_ff=cfg.d_ff // 2,
+            max_seq_len=cfg.max_seq_len + SPEC_N_DRAFT + 1)
+        draft_params = init_params(
+            draft_cfg, torch.Generator().manual_seed(args.seed + 4), device)
     batcher = ContinuousBatcher(cfg, params, rows=args.batch, page_size=64,
                                 prefill_bucket=64,
                                 temperature=args.temperature,
@@ -120,6 +158,10 @@ def main(argv=None) -> int:
                                 pipeline_depth=args.pipeline_depth,
                                 fused_prefill=args.fused_prefill,
                                 tokens_per_tick=args.tokens_per_tick,
+                                prefix=prefix, draft_cfg=draft_cfg,
+                                draft_params=draft_params,
+                                n_draft=SPEC_N_DRAFT,
+                                draft_quantized_cache=args.int8_draft_kv,
                                 device=device)
     reqs = [Request(prompt=t, max_new_tokens=args.new_tokens)
             for t in prompts]
@@ -145,10 +187,14 @@ def main(argv=None) -> int:
              f"{batcher.fused_chunk_tokens} chunk and "
              f"{batcher.fused_decode_tokens} decode tokens"
              if args.fused_prefill else "")
+    rate = batcher.acceptance_rate
+    spec = ("" if rate is None else
+            f", {batcher.spec_rounds} speculative rounds, draft "
+            f"acceptance {rate:.0%}")
     print(f"served {served} prompts continuously in {dt:.2f}s on "
           f"{device} (peak pages {batcher.peak_pages_used}/"
-          f"{batcher.n_pages}, {batcher.decode_ticks} decode ticks{fused})",
-          file=sys.stderr)
+          f"{batcher.n_pages}, {batcher.decode_ticks} decode ticks{fused}"
+          f"{spec})", file=sys.stderr)
     if batcher.prefix_cache_active:
         print(f"prefix cache: {json.dumps(batcher.prefix_cache_stats())}",
               file=sys.stderr)

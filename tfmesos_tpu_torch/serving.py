@@ -1,15 +1,17 @@
 """Continuous batching over the paged KV cache (port of
 ``tfmesos_tpu/serving.py``: the bypass registry ``:75-183``, ``Request``
 / ``Prefilled`` / the artifact packing / ``Completion`` / ``Suspended``
-/ ``Expired`` / ``_Row`` ``:256-525``, ``_PagedSide`` ``:603-776``, the
+/ ``Expired`` / ``_Row`` ``:186-525``, ``_PagedSide`` ``:603-776``, the
 prefix cache ``:779-1196``, the ``ContinuousBatcher`` loop and
 admission ``:2499-2700, 3799-4445``, chunked prefill ``:2389-2410,
-4398-4443``, warmup ``:2722``, KV export/import ``:2930-3326``, the
+4398-4443``, warmup ``:2722``, KV export/import ``:2930-3382``, the
 schedule modes — the K-step block, overlap, the pipeline and the fused
 prefill tick — ``:2116-2197, 2412-2470, 4445-4751``, deadlines and
 preemption ``:4909-5043``, the KV tier's prefix spill/promote and
 session park/resume ``:857-866, 1097-1138, 1703-1727, 3040-3100,
-3383-3791, 4018-4060``).
+3383-3791, 4018-4060``, the static ``prefix`` ``:2040-2090, 4188-4209``,
+speculative decoding ``:1958-1969, 2199-2388, 4753-4906`` and the
+weight swaps ``:1798-1940``).
 
 A persistent page pool plus an admission loop that feeds new prompts
 into a RUNNING batched decode: rows free on stop token or quota,
@@ -27,19 +29,24 @@ The fleet surface is the reference's too: chunked prefill
 (``prefill_chunk``), the cross-request prefix cache
 (``prefix_cache_pages``), disaggregated KV export/import with artifacts
 either side can read (:func:`pack_prefilled`), priority preemption with
-the :meth:`ContinuousBatcher.preempt_all` drain, deadlines, and the KV
-tier (``kv_tier``: spilled prefix pages and parked sessions).
+the :meth:`ContinuousBatcher.preempt_all` drain, deadlines, the KV
+tier (``kv_tier``: spilled prefix pages and parked sessions), a static
+shared ``prefix``, speculative decoding with a draft model, and online
+weight swaps (:meth:`ContinuousBatcher.swap_adapter`,
+:meth:`ContinuousBatcher.set_weights`).
 
 On the card every device call is a CUDA graph (``graphs.py``): the
 admission prefill a prompt width, a prefill chunk or prefix-cache tail a
-(tokens, table width), the decode block a table width and the fused
-tick a (table width, slot count), each captured at
+(tokens, table width), the draft's prompt chunk a width, the decode
+block a table width, the speculative round a (target, draft) table
+width and the fused tick a (table width, slot count), each captured at
 :meth:`ContinuousBatcher.warmup` or at its first call and replayed
 after: the host copies its inputs in one host-to-device copy and
 replays.  Every layer of every call launches the hand-written attention
-kernel (``ops/attention.py``).  Graphs hold the pool's addresses, so
-nothing here reallocates it: copy-on-write copies, imports and commits
-write into the existing tensors.
+kernel (``ops/attention.py``).  Graphs hold the addresses of the pools
+and of the parameters, so nothing here reallocates either: copy-on-write
+copies, imports and commits write into the existing pool tensors, and a
+weight swap copies into the existing parameter tensors.
 """
 
 from __future__ import annotations
@@ -62,7 +69,10 @@ from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
                                                   TransformerConfig,
                                                   _check_sampling_args,
                                                   decode_step,
+                                                  filter_logits,
+                                                  greedy_accept_counts,
                                                   init_paged_cache,
+                                                  rejection_accept,
                                                   sample_logits)
 from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.quant import QTensor
@@ -75,6 +85,9 @@ __all__ = ["Request", "Completion", "Suspended", "Expired",
 # SubmissionQueue.poll's end-of-stream marker (distinct from None, which
 # means "nothing available right now, more may come").
 _CLOSED = object()
+# SubmissionQueue.kick's wake-up marker: ends an idle loop's blocking
+# poll without submitting work, so a queued weight update applies now.
+_KICK = object()
 
 #: The bypass registry's allowlist (the reference's, key for key): every
 #: reason a ``*_bypass_reason`` attribute may carry, per registry.
@@ -103,25 +116,33 @@ def compute_bypass_reasons(*, speculative: bool = False,
     """The ``*_bypass_reason`` values a :class:`ContinuousBatcher` built
     from these mode flags records (keys of :data:`BYPASS_ALLOWLIST`;
     None = the feature composes), computed as the reference computes
-    them.  A mode the port does not have yet — speculative decoding, a
-    mesh — raises ``NotImplementedError`` when asked for."""
-    unported = {"speculative decoding": speculative or draft_quantized_cache,
-                "mesh data sharding (n_shards != 1)": n_shards != 1}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    them.  A mesh (``n_shards != 1``), which the port does not have yet,
+    raises ``NotImplementedError``."""
+    if n_shards != 1:
+        raise NotImplementedError("not ported yet: mesh data sharding "
+                                  "(n_shards != 1)")
+    quant = quantized_cache or (speculative and draft_quantized_cache)
     out: Dict[str, Optional[str]] = {key: None for key in BYPASS_ALLOWLIST}
-    if quantized_cache:
+    if quant:
         out["prefix_cache"] = "quantized kv cache"
         out["kv_tier"] = "quantized kv cache"
-    # Without speculation the pipeline always takes effect, and overlap
-    # yields to it; either lag leaves no settled per-row state to
-    # suspend, and a chunk slot's first token is host-synchronous.
-    pipelined = bool(pipeline_depth)
+    if pipeline_depth and speculative:
+        out["pipeline"] = "speculative decoding"
+    # The effective lags after those bypasses: overlap yields to an
+    # active (non-speculative) pipeline, the pipeline to speculation.
+    # Either lag leaves no settled per-row state to suspend, and a chunk
+    # slot's first token is host-synchronous.
+    pipelined = bool(pipeline_depth) and not speculative
     if pipelined and overlap:
         out["overlap"] = "pipelined decode carry"
-    if overlap or pipelined:
+    overlap_eff = overlap and out["overlap"] is None
+    if speculative and multi_step > 1 and overlap_eff:
+        out["multi_step"] = "speculative overlap round carry"
+    if overlap_eff or pipelined:
         out["suspend"] = "lagged decode carry"
+    if speculative:
+        out["fused_prefill"] = "speculative decoding"
+    elif overlap_eff or pipelined:
         out["fused_prefill"] = "lagged decode carry"
     return out
 
@@ -154,16 +175,30 @@ class SubmissionQueue:
                 self._closed = True
                 self._q.put(_CLOSED)
 
+    def kick(self) -> None:
+        """Wake a blocked serve loop without submitting work (a queued
+        weight update applies at once on an idle batcher); harmless
+        after :meth:`close`."""
+        with self._lock:
+            if not self._closed:
+                self._q.put(_KICK)
+
     def poll(self, block: bool):
-        """Next request; ``None`` when empty (more may come), the
-        ``_CLOSED`` sentinel at end of stream."""
-        try:
-            item = self._q.get(block=block)
-        except _queue.Empty:
-            return None
-        if item is _CLOSED:
-            self._q.put(_CLOSED)    # keep re-polls terminal
-        return item
+        """Next request; ``None`` when empty (more may come) or when a
+        :meth:`kick` woke a blocking poll, the ``_CLOSED`` sentinel at
+        end of stream."""
+        while True:
+            try:
+                item = self._q.get(block=block)
+            except _queue.Empty:
+                return None
+            if item is _KICK:
+                if block:
+                    return None     # woken: the loop re-checks its state
+                continue
+            if item is _CLOSED:
+                self._q.put(_CLOSED)    # keep re-polls terminal
+            return item
 
 
 @dataclasses.dataclass
@@ -244,8 +279,7 @@ class Prefilled:
 
 
 # Artifact array leaves, in their fixed wire order, and the small
-# header keys: the reference's lists as they are (the draft and session
-# keys are carried through packing though this port writes none).
+# header keys: the reference's lists as they are.
 _KV_ARRAY_KEYS = ("k", "v", "k_scales", "v_scales",
                   "dk", "dv", "dk_scales", "dv_scales")
 _KV_META_KEYS = ("version", "page_size", "prefix_len", "shared_len",
@@ -394,7 +428,8 @@ class _Row:
     step: int           # tokens generated so far
     last: int           # last emitted token (feeds the next decode step)
     out: List[int]
-    worst_pages: int    # admission-time page reservation
+    worst_pages: int    # admission-time page reservation (target pool)
+    worst_draft: int = 0    # ... and the draft pool's, when speculating
     t_admit: float = 0.0
     t_first: float = 0.0
     # Chunked prefill: the padded prompt and how much of it is written;
@@ -425,11 +460,13 @@ class _PrefixPlan:
 
 
 class _PagedSide:
-    """Host-side state of the paged pool: the allocator, the reserved
-    sink page, the prefix-cache pages each row maps read-only, and the
+    """Host-side state of ONE paged pool, the target's or (speculative
+    mode) the draft's: the allocator, the reserved sink page, the shared
+    prefix pages, the prefix-cache pages each row maps read-only, and the
     cached page tables the model calls consume.  A row's table is
-    [cached-prefix pages | own pages | sink ...]; a row with neither is
-    all-sink."""
+    [shared prefix pages | cached-prefix pages | own pages | sink ...]; a
+    row with neither cached nor own pages is all-sink.  ``pool`` is the
+    side's device pool (set by the owner)."""
 
     def __init__(self, n_pages: int, page_size: int, rows: int,
                  np_max: int):
@@ -442,6 +479,10 @@ class _PagedSide:
         # table entries must point somewhere writable that no live
         # request owns.
         self.sink = self.alloc.reserve_page()
+        self.pool: Optional[Dict[str, Any]] = None
+        self.shared_pages: List[int] = []   # full prefix pages, read-only
+        self.shared_len = 0                 # positions they cover
+        self.tail_template: Optional[int] = None    # partial-page template
         self.peak = 0                       # high-water mark of pages used
         self.pcache: Optional["_PrefixCache"] = None
         self.row_cached: Dict[int, List[int]] = {}
@@ -454,11 +495,13 @@ class _PagedSide:
         self._cache_np = self._masked = None
 
     def ensure(self, row: int, length: int) -> None:
-        """Back positions [0, length) of ``row``: its mapped cached
-        pages cover the first ``len(row_cached[row]) * page_size``, its
-        own allocation the rest."""
+        """Back ABSOLUTE positions [0, length) of ``row``: the shared
+        prefix pages cover [0, shared_len), its mapped cached pages the
+        next ``len(row_cached[row]) * page_size``, its own allocation
+        the rest."""
         before = self.alloc.allocated(row)
-        covered = self.page_size * len(self.row_cached.get(row, ()))
+        covered = self.shared_len + self.page_size * len(
+            self.row_cached.get(row, ()))
         self.alloc.ensure(row, max(0, length - covered))
         if self.alloc.allocated(row) != before:
             self.dirty()
@@ -472,11 +515,12 @@ class _PagedSide:
         self.alloc.release(row)
         self.dirty()
 
-    def headroom(self, active: Dict[int, _Row]) -> int:
-        """Free pages not spoken for by in-flight rows' reservations;
-        zero-ref cached pages count as free (the allocator reclaims
-        them on demand), so the cache never blocks admission."""
-        outstanding = sum(row.worst_pages - self.alloc.allocated(r)
+    def headroom(self, active: Dict[int, _Row], worst_of) -> int:
+        """Free pages not spoken for by in-flight rows' reservations
+        (``worst_of(row)``: ``worst_pages`` or ``worst_draft``); zero-ref
+        cached pages count as free (the allocator reclaims them on
+        demand), so the cache never blocks admission."""
+        outstanding = sum(worst_of(row) - self.alloc.allocated(r)
                           for r, row in active.items())
         reclaimable = (self.pcache.reclaimable(0)
                        if self.pcache is not None else 0)
@@ -486,30 +530,32 @@ class _PagedSide:
         """Host master copy of the [rows, np_max] table."""
         if self._cache_np is None:
             t = np.full((self.rows, self.np_max), self.sink, np.int32)
+            ns = len(self.shared_pages)
             for r in range(self.rows):
                 own = self.alloc.rows.get(r) or []
                 cached = self.row_cached.get(r) or []
+                if not own and not cached:
+                    continue
                 nc = len(cached)
-                t[r, :nc] = cached
-                t[r, nc:nc + len(own)] = own
+                t[r, :ns] = self.shared_pages
+                t[r, ns:ns + nc] = cached
+                t[r, ns + nc:ns + nc + len(own)] = own
             self._cache_np = t
         return self._cache_np
 
-    def occupied(self, row: int) -> int:
-        """Table columns ``row`` maps (cached plus own pages)."""
-        return (len(self.row_cached.get(row, ()))
-                + self.alloc.allocated(row))
-
     def bucket_width(self) -> int:
-        """Smallest power-of-two table width covering every mapped row,
-        capped at ``np_max``: a decode tick reads no wider table than
-        the live rows need, and the width is strictly greater than the
-        widest mapping, so a clamped write lands on a sink column,
-        never a live page."""
-        occ = max((self.occupied(r) for r in
-                   set(self.alloc.rows) | set(self.row_cached)),
-                  default=1)
-        return self.width_for(max(occ, 1), self.np_max)
+        """Smallest power-of-two table width covering every mapped row
+        (shared, cached and own pages), capped at ``np_max``: a decode
+        tick reads no wider table than the live rows need, and the width
+        is strictly greater than the widest mapping, so a clamped write
+        lands on a sink column, never a live page."""
+        ns = len(self.shared_pages)
+        rows = self.alloc.rows
+        occ = max((ns + len(self.row_cached.get(r, ()))
+                   + len(rows.get(r, ()))
+                   for r in set(rows) | set(self.row_cached)
+                   if rows.get(r) or self.row_cached.get(r)), default=1)
+        return self.width_for(occ, self.np_max)
 
     @staticmethod
     def width_for(occ: int, np_max: int) -> int:
@@ -537,15 +583,17 @@ class _PagedSide:
 
 class _PrefixNode:
     """One cached page-aligned chunk: a trie node owning one resident
-    pool page.  ``ref`` counts the live rows mapping it; a zero-ref node
-    keeps its page resident (that is the cache) until the LRU evictor
-    reclaims it under allocation pressure or the budget."""
+    pool page and, on a speculative batcher, its draft-pool twin
+    ``dpage`` (the same chunk in the draft's pool, under the same
+    refcount).  ``ref`` counts the live rows mapping it; a zero-ref node
+    keeps its pages resident (that is the cache) until the LRU evictor
+    reclaims them under allocation pressure or the budget."""
 
     __slots__ = ("digest", "page", "ref", "parent", "children", "last",
-                 "shard")
+                 "shard", "dpage")
 
     def __init__(self, digest: bytes, page: int, parent, last: int,
-                 shard: int):
+                 shard: int, dpage: Optional[int] = None):
         self.digest = digest
         self.page = page
         self.ref = 1
@@ -553,6 +601,7 @@ class _PrefixNode:
         self.children: Dict[bytes, "_PrefixNode"] = {}
         self.last = last            # LRU tick of the last touch
         self.shard = shard
+        self.dpage = dpage
 
 
 class _PrefixCache:
@@ -567,14 +616,22 @@ class _PrefixCache:
     allocation would otherwise fail; ``budget`` caps resident pages at
     insert time.
 
+    Twin-pool mode (``dside``, a speculative batcher's draft pool):
+    every node couples a target page with its draft twin under one
+    refcount; acquire maps both, publish moves both, the COW remaps
+    both, eviction frees both, and either side's allocation pressure
+    reclaims through the same trie.
+
     The port serves one shard: the ``shard`` arguments of the
     reference's per-shard tries are kept, and are always 0.  Every
     public method takes the lock (``stats`` and ``summary`` are read
     from a heartbeat thread)."""
 
     def __init__(self, side: _PagedSide, page_size: int, first: int,
-                 seed: bytes, budget: int, n_shards: int = 1):
+                 seed: bytes, budget: int, n_shards: int = 1,
+                 dside: Optional[_PagedSide] = None):
         self.side = side
+        self.dside = dside
         self.page_size = int(page_size)
         self.first = int(first)     # width of chunk 0
         self.seed = seed            # chain seed
@@ -588,15 +645,23 @@ class _PrefixCache:
         self._tick = 0
         self._lock = threading.Lock()
         # The eviction seam (the KV tier's spill): called as
-        # ``on_evict(shard, digest, page)`` before the page frees, while
-        # it still holds the published chunk.  A raising callback costs
-        # the spill, never the eviction.
+        # ``on_evict(shard, digest, page, dpage)`` (dpage None without a
+        # draft twin) before the pages free, while they still hold the
+        # published chunk.  A raising callback costs the spill, never the
+        # eviction.
         self.on_evict = None
         self._stats = {"hits": 0, "misses": 0, "hit_pages": 0,
                        "hit_tokens": 0, "inserted": 0, "evicted": 0,
                        "cow_copies": 0, "skipped": 0, "promoted": 0}
-        side.pcache = self
-        side.alloc.reclaim = functools.partial(self._reclaim_cb, 0)
+        for s in (side, dside):
+            if s is not None:
+                s.pcache = self
+                s.alloc.reclaim = functools.partial(self._reclaim_cb, 0)
+
+    def _dirty(self) -> None:
+        self.side.dirty()
+        if self.dside is not None:
+            self.dside.dirty()
 
     # -- trie walks (call under the lock) ---------------------------------
 
@@ -633,7 +698,9 @@ class _PrefixCache:
                 n.last = self._tick
             self.row_nodes[row] = list(nodes)
             self.side.row_cached[row] = [n.page for n in nodes]
-        self.side.dirty()
+            if self.dside is not None:
+                self.dside.row_cached[row] = [n.dpage for n in nodes]
+        self._dirty()
 
     def unmap_last(self, row: int) -> _PrefixNode:
         """Drop the deepest mapped page from ``row``'s table (the COW
@@ -642,7 +709,9 @@ class _PrefixCache:
         with self._lock:
             node = self.row_nodes[row][-1]
             self.side.row_cached[row].pop()
-        self.side.dirty()
+            if self.dside is not None:
+                self.dside.row_cached[row].pop()
+        self._dirty()
         return node
 
     def _drop_ref(self, n: _PrefixNode) -> None:
@@ -667,6 +736,8 @@ class _PrefixCache:
             for n in self.row_nodes.pop(row, []):
                 self._drop_ref(n)
             self.side.row_cached.pop(row, None)
+            if self.dside is not None:
+                self.dside.row_cached.pop(row, None)
 
     def insert_row(self, row: int, shard: int, digests, state) -> None:
         """Publish ``row``'s freshly prefilled full prompt pages: the
@@ -679,10 +750,14 @@ class _PrefixCache:
             held = self.row_nodes.setdefault(row, [])
             own = self.side.alloc.rows.get(row, [])
             cached = self.side.row_cached.setdefault(row, [])
+            twin = self.dside is not None
+            down = self.dside.alloc.rows.get(row, []) if twin else None
+            dcached = (self.dside.row_cached.setdefault(row, [])
+                       if twin else None)
             level = (held[-1].children if held else self.roots[shard])
             moved = 0
             for d in digests[len(held):]:
-                if not own or d in level:
+                if not own or (twin and not down) or d in level:
                     break
                 while (self._n_nodes[shard] >= self.budget
                        and self._evict_one(shard)):
@@ -692,17 +767,23 @@ class _PrefixCache:
                     break
                 node = _PrefixNode(d, own.pop(0),
                                    held[-1] if held else None,
-                                   self._tick, shard)
+                                   self._tick, shard,
+                                   dpage=down.pop(0) if twin else None)
                 level[d] = node
                 self._n_nodes[shard] += 1
                 held.append(node)
                 cached.append(node.page)
+                if twin:
+                    dcached.append(node.dpage)
                 level = node.children
                 moved += 1
             self._stats["inserted"] += moved
         # The moved pages still back the row's positions: its
-        # reservation shrinks with its allocation, keeping headroom exact.
+        # reservation shrinks with its allocation (on each side),
+        # keeping headroom exact.
         state.worst_pages -= moved
+        if self.dside is not None:
+            state.worst_draft -= moved
 
     # -- eviction ----------------------------------------------------------
 
@@ -723,7 +804,7 @@ class _PrefixCache:
             return False
         if self.on_evict is not None:
             try:
-                self.on_evict(shard, best.digest, best.page)
+                self.on_evict(shard, best.digest, best.page, best.dpage)
             except Exception:
                 pass    # the spill is best-effort; the eviction stands
         level = (best.parent.children if best.parent is not None
@@ -732,17 +813,20 @@ class _PrefixCache:
         self._n_nodes[shard] -= 1
         self._n_zero[shard] -= 1
         self.side.alloc.free.append(best.page)
+        if self.dside is not None:
+            self.dside.alloc.free.append(best.dpage)
         self._stats["evicted"] += 1
         return True
 
     def insert_chain(self, shard: int, parent_digests, digest: bytes,
-                     page: int) -> bool:
-        """Insert ONE resident page as a zero-ref node under the path
-        ``parent_digests``: the KV tier's promotion (the caller took
-        ``page`` off the free list and wrote the tier's content into it;
-        on True the cache owns it, reclaimable like any zero-ref page).
-        False when the parent path is gone, the chunk is already cached,
-        or the budget cannot be met: the caller frees the page."""
+                     page: int, dpage: Optional[int] = None) -> bool:
+        """Insert ONE resident page (and its draft twin ``dpage``) as a
+        zero-ref node under the path ``parent_digests``: the KV tier's
+        promotion (the caller took the pages off the free lists and
+        wrote the tier's content into them; on True the cache owns them,
+        reclaimable like any zero-ref page).  False when the parent path
+        is gone, the chunk is already cached, or the budget cannot be
+        met: the caller frees the pages."""
         with self._lock:
             self._tick += 1
             # Budget first: evicting after the walk could reclaim a leaf
@@ -764,7 +848,8 @@ class _PrefixCache:
             if digest in level:
                 return False
             node = _PrefixNode(digest, int(page), parent, self._tick,
-                               shard)
+                               shard,
+                               dpage=None if dpage is None else int(dpage))
             node.ref = 0            # resident, unreferenced: the cache
             self._n_zero[shard] += 1
             level[digest] = node
@@ -777,8 +862,10 @@ class _PrefixCache:
             return self._evict_one(shard)
 
     def clear(self) -> int:
-        """Drop every cached node, returning its page to the free list
-        (only with no row referencing one).  Returns the nodes
+        """Drop every cached node, returning its pages to the free lists
+        without the eviction callback (the weight-swap invalidation:
+        pages of the old weights must neither map into new rows nor
+        spill); only with no row referencing one.  Returns the nodes
         dropped."""
         with self._lock:
             if self.row_nodes:
@@ -789,12 +876,14 @@ class _PrefixCache:
             for shard in range(self.n_shards):
                 for n in self._walk(shard):
                     self.side.alloc.free.append(n.page)
+                    if self.dside is not None:
+                        self.dside.alloc.free.append(n.dpage)
                     dropped += 1
                 self.roots[shard] = {}
                 self._n_nodes[shard] = self._n_zero[shard] = 0
             self._stats["evicted"] += dropped
         if dropped:
-            self.side.dirty()
+            self._dirty()
         return dropped
 
     # -- accounting / export ----------------------------------------------
@@ -941,17 +1030,47 @@ class ContinuousBatcher:
     and prefills only its new tokens through the prefix-cache tail's
     call.  Every miss (no entry, another weights_version, a corrupt
     entry, a prompt that diverges) prefills cold.  An int8 pool bypasses
-    the tier (``kv_tier_bypass_reason``).  The reference's other modes
-    (a static ``prefix``, speculative decoding, a ``mesh``) are not
-    ported yet: asking for one raises ``NotImplementedError``.
+    the tier (``kv_tier_bypass_reason``).
+
+    ``prefix`` (1-D int tokens) is a static shared prompt prefix (a
+    system prompt) prefilled ONCE into reserved pages that every row's
+    table maps read-only; a partial last page is a template copied into
+    each row's first own page.  Positions are offset by ``prefix_len``;
+    ``max_len`` bounds prefix + prompt + new tokens.  A prompt's prefill
+    then runs over the paged pool at position ``prefix_len`` (the paged
+    kernel with the prompt as its self chunk).
+
+    ``draft_cfg`` / ``draft_params`` turn on SPECULATIVE decoding: each
+    dispatch the draft proposes ``n_draft`` tokens a row (t = 1 steps
+    over its own paged pool, sized by ``draft_n_pages``, int8 with
+    ``draft_quantized_cache``) and the target verifies them in one
+    (k+1)-token chunk, so a row commits 1..k+1 tokens a round.  Greedy
+    streams are the target-only batcher's; sampled rounds are Leviathan
+    rejection sampling with every draw a fold of (rid, token index): the
+    proposal ``fold(rid, step + j)``, its acceptance ``fold_in(., 1)`` and
+    the correction ``fold_in(fold(rid, step + a), 2)``.  ``multi_step``
+    composes as R = ceil(multi_step / (k+1)) rounds a dispatch,
+    ``overlap`` carries each round's state on the device, and the prefix
+    cache, the static prefix, chunked prefill, export/import,
+    preemption and the KV tier all carry the draft's twin pages.
+    :attr:`acceptance_rate` reports the drafts accepted.
+
+    :meth:`swap_adapter` (a param-path delta folded in) and
+    :meth:`set_weights` (a whole tree) apply between generations, once no
+    row is resident, by copying into the existing parameter tensors (the
+    graphs read them by address), then clear the prefix cache and
+    restamp the KV tier.  A ``mesh`` is not ported yet: asking for one
+    raises ``NotImplementedError``.
 
     Counters for measurement: ``prefills`` (full-prompt prefill calls),
     ``tail_prefills`` (prefix-cache and session tails), ``prefill_chunks``,
-    ``decode_ticks`` (decode dispatches, fused ones included),
-    ``decode_tokens`` (tokens they committed) and ``decode_seconds``
-    (wall time of the decode dispatches and their host syncs),
-    ``fused_ticks``, ``fused_chunk_tokens``, ``fused_decode_tokens``,
-    ``preemptions``, ``resumes`` and ``deadline_cancels``."""
+    ``decode_ticks`` (decode dispatches, fused and speculative ones
+    included), ``decode_tokens`` (tokens they committed) and
+    ``decode_seconds`` (wall time of the decode dispatches and their host
+    syncs), ``fused_ticks``, ``fused_chunk_tokens``,
+    ``fused_decode_tokens``, ``spec_rounds``, ``spec_row_rounds``,
+    ``spec_committed``, ``preemptions``, ``resumes``,
+    ``deadline_cancels`` and ``weight_swaps``."""
 
     def __init__(self, cfg: TransformerConfig, params: Params, rows: int = 8,
                  max_len: Optional[int] = None, page_size: int = 64,
@@ -961,7 +1080,8 @@ class ContinuousBatcher:
                  rng: Optional[torch.Tensor] = None,
                  quantized_cache: bool = False, prefix=None,
                  prefill_chunk: Optional[int] = None,
-                 draft_cfg=None, draft_params=None, n_draft: int = 4,
+                 draft_cfg: Optional[TransformerConfig] = None,
+                 draft_params: Optional[Params] = None, n_draft: int = 4,
                  draft_n_pages: Optional[int] = None, mesh=None,
                  overlap: bool = False, draft_quantized_cache: bool = False,
                  multi_step: int = 1, prefix_cache_pages: int = 0,
@@ -988,13 +1108,8 @@ class ContinuousBatcher:
         if tokens_per_tick is not None and tokens_per_tick < 1:
             raise ValueError(f"tokens_per_tick must be >= 1, got "
                              f"{tokens_per_tick}")
-        unported = {"mesh": mesh is not None,
-                    "prefix": prefix is not None,
-                    "draft_params": draft_params is not None,
-                    "draft_n_pages": draft_n_pages is not None}
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        if mesh is not None:
+            raise NotImplementedError("not ported yet: mesh")
         self._bypass = compute_bypass_reasons(
             speculative=draft_cfg is not None,
             quantized_cache=quantized_cache,
@@ -1033,8 +1148,13 @@ class ContinuousBatcher:
         if prefill_bucket < 1:
             raise ValueError(f"prefill_bucket must be >= 1, got "
                              f"{prefill_bucket}")
+        if (draft_cfg is None) != (draft_params is None):
+            raise ValueError("draft_cfg and draft_params come together")
         self.device = resolve_device(device)
         self.cfg = cfg
+        # The caller's tree, kept for weight folds: a fold adds onto the
+        # masters and casts once, as the reference casts at use.
+        self._masters = params
         self.params = _to_device(params, self.device, cfg.dtype)
         self.rows = int(rows)
         self.max_len = int(max_len or cfg.max_seq_len)
@@ -1043,10 +1163,20 @@ class ContinuousBatcher:
                              f"config's max_seq_len ({cfg.max_seq_len})")
         self.page_size = int(page_size)
         self.np_max = -(-self.max_len // self.page_size)
-        self.n_pages = int(n_pages or self.rows * self.np_max + 1)
+        # Default pool: every row's worst case beyond the shared prefix's
+        # full pages, plus the prefix's reserved pages and the sink.
+        prefix_np = None if prefix is None else np.asarray(prefix, np.int32)
+        n_prefix_pages = (0 if prefix_np is None
+                          else -(-int(prefix_np.size) // self.page_size))
+        shared_full = (0 if prefix_np is None
+                       else (int(prefix_np.size) // self.page_size)
+                       * self.page_size)
+        own_max = -(-(self.max_len - shared_full) // self.page_size)
+        default_pages = self.rows * own_max + n_prefix_pages + 1
+        self.n_pages = int(n_pages or default_pages)
         self.prefill_chunk = prefill_chunk
         self.prefill_bucket = int(prefill_bucket)
-        self.prefix_len = 0     # the static ``prefix=`` is not ported
+        self.prefix_len = 0
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
@@ -1057,39 +1187,62 @@ class ContinuousBatcher:
         self.pool = init_paged_cache(cfg, self.n_pages, self.page_size,
                                      quantized=quantized_cache,
                                      device=self.device)
-        self.suspend_bypass_reason: Optional[str] = self._bypass["suspend"]
-        self._pcache: Optional[_PrefixCache] = None
-        self.prefix_cache_bypass_reason: Optional[str] = None
-        if prefix_cache_pages:
-            self.prefix_cache_bypass_reason = self._bypass["prefix_cache"]
-            if self.prefix_cache_bypass_reason is None:
-                self._pcache = _PrefixCache(self.t_side, self.page_size,
-                                            self.page_size, b"",
-                                            prefix_cache_pages)
-        # The KV tier: prefix pages the pool evicts spill into it and
-        # promote back at the next matching admission; finished
-        # session-labelled requests park their KV in it for the next
-        # turn.  An int8 pool bypasses it (kv_tier_bypass_reason).
-        self.kv_tier = kv_tier
-        self.kv_tier_bypass_reason: Optional[str] = None
-        if kv_tier is not None:
-            self.kv_tier_bypass_reason = self._bypass["kv_tier"]
-            if self.kv_tier_bypass_reason is None \
-                    and self._pcache is not None:
-                self._pcache.on_evict = self._spill_page
-                kv_tier.prefix_geometry = {
-                    "page": self.page_size, "first": self._pcache.first,
-                    "seed": self._pcache.seed.hex()}
+        self.t_side.pool = self.pool
+        # Speculative decoding: the draft's own paged pool (same page
+        # size and table layout, its own allocator), R rounds a dispatch.
+        self.draft_cfg = draft_cfg
+        self.n_draft = int(n_draft)
+        self.draft_params: Optional[Params] = None
+        self.d_side: Optional[_PagedSide] = None
+        self.dpool: Optional[Dict[str, Any]] = None
+        self._spec_rounds = 0
+        if draft_cfg is not None:
+            if self.n_draft < 1:
+                raise ValueError(f"n_draft must be >= 1, got {n_draft}")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocab")
+            # +1: the backfill draft step writes one past the proposals,
+            # and parked rows sit at position max_len.
+            depth = self.max_len + self.n_draft + 1
+            if draft_cfg.max_seq_len < depth:
+                raise ValueError(
+                    f"draft max_seq_len ({draft_cfg.max_seq_len}) must "
+                    f"cover max_len + n_draft + 1 ({depth}) — rows can "
+                    f"overshoot by a draft run")
+            self._spec_rounds = (1 if self.multi_step_bypass_reason
+                                 is not None else
+                                 max(1, -(-self.multi_step
+                                          // (self.n_draft + 1))))
+            self.draft_params = _to_device(draft_params, self.device,
+                                           draft_cfg.dtype)
+            self.n_draft_pages = int(draft_n_pages or default_pages)
+            self.d_side = _PagedSide(self.n_draft_pages, self.page_size,
+                                     self.rows, self.np_max)
+            self.dpool = init_paged_cache(
+                draft_cfg, self.n_draft_pages, self.page_size,
+                quantized=draft_quantized_cache, device=self.device)
+            self.d_side.pool = self.dpool
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
         self._submissions_lock = threading.Lock()
-        # Fences export_kv's row borrowing and warmup against the loop.
+        # Fences export_kv's row borrowing, warmup and weight updates
+        # against the loop.
         self._loop_lock = threading.Lock()
         self._loop_active = False
         # Preempted rows' artifacts waiting for a row to resume through
         # the import path, and the drain-migration request.
         self._parked: deque = deque()
         self._preempt_event = threading.Event()
+        # Online weight updates (swap_adapter / set_weights), applied by
+        # the serve loop between generations.
+        self._weight_updates: deque = deque()
+        self._weights_lock = threading.Lock()
+        #: Label of the last adapter delta folded in ("" = base weights).
+        self.adapter_version = ""
+        self.weight_swaps = 0       # updates applied (folds and sets)
+        #: Optional hook ``on_weights_applied(kind, version)`` fired after
+        #: each update applies (the replica refreshes its heartbeat).
+        self.on_weights_applied = None
         # The decode block's static buffers: its inputs (tokens,
         # positions, rids, steps, and the lagged modes' merge flag; one
         # row each), uploaded in one host-to-device copy, its [rows, K]
@@ -1105,8 +1258,21 @@ class ContinuousBatcher:
                                      dtype=torch.long, device=self.device)
         self._carry = torch.zeros((3, self.rows), dtype=torch.long,
                                   device=self.device)
-        # width -> (host table last copied, device table)
+        # width -> (host table last copied, device table), per side.
         self._tables: Dict[int, Tuple[Any, torch.Tensor]] = {}
+        self._dtables: Dict[int, Tuple[Any, torch.Tensor]] = {}
+        # The speculative round's outputs: R rounds of [rows, k+1]
+        # commit candidates and [rows] commit counts; under overlap the
+        # round's carry (candidates, counts, positions, steps) the next
+        # round continues from.
+        k1 = self.n_draft + 1
+        R = max(1, self._spec_rounds)
+        self._spec_g = torch.zeros((R, self.rows, k1), dtype=torch.long,
+                                   device=self.device)
+        self._spec_n = torch.zeros((R, self.rows), dtype=torch.long,
+                                   device=self.device)
+        self._spec_carry = torch.zeros((self.rows, k1 + 3),
+                                       dtype=torch.long, device=self.device)
         # (chunk tokens, table width) -> the chunk step's static input
         # (tokens, pos, cap, rid, the row's table) and output buffers.
         self._chunk_bufs: Dict[Tuple[int, int],
@@ -1114,6 +1280,9 @@ class ContinuousBatcher:
         # prompt width -> the admission prefill's static input (tokens,
         # length - 1, rid, the row's table) and output buffers.
         self._prefill_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # draft chunk tokens -> its static input (tokens, pos, the row's
+        # np_max-wide draft table).
+        self._dchunk_bufs: Dict[int, torch.Tensor] = {}
         # fused slot count S -> the chunk slots' static input ([S] rows
         # of chunk tokens, position, cap, rid, table) and first tokens.
         self._slot_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -1130,6 +1299,43 @@ class ContinuousBatcher:
         self.fused_ticks = 0          # fused prefill+decode dispatches
         self.fused_chunk_tokens = 0   # prefill tokens they coalesced
         self.fused_decode_tokens = 0  # decode tokens they covered
+        self.spec_rounds = 0        # speculative rounds run
+        self.spec_row_rounds = 0    # rows decoding, summed over rounds
+        self.spec_committed = 0     # tokens those row-rounds committed
+        if prefix_np is not None:
+            self._init_prefix(prefix_np)
+        self.suspend_bypass_reason: Optional[str] = self._bypass["suspend"]
+        # The prefix cache: with a static prefix its chunks start after
+        # the shared full pages, the first one short by the prefix's
+        # partial page, and the chain is seeded by that partial page's
+        # tokens (the reference's rule, so digests match across
+        # frameworks).
+        self._pcache: Optional[_PrefixCache] = None
+        self.prefix_cache_bypass_reason: Optional[str] = None
+        if prefix_cache_pages:
+            self.prefix_cache_bypass_reason = self._bypass["prefix_cache"]
+            if self.prefix_cache_bypass_reason is None:
+                off = self.prefix_len - self.t_side.shared_len
+                seed = (b"" if not off else _ph.chunk_digest(
+                    b"", prefix_np[self.t_side.shared_len:]))
+                self._pcache = _PrefixCache(self.t_side, self.page_size,
+                                            self.page_size - off, seed,
+                                            prefix_cache_pages,
+                                            dside=self.d_side)
+        # The KV tier: prefix pages the pool evicts spill into it and
+        # promote back at the next matching admission; finished
+        # session-labelled requests park their KV in it for the next
+        # turn.  An int8 pool bypasses it (kv_tier_bypass_reason).
+        self.kv_tier = kv_tier
+        self.kv_tier_bypass_reason: Optional[str] = None
+        if kv_tier is not None:
+            self.kv_tier_bypass_reason = self._bypass["kv_tier"]
+            if self.kv_tier_bypass_reason is None \
+                    and self._pcache is not None:
+                self._pcache.on_evict = self._spill_page
+                kv_tier.prefix_geometry = {
+                    "page": self.page_size, "first": self._pcache.first,
+                    "seed": self._pcache.seed.hex()}
 
     @property
     def peak_pages_used(self) -> int:
@@ -1157,11 +1363,24 @@ class ContinuousBatcher:
         return self.suspend_bypass_reason is None
 
     def paged_launches_per_block(self, block_tokens: int = 16) -> int:
-        """Paged-attention launches per layer needed to retire
-        ``block_tokens`` decode tokens of one row: one a token (the
-        reference's analytic metric; only speculation, not ported,
-        retires more a launch)."""
+        """Target paged-attention launches per layer needed to retire
+        ``block_tokens`` decode tokens of one row (the reference's
+        analytic metric): one a token, or one verify launch for every
+        ``n_draft + 1`` tokens a speculative round can retire."""
+        if self.draft_cfg is not None:
+            return -(-int(block_tokens) // (self.n_draft + 1))
         return int(block_tokens)
+
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        """Fraction of draft proposals accepted: every row-round commits
+        its accepted run plus one non-draft token, so (committed -
+        row_rounds) over row_rounds x n_draft; None before any round (or
+        without a draft)."""
+        if self.d_side is None or not self.spec_row_rounds:
+            return None
+        return ((self.spec_committed - self.spec_row_rounds)
+                / (self.spec_row_rounds * self.n_draft))
 
     def fused_tokens_per_tick(self, n_decode: Optional[int] = None) -> int:
         """Tokens one dispatch covers on a tick with ``n_decode``
@@ -1202,6 +1421,150 @@ class ContinuousBatcher:
         resident decoding rows carry their KV artifact, everything else
         requeues with ``artifact=None``.  Thread-safe."""
         self._preempt_event.set()
+
+    # -- online weight updates ----------------------------------------------
+
+    def swap_adapter(self, delta: Dict[str, Any], version: str,
+                     on_applied=None) -> None:
+        """Fold a weight DELTA (``/``-joined param paths, e.g.
+        ``"layers/wq"``, to arrays added onto those leaves) into the
+        serving weights.  Validated now (an unknown path, an interior
+        node, a shape mismatch or an int8 leaf raises ``ValueError``);
+        applied by the serve loop once no row is resident, new
+        admissions waiting behind the fence, so every stream runs under
+        exactly one delta.  ``version`` labels the result
+        (:attr:`adapter_version`); ``on_applied()`` fires after the fold.
+        Without a serve loop the fold applies at once."""
+        if not isinstance(version, str) or not version:
+            raise ValueError("adapter version must be a non-empty "
+                             "string")
+        resolved = self._resolve_delta(delta)
+        self._queue_weight_update(("fold", resolved, version, on_applied))
+
+    def set_weights(self, params: Params, version: str = "",
+                    on_applied=None) -> None:
+        """Replace the whole parameter tree (the warm-pool adoption: the
+        same config and shapes, so nothing is recaptured), under
+        :meth:`swap_adapter`'s fence; ``version`` restamps the KV tier so
+        entries parked under the old weights read as version misses."""
+        self._check_tree(params, self.params, "")
+        self._queue_weight_update(("set", params, str(version or ""),
+                                   on_applied))
+
+    def _check_tree(self, new, live, path: str) -> None:
+        """``new`` has ``live``'s structure, leaf kinds and shapes
+        (``ValueError`` otherwise)."""
+        if isinstance(live, dict):
+            if not isinstance(new, dict) or set(new) != set(live):
+                raise ValueError(f"set_weights: the tree at {path or '/'!r} "
+                                 f"does not match the serving params")
+            for k in live:
+                self._check_tree(new[k], live[k], f"{path}/{k}")
+            return
+        if isinstance(live, QTensor) != isinstance(new, QTensor) \
+                or tuple(new.shape if not isinstance(new, QTensor)
+                         else new.values.shape) \
+                != tuple(live.shape if not isinstance(live, QTensor)
+                         else live.values.shape):
+            raise ValueError(f"set_weights: leaf {path!r} does not match "
+                             f"the serving params")
+
+    def _resolve_delta(self, delta: Dict[str, Any]):
+        """Validate a path -> array delta against the live params;
+        returns ``[(key_path, float32 CPU tensor), ...]``."""
+        if not isinstance(delta, dict) or not delta:
+            raise ValueError("adapter delta must be a non-empty dict "
+                             "of param-path -> array")
+        resolved = []
+        for path in sorted(delta):
+            keys = tuple(k for k in str(path).split("/") if k)
+            node = self.params
+            for k in keys:
+                if not isinstance(node, dict) or k not in node:
+                    raise ValueError(f"adapter delta names unknown param "
+                                     f"path {path!r}")
+                node = node[k]
+            if not keys or isinstance(node, dict):
+                raise ValueError(
+                    f"adapter delta path {path!r} does not name a param "
+                    f"array (it is "
+                    f"{'empty' if not keys else 'an interior node'})")
+            if isinstance(node, QTensor):
+                raise ValueError(f"adapter delta path {path!r} names an "
+                                 f"int8 weight; folds need float weights")
+            arr = np.asarray(delta[path])
+            if tuple(arr.shape) != tuple(node.shape):
+                raise ValueError(
+                    f"adapter delta shape mismatch at {path!r}: delta "
+                    f"{tuple(arr.shape)} vs param {tuple(node.shape)}")
+            resolved.append((keys, torch.from_numpy(
+                arr.astype(np.float32))))
+        return resolved
+
+    def _queue_weight_update(self, update) -> None:
+        with self._loop_lock:
+            if self._loop_active:
+                # The loop owns the rows: it applies the update at its
+                # next point with nothing resident; the kick wakes an
+                # idle loop so the update never waits for traffic.
+                with self._weights_lock:
+                    self._weight_updates.append(update)
+                src = self._submissions
+                if src is not None:
+                    src.kick()
+            else:
+                self._apply_weight_update(update)
+
+    def _apply_pending_weight_updates(self) -> None:
+        while True:
+            with self._weights_lock:
+                if not self._weight_updates:
+                    return
+                update = self._weight_updates.popleft()
+            self._apply_weight_update(update)
+
+    @torch.no_grad()
+    def _apply_weight_update(self, update) -> None:
+        """Apply one update IN PLACE: every captured graph reads the
+        parameter tensors by address, so a fold or a set copies into the
+        existing storage (an int8 leaf's values and scales alike) and
+        recaptures nothing.  Then the prefix cache clears (no spill) and
+        the KV tier restamps, so no KV of the old weights feeds a new
+        decode."""
+        kind, payload, version, cb = update
+        if kind == "fold":
+            masters = _tree_copy(self._masters)
+            for keys, arr in payload:
+                node, live = masters, self.params
+                for key in keys[:-1]:
+                    node, live = node[key], live[key]
+                leaf = node[keys[-1]]
+                new = leaf + arr.to(device=leaf.device, dtype=leaf.dtype)
+                node[keys[-1]] = new
+                live[keys[-1]].copy_(new.to(live[keys[-1]].dtype))
+            self._masters = masters
+            self.adapter_version = version
+        else:
+            _copy_tree(self.params, payload)
+            self._masters = payload
+            self.adapter_version = ""
+        if self._pcache is not None:
+            self._pcache.clear()
+        if self._tier_active:
+            restamp = getattr(self.kv_tier, "restamp", None)
+            if restamp is not None:
+                if kind == "fold":
+                    restamp(adapter=version)
+                else:
+                    restamp(weights_version=version or None, adapter="")
+        self.weight_swaps += 1
+        for fn, args in ((self.on_weights_applied, (kind, version)),
+                         (cb, ())):
+            if fn is not None:
+                try:
+                    fn(*args)
+                except Exception:
+                    pass    # an observer or waiter never costs the update
 
     # -- validation / online submission -----------------------------------
 
@@ -1318,8 +1681,8 @@ class ContinuousBatcher:
                             pre.request.priority:
                         break
                     try:
-                        wt, need = self._worst_pages(pre.request)
-                        row, _ = self._admit_row(free_rows, active, wt,
+                        wt, wd, need = self._worst_pages(pre.request)
+                        row, _ = self._admit_row(free_rows, active, wt, wd,
                                                  pre.request,
                                                  use_cache=False)
                     except RuntimeError:
@@ -1333,9 +1696,12 @@ class ContinuousBatcher:
                     self._parked.popleft()
                     self.resumes += 1
                     self._trace_event(pre.request, "resume")
-                    burst.append(self._admit_import(row, pre, wt, need,
-                                                    active))
-                while free_rows and bad_request is None:
+                    burst.append(self._admit_import(row, pre, wt, wd,
+                                                    need, active))
+                # A pending weight update gates new admissions: resident
+                # rows and parked resumes finish on the old weights.
+                while free_rows and bad_request is None \
+                        and not self._weight_updates:
                     if not pending and not exhausted and burst \
                             and not incremental:
                         # next(source) may block: settle the admissions
@@ -1359,7 +1725,7 @@ class ContinuousBatcher:
                                  if imported else -1), request=req0)
                         continue
                     try:
-                        wt, need = self._worst_pages(req0)
+                        wt, wd, need = self._worst_pages(req0)
                         if imported:
                             self._validate_artifact(item.artifact, req0)
                     except ValueError as e:
@@ -1374,7 +1740,7 @@ class ContinuousBatcher:
                     if not imported and sess_art is None:
                         self._tier_promote(req0)
                     row, plan = self._admit_row(
-                        free_rows, active, wt, req0,
+                        free_rows, active, wt, wd, req0,
                         use_cache=not imported and sess_art is None)
                     if row is None:
                         # Allocation pressure: a strictly-higher-priority
@@ -1388,24 +1754,25 @@ class ContinuousBatcher:
                     if imported:
                         # Imports keep their exporter's rid (the sampling
                         # folds continue that stream).
-                        res = self._admit_import(row, item, wt, need,
+                        res = self._admit_import(row, item, wt, wd, need,
                                                  active)
                     elif sess_art is not None:
                         rid = self._next_rid
                         self._next_rid += 1
-                        res = self._admit_session(row, rid, item, wt, need,
-                                                  active, sess_art)
+                        res = self._admit_session(row, rid, item, wt, wd,
+                                                  need, active, sess_art)
                     else:
                         rid = self._next_rid
                         self._next_rid += 1
-                        res = self._admit_dispatch(row, rid, item, wt,
+                        res = self._admit_dispatch(row, rid, item, wt, wd,
                                                    need, active, plan)
                     if res is not None:
                         burst.append(res)
                 # Every row busy: one eager pull lets a strictly
                 # higher-priority online arrival preempt now.
                 if (not free_rows and incremental and self.preemptible
-                        and bad_request is None):
+                        and bad_request is None
+                        and not self._weight_updates):
                     pull(block=False)
                     if pending and self._maybe_preempt(
                             rank_of(pending[0]), active, free_rows):
@@ -1419,6 +1786,11 @@ class ContinuousBatcher:
                         raise bad_request
                     if self._parked:
                         continue    # resume parked work before idling
+                    if self._weight_updates:
+                        # Between generations, nothing resident: the
+                        # weight-update point.
+                        self._apply_pending_weight_updates()
+                        continue
                     pull()
                     if not pending and exhausted:
                         return
@@ -1439,7 +1811,12 @@ class ContinuousBatcher:
                         self._finish_completed(done_row, active, free_rows)
                         yield done
                 if any(row.decoding for row in active.values()):
-                    if self._pipelined or self.overlap:
+                    if self.draft_cfg is not None and self.overlap:
+                        yield from self._step_spec_overlap(active,
+                                                           free_rows)
+                    elif self.draft_cfg is not None:
+                        yield from self._step_spec(active, free_rows)
+                    elif self._pipelined or self.overlap:
                         yield from self._step_lagged(active, free_rows)
                     else:
                         yield from self._step(active, free_rows)
@@ -1451,8 +1828,11 @@ class ContinuousBatcher:
             self._parked.clear()    # pages already released at suspend
             for row in list(active):
                 self._finish(row, active, free_rows)
+            # Updates still queued apply here, under the lock a new one
+            # takes, so no waiter is stranded by a dying loop.
             with self._loop_lock:
                 self._loop_active = False
+                self._apply_pending_weight_updates()
 
     def _flush_streams(self, active: Dict[int, _Row]) -> None:
         """Pass each streaming row's not-yet-streamed tokens to its
@@ -1473,9 +1853,53 @@ class ContinuousBatcher:
 
     # -- admission --------------------------------------------------------
 
-    def _worst_pages(self, req: Request) -> Tuple[int, int]:
-        """Worst-case pages of ``req`` and the absolute position cap the
-        reservation covers; ``ValueError`` if it can never be served."""
+    @torch.no_grad()
+    def _init_prefix(self, prefix: np.ndarray) -> None:
+        """Reserve pages for the static shared prefix and prefill it once
+        into each side's pool (the draft's too when speculating): rows
+        then map the full pages read-only, and a partial last page is
+        kept as a template copied into each row's first own page."""
+        if prefix.ndim != 1 or prefix.size == 0:
+            raise ValueError("prefix must be a non-empty 1-D token array")
+        if prefix.size >= self.max_len:
+            raise ValueError(f"prefix ({prefix.size} tokens) leaves no "
+                             f"room under max_len ({self.max_len})")
+        lo, hi = int(prefix.min()), int(prefix.max())
+        if lo < 0 or hi >= self.cfg.vocab_size:
+            raise ValueError(f"prefix token ids must lie in [0, "
+                             f"{self.cfg.vocab_size}), got [{lo}, {hi}]")
+        self.prefix_len = int(prefix.size)
+        full = self.prefix_len // self.page_size
+        tail = self.prefix_len % self.page_size
+        n_reserve = full + (1 if tail else 0)
+        toks = torch.as_tensor(prefix, device=self.device).long()[None]
+        for side, cfg, params in self._sides():
+            pages = [side.alloc.reserve_page() for _ in range(n_reserve)]
+            table = np.full((1, side.np_max), side.sink, np.int32)
+            table[0, :n_reserve] = pages
+            decode_step(cfg, params, dict(side.pool, pages=torch.as_tensor(
+                table, device=self.device)), toks, 0)
+            if tail:
+                side.tail_template = pages[-1]
+                side.shared_pages = pages[:-1]
+            else:
+                side.shared_pages = pages
+            side.shared_len = len(side.shared_pages) * self.page_size
+            side.dirty()
+
+    def _sides(self) -> List[Tuple[_PagedSide, TransformerConfig, Params]]:
+        """(side, config, params) of the target and, when speculating,
+        the draft."""
+        out = [(self.t_side, self.cfg, self.params)]
+        if self.d_side is not None:
+            out.append((self.d_side, self.draft_cfg, self.draft_params))
+        return out
+
+    def _worst_pages(self, req: Request) -> Tuple[int, int, int]:
+        """Worst-case OWN pages of ``req`` beyond the shared prefix pages
+        on each side, and the absolute position cap they cover: ``(target,
+        draft, need_len)`` (draft 0 without speculation); ``ValueError``
+        if it can never be served."""
         lo, hi = int(req.prompt.min()), int(req.prompt.max())
         if lo < 0 or hi >= self.cfg.vocab_size:
             # Checked here: on the card an out-of-range id is a device-side
@@ -1484,14 +1908,30 @@ class ContinuousBatcher:
                              f"{self.cfg.vocab_size}), got [{lo}, {hi}]")
         width = -(-req.prompt.size // self.prefill_bucket) * \
             self.prefill_bucket
-        need_len = max(width, req.prompt.size + req.max_new_tokens - 1)
+        need_len = self.prefix_len + max(
+            width, req.prompt.size + req.max_new_tokens - 1)
+        if self.draft_cfg is not None:
+            # A round at the final position still verifies k+1 tokens.
+            need_len += self.n_draft
+        if self.overlap or self._pipelined:
+            if self.draft_cfg is not None:
+                # Any ending surfaces a round late, and the overshoot
+                # round writes up to n_draft + 1 more positions.
+                need_len += self.n_draft + 1
+            elif req.stop_token is not None:
+                # A stop is seen a block late: one position past it.
+                need_len += 1
         if need_len > self.max_len:
             raise ValueError(
                 f"request needs {need_len} cache positions (prefix "
                 f"{self.prefix_len} + prompt {req.prompt.size} padded to "
                 f"{width}, plus {req.max_new_tokens} new tokens) > "
                 f"max_len ({self.max_len})")
-        return -(-need_len // self.page_size), need_len
+        wt = -(-(need_len - self.t_side.shared_len) // self.page_size)
+        wd = 0
+        if self.d_side is not None:
+            wd = -(-(need_len - self.d_side.shared_len) // self.page_size)
+        return wt, wd, need_len
 
     def _req_digests(self, req: Request) -> list:
         """Chain digests of ``req``'s complete page-aligned prompt
@@ -1519,7 +1959,8 @@ class ContinuousBatcher:
         nodes = self._pcache.match(shard, digs)
         if not nodes:
             return None
-        E = int(req.prompt.size)
+        E = self.prefix_len + int(req.prompt.size)
+        sl = self.t_side.shared_len
         ps, bucket = self.page_size, self.prefill_bucket
         n = len(nodes)
         if max_nodes is not None:
@@ -1528,12 +1969,13 @@ class ContinuousBatcher:
                 return None
         if self.prefill_chunk is not None:
             c = self.prefill_chunk
-            while n and (n * ps > E - 1 or (n * ps) % c):
+            while n and (sl + n * ps > E - 1
+                         or (sl + n * ps - self.prefix_len) % c):
                 n -= 1
-            return _PrefixPlan(nodes[:n], False, n * ps) if n else None
+            return _PrefixPlan(nodes[:n], False, sl + n * ps) if n else None
         while n:
-            cow = n * ps >= E
-            ts = E - 1 if cow else n * ps
+            cow = sl + n * ps >= E
+            ts = E - 1 if cow else sl + n * ps
             w = -(-(E - ts) // bucket) * bucket
             if ts + w <= self.np_max * ps:
                 return _PrefixPlan(nodes[:n], cow, ts)
@@ -1541,13 +1983,16 @@ class ContinuousBatcher:
         return None
 
     def _admit_row(self, free_rows: List[int], active: Dict[int, _Row],
-                   wt: int, req: Request, use_cache: bool = True
+                   wt: int, wd: int, req: Request, use_cache: bool = True
                    ) -> Tuple[Optional[int], Optional[_PrefixPlan]]:
-        """Pop a free row when the pool can take ``wt`` more reserved
-        pages, with the longest prefix-cache plan that fits: ``(row,
-        plan)``, or ``(None, None)`` to wait.  Raises when nothing is in
-        flight and it still cannot fit (waiting would deadlock)."""
-        ht = self.t_side.headroom(active)
+        """Pop a free row when each pool can take its worst-case
+        reservation (``wt`` target, ``wd`` draft pages), with the longest
+        prefix-cache plan that fits: ``(row, plan)``, or ``(None, None)``
+        to wait.  Raises when nothing is in flight and it still cannot
+        fit (waiting would deadlock)."""
+        ht = self.t_side.headroom(active, lambda x: x.worst_pages)
+        hd = (self.d_side.headroom(active, lambda x: x.worst_draft)
+              if self.d_side is not None else None)
         plan = (self._prefix_plan(req)
                 if self._pcache is not None and use_cache else None)
         while True:
@@ -1556,10 +2001,13 @@ class ContinuousBatcher:
             # a plan that maps them makes them unevictable for this very
             # admission: discounting wt by the plan's saving AND counting
             # them free would over-admit (a "page pool exhausted" crash
-            # out of the serve loop).
+            # out of the serve loop).  Twin nodes save as many draft
+            # pages.
             zref = (sum(1 for n in plan.nodes if n.ref == 0)
                     if plan is not None else 0)
             ok = (wt - save) <= ht - zref
+            if ok and hd is not None:
+                ok = (wd - save) <= hd - zref
             if ok or plan is None:
                 break
             # A deep plan that does not fit (a COW full hit needs a fresh
@@ -1573,9 +2021,12 @@ class ContinuousBatcher:
             free = self.t_side.alloc.free_count()
             if self._pcache is not None:
                 free += self._pcache.reclaimable(0)
+            free_d = (0 if self.d_side is None
+                      else self.d_side.alloc.free_count())
             raise RuntimeError(
-                f"request needs {wt} pages but only {free} are free with "
-                f"nothing in flight to wait for — raise n_pages")
+                f"request needs {wt} target pages (+ {wd} draft) but only "
+                f"{free} target / {free_d} draft are free with nothing in "
+                f"flight to wait for — raise n_pages")
         return None, None
 
     def _sample(self, last: torch.Tensor, rids: torch.Tensor,
@@ -1590,15 +2041,33 @@ class ContinuousBatcher:
                              self.top_p)
 
     @torch.no_grad()
+    def _ensure_sides(self, row: int, length: int) -> None:
+        """Back ABSOLUTE positions [0, length) of ``row`` on the target
+        (and, speculating, the draft) side.  The first time a row gains
+        own pages, a static prefix's partial last page is copied into its
+        first own page, before any row write can land there (a row
+        holding cached prefix pages skips it: its first own page covers
+        a later range)."""
+        for side, _, _ in self._sides():
+            fresh = side.alloc.allocated(row) == 0
+            side.ensure(row, length)
+            if (side.tail_template is not None and fresh
+                    and not side.row_cached.get(row)
+                    and side.alloc.allocated(row)):
+                _copy_page(side.pool, side.tail_template,
+                           side.alloc.rows[row][0])
+
+    @torch.no_grad()
     def _admit_dispatch(self, row: int, rid: int, req: Request, wt: int,
-                        need: int, active: Dict[int, _Row],
+                        wd: int, need: int, active: Dict[int, _Row],
                         plan: Optional[_PrefixPlan] = None
                         ) -> Optional[tuple]:
         """Reserve pages for ``req`` in ``row`` and dispatch its prefill
         (one call at the padded width, or the uncached tail of a
-        prefix-cache ``plan``); the first token stays on the device
-        until the burst syncs.  Chunked mode makes no call here (the
-        loop writes a chunk a tick) and returns None."""
+        prefix-cache ``plan``; the draft's prompt chunk beside it when
+        speculating); the first token stays on the device until the
+        burst syncs.  Chunked mode makes no call here (the loop writes a
+        chunk a tick) and returns None."""
         t_admit = time.perf_counter()
         self._trace_event(req, "admit", rid=rid, row=row,
                           prompt_len=int(req.prompt.size),
@@ -1611,48 +2080,61 @@ class ContinuousBatcher:
             self._pcache.acquire(row, plan.nodes)
             self._pcache.count("hits")
             self._pcache.count("hit_pages", len(plan.nodes))
-            self._pcache.count("hit_tokens", plan.tail_start)
+            self._pcache.count("hit_tokens",
+                               plan.tail_start - self.prefix_len)
             wt -= plan.save
+            if self.d_side is not None:
+                wd -= plan.save
         elif self._pcache is not None and self._req_digests(req):
             self._pcache.count("misses")
         if self.prefill_chunk is not None:
-            self.t_side.ensure(row, width)
+            self._ensure_sides(row, self.prefix_len + width)
             padded = np.zeros((width,), np.int32)
             padded[:length] = req.prompt
             active[row] = _Row(
-                rid=rid, req=req, pos=length, step=1, last=0, out=[],
-                worst_pages=wt, t_admit=t_admit, padded=padded,
-                filled=0 if plan is None else plan.tail_start,
+                rid=rid, req=req, pos=self.prefix_len + length, step=1,
+                last=0, out=[], worst_pages=wt, worst_draft=wd,
+                t_admit=t_admit, padded=padded,
+                filled=(0 if plan is None
+                        else plan.tail_start - self.prefix_len),
                 decoding=False, limit=need)
             return None
         if plan is not None:
-            return self._admit_cached(row, rid, req, wt, need, active,
+            return self._admit_cached(row, rid, req, wt, wd, need, active,
                                       plan, t_admit)
-        self.t_side.ensure(row, width)
+        self._ensure_sides(row, self.prefix_len + width)
         tok = self._prefill_call(row, req.prompt, width, rid)
+        if self.d_side is not None:
+            padded = np.zeros((width,), np.int32)
+            padded[:length] = req.prompt
+            self._draft_chunk_call(row, padded, self.prefix_len)
         self.prefills += 1
-        state = _Row(rid=rid, req=req, pos=length, step=1, last=0, out=[],
-                     worst_pages=wt, t_admit=t_admit, limit=need)
+        state = _Row(rid=rid, req=req, pos=self.prefix_len + length,
+                     step=1, last=0, out=[], worst_pages=wt,
+                     worst_draft=wd, t_admit=t_admit, limit=need)
         active[row] = state
         self._pcache_insert(row, state)
         return row, state, tok
 
     def _admit_cached(self, row: int, rid: int, req: Request, wt: int,
-                      need: int, active: Dict[int, _Row],
+                      wd: int, need: int, active: Dict[int, _Row],
                       plan: _PrefixPlan, t_admit: float) -> tuple:
         """Admission over a mapped cached prefix: prefill ONLY the
         uncached tail at its true offset (cache attention through the
-        paged kernel) and sample the first token at the prompt's last
-        position.  A page-aligned full hit first copies the deepest
-        cached page into a fresh own page, so the last-token rewrite
-        never touches shared state."""
-        side = self.t_side
-        E = int(req.prompt.size)
+        paged kernel; the draft's tail too when speculating) and sample
+        the first token at the prompt's last position.  A page-aligned
+        full hit first copies the deepest cached page (and its draft
+        twin) into a fresh own page, so the last-token rewrite never
+        touches shared state."""
+        E = self.prefix_len + int(req.prompt.size)
         if plan.cow:
             node = plan.nodes[-1]
             self._pcache.unmap_last(row)
-            side.ensure(row, len(plan.nodes) * self.page_size)
-            _copy_page(self.pool, node.page, side.alloc.rows[row][0])
+            for side, _, _ in self._sides():
+                side.ensure(row, side.shared_len
+                            + len(plan.nodes) * self.page_size)
+                src = node.page if side is self.t_side else node.dpage
+                _copy_page(side.pool, src, side.alloc.rows[row][0])
             # The reference protected the source through the ensure()
             # above; the copy is enqueued, so it may go now.
             self._pcache.release_nodes(row, [node])
@@ -1662,13 +2144,16 @@ class ContinuousBatcher:
         w = -(-tlen // self.prefill_bucket) * self.prefill_bucket
         # Allocation clamps at the reservation: pad positions past
         # ``need`` land in reserved-but-unread slots or on sink columns.
-        side.ensure(row, min(ts + w, need))
+        self._ensure_sides(row, min(ts + w, need))
         padded = np.zeros((w,), np.int32)
-        padded[:tlen] = req.prompt[E - tlen:]
+        padded[:tlen] = req.prompt[req.prompt.size - tlen:]
         tok = self._chunk_call(row, padded, ts, tlen - 1, rid)
+        if self.d_side is not None:
+            self._draft_chunk_call(row, padded, ts)
         self.tail_prefills += 1
         state = _Row(rid=rid, req=req, pos=E, step=1, last=0, out=[],
-                     worst_pages=wt, t_admit=t_admit, limit=need)
+                     worst_pages=wt, worst_draft=wd, t_admit=t_admit,
+                     limit=need)
         active[row] = state
         self._pcache_insert(row, state)
         return row, state, tok
@@ -1708,12 +2193,13 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _prefill_step(self, width: int) -> None:
         """The admission prefill over its static buffers (what a graph
-        holds): ``pos`` is the python int 0, a prefill from empty."""
+        holds): ``pos`` is the python int ``prefix_len``: 0 is a prefill
+        from empty, after a static prefix a chunk over the paged pool."""
         inp, out = self._prefill_bufs[width]
         table = inp[width + 2:].to(torch.int32)[None]
         logits, _ = decode_step(self.cfg, self.params,
                                 dict(self.pool, pages=table),
-                                inp[:width][None], 0)
+                                inp[:width][None], self.prefix_len)
         last = logits[0].index_select(0, inp[width:width + 1])
         rid = inp[width + 1:width + 2]
         out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
@@ -1776,6 +2262,39 @@ class ContinuousBatcher:
         rid = inp[t + 2:t + 3]
         out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
 
+    def _draft_chunk_call(self, row: int, tokens: np.ndarray,
+                          pos: int) -> None:
+        """Write ``row``'s prompt chunk ``tokens`` [t] at ``pos`` into the
+        DRAFT pool (the whole prompt, a prefill chunk or a tail, in
+        lockstep with the target's): ``decode_step`` of the draft over
+        its np_max-wide table, a graph a chunk width."""
+        t = int(tokens.size)
+        inp = self._dchunk_buffer(t)
+        host = self._staging(t + 1 + self.np_max)
+        h = host.numpy()
+        h[:t] = tokens
+        h[t] = pos
+        h[t + 1:] = self.d_side.table_np()[row]
+        inp.copy_(host, non_blocking=True)
+        self._graphs.run(("draft_chunk", t),
+                         functools.partial(self._draft_chunk_step, t))
+
+    def _dchunk_buffer(self, t: int) -> torch.Tensor:
+        if t not in self._dchunk_bufs:
+            self._dchunk_bufs[t] = torch.zeros(
+                (t + 1 + self.np_max,), dtype=torch.long,
+                device=self.device)
+        return self._dchunk_bufs[t]
+
+    @torch.no_grad()
+    def _draft_chunk_step(self, t: int) -> None:
+        """The draft chunk over its static buffer (what a graph holds)."""
+        inp = self._dchunk_bufs[t]
+        table = inp[t + 1:].to(torch.int32)[None]
+        decode_step(self.draft_cfg, self.draft_params,
+                    dict(self.dpool, pages=table), inp[:t][None],
+                    inp[t:t + 1])
+
     def _pcache_insert(self, row: int, state: _Row) -> None:
         """Publish ``row``'s freshly prefilled full prompt pages into the
         prefix cache (no-op without one)."""
@@ -1827,7 +2346,12 @@ class ContinuousBatcher:
         c = self.prefill_chunk
         chunk = row.padded[row.filled:row.filled + c]
         cap = row.req.prompt.size - 1 - row.filled
-        tok = self._chunk_call(r, chunk, row.filled, cap, row.rid)
+        pos = self.prefix_len + row.filled
+        tok = self._chunk_call(r, chunk, pos, cap, row.rid)
+        if self.d_side is not None:
+            # The draft's chunks advance in lockstep, so it can propose
+            # the moment the row turns to decoding.
+            self._draft_chunk_call(r, chunk, pos)
         self.prefill_chunks += 1
         row.filled += c
         if row.filled < row.padded.size:
@@ -1846,13 +2370,15 @@ class ContinuousBatcher:
 
     # -- decode -----------------------------------------------------------
 
-    def _put_table(self, table: np.ndarray) -> torch.Tensor:
-        """The device table of ``table``'s width, holding ``table``:
-        copied only when the host table changed, from a fresh staging
-        buffer (under a lag the previous table's copy may still wait
-        behind a block in flight)."""
+    def _put_table(self, table: np.ndarray, store=None) -> torch.Tensor:
+        """The device table of ``table``'s width in ``store`` (the
+        target's tables by default, ``_dtables`` the draft's), holding
+        ``table``: copied only when the host table changed, from a fresh
+        staging buffer (under a lag the previous table's copy may still
+        wait behind a block in flight)."""
+        store = self._tables if store is None else store
         w = table.shape[1]
-        held, dev = self._tables.get(w, (None, None))
+        held, dev = store.get(w, (None, None))
         if dev is None:
             dev = torch.zeros((self.rows, w), dtype=torch.int32,
                               device=self.device)
@@ -1860,7 +2386,7 @@ class ContinuousBatcher:
             host = self._staging(self.rows, w, dtype=torch.int32)
             host.numpy()[:] = table
             dev.copy_(host, non_blocking=True)
-        self._tables[w] = (table, dev)
+        store[w] = (table, dev)
         return dev
 
     def _decode_table(self, active: Optional[Dict[int, _Row]] = None,
@@ -1970,7 +2496,7 @@ class ContinuousBatcher:
         K = self.multi_step
         decoding = {r: row for r, row in active.items() if row.decoding}
         for r, row in decoding.items():
-            self.t_side.ensure(r, min(row.pos + K, row.limit))
+            self._ensure_sides(r, min(row.pos + K, row.limit))
         host = self._block_inputs(decoding)
         width = self._decode_table(active, decoding).shape[1]
         t0 = time.perf_counter()
@@ -2018,7 +2544,7 @@ class ContinuousBatcher:
             fresh = frozenset(r for r, rid in ticket.items()
                               if prev_ticket.get(r) != rid)
             for r, row in dispatch.items():
-                self.t_side.ensure(r, min(row.pos + K, row.limit))
+                self._ensure_sides(r, min(row.pos + K, row.limit))
             width = self._decode_table(active, dispatch).shape[1]
             key = (tuple(sorted(ticket.items())), fresh)
             if not self._pipelined or self._pipe_host != key:
@@ -2065,6 +2591,239 @@ class ContinuousBatcher:
             if done is not None:
                 yield done
 
+    # -- speculative decoding ----------------------------------------------
+
+    @torch.no_grad()
+    def _spec_body(self, toks: torch.Tensor, positions: torch.Tensor,
+                   rids: torch.Tensor, steps: torch.Tensor,
+                   table: torch.Tensor, dtable: torch.Tensor):
+        """One speculative round over every row: k+1 draft steps over the
+        draft pool (the extra one writes the last proposal's K/V, so a
+        fully accepted round leaves no hole), then the (k+1)-token verify
+        over the target pool.  Returns the commit candidates [rows, k+1]
+        and each row's commit count.  Greedy: the target's argmax tokens
+        and the leading-match count.  Sampled: Leviathan rejection, the
+        proposal j drawn under ``fold(rid, step + j)`` (the stream the
+        target-only batcher draws from), its acceptance under
+        ``fold_in(fold(rid, step + j), 1)``, the correction at the first
+        rejection a under ``fold_in(fold(rid, step + a), 2)``."""
+        k = self.n_draft
+        sampling = self.temperature > 0.0
+        T, top_k, top_p = self.temperature, self.top_k, self.top_p
+        base = prng.fold_in(self._rng, rids) if sampling else None
+        dcache = dict(self.dpool, pages=dtable)
+        dtok, dpos = toks, positions
+        drafts, pds = [], []
+        for j in range(k + 1):
+            lg, _ = decode_step(self.draft_cfg, self.draft_params, dcache,
+                                dtok[:, None], dpos)
+            if sampling:
+                f = filter_logits(lg[:, -1], T, top_k, top_p)
+                dtok = prng.categorical(prng.fold_in(base, steps + j), f)
+                pds.append(torch.softmax(f, dim=-1))
+            else:
+                dtok = torch.argmax(lg[:, -1].float(), dim=-1)
+            drafts.append(dtok)
+            dpos = dpos + 1
+        drafts = torch.stack(drafts[:k], dim=1)              # [rows, k]
+        lg, _ = decode_step(self.cfg, self.params,
+                            dict(self.pool, pages=table),
+                            torch.cat([toks[:, None], drafts], dim=1),
+                            positions)
+        if not sampling:
+            g = torch.argmax(lg.float(), dim=-1)             # [rows, k+1]
+            return g, greedy_accept_counts(drafts, g)
+        pt = torch.softmax(filter_logits(lg, T, top_k, top_p), dim=-1)
+        j = torch.arange(k, device=toks.device)
+        # The salts as device scalars: a python int would be copied from
+        # the host, which a graph capture refuses.
+        salt = steps.new_ones(())
+        ukeys = prng.fold_in(prng.fold_in(base[:, None],
+                                          steps[:, None] + j[None]), salt)
+        a, dist = rejection_accept(drafts, torch.stack(pds[:k], dim=1),
+                                   pt, prng.uniform(ukeys, ()))
+        repl = prng.categorical(
+            prng.fold_in(prng.fold_in(base, steps + a), salt + 1),
+            torch.log(dist + 1e-20))
+        cand = torch.cat([drafts, drafts.new_zeros((drafts.shape[0], 1))],
+                         dim=1)
+        jj = torch.arange(k + 1, device=toks.device)[None]
+        return torch.where(jj == a[:, None], repl[:, None], cand), a + 1
+
+    @torch.no_grad()
+    def _spec_step(self, tw: int, dw: int) -> None:
+        """The speculative dispatch over its static buffers (what a graph
+        holds).  Synchronous: R rounds chained in the graph, each from
+        the previous round's last committed token, positions and steps
+        advanced by its counts, into ``_spec_g`` / ``_spec_n``.  Under
+        ``overlap`` one round, where the rows the flag row marks continue
+        from the previous round's carry on the device (its last committed
+        token, position + count, step + count); the round's candidates,
+        counts, positions and steps become the next carry."""
+        inp = self._tick_in
+        toks, positions, rids, steps = inp[0], inp[1], inp[2], inp[3]
+        table = self._tables[tw][1]
+        dtable = self._dtables[dw][1]
+        k1 = self.n_draft + 1
+        if self.overlap:
+            carry = self._spec_carry
+            prev_g, prev_n = carry[:, :k1], carry[:, k1]
+            use_dev = inp[4].bool()
+            last = torch.clamp(prev_n - 1, min=0)
+            toks = torch.where(use_dev, torch.take_along_dim(
+                prev_g, last[:, None], dim=1)[:, 0], toks)
+            positions = torch.where(use_dev, carry[:, k1 + 1] + prev_n,
+                                    positions)
+            steps = torch.where(use_dev, carry[:, k1 + 2] + prev_n, steps)
+            g, counts = self._spec_body(toks, positions, rids, steps, table,
+                                        dtable)
+            self._spec_g[0].copy_(g)
+            self._spec_n[0].copy_(counts)
+            carry.copy_(torch.cat([g, counts[:, None], positions[:, None],
+                                   steps[:, None]], dim=1))
+            return
+        for i in range(max(1, self._spec_rounds)):
+            g, counts = self._spec_body(toks, positions, rids, steps, table,
+                                        dtable)
+            self._spec_g[i].copy_(g)
+            self._spec_n[i].copy_(counts)
+            last = torch.clamp(counts - 1, min=0)
+            toks = torch.take_along_dim(g, last[:, None], dim=1)[:, 0]
+            positions = positions + counts
+            steps = steps + counts
+
+    def _spec_dispatch(self, active: Dict[int, _Row],
+                       rows: Dict[int, _Row], host: torch.Tensor
+                       ) -> Tuple[int, int]:
+        """Upload a round's host inputs and both sides' tables, and run
+        the round's graph (keyed by the two table widths, returned)."""
+        tw = self._put_table(self.t_side.decode_table(active, rows)
+                             ).shape[1]
+        dw = self._put_table(self.d_side.decode_table(active, rows),
+                             self._dtables).shape[1]
+        self._tick_in.copy_(host, non_blocking=True)
+        self._graphs.run(("spec", tw, dw),
+                         functools.partial(self._spec_step, tw, dw))
+        return tw, dw
+
+    def _step_spec(self, active: Dict[int, _Row],
+                   free_rows: List[int]) -> Iterator[Completion]:
+        """One synchronous speculative dispatch over every decoding row:
+        R rounds (``multi_step`` composed), each committing a row's
+        accepted run plus the correction, round by round so quota and
+        stop truncation stay exact.  Rows without a request ride along
+        parked at position ``max_len`` on sink table rows."""
+        R = max(1, self._spec_rounds)
+        k1 = self.n_draft + 1
+        decoding = {r: row for r, row in active.items() if row.decoding}
+        host = self._staging(5, self.rows)
+        h = host.numpy()
+        h[1] = self.max_len
+        for r, row in decoding.items():
+            # The verify chunk writes [pos, pos + k] (the draft the same
+            # range of its pool); R rounds reach R * (k+1), clamped at the
+            # reservation: writes past it land on sink columns.
+            self._ensure_sides(r, min(row.pos + R * k1, row.limit))
+            h[:4, r] = (row.last, row.pos, row.rid, row.step)
+        t0 = time.perf_counter()
+        self._spec_dispatch(active, decoding, host)
+        fetched = self._fetch(self._spec_n)
+        g = self._read(self._fetch(self._spec_g))
+        n_commit = self._read(fetched)
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_ticks += 1
+        self.spec_rounds += R
+        for i in range(R):
+            live = [r for r in decoding if r in active]
+            if not live:
+                break
+            self.spec_committed += int(sum(int(n_commit[i, r])
+                                           for r in live))
+            self.spec_row_rounds += len(live)
+            yield from self._commit_rows(g[i], n_commit[i], live, active,
+                                         free_rows)
+
+    def _commit_rows(self, g, nc, rows, active: Dict[int, _Row],
+                     free_rows: List[int]) -> Iterator[Completion]:
+        """Commit one round's candidates to ``rows`` (the synchronous and
+        the overlap loops alike): each row's first ``nc`` tokens, cut at
+        its quota and just after a stop token."""
+        for r in rows:
+            row = active[r]
+            emit = [int(t) for t in g[r, :int(nc[r])]]
+            emit = emit[:row.req.max_new_tokens - row.step]
+            stop = row.req.stop_token
+            if stop is not None and stop in emit:
+                emit = emit[:emit.index(stop) + 1]
+            row.out.extend(emit)
+            row.step += len(emit)
+            row.pos += len(emit)
+            self.decode_tokens += len(emit)
+            if emit:
+                row.last = emit[-1]
+            if row.step >= row.req.max_new_tokens or (
+                    stop is not None and row.out and row.out[-1] == stop):
+                done = self._completion(row)
+                self._finish_completed(r, active, free_rows)
+                yield done
+
+    def _step_spec_overlap(self, active: Dict[int, _Row],
+                           free_rows: List[int]) -> Iterator[Completion]:
+        """One overlap speculative round: dispatch round t before syncing
+        round t-1.  Rows of the previous round continue from its carry on
+        the device (commit counts are decided there), so the host's
+        ``pos`` / ``step`` lag one retire behind and only back pages
+        (the round in flight advanced up to k+1, this one writes k+1
+        more).  Endings surface a round late; the overshoot round's
+        tokens fail the rid-checked ticket and its writes land in the
+        row's reserved overshoot or on the sink."""
+        k1 = self.n_draft + 1
+        dispatch = {r: row for r, row in active.items()
+                    if row.decoding and row.step < row.req.max_new_tokens}
+        prev = self._inflight
+        t0 = time.perf_counter()
+        if dispatch:
+            prev_ticket = {} if prev is None else prev[2]
+            host = self._staging(5, self.rows)
+            h = host.numpy()
+            h[1] = self.max_len
+            for r, row in dispatch.items():
+                self._ensure_sides(r, min(row.pos + 2 * k1, self.max_len))
+                if prev_ticket.get(r) == row.rid:
+                    h[4, r] = 1         # continue from the device carry
+                else:
+                    h[:4, r] = (row.last, row.pos, row.rid, row.step)
+                h[2, r] = row.rid
+            self._spec_dispatch(active, dispatch, host)
+            self._inflight = (self._fetch(self._spec_g),
+                              self._fetch(self._spec_n),
+                              {r: row.rid for r, row in dispatch.items()})
+            self.decode_ticks += 1
+        else:
+            self._inflight = None
+        if prev is not None:
+            yield from self._retire_spec(prev, active, free_rows, t0)
+        else:
+            self.decode_seconds += time.perf_counter() - t0
+
+    def _retire_spec(self, inflight, active: Dict[int, _Row],
+                     free_rows: List[int], t0: float
+                     ) -> Iterator[Completion]:
+        """Sync one overlap round (a round behind the newest) and commit
+        it, rid-gated so a finished row's overshoot round drops.  Only a
+        finishing row is ever truncated, so continuing rows advance by
+        exactly the device's counts and stay in step with the carry."""
+        g_f, n_f, ticket = inflight
+        g = self._read(g_f)[0]
+        nc = self._read(n_f)[0]
+        self.decode_seconds += time.perf_counter() - t0
+        live = [r for r, rid in ticket.items()
+                if r in active and active[r].rid == rid]
+        self.spec_rounds += 1
+        self.spec_row_rounds += len(live)
+        self.spec_committed += int(sum(int(nc[r]) for r in live))
+        yield from self._commit_rows(g, nc, live, active, free_rows)
+
     # -- the fused prefill + decode tick ----------------------------------
 
     @staticmethod
@@ -2101,8 +2860,8 @@ class ContinuousBatcher:
         tbl = self.t_side.table_np()
         for i, (r, row) in enumerate(rows):
             h[i, :c] = row.padded[row.filled:row.filled + c]
-            h[i, c:c + 3] = (row.filled, row.req.prompt.size - 1 - row.filled,
-                             row.rid)
+            h[i, c:c + 3] = (self.prefix_len + row.filled,
+                             row.req.prompt.size - 1 - row.filled, row.rid)
             h[i, c + 3:] = tbl[r]
         return host
 
@@ -2141,7 +2900,7 @@ class ContinuousBatcher:
         picks = [r for _, r in filling[:slots]]
         n = self._pow2(len(picks))
         for r, row in decoding.items():
-            self.t_side.ensure(r, min(row.pos + K, row.limit))
+            self._ensure_sides(r, min(row.pos + K, row.limit))
         host = self._block_inputs(decoding)
         slot_host = self._slot_inputs([(r, active[r]) for r in picks], n)
         width = self._decode_table(active, decoding).shape[1]
@@ -2201,14 +2960,14 @@ class ContinuousBatcher:
                     "export_kv cannot run concurrently with this "
                     "batcher's serve loop (prefill-role batchers never "
                     "start one)")
-            wt, need = self._worst_pages(request)
+            wt, wd, need = self._worst_pages(request)
             self._tier_promote(request)
             active: Dict[int, _Row] = {}
-            row, plan = self._admit_row([0], active, wt, request)
+            row, plan = self._admit_row([0], active, wt, wd, request)
             rid = self._next_rid
             self._next_rid += 1
             try:
-                res = self._admit_dispatch(row, rid, request, wt, need,
+                res = self._admit_dispatch(row, rid, request, wt, wd, need,
                                            active, plan)
                 state = active[row]
                 if res is not None:
@@ -2224,33 +2983,58 @@ class ContinuousBatcher:
             finally:
                 self._finish(row, active, [])
 
+    def _draft_geom(self) -> Dict[str, Any]:
+        """The draft-side geometry an export's ``draft`` header carries
+        and every import and resume checks, field for field."""
+        return {"n_layers": int(self.draft_cfg.n_layers),
+                "kv_heads": int(self.draft_cfg.kv_heads),
+                "head_dim": int(self.draft_cfg.head_dim),
+                "quantized": isinstance(self.dpool["k"], QTensor),
+                "n_draft": int(self.n_draft)}
+
+    def _side_leaves(self, side: _PagedSide, row: int, n: int, prefix: str
+                     ) -> Dict[str, Any]:
+        """``row``'s ``n`` pages past the shared prefix on ``side``, on the
+        host, under their artifact names (``prefix`` "" the target's
+        ``k``/``v``/scales, "d" the draft's): bf16 pages as CPU tensors
+        (numpy has no bf16), the rest numpy arrays."""
+        ns = len(side.shared_pages)
+        ids = side.table_np()[row, ns:ns + n].astype(np.int64)
+        leaves = _gather_pages(side.pool, torch.as_tensor(
+            ids, device=self.device))
+        names = (("k", "k_scales", "v", "v_scales")
+                 if isinstance(side.pool["k"], QTensor) else ("k", "v"))
+        return {prefix + name: (a if a.dtype == torch.bfloat16
+                                else a.numpy())
+                for name, a in zip(names, leaves)}
+
     def _export_row(self, row: int, state: _Row,
                     final: bool = False) -> dict:
         """Snapshot ``row``'s KV into a host artifact: the pages covering
-        positions [0, pos) in table order (cached prefix pages and own
-        pages alike), plus the sampler state (``step`` and the emitted
-        ``tokens``, so a suspended row resumes mid-stream).  bf16 pages
-        are CPU tensors (numpy has no bf16); the rest numpy arrays.
+        positions [shared_len, pos) in table order (cached prefix pages
+        and own pages alike; a static prefix's shared pages stay, an
+        importer with the same prefix holds them), plus the sampler
+        state (``step`` and the emitted ``tokens``, so a suspended row
+        resumes mid-stream).  A speculative row carries the draft pool's
+        pages over the same positions (``dk``/``dv`` and the ``draft``
+        header).
 
         ``final`` exports a finished row at its committed boundary,
-        ``prompt + len(out) - 1``: under ``overlap`` and
-        ``pipeline_depth=1`` ``pos`` and ``step`` advance at dispatch and
-        may run a block past the committed stream, but every position
-        below the boundary was written once with the true tokens, so a
-        session parks in every decode mode."""
+        ``prefix + prompt + len(out) - 1``: the lagged modes advance
+        ``pos`` and ``step`` at dispatch and may run past the committed
+        stream, but every position below the boundary was written once
+        with the true tokens, so a session parks in every decode mode."""
         E, step = int(state.pos), int(state.step)
         toks = [int(t) for t in state.out]
         if final:
             step = len(toks)
             E = self.prefix_len + int(state.req.prompt.size) + step - 1
-        n = -(-E // self.page_size)
-        ids = self.t_side.table_np()[row, :n].astype(np.int64)
-        leaves = _gather_pages(self.pool, torch.as_tensor(
-            ids, device=self.device))
+        n = -(-(E - self.t_side.shared_len) // self.page_size)
         quantized = isinstance(self.pool["k"], QTensor)
         art = {
             "version": 1, "page_size": self.page_size,
-            "prefix_len": self.prefix_len, "shared_len": 0,
+            "prefix_len": self.prefix_len,
+            "shared_len": self.t_side.shared_len,
             "pos": E, "prompt_len": int(state.req.prompt.size),
             "first_token": int(state.out[0]), "step": step,
             "tokens": toks, "rid": int(state.rid),
@@ -2258,14 +3042,15 @@ class ContinuousBatcher:
             "model": {"n_layers": int(self.cfg.n_layers),
                       "kv_heads": int(self.cfg.kv_heads),
                       "head_dim": int(self.cfg.head_dim)}}
-        names = (("k", "k_scales", "v", "v_scales") if quantized
-                 else ("k", "v"))
-        for name, a in zip(names, leaves):
-            art[name] = a if a.dtype == torch.bfloat16 else a.numpy()
+        art.update(self._side_leaves(self.t_side, row, n, ""))
+        if self.d_side is not None:
+            art["draft"] = self._draft_geom()
+            art.update(self._side_leaves(self.d_side, row, n, "d"))
         return art
 
-    def _pool_dtype_name(self) -> str:
-        k = self.pool["k"]
+    def _pool_dtype_name(self, pool: Optional[Dict[str, Any]] = None
+                         ) -> str:
+        k = (self.pool if pool is None else pool)["k"]
         return _TORCH_NAMES[(k.values if isinstance(k, QTensor) else k).dtype]
 
     def _validate_artifact(self, art: dict, req: Request) -> None:
@@ -2277,7 +3062,8 @@ class ContinuousBatcher:
         quantized = isinstance(self.pool["k"], QTensor)
         for key, want in (("page_size", self.page_size),
                           ("prefix_len", self.prefix_len),
-                          ("shared_len", 0), ("quantized", quantized)):
+                          ("shared_len", self.t_side.shared_len),
+                          ("quantized", quantized)):
             if art.get(key) != want:
                 raise ValueError(
                     f"KV artifact {key} {art.get(key)!r} does not match "
@@ -2323,70 +3109,144 @@ class ContinuousBatcher:
                 f"KV artifact covers {E!r} positions; this request needs "
                 f"prefix {self.prefix_len} + prompt {req.prompt.size} "
                 f"(+ {step - 1} resumed tokens)")
-        n = -(-E // self.page_size)
-        self._check_payload_arrays(art, quantized, n)
-        if art.get("draft") is not None or art.get("dk") is not None:
-            raise ValueError(
-                "KV artifact carries a draft-side payload but this "
-                "batcher has no draft model (speculative exports "
-                "resume on speculative batchers)")
+        n = -(-(E - self.t_side.shared_len) // self.page_size)
+        self._check_payload_arrays(art, quantized, n, self.cfg, self.pool)
+        self._validate_artifact_draft(art, n, step)
 
-    def _check_payload_arrays(self, art: dict, quantized: bool,
-                              n: int) -> None:
-        """The payload's shape and dtype contract against this pool."""
-        cfg = self.cfg
-        want_shape = (int(cfg.n_layers), n, int(cfg.kv_heads),
-                      self.page_size, int(cfg.head_dim))
+    def _check_payload_arrays(self, art: dict, quantized: bool, n: int,
+                              mcfg: TransformerConfig,
+                              pool: Dict[str, Any], prefix: str = "") -> None:
+        """One side's payload shape and dtype contract (``prefix`` ""
+        ``k``/``v`` against the target, "d" ``dk``/``dv`` against the
+        draft)."""
+        want_shape = (int(mcfg.n_layers), n, int(mcfg.kv_heads),
+                      self.page_size, int(mcfg.head_dim))
         names = (("k", "v", "k_scales", "v_scales") if quantized
                  else ("k", "v"))
+        side = "draft " if prefix else ""
         for name in names:
-            a = art.get(name)
+            key = prefix + name
+            a = art.get(key)
             if not isinstance(a, (np.ndarray, torch.Tensor)):
-                raise ValueError(f"KV artifact is missing array {name!r}")
+                raise ValueError(f"KV artifact is missing {side}array "
+                                 f"{key!r}")
             if name.endswith("_scales"):
                 want, dtype = want_shape[:3] + (1, self.page_size), \
                     "float32"
             else:
-                want, dtype = want_shape, self._pool_dtype_name()
+                want, dtype = want_shape, self._pool_dtype_name(pool)
             if tuple(a.shape) != want:
-                raise ValueError(f"KV artifact {name} shape "
+                raise ValueError(f"KV artifact {key} shape "
                                  f"{tuple(a.shape)} != expected {want}")
             if _dtype_name(a) != dtype:
-                raise ValueError(f"KV artifact {name} dtype "
-                                 f"{_dtype_name(a)} != pool dtype {dtype}")
+                raise ValueError(f"KV artifact {key} dtype "
+                                 f"{_dtype_name(a)} != {side}pool dtype "
+                                 f"{dtype}")
 
-    def _admit_import(self, row: int, pre: Prefilled, wt: int, need: int,
-                      active: Dict[int, _Row]) -> tuple:
+    def _validate_artifact_draft(self, art: dict, n: int,
+                                 step: int) -> None:
+        """The draft half of :meth:`_validate_artifact`: a draftless
+        batcher rejects a draft payload; a speculative one needs a
+        matching payload for a mid-stream artifact, and takes a fresh
+        (step 1) export without one by rebuilding the draft's prompt KV
+        (a draftless prefill tier feeding speculative decode replicas)."""
+        draft = art.get("draft")
+        has_payload = isinstance(art.get("dk"), (np.ndarray, torch.Tensor))
+        if self.d_side is None:
+            if draft is not None or has_payload:
+                raise ValueError(
+                    "KV artifact carries a draft-side payload but this "
+                    "batcher has no draft model (speculative exports "
+                    "resume on speculative batchers)")
+            return
+        if not has_payload:
+            if step > 1:
+                raise ValueError(
+                    "suspended KV artifact has no draft-side payload; "
+                    "a speculative batcher cannot rebuild mid-stream "
+                    "draft state bit-exactly")
+            return      # a fresh prefill: the import rebuilds the draft
+        if not isinstance(draft, dict):
+            raise ValueError("KV artifact has draft arrays but no "
+                             "'draft' geometry header")
+        geom = self._draft_geom()
+        for key, want in geom.items():
+            if draft.get(key) != want:
+                raise ValueError(
+                    f"KV artifact draft {key} {draft.get(key)!r} does "
+                    f"not match this batcher's {want!r}")
+        self._check_payload_arrays(art, geom["quantized"], n,
+                                   self.draft_cfg, self.dpool, prefix="d")
+
+    def _install_side(self, side: _PagedSide, row: int, art: dict, n: int,
+                      prefix: str = "") -> None:
+        """Back ``n`` pages past the shared prefix with own pages on
+        ``side`` and write the artifact's ``prefix`` payload into them."""
+        side.ensure(row, side.shared_len + n * self.page_size)
+        names = (("k", "k_scales", "v", "v_scales")
+                 if isinstance(side.pool["k"], QTensor) else ("k", "v"))
+        ids = torch.as_tensor(side.alloc.rows[row], dtype=torch.long,
+                              device=self.device)
+        _install_pages(side.pool, [_as_tensor(art[prefix + k])
+                                   for k in names], ids)
+
+    def _admit_import(self, row: int, pre: Prefilled, wt: int, wd: int,
+                      need: int, active: Dict[int, _Row]) -> tuple:
         """Admission of an imported prefill: back the payload's positions
-        with own pages, write its pages into them, and enter the row
-        straight into decode at the exported position with the exported
-        tokens (a suspended artifact resumes mid-stream at its ``step``,
-        its ``rid``'s key folds continuing).  The imported full prompt
-        pages then seed the prefix cache like a local prefill's."""
+        with own pages, write its pages into them (and the draft's), and
+        enter the row straight into decode at the exported position with
+        the exported tokens (a suspended artifact resumes mid-stream at
+        its ``step``, its ``rid``'s key folds continuing).  The imported
+        full prompt pages then seed the prefix cache like a local
+        prefill's."""
         t_admit = time.perf_counter()
         art = pre.artifact
         req = pre.request
         self._trace_event(req, "import", rid=int(art.get("rid", -1)),
                           row=row, pos=int(art.get("pos", 0)),
                           resumed=int(art.get("step", 1)) > 1)
-        side = self.t_side
         n = art["k"].shape[1]
-        side.ensure(row, n * self.page_size)
-        ids = torch.as_tensor(side.alloc.rows[row], dtype=torch.long,
-                              device=self.device)
-        names = (("k", "k_scales", "v", "v_scales") if art["quantized"]
-                 else ("k", "v"))
-        _install_pages(self.pool, [_as_tensor(art[k]) for k in names], ids)
+        self._install_side(self.t_side, row, art, n)
+        if self.d_side is not None:
+            self._admit_import_draft(row, req, art, n, need)
         step = int(art.get("step", 1))
         toks = [int(t) for t in (art.get("tokens") or ())]
         resumed = step > 1
         state = _Row(rid=int(art["rid"]), req=req, pos=int(art["pos"]),
                      step=step, last=toks[-1] if resumed else 0,
                      out=list(toks) if resumed else [], worst_pages=wt,
-                     t_admit=t_admit, limit=need)
+                     worst_draft=wd, t_admit=t_admit, limit=need)
         active[row] = state
         self._pcache_insert(row, state)
         return row, state, int(art["first_token"])
+
+    def _admit_import_draft(self, row: int, req: Request, art: dict,
+                            n: int, need: int) -> None:
+        """The draft half of :meth:`_admit_import`: install the paired
+        draft payload, or, for a fresh export from a draftless prefill
+        tier, rebuild the draft's prompt KV with exactly the chunk calls a
+        local admission makes (the same widths and offsets), so the draft
+        cache is the local admission's."""
+        dside = self.d_side
+        if isinstance(art.get("dk"), (np.ndarray, torch.Tensor)):
+            self._install_side(dside, row, art, n, prefix="d")
+            return
+        length = int(req.prompt.size)
+        bucket = self.prefill_chunk or self.prefill_bucket
+        width = -(-length // bucket) * bucket
+        fresh = dside.alloc.allocated(row) == 0
+        dside.ensure(row, min(self.prefix_len + width, need))
+        if dside.tail_template is not None and fresh \
+                and not dside.row_cached.get(row) \
+                and dside.alloc.allocated(row):
+            _copy_page(dside.pool, dside.tail_template,
+                       dside.alloc.rows[row][0])
+        padded = np.zeros((width,), np.int32)
+        padded[:length] = req.prompt
+        c = self.prefill_chunk or width
+        for off in range(0, width, c):
+            self._draft_chunk_call(row, padded[off:off + c],
+                                   self.prefix_len + off)
 
     # -- the KV tier: prefix spill/promote, session park/resume ----------
 
@@ -2399,69 +3259,108 @@ class ContinuousBatcher:
         """The geometry stamped on every spilled prefix page and checked
         at promotion, the reference's field for field (``dtype`` is
         numpy's name, e.g. "bfloat16"), so either framework's spilled
-        pages promote in the other; ``draft`` stays None (speculative
-        decoding is not ported)."""
-        return {"page_size": self.page_size,
-                "n_layers": int(self.cfg.n_layers),
-                "kv_heads": int(self.cfg.kv_heads),
-                "head_dim": int(self.cfg.head_dim),
-                "dtype": self._pool_dtype_name(), "draft": None}
+        pages promote in the other; the ``draft`` sub-geometry (None
+        without one) keeps a speculative batcher's twin-page spills and
+        a draftless one's apart."""
+        geom: Dict[str, Any] = {
+            "page_size": self.page_size,
+            "n_layers": int(self.cfg.n_layers),
+            "kv_heads": int(self.cfg.kv_heads),
+            "head_dim": int(self.cfg.head_dim),
+            "dtype": self._pool_dtype_name(), "draft": None}
+        if self.d_side is not None:
+            geom["draft"] = {
+                "n_layers": int(self.draft_cfg.n_layers),
+                "kv_heads": int(self.draft_cfg.kv_heads),
+                "head_dim": int(self.draft_cfg.head_dim),
+                "dtype": self._pool_dtype_name(self.dpool)}
+        return geom
 
-    def _page_elems(self) -> int:
-        cfg = self.cfg
-        return (int(cfg.n_layers) * int(cfg.kv_heads) * self.page_size
-                * int(cfg.head_dim))
+    @staticmethod
+    def _page_shape(cfg: TransformerConfig, page_size: int
+                    ) -> Tuple[int, ...]:
+        """One spilled page's K (or V): [layers, 1, kv_heads, page,
+        head_dim]."""
+        return (int(cfg.n_layers), 1, int(cfg.kv_heads), page_size,
+                int(cfg.head_dim))
 
-    def _spill_page(self, shard: int, digest: bytes, page: int) -> None:
-        """The prefix cache's eviction callback: copy the evicted page to
-        the host and park it in the tier under its chain digest (body:
-        K then V, each [layers, 1, kv_heads, page, head_dim]).  Runs on
-        the serve thread while the page still holds its chunk; a page
-        the tier could never hold costs no copy."""
+    def _spill_page(self, shard: int, digest: bytes, page: int,
+                    dpage: Optional[int] = None) -> None:
+        """The prefix cache's eviction callback: copy the evicted page
+        (and its draft twin) to the host and park it in the tier under
+        its chain digest (body: K then V, then the draft's K and V).
+        Runs on the serve thread while the pages still hold their chunk;
+        a page the tier could never hold costs no copy."""
         tier = self.kv_tier
-        item = self.pool["k"].element_size()
-        if not tier.would_accept(2 * self._page_elems() * item + 512):
+        nbytes = 2 * int(np.prod(self._page_shape(
+            self.cfg, self.page_size))) * self.pool["k"].element_size()
+        twin = self.d_side is not None and dpage is not None
+        if twin:
+            nbytes += 2 * int(np.prod(self._page_shape(
+                self.draft_cfg, self.page_size))) \
+                * self.dpool["k"].element_size()
+        if not tier.would_accept(nbytes + 512):
             tier.count("evictions")
             return
         k, v = _gather_pages(self.pool, torch.tensor(
             [int(page)], device=self.device))
         meta = dict(self._tier_geom())
-        meta["k_bytes"] = k.numel() * item
-        tier.put_prefix(digest.hex(), meta,
-                        bytes(_array_bytes(k)) + bytes(_array_bytes(v)))
+        meta["k_bytes"] = k.numel() * k.element_size()
+        body = bytes(_array_bytes(k)) + bytes(_array_bytes(v))
+        if twin:
+            dk, dv = _gather_pages(self.dpool, torch.tensor(
+                [int(dpage)], device=self.device))
+            meta["dk_bytes"] = dk.numel() * dk.element_size()
+            body += bytes(_array_bytes(dk)) + bytes(_array_bytes(dv))
+        tier.put_prefix(digest.hex(), meta, body)
 
-    def _tier_page_payload(self, meta: dict, body: bytes
-                           ) -> Optional[List[torch.Tensor]]:
-        """A spilled page's [K, V] (each [layers, 1, kv_heads, page,
-        head_dim] on the host), or None when the entry was cut for
-        another geometry or is malformed."""
-        geom = self._tier_geom()
-        if any(meta.get(k) != geom[k] for k in geom):
-            return None
-        count = self._page_elems()
-        item = self.pool["k"].element_size()
-        kb = meta.get("k_bytes")
-        if not isinstance(kb, int) or kb != count * item \
-                or len(body) != 2 * kb:
-            return None
-        shape = (int(self.cfg.n_layers), 1, int(self.cfg.kv_heads),
-                 self.page_size, int(self.cfg.head_dim))
-        dtype = np.int16 if geom["dtype"] == _BF16 else geom["dtype"]
+    @staticmethod
+    def _body_pair(body: bytes, dtype_name: str, shape, off: int,
+                   nbytes: int) -> List[torch.Tensor]:
+        """Two consecutive host arrays of ``shape`` at ``off`` (each
+        ``nbytes`` long) as CPU tensors."""
+        count = int(np.prod(shape))
+        dtype = np.int16 if dtype_name == _BF16 else dtype_name
         out = []
-        for off in (0, kb):
+        for o in (off, off + nbytes):
             a = torch.from_numpy(np.frombuffer(
-                body, dtype=dtype, count=count, offset=off).reshape(
+                body, dtype=dtype, count=count, offset=o).reshape(
                     shape).copy())
-            out.append(a.view(torch.bfloat16) if geom["dtype"] == _BF16
+            out.append(a.view(torch.bfloat16) if dtype_name == _BF16
                        else a)
         return out
 
+    def _tier_page_payload(self, meta: dict, body: bytes):
+        """A spilled page's ``(target [K, V], draft [K, V] or None)``,
+        each [layers, 1, kv_heads, page, head_dim] on the host, or None
+        when the entry was cut for another geometry or is malformed."""
+        geom = self._tier_geom()
+        if any(meta.get(k) != geom[k] for k in geom):
+            return None
+        shape = self._page_shape(self.cfg, self.page_size)
+        kb = meta.get("k_bytes")
+        want = int(np.prod(shape)) * self.pool["k"].element_size()
+        if not isinstance(kb, int) or kb != want or len(body) < 2 * kb:
+            return None
+        target = self._body_pair(body, geom["dtype"], shape, 0, kb)
+        if self.d_side is None:
+            return (target, None) if len(body) == 2 * kb else None
+        dshape = self._page_shape(self.draft_cfg, self.page_size)
+        dkb = meta.get("dk_bytes")
+        dwant = int(np.prod(dshape)) * self.dpool["k"].element_size()
+        if not isinstance(dkb, int) or dkb != dwant \
+                or len(body) != 2 * kb + 2 * dkb:
+            return None
+        return target, self._body_pair(body, geom["draft"]["dtype"],
+                                       dshape, 2 * kb, dkb)
+
     def _tier_promote(self, req: Request) -> None:
         """At admission, for each of ``req``'s prompt chunks past the
-        trie's longest match, install a tier hit into a free pool page
-        and insert it as a zero-ref node, so the prefix plan maps it like
-        a resident hit.  Free pages only (a promotion never evicts the
-        resident cache for room), and once per request."""
+        trie's longest match, install a tier hit into free pool pages
+        (and its draft twin) and insert it as a zero-ref node, so the
+        prefix plan maps it like a resident hit.  Free pages only (a
+        promotion never evicts the resident cache for room), and once
+        per request."""
         if not self._tier_active or self._pcache is None:
             return
         if getattr(req, "_tier_checked", False):
@@ -2469,21 +3368,30 @@ class ContinuousBatcher:
         req._tier_checked = True
         digs = self._req_digests(req)
         pc, alloc = self._pcache, self.t_side.alloc
+        dalloc = self.d_side.alloc if self.d_side is not None else None
         n = len(pc.match(0, digs)) if digs else 0
         while n < len(digs):
             d = digs[n]
             got = self.kv_tier.get_prefix(d.hex())
             if got is None:
                 break
-            payload = self._tier_page_payload(got[0], got[1])
-            if payload is None or not alloc.free:
+            payloads = self._tier_page_payload(got[0], got[1])
+            if payloads is None or not alloc.free \
+                    or (dalloc is not None and not dalloc.free):
                 break
+            payload, dpayload = payloads
             page = alloc.free.pop()
-            if not pc.insert_chain(0, digs[:n], d, page):
+            dpage = dalloc.free.pop() if dalloc is not None else None
+            if not pc.insert_chain(0, digs[:n], d, page, dpage):
                 alloc.free.append(page)
+                if dalloc is not None:
+                    dalloc.free.append(dpage)
                 break
             _install_pages(self.pool, payload,
                            torch.tensor([page], device=self.device))
+            if dpayload is not None:
+                _install_pages(self.dpool, dpayload,
+                               torch.tensor([dpage], device=self.device))
             self.kv_tier.count("promotions")
             self._trace_event(req, "tier_promote", digest=d.hex()[:16],
                               depth=n + 1)
@@ -2498,7 +3406,8 @@ class ContinuousBatcher:
                              f"{art.get('version')!r}")
         for key, want in (("page_size", self.page_size),
                           ("prefix_len", self.prefix_len),
-                          ("shared_len", 0), ("quantized", False)):
+                          ("shared_len", self.t_side.shared_len),
+                          ("quantized", False)):
             if art.get(key) != want:
                 raise ValueError(
                     f"session artifact {key} {art.get(key)!r} does not "
@@ -2528,11 +3437,24 @@ class ContinuousBatcher:
             raise ValueError(
                 f"session artifact covers {E_art!r} positions; its "
                 f"history implies {self.prefix_len + covered}")
-        if art.get("draft") is not None or art.get("dk") is not None:
-            raise ValueError("session artifact carries a draft payload "
-                             "this batcher has no draft model for")
-        self._check_payload_arrays(art, False,
-                                   -(-E_art // self.page_size))
+        n = -(-(E_art - self.t_side.shared_len) // self.page_size)
+        self._check_payload_arrays(art, False, n, self.cfg, self.pool)
+        draft = art.get("draft")
+        if self.d_side is None:
+            if draft is not None or isinstance(
+                    art.get("dk"), (np.ndarray, torch.Tensor)):
+                raise ValueError("session artifact carries a draft "
+                                 "payload this batcher has no draft "
+                                 "model for")
+        else:
+            # The tier bypasses int8 pools, so the draft's is plain here.
+            for key, want in self._draft_geom().items():
+                if not isinstance(draft, dict) or draft.get(key) != want:
+                    raise ValueError(
+                        f"session artifact draft geometry does not "
+                        f"match this batcher ({key})")
+            self._check_payload_arrays(art, False, n, self.draft_cfg,
+                                       self.dpool, prefix="d")
         # The tail's padded window must fit the page table.
         E = self.prefix_len + int(req.prompt.size)
         w = -(-(E - E_art) // self.prefill_bucket) * self.prefill_bucket
@@ -2565,35 +3487,39 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _admit_session(self, row: int, rid: int, req: Request, wt: int,
-                       need: int, active: Dict[int, _Row],
+                       wd: int, need: int, active: Dict[int, _Row],
                        art: dict) -> tuple:
         """Admission of a session resume: install the parked pages (the
-        conversation so far) and prefill only the new turn's tail at its
-        true offset, a prefix-cache tail's call (the paged kernel with
-        the tail as its self chunk).  Returns the burst tuple."""
+        conversation so far; the draft's twin pages too) and prefill only
+        the new turn's tail at its true offset, a prefix-cache tail's
+        call (the paged kernel with the tail as its self chunk), the
+        draft's tail in lockstep.  Returns the burst tuple."""
         t_admit = time.perf_counter()
-        side = self.t_side
         n = art["k"].shape[1]
         ts = int(art["pos"])
         self._trace_event(req, "session_resume", rid=rid, row=row,
                           session=str(req.session_id), covered=ts)
-        side.ensure(row, n * self.page_size)
-        _install_pages(self.pool, [_as_tensor(art["k"]),
-                                   _as_tensor(art["v"])],
-                       torch.as_tensor(side.alloc.rows[row],
-                                       dtype=torch.long, device=self.device))
+        # The artifact's first own page embeds any static prefix's tail
+        # template (the parking row's copy): no template re-copy.
+        self._install_side(self.t_side, row, art, n)
+        if self.d_side is not None:
+            self._install_side(self.d_side, row, art, n, prefix="d")
         E = self.prefix_len + int(req.prompt.size)
         tlen = E - ts
         w = -(-tlen // self.prefill_bucket) * self.prefill_bucket
         # Allocation clamps at the reservation, as for a prefix-cache
         # tail: pad positions past ``need`` land on sink columns.
-        side.ensure(row, min(ts + w, need))
+        for side, _, _ in self._sides():
+            side.ensure(row, min(ts + w, need))
         padded = np.zeros((w,), np.int32)
         padded[:tlen] = req.prompt[req.prompt.size - tlen:]
         tok = self._chunk_call(row, padded, ts, tlen - 1, rid)
+        if self.d_side is not None:
+            self._draft_chunk_call(row, padded, ts)
         self.tail_prefills += 1
         state = _Row(rid=rid, req=req, pos=E, step=1, last=0, out=[],
-                     worst_pages=wt, t_admit=t_admit, limit=need)
+                     worst_pages=wt, worst_draft=wd, t_admit=t_admit,
+                     limit=need)
         active[row] = state
         self._pcache_insert(row, state)
         return row, state, tok
@@ -2661,8 +3587,15 @@ class ContinuousBatcher:
         import backs every position with own pages (no cache discount),
         so a row admitted only thanks to a deep cache plan on a tight
         pool must not be suspended locally."""
-        wt, _ = self._worst_pages(req)
-        return wt <= self.t_side.n_pages - 1        # the sink is reserved
+        wt, wd, _ = self._worst_pages(req)
+        for side, want in ((self.t_side, wt), (self.d_side, wd)):
+            if side is None:
+                continue
+            reserved = 1 + len(side.shared_pages) + (
+                1 if side.tail_template is not None else 0)
+            if want > side.n_pages - reserved:
+                return False
+        return True
 
     def _maybe_preempt(self, priority: int, active: Dict[int, _Row],
                        free_rows: List[int]) -> bool:
@@ -2735,22 +3668,27 @@ class ContinuousBatcher:
 
     def _prefill_widths(self) -> List[int]:
         """Every padded prompt width admission can dispatch: multiples of
-        ``prefill_bucket`` up to ``max_len``."""
+        ``prefill_bucket`` up to ``max_len - prefix_len``."""
         b = self.prefill_bucket
-        return list(range(b, (self.max_len // b) * b + 1, b)) or [b]
+        cap = ((self.max_len - self.prefix_len) // b) * b
+        return list(range(b, cap + 1, b)) or [b]
 
     @torch.no_grad()
     def warmup(self, decode: bool = True,
                prefill: bool = True) -> Dict[str, Any]:
         """Prepare every shape the serve loop dispatches, before it runs,
         under the reference's names: the admission prefill at each
-        reachable prompt width (``prefill[w]``); with the prefix cache or
-        a KV tier, the tail call at each width (``chunk_prefill[w]``, at
-        every table width its start can give it); in chunked
-        mode the chunk step at each table width (``chunk_prefill[c]``);
-        the decode block at each table width (``decode[w]``) and, under
-        ``fused_prefill``, the fused tick at each width and slot count
-        (``fused[w,S]``).  On the card each is a CUDA graph captured here
+        reachable prompt width (``prefill[w]``; after a static prefix a
+        chunk over the paged pool); with the prefix cache or a KV tier,
+        the tail call at each width (``chunk_prefill[w]``, at every table
+        width its start can give it); in chunked mode the chunk step at
+        each table width (``chunk_prefill[c]``); the decode block at each
+        table width (``decode[w]``) and, under ``fused_prefill``, the
+        fused tick at each width and slot count (``fused[w,S]``).  A
+        speculative batcher captures the round at each table width
+        (``spec_round[w]``) instead of the decode block, and the draft's
+        prompt chunk at each width admission, chunking or a tail gives it
+        (``draft_chunk[w]``).  On the card each is a CUDA graph captured here
         (without warmup a shape is captured at its first call).  Every
         write lands on the sink page (all-sink tables, zero tokens and
         positions), so a warmed batcher's streams are bit-identical to a
@@ -2789,7 +3727,32 @@ class ContinuousBatcher:
                         self._warm_chunk(t, w)
                     if f"chunk_prefill[{t}]" not in compiled:
                         compiled.append(f"chunk_prefill[{t}]")
-            for w in self._decode_widths() if decode else ():
+            spec = self.d_side is not None
+            for w in self._decode_widths() if decode and spec else ():
+                self._put_table(np.full((self.rows, w), sink, np.int32))
+                self._put_table(np.full((self.rows, w), self.d_side.sink,
+                                        np.int32), self._dtables)
+                self._tick_in.zero_()
+                self._tick_in[1] = self.max_len     # rows parked
+                self._graphs.warm(("spec", w, w), functools.partial(
+                    self._spec_step, w, w))
+                self._sync()
+                compiled.append(f"spec_round[{w}]")
+            if prefill and spec:
+                widths = set(self._prefill_widths() if not chunked
+                             else [self.prefill_chunk])
+                if self._tier_active or self._pcache is not None:
+                    widths.update(self._prefill_widths())
+                for t in sorted(widths):
+                    inp = self._dchunk_buffer(t)
+                    inp.zero_()
+                    inp[t] = self.prefix_len
+                    inp[t + 1:] = self.d_side.sink
+                    self._graphs.warm(("draft_chunk", t), functools.partial(
+                        self._draft_chunk_step, t))
+                    self._sync()
+                    compiled.append(f"draft_chunk[{t}]")
+            for w in self._decode_widths() if decode and not spec else ():
                 self._put_table(np.full((self.rows, w), sink, np.int32))
                 self._tick_in.zero_()
                 self._graphs.warm(w, functools.partial(self._tick, w))
@@ -2862,20 +3825,46 @@ class ContinuousBatcher:
                 free_rows: List[int]) -> None:
         active.pop(row, None)
         self.t_side.release(row)
+        if self.d_side is not None:
+            self.d_side.release(row)
         free_rows.append(row)
 
 
 def _to_device(params: Params, device: torch.device,
                dtype: torch.dtype) -> Params:
-    """Every leaf on ``device`` in ``dtype`` (an int8 :class:`QTensor`
-    keeps its int8 values and casts its scales).  The model casts each
-    weight and scale to the compute dtype at use, so params cast once
-    give the same bits while skipping the per-call casts."""
+    """A copy of every leaf on ``device`` in ``dtype`` (an int8
+    :class:`QTensor` keeps its int8 values and casts its scales), never
+    the caller's own tensors: a weight swap writes into these.  The
+    model casts each weight and scale to the compute dtype at use, so
+    params cast once give the same bits while skipping the per-call
+    casts."""
     def leaf(v):
         if isinstance(v, QTensor):
-            return QTensor(v.values.to(device),
-                           v.scales.to(device=device, dtype=dtype))
-        return v.to(device=device, dtype=dtype)
+            return QTensor(v.values.to(device, copy=True),
+                           v.scales.to(device=device, dtype=dtype,
+                                       copy=True))
+        return v.to(device=device, dtype=dtype, copy=True)
 
     return {k: (_to_device(v, device, dtype) if isinstance(v, dict)
                 else leaf(v)) for k, v in params.items()}
+
+
+def _tree_copy(tree: Params) -> Params:
+    """A copy of a param tree's dicts, sharing its leaves."""
+    return {k: _tree_copy(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def _copy_tree(dst: Params, src: Params) -> None:
+    """Copy ``src``'s leaves into ``dst``'s tensors IN PLACE (cast to
+    each destination's dtype and device; an int8 leaf's values and
+    scales alike)."""
+    for k, d in dst.items():
+        v = src[k]
+        if isinstance(d, dict):
+            _copy_tree(d, v)
+        elif isinstance(d, QTensor):
+            d.values.copy_(v.values)
+            d.scales.copy_(v.scales.to(d.scales.dtype))
+        else:
+            d.copy_(torch.as_tensor(v).to(d.dtype))
