@@ -326,6 +326,45 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     (KV 4, head_dim 32), the forward kernel at [1, 512, 4, 32], the
     linear-cache kernel at t = 5 and at t = 1 head_dim 32, and the int8
     commit of a [8, 5] chunk into a KV 4 head_dim 32 pool.
+21. the fleet's control loops on the card (phase 18's shape: flagship,
+    rows 8, max_len 1024, page 64, bucket 64, ``--warmup``, seed 0):
+    (a) ``FleetServer(replicas=1, autoscale=True, min_replicas=1,
+    max_replicas=2)`` with its loop ticking every 0.25 s: 4 copies of
+    phase 5's 16 requests at once measure the queue-wait p99 on one
+    replica, which sets the loop's bounds (hi half of it, lo a
+    twentieth; the utilization trigger off); the same 64 then stay in
+    flight until the one replica the loop launches has registered
+    warming, gone alive and prefilled 16 requests, then quiet until the
+    loop has drained, migrated and killed back to one replica: exactly
+    one up, one launch, one drain and one kill, in that order, no
+    request failed or shed; prints the autoscaler gauge tick by tick,
+    the seconds from the up tick to the newcomer's first routed request
+    and from the quiet to one replica, and the migrations requested and
+    resumed; (b) on that fleet, ``FleetClient.rollout("v1")`` while
+    phase 5's 16 requests run again and again from a second thread, 4
+    at a time: none failed, the roles gauge's versions ``{"v1": 1}``,
+    one rollout and none aborted, the registry's generation fence at
+    least 1, a hello of the reaped generation dropped and one of the
+    new generation kept; prints the rollout's seconds; (c)
+    ``FleetServer(models=[chat seed 0 on 1 replica, code seed 7 on 0],
+    warm_pool=1, model_budget=2)``: phase 5's traffic labeled ``chat``,
+    four requests labeled ``code`` one at a time (the first waits in the
+    router while the trader's ``demand`` adopts the pool replica with
+    ``set_weights``: one adoption, no launch), an adapter swap on
+    ``chat`` through ``FleetClient.swap_adapter`` with phase 20 (h)'s
+    delta on ``embed``, and phase 5's traffic labeled ``chat`` again;
+    the per-model metering counters present; prints the first code
+    request's client TTFT against the warm ones', the adoption's and the
+    swap's milliseconds.  Every reply by the margin rule: (a), (b) and
+    (c)'s first chat run against phase 5's streams, the code replies
+    against an in-process batcher of the seed-7 preset on the card, the
+    swapped chat replies against a fresh batcher on the folded weights.
+    Never more than two replica processes at a time.  Each replica's
+    flash_fwd and paged launches, read through its ``stats`` op from its
+    first read (or, for a replica the loop or the rollout launched, from
+    a freshly warmed replica's) to its last (taken just before a kill or
+    a reap removes it), are held to 8 a prefill, tick, tail and chunk of
+    its own counters, and its captured graphs did not grow after warmup.
 
 It prints each phase's seconds.
 
@@ -587,7 +626,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/20] device")
+    say("[1/21] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -601,7 +640,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/20] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/21] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -780,7 +819,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/20] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/21] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -939,7 +978,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/20] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/21] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1082,7 +1121,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/20] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/21] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1259,7 +1298,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/20] teacher-forced check vs float32 CPU forward "
+    say(f"[6/21] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1310,7 +1349,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/20] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/21] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1320,7 +1359,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/20] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/21] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1390,7 +1429,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/20] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/21] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2140,7 +2179,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/20] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/21] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2205,7 +2244,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/20] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/21] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2291,7 +2330,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/20] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/21] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2388,7 +2427,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/20] sampled serving and generation: phase 5's traffic at "
+    say("[13/21] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2702,7 +2741,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/20] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/21] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2781,7 +2820,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/20] export/import, preemption and rolling caches: flagship")
+    say("[15/21] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3027,7 +3066,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/20] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/21] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3283,7 +3322,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/20] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/21] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3922,7 +3961,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/20] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/21] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4273,7 +4312,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/20] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/21] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5057,7 +5096,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/20] speculative decoding, the static prefix and weight swaps: "
+    say("[20/21] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5521,6 +5560,667 @@ def spec_replica(torch, cfg, reqs, ref, next_logits, stats5):
     return out
 
 
+#: phase 21's fleets: phase 18's shape, a deeper admission queue (64 in
+#: flight against 8 gateway workers queue 56) and no per-path retry noise.
+CONTROL = dict(FRONT_DOOR, max_queue=256)
+#: phase 21 (a)'s control loop: a tick every 0.25 s; the queue-wait
+#: bounds are set from the burst measured first on one replica.
+AUTOSCALE = dict(interval=0.25, scale_up_cooldown=1.0,
+                 scale_down_cooldown=1.0, drain_grace=0.5,
+                 drain_timeout=60.0)
+#: (a)'s surge runs until the newcomer has prefilled this many requests.
+SURGE_NEWCOMER_PREFILLS = 16
+#: phase 20 (h)'s adapter delta on ``embed`` (seed 20, scale 0.5).
+SWAP_SEED, SWAP_SCALE = 20, 0.5
+
+
+class LaunchBook:
+    """Each replica's launch counts, batcher counters and captured graphs
+    across a phase-21 fleet's life: a baseline read per replica present
+    at :meth:`begin` (a replica launched later starts from ``warm``, a
+    freshly warmed replica's read: its warmup's launches, zero counters),
+    and a final read taken at its kill (:func:`count_before_kills`) or at
+    :meth:`end`.  :meth:`held` holds each replica's launches between the
+    two to its batcher's counters as phase 18 does."""
+
+    def __init__(self, cfg, token, warm):
+        self.cfg, self.token, self.warm = cfg, token, warm
+        self.base, self.final, self.errors = {}, {}, []
+
+    def begin(self, addrs):
+        self.base.update(settled_stats(addrs, self.token))
+
+    def read_final(self, addrs):
+        addrs = [a for a in addrs if a not in self.final]
+        if addrs:
+            self.final.update(settled_stats(addrs, self.token))
+
+    def end(self, addrs):
+        self.read_final(addrs)
+
+    def held(self, what):
+        """{addr: launches} per replica and their sum, each replica held
+        to its counters and to no capture after its warmup."""
+        per, total = {}, {}
+        for addr, fin in sorted(self.final.items()):
+            base = self.base.get(addr, self.warm)
+            after = dict(fin, launches={
+                k: n - base["launches"][k] for k, n in fin["launches"].items()})
+            got = replica_launches(self.cfg, {addr: base}, {addr: after},
+                                   f"{what} {addr}")
+            need(fin["graphs"] == base["graphs"], f"{what}: replica {addr} "
+                 f"captured {fin['graphs'] - base['graphs']} graphs after "
+                 f"its warmup")
+            per[addr] = {"launches": got,
+                         "counters": {k: n - base["counters"][k]
+                                      for k, n in fin["counters"].items()}}
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+        return per, total
+
+
+def say_launches(label, per):
+    """Each replica's flash_fwd and paged launches and its counters."""
+    say(f"  {label} launches per replica (held to its counters): "
+        + "; ".join(
+        f"{addr}: flash_fwd {p['launches']['flash_fwd']}, paged "
+        f"{p['launches']['flash_decode_paged']} + merges "
+        f"{p['launches']['flash_decode_paged_merge']} for "
+        f"{p['counters']['prefills']} prefills, "
+        f"{p['counters']['decode_ticks']} ticks" for addr, p in per.items()))
+
+
+def count_before_kills(fleet, books):
+    """Read each replica's final counts just before the fleet removes its
+    process: the autoscaler's reap (``kill_replica``) and a rollout's
+    reap of the old tier (after ``_drain_and_flush``).  ``books[-1]`` is
+    the current :class:`LaunchBook`."""
+    kill = fleet.kill_replica
+    flush = fleet._drain_and_flush
+
+    def counted_kill(node):
+        addr = next((r.addr for r in fleet.registry.members()
+                     if r.node == node), None)
+        try:
+            if addr is not None:
+                books[-1].read_final([addr])
+        except Exception as e:            # re-raised by the phase
+            books[-1].errors.append(f"kill {node}: {e!r}")
+        return kill(node)
+
+    def counted_flush(reps, drain_timeout):
+        flush(reps, drain_timeout)
+        try:
+            books[-1].read_final([r.addr for r in reps])
+        except Exception as e:            # re-raised by the phase
+            books[-1].errors.append(f"reap: {e!r}")
+
+    fleet.kill_replica = counted_kill
+    fleet._drain_and_flush = counted_flush
+
+
+def full_logits(torch, cfg, params, prompts, refs):
+    """``next_logits(key, prefix)`` for :func:`divergence_gaps` over keys
+    ``(i, n)``: the float32 CPU logits after prompt ``i`` and ``prefix``
+    of reference stream ``refs[i]``, from one forward a prompt over the
+    prompt and the whole reference stream (the model is causal), made
+    when a stream of ``i`` first differs."""
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cache = {}
+
+    def next_logits(key, prefix):
+        i = key[0]
+        if i not in cache:
+            seq = [int(x) for x in prompts[i]] + list(refs[i])
+            with torch.no_grad():
+                cache[i] = forward(cpu_cfg, params, torch.tensor([seq]))[0]
+        return cache[i][len(prompts[i]) - 1 + len(prefix)]
+
+    return next_logits
+
+
+def margin_all(refs, got, next_logits, what):
+    """Every reply ``got[i]`` (a list a request) against ``refs[i]`` by
+    the margin rule: (identical, near-ties, replies)."""
+    ref = {(i, n): refs[i] for i, rs in got.items() for n in range(len(rs))}
+    have = {(i, n): r for i, rs in got.items() for n, r in enumerate(rs)}
+    identical, gaps = divergence_gaps(ref, have, next_logits, what)
+    return identical, len(gaps), len(have)
+
+
+def labeled(client, prompt, new, model=None, stream=True):
+    """One ``FleetClient.generate``: (tokens, client ms to the first
+    streamed token, the reply)."""
+    t0 = time.perf_counter()
+    first = []
+
+    def on_tokens(toks):
+        if not first:
+            first.append((time.perf_counter() - t0) * 1e3)
+
+    kw = {"on_tokens": on_tokens} if stream else {}
+    reply = client.generate(prompt, new, model=model, **kw)
+    return reply["tokens"], (first[0] if first else None), reply
+
+
+def fleet_wave(client, reqs, copies, model=None, threads=None):
+    """``copies`` copies of every request of ``reqs`` in flight at once
+    (or from ``threads`` threads in turn): {i: [tokens, ...]}."""
+    import threading
+
+    jobs = [i for _ in range(copies) for i in range(len(reqs))]
+    threads = threads or len(jobs)
+    got, errors = collections.defaultdict(list), []
+
+    def worker(k):
+        for j in range(k, len(jobs), threads):
+            i = jobs[j]
+            try:
+                got[i].append(labeled(client, [int(x) for x in
+                                               reqs[i].prompt],
+                                      reqs[i].max_new_tokens, model,
+                                      stream=False)[0])
+            except Exception as e:         # reported below
+                errors.append((i, repr(e)))
+
+    pool = [threading.Thread(target=worker, args=(k,))
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    need(not errors, f"fleet requests failed: {errors}")
+    return got
+
+
+def merge_replies(*parts):
+    out = collections.defaultdict(list)
+    for part in parts:
+        for i, rs in part.items():
+            out[i].extend(rs)
+    return out
+
+
+def phase_control(torch, np, cfg, params, reqs, base):
+    """Phase 21: the fleet's control loops on the card — (a) the
+    autoscaler grows a one-replica fleet under a surge and drains it
+    back, (b) a blue-green rollout under traffic, (c) a model catalog
+    whose cold model starts by warm-pool adoption, and an adapter swap.
+    Every replica's launches are held to its own counters."""
+    import os
+
+    from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
+                                         ModelSpec, TraderConfig)
+
+    say("[21/21] the control loops: autoscale, rollout, catalog; flagship, "
+        "rows 8, max_len 1024, page 64, bucket 64, --warmup")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    auto_cfg = AutoscalerConfig(queue_wait_hi_ms=math.inf,
+                                util_hi=math.inf, **AUTOSCALE)
+    fleet = FleetServer(replicas=1, autoscale=True, min_replicas=1,
+                        max_replicas=2, autoscale_config=auto_cfg,
+                        **CONTROL).start()
+    books = []
+    try:
+        pids = replica_pids([os.getpid()])
+        need(len(pids) == 1, f"21: replica processes {pids}")
+        (r0,) = [r.addr for r in fleet.registry.alive()]
+        warm = replica_stats([r0], fleet.token)[r0]
+        need(not any(warm["counters"].values())
+             and warm["launches"]["flash_fwd"] > 0,
+             f"21: a warmed replica read {warm['counters']} / "
+             f"{warm['launches']}")
+        books.append(LaunchBook(cfg, fleet.token, warm))
+        books[-1].begin([r0])
+        count_before_kills(fleet, books)
+        out["a"], replies_a = control_autoscale(np, cfg, fleet, reqs,
+                                                books[-1], auto_cfg, pids)
+        survivors = [r.addr for r in fleet.registry.alive()]
+        books[-1].end(survivors)
+        out["a"]["replicas"], out["a"]["launches"] = books[-1].held("21 (a)")
+        need(not books[-1].errors, f"21 (a): {books[-1].errors}")
+        say_launches("(a)", out["a"]["replicas"])
+        books.append(LaunchBook(cfg, fleet.token, warm))
+        books[-1].begin(survivors)
+        out["b"], replies_b = control_rollout(np, cfg, fleet, reqs,
+                                              books[-1])
+        books[-1].end([r.addr for r in fleet.registry.alive()])
+        out["b"]["replicas"], out["b"]["launches"] = books[-1].held("21 (b)")
+        need(not books[-1].errors, f"21 (b): {books[-1].errors}")
+        say_launches("(b)", out["b"]["replicas"])
+    finally:
+        fleet.stop()
+    need(not pids_alive(replica_pids([os.getpid()])),
+         "21: replica processes outlived FleetServer.stop()")
+    out["c"], checks_c = control_catalog(torch, np, cfg, params, reqs,
+                                         FleetServer, ModelSpec,
+                                         TraderConfig)
+    # The margin rule on every stream, after the fleets are down (the
+    # CPU forwards would otherwise share the host with the replicas).
+    prompts = [r.prompt for r in reqs]
+    ref = dict(enumerate(base))
+    seed0 = full_logits(torch, cfg, params, prompts, ref)
+    for label, got in (("a", replies_a), ("b", replies_b),
+                       ("c chat", checks_c["chat"])):
+        same, ties, n = margin_all(ref, got, seed0, f"21 ({label})")
+        key = "c" if label.startswith("c") else label
+        out[key][f"streams {label}"] = {"replies": n, "identical": same,
+                                        "near_ties": ties}
+        say(f"  ({label}) {same} of {n} replies identical to phase 5's, "
+            f"{ties} first differ at a near-tie")
+    for label in ("code", "chat after swap"):
+        refs, got, logits = checks_c[label]
+        same, ties, n = margin_all(refs, got, logits, f"21 (c) {label}")
+        out["c"][f"streams {label}"] = {"replies": n, "identical": same,
+                                        "near_ties": ties}
+        say(f"  (c) {label}: {same} of {n} replies identical to the "
+            f"in-process batcher's, {ties} first differ at a near-tie")
+    return out
+
+
+def control_autoscale(np, cfg, fleet, reqs, book, auto_cfg, pids):
+    """Phase 21 (a): a burst measured on one replica sets the queue-wait
+    bounds; then the same burst held in flight until the newcomer the
+    loop launches has registered warming, gone alive and prefilled
+    :data:`SURGE_NEWCOMER_PREFILLS` requests; then quiet until the loop
+    has drained, migrated and killed back to one replica."""
+    import threading
+
+    from tfmesos_tpu_torch.fleet.metrics import Histogram
+
+    auto = fleet.autoscaler
+    traj, t0 = [], time.perf_counter()
+    step = auto.step
+
+    def traced_step(now=None):
+        step(now)
+        d = auto.describe()["unified"]
+        traj.append({"t": round(time.perf_counter() - t0, 3),
+                     "target": d["target"], "actual": d["actual"],
+                     "alive": d["alive"], "warming": d["warming"],
+                     "action": d["last_action"]})
+
+    auto.step = traced_step
+    counters0 = fleet_counters(fleet)
+    client = fleet.client(timeout=300.0)
+    try:
+        # The burst on one replica: 4 copies of phase 5's 16 at once.
+        prev = fleet.metrics.hist_cumulative("queue_wait_ms")
+        cal = fleet_wave(client, reqs, 4)
+        cur = fleet.metrics.hist_cumulative("queue_wait_ms")
+        p99 = Histogram.delta_percentile(prev, cur, 0.99)
+        need(p99 is not None and p99 > 0, f"21 (a): burst p99 {p99}")
+        need(fleet.targets["unified"] == 1, "21 (a): the loop moved on the "
+             "calibration burst")
+        # Two ticks under the old bounds first: their windows take the
+        # burst's samples, so the surge's own waits are what the new
+        # bounds judge.
+        ticks = len(traj) + 2
+        deadline = time.monotonic() + 10.0
+        while len(traj) < ticks and time.monotonic() < deadline:
+            time.sleep(0.05)
+        need(len(traj) >= ticks, "21 (a): the control loop stopped ticking")
+        with fleet.scale_lock:
+            auto_cfg.queue_wait_hi_ms = p99 / 2
+            auto_cfg.queue_wait_lo_ms = p99 / 20
+        say(f"  (a) the burst on one replica: queue-wait p99 {p99} ms; "
+            f"bounds hi {auto_cfg.queue_wait_hi_ms} lo "
+            f"{auto_cfg.queue_wait_lo_ms} ms")
+        start = {r.addr for r in fleet.registry.members()}
+        seen, stop = {}, threading.Event()
+        surge = collections.defaultdict(list)
+        errors = []
+
+        def worker(k):
+            i = k % len(reqs)
+            while not stop.is_set():
+                try:
+                    surge[i].append(client.generate(
+                        [int(x) for x in reqs[i].prompt],
+                        reqs[i].max_new_tokens)["tokens"])
+                except Exception as e:     # reported below
+                    errors.append((i, repr(e)))
+                    return
+
+        def watch():
+            while not stop.is_set() or "killed" not in seen:
+                now = time.perf_counter() - t0
+                for r in fleet.registry.members():
+                    if r.addr in start:
+                        continue
+                    seen.setdefault("addr", r.addr)
+                    if r.state == "warming":
+                        seen.setdefault("warming", now)
+                    if r.state == "alive":
+                        seen.setdefault("alive", now)
+                    if fleet.router.outstanding(r.addr) > 0:
+                        seen.setdefault("routed", now)
+                if any(x["action"].startswith("kill:") for x in traj):
+                    seen.setdefault("killed", now)
+                if now > 300:
+                    return
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t_surge = time.perf_counter() - t0
+        pool = [threading.Thread(target=worker, args=(k,))
+                for k in range(4 * len(reqs))]
+        for t in pool:
+            t.start()
+        deadline = time.monotonic() + 180.0
+        newcomer = {}
+        while time.monotonic() < deadline and not errors:
+            addr = seen.get("addr")
+            if addr and "routed" in seen:
+                newcomer = replica_stats([addr], fleet.token)[addr]
+                if newcomer["counters"]["prefills"] \
+                        >= SURGE_NEWCOMER_PREFILLS:
+                    break
+            time.sleep(0.5)
+        t_quiet = time.perf_counter() - t0
+        stop.set()
+        for t in pool:
+            t.join()
+        need(not errors, f"21 (a): surge requests failed: {errors}")
+        need(newcomer.get("counters", {}).get("prefills", 0)
+             >= SURGE_NEWCOMER_PREFILLS,
+             f"21 (a): the newcomer never took traffic: {seen}")
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            if fleet.tier_actual("unified") == 1 \
+                    and len(fleet.registry.alive()) == 1 \
+                    and "killed" in seen:
+                break
+            time.sleep(0.05)
+        t_down = time.perf_counter() - t0
+        watcher.join(timeout=5.0)
+    finally:
+        auto.step = step
+        client.close()
+    after = fleet_counters(fleet)
+    books = {k: delta(after, counters0, k) for k in (
+        "autoscale_up", "autoscale_down", "autoscale_launches",
+        "autoscale_drains", "autoscale_kills", "autoscale_kill_failures",
+        "failed", "shed_queue", "shed_rate_limited", "shed_deadline",
+        "migrations_requested", "migration_resumes", "migration_direct",
+        "migration_reruns")}
+    need(fleet.tier_actual("unified") == 1
+         and len(fleet.registry.alive()) == 1,
+         f"21 (a): not back to one replica: {traj[-3:]}")
+    need(books["autoscale_up"] == 1 and books["autoscale_launches"] == 1
+         and books["autoscale_down"] == 1 and books["autoscale_drains"] == 1
+         and books["autoscale_kills"] == 1,
+         f"21 (a): the loop's actions {books}")
+    need(not any(books[k] for k in ("failed", "shed_queue",
+                                    "shed_rate_limited", "shed_deadline",
+                                    "autoscale_kill_failures")),
+         f"21 (a): failed or shed requests: {books}")
+    t_up = next((x["t"] for x in traj if x["target"] == 2), -1.0)
+    need(t_up >= t_surge and t_up <= seen.get("warming", -1)
+         <= seen.get("alive", -1) <= seen.get("routed", -1) <= t_quiet
+         <= seen.get("killed", -1), f"21 (a): out of order: surge "
+         f"{t_surge}, up tick {t_up}, newcomer {seen}, quiet {t_quiet}")
+    replies = merge_replies(cal, surge)
+    stats = {"burst_queue_wait_p99_ms": p99,
+             "queue_wait_hi_ms": auto_cfg.queue_wait_hi_ms,
+             "queue_wait_lo_ms": auto_cfg.queue_wait_lo_ms,
+             "surge_s": t_quiet - t_surge,
+             "up_to_first_routed_s": seen["routed"] - t_up,
+             "warming_to_alive_s": seen["alive"] - seen["warming"],
+             "quiet_to_one_replica_s": t_down - t_quiet,
+             "newcomer_prefills_in_surge": newcomer["counters"]["prefills"],
+             "replies": sum(len(v) for v in replies.values()),
+             "counters": books, "trajectory": traj}
+    say("  (a) " + json.dumps(stats))
+    say(f"  (a) one scale-up {t_up - t_surge:.2f} s into the surge; the "
+        f"newcomer warming {seen['warming'] - t_up:.2f} s later, alive "
+        f"{seen['alive'] - t_up:.2f} s, first routed request "
+        f"{seen['routed'] - t_up:.2f} s after the up tick; back to one "
+        f"replica {t_down - t_quiet:.2f} s after the quiet; migrations "
+        f"requested {books['migrations_requested']}, resumed "
+        f"{books['migration_resumes']}, rerun {books['migration_reruns']}")
+    moves = [x for k, x in enumerate(traj) if k == 0 or any(
+        x[f] != traj[k - 1][f] for f in ("target", "actual", "alive",
+                                          "warming"))]
+    say("  (a) the autoscaler gauge, tick by tick where it moved (s: "
+        "target/actual, alive+warming): " + " ".join(
+            f"{x['t']}: {x['target']}/{x['actual']}, "
+            f"{x['alive']}+{x['warming']}" for x in moves)
+        + f" ({len(traj)} ticks)")
+    return stats, replies
+
+
+def control_rollout(np, cfg, fleet, reqs, book):
+    """Phase 21 (b): ``FleetClient.rollout("v1")`` (the path ``tfserve
+    rollout`` takes) while phase 5's 16 requests run again and again from
+    a second thread, 4 at a time; then the roles gauge, the counters, the
+    generation fence and a stale-generation hello."""
+    import threading
+
+    from tfmesos_tpu_torch import wire
+
+    old = {r.addr for r in fleet.registry.alive()}
+    counters0 = fleet_counters(fleet)
+    client = fleet.client(timeout=600.0)
+    done, traffic, errors = threading.Event(), [], []
+
+    def feed():
+        while not done.is_set():
+            try:
+                traffic.append(fleet_wave(client, reqs, 1, threads=4))
+            except Exception as e:         # reported below
+                errors.append(repr(e))
+                return
+
+    feeder = threading.Thread(target=feed)
+    feeder.start()
+    try:
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        info = client.rollout("v1", timeout=600.0)
+        rollout_s = time.perf_counter() - t0
+    finally:
+        done.set()
+        feeder.join()
+        client.close()
+    need(not errors, f"21 (b): requests failed during the rollout: {errors}")
+    snap = fleet.snapshot()
+    roles = snap["gauges"]["roles"]["unified"]
+    after = snap["counters"]
+    books = {k: delta(after, counters0, k) for k in (
+        "rollouts", "rollouts_aborted", "failed", "shed_queue",
+        "version_fallbacks", "migrations_requested", "migration_resumes",
+        "migration_reruns")}
+    need(info.get("ok") and info.get("new_version") == "v1"
+         and info.get("old_version") == "v0" and info.get("reaped") == 1
+         and info.get("generation", 0) >= 1, f"21 (b): rollout {info}")
+    need(roles["versions"] == {"v1": 1}, f"21 (b): roles gauge {roles}")
+    need(books["rollouts"] == 1 and books["rollouts_aborted"] == 0
+         and books["failed"] == 0 and books["shed_queue"] == 0,
+         f"21 (b): counters {books}")
+    fence = fleet.registry._min_gen
+    need(fence >= 1 and not fleet.registry.gen_allowed(fence - 1),
+         f"21 (b): generation fence {fence}")
+    alive = fleet.registry.alive()
+    need(len(alive) == 1 and not ({r.addr for r in alive} & old)
+         and alive[0].weights_version == "v1",
+         f"21 (b): after the rollout {[(r.addr, r.weights_version) for r in alive]}")
+    # A straggler of the reaped generation re-registering is dropped; a
+    # hello of the current generation lands.
+    sock = wire.connect(fleet.registry.addr)
+    try:
+        wire.send_msg(sock, {"op": "hello", "addr": "stale:1", "gen": 0,
+                             "weights_version": "v0", "role": "unified"},
+                      fleet.token)
+        wire.send_msg(sock, {"op": "hello", "addr": "fresh:1",
+                             "gen": info["generation"],
+                             "weights_version": "v1", "role": "unified"},
+                      fleet.token)
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and "fresh:1" not in {
+                r.addr for r in fleet.registry.members()}:
+            time.sleep(0.05)
+        members = {r.addr for r in fleet.registry.members()}
+    finally:
+        sock.close()
+    need("fresh:1" in members and "stale:1" not in members,
+         f"21 (b): the fence let in {sorted(members)}")
+    fleet.registry.mark_dead("fresh:1", "phase 21 probe")
+    replies = merge_replies(*traffic)
+    stats = {"rollout_s": rollout_s, "rollout": {
+        k: info.get(k) for k in ("old_version", "new_version", "replicas",
+                                 "reaped", "generation")},
+        "fence": fence, "versions": roles["versions"],
+        "requests_during": sum(len(v) for v in replies.values()),
+        "waves_during": len(traffic), "counters": books}
+    say("  (b) " + json.dumps(stats))
+    say(f"  (b) rollout v0 -> v1 in {rollout_s:.2f} s under "
+        f"{len(traffic)} waves of phase 5's traffic, none failed; versions "
+        f"{roles['versions']}, fence {fence}, the stale hello dropped")
+    return stats, replies
+
+
+def control_catalog(torch, np, cfg, params, reqs, FleetServer, ModelSpec,
+                    TraderConfig):
+    """Phase 21 (c): a catalog fleet — ``chat`` (seed 0) on one replica,
+    ``code`` (seed 7) scaled to zero, one warm-pool replica, budget 2.
+    Phase 5's traffic labeled ``chat``; four ``code`` requests, the first
+    a cold start the router waits out while the trader's ``demand``
+    adopts the pool replica (``set_weights``, no launch); an adapter
+    swap on ``chat`` through ``FleetClient.swap_adapter`` (phase 20
+    (h)'s delta on ``embed``) and phase 5's traffic again.  The trader's
+    tick-driven trades and scale-to-zero are held off (their decisions
+    are the CPU tests'); its demand path is what runs here."""
+    import os
+
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    models = [ModelSpec("chat", replicas=1, seed=0),
+              ModelSpec("code", replicas=0, seed=7)]
+    t0 = time.perf_counter()
+    fleet = FleetServer(models=models, warm_pool=1, model_budget=2,
+                        trader_config=TraderConfig(
+                            zero_after_ticks=10 ** 6,
+                            trade_cooldown_s=10 ** 6),
+                        **CONTROL).start()
+    adoptions, launched = [], []
+    try:
+        up_s = time.perf_counter() - t0
+        pids = replica_pids([os.getpid()])
+        need(len(pids) == 2, f"21 (c): replica processes {pids}")
+        addrs = sorted(r.addr for r in fleet.registry.alive())
+        book = LaunchBook(cfg, fleet.token, None)
+        book.begin(addrs)
+        adopt, launch = fleet.adopt_replica, fleet.launch_replica
+
+        def timed_adopt(addr, model_id, **kw):
+            a0 = time.perf_counter()
+            ok = adopt(addr, model_id, **kw)
+            adoptions.append({"addr": addr, "model": model_id, "ok": ok,
+                              "ms": (time.perf_counter() - a0) * 1e3})
+            return ok
+
+        def counted_launch(key, weights_version=None):
+            launched.append(key)
+            return launch(key, weights_version)
+
+        fleet.adopt_replica = timed_adopt
+        fleet.launch_replica = counted_launch
+        counters0 = fleet_counters(fleet)
+        client = fleet.client(timeout=300.0)
+        try:
+            chat = fleet_wave(client, reqs, 1, model="chat", threads=4)
+            code, ttft, ttft_reply = {}, [], []
+            for i in range(4):
+                toks, first, reply = labeled(
+                    client, [int(x) for x in reqs[i].prompt],
+                    reqs[i].max_new_tokens, model="code")
+                code[i] = [toks]
+                ttft.append(first)
+                ttft_reply.append(reply["ttft_ms"])
+            rs = np.random.RandomState(SWAP_SEED)
+            delta_ = {"embed": (SWAP_SCALE * rs.standard_normal(
+                (cfg.vocab_size, cfg.d_model))).astype(np.float32)}
+            s0 = time.perf_counter()
+            swap = client.swap_adapter("chat", "embed-noise", delta_,
+                                       timeout=300.0)
+            swap_ms = (time.perf_counter() - s0) * 1e3
+            chat2 = fleet_wave(client, reqs, 1, model="chat", threads=4)
+        finally:
+            client.close()
+        book.end(addrs)
+        per, launches = book.held("21 (c)")
+        snap = fleet.snapshot()
+        after = snap["counters"]
+        models_gauge = snap["gauges"]["models"]
+    finally:
+        fleet.stop()
+    need(not pids_alive(pids), "21 (c): replica processes outlived stop()")
+    books = {k: delta(after, counters0, k) for k in (
+        "model_cold_waits", "model_cold_starts", "model_adoptions",
+        "model_trades", "adapter_swaps", "failed", "shed_queue")}
+    need(len(adoptions) == 1 and adoptions[0]["ok"]
+         and adoptions[0]["model"] == "code" and not launched,
+         f"21 (c): adoptions {adoptions}, launches {launched}")
+    need(books["model_cold_waits"] == 1 and books["model_cold_starts"] == 1
+         and books["model_adoptions"] == 1 and books["adapter_swaps"] == 1
+         and books["failed"] == 0 and books["shed_queue"] == 0,
+         f"21 (c): counters {books}")
+    meters = {k: after.get(k, 0) for k in (
+        "metering_prompt_tokens_default_chat",
+        "metering_decode_tokens_default_chat",
+        "metering_prompt_tokens_default_code",
+        "metering_decode_tokens_default_code")}
+    need(all(meters.values()), f"21 (c): per-model metering {meters}")
+    need(swap.get("replicas") == 1 and swap.get("model_id") == "chat",
+         f"21 (c): swap {swap}")
+    swaps = sorted(p["counters"]["weight_swaps"] for p in per.values())
+    need(swaps == [1, 1], f"21 (c): weight swaps per replica {swaps}")
+    # The references, in this process on the card, after the fleet.
+    kw = dict(rows=8, page_size=64, prefill_bucket=64, device="cuda")
+    _, code_params = flagship_model(seed=7, max_len=1024)
+    b = ContinuousBatcher(cfg, _cuda(code_params), **kw)
+    code_ref = streams(list(b.run([Request(r.prompt.copy(), r.max_new_tokens)
+                                   for r in reqs[:4]])))
+    del b
+    folded = dict(params, embed=params["embed"] + torch.from_numpy(
+        delta_["embed"]))
+    b = ContinuousBatcher(cfg, _cuda(folded), **kw)
+    swap_ref = streams(list(b.run([Request(r.prompt.copy(), r.max_new_tokens)
+                                   for r in reqs])))
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = [r.prompt for r in reqs]
+    checks = {
+        "chat": chat,
+        "code": (dict(enumerate(code_ref)), code,
+                 full_logits(torch, cfg, code_params, prompts,
+                             dict(enumerate(code_ref)))),
+        "chat after swap": (dict(enumerate(swap_ref)), chat2,
+                            full_logits(torch, cfg, folded, prompts,
+                                        dict(enumerate(swap_ref))))}
+    need(chat2 != chat, "21 (c): the swap changed no chat stream")
+    stats = {"fleet_up_s": up_s, "cold_ttft_ms": ttft[0],
+             "warm_ttft_ms": ttft[1:], "reply_ttft_ms": ttft_reply,
+             "adoption_ms": adoptions[0]["ms"], "swap_ms": swap_ms,
+             "counters": books, "metering": meters,
+             "models": models_gauge, "replicas": per, "launches": launches}
+    say("  (c) " + json.dumps(stats))
+    say(f"  (c) catalog fleet up in {up_s:.1f} s; the first code request "
+        f"cold-started by adoption: client TTFT {ttft[0]:.1f} ms against "
+        f"{statistics.mean(ttft[1:]):.1f} warm; adoption "
+        f"{adoptions[0]['ms']:.1f} ms; adapter swap {swap_ms:.1f} ms")
+    say_launches("(c)", per)
+    return stats, checks
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -5592,6 +6292,8 @@ def main() -> int:
     sessions = timed("sessions", phase_sessions, torch, np)
     spec = timed("speculative", phase_spec, torch, np, reqs, streams(comps),
                  stats, bases14["prefix cache"], fleet["prefix cache"])
+    control = timed("control loops", phase_control, torch, np, cfg, params,
+                    reqs, streams(comps))
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -5637,7 +6339,10 @@ def main() -> int:
                 spec["i speculative_generate"][name]["launches"]
                 for name in ("preset draft", "self-draft")},
              "spec j replica --draft (process)":
-                 spec["j replica --draft"]["launches"]}
+                 spec["j replica --draft"]["launches"],
+             "control (a) autoscale (processes)": control["a"]["launches"],
+             "control (b) rollout (processes)": control["b"]["launches"],
+             "control (c) catalog (processes)": control["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -3,9 +3,13 @@ parser carries every flag of the JAX ``build_serve_parser`` with the
 same default, bad flags exit 2 with the JAX message, every flag and
 subcommand not ported yet exits 2 naming its ROADMAP item, ``--draft``
 and ``--n-draft`` reach the replica command line as the JAX fleet puts
-them there, ``serve``
-brings up a tiny CPU fleet and stops it on ctrl-c, and ``submit``,
-``metrics``, ``trace`` and ``gateways`` work against it."""
+them there, the control-loop flags (``--autoscale``, ``--min-replicas``,
+``--max-replicas``, ``--models``, ``--warm-pool``, ``--model-budget``)
+build the fleet the JAX ``tfserve`` builds, ``parse_model_spec`` agrees
+with JAX's, ``rollout`` and ``swap-adapter`` against a stub gateway give
+the JAX subcommands' exit codes and lines, ``serve`` brings up a tiny
+CPU fleet and stops it on ctrl-c, and ``submit``, ``metrics``,
+``trace`` and ``gateways`` work against it."""
 
 import json
 import os
@@ -64,9 +68,63 @@ def test_bad_flags_exit_2_with_the_jax_message(argv, capsys):
     assert mine[1] == theirs[1]
 
 
-@pytest.mark.parametrize("flag,dest,default,item", cli.NOT_PORTED_FLAGS,
-                         ids=[f[0] for f in cli.NOT_PORTED_FLAGS])
+#: the control-loop flags, ported: each argv builds the fleet the JAX
+#: ``tfserve`` builds from it.
+CONTROL_FLAGS = {
+    "--autoscale": ["--autoscale"],
+    "--min-replicas": ["--autoscale", "--min-replicas", "2"],
+    "--max-replicas": ["--autoscale", "--max-replicas", "3"],
+    "--models": ["--models", "chat:1,code:0:7,draft:2"],
+    "--warm-pool": ["--models", "chat:1,code:0", "--warm-pool", "2"],
+    "--model-budget": ["--models", "chat:2", "--model-budget", "3"],
+}
+
+
+def _fleet_of(mod, argv):
+    """What ``mod``'s ``tfserve`` builds from ``argv``: the fleet's
+    bounds, budget, catalog and each target key's replica command."""
+    args = mod.build_serve_parser().parse_args(argv + ["--tiny"])
+    models = mod.parse_model_spec(args.models)
+    fleet = mod._build_fleet(args, models, mod.parse_role_spec(args.role),
+                             mod.parse_class_spec(args.classes), TOKEN)
+    fleet.registry = SimpleNamespace(addr="127.0.0.1:1")
+    cmds = [fleet._replica_cmd()]
+    if fleet.catalog is not None:
+        cmds += [fleet._replica_cmd(model=spec) for spec in fleet.catalog]
+        cmds.append(fleet._replica_cmd(pool=True))
+    keys = ["unified"] + [f"{m}/unified" for m in
+                          (fleet.catalog.ids() if fleet.catalog else ())]
+    return {"autoscale": fleet.autoscale, "min": fleet.min_replicas,
+            "max": fleet.max_replicas, "budget": fleet.replica_budget,
+            "warm_pool": fleet.warm_pool, "replicas": fleet.replicas,
+            "catalog": [(s.model_id, s.replicas, s.seed) for s in
+                        (fleet.catalog or ())],
+            "bounds": {k: fleet.bounds(k) for k in keys},
+            "cmds": [" ".join(c.split()[1:]).replace(
+                "tfmesos_tpu_torch.", "tfmesos_tpu.") for c in cmds]}
+
+
+@pytest.mark.parametrize(
+    "flag,dest,default,item",
+    cli.NOT_PORTED_FLAGS + tuple((f, None, None, None)
+                                 for f in CONTROL_FLAGS),
+    ids=[f[0] for f in cli.NOT_PORTED_FLAGS] + list(CONTROL_FLAGS))
 def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
+    """Each flag still waiting exits 2 naming its ROADMAP item; each
+    control-loop flag (ported) builds the fleet the JAX ``tfserve``
+    builds."""
+    if flag in CONTROL_FLAGS:
+        assert flag not in {f[0] for f in cli.NOT_PORTED_FLAGS}
+        mine = _fleet_of(cli, CONTROL_FLAGS[flag])
+        assert mine == _fleet_of(jax_cli, CONTROL_FLAGS[flag])
+        want = {"--autoscale": ("autoscale", True),
+                "--min-replicas": ("min", 2), "--max-replicas": ("max", 3),
+                "--models": ("catalog", [("chat", 1, 0), ("code", 0, 7),
+                                         ("draft", 2, 2)]),
+                "--warm-pool": ("warm_pool", 2),
+                "--model-budget": ("budget", 3)}[flag]
+        assert mine[want[0]] == want[1]
+        return
     value = {bool: [], int: ["2"], float: ["8"]}.get(type(default))
     if value is None:
         value = ["loaded"] if dest == "kv_placement" else \
@@ -87,7 +145,7 @@ def test_draft_flags_reach_every_replica(argv):
     from tfmesos_tpu.fleet import launcher as jax_launcher
 
     args = cli.build_serve_parser().parse_args(argv + ["--tiny"])
-    fleet = cli._build_fleet(args, {}, None, TOKEN)
+    fleet = cli._build_fleet(args, None, {}, None, TOKEN)
     jargs = jax_cli.build_serve_parser().parse_args(argv + ["--tiny"])
     jfleet = jax_launcher.FleetServer(replicas=1, tiny=True,
                                       draft=jargs.draft,
@@ -99,8 +157,141 @@ def test_draft_flags_reach_every_replica(argv):
     assert want in fleet._replica_cmd() and want in jfleet._replica_cmd()
 
 
-@pytest.mark.parametrize("sub", sorted(cli.NOT_PORTED_SUBCOMMANDS))
-def test_subcommands_not_ported_yet_exit_2(sub, capsys):
+MODEL_SPECS = ["chat:2,code:1:7,draft:0", "a:1", " a:1 , b:0:3 ", "",
+               "chat", "chat:x", "chat:1:y", "chat:1:2:3", ":1", "a;b:1",
+               "a:1,a:2", "a:-1", ",", "a:0", "x" * 65 + ":1",
+               "chat:1,code:2:9,long.name-v2:0:11"]
+
+
+@pytest.mark.parametrize("spec", MODEL_SPECS, ids=repr)
+def test_parse_model_spec_matches_jax(spec):
+    def parsed(mod):
+        try:
+            out = mod.parse_model_spec(spec)
+        except ValueError as e:
+            return ("raised", str(e))
+        return out if out is None else [
+            (s.model_id, s.replicas, s.seed, s.floor, s.scale_to_zero)
+            for s in out]
+
+    assert parsed(cli) == parsed(jax_cli)
+
+
+class _StubControl:
+    """A port gateway over an empty fleet with stub control planes: the
+    rollout answers a summary (or raises for version ``boom``), the
+    adapter swap records what reached it."""
+
+    def __init__(self):
+        from tfmesos_tpu_torch.fleet.admission import AdmissionController
+        from tfmesos_tpu_torch.fleet.gateway import Gateway
+        from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
+        from tfmesos_tpu_torch.fleet.registry import ReplicaRegistry
+        from tfmesos_tpu_torch.fleet.router import Router
+
+        self.reg = ReplicaRegistry(token=TOKEN).start()
+        metrics = FleetMetrics()
+        self.gw = Gateway(Router(self.reg, metrics, token=TOKEN),
+                          AdmissionController(max_queue=4), metrics,
+                          token=TOKEN, workers=1).start()
+        self.swaps = []
+
+        def rollout(version):
+            if version == "boom":
+                raise RuntimeError("new tier not routable within 5s")
+            return {"old_version": "v0", "new_version": version,
+                    "replicas": 2, "reaped": 2, "generation": 1}
+
+        def swap(model_id, version, meta, body):
+            self.swaps.append((model_id, version, len(body)))
+            return {"model_id": model_id, "adapter_version": version,
+                    "replicas": 3}
+
+        self.gw.rollout_fn = rollout
+        self.gw.swap_adapter_fn = swap
+
+    def close(self):
+        self.gw.stop()
+        self.reg.stop()
+
+
+def _control_runs(tmp_path, monkeypatch, capsys, sub):
+    """``sub`` through the port's and the JAX ``tfserve`` against the same
+    stub gateway: [(exit code, last stdout line, last stderr line)] of
+    each argv, port then JAX."""
+    np_ = pytest.importorskip("numpy")
+    npz = tmp_path / "delta.npz"
+    np_.savez(npz, **{"embed": np_.ones((4, 4), np_.float32)})
+    empty = tmp_path / "empty.npz"
+    np_.savez(empty)
+    stub = _StubControl()
+    gone = "127.0.0.1:1"
+    if sub == "rollout":
+        argvs = [["-g", stub.gw.addr, "--version", "v2"],
+                 ["-g", stub.gw.addr, "--version", "boom"],
+                 ["-g", gone, "--version", "v2"]]
+    else:
+        argvs = [["-g", stub.gw.addr, "--model", "chat", "--version", "a1",
+                  "--npz", str(npz)],
+                 ["-g", stub.gw.addr, "--model", "bad;id", "--version",
+                  "a1", "--npz", str(npz)],
+                 ["-g", stub.gw.addr, "--model", "chat", "--version", "a1",
+                  "--npz", str(tmp_path / "missing.npz")],
+                 ["-g", stub.gw.addr, "--model", "chat", "--version", "a1",
+                  "--npz", str(empty)],
+                 ["-g", gone, "--model", "chat", "--version", "a1",
+                  "--npz", str(npz)]]
+    out = []
+    try:
+        for main in (cli.main, jax_cli.serve_main):
+            for token in (None, TOKEN):
+                for argv in argvs if token else argvs[:1]:
+                    monkeypatch.delenv("TPUMESOS_TOKEN_FILE", raising=False)
+                    if token:
+                        monkeypatch.setenv("TPUMESOS_TOKEN", token)
+                    else:
+                        monkeypatch.delenv("TPUMESOS_TOKEN", raising=False)
+                    try:
+                        rc = main([sub] + argv)
+                    except SystemExit as e:
+                        rc = e.code
+                    cap = capsys.readouterr()
+                    out.append((rc, cap.out.strip().splitlines()[-1:],
+                                cap.err.strip().splitlines()[-1:]))
+    finally:
+        stub.close()
+    return out[:len(out) // 2], out[len(out) // 2:], stub.swaps
+
+
+@pytest.mark.parametrize(
+    "sub", sorted(list(cli.NOT_PORTED_SUBCOMMANDS)
+                  + ["rollout", "swap-adapter"]))
+def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
+                                           monkeypatch):
+    """Each subcommand still waiting exits 2 naming its ROADMAP item;
+    ``rollout`` and ``swap-adapter`` (ported) answer as the JAX ones do
+    against the same gateway: no cluster token, success, the control
+    plane's failure, a bad input, an unreachable gateway."""
+    if sub in ("rollout", "swap-adapter"):
+        assert sub not in cli.NOT_PORTED_SUBCOMMANDS
+        mine, theirs, swaps = _control_runs(tmp_path, monkeypatch, capsys,
+                                            sub)
+        assert mine == theirs
+        assert mine[0][0] == 2 and "no cluster token" in mine[0][2][0]
+        assert mine[1][0] == 0
+        if sub == "rollout":
+            assert mine[1][1] == ["tfserve rollout: fleet now serves "
+                                  "weights_version v2 (was v0; 2 "
+                                  "replica(s) launched, 2 reaped, "
+                                  "generation fence 1)"]
+            assert mine[2][0] == 1 and "rollout_failed" in mine[2][2][0]
+            assert mine[3][0] == 1 and "cannot reach" in mine[3][2][0]
+        else:
+            assert mine[1][1] == ["tfserve swap-adapter: model chat now "
+                                  "serves adapter a1 on 3 replica(s)"]
+            assert [r[0] for r in mine[2:]] == [1, 2, 2, 1]
+            assert swaps == [("chat", "a1", 64)] * 2
+        return
     for argv in ([sub], ["serve", sub]):
         rc, err = _run(cli.main, argv, capsys)
         assert rc == 2

@@ -219,6 +219,40 @@ def test_no_card_no_fallback(capfd):
     assert (out + err).count("no CUDA device is available") >= 3
 
 
+def _control_fleet(jax, option, value):
+    """The fleet one package builds from a control-loop option (each
+    ``models`` entry a ``ModelSpec`` of that package; ``warm_pool``
+    alone, and beside a catalog): its bounds, budget, catalog and the
+    error it raises."""
+    if jax:
+        from tfmesos_tpu.fleet.catalog import ModelSpec
+        from tfmesos_tpu.fleet.launcher import FleetServer as Fleet
+    else:
+        from tfmesos_tpu_torch.fleet.catalog import ModelSpec
+        Fleet = FleetServer
+    out = []
+    if option == "models":
+        kws = [dict(models=[ModelSpec(m) for m in value])]
+    elif option == "warm_pool":
+        kws = [dict(replicas=1, warm_pool=value),
+               dict(models=[ModelSpec("chat")], warm_pool=value)]
+    else:
+        kws = [dict(replicas=1, autoscale=value),
+               dict(replicas=3, autoscale=value, min_replicas=2)]
+    for kw in kws:
+        try:
+            f = Fleet(**kw)
+        except ValueError as e:
+            out.append(("raised", str(e)))
+            continue
+        keys = ["unified"] + [f"{m}/unified" for m in
+                              (f.catalog.ids() if f.catalog else ())]
+        out.append((f.autoscale, f.min_replicas, f.max_replicas,
+                    f.replica_budget, f.warm_pool,
+                    {k: f.bounds(k) for k in keys}))
+    return out
+
+
 @pytest.mark.parametrize("option,value", [
     ("autoscale", True), ("models", ["chat"]), ("warm_pool", 1),
     ("gang_size", 2), ("draft", True), ("gateway_processes", 2), ("http_port", 0),
@@ -227,9 +261,16 @@ def test_options_not_ported_are_refused_by_name(option, value):
     """Each waits with its ROADMAP item; its JAX default asks for
     nothing and is accepted.  ``draft`` is ported: it is accepted and
     puts ``--draft --n-draft`` on the replica command line, and a bad
-    ``n_draft`` is the JAX fleet's ValueError."""
+    ``n_draft`` is the JAX fleet's ValueError.  ``autoscale``,
+    ``models`` and ``warm_pool`` are ported: the option gives the fleet
+    the JAX fleet gets, or the same error."""
     from tfmesos_tpu_torch.fleet.launcher import _NOT_PORTED
 
+    if option in ("autoscale", "models", "warm_pool"):
+        assert option not in _NOT_PORTED
+        assert _control_fleet(False, option, value) \
+            == _control_fleet(True, option, value)
+        return
     if option == "draft":
         from types import SimpleNamespace
 

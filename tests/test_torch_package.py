@@ -13,8 +13,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tfmesos_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "tfmesos_tpu"}
-#: the front door's modules: the control plane, the scheduler and its
-#: backend, the node runtime and tfserve.
+#: the front door's modules: the control plane (its autoscaler and model
+#: catalog included), the scheduler and its backend, the node runtime
+#: and tfserve.
 FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.fleet.router",
               "tfmesos_tpu_torch.fleet.gateway",
@@ -22,6 +23,8 @@ FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.fleet.containment",
               "tfmesos_tpu_torch.fleet.metrics",
               "tfmesos_tpu_torch.fleet.launcher",
+              "tfmesos_tpu_torch.fleet.autoscaler",
+              "tfmesos_tpu_torch.fleet.catalog",
               "tfmesos_tpu_torch.scheduler", "tfmesos_tpu_torch.spec",
               "tfmesos_tpu_torch.backends",
               "tfmesos_tpu_torch.backends.local",
@@ -132,7 +135,9 @@ def test_front_door_modules_import_with_jax_blocked():
         "ti = spec.Task('replica', 0, cmd='true').to_task_info(\n"
         "    spec.Offer('o', 'a', 'h', 1, 1), '127.0.0.1:1', 't')\n"
         "print(all(hasattr(f, n) for n in ('FleetServer', 'FleetClient',\n"
-        "      'Gateway', 'Router', 'ReplicaRegistry')),\n"
+        "      'Gateway', 'Router', 'ReplicaRegistry', 'FleetAutoscaler',\n"
+        "      'AutoscalerConfig', 'ModelTrader', 'ModelSpec',\n"
+        "      'RolloutError')),\n"
         "      client.Overloaded is f.admission.Overloaded,\n"
         "      '-m tfmesos_tpu_torch.server' in ti['command']['value'],\n"
         "      callable(wire.WireServer), sorted(launcher.TIER_JOBS))\n")

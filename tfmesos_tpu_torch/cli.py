@@ -1,20 +1,27 @@
 """``tfserve`` for the PyTorch port (port of ``tfmesos_tpu/cli.py``'s
 serving entry: ``build_serve_parser``, ``serve_main`` and the ``submit``,
-``metrics``, ``trace`` and ``gateways`` subcommands).
+``metrics``, ``trace``, ``gateways``, ``rollout`` and ``swap-adapter``
+subcommands).
 
     python -m tfmesos_tpu_torch.cli serve [--replicas N] [--tiny] ...
+    python -m tfmesos_tpu_torch.cli serve --autoscale --max-replicas 4
+    python -m tfmesos_tpu_torch.cli serve --models chat:1,code:0 --warm-pool 1
     python -m tfmesos_tpu_torch.cli submit -g HOST:PORT --prompt 1,2,3
     python -m tfmesos_tpu_torch.cli metrics -g HOST:PORT
+    python -m tfmesos_tpu_torch.cli rollout -g HOST:PORT --version v1
+    python -m tfmesos_tpu_torch.cli swap-adapter -g HOST:PORT --model chat \
+        --version a1 --npz delta.npz
 
 ``serve`` brings up a registry and a gateway in process and launches
 port replicas (``tfmesos_tpu_torch.fleet.replica``) as local Mode-B
 tasks, on the card unless ``--device cpu``.  It runs until SIGINT
 (ctrl-c), then stops the fleet and every replica process.  Every flag
 of the JAX ``tfserve`` parses with its default; the ones whose
-machinery is not ported yet, and the ``rollout``, ``swap-adapter``,
-``batch`` and ``simulate`` subcommands, exit 2 with ``tfserve: not
-ported yet: <flag> (ROADMAP A.x)``.  ``tfrun`` (the Mode-B job CLI) is
-not ported yet either.
+machinery is not ported yet (``--gang-size``, ``--gateway-processes``,
+``--http-port``, ``--batch-lane``, ``--master``), and the ``batch`` and
+``simulate`` subcommands, exit 2 with ``tfserve: not ported yet:
+<flag> (ROADMAP A.x)``.  ``tfrun`` (the Mode-B job CLI) is not ported
+yet either.
 """
 
 from __future__ import annotations
@@ -29,19 +36,14 @@ from typing import List, Optional
 from tfmesos_tpu_torch import wire
 
 __all__ = ["build_serve_parser", "parse_role_spec", "parse_class_spec",
-           "serve_main", "submit_main", "trace_main", "metrics_main",
-           "gateways_main", "main", "NOT_PORTED_FLAGS",
+           "parse_model_spec", "serve_main", "submit_main", "trace_main",
+           "metrics_main", "gateways_main", "rollout_main",
+           "swap_adapter_main", "main", "NOT_PORTED_FLAGS",
            "NOT_PORTED_SUBCOMMANDS"]
 
 #: tfserve flags whose machinery waits: (flag, args dest, the default
 #: that asks for nothing, ROADMAP item).
 NOT_PORTED_FLAGS = (
-    ("--autoscale", "autoscale", False, "A.12"),
-    ("--min-replicas", "min_replicas", None, "A.12"),
-    ("--max-replicas", "max_replicas", None, "A.12"),
-    ("--models", "models", None, "A.12"),
-    ("--warm-pool", "warm_pool", 0, "A.12"),
-    ("--model-budget", "model_budget", None, "A.12"),
     ("--gang-size", "gang_size", 1, "A.9"),
     ("--gateway-processes", "gateway_processes", 0, "A.12"),
     ("--http-port", "http_port", None, "A.12"),
@@ -50,8 +52,7 @@ NOT_PORTED_FLAGS = (
 )
 
 #: tfserve subcommands whose machinery waits -> ROADMAP item.
-NOT_PORTED_SUBCOMMANDS = {"rollout": "A.12", "swap-adapter": "A.12",
-                          "batch": "A.12", "simulate": "A.12"}
+NOT_PORTED_SUBCOMMANDS = {"batch": "A.12", "simulate": "A.12"}
 
 
 def _refused(what: str, item: str) -> int:
@@ -391,6 +392,42 @@ def parse_role_spec(spec: Optional[str]) -> dict:
     return out
 
 
+def parse_model_spec(spec: Optional[str]):
+    """``'chat:2,code:1:7,draft:0'`` → ModelSpec list
+    (``model_id:replicas[:seed]``, seed defaulting to the entry's
+    index so two entries are two distinct models).  The FIRST entry is
+    the default for model-less requests; ``:0`` entries boot scaled to
+    zero (cold-started through the warm pool on first demand)."""
+    from tfmesos_tpu_torch.fleet.catalog import ModelSpec
+
+    if not spec:
+        return None
+    out = []
+    for i, part in enumerate(p.strip() for p in spec.split(",")
+                             if p.strip()):
+        bits = part.split(":")
+        if len(bits) not in (2, 3) or not bits[0]:
+            raise ValueError(f"bad --models entry {part!r}; want "
+                             f"model_id:replicas[:seed]")
+        try:
+            replicas = int(bits[1])
+            seed = int(bits[2]) if len(bits) == 3 else i
+        except ValueError:
+            raise ValueError(
+                f"bad --models numbers in {part!r}") from None
+        try:
+            out.append(ModelSpec(model_id=bits[0], replicas=replicas,
+                                 seed=seed))
+        except ValueError as e:
+            raise ValueError(f"bad --models entry {part!r}: {e}") \
+                from None
+    if not out:
+        raise ValueError("--models is empty")
+    if len({s.model_id for s in out}) != len(out):
+        raise ValueError("duplicate model_id in --models")
+    return out
+
+
 def parse_class_spec(spec: Optional[str]):
     """``'interactive:8,background:1'`` → PriorityClass list, listed
     highest-priority FIRST: the first class is the default for
@@ -723,7 +760,146 @@ def metrics_main(argv: List[str]) -> int:
     return 0
 
 
-def _build_fleet(args, roles, classes, token):
+def build_swap_adapter_parser() -> argparse.ArgumentParser:
+    """``tfserve swap-adapter`` — hot-swap a LoRA-style weight delta
+    onto every replica of one catalog model with zero downtime
+    (docs/SERVING.md 'Model catalog')."""
+    p = argparse.ArgumentParser(
+        prog="tfserve swap-adapter",
+        description="Fold a weight delta (an .npz of param-path -> "
+                    "array entries) into one catalog model's replicas "
+                    "between generations: in-flight requests finish on "
+                    "the old delta, streams stay token-identical per "
+                    "delta version, zero downtime.")
+    p.add_argument("-g", "--gateway", type=str, required=True,
+                   metavar="HOST:PORT", help="the running gateway")
+    p.add_argument("--model", type=str, required=True,
+                   help="the catalog model_id to swap")
+    p.add_argument("--version", type=str, required=True,
+                   dest="adapter_version",
+                   help="label of the resulting adapter state (same "
+                        "charset as model ids)")
+    p.add_argument("--npz", type=str, required=True,
+                   help=".npz file whose entries map param paths "
+                        "(e.g. 'layers/wq') to delta arrays added "
+                        "onto the matching leaves")
+    p.add_argument("--timeout", type=float, default=900.0,
+                   help="seconds to wait (the swap waits for every "
+                        "replica's in-flight generations)")
+    return p
+
+
+def swap_adapter_main(argv: List[str]) -> int:
+    args = build_swap_adapter_parser().parse_args(argv)
+    from tfmesos_tpu_torch.fleet.client import FleetClient, RequestFailed
+
+    token = wire.load_token()
+    if not token:
+        print(f"tfserve swap-adapter: no cluster token — set "
+              f"{wire.TOKEN_ENV} or {wire.TOKEN_FILE_ENV} (tfserve "
+              f"printed the token file at startup)", file=sys.stderr)
+        return 2
+    try:
+        import numpy as np
+
+        with np.load(args.npz) as z:
+            delta = {k: z[k] for k in z.files}
+    except (OSError, ValueError) as e:
+        print(f"tfserve swap-adapter: cannot load {args.npz}: {e}",
+              file=sys.stderr)
+        return 2
+    if not delta:
+        print(f"tfserve swap-adapter: {args.npz} holds no arrays",
+              file=sys.stderr)
+        return 2
+    client = None
+    try:
+        client = FleetClient(args.gateway, token, timeout=args.timeout)
+        out = client.swap_adapter(args.model, args.adapter_version,
+                                  delta, timeout=args.timeout)
+    except RequestFailed as e:
+        print(f"tfserve swap-adapter: {e.kind}: {e}", file=sys.stderr)
+        return 1
+    except OSError as e:
+        print(f"tfserve swap-adapter: cannot reach gateway "
+              f"{args.gateway}: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if client is not None:
+            client.close()
+    print(f"tfserve swap-adapter: model {out.get('model_id')} now "
+          f"serves adapter {out.get('adapter_version')} on "
+          f"{out.get('replicas')} replica(s)", flush=True)
+    return 0
+
+
+def build_rollout_parser() -> argparse.ArgumentParser:
+    """``tfserve rollout`` — drive a blue-green weight rollout on a
+    RUNNING fleet through the gateway's authenticated control op."""
+    p = argparse.ArgumentParser(
+        prog="tfserve rollout",
+        description="Shift a running fleet to a new weights version "
+                    "with zero downtime: launch a new-version replica "
+                    "set, warm it, shift routing, drain and reap the "
+                    "old tier (docs/SERVING.md 'Blue-green rollout').")
+    p.add_argument("-g", "--gateway", type=str, required=True,
+                   metavar="HOST:PORT", help="the running gateway")
+    p.add_argument("--version", type=str, required=True,
+                   dest="weights_version",
+                   help="the new weights version label")
+    p.add_argument("--timeout", type=float, default=900.0,
+                   help="seconds to wait for completion (a rollout "
+                        "spans a full tier warmup plus the old tier's "
+                        "drain)")
+    return p
+
+
+def rollout_main(argv: List[str]) -> int:
+    args = build_rollout_parser().parse_args(argv)
+    from tfmesos_tpu_torch.fleet.client import (CallTimeout, FleetClient,
+                                          RequestFailed)
+
+    token = wire.load_token()
+    if not token:
+        print(f"tfserve rollout: no cluster token — set "
+              f"{wire.TOKEN_ENV} or {wire.TOKEN_FILE_ENV} (tfserve "
+              f"printed the token file at startup)", file=sys.stderr)
+        return 2
+    client = None
+    try:
+        # Inside the try: FleetClient dials the gateway in its
+        # constructor, so an unreachable host must land in the OSError
+        # branch below, not escape as a traceback.
+        client = FleetClient(args.gateway, token, timeout=args.timeout)
+        out = client.rollout(args.weights_version, timeout=args.timeout)
+    except RequestFailed as e:
+        print(f"tfserve rollout: {e.kind}: {e}", file=sys.stderr)
+        return 1
+    except CallTimeout as e:
+        # Before the generic OSError branch (CallTimeout IS an OSError
+        # subclass): no reply within --timeout means the rollout may
+        # STILL BE RUNNING server-side, not that the gateway is down.
+        print(f"tfserve rollout: no reply within {args.timeout:.0f}s — "
+              f"the rollout may still be in progress; watch the "
+              f"gateway's roles gauge (versions) and raise --timeout "
+              f"({e})", file=sys.stderr)
+        return 1
+    except OSError as e:
+        print(f"tfserve rollout: cannot reach gateway "
+              f"{args.gateway}: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if client is not None:
+            client.close()
+    print(f"tfserve rollout: fleet now serves weights_version "
+          f"{out.get('new_version')} (was {out.get('old_version')}; "
+          f"{out.get('replicas')} replica(s) launched, "
+          f"{out.get('reaped')} reaped, generation fence "
+          f"{out.get('generation')})", flush=True)
+    return 0
+
+
+def _build_fleet(args, models, roles, classes, token):
     """Construct the FleetServer from parsed ``tfserve`` args; its
     constructor ValueErrors (bad flag combinations) surface to the
     caller for the clean exit-2 path."""
@@ -733,8 +909,14 @@ def _build_fleet(args, roles, classes, token):
         replicas=args.replicas, rows=args.rows, tiny=args.tiny,
         prefill_replicas=roles.get("prefill", 0),
         decode_replicas=roles.get("decode", 0),
+        models=models,
+        warm_pool=args.warm_pool,
+        model_budget=args.model_budget,
         device=args.device,
         weights_version=args.weights_version,
+        autoscale=args.autoscale,
+        min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas,
         max_len=args.max_len,
         replica_cpus=args.replica_cpus, replica_mem=args.replica_mem,
         replica_chips=args.replica_chips,
@@ -780,10 +962,15 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     try:
         roles = parse_role_spec(args.role)
         classes = parse_class_spec(args.classes)
+        models = parse_model_spec(args.models)
     except ValueError as e:
         print(f"tfserve: {e}", file=sys.stderr)
         return 2
-    min_replicas = 0 if roles else 1
+    if models and roles:
+        print("tfserve: --models runs unified tiers; drop --role",
+              file=sys.stderr)
+        return 2
+    min_replicas = 0 if (roles or models) else 1
     if args.replicas < min_replicas:
         print(f"tfserve: --replicas must be >= {min_replicas}, got "
               f"{args.replicas}", file=sys.stderr)
@@ -805,10 +992,11 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     # can point clients at.
     token = wire.load_token() or None
     try:
-        fleet = _build_fleet(args, roles, classes, token)
+        fleet = _build_fleet(args, models, roles, classes, token)
     except ValueError as e:
-        # Constructor validation (bad flag combinations) is an ARGUMENT
-        # error: one clean line, exit 2, never a traceback.
+        # Constructor validation (bad flag combinations: --warm-pool
+        # without --models, a budget below the boot footprint, ...) is
+        # an ARGUMENT error: one clean line, exit 2, never a traceback.
         print(f"tfserve: {e}", file=sys.stderr)
         return 2
     try:
@@ -826,9 +1014,17 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         print(f"tfserve: client token file {token_file} (clients set "
               f"{wire.TOKEN_FILE_ENV}={token_file})", flush=True)
     tiers = f"{args.replicas} unified replica(s)"
+    if models:
+        tiers = (f"{len(models)} catalog model(s) on a "
+                 f"{fleet.replica_budget}-replica budget"
+                 + (f" + {args.warm_pool} warm-pool"
+                    if args.warm_pool else ""))
     if roles:
         tiers += (f" + {roles['prefill']} prefill / {roles['decode']} "
                   f"decode (disaggregated)")
+    if args.autoscale:
+        tiers += (f", autoscaling within [{fleet.min_replicas}, "
+                  f"{fleet.max_replicas}]")
     if args.gateways == 1:
         doors = fleet.addr
     else:
@@ -852,13 +1048,14 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 
 
 SUBCOMMANDS = {"submit": submit_main, "trace": trace_main,
-               "metrics": metrics_main, "gateways": gateways_main}
+               "metrics": metrics_main, "gateways": gateways_main,
+               "rollout": rollout_main, "swap-adapter": swap_adapter_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     """``python -m tfmesos_tpu_torch.cli serve|submit|metrics|trace|
-    gateways ...``: ``serve`` is ``tfserve`` itself, the rest are its
-    subcommands."""
+    gateways|rollout|swap-adapter ...``: ``serve`` is ``tfserve``
+    itself, the rest are its subcommands."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
@@ -870,7 +1067,8 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         return 2
     print("usage: python -m tfmesos_tpu_torch.cli "
-          "{serve,submit,metrics,trace,gateways} ...", file=sys.stderr)
+          "{serve,submit,metrics,trace,gateways,rollout,swap-adapter} ...",
+          file=sys.stderr)
     return 2
 
 

@@ -28,18 +28,24 @@ same module names): online multi-replica inference over port replicas.
   behind a TCP server.
 * :mod:`~tfmesos_tpu_torch.fleet.launcher` — ``FleetServer``: registry
   + gateway + replicas launched as Mode-B tasks through the port's
-  scheduler and ``LocalBackend``.
+  scheduler and ``LocalBackend``, plus the blue-green
+  ``FleetServer.rollout`` control op.
+* :mod:`~tfmesos_tpu_torch.fleet.autoscaler` — the control-plane
+  feedback loop that grows and shrinks each tier from live load
+  signals (queue-wait p99 for prompt tiers, KV headroom for decode)
+  within min/max bounds, with hysteresis, per-tier cooldowns,
+  drain-migrate-kill scale-down and a never-below-one-alive invariant.
 * :mod:`~tfmesos_tpu_torch.fleet.kvtier` — the tiered KV store (bounded
   host RAM over an HMAC-framed disk directory, byte-compatible with the
   JAX store's), the cross-host KV fabric and the direct KV push.
-* :mod:`~tfmesos_tpu_torch.fleet.catalog` — the adapter delta's wire
-  codec (the replica's ``swap_adapter`` op); the catalog itself waits.
+* :mod:`~tfmesos_tpu_torch.fleet.catalog` — the model catalog, the
+  warm pool's keys, the cross-model replica trader and the adapter
+  delta's wire codec (the replica's ``swap_adapter`` op).
 
 The wire is byte-compatible with the JAX package's, so a port replica
 serves behind the JAX registry and gateway and a JAX replica behind the
-port's.  Not ported yet: the autoscaler, the model catalog, gang
-replicas, gateway processes, the HTTP edge, the simulator (ROADMAP A.9,
-A.12).
+port's.  Not ported yet: gang replicas, gateway processes, the HTTP
+edge, the offline lane, the simulator (ROADMAP A.9, A.12).
 """
 
 from __future__ import annotations
@@ -47,6 +53,10 @@ from __future__ import annotations
 from tfmesos_tpu_torch.fleet.admission import (AdmissionController,
                                                DeadlineExceeded, Overloaded,
                                                RateLimited, TokenBucket)
+from tfmesos_tpu_torch.fleet.autoscaler import (AutoscalerConfig,
+                                                FleetAutoscaler)
+from tfmesos_tpu_torch.fleet.catalog import (ModelCatalog, ModelSpec,
+                                             ModelTrader, TraderConfig)
 from tfmesos_tpu_torch.fleet.client import (CallTimeout, ConnectionLost,
                                             FleetClient, MuxConnection,
                                             ReaderDied, RequestFailed)
@@ -54,7 +64,7 @@ from tfmesos_tpu_torch.fleet.containment import (BreakerBoard, BreakerConfig,
                                                  RetryBudget)
 from tfmesos_tpu_torch.fleet.gateway import Gateway
 from tfmesos_tpu_torch.fleet.kvtier import KVTierFull, KVTierStore
-from tfmesos_tpu_torch.fleet.launcher import FleetServer
+from tfmesos_tpu_torch.fleet.launcher import FleetServer, RolloutError
 from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
 from tfmesos_tpu_torch.fleet.registry import (DECODE, PREFILL, UNIFIED,
                                               ReplicaInfo, ReplicaRegistry)
@@ -66,6 +76,8 @@ from tfmesos_tpu_torch.fleet.tracing import (FlightRecorder, TraceBook,
 __all__ = [
     "AdmissionController", "Overloaded", "RateLimited",
     "DeadlineExceeded", "TokenBucket",
+    "AutoscalerConfig", "FleetAutoscaler", "RolloutError",
+    "ModelCatalog", "ModelSpec", "ModelTrader", "TraderConfig",
     "BreakerBoard", "BreakerConfig", "RetryBudget",
     "CallTimeout", "ConnectionLost", "FleetClient", "MuxConnection",
     "ReaderDied", "RequestFailed",

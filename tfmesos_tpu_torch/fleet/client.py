@@ -528,6 +528,52 @@ class FleetClient:
                                         timeout=timeout)
         return reply.get("snapshot", {})
 
+    def rollout(self, weights_version: str,
+                timeout: float = 900.0) -> Dict[str, Any]:
+        """Drive a blue-green weight rollout through the gateway's
+        control op and block until it completes (a rollout spans a full
+        tier's warmup plus the old tier's drain — size ``timeout``
+        accordingly).  Returns the gateway's summary dict; raises
+        :class:`RequestFailed` (kind ``rollout_failed``) on abort.
+        NEVER replayed on failover: a rollout is not idempotent (the
+        second attempt would race the first's drains)."""
+        reply = self._connection().call(
+            {"op": "rollout", "weights_version": str(weights_version)},
+            timeout=timeout)
+        if isinstance(reply, dict) and reply.get("op") == "rollout":
+            return reply
+        kind = reply.get("kind", "error") if isinstance(reply, dict) \
+            else "error"
+        error = reply.get("error", repr(reply)) if isinstance(reply, dict) \
+            else repr(reply)
+        raise RequestFailed(error, kind=kind)
+
+    def swap_adapter(self, model_id: str, adapter_version: str,
+                     delta: Dict[str, Any],
+                     timeout: float = 900.0) -> Dict[str, Any]:
+        """Hot-swap a LoRA-style weight delta onto every replica of
+        one catalog model through the gateway's control op and block
+        until every replica has folded it (in-flight requests finish
+        on the old delta first — size ``timeout`` for a generation's
+        tail).  ``delta`` maps param paths to numpy arrays; it ships
+        base64 to the gateway and as raw HMAC frames to the replicas.
+        NEVER replayed on failover (like rollout — the second attempt
+        would race the first's folds)."""
+        from tfmesos_tpu_torch.fleet.catalog import encode_adapter_fields
+
+        reply = self._connection().call(
+            {"op": "swap_adapter", "model_id": str(model_id),
+             "adapter_version": str(adapter_version),
+             "delta": encode_adapter_fields(delta)},
+            timeout=timeout)
+        if isinstance(reply, dict) and reply.get("op") == "swap_adapter":
+            return reply
+        kind = reply.get("kind", "error") if isinstance(reply, dict) \
+            else "error"
+        error = reply.get("error", repr(reply)) \
+            if isinstance(reply, dict) else repr(reply)
+        raise RequestFailed(error, kind=kind)
+
     @property
     def outstanding(self) -> int:
         with self._mlock:

@@ -68,9 +68,17 @@ Wire surface (all frames HMAC-authenticated with the cluster token):
   one trace by id (full record), the N slowest, the newest failures,
   or the recent summaries (``tfserve trace``).
 * ``{"op": "ping", "id"}`` → ``{"op": "pong", "id"}``.
-* ``rollout`` and ``swap_adapter`` (the JAX gateway's blue-green and
-  adapter control ops) answer ``{"op": "error", "kind": "bad_request"}``
-  naming their ROADMAP item: their fleet machinery is not ported yet.
+* ``{"op": "rollout", "id", "weights_version"}`` → ``{"op":
+  "rollout", "id", "ok": true, "weights_version", ...}`` (the fleet's
+  blue-green rollout summary) or ``{"op": "error", "kind":
+  "rollout_failed"}``; it runs on its own thread, never the event
+  loop's.
+* ``{"op": "swap_adapter", "id", "model_id", "adapter_version",
+  "delta"}`` → ``{"op": "swap_adapter", "id", "ok": true, ...}`` or
+  ``{"op": "error", "kind": "bad_request" | "swap_failed"}``: the
+  adapter hot-swap onto every alive replica of one catalog model (the
+  delta in base64, :func:`~tfmesos_tpu_torch.fleet.catalog.
+  encode_adapter_fields`), also off the event loop.
 
 Clients multiplex: many requests may be in flight per connection, and
 completions return in FINISH order, matched by ``id`` — the same
@@ -87,17 +95,14 @@ from tfmesos_tpu_torch import wire
 from tfmesos_tpu_torch.fleet.admission import (AdmissionController,
                                                DeadlineExceeded, Overloaded,
                                                RateLimited)
+from tfmesos_tpu_torch.fleet.catalog import decode_adapter_fields
 from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
-from tfmesos_tpu_torch.fleet.registry import MODEL_ID_RE
+from tfmesos_tpu_torch.fleet.registry import MODEL_ID_RE, validate_model_id
 from tfmesos_tpu_torch.fleet.router import Router
 from tfmesos_tpu_torch.fleet.tracing import TraceBook
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["Gateway", "NOT_PORTED_OPS"]
-
-#: control ops of the JAX gateway whose fleet machinery is not ported
-#: yet: each answers ``bad_request`` naming its ROADMAP item.
-NOT_PORTED_OPS = {"rollout": "A.12", "swap_adapter": "A.12"}
+__all__ = ["Gateway"]
 
 
 class Gateway:
@@ -128,6 +133,19 @@ class Gateway:
         self._close_router = bool(close_router)
         self.log = get_logger("tfmesos_tpu_torch.fleet.gateway")
         self.addr: Optional[str] = None
+        # The fleet control plane's rollout entry point (set by
+        # FleetServer after bring-up): callable(version) -> info dict,
+        # raising on abort.  None = this gateway has no rollout surface.
+        self.rollout_fn = None
+        # Model catalog, both set by FleetServer on catalog fleets: the
+        # catalog resolves/validates the request's ``model`` label
+        # (absent -> the default entry; unknown -> bad_request), and
+        # swap_adapter_fn is the adapter hot-swap control plane
+        # (callable(model_id, version, meta, body) -> info dict).  None
+        # = model-less fleet: a ``model`` label is charset-checked and
+        # forwarded as-is.
+        self.catalog = None
+        self.swap_adapter_fn = None
         self._server: Optional[wire.WireServer] = None
         self._stop = threading.Event()
         self._threads = []
@@ -295,10 +313,89 @@ class Gateway:
                 traces = book.recent(limit)
             client.send({"op": "trace", "id": cid, "traces": traces})
             return
-        if op in NOT_PORTED_OPS:
-            client.send({"op": "error", "id": cid, "kind": "bad_request",
-                         "error": f"not ported yet: the {op} op (ROADMAP "
-                                  f"{NOT_PORTED_OPS[op]})"})
+        if op == "rollout":
+            fn = self.rollout_fn
+            version = msg.get("weights_version")
+            if fn is None:
+                client.send({"op": "error", "id": cid,
+                             "kind": "bad_request",
+                             "error": "no rollout control plane attached "
+                                      "to this gateway"})
+                return
+            if not isinstance(version, str) or not version:
+                client.send({"op": "error", "id": cid,
+                             "kind": "bad_request",
+                             "error": "rollout needs a non-empty "
+                                      "weights_version"})
+                return
+
+            def run_rollout() -> None:
+                # Off the event-loop thread: a rollout takes as long as
+                # a fleet's worth of warmups and drains, and blocking
+                # here would stall EVERY connection, not just one.
+                try:
+                    info = fn(version)
+                except Exception as e:
+                    client.send({"op": "error", "id": cid,
+                                 "kind": "rollout_failed",
+                                 "error": str(e)})
+                    return
+                out = {"op": "rollout", "id": cid, "ok": True,
+                       "weights_version": version}
+                if isinstance(info, dict):
+                    out.update(info)
+                client.send(out)
+
+            threading.Thread(target=run_rollout, name="gateway-rollout",
+                             daemon=True).start()
+            return
+        if op == "swap_adapter":
+            # Adapter hot-swap control op.  The public port rejects raw
+            # frames at the length prefix, so the delta arrives base64
+            # in JSON and the control plane re-ships it to the replicas
+            # as raw HMAC frames.  Validation here is an INGRESS
+            # boundary: model_id/adapter_version are charset-checked
+            # before they touch anything.
+            fn = self.swap_adapter_fn
+            if fn is None:
+                client.send({"op": "error", "id": cid,
+                             "kind": "bad_request",
+                             "error": "no model catalog attached to "
+                                      "this gateway"})
+                return
+            try:
+                model_id = validate_model_id(msg.get("model_id"))
+                version = validate_model_id(msg.get("adapter_version"))
+                meta, body = decode_adapter_fields(msg.get("delta"))
+            except (TypeError, ValueError) as e:
+                client.send({"op": "error", "id": cid,
+                             "kind": "bad_request", "error": str(e)})
+                return
+
+            def run_swap() -> None:
+                # Off the event-loop thread: the swap waits for every
+                # replica's in-flight generations to finish on the old
+                # delta, and blocking here would stall EVERY
+                # connection.
+                try:
+                    info = fn(model_id, version, meta, body)
+                except KeyError as e:
+                    client.send({"op": "error", "id": cid,
+                                 "kind": "bad_request",
+                                 "error": str(e)})
+                    return
+                except Exception as e:
+                    client.send({"op": "error", "id": cid,
+                                 "kind": "swap_failed",
+                                 "error": str(e)})
+                    return
+                out = {"op": "swap_adapter", "id": cid, "ok": True}
+                if isinstance(info, dict):
+                    out.update(info)
+                client.send(out)
+
+            threading.Thread(target=run_swap, name="gateway-swap",
+                             daemon=True).start()
             return
         if op != "generate":
             client.send({"op": "error", "id": cid, "kind": "bad_request",
@@ -323,9 +420,13 @@ class Gateway:
             label = msg.get("tenant")
         spec = self.admission.resolve(
             label if isinstance(label, str) else None)
-        # The model label is charset-validated at this ingress (it
-        # reaches metric names and the routing filter) and forwarded
-        # as-is: the router serves it by exact replica match.
+        # The model tier: the label is charset-validated at THIS
+        # ingress (it reaches metric names and the routing filter),
+        # resolved against the catalog when one is attached — absent
+        # rides the default entry, unknown is an explicit bad_request
+        # (there are no weights to serve it, and billing it to the
+        # default would be silently wrong).  Model-less fleets forward
+        # a validated label as-is and route by exact replica match.
         mraw = msg.get("model")
         model = None
         if mraw is not None:
@@ -339,6 +440,16 @@ class Gateway:
                              "trace_id": tr.trace_id})
                 return
             model = mraw
+        if self.catalog is not None:
+            try:
+                model = self.catalog.resolve(model)
+            except KeyError as e:
+                self.metrics.inc("failed")
+                self.tracebook.finish(tr, "bad_request", cls=spec.name)
+                client.send({"op": "error", "id": cid,
+                             "kind": "bad_request", "error": str(e),
+                             "trace_id": tr.trace_id})
+                return
         prompt = msg.get("prompt")
         tr.event("gateway", "recv", cls=spec.name, rank=spec.rank,
                  model=model or "",

@@ -15,8 +15,23 @@ with the same secret.
 Replica membership is a runtime property: the scheduler runs in dynamic
 mode with an initially empty task table, and each tier converges toward
 a target count — ``launch_replica`` / ``kill_replica`` grow and shrink
-it one Mode-B task at a time.  Replica death is a serving event, not a
-cluster event: the router routes around a dead replica.
+it one Mode-B task at a time, ``autoscale`` hands the targets to a
+:class:`~tfmesos_tpu_torch.fleet.autoscaler.FleetAutoscaler` feedback
+loop, and :meth:`FleetServer.rollout` replaces a whole tier's weights
+blue-green with zero downtime (launch new-version replicas, warm them,
+shift the router's version preference, bake, drain, reap — with the
+registry's generation fence keeping reaped-generation stragglers out of
+the serving path).  Replica death is a serving event, not a cluster
+event: the router routes around a dead replica and, with the
+autoscaler on, the convergence loop relaunches it.
+
+``models`` makes the fleet a model catalog: each
+:class:`~tfmesos_tpu_torch.fleet.catalog.ModelSpec` entry is a
+per-(model, tier) target keyed ``"<model_id>/unified"``, a
+``warm_pool`` of undedicated pre-warmed replicas adopts a model on
+first demand, and a :class:`~tfmesos_tpu_torch.fleet.catalog.
+ModelTrader` reallocates one ``model_budget`` between the models;
+``swap_adapter`` hot-swaps a weight delta onto one model's replicas.
 
 The KV tier rides the replica command line: ``kv_tier_mb`` gives every
 replica a RAM tier and, unless ``kv_tier_dir`` names one, one disk
@@ -28,10 +43,8 @@ launches that many ``--role kv`` holders (capacity 0, never routed).
 --n-draft``: the preset's draft model).
 
 Not ported yet, refused by name at construction (each with its ROADMAP
-item): the autoscaler, the model catalog with its warm pool and trader,
-gang replicas, gateway processes, the HTTP edge, the offline lane and
-the Mesos master.  Blue-green rollouts
-(``rollout``) wait too.
+item): gang replicas, gateway processes, the HTTP edge, the offline
+lane and the Mesos master.
 """
 
 from __future__ import annotations
@@ -40,24 +53,32 @@ import re
 import sys
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from tfmesos_tpu_torch import wire
 from tfmesos_tpu_torch.fleet.admission import AdmissionController, PriorityClass
+from tfmesos_tpu_torch.fleet.autoscaler import (AutoscalerConfig,
+                                                FleetAutoscaler)
+from tfmesos_tpu_torch.fleet.catalog import (POOL, POOL_KEY, ModelCatalog,
+                                             ModelSpec, ModelTrader,
+                                             NotPorted, TraderConfig,
+                                             filter_members, model_key,
+                                             pack_adapter, split_key)
 from tfmesos_tpu_torch.fleet.client import FleetClient
 from tfmesos_tpu_torch.fleet.gateway import Gateway
 from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
 from tfmesos_tpu_torch.fleet.registry import (ALIVE, DEAD, DECODE, KV,
-                                              PREFILL, UNIFIED,
-                                              ReplicaRegistry)
+                                              PREFILL, UNIFIED, WARMING,
+                                              ReplicaRegistry,
+                                              validate_model_id)
 from tfmesos_tpu_torch.fleet.router import Router
 from tfmesos_tpu_torch.fleet.tracing import TraceBook
 from tfmesos_tpu_torch.scheduler import (MAX_FAILURE_COUNT, ClusterError,
                                          TPUMesosScheduler)
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["FleetServer", "NotPorted", "TIER_JOBS",
-           "validate_kv_tier_dir"]
+__all__ = ["FleetServer", "NotPorted", "RolloutError", "TIER_JOBS",
+           "validate_kv_tier_dir", "validate_weights_version"]
 
 #: tier role -> the scheduler job name its Mode-B tasks launch under.
 TIER_JOBS = {UNIFIED: "replica", PREFILL: "prefill", DECODE: "decode",
@@ -81,18 +102,27 @@ def validate_kv_tier_dir(path: str) -> str:
             f"security boundary)")
     return path
 
+
+def validate_weights_version(version: str) -> str:
+    version = str(version)
+    # fullmatch, not match-with-$: '$' would accept a trailing newline,
+    # which shell=True treats as a command terminator.
+    if not _VERSION_RE.fullmatch(version):
+        raise ValueError(
+            f"weights_version {version!r} is not a valid label: want "
+            f"1-64 chars of [A-Za-z0-9._-] starting alphanumeric (it "
+            f"joins the replica command line, so the charset is a "
+            f"security boundary)")
+    return version
+
+
+class RolloutError(RuntimeError):
+    """A blue-green rollout aborted (the old version kept serving)."""
+
+
 #: the JAX FleetServer's options that wait: name -> (what, ROADMAP item,
 #: the value that asks for nothing).  Passing any other value refuses.
 _NOT_PORTED = {
-    "autoscale": ("autoscale, the fleet autoscaler", "A.12", False),
-    "min_replicas": ("min_replicas, the autoscaler's floor", "A.12", None),
-    "max_replicas": ("max_replicas, the autoscaler's ceiling", "A.12",
-                     None),
-    "autoscale_config": ("autoscale_config", "A.12", None),
-    "models": ("models, the model catalog", "A.12", None),
-    "warm_pool": ("warm_pool, the catalog's warm pool", "A.12", 0),
-    "model_budget": ("model_budget, the catalog's budget", "A.12", None),
-    "trader_config": ("trader_config, the model trader", "A.12", None),
     "gang_size": ("gang_size above 1, gang replicas", "A.9", 1),
     "gateway_processes": ("gateway_processes, gateway processes",
                           "A.12", 0),
@@ -100,10 +130,6 @@ _NOT_PORTED = {
     "batch_lane": ("batch_lane, the offline lane", "A.12", False),
     "master": ("master, the Mesos backend", "A.12", None),
 }
-
-
-class NotPorted(ValueError):
-    """A fleet option whose machinery the port does not have yet."""
 
 
 def _refuse(what: str, item: str) -> None:
@@ -137,8 +163,16 @@ class FleetServer:
                  decode_replicas: int = 0,
                  draft: bool = False,
                  n_draft: int = 4,
+                 models: Optional[List[ModelSpec]] = None,
+                 warm_pool: int = 0,
+                 model_budget: Optional[int] = None,
+                 trader_config: Optional[TraderConfig] = None,
                  device: Optional[str] = None,
                  weights_version: str = "v0",
+                 autoscale: bool = False,
+                 min_replicas: Optional[int] = None,
+                 max_replicas: Optional[int] = None,
+                 autoscale_config: Optional[AutoscalerConfig] = None,
                  backend=None,
                  replica_cpus: float = 1.0, replica_mem: float = 1024.0,
                  replica_chips: int = 0,
@@ -177,7 +211,44 @@ class FleetServer:
                 f"a lone tier cannot serve the disaggregated handoff "
                 f"(got prefill_replicas={prefill_replicas}, "
                 f"decode_replicas={decode_replicas})")
-        if replicas + prefill_replicas + decode_replicas < 1:
+        # Model catalog: with ``models``, the catalog entries size the
+        # fleet (each entry's own ``replicas``), a ``warm_pool`` of
+        # undedicated pre-warmed replicas caps cold-start TTFT, and
+        # every replica count lives under ONE fleet-wide
+        # ``model_budget`` the trader reallocates within.  ``replicas``
+        # (the single-model knob) is ignored, and the disaggregated
+        # role split is per-model routing only.
+        self.catalog: Optional[ModelCatalog] = None
+        self.warm_pool = int(warm_pool)
+        self.trader_config = trader_config
+        self.trader: Optional[ModelTrader] = None
+        self.replica_budget: Optional[int] = None
+        if self.warm_pool < 0:
+            raise ValueError(f"warm_pool must be >= 0, got {warm_pool}")
+        if models:
+            if prefill_replicas or decode_replicas:
+                raise ValueError(
+                    "a model catalog runs unified tiers; drop "
+                    "prefill_replicas/decode_replicas")
+            self.catalog = ModelCatalog(models)
+            boot = sum(s.replicas for s in self.catalog)
+            if boot + self.warm_pool < 1:
+                raise ValueError(
+                    "the catalog fleet needs at least one replica: "
+                    "every entry boots 0 and warm_pool is 0")
+            self.replica_budget = int(model_budget) \
+                if model_budget is not None else boot + self.warm_pool
+            if self.replica_budget < max(1, boot + self.warm_pool):
+                raise ValueError(
+                    f"model_budget ({self.replica_budget}) is below "
+                    f"the boot footprint ({boot} model replicas + "
+                    f"{self.warm_pool} warm pool)")
+            replicas = 0
+        elif self.warm_pool or model_budget is not None:
+            raise ValueError("warm_pool/model_budget need a model "
+                             "catalog (models=[...])")
+        if self.catalog is None \
+                and replicas + prefill_replicas + decode_replicas < 1:
             raise ValueError(
                 f"the fleet needs at least one replica, got "
                 f"replicas={replicas} + prefill_replicas="
@@ -188,14 +259,50 @@ class FleetServer:
         self.prefill_replicas = int(prefill_replicas)
         self.decode_replicas = int(decode_replicas)
         self.device = device
+        initial = {UNIFIED: self.replicas, PREFILL: self.prefill_replicas,
+                   DECODE: self.decode_replicas}
+        # Autoscale bounds are PER TIER: an explicit max_replicas
+        # applies to every tier, but the default ceiling is twice EACH
+        # tier's own initial count (a decode tier booted at 1 must not
+        # inherit a 4-replica prefill tier's headroom), and a
+        # non-autoscaled fleet's ceiling is exactly what was asked for.
+        self.min_replicas = 1 if min_replicas is None else int(min_replicas)
+        if self.min_replicas < 1:
+            raise ValueError(
+                f"min_replicas must be >= 1 (a routable tier can never "
+                f"scale to zero), got {self.min_replicas}")
+        self._tier_max: Dict[str, int] = {}
+        for role, n in initial.items():
+            if not n:
+                continue
+            if max_replicas is not None:
+                self._tier_max[role] = int(max_replicas)
+            else:
+                self._tier_max[role] = max(2 * n, n + 1) if autoscale \
+                    else n
+        if self.catalog is not None:
+            # Per-(model, tier) bounds are the trader's business: each
+            # key may range [0, budget] — floors and scale-to-zero live
+            # in the catalog entries, the ceiling is the shared budget.
+            self.max_replicas = self.replica_budget
+        else:
+            self.max_replicas = max(self._tier_max.values())
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                f"max_replicas ({self.max_replicas}) must be >= "
+                f"min_replicas ({self.min_replicas})")
+        for role, n in initial.items():
+            if n and not (self.min_replicas <= n
+                          <= self._tier_max[role]):
+                raise ValueError(
+                    f"initial {role} tier count {n} lies outside the "
+                    f"autoscale bounds [{self.min_replicas}, "
+                    f"{self._tier_max[role]}]")
         # The label joins the replica command line, which Mode-B agents
         # run with shell=True: only a fixed charset may pass.
-        if not _VERSION_RE.fullmatch(str(weights_version)):
-            raise ValueError(
-                f"weights_version {weights_version!r} is not a valid "
-                f"label: want 1-64 chars of [A-Za-z0-9._-] starting "
-                f"alphanumeric (it joins the replica command line)")
-        self.weights_version = str(weights_version)
+        self.weights_version = validate_weights_version(weights_version)
+        self.autoscale = bool(autoscale)
+        self.autoscale_config = autoscale_config
         self.rows = int(rows)
         self.tiny = bool(tiny)
         self.seed = int(seed)
@@ -245,6 +352,11 @@ class FleetServer:
             raise ValueError(
                 "dedicated KV-role replicas hold tier artifacts — they "
                 "need kv_tier_mb > 0")
+        if self.kv_replicas:
+            # The kv tier is pinned at its boot size: the autoscaler's
+            # signals never move for a storage-only holder, so letting
+            # the loop retarget it would only ever shrink it.
+            self._tier_max[KV] = self.kv_replicas
         self.backend = backend
         self.replica_cpus = float(replica_cpus)
         self.replica_mem = float(replica_mem)
@@ -298,25 +410,46 @@ class FleetServer:
         #: every running front door (``gateway`` is ``gateways[0]``).
         self.gateways: List[Gateway] = []
         self.scheduler: Optional[TPUMesosScheduler] = None
-        #: per-tier replica targets: what the control plane wants;
-        #: bring-up drives the actuals toward these.
+        self.autoscaler: Optional[FleetAutoscaler] = None
+        #: per-tier replica targets — what the control plane WANTS; the
+        #: convergence loops (autoscaler, _wait_replicas) drive actuals
+        #: toward these.
         self.targets: Dict[str, int] = {}
-        #: serializes scaling decisions (launch/kill from any thread).
+        #: serializes every scaling decision: autoscaler ticks and
+        #: rollouts are mutually exclusive (a rollout must not race the
+        #: loop retargeting the tier it is replacing).
         self.scale_lock = threading.RLock()
+        #: node id -> target key ("role", or "model/role" / POOL_KEY in
+        #: catalog mode): how per-(model, tier) actuals are counted
+        #: when every model's tasks share one scheduler job.  Updated
+        #: at launch and on warm-pool adoption.
+        self._node_keys: Dict[str, str] = {}
         self._started = False
 
     # -- bring-up ----------------------------------------------------------
 
-    def _replica_cmd(self, role: str = UNIFIED) -> str:
+    def _replica_cmd(self, role: str = UNIFIED,
+                     weights_version: Optional[str] = None,
+                     model: Optional[ModelSpec] = None,
+                     pool: bool = False) -> str:
+        version = self.weights_version if weights_version is None \
+            else weights_version
         parts = [sys.executable, "-m", "tfmesos_tpu_torch.fleet.replica",
                  "--registry", self.registry.addr,
                  "--rows", str(self.rows),
                  "--seed", str(self.seed),
                  "--heartbeat-interval", str(self.heartbeat_interval)]
+        if model is not None:
+            # model_id is validated at catalog construction — the same
+            # shell=True boundary as weights_version.
+            parts += ["--model-id", model.model_id,
+                      "--model-seed", str(model.seed)]
+        if pool:
+            parts += ["--warm-pool"]
         if role != UNIFIED:
             parts += ["--role", role]
-        if self.weights_version:
-            parts += ["--weights-version", self.weights_version]
+        if version:
+            parts += ["--weights-version", version]
         if self.tiny:
             parts.append("--tiny")
         if self.device == "cpu":
@@ -351,8 +484,9 @@ class FleetServer:
         if self.kv_placement != "rendezvous":
             parts += ["--kv-placement", self.kv_placement]
         if self.warmup:
-            # Every launch of this cmd — boot or a later relaunch —
-            # registers warming, captures its graphs, then takes traffic.
+            # Every launch of this cmd — boot, an autoscale-up, a
+            # rollout's new tier or a relaunch — registers warming,
+            # captures its graphs, then takes traffic.
             parts.append("--warmup")
         return " ".join(parts)
 
@@ -420,13 +554,27 @@ class FleetServer:
                 token=self.token)
             self.scheduler.on_dynamic_death = self._on_dynamic_death
             self.scheduler.start()
-            for role, n in ((UNIFIED, self.replicas),
-                            (PREFILL, self.prefill_replicas),
-                            (DECODE, self.decode_replicas)):
-                if n:
-                    self.set_target(role, n)
-                    for _ in range(n):
-                        self.launch_replica(role)
+            if self.catalog is not None:
+                # Per-(model, tier) targets + the warm pool, all under
+                # one budget.  Entries booting 0 replicas start scaled
+                # to zero and cold-start through the pool on demand.
+                for spec in self.catalog:
+                    key = model_key(spec.model_id)
+                    self.set_target(key, spec.replicas)
+                    for _ in range(spec.replicas):
+                        self.launch_replica(key)
+                if self.warm_pool:
+                    self.set_target(POOL_KEY, self.warm_pool)
+                    for _ in range(self.warm_pool):
+                        self.launch_replica(POOL_KEY)
+            else:
+                for role, n in ((UNIFIED, self.replicas),
+                                (PREFILL, self.prefill_replicas),
+                                (DECODE, self.decode_replicas)):
+                    if n:
+                        self.set_target(role, n)
+                        for _ in range(n):
+                            self.launch_replica(role)
             if self.kv_replicas:
                 # Dedicated KV holders converge like a tier (a crashed one
                 # relaunches at bring-up) but heartbeat capacity 0: the
@@ -435,6 +583,24 @@ class FleetServer:
                 for _ in range(self.kv_replicas):
                     self.launch_replica(KV)
             self._wait_replicas()
+            for gw in self.gateways:
+                gw.rollout_fn = self.rollout
+                gw.catalog = self.catalog
+                if self.catalog is not None:
+                    gw.swap_adapter_fn = self._swap_adapter_packed
+            if self.catalog is not None:
+                # The trader IS the catalog fleet's control loop: it
+                # reallocates the budget between models, scales idle
+                # ones to zero, and answers the router's cold-start
+                # demands from the warm pool.
+                self.trader = ModelTrader(
+                    self, self.catalog, self.autoscale_config,
+                    trader_config=self.trader_config).start()
+                self.autoscaler = self.trader
+                self.router.on_model_demand = self.trader.demand
+            elif self.autoscale:
+                self.autoscaler = FleetAutoscaler(
+                    self, self.autoscale_config).start()
         except Exception:
             self.stop()
             raise
@@ -443,11 +609,13 @@ class FleetServer:
             self.metrics.start_reporter(self.log, self.report_interval)
         self.log.info("fleet up: gateway%s %s, %d replica(s) "
                       "(%d unified / %d prefill / %d decode), %d KV "
-                      "holder(s)", "s" if self.n_gateways > 1 else "",
+                      "holder(s)%s", "s" if self.n_gateways > 1 else "",
                       ", ".join(self.addrs),
                       self.total_replicas, self.replicas,
                       self.prefill_replicas, self.decode_replicas,
-                      self.kv_replicas)
+                      self.kv_replicas,
+                      f", autoscaling within [{self.min_replicas}, "
+                      f"{self.max_replicas}]" if self.autoscale else "")
         return self
 
     @property
@@ -462,19 +630,47 @@ class FleetServer:
         self.targets[role] = int(n)
         self.registry.set_target(role, int(n))
 
-    def launch_replica(self, role: str) -> str:
-        """Launch ONE new Mode-B replica for tier ``role`` and return its
-        node id ("job:index"); with ``warmup`` it registers ``warming``
-        and never takes traffic cold."""
+    def bounds(self, key: str) -> Tuple[int, int]:
+        """The autoscale bounds this tier's target must stay within
+        (the floor is fleet-wide, the ceiling per tier).  Composite
+        per-(model, tier) keys range [0, budget] — their floors and
+        scale-to-zero policy live in the catalog entries the trader
+        enforces."""
+        model, _ = split_key(key)
+        if model is not None:
+            return 0, self.replica_budget or self.max_replicas
+        return self.min_replicas, self._tier_max.get(key,
+                                                     self.max_replicas)
+
+    def launch_replica(self, key: str,
+                       weights_version: Optional[str] = None) -> str:
+        """Launch ONE new Mode-B replica for ``key`` — a plain role, a
+        composite ``"<model>/<role>"``, or the warm pool's
+        :data:`~tfmesos_tpu_torch.fleet.catalog.POOL_KEY` — and return
+        its node id ("job:index"); with ``warmup`` it registers
+        ``warming`` and never takes traffic cold."""
+        model, role = split_key(key)
+        spec = None
+        pool = model == POOL
+        if model is not None and not pool:
+            spec = self.catalog.get(model)
         job = TIER_JOBS[role]
         with self.scale_lock:
             task = self.scheduler.add_task(
-                job, cmd=self._replica_cmd(role), cpus=self.replica_cpus,
-                mem=self.replica_mem, chips=self.replica_chips)
-        return f"{job}:{task.task_index}"
+                job, cmd=self._replica_cmd(role, weights_version,
+                                           model=spec, pool=pool),
+                cpus=self.replica_cpus, mem=self.replica_mem,
+                chips=self.replica_chips)
+            node = f"{job}:{task.task_index}"
+            self._node_keys[node] = key
+        return node
 
     def kill_replica(self, node: str) -> bool:
         """Kill one replica by its node id ("job:index")."""
+        # The node->key book entry dies with the task either way — a
+        # churning trader (trade = kill + relaunch per cooldown) must
+        # not grow the book, and tier_actual scans it per tick.
+        self._node_keys.pop(node, None)
         job, _, idx = node.rpartition(":")
         try:
             task = self.scheduler.task_by_index(job, int(idx))
@@ -488,24 +684,145 @@ class FleetServer:
     def _on_dynamic_death(self, task) -> None:
         """Scheduler death hook (on its own thread): a replica process
         died.  The router already routes around it; the fleet records
-        the death (``replica_deaths``) and relaunches nothing — the JAX
-        fleet relaunches only from its autoscaler (not ported yet)."""
+        the death (``replica_deaths``), and with the autoscaler on the
+        next control tick relaunches it (the dead task left the
+        scheduler's table, so actual fell below target)."""
         if self.metrics is not None:
             self.metrics.inc("replica_deaths")
         self.log.warning("replica task %s:%d died; routing around it",
                          task.job_name, task.task_index)
 
-    def tier_actual(self, role: str) -> int:
-        """Live tasks launched for one tier, registered or not."""
-        return len(self.scheduler.tasks_of(TIER_JOBS[role]))
+    def tier_actual(self, key: str) -> int:
+        """Live tasks launched for one tier, registered or not — the
+        convergence loops' notion of "actual", so a launched replica
+        still starting or warming counts and the loop never launches
+        it twice.  Composite keys count through the node->key map
+        intersected with the scheduler's live task table (all models
+        share one job)."""
+        model, role = split_key(key)
+        job = TIER_JOBS[role]
+        if model is None:
+            return len(self.scheduler.tasks_of(job))
+        live = {f"{job}:{t.task_index}"
+                for t in self.scheduler.tasks_of(job)}
+        return sum(1 for node, k in list(self._node_keys.items())
+                   if k == key and node in live)
 
-    def tier_members(self, role: str):
-        """Registry members of one tier."""
-        return self.registry.members(role)
+    def tier_members(self, key: str):
+        """Registry members of one target key (the trader's membership
+        query): role-filtered by the registry, model/pool-filtered
+        here."""
+        _, role = split_key(key)
+        return filter_members(self.registry.members(role), key)
 
-    def _alive_of(self, role: str) -> int:
-        return sum(1 for r in self.registry.members(role)
-                   if r.state == ALIVE)
+    def _alive_of(self, key: str,
+                  weights_version: Optional[str] = None) -> int:
+        return sum(1 for r in self.tier_members(key)
+                   if r.state == ALIVE
+                   and (weights_version is None
+                        or r.weights_version == weights_version))
+
+    def adopt_replica(self, addr: str, model_id: str,
+                      timeout: float = 60.0) -> bool:
+        """Assign a warm-pool replica a catalog model via the ``adopt``
+        control op (a weight install on a pre-warmed process — the
+        cold-start path that skips launch and graph capture).  Updates
+        the node->key book immediately so the trader's actuals follow
+        without waiting a heartbeat."""
+        spec = self.catalog.get(model_id)
+        try:
+            reply = self.router.control(
+                addr, {"op": "adopt", "model_id": spec.model_id,
+                       "seed": spec.seed}, timeout=timeout)
+        except Exception as e:
+            self.log.warning("adoption of %s for model %s failed: %s",
+                             addr, model_id, e)
+            return False
+        if not isinstance(reply, dict) or reply.get("op") != "adopted":
+            self.log.warning("adoption of %s for model %s rejected: %r",
+                             addr, model_id, reply)
+            return False
+        node = next((r.node for r in self.registry.members()
+                     if r.addr == addr and r.node), None)
+        if node is not None:
+            self._node_keys[node] = model_key(model_id)
+        return True
+
+    def swap_adapter(self, model_id: str, adapter_version: str,
+                     delta=None, packed: Optional[Tuple[dict, bytes]]
+                     = None, timeout: float = 120.0) -> dict:
+        """Hot-swap a LoRA-style weight delta onto EVERY alive replica
+        of one model: the delta ships as ONE raw HMAC frame per replica
+        (``swap_adapter`` op), each batcher folds it behind its
+        weight-update fence (in-flight requests finish on the old
+        delta; zero downtime), and the call returns once every replica
+        acked.  ``delta`` is a param-path -> array dict (packed here);
+        ``packed`` supplies pre-encoded ``(meta, body)`` instead (the
+        gateway op's path — no numpy on the gateway).  Raises on an
+        unknown model, a replica rejection, or a partial failure — a
+        fleet serving two delta versions of one model would break the
+        token-identical-streams contract, so partial application is an
+        ERROR, not a success."""
+        if self.catalog is None:
+            raise RuntimeError("swap_adapter needs a model catalog")
+        spec = self.catalog.get(model_id)     # KeyError on unknown
+        adapter_version = validate_model_id(adapter_version)
+        if packed is None:
+            if delta is None:
+                raise ValueError("swap_adapter needs delta or packed")
+            packed = pack_adapter(delta)
+        meta, body = packed
+        members = self.registry.members(model=spec.model_id)
+        if any(r.state == WARMING for r in members):
+            # A warming replica would turn ALIVE on BASE weights right
+            # after the swap acked — one model serving two weight
+            # states, the partial-application state that is an error.
+            # Fail up front; the operator retries once the tier settles.
+            raise RuntimeError(
+                f"model {model_id!r} has replica(s) still warming; "
+                f"they would come up on the old weights — retry the "
+                f"swap once the tier is fully routable")
+        targets = [r for r in members if r.state == ALIVE]
+        if not targets:
+            raise RuntimeError(
+                f"no alive replica serves model {model_id!r} (scaled "
+                f"to zero? the swap applies at the next cold start "
+                f"only if re-issued)")
+        failures = []
+        for r in targets:
+            call = dict(meta)
+            call.update(op="swap_adapter", model_id=spec.model_id,
+                        adapter_version=adapter_version)
+            try:
+                reply = self.router.control_raw(r.addr, call, body,
+                                                timeout=timeout)
+            except Exception as e:
+                failures.append(f"{r.addr}: {e}")
+                continue
+            if not isinstance(reply, dict) \
+                    or reply.get("op") != "adapter_swapped":
+                err = reply.get("error") if isinstance(reply, dict) \
+                    else repr(reply)
+                failures.append(f"{r.addr}: {err}")
+        if failures:
+            raise RuntimeError(
+                f"adapter swap {adapter_version!r} on model "
+                f"{model_id!r} failed on {len(failures)}/"
+                f"{len(targets)} replica(s): {'; '.join(failures)}")
+        self.metrics.inc("adapter_swaps")
+        self.log.info("adapter %s swapped onto %d replica(s) of model "
+                      "%s", adapter_version, len(targets), model_id)
+        return {"model_id": spec.model_id,
+                "adapter_version": adapter_version,
+                "replicas": len(targets)}
+
+    def _swap_adapter_packed(self, model_id: str, adapter_version: str,
+                             meta: dict, body: bytes) -> dict:
+        """The gateway op's entry point: the delta arrived base64 over
+        the public port (which rejects raw frames pre-auth) and ships
+        onward to the replicas as raw HMAC frames."""
+        return self.swap_adapter(model_id, adapter_version,
+                                 packed=(meta, body))
 
     def request_migration(self, addr: str) -> bool:
         """Ask one replica to SUSPEND its in-flight rows: the victim
@@ -568,28 +885,150 @@ class FleetServer:
         while time.monotonic() < deadline:
             # finished() raises ClusterError on backend-fatal errors.
             self.scheduler.finished()
-            if all(self._alive_of(role) >= n
-                   for role, n in self.targets.items()):
+            if all(self._alive_of(key) >= n
+                   for key, n in self.targets.items()):
                 return
-            for role, n in self.targets.items():
-                job = TIER_JOBS[role]
+            for key, n in self.targets.items():
+                job = TIER_JOBS[split_key(key)[1]]
                 fails = self.scheduler.dynamic_failures.get(job, 0)
                 if fails >= MAX_FAILURE_COUNT * max(1, n):
                     raise ClusterError(
                         f"replica job {job!r} failed {fails} times "
                         f"during fleet bring-up")
-                for _ in range(n - self.tier_actual(role)):
+                for _ in range(n - self.tier_actual(key)):
                     self.log.warning("bring-up relaunch of a crashed "
-                                     "%s replica", role)
-                    self.launch_replica(role)
+                                     "%s replica", key)
+                    self.launch_replica(key)
             time.sleep(0.1)
         warming = len(self.registry.warming())
-        counts = {role: self._alive_of(role) for role in self.targets}
+        counts = {key: self._alive_of(key) for key in self.targets}
         raise ClusterError(
             f"replicas routable after {self.start_timeout:.0f}s: "
             f"{counts} of targets {self.targets}"
             + (f" ({warming} still warming — raise start_timeout for "
                f"slow captures)" if warming else ""))
+
+    # -- blue-green rollout ------------------------------------------------
+
+    def rollout(self, weights_version: str, bake_s: float = 1.0,
+                warm_timeout: Optional[float] = None,
+                drain_timeout: float = 120.0) -> dict:
+        """Replace every tier's weights blue-green with zero downtime:
+
+        1. bump the scheduler generation (the fencing epoch) and launch
+           a full NEW-version replica set next to the old one — same
+           per-tier targets, same cmd line (``--warmup`` included, so
+           the new tier warms before it can be routed);
+        2. wait until every tier's new-version alive count reaches its
+           target — if that never happens the rollout ABORTS: the new
+           tasks are reaped and the old version keeps serving;
+        3. the SHIFT: one atomic router update prefers the new
+           weights_version (the old tier stays registered as fallback
+           through the bake window, so the shift itself cannot shed);
+        4. after ``bake_s``, drain the old tier (pinned drains — the
+           healthy old replicas keep heartbeating while their in-flight
+           work flushes, and those beats must not revive them), wait
+           for the flush, kill the old tasks, and raise the registry's
+           generation fence so a stalled old-generation straggler can
+           never re-register and serve stale weights.
+
+        Returns a summary dict; raises :class:`RolloutError` on abort.
+        """
+        version = validate_weights_version(weights_version)
+        if self.scheduler is None or self.registry is None:
+            raise RuntimeError("fleet not started")
+        with self.scale_lock:
+            old_version = self.weights_version
+            if version == old_version:
+                raise ValueError(
+                    f"fleet already serves weights_version {version!r}")
+            gen = self.scheduler.bump_generation()
+            warm_timeout = self.start_timeout if warm_timeout is None \
+                else float(warm_timeout)
+            new_nodes: List[Tuple[str, str]] = []
+            for role, target in self.targets.items():
+                for _ in range(target):
+                    new_nodes.append(
+                        (role, self.launch_replica(role, version)))
+            self.log.info(
+                "rollout %s -> %s: %d new-version replica(s) launched "
+                "(generation %d); old tier keeps serving", old_version,
+                version, len(new_nodes), gen)
+            deadline = time.monotonic() + warm_timeout
+            while time.monotonic() < deadline:
+                self.scheduler.finished()
+                if all(self._alive_of(role, version) >= target
+                       for role, target in self.targets.items()):
+                    break
+                time.sleep(0.1)
+            else:
+                # Abort: the new tier never left warming (or its tasks
+                # kept dying).  Reap it; the old version never stopped
+                # serving, so this is a no-downtime failure.  Routing
+                # is version-blind BEFORE the shift, so any new-version
+                # replica that did reach ALIVE may already carry
+                # traffic — drain those and wait for the flush before
+                # the kill, exactly like the post-shift reap path.
+                new_set = {node for _, node in new_nodes}
+                self._drain_and_flush(
+                    [r for r in self.registry.members()
+                     if r.node in new_set and r.state == ALIVE],
+                    drain_timeout)
+                for _, node in new_nodes:
+                    self.kill_replica(node)
+                self.metrics.inc("rollouts_aborted")
+                raise RolloutError(
+                    f"rollout to {version!r} aborted: new tier not "
+                    f"routable within {warm_timeout:.0f}s "
+                    f"({len(self.registry.warming())} still warming, "
+                    f"{len(new_set)} launched); {old_version!r} keeps "
+                    f"serving")
+            # The shift point: one atomic preference update.  From the
+            # next pick on, the router selects old-version replicas only
+            # if NO new-version replica is routable.
+            self.router.set_preferred_version(version)
+            self.weights_version = version
+            self.metrics.inc("rollouts")
+            self.log.info("rollout shift: router now prefers "
+                          "weights_version %s (old %s is fallback for "
+                          "%.1fs bake)", version, old_version, bake_s)
+            if bake_s:
+                time.sleep(bake_s)
+            # Drain the old tier: pinned — these replicas are healthy
+            # and keep heartbeating while their last requests flush.
+            # The drain set is computed NOW, not at rollout start: a
+            # replica that registered during the warm wait (an
+            # autoscaler launch racing the scale lock) is old-version
+            # fallback traffic too and must flush before the reap.
+            managed_roles = {split_key(k)[1] for k in self.targets}
+            old_members = [r for r in self.registry.members()
+                           if (r.role or UNIFIED) in managed_roles
+                           and r.weights_version != version
+                           and r.state != DEAD]
+            self._drain_and_flush(old_members, drain_timeout)
+            # Reap every old-generation task of the managed tiers (the
+            # registry's node field maps members back; the scheduler
+            # table diff catches launched-but-never-registered ones).
+            new_set = {node for _, node in new_nodes}
+            reaped = 0
+            for job in {TIER_JOBS[r] for r in managed_roles}:
+                for t in self.scheduler.tasks_of(job):
+                    node = f"{job}:{t.task_index}"
+                    if node not in new_set:
+                        self._node_keys.pop(node, None)
+                        self.scheduler.remove_task(t.id)
+                        reaped += 1
+            # The fence: beats of generations before this rollout are
+            # dropped from here on — a stopped straggler that wakes up
+            # later cannot re-register and serve stale weights.
+            self.registry.fence_generation(gen)
+            self.log.info(
+                "rollout to %s complete: %d old replica(s) drained and "
+                "reaped, registry fenced at generation %d", version,
+                reaped, gen)
+            return {"old_version": old_version, "new_version": version,
+                    "replicas": len(new_nodes), "reaped": reaped,
+                    "generation": gen}
 
     # -- surface -----------------------------------------------------------
 
@@ -611,13 +1050,17 @@ class FleetServer:
 
     def snapshot(self) -> dict:
         """The fleet metrics snapshot; the ``roles`` gauge carries each
-        tier's target vs actual counts."""
+        tier's target vs actual counts and weights_version distribution,
+        and ``autoscaler`` (when scaling) the control loop's beliefs."""
         return self.metrics.snapshot() if self.metrics is not None else {}
 
     # -- teardown ----------------------------------------------------------
 
     def stop(self) -> None:
         self._started = False
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+            self.autoscaler = None
         if self.metrics is not None:
             self.metrics.stop_reporter()
         if self._metrics_http is not None:

@@ -1235,9 +1235,11 @@ def start_replica(args, token: Optional[str] = None, params=None,
     def stats(msg: Dict[str, Any]) -> Dict[str, Any]:
         """Where this replica runs, the device memory it holds, its
         kernels' launch counts (zeroed first when ``reset_launches`` is
-        set), the batcher's dispatch counters and its KV tier's
-        counters: how a launcher in another process sees that the
-        replica is on the card and which kernels its requests ran."""
+        set), how many step graphs its batcher has captured, the
+        batcher's dispatch counters and its KV tier's counters: how a
+        launcher in another process sees that the replica is on the
+        card, which kernels its requests ran and that none of them
+        captured a graph after warmup."""
         import torch
 
         from tfmesos_tpu_torch import graphs
@@ -1249,6 +1251,7 @@ def start_replica(args, token: Optional[str] = None, params=None,
                 "memory_allocated": (torch.cuda.memory_allocated(dev)
                                      if dev.type == "cuda" else 0),
                 "launches": graphs.launch_counts(),
+                "graphs": len(batcher._graphs.keys()),
                 "multi_step": batcher.multi_step,
                 "counters": {k: getattr(batcher, k) for k in STATS_COUNTERS},
                 "kv_tier": batcher.kv_tier.stats() if tiered else None}

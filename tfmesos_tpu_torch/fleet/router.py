@@ -1,7 +1,6 @@
 """Load-aware request routing across the replica fleet (port of
-``tfmesos_tpu/fleet/router.py``, without the rollout's version
-preference, the model catalog's cold-start wait and the simulator's
-injectable clock and links, which are not ported yet).
+``tfmesos_tpu/fleet/router.py``, without the simulator's injectable
+clock and links, which are not ported yet).
 
 Replica choice is **prefix-affinity first, then
 least-outstanding-requests with power-of-two-choices sampling**:
@@ -172,6 +171,22 @@ class Router:
         self.breakers: Optional[BreakerBoard] = \
             BreakerBoard(breaker_config) if breakers else None
         self.budget = retry_budget or RetryBudget()
+        # Blue-green rollout: when set, every tier's candidate set is
+        # narrowed to replicas advertising THIS weights_version whenever
+        # at least one such replica is routable — the shift point of
+        # FleetServer.rollout().  Replicas of other versions remain the
+        # FALLBACK (the old tier keeps serving through the bake window
+        # if the new tier empties), so the shift itself can never cause
+        # an outage.  One attribute write = the atomic shift.
+        self._preferred_version: Optional[str] = None
+        # Model catalog: when a model has NO routable replica (scaled to
+        # zero), this hook asks the control plane to cold-start it
+        # (warm-pool adoption or a launch) and the request WAITS —
+        # bounded by its deadline and ``model_wait_s`` — instead of
+        # failing, so scale-to-zero is an economy measure, not an
+        # availability hole.
+        self.on_model_demand = None
+        self.model_wait_s = 30.0
 
     # -- load signal -------------------------------------------------------
 
@@ -255,14 +270,25 @@ class Router:
                 best = (out, r.addr)
         return best[1] if best is not None else None
 
+    def set_preferred_version(self, version: Optional[str]) -> None:
+        """Shift routing to prefer replicas serving ``version`` (the
+        blue-green cutover); ``None`` restores version-blind routing.
+        Takes effect on the next pick — no in-flight request moves."""
+        self._preferred_version = version
+        self.log.info("router weights_version preference -> %r", version)
+
     def _alive_by_role(self, roles, exclude=(),
                        model: Optional[str] = None) -> List[ReplicaInfo]:
-        """Alive candidates of the given tiers, the model tier
-        applied on top: a ``model``-carrying request narrows to
-        replicas advertising exactly that ``model_id`` (no fallback —
-        wrong weights are worse than unavailable); model-less requests
-        exclude warm-pool members (undedicated replicas must never
-        take traffic).
+        """Alive candidates of the given tiers, the model tier and
+        version-preference applied on top: a ``model``-carrying
+        request narrows to replicas advertising exactly that
+        ``model_id`` (no fallback — wrong weights are worse than
+        unavailable); model-less requests exclude warm-pool members
+        (undedicated replicas must never take traffic).  With a
+        preferred weights_version set, replicas advertising it crowd
+        out every other version whenever at least one is routable;
+        otherwise (new tier empty or draining away) the full candidate
+        set remains the fallback.
 
         The no-exclusions common case reads the registry's CACHED
         per-tier view (``alive_view`` — O(1) amortized, the change
@@ -291,6 +317,16 @@ class Router:
             if has_pool is not None and has_pool():
                 cands = [r for r in cands
                          if not getattr(r, "warm_pool", False)]
+        pref = self._preferred_version
+        if pref:
+            preferred = [r for r in cands if r.weights_version == pref]
+            if preferred:
+                return self._breaker_filter(preferred)
+            if cands:
+                # Served by the non-preferred fallback: visible in the
+                # counters so a stuck rollout (bake window over, old
+                # version still serving) cannot hide.
+                self.metrics.inc("version_fallbacks")
         return self._breaker_filter(cands)
 
     def _breaker_filter(self, cands: List[ReplicaInfo]
@@ -1079,6 +1115,7 @@ class Router:
         model = model if isinstance(model, str) and model else None
         background = bool(msg.get("_background")) \
             if isinstance(msg, dict) else False
+        demanded = False
         # Streaming: the gateway's partial-frame emitter rides the
         # forward as the internal `_emit` (stripped by _wire_msg); each
         # attempt's partial token frames pass straight through to it,
@@ -1097,6 +1134,17 @@ class Router:
             addr = self.pick(exclude=tried, prompt=prompt,
                              session=session, model=model,
                              background=background)
+            if addr is None and model is not None and not demanded \
+                    and not tried and self.on_model_demand is not None:
+                # Scale-to-zero cold start: no replica serves this
+                # model RIGHT NOW.  Ask the control plane to assign
+                # one (warm-pool adoption, or a launch) and WAIT for
+                # it to become routable — bounded by the request's own
+                # deadline and model_wait_s, so a model the trader
+                # cannot place still fails explicitly, never hangs.
+                demanded = True
+                addr = self._await_model(model, deadline, prompt,
+                                         session)
             if addr is None:
                 break       # nothing (left) to try
             probe = self._breaker_dispatch(addr)
@@ -1205,6 +1253,33 @@ class Router:
         raise RoutingError(
             f"no alive replicas serving model {model!r}" if model
             else "no alive replicas")
+
+    def _await_model(self, model: str, deadline: Optional[float],
+                     prompt, session) -> Optional[str]:
+        """Fire the cold-start demand hook once and poll for a
+        routable replica of ``model``.  Returns the first pick, or
+        ``None`` when the wait budget (the request deadline, capped at
+        ``model_wait_s``) runs out."""
+        t0 = time.monotonic()
+        self.metrics.inc("model_cold_waits")
+        tracing.cur_event("router", "model_cold_start", model=model)
+        try:
+            if not self.on_model_demand(model):
+                return None     # unknown model / nothing to free
+        except Exception:
+            self.log.exception("model demand hook failed for %r", model)
+            return None
+        limit = t0 + self.model_wait_s
+        if deadline is not None:
+            limit = min(limit, deadline)
+        while time.monotonic() < limit:
+            addr = self.pick(prompt=prompt, session=session, model=model)
+            if addr is not None:
+                self.metrics.observe("model_cold_wait_ms",
+                                     (time.monotonic() - t0) * 1000.0)
+                return addr
+            time.sleep(0.05)
+        return None
 
     # -- the disaggregated prefill -> transfer -> decode path --------------
 

@@ -581,6 +581,15 @@ class TPUMesosScheduler:
                     return t
         return None
 
+    def bump_generation(self) -> int:
+        """Advance the fencing epoch (a blue-green rollout's shift
+        token): tasks added after the bump launch, and register, with
+        the new generation; stragglers of older generations can be
+        fenced at the registry."""
+        with self._lock:
+            self.generation += 1
+            return self.generation
+
     def _dynamic_accept_loop(self) -> None:
         """Post-start rendezvous: accept registrations forever and hand
         each dynamic task its config per-connection — a Mode-B serving
