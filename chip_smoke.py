@@ -365,6 +365,28 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     a freshly warmed replica's) to its last (taken just before a kill or
     a reap removes it), are held to 8 a prefill, tick, tail and chunk of
     its own counters, and its captured graphs did not grow after warmup.
+22. checkpointed, supervised training on the flagship (B 8, T 2048,
+    AdamW 3e-4, weights seeded 0, phase 8's stream): (a) 12 steps
+    through ``TrainLoop`` with a ``CheckpointManager`` saving every 4
+    steps asynchronously, every loss recorded; the ms of a synchronous
+    save (the first, with its pinned buffers, and a second), of an
+    asynchronous save's return and completion, the checkpoint's MB and
+    a restore's ms; (b) ``supervise_training`` over the same build,
+    attempt 0 stopped by a ``ClusterError`` at its 7th batch draw: it
+    resumes at step 4 (``resumed_steps == [0, 4]``), and its losses of
+    steps 1-6 and 5-12 and its final params equal (a)'s bit for bit;
+    (c) a token file of 12 batches of the seeded bigram stream: the
+    native gather's batches equal numpy's (from step 0 and from step
+    8), host ms a batch for each beside phase 8's ``token_batches``;
+    then ``transformer_train.main`` with ``--data`` and ``--ckpt-dir``
+    for 8 steps, again for 12 (it must print ``resumed from step 8``),
+    and a third time (``nothing to do``, no launch); (d) one forward and
+    backward of the flagship with ``remat=True`` and one without from
+    the same weights and batch: every gradient leaf and the loss
+    bit-identical, flash_fwd 16 launches against 8, the backward pair
+    8 each, and both runs' peak memory.  (a), (b) and (c) hold rows 1-3
+    to exactly 8 launches a step and every other kernel to 0.  It
+    writes under a temporary directory and removes it.
 
 It prints each phase's seconds.
 
@@ -626,7 +648,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/21] device")
+    say("[1/22] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -640,7 +662,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/21] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/22] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -819,7 +841,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/21] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/22] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -978,7 +1000,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/21] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/22] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1121,7 +1143,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/21] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/22] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1298,7 +1320,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/21] teacher-forced check vs float32 CPU forward "
+    say(f"[6/22] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1349,7 +1371,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/21] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/22] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1359,7 +1381,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/21] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/22] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1429,7 +1451,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/21] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/22] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2179,7 +2201,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/21] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/22] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2244,7 +2266,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/21] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/22] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2330,7 +2352,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/21] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/22] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2427,7 +2449,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/21] sampled serving and generation: phase 5's traffic at "
+    say("[13/22] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2741,7 +2763,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/21] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/22] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2820,7 +2842,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/21] export/import, preemption and rolling caches: flagship")
+    say("[15/22] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3066,7 +3088,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/21] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/22] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3322,7 +3344,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/21] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/22] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3961,7 +3983,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/21] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/22] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4312,7 +4334,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/21] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/22] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5096,7 +5118,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/21] speculative decoding, the static prefix and weight swaps: "
+    say("[20/22] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5754,7 +5776,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/21] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/22] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6221,6 +6243,304 @@ def control_catalog(torch, np, cfg, params, reqs, FleetServer, ModelSpec,
     return stats, checks
 
 
+# -- phase 22: checkpointed, supervised training ----------------------------
+
+CKPT_STEPS = 12
+CKPT_EVERY = 4
+CKPT_FAIL_DRAW = 6          # attempt 0 dies drawing its 7th batch
+
+
+def train_launches_exact(launches, L, steps, what, fwd_per_step=1):
+    """Rows 1-3 at exactly L (fwd: fwd_per_step x L) a step; the decode
+    kernels, their merges and both quant_int8 entries at 0."""
+    need(launches["flash_fwd"] == fwd_per_step * L * steps,
+         f"{what}: flash_fwd launches {launches['flash_fwd']} != "
+         f"{fwd_per_step} x {L} x {steps}")
+    for key in ("flash_bwd_dq", "flash_bwd_dkv"):
+        need(launches[key] == L * steps,
+             f"{what}: {key} launches {launches[key]} != {L} x {steps}")
+    for key in ("flash_decode_paged", "flash_decode_paged_merge",
+                "flash_decode", "flash_decode_merge", "quant_int8",
+                "quant_int8_commit"):
+        need(launches[key] == 0, f"{what}: {key} launched {launches[key]}")
+
+
+def flat_clone(torch, params):
+    from tfmesos_tpu_torch.convert import flatten
+
+    return {k: v.detach().clone() for k, v in flatten(params).items()}
+
+
+def same_params(torch, got, want, what):
+    from tfmesos_tpu_torch.convert import flatten
+
+    got = flatten(got)
+    need(sorted(got) == sorted(want), f"{what}: leaf names differ")
+    bad = [k for k in want if not torch.equal(got[k].detach(), want[k])]
+    need(not bad, f"{what}: params not bit-identical in {bad}")
+
+
+def dir_mb(path) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def phase_checkpointed(torch, np, train):
+    """Phase 22: the flagship trained through ``TrainLoop`` with
+    asynchronous checkpoints (a); the same run supervised, killed by a
+    ``ClusterError`` at its 7th batch and resumed from step 4 (b), bit
+    for bit; ``transformer_train`` from a token file, stopped and
+    resumed (c); remat against the plain step (d)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from tfmesos_tpu_torch import transformer_train as tr
+    from tfmesos_tpu_torch.convert import flatten, unflatten
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.scheduler import ClusterError
+    from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
+    from tfmesos_tpu_torch.train.data import (TokenFileDataset,
+                                              _NativeTokenGather, prefetch,
+                                              token_batches)
+    from tfmesos_tpu_torch.train.supervisor import supervise_training
+    from tfmesos_tpu_torch.train.trainer import TrainLoop, TrainState
+
+    args = tr.parse_args([])
+    cuda = torch.device("cuda")
+    say(f"[22/22] checkpointed training: flagship, B {args.batch_size}, "
+        f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
+        f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        losses = {}
+        loops = []
+        cfgs = []
+
+        def build(attempt, fail_at_draw=None):
+            run = tr.setup(args, cuda)
+            cfgs.append(run.cfg)
+            record = losses.setdefault(attempt, [])
+
+            def step(p, o, b):
+                p, o, m = run.step(p, o, b)
+                record.append(m["loss"])
+                return p, o, m
+
+            loop = TrainLoop(step_fn=step, state=TrainState(
+                run.params, run.opt_state), log_every=1000,
+                name=f"phase22-{attempt}", save_async=True)
+            loops.append(loop)
+            gen = prefetch(run.batches, cuda)
+
+            def batches():
+                for n, batch in enumerate(gen):
+                    if n == fail_at_draw:
+                        raise ClusterError("phase 22: attempt 0 stopped at "
+                                           "its 7th batch")
+                    yield batch
+
+            return loop, batches()
+
+        # (a) uninterrupted, through TrainLoop with async saves.
+        loop, batches = build("a")
+        cfg = cfgs[0]
+        L = cfg.n_layers
+        mgr_a = CheckpointManager(f"{root}/a")
+        loop.checkpoint, loop.save_every = mgr_a, CKPT_EVERY
+        zero_launches()
+        res = loop.run(batches, CKPT_STEPS)
+        launches_a = read_launches()
+        mgr_a.close()
+        train_launches_exact(launches_a, L, CKPT_STEPS, "(a)")
+        loss_a = torch.stack(losses["a"]).tolist()
+        need(all(math.isfinite(x) for x in loss_a), f"(a) losses {loss_a}")
+        need(mgr_a.all_steps() == [4, 8, 12], f"(a) saved "
+             f"{mgr_a.all_steps()}")
+        ref = flat_clone(torch, loop.state.params)
+        ms_step = res["elapsed_s"] / CKPT_STEPS * 1e3
+        out["a"] = {"losses": loss_a, "ms_per_step": ms_step,
+                    "phase8_ms_per_step": (train or {}).get("ms_per_step"),
+                    "steps_per_sec": res["steps_per_sec"],
+                    "final_step": res["final_step"], "launches": launches_a}
+        say(f"  (a) {CKPT_STEPS} steps through TrainLoop, saves at "
+            f"{mgr_a.all_steps()}: {ms_step:.2f} ms a step (phase 8's loop "
+            f"{out['a']['phase8_ms_per_step']}); losses {loss_a}")
+
+        # The costs of a save and a restore of (a)'s state.
+        state = loop.state_dict()
+        mgr_t = CheckpointManager(f"{root}/t", max_to_keep=1)
+        t0 = time.perf_counter()
+        mgr_t.save(1, state, wait=True)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mgr_t.save(2, state, wait=True)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mgr_t.save(3, state, wait=False)
+        return_ms = (time.perf_counter() - t0) * 1e3
+        mgr_t.wait_until_finished()
+        done_ms = (time.perf_counter() - t0) * 1e3
+        mb = dir_mb(f"{root}/t/step_3")
+        t0 = time.perf_counter()
+        mgr_t.restore(state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        mgr_t.close()
+        same_params(torch, loop.state.params, ref, "restore of (a)")
+        for d in ("a", "t"):             # ~410 MB a step on disk
+            shutil.rmtree(f"{root}/{d}")
+        out["costs"] = {"save_sync_first_ms": first_ms,
+                        "save_sync_ms": sync_ms,
+                        "save_async_return_ms": return_ms,
+                        "save_async_done_ms": done_ms,
+                        "checkpoint_mb": mb, "restore_ms": restore_ms}
+        say("  costs: " + json.dumps(out["costs"]))
+
+        # (b) supervised: killed at the 7th draw, resumed from step 4.
+        loops.clear()
+        mgr_b = CheckpointManager(f"{root}/b")
+        zero_launches()
+        r = supervise_training(
+            lambda a: build(a, CKPT_FAIL_DRAW if a == 0 else None),
+            CKPT_STEPS, mgr_b, save_every=CKPT_EVERY, max_restarts=1,
+            restart_wait=0.0)
+        launches_b = read_launches()
+        mgr_b.close()
+        need(r.attempts == 2 and r.resumed_steps == [0, CKPT_EVERY],
+             f"(b) attempts {r.attempts}, resumed {r.resumed_steps}")
+        need(r.result["final_step"] == CKPT_STEPS
+             and r.result["restores"] == 1, f"(b) result {r.result}")
+        ran = CKPT_FAIL_DRAW + CKPT_STEPS - CKPT_EVERY
+        train_launches_exact(launches_b, L, ran, "(b)")
+        loss_b0 = torch.stack(losses[0]).tolist()
+        loss_b1 = torch.stack(losses[1]).tolist()
+        need(loss_b0 == loss_a[:CKPT_FAIL_DRAW],
+             f"(b) attempt 0 losses {loss_b0} != (a)'s {loss_a}")
+        need(loss_b1 == loss_a[CKPT_EVERY:],
+             f"(b) resumed losses {loss_b1} != (a)'s steps 5-12 "
+             f"{loss_a[CKPT_EVERY:]}")
+        same_params(torch, loops[-1].state.params, ref, "(b) final")
+        out["b"] = {"resumed_steps": r.resumed_steps, "attempts": r.attempts,
+                    "steps_run": ran, "losses_resumed": loss_b1,
+                    "elapsed_s": r.elapsed_s, "launches": launches_b}
+        say(f"  (b) supervised: attempts {r.attempts}, resumed "
+            f"{r.resumed_steps}, {ran} steps run; steps 5-12 losses and "
+            f"the final params bit-identical to (a)'s")
+        del loops[:], ref, loop, state
+        shutil.rmtree(f"{root}/b")
+
+        # (c) a token file, native gather against numpy, then
+        # transformer_train stopped at 8 and resumed to 12.
+        data = f"{root}/tokens.bin"
+        bs, t = args.batch_size, args.seq_len
+        stream = token_batches(bs, t, cfg.vocab_size,
+                               seed=tr.DATA_SEED + 22)
+        TokenFileDataset.write(data, np.concatenate(
+            [next(stream)["tokens"].ravel() for _ in range(CKPT_STEPS)]))
+        t0 = time.perf_counter()
+        need(_NativeTokenGather.load() is not None, "native gather build")
+        build_s = time.perf_counter() - t0
+        ds = TokenFileDataset(data)
+        per = {}
+        got = {}
+        for native in (True, False):
+            gen = ds.batches(bs, t, seed=tr.DATA_SEED, native=native)
+            t0 = time.perf_counter()
+            got[native] = [next(gen)["tokens"] for _ in range(CKPT_STEPS)]
+            per[native] = (time.perf_counter() - t0) / CKPT_STEPS * 1e3
+            gen.close()
+        need(all(np.array_equal(a, b) for a, b in zip(got[True],
+                                                        got[False])),
+             "(c) native batches differ from numpy's")
+        resumed = ds.batches(bs, t, seed=tr.DATA_SEED, start_step=8,
+                             native=True)
+        need(all(np.array_equal(next(resumed)["tokens"], b)
+                 for b in got[False][8:]), "(c) start_step=8 differs")
+        resumed.close()
+        ckpt = f"{root}/c"
+        argv = ["--data", data, "--ckpt-dir", ckpt, "--ckpt-every",
+                str(CKPT_EVERY)]
+        lines = []
+
+        def main(steps):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = tr.main(argv + ["--steps", str(steps)])
+            need(rc == 0, f"(c) transformer_train --steps {steps} rc {rc}")
+            lines.append(buf.getvalue())
+            for line in buf.getvalue().splitlines():
+                say("    " + line)
+            return buf.getvalue()
+
+        zero_launches()
+        main(8)
+        need("resumed from step 8" in main(CKPT_STEPS),
+             "(c) the second run did not resume from step 8")
+        launches_c = read_launches()
+        train_launches_exact(launches_c, L, CKPT_STEPS, "(c)")
+        need("nothing to do" in main(CKPT_STEPS),
+             "(c) the third run did not find nothing to do")
+        need(read_launches() == launches_c, "(c) the third run launched")
+        out["c"] = {"native_ms_per_batch": per[True],
+                    "numpy_ms_per_batch": per[False],
+                    "native_build_s": build_s,
+                    "token_batches_ms_per_batch":
+                        (train or {}).get("token_batches_ms_per_batch"),
+                    "file_tokens": int(ds.tokens.size),
+                    "launches": launches_c}
+        say(f"  (c) {ds.tokens.size} tokens; host ms a batch: native "
+            f"{per[True]:.2f}, numpy {per[False]:.2f}, token_batches "
+            f"{out['c']['token_batches_ms_per_batch']} (phase 8); g++ "
+            f"build {build_s:.2f} s; resumed at 8, then nothing to do")
+
+        # (d) remat against the plain step, same weights and batch.
+        master = tt.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+        batch = {"tokens": torch.from_numpy(got[False][0]).to(cuda)}
+
+        def grads(remat):
+            c = dataclasses.replace(cfg, remat=remat)
+            flat = {k: v.detach().clone().requires_grad_()
+                    for k, v in flatten(master).items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            loss, _ = tt.loss_fn(c, unflatten(flat), batch)
+            g = torch.autograd.grad(loss, list(flat.values()))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return (float(loss.detach()), dict(zip(flat, g)), read_launches(),
+                    torch.cuda.max_memory_allocated(), ms)
+
+        grads(False)                     # warm both: cuBLAS handles, pools
+        grads(True)
+        plain = grads(False)
+        remat = grads(True)
+        train_launches_exact(plain[2], L, 1, "(d) plain")
+        train_launches_exact(remat[2], L, 1, "(d) remat", fwd_per_step=2)
+        need(remat[0] == plain[0], f"(d) loss {remat[0]} != {plain[0]}")
+        bad = [k for k in plain[1] if not torch.equal(remat[1][k],
+                                                      plain[1][k])]
+        need(not bad, f"(d) remat grads not bit-identical in {bad}")
+        out["d"] = {"loss": plain[0], "peak_mem_gb_plain": plain[3] / 1e9,
+                    "peak_mem_gb_remat": remat[3] / 1e9,
+                    "ms_plain": plain[4], "ms_remat": remat[4],
+                    "launches_plain": plain[2], "launches": remat[2]}
+        say(f"  (d) remat: every grad leaf bit-identical to the plain "
+            f"step's; flash_fwd {remat[2]['flash_fwd']} vs "
+            f"{plain[2]['flash_fwd']}; peak memory {remat[3] / 1e9:.3f} "
+            f"GB vs {plain[3] / 1e9:.3f} GB; fwd+bwd {remat[4]:.1f} ms "
+            f"vs {plain[4]:.1f} ms")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -6294,6 +6614,8 @@ def main() -> int:
                  stats, bases14["prefix cache"], fleet["prefix cache"])
     control = timed("control loops", phase_control, torch, np, cfg, params,
                     reqs, streams(comps))
+    ckpt = timed("checkpointed training", phase_checkpointed, torch, np,
+                 train)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -6342,7 +6664,11 @@ def main() -> int:
                  spec["j replica --draft"]["launches"],
              "control (a) autoscale (processes)": control["a"]["launches"],
              "control (b) rollout (processes)": control["b"]["launches"],
-             "control (c) catalog (processes)": control["c"]["launches"]}
+             "control (c) catalog (processes)": control["c"]["launches"],
+             "train checkpointed (a)": ckpt["a"]["launches"],
+             "train supervised (b)": ckpt["b"]["launches"],
+             "train --data (c)": ckpt["c"]["launches"],
+             "train remat (d)": ckpt["d"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -32,6 +32,17 @@ FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.logpump", "tfmesos_tpu_torch.cli")
 
 
+#: the training slice's modules: the step and its loop, the optimizer,
+#: the streams (the token file's native gather included), checkpoints
+#: and restart supervision.
+TRAINING = ("tfmesos_tpu_torch.train.trainer",
+            "tfmesos_tpu_torch.train.optim",
+            "tfmesos_tpu_torch.train.data",
+            "tfmesos_tpu_torch.train.checkpoint",
+            "tfmesos_tpu_torch.train.supervisor",
+            "tfmesos_tpu_torch.transformer_train")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -60,6 +71,7 @@ def test_every_module_imports_with_jax_blocked():
             "tfmesos_tpu_torch.fleet.tracing",
             "tfmesos_tpu_torch.fleet.kvtier"} <= set(names)
     assert set(FRONT_DOOR) <= set(names)
+    assert set(TRAINING) <= set(names)
 
 
 def test_slice_modules_import_with_jax_blocked():
@@ -228,6 +240,38 @@ def test_train_cli_runs_on_the_cpu():
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "step 10: loss=" in out.stdout and "tokens/sec" in out.stdout
+
+
+def test_checkpointed_training_runs_with_jax_blocked(tmp_path):
+    """With JAX and the JAX package blocked, the training slice imports,
+    and ``transformer_train`` trains from a token file through the
+    native gather, checkpoints, resumes and saves again."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu', 'optax', 'orbax'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {TRAINING!r}:\n"
+        "    __import__(m)\n"
+        "import numpy as np\n"
+        "from tfmesos_tpu_torch import transformer_train as tr\n"
+        "from tfmesos_tpu_torch.train.data import (TokenFileDataset,\n"
+        "                                          _NativeTokenGather)\n"
+        "from tfmesos_tpu_torch.train.checkpoint import CheckpointManager\n"
+        "d = sys.argv[1]\n"
+        "TokenFileDataset.write(d + '/t.bin', np.arange(4000) % 256)\n"
+        "args = ['--tiny', '--device', 'cpu', '--batch_size', '2',\n"
+        "        '--seq_len', '16', '--data', d + '/t.bin',\n"
+        "        '--ckpt-dir', d + '/c', '--ckpt-every', '2']\n"
+        "assert tr.main(args + ['--steps', '3']) == 0\n"
+        "assert tr.main(args + ['--steps', '5']) == 0\n"
+        "assert _NativeTokenGather._lib is not None\n"
+        "print(CheckpointManager(d + '/c').all_steps())\n")
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "resumed from step 3" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[3, 4, 5]"
 
 
 def test_serve_cli_writes_one_jsonl_row_per_prompt():

@@ -1,12 +1,16 @@
 """The port's training path against the JAX package on the CPU: the
-fused head + cross entropy, the transformer's loss and gradients, the
-token stream, the optimizer, the train step and the entry point.
+fused head + cross entropy, the transformer's loss and gradients (remat
+included), the token stream, the optimizer, the train step (with
+``steps_per_call``), ``TrainLoop`` and the entry point (with ``--data``
+and ``--ckpt-dir``).
 
 Inputs are numpy arrays made from a seed and handed to both sides;
 weights come from the JAX ``init_params`` through ``convert``.
 Tolerances (float32 unless stated): atol 1e-5 / rtol 1e-4 — the same
 float32 arithmetic summed in other orders by XLA and PyTorch.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ from torch_parity import to_torch as _t
 from tfmesos_tpu.models import transformer as jt
 from tfmesos_tpu.ops import layers as jl
 from tfmesos_tpu.train import data as jdata
+from tfmesos_tpu.train import trainer as jtrainer
 from tfmesos_tpu.train.trainer import make_train_step as j_make_train_step
 from tfmesos_tpu_torch import convert, transformer_train
 from tfmesos_tpu_torch.models import transformer as tt
@@ -158,8 +163,22 @@ def test_loss_and_grads_match_jax_bf16():
 
 
 def test_remat_and_fused_ce_mode():
-    with pytest.raises(NotImplementedError, match="remat"):
-        tt.TransformerConfig(remat=True)
+    """remat's loss and grads equal the plain port step's exactly (the
+    same ops, recomputed), and JAX ``remat=True``'s within the float32
+    tolerances; the fused-CE mode rule is unchanged."""
+    jcfg, jp, tcfg = _tiny_pair(2, remat=True)
+    assert tcfg.remat and jcfg.remat
+    jl_, jppl, jg, tl_, tppl, tg = _loss_and_grads_both(jcfg, jp, tcfg,
+                                                        _batch())
+    plain = _loss_and_grads_both(jcfg, jp, tt.TransformerConfig(
+        **{**tcfg.__dict__, "remat": False}), _batch())
+    assert tl_ == plain[3] and tppl == plain[4]
+    assert all(torch.equal(tg[k], plain[5][k]) for k in tg)
+    _close(tl_, jl_)
+    _close(tppl, jppl)
+    assert sorted(jg) == sorted(tg)
+    for k in jg:
+        _close(tg[k], jg[k])
     assert tt._fused_ce_mode(tt.TransformerConfig()) == "dense"
     assert tt._fused_ce_mode(tt.TransformerConfig(fused_ce=True)) == "dense"
     assert tt._fused_ce_mode(tt.TransformerConfig(fused_ce=False)) is None
@@ -307,6 +326,163 @@ def test_grad_accum_matches_full_batch_step():
         trainer.make_train_step(lambda p, b: tt.loss_fn(cfg, p, b), opt,
                                 grad_accum=3)(params, opt.init(params),
                                               batch)
+
+
+def _tiny_step(cfg, seed=0, **kw):
+    params = tt.init_params(cfg, torch.Generator().manual_seed(seed))
+    opt = optim.adamw(1e-3, weight_decay=0.01)
+    step = trainer.make_train_step(lambda p, b: tt.loss_fn(cfg, p, b), opt,
+                                   **kw)
+    return params, opt.init(params), step
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_scanned_steps_match_sequential(grad_accum):
+    """steps_per_call=K gives params bit-identical to K sequential calls
+    on the same batches, with grad_accum too (mirrors
+    tests/test_models.py::test_scanned_steps_match_sequential and the
+    steps_per_call x grad_accum composition of tests/test_fused_ce.py)."""
+    cfg = _tiny_pair(None)[2]
+    k = 3
+    batches = [_t(b["tokens"]) for _, b in zip(
+        range(k), tdata.token_batches(4, 16, 256, seed=9))]
+    p_seq, o_seq, seq = _tiny_step(cfg, grad_accum=grad_accum)
+    for tok in batches:
+        p_seq, o_seq, m_seq = seq(p_seq, o_seq, {"tokens": tok})
+    p_scan, o_scan, scan = _tiny_step(cfg, steps_per_call=k,
+                                      grad_accum=grad_accum)
+    p_scan, o_scan, m_scan = scan(p_scan, o_scan,
+                                  {"tokens": torch.stack(batches)})
+    assert o_scan.count == o_seq.count == k
+    assert torch.equal(m_scan["loss"], m_seq["loss"])
+    a, b = convert.flatten(p_seq), convert.flatten(p_scan)
+    assert all(torch.equal(a[n], b[n]) for n in a)
+    with pytest.raises(ValueError, match="steps_per_call"):
+        scan(p_scan, o_scan, {"tokens": batches[0]})
+
+
+def test_scan_unroll_matches_rolled():
+    """scan_unroll changes no arithmetic (bit-equal params and loss), and
+    is validated as the JAX step validates it (mirrors
+    tests/test_models.py::test_scan_unroll_matches_rolled)."""
+    cfg = _tiny_pair(None)[2]
+    tok = torch.stack([_t(b["tokens"]) for _, b in zip(
+        range(4), tdata.token_batches(2, 16, 256, seed=5))])
+    outs = []
+    for unroll in (1, 4):
+        params, state, step = _tiny_step(cfg, steps_per_call=4,
+                                         scan_unroll=unroll)
+        params, _, metrics = step(params, state, {"tokens": tok})
+        outs.append((convert.flatten(params), float(metrics["loss"])))
+    assert all(torch.equal(outs[0][0][n], outs[1][0][n]) for n in outs[0][0])
+    assert outs[0][1] == outs[1][1]
+    jopt = optax.adamw(1e-3)
+    for kw in (dict(steps_per_call=4, scan_unroll=3),
+               dict(steps_per_call=4, scan_unroll=0),
+               dict(steps_per_call=1, scan_unroll=2)):
+        with pytest.raises(ValueError, match="divide") as want:
+            j_make_train_step(lambda p, b: (0.0, {}), jopt, **kw)
+        with pytest.raises(ValueError, match="divide") as got:
+            trainer.make_train_step(lambda p, b: (0.0, {}),
+                                    optim.adamw(1e-3), **kw)
+        assert str(got.value) == str(want.value)
+
+
+def test_train_loop_metrics_lines_match_jax(tmp_path):
+    """TrainLoop's metrics_path lines against the JAX TrainLoop's on the
+    same weights and batches: the same steps and keys, the metrics
+    within the float32 tolerances; the result dict has the same keys."""
+    jcfg, jp, tcfg = _tiny_pair(2)
+    batches = [b for _, b in zip(range(5), tdata.token_batches(
+        2, 32, 256, seed=100))]
+    jopt = optax.adamw(1e-3, weight_decay=0.01)
+    jparams = jax.tree_util.tree_map(jnp.asarray, jp)
+    jloop = jtrainer.TrainLoop(
+        step_fn=j_make_train_step(lambda p, b: jt.loss_fn(jcfg, p, b), jopt),
+        state=jtrainer.TrainState(jparams, jopt.init(jparams), step=3),
+        log_every=2, metrics_path=str(tmp_path / "jax.jsonl"))
+    jres = jloop.run(iter([{"tokens": jnp.asarray(b["tokens"])}
+                           for b in batches]), 5)
+    tparams = convert.params_from_jax(jp)
+    topt = optim.adamw(1e-3, weight_decay=0.01)
+    tloop = trainer.TrainLoop(
+        step_fn=trainer.make_train_step(
+            lambda p, b: tt.loss_fn(tcfg, p, b), topt),
+        state=trainer.TrainState(tparams, topt.init(tparams), step=3),
+        log_every=2, metrics_path=str(tmp_path / "port.jsonl"))
+    seen = []
+    tres = tloop.run(iter([{"tokens": _t(b["tokens"])} for b in batches]),
+                     5, on_metrics=lambda i, m: seen.append(i))
+    import json
+
+    want = [json.loads(x) for x in open(tmp_path / "jax.jsonl")]
+    got = [json.loads(x) for x in open(tmp_path / "port.jsonl")]
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [5, 7, 8]
+    assert seen == [2, 4, 5]
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in ("loss", "perplexity"):
+            _close(g[k], w[k])
+    assert sorted(tres) == sorted(jres)
+    assert tres["start_step"] == 3 and tres["final_step"] == 8
+    assert tres["restores"] == 0 and tres["resumed_step"] == 0
+    assert tloop.state.step == jloop.state.step == 8
+    assert tres["steps_per_sec_per_chip"] == tres["steps_per_sec"]
+    _close(tres["final_metrics"]["loss"], jres["final_metrics"]["loss"])
+
+
+def _token_file(tmp_path, vocab=256, n=20000):
+    path = str(tmp_path / "tokens.bin")
+    stream = tdata.token_batches(4, 999, vocab, seed=3)
+    toks = np.concatenate([next(stream)["tokens"].ravel()
+                           for _ in range(-(-n // 4000))])[:n]
+    tdata.TokenFileDataset.write(path, toks)
+    return path
+
+
+def _train_main(*argv):
+    return transformer_train.main(["--tiny", "--device", "cpu",
+                                   "--batch_size", "2", "--seq_len", "32",
+                                   *argv])
+
+
+def test_transformer_train_data_ckpt_resume(tmp_path, capsys):
+    """--data --ckpt-dir on the CPU: 8 steps straight and 4 + a resumed
+    4 save bit-identical step-8 checkpoints (params, moments, count: the
+    stream restarted at the resumed step); a third call has nothing to
+    do; --ckpt-every < 1 is refused, as is a file with ids >= vocab."""
+    from tfmesos_tpu_torch.train.checkpoint import STATE_FILE
+
+    data = _token_file(tmp_path)
+    straight, split = str(tmp_path / "a"), str(tmp_path / "b")
+    assert _train_main("--data", data, "--ckpt-dir", straight, "--steps",
+                       "8", "--ckpt-every", "3") == 0
+    assert _train_main("--data", data, "--ckpt-dir", split, "--steps", "4",
+                       "--ckpt-every", "3") == 0
+    capsys.readouterr()
+    assert _train_main("--data", data, "--ckpt-dir", split, "--steps", "8",
+                       "--ckpt-every", "3") == 0
+    assert "resumed from step 4" in capsys.readouterr().out
+    for d, steps in ((straight, [3, 6, 8]), (split, [3, 4, 6, 8])):
+        have = sorted(int(n.split("_")[1]) for n in os.listdir(d))
+        assert have == steps[-3:]
+    a = torch.load(os.path.join(straight, "step_8", STATE_FILE),
+                   weights_only=True)
+    b = torch.load(os.path.join(split, "step_8", STATE_FILE),
+                   weights_only=True)
+    assert sorted(a) == sorted(b) and a["1/count"] == b["1/count"] == 8
+    assert all(torch.equal(a[k], b[k]) for k in a if k != "1/count")
+    assert _train_main("--data", data, "--ckpt-dir", split, "--steps",
+                       "8") == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 8" in out
+    assert "already trained to step 8 >= --steps 8; nothing to do" in out
+    with pytest.raises(SystemExit, match="--ckpt-every must be >= 1"):
+        _train_main("--ckpt-dir", split, "--ckpt-every", "0")
+    bad = str(tmp_path / "bad.bin")
+    tdata.TokenFileDataset.write(bad, np.arange(300))
+    with pytest.raises(SystemExit, match="token id 299 >= model vocab 256"):
+        _train_main("--data", bad, "--steps", "1")
 
 
 def test_eval_step_and_evaluate():

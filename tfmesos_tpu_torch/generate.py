@@ -54,8 +54,10 @@ def main(argv=None) -> int:
                         "lengths, decoded together")
     p.add_argument("--speculative", action="store_true",
                    help="speculative decoding with a half-size draft model "
-                        "(temperature 0: exactly the target's greedy "
-                        "continuation; above 0: rejection-sampled)")
+                        "(temperature 0: the target's greedy continuation, "
+                        "exactly on the CPU; on the card it may first "
+                        "differ at a near-tie, within a 0.25 logit "
+                        "margin; above 0: rejection-sampled)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")

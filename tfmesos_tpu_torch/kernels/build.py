@@ -12,6 +12,10 @@ so an unchanged tree reuses its build and any change rebuilds.
 Nothing here runs at import: the first kernel launch builds.  Each C
 entry point returns ``cudaGetLastError()`` after its launch; callers
 raise through :func:`check` when it is not 0.
+
+:func:`build_host` compiles a host library of ``native/`` (the token
+gather of ``train/data.py``) with the host C++ compiler into the same
+build root, named by a hash of its source and flags.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "tfmesos_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCE_DIR = PACKAGE_DIR / "native"
+HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
+HOST_LIBS = ("-lpthread",)
 
 # Loaded libraries by kernel name: a memo of the idempotent build, kept
 # for the life of the process so each launch is one ctypes call.
@@ -104,6 +111,33 @@ def build(clean: bool = False) -> Dict[str, Path]:
         if failures:
             raise RuntimeError("\n".join(failures))
     return libs
+
+
+def build_host(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with ``g++`` into
+    ``lib<name>.so`` and return its path; an unchanged source and flags
+    reuse the earlier build.  Raises ``RuntimeError`` when there is no
+    ``g++`` or the compile fails (with the compiler's stderr)."""
+    src = HOST_SOURCE_DIR / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS + HOST_LIBS).encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.is_file():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found; lib{name}.so cannot be built")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src),
+                           *HOST_LIBS], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {src.name} "
+                           f"(rc={proc.returncode}):\n{proc.stderr}")
+    tmp.replace(lib)
+    return lib
 
 
 def kernel(name: str, symbol: str, argtypes: Sequence,

@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from tfmesos_tpu_torch import graphs
 from tfmesos_tpu_torch.ops import prng
@@ -63,7 +64,9 @@ class TransformerConfig:
     refuse it, as in JAX).  Training:
     ``fused_ce`` (None = auto, which is the fused head + cross entropy
     on one device; False = materialize the logits), ``ce_chunk`` tokens
-    per fused chunk, ``z_loss`` the LM-head z-loss weight."""
+    per fused chunk, ``z_loss`` the LM-head z-loss weight; ``remat``
+    recomputes each block's forward in the backward instead of keeping
+    its activations."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -89,10 +92,6 @@ class TransformerConfig:
         if self.n_experts > 0:
             raise NotImplementedError(
                 "MoE configs (n_experts > 0) are not ported yet")
-        if self.remat:
-            raise NotImplementedError(
-                "remat (recomputing each block in the backward) is not "
-                "ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -239,12 +238,20 @@ def _block(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
 
 def forward_hidden(cfg: TransformerConfig, params: Params,
                    tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] -> final-norm hidden states [B, T, d]."""
+    """tokens [B, T] -> final-norm hidden states [B, T, d].  With
+    ``cfg.remat`` each block is a non-reentrant activation checkpoint:
+    the backward re-runs its forward (attention kernel included) from
+    the block's input, as ``jax.checkpoint`` does in the reference."""
     b, t = tokens.shape
     x = _embed_lookup(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     for li in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params, li), positions)
+        lp = layer_params(params, li)
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, cfg, x, lp, positions, use_reentrant=False)
+        else:
+            x = _block(cfg, x, lp, positions)
     return rms_norm(x, params["norm_f"].to(cfg.dtype))
 
 
@@ -921,7 +928,13 @@ def speculative_generate(cfg: TransformerConfig, params: Params,
     commits its leading accepted run plus one correction or bonus token.
 
     Greedy (``temperature <= 0``): the output is the target's own greedy
-    continuation whatever the draft proposes.  Sampled: Leviathan
+    continuation whatever the draft proposes on the CPU (float32), where
+    ``tests/test_torch_speculative.py`` and
+    ``tests/test_torch_spec_batcher.py`` hold it to JAX token for token;
+    on the card the (k+1)-token verify rounds its bf16 GEMMs otherwise
+    than a one-token step does, so a stream may first differ from
+    ``generate``'s at a near-tie, within the 0.25 logit margin rule of
+    ``chip_smoke.py`` phase 20.  Sampled: Leviathan
     rejection sampling with the reference's key schedule (``rng`` split
     once for the first token, then ``split(rng, 4)`` a round: the draft
     steps' keys from the second, the acceptance uniforms from the third,

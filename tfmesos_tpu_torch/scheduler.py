@@ -38,7 +38,8 @@ from tfmesos_tpu_torch.backends import FOREVER, ResourceBackend, first_fit
 from tfmesos_tpu_torch.spec import Job, Offer, Task, TaskStatus
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["MAX_FAILURE_COUNT", "ClusterError", "TPUMesosScheduler"]
+__all__ = ["MAX_FAILURE_COUNT", "ClusterError", "RemoteError",
+           "TPUMesosScheduler"]
 
 MAX_FAILURE_COUNT = 3
 
@@ -48,6 +49,11 @@ MODE_A_REFUSAL = ("not ported yet: Mode A, a job without cmd "
 
 class ClusterError(RuntimeError):
     """Fatal cluster failure."""
+
+
+class RemoteError(ClusterError):
+    """A dispatched function raised on a task: a failure of user code,
+    not of the infrastructure.  Restart supervision must not retry it."""
 
 
 class TPUMesosScheduler:

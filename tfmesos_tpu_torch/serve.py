@@ -102,7 +102,9 @@ def main(argv=None) -> int:
                    help=f"speculative decoding: a half-size draft proposes "
                         f"{SPEC_N_DRAFT} tokens a round, the target "
                         f"verifies them in one chunk (greedy streams equal "
-                        f"target-only serving)")
+                        f"target-only serving on the CPU; on the card a "
+                        f"stream may first differ at a near-tie, within "
+                        f"a 0.25 logit margin)")
     p.add_argument("--int8-draft-kv", action="store_true",
                    dest="int8_draft_kv",
                    help="store the draft's page pool int8 (with "

@@ -1045,7 +1045,14 @@ class ContinuousBatcher:
     over its own paged pool, sized by ``draft_n_pages``, int8 with
     ``draft_quantized_cache``) and the target verifies them in one
     (k+1)-token chunk, so a row commits 1..k+1 tokens a round.  Greedy
-    streams are the target-only batcher's; sampled rounds are Leviathan
+    streams are the target-only batcher's on the CPU (float32), where
+    ``tests/test_torch_speculative.py`` and
+    ``tests/test_torch_spec_batcher.py`` hold them to the JAX batcher's
+    token for token; on the card the verify chunk rounds its bf16 GEMMs
+    otherwise than a one-token tick does, so a stream may first differ
+    from the target-only one at a near-tie, within the 0.25 logit margin
+    rule that ``chip_smoke.py`` phase 20 holds it to.  Sampled rounds are
+    Leviathan
     rejection sampling with every draw a fold of (rid, token index): the
     proposal ``fold(rid, step + j)``, its acceptance ``fold_in(., 1)`` and
     the correction ``fold_in(fold(rid, step + a), 2)``.  ``multi_step``

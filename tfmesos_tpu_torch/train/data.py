@@ -1,14 +1,17 @@
-"""Deterministic synthetic token batches and their host-to-card prefetch
-(port of ``tfmesos_tpu/train/data.py:21-27, 61-83, 121-149``).
+"""Token batches, synthetic or from a token file, and their host-to-card
+prefetch (port of ``tfmesos_tpu/train/data.py:21-27, 61-83, 121-337``).
 
-The stream is numpy, copied as is from the JAX package, so a seed gives
-the same arrays in both packages for every ``(seed, start_step)``.
+The streams are numpy, copied as is from the JAX package, so a seed
+gives the same arrays in both packages for every ``(seed, start_step)``.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Iterator, Union
+import ctypes
+import os
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -73,3 +76,184 @@ def prefetch(batches: Iterator[Dict[str, np.ndarray]],
             yield queue.popleft()
     while queue:
         yield queue.popleft()
+
+
+class _NativeTokenGather:
+    """ctypes wrapper over ``native/tokenloader.cpp`` (built with ``g++``
+    at first use by :func:`~tfmesos_tpu_torch.kernels.build.build_host`):
+    mmap + madvise gather and convert of [B, T+1] token windows in C++,
+    optionally on a background thread (double-buffering against the
+    train step).  Output is bit-identical to the numpy memmap path.
+    ``load()`` returns None when the library does not build — callers
+    fall back to numpy."""
+
+    _lib = None
+    _tried = False
+
+    @classmethod
+    def load(cls):
+        if not cls._tried:
+            cls._tried = True
+            from tfmesos_tpu_torch.kernels.build import build_host
+            try:
+                lib = ctypes.CDLL(str(build_host("tokenloader")))
+            except (OSError, RuntimeError):
+                return None
+            lib.tl_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+            lib.tl_open.restype = ctypes.c_void_p
+            lib.tl_n_tokens.argtypes = [ctypes.c_void_p]
+            lib.tl_n_tokens.restype = ctypes.c_int64
+            ptr = ctypes.POINTER
+            args = [ctypes.c_void_p, ptr(ctypes.c_int64), ctypes.c_int64,
+                    ctypes.c_int64, ptr(ctypes.c_int32)]
+            lib.tl_gather.argtypes = args
+            lib.tl_gather.restype = ctypes.c_int
+            lib.tl_gather_async.argtypes = args
+            lib.tl_gather_async.restype = ctypes.c_int
+            lib.tl_wait.argtypes = [ctypes.c_void_p]
+            lib.tl_wait.restype = ctypes.c_int
+            lib.tl_close.argtypes = [ctypes.c_void_p]
+            lib.tl_close.restype = None
+            cls._lib = lib
+        return cls._lib
+
+    def __init__(self, path: str, dtype: np.dtype):
+        self.lib = self.load()
+        if self.lib is None:
+            raise RuntimeError("libtokenloader.so did not build")
+        self.handle = self.lib.tl_open(
+            os.fsencode(os.path.abspath(path)), int(dtype.itemsize))
+        if not self.handle:
+            raise RuntimeError(f"tl_open failed for {path}")
+        self.n_tokens = self.lib.tl_n_tokens(self.handle)
+        # Keep the in-flight gather's operands alive until wait().
+        self._inflight = None
+
+    @staticmethod
+    def _ptrs(starts: np.ndarray, out: np.ndarray):
+        c = ctypes
+        return (starts.ctypes.data_as(c.POINTER(c.c_int64)),
+                len(starts), out.shape[1],
+                out.ctypes.data_as(c.POINTER(c.c_int32)))
+
+    def gather(self, starts: np.ndarray, t1: int) -> np.ndarray:
+        starts = np.ascontiguousarray(starts, np.int64)
+        out = np.empty((len(starts), t1), np.int32)
+        rc = self.lib.tl_gather(self.handle, *self._ptrs(starts, out))
+        if rc != 0:
+            raise ValueError(f"tl_gather rc={rc}")
+        return out
+
+    def gather_async(self, starts: np.ndarray, t1: int) -> None:
+        starts = np.ascontiguousarray(starts, np.int64)
+        out = np.empty((len(starts), t1), np.int32)
+        rc = self.lib.tl_gather_async(self.handle,
+                                      *self._ptrs(starts, out))
+        if rc != 0:
+            raise ValueError(f"tl_gather_async rc={rc}")
+        self._inflight = (starts, out)
+
+    def wait(self) -> np.ndarray:
+        starts, out = self._inflight
+        self.lib.tl_wait(self.handle)
+        self._inflight = None
+        return out
+
+    def close(self) -> None:
+        if getattr(self, "handle", None):
+            self.lib.tl_close(self.handle)
+            self.handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+@dataclass
+class TokenFileDataset:
+    """Memmap-backed token stream — the standard pretraining format: one
+    flat on-disk array of token ids (uint16 for vocab <= 65536, else
+    uint32), sampled as random [B, T+1] windows.
+
+    Distributed reads shard by POSITION STRIPE: rank r of w samples only
+    from its contiguous 1/w-th of the file, so hosts never touch the same
+    pages and streams stay decorrelated by construction."""
+
+    path: str
+    dtype: str = "uint16"
+    seed: int = 0
+
+    def __post_init__(self):
+        self.tokens = np.memmap(self.path, dtype=np.dtype(self.dtype),
+                                mode="r")
+        if self.tokens.size < 2:
+            raise ValueError(f"{self.path}: too few tokens "
+                             f"({self.tokens.size})")
+
+    @staticmethod
+    def write(path: str, tokens: np.ndarray, dtype: str = "uint16") -> None:
+        """Write a flat token array in this dataset's format."""
+        np.asarray(tokens).astype(np.dtype(dtype)).tofile(path)
+
+    def batches(self, batch_size: int, seq_len: int, rank: int = 0,
+                world_size: int = 1, seed: Optional[int] = None,
+                start_step: int = 0, native: Optional[bool] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Endless [B, T+1] next-token batches from this rank's stripe.
+
+        ``start_step`` starts at that step for exact O(1) resume (per-step
+        RNG; no skipped data is drawn or read).
+
+        ``native=None`` uses the C++ gather when it builds: the window
+        copies and the int32 convert run off the GIL, the NEXT step's
+        batch assembling on a background thread while the current step
+        trains — bit-identical output to the numpy path.  ``False``
+        forces numpy; ``True`` raises if the library does not build.
+        """
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} outside world of {world_size}")
+        n = self.tokens.size
+        lo = n * rank // world_size
+        hi = n * (rank + 1) // world_size
+        if hi - lo < seq_len + 1:
+            raise ValueError(
+                f"stripe [{lo}, {hi}) of {self.path} shorter than one "
+                f"window ({seq_len + 1}); fewer ranks or a bigger file")
+        base_seed = self.seed if seed is None else seed
+        starts_max = hi - (seq_len + 1)
+        t1 = seq_len + 1
+
+        def starts_for(step):
+            return _step_rng(base_seed, step).randint(
+                lo, starts_max + 1, size=batch_size)
+
+        loader = None
+        if native is not False:
+            try:
+                loader = _NativeTokenGather(self.path, np.dtype(self.dtype))
+            except RuntimeError:
+                if native:
+                    raise
+        if loader is None:
+            step = start_step
+            while True:
+                starts = starts_for(step)
+                step += 1
+                batch = np.stack([self.tokens[s:s + t1] for s in starts])
+                yield {"tokens": batch.astype(np.int32)}
+        # Double-buffered native path: step N's gather overlapped with the
+        # consumer's work on step N-1.  close() on GeneratorExit so an
+        # abandoned iterator releases the mmap and joins the worker thread
+        # deterministically, not at GC time.
+        try:
+            step = start_step
+            loader.gather_async(starts_for(step), t1)
+            while True:
+                batch = loader.wait()
+                step += 1
+                loader.gather_async(starts_for(step), t1)
+                yield {"tokens": batch}
+        finally:
+            loader.close()

@@ -15,7 +15,7 @@ update, so a warmup from 0 moves nothing on step one.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Sequence, Union
 
 import torch
@@ -71,14 +71,43 @@ def clip_by_global_norm(max_norm: float
     return clip
 
 
+#: The torch optimizer's state of a leaf: its moments and its own step.
+MOMENTS = ("exp_avg", "exp_avg_sq", "step")
+
+
 @dataclass
 class OptState:
     """State of :class:`AdamW`: the torch optimizer (it owns the first
-    and second moments of every leaf) and optax's update ``count``."""
+    and second moments of every leaf), the leaves it steps and their
+    flattened names (``layers/wq``), and optax's update ``count``."""
 
     torch_opt: torch.optim.AdamW
     leaves: List[torch.Tensor]
     count: int = 0
+    names: List[str] = field(default_factory=list)
+
+    def moments(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{"exp_avg": {name: t}, "exp_avg_sq": {...}, "step": {...}}``:
+        the torch optimizer's state of each leaf, keyed by the leaf's
+        name.  Where a leaf has none yet (before the first update) it is
+        created as torch's first update would create it (zero moments,
+        a float32 step 0 on the host), so a checkpoint can be restored
+        into a fresh state in place."""
+        if len(self.names) != len(self.leaves):
+            raise ValueError(f"{len(self.names)} names for "
+                             f"{len(self.leaves)} leaves")
+        out: Dict[str, Dict[str, torch.Tensor]] = {m: {} for m in MOMENTS}
+        for name, p in zip(self.names, self.leaves):
+            st = self.torch_opt.state[p]
+            if not st:
+                st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            for m in MOMENTS:
+                out[m][name] = st[m]
+        return out
 
 
 @dataclass(frozen=True)
@@ -99,7 +128,8 @@ class AdamW:
         """A fresh state over ``params``' leaves (which must be leaf
         tensors; they get ``requires_grad``).  Every hyperparameter is
         passed explicitly, so none rests on torch's defaults."""
-        leaves = list(flatten(params).values())
+        flat = flatten(params)
+        leaves = list(flat.values())
         for p in leaves:
             p.requires_grad_(True)
         opt = torch.optim.AdamW(
@@ -107,7 +137,7 @@ class AdamW:
             weight_decay=self.weight_decay, amsgrad=False, maximize=False,
             foreach=None, capturable=False, differentiable=False,
             fused=None)
-        return OptState(opt, leaves)
+        return OptState(opt, leaves, names=list(flat))
 
     def update(self, grads: Dict, state: OptState) -> OptState:
         """One step: clip (when asked), then AdamW at lr(count) — the

@@ -1,18 +1,20 @@
-"""Single-device train and eval steps (port of
-``tfmesos_tpu/train/trainer.py:32-194, 273-305`` with ``mesh=None``).
+"""Single-device train and eval steps and the step loop (port of
+``tfmesos_tpu/train/trainer.py`` with ``mesh=None``).
 
 ``make_train_step`` keeps the JAX call shape,
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, and
 its semantics: the gradient of ``loss_fn``, averaged over ``grad_accum``
-equal microbatches, one optimizer update, then ``postprocess``.
-PyTorch updates in place, so the params and state that come back are
-the objects passed in.  The mesh, ``param_specs``, ``steps_per_call``,
-``scan_unroll`` and ``grads_fn`` belong to the multi-device slices and
-are not arguments here.
+equal microbatches, one optimizer update, then ``postprocess``;
+``steps_per_call`` such steps in one call.  PyTorch updates in place,
+so the params and state that come back are the objects passed in.  The
+mesh, ``param_specs`` and ``grads_fn`` belong to the multi-device
+slices and are not arguments here.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -20,6 +22,9 @@ import torch
 
 from tfmesos_tpu_torch.convert import flatten, unflatten
 from tfmesos_tpu_torch.train.optim import AdamW, OptState
+from tfmesos_tpu_torch.utils.logging import get_logger
+
+log = get_logger("tfmesos_tpu_torch.trainer")
 
 
 @dataclass
@@ -31,7 +36,8 @@ class TrainState:
 
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     postprocess: Optional[Callable] = None,
-                    grad_accum: int = 1) -> Callable:
+                    steps_per_call: int = 1, grad_accum: int = 1,
+                    scan_unroll: int = 1) -> Callable:
     """Build the train step.
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``optimizer`` an
@@ -43,9 +49,23 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     1/grad_accum the activation memory; the returned metrics are then
     microbatch means.  ``postprocess(params)`` runs on the updated params
     (in place, under ``no_grad``).  ``metrics["loss"]`` is the loss
-    (a device tensor: reading it syncs)."""
+    (a device tensor: reading it syncs).
+
+    ``steps_per_call > 1`` runs that many optimizer steps in one call,
+    over batch leaves with a leading ``[steps_per_call, ...]`` dim (each
+    step's batch ``leaf[i]``), and returns the last step's metrics: the
+    same arithmetic as that many calls.  ``scan_unroll`` must divide
+    ``steps_per_call``, as for the JAX step, whose scan it unrolls; the
+    steps here are a Python loop, so it changes no arithmetic and no
+    launch."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got "
+                         f"{steps_per_call}")
+    if scan_unroll < 1 or steps_per_call % scan_unroll:
+        raise ValueError(f"scan_unroll ({scan_unroll}) must divide "
+                         f"steps_per_call ({steps_per_call})")
 
     def grads_and_metrics(params, batch):
         flat = flatten(params)
@@ -75,7 +95,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         return (unflatten(dict(zip(names, grads))), lsum / grad_accum,
                 {k: v / grad_accum for k, v in msum.items()})
 
-    def step(params, opt_state: OptState, batch):
+    def one_step(params, opt_state: OptState, batch):
         grads, loss, metrics = grads_and_metrics(params, batch)
         opt_state = optimizer.update(grads, opt_state)
         if postprocess is not None:
@@ -83,6 +103,18 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                 postprocess(params)
         metrics = dict(metrics)
         metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    if steps_per_call == 1:
+        return one_step
+
+    def step(params, opt_state: OptState, batch):
+        if any(v.shape[0] != steps_per_call for v in batch.values()):
+            raise ValueError(f"batch leaves must lead with steps_per_call "
+                             f"({steps_per_call})")
+        for i in range(steps_per_call):
+            params, opt_state, metrics = one_step(
+                params, opt_state, {k: v[i] for k, v in batch.items()})
         return params, opt_state, metrics
 
     return step
@@ -114,3 +146,116 @@ def evaluate(eval_step: Callable, params, batches: Iterator,
             acc.setdefault(k, []).append(v)
     return {k: float(torch.stack(vs).sum()) / num_batches
             for k, vs in acc.items()}
+
+
+def _sync(params) -> None:
+    """Wait for the card that holds ``params`` (no-op on the CPU)."""
+    leaf = next(iter(flatten(params).values()), None)
+    if leaf is not None and leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+
+
+@dataclass
+class TrainLoop:
+    """Step loop with timing (the JAX ``TrainLoop`` on one device).
+
+    ``metrics_path`` appends one JSON line a logged step
+    (``{"step": N, "wall_s": ..., **metrics}``).  ``checkpoint`` (a
+    :class:`~tfmesos_tpu_torch.train.checkpoint.CheckpointManager`)
+    coordinates restarts: :meth:`resume` restores the latest saved
+    state (step included) before a run, and :meth:`run` saves every
+    ``save_every`` global steps, ``save_async=True`` overlapping the
+    write with the next steps.  The ``restores`` / ``resumed_step``
+    counters say how a supervised job recovered (they ride the result
+    dict too).  The reference's bounded profiler window
+    (``utils/profiling.py``) is not ported (ROADMAP A.11): this loop
+    writes no trace."""
+
+    step_fn: Callable
+    state: TrainState
+    log_every: int = 50
+    name: str = "train"
+    metrics_path: Optional[str] = None
+    checkpoint: Optional[Any] = None
+    save_every: int = 0
+    save_async: bool = False
+    restores: int = 0
+    resumed_step: int = 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpointable form of ``state``, which is also the
+        restore template (a restore copies into its tensors)."""
+        return {"params": self.state.params,
+                "opt_state": self.state.opt_state,
+                "step": self.state.step}
+
+    def resume(self) -> int:
+        """Restore the latest checkpoint (if any) into ``state`` and
+        return the step to resume from (0 on a cold start).  The caller
+        realigns its batch iterator to that step — see
+        ``supervisor.supervise_training``."""
+        if self.checkpoint is None:
+            return 0
+        restored = self.checkpoint.restore(self.state_dict())
+        if restored is None:
+            return 0
+        self.state = TrainState(restored["params"], restored["opt_state"],
+                                int(restored["step"]))
+        self.restores += 1
+        self.resumed_step = self.state.step
+        log.info("%s resuming from checkpoint step %d", self.name,
+                 self.state.step)
+        return self.state.step
+
+    def run(self, batches: Iterator[Dict[str, Any]], num_steps: int,
+            on_metrics: Optional[Callable[[int, Dict], None]] = None
+            ) -> Dict[str, Any]:
+        params, opt_state = self.state.params, self.state.opt_state
+        t_start = time.perf_counter()
+        metrics: Dict[str, Any] = {}
+        sink = open(self.metrics_path, "a") if self.metrics_path else None
+        try:
+            for i in range(num_steps):
+                params, opt_state, metrics = self.step_fn(
+                    params, opt_state, next(batches))
+                gstep = self.state.step + i + 1
+                if (self.checkpoint is not None and self.save_every
+                        and gstep % self.save_every == 0):
+                    self.checkpoint.save(
+                        gstep, {"params": params, "opt_state": opt_state,
+                                "step": gstep},
+                        wait=not self.save_async)
+                if (i + 1) % self.log_every == 0 or i + 1 == num_steps:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    if sink:
+                        sink.write(json.dumps(
+                            {"step": gstep,
+                             "wall_s": round(time.perf_counter() - t_start,
+                                             3),
+                             **metrics}) + "\n")
+                        sink.flush()
+                    if on_metrics:
+                        on_metrics(i + 1, metrics)
+                    else:
+                        log.info("%s step %d: %s", self.name, i + 1,
+                                 {k: round(v, 4) for k, v in metrics.items()})
+            _sync(params)
+            if self.checkpoint is not None and self.save_async:
+                self.checkpoint.wait_until_finished()
+        finally:
+            if sink:
+                sink.close()
+        elapsed = time.perf_counter() - t_start
+        start_step = self.state.step
+        self.state = TrainState(params, opt_state, start_step + num_steps)
+        n_dev = 1                       # the single-device step
+        return {
+            "elapsed_s": elapsed,
+            "steps_per_sec": num_steps / elapsed,
+            "steps_per_sec_per_chip": num_steps / elapsed / n_dev,
+            "start_step": start_step,
+            "final_step": self.state.step,
+            "restores": self.restores,
+            "resumed_step": self.resumed_step,
+            "final_metrics": metrics,
+        }

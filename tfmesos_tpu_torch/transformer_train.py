@@ -4,16 +4,22 @@
     python -m tfmesos_tpu_torch.transformer_train [--tiny] [--device cpu] \\
         [--steps 50] [--batch_size 8] [--seq_len 2048] \\
         [--learning_rate 3e-4] [--warmup 0] [--lr-schedule constant] \\
-        [--grad-clip 0] [--kv-heads N]
+        [--grad-clip 0] [--kv-heads N] [--data FILE [--data-dtype uint16]] \\
+        [--ckpt-dir DIR [--ckpt-every 50]]
 
 The flagship config (vocab 8192, d512, 8 layers, 8 heads, d_ff 1408,
 bf16 compute over float32 master weights), weights seeded 0, trains on
 the seeded bigram token stream (seed 100) with AdamW (weight decay
 0.01), through the fused head + cross entropy and the hand-written
 attention kernels on the card.  ``--tiny`` is the CI model (vocab 256,
-d64, 2 layers, 4 heads, float32, at most 64 tokens).  Prints
-``step N: loss=… ppl=…`` every 10 steps, then the elapsed time and
-tokens/sec.  Runs on the card unless ``--device cpu``.
+d64, 2 layers, 4 heads, float32, at most 64 tokens).  ``--data`` reads
+a flat token file (``TokenFileDataset``) instead, refusing ids beyond
+the vocab.  ``--ckpt-dir`` saves params, optimizer state and step every
+``--ckpt-every`` steps (asynchronously, and at the last step), and a
+run started again with the same directory resumes from its latest step,
+the data stream included.  Prints ``step N: loss=… ppl=…`` every 10
+steps, then the elapsed time and tokens/sec.  Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -45,8 +51,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-heads", type=int, default=None, dest="kv_heads",
                    help="grouped-query attention: share each K/V head "
                         "across n_heads/kv_heads query heads")
+    p.add_argument("--data", type=str, default=None,
+                   help="path to a flat token file (TokenFileDataset "
+                        "format); default: the synthetic bigram stream")
+    p.add_argument("--data-dtype", type=str, default="uint16",
+                   dest="data_dtype", choices=["uint16", "uint32"])
     p.add_argument("--tiny", action="store_true",
                    help="the CI model instead of the flagship")
+    p.add_argument("--ckpt-dir", type=str, default=None, dest="ckpt_dir",
+                   help="checkpoint directory; restarting with the same "
+                        "dir resumes from the latest step (params, "
+                        "optimizer state AND the data stream position)")
+    p.add_argument("--ckpt-every", type=int, default=50, dest="ckpt_every")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -61,20 +77,22 @@ class Run:
     params: Dict
     opt_state: Any
     step: Callable
-    batches: Iterator           # numpy {"tokens": [B, T+1]} stream
+    batches: Optional[Iterator]  # numpy {"tokens": [B, T+1]} stream
     device: Any
     batch_size: int
     seq_len: int
 
 
-def setup(args: argparse.Namespace, device) -> Run:
+def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0
+          ) -> Run:
     """Config, seeded weights on ``device``, the optimizer and its
-    state, the train step and the token stream — as the example builds
-    them."""
+    state, the train step and the token stream from ``start_step`` (none
+    when it is None: :func:`data_stream` makes it later) — as the
+    example builds them."""
     import torch
 
     from tfmesos_tpu_torch.models import transformer
-    from tfmesos_tpu_torch.train import data, optim
+    from tfmesos_tpu_torch.train import optim
     from tfmesos_tpu_torch.train.trainer import make_train_step
 
     if args.tiny:
@@ -105,19 +123,42 @@ def setup(args: argparse.Namespace, device) -> Run:
     opt = optim.adamw(lr, weight_decay=0.01, max_norm=args.grad_clip)
     step = make_train_step(
         lambda p_, b_: transformer.loss_fn(cfg, p_, b_), opt)
-    batches = data.token_batches(args.batch_size, seq_len, cfg.vocab_size,
-                                 seed=DATA_SEED)
+    batches = (None if start_step is None
+               else data_stream(args, cfg, seq_len, start_step))
     return Run(cfg, params, opt.init(params), step, batches, device,
                args.batch_size, seq_len)
 
 
+def data_stream(args: argparse.Namespace, cfg, seq_len: int,
+                start_step: int = 0) -> Iterator:
+    """The example's stream from ``start_step``: the token file of
+    ``--data`` (after one full scan refusing ids >= the vocab, which the
+    embedding gather cannot take), else the seeded bigram stream."""
+    from tfmesos_tpu_torch.train import data
+
+    if not args.data:
+        return data.token_batches(args.batch_size, seq_len, cfg.vocab_size,
+                                  seed=DATA_SEED, start_step=start_step)
+    ds = data.TokenFileDataset(args.data, dtype=args.data_dtype)
+    top = int(ds.tokens.max())
+    if top >= cfg.vocab_size:
+        raise SystemExit(f"{args.data}: token id {top} >= model vocab "
+                         f"{cfg.vocab_size}; re-tokenize or adjust the "
+                         f"config")
+    return ds.batches(args.batch_size, seq_len, seed=DATA_SEED,
+                      start_step=start_step)
+
+
 def train(run: Run, steps: int,
-          log: Optional[Callable[[str], None]] = print) -> Dict[str, Any]:
-    """Run ``steps`` train steps with the batches prefetched onto the
-    device; ``log`` gets a ``step N`` line every 10 steps (each one a
-    host sync, as in the example).  Returns the elapsed seconds (from
-    the first step to the last loss on the host), tokens/sec and every
-    step's loss as a float."""
+          log: Optional[Callable[[str], None]] = print, start_step: int = 0,
+          ckpt=None, ckpt_every: int = 0) -> Dict[str, Any]:
+    """Run steps ``start_step + 1 .. steps`` with the batches prefetched
+    onto the device; ``log`` gets a ``step N`` line every 10 global
+    steps (each one a host sync, as in the example).  With ``ckpt`` (a
+    ``CheckpointManager``), ``(params, opt_state)`` is saved without
+    waiting every ``ckpt_every`` global steps.  Returns the elapsed
+    seconds (from the first step to the last loss on the host),
+    tokens/sec and every step's loss as a float."""
     import torch
 
     from tfmesos_tpu_torch.train.data import prefetch
@@ -125,17 +166,20 @@ def train(run: Run, steps: int,
     gen = prefetch(run.batches, run.device)
     losses: List[Any] = []
     t0 = time.perf_counter()
-    for i in range(steps):
+    for i in range(start_step, steps):
         run.params, run.opt_state, metrics = run.step(
             run.params, run.opt_state, next(gen))
         losses.append(metrics["loss"])
         if log is not None and (i + 1) % 10 == 0:
             log(f"step {i + 1}: loss={float(metrics['loss']):.4f} "
                 f"ppl={float(metrics['perplexity']):.2f}")
+        if ckpt is not None and (i + 1) % ckpt_every == 0:
+            ckpt.save(i + 1, (run.params, run.opt_state), wait=False)
     losses = torch.stack(losses).tolist() if losses else []  # drains it
     dt = time.perf_counter() - t0
+    n = max(0, steps - start_step)
     return {"elapsed_s": dt, "losses": losses,
-            "tokens_per_s": steps * run.batch_size * run.seq_len / dt}
+            "tokens_per_s": n * run.batch_size * run.seq_len / dt}
 
 
 def main(argv=None) -> int:
@@ -143,10 +187,34 @@ def main(argv=None) -> int:
     from tfmesos_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
-    run = setup(args, device)
+    run = setup(args, device, start_step=None)
     print(f"transformer: device={device} seq={run.seq_len} "
           f"batch={run.batch_size}", flush=True)
-    out = train(run, args.steps, log=lambda s: print(s, flush=True))
+    start_step, ckpt = 0, None
+    if args.ckpt_dir:
+        if args.ckpt_every < 1:
+            raise SystemExit(f"--ckpt-every must be >= 1, got "
+                             f"{args.ckpt_every}")
+        from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(args.ckpt_dir)
+        latest = ckpt.latest_step()
+        if latest is not None:
+            ckpt.restore((run.params, run.opt_state))   # in place
+            start_step = latest
+            print(f"resumed from step {start_step}", flush=True)
+            if start_step >= args.steps:
+                ckpt.close()
+                print(f"already trained to step {start_step} >= --steps "
+                      f"{args.steps}; nothing to do", flush=True)
+                return 0
+    run.batches = data_stream(args, run.cfg, run.seq_len, start_step)
+    out = train(run, args.steps, log=lambda s: print(s, flush=True),
+                start_step=start_step, ckpt=ckpt, ckpt_every=args.ckpt_every)
+    if ckpt is not None:
+        if start_step < args.steps and args.steps % args.ckpt_every:
+            ckpt.save(args.steps, (run.params, run.opt_state), wait=False)
+        ckpt.close()
     print(f"Training elapsed time: {out['elapsed_s']:f} s", flush=True)
     print(f"tokens/sec: {out['tokens_per_s']:.0f}", flush=True)
     return 0
