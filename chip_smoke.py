@@ -387,6 +387,31 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     8 each, and both runs' peak memory.  (a), (b) and (c) hold rows 1-3
     to exactly 8 launches a step and every other kernel to 0.  It
     writes under a temporary directory and removes it.
+23. the reference's own surface on the card, several processes sharing
+    it over gloo (two ranks on one card: NCCL refuses that): (a)
+    ``python -m tfmesos_tpu_torch.plus`` prints 42, its two Mode-A
+    ranks adding CUDA tensors over gloo; (b) ``python -m
+    tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh dp=-1 --worker-logs '*'
+    -- python -m tfmesos_tpu_torch.transformer_train --steps 4
+    --batch_size 8 --seq_len 2048``: both workers' lines arrive
+    prefixed, both ranks print the same losses, each step's within 2e-2
+    of a single-process run in this process over the same global batch
+    (rank 0's stream at seed 100 and rank 1's at 101, concatenated);
+    (c) ``cluster(Job(worker, 2), restart_policy="elastic")``
+    dispatching ``transformer_train.train_chunk`` with ``run_all``: 4
+    chunks of 2 flagship steps (local batch 4 at T 2048), rank 0
+    checkpointing after each; rank 1 SIGKILLed after chunk 2 (its pid
+    from a reply); the next dispatch raises ``ClusterError``,
+    ``wait_ready`` sees generation 1, the chunks resume from the step-4
+    checkpoint, and every chunk's losses and the final state EQUAL an
+    uninterrupted 4-chunk run's in the re-formed gang, bit for bit; each
+    reply's launch delta holds rows 1-3 at 8 a step and every other
+    kernel at 0; (d) ``mnist_replica`` under ``tfrun -w 2 -s 1`` (three
+    ranks), 50 steps: the output contract, and every rank's validation
+    cross entropy equal.  Prints the bring-up's seconds (to both ranks
+    answering, their process group formed), the kill to ``wait_ready``
+    and to the new gang answering, ms a step for one rank and for two,
+    and the gloo all-reduce of the flagship's gradients a step.
 
 It prints each phase's seconds.
 
@@ -648,7 +673,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/22] device")
+    say("[1/23] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -662,7 +687,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/22] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/23] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -841,7 +866,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/22] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/23] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -1000,7 +1025,7 @@ def check_forward_routes(torch, ta, draw):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/22] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/23] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1143,7 +1168,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/22] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/23] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1320,7 +1345,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/22] teacher-forced check vs float32 CPU forward "
+    say(f"[6/23] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1371,7 +1396,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/22] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/23] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1381,7 +1406,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/22] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/23] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1451,7 +1476,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/22] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/23] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2201,7 +2226,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/22] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/23] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2266,7 +2291,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/22] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/23] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2352,7 +2377,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/22] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/23] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2449,7 +2474,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/22] sampled serving and generation: phase 5's traffic at "
+    say("[13/23] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2763,7 +2788,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/22] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/23] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2842,7 +2867,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/22] export/import, preemption and rolling caches: flagship")
+    say("[15/23] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3088,7 +3113,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/22] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/23] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3344,7 +3369,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/22] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/23] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -3983,7 +4008,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/22] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/23] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4334,7 +4359,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/22] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/23] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5118,7 +5143,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/22] speculative decoding, the static prefix and weight swaps: "
+    say("[20/23] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5776,7 +5801,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/22] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/23] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6311,7 +6336,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/22] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/23] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6541,6 +6566,276 @@ def phase_checkpointed(torch, np, train):
     return out
 
 
+# -- phase 23: the reference's own surface -----------------------------------
+
+SURFACE_STEPS = 4           # (b): tfrun's transformer_train --steps
+SURFACE_CHUNKS = 4          # (c): chunks of SURFACE_CHUNK_STEPS steps
+SURFACE_CHUNK_STEPS = 2
+SURFACE_KILL_AFTER = 2      # (c): rank 1 dies after this many chunks
+MNIST_STEPS = 50
+# (b): bf16 steps of a 2-rank mean against one rank on the whole batch
+# (phase 9's card-vs-CPU bound).
+SURFACE_DLOSS = 2e-2
+# The flagship at the example's global batch; a CPU rehearsal swaps in
+# the tiny preset and "cpu".
+SURFACE_ARGV = ["--batch_size", "8", "--seq_len", "2048"]
+SURFACE_DEVICE = None       # the card
+CHUNK_FN = "tfmesos_tpu_torch.transformer_train:train_chunk"
+PING = "tfmesos_tpu_torch.runtime:rank_hosts"
+
+
+def gloo_allreduce_ms(ctx, numel: int, reps: int = 5) -> float:
+    """Dispatched to every rank of a Mode-A cluster: the median ms of
+    ``trainer.mesh_mean`` (the step's one collective) over a float32
+    buffer of ``numel`` elements on this rank's device."""
+    import torch
+
+    from tfmesos_tpu_torch.train.trainer import mesh_mean
+
+    mesh = ctx.mesh()
+    buf = torch.ones(numel, device=ctx.device)
+
+    def sync():
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+
+    mesh_mean([buf], mesh)
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        mesh_mean([buf], mesh)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def child(argv, timeout: float):
+    """``python -m <argv>`` from the checkout; (stdout, stderr, s)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    need(p.returncode == 0, f"{' '.join(argv[:3])} exited {p.returncode}: "
+         f"{p.stderr[-3000:]}")
+    return p.stdout, p.stderr, secs
+
+
+def phase_surface(torch, np, train):
+    """Phase 23: ``plus`` (a), ``tfrun`` over ``transformer_train`` (b),
+    Mode A under the elastic policy with a killed rank (c),
+    ``mnist_replica`` under ``tfrun`` (d)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from tfmesos_tpu_torch import ClusterError, Job, cluster
+    from tfmesos_tpu_torch import transformer_train as tr
+    from tfmesos_tpu_torch.convert import flatten
+    from tfmesos_tpu_torch.train.checkpoint import (STATE_FILE,
+                                                    CheckpointManager)
+    from tfmesos_tpu_torch.train.data import token_batches
+
+    say("[23/23] the reference's surface: plus, tfrun, Mode A under the "
+        "elastic policy, mnist_replica (ranks share the card over gloo)")
+    dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
+    device = torch.device(SURFACE_DEVICE or "cuda")
+    out = {}
+
+    # (a) plus over two Mode-A ranks.
+    stdout, stderr, secs = child(["tfmesos_tpu_torch.plus", *dev], 300)
+    need(stdout.strip().splitlines()[-1] == "42",
+         f"(a) plus printed {stdout!r}")
+    diag = [line for line in stderr.splitlines() if line.startswith("plus:")]
+    kind = device.type + (":0" if device.type == "cuda" else "")
+    need(diag == [f"plus: ['{kind}', '{kind}'] over gloo"],
+         f"(a) plus ran on {diag}")
+    out["a"] = {"printed": 42, "s": secs, "ranks": diag[0]}
+    say(f"  (a) plus printed 42 in {secs:.1f} s: {diag[0]}")
+
+    # (b) tfrun, Mode B: two ranks of transformer_train.
+    stdout, _, secs = child(
+        ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0", "--mesh",
+         "dp=-1", "--worker-logs", "*", "--", sys.executable, "-m",
+         "tfmesos_tpu_torch.transformer_train", "--steps",
+         str(SURFACE_STEPS), *SURFACE_ARGV, *dev], 900)
+    got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
+                          r"(\[.*\])$", stdout, re.M))
+    need(sorted(got) == ["0", "1"], f"(b) missing rank losses: {stdout}")
+    need(got["0"] == got["1"], f"(b) the ranks' losses differ: {got}")
+    losses = json.loads(got["0"])
+    tps = re.search(r"^\[worker:0\] tokens/sec: (\d+) \(per card: "
+                    r"(\d+)\)$", stdout, re.M)
+    need(tps is not None and "[worker:0] Training elapsed time" in stdout,
+         f"(b) rank 0's closing lines missing: {stdout[-2000:]}")
+    args = tr.parse_args(["--steps", str(SURFACE_STEPS), *SURFACE_ARGV,
+                          *dev])
+    run = tr.setup(args, device, start_step=None)
+    n_params = sum(p.numel() for p in flatten(run.params).values())
+    half = tr.local_batch(args, 2)
+    streams = [token_batches(half, run.seq_len, run.cfg.vocab_size,
+                             seed=tr.DATA_SEED + r) for r in (0, 1)]
+    ref, step_ms = [], []
+    for _ in range(SURFACE_STEPS):
+        batch = {"tokens": torch.from_numpy(np.concatenate(
+            [next(s)["tokens"] for s in streams])).to(device)}
+        t0 = time.perf_counter()
+        run.params, run.opt_state, m = run.step(run.params, run.opt_state,
+                                                batch)
+        ref.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del run, m, batch
+    gc.collect()
+    dl = max(abs(a - b) for a, b in zip(losses, ref))
+    need(len(losses) == SURFACE_STEPS and dl <= SURFACE_DLOSS,
+         f"(b) tfrun losses {losses} vs one process {ref}: |dloss| {dl}")
+    out["b"] = {"s": secs, "losses": losses, "one_process_losses": ref,
+                "max_dloss": dl, "tokens_per_s": int(tps.group(1)),
+                "one_process_ms_per_step": statistics.median(step_ms[1:])}
+    say(f"  (b) tfrun -w 2 in {secs:.1f} s: losses {losses}, one process "
+        f"{ref} (max |dloss| {dl:.2e}); {tps.group(1)} tokens/s over both "
+        f"ranks")
+
+    # (c) Mode A under the elastic policy, rank 1 killed after chunk 2.
+    root = tempfile.mkdtemp(prefix="chip-smoke-surface-")
+    resumed, uninterrupted = f"{root}/resumed", f"{root}/uninterrupted"
+    argv = [*SURFACE_ARGV, *dev]
+    S, N = SURFACE_CHUNK_STEPS, SURFACE_CHUNKS
+    extra = {"device": SURFACE_DEVICE} if SURFACE_DEVICE else {}
+    try:
+        t0 = time.perf_counter()
+        with cluster(Job(name="worker", num=2, cpus=1.0, mem=1024.0),
+                     quiet=True, start_timeout=300.0, extra_config=extra,
+                     restart_policy="elastic", max_cluster_restarts=2,
+                     restart_backoff=0.5, restart_jitter=0.0,
+                     restart_seed=0) as c:
+            # Both ranks answer once their process group has formed.
+            c.run_all(PING)
+            up_s = time.perf_counter() - t0
+            allreduce = c.run_all(gloo_allreduce_ms, n_params)
+            replies, chunk, killed = {}, 0, None
+            ready_s = reform_s = None
+            while chunk < N:
+                try:
+                    rs = c.run_all(CHUNK_FN, argv, resumed, chunk * S, S)
+                except ClusterError as e:
+                    need(killed is not None and reform_s is None,
+                         f"(c) unexpected ClusterError: {e}")
+                    need(c.wait_ready(timeout=300.0),
+                         "(c) the gang did not re-form")
+                    ready_s = time.perf_counter() - killed[1]
+                    c.run_all(PING)
+                    reform_s = time.perf_counter() - killed[1]
+                    latest = CheckpointManager(resumed).latest_step()
+                    need(latest == SURFACE_KILL_AFTER * S,
+                         f"(c) latest checkpoint {latest}")
+                    chunk = latest // S
+                    continue
+                replies[chunk] = rs
+                chunk += 1
+                if chunk == SURFACE_KILL_AFTER and killed is None:
+                    killed = (rs[1]["pid"], time.perf_counter())
+                    os.kill(rs[1]["pid"], signal.SIGKILL)
+            stats = c.restart_stats
+            want = [c.run_all(CHUNK_FN, argv, uninterrupted, i * S, S)
+                    for i in range(N)]
+        need(reform_s is not None and stats["generation"] == 1
+             and stats["cluster_restarts"] == 1,
+             f"(c) no re-formation at generation 1: {stats}")
+        need(replies[SURFACE_KILL_AFTER][0]["pid"]
+             != replies[SURFACE_KILL_AFTER - 1][0]["pid"],
+             "(c) the resumed chunk ran in the old gang")
+        for i in range(N):
+            for r in (0, 1):
+                need(replies[i][r]["losses"] == want[i][r]["losses"],
+                     f"(c) chunk {i} rank {r}: losses "
+                     f"{replies[i][r]['losses']} != uninterrupted "
+                     f"{want[i][r]['losses']}")
+            need(replies[i][0]["losses"] == replies[i][1]["losses"],
+                 f"(c) chunk {i}: the ranks' losses differ")
+        final = [torch.load(f"{d}/step_{N * S}/{STATE_FILE}",
+                            weights_only=True)
+                 for d in (resumed, uninterrupted)]
+        need(sorted(final[0]) == sorted(final[1]), "(c) state keys differ")
+        bad = [k for k in final[0]
+               if not (torch.equal(final[0][k], final[1][k])
+                       if isinstance(final[0][k], torch.Tensor)
+                       else final[0][k] == final[1][k])]
+        need(not bad, f"(c) final state not bit-identical in {bad}")
+        L = 8 if "--tiny" not in argv else 2
+        launches = collections.Counter()
+        for label, runs in (("resumed", replies), ("uninterrupted",
+                                                   dict(enumerate(want)))):
+            for i, rs in runs.items():
+                for r in rs:
+                    train_launches_exact(r["launches"], L, S,
+                                         f"(c) {label} chunk {i} rank "
+                                         f"{r['rank']}")
+                    launches.update(r["launches"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    chunk_ms = [r["elapsed_s"] / S * 1e3 for rs in want[1:] for r in rs]
+    out["c"] = {"bring_up_s": up_s, "wait_ready_s": ready_s,
+                "reform_s": reform_s,
+                "restart_stats": stats,
+                "losses": [rs[0]["losses"] for rs in want],
+                "dp2_ms_per_step": statistics.median(chunk_ms),
+                "allreduce_ms": statistics.median(allreduce),
+                "allreduce_numel": n_params,
+                "launches": {k: launches[k] for k in read_launches()}}
+    say(f"  (c) elastic Mode A: bring-up {up_s:.2f} s; rank 1 killed after "
+        f"chunk {SURFACE_KILL_AFTER}, re-formed at generation "
+        f"{stats['generation']}: wait_ready {ready_s:.2f} s and both "
+        f"ranks answering {reform_s:.2f} s after the kill; resumed "
+        f"from step {SURFACE_KILL_AFTER * S}; every chunk's losses and the "
+        f"final state bit-identical to the uninterrupted run's")
+
+    # (d) mnist_replica under tfrun, three ranks.
+    stdout, _, secs = child(
+        ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "1",
+         "--worker-logs", "*", "--", sys.executable, "-m",
+         "tfmesos_tpu_torch.mnist_replica", "--train_steps",
+         str(MNIST_STEPS), *dev], 600)
+    for i in (0, 1):
+        for line in ("job name = worker", f"task index = {i}",
+                     "Training begins @",
+                     f"Worker {i}: training step {MNIST_STEPS} done",
+                     "Training elapsed time:", "steps/sec:",
+                     f"After {MNIST_STEPS} training step(s), validation "
+                     f"cross entropy = ", "validation accuracy = "):
+            need(re.search(rf"^\[worker:{i}\] .*{re.escape(line)}", stdout,
+                           re.M) is not None,
+                 f"(d) worker {i} lacks {line!r}: {stdout[-3000:]}")
+    ce = re.findall(r"validation cross entropy = (\S+)$", stdout, re.M)
+    need(len(ce) == 5 and len(set(ce)) == 1,
+         f"(d) ranks' validation cross entropy differ: {ce}")
+    rate = re.search(r"^\[worker:0\] steps/sec: (\S+)", stdout, re.M)
+    acc = re.search(r"^\[worker:0\] validation accuracy = (\S+)", stdout,
+                    re.M)
+    out["d"] = {"s": secs, "cross_entropy": float(ce[0]),
+                "accuracy": float(acc.group(1)),
+                "steps_per_s": float(rate.group(1))}
+    say(f"  (d) mnist_replica -w 2 -s 1 in {secs:.1f} s: validation cross "
+        f"entropy {ce[0]} on every rank, accuracy {acc.group(1)}, "
+        f"{rate.group(1)} steps/s")
+    say(f"  timings: bring-up to both ranks answering {up_s:.2f} s, kill "
+        f"to wait_ready {ready_s:.2f} s (to answering {reform_s:.2f} s); "
+        f"ms a step: one process at the global batch "
+        f"{out['b']['one_process_ms_per_step']:.1f} (phase 8's loop "
+        f"{train['ms_per_step']:.1f}), two ranks on half each "
+        f"{out['c']['dp2_ms_per_step']:.1f}, of which the gloo all-reduce "
+        f"of {n_params} float32 gradients "
+        f"{out['c']['allreduce_ms']:.1f}.  Two ranks on one card measure "
+        f"no scaling, and gloo staging through host memory is not NCCL.")
+    say("  " + json.dumps(out))
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -6616,6 +6911,7 @@ def main() -> int:
                     reqs, streams(comps))
     ckpt = timed("checkpointed training", phase_checkpointed, torch, np,
                  train)
+    surface = timed("surface", phase_surface, torch, np, train)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -6668,7 +6964,9 @@ def main() -> int:
              "train checkpointed (a)": ckpt["a"]["launches"],
              "train supervised (b)": ckpt["b"]["launches"],
              "train --data (c)": ckpt["c"]["launches"],
-             "train remat (d)": ckpt["d"]["launches"]}
+             "train remat (d)": ckpt["d"]["launches"],
+             "surface (c) Mode A elastic chunks (processes)":
+                 surface["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -300,9 +300,17 @@ def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
 
 
 def test_usage_and_tfrun(capsys):
-    assert _run(cli.main, [], capsys)[0] == 2
-    rc, err = _run(cli.main, ["run", "-w", "1", "--", "true"], capsys)
-    assert rc == 2 and "not ported yet: tfrun" in err[0]
+    """No subcommand is a usage error naming ``run``; ``run`` is tfrun
+    (ported: a Mode-B job runs to its end, a later mesh axis exits 2
+    naming its ROADMAP item)."""
+    rc, err = _run(cli.main, [], capsys)
+    assert rc == 2 and "{run,serve," in err[0]
+    rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "tp=2",
+                              "--", "true"], capsys)
+    assert rc == 2
+    assert err == ["tfrun: not ported yet: mesh axis tp (ROADMAP A.9 (b))"]
+    assert _run(cli.main, ["run", "-w", "1", "-s", "0", "--", "true"],
+                capsys)[0] == 0
 
 
 def test_serve_main_serves_and_stops_on_ctrl_c(monkeypatch, capsys):

@@ -43,6 +43,13 @@ TRAINING = ("tfmesos_tpu_torch.train.trainer",
             "tfmesos_tpu_torch.transformer_train")
 
 
+#: the reference's own surface: the data mesh, the MNIST model, and the
+#: workloads tfrun and ``cluster()`` run.
+SURFACE = ("tfmesos_tpu_torch.parallel", "tfmesos_tpu_torch.parallel.mesh",
+           "tfmesos_tpu_torch.models.mlp", "tfmesos_tpu_torch.plus",
+           "tfmesos_tpu_torch.mnist_replica")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -72,6 +79,54 @@ def test_every_module_imports_with_jax_blocked():
             "tfmesos_tpu_torch.fleet.kvtier"} <= set(names)
     assert set(FRONT_DOOR) <= set(names)
     assert set(TRAINING) <= set(names)
+    assert set(SURFACE) <= set(names)
+
+
+def test_public_surface_with_jax_blocked():
+    """With JAX and the JAX package blocked: the package exports the
+    JAX package's surface (``cluster`` and the rest) without importing
+    torch; Mode A, the elastic policy and tfrun are no longer refused;
+    what is still missing is refused by name."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import tfmesos_tpu_torch as t\n"
+        "print(sorted(t.__all__), t.__VERSION__ == t.__version__,\n"
+        "      'torch' in sys.modules)\n"
+        f"for n in {SURFACE!r}:\n"
+        "    __import__(n)\n"
+        "from tfmesos_tpu_torch import cli, runtime\n"
+        "from tfmesos_tpu_torch.parallel import mesh\n"
+        "s = t.TPUMesosScheduler([t.Job(name='w', num=1)],\n"
+        "                        restart_policy='elastic')\n"
+        "print(callable(s.run_all), callable(s.wait_ready),\n"
+        "      s.restart_stats['restart_budget_left'],\n"
+        "      callable(runtime.initialize), callable(cli.run_main))\n"
+        "def refused(f, *a):\n"
+        "    try:\n"
+        "        f(*a)\n"
+        "    except Exception as e:\n"
+        "        return str(e)\n"
+        "print(refused(s.add_gang, 'r', ['true']))\n"
+        "print(refused(t.TPUMesosScheduler, [], None, '10.0.0.1:5050'))\n"
+        "for axis in ('tp', 'sp', 'pp', 'ep'):\n"
+        "    print(refused(mesh.check_axes, {axis: 2}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == ("['ClusterError', 'Job', 'RemoteError', "
+                        "'TPUMesosScheduler', '__VERSION__', '__version__', "
+                        "'cluster'] True False")
+    assert lines[1] == "True True 3 True True"
+    assert lines[2:] == [
+        "not ported yet: add_gang, gang replicas (ROADMAP A.9 (b))",
+        "not ported yet: the Mesos backend (ROADMAP A.12 (g))",
+        "not ported yet: mesh axis tp (ROADMAP A.9 (b))",
+        "not ported yet: mesh axis sp (ROADMAP A.10)",
+        "not ported yet: mesh axis pp (ROADMAP A.10)",
+        "not ported yet: mesh axis ep (ROADMAP A.10)"]
 
 
 def test_slice_modules_import_with_jax_blocked():

@@ -1,9 +1,10 @@
 """The port's scheduler and node runtime: dynamic ``add_task`` /
 ``remove_task`` and a static Mode-B job over the port's ``LocalBackend``,
 each task running ``python -m tfmesos_tpu_torch.server`` and its shell
-command; Mode A, elastic recovery and gangs refused by name; the task
-env contract equal to the JAX runtime's; the log pump equal to the JAX
-pump's Python path."""
+command; what is still refused by name (gangs, the Mesos backend,
+elastic recovery of a dynamic fleet); the node runtime's Mode-A
+executor spoken to by hand; the task env contract equal to the JAX
+runtime's; the log pump equal to the JAX pump's Python path."""
 
 import os
 import socket
@@ -89,27 +90,37 @@ def test_static_mode_b_job_runs_to_its_end(tmp_path):
 
 
 def test_mode_a_elastic_and_gangs_are_refused_by_name():
-    with pytest.raises(ValueError, match=r"not ported yet: Mode A.*"
-                                         r"ROADMAP A\.9"):
-        TPUMesosScheduler([Job(name="worker", num=1)])
-    with pytest.raises(ValueError, match=r"not ported yet: restart_policy"
-                                         r"='elastic' \(ROADMAP A\.12\)"):
+    """Mode A and the elastic policy are ported (a Mode-A job and an
+    elastic scheduler construct; dispatch before start is a plain
+    ClusterError); gangs and the Mesos backend are still refused by
+    name, and a dynamic fleet refuses the elastic policy as the JAX
+    scheduler does."""
+    TPUMesosScheduler([Job(name="worker", num=1)], restart_policy="elastic")
+    with pytest.raises(ValueError, match="mutually exclusive: a dynamic "
+                                         "fleet has no gang to re-form"):
         TPUMesosScheduler([], dynamic=True, restart_policy="elastic")
-    with pytest.raises(ClusterError, match="not ported yet: the Mesos"):
+    with pytest.raises(ClusterError, match=r"not ported yet: the Mesos "
+                                           r"backend \(ROADMAP A\.12 "
+                                           r"\(g\)\)"):
         TPUMesosScheduler([], dynamic=True, master="10.0.0.1:5050")
     sched = TPUMesosScheduler([Job(name="worker", num=1, cmd="true")],
                               dynamic=True)
     for call in (lambda: sched.run("m:f"), lambda: sched.run_all("m:f"),
                  lambda: sched.run_on([0], "m:f")):
-        with pytest.raises(ClusterError, match="not ported yet: Mode A"):
+        with pytest.raises(ClusterError, match="cluster not started"):
             call()
-    with pytest.raises(ClusterError, match="not ported yet: add_gang"):
+    with pytest.raises(ClusterError, match=r"not ported yet: add_gang, "
+                                           r"gang replicas \(ROADMAP A\.9 "
+                                           r"\(b\)\)"):
         sched.add_gang("replica", ["true", "true"])
 
 
 def test_server_refuses_a_mode_a_config():
-    """The node runtime registers, reads a config without ``cmd`` and
-    exits 2 naming Mode A, before acking."""
+    """The node runtime registers, reads a config without ``cmd`` (and
+    ``no_jax``: no process group) and acks; its executor refuses a
+    dispatch of another generation (no reply), runs one of its own
+    (``func(ctx, *args)``: a value, or the remote traceback), and exits
+    0 on ``shutdown``."""
     token = "server-token"
     listen = wire.bind_ephemeral("127.0.0.1")
     addr = wire.sock_addr(listen, advertise_host="127.0.0.1")
@@ -128,15 +139,34 @@ def test_server_refuses_a_mode_a_config():
         assert reg["op"] == "register" and reg["task_id"] == "task-1"
         assert reg["gen"] == 0
         wire.send_msg(conn, {"job_name": "worker", "task_index": 0,
-                             "rank": 0, "cmd": None}, token)
+                             "rank": 0, "world_size": 1, "cmd": None,
+                             "generation": 2,
+                             "extra_config": {"no_jax": True}}, token)
+        assert wire.recv_msg(conn, token) == "ok"
+        func = {"module": "tfmesos_tpu_torch.runtime",
+                "qualname": "rank_hosts", "path": None}
+        for call_id, gen in ((1, 1), (2, 2)):
+            wire.send_msg(conn, {"op": "run", "call_id": call_id,
+                                 "gen": gen, "func": func, "args": [],
+                                 "kwargs": {}}, token)
+        assert wire.recv_msg(conn, token) == {
+            "op": "result", "call_id": 2, "gen": 2, "ok": True,
+            "value": [""]}
+        wire.send_msg(conn, {"op": "run", "call_id": 3, "gen": 2,
+                             "func": dict(func, qualname="nope"),
+                             "args": [], "kwargs": {}}, token)
+        reply = wire.recv_msg(conn, token)
+        assert reply["call_id"] == 3 and reply["ok"] is False
+        assert "AttributeError" in reply["error"]
+        wire.send_msg(conn, {"op": "shutdown"}, token)
         _, err = proc.communicate(timeout=60)
         conn.close()
     finally:
         listen.close()
         if proc.poll() is None:
             proc.kill()
-    assert proc.returncode == 2
-    assert "not ported yet: Mode A (ROADMAP A.9)" in err
+    assert proc.returncode == 0, err
+    assert "dropping stale-generation dispatch (gen 1, ours 2)" in err
 
 
 @pytest.mark.parametrize("config", [

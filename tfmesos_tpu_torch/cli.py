@@ -1,8 +1,13 @@
-"""``tfserve`` for the PyTorch port (port of ``tfmesos_tpu/cli.py``'s
-serving entry: ``build_serve_parser``, ``serve_main`` and the ``submit``,
-``metrics``, ``trace``, ``gateways``, ``rollout`` and ``swap-adapter``
-subcommands).
+"""``tfrun`` and ``tfserve`` for the PyTorch port (port of
+``tfmesos_tpu/cli.py``: tfrun's ``build_parser``, ``parse_mesh``,
+``parse_volumes``, ``LogCollector``, ``forward_map`` and ``main``, here
+``run_main``; the serving entry ``build_serve_parser``, ``serve_main``
+and the ``submit``, ``metrics``, ``trace``, ``gateways``, ``rollout``
+and ``swap-adapter`` subcommands).
 
+    python -m tfmesos_tpu_torch.cli run -w 2 -s 0 [--worker-logs '*'] \
+        [--mesh dp=-1] [--restarts N | --restart-policy elastic] \
+        -- python -m tfmesos_tpu_torch.transformer_train --device cpu
     python -m tfmesos_tpu_torch.cli serve [--replicas N] [--tiny] ...
     python -m tfmesos_tpu_torch.cli serve --autoscale --max-replicas 4
     python -m tfmesos_tpu_torch.cli serve --models chat:1,code:0 --warm-pool 1
@@ -20,8 +25,16 @@ of the JAX ``tfserve`` parses with its default; the ones whose
 machinery is not ported yet (``--gang-size``, ``--gateway-processes``,
 ``--http-port``, ``--batch-lane``, ``--master``), and the ``batch`` and
 ``simulate`` subcommands, exit 2 with ``tfserve: not ported yet:
-<flag> (ROADMAP A.x)``.  ``tfrun`` (the Mode-B job CLI) is not ported
-yet either.
+<flag> (ROADMAP A.x)``.
+
+``run`` is ``tfrun``: it runs one command on every task of a ps/worker
+job spec as a Mode-B cluster over the local backend, forwards the
+output of the tasks ``--worker-logs`` names to its stdout, prefixed
+``[job:index]``, and polls until the workers finish.  It exits 0 when
+they do, 1 with one line ``tfrun: cluster failed: ...`` when the
+cluster fails, and 2 on a bad flag, a missing ``-e`` file, or a mesh
+axis the port does not have yet (``--mesh`` takes the data axes
+``dp`` and ``fsdp``).
 """
 
 from __future__ import annotations
@@ -29,13 +42,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import selectors
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from tfmesos_tpu_torch import wire
 
-__all__ = ["build_serve_parser", "parse_role_spec", "parse_class_spec",
+__all__ = ["build_parser", "parse_mesh", "parse_volumes", "LogCollector",
+           "forward_map", "run_main",
+           "build_serve_parser", "parse_role_spec", "parse_class_spec",
            "parse_model_spec", "serve_main", "submit_main", "trace_main",
            "metrics_main", "gateways_main", "rollout_main",
            "swap_adapter_main", "main", "NOT_PORTED_FLAGS",
@@ -53,6 +69,253 @@ NOT_PORTED_FLAGS = (
 
 #: tfserve subcommands whose machinery waits -> ROADMAP item.
 NOT_PORTED_SUBCOMMANDS = {"batch": "A.12", "simulate": "A.12"}
+
+
+# -- tfrun ---------------------------------------------------------------
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """tfrun's flag surface, the JAX package's: ``-w`` workers and ``-s``
+    servers (ps tasks; with any, the default mesh is all ``fsdp``), the
+    per-job resource flags (``-Gw``/``-Gs`` count cards), volumes, the
+    containerizer, an extra-config JSON file, ``--worker-logs``,
+    ``--gang``, the restart flags and ``--mesh``."""
+    p = argparse.ArgumentParser(
+        prog="tfrun",
+        description="Run a distributed command on every task of a "
+                    "ps/worker cluster (local backend).")
+    p.add_argument("-w", "--nworker", type=int, required=True,
+                   help="number of worker tasks (the data-parallel axis)")
+    p.add_argument("-s", "--nserver", type=int, required=True,
+                   help="number of server (ps) tasks; with any, the "
+                        "default mesh axis is fsdp")
+    p.add_argument("-m", "--master", type=str, default=None,
+                   help="Mesos master (not ported yet, ROADMAP A.12 (g)); "
+                        "default env MESOS_MASTER, else the local backend")
+    p.add_argument("-n", "--name", type=str, default=None,
+                   help="framework name")
+    p.add_argument("-C", "--containerizer_type", choices=["MESOS", "DOCKER"],
+                   default=None)
+    p.add_argument("-f", "--force_pull_image", action="store_true")
+    p.add_argument("-Cw", "--worker_cpus", type=float, default=1.0)
+    p.add_argument("-Gw", "--worker_chips", type=int, default=0,
+                   help="cards per worker")
+    p.add_argument("-Mw", "--worker_mem", type=float, default=1024.0)
+    p.add_argument("-Cs", "--server_cpus", type=float, default=1.0)
+    p.add_argument("-Gs", "--server_chips", type=int, default=0)
+    p.add_argument("-Ms", "--server_mem", type=float, default=1024.0)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-V", "--volume", action="append", default=[],
+                   metavar="SRC:DST", help="host->container mount "
+                                           "(repeatable)")
+    p.add_argument("-r", "--role", type=str, default="*")
+    p.add_argument("-e", "--extra_config", type=str, default=None,
+                   metavar="FILE.json",
+                   help="JSON file with extra config (initializer / "
+                        "finalizer hooks etc.)")
+    p.add_argument("--worker-logs", type=str, default="0",
+                   help="comma-separated worker indices (or '*') whose "
+                        "output to collect; default the chief only")
+    p.add_argument("--gang", action="store_true",
+                   help="all-or-nothing placement")
+    p.add_argument("--restarts", type=int, default=0,
+                   help="restart the whole cluster up to N times on any "
+                        "cluster failure, bring-up or post-start (a "
+                        "crashed command and dead infrastructure both "
+                        "report TASK_FAILED); pair with checkpoints. "
+                        "Default 0: fail fast")
+    p.add_argument("--restart-policy", choices=["fail_fast", "elastic"],
+                   default="fail_fast", dest="restart_policy",
+                   help="post-start failure policy: fail_fast aborts on "
+                        "any task death; elastic tears the survivors "
+                        "down, bumps the gang generation and re-forms "
+                        "from fresh offers with backoff; the tasks rerun "
+                        "their command and resume from their checkpoints")
+    p.add_argument("--max-cluster-restarts", type=int, default=3,
+                   dest="max_cluster_restarts",
+                   help="elastic restart budget: at most N re-formations "
+                        "per sliding --restart-window, then fatal")
+    p.add_argument("--restart-window", type=float, default=600.0,
+                   dest="restart_window",
+                   help="seconds the elastic restart budget counts over")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="mesh axes handed to the tasks, e.g. dp=-1 or "
+                        "fsdp=4 (data axes only: tp, sp, pp, ep and dcn. "
+                        "axes are not ported yet)")
+    p.add_argument("cmd", nargs=argparse.REMAINDER,
+                   help="command to run on every task (placeholders: "
+                        "{ps_hosts} {worker_hosts} {job_name} {task_index} "
+                        "{rank} {world_size} {coordinator})")
+    return p
+
+
+def parse_mesh(spec: Optional[str]) -> Optional[Dict[str, int]]:
+    """``"dp=4"`` -> ``{"dp": 4}``; ``ValueError`` for a malformed axis
+    or one the port does not have yet (``parallel.mesh.check_axes``)."""
+    from tfmesos_tpu_torch.parallel.mesh import check_axes
+
+    if not spec:
+        return None
+    axes = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        if not size:
+            raise ValueError(f"bad mesh axis {part!r}; want name=size")
+        axes[name.strip()] = int(size)
+    return check_axes(axes)
+
+
+def parse_volumes(volumes: List[str]) -> Dict[str, str]:
+    out = {}
+    for v in volumes:
+        src, _, dst = v.partition(":")
+        if not dst:
+            raise ValueError(f"bad volume {v!r}; want src:dst")
+        out[src] = dst
+    return out
+
+
+class LogCollector:
+    """Accepts the connections of the tasks whose logs were asked for
+    and splices their lines (already ``[job:index]``-prefixed by the
+    node runtime) onto our stdout."""
+
+    def __init__(self) -> None:
+        self._listen = wire.bind_ephemeral()
+        self.addr = wire.sock_addr(self._listen)
+        self._sel = selectors.DefaultSelector()
+        self._sel.register(self._listen, selectors.EVENT_READ, "accept")
+
+    def pump(self, timeout: float = 0.1) -> None:
+        for key, _ in self._sel.select(timeout=timeout):
+            if key.data == "accept":
+                conn, _ = self._listen.accept()
+                conn.setblocking(False)
+                self._sel.register(conn, selectors.EVENT_READ, "conn")
+                continue
+            try:
+                data = key.fileobj.recv(65536)
+            except (BlockingIOError, InterruptedError):
+                continue
+            except OSError:
+                data = b""
+            if not data:
+                self._sel.unregister(key.fileobj)
+                key.fileobj.close()
+                continue
+            sys.stdout.buffer.write(data)
+            sys.stdout.buffer.flush()
+
+    def close(self) -> None:
+        self.pump(timeout=0)  # drain anything already queued
+        for key in list(self._sel.get_map().values()):
+            if key.data == "conn":
+                key.fileobj.close()
+        self._sel.close()
+        self._listen.close()
+
+
+def forward_map(worker_logs: str, nworker: int,
+                collector_addr: str) -> Dict[str, str]:
+    """``--worker-logs`` ``'0'`` | ``'1,3'`` | ``'*'`` -> the
+    ``forward_addresses`` of the scheduler."""
+    if worker_logs.strip() == "*":
+        return {f"worker:{i}": collector_addr for i in range(nworker)}
+    out = {}
+    for tok in worker_logs.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if not tok.isdigit():
+            raise ValueError(f"bad --worker-logs entry {tok!r}; want "
+                             f"indices or '*'")
+        out[f"worker:{tok}"] = collector_addr
+    return out
+
+
+def run_main(argv: Optional[List[str]] = None) -> int:
+    """``tfrun``: exit 0 when the workers finished, 1 when the cluster
+    failed (one line on stderr), 2 on a usage or config error."""
+    from tfmesos_tpu_torch import cluster
+    from tfmesos_tpu_torch.scheduler import ClusterError
+    from tfmesos_tpu_torch.spec import Job
+
+    args = build_parser().parse_args(argv)
+    cmd_parts = list(args.cmd)
+    if cmd_parts and cmd_parts[0] == "--":
+        cmd_parts = cmd_parts[1:]
+    if not cmd_parts:
+        print("tfrun: no command given", file=sys.stderr)
+        return 2
+    cmd = " ".join(cmd_parts)  # one shell string
+
+    try:
+        mesh_axes = parse_mesh(args.mesh)
+        volumes = parse_volumes(args.volume)
+        forward_map(args.worker_logs, args.nworker, "validate:0")
+    except ValueError as e:
+        print(f"tfrun: {e}", file=sys.stderr)
+        return 2
+
+    extra_config = {}
+    if args.extra_config:
+        try:
+            with open(args.extra_config) as f:
+                extra_config = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"tfrun: cannot read extra config "
+                  f"{args.extra_config!r}: {e}", file=sys.stderr)
+            return 2
+
+    jobs = []
+    if args.nserver > 0:
+        jobs.append(Job(name="ps", num=args.nserver, cpus=args.server_cpus,
+                        mem=args.server_mem, chips=args.server_chips,
+                        cmd=cmd))
+    jobs.append(Job(name="worker", num=args.nworker, cpus=args.worker_cpus,
+                    mem=args.worker_mem, chips=args.worker_chips, cmd=cmd))
+
+    collector = LogCollector()
+    forward = forward_map(args.worker_logs, args.nworker, collector.addr)
+
+    def attempt(i):
+        with cluster(jobs, master=args.master, name=args.name,
+                     quiet=not args.verbose,
+                     containerizer_type=args.containerizer_type,
+                     force_pull_image=args.force_pull_image,
+                     volumes=volumes, forward_addresses=forward,
+                     extra_config=extra_config, role=args.role,
+                     gang_scheduling=args.gang,
+                     restart_policy=args.restart_policy,
+                     max_cluster_restarts=args.max_cluster_restarts,
+                     restart_window=args.restart_window,
+                     mesh_axes=mesh_axes) as c:
+            while not c.finished():
+                collector.pump(timeout=0.1)
+            # a last drain, so lines racing the finish still land
+            deadline = time.monotonic() + 1.0
+            while time.monotonic() < deadline:
+                collector.pump(timeout=0.1)
+
+    try:
+        if args.restarts > 0:
+            from tfmesos_tpu_torch.train.supervisor import supervise
+
+            supervise(attempt, max_restarts=args.restarts, restart_wait=2.0)
+        else:
+            attempt(0)
+    except ClusterError as e:
+        print(f"tfrun: cluster failed: {e}", file=sys.stderr)
+        return 1
+    except (ValueError, RuntimeError) as e:
+        print(f"tfrun: {e}", file=sys.stderr)
+        return 2
+    finally:
+        collector.close()
+    return 0
+
+
+# -- tfserve --------------------------------------------------------------
 
 
 def _refused(what: str, item: str) -> int:
@@ -1053,22 +1316,20 @@ SUBCOMMANDS = {"submit": submit_main, "trace": trace_main,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m tfmesos_tpu_torch.cli serve|submit|metrics|trace|
-    gateways|rollout|swap-adapter ...``: ``serve`` is ``tfserve``
-    itself, the rest are its subcommands."""
+    """``python -m tfmesos_tpu_torch.cli run|serve|submit|metrics|trace|
+    gateways|rollout|swap-adapter ...``: ``run`` is ``tfrun``, ``serve``
+    is ``tfserve`` itself, the rest are its subcommands."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "run":
+        return run_main(argv[1:])
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
     if argv and (argv[0] in SUBCOMMANDS
                  or argv[0] in NOT_PORTED_SUBCOMMANDS):
         return serve_main(argv)
-    if argv and argv[0] == "run":
-        print("tfrun: not ported yet: tfrun (ROADMAP A.12)",
-              file=sys.stderr)
-        return 2
     print("usage: python -m tfmesos_tpu_torch.cli "
-          "{serve,submit,metrics,trace,gateways,rollout,swap-adapter} ...",
-          file=sys.stderr)
+          "{run,serve,submit,metrics,trace,gateways,rollout,swap-adapter} "
+          "...", file=sys.stderr)
     return 2
 
 

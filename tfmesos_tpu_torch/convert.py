@@ -1,6 +1,7 @@
-"""Carry transformer weights across frameworks and processes.
+"""Carry model weights across frameworks and processes.
 
-``params_from_jax`` takes the JAX package's ``init_params`` or
+``params_from_jax`` takes the JAX package's ``init_params`` tree (the
+transformer's or the MNIST MLP's, ``models/mlp.py``) or a
 ``quantize_params`` tree after ``jax.tree_util.tree_map(np.asarray,
 ...)`` (this module imports no JAX: the caller does the ``np.asarray``)
 and returns the same nested dict of torch tensors, an int8 ``(values,

@@ -1,30 +1,43 @@
-"""Cluster scheduler: offer matching, rendezvous, config delivery (port
-of ``tfmesos_tpu/scheduler.py`` for Mode-B jobs).
+"""Cluster scheduler: offer matching, rendezvous, config delivery and
+SPMD dispatch (port of ``tfmesos_tpu/scheduler.py``).
 
 ``TPUMesosScheduler`` owns the task table and talks to a narrow
 :class:`~tfmesos_tpu_torch.backends.ResourceBackend` (the port has
-``LocalBackend``).  Two shapes of job run:
+``LocalBackend``).  Three shapes of job run:
 
-* a **static Mode-B job** — every task runs a command; bring-up waits
-  until all tasks registered, sends each its config (rank, world size,
-  cluster map, the command) and lets them exec.  Before the cluster
-  starts a dead task is revived with a fresh id up to
-  ``MAX_FAILURE_COUNT``; after it, any death is fatal (fail-fast).
+* a **static gang** — bring-up waits until every task registered, sends
+  each its config (rank, world size, cluster map, the coordinator: rank
+  0's host and its reserved port) and awaits the acks.  A task with a
+  command (Mode B) then execs it; a task without one (Mode A) joins the
+  process group and stays on its control connection, over which
+  :meth:`run` / :meth:`run_on` / :meth:`run_all` dispatch functions.
+  Before the cluster starts a dead task is revived with a fresh id up
+  to ``MAX_FAILURE_COUNT``; after it, any death is fatal (fail-fast).
+* the same under ``restart_policy="elastic"``: a death after start
+  tears the survivors down, bumps the cluster **generation** and
+  re-forms the whole gang from fresh offers, with exponential backoff,
+  jitter and a sliding-window restart budget before it goes fatal after
+  all.  The generation is the fencing token: launches carry it in
+  ``TPUMESOS_GENERATION``, registrations and Mode-A replies echo it,
+  and a registration or reply of another generation is dropped.  A
+  dispatch that meets the recovery raises :class:`ClusterError`; the
+  caller waits with :meth:`wait_ready` and resumes from its checkpoint.
 * **dynamic mode** (the serving fleet) — the table starts empty and
   :meth:`add_task` / :meth:`remove_task` grow and shrink it at runtime;
   each registration is served on its own, and a task death is a serving
   event (``on_dynamic_death``), never a cluster-fatal one.
 
-Not ported yet, refused by name: Mode A (a job without ``cmd``; the SPMD
-``run`` dispatch over ``jax.distributed``, ROADMAP A.9), the elastic
-restart policy (whole-gang re-formation, ROADMAP A.12) and ``add_gang``
-(gang replicas, ROADMAP A.9).
+Not ported yet, refused by name: ``add_gang`` (gang replicas, ROADMAP
+A.9 (b)) and the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
+fault injection (``chaos=``, ROADMAP A.12 (f)) is not a parameter here.
 """
 
 from __future__ import annotations
 
+import collections
 import getpass
 import os
+import random
 import selectors
 import socket
 import sys
@@ -43,9 +56,6 @@ __all__ = ["MAX_FAILURE_COUNT", "ClusterError", "RemoteError",
 
 MAX_FAILURE_COUNT = 3
 
-MODE_A_REFUSAL = ("not ported yet: Mode A, a job without cmd "
-                  "(ROADMAP A.9)")
-
 
 class ClusterError(RuntimeError):
     """Fatal cluster failure."""
@@ -60,7 +70,11 @@ class TPUMesosScheduler:
     """Owns the task table and drives bring-up → run → teardown.
 
     ``chips`` count accelerator cards per task (``gpus`` is accepted as
-    an alias on :class:`~tfmesos_tpu_torch.spec.Job`)."""
+    an alias on :class:`~tfmesos_tpu_torch.spec.Job`).  The elastic
+    policy's knobs are the JAX scheduler's: ``max_cluster_restarts``
+    within ``restart_window`` seconds, a backoff of ``restart_backoff``
+    doubling per restart up to ``restart_backoff_max``, stretched by up
+    to ``restart_jitter`` of itself from a ``restart_seed``-ed RNG."""
 
     def __init__(self, task_spec: List[Job], backend: Optional[ResourceBackend] = None,
                  master: Optional[str] = None, name: Optional[str] = None,
@@ -76,15 +90,16 @@ class TPUMesosScheduler:
                  token_transport: Optional[str] = None,
                  token: Optional[str] = None,
                  restart_policy: str = "fail_fast",
+                 max_cluster_restarts: int = 3,
+                 restart_window: float = 600.0,
+                 restart_backoff: float = 1.0,
+                 restart_backoff_max: float = 30.0,
+                 restart_jitter: float = 0.1,
+                 restart_seed: Optional[int] = None,
                  dynamic: bool = False):
-        if restart_policy == "elastic":
-            raise ValueError("not ported yet: restart_policy='elastic' "
-                             "(ROADMAP A.12)")
-        if restart_policy != "fail_fast":
+        if restart_policy not in ("fail_fast", "elastic"):
             raise ValueError(f"restart_policy must be fail_fast|elastic, "
                              f"got {restart_policy!r}")
-        if any(job.cmd is None for job in task_spec):
-            raise ValueError(MODE_A_REFUSAL)
         self.task_spec = task_spec
         self.master = master or os.environ.get("MESOS_MASTER")
         self.name = name or f"[tpumesos] {getpass.getuser()} {' '.join(sys.argv)}"
@@ -104,8 +119,22 @@ class TPUMesosScheduler:
         # property — add_task()/remove_task() grow and shrink it after
         # start(), registrations are served continuously instead of
         # through one barrier, and a task death is a SERVING event (the
-        # fleet re-converges), never a cluster-fatal one.
+        # fleet re-converges), never a cluster-fatal one.  Elastic
+        # recovery is whole-gang replacement and has no meaning over a
+        # membership that changes one task at a time.
         self.dynamic = bool(dynamic)
+        if self.dynamic and restart_policy == "elastic":
+            raise ValueError("dynamic task management and elastic gang "
+                             "recovery are mutually exclusive: a dynamic "
+                             "fleet has no gang to re-form")
+        self.restart_policy = restart_policy
+        self.max_cluster_restarts = int(max_cluster_restarts)
+        self.restart_window = float(restart_window)
+        self.restart_backoff = float(restart_backoff)
+        self.restart_backoff_max = float(restart_backoff_max)
+        self.restart_jitter = float(restart_jitter)
+        # Seedable jitter, so a recovery's timing replays exactly.
+        self._restart_rng = random.Random(restart_seed)
 
         self.log = get_logger("tfmesos_tpu_torch.scheduler", quiet=quiet)
         # One token per bring-up by default; an explicit ``token`` lets
@@ -174,9 +203,21 @@ class TPUMesosScheduler:
         self.job_finished: Dict[str, int] = {}
         self._listen: Optional[socket.socket] = None
         self.addr: Optional[str] = None
-        # The launch epoch stamped into every task's env and echoed in
-        # its registration (a registration of another epoch is dropped).
+        self._call_id = 0
+
+        # Elastic recovery state.  ``generation`` is the gang epoch: it
+        # is stamped into every launch's env, echoed in registrations
+        # and Mode-A replies, and bumped the moment a recovery is
+        # accepted.
         self.generation = 0
+        self.cluster_restarts = 0           # successful re-formations
+        self._recovering = False
+        self._recover_teardown_done = False
+        self._recover_reason: Optional[str] = None
+        self._recover_event = threading.Event()
+        self._restart_times: collections.deque = collections.deque()
+        self._backoff_exponent = 0
+        self._elastic_thread: Optional[threading.Thread] = None
         self._dynamic_thread: Optional[threading.Thread] = None
 
     # -- backend selection -------------------------------------------------
@@ -186,7 +227,7 @@ class TPUMesosScheduler:
             from tfmesos_tpu_torch.backends.local import LocalBackend
             return LocalBackend()
         raise ClusterError("not ported yet: the Mesos backend "
-                           "(ROADMAP A.12)")
+                           "(ROADMAP A.12 (g))")
 
     # -- backend callback surface -----------------------------------------
 
@@ -363,10 +404,20 @@ class TPUMesosScheduler:
                 return
             elif self.started or self._broadcasting:
                 # Post-start (or mid-broadcast, when peers may already be
-                # acting on their config): fail fast, whole-cluster abort.
-                self._set_fatal(
+                # acting on their config): fail fast, whole-cluster abort
+                # — unless the elastic policy re-forms the gang.
+                self._post_start_failure(
                     f"task {task} terminated after cluster start: "
                     f"{status.state} {status.message}")
+            elif self._recovering and not self._recover_teardown_done:
+                # A recovery was accepted and the old gang is not torn
+                # down yet: these are that gang's expected deaths (one
+                # host loss reports once per task).  Reviving here would
+                # relaunch with no backoff for the teardown to kill and
+                # charge the bring-up budget for deaths that already
+                # bought the recovery.
+                self.log.info("ignoring terminal status for %s during "
+                              "gang teardown: %s", task, status.state)
             else:
                 # Pre-start: revive with a fresh uuid up to MAX_FAILURE_COUNT
                 # (reference: scheduler.py:404-434).
@@ -462,10 +513,11 @@ class TPUMesosScheduler:
             self._revive_backend("heartbeat")
 
     def on_agent_lost(self, agent_id: str) -> None:
-        """A lost agent: fatal after start, a revive of its tasks before."""
+        """A lost agent: after start fatal, or a gang re-formation under
+        the elastic policy; before start a revive of its tasks."""
         with self._lock:
             if self.started:
-                self._set_fatal(f"agent lost: {agent_id}")
+                self._post_start_failure(f"agent lost: {agent_id}")
                 return
             lost = [task.id for task in self.tasks
                     if task.agent_id == agent_id and not task.initialized]
@@ -481,6 +533,8 @@ class TPUMesosScheduler:
         if self._fatal is None:
             self._fatal = message
             self.log.error("fatal: %s", message)
+            # Unpark the elastic thread so it sees the fatal and exits.
+            self._recover_event.set()
 
     def _launch_env(self, task=None) -> Dict[str, str]:
         """Per-launch env: the user's plus the task's launch generation
@@ -493,6 +547,192 @@ class TPUMesosScheduler:
         if extra:
             env.update(extra)
         return env
+
+    # -- elastic recovery --------------------------------------------------
+
+    def _post_start_failure(self, why: str) -> None:
+        """A task or agent died after cluster start (lock held): fatal
+        under fail_fast, a recovery request under elastic."""
+        if self.restart_policy != "elastic":
+            self._set_fatal(why)
+        else:
+            self._request_recovery(why)
+
+    def _charge_restart(self, why: str) -> bool:
+        """Spend one unit of the sliding-window restart budget (lock
+        held).  False — and the cluster is fatal — when the window
+        already holds ``max_cluster_restarts`` restarts: a crash loop
+        faster than the window is a problem restarts cannot fix."""
+        now = time.monotonic()
+        while (self._restart_times
+               and now - self._restart_times[0] > self.restart_window):
+            self._restart_times.popleft()
+        if len(self._restart_times) >= self.max_cluster_restarts:
+            self._set_fatal(
+                f"elastic restart budget exhausted "
+                f"({self.max_cluster_restarts} restarts within "
+                f"{self.restart_window:.0f}s): {why}")
+            return False
+        self._restart_times.append(now)
+        self._backoff_exponent = len(self._restart_times) - 1
+        return True
+
+    def _request_recovery(self, why: str) -> None:
+        """Accept a post-start failure as a recovery (lock held): charge
+        the budget, bump the generation, mark the cluster un-started and
+        wake the recovery thread.  Idempotent while a recovery is in
+        flight: one lost host surfaces as many signals (a dispatch's
+        EOF, a terminal status a task, the agent) and buys exactly one
+        re-formation."""
+        if self._fatal or self._stopped or self._recovering:
+            return
+        if not self._charge_restart(why):
+            return
+        self._recovering = True
+        self._recover_teardown_done = False
+        self._recover_reason = why
+        self.started = False
+        self._broadcasting = False
+        self.generation += 1
+        self.log.warning("elastic recovery -> generation %d: %s",
+                         self.generation, why)
+        self._recover_event.set()
+
+    def _elastic_loop(self) -> None:
+        """The recovery thread: parked on ``_recover_event``, it runs one
+        gang re-formation per accepted recovery."""
+        while True:
+            self._recover_event.wait()
+            with self._lock:
+                if self._stopped or self._fatal is not None:
+                    return
+                self._recover_event.clear()
+                if not self._recovering:
+                    continue
+            try:
+                self._recover()
+            except Exception as e:      # pragma: no cover - defensive
+                with self._lock:
+                    self._set_fatal(f"elastic recovery crashed: {e}")
+                return
+
+    def _recover(self) -> None:
+        """Tear the old gang down and form a new one, retrying (each retry
+        charged to the restart budget) until the gang is up, the budget
+        is spent, or the scheduler stops."""
+        while True:
+            with self._lock:
+                if self._stopped or self._fatal is not None:
+                    return
+                backoff = min(
+                    self.restart_backoff * (2 ** self._backoff_exponent),
+                    self.restart_backoff_max)
+                backoff *= (1.0 + self.restart_jitter
+                            * self._restart_rng.random())
+                generation = self.generation
+            self.log.warning(
+                "elastic: tearing down generation %d survivors; re-forming "
+                "gang in %.2fs (restart %d)", generation - 1, backoff,
+                len(self._restart_times))
+            self._teardown_tasks()
+            with self._lock:
+                self._recover_teardown_done = True
+            if self._interruptible_sleep(backoff):
+                return
+            with self._lock:
+                if self._stopped or self._fatal is not None:
+                    return
+                # Fresh bring-up budgets for the new gang: the revive
+                # counter guards one bring-up; crash loops across
+                # generations are bounded by the restart window.
+                self.task_failure_count.clear()
+                self.job_finished.clear()
+            self._revive_backend("elastic recovery")
+            try:
+                self._form_gang()
+            except ClusterError as e:
+                with self._lock:
+                    if self._stopped or self._fatal is not None:
+                        return
+                    if not self._charge_restart(
+                            f"gang re-formation failed: {e}"):
+                        return
+                self.log.warning("elastic: re-formation failed (%s); "
+                                 "retrying", e)
+                continue
+            with self._lock:
+                # _recovering was cleared with started=True inside
+                # _start_cluster.
+                self.cluster_restarts += 1
+            self.log.warning("elastic: gang re-formed — generation %d live "
+                             "(%d cluster restart(s) so far)",
+                             generation, self.cluster_restarts)
+            return
+
+    def _teardown_tasks(self) -> None:
+        """Give every task a fresh identity and kill whatever of the old
+        gang still runs.  Survivors of a partial failure cannot be kept:
+        the program they ran with the dead peer is gone (a survivor may
+        be blocked in a collective with it), and their old connections
+        and ids must never be mistaken for the new gang's."""
+        with self._lock:
+            old_ids = [t.id for t in self.tasks]
+            for task in self.tasks:
+                task.reset()        # closes the connection, fresh uuid
+        for tid in old_ids:
+            try:
+                self.backend.kill(tid)
+            except Exception as e:
+                self.log.warning("teardown kill of %s failed: %s",
+                                 tid[:8], e)
+
+    def _interruptible_sleep(self, seconds: float) -> bool:
+        """Sleep in short slices; True when stop or a fatal cut it."""
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            with self._lock:
+                if self._stopped or self._fatal is not None:
+                    return True
+            time.sleep(min(0.05, max(0.0, deadline - time.monotonic())))
+        return False
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        """Block until the cluster is started and not mid-recovery: True
+        when ready, False on timeout; raises :class:`ClusterError` when
+        the cluster went fatal (budget spent, bring-up dead).  The
+        caller's half of the elastic policy: catch the
+        :class:`ClusterError` a dispatch raised, ``wait_ready()``,
+        restore the checkpoint, continue."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._lock:
+                if self._fatal:
+                    raise ClusterError(self._fatal)
+                if self._stopped:
+                    raise ClusterError("scheduler stopped")
+                if self.started and not self._recovering:
+                    return True
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            time.sleep(0.05)
+
+    @property
+    def restart_stats(self) -> Dict[str, Any]:
+        """The elastic policy's counters."""
+        with self._lock:
+            # Expire window-aged restarts, so restart_budget_left says
+            # what _charge_restart would allow now.
+            now = time.monotonic()
+            while (self._restart_times
+                   and now - self._restart_times[0] > self.restart_window):
+                self._restart_times.popleft()
+            return {
+                "generation": self.generation,
+                "cluster_restarts": self.cluster_restarts,
+                "recovering": self._recovering,
+                "restart_budget_left": max(
+                    0, self.max_cluster_restarts - len(self._restart_times)),
+            }
 
     def _fire_dynamic_death(self, cb, task) -> None:
         try:
@@ -551,7 +791,7 @@ class TPUMesosScheduler:
         """Gang replicas (N tasks placed all-or-nothing as one replica)
         are not ported yet."""
         raise ClusterError("not ported yet: add_gang, gang replicas "
-                           "(ROADMAP A.9)")
+                           "(ROADMAP A.9 (b))")
 
     def remove_task(self, task_id: str) -> bool:
         """Kill ONE task at runtime and forget it (dynamic mode only).
@@ -714,6 +954,11 @@ class TPUMesosScheduler:
                 f.write(self.token)
             self._token_file = path
         self.backend.start(self)
+        if self.restart_policy == "elastic":
+            self._elastic_thread = threading.Thread(
+                target=self._elastic_loop, name="elastic-recovery",
+                daemon=True)
+            self._elastic_thread.start()
         try:
             self._form_gang()
         except Exception:
@@ -730,7 +975,8 @@ class TPUMesosScheduler:
 
     def _form_gang(self) -> None:
         """Run the rendezvous loop until every task registered, then
-        broadcast the cluster config."""
+        broadcast the cluster config: one gang formation, shared by the
+        first bring-up and every elastic re-formation."""
         sel = selectors.DefaultSelector()
         sel.register(self._listen, selectors.EVENT_READ, ("accept", None, None))
         deadline = time.monotonic() + self.start_timeout
@@ -885,16 +1131,28 @@ class TPUMesosScheduler:
             if ack != "ok":
                 raise ClusterError(f"task {task} failed to ack: {ack!r}")
             self.log.info("task %s ready", task)
-            # Mode B: the control connection's job is done.
-            conn.close()
-            task.connection = None
+            if task.cmd is not None:
+                # Mode B: the control connection's job is done.
+                conn.close()
+                task.connection = None
+            else:
+                # Mode A keeps it as the dispatch channel, with no
+                # timeout: a dispatched function may run for hours, and
+                # a killed peer still surfaces at once as EOF.
+                conn.settimeout(None)
         with self._lock:
             if not all(t.initialized for t in self.tasks):
                 # A terminal status raced the tail of the broadcast and
                 # reset a task (the pre-start revive path): better a loud
-                # formation failure than a cluster with a hole in it.
+                # formation failure (retried by elastic recovery, fatal
+                # on the first bring-up) than a cluster with a hole in it.
                 raise ClusterError("task lost during config broadcast")
             self.started = True
+            # With started=True, atomically: a recovery is over the
+            # moment the gang is live, so a death of the new gang is
+            # never swallowed by a stale _recovering flag.
+            self._recovering = False
+            self._recover_reason = None
         self.log.info("cluster started: %d task(s), generation %d, "
                       "coordinator %s", world_size, generation, coordinator)
 
@@ -927,24 +1185,187 @@ class TPUMesosScheduler:
         }
 
     def run(self, func: Any, *args: Any, **kwargs: Any) -> Any:
-        """SPMD dispatch to Mode-A tasks: not ported yet."""
-        raise ClusterError(MODE_A_REFUSAL)
+        """SPMD dispatch: run ``func`` on every Mode-A task and return the
+        result of the lowest-ranked one (rank 0 whenever rank 0 is a
+        Mode-A task).
+
+        ``func`` is a callable, resolved on the task by module and
+        qualname (it must be importable there: the launch forwards
+        ``sys.path``; a function of the calling program's ``__main__`` file is
+        imported from that file), or an explicit ``"module:qualname"``
+        string.  Each task calls ``func(ctx, *args, **kwargs)`` with its
+        :class:`~tfmesos_tpu_torch.runtime.TaskContext`.  Arguments and
+        results travel as JSON (a result that is not JSON comes back as
+        its ``repr``).  A function that raised on a task raises
+        :class:`RemoteError`; a task lost during the call raises
+        :class:`ClusterError`."""
+        results = self.run_all(func, *args, **kwargs)
+        return results[0]
 
     def run_on(self, ranks, func: Any, *args: Any, **kwargs: Any) -> List[Any]:
-        """Targeted dispatch to Mode-A tasks: not ported yet."""
-        raise ClusterError(MODE_A_REFUSAL)
+        """Targeted dispatch to a subset of tasks by global rank, results
+        in the order of ``ranks``.  For per-process work only: a function
+        that enters a collective must run on every rank or the group
+        hangs (use :meth:`run` / :meth:`run_all`).  An unknown,
+        non-dispatchable or repeated rank is an error, raised before any
+        send."""
+        return self._dispatch(func, args, kwargs, ranks=list(ranks))
 
     def run_all(self, func: Any, *args: Any, **kwargs: Any) -> List[Any]:
-        """SPMD dispatch to every Mode-A task: not ported yet."""
-        raise ClusterError(MODE_A_REFUSAL)
+        """SPMD dispatch to every Mode-A task; the results in rank
+        order."""
+        return self._dispatch(func, args, kwargs, ranks=None)
+
+    def _dispatch(self, func, args, kwargs, ranks) -> List[Any]:
+        with self._lock:
+            if self._fatal:
+                raise ClusterError(self._fatal)
+            if self._recovering:
+                raise ClusterError(
+                    f"cluster re-forming (generation {self.generation}): "
+                    f"{self._recover_reason}")
+            if not self.started:
+                raise ClusterError("cluster not started")
+            self._call_id += 1
+            call_id = self._call_id
+            generation = self.generation
+        spec = _func_spec(func)
+        dispatchable = {rank: t for rank, t in enumerate(self.tasks)
+                        if t.cmd is None and t.connection is not None}
+        if ranks is None:
+            mode_a = list(dispatchable.values())
+        else:
+            bad = [r for r in ranks if r not in dispatchable]
+            if bad:
+                raise ClusterError(
+                    f"rank(s) {bad} are not connected in-graph tasks "
+                    f"(dispatchable: {sorted(dispatchable)})")
+            if len(set(ranks)) != len(ranks):
+                raise ClusterError(
+                    f"duplicate rank(s) in {ranks}: each dispatch targets a "
+                    "rank at most once (call run_on again to repeat)")
+            mode_a = [dispatchable[r] for r in ranks]  # request order
+        if not mode_a:
+            raise ClusterError("no in-graph (cmd=None) tasks to dispatch to")
+        msg = {"op": "run", "call_id": call_id, "gen": generation,
+               "func": spec, "args": list(args), "kwargs": kwargs}
+
+        def _fatal_dispatch(why: str) -> ClusterError:
+            # A dead peer or a desynchronized channel poisons the whole
+            # dispatch path: survivors may hold frames of this call with
+            # no way to resync, and half a collective hangs the group.
+            # Fail-fast marks the cluster fatal; elastic turns the same
+            # signal into a re-formation (this call still raises: the
+            # caller resumes after wait_ready()).
+            with self._lock:
+                self._post_start_failure(why)
+            return ClusterError(why)
+
+        task = None
+        try:
+            for task in mode_a:
+                wire.send_msg(task.connection, msg, self.token)
+            replies = self._drain_replies(mode_a, call_id, generation,
+                                          _fatal_dispatch)
+        except (OSError, wire.WireError) as e:
+            raise _fatal_dispatch(
+                f"task {task} lost during dispatch: {e}") from e
+        results = []
+        errors = []
+        for task in mode_a:
+            reply = replies[task.id]
+            if not reply.get("ok"):
+                errors.append(f"on {task}:\n{reply.get('error')}")
+            results.append(reply.get("value"))
+        if errors:
+            raise RemoteError("remote failure " + "\n".join(errors))
+        return results
+
+    def _drain_replies(self, mode_a, call_id, generation, _fatal_dispatch):
+        """Collect one reply a task, reading every connection at once.
+
+        A blocking read rank by rank would sit on a survivor (which may
+        run for hours) while a dead peer's EOF goes unseen; a selector
+        surfaces any death — the socket's EOF, or the status thread
+        marking the cluster fatal or recovering — within a poll.  A
+        reply of another generation (a zombie of an earlier gang
+        flushing its last result) is logged and dropped, never matched
+        to a current call."""
+        replies: Dict[str, dict] = {}
+        sel = selectors.DefaultSelector()
+        framers = {task.id: wire.Framer(self.token) for task in mode_a}
+        try:
+            for task in mode_a:
+                try:
+                    task.connection.setblocking(False)
+                    sel.register(task.connection, selectors.EVENT_READ, task)
+                except OSError as e:
+                    raise _fatal_dispatch(
+                        f"task {task} lost during dispatch: {e}") from e
+            while len(replies) < len(mode_a):
+                events = sel.select(timeout=0.5)
+                with self._lock:
+                    if self._fatal:
+                        raise ClusterError(self._fatal)
+                    if self._recovering:
+                        raise ClusterError(
+                            f"cluster re-forming (generation "
+                            f"{self.generation}): {self._recover_reason}")
+                for key, _ in events:
+                    task = key.data
+                    try:
+                        data = key.fileobj.recv(1 << 16)
+                    except (BlockingIOError, InterruptedError):
+                        continue
+                    except OSError as e:
+                        raise _fatal_dispatch(
+                            f"task {task} lost during dispatch: {e}") from e
+                    if not data:
+                        raise _fatal_dispatch(
+                            f"task {task} died during dispatch (EOF)")
+                    try:
+                        msgs = framers[task.id].feed(data)
+                    except wire.WireError as e:
+                        raise _fatal_dispatch(
+                            f"bad frame from {task} during dispatch: {e}"
+                        ) from e
+                    for reply in msgs:
+                        if (isinstance(reply, dict) and "gen" in reply
+                                and reply["gen"] != generation):
+                            self.log.warning(
+                                "dropping stale-generation reply from %s: "
+                                "gen %r (current %d)", task,
+                                reply.get("gen"), generation)
+                            continue
+                        if (task.id in replies
+                                or not (isinstance(reply, dict)
+                                        and reply.get("call_id") == call_id)):
+                            raise _fatal_dispatch(
+                                f"bad reply from {task}: {reply!r}")
+                        replies[task.id] = reply
+                    if task.id in replies:
+                        sel.unregister(key.fileobj)
+        finally:
+            sel.close()
+            for task in mode_a:
+                if task.connection is not None:
+                    try:
+                        task.connection.setblocking(True)
+                        task.connection.settimeout(None)
+                    except OSError:
+                        pass
+        return replies
 
     def finished(self) -> bool:
         """True when any job has fully TASK_FINISHED (reference semantics —
         all workers done ends the run even though ps tasks never exit,
-        scheduler.py:474-477)."""
+        scheduler.py:474-477); never while a recovery is in flight (the
+        next generation re-runs and re-counts)."""
         with self._lock:
             if self._fatal:
                 raise ClusterError(self._fatal)
+            if self._recovering:
+                return False
             return any(
                 self.job_finished.get(job.name, 0) >= (job.num - job.start)
                 for job in self.task_spec
@@ -961,6 +1382,10 @@ class TPUMesosScheduler:
             if self._stopped:
                 return
             self._stopped = True
+            self._recover_event.set()   # unpark the elastic thread
+        if (self._elastic_thread is not None
+                and self._elastic_thread is not threading.current_thread()):
+            self._elastic_thread.join(timeout=5.0)
         if self._dynamic_thread is not None and self._listen is not None:
             # close() alone does not interrupt a blocked accept():
             # poke the rendezvous awake so the dynamic accept loop
@@ -995,3 +1420,28 @@ class TPUMesosScheduler:
         self.log.info("scheduler stopped")
 
 
+def _func_spec(func: Any) -> dict:
+    """How a dispatch names ``func``: ``{"module", "qualname", "path"}``,
+    ``path`` the calling program's ``__main__`` file for a function defined
+    there (the task imports that file)."""
+    if isinstance(func, str):
+        module, _, qualname = func.partition(":")
+        if not qualname:
+            raise ValueError(f"func string must be 'module:qualname', "
+                             f"got {func!r}")
+        return {"module": module, "qualname": qualname, "path": None}
+    module = getattr(func, "__module__", None)
+    qualname = getattr(func, "__qualname__", None)
+    if not module or not qualname or "<locals>" in qualname:
+        raise ValueError(
+            f"{func!r} is not addressable as module:qualname; define it at "
+            f"module top level (lambdas/closures cannot be shipped)")
+    path = None
+    if module == "__main__":
+        main_mod = sys.modules.get("__main__")
+        path = getattr(main_mod, "__file__", None)
+        if path is None:
+            raise ValueError("cannot ship a __main__ function from an "
+                             "interactive session; use 'module:qualname'")
+        path = os.path.abspath(path)
+    return {"module": module, "qualname": qualname, "path": path}

@@ -1,5 +1,6 @@
-"""Token batches, synthetic or from a token file, and their host-to-card
-prefetch (port of ``tfmesos_tpu/train/data.py:21-27, 61-83, 121-337``).
+"""Token batches, synthetic or from a token file, the synthetic MNIST
+stand-in, and their host-to-card prefetch (port of
+``tfmesos_tpu/train/data.py:21-83, 121-337``).
 
 The streams are numpy, copied as is from the JAX package, so a seed
 gives the same arrays in both packages for every ``(seed, start_step)``.
@@ -23,6 +24,42 @@ def _step_rng(seed: int, step: int) -> np.random.RandomState:
     replays the skipped steps' draws."""
     return np.random.RandomState(
         np.array([seed & 0x7FFFFFFF, step], dtype=np.uint32))
+
+
+@dataclass
+class SyntheticMNIST:
+    """A seeded generative stand-in for MNIST (nothing is downloaded):
+    each class is a fixed random template in [0, 1]^784 plus noise,
+    which a one-hidden-layer MLP separates at MNIST's scale.  The
+    templates come from ``seed``; each batch stream from its own seed."""
+
+    n_classes: int = 10
+    dim: int = 784
+    noise: float = 0.35
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        self.templates = rng.rand(self.n_classes, self.dim).astype(
+            np.float32)
+
+    def batches(self, batch_size: int, seed: int = 1, start_step: int = 0
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Endless ``{"image": [B, dim] float32, "label": [B] int32}``
+        batches, each from a per-step RNG, so ``start_step`` jumps
+        straight to that step."""
+        step = start_step
+        while True:
+            rng = _step_rng(seed, step)
+            labels = rng.randint(0, self.n_classes, size=batch_size)
+            images = self.templates[labels] + self.noise * rng.randn(
+                batch_size, self.dim).astype(np.float32)
+            yield {"image": np.clip(images, 0.0, 1.0).astype(np.float32),
+                   "label": labels.astype(np.int32)}
+            step += 1
+
+    def eval_batch(self, batch_size: int = 1000, seed: int = 999):
+        return next(self.batches(batch_size, seed=seed))
 
 
 def token_batches(batch_size: int, seq_len: int, vocab_size: int,

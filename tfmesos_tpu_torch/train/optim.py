@@ -1,5 +1,6 @@
-"""The optimizer of the flagship trainer (counterparts of the optax calls
-of ``examples/transformer_train.py:124-139``).
+"""The optimizers of the trainers (counterparts of the optax calls of
+``examples/transformer_train.py:124-139`` and
+``examples/mnist_replica.py:55``).
 
 ``adamw(lr, weight_decay)`` is ``optax.adamw`` — optionally chained
 after ``optax.clip_by_global_norm`` — as a ``torch.optim.AdamW`` over
@@ -9,7 +10,8 @@ state (the torch optimizer, which keeps the moments, and optax's step
 ``count``), and ``update(grads, state)`` applies one step to the params
 IN PLACE.  A learning-rate schedule is evaluated at ``count`` before
 the step, as optax's ``scale_by_learning_rate`` does: 0 on the first
-update, so a warmup from 0 moves nothing on step one.
+update, so a warmup from 0 moves nothing on step one.  ``sgd(lr)`` is
+``optax.sgd`` in the same shape.
 """
 
 from __future__ import annotations
@@ -166,3 +168,48 @@ def adamw(lr: Union[float, Schedule], weight_decay: float = 0.01,
     with optax's defaults b1 0.9, b2 0.999, eps 1e-8, chained after
     ``clip_by_global_norm(max_norm)`` when ``max_norm`` > 0."""
     return AdamW(lr=lr, weight_decay=weight_decay, max_norm=max_norm)
+
+
+@dataclass
+class SGDState:
+    """State of :class:`SGD`: the leaves it steps, their flattened names
+    and optax's update ``count`` (plain SGD keeps no moments)."""
+
+    leaves: List[torch.Tensor]
+    count: int = 0
+    names: List[str] = field(default_factory=list)
+
+
+@dataclass(frozen=True)
+class SGD:
+    """``optax.sgd(lr)`` (no momentum, no Nesterov): each update adds
+    ``-lr(count) * g`` to its param in place, the product rounded before
+    the sum as optax rounds it."""
+
+    lr: Union[float, Schedule]
+
+    def init(self, params: Dict) -> SGDState:
+        """A fresh state over ``params``' leaves (leaf tensors; they get
+        ``requires_grad``)."""
+        flat = flatten(params)
+        leaves = list(flat.values())
+        for p in leaves:
+            p.requires_grad_(True)
+        return SGDState(leaves, names=list(flat))
+
+    def update(self, grads: Dict, state: SGDState) -> SGDState:
+        gs = list(flatten(grads).values())
+        if len(gs) != len(state.leaves):
+            raise ValueError(f"{len(gs)} gradients for "
+                             f"{len(state.leaves)} params")
+        lr = float(self.lr(state.count) if callable(self.lr) else self.lr)
+        with torch.no_grad():
+            for p, g in zip(state.leaves, gs):
+                p.add_(g.to(p.dtype) * -lr)
+        state.count += 1
+        return state
+
+
+def sgd(lr: Union[float, Schedule]) -> SGD:
+    """``optax.sgd(lr)``: plain stochastic gradient descent."""
+    return SGD(lr=lr)

@@ -1,14 +1,19 @@
-"""Single-device train and eval steps and the step loop (port of
-``tfmesos_tpu/train/trainer.py`` with ``mesh=None``).
+"""Train and eval steps and the step loop (port of
+``tfmesos_tpu/train/trainer.py``: one device, or data parallel over a
+mesh of ranks).
 
 ``make_train_step`` keeps the JAX call shape,
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, and
 its semantics: the gradient of ``loss_fn``, averaged over ``grad_accum``
 equal microbatches, one optimizer update, then ``postprocess``;
 ``steps_per_call`` such steps in one call.  PyTorch updates in place,
-so the params and state that come back are the objects passed in.  The
-mesh, ``param_specs`` and ``grads_fn`` belong to the multi-device
-slices and are not arguments here.
+so the params and state that come back are the objects passed in.  With
+a data ``mesh`` of several ranks, each rank passes its own equal share
+of the global batch and the gradients are averaged over the mesh before
+the update, which is the JAX step's arithmetic on the global batch.
+``param_specs`` and ``grads_fn`` belong to the tensor- and
+pipeline-parallel slices (ROADMAP A.9 (b), A.10) and are not arguments
+here.
 """
 
 from __future__ import annotations
@@ -16,9 +21,10 @@ from __future__ import annotations
 import json
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from tfmesos_tpu_torch.convert import flatten, unflatten
 from tfmesos_tpu_torch.train.optim import AdamW, OptState
@@ -34,15 +40,43 @@ class TrainState:
     step: int = 0
 
 
+def mesh_mean(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Each tensor averaged over ``mesh``'s ranks (``all_reduce(SUM) /
+    size``), as fresh tensors.  The tensors go into one contiguous
+    buffer per dtype, so a step makes one collective per dtype however
+    many leaves it has: gloo stages a CUDA tensor through host memory,
+    and a call per leaf would cost more than the data."""
+    group, size = mesh.get_group(), mesh.size()
+    out: List[Any] = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(size)
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view_as(tensors[i])
+    return out
+
+
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     postprocess: Optional[Callable] = None,
                     steps_per_call: int = 1, grad_accum: int = 1,
-                    scan_unroll: int = 1) -> Callable:
+                    scan_unroll: int = 1, mesh=None) -> Callable:
     """Build the train step.
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``optimizer`` an
-    :class:`~tfmesos_tpu_torch.train.optim.AdamW` whose ``init(params)``
-    made ``opt_state``.  ``grad_accum > 1`` splits each batch (every
+    :class:`~tfmesos_tpu_torch.train.optim.AdamW` (or
+    :class:`~tfmesos_tpu_torch.train.optim.SGD`) whose ``init(params)``
+    made ``opt_state``.  ``mesh`` a data mesh
+    (``parallel.mesh.build_mesh``): above size 1, every rank calls the
+    step with its own equal share of the global batch, each gradient
+    leaf is averaged over the mesh (:func:`mesh_mean`) before clipping
+    and the update, and the loss and metrics are the ranks' means (the
+    loss is then the global batch's); every rank ends with bitwise the
+    same params.  ``grad_accum > 1`` splits each batch (every
     leaf along dim 0, which must divide evenly) into that many
     microbatches and averages their float32 gradients before the single
     update — the full-batch step for a per-example-mean loss, at
@@ -95,8 +129,18 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         return (unflatten(dict(zip(names, grads))), lsum / grad_accum,
                 {k: v / grad_accum for k, v in msum.items()})
 
+    reduce = mesh is not None and mesh.size() > 1
+
     def one_step(params, opt_state: OptState, batch):
         grads, loss, metrics = grads_and_metrics(params, batch)
+        if reduce:
+            flat = flatten(grads)
+            names, keys = list(flat), list(metrics)
+            mean = mesh_mean(list(flat.values()) + [loss]
+                             + [metrics[k] for k in keys], mesh)
+            grads = unflatten(dict(zip(names, mean)))
+            loss = mean[len(names)]
+            metrics = dict(zip(keys, mean[len(names) + 1:]))
         opt_state = optimizer.update(grads, opt_state)
         if postprocess is not None:
             with torch.no_grad():
@@ -248,7 +292,9 @@ class TrainLoop:
         elapsed = time.perf_counter() - t_start
         start_step = self.state.step
         self.state = TrainState(params, opt_state, start_step + num_steps)
-        n_dev = 1                       # the single-device step
+        # One card a rank: every rank's card, as jax.device_count().
+        n_dev = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
         return {
             "elapsed_s": elapsed,
             "steps_per_sec": num_steps / elapsed,

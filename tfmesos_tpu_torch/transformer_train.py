@@ -1,11 +1,14 @@
-"""Train the flagship transformer on one device (port of
-``examples/transformer_train.py``'s single-device dense path).
+"""Train the flagship transformer, on one device or data parallel over
+the ranks of a cluster (port of ``examples/transformer_train.py``'s
+dense path and its runtime half).
 
     python -m tfmesos_tpu_torch.transformer_train [--tiny] [--device cpu] \\
         [--steps 50] [--batch_size 8] [--seq_len 2048] \\
         [--learning_rate 3e-4] [--warmup 0] [--lr-schedule constant] \\
         [--grad-clip 0] [--kv-heads N] [--data FILE [--data-dtype uint16]] \\
-        [--ckpt-dir DIR [--ckpt-every 50]]
+        [--ckpt-dir DIR [--ckpt-every 50]] [--mesh dp=-1]
+    python -m tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh dp=-1 -- \\
+        python -m tfmesos_tpu_torch.transformer_train --steps 100
 
 The flagship config (vocab 8192, d512, 8 layers, 8 heads, d_ff 1408,
 bf16 compute over float32 master weights), weights seeded 0, trains on
@@ -17,20 +20,31 @@ a flat token file (``TokenFileDataset``) instead, refusing ids beyond
 the vocab.  ``--ckpt-dir`` saves params, optimizer state and step every
 ``--ckpt-every`` steps (asynchronously, and at the last step), and a
 run started again with the same directory resumes from its latest step,
-the data stream included.  Prints ``step N: loss=… ppl=…`` every 10
-steps, then the elapsed time and tokens/sec.  Runs on the card unless
-``--device cpu``.
+the data stream included.
+
+It joins the cluster's process group first (``runtime.initialize``:
+the env contract of a ``tfrun`` task; one rank when started by hand).
+``--batch_size`` is the global batch: each of the ``world_size`` ranks
+trains on ``batch_size // world_size`` rows of its own stream (seed
+100 + rank; a token file's rank-strided windows) and the gradients are
+averaged over the data mesh (``--mesh``, data axes only, default the
+cluster's).  Only rank 0 saves checkpoints; every rank restores.  Rank
+0 prints ``step N: loss=… ppl=…`` every 10 steps, then the elapsed time
+and the global tokens/sec; every rank then prints its steps' losses
+(``rank R/W step losses: [...]``: equal across ranks, the mean over
+the mesh).  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
-DATA_SEED = 100          # the example's stream seed on one device (rank 0)
+DATA_SEED = 100          # the example's stream seed of rank 0 (rank r: +r)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -63,6 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "dir resumes from the latest step (params, "
                         "optimizer state AND the data stream position)")
     p.add_argument("--ckpt-every", type=int, default=50, dest="ckpt_every")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="data mesh axes, e.g. dp=-1 or fsdp=2 (default: "
+                        "the cluster's, else all dp)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -79,16 +96,22 @@ class Run:
     step: Callable
     batches: Optional[Iterator]  # numpy {"tokens": [B, T+1]} stream
     device: Any
-    batch_size: int
+    batch_size: int              # this rank's share of the global batch
     seq_len: int
+    world_size: int = 1
 
 
-def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0
-          ) -> Run:
+def local_batch(args: argparse.Namespace, world_size: int) -> int:
+    """This rank's rows of the global ``--batch_size``."""
+    return max(1, args.batch_size // max(1, world_size))
+
+
+def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
+          rank: int = 0, world_size: int = 1, mesh=None) -> Run:
     """Config, seeded weights on ``device``, the optimizer and its
-    state, the train step and the token stream from ``start_step`` (none
-    when it is None: :func:`data_stream` makes it later) — as the
-    example builds them."""
+    state, the train step (averaging gradients over ``mesh``) and rank
+    ``rank``'s token stream from ``start_step`` (none when it is None:
+    :func:`data_stream` makes it later) — as the example builds them."""
     import torch
 
     from tfmesos_tpu_torch.models import transformer
@@ -122,31 +145,36 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0
         lr = args.learning_rate
     opt = optim.adamw(lr, weight_decay=0.01, max_norm=args.grad_clip)
     step = make_train_step(
-        lambda p_, b_: transformer.loss_fn(cfg, p_, b_), opt)
+        lambda p_, b_: transformer.loss_fn(cfg, p_, b_), opt, mesh=mesh)
     batches = (None if start_step is None
-               else data_stream(args, cfg, seq_len, start_step))
+               else data_stream(args, cfg, seq_len, start_step, rank,
+                                world_size))
     return Run(cfg, params, opt.init(params), step, batches, device,
-               args.batch_size, seq_len)
+               local_batch(args, world_size), seq_len, world_size)
 
 
 def data_stream(args: argparse.Namespace, cfg, seq_len: int,
-                start_step: int = 0) -> Iterator:
-    """The example's stream from ``start_step``: the token file of
-    ``--data`` (after one full scan refusing ids >= the vocab, which the
-    embedding gather cannot take), else the seeded bigram stream."""
+                start_step: int = 0, rank: int = 0,
+                world_size: int = 1) -> Iterator:
+    """Rank ``rank``'s stream from ``start_step``, its share of the
+    global batch a step: the token file of ``--data`` (after one full
+    scan refusing ids >= the vocab, which the embedding gather cannot
+    take), else the seeded bigram stream, seeded ``DATA_SEED + rank``."""
     from tfmesos_tpu_torch.train import data
 
+    bs = local_batch(args, world_size)
     if not args.data:
-        return data.token_batches(args.batch_size, seq_len, cfg.vocab_size,
-                                  seed=DATA_SEED, start_step=start_step)
+        return data.token_batches(bs, seq_len, cfg.vocab_size,
+                                  seed=DATA_SEED + rank,
+                                  start_step=start_step)
     ds = data.TokenFileDataset(args.data, dtype=args.data_dtype)
     top = int(ds.tokens.max())
     if top >= cfg.vocab_size:
         raise SystemExit(f"{args.data}: token id {top} >= model vocab "
                          f"{cfg.vocab_size}; re-tokenize or adjust the "
                          f"config")
-    return ds.batches(args.batch_size, seq_len, seed=DATA_SEED,
-                      start_step=start_step)
+    return ds.batches(bs, seq_len, rank=rank, world_size=max(1, world_size),
+                      seed=DATA_SEED + rank, start_step=start_step)
 
 
 def train(run: Run, steps: int,
@@ -157,8 +185,8 @@ def train(run: Run, steps: int,
     steps (each one a host sync, as in the example).  With ``ckpt`` (a
     ``CheckpointManager``), ``(params, opt_state)`` is saved without
     waiting every ``ckpt_every`` global steps.  Returns the elapsed
-    seconds (from the first step to the last loss on the host),
-    tokens/sec and every step's loss as a float."""
+    seconds (from the first step to the last loss on the host), the
+    global batch's tokens/sec and every step's loss as a float."""
     import torch
 
     from tfmesos_tpu_torch.train.data import prefetch
@@ -179,17 +207,78 @@ def train(run: Run, steps: int,
     dt = time.perf_counter() - t0
     n = max(0, steps - start_step)
     return {"elapsed_s": dt, "losses": losses,
-            "tokens_per_s": n * run.batch_size * run.seq_len / dt}
+            "tokens_per_s": (n * run.batch_size * run.world_size
+                             * run.seq_len / dt)}
+
+
+# The state a Mode-A process carries from one chunk to the next.
+_CHUNK: Dict[str, Any] = {}
+
+
+def train_chunk(ctx, argv: List[str], ckpt_dir: str, start: int,
+                steps: int) -> Dict[str, Any]:
+    """The trainer under Mode A: dispatched to every rank
+    (``cluster.run_all``), it trains steps ``start + 1 .. start + steps``
+    of the run ``argv`` describes (this module's flags; ``--device`` is
+    the one ``runtime.initialize`` bound), data parallel over the
+    cluster's mesh, and rank 0 then saves the state at ``start + steps``
+    to ``ckpt_dir`` (synchronously: the checkpoint exists once every
+    rank replied).  A process that ended its last chunk at ``start``
+    goes on from the state it holds; any other (a re-formed gang's)
+    restores ``ckpt_dir``'s step ``start``, or starts fresh at 0.
+    Returns this rank's losses, its pid, seconds and the kernel
+    launches of the chunk."""
+    import os
+
+    from tfmesos_tpu_torch.cli import parse_mesh
+    from tfmesos_tpu_torch.ops import attention, quant
+    from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
+
+    args = parse_args(argv)
+    key = (tuple(argv), os.path.abspath(ckpt_dir))
+    run = _CHUNK.get("run")
+    if _CHUNK.get("key") != key or _CHUNK.get("step") != start:
+        _CHUNK.clear()
+        run = setup(args, ctx.device, start_step=None, rank=ctx.rank,
+                    world_size=ctx.world_size,
+                    mesh=ctx.mesh(parse_mesh(args.mesh)))
+        if start:
+            CheckpointManager(ckpt_dir).restore((run.params, run.opt_state),
+                                                step=start)
+    run.batches = data_stream(args, run.cfg, run.seq_len, start, ctx.rank,
+                              ctx.world_size)
+    before = {**attention.LAUNCHES, **quant.LAUNCHES}
+    out = train(run, start + steps, log=None, start_step=start)
+    after = {**attention.LAUNCHES, **quant.LAUNCHES}
+    if ctx.is_chief:
+        ckpt = CheckpointManager(ckpt_dir)
+        ckpt.save(start + steps, (run.params, run.opt_state))
+        ckpt.close()
+    _CHUNK.update(key=key, step=start + steps, run=run)
+    return {"rank": ctx.rank, "pid": os.getpid(), "step": start + steps,
+            "losses": out["losses"], "elapsed_s": out["elapsed_s"],
+            "launches": {k: after[k] - before.get(k, 0) for k in after}}
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from tfmesos_tpu_torch.device import resolve_device
+    from tfmesos_tpu_torch import runtime
+    from tfmesos_tpu_torch.cli import parse_mesh
 
-    device = resolve_device(args.device)
-    run = setup(args, device, start_step=None)
-    print(f"transformer: device={device} seq={run.seq_len} "
-          f"batch={run.batch_size}", flush=True)
+    try:
+        axes = parse_mesh(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    ctx = runtime.initialize(device=args.device)
+    mesh = ctx.mesh(axes)
+    device, chief = ctx.device, ctx.is_chief
+    run = setup(args, device, start_step=None, rank=ctx.rank,
+                world_size=ctx.world_size, mesh=mesh)
+    if chief:
+        print(f"transformer: device={device} seq={run.seq_len} "
+              f"batch={run.batch_size * run.world_size} "
+              f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}",
+              flush=True)
     start_step, ckpt = 0, None
     if args.ckpt_dir:
         if args.ckpt_every < 1:
@@ -202,21 +291,34 @@ def main(argv=None) -> int:
         if latest is not None:
             ckpt.restore((run.params, run.opt_state))   # in place
             start_step = latest
-            print(f"resumed from step {start_step}", flush=True)
+            if chief:
+                print(f"resumed from step {start_step}", flush=True)
             if start_step >= args.steps:
                 ckpt.close()
-                print(f"already trained to step {start_step} >= --steps "
-                      f"{args.steps}; nothing to do", flush=True)
+                if chief:
+                    print(f"already trained to step {start_step} >= "
+                          f"--steps {args.steps}; nothing to do",
+                          flush=True)
                 return 0
-    run.batches = data_stream(args, run.cfg, run.seq_len, start_step)
-    out = train(run, args.steps, log=lambda s: print(s, flush=True),
+        if not chief:           # every rank restores, rank 0 saves
+            ckpt.close()
+            ckpt = None
+    run.batches = data_stream(args, run.cfg, run.seq_len, start_step,
+                              ctx.rank, ctx.world_size)
+    out = train(run, args.steps,
+                log=(lambda s: print(s, flush=True)) if chief else None,
                 start_step=start_step, ckpt=ckpt, ckpt_every=args.ckpt_every)
     if ckpt is not None:
         if start_step < args.steps and args.steps % args.ckpt_every:
             ckpt.save(args.steps, (run.params, run.opt_state), wait=False)
         ckpt.close()
-    print(f"Training elapsed time: {out['elapsed_s']:f} s", flush=True)
-    print(f"tokens/sec: {out['tokens_per_s']:.0f}", flush=True)
+    if chief:
+        print(f"Training elapsed time: {out['elapsed_s']:f} s", flush=True)
+        print(f"tokens/sec: {out['tokens_per_s']:.0f} (per card: "
+              f"{out['tokens_per_s'] / ctx.world_size:.0f})", flush=True)
+    print(f"rank {ctx.rank}/{ctx.world_size} step losses: "
+          f"{json.dumps(out['losses'])}", flush=True)
+    runtime.shutdown()
     return 0
 
 
