@@ -412,6 +412,34 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     answering, their process group formed), the kill to ``wait_ready``
     and to the new gang answering, ms a step for one rank and for two,
     and the gloo all-reduce of the flagship's gradients a step.
+24. the mesh, every rank sharing the card over gloo: (a) each kernel at
+    the shapes a rank of tp=2 gives it (flash_fwd [1, 512, 4, 64] and
+    [8, 2048, 4, 64], the backward pair at [8, 2048, 4, 64], the paged
+    kernel at t = 1 and 4 over a data shard's half pool, KV 4, bf16 and
+    int8, flash_decode [4, KV 4, M 16384, 64], the int8 commit into a
+    KV-4 pool), against its plain version, timed beside its library
+    call and bound; (b) ``tfrun -w 2 --mesh tp=2`` running ``python -m
+    tfmesos_tpu_torch.serve --continuous --mesh tp=2`` on phase 5's
+    traffic, bf16 and then int8 weights over an int8 pool: every
+    stream equal on both ranks (their digests) and held to phase 5's
+    (12's) one-process run by the margin rule, each rank's launches
+    exact (flash_fwd 8 a prefill it ran, the paged kernel 8 a tick, one
+    commit each over an int8 pool), the graphs bypass named ("gloo
+    collectives": every call eager) and ms a tick; (c) the same
+    traffic on ``--mesh dp=2,tp=2`` over four ranks, 4 rows a data
+    shard, every shard's sub-pool recycled to its sink at the end; (d)
+    a Mode-A gang of two ranks training the flagship at phase 8's shape
+    for 4 steps through ``transformer_train``'s setup and loop over
+    ``tp=2`` and ``fsdp=2``, then the same through ``tfrun -w 2 --mesh
+    ... -- python -m tfmesos_tpu_torch.transformer_train``: every
+    step's loss within 2e-2 of one process over the global batch (and
+    both ranks' equal), every gathered gradient leaf of the
+    first step at cosine >= 0.99 with one process's, rows 1-3 at 8 a
+    step a rank, under fsdp each rank's memory after the first step
+    (params and AdamW state) 0.4-0.6 of one process's, ms a step and
+    the share in gloo collectives; (e) the tp=2 state saved (rank 0
+    writes the gathered leaves) and restored on one process, every
+    param leaf equal to the ranks' gathered state bit for bit.
 
 It prints each phase's seconds.
 
@@ -429,6 +457,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -673,7 +702,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/23] device")
+    say("[1/24] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -687,7 +716,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/23] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/24] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -861,12 +890,71 @@ def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
     return row
 
 
+def _flash_case(torch, flash_rows, b, t, window, draw, kv=None, tk=None,
+               q_offset=0, h=8, d=64):
+    """One flash_fwd case on the card (inputs from ``draw``): the kernel
+    against its plain version, timed beside SDPA and the bound; the row
+    goes to ``flash_rows``."""
+    import torch.nn.functional as F
+
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    dev = torch.device("cuda")
+    kv = h if kv is None else kv
+    tk = t if tk is None else tk
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
+    o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window,
+                                  q_offset=q_offset)
+    route, rows = fwd_launched(torch, ta, q)
+    o_p, lse_p = ta.flash_attention_reference(
+        q, k, v, causal=True, scale=scale, window=window,
+        q_offset=q_offset)
+    torch.cuda.synchronize()
+    err_o = float((o_k.float() - o_p.float()).abs().max())
+    err_l = float((lse_k - lse_p).abs().max())
+    need(err_o <= FLASH_O_ATOL and err_l <= FLASH_LSE_ATOL,
+         f"flash_fwd [{b},{t},{h},{d}] kv={kv} tk={tk} window={window} "
+         f"q_offset={q_offset}: o err {err_o} lse err {err_l}")
+    ms = cuda_ms(torch, lambda: ta.flash_forward(
+        q, k, v, causal=True, window=window, q_offset=q_offset))
+    enqueue = host_us(torch, lambda: ta.flash_forward(
+        q, k, v, causal=True, window=window, q_offset=q_offset))
+    plain = cuda_ms(torch, lambda: ta.flash_attention_reference(
+        q, k, v, causal=True, scale=scale, window=window,
+        q_offset=q_offset))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if kv != h else {}
+    allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
+    if window is None and q_offset == 0 and tk == t:
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa))
+    else:
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow, **gqa))
+    pairs = b * int(allow.sum())
+    flops = 4 * pairs * h * d
+    bytes_ = (2 * b * t * h * d + 2 * b * tk * kv * d) * 2 + b * h * t * 4
+    bms, by = bound(bytes_, flops)
+    row = {"shape": [b, t, h, d], "kv": kv, "tk": tk, "window": window,
+           "q_offset": q_offset, "route": route, "block_rows": rows,
+           "max_abs_err": err_o, "lse_err": err_l, "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+           "bound_by": by, "host_us": enqueue}
+    flash_rows.append(row)
+    say(f"  flash_fwd {row['shape']} kv={kv} tk={tk} window={window} "
+        f"q_offset={q_offset} [{route}, BQ {rows}]: kernel_ms {ms:.4f} "
+        f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
+        f"{bms:.5f} ({by}) o_err {err_o:.2e} lse_err {err_l:.2e} "
+        f"host_us {enqueue:.1f}")
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/23] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/24] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -877,55 +965,7 @@ def phase_kernels(torch):
     scale = 1.0 / math.sqrt(d)
     flash_rows = []
 
-    def flash_case(b, t, window, draw, kv=None, tk=None, q_offset=0, h=h,
-                   d=d):
-        kv = h if kv is None else kv
-        tk = t if tk is None else tk
-        scale = 1.0 / math.sqrt(d)
-        q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
-        o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window,
-                                      q_offset=q_offset)
-        route, rows = fwd_launched(torch, ta, q)
-        o_p, lse_p = ta.flash_attention_reference(
-            q, k, v, causal=True, scale=scale, window=window,
-            q_offset=q_offset)
-        torch.cuda.synchronize()
-        err_o = float((o_k.float() - o_p.float()).abs().max())
-        err_l = float((lse_k - lse_p).abs().max())
-        need(err_o <= FLASH_O_ATOL and err_l <= FLASH_LSE_ATOL,
-             f"flash_fwd [{b},{t},{h},{d}] kv={kv} tk={tk} window={window} "
-             f"q_offset={q_offset}: o err {err_o} lse err {err_l}")
-        ms = cuda_ms(torch, lambda: ta.flash_forward(
-            q, k, v, causal=True, window=window, q_offset=q_offset))
-        enqueue = host_us(torch, lambda: ta.flash_forward(
-            q, k, v, causal=True, window=window, q_offset=q_offset))
-        plain = cuda_ms(torch, lambda: ta.flash_attention_reference(
-            q, k, v, causal=True, scale=scale, window=window,
-            q_offset=q_offset))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        gqa = {"enable_gqa": True} if kv != h else {}
-        allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
-        if window is None and q_offset == 0 and tk == t:
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, **gqa))
-        else:
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=allow, **gqa))
-        pairs = b * int(allow.sum())
-        flops = 4 * pairs * h * d
-        bytes_ = (2 * b * t * h * d + 2 * b * tk * kv * d) * 2 + b * h * t * 4
-        bms, by = bound(bytes_, flops)
-        row = {"shape": [b, t, h, d], "kv": kv, "tk": tk, "window": window,
-               "q_offset": q_offset, "route": route, "block_rows": rows,
-               "max_abs_err": err_o, "lse_err": err_l, "ms": ms,
-               "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-               "bound_by": by, "host_us": enqueue}
-        flash_rows.append(row)
-        say(f"  flash_fwd {row['shape']} kv={kv} tk={tk} window={window} "
-            f"q_offset={q_offset} [{route}, BQ {rows}]: kernel_ms {ms:.4f} "
-            f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
-            f"{bms:.5f} ({by}) o_err {err_o:.2e} lse_err {err_l:.2e} "
-            f"host_us {enqueue:.1f}")
+    flash_case = functools.partial(_flash_case, torch, flash_rows)
 
     for b, t, window in [(1, 64, None), (1, 512, None), (1, 1000, None),
                          (4, 1024, None), (1, 512, 128)]:
@@ -1022,110 +1062,120 @@ def check_forward_routes(torch, ta, draw):
     say("  flash_fwd checks: " + "; ".join(out))
 
 
+def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
+              dtype=None, out_dtype=None, time_it=False, tk=None,
+              causal=True, dkv_rows=None):
+    """One case of the backward pair on the card (inputs from ``gen``):
+    each kernel against its plain version, reruns bit-identical, timed
+    beside SDPA's backward and the bound with ``time_it``."""
+    from tfmesos_tpu_torch.ops import attention as ta
+
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16 if dtype is None else dtype
+    tk = t if tk is None else tk
+    q, k, v, do = (torch.randn(s, generator=gen).to(dev, dtype)
+                   for s in ((b, t, h, d), (b, tk, kv, d),
+                             (b, tk, kv, d), (b, t, h, d)))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = ta.flash_forward(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    delta = ta._bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, scale, window, q_offset,
+            out_dtype)
+    got = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
+    routes = bwd_launched(ta, q, k)
+    # Deterministic: no atomics, so a second launch on the same
+    # inputs gives the same bits.
+    again = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
+    # flash_backward (what training calls: delta, then both kernels on
+    # operands checked and mapped once) gives the same bits as well.
+    whole = ta.flash_backward(q, k, v, o, lse, do, causal=causal,
+                              window=window, q_offset=q_offset,
+                              out_dtype=out_dtype)
+    ref = ((ta._flash_bwd_dq_reference(*args),)
+           + ta._flash_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    row = {"shape": [b, t, h, kv, d], "tk": tk, "causal": causal,
+           "window": window, "q_offset": q_offset,
+           "dtype": str(dtype).split(".")[-1],
+           "out_dtype": str(got[0].dtype).split(".")[-1],
+           "dq_route": list(routes["dq"]),
+           "dkv_route": list(routes["dkv"])}
+    need(dkv_rows is None or routes["dkv"][1] == dkv_rows,
+         f"flash_bwd {row}: dk/dv took {routes['dkv'][1]} keys a CTA, "
+         f"the case is built for {dkv_rows}")
+    need(all(torch.equal(x, y) for x, y in zip(got, again)),
+         f"flash_bwd {row}: two launches on the same inputs differ")
+    need(all(torch.equal(x, y) for x, y in zip(got, whole)),
+         f"flash_bwd {row}: flash_backward differs from the two "
+         f"kernels launched alone")
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        err = float((g_.float() - r_.float()).abs().max())
+        mag = float(r_.float().abs().max())
+        tol = (BWD_F32_ATOL if dtype == torch.float32
+               else BWD_REL_TOL * max(1.0, mag))
+        need(bool(torch.isfinite(g_).all()) and err <= tol,
+             f"flash_bwd {name} {row}: err {err} > tol {tol} (max "
+             f"|ref| {mag})")
+        row[f"{name}_err"], row[f"{name}_tol"] = err, tol
+    if not time_it:
+        return row
+    allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
+    pairs = b * h * int(allow.sum())            # visible (q, k) pairs
+    qbytes, kbytes = b * t * h * d * 2, b * tk * kv * d * 2
+    ins = 2 * qbytes + 2 * kbytes + 2 * b * h * t * 4
+    row["dq_bound_ms"], row["dq_bound_by"] = bound(ins + qbytes,
+                                                   6 * d * pairs)
+    row["dkv_bound_ms"], row["dkv_bound_by"] = bound(ins + 2 * kbytes,
+                                                     8 * d * pairs)
+    big = b * t >= 8192
+    reps, n = (3, 5) if big else (5, 20)
+    row["dq_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dq(*args))
+    row["dkv_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dkv(*args))
+    # The whole backward as training calls it (delta included), like
+    # for like with SDPA's backward below.
+    row["backward_ms"] = cuda_ms(torch, lambda: ta.flash_backward(
+        q, k, v, o, lse, do, causal=causal, window=window,
+        q_offset=q_offset))
+    row["dq_plain_ms"] = cuda_ms(
+        torch, lambda: ta._flash_bwd_dq_reference(*args), reps, n)
+    row["dkv_plain_ms"] = cuda_ms(
+        torch, lambda: ta._flash_bwd_dkv_reference(*args), reps, n)
+    # Yardstick: SDPA's backward alone (dq, dk and dv in one call).
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    row["pair_over_library"] = ((row["dq_ms"] + row["dkv_ms"])
+                                / row["library_ms"])
+    say(f"  flash_bwd {row['shape']} [dq {routes['dq'][0]} BQ "
+        f"{routes['dq'][1]} BK {routes['dq'][2]}, dkv "
+        f"{routes['dkv'][0]} BKV {routes['dkv'][1]} BT "
+        f"{routes['dkv'][2]}]: dq kernel_ms {row['dq_ms']:.4f} "
+        f"plain_ms {row['dq_plain_ms']:.4f} bound_ms "
+        f"{row['dq_bound_ms']:.5f} ({row['dq_bound_by']}); dkv "
+        f"kernel_ms {row['dkv_ms']:.4f} plain_ms "
+        f"{row['dkv_plain_ms']:.4f} bound_ms {row['dkv_bound_ms']:.5f} "
+        f"({row['dkv_bound_by']}); flash_backward (delta included) "
+        f"{row['backward_ms']:.4f}; SDPA backward library_ms "
+        f"{row['library_ms']:.4f}; (dq + dkv) / library "
+        f"{row['pair_over_library']:.2f}; err dq {row['dq_err']:.2e} "
+        f"dk {row['dk_err']:.2e} dv {row['dv_err']:.2e}; two launches "
+        f"and flash_backward bit-identical")
+    return row
+
+
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/23] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/24] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
-    def case(b, t, h, kv, d, window=None, q_offset=0,
-             dtype=torch.bfloat16, out_dtype=None, time_it=False, tk=None,
-             causal=True, dkv_rows=None):
-        tk = t if tk is None else tk
-        q, k, v, do = (torch.randn(s, generator=gen).to(dev, dtype)
-                       for s in ((b, t, h, d), (b, tk, kv, d),
-                                 (b, tk, kv, d), (b, t, h, d)))
-        scale = 1.0 / math.sqrt(d)
-        o, lse = ta.flash_forward(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset)
-        delta = ta._bwd_delta(o, do)
-        args = (q, k, v, do, lse, delta, causal, scale, window, q_offset,
-                out_dtype)
-        got = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
-        routes = bwd_launched(ta, q, k)
-        # Deterministic: no atomics, so a second launch on the same
-        # inputs gives the same bits.
-        again = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
-        # flash_backward (what training calls: delta, then both kernels on
-        # operands checked and mapped once) gives the same bits as well.
-        whole = ta.flash_backward(q, k, v, o, lse, do, causal=causal,
-                                  window=window, q_offset=q_offset,
-                                  out_dtype=out_dtype)
-        ref = ((ta._flash_bwd_dq_reference(*args),)
-               + ta._flash_bwd_dkv_reference(*args))
-        torch.cuda.synchronize()
-        row = {"shape": [b, t, h, kv, d], "tk": tk, "causal": causal,
-               "window": window, "q_offset": q_offset,
-               "dtype": str(dtype).split(".")[-1],
-               "out_dtype": str(got[0].dtype).split(".")[-1],
-               "dq_route": list(routes["dq"]),
-               "dkv_route": list(routes["dkv"])}
-        need(dkv_rows is None or routes["dkv"][1] == dkv_rows,
-             f"flash_bwd {row}: dk/dv took {routes['dkv'][1]} keys a CTA, "
-             f"the case is built for {dkv_rows}")
-        need(all(torch.equal(x, y) for x, y in zip(got, again)),
-             f"flash_bwd {row}: two launches on the same inputs differ")
-        need(all(torch.equal(x, y) for x, y in zip(got, whole)),
-             f"flash_bwd {row}: flash_backward differs from the two "
-             f"kernels launched alone")
-        for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
-            err = float((g_.float() - r_.float()).abs().max())
-            mag = float(r_.float().abs().max())
-            tol = (BWD_F32_ATOL if dtype == torch.float32
-                   else BWD_REL_TOL * max(1.0, mag))
-            need(bool(torch.isfinite(g_).all()) and err <= tol,
-                 f"flash_bwd {name} {row}: err {err} > tol {tol} (max "
-                 f"|ref| {mag})")
-            row[f"{name}_err"], row[f"{name}_tol"] = err, tol
-        if not time_it:
-            return row
-        allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
-        pairs = b * h * int(allow.sum())            # visible (q, k) pairs
-        qbytes, kbytes = b * t * h * d * 2, b * tk * kv * d * 2
-        ins = 2 * qbytes + 2 * kbytes + 2 * b * h * t * 4
-        row["dq_bound_ms"], row["dq_bound_by"] = bound(ins + qbytes,
-                                                       6 * d * pairs)
-        row["dkv_bound_ms"], row["dkv_bound_by"] = bound(ins + 2 * kbytes,
-                                                         8 * d * pairs)
-        big = b * t >= 8192
-        reps, n = (3, 5) if big else (5, 20)
-        row["dq_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dq(*args))
-        row["dkv_ms"] = cuda_ms(torch, lambda: ta.flash_bwd_dkv(*args))
-        # The whole backward as training calls it (delta included), like
-        # for like with SDPA's backward below.
-        row["backward_ms"] = cuda_ms(torch, lambda: ta.flash_backward(
-            q, k, v, o, lse, do, causal=causal, window=window,
-            q_offset=q_offset))
-        row["dq_plain_ms"] = cuda_ms(
-            torch, lambda: ta._flash_bwd_dq_reference(*args), reps, n)
-        row["dkv_plain_ms"] = cuda_ms(
-            torch, lambda: ta._flash_bwd_dkv_reference(*args), reps, n)
-        # Yardstick: SDPA's backward alone (dq, dk and dv in one call).
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
-        dot = do.transpose(1, 2).contiguous()
-        row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
-        row["pair_over_library"] = ((row["dq_ms"] + row["dkv_ms"])
-                                    / row["library_ms"])
-        say(f"  flash_bwd {row['shape']} [dq {routes['dq'][0]} BQ "
-            f"{routes['dq'][1]} BK {routes['dq'][2]}, dkv "
-            f"{routes['dkv'][0]} BKV {routes['dkv'][1]} BT "
-            f"{routes['dkv'][2]}]: dq kernel_ms {row['dq_ms']:.4f} "
-            f"plain_ms {row['dq_plain_ms']:.4f} bound_ms "
-            f"{row['dq_bound_ms']:.5f} ({row['dq_bound_by']}); dkv "
-            f"kernel_ms {row['dkv_ms']:.4f} plain_ms "
-            f"{row['dkv_plain_ms']:.4f} bound_ms {row['dkv_bound_ms']:.5f} "
-            f"({row['dkv_bound_by']}); flash_backward (delta included) "
-            f"{row['backward_ms']:.4f}; SDPA backward library_ms "
-            f"{row['library_ms']:.4f}; (dq + dkv) / library "
-            f"{row['pair_over_library']:.2f}; err dq {row['dq_err']:.2e} "
-            f"dk {row['dk_err']:.2e} dv {row['dv_err']:.2e}; two launches "
-            f"and flash_backward bit-identical")
-        return row
+    case = functools.partial(_bwd_case, torch, gen)
 
     timed = [case(8, 2048, 8, 8, 64, time_it=True),
              case(1, 512, 8, 8, 64, time_it=True)]
@@ -1168,7 +1218,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/23] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/24] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1345,7 +1395,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/23] teacher-forced check vs float32 CPU forward "
+    say(f"[6/24] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1396,7 +1446,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/23] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/24] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1406,7 +1456,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/23] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/24] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1476,7 +1526,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/23] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/24] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -1517,6 +1567,88 @@ def _lane_int8(tq, cache):
     return tq.QTensor(vals, scales.squeeze(-1).unsqueeze(-2).contiguous())
 
 
+def _decode_case(torch, randn, decode_rows, b, t, h, kv, m, d, pos, dtype,
+                 int8, time_it):
+    """One flash_decode case on the card (inputs from ``randn(shape,
+    dtype)``) against its plain and split versions, timed beside SDPA
+    and the bound with ``time_it``; the row goes to ``decode_rows``."""
+    import torch.nn.functional as F
+
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    dev = torch.device("cuda")
+    layer = 1
+    q = randn((b, t, h, d), dtype)
+    kc, vc = randn((2, b, kv, m, d), dtype), randn((2, b, kv, m, d), dtype)
+    if int8:
+        kc, vc = _lane_int8(tq, kc), _lane_int8(tq, vc)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = ta.flash_decode(q, kc, vc, posv, layer=layer)
+    splits = decode_launched(ta, q, kc.values if int8 else kc)
+    ref = ta.flash_decode_reference(q, kc, vc, posv, layer=layer)
+    split_ref = ta._decode_split_reference(q, kc, vc, posv, None, splits,
+                                           layer=layer)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    err_row = row_err(out, ref)
+    err_split = row_err(out, split_ref)
+    bf = dtype == torch.bfloat16
+    tol = DECODE_ATOL if bf else DECODE_F32_ATOL
+    split_tol = SPLIT_BF16_TOL if bf else SPLIT_F32_TOL
+    shape = {"b": b, "t": t, "h": h, "kv": kv, "m": m, "d": d,
+             "pos": pos, "dtype": str(dtype).split(".")[-1],
+             "int8": int8}
+    need(bool(torch.isfinite(out).all()) and err <= tol
+         and err_row <= tol and err_split <= split_tol,
+         f"flash_decode {shape}: err {err}, per row {err_row} (tol "
+         f"{tol}); per row against the S {splits} split reference "
+         f"{err_split} (tol {split_tol})")
+    row = {"shape": shape, "max_abs_err": err, "row_err": err_row,
+           "tol": tol, "split_ref_row_err": err_split,
+           "split_tol": split_tol, "splits": splits}
+    if time_it:
+        row["ms"] = cuda_ms(torch, lambda: ta.flash_decode(
+            q, kc, vc, posv, layer=layer))
+        row["host_us"] = host_us(torch, lambda: ta.flash_decode(
+            q, kc, vc, posv, layer=layer))
+        row["plain_ms"] = cuda_ms(torch, lambda: ta.flash_decode_reference(
+            q, kc, vc, posv, layer=layer))
+        # Yardstick: SDPA over the live prefix of the layer's cache
+        # (MHA, t = 1, every row at the same position; an int8 cache
+        # dequantized first, outside the timing).
+        if int8:
+            kl, vl = (ta._dequant_lane_major(tq.QTensor(
+                c.values[layer], c.scales[layer]), dtype)
+                for c in (kc, vc))
+        else:
+            kl, vl = kc[layer], vc[layer]
+        kl, vl = kl[:, :, :pos[0] + 1], vl[:, :, :pos[0] + 1]
+        qh = q.transpose(1, 2)
+        row["library_ms"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(qh, kl, vl))
+        live = sum(p + t for p in pos)       # positions read per head
+        item = 1 if int8 else torch.finfo(dtype).bits // 8
+        qbytes = b * t * h * d * torch.finfo(dtype).bits // 8
+        bytes_ = (2 * live * kv * d * item + (8 * live * kv if int8
+                                               else 0)
+                  + 2 * qbytes + 4 * b)
+        keys = sum(p + tt + 1 for p in pos for tt in range(t))
+        row["bound_ms"], row["bound_by"] = bound(bytes_,
+                                                 4 * keys * h * d)
+        say(f"  flash_decode {shape} [S {splits}]: kernel_ms "
+            f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+            f"library_ms {row['library_ms']:.4f} bound_ms "
+            f"{row['bound_ms']:.5f} ({row['bound_by']}) err {err:.2e} "
+            f"row_err {err_row:.2e} split_ref_row_err {err_split:.2e} "
+            f"host_us {row['host_us']:.1f}")
+    else:
+        say(f"  flash_decode check {shape} [S {splits}]: err {err:.2e} "
+            f"row_err {err_row:.2e} (tol {tol}) split_ref_row_err "
+            f"{err_split:.2e} (tol {split_tol})")
+    decode_rows.append(row)
+
+
 def phase_decode_kernels(torch):
     """Phase 3, continued: the linear-cache decode kernel, the paged
     kernel's int8 fold and the int8 quantize kernel, each against its
@@ -1539,76 +1671,8 @@ def phase_decode_kernels(torch):
 
     decode_rows = []
 
-    def decode_case(b, t, h, kv, m, d, pos, dtype, int8, time_it):
-        layer = 1
-        q = randn((b, t, h, d), dtype)
-        kc, vc = randn((2, b, kv, m, d), dtype), randn((2, b, kv, m, d), dtype)
-        if int8:
-            kc, vc = _lane_int8(tq, kc), _lane_int8(tq, vc)
-        posv = torch.tensor(pos, dtype=torch.int32, device=dev)
-        out = ta.flash_decode(q, kc, vc, posv, layer=layer)
-        splits = decode_launched(ta, q, kc.values if int8 else kc)
-        ref = ta.flash_decode_reference(q, kc, vc, posv, layer=layer)
-        split_ref = ta._decode_split_reference(q, kc, vc, posv, None, splits,
-                                               layer=layer)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        err_row = row_err(out, ref)
-        err_split = row_err(out, split_ref)
-        bf = dtype == torch.bfloat16
-        tol = DECODE_ATOL if bf else DECODE_F32_ATOL
-        split_tol = SPLIT_BF16_TOL if bf else SPLIT_F32_TOL
-        shape = {"b": b, "t": t, "h": h, "kv": kv, "m": m, "d": d,
-                 "pos": pos, "dtype": str(dtype).split(".")[-1],
-                 "int8": int8}
-        need(bool(torch.isfinite(out).all()) and err <= tol
-             and err_row <= tol and err_split <= split_tol,
-             f"flash_decode {shape}: err {err}, per row {err_row} (tol "
-             f"{tol}); per row against the S {splits} split reference "
-             f"{err_split} (tol {split_tol})")
-        row = {"shape": shape, "max_abs_err": err, "row_err": err_row,
-               "tol": tol, "split_ref_row_err": err_split,
-               "split_tol": split_tol, "splits": splits}
-        if time_it:
-            row["ms"] = cuda_ms(torch, lambda: ta.flash_decode(
-                q, kc, vc, posv, layer=layer))
-            row["host_us"] = host_us(torch, lambda: ta.flash_decode(
-                q, kc, vc, posv, layer=layer))
-            row["plain_ms"] = cuda_ms(torch, lambda: ta.flash_decode_reference(
-                q, kc, vc, posv, layer=layer))
-            # Yardstick: SDPA over the live prefix of the layer's cache
-            # (MHA, t = 1, every row at the same position; an int8 cache
-            # dequantized first, outside the timing).
-            if int8:
-                kl, vl = (ta._dequant_lane_major(tq.QTensor(
-                    c.values[layer], c.scales[layer]), dtype)
-                    for c in (kc, vc))
-            else:
-                kl, vl = kc[layer], vc[layer]
-            kl, vl = kl[:, :, :pos[0] + 1], vl[:, :, :pos[0] + 1]
-            qh = q.transpose(1, 2)
-            row["library_ms"] = cuda_ms(
-                torch, lambda: F.scaled_dot_product_attention(qh, kl, vl))
-            live = sum(p + t for p in pos)       # positions read per head
-            item = 1 if int8 else torch.finfo(dtype).bits // 8
-            qbytes = b * t * h * d * torch.finfo(dtype).bits // 8
-            bytes_ = (2 * live * kv * d * item + (8 * live * kv if int8
-                                                   else 0)
-                      + 2 * qbytes + 4 * b)
-            keys = sum(p + tt + 1 for p in pos for tt in range(t))
-            row["bound_ms"], row["bound_by"] = bound(bytes_,
-                                                     4 * keys * h * d)
-            say(f"  flash_decode {shape} [S {splits}]: kernel_ms "
-                f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-                f"library_ms {row['library_ms']:.4f} bound_ms "
-                f"{row['bound_ms']:.5f} ({row['bound_by']}) err {err:.2e} "
-                f"row_err {err_row:.2e} split_ref_row_err {err_split:.2e} "
-                f"host_us {row['host_us']:.1f}")
-        else:
-            say(f"  flash_decode check {shape} [S {splits}]: err {err:.2e} "
-                f"row_err {err_row:.2e} (tol {tol}) split_ref_row_err "
-                f"{err_split:.2e} (tol {split_tol})")
-        decode_rows.append(row)
+    decode_case = functools.partial(_decode_case, torch, randn,
+                                    decode_rows)
 
     bf16, f32 = torch.bfloat16, torch.float32
     decode_case(4, 1, 8, 8, 16384, 64, [1024] * 4, bf16, False, True)
@@ -1933,6 +1997,62 @@ def _today_paged(torch, tq, kp, vp, ks, vs, table, pos):
             b * t, n, kvh)
 
 
+def _commit_case(torch, rows, label, kc, vc, ks, vs, pos, today, layer=0,
+                 table=None):
+    """One int8 commit case on the card: the kernel's cache bit-equal to
+    the plain commit (but the sink page), one launch, timed beside the
+    plain commit and ``today``'s sequence; the row goes to ``rows``."""
+    from tfmesos_tpu_torch.ops import quant as tq
+
+    def clone(q):
+        return tq.QTensor(q.values.clone(), q.scales.clone())
+
+    got_k, got_v, ref_k, ref_v = clone(kc), clone(vc), clone(kc), clone(vc)
+    zero_launches()
+    tq.commit_int8(got_k, got_v, ks, vs, pos, layer=layer,
+                   page_table=table)
+    launched = read_launches()["quant_int8_commit"]
+    tq.commit_int8_reference(ref_k, ref_v, ks, vs, pos, layer=layer,
+                             page_table=table)
+    torch.cuda.synchronize()
+    keep = slice(None) if table is None else slice(1, None)  # no sink
+    err = 0.0
+    for got, ref in ((got_k, ref_k), (got_v, ref_v)):
+        gv, rv = got.values[:, keep], ref.values[:, keep]
+        gs, rs = got.scales[:, keep], ref.scales[:, keep]
+        err = max(err, float((gv.float() - rv.float()).abs().max()),
+                  float((gs - rs).abs().max()))
+        need(torch.equal(gv, rv) and torch.equal(gs, rs),
+             f"quant_int8 commit {label}: cache not bit-equal to the "
+             f"plain commit (err {err})")
+    need(launched == 1, f"quant_int8 commit {label}: {launched} "
+         f"launches, not 1")
+    ms = cuda_ms(torch, lambda: tq.commit_int8(
+        got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
+    plain = cuda_ms(torch, lambda: tq.commit_int8_reference(
+        ref_k, ref_v, ks, vs, pos, layer=layer, page_table=table))
+    seq = cuda_ms(torch, lambda: today(ref_k, ref_v))
+    ops = device_ops(torch, lambda: tq.commit_int8(
+        got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
+    seq_ops = device_ops(torch, lambda: today(ref_k, ref_v))
+    n = sum(x.numel() for x in list(ks) + list(vs))
+    slots = n // ks[0].shape[-1]
+    by_table = 0 if table is None else 4 * table.numel()
+    bms, by = bound(n * ks[0].element_size() + n + 4 * slots
+                    + 8 * pos.numel() + by_table, 5 * n, F32_FLOPS)
+    row = {"shape": [len(ks), *ks[0].shape], "leaf": f"commit {label}",
+           "leaves": 0, "dtype": str(ks[0].dtype).split(".")[-1],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "today_sequence_ms": seq, "device_ops": ops,
+           "today_sequence_device_ops": seq_ops, "library_ms": None,
+           "bound_ms": bms, "bound_by": by}
+    rows.append(row)
+    say(f"  quant_int8 commit {label}: kernel_ms {ms:.4f} ({ops} device "
+        f"op) today's sequence {seq:.4f} ({seq_ops} device ops) "
+        f"plain_ms {plain:.4f} bound_ms {bms:.6f} ({by}); cache "
+        f"bit-equal to the plain commit")
+
+
 def check_commit(torch, randn):
     """Phase 3, the int8 kernel's commit entry: K and V chunks quantized
     into an int8 cache in one launch, the whole cache bit-equal to the
@@ -1957,51 +2077,7 @@ def check_commit(torch, randn):
 
     rows = []
 
-    def case(label, kc, vc, ks, vs, pos, today, layer=0, table=None):
-        got_k, got_v, ref_k, ref_v = clone(kc), clone(vc), clone(kc), clone(vc)
-        zero_launches()
-        tq.commit_int8(got_k, got_v, ks, vs, pos, layer=layer,
-                       page_table=table)
-        launched = read_launches()["quant_int8_commit"]
-        tq.commit_int8_reference(ref_k, ref_v, ks, vs, pos, layer=layer,
-                                 page_table=table)
-        torch.cuda.synchronize()
-        keep = slice(None) if table is None else slice(1, None)  # no sink
-        err = 0.0
-        for got, ref in ((got_k, ref_k), (got_v, ref_v)):
-            gv, rv = got.values[:, keep], ref.values[:, keep]
-            gs, rs = got.scales[:, keep], ref.scales[:, keep]
-            err = max(err, float((gv.float() - rv.float()).abs().max()),
-                      float((gs - rs).abs().max()))
-            need(torch.equal(gv, rv) and torch.equal(gs, rs),
-                 f"quant_int8 commit {label}: cache not bit-equal to the "
-                 f"plain commit (err {err})")
-        need(launched == 1, f"quant_int8 commit {label}: {launched} "
-             f"launches, not 1")
-        ms = cuda_ms(torch, lambda: tq.commit_int8(
-            got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
-        plain = cuda_ms(torch, lambda: tq.commit_int8_reference(
-            ref_k, ref_v, ks, vs, pos, layer=layer, page_table=table))
-        seq = cuda_ms(torch, lambda: today(ref_k, ref_v))
-        ops = device_ops(torch, lambda: tq.commit_int8(
-            got_k, got_v, ks, vs, pos, layer=layer, page_table=table))
-        seq_ops = device_ops(torch, lambda: today(ref_k, ref_v))
-        n = sum(x.numel() for x in list(ks) + list(vs))
-        slots = n // ks[0].shape[-1]
-        by_table = 0 if table is None else 4 * table.numel()
-        bms, by = bound(n * ks[0].element_size() + n + 4 * slots
-                        + 8 * pos.numel() + by_table, 5 * n, F32_FLOPS)
-        row = {"shape": [len(ks), *ks[0].shape], "leaf": f"commit {label}",
-               "leaves": 0, "dtype": str(ks[0].dtype).split(".")[-1],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain,
-               "today_sequence_ms": seq, "device_ops": ops,
-               "today_sequence_device_ops": seq_ops, "library_ms": None,
-               "bound_ms": bms, "bound_by": by}
-        rows.append(row)
-        say(f"  quant_int8 commit {label}: kernel_ms {ms:.4f} ({ops} device "
-            f"op) today's sequence {seq:.4f} ({seq_ops} device ops) "
-            f"plain_ms {plain:.4f} bound_ms {bms:.6f} ({by}); cache "
-            f"bit-equal to the plain commit")
+    case = functools.partial(_commit_case, torch, rows)
 
     # int8 generate: the linear cache of phase 10, layer 3.
     kc = _lane_int8(tq, randn((L, B, KV, 384, D)))
@@ -2226,7 +2302,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/23] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/24] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2291,7 +2367,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/23] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/24] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2377,7 +2453,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/23] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/24] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2474,7 +2550,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/23] sampled serving and generation: phase 5's traffic at "
+    say("[13/24] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2788,7 +2864,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/23] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/24] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2867,7 +2943,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/23] export/import, preemption and rolling caches: flagship")
+    say("[15/24] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3113,7 +3189,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/23] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/24] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3369,7 +3445,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/23] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/24] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -4008,7 +4084,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/23] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/24] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4359,7 +4435,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/23] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/24] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5143,7 +5219,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/23] speculative decoding, the static prefix and weight swaps: "
+    say("[20/24] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5801,7 +5877,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/23] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/24] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6336,7 +6412,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/23] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/24] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6641,7 +6717,7 @@ def phase_surface(torch, np, train):
                                                     CheckpointManager)
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[23/23] the reference's surface: plus, tfrun, Mode A under the "
+    say("[23/24] the reference's surface: plus, tfrun, Mode A under the "
         "elastic policy, mnist_replica (ranks share the card over gloo)")
     dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
     device = torch.device(SURFACE_DEVICE or "cuda")
@@ -6836,6 +6912,409 @@ def phase_surface(torch, np, train):
     return out
 
 
+# -- phase 24: the mesh (dp/fsdp x tp over ranks sharing the card) -----------
+
+# Serving (b, c): phase 5's traffic through ``serve --mesh`` under tfrun.
+MESH_SERVE_ARGV = ["--continuous", "--batch", "8", "--n-prompts", "16",
+                   "--prompt-len", "8,700", "--new-tokens", "32",
+                   "--max-len", "1024", "--stats"]
+# Training (d): phase 8's shape, 4 steps; phase 9's gates.
+MESH_TRAIN_ARGV = ["--batch_size", "8", "--seq_len", "2048"]
+MESH_TRAIN_STEPS = 4
+MESH_DLOSS = 2e-2
+MESH_MIN_COS = 0.99
+# fsdp=2: a rank's params and AdamW state against one process's, by
+# torch.cuda.memory_allocated after the first step less what stays
+# allocated once the run is freed (cuBLAS workspaces and the kernels'
+# scratch, which the process keeps): half, plus the whole norms and the
+# step's small buffers.
+MESH_FSDP_MEM = (0.4, 0.6)
+
+
+def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir=None):
+    """Dispatched to every rank of a Mode-A gang (phase 24 (d), (e)):
+    ``transformer_train``'s run over the mesh ``mesh_spec`` (its
+    params and AdamW state cut per ``partition_specs``), at phase 8's
+    shape.  The first step's gradients are taken once more by hand,
+    averaged as the step averages them and gathered whole; then
+    ``steps`` steps train (the first alone, to read
+    ``torch.cuda.memory_allocated``), their launches counted and the
+    gloo collectives timed; with ``ckpt_dir`` the state is saved (rank
+    0 writes) and each whole leaf's digest returned.  Rank 0 then runs
+    one process over the global batch (every data shard's rows) and
+    returns each gradient leaf's cosine with the mesh's, both runs'
+    losses and memory."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tfmesos_tpu_torch import graphs
+    from tfmesos_tpu_torch import transformer_train as tr
+    from tfmesos_tpu_torch.cli import parse_mesh
+    from tfmesos_tpu_torch.convert import flatten, unflatten
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.parallel import sharding
+    from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
+    from tfmesos_tpu_torch.train.trainer import (_flat_specs,
+                                                 sharded_grad_mean)
+
+    dev = ctx.device
+    args = tr.parse_args([*MESH_TRAIN_ARGV, "--steps", str(steps),
+                          "--mesh", mesh_spec])
+    mesh = ctx.mesh(parse_mesh(mesh_spec))
+    run = tr.setup(args, dev, start_step=None, rank=ctx.rank,
+                   world_size=ctx.world_size, mesh=mesh)
+    index, shards = tr.data_shard(mesh, ctx.rank, ctx.world_size)
+    first = next(tr.data_stream(args, run.cfg, run.seq_len, 0, index,
+                                shards))
+    batch = {"tokens": torch.from_numpy(first["tokens"]).to(dev)}
+    flat = flatten(run.params)
+    loss, _ = tt.loss_fn(run.cfg, run.params, batch, mesh=mesh)
+    grads = sharded_grad_mean(
+        list(torch.autograd.grad(loss, list(flat.values()))),
+        _flat_specs(run.specs, list(flat)), mesh)
+    whole = flatten(sharding.gather_tree(
+        mesh, unflatten(dict(zip(flat, grads))), run.specs))
+    whole = None if ctx.rank else {k: v.cpu() for k, v in whole.items()}
+    del grads, loss
+    graphs.zero_launches()
+    run.params, run.opt_state, m = run.step(run.params, run.opt_state,
+                                            batch)
+    first_loss = float(m["loss"])
+    del m
+    gc.collect()
+    mem = torch.cuda.memory_allocated(dev)
+    run.batches = tr.data_stream(args, run.cfg, run.seq_len, 1, index,
+                                 shards)
+    # The gloo collectives of the later steps, timed on the host (gloo
+    # stages a CUDA tensor through host memory, so the call blocks).
+    spent = [0.0]
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for n, fn in orig.items():
+        setattr(dist, n, timed(fn))
+    try:
+        rest = tr.train(run, steps, log=None, start_step=1)
+    finally:
+        for n, fn in orig.items():
+            setattr(dist, n, fn)
+    launches = graphs.launch_counts()
+    out = {"rank": ctx.rank, "losses": [first_loss] + rest["losses"],
+           "launches": launches,
+           "ms_per_step": rest["elapsed_s"] / (steps - 1) * 1e3,
+           "collective_ms_per_step": spent[0] / (steps - 1) * 1e3}
+    if ckpt_dir is not None:
+        ckpt = CheckpointManager(ckpt_dir, mesh=mesh, param_specs=run.specs)
+        ckpt.save(steps, (run.params, run.opt_state))
+        ckpt.close()
+        out["digests"] = {k: hashlib.sha256(
+            v.float().cpu().numpy().tobytes()).hexdigest()
+            for k, v in flatten(sharding.gather_tree(
+                mesh, run.params, run.specs)).items()}
+    cfg, seq_len = run.cfg, run.seq_len
+    del run, flat, first, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mem_bytes"] = mem - torch.cuda.memory_allocated(dev)
+    if ctx.rank:
+        return out
+    # One process over the global batch: every data shard's rows.
+    streams = [tr.data_stream(args, cfg, seq_len, 0, i, shards)
+               for i in range(shards)]
+    glob = [{"tokens": np.concatenate([next(s)["tokens"] for s in streams])}
+            for _ in range(steps)]
+    ref = tr.setup(tr.parse_args([*MESH_TRAIN_ARGV, "--steps", str(steps)]),
+                   dev, start_step=None)
+    rflat = flatten(ref.params)
+    rloss, _ = tt.loss_fn(ref.cfg, ref.params, {
+        "tokens": torch.from_numpy(glob[0]["tokens"]).to(dev)})
+    rgrads = torch.autograd.grad(rloss, list(rflat.values()))
+    cos = {}
+    for (k, g), r in zip(whole.items(), rgrads):
+        g, r = g.float().flatten(), r.float().cpu().flatten()
+        cos[k] = float(torch.dot(g, r) / (g.norm() * r.norm() + 1e-30))
+    del rgrads, rloss, whole
+    ref.params, ref.opt_state, m = ref.step(ref.params, ref.opt_state, {
+        "tokens": torch.from_numpy(glob[0]["tokens"]).to(dev)})
+    first_loss = float(m["loss"])
+    del m
+    gc.collect()
+    ref_mem = torch.cuda.memory_allocated(dev)
+    ref.batches = iter(glob[1:])
+    rrest = tr.train(ref, steps, log=None, start_step=1)
+    del ref, rflat
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ref_mem_bytes"] = ref_mem - torch.cuda.memory_allocated(dev)
+    out.update(ref_losses=[first_loss] + rrest["losses"], cosines=cos,
+               ref_ms_per_step=rrest["elapsed_s"] / (steps - 1) * 1e3)
+    return out
+
+
+def mesh_serve(axes: str, n: int, extra, reqs, refs, next_logits, int8,
+               label):
+    """``serve --continuous --mesh axes`` on phase 5's traffic under
+    ``tfrun -w n``: rank 0's streams against ``refs`` by the margin rule
+    (every rank checked its digest against rank 0's), each rank's
+    launches exact (rows 1 and 5 at 8 a prefill it ran and a tick, row
+    6 at one commit each over an int8 pool, the merges at 8 a split
+    tick), the graphs bypass named, and every data shard's sub-pool
+    recycled to its sink."""
+    stdout, _, secs = child(
+        ["tfmesos_tpu_torch.cli", "run", "-w", str(n), "-s", "0", "--mesh",
+         axes, "--worker-logs", "*", "--", sys.executable, "-m",
+         "tfmesos_tpu_torch.serve", "--mesh", axes, *MESH_SERVE_ARGV,
+         *extra], 900)
+    comps = [json.loads(j) for j in re.findall(
+        r"^\[worker:0\] (\{\"rid\".*\})$", stdout, re.M)]
+    stats = {int(r): json.loads(j) for r, j in re.findall(
+        r"^\[worker:(\d+)\] stats (\{.*\})$", stdout, re.M)}
+    need(len(comps) == len(refs) and sorted(stats) == list(range(n)),
+         f"(serve {label}) {len(comps)} completions, stats of ranks "
+         f"{sorted(stats)}: {stdout[-3000:]}")
+    need([c["prompt_len"] for c in sorted(comps, key=lambda c: c["rid"])]
+         == [int(r.prompt.size) for r in reqs],
+         f"(serve {label}) not phase 5's traffic")
+    got = {c["rid"]: [c["tokens"]] for c in comps}
+    identical, near, total = margin_all(dict(enumerate(refs)), got,
+                                        next_logits, f"serve {label}")
+    tp = 2 if "tp=2" in axes else 1
+    launches = collections.Counter()
+    for r, st in sorted(stats.items()):
+        got_l, ph, tk = st["launches"], st["prefills_here"], \
+            st["decode_ticks"]
+        what = f"serve {label} rank {r}"
+        need(got_l["flash_fwd"] == 8 * ph
+             and got_l["flash_decode_paged"] == 8 * tk,
+             f"{what}: {got_l} for {ph} prefills and {tk} ticks")
+        merges = got_l["flash_decode_paged_merge"]
+        need(merges % 8 == 0 and merges <= 8 * tk,
+             f"{what}: {merges} merges for {tk} ticks")
+        need(got_l["quant_int8_commit"] == ((ph + tk) if int8 else 0),
+             f"{what}: {got_l['quant_int8_commit']} commits")
+        for key in ("flash_decode", "flash_decode_merge", "flash_bwd_dq",
+                    "flash_bwd_dkv", "quant_int8"):
+            need(got_l[key] == 0, f"{what}: {key} launched {got_l[key]}")
+        need(st["graphs_bypass_reason"] == "gloo collectives",
+             f"{what}: graphs bypass {st['graphs_bypass_reason']!r}")
+        need(all(f == st["n_pages_per_shard"] - 1
+                 for f in st["free_by_shard"]),
+             f"{what}: sub-pools not recycled: {st['free_by_shard']} of "
+             f"{st['n_pages_per_shard']}")
+        need(stats[r - r % tp]["prefills_here"] == ph,
+             f"{what}: its tp peers ran other prefills")
+        launches.update(got_l)
+    shards_pre = sum(st["prefills_here"] for st in stats.values()) // tp
+    need(shards_pre == len(refs), f"serve {label}: the data shards ran "
+         f"{shards_pre} prefills for {len(refs)} requests")
+    ms_tick = statistics.median(st["ms_per_tick"] for st in stats.values())
+    out = {"s": secs, "identical": identical, "near_ties": near,
+           "streams": total, "ms_per_tick": ms_tick,
+           "graphs_bypass_reason": stats[0]["graphs_bypass_reason"],
+           "per_rank": {r: {k: st[k] for k in ("prefills_here",
+                                                "decode_ticks",
+                                                "ms_per_tick",
+                                                "free_by_shard")}
+                        for r, st in stats.items()},
+           "launches": {k: launches[k] for k in read_launches()}}
+    say(f"  (serve {label}) {n} ranks in {secs:.1f} s: {identical}/{total} "
+        f"streams identical to one process, {near} near-ties (margin "
+        f"{MARGIN}), equal on every rank; {ms_tick:.2f} ms a tick eager "
+        f"(graphs bypassed: {out['graphs_bypass_reason']}); every rank's "
+        f"launches exact, every data shard's sub-pool recycled")
+    return out
+
+
+def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
+    """Phase 24: the kernels at the per-rank shapes (a), ``serve --mesh``
+    over tp=2 (b) and dp2 x tp2 (c), training over tp=2 and fsdp=2 (d)
+    and the checkpoint round trip (e)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from tfmesos_tpu_torch import Job, cluster
+    from tfmesos_tpu_torch import transformer_train as tr
+    from tfmesos_tpu_torch.convert import flatten
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.ops import quant as tq
+    from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
+
+    say("[24/24] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
+        "dp=2,tp=2, training over tp=2 and fsdp=2, a checkpoint across "
+        "meshes (ranks share the card over gloo)")
+    dev = torch.device("cuda")
+    out = {}
+
+    # (a) Every kernel at the shapes a rank gives it: heads and kv heads
+    # halved by tp=2, a data shard's 4 rows over its half pool.
+    gen = torch.Generator().manual_seed(24)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    for b, t in ((1, 512), (8, 2048)):
+        _flash_case(torch, rows["flash"], b, t, None, draw, h=4)
+    rows["bwd"].append(_bwd_case(torch, gen, 8, 2048, 4, 4, 64,
+                                 time_it=True))
+    for int8 in (False, True):
+        for t in (1, 4):
+            pos = torch.randint(1, 1001, (4,), generator=gen).clamp(
+                max=16 * 64 - t).tolist()
+            rows["paged"].append(paged_case(
+                torch, gen, f"tp rank {'int8' if int8 else 'bf16'} t={t}",
+                4, t, 4, 4, 64, 16, 64, pos, torch.bfloat16, int8=int8,
+                time_it=True))
+    _decode_case(torch, randn, rows["decode"], 4, 1, 4, 4, 16384, 64,
+                 [1024] * 4, torch.bfloat16, False, True)
+    L, KV, D = 8, 4, 64
+    kp = _lane_int8(tq, randn((L, 65, KV, 64, D)))
+    vp = _lane_int8(tq, randn((L, 65, KV, 64, D)))
+    table = (torch.randperm(64, generator=gen) + 1).reshape(4, 16).to(
+        dev, torch.int32)
+    for t in (1, 4):
+        pos = torch.randint(0, 1024 - t + 1, (4,), generator=gen).to(dev)
+        ks = [randn((4, t, KV, D)) for _ in range(L)]
+        vs = [randn((4, t, KV, D)) for _ in range(L)]
+        _commit_case(torch, rows["commit"], f"tp rank pool KV 4 t={t}", kp,
+                     vp, ks, vs, pos,
+                     lambda rk, rv, ks=ks, vs=vs, pos=pos: _today_paged(
+                         torch, tq, rk, rv, ks, vs, table, pos),
+                     table=table)
+    del kp, vp
+
+    # (b) and (c): serving over ranks, against phase 5's and 12's runs.
+    prompts = [r.prompt for r in reqs]
+    ref, ref8 = streams(comps), streams(comps8)
+    logits = full_logits(torch, cfg, params, prompts, ref)
+    logits8 = full_logits(torch, cfg, tt.quantize_params(cfg, params),
+                          prompts, ref8)
+    out["b"] = {"bf16": mesh_serve("tp=2", 2, [], reqs, ref, logits,
+                                   False, "tp=2 bf16"),
+                "int8": mesh_serve("tp=2", 2, ["--int8", "--int8-kv"], reqs,
+                                   ref8, logits8, True, "tp=2 int8")}
+    out["c"] = mesh_serve("dp=2,tp=2", 4, [], reqs, ref, logits, False,
+                          "dp=2,tp=2 bf16")
+
+    # (d) training over tp=2 and fsdp=2, (e) the checkpoint round trip.
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    try:
+        t0 = time.perf_counter()
+        with cluster(Job(name="worker", num=2, cpus=1.0, mem=1024.0),
+                     quiet=True, start_timeout=300.0) as c:
+            up_s = time.perf_counter() - t0
+            runs = {"tp=2": c.run_all(mesh_train_rank, "tp=2",
+                                      MESH_TRAIN_STEPS, f"{root}/ck"),
+                    "fsdp=2": c.run_all(mesh_train_rank, "fsdp=2",
+                                        MESH_TRAIN_STEPS)}
+        out["d"] = {"bring_up_s": up_s}
+        for label, rs in runs.items():
+            head = rs[0]
+            need(all(r["losses"] == head["losses"] for r in rs),
+                 f"(d) {label}: the ranks' losses differ")
+            dl = max(abs(a - b) for a, b in zip(head["losses"],
+                                                head["ref_losses"]))
+            need(dl <= MESH_DLOSS, f"(d) {label}: losses {head['losses']} "
+                 f"vs one process {head['ref_losses']}")
+            low = min(head["cosines"].values())
+            need(low >= MESH_MIN_COS, f"(d) {label}: gradient cosines "
+                 f"{head['cosines']}")
+            for r in rs:
+                train_launches_exact(r["launches"], 8, MESH_TRAIN_STEPS,
+                                     f"(d) {label} rank {r['rank']}")
+            share = [r["mem_bytes"] / head["ref_mem_bytes"] for r in rs]
+            if label == "fsdp=2":
+                need(all(MESH_FSDP_MEM[0] <= s <= MESH_FSDP_MEM[1]
+                         for s in share),
+                     f"(d) fsdp=2: a rank's memory is {share} of one "
+                     f"process's")
+            ms = statistics.median(r["ms_per_step"] for r in rs)
+            coll = statistics.median(r["collective_ms_per_step"]
+                                     for r in rs)
+            out["d"][label] = {
+                "losses": head["losses"], "ref_losses": head["ref_losses"],
+                "max_dloss": dl, "min_cosine": low,
+                "mem_share_of_one_process": share,
+                "mem_bytes": [r["mem_bytes"] for r in rs],
+                "ref_mem_bytes": head["ref_mem_bytes"], "ms_per_step": ms,
+                "ref_ms_per_step": head["ref_ms_per_step"],
+                "collective_ms_per_step": coll,
+                "collective_share": coll / ms,
+                "launches": {k: sum(r["launches"][k] for r in rs)
+                             for k in read_launches()}}
+            say(f"  (d) {label}: losses {head['losses']} vs one process "
+                f"{head['ref_losses']} (max |dloss| {dl:.2e}); gradient "
+                f"cosines >= {low:.5f}; memory a rank "
+                f"{[round(s, 3) for s in share]} of one process's; "
+                f"{ms:.1f} ms a step ({coll:.1f} of it in gloo "
+                f"collectives, {coll / ms:.0%}) against one process's "
+                f"{head['ref_ms_per_step']:.1f}; rows 1-3 at 8 a step a "
+                f"rank")
+        # The same two runs through tfrun, as users start them: both
+        # ranks' losses equal, each step within MESH_DLOSS of one process.
+        for label in runs:
+            stdout, _, secs = child(
+                ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
+                 "--mesh", label, "--worker-logs", "*", "--",
+                 sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
+                 "--steps", str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV,
+                 "--mesh", label], 900)
+            got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
+                                  r"(\[.*\])$", stdout, re.M))
+            need(sorted(got) == ["0", "1"] and got["0"] == got["1"],
+                 f"(d) tfrun {label}: rank losses {got}: {stdout[-2000:]}")
+            losses = json.loads(got["0"])
+            ref = out["d"][label]["ref_losses"]
+            dl = max(abs(a - b) for a, b in zip(losses, ref))
+            need(len(losses) == MESH_TRAIN_STEPS and dl <= MESH_DLOSS,
+                 f"(d) tfrun {label}: losses {losses} vs one process {ref}")
+            out["d"][label]["tfrun"] = {"s": secs, "losses": losses,
+                                        "max_dloss": dl}
+            say(f"  (d) tfrun -w 2 --mesh {label} transformer_train in "
+                f"{secs:.1f} s: both ranks' losses {losses} (max |dloss| "
+                f"{dl:.2e} against one process)")
+        # (e) Saved under dp1 x tp2, restored on one process.
+        one = tr.setup(tr.parse_args([*MESH_TRAIN_ARGV, "--steps",
+                                      str(MESH_TRAIN_STEPS)]), dev,
+                       start_step=None)
+        restored = CheckpointManager(f"{root}/ck").restore(
+            (one.params, one.opt_state), step=MESH_TRAIN_STEPS)
+        need(restored is not None, "(e) no checkpoint")
+        mine = {k: hashlib.sha256(v.detach().float().cpu().numpy()
+                                  .tobytes()).hexdigest()
+                for k, v in flatten(one.params).items()}
+        need(mine == runs["tp=2"][0]["digests"],
+             "(e) the restored params differ from the tp=2 ranks' state")
+        out["e"] = {"leaves": len(mine), "equal": True,
+                    "count": one.opt_state.count}
+        need(one.opt_state.count == MESH_TRAIN_STEPS,
+             f"(e) optimizer count {one.opt_state.count}")
+        say(f"  (e) saved under dp=1,tp=2, restored on one process: all "
+            f"{len(mine)} param leaves equal the ranks' gathered state bit "
+            f"for bit, optimizer count {one.opt_state.count}")
+        del one
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("  Two ranks on one card measure no scaling, and gloo staging "
+        "through host memory is not NCCL.")
+    say("  " + json.dumps(out))
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -6912,6 +7391,10 @@ def main() -> int:
     ckpt = timed("checkpointed training", phase_checkpointed, torch, np,
                  train)
     surface = timed("surface", phase_surface, torch, np, train)
+    mesh = timed("mesh", phase_mesh, torch, np, cfg, params, reqs, comps,
+                 comps8, {"flash": flash_rows, "bwd": bwd_rows,
+                          "paged": paged_rows, "decode": decode_rows,
+                          "commit": commit_rows})
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -6966,7 +7449,16 @@ def main() -> int:
              "train --data (c)": ckpt["c"]["launches"],
              "train remat (d)": ckpt["d"]["launches"],
              "surface (c) Mode A elastic chunks (processes)":
-                 surface["c"]["launches"]}
+                 surface["c"]["launches"],
+             "mesh (b) serve tp=2 bf16 (processes)":
+                 mesh["b"]["bf16"]["launches"],
+             "mesh (b) serve tp=2 int8 (processes)":
+                 mesh["b"]["int8"]["launches"],
+             "mesh (c) serve dp=2,tp=2 (processes)": mesh["c"]["launches"],
+             "mesh (d) train tp=2 (processes)":
+                 mesh["d"]["tp=2"]["launches"],
+             "mesh (d) train fsdp=2 (processes)":
+                 mesh["d"]["fsdp=2"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -4,8 +4,9 @@ port accepts (speculation and its int8 draft pool, the schedule modes
 ``pipeline_depth``, ``overlap``, ``multi_step``, and ``fused_prefill``
 with ``tokens_per_tick``), the same reasons, on the registry and on a
 live batcher alike; every reason within ``BYPASS_ALLOWLIST`` (the same
-allowlist, key for key); the one mode the port does not have yet, a
-mesh, raises ``NotImplementedError``, never silently ignored."""
+allowlist, key for key), a mesh's data shards included; a mesh over
+an axis the batcher does not shard over is refused by name, never
+silently ignored."""
 
 import itertools
 
@@ -16,6 +17,7 @@ from torch_parity import jax_compile_cache_off  # noqa: F401
 from tfmesos_tpu import serving as js
 from tfmesos_tpu_torch import serving as ts
 from tfmesos_tpu_torch.models import presets
+from tfmesos_tpu_torch.parallel import mesh as tmesh
 
 
 def test_allowlist_is_the_references():
@@ -48,18 +50,14 @@ UNPORTED = [dict(speculative=True), dict(draft_quantized_cache=True),
 @pytest.mark.parametrize("flags", UNPORTED,
                          ids=lambda f: next(iter(f)))
 def test_unported_modes_raise(flags):
-    """A mesh still raises; speculation and the int8 draft pool (with and
-    without speculation) now give the reference's reasons."""
+    """Speculation, the int8 draft pool (with and without speculation)
+    and a mesh's data shards all give the reference's reasons now."""
     for q in (False, True):
         for spec in (False, True):
             kw = dict(flags, quantized_cache=q)
             if "speculative" not in flags:
                 kw["speculative"] = spec
             want = js.compute_bypass_reasons(**kw)
-            if "n_shards" in flags:
-                with pytest.raises(NotImplementedError):
-                    ts.compute_bypass_reasons(**kw)
-                continue
             got = ts.compute_bypass_reasons(**kw)
             assert got == want
             for reg, val in got.items():
@@ -84,18 +82,14 @@ GRID = list(itertools.product((False, True), (1, 2), (0, 1), (False, True),
                          ids=lambda v: str(int(v)))
 def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
                                                            ov, ms):
-    """The whole flag grid, an int8 target and draft pool each way:
-    without a mesh the port's reasons are the reference's (and within
-    the allowlist); with one it raises."""
+    """The whole flag grid, an int8 target and draft pool each way, with
+    and without a mesh's data shards: the port's reasons are the
+    reference's (and within the allowlist)."""
     for q, dq in itertools.product((False, True), repeat=2):
         flags = dict(speculative=spec, n_shards=shards, pipeline_depth=pd,
                      overlap=ov, multi_step=ms, quantized_cache=q,
                      draft_quantized_cache=dq)
         want = js.compute_bypass_reasons(**flags)
-        if shards != 1:
-            with pytest.raises(NotImplementedError):
-                ts.compute_bypass_reasons(**flags)
-            continue
         got = ts.compute_bypass_reasons(**flags)
         assert got == want
         for reg, val in got.items():
@@ -103,21 +97,24 @@ def test_every_combination_equals_the_references_or_raises(spec, shards, pd,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(prefix=np.arange(4)),
+    dict(mesh="sp"), dict(prefix=np.arange(4)),
     dict(draft_cfg=object(), draft_params={}), dict(draft_n_pages=8)],
     ids=lambda kw: next(iter(kw)))
 def test_batcher_refuses_unported_modes(kw):
-    """A mesh is refused; a static prefix, a draft model and the draft
-    pool's size build a batcher that records the reference batcher's
-    reasons and geometry."""
+    """A mesh that is not a data x tp mesh is refused by name; a static
+    prefix, a draft model and the draft pool's size build a batcher that
+    records the reference batcher's reasons and geometry."""
     from tfmesos_tpu.fleet.replica import tiny_draft_model as jax_draft
     from tfmesos_tpu.fleet.replica import tiny_model as jax_tiny_model
 
     cfg, params = presets.tiny_model()
     base = dict(rows=2, max_len=64, page_size=16, prefill_bucket=16)
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
-            ts.ContinuousBatcher(cfg, params, device="cpu", **base, **kw)
+        other = tmesh.RankMesh({kw["mesh"]: 2}, 0, "cpu", make_groups=False)
+        with pytest.raises(ValueError, match=r"data \(dp/fsdp\) x tp; got "
+                                             r"axes \['sp'\]"):
+            ts.ContinuousBatcher(cfg, params, device="cpu", **base,
+                                 mesh=other)
         return
     jkw, tkw = dict(kw), dict(kw)
     if "draft_cfg" in kw or "draft_n_pages" in kw:

@@ -301,14 +301,17 @@ def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
 
 def test_usage_and_tfrun(capsys):
     """No subcommand is a usage error naming ``run``; ``run`` is tfrun
-    (ported: a Mode-B job runs to its end, a later mesh axis exits 2
-    naming its ROADMAP item)."""
+    (ported: a Mode-B job runs to its end, with a tp mesh too, and an
+    axis not ported yet exits 2 naming its ROADMAP item)."""
     rc, err = _run(cli.main, [], capsys)
     assert rc == 2 and "{run,serve," in err[0]
     rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "tp=2",
                               "--", "true"], capsys)
+    assert rc == 0
+    rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "sp=2",
+                              "--", "true"], capsys)
     assert rc == 2
-    assert err == ["tfrun: not ported yet: mesh axis tp (ROADMAP A.9 (b))"]
+    assert err == ["tfrun: not ported yet: mesh axis sp (ROADMAP A.10)"]
     assert _run(cli.main, ["run", "-w", "1", "-s", "0", "--", "true"],
                 capsys)[0] == 0
 

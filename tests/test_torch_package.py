@@ -46,6 +46,8 @@ TRAINING = ("tfmesos_tpu_torch.train.trainer",
 #: the reference's own surface: the data mesh, the MNIST model, and the
 #: workloads tfrun and ``cluster()`` run.
 SURFACE = ("tfmesos_tpu_torch.parallel", "tfmesos_tpu_torch.parallel.mesh",
+           "tfmesos_tpu_torch.parallel.collectives",
+           "tfmesos_tpu_torch.parallel.sharding", "tfmesos_tpu_torch.dryrun",
            "tfmesos_tpu_torch.models.mlp", "tfmesos_tpu_torch.plus",
            "tfmesos_tpu_torch.mnist_replica")
 
@@ -85,8 +87,9 @@ def test_every_module_imports_with_jax_blocked():
 def test_public_surface_with_jax_blocked():
     """With JAX and the JAX package blocked: the package exports the
     JAX package's surface (``cluster`` and the rest) without importing
-    torch; Mode A, the elastic policy and tfrun are no longer refused;
-    what is still missing is refused by name."""
+    torch; Mode A, the elastic policy and tfrun are no longer refused,
+    nor are the tp and dp x fsdp meshes; what is still missing (the
+    sp/pp/ep and dcn. axes among it) is refused by name."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
@@ -110,8 +113,9 @@ def test_public_surface_with_jax_blocked():
         "        return str(e)\n"
         "print(refused(s.add_gang, 'r', ['true']))\n"
         "print(refused(t.TPUMesosScheduler, [], None, '10.0.0.1:5050'))\n"
-        "for axis in ('tp', 'sp', 'pp', 'ep'):\n"
-        "    print(refused(mesh.check_axes, {axis: 2}))\n")
+        "for axis in ('dcn.dp', 'sp', 'pp', 'ep'):\n"
+        "    print(refused(mesh.check_axes, {axis: 2}))\n"
+        "print(mesh.check_axes({'dp': 2, 'fsdp': 2, 'tp': 2}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -121,12 +125,13 @@ def test_public_surface_with_jax_blocked():
                         "'cluster'] True False")
     assert lines[1] == "True True 3 True True"
     assert lines[2:] == [
-        "not ported yet: add_gang, gang replicas (ROADMAP A.9 (b))",
+        "not ported yet: add_gang, gang replicas (ROADMAP A.9 (c))",
         "not ported yet: the Mesos backend (ROADMAP A.12 (g))",
-        "not ported yet: mesh axis tp (ROADMAP A.9 (b))",
+        "not ported yet: mesh axis dcn.dp (ROADMAP A.9 (c))",
         "not ported yet: mesh axis sp (ROADMAP A.10)",
         "not ported yet: mesh axis pp (ROADMAP A.10)",
-        "not ported yet: mesh axis ep (ROADMAP A.10)"]
+        "not ported yet: mesh axis ep (ROADMAP A.10)",
+        "{'dp': 2, 'fsdp': 2, 'tp': 2}"]
 
 
 def test_slice_modules_import_with_jax_blocked():

@@ -111,7 +111,7 @@ def test_mode_a_elastic_and_gangs_are_refused_by_name():
             call()
     with pytest.raises(ClusterError, match=r"not ported yet: add_gang, "
                                            r"gang replicas \(ROADMAP A\.9 "
-                                           r"\(b\)\)"):
+                                           r"\(c\)\)"):
         sched.add_gang("replica", ["true", "true"])
 
 

@@ -509,14 +509,16 @@ def test_transformer_train_tiny_cpu(capsys):
 
 def test_transformer_train_refuses_later_slice_flags():
     """The JAX example's MoE and pipeline flags are not flags here, and a
-    model axis of ``--mesh`` is refused by name (the data axes are
-    ported)."""
+    later model axis of ``--mesh`` is refused by name (the data axes and
+    tp are ported: a tp mesh wants its ranks)."""
     for argv in (["--moe", "4"], ["--pp-schedule", "1f1b"]):
         with pytest.raises(SystemExit):
             transformer_train.parse_args(argv)
     assert transformer_train.parse_args(["--mesh", "dp=2"]).mesh == "dp=2"
-    with pytest.raises(SystemExit, match=r"mesh axis tp \(ROADMAP A\.9 "
-                                         r"\(b\)\)"):
+    with pytest.raises(SystemExit, match=r"mesh axis pp \(ROADMAP A\.10\)"):
+        transformer_train.main(["--tiny", "--device", "cpu", "--mesh",
+                                "dp=1,pp=2"])
+    with pytest.raises(SystemExit, match=r"wants 2 ranks, have 1"):
         transformer_train.main(["--tiny", "--device", "cpu", "--mesh",
                                 "dp=1,tp=2"])
 

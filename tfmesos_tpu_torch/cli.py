@@ -33,8 +33,8 @@ output of the tasks ``--worker-logs`` names to its stdout, prefixed
 ``[job:index]``, and polls until the workers finish.  It exits 0 when
 they do, 1 with one line ``tfrun: cluster failed: ...`` when the
 cluster fails, and 2 on a bad flag, a missing ``-e`` file, or a mesh
-axis the port does not have yet (``--mesh`` takes the data axes
-``dp`` and ``fsdp``).
+axis the port does not have yet (``--mesh`` takes ``dp``, ``fsdp`` and
+``tp``).
 """
 
 from __future__ import annotations
@@ -139,9 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="restart_window",
                    help="seconds the elastic restart budget counts over")
     p.add_argument("--mesh", type=str, default=None,
-                   help="mesh axes handed to the tasks, e.g. dp=-1 or "
-                        "fsdp=4 (data axes only: tp, sp, pp, ep and dcn. "
-                        "axes are not ported yet)")
+                   help="mesh axes handed to the tasks, e.g. dp=-1, "
+                        "fsdp=4 or dp=2,tp=2 (dp, fsdp and tp; sp, pp, ep "
+                        "and dcn. axes are not ported yet)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="command to run on every task (placeholders: "
                         "{ps_hosts} {worker_hosts} {job_name} {task_index} "

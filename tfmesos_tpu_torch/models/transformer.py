@@ -1,4 +1,4 @@
-"""Flagship decoder-only transformer, single device (port of
+"""Flagship decoder-only transformer, on one device or a mesh (port of
 ``tfmesos_tpu/models/transformer.py``: config, params and int8 weights
 ``:42-262``, the trunk ``:581-743``, linear and paged caches and decode
 ``:746-1076, 1248-1560``, sampling and ``generate`` ``:1563-1774``,
@@ -28,6 +28,16 @@ cache's K and V of one layer, or a paged pool's K and V of every layer
 after a decode step — in one launch that quantizes the chunks straight
 into their cache slots.  Weight scales fold into the activation at
 each matmul (``_qmm``) and cache scales into the decode kernels.
+
+Over a mesh (``parallel/mesh.py``; the JAX ``partition_specs`` ``:2409``,
+``_block_manual_tp`` ``:467``, ``cache_specs`` / ``paged_cache_specs`` /
+``_sharded_paged_step`` ``:1079-1222``) each rank holds plain tensors,
+its blocks of the params per :func:`partition_specs`, and the
+collectives the JAX package leaves to GSPMD are written out: Megatron
+tp (column-parallel q/k/v and gate/up, row-parallel ``wo`` and
+``w_down`` each followed by one all-reduce, the vocab-parallel
+embedding and head), fsdp's shards gathered a layer at a time; the
+kernels run on the rank's heads.
 """
 
 from __future__ import annotations
@@ -51,6 +61,10 @@ from tfmesos_tpu_torch.ops.layers import (cross_entropy_loss,
 from tfmesos_tpu_torch.ops.quant import (QTensor, _paged_slots,
                                          _put_positions, commit_int8,
                                          quantize_tensors)
+from tfmesos_tpu_torch.parallel.collectives import (
+    broadcast_replicated_grad, gather_shards, psum_replicated_grad)
+from tfmesos_tpu_torch.parallel.sharding import (Spec, block, data_axes,
+                                                 filter_spec)
 
 Params = Dict[str, Any]
 
@@ -204,94 +218,283 @@ def _mlp(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
     return _qswiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.dtype)
 
 
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.axis_size("tp")
+
+
+def _check_tp(cfg: TransformerConfig, mesh, what: str) -> int:
+    """tp of ``mesh`` after the check every tp call makes: it divides
+    both head counts (the q-head -> kv-head map stays local, the JAX
+    ``_check_sharded_paged`` rule).  The vocab need not divide: the
+    embedding and head cut into ``sharding.block`` s, the last shorter,
+    as GSPMD pads an uneven shard."""
+    tp = _tp(mesh)
+    if tp > 1 and (cfg.kv_heads % tp or cfg.n_heads % tp):
+        raise ValueError(f"{what}: tp ({tp}) must divide kv_heads "
+                         f"({cfg.kv_heads}) and n_heads ({cfg.n_heads})")
+    return tp
+
+
+def partition_specs(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
+    """The spec tree of the params (the JAX ``partition_specs``, dense
+    branch): Megatron tp (``wq/wk/wv/w_gate/w_up`` cut on their output
+    columns, ``wo/w_down`` on their input rows, the embedding on its
+    vocab rows and the head on its vocab columns), fsdp on the other
+    dim, norms whole; the layer-stack dim whole.  Axes of size 1 are
+    dropped, so on a mesh without tp or fsdp every leaf is whole.  An
+    int8 leaf's scales follow its values (``parallel.sharding``)."""
+    tp = _tp(mesh)
+    if tp > 1 and (cfg.kv_heads * cfg.head_dim) % tp:
+        raise ValueError(
+            f"partition_specs: tp ({tp}) must divide the GQA kv projection "
+            f"width ({cfg.kv_heads} kv heads x {cfg.head_dim})")
+    col, row = (None, "fsdp", "tp"), (None, "tp", "fsdp")
+    tree = {
+        "embed": ("tp", "fsdp"),
+        "layers": {"attn_norm": (None, None), "wq": col, "wk": col,
+                   "wv": col, "wo": row, "mlp_norm": (None, None),
+                   "w_gate": col, "w_up": col, "w_down": row},
+        "norm_f": (None,),
+        "head": ("fsdp", "tp"),
+    }
+    return {k: ({n: filter_spec(v, mesh) for n, v in t.items()}
+                if isinstance(t, dict) else filter_spec(t, mesh))
+            for k, t in tree.items()}
+
+
+def _unshard(x, spec: Spec, mesh):
+    """A leaf cut over fsdp, gathered whole on its fsdp dim for use
+    (all-gather forward, reduce-scatter backward: the rank keeps only
+    its shard of the parameter and of its gradient); other leaves pass
+    through."""
+    if mesh is None or mesh.axis_size("fsdp") == 1:
+        return x
+    for d, entry in enumerate(spec):
+        if entry == "fsdp" or (isinstance(entry, tuple) and "fsdp" in entry):
+            if isinstance(x, QTensor):
+                return QTensor(gather_shards(x.values, mesh, "fsdp", d),
+                               x.scales if x.scales.shape[d] == 1 else
+                               gather_shards(x.scales, mesh, "fsdp", d))
+            return gather_shards(x, mesh, "fsdp", d)
+    return x
+
+
+def _layer(params: Params, li: int, mesh=None,
+           specs: Optional[Dict[str, Any]] = None) -> Params:
+    """Layer ``li``'s leaves ready for use: :func:`layer_params`, with
+    fsdp shards gathered whole (``specs`` the layers' partition specs)."""
+    lp = layer_params(params, li)
+    if specs is None or mesh is None or mesh.axis_size("fsdp") == 1:
+        return lp
+    return {k: _unshard(v, specs[k][1:], mesh) for k, v in lp.items()}
+
+
 def _qkv(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-         positions: torch.Tensor):
-    """Attention-norm, the q/k/v projections and rope."""
+         positions: torch.Tensor, mesh=None):
+    """Attention-norm, the q/k/v projections and rope.  Under tp the
+    projections are this rank's column blocks: its n_heads/tp query and
+    kv_heads/tp kv heads, the normed input fanned out through Megatron's
+    *f* (its gradient all-reduced over tp)."""
     b, t, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"].to(cfg.dtype))
-    q = _qmm(h, lp["wq"], cfg.dtype).reshape(b, t, cfg.n_heads,
+    tp = _tp(mesh)
+    h = broadcast_replicated_grad(
+        rms_norm(x, lp["attn_norm"].to(cfg.dtype)), mesh)
+    q = _qmm(h, lp["wq"], cfg.dtype).reshape(b, t, cfg.n_heads // tp,
                                              cfg.head_dim)
-    k = _qmm(h, lp["wk"], cfg.dtype).reshape(b, t, cfg.kv_heads,
+    k = _qmm(h, lp["wk"], cfg.dtype).reshape(b, t, cfg.kv_heads // tp,
                                              cfg.head_dim)
-    v = _qmm(h, lp["wv"], cfg.dtype).reshape(b, t, cfg.kv_heads,
+    v = _qmm(h, lp["wv"], cfg.dtype).reshape(b, t, cfg.kv_heads // tp,
                                              cfg.head_dim)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
 def _finish_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-                  o: torch.Tensor) -> torch.Tensor:
-    """Output projection, residual, MLP-norm, SwiGLU, residual."""
+                  o: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Output projection, residual, MLP-norm, SwiGLU, residual.  Under tp
+    ``wo`` and ``w_down`` are row blocks whose partial products are
+    all-reduced once each (Megatron's *g*), and the MLP's input fans out
+    through *f*."""
     b, t, _ = x.shape
-    x = x + _qmm(o.reshape(b, t, -1), lp["wo"], cfg.dtype)
-    h = rms_norm(x, lp["mlp_norm"].to(cfg.dtype))
-    return x + _mlp(cfg, lp, h)
+    x = x + psum_replicated_grad(_qmm(o.reshape(b, t, -1), lp["wo"],
+                                      cfg.dtype), mesh)
+    h = broadcast_replicated_grad(
+        rms_norm(x, lp["mlp_norm"].to(cfg.dtype)), mesh)
+    return x + psum_replicated_grad(_mlp(cfg, lp, h), mesh)
 
 
 def _block(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, mesh=None) -> torch.Tensor:
     """One transformer block over a full sequence (causal attention)."""
-    q, k, v = _qkv(cfg, lp, x, positions)
+    q, k, v = _qkv(cfg, lp, x, positions, mesh)
     o = flash_attention(q, k, v, causal=True, window=cfg.window)
-    return _finish_block(cfg, lp, x, o)
+    return _finish_block(cfg, lp, x, o, mesh)
+
+
+def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+           mesh=None, specs=None) -> torch.Tensor:
+    """The embedding lookup.  Under tp the table is this rank's vocab
+    rows: ids outside them are masked (a rank never gathers outside its
+    own range) and the rows all-reduced over tp, one rank holding each
+    id's row."""
+    table = params["embed"]
+    if specs is not None:
+        table = _unshard(table, specs["embed"], mesh)
+    tp = _tp(mesh)
+    if tp == 1:
+        return _embed_lookup(table, tokens, cfg.dtype)
+    rows = (table.values if isinstance(table, QTensor) else table).shape[0]
+    local = tokens - mesh.coord("tp") * block(cfg.vocab_size, tp)
+    ok = (local >= 0) & (local < rows)
+    x = _embed_lookup(table, local.clamp(0, max(rows - 1, 0)), cfg.dtype)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return psum_replicated_grad(x, mesh)
+
+
+class _GatherVocab(torch.autograd.Function):
+    """The vocab-cut logits [..., V/tp] gathered whole ([..., V]) over
+    tp, each rank's block padded to the full block for the gather; the
+    backward keeps this rank's columns of the (tp-replicated)
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, vocab):
+        from tfmesos_tpu_torch.parallel.collectives import all_gather
+
+        b = block(vocab, mesh.axis_size("tp"))
+        ctx.lo, ctx.width = mesh.coord("tp") * b, x.shape[-1]
+        if x.shape[-1] < b:
+            x = torch.nn.functional.pad(x, (0, b - x.shape[-1]))
+        return all_gather(x, mesh, "tp", dim=x.dim() - 1)[..., :vocab]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.width], None, None
+
+
+def _logits(cfg: TransformerConfig, params: Params, x: torch.Tensor,
+            mesh=None, specs=None) -> torch.Tensor:
+    """The head over final hidden states: whole logits [..., V] (under
+    tp each rank's vocab columns, gathered)."""
+    head = params["head"]
+    if specs is not None:
+        head = _unshard(head, specs["head"], mesh)
+    if _tp(mesh) == 1:
+        return _qmm(x, head, cfg.dtype)
+    x = broadcast_replicated_grad(x, mesh)
+    return _GatherVocab.apply(_qmm(x, head, cfg.dtype), mesh,
+                              cfg.vocab_size)
+
+
+def _specs(cfg: TransformerConfig, mesh):
+    """The partition specs ``params`` are cut by on ``mesh`` (None
+    without one)."""
+    if mesh is None:
+        return None
+    _check_tp(cfg, mesh, "forward")
+    return partition_specs(cfg, mesh)
 
 
 def forward_hidden(cfg: TransformerConfig, params: Params,
-                   tokens: torch.Tensor) -> torch.Tensor:
+                   tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """tokens [B, T] -> final-norm hidden states [B, T, d].  With
     ``cfg.remat`` each block is a non-reentrant activation checkpoint:
     the backward re-runs its forward (attention kernel included) from
-    the block's input, as ``jax.checkpoint`` does in the reference."""
+    the block's input, as ``jax.checkpoint`` does in the reference.
+
+    ``mesh`` (a ``parallel.mesh.RankMesh``): ``params`` are this rank's
+    blocks per :func:`partition_specs` and ``tokens`` its share of the
+    batch; tp runs each block Megatron-style (:func:`_qkv`,
+    :func:`_finish_block`) and fsdp gathers each layer's shards whole
+    just before it runs (a remat block gathers again in its backward).
+    The hidden states are whole on every tp rank."""
     b, t = tokens.shape
-    x = _embed_lookup(params["embed"], tokens, cfg.dtype)
+    specs = _specs(cfg, mesh)
+    x = _embed(cfg, params, tokens, mesh, specs)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
+    lspecs = None if specs is None else specs["layers"]
+
+    def block(x_, li):
+        return _block(cfg, x_, _layer(params, li, mesh, lspecs), positions,
+                      mesh)
+
     for li in range(cfg.n_layers):
-        lp = layer_params(params, li)
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block, cfg, x, lp, positions, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(block, x, li,
+                                                  use_reentrant=False)
         else:
-            x = _block(cfg, x, lp, positions)
+            x = block(x, li)
     return rms_norm(x, params["norm_f"].to(cfg.dtype))
 
 
 def forward(cfg: TransformerConfig, params: Params,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T, V] in the compute dtype."""
-    return _qmm(forward_hidden(cfg, params, tokens), params["head"],
-                cfg.dtype)
+            tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """tokens [B, T] -> logits [B, T, V] in the compute dtype (whole on
+    every tp rank of a ``mesh``)."""
+    return _logits(cfg, params, forward_hidden(cfg, params, tokens, mesh),
+                   mesh, _specs(cfg, mesh))
 
 
-def _fused_ce_mode(cfg: TransformerConfig,
-                   params: Optional[Params] = None) -> Optional[str]:
-    """Which head + cross-entropy path :func:`loss_fn` takes on one
-    device: ``"dense"`` (the fused, chunked form) unless
+def _fused_ce_mode(cfg: TransformerConfig, params: Optional[Params] = None,
+                   mesh=None) -> Optional[str]:
+    """Which head + cross-entropy path :func:`loss_fn` takes (the JAX
+    ``_fused_ce_mode``): ``"dense"`` (the fused, chunked form) on one
+    rank, ``"dp"`` on a mesh of data axes only, ``"tp"`` (vocab
+    parallel) on one with tp, or None (materialize the logits) when
     ``cfg.fused_ce`` is False or the head is an int8 :class:`QTensor`
-    (a serving tree), then None (materialize the logits)."""
+    (a serving tree)."""
     if cfg.fused_ce is False or (params is not None
                                  and isinstance(params["head"], QTensor)):
         return None
-    return "dense"
+    if mesh is None or mesh.size() == 1:
+        return "dense"
+    return "tp" if _tp(mesh) > 1 else "dp"
 
 
 def loss_fn(cfg: TransformerConfig, params: Params,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token prediction: ``batch = {"tokens": [B, T+1]}`` ->
     ``(loss, {"perplexity"})``, loss the float32 mean cross entropy of
-    positions 1..T given 0..T-1."""
+    positions 1..T given 0..T-1.
+
+    On a ``mesh`` the batch is this rank's share and the loss the
+    GLOBAL batch's mean on every rank (its gradient is the rank's own
+    share's: the train step averages the gradients over the data
+    axes), through ``data_parallel_fused_cross_entropy`` on a data mesh
+    or ``vocab_parallel_cross_entropy`` with tp, as ``cfg.fused_ce``
+    says; z-loss on every path."""
+    from tfmesos_tpu_torch.ops.layers import (
+        data_mean, data_parallel_fused_cross_entropy,
+        vocab_parallel_cross_entropy)
+
     tokens = batch["tokens"]
     labels = tokens[:, 1:].long()
-    if _fused_ce_mode(cfg, params) == "dense":
-        x = forward_hidden(cfg, params, tokens[:, :-1])
-        # The master-dtype head: the op computes in x's dtype and
-        # accumulates dw in float32 at the param dtype.
-        loss = fused_linear_cross_entropy(x, params["head"], labels,
+    mode = _fused_ce_mode(cfg, params, mesh)
+    specs = _specs(cfg, mesh)
+    if mode is None:
+        loss = data_mean(cross_entropy_loss(
+            forward(cfg, params, tokens[:, :-1], mesh), labels,
+            z_loss=cfg.z_loss), mesh)
+        return loss, {"perplexity": torch.exp(loss)}
+    x = forward_hidden(cfg, params, tokens[:, :-1], mesh)
+    # The master-dtype head: the op computes in x's dtype and
+    # accumulates dw in float32 at the param dtype.
+    head = params["head"] if specs is None else _unshard(
+        params["head"], specs["head"], mesh)
+    if mode == "tp":
+        loss = vocab_parallel_cross_entropy(x, head, labels, mesh,
+                                            z_loss=cfg.z_loss,
+                                            chunk=cfg.ce_chunk,
+                                            vocab=cfg.vocab_size)
+    elif mode == "dp":
+        loss = data_parallel_fused_cross_entropy(x, head, labels, mesh,
+                                                 cfg.z_loss, cfg.ce_chunk)
+    else:
+        loss = fused_linear_cross_entropy(x, head, labels,
                                           z_loss=cfg.z_loss,
                                           chunk=cfg.ce_chunk)
-    else:
-        loss = cross_entropy_loss(forward(cfg, params, tokens[:, :-1]),
-                                  labels, z_loss=cfg.z_loss)
     return loss, {"perplexity": torch.exp(loss)}
 
 
@@ -336,7 +539,7 @@ def _kv_buffer(shape: Tuple[int, ...], dtype: Optional[torch.dtype],
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, quantized: bool = False,
-               device: Union[str, torch.device] = "cpu"
+               device: Union[str, torch.device] = "cpu", mesh=None
                ) -> Dict[str, Any]:
     """A linear KV cache for :func:`generate`: stacked
     [L, B, KV, M, head_dim] K/V buffers (kv-head-major with positions and
@@ -349,10 +552,15 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     ROLLING cache of ``min(max_len, window)`` slots (slot = position mod
     slots): a position's slot is reclaimed exactly when it leaves the
     window, so memory and per-step cache reads stay O(window) however
-    long generation runs."""
+    long generation runs.
+
+    On a ``mesh`` the buffers are this rank's block of
+    :func:`cache_specs`: ``batch`` (the global batch) over the data axes
+    and the kv heads over tp."""
     if cfg.window is not None:
         max_len = min(max_len, cfg.window)
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    batch, kv = _local_dims(cfg, mesh, batch, "init_cache")
+    shape = (cfg.n_layers, batch, kv, max_len, cfg.head_dim)
     return {name: _kv_buffer(shape, dtype, quantized, cfg, device,
                              "init_cache") for name in ("k", "v")}
 
@@ -361,7 +569,7 @@ def init_paged_cache(cfg: TransformerConfig, n_pages: int,
                      page_size: int = 128,
                      dtype: Optional[torch.dtype] = None,
                      quantized: bool = False,
-                     device: Union[str, torch.device] = "cpu"
+                     device: Union[str, torch.device] = "cpu", mesh=None
                      ) -> Dict[str, Any]:
     """A PAGED KV cache: one pool of ``n_pages`` pages per layer shared
     by every sequence, stacked [L, P, KV, page, head_dim] (page and
@@ -375,9 +583,43 @@ def init_paged_cache(cfg: TransformerConfig, n_pages: int,
     if page_size % 8 or page_size > 1024:
         raise ValueError(f"page_size ({page_size}) must be a multiple of "
                          f"8 and <= 1024")
-    shape = (cfg.n_layers, n_pages, cfg.kv_heads, page_size, cfg.head_dim)
+    n_pages, kv = _local_dims(cfg, mesh, n_pages, "init_paged_cache")
+    shape = (cfg.n_layers, n_pages, kv, page_size, cfg.head_dim)
     return {name: _kv_buffer(shape, dtype, quantized, cfg, device,
                              "init_paged_cache") for name in ("k", "v")}
+
+
+def cache_specs(cfg: TransformerConfig, mesh) -> Dict[str, Spec]:
+    """Specs of a linear cache [L, B, KV, M, Dh] (the JAX
+    ``cache_specs``): the batch over the data axes, the kv heads over tp
+    (which must divide them).  An int8 cache's lane-major scales
+    [L, B, KV, 1, M] take the same spec."""
+    _check_tp(cfg, mesh, "cache_specs")
+    spec = filter_spec((None, data_axes(mesh), "tp", None, None), mesh)
+    return {"k": spec, "v": spec}
+
+
+def paged_cache_specs(cfg: TransformerConfig, mesh) -> Dict[str, Spec]:
+    """Specs of a paged pool [L, P, KV, page, Dh] (the JAX
+    ``paged_cache_specs``): the pages over the data axes (each data
+    shard a sub-pool indexed with shard-local ids), the kv heads over
+    tp."""
+    _check_tp(cfg, mesh, "paged_cache_specs")
+    spec = filter_spec((None, data_axes(mesh), "tp", None, None), mesh)
+    return {"k": spec, "v": spec}
+
+
+def _local_dims(cfg: TransformerConfig, mesh, n: int, what: str
+                ) -> Tuple[int, int]:
+    """(this rank's share of ``n`` over the data axes, its kv heads)."""
+    if mesh is None:
+        return n, cfg.kv_heads
+    tp = _check_tp(cfg, mesh, what)
+    nd = mesh.axis_size(data_axes(mesh) or ())
+    if n % nd:
+        raise ValueError(f"{what}: {n} must divide over the mesh data "
+                         f"axes ({nd})")
+    return n // nd, cfg.kv_heads // tp
 
 
 class PageAllocator:
@@ -546,16 +788,19 @@ def _paged_cache_write_all(cache: Dict[str, Any],
 
 def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
                   cache: Dict[str, Any], li: int, positions: torch.Tensor,
-                  pos: Union[int, torch.Tensor]):
+                  pos: Union[int, torch.Tensor], mesh=None):
     """One block over a token chunk with cached history.  A multi-token
     chunk at python-int ``pos == 0`` is a prefill from an empty cache and
     attends only to itself.  A LINEAR cache (no ``"pages"``) is written
     first and then attended through ``flash_decode``; a PAGED pool is
     NOT written here: other chunks attend the committed pool plus
     themselves through the deferred ``self_kv`` operand, and the chunk's
-    K/V comes back for :func:`decode_step`'s single commit."""
+    K/V comes back for :func:`decode_step`'s single commit.  Under tp
+    the chunk's heads and the cache's are this rank's; the write and the
+    attention run with no collective between them (the JAX island), the
+    reduction staying at ``wo``."""
     t = x.shape[1]
-    q, k, v = _qkv(cfg, lp, x, positions)
+    q, k, v = _qkv(cfg, lp, x, positions, mesh)
     prefill = t > 1 and isinstance(pos, int) and pos == 0
     pages = cache.get("pages")
     rolling = cfg.window is not None
@@ -581,7 +826,7 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
         o = flash_decode_paged(q, cache["k"], cache["v"], pages,
                                positions[:, 0], layer=li, self_kv=(k, v),
                                round_self=isinstance(cache["k"], QTensor))
-    return _finish_block(cfg, lp, x, o), chunk
+    return _finish_block(cfg, lp, x, o, mesh), chunk
 
 
 def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
@@ -612,7 +857,7 @@ def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
 
 def decode_step(cfg: TransformerConfig, params: Params,
                 cache: Dict[str, Any], tokens: torch.Tensor,
-                pos: Union[int, torch.Tensor]):
+                pos: Union[int, torch.Tensor], mesh=None):
     """Advance decoding by a token chunk.
 
     ``tokens``: [B, t]; ``pos``: first global position of the chunk — a
@@ -625,7 +870,14 @@ def decode_step(cfg: TransformerConfig, params: Params,
     "pages"}`` with stacked pools [L, P, KV, page, D] and the page table
     [B, NP] (one commit of every layer's chunk after the layer loop).
     Either is plain or int8.  Returns (logits [B, t, V], cache); the
-    buffers update IN PLACE."""
+    buffers update IN PLACE.
+
+    ``mesh`` (the JAX ``decode_step(sharded=True, mesh=)``): ``params``
+    are this rank's blocks per :func:`partition_specs`, ``cache`` its
+    block per :func:`cache_specs` / :func:`paged_cache_specs` (a paged
+    table holding shard-local page ids), ``tokens`` and ``pos`` its rows.
+    Each block runs Megatron tp with the kernels at this rank's heads;
+    the logits come back whole over the vocab on every tp rank."""
     b, t = tokens.shape
     dev = tokens.device
     if (cfg.window is not None and isinstance(pos, torch.Tensor)
@@ -640,19 +892,21 @@ def decode_step(cfg: TransformerConfig, params: Params,
             pos = torch.full((b,), int(pos), dtype=torch.long, device=dev)
         pos = pos.to(dev).long().reshape(-1).expand(b)
         positions = pos[:, None] + offs[None]
-    x = _embed_lookup(params["embed"], tokens, cfg.dtype)
+    specs = _specs(cfg, mesh)
+    lspecs = None if specs is None else specs["layers"]
+    x = _embed(cfg, params, tokens, mesh, specs)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for li in range(cfg.n_layers):
-        x, chunk = _block_decode(cfg, x, layer_params(params, li), cache,
-                                 li, positions, pos)
+        x, chunk = _block_decode(cfg, x, _layer(params, li, mesh, lspecs),
+                                 cache, li, positions, pos, mesh)
         if chunk is not None:
             ks.append(chunk[0])
             vs.append(chunk[1])
     if ks:
         _paged_cache_write_all(cache, ks, vs, positions[:, 0])
     x = rms_norm(x, params["norm_f"].to(cfg.dtype))
-    return _qmm(x, params["head"], cfg.dtype), cache
+    return _logits(cfg, params, x, mesh, specs), cache
 
 
 # -- generation ----------------------------------------------------------------

@@ -11,6 +11,8 @@ rounding and a bf16 run rounds where it does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -154,3 +156,150 @@ def fused_linear_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     ``labels``: [...] int.  Numerics match :func:`cross_entropy_loss`
     (both reduce in float32)."""
     return _FusedLinearCE.apply(x, w, labels, float(z_loss), int(chunk))
+
+
+# -- over a mesh ----------------------------------------------------------
+
+
+class _DataMean(torch.autograd.Function):
+    """The loss of the global batch: this rank's loss averaged over the
+    data axes forward, identity backward (the gradient stays the rank's
+    own share's; the train step averages the gradients over the same
+    axes, which is the global batch's gradient)."""
+
+    @staticmethod
+    def forward(ctx, loss, mesh, axes):
+        from tfmesos_tpu_torch.parallel.collectives import all_reduce_mean
+
+        return all_reduce_mean(loss, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """``loss`` (this rank's share's mean) as the global batch's mean on
+    every rank (:class:`_DataMean`); itself without a data axis."""
+    from tfmesos_tpu_torch.parallel.sharding import data_axes
+
+    axes = data_axes(mesh)
+    if axes is None:
+        return loss
+    return _DataMean.apply(loss, mesh, axes)
+
+
+def data_parallel_fused_cross_entropy(x: torch.Tensor, w: torch.Tensor,
+                                      labels: torch.Tensor, mesh,
+                                      z_loss: float = 0.0,
+                                      chunk: int = 2048) -> torch.Tensor:
+    """:func:`fused_linear_cross_entropy` on a data mesh (the JAX
+    ``data_parallel_fused_cross_entropy``): each rank runs the chunked
+    form over its own tokens only, so no chunk cuts across ranks, and
+    the loss is averaged over the data axes (:func:`data_mean`).  ``w``
+    whole (an fsdp head is gathered by the caller).  Same math as the
+    dense form; only the grouping of the sums differs."""
+    return data_mean(fused_linear_cross_entropy(x, w, labels, z_loss, chunk),
+                     mesh)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Chunked head + cross entropy over this rank's vocab columns (the
+    JAX ``vocab_parallel_cross_entropy`` on one rank's shard, Megatron's
+    pattern): each chunk's [c, V/tp] logits give a per-token local
+    logsumexp and the picked logit where the label is in this rank's
+    range; ONE all-gather of the local logsumexps and ONE all-reduce of
+    the picked logits over tp make the global statistics.  The backward
+    recomputes each chunk's local logits, and dx (a partial sum over
+    the vocab) is all-reduced over tp once at the end."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, mesh, z_loss, chunk, lo):
+        from tfmesos_tpu_torch.parallel.collectives import (all_gather,
+                                                            all_reduce_sum)
+
+        d = x.shape[-1]
+        xf, lf = x.reshape(-1, d), labels.reshape(-1).long()
+        n = xf.shape[0]
+        c = _ce_chunk(n, chunk)
+        vl = w.shape[-1]
+        wc = w.to(x.dtype)
+        lse = torch.empty(n, dtype=torch.float32, device=x.device)
+        picked = torch.zeros(n, dtype=torch.float32, device=x.device)
+        local = lf - lo
+        mine = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        for i in range(0, n, c):
+            logits = (xf[i:i + c] @ wc).float()              # [c, V/tp]
+            lse[i:i + c] = torch.logsumexp(logits, dim=-1)
+            p = logits.gather(1, idx[i:i + c, None])[:, 0]
+            picked[i:i + c] = torch.where(mine[i:i + c], p, 0.0)
+        tp = mesh.axis_size("tp")
+        logz = torch.logsumexp(
+            all_gather(lse[None], mesh, "tp", dim=0).reshape(tp, n), dim=0)
+        picked = all_reduce_sum(picked, mesh, "tp")
+        total = torch.sum(logz - picked)
+        if z_loss:
+            total = total + z_loss * torch.sum(logz ** 2)
+        ctx.save_for_backward(x, w, labels, logz)
+        ctx.mesh, ctx.z_loss, ctx.chunk, ctx.lo = mesh, z_loss, c, lo
+        return total / n
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from tfmesos_tpu_torch.parallel.collectives import all_reduce_sum
+
+        x, w, labels, logzs = ctx.saved_tensors
+        mesh, z_loss, c = ctx.mesh, ctx.z_loss, ctx.chunk
+        d = x.shape[-1]
+        xf, lf = x.reshape(-1, d), labels.reshape(-1).long()
+        n = xf.shape[0]
+        vl = w.shape[-1]
+        local = lf - ctx.lo
+        mine = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        wc = w.to(x.dtype)
+        scale = g / n
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        dx = torch.empty_like(xf)
+        for i in range(0, n, c):
+            xc, logz = xf[i:i + c], logzs[i:i + c]
+            logits = (xc @ wc).float()
+            p = torch.exp(logits - logz[:, None])            # local softmax
+            if z_loss:
+                p = p * (1.0 + (2.0 * z_loss) * logz)[:, None]
+            onehot = F.one_hot(idx[i:i + c], vl).float() \
+                * mine[i:i + c, None]
+            dlogits = ((p - onehot) * scale).to(x.dtype)
+            dx[i:i + c] = dlogits @ wc.T
+            dw += _mm_f32(xc.T, dlogits)
+        dx = all_reduce_sum(dx, mesh, "tp")
+        return (dx.reshape(x.shape), dw.to(w.dtype), None, None, None,
+                None, None)
+
+
+def vocab_parallel_cross_entropy(x: torch.Tensor, w: torch.Tensor,
+                                 labels: torch.Tensor, mesh,
+                                 z_loss: float = 0.0, chunk: int = 2048,
+                                 vocab: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """:func:`fused_linear_cross_entropy` for a vocab-cut head (the JAX
+    ``vocab_parallel_cross_entropy``): ``w`` this rank's [d, V/tp]
+    columns, ``x`` [..., d] and ``labels`` [...] this rank's share of
+    the batch, whole over tp.  No rank holds more than a [chunk, V/tp]
+    block of logits, forward or backward; the loss is the global
+    batch's mean (:func:`data_mean` over the data axes), the same math
+    as the unfused path, z-loss included.  ``vocab`` (the whole vocab)
+    places an uneven cut's blocks (``parallel.sharding.block``); by
+    default the vocab divides over tp."""
+    if mesh is None or mesh.axis_size("tp") == 1:
+        return data_mean(fused_linear_cross_entropy(x, w, labels, z_loss,
+                                                    chunk), mesh)
+    from tfmesos_tpu_torch.parallel.sharding import block
+
+    tp = mesh.axis_size("tp")
+    b = w.shape[-1] if vocab is None else block(vocab, tp)
+    return data_mean(_VocabParallelCE.apply(
+        x, w, labels, mesh, float(z_loss), int(chunk),
+        mesh.coord("tp") * b), mesh)

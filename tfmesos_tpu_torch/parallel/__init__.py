@@ -1,2 +1,2 @@
-"""Parallelism over several ranks: the data mesh (port of
-``tfmesos_tpu/parallel``)."""
+"""Parallelism over several ranks (port of ``tfmesos_tpu/parallel``):
+the dp/fsdp x tp mesh, its collectives and the sharding rules."""

@@ -69,9 +69,10 @@ class TaskContext:
         return _device
 
     def mesh(self, axes: Optional[Dict[str, int]] = None):
-        """The data mesh over every rank (``parallel.mesh.build_mesh``):
-        ``axes`` or the cluster's mesh axes, all ``dp`` when neither is
-        given, on the device type :func:`initialize` bound."""
+        """The mesh over every rank (``parallel.mesh.build_mesh``: dp,
+        fsdp and tp, one rank a device): ``axes`` or the cluster's mesh
+        axes, all ``dp`` when neither is given, on the device type
+        :func:`initialize` bound."""
         from tfmesos_tpu_torch.parallel.mesh import build_mesh
 
         return build_mesh(axes or self.mesh_axes, world_size=self.world_size,

@@ -28,7 +28,7 @@ SPMD dispatch (port of ``tfmesos_tpu/scheduler.py``).
   event (``on_dynamic_death``), never a cluster-fatal one.
 
 Not ported yet, refused by name: ``add_gang`` (gang replicas, ROADMAP
-A.9 (b)) and the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
+A.9 (c)) and the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
 fault injection (``chaos=``, ROADMAP A.12 (f)) is not a parameter here.
 """
 
@@ -791,7 +791,7 @@ class TPUMesosScheduler:
         """Gang replicas (N tasks placed all-or-nothing as one replica)
         are not ported yet."""
         raise ClusterError("not ported yet: add_gang, gang replicas "
-                           "(ROADMAP A.9 (b))")
+                           "(ROADMAP A.9 (c))")
 
     def remove_task(self, task_id: str) -> bool:
         """Kill ONE task at runtime and forget it (dynamic mode only).

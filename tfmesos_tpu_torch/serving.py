@@ -68,14 +68,17 @@ from tfmesos_tpu_torch.graphs import StepGraphs
 from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
                                                   TransformerConfig,
                                                   _check_sampling_args,
-                                                  decode_step,
+                                                  _check_tp, decode_step,
                                                   filter_logits,
                                                   greedy_accept_counts,
                                                   init_paged_cache,
+                                                  partition_specs,
                                                   rejection_accept,
                                                   sample_logits)
 from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.quant import QTensor
+from tfmesos_tpu_torch.parallel import collectives
+from tfmesos_tpu_torch.parallel.sharding import data_axes, place_tree
 
 __all__ = ["Request", "Completion", "Suspended", "Expired",
            "ContinuousBatcher", "SubmissionQueue", "Prefilled",
@@ -116,16 +119,15 @@ def compute_bypass_reasons(*, speculative: bool = False,
     """The ``*_bypass_reason`` values a :class:`ContinuousBatcher` built
     from these mode flags records (keys of :data:`BYPASS_ALLOWLIST`;
     None = the feature composes), computed as the reference computes
-    them.  A mesh (``n_shards != 1``), which the port does not have yet,
-    raises ``NotImplementedError``."""
-    if n_shards != 1:
-        raise NotImplementedError("not ported yet: mesh data sharding "
-                                  "(n_shards != 1)")
+    them (``n_shards`` the mesh's data shards)."""
     quant = quantized_cache or (speculative and draft_quantized_cache)
     out: Dict[str, Optional[str]] = {key: None for key in BYPASS_ALLOWLIST}
     if quant:
         out["prefix_cache"] = "quantized kv cache"
         out["kv_tier"] = "quantized kv cache"
+    if n_shards != 1:
+        # Spilled and parked pages would have to cross data shards.
+        out["kv_tier"] = "mesh data sharding"
     if pipeline_depth and speculative:
         out["pipeline"] = "speculative decoding"
     # The effective lags after those bypasses: overlap yields to an
@@ -140,10 +142,14 @@ def compute_bypass_reasons(*, speculative: bool = False,
         out["multi_step"] = "speculative overlap round carry"
     if overlap_eff or pipelined:
         out["suspend"] = "lagged decode carry"
+    if n_shards != 1:
+        out["suspend"] = "mesh data sharding"
     if speculative:
         out["fused_prefill"] = "speculative decoding"
     elif overlap_eff or pipelined:
         out["fused_prefill"] = "lagged decode carry"
+    if n_shards != 1:
+        out["fused_prefill"] = "mesh data sharding"
     return out
 
 
@@ -459,6 +465,63 @@ class _PrefixPlan:
         return len(self.nodes) - (1 if self.cow else 0)
 
 
+class _ShardedAlloc:
+    """``PageAllocator``'s surface over the sub-pools of a mesh's data
+    shards (the JAX ``_ShardedAlloc``): the rows are cut into
+    ``n_shards`` contiguous blocks (shard = row // rows_per_shard, the
+    layout a cut batch dim gives), each block allocating from its own
+    shard's sub-pool, and every page id handed out is LOCAL to its
+    shard.  Reservations are taken in every shard in lockstep and land
+    on the same local id, so one id names the sink or a static-prefix
+    page in every sub-pool."""
+
+    def __init__(self, n_pages_per_shard: int, page_size: int,
+                 n_shards: int, rows_per_shard: int):
+        self.page_size = int(page_size)
+        self.n_shards = int(n_shards)
+        self.rows_per_shard = int(rows_per_shard)
+        self.shards = [PageAllocator(n_pages_per_shard, page_size)
+                       for _ in range(self.n_shards)]
+
+    def shard_of(self, row: int) -> int:
+        return row // self.rows_per_shard
+
+    @property
+    def rows(self) -> Dict[int, list]:
+        """Merged row -> local page list view (row ids never collide
+        across shards; the lists are the shards' own)."""
+        out: Dict[int, list] = {}
+        for a in self.shards:
+            out.update(a.rows)
+        return out
+
+    @property
+    def free(self) -> list:
+        """Every shard's free local ids, concatenated (read-only)."""
+        return [p for a in self.shards for p in a.free]
+
+    def ensure(self, row: int, length: int) -> None:
+        self.shards[self.shard_of(row)].ensure(row, length)
+
+    def release(self, row: int) -> None:
+        self.shards[self.shard_of(row)].release(row)
+
+    def allocated(self, row: int) -> int:
+        return self.shards[self.shard_of(row)].allocated(row)
+
+    def free_count(self, shard: Optional[int] = None) -> int:
+        if shard is not None:
+            return self.shards[shard].free_count()
+        return sum(a.free_count() for a in self.shards)
+
+    def reserve_page(self) -> int:
+        ids = [a.reserve_page() for a in self.shards]
+        if any(i != ids[0] for i in ids):
+            raise RuntimeError("asymmetric reservation: shards must "
+                               "reserve in lockstep")
+        return ids[0]
+
+
 class _PagedSide:
     """Host-side state of ONE paged pool, the target's or (speculative
     mode) the draft's: the allocator, the reserved sink page, the shared
@@ -466,15 +529,28 @@ class _PagedSide:
     cached page tables the model calls consume.  A row's table is
     [shared prefix pages | cached-prefix pages | own pages | sink ...]; a
     row with neither cached nor own pages is all-sink.  ``pool`` is the
-    side's device pool (set by the owner)."""
+    side's device pool (set by the owner).  Over ``n_shards`` mesh data
+    shards the allocator is a :class:`_ShardedAlloc` and every table
+    entry is a shard-local page id."""
 
     def __init__(self, n_pages: int, page_size: int, rows: int,
-                 np_max: int):
+                 np_max: int, n_shards: int = 1):
+        if n_pages % n_shards:
+            raise ValueError(f"n_pages ({n_pages}) must divide over "
+                             f"{n_shards} mesh data shards")
+        if rows % n_shards:
+            raise ValueError(f"rows ({rows}) must divide over "
+                             f"{n_shards} mesh data shards")
         self.n_pages = int(n_pages)
         self.page_size = int(page_size)
         self.rows = int(rows)
         self.np_max = int(np_max)
-        self.alloc = PageAllocator(self.n_pages, self.page_size)
+        self.n_shards = int(n_shards)
+        self.alloc = (PageAllocator(self.n_pages, self.page_size)
+                      if n_shards == 1 else
+                      _ShardedAlloc(self.n_pages // n_shards,
+                                    self.page_size, n_shards,
+                                    self.rows // n_shards))
         # Inactive decode rows still execute the batched write: their
         # table entries must point somewhere writable that no live
         # request owns.
@@ -515,16 +591,28 @@ class _PagedSide:
         self.alloc.release(row)
         self.dirty()
 
-    def headroom(self, active: Dict[int, _Row], worst_of) -> int:
-        """Free pages not spoken for by in-flight rows' reservations
-        (``worst_of(row)``: ``worst_pages`` or ``worst_draft``); zero-ref
-        cached pages count as free (the allocator reclaims them on
-        demand), so the cache never blocks admission."""
+    def shard_of(self, row: int) -> int:
+        return row * self.n_shards // self.rows
+
+    def shard_alloc(self, shard: int) -> PageAllocator:
+        """The allocator of ``shard``'s sub-pool."""
+        return (self.alloc if self.n_shards == 1
+                else self.alloc.shards[shard])
+
+    def headroom(self, active: Dict[int, _Row], worst_of,
+                 shard: int = 0) -> int:
+        """Free pages of ``shard`` not spoken for by its in-flight rows'
+        reservations (``worst_of(row)``: ``worst_pages`` or
+        ``worst_draft``); zero-ref cached pages count as free (the
+        allocator reclaims them on demand), so the cache never blocks
+        admission."""
         outstanding = sum(worst_of(row) - self.alloc.allocated(r)
-                          for r, row in active.items())
-        reclaimable = (self.pcache.reclaimable(0)
+                          for r, row in active.items()
+                          if self.shard_of(r) == shard)
+        reclaimable = (self.pcache.reclaimable(shard)
                        if self.pcache is not None else 0)
-        return self.alloc.free_count() + reclaimable - outstanding
+        return (self.shard_alloc(shard).free_count() + reclaimable
+                - outstanding)
 
     def table_np(self) -> np.ndarray:
         """Host master copy of the [rows, np_max] table."""
@@ -622,10 +710,10 @@ class _PrefixCache:
     both, eviction frees both, and either side's allocation pressure
     reclaims through the same trie.
 
-    The port serves one shard: the ``shard`` arguments of the
-    reference's per-shard tries are kept, and are always 0.  Every
-    public method takes the lock (``stats`` and ``summary`` are read
-    from a heartbeat thread)."""
+    Over a mesh's data shards there is one trie a shard (pages are
+    pinned to their shard, so a cached page is reachable only from rows
+    of its own shard).  Every public method takes the lock (``stats``
+    and ``summary`` are read from a heartbeat thread)."""
 
     def __init__(self, side: _PagedSide, page_size: int, first: int,
                  seed: bytes, budget: int, n_shards: int = 1,
@@ -656,7 +744,9 @@ class _PrefixCache:
         for s in (side, dside):
             if s is not None:
                 s.pcache = self
-                s.alloc.reclaim = functools.partial(self._reclaim_cb, 0)
+                for shard in range(self.n_shards):
+                    s.shard_alloc(shard).reclaim = functools.partial(
+                        self._reclaim_cb, shard)
 
     def _dirty(self) -> None:
         self.side.dirty()
@@ -812,9 +902,9 @@ class _PrefixCache:
         del level[best.digest]
         self._n_nodes[shard] -= 1
         self._n_zero[shard] -= 1
-        self.side.alloc.free.append(best.page)
+        self.side.shard_alloc(shard).free.append(best.page)
         if self.dside is not None:
-            self.dside.alloc.free.append(best.dpage)
+            self.dside.shard_alloc(shard).free.append(best.dpage)
         self._stats["evicted"] += 1
         return True
 
@@ -875,9 +965,9 @@ class _PrefixCache:
             dropped = 0
             for shard in range(self.n_shards):
                 for n in self._walk(shard):
-                    self.side.alloc.free.append(n.page)
+                    self.side.shard_alloc(shard).free.append(n.page)
                     if self.dside is not None:
-                        self.dside.alloc.free.append(n.dpage)
+                        self.dside.shard_alloc(shard).free.append(n.dpage)
                     dropped += 1
                 self.roots[shard] = {}
                 self._n_nodes[shard] = self._n_zero[shard] = 0
@@ -1066,10 +1156,36 @@ class ContinuousBatcher:
     :meth:`set_weights` (a whole tree) apply between generations, once no
     row is resident, by copying into the existing parameter tensors (the
     graphs read them by address), then clear the prefix cache and
-    restamp the KV tier.  A ``mesh`` is not ported yet: asking for one
-    raises ``NotImplementedError``.
+    restamp the KV tier.
 
-    Counters for measurement: ``prefills`` (full-prompt prefill calls),
+    ``mesh`` (a data (dp/fsdp) x tp ``parallel.mesh.RankMesh``, one rank
+    a process) makes the whole loop SPMD, as the JAX batcher is on a
+    multi-process mesh: every rank runs the same host loop over the
+    same requests and reads the same tokens.  The rows are cut into
+    contiguous blocks, one a data shard, and each shard owns an equal
+    sub-pool (target and draft) its rows' tables index with shard-local
+    page ids, with a prefix-cache trie and a static-prefix template of
+    its own; the params are this rank's tp blocks
+    (``partition_specs``, whole over the data axes).  A batched call
+    (the decode block, the speculative round) runs each shard's rows
+    on its own ranks, and the new tokens are all-gathered over the data
+    axes; a one-row call (an admission prefill, a chunk, a tail) runs on
+    the row's shard alone and its token is shared over the data axes.
+    Inside a shard the model runs Megatron tp, the logits whole on every
+    tp rank, so sampling folds the same keys everywhere.  ``rows`` must
+    divide over the data axes and tp must divide both models' head
+    counts.  Over gloo (every rank group on one card) CUDA graphs cannot
+    hold the collectives: ``graphs_bypass_reason`` is ``"gloo
+    collectives"`` and every call runs eagerly.  Over data shards KV
+    export/import, the KV tier, preemption and the fused tick are off,
+    as in the reference (``*_bypass_reason``: "mesh data sharding");
+    over tp alone the fused tick runs, export/import and the KV tier are
+    refused by name and preemption requeues rows without artifacts (a
+    rank holds only its KV heads); weight swaps are refused on any
+    mesh.
+
+    Counters for measurement: ``prefills`` (full-prompt prefill calls;
+    ``prefills_here`` those this rank ran, its data shard's on a mesh),
     ``tail_prefills`` (prefix-cache and session tails), ``prefill_chunks``,
     ``decode_ticks`` (decode dispatches, fused and speculative ones
     included), ``decode_tokens`` (tokens they committed) and
@@ -1115,10 +1231,35 @@ class ContinuousBatcher:
         if tokens_per_tick is not None and tokens_per_tick < 1:
             raise ValueError(f"tokens_per_tick must be >= 1, got "
                              f"{tokens_per_tick}")
+        self.mesh = mesh
+        self.n_shards, self._tp, self._shard = 1, 1, 0
+        self._tp_mesh = None
         if mesh is not None:
-            raise NotImplementedError("not ported yet: mesh")
+            real = {a for a, n in mesh.axes.items() if n > 1}
+            if not real <= {"dp", "fsdp", "tp"}:
+                raise ValueError(f"ContinuousBatcher meshes are data "
+                                 f"(dp/fsdp) x tp; got axes {sorted(real)}")
+            self.n_shards = mesh.axis_size(("dp", "fsdp"))
+            self._tp = mesh.axis_size("tp")
+            self._shard = mesh.coord(("dp", "fsdp"))
+            self._tp_mesh = mesh.only("tp")
+            if rows % self.n_shards:
+                raise ValueError(
+                    f"rows ({rows}) must divide over the mesh data axes "
+                    f"({self.n_shards}) — each data shard serves an equal "
+                    f"row block")
+            for c in (cfg, draft_cfg):
+                if c is not None:
+                    _check_tp(c, self._tp_mesh, "ContinuousBatcher")
+        #: Why the calls run eagerly on the card (None: CUDA graphs).
+        self.graphs_bypass_reason: Optional[str] = None
+        if mesh is not None and mesh.size() > 1:
+            import torch.distributed as dist
+
+            if dist.get_backend(mesh.get_group()) == "gloo":
+                self.graphs_bypass_reason = "gloo collectives"
         self._bypass = compute_bypass_reasons(
-            speculative=draft_cfg is not None,
+            speculative=draft_cfg is not None, n_shards=self.n_shards,
             quantized_cache=quantized_cache,
             draft_quantized_cache=draft_quantized_cache,
             pipeline_depth=pipeline_depth, overlap=overlap,
@@ -1162,8 +1303,10 @@ class ContinuousBatcher:
         # The caller's tree, kept for weight folds: a fold adds onto the
         # masters and casts once, as the reference casts at use.
         self._masters = params
-        self.params = _to_device(params, self.device, cfg.dtype)
+        self.params = self._local_params(cfg, params)
         self.rows = int(rows)
+        self._rl = self.rows // self.n_shards       # rows a data shard
+        self._r0 = self._shard * self._rl
         self.max_len = int(max_len or cfg.max_seq_len)
         if self.max_len > cfg.max_seq_len:
             raise ValueError(f"max_len ({self.max_len}) exceeds the "
@@ -1171,7 +1314,8 @@ class ContinuousBatcher:
         self.page_size = int(page_size)
         self.np_max = -(-self.max_len // self.page_size)
         # Default pool: every row's worst case beyond the shared prefix's
-        # full pages, plus the prefix's reserved pages and the sink.
+        # full pages, plus the prefix's reserved pages and the sink, in
+        # each data shard's sub-pool.
         prefix_np = None if prefix is None else np.asarray(prefix, np.int32)
         n_prefix_pages = (0 if prefix_np is None
                           else -(-int(prefix_np.size) // self.page_size))
@@ -1179,7 +1323,8 @@ class ContinuousBatcher:
                        else (int(prefix_np.size) // self.page_size)
                        * self.page_size)
         own_max = -(-(self.max_len - shared_full) // self.page_size)
-        default_pages = self.rows * own_max + n_prefix_pages + 1
+        default_pages = self.n_shards * (
+            self._rl * own_max + n_prefix_pages + 1)
         self.n_pages = int(n_pages or default_pages)
         self.prefill_chunk = prefill_chunk
         self.prefill_bucket = int(prefill_bucket)
@@ -1190,10 +1335,10 @@ class ContinuousBatcher:
         self._rng = (prng.PRNGKey(0, self.device) if rng is None
                      else rng.to(self.device).long())
         self.t_side = _PagedSide(self.n_pages, self.page_size, self.rows,
-                                 self.np_max)
+                                 self.np_max, self.n_shards)
         self.pool = init_paged_cache(cfg, self.n_pages, self.page_size,
                                      quantized=quantized_cache,
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
         self.t_side.pool = self.pool
         # Speculative decoding: the draft's own paged pool (same page
         # size and table layout, its own allocator), R rounds a dispatch.
@@ -1220,14 +1365,14 @@ class ContinuousBatcher:
                                  is not None else
                                  max(1, -(-self.multi_step
                                           // (self.n_draft + 1))))
-            self.draft_params = _to_device(draft_params, self.device,
-                                           draft_cfg.dtype)
+            self.draft_params = self._local_params(draft_cfg, draft_params)
             self.n_draft_pages = int(draft_n_pages or default_pages)
             self.d_side = _PagedSide(self.n_draft_pages, self.page_size,
-                                     self.rows, self.np_max)
+                                     self.rows, self.np_max, self.n_shards)
             self.dpool = init_paged_cache(
                 draft_cfg, self.n_draft_pages, self.page_size,
-                quantized=draft_quantized_cache, device=self.device)
+                quantized=draft_quantized_cache, device=self.device,
+                mesh=self.mesh)
             self.d_side.pool = self.dpool
         self._next_rid = int(rid_seed)
         self._submissions: Optional[SubmissionQueue] = None
@@ -1294,7 +1439,10 @@ class ContinuousBatcher:
         # of chunk tokens, position, cap, rid, table) and first tokens.
         self._slot_bufs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._graphs = StepGraphs(self.device)
+        self._graphs.eager = (self._graphs.eager
+                              or self.graphs_bypass_reason is not None)
         self.prefills = 0
+        self.prefills_here = 0      # admission prefills this rank ran
         self.tail_prefills = 0
         self.prefill_chunks = 0
         self.decode_ticks = 0
@@ -1328,6 +1476,7 @@ class ContinuousBatcher:
                 self._pcache = _PrefixCache(self.t_side, self.page_size,
                                             self.page_size - off, seed,
                                             prefix_cache_pages,
+                                            n_shards=self.n_shards,
                                             dside=self.d_side)
         # The KV tier: prefix pages the pool evicts spill into it and
         # promote back at the next matching admission; finished
@@ -1337,12 +1486,63 @@ class ContinuousBatcher:
         self.kv_tier_bypass_reason: Optional[str] = None
         if kv_tier is not None:
             self.kv_tier_bypass_reason = self._bypass["kv_tier"]
+            if self.mesh is not None and self.kv_tier_bypass_reason is None:
+                raise NotImplementedError("not ported yet: the KV tier on "
+                                          "a tp mesh")
             if self.kv_tier_bypass_reason is None \
                     and self._pcache is not None:
                 self._pcache.on_evict = self._spill_page
                 kv_tier.prefix_geometry = {
                     "page": self.page_size, "first": self._pcache.first,
                     "seed": self._pcache.seed.hex()}
+
+    def _local_params(self, cfg: TransformerConfig, params: Params
+                      ) -> Params:
+        """``params`` on the device at the compute dtype; on a mesh this
+        rank's tp blocks (``partition_specs`` over tp alone: every data
+        shard holds the whole tp-cut tree, so a shard's one-row call
+        needs no other shard)."""
+        if self._tp_mesh is not None:
+            params = place_tree(self._tp_mesh, params,
+                                partition_specs(cfg, self._tp_mesh))
+        return _to_device(params, self.device, cfg.dtype)
+
+    def _owns(self, row: int) -> bool:
+        """Whether ``row`` is in this rank's data shard."""
+        return self.t_side.shard_of(row) == self._shard
+
+    def _local(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's row block of a [rows]-wide ``dim`` (all of it
+        without a mesh)."""
+        if self.n_shards == 1:
+            return x
+        return x.narrow(dim, self._r0, self._rl)
+
+    def _put_rows(self, dst: torch.Tensor, local: torch.Tensor) -> None:
+        """Write every data shard's row block (this rank's ``local``, the
+        others' over the data axes) into the [rows, ...] ``dst``."""
+        if self.n_shards == 1:
+            dst.copy_(local)
+        else:
+            dst.copy_(collectives.all_gather(local.contiguous(), self.mesh,
+                                             data_axes(self.mesh), 0))
+
+    def _share(self, out: torch.Tensor, row: int) -> None:
+        """A one-row call's token, computed by ``row``'s shard alone, on
+        every rank (a sum over the data axes of it and zeros)."""
+        if self.n_shards == 1:
+            return
+        mine = out if self._owns(row) else torch.zeros_like(out)
+        out.copy_(collectives.all_reduce_sum(mine, self.mesh,
+                                             data_axes(self.mesh)))
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.n_shards != 1:
+            raise ValueError(f"{what} requires a single-shard pool (mesh "
+                             f"data shards pin pages locally)")
+        if self.mesh is not None:
+            raise NotImplementedError(f"not ported yet: {what} on a tp "
+                                      f"mesh")
 
     @property
     def peak_pages_used(self) -> int:
@@ -1366,8 +1566,10 @@ class ContinuousBatcher:
         """Whether a resident row can be suspended (the ``suspend``
         registry entry is None): not under a lagged decode carry
         (``overlap``, ``pipeline_depth=1``), whose host view of a row
-        runs a block behind its pages."""
-        return self.suspend_bypass_reason is None
+        runs a block behind its pages, nor on a mesh, whose ranks hold
+        a row's KV heads apart (a suspended row requeues without an
+        artifact, as under the registry's bypass)."""
+        return self.suspend_bypass_reason is None and self.mesh is None
 
     def paged_launches_per_block(self, block_tokens: int = 16) -> int:
         """Target paged-attention launches per layer needed to retire
@@ -1419,7 +1621,8 @@ class ContinuousBatcher:
         does not subtract in-flight reservations)."""
         free = self.t_side.alloc.free_count()
         if self._pcache is not None:
-            free += self._pcache.reclaimable(0)
+            free += sum(self._pcache.reclaimable(s)
+                        for s in range(self.n_shards))
         return free
 
     def preempt_all(self) -> None:
@@ -1445,6 +1648,7 @@ class ContinuousBatcher:
         if not isinstance(version, str) or not version:
             raise ValueError("adapter version must be a non-empty "
                              "string")
+        self._refuse_swaps_on_mesh()
         resolved = self._resolve_delta(delta)
         self._queue_weight_update(("fold", resolved, version, on_applied))
 
@@ -1454,6 +1658,7 @@ class ContinuousBatcher:
         same config and shapes, so nothing is recaptured), under
         :meth:`swap_adapter`'s fence; ``version`` restamps the KV tier so
         entries parked under the old weights read as version misses."""
+        self._refuse_swaps_on_mesh()
         self._check_tree(params, self.params, "")
         self._queue_weight_update(("set", params, str(version or ""),
                                    on_applied))
@@ -1507,6 +1712,11 @@ class ContinuousBatcher:
             resolved.append((keys, torch.from_numpy(
                 arr.astype(np.float32))))
         return resolved
+
+    def _refuse_swaps_on_mesh(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError("not ported yet: weight swaps on a "
+                                      "mesh")
 
     def _queue_weight_update(self, update) -> None:
         with self._loop_lock:
@@ -1884,8 +2094,10 @@ class ContinuousBatcher:
             pages = [side.alloc.reserve_page() for _ in range(n_reserve)]
             table = np.full((1, side.np_max), side.sink, np.int32)
             table[0, :n_reserve] = pages
+            # Every data shard prefills its own sub-pool (the same
+            # local page ids in each).
             decode_step(cfg, params, dict(side.pool, pages=torch.as_tensor(
-                table, device=self.device)), toks, 0)
+                table, device=self.device)), toks, 0, mesh=self._tp_mesh)
             if tail:
                 side.tail_template = pages[-1]
                 side.shared_pages = pages[:-1]
@@ -1992,15 +2204,53 @@ class ContinuousBatcher:
     def _admit_row(self, free_rows: List[int], active: Dict[int, _Row],
                    wt: int, wd: int, req: Request, use_cache: bool = True
                    ) -> Tuple[Optional[int], Optional[_PrefixPlan]]:
-        """Pop a free row when each pool can take its worst-case
-        reservation (``wt`` target, ``wd`` draft pages), with the longest
-        prefix-cache plan that fits: ``(row, plan)``, or ``(None, None)``
-        to wait.  Raises when nothing is in flight and it still cannot
-        fit (waiting would deadlock)."""
-        ht = self.t_side.headroom(active, lambda x: x.worst_pages)
-        hd = (self.d_side.headroom(active, lambda x: x.worst_draft)
+        """Pop a free row whose shard's pool(s) can take each worst-case
+        reservation (``wt`` target, ``wd`` draft pages), preferring the
+        shard with the longest prefix-cache plan for ``req`` (pages are
+        shard-pinned), then the most target headroom (one shard: a
+        headroom check): ``(row, plan)``, or ``(None, None)`` to wait.
+        Raises when a free row's shard has nothing in flight and still
+        cannot fit (waiting would deadlock)."""
+        best = None
+        empty_shard = None
+        by_shard: Dict[int, tuple] = {}
+        for i, r in enumerate(free_rows):
+            s = self.t_side.shard_of(r)
+            if s not in by_shard:
+                by_shard[s] = self._shard_fit(s, active, wt, wd, req,
+                                              use_cache)
+            ok, ht, plan = by_shard[s]
+            if ok:
+                key = (plan.save if plan is not None else 0, ht)
+                if best is None or key > best[1]:
+                    best = (i, key, plan)
+            elif not any(self.t_side.shard_of(rr) == s for rr in active):
+                empty_shard = s
+        if best is not None:
+            return free_rows.pop(best[0]), best[2]
+        if empty_shard is not None:
+            s = empty_shard
+            free = self.t_side.shard_alloc(s).free_count()
+            if self._pcache is not None:
+                free += self._pcache.reclaimable(s)
+            free_d = (0 if self.d_side is None
+                      else self.d_side.shard_alloc(s).free_count())
+            where = f" in shard {s}" if self.n_shards > 1 else ""
+            raise RuntimeError(
+                f"request needs {wt} target pages (+ {wd} draft) but only "
+                f"{free} target / {free_d} draft are free{where} with "
+                f"nothing in flight to wait for — raise n_pages")
+        return None, None
+
+    def _shard_fit(self, s: int, active: Dict[int, _Row], wt: int, wd: int,
+                   req: Request, use_cache: bool
+                   ) -> Tuple[bool, int, Optional[_PrefixPlan]]:
+        """``(fits, target headroom, plan)`` of an admission into shard
+        ``s``, with the longest prefix-cache plan that fits."""
+        ht = self.t_side.headroom(active, lambda x: x.worst_pages, s)
+        hd = (self.d_side.headroom(active, lambda x: x.worst_draft, s)
               if self.d_side is not None else None)
-        plan = (self._prefix_plan(req)
+        plan = (self._prefix_plan(req, s)
                 if self._pcache is not None and use_cache else None)
         while True:
             save = plan.save if plan is not None else 0
@@ -2016,25 +2266,13 @@ class ContinuousBatcher:
             if ok and hd is not None:
                 ok = (wd - save) <= hd - zref
             if ok or plan is None:
-                break
+                return ok, ht, plan
             # A deep plan that does not fit (a COW full hit needs a fresh
             # page on top of every mapped one) retries shallower, down to
             # the cold admission, which evicts unused cached pages.
             depth = len(plan.nodes) - 1
-            plan = self._prefix_plan(req, max_nodes=depth) if depth else None
-        if ok:
-            return free_rows.pop(0), plan
-        if not active:
-            free = self.t_side.alloc.free_count()
-            if self._pcache is not None:
-                free += self._pcache.reclaimable(0)
-            free_d = (0 if self.d_side is None
-                      else self.d_side.alloc.free_count())
-            raise RuntimeError(
-                f"request needs {wt} target pages (+ {wd} draft) but only "
-                f"{free} target / {free_d} draft are free with nothing in "
-                f"flight to wait for — raise n_pages")
-        return None, None
+            plan = (self._prefix_plan(req, s, max_nodes=depth)
+                    if depth else None)
 
     def _sample(self, last: torch.Tensor, rids: torch.Tensor,
                 steps: torch.Tensor) -> torch.Tensor:
@@ -2060,7 +2298,7 @@ class ContinuousBatcher:
             side.ensure(row, length)
             if (side.tail_template is not None and fresh
                     and not side.row_cached.get(row)
-                    and side.alloc.allocated(row)):
+                    and side.alloc.allocated(row) and self._owns(row)):
                 _copy_page(side.pool, side.tail_template,
                            side.alloc.rows[row][0])
 
@@ -2141,7 +2379,8 @@ class ContinuousBatcher:
                 side.ensure(row, side.shared_len
                             + len(plan.nodes) * self.page_size)
                 src = node.page if side is self.t_side else node.dpage
-                _copy_page(side.pool, src, side.alloc.rows[row][0])
+                if self._owns(row):
+                    _copy_page(side.pool, src, side.alloc.rows[row][0])
             # The reference protected the source through the ensure()
             # above; the copy is enqueued, so it may go now.
             self._pcache.release_nodes(row, [node])
@@ -2184,8 +2423,11 @@ class ContinuousBatcher:
         h[width:width + 2] = (prompt.size - 1, rid)
         h[width + 2:] = self.t_side.table_np()[row]
         inp.copy_(host, non_blocking=True)
-        self._graphs.run(("prefill", width),
-                         functools.partial(self._prefill_step, width))
+        if self._owns(row):
+            self.prefills_here += 1
+            self._graphs.run(("prefill", width),
+                             functools.partial(self._prefill_step, width))
+        self._share(out, row)
         return out.clone()[0]
 
     def _prefill_buffers(self, width: int
@@ -2206,7 +2448,8 @@ class ContinuousBatcher:
         table = inp[width + 2:].to(torch.int32)[None]
         logits, _ = decode_step(self.cfg, self.params,
                                 dict(self.pool, pages=table),
-                                inp[:width][None], self.prefix_len)
+                                inp[:width][None], self.prefix_len,
+                                mesh=self._tp_mesh)
         last = logits[0].index_select(0, inp[width:width + 1])
         rid = inp[width + 1:width + 2]
         out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
@@ -2253,8 +2496,10 @@ class ContinuousBatcher:
         h[t:t + 3] = (pos, cap, rid)
         h[t + 3:] = self.t_side.table_np()[row, :w]
         inp.copy_(host, non_blocking=True)
-        self._graphs.run(("chunk", t, w),
-                         functools.partial(self._chunk_step, t, w))
+        if self._owns(row):
+            self._graphs.run(("chunk", t, w),
+                             functools.partial(self._chunk_step, t, w))
+        self._share(out, row)
         return out.clone()
 
     @torch.no_grad()
@@ -2264,7 +2509,8 @@ class ContinuousBatcher:
         table = inp[t + 3:].to(torch.int32)[None]
         logits, _ = decode_step(self.cfg, self.params,
                                 dict(self.pool, pages=table),
-                                inp[:t][None], inp[t:t + 1])
+                                inp[:t][None], inp[t:t + 1],
+                                mesh=self._tp_mesh)
         last = logits[0].index_select(0, inp[t + 1:t + 2].clamp(0, t - 1))
         rid = inp[t + 2:t + 3]
         out.copy_(self._sample(last, rid, torch.zeros_like(rid)))
@@ -2283,8 +2529,9 @@ class ContinuousBatcher:
         h[t] = pos
         h[t + 1:] = self.d_side.table_np()[row]
         inp.copy_(host, non_blocking=True)
-        self._graphs.run(("draft_chunk", t),
-                         functools.partial(self._draft_chunk_step, t))
+        if self._owns(row):
+            self._graphs.run(("draft_chunk", t),
+                             functools.partial(self._draft_chunk_step, t))
 
     def _dchunk_buffer(self, t: int) -> torch.Tensor:
         if t not in self._dchunk_bufs:
@@ -2300,7 +2547,7 @@ class ContinuousBatcher:
         table = inp[t + 1:].to(torch.int32)[None]
         decode_step(self.draft_cfg, self.draft_params,
                     dict(self.dpool, pages=table), inp[:t][None],
-                    inp[t:t + 1])
+                    inp[t:t + 1], mesh=self._tp_mesh)
 
     def _pcache_insert(self, row: int, state: _Row) -> None:
         """Publish ``row``'s freshly prefilled full prompt pages into the
@@ -2309,7 +2556,8 @@ class ContinuousBatcher:
             return
         digs = self._req_digests(state.req)
         if digs:
-            self._pcache.insert_row(row, 0, digs, state)
+            self._pcache.insert_row(row, self.t_side.shard_of(row), digs,
+                                    state)
 
     def _finalize_burst(self, burst: list, active: Dict[int, _Row],
                         free_rows: List[int]) -> Iterator[Completion]:
@@ -2410,29 +2658,32 @@ class ContinuousBatcher:
         ``overlap`` from the previous block's last token, still in
         ``_tick_out``; under the pipeline from the device carry, which
         the block then advances (clamped at ``max_len + K``)."""
-        inp = self._tick_in
+        inp = self._local(self._tick_in, 1)
         tok, pos, rids, steps = inp[0], inp[1], inp[2], inp[3]
         flag = inp[4].bool()
         K = self.multi_step
         if self._pipelined:
-            carry = self._carry
+            carry = self._local(self._carry, 1)
             tok = torch.where(flag, tok, carry[0])
             pos = torch.where(flag, pos, carry[1])
             steps = torch.where(flag, steps, carry[2])
         elif self.overlap:
-            tok = torch.where(flag, tok, self._tick_out[:, -1])
-        cache = dict(self.pool, pages=self._tables[width][1])
+            tok = torch.where(flag, tok, self._local(self._tick_out)[:, -1])
+        cache = dict(self.pool, pages=self._local(self._tables[width][1]))
+        out = []
         for j in range(K):
             logits, _ = decode_step(self.cfg, self.params, cache,
                                     tok[:, None],
-                                    torch.clamp(pos + j, max=self.max_len))
+                                    torch.clamp(pos + j, max=self.max_len),
+                                    mesh=self._tp_mesh)
             tok = self._sample(logits[:, -1], rids, steps + j)
-            self._tick_out[:, j].copy_(tok)
+            out.append(tok)
+        self._put_rows(self._tick_out, torch.stack(out, dim=1))
         if self._pipelined:
             cap = self.max_len + K
-            self._carry[0].copy_(tok)
-            self._carry[1].copy_(torch.clamp(pos + K, max=cap))
-            self._carry[2].copy_(torch.clamp(steps + K, max=cap))
+            carry[0].copy_(tok)
+            carry[1].copy_(torch.clamp(pos + K, max=cap))
+            carry[2].copy_(torch.clamp(steps + K, max=cap))
 
     def _fetch(self, src: torch.Tensor) -> Tuple[torch.Tensor, Any]:
         """Start copying ``src`` to a fresh host buffer; returns it and
@@ -2623,7 +2874,7 @@ class ContinuousBatcher:
         drafts, pds = [], []
         for j in range(k + 1):
             lg, _ = decode_step(self.draft_cfg, self.draft_params, dcache,
-                                dtok[:, None], dpos)
+                                dtok[:, None], dpos, mesh=self._tp_mesh)
             if sampling:
                 f = filter_logits(lg[:, -1], T, top_k, top_p)
                 dtok = prng.categorical(prng.fold_in(base, steps + j), f)
@@ -2636,7 +2887,7 @@ class ContinuousBatcher:
         lg, _ = decode_step(self.cfg, self.params,
                             dict(self.pool, pages=table),
                             torch.cat([toks[:, None], drafts], dim=1),
-                            positions)
+                            positions, mesh=self._tp_mesh)
         if not sampling:
             g = torch.argmax(lg.float(), dim=-1)             # [rows, k+1]
             return g, greedy_accept_counts(drafts, g)
@@ -2667,13 +2918,13 @@ class ContinuousBatcher:
         from the previous round's carry on the device (its last committed
         token, position + count, step + count); the round's candidates,
         counts, positions and steps become the next carry."""
-        inp = self._tick_in
+        inp = self._local(self._tick_in, 1)
         toks, positions, rids, steps = inp[0], inp[1], inp[2], inp[3]
-        table = self._tables[tw][1]
-        dtable = self._dtables[dw][1]
+        table = self._local(self._tables[tw][1])
+        dtable = self._local(self._dtables[dw][1])
         k1 = self.n_draft + 1
         if self.overlap:
-            carry = self._spec_carry
+            carry = self._local(self._spec_carry)
             prev_g, prev_n = carry[:, :k1], carry[:, k1]
             use_dev = inp[4].bool()
             last = torch.clamp(prev_n - 1, min=0)
@@ -2684,16 +2935,16 @@ class ContinuousBatcher:
             steps = torch.where(use_dev, carry[:, k1 + 2] + prev_n, steps)
             g, counts = self._spec_body(toks, positions, rids, steps, table,
                                         dtable)
-            self._spec_g[0].copy_(g)
-            self._spec_n[0].copy_(counts)
+            self._put_rows(self._spec_g[0], g)
+            self._put_rows(self._spec_n[0], counts)
             carry.copy_(torch.cat([g, counts[:, None], positions[:, None],
                                    steps[:, None]], dim=1))
             return
         for i in range(max(1, self._spec_rounds)):
             g, counts = self._spec_body(toks, positions, rids, steps, table,
                                         dtable)
-            self._spec_g[i].copy_(g)
-            self._spec_n[i].copy_(counts)
+            self._put_rows(self._spec_g[i], g)
+            self._put_rows(self._spec_n[i], counts)
             last = torch.clamp(counts - 1, min=0)
             toks = torch.take_along_dim(g, last[:, None], dim=1)[:, 0]
             positions = positions + counts
@@ -2883,7 +3134,7 @@ class ContinuousBatcher:
         table = inp[:, c + 3:].to(torch.int32)
         logits, _ = decode_step(self.cfg, self.params,
                                 dict(self.pool, pages=table), inp[:, :c],
-                                inp[:, c])
+                                inp[:, c], mesh=self._tp_mesh)
         cap = inp[:, c + 1].clamp(0, c - 1)
         last = torch.take_along_dim(logits, cap[:, None, None], dim=1)[:, 0]
         rids = inp[:, c + 2]
@@ -2961,6 +3212,7 @@ class ContinuousBatcher:
         if not isinstance(request, Request):
             raise TypeError(f"export_kv() takes a Request, got "
                             f"{type(request).__name__}")
+        self._refuse_on_mesh("export_kv")
         with self._loop_lock:
             if self._loop_active:
                 raise RuntimeError(
@@ -3063,6 +3315,7 @@ class ContinuousBatcher:
     def _validate_artifact(self, art: dict, req: Request) -> None:
         """Reject an import whose artifact cannot drop into THIS pool
         bit-exactly (the reference's checks, each a ``ValueError``)."""
+        self._refuse_on_mesh("a KV import")
         if art.get("version") != 1:
             raise ValueError(f"unknown KV artifact version "
                              f"{art.get('version')!r}")
@@ -3696,13 +3949,20 @@ class ContinuousBatcher:
         (``spec_round[w]``) instead of the decode block, and the draft's
         prompt chunk at each width admission, chunking or a tail gives it
         (``draft_chunk[w]``).  On the card each is a CUDA graph captured here
-        (without warmup a shape is captured at its first call).  Every
+        (without warmup a shape is captured at its first call; on a gloo
+        mesh nothing is, and the result carries ``graphs_bypass_reason``).
+        Every
         write lands on the sink page (all-sink tables, zero tokens and
         positions), so a warmed batcher's streams are bit-identical to a
         cold one's.  Raises while the serve loop is active.  Returns
         ``{"compiled": [...], "seconds": float}``."""
         t0 = time.perf_counter()
         compiled: List[str] = []
+        if self.graphs_bypass_reason is not None:
+            # Nothing to capture: every call runs eagerly.  Said by name,
+            # never a silent fallback.
+            return {"compiled": compiled, "seconds": 0.0,
+                    "graphs_bypass_reason": self.graphs_bypass_reason}
         with self._loop_lock:
             if self._loop_active:
                 raise RuntimeError(

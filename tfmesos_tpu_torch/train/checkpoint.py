@@ -15,6 +15,13 @@ optimizer's state of each leaf, by the param's flattened name).
 
 :func:`convert_orbax` writes such a checkpoint from an Orbax checkpoint
 of the JAX trainer, read back as numpy by the caller.
+
+On a mesh whose params are cut per ``partition_specs`` (a manager made
+with ``mesh`` and ``param_specs``), a save gathers every cut leaf whole
+(the params and their AdamW moments) and rank 0 alone writes, so the
+format is the one-process format; a restore cuts each saved leaf to
+the rank's block.  A run saved on one mesh continues on another, or on
+one process.
 """
 
 from __future__ import annotations
@@ -121,7 +128,8 @@ class CheckpointManager:
     partial one; the oldest steps are removed only after the new one has
     landed."""
 
-    def __init__(self, workdir: str, max_to_keep: Optional[int] = 3):
+    def __init__(self, workdir: str, max_to_keep: Optional[int] = 3,
+                 mesh=None, param_specs: Optional[Mapping] = None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1 or None, got "
                              f"{max_to_keep}")
@@ -133,15 +141,66 @@ class CheckpointManager:
         # Host buffers of the last snapshot, by path, reused by the next
         # save (pinned for a card's tensors).
         self._host: Dict[str, torch.Tensor] = {}
+        # A sharded state: the mesh its leaves are cut over and each
+        # param's spec by flattened name ("layers/wq").
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self._specs: Dict[str, Any] = {}
+        if self.mesh is not None and param_specs is not None:
+            self._specs = _flat_specs(param_specs)
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes (rank 0 of a sharded state)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _spec_of(self, path: str, leaf: torch.Tensor):
+        """The spec of the param whose flattened name ends ``path`` (a
+        param or one of its moments, of the param's rank), else None."""
+        parts = path.split("/")
+        for i in range(len(parts)):
+            spec = self._specs.get("/".join(parts[i:]))
+            if spec is not None and len(spec) == leaf.dim():
+                return spec
+        return None
+
+    def _whole(self, flat: Dict[str, Any]) -> Dict[str, Any]:
+        """``flat`` with every cut leaf gathered whole (collectives, in
+        path order on every rank)."""
+        from tfmesos_tpu_torch.parallel.sharding import uncut
+
+        if not self._specs:
+            return flat
+        out = {}
+        for path, v in flat.items():
+            spec = (self._spec_of(path, v) if isinstance(v, torch.Tensor)
+                    else None)
+            out[path] = v if spec is None else uncut(v.detach(), spec,
+                                                     self.mesh)
+        return out
+
+    def _cut(self, saved: Dict[str, Any], template: Any) -> Dict[str, Any]:
+        """The saved whole leaves cut to this rank's blocks, per the
+        template's paths."""
+        from tfmesos_tpu_torch.parallel.sharding import cut
+
+        if not self._specs:
+            return saved
+        out = dict(saved)
+        for path, v in flat_state(template).items():
+            spec = (self._spec_of(path, v) if isinstance(v, torch.Tensor)
+                    else None)
+            if spec is not None and path in saved:
+                out[path] = cut(saved[path], spec, self.mesh)
+        return out
 
     # -- saving ------------------------------------------------------------
 
-    def _snapshot(self, state: Any) -> Dict[str, Any]:
-        """Every tensor of ``state`` copied to the host.  Card tensors go
-        to pinned buffers on the current stream, then ONE stream sync;
-        the training step updates params and moments in place, so a
-        write that kept references would write a later step's values."""
-        flat = flat_state(state)
+    def _snapshot(self, flat: Dict[str, Any]) -> Dict[str, Any]:
+        """Every tensor of the flat state copied to the host.  Card
+        tensors go to pinned buffers on the current stream, then ONE
+        stream sync; the training step updates params and moments in
+        place, so a write that kept references would write a later
+        step's values."""
         snap: Dict[str, Any] = {}
         cuda_streams = set()
         for path, v in flat.items():
@@ -207,9 +266,14 @@ class CheckpointManager:
         a writer thread then writes it, overlapping the file write with
         the next training steps.  One write is in flight at a time: the
         next save (or :meth:`wait_until_finished`, :meth:`restore`,
-        :meth:`close`) first joins it and raises what it raised."""
+        :meth:`close`) first joins it and raises what it raised.  On a
+        sharded state every rank calls it (the gather is collective) and
+        rank 0 writes."""
         self.wait_until_finished()
-        snap = self._snapshot(state)
+        flat = self._whole(flat_state(state))
+        if not self.writer:
+            return
+        snap = self._snapshot(flat)
         if wait:
             self._write(step, snap)
         else:
@@ -263,13 +327,24 @@ class CheckpointManager:
         t0 = time.perf_counter()
         path = os.path.join(self.workdir, f"step_{step}", STATE_FILE)
         saved = torch.load(path, map_location="cpu", weights_only=True)
-        restored = _restore_into(state_like, saved)
+        restored = _restore_into(state_like, self._cut(saved, state_like))
         log.info("restored checkpoint step=%d (%.3f s)", step,
                  time.perf_counter() - t0)
         return restored
 
     def close(self) -> None:
         self.wait_until_finished()
+
+
+def _flat_specs(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    """``{"layers/wq": spec, ...}`` of a nested spec dict."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 # -- an Orbax checkpoint of the JAX trainer -----------------------------------

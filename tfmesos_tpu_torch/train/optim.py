@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -55,16 +55,18 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def clip_by_global_norm(max_norm: float
+def clip_by_global_norm(max_norm: float, sumsq: Optional[Callable] = None
                         ) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
     """optax's clip: with g_norm the global L2 norm of all gradients,
     each g becomes ``(g / g_norm) * max_norm`` when g_norm >= max_norm
     and stays as it is otherwise.  The returned function clips a list of
     gradients IN PLACE, on the device (no host sync), and returns
-    g_norm."""
+    g_norm.  ``sumsq(grads)`` computes the global sum of squares where
+    the gradients are shards of a mesh (``trainer.sharded_sumsq``)."""
 
     def clip(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        g_norm = torch.sqrt(sumsq(grads) if sumsq is not None else
+                            sum(torch.sum(g.float() ** 2) for g in grads))
         keep = g_norm < max_norm
         for g in grads:
             g.copy_(torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm))
@@ -141,16 +143,18 @@ class AdamW:
             fused=None)
         return OptState(opt, leaves, names=list(flat))
 
-    def update(self, grads: Dict, state: OptState) -> OptState:
-        """One step: clip (when asked), then AdamW at lr(count) — the
-        decay term scaled by the same lr, as in optax's chain — applied
-        to the params in place; ``count`` advances by one."""
+    def update(self, grads: Dict, state: OptState,
+               sumsq: Optional[Callable] = None) -> OptState:
+        """One step: clip (when asked; ``sumsq`` as for
+        :func:`clip_by_global_norm`), then AdamW at lr(count) — the decay
+        term scaled by the same lr, as in optax's chain — applied to the
+        params in place; ``count`` advances by one."""
         gs = list(flatten(grads).values())
         if len(gs) != len(state.leaves):
             raise ValueError(f"{len(gs)} gradients for "
                              f"{len(state.leaves)} params")
         if self.max_norm > 0:
-            clip_by_global_norm(self.max_norm)(gs)
+            clip_by_global_norm(self.max_norm, sumsq)(gs)
         for p, g in zip(state.leaves, gs):
             p.grad = g.to(p.dtype)
         lr = self._lr(state.count)

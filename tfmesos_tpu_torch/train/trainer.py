@@ -1,6 +1,6 @@
 """Train and eval steps and the step loop (port of
-``tfmesos_tpu/train/trainer.py``: one device, or data parallel over a
-mesh of ranks).
+``tfmesos_tpu/train/trainer.py``: one device, or a dp/fsdp x tp mesh of
+ranks).
 
 ``make_train_step`` keeps the JAX call shape,
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, and
@@ -11,9 +11,11 @@ so the params and state that come back are the objects passed in.  With
 a data ``mesh`` of several ranks, each rank passes its own equal share
 of the global batch and the gradients are averaged over the mesh before
 the update, which is the JAX step's arithmetic on the global batch.
-``param_specs`` and ``grads_fn`` belong to the tensor- and
-pipeline-parallel slices (ROADMAP A.9 (b), A.10) and are not arguments
-here.
+With ``param_specs`` the params are each rank's blocks (tp and fsdp,
+``parallel.sharding.place_tree``), and so are the gradients and the
+AdamW state; the global-norm clip sums its squares over the shards.
+``grads_fn`` belongs to the pipeline-parallel slice (ROADMAP A.10) and
+is not an argument here.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 import torch.distributed as dist
 
 from tfmesos_tpu_torch.convert import flatten, unflatten
+from tfmesos_tpu_torch.parallel import collectives
+from tfmesos_tpu_torch.parallel.sharding import data_axes, spec_axes
 from tfmesos_tpu_torch.train.optim import AdamW, OptState
 from tfmesos_tpu_torch.utils.logging import get_logger
 
@@ -40,31 +44,69 @@ class TrainState:
     step: int = 0
 
 
-def mesh_mean(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """Each tensor averaged over ``mesh``'s ranks (``all_reduce(SUM) /
-    size``), as fresh tensors.  The tensors go into one contiguous
-    buffer per dtype, so a step makes one collective per dtype however
-    many leaves it has: gloo stages a CUDA tensor through host memory,
-    and a call per leaf would cost more than the data."""
-    group, size = mesh.get_group(), mesh.size()
-    out: List[Any] = [None] * len(tensors)
-    by_dtype: Dict[torch.dtype, List[int]] = {}
-    for i, t in enumerate(tensors):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(size)
-        for i, piece in zip(idx, flat.split([tensors[i].numel()
-                                             for i in idx])):
-            out[i] = piece.view_as(tensors[i])
+def mesh_mean(tensors: List[torch.Tensor], mesh, axes=None
+              ) -> List[torch.Tensor]:
+    """Each tensor averaged over ``mesh``'s ranks on ``axes`` (its data
+    axes by default: ``all_reduce(SUM) / size``), as fresh tensors, in
+    one collective per dtype however many leaves there are
+    (``collectives.grad_sync``)."""
+    return collectives.grad_sync(tensors, mesh, axes or data_axes(mesh)
+                                 or ())
+
+
+def _flat_specs(param_specs, names: List[str]) -> List[Any]:
+    """The spec of each flattened leaf name (``layers/wq``)."""
+    out = []
+    for name in names:
+        node = param_specs
+        for part in name.split("/"):
+            node = node[part]
+        out.append(node)
     return out
+
+
+def sharded_grad_mean(grads: List[torch.Tensor], specs: List[Any],
+                      mesh) -> List[torch.Tensor]:
+    """The global batch's gradient of each leaf block: a leaf cut over
+    fsdp came out of its reduce-scatter summed over fsdp already, so it
+    is averaged over dp and divided by fsdp; every other leaf (whole, or
+    cut over tp only) is averaged over the data axes."""
+    fsdp = mesh.axis_size("fsdp")
+    sharded = [i for i, s in enumerate(specs)
+               if fsdp > 1 and "fsdp" in spec_axes(s, mesh)]
+    rest = [i for i in range(len(grads)) if i not in set(sharded)]
+    out: List[Any] = list(grads)
+    for idx, axes, div in ((sharded, ("dp",), fsdp),
+                           (rest, data_axes(mesh) or (), 1)):
+        if not idx:
+            continue
+        for i, g in zip(idx, mesh_mean([grads[i] for i in idx], mesh,
+                                       axes)):
+            out[i] = g / div if div > 1 else g
+    return out
+
+
+def sharded_sumsq(specs: List[Any], mesh):
+    """``sumsq(grads)``: the global sum of squares of leaf blocks cut per
+    ``specs`` — each leaf's local sum, summed over the axes it is cut
+    over (one collective per set of axes), each whole leaf counted
+    once."""
+    def sumsq(grads):
+        by_axes: Dict[tuple, Any] = {}
+        for g, s in zip(grads, specs):
+            axes = tuple(sorted(set(spec_axes(s, mesh))))
+            by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(
+                g.float() ** 2)
+        return sum(collectives.all_reduce_sum(v, mesh, axes) if axes else v
+                   for axes, v in by_axes.items())
+    return sumsq
 
 
 def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     postprocess: Optional[Callable] = None,
                     steps_per_call: int = 1, grad_accum: int = 1,
-                    scan_unroll: int = 1, mesh=None) -> Callable:
+                    scan_unroll: int = 1, mesh=None,
+                    param_specs=None) -> Callable:
     """Build the train step.
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``optimizer`` an
@@ -81,7 +123,13 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     microbatches and averages their float32 gradients before the single
     update — the full-batch step for a per-example-mean loss, at
     1/grad_accum the activation memory; the returned metrics are then
-    microbatch means.  ``postprocess(params)`` runs on the updated params
+    microbatch means.  ``param_specs`` (with a ``mesh``; the model's
+    ``partition_specs``): the params are this rank's blocks, the loss
+    function runs over them on the mesh, and each gradient block is the
+    global batch's (:func:`sharded_grad_mean`); the AdamW state is then
+    the rank's blocks too, and its global-norm clip is the one a single
+    process clips by (:func:`sharded_sumsq`).
+    ``postprocess(params)`` runs on the updated params
     (in place, under ``no_grad``).  ``metrics["loss"]`` is the loss
     (a device tensor: reading it syncs).
 
@@ -130,18 +178,33 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                 {k: v / grad_accum for k, v in msum.items()})
 
     reduce = mesh is not None and mesh.size() > 1
+    sharded = reduce and param_specs is not None
+    specs: Optional[List[Any]] = None
+    sumsq = None
 
     def one_step(params, opt_state: OptState, batch):
+        nonlocal specs, sumsq
         grads, loss, metrics = grads_and_metrics(params, batch)
+        kw = {}
         if reduce:
             flat = flatten(grads)
             names, keys = list(flat), list(metrics)
-            mean = mesh_mean(list(flat.values()) + [loss]
-                             + [metrics[k] for k in keys], mesh)
+            gs = list(flat.values())
+            scalars = [loss] + [metrics[k] for k in keys]
+            if sharded:
+                if specs is None:
+                    specs = _flat_specs(param_specs, names)
+                    sumsq = sharded_sumsq(specs, mesh)
+                if getattr(optimizer, "max_norm", 0) > 0:
+                    kw["sumsq"] = sumsq
+                mean = sharded_grad_mean(gs, specs, mesh) + mesh_mean(
+                    scalars, mesh)
+            else:
+                mean = mesh_mean(gs + scalars, mesh)
             grads = unflatten(dict(zip(names, mean)))
             loss = mean[len(names)]
             metrics = dict(zip(keys, mean[len(names) + 1:]))
-        opt_state = optimizer.update(grads, opt_state)
+        opt_state = optimizer.update(grads, opt_state, **kw)
         if postprocess is not None:
             with torch.no_grad():
                 postprocess(params)
@@ -164,16 +227,22 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     return step
 
 
-def make_eval_step(loss_fn: Callable) -> Callable:
+def make_eval_step(loss_fn: Callable, mesh=None) -> Callable:
     """Forward-only step: ``loss_fn(params, batch) -> (loss, metrics)``
     becomes ``eval_step(params, batch) -> metrics`` (loss included),
-    run under ``no_grad``."""
+    run under ``no_grad``.  With a ``mesh`` every rank passes its share
+    of the batch and the metrics are averaged over the data axes (a
+    loss function already on the mesh returns the global values, which
+    the mean keeps)."""
 
     def step(params, batch):
         with torch.no_grad():
             loss, metrics = loss_fn(params, batch)
         out = dict(metrics)
         out["loss"] = loss
+        if mesh is not None and data_axes(mesh):
+            keys = list(out)
+            out = dict(zip(keys, mesh_mean([out[k] for k in keys], mesh)))
         return out
 
     return step

@@ -9,6 +9,8 @@ dense path and its runtime half).
         [--ckpt-dir DIR [--ckpt-every 50]] [--mesh dp=-1]
     python -m tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh dp=-1 -- \\
         python -m tfmesos_tpu_torch.transformer_train --steps 100
+    python -m tfmesos_tpu_torch.cli run -w 4 -s 0 -- \\
+        python -m tfmesos_tpu_torch.transformer_train --mesh dp=2,tp=2
 
 The flagship config (vocab 8192, d512, 8 layers, 8 heads, d_ff 1408,
 bf16 compute over float32 master weights), weights seeded 0, trains on
@@ -24,11 +26,16 @@ the data stream included.
 
 It joins the cluster's process group first (``runtime.initialize``:
 the env contract of a ``tfrun`` task; one rank when started by hand).
-``--batch_size`` is the global batch: each of the ``world_size`` ranks
-trains on ``batch_size // world_size`` rows of its own stream (seed
-100 + rank; a token file's rank-strided windows) and the gradients are
-averaged over the data mesh (``--mesh``, data axes only, default the
-cluster's).  Only rank 0 saves checkpoints; every rank restores.  Rank
+``--batch_size`` is the global batch: each data shard of the mesh
+(``--mesh``, default the cluster's, else all ``dp``) trains on
+``batch_size // data shards`` rows of its own stream (seed 100 + its
+data index; a token file's strided windows), the tp ranks of a shard
+on the same rows, and the gradients are averaged over the data axes.
+With ``tp`` or ``fsdp`` in the mesh each rank holds only its blocks of
+the params and of the AdamW state (``partition_specs``: Megatron tp,
+fsdp gathered a layer at a time), the loss is vocab parallel under tp,
+and a checkpoint gathers the blocks for rank 0 to write (every rank
+restores its blocks).  Only rank 0 saves checkpoints.  Rank
 0 prints ``step N: loss=… ppl=…`` every 10 steps, then the elapsed time
 and the global tokens/sec; every rank then prints its steps' losses
 (``rank R/W step losses: [...]``: equal across ranks, the mean over
@@ -78,8 +85,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "optimizer state AND the data stream position)")
     p.add_argument("--ckpt-every", type=int, default=50, dest="ckpt_every")
     p.add_argument("--mesh", type=str, default=None,
-                   help="data mesh axes, e.g. dp=-1 or fsdp=2 (default: "
-                        "the cluster's, else all dp)")
+                   help="mesh axes, e.g. dp=-1, fsdp=2, tp=2 or "
+                        "dp=2,tp=2 (default: the cluster's, else all dp)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -98,7 +105,8 @@ class Run:
     device: Any
     batch_size: int              # this rank's share of the global batch
     seq_len: int
-    world_size: int = 1
+    world_size: int = 1          # data shards (ranks of distinct rows)
+    specs: Optional[Dict] = None  # partition specs of cut params
 
 
 def local_batch(args: argparse.Namespace, world_size: int) -> int:
@@ -106,15 +114,26 @@ def local_batch(args: argparse.Namespace, world_size: int) -> int:
     return max(1, args.batch_size // max(1, world_size))
 
 
+def data_shard(mesh, rank: int, world_size: int):
+    """(this rank's data index, the data shards) of ``mesh``: the rank
+    and world without one."""
+    if mesh is None or mesh.size() == 1:
+        return rank, world_size
+    axes = ("dp", "fsdp")
+    return mesh.coord(axes), mesh.axis_size(axes)
+
+
 def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
           rank: int = 0, world_size: int = 1, mesh=None) -> Run:
-    """Config, seeded weights on ``device``, the optimizer and its
-    state, the train step (averaging gradients over ``mesh``) and rank
-    ``rank``'s token stream from ``start_step`` (none when it is None:
-    :func:`data_stream` makes it later) — as the example builds them."""
+    """Config, seeded weights on ``device`` (this rank's blocks where
+    the mesh has tp or fsdp), the optimizer and its state, the train
+    step over ``mesh`` and this data shard's token stream from
+    ``start_step`` (none when it is None: :func:`data_stream` makes it
+    later) — as the example builds them."""
     import torch
 
     from tfmesos_tpu_torch.models import transformer
+    from tfmesos_tpu_torch.parallel.sharding import place_tree
     from tfmesos_tpu_torch.train import optim
     from tfmesos_tpu_torch.train.trainer import make_train_step
 
@@ -132,6 +151,12 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
         seq_len = args.seq_len
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      device)
+    on_mesh = mesh if mesh is not None and mesh.size() > 1 else None
+    specs = None
+    if on_mesh is not None and (mesh.axis_size("tp") > 1
+                                or mesh.axis_size("fsdp") > 1):
+        specs = transformer.partition_specs(cfg, mesh)
+        params = place_tree(mesh, params, specs)
     if args.lr_schedule == "cosine" or args.warmup:
         # warmup=0 starts at peak; the cosine window is at least 1 step.
         lr = optim.warmup_cosine_decay_schedule(
@@ -145,12 +170,14 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
         lr = args.learning_rate
     opt = optim.adamw(lr, weight_decay=0.01, max_norm=args.grad_clip)
     step = make_train_step(
-        lambda p_, b_: transformer.loss_fn(cfg, p_, b_), opt, mesh=mesh)
+        lambda p_, b_: transformer.loss_fn(cfg, p_, b_, mesh=on_mesh), opt,
+        mesh=mesh, param_specs=specs)
+    index, shards = data_shard(mesh, rank, world_size)
     batches = (None if start_step is None
-               else data_stream(args, cfg, seq_len, start_step, rank,
-                                world_size))
+               else data_stream(args, cfg, seq_len, start_step, index,
+                                shards))
     return Run(cfg, params, opt.init(params), step, batches, device,
-               local_batch(args, world_size), seq_len, world_size)
+               local_batch(args, shards), seq_len, shards, specs)
 
 
 def data_stream(args: argparse.Namespace, cfg, seq_len: int,
@@ -237,21 +264,23 @@ def train_chunk(ctx, argv: List[str], ckpt_dir: str, start: int,
     args = parse_args(argv)
     key = (tuple(argv), os.path.abspath(ckpt_dir))
     run = _CHUNK.get("run")
+    mesh = ctx.mesh(parse_mesh(args.mesh))
     if _CHUNK.get("key") != key or _CHUNK.get("step") != start:
         _CHUNK.clear()
         run = setup(args, ctx.device, start_step=None, rank=ctx.rank,
-                    world_size=ctx.world_size,
-                    mesh=ctx.mesh(parse_mesh(args.mesh)))
+                    world_size=ctx.world_size, mesh=mesh)
         if start:
-            CheckpointManager(ckpt_dir).restore((run.params, run.opt_state),
-                                                step=start)
-    run.batches = data_stream(args, run.cfg, run.seq_len, start, ctx.rank,
-                              ctx.world_size)
+            CheckpointManager(ckpt_dir, mesh=mesh,
+                              param_specs=run.specs).restore(
+                (run.params, run.opt_state), step=start)
+    index, shards = data_shard(mesh, ctx.rank, ctx.world_size)
+    run.batches = data_stream(args, run.cfg, run.seq_len, start, index,
+                              shards)
     before = {**attention.LAUNCHES, **quant.LAUNCHES}
     out = train(run, start + steps, log=None, start_step=start)
     after = {**attention.LAUNCHES, **quant.LAUNCHES}
-    if ctx.is_chief:
-        ckpt = CheckpointManager(ckpt_dir)
+    if ctx.is_chief or run.specs is not None:
+        ckpt = CheckpointManager(ckpt_dir, mesh=mesh, param_specs=run.specs)
         ckpt.save(start + steps, (run.params, run.opt_state))
         ckpt.close()
     _CHUNK.update(key=key, step=start + steps, run=run)
@@ -270,7 +299,10 @@ def main(argv=None) -> int:
     except ValueError as e:
         raise SystemExit(f"--mesh: {e}")
     ctx = runtime.initialize(device=args.device)
-    mesh = ctx.mesh(axes)
+    try:
+        mesh = ctx.mesh(axes)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
     device, chief = ctx.device, ctx.is_chief
     run = setup(args, device, start_step=None, rank=ctx.rank,
                 world_size=ctx.world_size, mesh=mesh)
@@ -286,7 +318,8 @@ def main(argv=None) -> int:
                              f"{args.ckpt_every}")
         from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
 
-        ckpt = CheckpointManager(args.ckpt_dir)
+        ckpt = CheckpointManager(args.ckpt_dir, mesh=mesh,
+                                 param_specs=run.specs)
         latest = ckpt.latest_step()
         if latest is not None:
             ckpt.restore((run.params, run.opt_state))   # in place
@@ -300,11 +333,14 @@ def main(argv=None) -> int:
                           f"--steps {args.steps}; nothing to do",
                           flush=True)
                 return 0
-        if not chief:           # every rank restores, rank 0 saves
+        if not chief and run.specs is None:
+            # Every rank restores, rank 0 saves (on cut params every
+            # rank takes part in the gather).
             ckpt.close()
             ckpt = None
+    index, shards = data_shard(mesh, ctx.rank, ctx.world_size)
     run.batches = data_stream(args, run.cfg, run.seq_len, start_step,
-                              ctx.rank, ctx.world_size)
+                              index, shards)
     out = train(run, args.steps,
                 log=(lambda s: print(s, flush=True)) if chief else None,
                 start_step=start_step, ckpt=ckpt, ckpt_every=args.ckpt_every)
