@@ -425,7 +425,17 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     (12's) one-process run by the margin rule, each rank's launches
     exact (flash_fwd 8 a prefill it ran, the paged kernel 8 a tick, one
     commit each over an int8 pool), the graphs bypass named ("gloo
-    collectives": every call eager) and ms a tick; (c) the same
+    collectives": every call eager) and ms a tick; then, in (d)'s
+    Mode-A gang after its training runs, both ranks build the same
+    tp=2 batcher with a KV tier (``mesh_kv_rank``) and re-run phase 5's
+    first 8 requests with ``preempt_all`` at the first completion,
+    re-importing every suspended request (artifacts gathered over tp),
+    park a session and resume its next turn beside a cold prefill, fold
+    a seeded delta into the embedding and set the weights back: both
+    ranks' results equal, the streams by the margin rule against phase
+    5's (the resumed turn against the cold one), the fold changing
+    request 0's stream, each rank's launches of this part exact (8
+    flash_fwd a prefill, 8 paged a tick and a tail); (c) the same
     traffic on ``--mesh dp=2,tp=2`` over four ranks, 4 rows a data
     shard, every shard's sub-pool recycled to its sink at the end; (d)
     a Mode-A gang of two ranks training the flagship at phase 8's shape
@@ -440,6 +450,28 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     the share in gloo collectives; (e) the tp=2 state saved (rank 0
     writes the gathered leaves) and restored on one process, every
     param leaf equal to the ranks' gathered state bit for bit.
+25. gang replicas, leader and member sharing the card, each on the
+    graphed one-device batcher, no collective between them: (a)
+    ``FleetServer(gang_size=2, replicas=1, warmup=True)`` at phase 18's
+    shape serves phase 5's 16 requests through the gateway, the streams
+    by the margin rule against phase 5's, the leader's ``stats``
+    showing 16 dispatches, 16 acks and no divergence, the member's
+    report line (it has no socket) 16 served; both processes' launches
+    exact (8 flash_fwd a prefill, 8 paged a tick); launch to formed,
+    client TTFT and ms a tick beside phase 17's one replica; then the
+    same over int8 weights and pool (``int8=True``)
+    against phase 12's streams, one commit a prefill and a tick; (b)
+    the member's process SIGKILLed under traffic: the old leader logs
+    its break once and ends, the member is the only death counted, the
+    gang re-forms once (a fresh id, the generation bumped,
+    ``gang_reforms`` 1); the seconds from
+    the kill to the new gang's first routed request and the requests
+    that failed in the gap; the re-formed gang serves phase 5's
+    traffic as (a); (c) two batchers on the card each park the same
+    session, the shards packed into one gang artifact that replicates
+    through a KV fabric and comes back from the peer, then unpacked:
+    each rank's resumed turn by the margin rule against a cold
+    full-history prefill.
 
 It prints each phase's seconds.
 
@@ -702,7 +734,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/24] device")
+    say("[1/25] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -716,7 +748,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/24] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/25] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -954,7 +986,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/24] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/25] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -1171,7 +1203,7 @@ def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/24] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/25] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1218,7 +1250,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/24] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/25] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1395,7 +1427,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/24] teacher-forced check vs float32 CPU forward "
+    say(f"[6/25] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1446,7 +1478,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/24] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/25] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1456,7 +1488,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/24] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/25] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1526,7 +1558,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/24] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/25] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2302,7 +2334,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/24] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/25] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2367,7 +2399,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/24] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/25] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2453,7 +2485,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/24] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/25] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2550,7 +2582,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/24] sampled serving and generation: phase 5's traffic at "
+    say("[13/25] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2864,7 +2896,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/24] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/25] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2943,7 +2975,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/24] export/import, preemption and rolling caches: flagship")
+    say("[15/25] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3189,7 +3221,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/24] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/25] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3445,7 +3477,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/24] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/25] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -4084,7 +4116,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/24] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/25] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4435,7 +4467,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/24] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/25] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5219,7 +5251,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/24] speculative decoding, the static prefix and weight swaps: "
+    say("[20/25] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5877,7 +5909,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/24] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/25] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6412,7 +6444,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/24] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/25] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6717,7 +6749,7 @@ def phase_surface(torch, np, train):
                                                     CheckpointManager)
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[23/24] the reference's surface: plus, tfrun, Mode A under the "
+    say("[23/25] the reference's surface: plus, tfrun, Mode A under the "
         "elastic policy, mnist_replica (ranks share the card over gloo)")
     dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
     device = torch.device(SURFACE_DEVICE or "cuda")
@@ -7136,6 +7168,160 @@ def mesh_serve(axes: str, n: int, extra, reqs, refs, next_logits, int8,
     return out
 
 
+#: the batcher counters a KV-surface rank reports (deltas).
+MESH_KV_COUNTERS = ("prefills_here", "tail_prefills", "decode_ticks",
+                    "weight_swaps")
+
+
+def mesh_kv_rank(ctx, prompts, new_tokens: int):
+    """Dispatched to both ranks of a Mode-A gang (phase 24 (b)): the
+    flagship's batcher over tp=2 as ``serve --continuous --mesh tp=2``
+    builds it (seed 0, 8 rows, pages of 64), given a KV tier, on phase
+    5's first 8 prompts.  ``preempt_all`` once request 0 (at 4 tokens)
+    is back, every suspended request re-imported (its artifact gathered
+    over tp, each rank's kv heads cut back on import); a session parked
+    (request 1) and its next turn resumed beside a cold prefill of the
+    same history; a seeded 0.5-sigma delta folded into the embedding
+    (request 0 again), then the original weights set back (requests 0
+    and 1).  Returns the streams, the counts and this part's launches
+    with the batcher's counters."""
+    import numpy as np
+    import torch
+
+    from tfmesos_tpu_torch import graphs
+    from tfmesos_tpu_torch.cli import parse_mesh
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
+    from tfmesos_tpu_torch.models.presets import flagship_model
+    from tfmesos_tpu_torch.serving import (ContinuousBatcher, Prefilled,
+                                           Request, Suspended)
+
+    dev = ctx.device
+    mesh = ctx.mesh(parse_mesh("tp=2"))
+    cfg, params = flagship_model(0, device=dev, max_len=1024)
+    b = ContinuousBatcher(cfg, params, rows=8, page_size=64,
+                          prefill_bucket=64,
+                          kv_tier=KVTierStore(ram_bytes=256 << 20),
+                          mesh=mesh, device=dev)
+    prompts = [np.asarray(p, np.int32) for p in prompts]
+
+    def req(i, n=new_tokens, session=None):
+        return Request(prompt=prompts[i], max_new_tokens=n,
+                       session_id=session)
+
+    graphs.zero_launches()
+    before = {k: getattr(b, k) for k in MESH_KV_COUNTERS}
+    sub = [req(0, 4)] + [req(i) for i in range(1, len(prompts))]
+    index = {id(r): i for i, r in enumerate(sub)}
+    final, back = {}, []
+    for item in b.run(sub):
+        if isinstance(item, Suspended):
+            back.append(item)
+            continue
+        final[index[id(item.request)]] = item.tokens
+        if len(final) == 1:
+            b.preempt_all()
+    for c in b.run([Prefilled(s.request, s.artifact)
+                    if s.artifact is not None else s.request
+                    for s in back]):
+        final[index[id(c.request)]] = c.tokens
+    out = {"rank": ctx.rank, "preempt": {
+        "suspended": len(back),
+        "carried": sum(s.artifact is not None for s in back),
+        "streams": {str(i): final[i] for i in sorted(final)}}}
+    (turn1,) = b.run([req(1, session="kv")])
+    hist = [int(t) for t in prompts[1]] + list(turn1.tokens) + [7, 2]
+    (warm,) = b.run([Request(np.asarray(hist, np.int32), new_tokens,
+                             session_id="kv")])
+    (cold,) = b.run([Request(np.asarray(hist, np.int32), new_tokens)])
+    out["session"] = {"history": hist, "resumed": warm.tokens,
+                      "cold": cold.tokens,
+                      "resume": b.kv_tier.stats().get("resume", 0)}
+    embed = params["embed"].float()
+    delta = (np.random.default_rng(19).standard_normal(
+        tuple(embed.shape)).astype(np.float32) * 0.5 * float(embed.std()))
+    b.swap_adapter({"embed": delta}, "kv")
+    (folded,) = b.run([req(0)])
+    b.set_weights(params, "v0")
+    pair = [req(0), req(1)]
+    index = {id(r): i for i, r in enumerate(pair)}
+    out["swaps"] = {"folded": folded.tokens,
+                    "restored": {str(index[id(c.request)]): c.tokens
+                                 for c in b.run(pair)}}
+    torch.cuda.synchronize(dev)
+    out["launches"] = graphs.launch_counts()
+    out["counters"] = {k: getattr(b, k) - before[k]
+                       for k in MESH_KV_COUNTERS}
+    del b, params, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_kv_checks(rs, refs, next_logits, kv_logits):
+    """Phase 24 (b)'s KV surface over tp=2 (:func:`mesh_kv_rank`'s
+    replies ``rs``): both ranks' results equal; the preempted and
+    re-imported streams held to phase 5's by the margin rule (request 0
+    at its 4 tokens), the resumed turn to the cold one (``kv_logits(
+    history, cold)``: their logits), the fold changing request 0's
+    stream and the weights set back giving phase 5's again; each rank's
+    launches exact: 8 flash_fwd a prefill, 8 paged a tick and a tail."""
+    what = "(b) tp=2 KV surface"
+    head = rs[0]
+    need(all({k: r[k] for k in ("preempt", "session", "swaps")}
+             == {k: head[k] for k in ("preempt", "session", "swaps")}
+             for r in rs), f"{what}: the ranks' results differ")
+    pre = head["preempt"]
+    need(pre["carried"] >= 1 and pre["carried"] == pre["suspended"],
+         f"{what}: {pre['carried']} of {pre['suspended']} suspended "
+         f"requests carried an artifact")
+    got = {int(i): [t] for i, t in pre["streams"].items()}
+    need(sorted(got) == list(range(8)) and len(got[0][0]) == 4,
+         f"{what}: preempted streams {sorted(got)}")
+    want = {i: refs[i][:len(got[i][0])] for i in got}
+    p_ident, p_near, _ = margin_all(want, got, next_logits,
+                                    f"{what} preempt")
+    sess = head["session"]
+    need(sess["resume"] == 1, f"{what}: {sess['resume']} tier resumes")
+    logits = kv_logits(sess["history"], sess["cold"])
+    s_ident, s_near, _ = margin_all({0: sess["cold"]},
+                                    {0: [sess["resumed"]]}, logits,
+                                    f"{what} session")
+    sw = head["swaps"]
+    need(sw["folded"] != refs[0] and all(
+        r["counters"]["weight_swaps"] == 2 for r in rs),
+         f"{what}: the fold left request 0's stream as it was "
+         f"({[r['counters']['weight_swaps'] for r in rs]} swaps)")
+    r_ident, r_near, _ = margin_all(
+        {0: refs[0], 1: refs[1]},
+        {int(i): [t] for i, t in sw["restored"].items()}, next_logits,
+        f"{what} restored")
+    launches = collections.Counter()
+    for r in rs:
+        got_l, d = r["launches"], r["counters"]
+        calls = d["decode_ticks"] + d["tail_prefills"]
+        need(got_l["flash_fwd"] == 8 * d["prefills_here"]
+             and got_l["flash_decode_paged"] == 8 * calls
+             and got_l["quant_int8_commit"] == 0 and got_l["quant_int8"] == 0,
+             f"{what} rank {r['rank']}: {got_l} for {d}")
+        launches.update(got_l)
+    out = {"carried": pre["carried"], "preempt_identical": p_ident,
+           "preempt_near_ties": p_near, "session_identical": s_ident,
+           "session_near_ties": s_near, "tier_resumes": sess["resume"],
+           "fold_changed_stream": True, "restored_identical": r_ident,
+           "restored_near_ties": r_near,
+           "per_rank": {r["rank"]: r["counters"] for r in rs},
+           "launches": {k: launches[k] for k in read_launches()}}
+    say(f"  {what}: {pre['carried']} of 8 requests suspended by "
+        f"preempt_all with artifacts (gathered over tp) and re-imported, "
+        f"{p_ident}/8 streams identical to phase 5's, {p_near} near-ties; "
+        f"a session resumed from the tier, "
+        f"{'identical to' if s_ident else 'a near-tie from'} the cold "
+        f"prefill; the fold changed request 0's stream, set_weights gave "
+        f"back {r_ident}/2 identical ({r_near} near-ties); both ranks "
+        f"equal, their launches exact")
+    return out
+
+
 def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     """Phase 24: the kernels at the per-rank shapes (a), ``serve --mesh``
     over tp=2 (b) and dp2 x tp2 (c), training over tp=2 and fsdp=2 (d)
@@ -7151,7 +7337,7 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     from tfmesos_tpu_torch.ops import quant as tq
     from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
 
-    say("[24/24] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
+    say("[24/25] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
         "dp=2,tp=2, training over tp=2 and fsdp=2, a checkpoint across "
         "meshes (ranks share the card over gloo)")
     dev = torch.device("cuda")
@@ -7203,8 +7389,8 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     logits = full_logits(torch, cfg, params, prompts, ref)
     logits8 = full_logits(torch, cfg, tt.quantize_params(cfg, params),
                           prompts, ref8)
-    out["b"] = {"bf16": mesh_serve("tp=2", 2, [], reqs, ref, logits,
-                                   False, "tp=2 bf16"),
+    out["b"] = {"bf16": mesh_serve("tp=2", 2, [], reqs, ref, logits, False,
+                                   "tp=2 bf16"),
                 "int8": mesh_serve("tp=2", 2, ["--int8", "--int8-kv"], reqs,
                                    ref8, logits8, True, "tp=2 int8")}
     out["c"] = mesh_serve("dp=2,tp=2", 4, [], reqs, ref, logits, False,
@@ -7221,6 +7407,17 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
                                       MESH_TRAIN_STEPS, f"{root}/ck"),
                     "fsdp=2": c.run_all(mesh_train_rank, "fsdp=2",
                                         MESH_TRAIN_STEPS)}
+            # (b)'s KV surface over tp=2, after the training runs so that
+            # it leaves nothing in their memory readings.
+            t0 = time.perf_counter()
+            kv = c.run_all(mesh_kv_rank,
+                           [[int(t) for t in r.prompt] for r in reqs[:8]],
+                           reqs[0].max_new_tokens)
+            kv_s = time.perf_counter() - t0
+        out["b"]["kv"] = mesh_kv_checks(
+            kv, ref, logits, lambda hist, cold: full_logits(
+                torch, cfg, params, [hist], [cold]))
+        out["b"]["kv"]["s"] = kv_s
         out["d"] = {"bring_up_s": up_s}
         for label, rs in runs.items():
             head = rs[0]
@@ -7315,6 +7512,433 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     return out
 
 
+# -- phase 25: gang replicas (leader and member sharing the card) -----------
+
+#: Phase 25's gang fleets: phase 18's shape, one gang of two; (c)'s
+#: batchers run on GANG_DEVICE.
+GANG = dict(FRONT_DOOR, replicas=1, gang_size=2)
+GANG_DEVICE = "cuda"
+#: The kernels no gang process may launch (``int8`` adds the commits).
+IDLE_IN_A_GANG = ("quant_int8", "flash_decode", "flash_decode_merge",
+                  "flash_bwd_dq", "flash_bwd_dkv")
+
+
+class StdoutTo:
+    """fd 1 of this process, and of every process started meanwhile,
+    into ``path`` (a gang member has no socket: it reports on stdout);
+    on exit the file is echoed to this process's stdout."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        import os
+
+        sys.stdout.flush()
+        self.saved = os.dup(1)
+        fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.close(fd)
+        return self
+
+    def read(self):
+        sys.stdout.flush()
+        with open(self.path, errors="replace") as f:
+            return f.read()
+
+    def __exit__(self, *exc):
+        import os
+
+        sys.stdout.flush()
+        os.dup2(self.saved, 1)
+        os.close(self.saved)
+        sys.stdout.write(self.read())
+        sys.stdout.flush()
+
+
+def member_reports(log, gang_id):
+    """The ``gang member stats`` lines of ``gang_id``'s member so far."""
+    return [r for r in (json.loads(j) for j in re.findall(
+        r"gang member stats (\{.*\})$", log.read(), re.M))
+        if r["gang"] == gang_id]
+
+
+def member_report(log, gang_id, served, what):
+    """The member's report once it has served ``served`` requests."""
+    deadline = time.monotonic() + 120.0
+    while time.monotonic() < deadline:
+        got = [r for r in member_reports(log, gang_id)
+               if r["served"] == served]
+        if got:
+            return got[-1]
+        time.sleep(0.1)
+    need(False, f"{what}: no member report at {served} served: "
+         f"{member_reports(log, gang_id)[-1:]}")
+
+
+def gang_launches_exact(cfg, got, d, int8, what):
+    """A gang process's launches against its batcher's counters ``d``: 8
+    flash_fwd a prefill, 8 paged a tick, a tail and a chunk (blocks of
+    one), one commit a prefill and a call over an int8 pool, nothing of
+    :data:`IDLE_IN_A_GANG`."""
+    calls = d["decode_ticks"] + d["tail_prefills"] + d["prefill_chunks"]
+    need(d["fused_ticks"] == 0
+         and got["flash_fwd"] == cfg.n_layers * d["prefills"]
+         and got["flash_decode_paged"] == cfg.n_layers * calls
+         and got["quant_int8_commit"] == ((d["prefills"] + calls)
+                                          if int8 else 0)
+         and not any(got[k] for k in IDLE_IN_A_GANG),
+         f"{what}: launched {got} for its counters {d}")
+
+
+def gang_leader(fleet, what):
+    reps = [r for r in fleet.registry.alive()
+            if (r.role or "unified") == "unified"]
+    need(len(reps) == 1 and reps[0].gang_size == 2,
+         f"{what}: routable replicas {[(r.addr, r.gang_id) for r in reps]}")
+    return reps[0]
+
+
+def gang_settled(addr, token, acks, what):
+    """The leader's ``stats`` once the member's acks reached ``acks`` and
+    its counts settled."""
+    deadline = time.monotonic() + 120.0
+    while time.monotonic() < deadline:
+        st = replica_stats([addr], token)[addr]
+        if st["gang"]["acks"] >= acks:
+            return settled_stats([addr], token)[addr]
+        time.sleep(0.1)
+    need(False, f"{what}: the member acked {st['gang']['acks']} of {acks}")
+
+
+def gang_pass(cfg, fleet, log, reqs, ref, next_logits, int8, what):
+    """Phase 5's requests through a formed gang: the streams by the
+    margin rule, the leader's dispatches, acks and divergence, each
+    process's launches exact.  Returns the stats."""
+    rep = gang_leader(fleet, what)
+    addr, gid = rep.addr, rep.gang_id
+    # One request first (cuBLAS handles, allocator pools of both
+    # processes), outside the measured run.
+    fleet_requests(fleet, [FleetReq(list(range(1, 9)), 2)], streamed_every=2)
+    st0 = gang_settled(addr, fleet.token, 1, what)
+    g0 = st0["gang"]
+    need(g0["acks"] == g0["dispatches"], f"{what}: {g0}")
+    m0 = member_report(log, gid, g0["acks"], what)
+    st0 = replica_stats([addr], fleet.token, reset=True)[addr]
+    replies, streamed, first, wall = fleet_requests(fleet, reqs)
+    got = [r["tokens"] for r in replies]
+    need(all(len(t) == r.max_new_tokens for t, r in zip(got, reqs)),
+         f"{what}: a request did not complete its tokens")
+    identical, gaps = divergence_gaps(ref, dict(enumerate(got)),
+                                      next_logits, what)
+    st1 = gang_settled(addr, fleet.token, g0["acks"] + len(reqs), what)
+    g1 = st1["gang"]
+    dispatched, acked = (g1["dispatches"] - g0["dispatches"],
+                         g1["acks"] - g0["acks"])
+    need(dispatched == acked == len(reqs) and g1["divergence"] == 0
+         and not g1["broken"],
+         f"{what}: {dispatched} dispatches, {acked} acks, divergence "
+         f"{g1['divergence']}")
+    d = {k: st1["counters"][k] - st0["counters"][k]
+         for k in st1["counters"]}
+    gang_launches_exact(cfg, st1["launches"], d, int8, f"{what} leader")
+    m1 = member_report(log, gid, m0["served"] + len(reqs), what)
+    md = {k: m1["counters"][k] - m0["counters"][k] for k in m1["counters"]}
+    ml = {k: m1["launches"][k] - m0["launches"][k] for k in m1["launches"]}
+    gang_launches_exact(cfg, ml, md, int8, f"{what} member")
+    need(md["prefills"] == len(reqs) and m1["device"].startswith("cuda"),
+         f"{what}: the member's {md} on {m1['device']}")
+    client = [first[i] for i in sorted(first)]
+    out = {"gang": gid, "generation": g1["generation"],
+           "streams_identical": identical, "divergence_gaps": gaps,
+           "dispatches": dispatched, "acks": acked,
+           "divergence": g1["divergence"], "member_served": len(reqs),
+           "member_pid": m1["pid"], "leader_pid": st1["pid"],
+           "client_ttft_ms_mean_streamed": statistics.mean(client),
+           "ttft_ms_mean": statistics.mean(r["ttft_ms"] for r in replies),
+           "ms_per_tick": d["decode_seconds"] / d["decode_ticks"] * 1e3,
+           "member_ms_per_tick": md["decode_seconds"]
+           / md["decode_ticks"] * 1e3,
+           "leader_ticks": d["decode_ticks"],
+           "member_ticks": md["decode_ticks"], "wall_s": wall,
+           "launches": {k: st1["launches"][k] + ml[k]
+                        for k in read_launches()},
+           "leader_launches": st1["launches"], "member_launches": ml}
+    return out
+
+
+def gang_kill(fleet, log, reqs, member_pid, leader_pid, what):
+    """SIGKILL the member (its replica process, ``member_pid`` from its
+    report) under traffic (one client sending phase 5's requests in
+    turn): the leader logs its break exactly once and its process ends,
+    the member is the only death the fleet counts, and the gang re-forms
+    once under a fresh id; returns the seconds from the kill to the
+    first reply the new gang served, the requests that failed
+    meanwhile, and the old leader task's exit code.  (The re-form's
+    teardown SIGTERMs the old leader's node runtime as the leader exits
+    1 on its break, so the task's code is 1 or -15; the leader process's
+    own exit 1 is held in ``tests/test_torch_gang.py``.)"""
+    import os
+    import signal
+    import threading
+
+    old = gang_leader(fleet, what)
+    with fleet._gang_lock:
+        ((gid, info),) = fleet._gangs.items()
+    leader_task = fleet.scheduler.backend._procs[info["task_ids"][0]]
+    deaths = fleet.metrics.get("replica_deaths") or 0
+    broke = f"gang {gid} member rank 1 lost: gang broken"
+    client = fleet.client(timeout=300.0)
+    sent, stop, kill_at = [], threading.Event(), []
+
+    def sender():
+        i = 0
+        while not stop.is_set():
+            r = reqs[i % len(reqs)]
+            t0 = time.perf_counter()
+            try:
+                reply = client.generate([int(x) for x in r.prompt],
+                                        r.max_new_tokens, trace=True)
+                sent.append((t0, time.perf_counter(), reply))
+            except Exception as e:         # counted, not raised
+                sent.append((t0, time.perf_counter(), e))
+                time.sleep(0.05)
+            i += 1
+
+    t = threading.Thread(target=sender)
+    t.start()
+    try:
+        deadline = time.monotonic() + 60.0
+        while len(sent) < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        kill_at.append(time.perf_counter())
+        os.kill(member_pid, signal.SIGKILL)
+        first_new = None
+        deadline = time.monotonic() + 240.0
+        while first_new is None and time.monotonic() < deadline:
+            for t0, t1, r in list(sent):
+                if t0 > kill_at[0] and isinstance(r, dict):
+                    by = served_by(fleet, [r])
+                    if old.addr not in by:
+                        first_new = t1
+                        break
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        t.join()
+        client.close()
+    need(first_new is not None, f"{what}: no request served after the kill")
+    failed = [r for t0, t1, r in sent if not isinstance(r, dict)]
+    try:
+        leader_rc = leader_task.wait(timeout=60.0)
+    except subprocess.TimeoutExpired:
+        leader_rc = None
+    deadline = time.monotonic() + 60.0
+    while pids_alive([leader_pid]) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    breaks = log.read().count(broke)
+    need(breaks == 1 and leader_rc in (1, -signal.SIGTERM)
+         and not pids_alive([leader_pid]),
+         f"{what}: the old leader logged {breaks} breaks, its task ended "
+         f"with {leader_rc}, its process {pids_alive([leader_pid])} alive")
+    need((fleet.metrics.get("replica_deaths") or 0) - deaths == 1,
+         f"{what}: {(fleet.metrics.get('replica_deaths') or 0) - deaths} "
+         f"deaths counted for one member kill")
+    with fleet._gang_lock:
+        ((new_gid, _),) = fleet._gangs.items()
+    need(new_gid != gid and fleet.metrics.get("gang_reforms") == 1
+         and fleet.scheduler.generation == 1,
+         f"{what}: gang {gid} -> {new_gid}, reforms "
+         f"{fleet.metrics.get('gang_reforms')}, generation "
+         f"{fleet.scheduler.generation}")
+    rep = gang_leader(fleet, what)
+    need(rep.addr != old.addr and rep.gang_id == new_gid,
+         f"{what}: the routable replica is {rep.addr} of {rep.gang_id}")
+    return {"old_gang": gid, "new_gang": new_gid,
+            "kill_to_first_routed_s": first_new - kill_at[0],
+            "requests_sent": len(sent), "requests_failed": len(failed),
+            "failures": sorted({type(e).__name__ for e in failed}),
+            "gang_reforms": fleet.metrics.get("gang_reforms"),
+            "leader_breaks": breaks, "old_leader_task_rc": leader_rc,
+            "deaths_counted": 1}
+
+
+def gang_artifacts(torch, np, cfg, params, reqs, next_turn_logits, what):
+    """Phase 25 (c): two batchers on the card each park the same session;
+    the shards fold into one gang artifact that a KV fabric replicates
+    and fetches back from the peer after the parker lost its copy;
+    unpacked, each rank's resumed turn against a cold full-history
+    prefill by the margin rule."""
+    from tfmesos_tpu_torch import wire
+    from tfmesos_tpu_torch.fleet.kvtier import (KVFabric, KVTierStore,
+                                                pack_gang_shards,
+                                                unpack_gang_shards)
+    from tfmesos_tpu_torch.fleet.registry import ReplicaRegistry
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    batchers = [ContinuousBatcher(cfg, params, rows=8, page_size=64,
+                                  prefill_bucket=64, device=GANG_DEVICE,
+                                  kv_tier=KVTierStore(ram_bytes=64 << 20))
+                for _ in range(2)]
+    for b in batchers:
+        b.warmup()
+    prompt = reqs[1].prompt
+    zero_launches()
+    shards, turn1 = [], []
+    for r, b in enumerate(batchers):
+        (c,) = b.run([Request(prompt, 32, session_id="gang")])
+        turn1.append(c.tokens)
+        meta, body = b.kv_tier.resume("gang")
+        shards.append((dict(meta, rank=r), body))
+    need(turn1[0] == turn1[1], f"{what}: the ranks' first turns differ")
+    gmeta, gbody = pack_gang_shards(shards)
+    reg = ReplicaRegistry()
+    fabs = {}
+
+    def rpc(addr, meta, body=None, timeout=10.0):
+        if addr == "reg:0":
+            return (reg.kv_peers() if meta["op"] == "kv_peers"
+                    else reg.kv_locate(meta.get("kind"), meta.get("key")))
+        if meta.get("op") == "kv_put":
+            return fabs[addr].handle_put(wire.RawFrame(meta, body or b""))
+        return fabs[addr].handle_fetch(meta)
+
+    for addr in ("a:1", "b:1"):
+        fabs[addr] = KVFabric(KVTierStore(ram_bytes=256 << 20), self_addr=addr,
+                              registry_addr="reg:0", replication=2, rpc=rpc,
+                              peer_ttl=0.0)
+
+    def beat():
+        for addr, fab in fabs.items():
+            reg.observe({"op": "heartbeat", "addr": addr, "capacity": 4,
+                         "outstanding": 0, "kv_tier": fab.summary()})
+
+    beat()
+    t0 = time.perf_counter()
+    fabs["a:1"].park("gang", gmeta, gbody)
+    need(fabs["a:1"].store.stats()["park_replicated"] == 1,
+         f"{what}: {fabs['a:1'].store.stats()}")
+    beat()
+    fabs["a:1"].store.delete("session", "gang")
+    got = fabs["a:1"].resume("gang")
+    trip_ms = (time.perf_counter() - t0) * 1e3
+    need(got is not None
+         and fabs["a:1"].store.stats()["fabric_fetch_hit"] == 1,
+         f"{what}: the gang artifact did not come back from the peer")
+    back = unpack_gang_shards(dict(got[0]), got[1])
+    need([m["rank"] for m, _ in back] == [0, 1], f"{what}: shards {back}")
+    hist = [int(t) for t in prompt] + turn1[0] + [7, 2]
+    p2 = np.asarray(hist, np.int32)
+    (cold,) = batchers[0].run([Request(p2, 32)])
+    logits = next_turn_logits(hist, cold.tokens)
+    resumed = {}
+    for r, ((smeta, sbody), b) in enumerate(zip(back, batchers)):
+        b.kv_tier = KVTierStore(ram_bytes=64 << 20)
+        b.kv_tier.park("gang", dict(smeta), sbody)
+        (c,) = b.run([Request(p2, 32, session_id="gang")])
+        need(b.kv_tier.stats()["resume"] == 1, f"{what}: rank {r} missed")
+        resumed[r] = [c.tokens]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    d = {k: sum(getattr(b, k) for b in batchers)
+         for k in ("prefills", "tail_prefills", "prefill_chunks",
+                   "decode_ticks", "fused_ticks")}
+    gang_launches_exact(cfg, launches, d, False, what)
+    identical, near, _ = margin_all({r: cold.tokens for r in resumed},
+                                    resumed, lambda key, prefix: logits(
+                                        (0,) + key[1:], prefix), what)
+    return {"gang_artifact_mb": len(gbody) / 1e6, "shards": len(back),
+            "round_trip_ms": trip_ms, "resumed_identical": identical,
+            "resumed_near_ties": near, "launches": launches}
+
+
+def phase_gang(torch, np, cfg, params, reqs, comps, comps8, stats17):
+    """Phase 25: gang replicas on the card."""
+    import os
+    import tempfile
+
+    from tfmesos_tpu_torch.fleet.launcher import FleetServer
+    from tfmesos_tpu_torch.models import transformer as tt
+
+    say("[25/25] gang replicas: FleetServer(gang_size=2) at phase 18's "
+        "shape, leader and member each on the graphed one-device "
+        "batcher; a member SIGKILL; gang KV artifacts")
+    prompts = [r.prompt for r in reqs]
+    ref, ref8 = streams(comps), streams(comps8)
+    logits = full_logits(torch, cfg, params, prompts, ref)
+    logits8 = full_logits(torch, cfg, tt.quantize_params(cfg, params),
+                          prompts, ref8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with StdoutTo(os.path.join(tempfile.mkdtemp(prefix="chip-smoke-gang-"),
+                               "stdout.log")) as log:
+        t0 = time.perf_counter()
+        fleet = FleetServer(**GANG).start()
+        try:
+            up_s = time.perf_counter() - t0
+            pids = replica_pids([os.getpid()])
+            need(len(pids) == 2, f"25 (a): gang processes {pids}")
+            out["a"] = gang_pass(cfg, fleet, log, reqs, dict(enumerate(ref)),
+                                 logits, False, "25 (a)")
+            out["a"]["launch_to_formed_s"] = up_s
+            out["b"] = gang_kill(fleet, log, reqs, out["a"]["member_pid"],
+                                 out["a"]["leader_pid"], "25 (b)")
+            out["b"].update(gang_pass(cfg, fleet, log, reqs,
+                                      dict(enumerate(ref)), logits, False,
+                                      "25 (b) re-formed"))
+        finally:
+            fleet.stop()
+        t0 = time.perf_counter()
+        fleet = FleetServer(**GANG, int8=True).start()
+        try:
+            up8 = time.perf_counter() - t0
+            out["a"]["int8"] = gang_pass(cfg, fleet, log, reqs,
+                                         dict(enumerate(ref8)), logits8,
+                                         True, "25 (a) int8")
+            out["a"]["int8"]["launch_to_formed_s"] = up8
+        finally:
+            fleet.stop()
+    need(not pids_alive(pids), f"25: gang processes {pids_alive(pids)} "
+         f"outlived FleetServer.stop()")
+    out["c"] = gang_artifacts(
+        torch, np, cfg, _to(params, GANG_DEVICE), reqs,
+        lambda hist, cold: full_logits(torch, cfg, params, [hist], [cold]),
+        "25 (c)")
+    a, b, a8, c = out["a"], out["b"], out["a"]["int8"], out["c"]
+    say("  (a) " + json.dumps({k: v for k, v in a.items() if k != "int8"}))
+    say(f"  (a) bf16 gang formed {a['launch_to_formed_s']:.1f} s after "
+        f"launch; {a['streams_identical']}/16 streams identical to phase "
+        f"5's, {len(a['divergence_gaps'])} near-ties; leader dispatched "
+        f"{a['dispatches']}, member acked {a['acks']}, divergence "
+        f"{a['divergence']}; client TTFT {a['client_ttft_ms_mean_streamed']:.3f} "
+        f"ms (phase 17's one replica {stats17['client_ttft_ms_mean_streamed']:.3f}), "
+        f"ms a tick leader {a['ms_per_tick']:.4f}, member "
+        f"{a['member_ms_per_tick']:.4f} (phase 17 "
+        f"{stats17['ms_per_tick']:.4f}); both processes' launches exact")
+    say("  (a) int8 " + json.dumps(a8))
+    say(f"  (a) int8 gang formed in {a8['launch_to_formed_s']:.1f} s; "
+        f"{a8['streams_identical']}/16 identical to phase 12's, "
+        f"{len(a8['divergence_gaps'])} near-ties; divergence "
+        f"{a8['divergence']}; ms a tick {a8['ms_per_tick']:.4f}; commits "
+        f"leader {a8['leader_launches']['quant_int8_commit']}, member "
+        f"{a8['member_launches']['quant_int8_commit']}")
+    say("  (b) " + json.dumps(b))
+    say(f"  (b) member SIGKILLed: gang {b['old_gang']} re-formed once as "
+        f"{b['new_gang']} (generation {b['generation']}); "
+        f"{b['kill_to_first_routed_s']:.1f} s from the kill to the new "
+        f"gang's first routed request, {b['requests_failed']} of "
+        f"{b['requests_sent']} requests failed in the gap; re-formed: "
+        f"{b['streams_identical']}/16 identical, divergence "
+        f"{b['divergence']}")
+    say(f"  (c) gang artifact {c['gang_artifact_mb']:.2f} MB of "
+        f"{c['shards']} shards through a fabric round trip in "
+        f"{c['round_trip_ms']:.1f} ms; {c['resumed_identical']}/2 resumed "
+        f"turns identical to the cold prefill, {c['resumed_near_ties']} "
+        f"near-ties")
+    return out
+
+
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
     """The kernels-line entry of ``quant_int8.cu``: its quantize rows,
     then its commit rows, launches of both entries together (and each
@@ -7395,6 +8019,8 @@ def main() -> int:
                  comps8, {"flash": flash_rows, "bwd": bwd_rows,
                           "paged": paged_rows, "decode": decode_rows,
                           "commit": commit_rows})
+    gang = timed("gang", phase_gang, torch, np, cfg, params, reqs, comps,
+                 comps8, replica["a"])
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -7452,13 +8078,19 @@ def main() -> int:
                  surface["c"]["launches"],
              "mesh (b) serve tp=2 bf16 (processes)":
                  mesh["b"]["bf16"]["launches"],
+             "mesh (b) tp=2 KV surface (Mode A ranks)":
+                 mesh["b"]["kv"]["launches"],
              "mesh (b) serve tp=2 int8 (processes)":
                  mesh["b"]["int8"]["launches"],
              "mesh (c) serve dp=2,tp=2 (processes)": mesh["c"]["launches"],
              "mesh (d) train tp=2 (processes)":
                  mesh["d"]["tp=2"]["launches"],
              "mesh (d) train fsdp=2 (processes)":
-                 mesh["d"]["fsdp=2"]["launches"]}
+                 mesh["d"]["fsdp=2"]["launches"],
+             "gang (a) bf16 (processes)": gang["a"]["launches"],
+             "gang (a) int8 (processes)": gang["a"]["int8"]["launches"],
+             "gang (b) re-formed (processes)": gang["b"]["launches"],
+             "gang (c) KV artifacts": gang["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

@@ -113,19 +113,24 @@ def test_catalog_resolve_and_keys_match_jax():
 
 
 def test_gang_replicas_are_refused_naming_their_item():
-    """A catalog entry of ``gang_size > 1`` waits for gang replicas
-    (ROADMAP A.9): refused with ``NotPorted`` by the spec and so by the
-    fleet; JAX takes it."""
+    """A catalog entry of ``gang_size > 1`` is taken now, by the spec and
+    by the fleet, as JAX takes it; ``gang_size`` 0 is refused by both
+    with the same message."""
     from tfmesos_tpu.fleet.catalog import ModelSpec as JaxSpec
-    from tfmesos_tpu_torch.fleet.catalog import ModelSpec, NotPorted
+    from tfmesos_tpu_torch.fleet.catalog import ModelSpec
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
 
     assert JaxSpec("a", gang_size=2).gang_size == 2
-    with pytest.raises(NotPorted, match=r"gang replicas \(ROADMAP A\.9\)"):
-        ModelSpec("a", gang_size=2)
-    with pytest.raises(NotPorted, match=r"ROADMAP A\.9"):
-        FleetServer(models=[ModelSpec("a"), ModelSpec("b", gang_size=3)])
+    assert ModelSpec("a", gang_size=2).gang_size == 2
+    fleet = FleetServer(models=[ModelSpec("a"), ModelSpec("b", gang_size=3)])
+    assert fleet.catalog.get("b").gang_size == 3
     assert ModelSpec("a", gang_size=1).gang_size == 1
+    errors = []
+    for spec in (JaxSpec, ModelSpec):
+        with pytest.raises(ValueError) as e:
+            spec("a", gang_size=0)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 # -- the trader on a stub fleet -----------------------------------------------
@@ -393,9 +398,57 @@ def windowed_signals(c):
     c.log.append(("signals", seen))
 
 
+def gang_costs_n_slots(c):
+    """JAX ``test_gang_model_costs_n_slots_under_the_budget``: one more
+    gang of b needs 2 slots, so two of a's singles drain in one trade
+    (the drains actuate one at a time)."""
+    cat = c.cat
+    ka, kb = cat.model_key("a"), cat.model_key("b")
+    reg, fleet = c.fleet([c.rep(f"a:{i}", "a") for i in range(3)]
+                         + [c.rep("b:0", "b")], {ka: 3, kb: 1}, 5)
+    clock = [100.0]
+    tr = c.trader(fleet, [cat.ModelSpec("a", replicas=3),
+                          cat.ModelSpec("b", replicas=1, gang_size=2)],
+                  {ka: dict(WARM), kb: dict(HOT)}, clock,
+                  trade_cooldown_s=5.0)
+    clock[0] += 10.0
+    c.tick(tr, fleet)
+    assert fleet.targets == {ka: 1, kb: 2}
+    assert fleet.metrics.get("model_trades") == 1
+    for _ in range(6):
+        if len(reg.drained) == 2:
+            break
+        clock[0] += 10.0
+        c.tick(tr, fleet)
+    assert fleet.targets == {ka: 1, kb: 2}
+    assert len(reg.drained) == 2
+    assert all(a.startswith("a:") for a in reg.drained)
+
+
+def gang_trade_blocks_whole(c):
+    """JAX ``test_gang_trade_blocks_whole_when_slots_cannot_be_freed``:
+    a gang of 3 cannot free its slots from a floored single, so nothing
+    moves and nothing drains."""
+    cat = c.cat
+    ka, kb = cat.model_key("a"), cat.model_key("b")
+    reg, fleet = c.fleet([c.rep("a:0", "a"), c.rep("b:0", "b")],
+                         {ka: 1, kb: 1}, 4)
+    clock = [100.0]
+    tr = c.trader(fleet, [cat.ModelSpec("a", replicas=1, floor=1),
+                          cat.ModelSpec("b", replicas=1, gang_size=3)],
+                  {ka: dict(WARM), kb: dict(HOT)}, clock,
+                  trade_cooldown_s=5.0)
+    clock[0] += 10.0
+    c.tick(tr, fleet)
+    assert fleet.targets == {ka: 1, kb: 1}
+    assert reg.drained == []
+    assert fleet.metrics.get("model_trades") in (None, 0)
+
+
 TRADE_CASES = [trade_at_budget, scale_to_zero_then_adopt,
                demand_launches_when_adoption_fails, tiebreak_parked_disk,
-               tiebreak_resuming_tier, windowed_signals]
+               tiebreak_resuming_tier, windowed_signals, gang_costs_n_slots,
+               gang_trade_blocks_whole]
 
 
 @pytest.mark.parametrize("case", TRADE_CASES, ids=lambda f: f.__name__)

@@ -77,6 +77,7 @@ CONTROL_FLAGS = {
     "--models": ["--models", "chat:1,code:0:7,draft:2"],
     "--warm-pool": ["--models", "chat:1,code:0", "--warm-pool", "2"],
     "--model-budget": ["--models", "chat:2", "--model-budget", "3"],
+    "--gang-size": ["--gang-size", "2"],
 }
 
 
@@ -100,6 +101,7 @@ def _fleet_of(mod, argv):
             "catalog": [(s.model_id, s.replicas, s.seed) for s in
                         (fleet.catalog or ())],
             "bounds": {k: fleet.bounds(k) for k in keys},
+            "gang": {k: fleet.gang_size_for(k) for k in keys},
             "cmds": [" ".join(c.split()[1:]).replace(
                 "tfmesos_tpu_torch.", "tfmesos_tpu.") for c in cmds]}
 
@@ -111,8 +113,8 @@ def _fleet_of(mod, argv):
     ids=[f[0] for f in cli.NOT_PORTED_FLAGS] + list(CONTROL_FLAGS))
 def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
     """Each flag still waiting exits 2 naming its ROADMAP item; each
-    control-loop flag (ported) builds the fleet the JAX ``tfserve``
-    builds."""
+    control-loop flag and ``--gang-size`` (ported) builds the fleet the
+    JAX ``tfserve`` builds."""
     if flag in CONTROL_FLAGS:
         assert flag not in {f[0] for f in cli.NOT_PORTED_FLAGS}
         mine = _fleet_of(cli, CONTROL_FLAGS[flag])
@@ -122,7 +124,8 @@ def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
                 "--models": ("catalog", [("chat", 1, 0), ("code", 0, 7),
                                          ("draft", 2, 2)]),
                 "--warm-pool": ("warm_pool", 2),
-                "--model-budget": ("budget", 3)}[flag]
+                "--model-budget": ("budget", 3),
+                "--gang-size": ("gang", {"unified": 2})}[flag]
         assert mine[want[0]] == want[1]
         return
     value = {bool: [], int: ["2"], float: ["8"]}.get(type(default))

@@ -1,8 +1,9 @@
 """The port's KV fabric (``KVFabric``, ``rendezvous_order``) against the
 reference's, and the tier on the port's fleet surface.
 
-Without sockets: every fabric case of ``tests/test_kvfabric.py`` that
-needs no gang runs on a mesh of JAX fabrics over the JAX registry and on
+Without sockets: every fabric case of ``tests/test_kvfabric.py`` (the
+torn-gang rejections among them) runs on a mesh of JAX fabrics over the
+JAX registry and on
 a mesh of port fabrics over the port's registry, each under the
 reference's assertions, and the two observe the same; mixed meshes park
 on one framework and resume on the other.  Over sockets, on the CPU: a
@@ -367,6 +368,47 @@ def loaded_placement_order(net, tmp_path):
     return out
 
 
+def torn_gang_artifact_rejected_whole(net, tmp_path):
+    """A holder serving a truncated gang body is rejected
+    (``fabric_reject_torn``); an intact copy on another holder
+    resumes."""
+    kv = SIDES[net.side][0]
+    h = net.add("h:1", replication=1)
+    c = net.add("c:1", replication=2)
+    meta, body = kv.pack_gang_shards([({"rank": 0}, b"aaaa"),
+                                      ({"rank": 1}, b"bbbb")])
+    meta["weights_version"] = "v1"
+    h.store.put("session", "gang:conv", meta, body[:-2], stamp=False)
+    net.beat_all()
+    assert c.resume("gang:conv") is None
+    assert c.store.stats()["fabric_reject_torn"] == 1
+    h2 = net.add("h2:1", replication=1)
+    h2.store.put("session", "gang:conv", meta, body, stamp=False)
+    net.beat_all()
+    got = c.resume("gang:conv")
+    assert got is not None and got[1] == body
+    return c.store.stats()
+
+
+def gang_missing_shard_rejects_not_shrinks(net, tmp_path):
+    """Dropping one member's shard (the advertised gang_size kept)
+    rejects the whole artifact, never a smaller gang."""
+    kv = SIDES[net.side][0]
+    shards = [({"rank": r}, bytes([r]) * (8 + r)) for r in range(3)]
+    meta, body = kv.pack_gang_shards(shards)
+    assert [m for m, _ in kv.unpack_gang_shards(meta, body)] \
+        == [{"rank": 0}, {"rank": 1}, {"rank": 2}]
+    torn = dict(meta)
+    torn["shard_meta"] = [meta["shard_meta"][0], meta["shard_meta"][2]]
+    torn["shard_lens"] = [meta["shard_lens"][0], meta["shard_lens"][2]]
+    out = []
+    for b in (body[:8] + body[8 + 9:], body):
+        with pytest.raises(ValueError) as e:
+            kv.unpack_gang_shards(torn, b)
+        out.append(str(e.value))
+    return out
+
+
 CASES = [replicated_park_lands_a_peer_copy,
          park_degrades_when_every_push_fails,
          replication_one_never_touches_the_wire,
@@ -376,7 +418,9 @@ CASES = [replicated_park_lands_a_peer_copy,
          stale_fence_copy_is_rejected, holder_disk_corruption_is_a_miss,
          handle_put_validates, handle_fetch_terminates_locate_loops,
          registry_kv_peers_and_locate, partition_degrades_then_heals,
-         prefix_fetch_through, loaded_placement_order]
+         prefix_fetch_through, loaded_placement_order,
+         torn_gang_artifact_rejected_whole,
+         gang_missing_shard_rejects_not_shrinks]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda f: f.__name__)

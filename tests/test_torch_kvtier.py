@@ -3,11 +3,14 @@ against the reference's, with no model: every store case of
 ``tests/test_kvtier.py`` runs on both stores, each under the reference's
 own assertions, and the two must return the same values, count the same
 stats and leave the same files; the disk entries the two write are
-byte-identical, and each store reads the other's directory."""
+byte-identical, and each store reads the other's directory.  A gang's
+packed shards are the JAX package's bytes."""
 
+import json
 import os
 import threading
 
+import numpy as np
 import pytest
 
 from tfmesos_tpu.fleet import kvtier as jkv
@@ -317,6 +320,50 @@ def concurrent_put_and_get(kv, tmp_path, mp):
     return store.stats()["ram_bytes_used"], store.stats()["ram_entries"]
 
 
+def _raises(fn, *args):
+    try:
+        fn(*args)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def gang_shards_pack_whole(kv, tmp_path, mp):
+    """JAX ``test_gang_shard_pack_round_trips_whole`` /
+    ``_corruption_reads_as_error_never_a_smaller_gang``: one artifact
+    splits back in rank order with shard 0's stamp outside; truncated,
+    padded, torn, negative or keyless artifacts raise; it parks and
+    resumes through the store as one entry."""
+    shards = [({"rank": 0, "weights_version": "v2", "model_id": "m",
+                "adapter_version": "a1"}, b"leader-kv"),
+              ({"rank": 1, "weights_version": "v2"}, b""),
+              ({"rank": 2, "weights_version": "v2"}, b"shard-two-kv")]
+    meta, body = kv.pack_gang_shards(shards)
+    assert meta["gang_size"] == 3 and meta["weights_version"] == "v2"
+    assert meta["model_id"] == "m" and meta["adapter_version"] == "a1"
+    assert body == b"leader-kvshard-two-kv"
+    out = kv.unpack_gang_shards(meta, body)
+    assert [(m.get("rank"), b) for m, b in out] == [
+        (0, b"leader-kv"), (1, b""), (2, b"shard-two-kv")]
+    errors = [_raises(kv.pack_gang_shards, [])]
+    meta2, body2 = kv.pack_gang_shards([({"rank": 0}, b"aaaa"),
+                                        ({"rank": 1}, b"bbbb")])
+    errors += [_raises(kv.unpack_gang_shards, meta2, body2[:-1]),
+               _raises(kv.unpack_gang_shards, meta2, body2 + b"x")]
+    for lens in ([4], [-4, 12]):
+        errors.append(_raises(kv.unpack_gang_shards,
+                              dict(meta2, shard_lens=lens), body2))
+    errors.append(_raises(kv.unpack_gang_shards,
+                          {"shard_meta": [], "shard_lens": []}, b""))
+    assert all(errors)
+    store = kv.KVTierStore(ram_bytes=1 << 16, token="t")
+    store.park("gang:replica/g1", meta2, body2)
+    gmeta, gbody = store.resume("gang:replica/g1")[:2]
+    assert kv.unpack_gang_shards(gmeta, gbody) == [
+        ({"rank": 0}, b"aaaa"), ({"rank": 1}, b"bbbb")]
+    return meta, body, out, errors
+
+
 CASES = [spill_promote_round_trip, draft_artifact_round_trip,
          ram_lru_without_disk, park_rejection_is_explicit,
          disk_corruption_reads_as_miss, truncated_entry_reads_as_miss,
@@ -326,7 +373,7 @@ CASES = [spill_promote_round_trip, draft_artifact_round_trip,
          history_counts_against_the_budget, store_validation,
          summary_lists_sessions_and_prefixes, summary_caps_and_orders,
          delete_both_tiers, disk_budget_evicts_oldest,
-         concurrent_put_and_get]
+         concurrent_put_and_get, gang_shards_pack_whole]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda f: f.__name__)
@@ -340,6 +387,27 @@ def test_store_case_matches_jax(case, tmp_path, monkeypatch):
         with monkeypatch.context() as mp:
             got[name] = case(kv, d, mp)
     assert got["port"] == got["jax"]
+
+
+def test_gang_shards_pack_to_the_jax_bytes():
+    """Seeded shards of export-like metas (JSON values of every kind):
+    the port's packed meta and body are the JAX package's, byte for
+    byte, and each unpacks the other's."""
+    rng = np.random.default_rng(19)
+    for n in (1, 2, 4):
+        shards = [({"rank": r, "weights_version": "v3",
+                    "history": rng.integers(0, 97, 9).tolist(),
+                    "arrays": [{"name": "k", "dtype": "bfloat16",
+                                "shape": [2, 1, 2, 16, 8]}],
+                    "draft": None, "scale": 0.5},
+                   rng.integers(0, 256, 64 * (r + 1), np.uint8).tobytes())
+                  for r in range(n)]
+        tmeta, tbody = tkv.pack_gang_shards(shards)
+        jmeta, jbody = jkv.pack_gang_shards(shards)
+        assert json.dumps(tmeta) == json.dumps(jmeta) and tbody == jbody
+        assert tkv.unpack_gang_shards(jmeta, jbody) == \
+            jkv.unpack_gang_shards(tmeta, tbody) == \
+            [(dict(m), b) for m, b in shards]
 
 
 # -- the disk format ---------------------------------------------------------

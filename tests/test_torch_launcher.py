@@ -236,6 +236,12 @@ def _control_fleet(jax, option, value):
     elif option == "warm_pool":
         kws = [dict(replicas=1, warm_pool=value),
                dict(models=[ModelSpec("chat")], warm_pool=value)]
+    elif option == "gang_size":
+        kws = [dict(replicas=1, gang_size=value), dict(gang_size=0),
+               dict(gang_size=value, replicas=0, prefill_replicas=1,
+                    decode_replicas=1),
+               dict(models=[ModelSpec("chat", replicas=2,
+                                      gang_size=value)], warm_pool=1)]
     else:
         kws = [dict(replicas=1, autoscale=value),
                dict(replicas=3, autoscale=value, min_replicas=2)]
@@ -249,7 +255,8 @@ def _control_fleet(jax, option, value):
                               (f.catalog.ids() if f.catalog else ())]
         out.append((f.autoscale, f.min_replicas, f.max_replicas,
                     f.replica_budget, f.warm_pool,
-                    {k: f.bounds(k) for k in keys}))
+                    {k: f.bounds(k) for k in keys},
+                    {k: f.gang_size_for(k) for k in keys + ["prefill"]}))
     return out
 
 
@@ -262,11 +269,12 @@ def test_options_not_ported_are_refused_by_name(option, value):
     nothing and is accepted.  ``draft`` is ported: it is accepted and
     puts ``--draft --n-draft`` on the replica command line, and a bad
     ``n_draft`` is the JAX fleet's ValueError.  ``autoscale``,
-    ``models`` and ``warm_pool`` are ported: the option gives the fleet
-    the JAX fleet gets, or the same error."""
+    ``models``, ``warm_pool`` and ``gang_size`` are ported: the option
+    gives the fleet the JAX fleet gets (bounds, slot budget, gang sizes
+    a key), or the same error."""
     from tfmesos_tpu_torch.fleet.launcher import _NOT_PORTED
 
-    if option in ("autoscale", "models", "warm_pool"):
+    if option in ("autoscale", "models", "warm_pool", "gang_size"):
         assert option not in _NOT_PORTED
         assert _control_fleet(False, option, value) \
             == _control_fleet(True, option, value)

@@ -147,6 +147,54 @@ def test_mesh_layout_groups_and_local_mesh():
         local.get_group()
 
 
+DCN_MESHES = [{"dcn.dp": 2, "dp": 2, "tp": 2}, {"dcn.dp": 2, "tp": 4},
+              {"dcn.tp": 2, "dp": 2, "tp": 2},
+              {"dcn.dp": 2, "dcn.fsdp": 2, "tp": 2},
+              {"dcn.fsdp": 2, "fsdp": -1, "tp": 2}]
+
+
+@pytest.mark.parametrize("axes", DCN_MESHES, ids=str)
+def test_dcn_rank_grid_is_the_jax_hybrid_device_grid(axes):
+    """``dcn.`` axes: every rank's coordinates put it where JAX's
+    ``build_hybrid_mesh`` puts the device of the same index on 8 virtual
+    CPU devices (slices are contiguous blocks, each axis's dcn index
+    its outer factor), and the mesh's axis sizes are JAX's."""
+    jmesh = j_build_mesh(axes, devices=jax.devices()[:8])
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+    ids = ids - int(ids.min())
+    spec = tmesh.resolve_axes(axes, 8)
+    assert spec == dict(jmesh.shape)
+    names = tuple(jmesh.axis_names)
+    dcn = tmesh.resolve_dcn(axes)
+    seen = set()
+    for r in range(8):
+        v = tmesh.RankMesh(spec, r, "cpu", make_groups=False, dcn=dcn)
+        c = tuple(v.coord(a) for a in names)
+        assert int(ids[c]) == r, (r, c)
+        seen.add(c)
+    assert len(seen) == 8
+
+
+def test_dcn_axes_refusals_are_the_jax_ones():
+    """-1 is refused on a dcn axis, the slice count must divide the
+    ranks and the ici axes must fill one slice; sp/pp/ep stay refused
+    under the prefix too."""
+    with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
+        tmesh.check_axes({"dcn.dp": -1, "tp": 2})
+    with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
+        j_build_mesh({"dcn.dp": -1, "tp": 2}, devices=jax.devices()[:4])
+    with pytest.raises(ValueError, match="not divisible into 3 slices"):
+        tmesh.resolve_axes({"dcn.dp": 3, "tp": 2}, 8)
+    with pytest.raises(ValueError, match="ranks per slice"):
+        tmesh.resolve_axes({"dcn.dp": 2, "tp": 2}, 8)
+    with pytest.raises(ValueError, match=r"mesh axis sp \(ROADMAP A\.10\)"):
+        tmesh.check_axes({"dcn.sp": 2, "dp": 2})
+    assert tmesh.resolve_axes({"dcn.dp": 2, "dp": -1}, 8) == {"dp": 8}
+    assert repr(tmesh.RankMesh({"dp": 4, "tp": 2}, 0, "cpu",
+                               make_groups=False, dcn={"dp": 2})) == \
+        "RankMesh((dcn.dp=2, dp=4, tp=2), 'cpu')"
+
+
 @pytest.mark.parametrize("axes", [{"dp": 2}, {"dp": 2, "fsdp": 2},
                                   {"dp": 2, "tp": 2}, {"tp": 2}], ids=str)
 def test_data_fsdp_and_batch_rules_are_the_jax_rules(axes):

@@ -148,10 +148,10 @@ def test_dp2_tp2_batcher_streams_match_jax(ranks, variant):
 def test_dp2_tp2_batcher_recycles_every_shard(ranks, variant):
     """Each data shard's sub-pool back to its reservations, every rank's
     streams equal to rank 0's (a digest all-gathered over the mesh),
-    the graphs bypass named, and the surfaces a mesh does not have
+    the graphs bypass named, and the surfaces data shards do not have
     refused by name (KV export, as the reference refuses it on data
-    shards; weight swaps) or bypassed (the KV tier, as the
-    reference's)."""
+    shards) or bypassed (the KV tier, as the reference's); weight swaps
+    run on any mesh (each rank copies its tp block)."""
     out = json.loads((ranks / f"dp2tp2_{variant}.json").read_text())
     assert out["n_shards"] == 2 and out["ranks_differ"] == []
     assert out["graphs_bypass_reason"] == "gloo collectives"
@@ -159,6 +159,5 @@ def test_dp2_tp2_batcher_recycles_every_shard(ranks, variant):
     assert out["refused"] == {
         "export_kv": "ValueError: export_kv requires a single-shard pool "
                      "(mesh data shards pin pages locally)",
-        "set_weights": "NotImplementedError: not ported yet: weight swaps "
-                       "on a mesh",
+        "set_weights": None,
         "kv_tier": "mesh data sharding"}

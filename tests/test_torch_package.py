@@ -49,7 +49,7 @@ SURFACE = ("tfmesos_tpu_torch.parallel", "tfmesos_tpu_torch.parallel.mesh",
            "tfmesos_tpu_torch.parallel.collectives",
            "tfmesos_tpu_torch.parallel.sharding", "tfmesos_tpu_torch.dryrun",
            "tfmesos_tpu_torch.models.mlp", "tfmesos_tpu_torch.plus",
-           "tfmesos_tpu_torch.mnist_replica")
+           "tfmesos_tpu_torch.mnist_replica", "tfmesos_tpu_torch.fleet.gang")
 
 
 def _env():
@@ -88,8 +88,9 @@ def test_public_surface_with_jax_blocked():
     """With JAX and the JAX package blocked: the package exports the
     JAX package's surface (``cluster`` and the rest) without importing
     torch; Mode A, the elastic policy and tfrun are no longer refused,
-    nor are the tp and dp x fsdp meshes; what is still missing (the
-    sp/pp/ep and dcn. axes among it) is refused by name."""
+    nor are the tp, dp x fsdp and dcn. meshes, nor gangs (a static
+    scheduler refuses ``add_gang`` as JAX's does); what is still missing
+    (the sp/pp/ep axes among it) is refused by name."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
@@ -113,9 +114,10 @@ def test_public_surface_with_jax_blocked():
         "        return str(e)\n"
         "print(refused(s.add_gang, 'r', ['true']))\n"
         "print(refused(t.TPUMesosScheduler, [], None, '10.0.0.1:5050'))\n"
-        "for axis in ('dcn.dp', 'sp', 'pp', 'ep'):\n"
+        "for axis in ('sp', 'pp', 'ep'):\n"
         "    print(refused(mesh.check_axes, {axis: 2}))\n"
-        "print(mesh.check_axes({'dp': 2, 'fsdp': 2, 'tp': 2}))\n")
+        "print(mesh.check_axes({'dp': 2, 'fsdp': 2, 'tp': 2}))\n"
+        "print(mesh.resolve_axes({'dcn.dp': 2, 'tp': 2}, 4))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -125,13 +127,13 @@ def test_public_surface_with_jax_blocked():
                         "'cluster'] True False")
     assert lines[1] == "True True 3 True True"
     assert lines[2:] == [
-        "not ported yet: add_gang, gang replicas (ROADMAP A.9 (c))",
+        "add_gang requires dynamic=True",
         "not ported yet: the Mesos backend (ROADMAP A.12 (g))",
-        "not ported yet: mesh axis dcn.dp (ROADMAP A.9 (c))",
         "not ported yet: mesh axis sp (ROADMAP A.10)",
         "not ported yet: mesh axis pp (ROADMAP A.10)",
         "not ported yet: mesh axis ep (ROADMAP A.10)",
-        "{'dp': 2, 'fsdp': 2, 'tp': 2}"]
+        "{'dp': 2, 'fsdp': 2, 'tp': 2}",
+        "{'dp': 2, 'tp': 2}"]
 
 
 def test_slice_modules_import_with_jax_blocked():

@@ -109,13 +109,19 @@ def test_default_device_is_the_card_with_no_fallback():
 
 
 def test_unported_option_exits_2_from_the_command_line():
-    """A gang launch (the mesh) is still refused from the command line,
-    with JAX blocked."""
-    env = dict(_env(), TPUMESOS_GANG_ID="g1", TPUMESOS_GANG_SIZE="2",
-               TPUMESOS_GANG_RANK="0")
-    out = subprocess.run([sys.executable, "-c", BLOCKED, "--tiny",
-                          "--device", "cpu", "--draft"],
-                         cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 2
-    assert "not ported yet: a gang launch" in out.stderr
+    """A gang launch is ported; from the command line, with JAX blocked,
+    its invalid forms exit 2 naming the rule, as the JAX replica's do: a
+    ``--role prefill`` leader (rank 0), and a member (rank 1) with no
+    ``--registry`` to find its leader through."""
+    for rank, extra, want in (
+            ("0", ["--role", "prefill"], "--role prefill cannot lead a gang"),
+            ("1", [], "gang member needs --registry for leader "
+                      "rendezvous")):
+        env = dict(_env(), TPUMESOS_GANG_ID="g1", TPUMESOS_GANG_SIZE="2",
+                   TPUMESOS_GANG_RANK=rank)
+        out = subprocess.run([sys.executable, "-c", BLOCKED, "--tiny",
+                              "--device", "cpu", "--draft"] + extra,
+                             cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode == 2, out.stderr
+        assert want in out.stderr

@@ -8,8 +8,8 @@ malformed prompts and artifacts, ``prefill`` to a unified replica,
 ``adopt``, ``swap_adapter`` (raw and not).  The hello and heartbeats
 carry the JAX replica's fields and the JAX registry reads them alike;
 ``rid_seed_for_node`` gives the JAX values; ``--draft`` and
-``--warm-pool`` replicas answer as the JAX ones do; a gang launch, not
-ported yet, is refused with exit code 2."""
+``--warm-pool`` replicas answer as the JAX ones do; a gang member with
+no registry exits 2 as the JAX one does."""
 
 import threading
 import time
@@ -343,13 +343,14 @@ REFUSED = {
     "draft": (["--draft"], None),
     "warm_pool": (["--warm-pool"], None),
     "gang": ([], {"TPUMESOS_GANG_ID": "g1", "TPUMESOS_GANG_SIZE": "2",
-                  "TPUMESOS_GANG_RANK": "0"}),
+                  "TPUMESOS_GANG_RANK": "1"}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_option_exits_2(case, monkeypatch, capsys, models):
-    """A gang launch is refused with exit code 2.  ``--draft`` and
+    """A gang launch is ported: a member launched without ``--registry``
+    exits 2 with the JAX replica's message and code.  ``--draft`` and
     ``--warm-pool`` are ported: a JAX and a port replica so started
     answer alike (a speculative generate; ``adopt`` on a warm-pool
     member, twice), and the adopted port replica's stream is a port
@@ -359,10 +360,15 @@ def test_unported_option_exits_2(case, monkeypatch, capsys, models):
 
     argv, env = REFUSED[case]
     if case == "gang":
+        from tfmesos_tpu.fleet import replica as jr
+
         for k, v in (env or {}).items():
             monkeypatch.setenv(k, v)
         assert pr.main(["--tiny", "--device", "cpu"] + argv) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        mine = capsys.readouterr().err.strip().splitlines()[-1]
+        assert jr.main(["--tiny"] + argv) == 2
+        theirs = capsys.readouterr().err.strip().splitlines()[-1]
+        assert mine == "replica: " + theirs
         return
     base = ["--tiny", "--rows", "2"] + argv
     if case == "draft":

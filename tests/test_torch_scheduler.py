@@ -92,9 +92,10 @@ def test_static_mode_b_job_runs_to_its_end(tmp_path):
 def test_mode_a_elastic_and_gangs_are_refused_by_name():
     """Mode A and the elastic policy are ported (a Mode-A job and an
     elastic scheduler construct; dispatch before start is a plain
-    ClusterError); gangs and the Mesos backend are still refused by
-    name, and a dynamic fleet refuses the elastic policy as the JAX
-    scheduler does."""
+    ClusterError); the Mesos backend is still refused by name, a
+    dynamic fleet refuses the elastic policy as the JAX scheduler does,
+    and gangs are ported: ``add_gang`` stamps each member's gang env on
+    a dynamic scheduler and refuses a static one, as JAX's does."""
     TPUMesosScheduler([Job(name="worker", num=1)], restart_policy="elastic")
     with pytest.raises(ValueError, match="mutually exclusive: a dynamic "
                                          "fleet has no gang to re-form"):
@@ -109,10 +110,15 @@ def test_mode_a_elastic_and_gangs_are_refused_by_name():
                  lambda: sched.run_on([0], "m:f")):
         with pytest.raises(ClusterError, match="cluster not started"):
             call()
-    with pytest.raises(ClusterError, match=r"not ported yet: add_gang, "
-                                           r"gang replicas \(ROADMAP A\.9 "
-                                           r"\(c\)\)"):
-        sched.add_gang("replica", ["true", "true"])
+    members = sched.add_gang("replica", ["true", "true"])
+    assert [t.gang for t in members] == ["replica/g1"] * 2
+    assert [t.extra_env["TPUMESOS_GANG_RANK"] for t in members] == [
+        "0", "1"]
+    assert {t.extra_env["TPUMESOS_GANG_SIZE"] for t in members} == {"2"}
+    with pytest.raises(ClusterError, match="add_gang requires "
+                                           "dynamic=True"):
+        TPUMesosScheduler([Job(name="worker", num=1)]).add_gang(
+            "replica", ["true", "true"])
 
 
 def test_server_refuses_a_mode_a_config():

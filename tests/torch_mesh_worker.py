@@ -26,6 +26,13 @@ Case kinds:
   gathered over the data axes.
 * ``batcher``: ``ContinuousBatcher(mesh=)`` over the case's requests;
   the streams, each data shard's free pages and the graphs bypass.
+* ``batcher_kv``: the KV surface of a tp-only mesh batcher with a KV
+  tier: an export (packed, rank 0 writes it), the imports of the
+  artifacts the test wrote, ``preempt_all`` after the first completion
+  with every suspended request re-imported (one mid-stream artifact
+  written), a session parked and its next turn resumed beside a cold
+  prefill, then an adapter fold and ``set_weights``, each followed by
+  a run.
 """
 
 import json
@@ -213,7 +220,8 @@ def _batcher(case, mesh, out_dir):
         except Exception as e:            # recorded for the test to read
             refused[what] = f"{type(e).__name__}: {e}"
         else:
-            refused[what] = got
+            refused[what] = (got if got is None or isinstance(got, str)
+                             else type(got).__name__)
     return {"streams": {str(k): v for k, v in streams.items()},
             "ranks_differ": streams_differ(mesh, streams, "cpu"),
             "refused": refused,
@@ -225,8 +233,91 @@ def _batcher(case, mesh, out_dir):
             "graphs_bypass_reason": b.graphs_bypass_reason}
 
 
+def _packed(art):
+    from tfmesos_tpu_torch.serving import pack_prefilled
+
+    meta, body = pack_prefilled(art)
+    return {"meta": meta, "body": bytes(body).hex()}
+
+
+def _batcher_kv(case, mesh, out_dir):
+    from tfmesos_tpu_torch import convert
+    from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
+    from tfmesos_tpu_torch.serve import streams_differ
+    from tfmesos_tpu_torch.serving import (ContinuousBatcher, Prefilled,
+                                           Request, Suspended,
+                                           unpack_prefilled)
+
+    cfg = _cfg(case["cfg"])
+    params = convert.load_npz(f"{out_dir}/{case['params']}")
+    b = ContinuousBatcher(cfg, params, mesh=mesh, device="cpu",
+                          kv_tier=KVTierStore(ram_bytes=1 << 24),
+                          **case["kw"])
+    req = lambda p, n, **kw: Request(  # noqa: E731
+        prompt=np.asarray(p, np.int32), max_new_tokens=n, **kw)
+    reqs = [req(p, n) for p, n in case["requests"]]
+    out = {"export": _packed(b.export_kv(reqs[0]))}
+    # Imports of the test's artifacts (a one-process port export and a
+    # JAX export), each run to its end.
+    out["imports"] = {}
+    for name, i in case["imports"].items():
+        with open(f"{out_dir}/{name}.json") as f:
+            packed = json.load(f)
+        art = unpack_prefilled(packed["meta"], bytes.fromhex(packed["body"]))
+        (c,) = b.run([Prefilled(reqs[i], art)])
+        out["imports"][name] = c.tokens
+    # preempt_all once the first completion is back (the same point on
+    # every rank), then every suspended request re-imported.
+    index = {id(r): i for i, r in enumerate(reqs)}
+    final, back = {}, []
+    for item in b.run(reqs):
+        if isinstance(item, Suspended):
+            back.append(item)
+            continue
+        final[index[id(item.request)]] = item.tokens
+        if len(final) == 1:
+            b.preempt_all()
+    carried = [s for s in back if s.artifact is not None]
+    mid = [s for s in carried if int(s.artifact["step"]) > 1]
+    out["suspended"], out["carried"] = len(back), len(carried)
+    if mid:
+        out["mid_stream"] = dict(_packed(mid[0].artifact),
+                                 index=index[id(mid[0].request)])
+    for c in b.run([Prefilled(s.request, s.artifact)
+                    if s.artifact is not None else s.request
+                    for s in back]):
+        final[index[id(c.request)]] = c.tokens
+    out["preempt"] = {str(i): final[i] for i in sorted(final)}
+    # A session parked, its next turn resumed from the tier beside a
+    # cold prefill of the same history.
+    p, n = case["requests"][1]
+    (turn1,) = b.run([req(p, n, session_id="conv")])
+    hist = list(p) + list(turn1.tokens) + [7, 2]
+    (warm,) = b.run([req(hist, n, session_id="conv")])
+    (cold,) = b.run([req(hist, n)])
+    out["session"] = {"turn1": turn1.tokens, "history": hist,
+                      "resumed": warm.tokens, "cold": cold.tokens,
+                      "resume": b.kv_tier.stats().get("resume", 0)}
+    # Weight swaps between runs: an adapter fold, then a whole tree.
+    delta = np.load(f"{out_dir}/{case['delta']}")["embed"]
+    b.swap_adapter({"embed": delta}, "d1")
+    (folded,) = b.run([req(*case["requests"][0])])
+    b.set_weights(convert.load_npz(f"{out_dir}/{case['params2']}"), "v2")
+    (swapped,) = b.run([req(*case["requests"][0])])
+    out["swaps"] = {"folded": folded.tokens, "set": swapped.tokens,
+                    "weight_swaps": b.weight_swaps,
+                    "adapter_version": b.adapter_version}
+    every = {**{f"p{k}": v for k, v in out["preempt"].items()},
+             **{f"i{k}": v for k, v in out["imports"].items()},
+             "f": folded.tokens, "s": swapped.tokens,
+             "w": warm.tokens}
+    out["ranks_differ"] = streams_differ(mesh, every, "cpu")
+    out["n_shards"] = b.n_shards
+    return out
+
+
 KINDS = {"train": _train, "restore": _restore, "decode": _decode,
-         "batcher": _batcher}
+         "batcher": _batcher, "batcher_kv": _batcher_kv}
 
 
 def run_cases(cases, world, out_dir, timeout=240.0):
@@ -276,7 +367,7 @@ def main(rank, world, port, out_dir):
         mesh = build_mesh(case["axes"], device_type="cpu")
         out = KINDS[case["kind"]](case, mesh, out_dir)
         if ctx.rank == 0:
-            if case["kind"] == "batcher":
+            if case["kind"].startswith("batcher"):
                 with open(f"{out_dir}/{case['name']}.json", "w") as f:
                     json.dump(out, f)
             else:

@@ -22,7 +22,7 @@ port replicas (``tfmesos_tpu_torch.fleet.replica``) as local Mode-B
 tasks, on the card unless ``--device cpu``.  It runs until SIGINT
 (ctrl-c), then stops the fleet and every replica process.  Every flag
 of the JAX ``tfserve`` parses with its default; the ones whose
-machinery is not ported yet (``--gang-size``, ``--gateway-processes``,
+machinery is not ported yet (``--gateway-processes``,
 ``--http-port``, ``--batch-lane``, ``--master``), and the ``batch`` and
 ``simulate`` subcommands, exit 2 with ``tfserve: not ported yet:
 <flag> (ROADMAP A.x)``.
@@ -60,7 +60,6 @@ __all__ = ["build_parser", "parse_mesh", "parse_volumes", "LogCollector",
 #: tfserve flags whose machinery waits: (flag, args dest, the default
 #: that asks for nothing, ROADMAP item).
 NOT_PORTED_FLAGS = (
-    ("--gang-size", "gang_size", 1, "A.9"),
     ("--gateway-processes", "gateway_processes", 0, "A.12"),
     ("--http-port", "http_port", None, "A.12"),
     ("--batch-lane", "batch_lane", False, "A.12"),
@@ -140,8 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds the elastic restart budget counts over")
     p.add_argument("--mesh", type=str, default=None,
                    help="mesh axes handed to the tasks, e.g. dp=-1, "
-                        "fsdp=4 or dp=2,tp=2 (dp, fsdp and tp; sp, pp, ep "
-                        "and dcn. axes are not ported yet)")
+                        "fsdp=4, dp=2,tp=2 or dcn.dp=2,tp=2 (dp, fsdp and "
+                        "tp, each also as a dcn. axis across slices; sp, "
+                        "pp and ep are not ported yet)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="command to run on every task (placeholders: "
                         "{ps_hosts} {worker_hosts} {job_name} {task_index} "
@@ -405,9 +405,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--gang-size", type=int, default=1,
                    dest="gang_size", metavar="N",
                    help="members per UNIFIED replica: each replica is "
-                        "an N-task GANG (one model sharded across a "
-                        "pod slice) placed all-or-nothing and routed "
-                        "as ONE replica via its leader; a member's "
+                        "an N-task GANG (members mirror every request "
+                        "and ack token digests) placed all-or-nothing "
+                        "and routed as ONE replica via its leader; a "
+                        "member's "
                         "death tears the gang down and re-forms it "
                         "whole; 1 = classic single-process replicas "
                         "(docs/SERVING.md 'Gang replicas')")
@@ -1172,7 +1173,7 @@ def _build_fleet(args, models, roles, classes, token):
         replicas=args.replicas, rows=args.rows, tiny=args.tiny,
         prefill_replicas=roles.get("prefill", 0),
         decode_replicas=roles.get("decode", 0),
-        models=models,
+        models=models, gang_size=args.gang_size,
         warm_pool=args.warm_pool,
         model_budget=args.model_budget,
         device=args.device,
@@ -1213,12 +1214,6 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] in NOT_PORTED_SUBCOMMANDS:
         return _refused(argv[0], NOT_PORTED_SUBCOMMANDS[argv[0]])
     args = build_serve_parser().parse_args(argv)
-    # The JAX fleet's own range check of a refused flag comes first, so
-    # a bad value reads as it does there.
-    if args.gang_size < 1:
-        print(f"tfserve: gang_size must be >= 1, got {args.gang_size}",
-              file=sys.stderr)
-        return 2
     for flag, dest, default, item in NOT_PORTED_FLAGS:
         if getattr(args, dest) != default:
             return _refused(flag, item)

@@ -37,8 +37,9 @@
   (:func:`encode_adapter_fields`), since the gateway's public port
   takes no raw frames.
 
-Gang replicas (``ModelSpec.gang_size > 1``) are not ported yet
-(ROADMAP A.9): such an entry is refused with :class:`NotPorted`.
+A model of ``gang_size > 1`` serves as gang replicas: each costs
+``gang_size`` slots of the replica budget, and the trader frees a whole
+gang's slots or none.
 
 Everything here is standard library only (numpy only inside the
 pack/unpack helpers), like the rest of the control plane.
@@ -148,10 +149,6 @@ class ModelSpec:
             raise ValueError(
                 f"model {self.model_id!r}: gang_size must be >= 1, "
                 f"got {self.gang_size}")
-        if self.gang_size > 1:
-            raise NotPorted(
-                f"not ported yet: gang_size above 1 for model "
-                f"{self.model_id!r}, gang replicas (ROADMAP A.9)")
 
 
 class ModelCatalog:

@@ -30,9 +30,11 @@ Counters (``stats()`` / ``summary()``): ``hits``, ``misses``, ``spills``,
 ``version_miss``; the batcher adds ``resume`` and ``promotions``, the
 fabric its ``fabric_*`` and ``park_replicated`` / ``park_degraded``.
 
-Gang artifacts (``pack_gang_shards`` / ``unpack_gang_shards`` and the
-fabric's torn-gang check on fetch) come with gang replicas (ROADMAP
-A.9).
+A gang's KV parks WHOLE: :func:`pack_gang_shards` folds its members'
+exports into one artifact (byte for byte the JAX package's), and
+:func:`unpack_gang_shards` splits it back or raises on any torn or
+truncated shape; the fabric rejects such an artifact on fetch
+(``fabric_reject_torn``), so it never reads as a smaller gang.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from tfmesos_tpu_torch import wire
 from tfmesos_tpu_torch.utils.logging import get_logger
 
 __all__ = ["KINDS", "KVTierFull", "KVTierStore", "KVFabric", "fabric_rpc",
-           "rendezvous_order"]
+           "rendezvous_order", "pack_gang_shards", "unpack_gang_shards"]
 
 _TAG_LEN = 32
 _LEN = struct.Struct(">I")
@@ -68,6 +70,61 @@ class KVTierFull(RuntimeError):
 def _tag(token: str, payload: bytes) -> bytes:
     return hmac.new(token.encode("utf-8"), payload,
                     hashlib.sha256).digest()
+
+
+def pack_gang_shards(shards: List[Tuple[Dict[str, Any], bytes]]
+                     ) -> Tuple[Dict[str, Any], bytes]:
+    """Fold one gang's per-member KV exports into ONE tier artifact, so
+    the gang's state parks and re-imports whole — never one member's
+    shard alone.  The meta carries the gang size, each shard's own meta
+    and the byte lengths; the body is the shard bodies concatenated in
+    rank order.  The outer stamp is shard 0's (one gang, one
+    weights_version)."""
+    if not shards:
+        raise ValueError("pack_gang_shards needs at least one shard")
+    metas: List[Dict[str, Any]] = []
+    lens: List[int] = []
+    parts: List[bytes] = []
+    for meta, body in shards:
+        metas.append(dict(meta))
+        lens.append(len(body))
+        parts.append(bytes(body))
+    out_meta: Dict[str, Any] = {"gang_size": len(shards),
+                                "shard_meta": metas,
+                                "shard_lens": lens}
+    for k in ("weights_version", "model_id", "adapter_version"):
+        if k in metas[0]:
+            out_meta[k] = metas[0][k]
+    return out_meta, b"".join(parts)
+
+
+def unpack_gang_shards(meta: Dict[str, Any], body: bytes
+                       ) -> List[Tuple[Dict[str, Any], bytes]]:
+    """Split a :func:`pack_gang_shards` artifact back into rank-order
+    ``(meta, body)`` shards.  Raises ``ValueError`` on any shape
+    mismatch: a torn or truncated gang artifact reads as corruption,
+    never as a smaller gang."""
+    try:
+        size = int(meta["gang_size"])
+        metas = list(meta["shard_meta"])
+        lens = [int(n) for n in meta["shard_lens"]]
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"not a gang artifact: {e}")
+    if size < 1 or len(metas) != size or len(lens) != size \
+            or any(n < 0 for n in lens):
+        raise ValueError(
+            f"gang artifact shape mismatch: size={size}, "
+            f"{len(metas)} metas, {len(lens)} lens")
+    if sum(lens) != len(body):
+        raise ValueError(
+            f"gang artifact truncated: {sum(lens)} bytes declared, "
+            f"{len(body)} present")
+    shards: List[Tuple[Dict[str, Any], bytes]] = []
+    off = 0
+    for rank in range(size):
+        shards.append((dict(metas[rank]), body[off:off + lens[rank]]))
+        off += lens[rank]
+    return shards
 
 
 class KVTierStore:
@@ -764,6 +821,16 @@ class KVFabric:
             if not isinstance(ameta, dict):
                 self.store.count("fabric_fetch_miss")
                 continue
+            if "gang_size" in ameta:
+                # A gang artifact re-imports whole or not at all.
+                try:
+                    unpack_gang_shards(ameta, reply.body)
+                except ValueError as e:
+                    self.store.count("fabric_reject_torn")
+                    self.log.warning(
+                        "fabric fetch of %s/%s from %s returned a torn "
+                        "gang artifact (%s); rejecting", kind, key, addr, e)
+                    continue
             try:
                 self.store.put(kind, key, ameta, reply.body, stamp=False)
             except KVTierFull:

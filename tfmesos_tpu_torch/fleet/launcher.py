@@ -40,11 +40,20 @@ share (a session parked by one resumes on another); ``kv_replication``
 and ``kv_placement`` set the fabric's copies, and ``kv_replicas``
 launches that many ``--role kv`` holders (capacity 0, never routed).
 ``draft`` / ``n_draft`` serve every replica speculatively (``--draft
---n-draft``: the preset's draft model).
+--n-draft``: the preset's draft model); ``int8`` (the port's own)
+serves int8 weights over an int8 page pool.
+
+``gang_size`` > 1 makes every unified replica a GANG: N member tasks
+placed all-or-nothing by ``add_gang`` and routed as ONE replica, the
+leader (``fleet/gang.py``: members mirror-execute every request and ack
+token digests).  A member's death tears the gang down whole, bumps the
+scheduler generation and re-forms it under a fresh gang id
+(``gang_reforms``); a catalog entry's own ``gang_size`` does the same
+for its model, each gang costing that many slots of the budget.
 
 Not ported yet, refused by name at construction (each with its ROADMAP
-item): gang replicas, gateway processes, the HTTP edge, the offline
-lane and the Mesos master.
+item): gateway processes, the HTTP edge, the offline lane and the Mesos
+master.
 """
 
 from __future__ import annotations
@@ -123,7 +132,6 @@ class RolloutError(RuntimeError):
 #: the JAX FleetServer's options that wait: name -> (what, ROADMAP item,
 #: the value that asks for nothing).  Passing any other value refuses.
 _NOT_PORTED = {
-    "gang_size": ("gang_size above 1, gang replicas", "A.9", 1),
     "gateway_processes": ("gateway_processes, gateway processes",
                           "A.12", 0),
     "http_port": ("http_port, the HTTP edge", "A.12", None),
@@ -161,6 +169,8 @@ class FleetServer:
                  kv_replicas: int = 0,
                  prefill_replicas: int = 0,
                  decode_replicas: int = 0,
+                 gang_size: int = 1,
+                 int8: bool = False,
                  draft: bool = False,
                  n_draft: int = 4,
                  models: Optional[List[ModelSpec]] = None,
@@ -211,6 +221,18 @@ class FleetServer:
                 f"a lone tier cannot serve the disaggregated handoff "
                 f"(got prefill_replicas={prefill_replicas}, "
                 f"decode_replicas={decode_replicas})")
+        # Gang replicas: each unified "replica" is N member tasks,
+        # placed as one atomic gang and routed as ONE replica (the
+        # leader).  Role-split tiers stay single-process (the
+        # disaggregated handoff is a per-request hop, not a gang).
+        self.gang_size = int(gang_size)
+        if self.gang_size < 1:
+            raise ValueError(
+                f"gang_size must be >= 1, got {gang_size}")
+        if self.gang_size > 1 and (prefill_replicas or decode_replicas):
+            raise ValueError(
+                "gang replicas serve the unified tier; drop "
+                "prefill_replicas/decode_replicas or gang_size")
         # Model catalog: with ``models``, the catalog entries size the
         # fleet (each entry's own ``replicas``), a ``warm_pool`` of
         # undedicated pre-warmed replicas caps cold-start TTFT, and
@@ -231,7 +253,9 @@ class FleetServer:
                     "a model catalog runs unified tiers; drop "
                     "prefill_replicas/decode_replicas")
             self.catalog = ModelCatalog(models)
-            boot = sum(s.replicas for s in self.catalog)
+            # Budget math is in SLOTS (member tasks): a gang replica of
+            # size N occupies N of them.
+            boot = sum(s.replicas * s.gang_size for s in self.catalog)
             if boot + self.warm_pool < 1:
                 raise ValueError(
                     "the catalog fleet needs at least one replica: "
@@ -319,6 +343,9 @@ class FleetServer:
             raise ValueError(f"tokens_per_tick must be >= 1, got "
                              f"{tokens_per_tick}")
         self.warmup = bool(warmup)
+        #: int8 weights over an int8 page pool on every replica (the
+        #: port's own option: the replica's ``--int8``).
+        self.int8 = bool(int8)
         #: speculative decoding on every replica (the preset's draft
         #: model, ``n_draft`` proposals a round); the acceptance rate
         #: rides the heartbeats into the registry's spec gauge.
@@ -424,6 +451,12 @@ class FleetServer:
         #: when every model's tasks share one scheduler job.  Updated
         #: at launch and on warm-pool adoption.
         self._node_keys: Dict[str, str] = {}
+        #: gang id -> {key, job, size, task_ids, leader_node,
+        #: weights_version}: the gang book.  An entry is popped on the
+        #: FIRST member death, so the siblings' own deaths find nothing
+        #: and a gang re-forms exactly once.
+        self._gangs: Dict[str, dict] = {}
+        self._gang_lock = threading.Lock()
         self._started = False
 
     # -- bring-up ----------------------------------------------------------
@@ -470,6 +503,8 @@ class FleetServer:
             parts.append("--fused-prefill")
         if self.tokens_per_tick is not None:
             parts += ["--tokens-per-tick", str(self.tokens_per_tick)]
+        if self.int8:
+            parts.append("--int8")
         if self.draft:
             parts += ["--draft", "--n-draft", str(self.n_draft)]
         if self.kv_tier_mb > 0:
@@ -642,13 +677,30 @@ class FleetServer:
         return self.min_replicas, self._tier_max.get(key,
                                                      self.max_replicas)
 
+    def gang_size_for(self, key: str) -> int:
+        """How many member tasks one replica of ``key`` launches as: the
+        catalog entry's ``gang_size`` for model keys, the fleet's for
+        the unified tier, and 1 for role-split tiers and the warm pool
+        (a pool replica has no model to shard yet)."""
+        model, role = split_key(key)
+        if model == POOL:
+            return 1
+        if model is not None:
+            return int(getattr(self.catalog.get(model),
+                               "gang_size", 1) or 1)
+        return self.gang_size if role == UNIFIED else 1
+
     def launch_replica(self, key: str,
                        weights_version: Optional[str] = None) -> str:
         """Launch ONE new Mode-B replica for ``key`` — a plain role, a
         composite ``"<model>/<role>"``, or the warm pool's
         :data:`~tfmesos_tpu_torch.fleet.catalog.POOL_KEY` — and return
         its node id ("job:index"); with ``warmup`` it registers
-        ``warming`` and never takes traffic cold."""
+        ``warming`` and never takes traffic cold.  With a gang size > 1
+        the replica is a whole gang and the node id is its leader's."""
+        size = self.gang_size_for(key)
+        if size > 1:
+            return self.launch_gang(key, weights_version, size)
         model, role = split_key(key)
         spec = None
         pool = model == POOL
@@ -665,12 +717,56 @@ class FleetServer:
             self._node_keys[node] = key
         return node
 
+    def launch_gang(self, key: str,
+                    weights_version: Optional[str] = None,
+                    size: Optional[int] = None) -> str:
+        """Launch one GANG replica for ``key``: N identical member cmds
+        enter the scheduler as one atomic gang (``add_gang`` stamps the
+        id/size/rank env), and rank 0 leads and registers as the one
+        routable node this method returns."""
+        size = self.gang_size_for(key) if size is None else int(size)
+        model, role = split_key(key)
+        spec = None
+        if model is not None and model != POOL:
+            spec = self.catalog.get(model)
+        job = TIER_JOBS[role]
+        cmd = self._replica_cmd(role, weights_version, model=spec)
+        with self.scale_lock:
+            members = self.scheduler.add_gang(
+                job, [cmd] * size, cpus=self.replica_cpus,
+                mem=self.replica_mem, chips=self.replica_chips)
+            gang_id = members[0].gang
+            node = f"{job}:{members[0].task_index}"
+            with self._gang_lock:
+                self._gangs[gang_id] = {
+                    "key": key, "job": job, "size": size,
+                    "task_ids": [t.id for t in members],
+                    "leader_node": node,
+                    "weights_version": weights_version}
+            self._node_keys[node] = key
+        return node
+
     def kill_replica(self, node: str) -> bool:
-        """Kill one replica by its node id ("job:index")."""
+        """Kill one replica by its node id ("job:index").  A gang
+        leader's node kills the WHOLE gang: members without a leader are
+        debris, not a smaller replica."""
         # The node->key book entry dies with the task either way — a
         # churning trader (trade = kill + relaunch per cooldown) must
         # not grow the book, and tier_actual scans it per tick.
         self._node_keys.pop(node, None)
+        with self._gang_lock:
+            gang_id = next((g for g, info in self._gangs.items()
+                            if info["leader_node"] == node), None)
+            info = self._gangs.pop(gang_id, None) if gang_id else None
+        if info is not None:
+            # remove_task pulls each member from the table BEFORE the
+            # kill, so the siblings' deaths report under unknown ids and
+            # never re-enter the gang-death path.
+            killed = False
+            with self.scale_lock:
+                for tid in info["task_ids"]:
+                    killed = self.scheduler.remove_task(tid) or killed
+            return killed
         job, _, idx = node.rpartition(":")
         try:
             task = self.scheduler.task_by_index(job, int(idx))
@@ -686,11 +782,47 @@ class FleetServer:
         died.  The router already routes around it; the fleet records
         the death (``replica_deaths``), and with the autoscaler on the
         next control tick relaunches it (the dead task left the
-        scheduler's table, so actual fell below target)."""
+        scheduler's table, so actual fell below target).  A gang
+        member's death is its gang's: the siblings are torn down and the
+        gang re-forms under a FRESH generation and a fresh gang id, the
+        double fence that keeps a zombie member of the dead gang out
+        (its ``gang_lookup`` never resolves, and the new leader refuses
+        joins of any other (gang, generation))."""
         if self.metrics is not None:
             self.metrics.inc("replica_deaths")
-        self.log.warning("replica task %s:%d died; routing around it",
-                         task.job_name, task.task_index)
+        gang_id = getattr(task, "gang", None)
+        if gang_id is None:
+            self.log.warning("replica task %s:%d died; routing around it",
+                             task.job_name, task.task_index)
+            return
+        with self._gang_lock:
+            info = self._gangs.pop(gang_id, None)
+        if info is None:
+            return      # a sibling already took the gang down
+        self._node_keys.pop(info["leader_node"], None)
+        for tid in info["task_ids"]:
+            if tid == task.id:
+                continue
+            try:
+                self.scheduler.remove_task(tid)
+            except Exception as e:
+                self.log.warning("gang %s sibling %s teardown failed: %s",
+                                 gang_id, tid, e)
+        if not self._started or self.scheduler is None:
+            return
+        try:
+            self.scheduler.bump_generation()
+            node = self.launch_gang(info["key"],
+                                    info.get("weights_version"),
+                                    info["size"])
+            if self.metrics is not None:
+                self.metrics.inc("gang_reforms")
+            self.log.warning(
+                "gang %s lost a member; torn down and re-forming as %s "
+                "(leader %s)", gang_id, info["key"], node)
+        except Exception:
+            self.log.exception("gang %s re-form failed; the convergence "
+                               "loop will retry", gang_id)
 
     def tier_actual(self, key: str) -> int:
         """Live tasks launched for one tier, registered or not — the
@@ -698,11 +830,20 @@ class FleetServer:
         still starting or warming counts and the loop never launches
         it twice.  Composite keys count through the node->key map
         intersected with the scheduler's live task table (all models
-        share one job)."""
+        share one job).  A gang counts as ONE unit."""
         model, role = split_key(key)
         job = TIER_JOBS[role]
         if model is None:
-            return len(self.scheduler.tasks_of(job))
+            loose, gangs = 0, set()
+            for t in self.scheduler.tasks_of(job):
+                gang_id = getattr(t, "gang", None)
+                if gang_id is None:
+                    loose += 1
+                else:
+                    gangs.add(gang_id)
+            return loose + len(gangs)
+        # Only gang LEADERS enter the node->key book, so the
+        # intersection already counts a gang once.
         live = {f"{job}:{t.task_index}"
                 for t in self.scheduler.tasks_of(job)}
         return sum(1 for node, k in list(self._node_keys.items())
@@ -1010,9 +1151,23 @@ class FleetServer:
             # registry's node field maps members back; the scheduler
             # table diff catches launched-but-never-registered ones).
             new_set = {node for _, node in new_nodes}
+            # Gang-aware reap: a NEW gang's members carry node ids that
+            # never entered new_nodes (only the leader did) — keep any
+            # task whose gang's leader is new; reap old gangs whole and
+            # drop their book entries so no death hook re-forms them.
+            managed_jobs = {TIER_JOBS[r] for r in managed_roles}
+            with self._gang_lock:
+                keep_gangs = {g for g, info in self._gangs.items()
+                              if info["leader_node"] in new_set}
+                for g in [g for g, info in self._gangs.items()
+                          if g not in keep_gangs
+                          and info["job"] in managed_jobs]:
+                    del self._gangs[g]
             reaped = 0
-            for job in {TIER_JOBS[r] for r in managed_roles}:
+            for job in managed_jobs:
                 for t in self.scheduler.tasks_of(job):
+                    if getattr(t, "gang", None) in keep_gangs:
+                        continue
                     node = f"{job}:{t.task_index}"
                     if node not in new_set:
                         self._node_keys.pop(node, None)
@@ -1078,10 +1233,13 @@ class FleetServer:
             self.router.close()
             self.router = None
         if self.scheduler is not None:
-            # Teardown kills are deliberate: no death hook fires for them.
+            # Teardown kills are deliberate: no death hook fires for
+            # them, and no gang re-forms what stop() is reaping.
             self.scheduler.on_dynamic_death = None
             self.scheduler.stop()
             self.scheduler = None
+        with self._gang_lock:
+            self._gangs.clear()
         if self.registry is not None:
             self.registry.stop()
             self.registry = None

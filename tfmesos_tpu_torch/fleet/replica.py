@@ -1,6 +1,5 @@
 """A serving replica: one ``ContinuousBatcher`` behind a TCP server
-(port of ``tfmesos_tpu/fleet/replica.py:53-960, 1037-1112, 1162-1217,
-1220-1646``).
+(port of ``tfmesos_tpu/fleet/replica.py:53-1217, 1220-1646``).
 
     python -m tfmesos_tpu_torch.fleet.replica [--registry HOST:PORT] \\
         [--tiny] [--device cpu] [--rows 4] [--warmup] [--role ROLE] ...
@@ -42,12 +41,25 @@ round; the acceptance rate rides every heartbeat as ``spec``).  The
 ``fleet/catalog.py``'s codec) once no row is resident and answers when
 it has applied; ``--warm-pool`` starts the replica undedicated, and the
 ``adopt`` op installs a catalog model's preset weights (``set_weights``)
-and gives it that ``model_id``.  Not ported yet, refused with exit code
-2: a gang launch env.  One op is the port's own: ``stats`` answers the
-replica's pid, device, the device memory it holds, its kernels' launch
-counts, the batcher's dispatch and speculative counters and its tier's
-counters (a holder: that torch is not even imported, and its tier's
-summary).
+and gives it that ``model_id``.
+
+Launched as one task of a gang (``TPUMESOS_GANG_ID/SIZE/RANK``, stamped
+by the scheduler's ``add_gang``), rank 0 is the LEADER: the replica
+above, whose handler fans every ``generate`` to the members
+(``fleet/gang.py``), which registers ``warming`` until every member has
+joined and exits 1 when the gang breaks or never forms.  Every other
+rank is a MEMBER (:func:`gang_member_main`): no serve socket and no
+heartbeat, an identical batcher build without a KV tier, each
+dispatched request executed in full and its token digest acked; after
+each request it prints one ``gang member stats {json}`` line (requests
+served, its kernels' launches and the batcher's counters since warmup)
+and exits 0 only when stopped.
+
+One op is the port's own: ``stats`` answers the replica's pid, device,
+the device memory it holds, its kernels' launch counts, the batcher's
+dispatch and speculative counters, its tier's counters and a gang
+leader's gang (a holder: that torch is not even imported, and its
+tier's summary).
 
 :class:`ReplicaServer` serves whatever ``handler(msg, reply)`` it is
 given; only :func:`batcher_handler`, :func:`prefill_handler` and the
@@ -70,28 +82,33 @@ import zlib
 from typing import Any, Callable, Dict, List, Optional
 
 from tfmesos_tpu_torch import wire
+from tfmesos_tpu_torch.fleet import gang as gang_mod
 from tfmesos_tpu_torch.fleet import tracing
 from tfmesos_tpu_torch.utils.logging import get_logger
 
 __all__ = ["ReplicaServer", "BatcherServing", "batcher_handler",
            "prefill_handler", "fabric_handler", "rid_seed_for_node",
            "build_batcher", "build_parser", "start_replica",
-           "start_kv_holder", "main", "ReplicaRefused"]
+           "start_kv_holder", "gang_member_main", "main", "ReplicaRefused",
+           "GangNotFormed"]
 
 _LOG = "tfmesos_tpu_torch.fleet.replica"
-#: The gang launch env (``tfmesos_tpu/fleet/gang.py``): a replica launched
-#: as one task of a gang.
-GANG_ENV_ID = "TPUMESOS_GANG_ID"
 #: The registry's model-id charset (``tfmesos_tpu/fleet/registry.py``).
 MODEL_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
 #: The batcher's dispatch counters the ``stats`` op reports.
 STATS_COUNTERS = ("prefills", "tail_prefills", "prefill_chunks",
                   "decode_ticks", "fused_ticks", "spec_rounds",
-                  "spec_row_rounds", "spec_committed", "weight_swaps")
+                  "spec_row_rounds", "spec_committed", "weight_swaps",
+                  "decode_seconds")
+
+
+class GangNotFormed(RuntimeError):
+    """A gang leader whose members did not all join (or one left while
+    forming): the process exits 1 and the fleet re-forms the gang."""
 
 
 class ReplicaRefused(ValueError):
-    """A replica option this port refuses (not ported yet, or
+    """A replica option this port refuses (an invalid value, or
     invalid): the entry point exits with code 2."""
 
 
@@ -170,6 +187,9 @@ class ReplicaServer:
         # The ``stats`` op's answer (None: the op is unknown, as on the
         # JAX replica).
         self.stats = stats
+        #: the :class:`~tfmesos_tpu_torch.fleet.gang.GangLeader` of a gang
+        #: leader's replica (None otherwise).
+        self.gang_leader = None
         self.log = get_logger(_LOG)
         self.addr: Optional[str] = None
         self._listen: Optional[socket.socket] = None
@@ -909,7 +929,8 @@ def rid_seed_for_node(node: str) -> int:
 
 
 def build_batcher(args, node: str = "", params=None, token: str = "",
-                  generation: int = 0, draft_params=None):
+                  generation: int = 0, draft_params=None,
+                  with_kv_tier: bool = True):
     """The model and ``ContinuousBatcher`` one replica runs, from the
     parsed flags: the port's tiny or flagship preset drawn from
     ``--model-seed`` (default ``--seed``), or ``params`` (the same
@@ -923,13 +944,17 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
     ``--kv-tier-dir`` give it a :class:`~tfmesos_tpu_torch.fleet.kvtier.
     KVTierStore` keyed by ``token`` and stamped with the rollout
     identity (``--weights-version``, composed with ``--model-id``, and
-    ``generation``), so another version's parked KV reads as a miss."""
+    ``generation``), so another version's parked KV reads as a miss.  A
+    gang member builds with ``with_kv_tier=False``: parking a session
+    once a gang process would count it N times.  ``--int8`` quantizes
+    the weights (``quantize_params``) and keeps the page pool int8."""
     from tfmesos_tpu_torch.device import resolve_device
     from tfmesos_tpu_torch.fleet.kvtier import KVTierStore
     from tfmesos_tpu_torch.models import presets
+    from tfmesos_tpu_torch.models.transformer import quantize_params
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    refuse_unported(args, environ={})
+    validate_args(args)
     device = resolve_device(args.device)
     seed = args.model_seed if args.model_seed is not None else args.seed
     cfg, drawn = (presets.tiny_model(seed) if args.tiny
@@ -944,7 +969,7 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
                 seed=args.seed + 1, max_len=max_len, n_draft=args.n_draft))
         draft_params = ddrawn if draft_params is None else draft_params
     kv_tier = None
-    if args.kv_tier_mb > 0 or args.kv_tier_dir:
+    if with_kv_tier and (args.kv_tier_mb > 0 or args.kv_tier_dir):
         wv_stamp = args.weights_version
         if args.model_id:
             wv_stamp = f"{args.weights_version or 'v0'}@{args.model_id}"
@@ -952,8 +977,11 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
             ram_bytes=int(max(0.0, args.kv_tier_mb) * 1e6),
             disk_dir=args.kv_tier_dir, token=token,
             stamp={"weights_version": wv_stamp, "gen": generation})
+    params = drawn if params is None else params
+    if args.int8:
+        params = quantize_params(cfg, params)
     return ContinuousBatcher(
-        cfg, drawn if params is None else params, rows=args.rows,
+        cfg, params, rows=args.rows,
         max_len=args.max_len, page_size=args.page_size,
         prefill_bucket=args.prefill_bucket, multi_step=args.multi_step,
         prefix_cache_pages=args.prefix_cache_pages,
@@ -963,22 +991,18 @@ def build_batcher(args, node: str = "", params=None, token: str = "",
         prefill_chunk=args.prefill_bucket if args.fused_prefill else None,
         fused_prefill=args.fused_prefill,
         tokens_per_tick=args.tokens_per_tick, kv_tier=kv_tier,
+        quantized_cache=args.int8,
         draft_cfg=draft_cfg,
         draft_params=draft_params if draft_cfg is not None else None,
         n_draft=args.n_draft, rid_seed=rid_seed_for_node(node),
         device=device)
 
 
-def refuse_unported(args, environ=None) -> None:
-    """Raise :class:`ReplicaRefused` for an option whose surface this
-    port does not have yet (or an invalid ``--model-id`` /
-    ``--kv-replication``), naming the ROADMAP item it waits for."""
-    environ = os.environ if environ is None else environ
+def validate_args(args) -> None:
+    """Raise :class:`ReplicaRefused` for an invalid ``--model-id`` /
+    ``--kv-replication``."""
     if not 1 <= args.kv_replication <= 8:
         raise ReplicaRefused("--kv-replication must be in [1, 8]")
-    if environ.get(GANG_ENV_ID):
-        raise ReplicaRefused(f"not ported yet: a gang launch ({GANG_ENV_ID} "
-                             f"set; the mesh, ROADMAP A.9)")
     if args.model_id and not MODEL_ID_RE.fullmatch(args.model_id):
         raise ReplicaRefused(
             f"model_id {args.model_id!r} is not a valid label: want 1-64 "
@@ -1003,6 +1027,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
+    p.add_argument("--int8", action="store_true",
+                   help="serve weight-only int8 params (quantize_params) "
+                        "over an int8 page pool (the port's own flag; the "
+                        "KV tier bypasses such a pool)")
     p.add_argument("--rows", type=int, default=4,
                    help="concurrent decode rows (= advertised capacity)")
     p.add_argument("--max-len", type=int, default=None)
@@ -1103,7 +1131,9 @@ def _identity(environ) -> tuple:
 
 
 def start_replica(args, token: Optional[str] = None, params=None,
-                  environ=None, draft_params=None) -> tuple:
+                  environ=None, draft_params=None,
+                  on_break: Optional[Callable[[int], None]] = None
+                  ) -> tuple:
     """Build, register and start one replica from parsed flags; returns
     ``(server, serving, batcher)`` (``serving`` None for the prefill
     role, which never runs a serve loop; ``--role kv`` is
@@ -1115,16 +1145,31 @@ def start_replica(args, token: Optional[str] = None, params=None,
     ``--draft``).  Behind ``--registry`` a KV tier is wrapped in a
     :class:`~tfmesos_tpu_torch.fleet.kvtier.KVFabric` (the batcher's
     ``kv_tier`` becomes the fabric) and the replica serves ``kv_put`` /
-    ``kv_fetch``.  Raises :class:`ReplicaRefused` for an option not
-    ported yet."""
+    ``kv_fetch``.  Raises :class:`ReplicaRefused` for an invalid option.
+
+    Launched as rank 0 of a gang (the ``environ``'s gang env), the
+    replica LEADS it: a :class:`~tfmesos_tpu_torch.fleet.gang.GangLeader`
+    (``server.gang_leader``) fans each ``generate`` to the members, the
+    heartbeats carry its ``gang`` field, and the replica stays
+    ``warming`` until every member joined; :class:`GangNotFormed` if
+    that takes over 300 s or a member left meanwhile.  ``on_break(rank)``
+    fires once when a member is lost (the process exits 1 on it).  Rank
+    1 and up is :func:`gang_member_main`'s, not this function's."""
     environ = os.environ if environ is None else environ
-    refuse_unported(args, environ)
+    validate_args(args)
     token = wire.load_token(environ) if token is None else token
     if args.role == "kv":
         server, fabric = start_kv_holder(args, token=token, environ=environ)
         return server, None, fabric
     log = get_logger(_LOG)
     generation, node = _identity(environ)
+    gang_spec = gang_mod.read_gang_env(environ)
+    if gang_spec is not None and gang_spec[2] > 0:
+        raise ReplicaRefused(f"gang rank {gang_spec[2]} is a member: "
+                             f"gang_member_main runs it")
+    if gang_spec is not None and args.role == "prefill":
+        raise ReplicaRefused("gang replicas serve the decode/unified path; "
+                             "--role prefill cannot lead a gang")
     model_state: Dict[str, Any] = {"model_id": args.model_id or "",
                                    "warm_pool": bool(args.warm_pool),
                                    "pool_capable": bool(args.warm_pool)}
@@ -1172,6 +1217,10 @@ def start_replica(args, token: Optional[str] = None, params=None,
         _, new_params = (presets.tiny_model(seed) if args.tiny
                          else presets.flagship_model(
                              seed, max_len=args.max_len or 1024))
+        if args.int8:
+            from tfmesos_tpu_torch.models.transformer import quantize_params
+
+            new_params = quantize_params(batcher.cfg, new_params)
 
         def applied() -> None:
             model_state["model_id"] = model_id
@@ -1195,7 +1244,17 @@ def start_replica(args, token: Optional[str] = None, params=None,
                                   model_state=model_state,
                                   adopt_fn=adopt_fn, token=token,
                                   self_addr=self_addr)
+    leader = None
+    if gang_spec is not None:
+        # The leader owns the batcher, the serve socket and the
+        # heartbeat; a member's loss breaks the gang (on_break).
+        leader = gang_mod.GangLeader(
+            gang_spec[0], gang_spec[1], generation=generation, token=token,
+            host=args.host, on_break=on_break).start()
+        handler = gang_mod.leader_handler(handler, leader)
     if fabric is not None:
+        # Outside the gang wrap: kv_put / kv_fetch are this host's tier
+        # operations, never dispatched to the members.
         handler = fabric_handler(fabric, handler)
     tiered = batcher.kv_tier is not None \
         and batcher.kv_tier_bypass_reason is None
@@ -1230,6 +1289,10 @@ def start_replica(args, token: Optional[str] = None, params=None,
                             "row_rounds": batcher.spec_row_rounds,
                             "committed": batcher.spec_committed,
                             "n_draft": batcher.n_draft}
+        if leader is not None:
+            # Identity and member liveness: the gangs gauge, and what
+            # gang_lookup serves booting members.
+            beat["gang"] = leader.gang_info()
         return beat
 
     def stats(msg: Dict[str, Any]) -> Dict[str, Any]:
@@ -1254,13 +1317,20 @@ def start_replica(args, token: Optional[str] = None, params=None,
                 "graphs": len(batcher._graphs.keys()),
                 "multi_step": batcher.multi_step,
                 "counters": {k: getattr(batcher, k) for k in STATS_COUNTERS},
-                "kv_tier": batcher.kv_tier.stats() if tiered else None}
+                "kv_tier": batcher.kv_tier.stats() if tiered else None,
+                "gang": None if leader is None else dict(
+                    leader.gang_info(), generation=leader.generation,
+                    dispatches=leader.dispatches, acks=leader.acks,
+                    divergence=leader.divergence, formed=leader.formed,
+                    broken=leader.broken)}
 
     server = ReplicaServer(
         handler, token=token, capacity=args.rows, host=args.host,
         port=args.port, registry_addr=args.registry,
         heartbeat_interval=args.heartbeat_interval, extra_info=extra,
-        status="warming" if args.warmup else None, stats=stats)
+        status="warming" if (args.warmup or leader is not None) else None,
+        stats=stats)
+    server.gang_leader = leader
     srv_cell.append(server)
     server.start()
     if fabric is not None:
@@ -1275,10 +1345,98 @@ def start_replica(args, token: Optional[str] = None, params=None,
               f"({len(info['compiled'])} entry points)", flush=True)
     if serving is not None:
         serving.start()
+    if leader is not None:
+        # Never routed while forming: a gang that cannot form exits, and
+        # the fleet re-forms it whole rather than serving degraded.
+        if not leader.wait_formed(timeout=300.0) or leader.broken:
+            log.error("gang %s never formed (%d/%d live); exiting",
+                      leader.gang_id, leader.live, leader.size)
+            server.stop()
+            leader.stop()
+            if serving is not None:
+                serving.close()
+            raise GangNotFormed(f"gang {leader.gang_id} never formed "
+                                f"({leader.live}/{leader.size} live)")
+        print(f"gang {leader.gang_id} formed ({leader.size} members, "
+              f"generation {generation})", flush=True)
     server.set_status(None)     # routable: the next beat drops 'warming'
     print(f"replica serving on {server.addr} (role {args.role})",
           flush=True)
     return server, serving, batcher
+
+
+def gang_member_main(args, spec, token: Optional[str] = None,
+                     environ=None, params=None,
+                     stop: Optional[threading.Event] = None) -> int:
+    """A gang MEMBER (rank >= 1): no serve socket and no heartbeat; its
+    whole life is the leader's dispatch loop (``fleet/gang.py``).  It
+    builds the batcher the leader builds, minus the KV tier (warming it
+    when asked), executes each dispatched request in full and acks the
+    token digest, and ends when the leader does.  With no socket to ask,
+    it reports itself on stdout: after each request and at exit one
+    line ``gang member stats {json}`` (the requests served, its kernels'
+    launch counts and the batcher's dispatch counters since warmup, and
+    at exit why it ended).  Returns 0 only when stopped (``stop``, set by
+    SIGTERM in the process entry)."""
+    import json
+
+    import numpy as np
+
+    from tfmesos_tpu_torch import graphs
+    from tfmesos_tpu_torch.serving import Request
+
+    environ = os.environ if environ is None else environ
+    validate_args(args)
+    token = wire.load_token(environ) if token is None else token
+    gid, size, rank = spec
+    log = get_logger("tfmesos_tpu_torch.fleet.gang")
+    if not args.registry:
+        raise ReplicaRefused("gang member needs --registry for leader "
+                             "rendezvous")
+    generation, node = _identity(environ)
+    batcher = build_batcher(args, node=node, params=params, token=token,
+                            generation=generation, with_kv_tier=False)
+    member = gang_mod.GangMember(gid, size, rank, generation, args.registry,
+                                 token=token)
+
+    def report(reason: str, served: int) -> None:
+        # Never fatal: once the node runtime that reads our stdout is gone
+        # (a teardown's SIGTERM reaches it first), a print raises
+        # BrokenPipeError, and a mirrored request must still ack its
+        # digest.
+        try:
+            print("gang member stats " + json.dumps({
+                "gang": gid, "rank": rank, "size": size,
+                "generation": generation, "reason": reason,
+                "served": served, "pid": os.getpid(),
+                "device": str(batcher.device),
+                "launches": graphs.launch_counts(),
+                "counters": {k: getattr(batcher, k) - before[k]
+                             for k in STATS_COUNTERS}}), flush=True)
+        except OSError:
+            pass
+
+    def execute(head) -> List[int]:
+        req = Request(prompt=np.asarray(head.get("prompt"), np.int32),
+                      max_new_tokens=int(head.get("max_new_tokens") or 0),
+                      stop_token=head.get("stop_token"))
+        comps = list(batcher.run([req]))
+        tokens = [int(t) for t in comps[0].tokens] if comps else []
+        # Reported before the ack goes out (GangMember counts it after).
+        report("serving", member.served + 1)
+        return tokens
+
+    member.execute = execute
+    if args.warmup:
+        info = batcher.warmup(decode=True, prefill=True)
+        log.info("gang member rank %d warmed in %.1fs", rank,
+                 info["seconds"])
+    graphs.zero_launches()
+    before = {k: getattr(batcher, k) for k in STATS_COUNTERS}
+    print(f"gang member rank {rank}/{size} serving gang {gid}", flush=True)
+    reason = member.run(stop)
+    report(reason, member.served)
+    return 0 if reason == "stopped" else 1
 
 
 def start_kv_holder(args, token: Optional[str] = None,
@@ -1294,7 +1452,7 @@ def start_kv_holder(args, token: Optional[str] = None,
     from tfmesos_tpu_torch.fleet.kvtier import KVFabric, KVTierStore
 
     environ = os.environ if environ is None else environ
-    refuse_unported(args, environ)
+    validate_args(args)
     if args.kv_tier_mb <= 0 and not args.kv_tier_dir:
         raise ReplicaRefused("--role kv needs a tier to hold "
                              "(--kv-tier-mb and/or --kv-tier-dir)")
@@ -1338,24 +1496,40 @@ def start_kv_holder(args, token: Optional[str] = None,
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     log = get_logger(_LOG)
-    try:
-        server, serving, _ = start_replica(args)
-    except ReplicaRefused as e:
-        print(f"replica: {e}", file=sys.stderr)
-        return 2
     stop = threading.Event()
 
     def on_signal(signum, frame) -> None:
         log.info("signal %d: draining", signum)
         stop.set()
 
+    gang_spec = gang_mod.read_gang_env()
+    try:
+        if gang_spec is not None and gang_spec[2] > 0 \
+                and args.role != "kv":
+            signal.signal(signal.SIGTERM, on_signal)
+            signal.signal(signal.SIGINT, on_signal)
+            return gang_member_main(args, gang_spec, stop=stop)
+        server, serving, _ = start_replica(
+            args, on_break=lambda rank: stop.set())
+    except ReplicaRefused as e:
+        print(f"replica: {e}", file=sys.stderr)
+        return 2
+    except GangNotFormed as e:
+        print(f"replica: {e}", file=sys.stderr)
+        return 1
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
     stop.wait()
+    leader = server.gang_leader
+    broken = leader is not None and leader.broken
     server.stop()
+    if leader is not None:
+        leader.stop()
     if serving is not None:
         serving.close()
-    return 0
+    # A gang break exits nonzero: the death must read as a failure to
+    # the scheduler's dynamic accounting, not a graceful finish.
+    return 1 if broken else 0
 
 
 if __name__ == "__main__":

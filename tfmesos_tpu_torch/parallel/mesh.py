@@ -9,8 +9,15 @@ one rank a device, in the JAX package's order with ``tp`` innermost
 (rank = row-major index over ``dp, fsdp, tp``), and makes one process
 group for every set of axes and every coordinate of the others, so a
 collective names the axes it runs over (``parallel/collectives.py``).
-``sp``, ``pp`` and ``ep`` above 1 (ROADMAP A.10), and every ``dcn.``
-axis (the gang slice, A.9 (c)), are refused by name.
+
+Axes prefixed ``dcn.`` (``dcn.dp=2,dp=2,tp=2``) lay that part of an axis
+ACROSS slices, as the JAX ``build_hybrid_mesh`` does: the ranks split
+into as many equal contiguous blocks ("slices") as the dcn sizes
+multiply to, the dcn axes lay out over the slices and the others within
+each slice, and an axis named both ways has size dcn x ici with the dcn
+index as its outer factor.  A rank's coordinates follow that layout, so
+its place in the grid is the device's in JAX's hybrid mesh.  ``sp``,
+``pp`` and ``ep`` above 1 are refused by name (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["DATA_AXES", "AXIS_ORDER", "MeshSpec", "RankMesh", "LocalMesh",
-           "check_axes", "resolve_axes", "build_mesh"]
+           "check_axes", "split_dcn_axes", "resolve_axes", "resolve_dcn",
+           "build_mesh"]
 
 DATA_AXES = ("dp", "fsdp")
 #: The axes the port builds, outermost first (the JAX ``AXIS_ORDER``
@@ -50,19 +58,38 @@ class MeshSpec:
         return math.prod(self.axes.values()) if self.axes else 1
 
 
+def split_dcn_axes(axes: Dict[str, int]):
+    """Split a flat axis dict into ``(ici_axes, dcn_axes)``: keys
+    prefixed ``dcn.`` name the across-slice dims (the prefix lets one
+    dict ride the whole plumbing: flag, config, env, ``ctx.mesh``)."""
+    ici = {a: s for a, s in axes.items() if not a.startswith("dcn.")}
+    dcn = {a[len("dcn."):]: s for a, s in axes.items()
+           if a.startswith("dcn.")}
+    return ici, dcn
+
+
 def check_axes(axes: Dict[str, int]) -> Dict[str, int]:
     """Return ``axes`` if the port can build them, else raise
-    ``ValueError`` naming the axis and its ROADMAP item: any ``dcn.``
-    axis, and any axis but dp, fsdp and tp whose size is not 1 (-1
-    included: it would absorb devices)."""
-    for name, size in axes.items():
-        if name.startswith("dcn."):
-            raise ValueError(f"not ported yet: mesh axis {name} "
-                             f"(ROADMAP A.9 (c))")
+    ``ValueError``: an axis but dp, fsdp and tp whose size is not 1 (-1
+    included: it would absorb devices) names its ROADMAP item, with or
+    without the ``dcn.`` prefix, and a ``dcn.`` axis must have an
+    explicit size."""
+    ici, dcn = split_dcn_axes(axes)
+    if any(s == -1 for s in dcn.values()):
+        raise ValueError("dcn axes need explicit sizes (no -1 wildcard): "
+                         "the slice count is what they must match")
+    for name, size in list(ici.items()) + list(dcn.items()):
         if name not in AXIS_ORDER and size != 1:
             raise ValueError(f"not ported yet: mesh axis {name} (ROADMAP "
                              f"{LATER_AXES.get(name, 'A.10')})")
     return axes
+
+
+def resolve_dcn(axes: Optional[Dict[str, int]]) -> Dict[str, int]:
+    """The across-slice sizes ``axes`` names, over the axes the port
+    builds (an empty dict: one slice)."""
+    _, dcn = split_dcn_axes(check_axes(dict(axes or {})))
+    return {a: dcn[a] for a in AXIS_ORDER if dcn.get(a, 1) > 1}
 
 
 def resolve_axes(axes: Optional[Dict[str, int]], n: int) -> Dict[str, int]:
@@ -70,20 +97,35 @@ def resolve_axes(axes: Optional[Dict[str, int]], n: int) -> Dict[str, int]:
     :data:`AXIS_ORDER` (axes of size 1 that were named are kept; axes
     the port does not build are dropped after :func:`check_axes`): all
     ``dp`` when ``axes`` is empty; at most one -1, which takes what the
-    others leave; the sizes must multiply to ``n``."""
-    spec = dict(check_axes(dict(axes or {})) or {"dp": -1})
+    others leave; the sizes must multiply to ``n``.  With ``dcn.`` axes
+    the slice count (their product) must divide ``n``, the other axes
+    lay out over one slice's ranks (a -1 takes what they leave there),
+    and an axis's size is its dcn size times its slice size."""
+    ici, _ = split_dcn_axes(check_axes(dict(axes or {})))
+    dcn = resolve_dcn(axes)
+    slices = math.prod(dcn.values()) if dcn else 1
+    if n % slices:
+        raise ValueError(f"{n} ranks not divisible into {slices} slices")
+    per = n // slices
+    spec = dict(ici or ({} if dcn else {"dp": -1}))
     spec = {a: s for a, s in spec.items() if a in AXIS_ORDER}
     wild = [a for a, s in spec.items() if s == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one axis may be -1, got {wild}")
     if wild:
         fixed = math.prod(s for s in spec.values() if s != -1)
-        if n % fixed:
-            raise ValueError(f"{n} ranks not divisible by fixed axes {spec}")
-        spec[wild[0]] = n // fixed
-    ms = MeshSpec(spec)
-    if ms.size != n:
-        raise ValueError(f"mesh {spec} wants {ms.size} ranks, have {n}")
+        if per % fixed:
+            raise ValueError(f"{per} ranks not divisible by fixed axes "
+                             f"{spec}")
+        spec[wild[0]] = per // fixed
+    if MeshSpec(spec).size != per:
+        if dcn:
+            raise ValueError(f"ici axes {spec} want {MeshSpec(spec).size} "
+                             f"ranks per slice, have {per}")
+        raise ValueError(f"mesh {spec} wants {MeshSpec(spec).size} ranks, "
+                         f"have {n}")
+    for a, d in dcn.items():
+        spec[a] = d * spec.get(a, 1)
     return {a: spec[a] for a in AXIS_ORDER if a in spec}
 
 
@@ -95,11 +137,19 @@ class RankMesh:
     :meth:`coord` on an axis, and :meth:`group` for any set of axes
     (None when that set has one rank, so a collective over it is
     skipped).  ``mesh_dim_names`` are the axes above size 1 (the data
-    axis that was named, else ``dp``, when there are none)."""
+    axis that was named, else ``dp``, when there are none).  ``dcn``
+    gives each axis's across-slice factor (:func:`resolve_dcn`): ranks
+    then lay out as JAX's hybrid mesh lays devices out."""
 
     def __init__(self, axes: Dict[str, int], rank: int, device_type: str,
-                 make_groups: bool = True):
+                 make_groups: bool = True,
+                 dcn: Optional[Dict[str, int]] = None):
         self.axes = dict(axes)
+        self.dcn = {a: s for a, s in (dcn or {}).items() if s > 1}
+        for a, s in self.dcn.items():
+            if self.axes.get(a, 1) % s:
+                raise ValueError(f"dcn.{a}={s} does not divide axis {a} "
+                                 f"({self.axes.get(a, 1)})")
         self.rank = int(rank)
         self.device_type = device_type
         big = tuple(a for a in AXIS_ORDER if self.axes.get(a, 1) > 1)
@@ -111,12 +161,18 @@ class RankMesh:
             self._make_groups(big)
 
     def _unravel(self, rank: int) -> Dict[str, int]:
-        out = {}
-        for a in reversed(AXIS_ORDER):
-            s = self.axes.get(a, 1)
-            out[a] = rank % s
-            rank //= s
-        return out
+        """``rank``'s coordinates: row-major over :data:`AXIS_ORDER`, or
+        with ``dcn``, its slice (``rank`` // ranks a slice) row-major
+        over the dcn sizes and its place in the slice row-major over the
+        rest, each axis's dcn index the outer factor."""
+        if not self.dcn:
+            return _row_major(rank, self.axes)
+        ici = {a: self.axes.get(a, 1) // self.dcn.get(a, 1)
+               for a in AXIS_ORDER}
+        per = math.prod(ici.values())
+        outer = _row_major(rank // per, self.dcn)
+        inner = _row_major(rank % per, ici)
+        return {a: outer[a] * ici[a] + inner[a] for a in AXIS_ORDER}
 
     def _make_groups(self, big: Tuple[str, ...]) -> None:
         """One process group per non-empty set of the axes above size 1
@@ -211,8 +267,18 @@ class RankMesh:
         return self.axes.get("tp", 1)
 
     def __repr__(self) -> str:
-        inner = ", ".join(f"{a}={s}" for a, s in self.axes.items())
+        inner = ", ".join([f"dcn.{a}={s}" for a, s in self.dcn.items()]
+                          + [f"{a}={s}" for a, s in self.axes.items()])
         return f"{type(self).__name__}(({inner}), {self.device_type!r})"
+
+
+def _row_major(index: int, sizes: Dict[str, int]) -> Dict[str, int]:
+    out = {}
+    for a in reversed(AXIS_ORDER):
+        s = sizes.get(a, 1)
+        out[a] = index % s
+        index //= s
+    return out
 
 
 class LocalMesh(RankMesh):
@@ -231,7 +297,7 @@ def build_mesh(axes: Optional[Dict[str, int]] = None,
     ``axes`` resolves to (:func:`resolve_axes`; the process group must
     exist: ``runtime.initialize``), a :class:`LocalMesh` at one rank.
     ``world_size`` and ``rank`` default to the process group's, else 1
-    and 0."""
+    and 0.  ``dcn.`` axes lay the ranks out as JAX's hybrid mesh does."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -243,5 +309,5 @@ def build_mesh(axes: Optional[Dict[str, int]] = None,
         return LocalMesh(device_type, named[0] if named else "dp", spec)
     if rank is None:
         rank = dist.get_rank() if live else 0
-    return RankMesh(spec, rank, device_type)
+    return RankMesh(spec, rank, device_type, dcn=resolve_dcn(axes))
 

@@ -26,9 +26,10 @@ SPMD dispatch (port of ``tfmesos_tpu/scheduler.py``).
   :meth:`add_task` / :meth:`remove_task` grow and shrink it at runtime;
   each registration is served on its own, and a task death is a serving
   event (``on_dynamic_death``), never a cluster-fatal one.
+  :meth:`add_gang` adds N tasks as one gang replica, placed
+  all-or-nothing within an offer batch.
 
-Not ported yet, refused by name: ``add_gang`` (gang replicas, ROADMAP
-A.9 (c)) and the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
+Not ported yet, refused by name: the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
 fault injection (``chaos=``, ROADMAP A.12 (f)) is not a parameter here.
 """
 
@@ -187,6 +188,7 @@ class TPUMesosScheduler:
         # left the table, on a fresh thread (a callback may kill or
         # launch tasks, which must never run on the status thread).
         self.on_dynamic_death = None
+        self._gang_seq = 0
 
         self._lock = threading.RLock()
         self.started = False
@@ -277,8 +279,9 @@ class TPUMesosScheduler:
                 # refusal so re-offers accumulate into a big enough batch.
                 to_decline = [(o, 1.0) for o in offers]
             else:
+                batch_tasks = self._batch_order(offers)
                 for offer in offers:
-                    placed = first_fit(self.tasks, offer)
+                    placed = first_fit(batch_tasks, offer)
                     if not placed:
                         to_decline.append((offer, 5.0))
                         continue
@@ -335,6 +338,47 @@ class TPUMesosScheduler:
                     self.log.warning("stale-launch kill of %s failed: %s",
                                      tid[:8], e)
 
+    def _batch_order(self, offers: List[Offer]) -> List:
+        """Gang-atomic placement order for one offer batch (lock held).
+
+        Tasks added by :meth:`add_gang` carry a ``gang`` label, and a
+        gang is placed ALL-OR-NOTHING within a batch: a reservation pass
+        checks each gang's unplaced members against the batch's free
+        capacity (in the greedy order ``first_fit`` will use), admits
+        the gangs that wholly fit and withholds the rest for a later,
+        bigger batch.  A gang may split across the batch's offers
+        (hosts), never across batches.  Admitted members sort first so
+        loose tasks cannot eat the capacity just reserved."""
+        loose = [t for t in self.tasks
+                 if getattr(t, "gang", None) is None]
+        gangs: Dict[str, List] = {}
+        for t in self.tasks:
+            g = getattr(t, "gang", None)
+            if g is not None and not t.offered:
+                gangs.setdefault(g, []).append(t)
+        if not gangs:
+            return loose
+        free = [[o.cpus, o.mem, o.chips] for o in offers]
+        admitted: List = []
+        for gid, members in gangs.items():
+            trial = [slot[:] for slot in free]
+            for t in members:
+                for slot in trial:
+                    if (slot[0] >= t.cpus and slot[1] >= t.mem
+                            and slot[2] >= t.chips):
+                        slot[0] -= t.cpus
+                        slot[1] -= t.mem
+                        slot[2] -= t.chips
+                        break
+                else:
+                    self.log.info(
+                        "withholding gang %s from this offer batch: "
+                        "%d member(s) do not all fit", gid, len(members))
+                    break
+            else:
+                free = trial
+                admitted.extend(members)
+        return admitted + loose
 
     def _gang_fits(self, offers: List[Offer]) -> bool:
         """Would the *entire* remaining task set fit across this offer batch?"""
@@ -788,10 +832,39 @@ class TPUMesosScheduler:
     def add_gang(self, job_name: str, cmds: List[str], cpus: float = 1.0,
                  mem: float = 1024.0, chips: int = 0,
                  envs: Optional[List[Dict[str, str]]] = None) -> List[Task]:
-        """Gang replicas (N tasks placed all-or-nothing as one replica)
-        are not ported yet."""
-        raise ClusterError("not ported yet: add_gang, gang replicas "
-                           "(ROADMAP A.9 (c))")
+        """Launch N tasks as ONE atomic gang (dynamic mode only): all
+        members enter the table under a single lock hold — one launch
+        generation, one gang label — and the offer loop places the gang
+        all-or-nothing within an offer batch.  Returns the member tasks
+        in rank order; ``envs`` (one dict a member) rides each launch
+        env under the gang identity this call stamps."""
+        if not self.dynamic:
+            raise ClusterError("add_gang requires dynamic=True")
+        if not cmds:
+            raise ValueError("add_gang needs at least one member cmd")
+        if envs is not None and len(envs) != len(cmds):
+            raise ValueError("envs must match cmds one-to-one")
+        with self._lock:
+            self._gang_seq += 1
+            gang_id = f"{job_name}/g{self._gang_seq}"
+            members = []
+            for rank, cmd in enumerate(cmds):
+                env = dict(envs[rank]) if envs else {}
+                # Every member learns its identity from these three
+                # variables; the caller cannot stamp them, since the
+                # gang id is minted under this very lock hold.
+                env["TPUMESOS_GANG_ID"] = gang_id
+                env["TPUMESOS_GANG_SIZE"] = str(len(cmds))
+                env["TPUMESOS_GANG_RANK"] = str(rank)
+                task = self._add_task_locked(
+                    job_name, cmd, cpus, mem, chips, env)
+                task.gang = gang_id
+                members.append(task)
+            gen = members[0].generation
+        self.log.info("dynamic gang added: %s x%d (generation %d)",
+                      gang_id, len(members), gen)
+        self._revive_backend("add_gang")
+        return members
 
     def remove_task(self, task_id: str) -> bool:
         """Kill ONE task at runtime and forget it (dynamic mode only).

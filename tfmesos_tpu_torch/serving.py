@@ -78,7 +78,7 @@ from tfmesos_tpu_torch.models.transformer import (PageAllocator, Params,
 from tfmesos_tpu_torch.ops import prng
 from tfmesos_tpu_torch.ops.quant import QTensor
 from tfmesos_tpu_torch.parallel import collectives
-from tfmesos_tpu_torch.parallel.sharding import data_axes, place_tree
+from tfmesos_tpu_torch.parallel.sharding import cut, data_axes, place_tree
 
 __all__ = ["Request", "Completion", "Suspended", "Expired",
            "ContinuousBatcher", "SubmissionQueue", "Prefilled",
@@ -1178,11 +1178,16 @@ class ContinuousBatcher:
     hold the collectives: ``graphs_bypass_reason`` is ``"gloo
     collectives"`` and every call runs eagerly.  Over data shards KV
     export/import, the KV tier, preemption and the fused tick are off,
-    as in the reference (``*_bypass_reason``: "mesh data sharding");
-    over tp alone the fused tick runs, export/import and the KV tier are
-    refused by name and preemption requeues rows without artifacts (a
-    rank holds only its KV heads); weight swaps are refused on any
-    mesh.
+    as in the reference (``*_bypass_reason``: "mesh data sharding").
+    Over tp alone all of them run: an export gathers the row's pages
+    over the tp group's kv heads, so the artifact has the one-process
+    layout (it imports into a one-process batcher of either framework),
+    an import takes each rank's kv-head slice of it, the KV tier parks
+    and resumes through that export and import (every rank's tier holds
+    the same whole artifact; spilled prefix pages likewise), and
+    preemption carries artifacts.  Weight swaps run on any mesh: each
+    rank copies its tp block (``partition_specs``) of the new weights
+    into the tensors it holds.
 
     Counters for measurement: ``prefills`` (full-prompt prefill calls;
     ``prefills_here`` those this rank ran, its data shard's on a mesh),
@@ -1486,9 +1491,6 @@ class ContinuousBatcher:
         self.kv_tier_bypass_reason: Optional[str] = None
         if kv_tier is not None:
             self.kv_tier_bypass_reason = self._bypass["kv_tier"]
-            if self.mesh is not None and self.kv_tier_bypass_reason is None:
-                raise NotImplementedError("not ported yet: the KV tier on "
-                                          "a tp mesh")
             if self.kv_tier_bypass_reason is None \
                     and self._pcache is not None:
                 self._pcache.on_evict = self._spill_page
@@ -1506,6 +1508,30 @@ class ContinuousBatcher:
             params = place_tree(self._tp_mesh, params,
                                 partition_specs(cfg, self._tp_mesh))
         return _to_device(params, self.device, cfg.dtype)
+
+    def _host_pages(self, pool: Dict[str, Any], ids: torch.Tensor
+                    ) -> List[torch.Tensor]:
+        """Pool pages ``ids`` of every layer and leaf on the host, whole:
+        on a tp mesh each rank's kv heads (axis 2 of every leaf, int8
+        scales included) are gathered over the tp group, in rank order,
+        which is the one-process layout (a collective: every tp rank
+        calls it, as SPMD ranks do)."""
+        if self._tp == 1:
+            return _gather_pages(pool, ids)
+        return [collectives.all_gather(buf[:, ids].contiguous(),
+                                       self._tp_mesh, "tp", 2).cpu()
+                for buf in _pool_leaves(pool)]
+
+    def _put_pages(self, pool: Dict[str, Any], payload: List[torch.Tensor],
+                   ids: torch.Tensor) -> None:
+        """Write a whole-heads page payload (:meth:`_host_pages`' layout)
+        into pool pages ``ids``: on a tp mesh this rank's kv-head slice
+        of it."""
+        if self._tp > 1:
+            c = self._tp_mesh.coord("tp")
+            payload = [p.narrow(2, c * (p.shape[2] // self._tp),
+                                p.shape[2] // self._tp) for p in payload]
+        _install_pages(pool, payload, ids)
 
     def _owns(self, row: int) -> bool:
         """Whether ``row`` is in this rank's data shard."""
@@ -1536,13 +1562,10 @@ class ContinuousBatcher:
         out.copy_(collectives.all_reduce_sum(mine, self.mesh,
                                              data_axes(self.mesh)))
 
-    def _refuse_on_mesh(self, what: str) -> None:
+    def _refuse_on_data_shards(self, what: str) -> None:
         if self.n_shards != 1:
             raise ValueError(f"{what} requires a single-shard pool (mesh "
                              f"data shards pin pages locally)")
-        if self.mesh is not None:
-            raise NotImplementedError(f"not ported yet: {what} on a tp "
-                                      f"mesh")
 
     @property
     def peak_pages_used(self) -> int:
@@ -1566,10 +1589,10 @@ class ContinuousBatcher:
         """Whether a resident row can be suspended (the ``suspend``
         registry entry is None): not under a lagged decode carry
         (``overlap``, ``pipeline_depth=1``), whose host view of a row
-        runs a block behind its pages, nor on a mesh, whose ranks hold
-        a row's KV heads apart (a suspended row requeues without an
+        runs a block behind its pages, nor over mesh data shards, which
+        pin pages locally (a suspended row then requeues without an
         artifact, as under the registry's bypass)."""
-        return self.suspend_bypass_reason is None and self.mesh is None
+        return self.suspend_bypass_reason is None
 
     def paged_launches_per_block(self, block_tokens: int = 16) -> int:
         """Target paged-attention launches per layer needed to retire
@@ -1648,7 +1671,6 @@ class ContinuousBatcher:
         if not isinstance(version, str) or not version:
             raise ValueError("adapter version must be a non-empty "
                              "string")
-        self._refuse_swaps_on_mesh()
         resolved = self._resolve_delta(delta)
         self._queue_weight_update(("fold", resolved, version, on_applied))
 
@@ -1657,9 +1679,9 @@ class ContinuousBatcher:
         """Replace the whole parameter tree (the warm-pool adoption: the
         same config and shapes, so nothing is recaptured), under
         :meth:`swap_adapter`'s fence; ``version`` restamps the KV tier so
-        entries parked under the old weights read as version misses."""
-        self._refuse_swaps_on_mesh()
-        self._check_tree(params, self.params, "")
+        entries parked under the old weights read as version misses.  On
+        a mesh ``params`` is the whole tree; each rank keeps its block."""
+        self._check_tree(params, self._masters, "")
         self._queue_weight_update(("set", params, str(version or ""),
                                    on_applied))
 
@@ -1682,7 +1704,8 @@ class ContinuousBatcher:
                              f"the serving params")
 
     def _resolve_delta(self, delta: Dict[str, Any]):
-        """Validate a path -> array delta against the live params;
+        """Validate a path -> array delta against the whole params (the
+        masters: on a mesh a delta is whole, as in the reference);
         returns ``[(key_path, float32 CPU tensor), ...]``."""
         if not isinstance(delta, dict) or not delta:
             raise ValueError("adapter delta must be a non-empty dict "
@@ -1690,7 +1713,7 @@ class ContinuousBatcher:
         resolved = []
         for path in sorted(delta):
             keys = tuple(k for k in str(path).split("/") if k)
-            node = self.params
+            node = self._masters
             for k in keys:
                 if not isinstance(node, dict) or k not in node:
                     raise ValueError(f"adapter delta names unknown param "
@@ -1712,11 +1735,6 @@ class ContinuousBatcher:
             resolved.append((keys, torch.from_numpy(
                 arr.astype(np.float32))))
         return resolved
-
-    def _refuse_swaps_on_mesh(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError("not ported yet: weight swaps on a "
-                                      "mesh")
 
     def _queue_weight_update(self, update) -> None:
         with self._loop_lock:
@@ -1745,24 +1763,31 @@ class ContinuousBatcher:
         """Apply one update IN PLACE: every captured graph reads the
         parameter tensors by address, so a fold or a set copies into the
         existing storage (an int8 leaf's values and scales alike) and
-        recaptures nothing.  Then the prefix cache clears (no spill) and
+        recaptures nothing.  On a mesh each rank copies its tp block of
+        the whole result.  Then the prefix cache clears (no spill) and
         the KV tier restamps, so no KV of the old weights feeds a new
         decode."""
         kind, payload, version, cb = update
+        specs = (None if self._tp_mesh is None
+                 else partition_specs(self.cfg, self._tp_mesh))
         if kind == "fold":
             masters = _tree_copy(self._masters)
             for keys, arr in payload:
-                node, live = masters, self.params
+                node, live, spec = masters, self.params, specs
                 for key in keys[:-1]:
                     node, live = node[key], live[key]
+                    spec = None if spec is None else spec[key]
                 leaf = node[keys[-1]]
                 new = leaf + arr.to(device=leaf.device, dtype=leaf.dtype)
                 node[keys[-1]] = new
+                if spec is not None:
+                    new = cut(new, spec[keys[-1]], self._tp_mesh)
                 live[keys[-1]].copy_(new.to(live[keys[-1]].dtype))
             self._masters = masters
             self.adapter_version = version
         else:
-            _copy_tree(self.params, payload)
+            _copy_tree(self.params, payload if specs is None
+                       else place_tree(self._tp_mesh, payload, specs))
             self._masters = payload
             self.adapter_version = ""
         if self._pcache is not None:
@@ -3212,7 +3237,7 @@ class ContinuousBatcher:
         if not isinstance(request, Request):
             raise TypeError(f"export_kv() takes a Request, got "
                             f"{type(request).__name__}")
-        self._refuse_on_mesh("export_kv")
+        self._refuse_on_data_shards("export_kv")
         with self._loop_lock:
             if self._loop_active:
                 raise RuntimeError(
@@ -3259,7 +3284,7 @@ class ContinuousBatcher:
         (numpy has no bf16), the rest numpy arrays."""
         ns = len(side.shared_pages)
         ids = side.table_np()[row, ns:ns + n].astype(np.int64)
-        leaves = _gather_pages(side.pool, torch.as_tensor(
+        leaves = self._host_pages(side.pool, torch.as_tensor(
             ids, device=self.device))
         names = (("k", "k_scales", "v", "v_scales")
                  if isinstance(side.pool["k"], QTensor) else ("k", "v"))
@@ -3315,7 +3340,7 @@ class ContinuousBatcher:
     def _validate_artifact(self, art: dict, req: Request) -> None:
         """Reject an import whose artifact cannot drop into THIS pool
         bit-exactly (the reference's checks, each a ``ValueError``)."""
-        self._refuse_on_mesh("a KV import")
+        self._refuse_on_data_shards("a KV import")
         if art.get("version") != 1:
             raise ValueError(f"unknown KV artifact version "
                              f"{art.get('version')!r}")
@@ -3447,8 +3472,8 @@ class ContinuousBatcher:
                  if isinstance(side.pool["k"], QTensor) else ("k", "v"))
         ids = torch.as_tensor(side.alloc.rows[row], dtype=torch.long,
                               device=self.device)
-        _install_pages(side.pool, [_as_tensor(art[prefix + k])
-                                   for k in names], ids)
+        self._put_pages(side.pool, [_as_tensor(art[prefix + k])
+                                    for k in names], ids)
 
     def _admit_import(self, row: int, pre: Prefilled, wt: int, wd: int,
                       need: int, active: Dict[int, _Row]) -> tuple:
@@ -3562,13 +3587,13 @@ class ContinuousBatcher:
         if not tier.would_accept(nbytes + 512):
             tier.count("evictions")
             return
-        k, v = _gather_pages(self.pool, torch.tensor(
+        k, v = self._host_pages(self.pool, torch.tensor(
             [int(page)], device=self.device))
         meta = dict(self._tier_geom())
         meta["k_bytes"] = k.numel() * k.element_size()
         body = bytes(_array_bytes(k)) + bytes(_array_bytes(v))
         if twin:
-            dk, dv = _gather_pages(self.dpool, torch.tensor(
+            dk, dv = self._host_pages(self.dpool, torch.tensor(
                 [int(dpage)], device=self.device))
             meta["dk_bytes"] = dk.numel() * dk.element_size()
             body += bytes(_array_bytes(dk)) + bytes(_array_bytes(dv))
@@ -3647,11 +3672,11 @@ class ContinuousBatcher:
                 if dalloc is not None:
                     dalloc.free.append(dpage)
                 break
-            _install_pages(self.pool, payload,
-                           torch.tensor([page], device=self.device))
+            self._put_pages(self.pool, payload,
+                            torch.tensor([page], device=self.device))
             if dpayload is not None:
-                _install_pages(self.dpool, dpayload,
-                               torch.tensor([dpage], device=self.device))
+                self._put_pages(self.dpool, dpayload,
+                                torch.tensor([dpage], device=self.device))
             self.kv_tier.count("promotions")
             self._trace_event(req, "tier_promote", digest=d.hex()[:16],
                               depth=n + 1)
