@@ -472,6 +472,24 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     through a KV fabric and comes back from the peer, then unpacked:
     each rank's resumed turn by the margin rule against a cold
     full-history prefill.
+26. the fleet's edges over ``tests/torch_fake_mesos.py``'s fake Mesos
+    master and agent (offers with a scalar ``gpus``; each TaskInfo's
+    command run as a process of this host) named by a fake ZooKeeper:
+    (a) ``tfrun -m zk://... -w 2 -s 0 -Gw 1`` runs ``plus`` in two
+    tasks, both print 42 on the card, and the seconds from SUBSCRIBE to
+    both tasks RUNNING; (b) ``tfserve --master`` with two replicas of
+    one card each, two gateway processes, the HTTP edge and the batch
+    lane at phase 18's shape, its replicas Mesos tasks on the card
+    (each process's ``stats``): phase 5's requests as 8 JSON and 8 SSE
+    completions and 16 streamed over the wire, every stream by the
+    margin rule against phase 5's, launches exact, the SSE first event
+    and the wire client TTFT; (c) ``tfserve batch`` with phase 5's
+    prompts three times over while 8 interactive requests arrive: every
+    completion by the margin rule, interactive TTFT with the lane busy
+    against idle, batch rows preempted and resumed; (d) the gateway
+    process holding a client's connection SIGKILLed under traffic:
+    16/16 requests complete with every streamed token once, the
+    failover gap, and the seconds until its lease expires.
 
 It prints each phase's seconds.
 
@@ -734,7 +752,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/25] device")
+    say("[1/26] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -748,7 +766,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/25] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/26] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -986,7 +1004,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/25] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/26] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -1203,7 +1221,7 @@ def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/25] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/26] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1250,7 +1268,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/25] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/26] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1427,7 +1445,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/25] teacher-forced check vs float32 CPU forward "
+    say(f"[6/26] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1478,7 +1496,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/25] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/26] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1488,7 +1506,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/25] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/26] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1558,7 +1576,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/25] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/26] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2334,7 +2352,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/25] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/26] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2399,7 +2417,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/25] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/26] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2485,7 +2503,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/25] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/26] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2582,7 +2600,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/25] sampled serving and generation: phase 5's traffic at "
+    say("[13/26] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2896,7 +2914,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/25] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/26] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2975,7 +2993,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/25] export/import, preemption and rolling caches: flagship")
+    say("[15/26] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3221,7 +3239,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/25] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/26] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3477,7 +3495,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/25] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/26] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -4116,7 +4134,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/25] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/26] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4467,7 +4485,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/25] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/26] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5251,7 +5269,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/25] speculative decoding, the static prefix and weight swaps: "
+    say("[20/26] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5909,7 +5927,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/25] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/26] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6444,7 +6462,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/25] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/26] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6749,7 +6767,7 @@ def phase_surface(torch, np, train):
                                                     CheckpointManager)
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[23/25] the reference's surface: plus, tfrun, Mode A under the "
+    say("[23/26] the reference's surface: plus, tfrun, Mode A under the "
         "elastic policy, mnist_replica (ranks share the card over gloo)")
     dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
     device = torch.device(SURFACE_DEVICE or "cuda")
@@ -7337,7 +7355,7 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     from tfmesos_tpu_torch.ops import quant as tq
     from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
 
-    say("[24/25] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
+    say("[24/26] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
         "dp=2,tp=2, training over tp=2 and fsdp=2, a checkpoint across "
         "meshes (ranks share the card over gloo)")
     dev = torch.device("cuda")
@@ -7860,7 +7878,7 @@ def phase_gang(torch, np, cfg, params, reqs, comps, comps8, stats17):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models import transformer as tt
 
-    say("[25/25] gang replicas: FleetServer(gang_size=2) at phase 18's "
+    say("[25/26] gang replicas: FleetServer(gang_size=2) at phase 18's "
         "shape, leader and member each on the graphed one-device "
         "batcher; a member SIGKILL; gang KV artifacts")
     prompts = [r.prompt for r in reqs]
@@ -7937,6 +7955,635 @@ def phase_gang(torch, np, cfg, params, reqs, comps, comps8, stats17):
         f"turns identical to the cold prefill, {c['resumed_near_ties']} "
         f"near-ties")
     return out
+
+
+# -- phase 26: the fleet's edges over a fake Mesos master -------------------
+
+
+#: phase 26 (b)'s ``tfserve`` flags beside ``--master`` and ``--http-port``:
+#: two replicas of one card each (the ``gpus`` resource), two gateway
+#: processes, the offline lane, phase 18's shape; 32 gateway workers a
+#: process, so 16 batch requests can hold all 16 rows while interactive
+#: ones still reach the replicas (a worker carries one request at a
+#: time).
+EDGE_SERVE = ["--replicas", "2", "-Gr", "1", "--gateway-processes", "2",
+              "--batch-lane", "--rows", "8", "--workers", "32", "--warmup",
+              "-p", "0", "--gateway-host", "127.0.0.1"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ProcLines:
+    """A process's merged output, read on a thread: every line with the
+    ``time.perf_counter()`` it arrived at."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc = proc
+        self.lines = []
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter(), line.rstrip()))
+
+    def wait_for(self, pred, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            for t, line in list(self.lines):
+                if pred(line):
+                    return t, line
+            if self.proc.poll() is not None and not self._thread.is_alive():
+                break
+            time.sleep(0.02)
+        return None, None
+
+    def tail(self, n=40):
+        return "\n".join(line for _, line in self.lines[-n:])
+
+
+def proc_argv(pid):
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        return [a.decode() for a in f.read().split(b"\0") if a]
+
+
+def gateway_procs(root):
+    """{pid: argv} of the gateway processes below ``root``."""
+    out = {}
+    for pid in descendants(root):
+        try:
+            argv = proc_argv(pid)
+        except OSError:
+            continue
+        if "tfmesos_tpu_torch.fleet.gateway" in argv:
+            out[pid] = argv
+    return out
+
+
+def socket_owner(sock, pids):
+    """Which of ``pids`` holds the far end of the loopback TCP
+    connection ``sock`` (by ``/proc/net/tcp`` and each process's fds)."""
+    import os
+
+    lport, rport = sock.getsockname()[1], sock.getpeername()[1]
+    inodes = set()
+    with open("/proc/net/tcp") as f:
+        for line in f.readlines()[1:]:
+            fields = line.split()
+            loc, rem = fields[1], fields[2]
+            if int(loc.split(":")[1], 16) == rport \
+                    and int(rem.split(":")[1], 16) == lport:
+                inodes.add(f"socket:[{fields[9]}]")
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                if os.readlink(f"/proc/{pid}/fd/{fd}") in inodes:
+                    return pid
+            except OSError:
+                continue
+    return None
+
+
+def registry_replicas(registry, token):
+    """The central registry's alive replica addrs (``registry_view``)."""
+    from tfmesos_tpu_torch import wire
+
+    sock = wire.connect(registry, timeout=10.0)
+    try:
+        sock.settimeout(10.0)
+        wire.send_msg(sock, {"op": "registry_view"}, token)
+        view = wire.recv_msg(sock, token)
+    finally:
+        sock.close()
+    return sorted(d["addr"] for d in view["replicas"]
+                  if d.get("state") == "alive")
+
+
+def http_completion(port, prompt, new, stream):
+    """POST /v1/completions; (tokens, ms to the first SSE token event or
+    None, total ms)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300.0)
+    try:
+        conn.request("POST", "/v1/completions",
+                     body=json.dumps({"prompt": [int(x) for x in prompt],
+                                      "max_tokens": int(new),
+                                      "stream": stream}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            need(False, f"HTTP {resp.status}: {resp.read()[:300]!r}")
+        if not stream:
+            body = json.loads(resp.read())
+            return body["tokens"], None, (time.perf_counter() - t0) * 1e3
+        first, toks, done = None, [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            ev = json.loads(data)
+            if "tokens" in ev:
+                need(ev["off"] == len(toks), f"SSE offset {ev['off']} after "
+                     f"{len(toks)} tokens")
+                if first is None:
+                    first = (time.perf_counter() - t0) * 1e3
+                toks.extend(ev["tokens"])
+            elif ev.get("done"):
+                done = ev
+            else:
+                need(False, f"SSE error event {ev}")
+        need(done is not None and done["n_tokens"] == len(toks),
+             f"SSE stream ended without its done event: {done}")
+        return toks, first, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def run_threads(fns):
+    """Run each callable on its own thread; the first error is raised."""
+    import threading
+
+    errors = []
+
+    def wrap(fn):
+        try:
+            fn()
+        except BaseException as e:      # reported below
+            errors.append(repr(e))
+
+    pool = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600.0)
+    need(not errors, f"request threads failed: {errors[:3]}")
+
+
+def wire_streams(addr, token, items, threads=4):
+    """``items`` [(key, prompt, new, kw)] through ``FleetClient``s over
+    ``addr`` from ``threads`` threads, each request streamed; returns
+    ({key: reply}, {key: client ms to the first token})."""
+    from tfmesos_tpu_torch.fleet.client import FleetClient
+
+    replies, first = {}, {}
+
+    def worker(k):
+        client = FleetClient(addr, token, timeout=300.0)
+        try:
+            for key, prompt, new, kw in items[k::threads]:
+                got, t0 = [], time.perf_counter()
+
+                def on_tokens(toks, key=key, t0=t0, got=got):
+                    if not got:
+                        first[key] = (time.perf_counter() - t0) * 1e3
+                    got.extend(toks)
+
+                replies[key] = client.generate(
+                    [int(x) for x in prompt], new, on_tokens=on_tokens,
+                    **kw)
+                need(got == replies[key]["tokens"], f"{key}: the streamed "
+                     f"tokens differ from the reply's")
+        finally:
+            client.close()
+
+    run_threads([functools.partial(worker, k) for k in range(threads)])
+    return replies, first
+
+
+def ms_stats(values):
+    values = list(values)
+    return {"mean": statistics.mean(values), "p50": statistics.median(values),
+            "n": len(values)}
+
+
+def phase_edge(torch, cfg, params, reqs, base, smi):
+    """Phase 26: the fleet's edges over a fake Mesos master and agent."""
+    from tfmesos_tpu_torch.models.transformer import forward
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_fake_mesos import FakeMesos, FakeZK
+
+    say("[26/26] the fleet's edges over a fake Mesos master and agent: "
+        "tfrun -m zk://, tfserve --master with gateway processes, the "
+        "HTTP/SSE edge and the batch lane, a gateway SIGKILL")
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = dict(enumerate(base))
+
+    def next_logits(key, prefix):
+        prompt = [int(x) for x in reqs[key % 100].prompt]
+        with torch.no_grad():
+            return forward(cpu_cfg, params,
+                           torch.tensor([prompt + prefix]))[0, -1]
+
+    def check(got, what):
+        """Streams {key: tokens} by the margin rule against phase 5's
+        (key % 100 is the request's index in phase 5's traffic; a
+        shorter stream is held to that stream's first tokens)."""
+        want = {k: ref[k % 100][:len(v)] for k, v in got.items()}
+        return divergence_gaps(want, got, next_logits, what)
+
+    out = {"card": smi}
+    gc.collect()
+    torch.cuda.empty_cache()
+    master = FakeMesos(cpus=64.0, mem=512 * 1024.0, gpus=8.0)
+    zk = FakeZK(master.addr)
+    try:
+        out["a"] = edge_tfrun(master, zk)
+        out.update(edge_serve(cfg, params, reqs, master, check))
+    finally:
+        zk.close()
+        master.close()
+    return out
+
+
+def edge_tfrun(master, zk):
+    """Phase 26 (a): ``tfrun -m zk://.../mesos -w 2 -s 0`` runs the
+    port's ``plus`` in two Mesos tasks of one card each."""
+    stdout, stderr, secs = child(
+        ["tfmesos_tpu_torch.cli", "run", "-m", zk.url(), "-w", "2", "-s",
+         "0", "-Gw", "1", "--worker-logs", "*", "--", sys.executable, "-m",
+         "tfmesos_tpu_torch.plus"], 300)
+    lines = stdout.splitlines()
+    need(sorted(x for x in lines if x.endswith(" 42"))
+         == ["[worker:0] 42", "[worker:1] 42"],
+         f"26 (a): tfrun printed {lines[-10:]}")
+    diag = sorted(x for x in lines if "] plus: " in x)
+    need(len(diag) == 2 and all("'cuda:0', 'cuda:0'" in x for x in diag),
+         f"26 (a): plus ran on {diag}")
+    tasks = list(master.tasks.values())
+    need(len(tasks) == 2 and all(t.exit_code == 0 for t in tasks),
+         f"26 (a): tasks {[(t.id, t.state, t.exit_code) for t in tasks]}")
+    gpus = [r["scalar"]["value"] for t in tasks
+            for r in t.info["resources"] if r["name"] == "gpus"]
+    need(gpus == [1.0, 1.0], f"26 (a): gpus asked {gpus}")
+    running = master.running_times()
+    out = {"seconds": secs, "subscribe_to_running_s": running,
+           "zk_requests": len(zk.requests), "plus": diag,
+           "calls": sorted({c["type"] for c in master.calls})}
+    say("  (a) " + json.dumps(out))
+    say(f"  (a) tfrun -m zk:// -w 2 -s 0 ran plus in 2 Mesos tasks (gpus "
+        f"1 each): both printed 42 on cuda:0 over gloo; SUBSCRIBE to both "
+        f"tasks RUNNING {max(running) * 1e3:.1f} ms; {secs:.1f} s in all")
+    return out
+
+
+def edge_serve(cfg, params, reqs, master, check):
+    """Phase 26 (b)-(d): ``tfserve --master`` with two gateway processes,
+    the HTTP/SSE edge and the batch lane; its replicas are Mesos tasks."""
+    import os
+    import signal
+
+    token = "edge-token"
+    env = dict(os.environ, TPUMESOS_TOKEN=token)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TPUMESOS_TOKEN_FILE", None)
+    env.pop("MESOS_MASTER", None)
+    cli = [sys.executable, "-m", "tfmesos_tpu_torch.cli"]
+    http_port = free_port()
+    tasks_before = len(master.tasks)
+    before = smi_apps()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        cli + ["serve", "--master", master.addr, "--http-port",
+               str(http_port)] + EDGE_SERVE,
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    out_lines = ProcLines(proc)
+    replica_pids_ = []
+    gws = {}
+    try:
+        t_up, banner = out_lines.wait_for(
+            lambda x: x.startswith("tfserve: gateway on"), 300.0)
+        need(banner is not None, f"26 (b): no banner:\n{out_lines.tail()}")
+        up_s = t_up - t0
+        need(f"+ http 127.0.0.1:{http_port}" in banner
+             and "2 gateway process(es)" in banner,
+             f"26 (b): banner {banner!r}")
+        public = re.search(r"process\(es\) \(([^),]+)", banner).group(1)
+        gws = gateway_procs(proc.pid)
+        need(len(gws) == 2, f"26 (b): gateway processes {gws}")
+        registry = {a[a.index("--registry") + 1] for a in gws.values()}
+        need(len(registry) == 1, f"26 (b): registries {registry}")
+        registry = registry.pop()
+        http_pid = [p for p, a in gws.items() if "--http-port" in a]
+        need(len(http_pid) == 1, f"26 (b): HTTP carriers {http_pid}")
+        addrs = registry_replicas(registry, token)
+        replica_pids_ = replica_pids([os.getpid()])
+        need(len(addrs) == 2 and len(replica_pids_) == 2,
+             f"26 (b): replicas {addrs}, processes {replica_pids_}")
+        mesos_tasks = list(master.tasks.values())[tasks_before:]
+        need(len(mesos_tasks) == 2
+             and all(t.state == "TASK_RUNNING" for t in mesos_tasks)
+             and all(any(r["name"] == "gpus" and r["scalar"]["value"] == 1.0
+                         for r in t.info["resources"])
+                     for t in mesos_tasks),
+             f"26 (b): Mesos tasks "
+             f"{[(t.state, t.info['resources']) for t in mesos_tasks]}")
+        card = on_the_card(replica_stats(addrs, token), replica_pids_,
+                           2 * tree_numel(params), before, "26 (b)")
+        out = {"b": edge_traffic(cfg, reqs, token, public, http_port, addrs,
+                                 check, up_s, card, mesos_tasks)}
+        out["c"] = edge_batch(cfg, reqs, token, public, addrs, check, cli,
+                              env)
+        out["d"] = edge_kill(cfg, reqs, token, public, addrs, check, gws,
+                             http_pid[0], out_lines)
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            # A failed part: tfserve dies without stopping its gateway
+            # processes, so they go too (the fake agent kills the tasks).
+            proc.kill()
+            proc.wait()
+            for pid in pids_alive(list(gws)):
+                os.kill(pid, signal.SIGKILL)
+    need(proc.returncode == 0, f"26: tfserve exit code {proc.returncode}:"
+         f"\n{out_lines.tail()}")
+    deadline = time.perf_counter() + 30.0
+    while pids_alive(replica_pids_ + list(gws)) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    need(not pids_alive(replica_pids_ + list(gws)),
+         f"26: {pids_alive(replica_pids_ + list(gws))} outlived tfserve")
+    ends = sorted({t.state for t in list(master.tasks.values())[
+        tasks_before:]})
+    need(ends == ["TASK_KILLED"], f"26: the replica tasks ended {ends}")
+    out["teardown"] = {"task_states": ends,
+                       "calls": sorted({c["type"] for c in master.calls})}
+    return out
+
+
+def edge_traffic(cfg, reqs, token, public, http_port, addrs, check, up_s,
+                 card, mesos_tasks):
+    """Phase 26 (b): phase 5's 16 requests as 8 JSON and 8 SSE
+    completions through gateway process 0's HTTP edge (and the first two
+    prompts both ways), then all 16 over the wire through the shared
+    gateway port, streamed."""
+    warm = [(1000 + i, list(range(1, 9)), 2, {}) for i in range(4)]
+    wire_streams(public, token, warm)
+    zero = replica_stats(addrs, token, reset=True)
+    http_out = {}
+
+    def one(key, stream):
+        r = reqs[key % 100]
+        http_out[(key, stream)] = http_completion(
+            http_port, r.prompt, r.max_new_tokens, stream)
+
+    jobs = [functools.partial(one, i, i >= 8) for i in range(16)]
+    jobs += [functools.partial(one, 100 + i, True) for i in range(2)]
+    t0 = time.perf_counter()
+    run_threads(jobs)
+    http_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replies, first = wire_streams(
+        public, token, [(i, r.prompt, r.max_new_tokens, {})
+                        for i, r in enumerate(reqs)])
+    wire_wall = time.perf_counter() - t0
+    launches = replica_launches(cfg, zero, settled_stats(addrs, token),
+                                "26 (b)")
+    # Each stream is held to phase 5's by the margin rule below; two
+    # streams of one prompt in other batch compositions may part at a
+    # near-tie, so their agreement is counted, not required.
+    got_http = {k: v[0] for (k, _), v in http_out.items()}
+    sse_eq_json = sum(http_out[(100 + i, True)][0] == http_out[(i, False)][0]
+                      for i in range(2))
+    http_eq_wire = sum(got_http[i] == replies[i]["tokens"]
+                       for i in range(16))
+    identical, gaps = check(got_http, "26 (b) HTTP")
+    wire_identical, wire_gaps = check(
+        {i: r["tokens"] for i, r in replies.items()}, "26 (b) wire")
+    sse_first = [v[1] for (k, s), v in http_out.items() if s]
+    stats = {"fleet_up_s": up_s, "mesos_tasks": [t.id for t in mesos_tasks],
+             "http_json_total_ms": ms_stats(v[2] for (k, s), v in
+                                            http_out.items() if not s),
+             "sse_first_event_ms": ms_stats(sse_first),
+             "wire_client_ttft_ms": ms_stats(first.values()),
+             "http_wall_s": http_wall, "wire_wall_s": wire_wall,
+             "identical": identical, "gaps": gaps,
+             "wire_identical": wire_identical, "wire_gaps": wire_gaps,
+             "sse_equal_json_of_prompt": sse_eq_json,
+             "http_equal_wire_of_request": http_eq_wire,
+             "launches": launches, "card": card}
+    say("  (b) " + json.dumps(stats))
+    say(f"  (b) tfserve --master up in {up_s:.1f} s (2 replicas as Mesos "
+        f"tasks, 2 gateway processes); HTTP {identical}/{len(got_http)} "
+        f"and wire "
+        f"{wire_identical}/16 streams identical to phase 5's (the rest "
+        f"near-ties; SSE = JSON for {sse_eq_json}/2 prompts, HTTP = wire "
+        f"for {http_eq_wire}/16); SSE first event mean "
+        f"{stats['sse_first_event_ms']['mean']:.2f} p50 "
+        f"{stats['sse_first_event_ms']['p50']:.2f} ms; wire client TTFT "
+        f"mean {stats['wire_client_ttft_ms']['mean']:.2f} p50 "
+        f"{stats['wire_client_ttft_ms']['p50']:.2f} ms; launches "
+        f"{launches}")
+    return stats
+
+
+def edge_batch(cfg, reqs, token, public, addrs, check, cli, env):
+    """Phase 26 (c): ``tfserve batch`` submits phase 5's 16 prompts on the
+    ``batch`` class while 8 interactive requests arrive."""
+    import subprocess
+    import tempfile
+
+    new = min(8, reqs[0].max_new_tokens)
+    idle = [(200 + i, reqs[i].prompt, new, {}) for i in range(8)]
+    _, idle_first = wire_streams(public, token, idle, threads=8)
+    before = replica_stats(addrs, token)
+    zero = replica_stats(addrs, token, reset=True)
+    # Phase 5's 16 prompts, three times over: 48 batch requests, 24 in
+    # flight, keep every row of both replicas busy (with batch work
+    # queued behind them) for three waves.
+    copies = 3
+    with tempfile.NamedTemporaryFile("w", suffix=".txt",
+                                     delete=False) as f:
+        for _ in range(copies):
+            for r in reqs:
+                f.write(",".join(str(int(x)) for x in r.prompt) + "\n")
+        prompts = f.name
+    from tfmesos_tpu_torch.fleet.client import MuxConnection
+
+    links = {a: MuxConnection(a, token) for a in addrs}
+    t0 = time.perf_counter()
+    batch = subprocess.Popen(
+        cli + ["batch", "-g", public, "--file", prompts, "-n",
+               str(reqs[0].max_new_tokens), "--concurrency", "24"],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        # Busy: both replicas' 16 rows admitted batch work (a prompt
+        # the prefix cache holds admits as a tail prefill).
+        busy_at = None
+        while time.perf_counter() - t0 < 60.0 and busy_at is None:
+            admitted = 0
+            for a, link in links.items():
+                c = link.call({"op": "stats"}, timeout=60.0)["counters"]
+                admitted += sum(c[k] - zero[a]["counters"][k]
+                                for k in ("prefills", "tail_prefills"))
+            if admitted >= 16:
+                busy_at = time.perf_counter() - t0
+            else:
+                time.sleep(0.005)
+        need(busy_at is not None, "26 (c): the batch lane never filled "
+             "the rows")
+        busy = [(300 + i, reqs[i].prompt, new, {}) for i in range(8)]
+        busy_replies, busy_first = wire_streams(public, token, busy,
+                                                threads=8)
+        stdout, stderr = batch.communicate(timeout=300)
+    finally:
+        for link in links.values():
+            link.close()
+        if batch.poll() is None:
+            batch.kill()
+            batch.wait()
+        Path(prompts).unlink()
+    wall = time.perf_counter() - t0
+    need(batch.returncode == 0, f"26 (c): tfserve batch exit "
+         f"{batch.returncode}: {stderr[-2000:]}")
+    rows = [json.loads(x) for x in stdout.splitlines()]
+    n = copies * len(reqs)
+    need(sorted(r["index"] for r in rows) == list(range(n)),
+         f"26 (c): batch rows {rows[:3]}")
+    identical, gaps = check(
+        {r["index"] // len(reqs) * 100 + r["index"] % len(reqs): r["tokens"]
+         for r in rows}, "26 (c) batch")
+    busy_identical, _ = check({k: r["tokens"]
+                               for k, r in busy_replies.items()},
+                              "26 (c) interactive")
+    after = settled_stats(addrs, token)
+    launches = replica_launches(cfg, zero, after, "26 (c)")
+    pre = sum(s["counters"]["preemptions"] - zero[a]["counters"][
+        "preemptions"] for a, s in after.items())
+    res = sum(s["counters"]["resumes"] - zero[a]["counters"]["resumes"]
+              for a, s in after.items())
+    stats = {"interactive_ttft_ms_lane_idle": ms_stats(idle_first.values()),
+             "interactive_ttft_ms_lane_busy": ms_stats(busy_first.values()),
+             "batch_rows_preempted": pre, "batch_rows_resumed": res,
+             "batch_identical": identical, "batch_gaps": gaps,
+             "interactive_identical": busy_identical,
+             "lane_busy_after_s": busy_at, "wall_s": wall,
+             "launches": launches, "replica_counters_before": {
+                 a: s["counters"] for a, s in before.items()}}
+    say("  (c) " + json.dumps(stats))
+    say(f"  (c) tfserve batch: {identical}/{n} batch completions identical "
+        f"to phase 5's (the rest near-ties); interactive client TTFT with "
+        f"the lane busy mean "
+        f"{stats['interactive_ttft_ms_lane_busy']['mean']:.2f} p50 "
+        f"{stats['interactive_ttft_ms_lane_busy']['p50']:.2f} ms against "
+        f"idle mean {stats['interactive_ttft_ms_lane_idle']['mean']:.2f} "
+        f"p50 {stats['interactive_ttft_ms_lane_idle']['p50']:.2f} ms; "
+        f"{pre} batch rows preempted, {res} resumed; launches {launches}")
+    return stats
+
+
+def edge_kill(cfg, reqs, token, public, addrs, check, gws, http_pid,
+              out_lines):
+    """Phase 26 (d): SIGKILL the gateway process that holds a client's
+    connection while its requests stream; the clients fail over, no
+    request is lost, and the dead process's lease expires."""
+    import os
+    import signal
+    import threading
+
+    from tfmesos_tpu_torch.fleet.client import FleetClient
+
+    zero = replica_stats(addrs, token, reset=True)
+    clients = [FleetClient(public, token, timeout=300.0) for _ in range(4)]
+    try:
+        owners = [socket_owner(c._connection()._sock, list(gws))
+                  for c in clients]
+        need(all(o in gws for o in owners), f"26 (d): owners {owners}")
+        victim = owners[0]
+        on_victim = [k for k, o in enumerate(owners) if o == victim]
+        replies, streamed, stamps = {}, {}, {}
+        started = []
+
+        errors = []
+
+        def worker(k):
+            try:
+                for i in range(k, 16, 4):
+                    got = streamed.setdefault(i, [])
+
+                    def on_tokens(toks, i=i, got=got):
+                        stamps.setdefault(k, []).append(time.perf_counter())
+                        started.append(i)
+                        got.extend(toks)
+
+                    replies[i] = clients[k].generate(
+                        [int(x) for x in reqs[i].prompt],
+                        reqs[i].max_new_tokens, on_tokens=on_tokens)
+            except BaseException as e:      # reported below
+                errors.append(repr(e))
+
+        pool = [threading.Thread(target=worker, args=(k,))
+                for k in range(4)]
+        for t in pool:
+            t.start()
+        deadline = time.perf_counter() + 60.0
+        while not any(i % 4 in on_victim for i in started) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        for t in pool:
+            t.join(timeout=600.0)
+        need(len(replies) == 16, f"26 (d): {len(replies)} of 16 requests "
+             f"completed ({errors})")
+        moved = [clients[k].addrs for k in on_victim]
+    finally:
+        for c in clients:
+            c.close()
+    for i, r in replies.items():
+        need(streamed[i] == r["tokens"], f"26 (d): request {i} streamed "
+             f"{len(streamed[i])} tokens for a reply of {len(r['tokens'])}")
+    identical, gaps = check({i: r["tokens"] for i, r in replies.items()},
+                            "26 (d)")
+    gap_ms = max((min([s for s in stamps.get(k, []) if s > t_kill]
+                      or [t_kill]) - t_kill) * 1e3 for k in on_victim)
+    t_lease, line = out_lines.wait_for(
+        lambda x: "lease expired" in x and public in x, 30.0)
+    need(line is not None, f"26 (d): no lease expiry after the kill:\n"
+         f"{out_lines.tail()}")
+    need(pids_alive([victim]) == [], f"26 (d): {victim} still alive")
+    survivor = [p for p in gws if p != victim]
+    need(pids_alive(survivor) == survivor, f"26 (d): the survivor "
+         f"{survivor} died")
+    launches = replica_launches(cfg, zero, settled_stats(addrs, token),
+                                "26 (d)")
+    stats = {"victim": victim, "victim_carried_http": victim == http_pid,
+             "clients_on_victim": len(on_victim), "failover_gap_ms": gap_ms,
+             "lease_expired_after_s": t_lease - t_kill,
+             "completed": len(replies), "identical": identical,
+             "gaps": gaps, "client_addrs_after": moved,
+             "launches": launches}
+    say("  (d) " + json.dumps(stats))
+    say(f"  (d) SIGKILL of gateway process {victim} under traffic: "
+        f"{len(on_victim)} of 4 clients failed over, 16/16 requests "
+        f"completed ({identical} identical to phase 5's, the rest "
+        f"near-ties, streamed tokens exactly once); failover gap "
+        f"{gap_ms:.1f} ms; its lease expired after "
+        f"{t_lease - t_kill:.2f} s; launches {launches}")
+    return stats
 
 
 def quant_entry(entry_of, launches_of, quant_rows, total, commit_rows):
@@ -8021,6 +8668,8 @@ def main() -> int:
                           "commit": commit_rows})
     gang = timed("gang", phase_gang, torch, np, cfg, params, reqs, comps,
                  comps8, replica["a"])
+    edge = timed("edges", phase_edge, torch, cfg, params, reqs,
+                 streams(comps), smi)
     say("phase seconds: " + json.dumps(seconds))
 
     paths = {"serve": stats["launches"], "train": train["launches"],
@@ -8090,7 +8739,12 @@ def main() -> int:
              "gang (a) bf16 (processes)": gang["a"]["launches"],
              "gang (a) int8 (processes)": gang["a"]["int8"]["launches"],
              "gang (b) re-formed (processes)": gang["b"]["launches"],
-             "gang (c) KV artifacts": gang["c"]["launches"]}
+             "gang (c) KV artifacts": gang["c"]["launches"],
+             "edge (b) HTTP, SSE and wire (Mesos tasks)":
+                 edge["b"]["launches"],
+             "edge (c) batch lane (Mesos tasks)": edge["c"]["launches"],
+             "edge (d) gateway SIGKILL (Mesos tasks)":
+                 edge["d"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

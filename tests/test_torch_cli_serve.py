@@ -78,6 +78,10 @@ CONTROL_FLAGS = {
     "--warm-pool": ["--models", "chat:1,code:0", "--warm-pool", "2"],
     "--model-budget": ["--models", "chat:2", "--model-budget", "3"],
     "--gang-size": ["--gang-size", "2"],
+    "--gateway-processes": ["--gateway-processes", "2"],
+    "--http-port": ["--http-port", "8080"],
+    "--batch-lane": ["--batch-lane", "--classes", "gold:4,silver:1"],
+    "--master": ["--master", "127.0.0.1:5050"],
 }
 
 
@@ -95,7 +99,17 @@ def _fleet_of(mod, argv):
         cmds.append(fleet._replica_cmd(pool=True))
     keys = ["unified"] + [f"{m}/unified" for m in
                           (fleet.catalog.ids() if fleet.catalog else ())]
-    return {"autoscale": fleet.autoscale, "min": fleet.min_replicas,
+    gateway_cmd = fleet._gateway_cmd(0, False, fleet.http_port)
+    if "--classes-json" in gateway_cmd:
+        # The port's gateway processes also get the class table.
+        i = gateway_cmd.index("--classes-json")
+        del gateway_cmd[i:i + 2]
+    return {"gateway_processes": fleet.gateway_processes,
+            "http_port": fleet.http_port, "master": fleet.master,
+            "classes": [repr(c) for c in fleet.priority_classes or ()],
+            "gateway_cmd": " ".join(gateway_cmd[1:]).replace(
+                "tfmesos_tpu_torch.", "tfmesos_tpu."),
+            "autoscale": fleet.autoscale, "min": fleet.min_replicas,
             "max": fleet.max_replicas, "budget": fleet.replica_budget,
             "warm_pool": fleet.warm_pool, "replicas": fleet.replicas,
             "catalog": [(s.model_id, s.replicas, s.seed) for s in
@@ -113,8 +127,9 @@ def _fleet_of(mod, argv):
     ids=[f[0] for f in cli.NOT_PORTED_FLAGS] + list(CONTROL_FLAGS))
 def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
     """Each flag still waiting exits 2 naming its ROADMAP item; each
-    control-loop flag and ``--gang-size`` (ported) builds the fleet the
-    JAX ``tfserve`` builds."""
+    control-loop flag, ``--gang-size``, and the edge and backend flags
+    (``--gateway-processes``, ``--http-port``, ``--batch-lane``,
+    ``--master``; ported) builds the fleet the JAX ``tfserve`` builds."""
     if flag in CONTROL_FLAGS:
         assert flag not in {f[0] for f in cli.NOT_PORTED_FLAGS}
         mine = _fleet_of(cli, CONTROL_FLAGS[flag])
@@ -125,7 +140,17 @@ def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
                                          ("draft", 2, 2)]),
                 "--warm-pool": ("warm_pool", 2),
                 "--model-budget": ("budget", 3),
-                "--gang-size": ("gang", {"unified": 2})}[flag]
+                "--gang-size": ("gang", {"unified": 2}),
+                "--gateway-processes": ("gateway_processes", 2),
+                "--http-port": ("http_port", 8080),
+                "--batch-lane": ("classes", [
+                    "PriorityClass(name='gold', weight=4.0, rank=1, "
+                    "max_queue=None, model_quota=None, batch=False)",
+                    "PriorityClass(name='silver', weight=1.0, rank=0, "
+                    "max_queue=None, model_quota=None, batch=False)",
+                    "PriorityClass(name='batch', weight=1.0, rank=-1, "
+                    "max_queue=None, model_quota=None, batch=True)"]),
+                "--master": ("master", "127.0.0.1:5050")}[flag]
         assert mine[want[0]] == want[1]
         return
     value = {bool: [], int: ["2"], float: ["8"]}.get(type(default))
@@ -266,15 +291,68 @@ def _control_runs(tmp_path, monkeypatch, capsys, sub):
     return out[:len(out) // 2], out[len(out) // 2:], stub.swaps
 
 
+def _batch_runs(tmp_path, monkeypatch, capsys):
+    """``tfserve batch`` through the port's and the JAX ``tfserve``
+    against the same stub gateway (no replica: every request fails as
+    unavailable): [(exit code, stdout rows by index, last stderr line)]
+    of each argv, port then JAX.  An error row keeps its kind."""
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("# two prompts\n1,2,3\n\n4,5\n")
+    stub = _StubControl()
+    g = stub.gw.addr
+    argvs = [["-g", g, "--prompt", "1,2"],
+             ["-g", g, "--prompt", "1,x"],
+             ["-g", g, "--prompt", ","],
+             ["-g", g],
+             ["-g", g, "--prompt", "1", "--concurrency", "0"],
+             ["-g", g, "--prompt", "1", "--file", str(tmp_path / "no")],
+             ["-g", g, "--prompt", "7", "--file", str(prompts), "-n", "2"],
+             ["-g", "127.0.0.1:1", "--prompt", "1"]]
+    out = []
+    try:
+        for main in (cli.main, jax_cli.serve_main):
+            for i, argv in enumerate(argvs):
+                monkeypatch.delenv("TPUMESOS_TOKEN_FILE", raising=False)
+                if i:
+                    monkeypatch.setenv("TPUMESOS_TOKEN", TOKEN)
+                else:
+                    monkeypatch.delenv("TPUMESOS_TOKEN", raising=False)
+                try:
+                    rc = main(["batch"] + argv)
+                except SystemExit as e:
+                    rc = e.code
+                cap = capsys.readouterr()
+                rows = sorted(
+                    (r["index"], r.get("kind"), r.get("tokens"))
+                    for r in map(json.loads, cap.out.splitlines()))
+                out.append((rc, rows, cap.err.strip().splitlines()[-1:]))
+    finally:
+        stub.close()
+    return out[:len(argvs)], out[len(argvs):]
+
+
 @pytest.mark.parametrize(
     "sub", sorted(list(cli.NOT_PORTED_SUBCOMMANDS)
-                  + ["rollout", "swap-adapter"]))
+                  + ["batch", "rollout", "swap-adapter"]))
 def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
                                            monkeypatch):
     """Each subcommand still waiting exits 2 naming its ROADMAP item;
     ``rollout`` and ``swap-adapter`` (ported) answer as the JAX ones do
     against the same gateway: no cluster token, success, the control
-    plane's failure, a bad input, an unreachable gateway."""
+    plane's failure, a bad input, an unreachable gateway; so does
+    ``batch`` (ported): no token, bad and missing prompts, a bad
+    concurrency or file, prompts from a file, every request failing on
+    a fleet with no replica, an unreachable gateway."""
+    if sub == "batch":
+        assert sub not in cli.NOT_PORTED_SUBCOMMANDS
+        mine, theirs = _batch_runs(tmp_path, monkeypatch, capsys)
+        assert mine == theirs
+        assert [r[0] for r in mine] == [2, 2, 2, 2, 2, 2, 1, 1]
+        assert "no cluster token" in mine[0][2][0]
+        assert mine[6][1] == [(0, "unavailable", None),
+                              (1, "unavailable", None),
+                              (2, "unavailable", None)]
+        return
     if sub in ("rollout", "swap-adapter"):
         assert sub not in cli.NOT_PORTED_SUBCOMMANDS
         mine, theirs, swaps = _control_runs(tmp_path, monkeypatch, capsys,

@@ -202,7 +202,8 @@ def test_member_eof_breaks_gang_once():
         stop1.set()
         leader.dispatch({"op": "generate", "id": 1})   # wakes the loop
         t1.join(timeout=5.0)
-        assert _wait(lambda: leader.broken, 5.0)
+        # The leader sets the flag, then calls on_break: wait for both.
+        assert _wait(lambda: leader.broken and broken, 5.0)
         assert broken == [1]
     finally:
         stop.set()

@@ -8,6 +8,8 @@ killed replica is routed around; ``stop()`` leaves no process of the
 fleet behind; and the backend pins no platform in a child's
 environment."""
 
+import dataclasses
+import json
 import os
 import threading
 import time
@@ -15,7 +17,7 @@ import time
 import numpy as np
 import pytest
 
-from tfmesos_tpu_torch.fleet.launcher import FleetServer, NotPorted
+from tfmesos_tpu_torch.fleet.launcher import FleetServer
 
 NEW = 6
 SHAPE = dict(tiny=True, max_len=64, page_size=16, prefill_bucket=16,
@@ -262,17 +264,59 @@ def _control_fleet(jax, option, value):
 
 @pytest.mark.parametrize("option,value", [
     ("autoscale", True), ("models", ["chat"]), ("warm_pool", 1),
-    ("gang_size", 2), ("draft", True), ("gateway_processes", 2), ("http_port", 0),
-    ("batch_lane", True), ("master", "zk://x")])
+    ("gang_size", 2), ("draft", True), ("gateway_processes", 2),
+    ("http_port", 0), ("batch_lane", True), ("master", "zk://x")])
 def test_options_not_ported_are_refused_by_name(option, value):
-    """Each waits with its ROADMAP item; its JAX default asks for
-    nothing and is accepted.  ``draft`` is ported: it is accepted and
+    """No JAX option waits any more (``_NOT_PORTED`` is empty).
+    ``draft`` is ported: it is accepted and
     puts ``--draft --n-draft`` on the replica command line, and a bad
     ``n_draft`` is the JAX fleet's ValueError.  ``autoscale``,
     ``models``, ``warm_pool`` and ``gang_size`` are ported: the option
     gives the fleet the JAX fleet gets (bounds, slot budget, gang sizes
-    a key), or the same error."""
+    a key), or the same error.  ``gateway_processes``, ``http_port``,
+    ``batch_lane`` and ``master`` are ported: the fleet keeps what the
+    JAX fleet keeps (the gateway process command with the port's
+    module, the class list with the lane's ``batch`` class, the
+    master), and a negative count is the JAX fleet's ValueError."""
+    from types import SimpleNamespace
+
+    from tfmesos_tpu.fleet.launcher import FleetServer as JaxFleet
     from tfmesos_tpu_torch.fleet.launcher import _NOT_PORTED
+
+    if option in ("gateway_processes", "http_port", "batch_lane",
+                  "master"):
+        assert option not in _NOT_PORTED
+
+        def kept(Fleet):
+            f = Fleet(replicas=1, **{option: value})
+            f.registry = SimpleNamespace(addr="127.0.0.1:1")
+            cmd = f._gateway_cmd(7, True, f.http_port)[1:]
+            if "--classes-json" in cmd:
+                # The port's one addition: gateway processes get the
+                # class table (the reference's run every label in the
+                # default class, so its batch lane never yields there).
+                i = cmd.index("--classes-json")
+                assert json.loads(cmd[i + 1]) == [
+                    dataclasses.asdict(c) for c in f.priority_classes]
+                del cmd[i:i + 2]
+            return (f.gateway_processes, f.http_port, f.master,
+                    [repr(c) for c in f.priority_classes or ()],
+                    " ".join(cmd).replace("tfmesos_tpu_torch.",
+                                          "tfmesos_tpu."))
+
+        assert kept(FleetServer) == kept(JaxFleet)
+        if option == "batch_lane":
+            mine = FleetServer(replicas=1, batch_lane=True)
+            mine.registry = SimpleNamespace(addr="127.0.0.1:1")
+            assert "--classes-json" in mine._gateway_cmd(0, False, None)
+        assert getattr(FleetServer(replicas=1, **{option: value}),
+                       option) == value
+        if option == "gateway_processes":
+            for Fleet in (FleetServer, JaxFleet):
+                with pytest.raises(ValueError, match="gateway_processes "
+                                                     "must be >= 0"):
+                    Fleet(replicas=1, gateway_processes=-1)
+        return
 
     if option in ("autoscale", "models", "warm_pool", "gang_size"):
         assert option not in _NOT_PORTED
@@ -280,20 +324,12 @@ def test_options_not_ported_are_refused_by_name(option, value):
             == _control_fleet(True, option, value)
         return
     if option == "draft":
-        from types import SimpleNamespace
-
         assert option not in _NOT_PORTED
         fleet = FleetServer(replicas=1, draft=value, n_draft=3)
         fleet.registry = SimpleNamespace(addr="127.0.0.1:1")
         assert "--draft --n-draft 3" in fleet._replica_cmd()
         with pytest.raises(ValueError, match="n_draft must be >= 1"):
             FleetServer(replicas=1, draft=True, n_draft=0)
-        return
-
-    with pytest.raises(NotPorted, match=f"not ported yet: {option}.*"
-                                        r"\(ROADMAP A\."):
-        FleetServer(replicas=1, **{option: value})
-    FleetServer(replicas=1, **{option: _NOT_PORTED[option][2]})
 
 
 def test_local_backend_pins_no_platform(tmp_path, monkeypatch):

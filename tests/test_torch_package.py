@@ -13,9 +13,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tfmesos_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "tfmesos_tpu"}
-#: the front door's modules: the control plane (its autoscaler and model
-#: catalog included), the scheduler and its backend, the node runtime
-#: and tfserve.
+#: the front door's modules: the control plane (its autoscaler, model
+#: catalog and HTTP edge included), the scheduler and its backends, the
+#: node runtime and tfserve.
 FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.fleet.router",
               "tfmesos_tpu_torch.fleet.gateway",
@@ -28,6 +28,9 @@ FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.scheduler", "tfmesos_tpu_torch.spec",
               "tfmesos_tpu_torch.backends",
               "tfmesos_tpu_torch.backends.local",
+              "tfmesos_tpu_torch.backends.mesos",
+              "tfmesos_tpu_torch.backends.zk",
+              "tfmesos_tpu_torch.fleet.http",
               "tfmesos_tpu_torch.server", "tfmesos_tpu_torch.runtime",
               "tfmesos_tpu_torch.logpump", "tfmesos_tpu_torch.cli")
 
@@ -89,8 +92,9 @@ def test_public_surface_with_jax_blocked():
     JAX package's surface (``cluster`` and the rest) without importing
     torch; Mode A, the elastic policy and tfrun are no longer refused,
     nor are the tp, dp x fsdp and dcn. meshes, nor gangs (a static
-    scheduler refuses ``add_gang`` as JAX's does); what is still missing
-    (the sp/pp/ep axes among it) is refused by name."""
+    scheduler refuses ``add_gang`` as JAX's does), nor a Mesos master;
+    what is still missing (the sp/pp/ep axes among it) is refused by
+    name."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
@@ -113,7 +117,8 @@ def test_public_surface_with_jax_blocked():
         "    except Exception as e:\n"
         "        return str(e)\n"
         "print(refused(s.add_gang, 'r', ['true']))\n"
-        "print(refused(t.TPUMesosScheduler, [], None, '10.0.0.1:5050'))\n"
+        "print(type(t.TPUMesosScheduler([], dynamic=True,\n"
+        "      master='127.0.0.1:5050').backend).__name__)\n"
         "for axis in ('sp', 'pp', 'ep'):\n"
         "    print(refused(mesh.check_axes, {axis: 2}))\n"
         "print(mesh.check_axes({'dp': 2, 'fsdp': 2, 'tp': 2}))\n"
@@ -128,7 +133,7 @@ def test_public_surface_with_jax_blocked():
     assert lines[1] == "True True 3 True True"
     assert lines[2:] == [
         "add_gang requires dynamic=True",
-        "not ported yet: the Mesos backend (ROADMAP A.12 (g))",
+        "MesosBackend",
         "not ported yet: mesh axis sp (ROADMAP A.10)",
         "not ported yet: mesh axis pp (ROADMAP A.10)",
         "not ported yet: mesh axis ep (ROADMAP A.10)",
@@ -287,12 +292,65 @@ def test_no_module_of_the_port_imports_the_jax_package():
 
 
 def test_no_port_file_names_the_native_library_of_the_jax_package():
-    """The port's log pump is pure Python: no port file (nor
-    chip_smoke.py) loads or names the JAX package's native build."""
+    """The port's log pump builds its own native library: no port file
+    (nor chip_smoke.py) loads or names the JAX package's native build,
+    and the library it loads is built from the port's own source under
+    the port's build root."""
+    from tfmesos_tpu_torch import logpump
+    from tfmesos_tpu_torch.kernels import build
+
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert not [str(f.relative_to(ROOT)) for f in files
                 if "tfmesos_tpu/native/" in f.read_text()
                 or "liblogpump" in f.read_text()]
+    lib = Path(logpump._load()._name)
+    assert lib.parent.parent == build.BUILD_ROOT
+    assert lib.name == "liblogpump.so"
+    assert (PKG / "native" / "logpump.cpp").is_file()
+
+
+#: this slice's modules: the HTTP edge, the gateway process entry, the
+#: Mesos and ZooKeeper backends and the log pump.
+EDGE = ("tfmesos_tpu_torch.fleet.http", "tfmesos_tpu_torch.fleet.gateway",
+        "tfmesos_tpu_torch.backends.mesos", "tfmesos_tpu_torch.backends.zk",
+        "tfmesos_tpu_torch.logpump")
+
+
+def test_only_simulate_is_still_refused():
+    from tfmesos_tpu_torch import cli
+    from tfmesos_tpu_torch.fleet import launcher
+
+    assert cli.NOT_PORTED_FLAGS == ()
+    assert cli.NOT_PORTED_SUBCOMMANDS == {"simulate": "A.12 (f)"}
+    assert launcher._NOT_PORTED == {}
+    assert "not ported" not in cli.build_parser().format_help()
+
+
+def test_edge_modules_and_the_gateway_entry_run_with_jax_blocked():
+    """Each module of this slice imports neither JAX nor the JAX package
+    (by its own imports, checked statically, and with both blocked), and
+    ``python -m tfmesos_tpu_torch.fleet.gateway --help`` runs so."""
+    for name in EDGE:
+        path = ROOT / (name.replace(".", "/") + ".py")
+        assert not FORBIDDEN & set(_imported_roots(path)), name
+        assert not list(_jax_package_names(path)), name
+    code = (
+        "import importlib, runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"for n in {EDGE!r}:\n"
+        "    importlib.import_module(n)\n"
+        "sys.argv = ['gateway', '--help']\n"
+        "runpy.run_module('tfmesos_tpu_torch.fleet.gateway',\n"
+        "                 run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith(
+        "usage: python -m tfmesos_tpu_torch.fleet.gateway")
+    for flag in ("--registry", "--reuseport", "--http-port",
+                 "--poll-interval", "--metrics-port"):
+        assert flag in out.stdout
 
 
 def test_train_cli_runs_on_the_cpu():

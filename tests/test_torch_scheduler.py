@@ -92,7 +92,8 @@ def test_static_mode_b_job_runs_to_its_end(tmp_path):
 def test_mode_a_elastic_and_gangs_are_refused_by_name():
     """Mode A and the elastic policy are ported (a Mode-A job and an
     elastic scheduler construct; dispatch before start is a plain
-    ClusterError); the Mesos backend is still refused by name, a
+    ClusterError); a ``host:port`` or ``http://`` master builds the
+    Mesos backend (ported; nothing is dialled before start), a
     dynamic fleet refuses the elastic policy as the JAX scheduler does,
     and gangs are ported: ``add_gang`` stamps each member's gang env on
     a dynamic scheduler and refuses a static one, as JAX's does."""
@@ -100,10 +101,13 @@ def test_mode_a_elastic_and_gangs_are_refused_by_name():
     with pytest.raises(ValueError, match="mutually exclusive: a dynamic "
                                          "fleet has no gang to re-form"):
         TPUMesosScheduler([], dynamic=True, restart_policy="elastic")
-    with pytest.raises(ClusterError, match=r"not ported yet: the Mesos "
-                                           r"backend \(ROADMAP A\.12 "
-                                           r"\(g\)\)"):
-        TPUMesosScheduler([], dynamic=True, master="10.0.0.1:5050")
+    from tfmesos_tpu_torch.backends.mesos import MesosBackend
+
+    for master in ("127.0.0.1:5050", "http://127.0.0.1:5051"):
+        backend = TPUMesosScheduler([], dynamic=True, master=master).backend
+        assert isinstance(backend, MesosBackend)
+        assert (backend.host, backend.port) == (
+            "127.0.0.1", int(master[-4:]))
     sched = TPUMesosScheduler([Job(name="worker", num=1, cmd="true")],
                               dynamic=True)
     for call in (lambda: sched.run("m:f"), lambda: sched.run_all("m:f"),
@@ -216,3 +220,61 @@ def test_log_pump_equals_the_jax_python_pump(tmp_path, monkeypatch):
     assert outs[0] == outs[1]
     assert outs[0][0] == lines
     assert outs[0][1].startswith(b"[w:0] one\n[w:0] two\n[w:0] \n")
+
+
+@pytest.mark.parametrize("where", ["send", "drain"])
+def test_dispatch_raises_when_a_recovery_completes_unseen(where,
+                                                          monkeypatch):
+    """A recovery that runs whole inside a dispatch (a re-formation can
+    take less than one 0.5 s poll of the reply drain) leaves a call of
+    the old generation that no task will ever answer.  ``send``: the
+    generation moves between the locked read and the send; ``drain``:
+    it moves while the call waits, and the teardown closes the old
+    gang's connections, so no EOF arrives either.  Either way the call
+    raises ClusterError within seconds; the worker thread's join keeps
+    a regression from hanging the suite."""
+    from tfmesos_tpu_torch import cluster, scheduler as sched_mod
+    from tfmesos_tpu_torch.backends.local import LocalBackend
+
+    with cluster(Job(name="w", num=2, cpus=0.5, mem=64.0),
+                 backend=LocalBackend(), quiet=True, start_timeout=60.0,
+                 extra_config={"no_jax": True},
+                 restart_policy="elastic") as c:
+        assert len(c.run_all("support_funcs:my_pid")) == 2
+        errs = []
+
+        def recovered_unseen():
+            with c._lock:
+                c.generation += 1
+                conns = [t.connection for t in c.tasks]
+            if where == "drain":
+                for conn in conns:
+                    conn.close()
+
+        if where == "send":
+            func_spec = sched_mod._func_spec
+
+            def spec_then_recover(func):
+                recovered_unseen()
+                return func_spec(func)
+
+            monkeypatch.setattr(sched_mod, "_func_spec", spec_then_recover)
+
+        def dispatch():
+            try:
+                errs.append(c.run_all("support_funcs:sleep_forever", 3.0))
+            except BaseException as e:  # noqa: BLE001 - for asserts
+                errs.append(e)
+
+        t = threading.Thread(target=dispatch, daemon=True)
+        start = time.monotonic()
+        t.start()
+        if where == "drain":
+            time.sleep(1.0)
+            recovered_unseen()
+        t.join(timeout=20.0)
+        assert not t.is_alive(), "dispatch hung after an unseen recovery"
+        assert isinstance(errs[0], ClusterError), errs[0]
+        assert "re-forming" in str(errs[0])
+        assert time.monotonic() - start < 2.9     # before any reply
+        assert c.restart_stats["cluster_restarts"] == 0

@@ -1,9 +1,10 @@
 """Resource backends (port of ``tfmesos_tpu/backends/__init__.py``).
 
 ``TPUMesosScheduler`` owns the cluster logic and talks to a narrow
-``ResourceBackend`` interface; the port implements ``LocalBackend``
-(subprocess fan-out on this host, no Mesos needed).  The Mesos v1 HTTP
-and ZooKeeper backends are not ported yet.
+``ResourceBackend`` interface, with two implementations:
+``LocalBackend`` (subprocess fan-out on this host, no Mesos needed) and
+``MesosBackend`` (the Mesos v1 HTTP scheduler API on the stdlib, with
+``zk://`` masters resolved through ``backends/zk.py``).
 """
 
 from __future__ import annotations

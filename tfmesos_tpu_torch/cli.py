@@ -2,8 +2,8 @@
 ``tfmesos_tpu/cli.py``: tfrun's ``build_parser``, ``parse_mesh``,
 ``parse_volumes``, ``LogCollector``, ``forward_map`` and ``main``, here
 ``run_main``; the serving entry ``build_serve_parser``, ``serve_main``
-and the ``submit``, ``metrics``, ``trace``, ``gateways``, ``rollout``
-and ``swap-adapter`` subcommands).
+and the ``submit``, ``batch``, ``metrics``, ``trace``, ``gateways``,
+``rollout`` and ``swap-adapter`` subcommands).
 
     python -m tfmesos_tpu_torch.cli run -w 2 -s 0 [--worker-logs '*'] \
         [--mesh dp=-1] [--restarts N | --restart-policy elastic] \
@@ -11,24 +11,29 @@ and ``swap-adapter`` subcommands).
     python -m tfmesos_tpu_torch.cli serve [--replicas N] [--tiny] ...
     python -m tfmesos_tpu_torch.cli serve --autoscale --max-replicas 4
     python -m tfmesos_tpu_torch.cli serve --models chat:1,code:0 --warm-pool 1
+    python -m tfmesos_tpu_torch.cli serve --master zk://HOST:2181/mesos \
+        --gateway-processes 2 --http-port 8080 --batch-lane
     python -m tfmesos_tpu_torch.cli submit -g HOST:PORT --prompt 1,2,3
+    python -m tfmesos_tpu_torch.cli batch -g HOST:PORT --file prompts.txt
     python -m tfmesos_tpu_torch.cli metrics -g HOST:PORT
     python -m tfmesos_tpu_torch.cli rollout -g HOST:PORT --version v1
     python -m tfmesos_tpu_torch.cli swap-adapter -g HOST:PORT --model chat \
         --version a1 --npz delta.npz
 
-``serve`` brings up a registry and a gateway in process and launches
-port replicas (``tfmesos_tpu_torch.fleet.replica``) as local Mode-B
-tasks, on the card unless ``--device cpu``.  It runs until SIGINT
-(ctrl-c), then stops the fleet and every replica process.  Every flag
-of the JAX ``tfserve`` parses with its default; the ones whose
-machinery is not ported yet (``--gateway-processes``,
-``--http-port``, ``--batch-lane``, ``--master``), and the ``batch`` and
-``simulate`` subcommands, exit 2 with ``tfserve: not ported yet:
-<flag> (ROADMAP A.x)``.
+``serve`` brings up a registry and a gateway in process (or
+``--gateway-processes`` gateway processes, with ``--http-port`` the
+HTTP/SSE edge on the first) and launches port replicas
+(``tfmesos_tpu_torch.fleet.replica``) as Mode-B tasks, on this host or,
+with ``--master``, on a Mesos cluster's agents, on the card unless
+``--device cpu``.  ``--batch-lane`` adds the offline ``batch`` class
+that ``batch`` submits to.  It runs until SIGINT (ctrl-c), then stops
+the fleet and every replica process.  Every flag of the JAX ``tfserve``
+parses; the ``simulate`` subcommand is not ported yet and exits 2 with
+``tfserve: not ported yet: simulate (ROADMAP A.12 (f))``.
 
 ``run`` is ``tfrun``: it runs one command on every task of a ps/worker
-job spec as a Mode-B cluster over the local backend, forwards the
+job spec as a Mode-B cluster (on this host, or on a Mesos master's
+agents with ``-m``), forwards the
 output of the tasks ``--worker-logs`` names to its stdout, prefixed
 ``[job:index]``, and polls until the workers finish.  It exits 0 when
 they do, 1 with one line ``tfrun: cluster failed: ...`` when the
@@ -44,6 +49,7 @@ import json
 import os
 import selectors
 import sys
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -52,22 +58,18 @@ from tfmesos_tpu_torch import wire
 __all__ = ["build_parser", "parse_mesh", "parse_volumes", "LogCollector",
            "forward_map", "run_main",
            "build_serve_parser", "parse_role_spec", "parse_class_spec",
-           "parse_model_spec", "serve_main", "submit_main", "trace_main",
+           "parse_model_spec", "serve_main", "submit_main", "batch_main",
+           "build_batch_parser", "trace_main",
            "metrics_main", "gateways_main", "rollout_main",
            "swap_adapter_main", "main", "NOT_PORTED_FLAGS",
            "NOT_PORTED_SUBCOMMANDS"]
 
 #: tfserve flags whose machinery waits: (flag, args dest, the default
-#: that asks for nothing, ROADMAP item).
-NOT_PORTED_FLAGS = (
-    ("--gateway-processes", "gateway_processes", 0, "A.12"),
-    ("--http-port", "http_port", None, "A.12"),
-    ("--batch-lane", "batch_lane", False, "A.12"),
-    ("--master", "master", None, "A.12"),
-)
+#: that asks for nothing, ROADMAP item).  None is left.
+NOT_PORTED_FLAGS: tuple = ()
 
 #: tfserve subcommands whose machinery waits -> ROADMAP item.
-NOT_PORTED_SUBCOMMANDS = {"batch": "A.12", "simulate": "A.12"}
+NOT_PORTED_SUBCOMMANDS = {"simulate": "A.12 (f)"}
 
 
 # -- tfrun ---------------------------------------------------------------
@@ -82,15 +84,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tfrun",
         description="Run a distributed command on every task of a "
-                    "ps/worker cluster (local backend).")
+                    "ps/worker cluster (the local backend, or a Mesos "
+                    "master with -m).")
     p.add_argument("-w", "--nworker", type=int, required=True,
                    help="number of worker tasks (the data-parallel axis)")
     p.add_argument("-s", "--nserver", type=int, required=True,
                    help="number of server (ps) tasks; with any, the "
                         "default mesh axis is fsdp")
     p.add_argument("-m", "--master", type=str, default=None,
-                   help="Mesos master (not ported yet, ROADMAP A.12 (g)); "
-                        "default env MESOS_MASTER, else the local backend")
+                   help="Mesos master (host:port, http://host:port or "
+                        "zk://host:port,.../mesos); default env "
+                        "MESOS_MASTER, else the local backend")
     p.add_argument("-n", "--name", type=str, default=None,
                    help="framework name")
     p.add_argument("-C", "--containerizer_type", choices=["MESOS", "DOCKER"],
@@ -353,7 +357,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("-Cr", "--replica-cpus", type=float, default=1.0,
                    help="CPUs per replica task")
     p.add_argument("-Gr", "--replica-chips", type=int, default=0,
-                   help="TPU chips per replica task")
+                   help="cards per replica task (Mesos: the gpus resource)")
     p.add_argument("-Mr", "--replica-mem", type=float, default=1024.0,
                    help="MB of memory per replica task")
     p.add_argument("-p", "--gateway-port", type=int, default=8780,
@@ -830,6 +834,137 @@ def submit_main(argv: List[str]) -> int:
     return 0
 
 
+def build_batch_parser() -> argparse.ArgumentParser:
+    """``tfserve batch`` — submit deadline-less offline work on the
+    fleet's ``batch`` class (``tfserve --batch-lane``) and collect the
+    completions."""
+    p = argparse.ArgumentParser(
+        prog="tfserve batch",
+        description="Submit one or more deadline-less generation "
+                    "requests on the fleet's 'batch' priority class "
+                    "and print one JSON line per completion as each "
+                    "finishes.  Batch work fills idle capacity and "
+                    "yields to interactive traffic, so expect high "
+                    "and variable latency — that is the contract.")
+    p.add_argument("-g", "--gateway", type=str, required=True,
+                   metavar="HOST:PORT", help="the running gateway")
+    p.add_argument("--prompt", type=str, action="append", default=[],
+                   metavar="IDS",
+                   help="comma-separated prompt token ids, e.g. "
+                        "'1,2,3'; repeatable — each occurrence is one "
+                        "batch request")
+    p.add_argument("--file", type=str, default=None,
+                   help="read additional prompts from this file, one "
+                        "comma-separated prompt per line (blank lines "
+                        "and '#' comments skipped)")
+    p.add_argument("-n", "--max-new-tokens", type=int, default=16,
+                   dest="max_new_tokens")
+    p.add_argument("--stop-token", type=int, default=None,
+                   dest="stop_token")
+    p.add_argument("--model", type=str, default=None,
+                   help="catalog model the requests target (tfserve "
+                        "--models); absent rides the fleet's default "
+                        "entry")
+    p.add_argument("--concurrency", type=int, default=4,
+                   help="in-flight batch submissions (the lane itself "
+                        "yields to interactive work regardless of "
+                        "this)")
+    p.add_argument("--class", type=str, default="batch", dest="klass",
+                   metavar="NAME",
+                   help="priority class label to submit under "
+                        "(default 'batch' — the --batch-lane class)")
+    p.add_argument("--timeout", type=float, default=3600.0,
+                   help="per-request client timeout in seconds "
+                        "(generous: batch work waits out interactive "
+                        "bursts by design)")
+    return p
+
+
+def batch_main(argv: List[str]) -> int:
+    args = build_batch_parser().parse_args(argv)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tfmesos_tpu_torch.fleet.admission import Overloaded
+    from tfmesos_tpu_torch.fleet.client import FleetClient, RequestFailed
+
+    token = wire.load_token()
+    if not token:
+        print(f"tfserve batch: no cluster token — set {wire.TOKEN_ENV} "
+              f"or {wire.TOKEN_FILE_ENV} (tfserve printed the token "
+              f"file at startup)", file=sys.stderr)
+        return 2
+    specs = list(args.prompt)
+    if args.file:
+        try:
+            with open(args.file) as f:
+                for line in f:
+                    line = line.strip()
+                    if line and not line.startswith("#"):
+                        specs.append(line)
+        except OSError as e:
+            print(f"tfserve batch: cannot read --file {args.file!r}: "
+                  f"{e}", file=sys.stderr)
+            return 2
+    prompts = []
+    for spec in specs:
+        try:
+            prompt = [int(t) for t in spec.split(",") if t.strip()]
+        except ValueError:
+            print(f"tfserve batch: bad prompt {spec!r}; want "
+                  f"comma-separated ints", file=sys.stderr)
+            return 2
+        if not prompt:
+            print(f"tfserve batch: empty prompt {spec!r}",
+                  file=sys.stderr)
+            return 2
+        prompts.append(prompt)
+    if not prompts:
+        print("tfserve batch: no prompts (--prompt and/or --file)",
+              file=sys.stderr)
+        return 2
+    if args.concurrency < 1:
+        print("tfserve batch: --concurrency must be >= 1",
+              file=sys.stderr)
+        return 2
+
+    # One shared client (thread-safe over the multiplexed connection);
+    # batch requests carry NO deadline — deadline-less is the class
+    # contract, the work waits out interactive bursts instead of
+    # being shed.
+    plock = threading.Lock()
+    failures = [0]
+
+    def one(item):
+        idx, prompt = item
+        try:
+            out = client.generate(prompt, args.max_new_tokens,
+                                  stop_token=args.stop_token,
+                                  priority=args.klass,
+                                  model=args.model)
+            row = {"index": idx, "tokens": out.get("tokens"),
+                   "total_ms": out.get("total_ms")}
+        except (Overloaded, RequestFailed, OSError) as e:
+            failures[0] += 1
+            row = {"index": idx, "error": str(e),
+                   "kind": getattr(e, "kind", "io")}
+        with plock:
+            print(json.dumps(row), flush=True)
+
+    client = None
+    try:
+        client = FleetClient(args.gateway, token, timeout=args.timeout)
+        with ThreadPoolExecutor(max_workers=args.concurrency) as ex:
+            list(ex.map(one, enumerate(prompts)))
+    except OSError as e:
+        print(f"tfserve batch: cannot reach gateway {args.gateway}: "
+              f"{e}", file=sys.stderr)
+        return 1
+    finally:
+        if client is not None:
+            client.close()
+    return 1 if failures[0] else 0
+
+
 def build_trace_parser() -> argparse.ArgumentParser:
     """``tfserve trace`` — fetch request traces from a RUNNING fleet
     gateway and print human-readable waterfalls (docs/SERVING.md
@@ -1181,11 +1316,13 @@ def _build_fleet(args, models, roles, classes, token):
         autoscale=args.autoscale,
         min_replicas=args.min_replicas,
         max_replicas=args.max_replicas,
-        max_len=args.max_len,
+        max_len=args.max_len, master=args.master,
         replica_cpus=args.replica_cpus, replica_mem=args.replica_mem,
         replica_chips=args.replica_chips,
         gateway_host=args.gateway_host, gateway_port=args.gateway_port,
         gateways=args.gateways,
+        gateway_processes=args.gateway_processes,
+        http_port=args.http_port,
         workers=args.workers, max_queue=args.max_queue, rate=args.rate,
         burst=args.burst, max_retries=args.retries,
         priority_classes=classes, migrate_on_drain=args.migrate,
@@ -1194,6 +1331,7 @@ def _build_fleet(args, models, roles, classes, token):
         pipeline_depth=args.pipeline_depth,
         fused_prefill=args.fused_prefill,
         tokens_per_tick=args.tokens_per_tick,
+        batch_lane=args.batch_lane,
         kv_tier_mb=args.kv_tier_mb, kv_tier_dir=args.kv_tier_dir,
         kv_replication=args.kv_replication,
         kv_replicas=args.kv_replicas,
@@ -1241,6 +1379,10 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         print(f"tfserve: --gateways must be >= 1, got {args.gateways}",
               file=sys.stderr)
         return 2
+    if args.gateway_processes < 0:
+        print(f"tfserve: --gateway-processes must be >= 0, got "
+              f"{args.gateway_processes}", file=sys.stderr)
+        return 2
 
     from tfmesos_tpu_torch.scheduler import ClusterError
 
@@ -1283,10 +1425,15 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     if args.autoscale:
         tiers += (f", autoscaling within [{fleet.min_replicas}, "
                   f"{fleet.max_replicas}]")
-    if args.gateways == 1:
+    if args.gateway_processes:
+        doors = (f"{args.gateway_processes} gateway process(es) "
+                 f"({', '.join(fleet.addrs)})")
+    elif args.gateways == 1:
         doors = fleet.addr
     else:
         doors = f"{args.gateways} gateways ({', '.join(fleet.addrs)})"
+    if fleet.http_addr:
+        doors += f" + http {fleet.http_addr}"
     print(f"tfserve: gateway on {doors} fronting {tiers}; "
           f"ctrl-c to stop", flush=True)
     try:
@@ -1305,14 +1452,15 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 
 
 
-SUBCOMMANDS = {"submit": submit_main, "trace": trace_main,
+SUBCOMMANDS = {"submit": submit_main, "batch": batch_main,
+               "trace": trace_main,
                "metrics": metrics_main, "gateways": gateways_main,
                "rollout": rollout_main, "swap-adapter": swap_adapter_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """``python -m tfmesos_tpu_torch.cli run|serve|submit|metrics|trace|
-    gateways|rollout|swap-adapter ...``: ``run`` is ``tfrun``, ``serve``
+    """``python -m tfmesos_tpu_torch.cli run|serve|submit|batch|metrics|
+    trace|gateways|rollout|swap-adapter ...``: ``run`` is ``tfrun``, ``serve``
     is ``tfserve`` itself, the rest are its subcommands."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "run":
@@ -1323,7 +1471,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                  or argv[0] in NOT_PORTED_SUBCOMMANDS):
         return serve_main(argv)
     print("usage: python -m tfmesos_tpu_torch.cli "
-          "{run,serve,submit,metrics,trace,gateways,rollout,swap-adapter} "
+          "{run,serve,submit,batch,metrics,trace,gateways,rollout,"
+          "swap-adapter} "
           "...", file=sys.stderr)
     return 2
 

@@ -1,6 +1,6 @@
-"""The fleet's TCP front door (port of ``tfmesos_tpu/fleet/gateway.py:1-720``,
-the in-process ``Gateway``; the registry sidecar of gateway processes
-and the HTTP edge are not ported yet).
+"""The fleet's TCP front door (port of ``tfmesos_tpu/fleet/gateway.py``:
+the ``Gateway`` with its HTTP/SSE ingress, and the registry sidecar and
+process entry of multi-process gateways).
 
 The I/O plane is a :class:`~tfmesos_tpu_torch.wire.WireServer` — ONE
 selector-driven event loop carries every client connection (accept,
@@ -89,7 +89,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 from tfmesos_tpu_torch import wire
 from tfmesos_tpu_torch.fleet.admission import (AdmissionController,
@@ -102,7 +102,7 @@ from tfmesos_tpu_torch.fleet.router import Router
 from tfmesos_tpu_torch.fleet.tracing import TraceBook
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["Gateway"]
+__all__ = ["Gateway", "RegistrySidecar", "build_parser", "main"]
 
 
 class Gateway:
@@ -112,7 +112,10 @@ class Gateway:
                  metrics: FleetMetrics, token: str = "",
                  host: str = "127.0.0.1", port: int = 0, workers: int = 8,
                  registry=None, tracebook: Optional[TraceBook] = None,
-                 close_router: bool = True):
+                 clock=time.monotonic, close_router: bool = True,
+                 reuseport: bool = False,
+                 http_port: Optional[int] = None,
+                 http_host: Optional[str] = None):
         self.router = router
         self.admission = admission
         self.metrics = metrics
@@ -125,7 +128,19 @@ class Gateway:
         self.host = host
         self.port = int(port)
         self.workers = int(workers)
+        # The deadline time base, injectable and shared with the router
+        # and admission clocks by the caller: the absolute deadline
+        # stamped here is compared against the same clock at every later
+        # checkpoint.
+        self._clock = clock
         self.registry = registry if registry is not None else router.registry
+        # SO_REUSEPORT (gateway processes sharing one public port); the
+        # HTTP/SSE ingress rides the same event loop when http_port is
+        # set (0: OS-assigned, see http_addr after start()).
+        self.reuseport = bool(reuseport)
+        self.http_port = http_port if http_port is None else int(http_port)
+        self.http_host = http_host if http_host is not None else host
+        self.http_addr: Optional[str] = None
         # N gateways share ONE router; only the last one standing may
         # close it.  False = the fleet launcher owns the router's
         # lifecycle (multi-gateway); True (default) keeps the
@@ -208,11 +223,20 @@ class Gateway:
     def start(self) -> "Gateway":
         self._server = wire.WireServer(
             self._handle, token=self.token, host=self.host,
-            port=self.port, name="gateway",
+            port=self.port, name="gateway", reuseport=self.reuseport,
             advertise_host=(None if self.host in ("0.0.0.0", "::")
                             else self.host))
+        if self.http_port is not None:
+            from tfmesos_tpu_torch.fleet.http import HttpIngress
+
+            self._server.add_ingress(HttpIngress(self),
+                                     host=self.http_host,
+                                     port=self.http_port)
         self._server.start()
         self.addr = self._server.addr
+        if self._server.ingress_addrs:
+            self.http_addr = self._server.ingress_addrs[0]
+            self.log.info("HTTP/SSE ingress on %s", self.http_addr)
         self.log.info("fleet gateway listening on %s (%d workers, queue "
                       "bound %d, event-loop I/O)", self.addr,
                       self.workers, self.admission.max_queue)
@@ -464,7 +488,7 @@ class Gateway:
         deadline = None
         if isinstance(dl, (int, float)) and not isinstance(dl, bool) \
                 and dl > 0:
-            deadline = time.monotonic() + float(dl) / 1000.0
+            deadline = self._clock() + float(dl) / 1000.0
         forward = {"op": "generate", "prompt": msg.get("prompt"),
                    "max_new_tokens": msg.get("max_new_tokens"),
                    "stop_token": msg.get("stop_token"),
@@ -527,6 +551,15 @@ class Gateway:
         else:
             self.metrics.inc("admitted")
             tr.event("admission", "enqueue", cls=spec.name)
+
+    def handle_ingress(self, client, msg: Dict[str, Any]) -> None:
+        """Submit one request for an ingress adapter (the HTTP/SSE edge):
+        ``client`` is any object with a thread-safe ``send(dict)`` and a
+        ``closed`` property.  It takes the wire connection's path through
+        admission, tracing and routing, so the adapter gets WFQ,
+        deadlines, metering and the exactly-once stream relay."""
+        self.metrics.inc("http_requests")
+        self._handle(client, msg)
 
     def _queue_expired(self, item) -> None:
         """One admitted request expired while waiting in its class
@@ -678,3 +711,314 @@ class Gateway:
                 self.tracebook.finish(
                     tr, str(out.get("kind") or "error"), cls=cls)
             client.send(out)
+
+
+# -- multi-process gateways --------------------------------------------------
+
+
+class RegistrySidecar:
+    """A gateway PROCESS's registry client (docs/SERVING.md
+    "Multi-process gateways"): polls the central registry's
+    ``registry_view`` op over one persistent wire connection and
+    replays the table into a process-LOCAL
+    :class:`~tfmesos_tpu_torch.fleet.registry.ReplicaRegistry` — constructed
+    but never ``start()``ed (no listener socket, no sweeper thread) —
+    which this process's router and admission WFQ read exactly as the
+    in-process launcher path would.  No shared-memory hacks: the
+    sidecar rides the same heartbeat/wire surface replicas use, so N
+    gateway processes scale like N more wire peers.
+
+    Per poll it also re-LEASES this gateway's own address into central
+    discovery (``register_gateway`` with a TTL), so a SIGKILLed
+    process expires out of the ``gateways`` op on its own, and syncs
+    the central discovery set back into the local registry so any
+    gateway process answers discovery with the full fleet set.
+
+    State translation per replayed entry: ALIVE/WARMING arrive as
+    plain heartbeats (``status: warming`` preserved), DRAINING as a
+    heartbeat plus a ``drain`` op, DEAD as :meth:`mark_dead`.  The
+    local sweeper (called inline per poll) ages out whatever the
+    central view stops listing — and if the central registry itself
+    becomes unreachable, the local table goes stale and drains on its
+    own clocks: fail-safe, never fail-frozen."""
+
+    def __init__(self, registry_addr: str, token: str = "",
+                 poll_interval: float = 0.25, metrics=None,
+                 clock=time.monotonic):
+        from tfmesos_tpu_torch.fleet.registry import ReplicaRegistry
+
+        self.registry_addr = registry_addr
+        self.token = token
+        self.poll_interval = float(poll_interval)
+        self.lease_ttl = min(30.0, max(2.0, 8.0 * self.poll_interval))
+        self._clock = clock
+        # Liveness thresholds scale with the poll cadence the same way
+        # the central registry's scale with the heartbeat interval: a
+        # slow poll must not flap mirrored entries between refreshes.
+        self.local = ReplicaRegistry(
+            token=token, metrics=metrics, clock=clock,
+            suspect_after=max(1.5, 6.0 * self.poll_interval),
+            dead_after=max(3.0, 12.0 * self.poll_interval),
+            evict_after=max(10.0, 24.0 * self.poll_interval))
+        # The address this process leases into discovery; set by main()
+        # once its Gateway has bound.  scrape_addr is the PRIVATE
+        # per-process listener (metrics fan-in + lease identity under
+        # a shared REUSEPORT public addr).
+        self.gateway_addr: Optional[str] = None
+        self.scrape_addr: Optional[str] = None
+        self.polls = 0
+        self.poll_failures = 0
+        self.log = get_logger("tfmesos_tpu_torch.fleet.gateway")
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if metrics is not None:
+            metrics.register_gauge("sidecar_polls", lambda: self.polls)
+            metrics.register_gauge("sidecar_poll_failures",
+                                   lambda: self.poll_failures)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "RegistrySidecar":
+        self._thread = threading.Thread(target=self._loop,
+                                        name="gateway-sidecar",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+    def wait_for_replicas(self, n: int, timeout: float = 60.0) -> bool:
+        """Block until the LOCAL view mirrors >= n alive replicas."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if len(self.local.alive()) >= n:
+                return True
+            if self._stop.wait(0.05):
+                return False
+        return len(self.local.alive()) >= n
+
+    # -- the poll loop ------------------------------------------------------
+
+    def _loop(self) -> None:
+        sock = None
+        it = None
+        logged_down = False
+        while not self._stop.is_set():
+            try:
+                if sock is None:
+                    sock = wire.connect(self.registry_addr, timeout=5.0)
+                    framer = wire.Framer(self.token)
+                    it = wire.iter_msgs(sock, framer)
+                if self.gateway_addr:
+                    lease = {"op": "register_gateway",
+                             "addr": self.gateway_addr,
+                             "ttl": self.lease_ttl}
+                    if self.scrape_addr:
+                        lease["scrape"] = self.scrape_addr
+                    wire.send_msg(sock, lease, self.token)
+                    next(it)            # gateway_registered ack
+                wire.send_msg(sock, {"op": "registry_view"}, self.token)
+                self._apply(next(it))
+                self.polls += 1
+                logged_down = False
+            except (OSError, wire.WireError, StopIteration) as e:
+                self.poll_failures += 1
+                if not logged_down:
+                    logged_down = True
+                    self.log.warning(
+                        "registry poll to %s failed (%s); local view "
+                        "will age out until it recovers",
+                        self.registry_addr, e)
+                if sock is not None:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                sock = it = None
+            # Liveness over the MIRROR: entries the central view stops
+            # listing (evicted there) stop being refreshed here and age
+            # out through the standard sweep ladder.
+            self.local.sweep()
+            self._stop.wait(self.poll_interval)
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _apply(self, view: Any) -> None:
+        if not isinstance(view, dict) \
+                or view.get("op") != "registry_view":
+            return
+        from tfmesos_tpu_torch.fleet import registry as registry_mod
+
+        for d in view.get("replicas") or []:
+            if not isinstance(d, dict) or not d.get("addr"):
+                continue
+            state = d.get("state")
+            if state == registry_mod.DEAD:
+                self.local.mark_dead(d["addr"],
+                                     why="dead in central registry view")
+                continue
+            beat = {k: v for k, v in d.items() if k != "state"}
+            self.local.observe(beat)
+            if state == registry_mod.DRAINING:
+                self.local.observe({"op": "drain", "addr": d["addr"]})
+        gws = view.get("gateways")
+        if isinstance(gws, list):
+            self.local.set_gateways([a for a in gws
+                                     if isinstance(a, str)])
+
+
+def build_parser():
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="python -m tfmesos_tpu_torch.fleet.gateway",
+        description="One fleet gateway PROCESS: Gateway + admission "
+                    "WFQ + router over a registry-view sidecar — the "
+                    "multi-process front door (jax-free).")
+    p.add_argument("--registry", type=str, required=True,
+                   help="central registry host:port (the same address "
+                        "replicas heartbeat)")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="wire listen port (0 = OS-assigned); with "
+                        "--reuseport every gateway process passes the "
+                        "SAME port and the kernel load-balances "
+                        "accepts across them")
+    p.add_argument("--reuseport", action="store_true",
+                   help="bind with SO_REUSEPORT (multi-process "
+                        "gateways sharing one public port; fails "
+                        "explicitly where unsupported)")
+    p.add_argument("--http-port", type=int, default=None,
+                   dest="http_port",
+                   help="serve the HTTP/1.1+SSE ingress adapter on "
+                        "this port (0 = OS-assigned; default: no HTTP "
+                        "listener)")
+    p.add_argument("--http-host", type=str, default=None,
+                   dest="http_host")
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--max-queue", type=int, default=None,
+                   dest="max_queue")
+    p.add_argument("--classes-json", type=str, default=None,
+                   dest="classes_json",
+                   help="the fleet's priority classes, a JSON list of "
+                        "PriorityClass fields (name, weight, rank, "
+                        "max_queue, model_quota, batch); default: one "
+                        "default class")
+    p.add_argument("--rate", type=float, default=None,
+                   help="token-bucket admission rate (req/s)")
+    p.add_argument("--burst", type=float, default=None)
+    p.add_argument("--max-retries", type=int, default=2,
+                   dest="max_retries")
+    p.add_argument("--request-timeout", type=float, default=120.0,
+                   dest="request_timeout")
+    p.add_argument("--poll-interval", type=float, default=0.25,
+                   dest="poll_interval",
+                   help="registry-view sidecar poll cadence in seconds")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   dest="metrics_port",
+                   help="per-process Prometheus exposition port (falls "
+                        "back to an OS-assigned port when taken; see "
+                        "the metrics_http_port gauge)")
+    return p
+
+
+def main(argv=None) -> int:
+    import signal
+
+    args = build_parser().parse_args(argv)
+    token = wire.load_token()
+    metrics = FleetMetrics()
+    sidecar = RegistrySidecar(args.registry, token=token,
+                              poll_interval=args.poll_interval,
+                              metrics=metrics)
+    router = Router(sidecar.local, metrics, token=token,
+                    max_retries=args.max_retries,
+                    request_timeout=args.request_timeout)
+    adm_kwargs: Dict[str, Any] = {}
+    if args.max_queue is not None:
+        adm_kwargs["max_queue"] = args.max_queue
+    if args.classes_json:
+        # Without the table every label resolves to the default class:
+        # the offline lane's ``batch`` class would neither wait behind
+        # interactive work here nor rank below it at the replicas.
+        import json
+
+        from tfmesos_tpu_torch.fleet.admission import PriorityClass
+
+        adm_kwargs["classes"] = [PriorityClass(**d)
+                                 for d in json.loads(args.classes_json)]
+    admission = AdmissionController(rate=args.rate, burst=args.burst,
+                                    **adm_kwargs)
+    gw = Gateway(router, admission, metrics, token=token,
+                 host=args.host, port=args.port, workers=args.workers,
+                 registry=sidecar.local, reuseport=args.reuseport,
+                 http_port=args.http_port,
+                 http_host=args.http_host).start()
+
+    # Private per-process listener: with SO_REUSEPORT a dial to the
+    # shared public addr lands on a KERNEL-chosen process, so the
+    # launcher's metrics fan-in (and the lease identity that keeps N
+    # same-addr processes distinct in discovery) needs an address that
+    # reaches THIS process deterministically.
+    def on_scrape(conn, msg) -> None:
+        op = msg.get("op") if isinstance(msg, dict) else None
+        mid = msg.get("id") if isinstance(msg, dict) else None
+        if op == "metrics":
+            out: Dict[str, Any] = {"op": "metrics", "id": mid,
+                                   "metrics": metrics.snapshot()}
+            if msg.get("raw"):
+                out["raw"] = metrics.raw_state()
+            conn.send(out)
+        elif op == "ping":
+            conn.send({"op": "pong", "id": mid})
+        elif op == "status":
+            # Mirror-convergence probe: how much of the fleet THIS
+            # process's sidecar view can already route to.  The
+            # launcher polls this at bring-up so a client's first
+            # request never lands on a gateway that mirrors nothing.
+            conn.send({"op": "status", "id": mid,
+                       "alive": len(sidecar.local.alive()),
+                       "polls": sidecar.polls})
+        else:
+            conn.send({"op": "error", "id": mid,
+                       "error": {"kind": "bad_request",
+                                 "message": "scrape listener serves "
+                                            "metrics/ping/status "
+                                            "only"}})
+
+    scrape_srv = wire.WireServer(on_scrape, token=token, host=args.host,
+                                 port=0, name="gateway-scrape").start()
+    sidecar.gateway_addr = gw.addr
+    sidecar.scrape_addr = scrape_srv.addr
+    sidecar.start()
+    if args.metrics_port is not None:
+        metrics.start_http_server(args.metrics_port)
+    line = f"gateway serving on {gw.addr}"
+    if gw.http_addr:
+        line += f" (http {gw.http_addr})"
+    print(line, flush=True)
+    stop = threading.Event()
+
+    def on_signal(signum, frame) -> None:
+        stop.set()
+
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
+    stop.wait()
+    sidecar.stop()
+    scrape_srv.stop()
+    gw.stop()
+    return 0
+
+
+if __name__ == "__main__":       # pragma: no cover - process entry
+    import sys
+
+    sys.exit(main())

@@ -4,7 +4,8 @@
 ``FleetServer`` is the one-object front: it mints a cluster token,
 starts the registry and the gateway in process, then launches the
 replicas as **Mode-B tasks through the backend abstraction**
-(``LocalBackend``: subprocesses of this host).  Each replica task runs
+(``LocalBackend``, subprocesses of this host, or ``MesosBackend`` for
+a ``master``).  Each replica task runs
 ``python -m tfmesos_tpu_torch.server``, which execs
 ``python -m tfmesos_tpu_torch.fleet.replica``: the port replica, on the
 card unless the fleet was built with ``device="cpu"``.  The scheduler,
@@ -51,14 +52,21 @@ scheduler generation and re-forms it under a fresh gang id
 (``gang_reforms``); a catalog entry's own ``gang_size`` does the same
 for its model, each gang costing that many slots of the budget.
 
-Not ported yet, refused by name at construction (each with its ROADMAP
-item): gateway processes, the HTTP edge, the offline lane and the Mesos
-master.
+``gateway_processes`` > 0 runs the front door as N ``python -m
+tfmesos_tpu_torch.fleet.gateway`` processes over registry sidecars;
+``http_port`` opens the HTTP/SSE edge on the first gateway;
+``batch_lane`` adds the deadline-less ``batch`` class of the offline
+lane; ``master`` runs the replicas as tasks of a Mesos master
+(``host:port``, ``http://`` or ``zk://``) instead of this host.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import re
+import subprocess
 import sys
 import threading
 import time
@@ -131,13 +139,7 @@ class RolloutError(RuntimeError):
 
 #: the JAX FleetServer's options that wait: name -> (what, ROADMAP item,
 #: the value that asks for nothing).  Passing any other value refuses.
-_NOT_PORTED = {
-    "gateway_processes": ("gateway_processes, gateway processes",
-                          "A.12", 0),
-    "http_port": ("http_port, the HTTP edge", "A.12", None),
-    "batch_lane": ("batch_lane, the offline lane", "A.12", False),
-    "master": ("master, the Mesos backend", "A.12", None),
-}
+_NOT_PORTED: Dict[str, Tuple[str, str, object]] = {}
 
 
 def _refuse(what: str, item: str) -> None:
@@ -183,15 +185,18 @@ class FleetServer:
                  min_replicas: Optional[int] = None,
                  max_replicas: Optional[int] = None,
                  autoscale_config: Optional[AutoscalerConfig] = None,
-                 backend=None,
+                 backend=None, master: Optional[str] = None,
                  replica_cpus: float = 1.0, replica_mem: float = 1024.0,
                  replica_chips: int = 0,
                  gateway_host: str = "127.0.0.1", gateway_port: int = 0,
                  gateways: int = 1,
+                 gateway_processes: int = 0,
+                 http_port: Optional[int] = None,
                  workers: int = 8, max_queue: int = 64,
                  rate: Optional[float] = None,
                  burst: Optional[float] = None,
                  priority_classes: Optional[List[PriorityClass]] = None,
+                 batch_lane: bool = False,
                  migrate_on_drain: bool = True,
                  breakers: bool = True,
                  max_retries: int = 2, request_timeout: float = 120.0,
@@ -385,6 +390,9 @@ class FleetServer:
             # the loop retarget it would only ever shrink it.
             self._tier_max[KV] = self.kv_replicas
         self.backend = backend
+        #: a Mesos master (``host:port``, ``http://...`` or ``zk://...``)
+        #: runs the replicas as tasks on its agents; None: this host.
+        self.master = master
         self.replica_cpus = float(replica_cpus)
         self.replica_mem = float(replica_mem)
         self.replica_chips = int(replica_chips)
@@ -397,6 +405,27 @@ class FleetServer:
         self.n_gateways = int(gateways)
         if self.n_gateways < 1:
             raise ValueError(f"gateways must be >= 1, got {gateways}")
+        #: the multi-process front door: > 0 replaces the in-process
+        #: gateways with N ``python -m tfmesos_tpu_torch.fleet.gateway``
+        #: processes, each with its own WireServer, admission WFQ and
+        #: router over a registry sidecar's mirrored view.  They share
+        #: one public port through SO_REUSEPORT where the platform has
+        #: it, else take their own ports behind the ``gateways`` op.
+        self.gateway_processes = int(gateway_processes)
+        if self.gateway_processes < 0:
+            raise ValueError(
+                f"gateway_processes must be >= 0, got {gateway_processes}")
+        if self.gateway_processes and self.catalog is not None:
+            # The trader answers cold-start demand through the shared
+            # in-process router; a gateway process's own router has no
+            # trader to ask, so a catalog fleet would lose scale-from-zero.
+            raise ValueError(
+                "gateway_processes and a model catalog are mutually "
+                "exclusive: catalog cold-start demand rides the "
+                "in-process router")
+        #: HTTP/1.1 + SSE ingress: None is off.  The first in-process
+        #: gateway, or the first gateway process, carries it.
+        self.http_port = None if http_port is None else int(http_port)
         self.workers = int(workers)
         self.max_queue = int(max_queue)
         self.rate = rate
@@ -406,6 +435,21 @@ class FleetServer:
         #: default class.
         self.priority_classes = list(priority_classes) \
             if priority_classes else None
+        #: the offline lane: appends a deadline-less ``batch`` class that
+        #: dispatches only when every interactive queue is empty and
+        #: ranks below every other class, so its resident rows yield
+        #: their decode slots to the first interactive arrival.
+        self.batch_lane = bool(batch_lane)
+        if self.batch_lane:
+            specs = (list(self.priority_classes)
+                     if self.priority_classes
+                     else [PriorityClass("interactive", weight=1.0,
+                                         rank=0)])
+            if not any(c.name == "batch" for c in specs):
+                floor = min(c.rank for c in specs)
+                specs.append(PriorityClass("batch", weight=1.0,
+                                           rank=floor - 1, batch=True))
+            self.priority_classes = specs
         #: drain-migrate-kill: a pinned drain asks the victim to SUSPEND
         #: its in-flight rows so the router re-places them on survivors.
         self.migrate_on_drain = bool(migrate_on_drain)
@@ -436,6 +480,10 @@ class FleetServer:
         self.gateway: Optional[Gateway] = None
         #: every running front door (``gateway`` is ``gateways[0]``).
         self.gateways: List[Gateway] = []
+        #: gateway OS processes (multi-process mode); empty in process.
+        self._gateway_procs: list = []
+        #: the HTTP/SSE edge's address once bound (either mode).
+        self.http_addr: Optional[str] = None
         self.scheduler: Optional[TPUMesosScheduler] = None
         self.autoscaler: Optional[FleetAutoscaler] = None
         #: per-tier replica targets — what the control plane WANTS; the
@@ -525,10 +573,176 @@ class FleetServer:
             parts.append("--warmup")
         return " ".join(parts)
 
+    def _gateway_cmd(self, port: int, reuseport: bool,
+                     http_port: Optional[int]) -> List[str]:
+        """One gateway process's argv (exec'd directly, never through a
+        shell): the wire listener address plus the same admission/
+        routing constants every in-process gateway gets.  The cluster
+        token rides the environment (``TPUMESOS_TOKEN``), never the
+        command line."""
+        parts = [sys.executable, "-m", "tfmesos_tpu_torch.fleet.gateway",
+                 "--registry", self.registry.addr,
+                 "--host", self.gateway_host,
+                 "--port", str(int(port)),
+                 "--workers", str(self.workers),
+                 "--max-queue", str(self.max_queue),
+                 "--max-retries", str(self.max_retries),
+                 "--request-timeout", str(self.request_timeout)]
+        if reuseport:
+            parts.append("--reuseport")
+        if self.rate is not None:
+            parts += ["--rate", str(self.rate)]
+        if self.burst is not None:
+            parts += ["--burst", str(self.burst)]
+        if http_port is not None:
+            parts += ["--http-port", str(int(http_port)),
+                      "--http-host", self.gateway_host]
+        if self.priority_classes:
+            # The class table, so each process's admission WFQ and the
+            # ranks it sends the replicas are the fleet's (the offline
+            # lane's ``batch`` class included).
+            parts += ["--classes-json", json.dumps(
+                [dataclasses.asdict(c) for c in self.priority_classes])]
+        return parts
+
+    def _start_gateway_procs(self) -> None:
+        """Launch ``gateway_processes`` front-door OS processes.  They
+        share ONE public port via SO_REUSEPORT where the platform has
+        it (the kernel load-balances accepts); elsewhere each takes an
+        OS-assigned port and clients discover the set through the
+        ``gateways`` op.  Either way every process leases a discovery
+        entry in the central registry, which is also how this method
+        knows bring-up finished."""
+        n = self.gateway_processes
+        reuseport = wire.reuseport_available()
+        shared_port = 0
+        if reuseport:
+            shared_port = self.gateway_port
+            if not shared_port:
+                # Pick the shared port up front: bind-with-REUSEPORT,
+                # read, close.  The tiny close-to-spawn window is the
+                # standard ephemeral-port race; a loser fails loudly
+                # at bind and the bring-up wait reports it.
+                probe = wire.bind_ephemeral(self.gateway_host, 0,
+                                            reuseport=True)
+                shared_port = probe.getsockname()[1]
+                probe.close()
+        env = dict(os.environ)
+        env["TPUMESOS_TOKEN"] = self.token
+        env.pop("TPUMESOS_TOKEN_FILE", None)
+        sink = subprocess.DEVNULL if self.quiet else None
+        for i in range(n):
+            if reuseport:
+                port = shared_port
+            else:
+                port = self.gateway_port if i == 0 else 0
+            cmd = self._gateway_cmd(
+                port, reuseport,
+                self.http_port if i == 0 else None)
+            self._gateway_procs.append(subprocess.Popen(
+                cmd, env=env, stdout=sink, stderr=sink))
+        # Every process holds its OWN lease (keyed by its private
+        # scrape addr), so N leases = N processes up even when
+        # SO_REUSEPORT collapses the public discovery set to one addr.
+        deadline = time.monotonic() + min(self.start_timeout, 30.0)
+        while time.monotonic() < deadline:
+            dead = [p for p in self._gateway_procs
+                    if p.poll() is not None]
+            if dead:
+                raise ClusterError(
+                    f"{len(dead)} gateway process(es) died during "
+                    f"bring-up (first exit code "
+                    f"{dead[0].returncode})")
+            if len(self.registry.gateway_leases()) >= n:
+                break
+            time.sleep(0.05)
+        else:
+            raise ClusterError(
+                f"only {len(self.registry.gateway_leases())} of {n} "
+                f"gateway lease(s) registered within the bring-up "
+                f"window")
+        if self.http_port:
+            self.http_addr = f"{self.gateway_host}:{self.http_port}"
+        # Fleet-level scrape: the launcher's own /metrics (and
+        # fleet_snapshot()) fold every gateway process's raw state in
+        # at scrape time.
+        self.metrics.fanin = self._scrape_gateway_raws
+        self.log.info(
+            "%d gateway process(es) up%s", n,
+            f" sharing :{shared_port} via SO_REUSEPORT" if reuseport
+            else " on per-process ports (no SO_REUSEPORT; clients "
+                 "discover via the gateways op)")
+
+    def _wait_gateway_mirrors(self, timeout: float = 15.0) -> None:
+        """Block until every gateway process's sidecar mirror can route
+        to as many alive replicas as the central registry lists RIGHT
+        NOW — without this, a client's first request races the mirror's
+        poll cadence and sheds with "no alive replicas" on a fleet
+        that is, in fact, up."""
+        want = len(self.registry.alive())
+        if not want:
+            return
+        pending = set(self.registry.gateway_leases())
+        deadline = time.monotonic() + timeout
+        while pending and time.monotonic() < deadline:
+            for addr in sorted(pending):
+                try:
+                    sock = wire.connect(addr, timeout=2.0)
+                    try:
+                        sock.settimeout(2.0)
+                        wire.send_msg(sock, {"op": "status"}, self.token)
+                        reply = wire.recv_msg(sock, self.token)
+                    finally:
+                        sock.close()
+                except (OSError, wire.WireError):
+                    continue
+                alive = reply.get("alive") if isinstance(reply, dict) \
+                    else None
+                if isinstance(alive, int) and alive >= want:
+                    pending.discard(addr)
+            if pending:
+                time.sleep(0.05)
+        if pending:
+            raise ClusterError(
+                f"{len(pending)} gateway process(es) never mirrored "
+                f"the {want} alive replica(s) within {timeout:.0f}s")
+
+    def _scrape_gateway_raws(self) -> List[dict]:
+        """Every gateway process's mergeable metrics state (``metrics``
+        op with ``raw: true`` against each process's PRIVATE scrape
+        listener — the shared REUSEPORT public addr would land on a
+        kernel-chosen process); an unreachable process costs its
+        contribution, never the scrape."""
+        raws: List[dict] = []
+        registry = self.registry
+        if registry is None:
+            return raws
+        for addr in registry.gateway_leases():
+            try:
+                sock = wire.connect(addr, timeout=2.0)
+                try:
+                    sock.settimeout(2.0)
+                    wire.send_msg(sock, {"op": "metrics", "raw": True},
+                                  self.token)
+                    reply = wire.recv_msg(sock, self.token)
+                finally:
+                    sock.close()
+            except (OSError, wire.WireError):
+                continue
+            raw = reply.get("raw") if isinstance(reply, dict) else None
+            if isinstance(raw, dict):
+                raws.append(raw)
+        return raws
+
     def fleet_snapshot(self) -> dict:
-        """The fleet-level metrics snapshot (one process holds every
-        gateway, so it is :meth:`snapshot`)."""
-        return self.snapshot()
+        """The fleet-level metrics snapshot: with gateway processes, every
+        process's counters and histograms merged into the launcher's own
+        at scrape time; otherwise :meth:`snapshot`."""
+        if self.metrics is None:
+            return {}
+        if self.metrics.fanin is None:
+            return self.metrics.snapshot()
+        return self.metrics.merged().snapshot()
 
     def start(self) -> "FleetServer":
         self.token = self._token or wire.new_token()
@@ -564,17 +778,26 @@ class FleetServer:
             # N stateless gateways over the ONE registry/router/
             # admission/tracebook view; the router's lifecycle is the
             # launcher's (close_router=False).
-            self.gateways = []
-            for i in range(self.n_gateways):
-                gw = Gateway(self.router, self.admission, self.metrics,
-                             token=self.token, host=self.gateway_host,
-                             port=self.gateway_port if i == 0 else 0,
-                             workers=self.workers,
-                             registry=self.registry,
-                             tracebook=self.tracebook,
-                             close_router=False).start()
-                self.gateways.append(gw)
-            self.gateway = self.gateways[0]
+            if self.gateway_processes:
+                # N OS processes, each with its own WireServer loop,
+                # admission WFQ and router over a registry sidecar's
+                # view: no in-process Gateway objects in this mode.
+                self._start_gateway_procs()
+            else:
+                self.gateways = []
+                for i in range(self.n_gateways):
+                    gw = Gateway(self.router, self.admission, self.metrics,
+                                 token=self.token, host=self.gateway_host,
+                                 port=self.gateway_port if i == 0 else 0,
+                                 workers=self.workers,
+                                 registry=self.registry,
+                                 tracebook=self.tracebook,
+                                 close_router=False,
+                                 http_port=self.http_port
+                                 if i == 0 else None).start()
+                    self.gateways.append(gw)
+                self.gateway = self.gateways[0]
+                self.http_addr = self.gateway.http_addr
             if self.metrics_port is not None:
                 self._metrics_http = self.metrics.start_http_server(
                     self.metrics_port)
@@ -584,7 +807,7 @@ class FleetServer:
             # The scheduler starts EMPTY in dynamic mode: every replica,
             # boot ones included, goes through launch_replica.
             self.scheduler = TPUMesosScheduler(
-                [], dynamic=True, backend=self.backend,
+                [], dynamic=True, backend=self.backend, master=self.master,
                 quiet=self.quiet, start_timeout=self.start_timeout,
                 token=self.token)
             self.scheduler.on_dynamic_death = self._on_dynamic_death
@@ -618,6 +841,8 @@ class FleetServer:
                 for _ in range(self.kv_replicas):
                     self.launch_replica(KV)
             self._wait_replicas()
+            if self.gateway_processes:
+                self._wait_gateway_mirrors()
             for gw in self.gateways:
                 gw.rollout_fn = self.rollout
                 gw.catalog = self.catalog
@@ -1193,8 +1418,14 @@ class FleetServer:
 
     @property
     def addrs(self) -> List[str]:
-        """Every front door's address."""
-        return [gw.addr for gw in self.gateways if gw.addr]
+        """Every front door's address.  With gateway processes this is
+        the central registry's leased discovery set: under SO_REUSEPORT
+        all N share one address, so one entry stands for the set."""
+        if self.gateways:
+            return [gw.addr for gw in self.gateways if gw.addr]
+        if self._gateway_procs and self.registry is not None:
+            return sorted(self.registry.gateway_addrs())
+        return []
 
     def client(self, timeout: float = 120.0) -> FleetClient:
         """A client over every gateway: one connection at a time, failing
@@ -1227,6 +1458,22 @@ class FleetServer:
                 gw.stop()
         self.gateways = []
         self.gateway = None
+        self.http_addr = None
+        if self.metrics is not None:
+            self.metrics.fanin = None
+        for proc in self._gateway_procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self._gateway_procs:
+            try:
+                proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                try:
+                    proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:  # pragma: no cover
+                    pass
+        self._gateway_procs = []
         # The gateways share the router (close_router=False); its links
         # close exactly once, here.
         if self.router is not None:

@@ -99,7 +99,7 @@ MODEL_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,63}")
 STATS_COUNTERS = ("prefills", "tail_prefills", "prefill_chunks",
                   "decode_ticks", "fused_ticks", "spec_rounds",
                   "spec_row_rounds", "spec_committed", "weight_swaps",
-                  "decode_seconds")
+                  "preemptions", "resumes", "decode_seconds")
 
 
 class GangNotFormed(RuntimeError):

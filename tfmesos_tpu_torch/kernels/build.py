@@ -14,8 +14,9 @@ entry point returns ``cudaGetLastError()`` after its launch; callers
 raise through :func:`check` when it is not 0.
 
 :func:`build_host` compiles a host library of ``native/`` (the token
-gather of ``train/data.py``) with the host C++ compiler into the same
-build root, named by a hash of its source and flags.
+gather of ``train/data.py``, the log pump of ``logpump.py``) with the
+host C++ compiler into the same build root, named by a hash of its
+source and flags.
 """
 
 from __future__ import annotations

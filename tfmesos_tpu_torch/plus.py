@@ -38,7 +38,8 @@ def compute(ctx):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m tfmesos_tpu_torch.plus")
     p.add_argument("master", nargs="?", default=None,
-                   help="Mesos master (not ported yet); default: local")
+                   help="Mesos master (host:port, http://... or zk://...); "
+                        "default: the local backend")
     p.add_argument("--device", default=None,
                    help="device of the addends (default: cuda)")
     args = p.parse_args(argv)

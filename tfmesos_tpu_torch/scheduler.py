@@ -2,8 +2,9 @@
 SPMD dispatch (port of ``tfmesos_tpu/scheduler.py``).
 
 ``TPUMesosScheduler`` owns the task table and talks to a narrow
-:class:`~tfmesos_tpu_torch.backends.ResourceBackend` (the port has
-``LocalBackend``).  Three shapes of job run:
+:class:`~tfmesos_tpu_torch.backends.ResourceBackend`: ``LocalBackend``
+with no master, ``MesosBackend`` for a ``host:port``, ``http://`` or
+``zk://`` one.  Three shapes of job run:
 
 * a **static gang** — bring-up waits until every task registered, sends
   each its config (rank, world size, cluster map, the coordinator: rank
@@ -29,8 +30,8 @@ SPMD dispatch (port of ``tfmesos_tpu/scheduler.py``).
   :meth:`add_gang` adds N tasks as one gang replica, placed
   all-or-nothing within an offer batch.
 
-Not ported yet, refused by name: the Mesos backend (ROADMAP A.12 (g)).  The JAX scheduler's
-fault injection (``chaos=``, ROADMAP A.12 (f)) is not a parameter here.
+The JAX scheduler's fault injection (``chaos=``, ROADMAP A.12 (f)) is
+not a parameter here.
 """
 
 from __future__ import annotations
@@ -228,8 +229,12 @@ class TPUMesosScheduler:
         if self.master in (None, "", "local"):
             from tfmesos_tpu_torch.backends.local import LocalBackend
             return LocalBackend()
-        raise ClusterError("not ported yet: the Mesos backend "
-                           "(ROADMAP A.12 (g))")
+        try:
+            from tfmesos_tpu_torch.backends.mesos import MesosBackend
+        except ImportError as e:
+            raise ClusterError(f"Mesos backend unavailable: {e}") from e
+        return MesosBackend(self.master, framework_name=self.name,
+                            role=self.role)
 
     # -- backend callback surface -----------------------------------------
 
@@ -1302,11 +1307,17 @@ class TPUMesosScheduler:
             self._call_id += 1
             call_id = self._call_id
             generation = self.generation
+            # The task list and its connections are read in the same
+            # locked section as the generation: read after it, a
+            # recovery finishing in between would hand this call the
+            # new gang's tasks, which drop a dispatch of the old
+            # generation without a reply.
+            dispatchable = {rank: (t, t.connection)
+                            for rank, t in enumerate(self.tasks)
+                            if t.cmd is None and t.connection is not None}
         spec = _func_spec(func)
-        dispatchable = {rank: t for rank, t in enumerate(self.tasks)
-                        if t.cmd is None and t.connection is not None}
         if ranks is None:
-            mode_a = list(dispatchable.values())
+            targets = list(dispatchable.values())
         else:
             bad = [r for r in ranks if r not in dispatchable]
             if bad:
@@ -1317,7 +1328,8 @@ class TPUMesosScheduler:
                 raise ClusterError(
                     f"duplicate rank(s) in {ranks}: each dispatch targets a "
                     "rank at most once (call run_on again to repeat)")
-            mode_a = [dispatchable[r] for r in ranks]  # request order
+            targets = [dispatchable[r] for r in ranks]  # request order
+        mode_a = [t for t, _ in targets]
         if not mode_a:
             raise ClusterError("no in-graph (cmd=None) tasks to dispatch to")
         msg = {"op": "run", "call_id": call_id, "gen": generation,
@@ -1329,24 +1341,25 @@ class TPUMesosScheduler:
             # no way to resync, and half a collective hangs the group.
             # Fail-fast marks the cluster fatal; elastic turns the same
             # signal into a re-formation (this call still raises: the
-            # caller resumes after wait_ready()).
+            # caller resumes after wait_ready()).  A failure seen on a
+            # gang a recovery already replaced charges nothing.
             with self._lock:
-                self._post_start_failure(why)
+                if self.generation == generation:
+                    self._post_start_failure(why)
             return ClusterError(why)
 
         task = None
         try:
-            for task in mode_a:
-                wire.send_msg(task.connection, msg, self.token)
-            replies = self._drain_replies(mode_a, call_id, generation,
+            for task, conn in targets:
+                wire.send_msg(conn, msg, self.token)
+            replies = self._drain_replies(targets, call_id, generation,
                                           _fatal_dispatch)
         except (OSError, wire.WireError) as e:
             raise _fatal_dispatch(
                 f"task {task} lost during dispatch: {e}") from e
         results = []
         errors = []
-        for task in mode_a:
-            reply = replies[task.id]
+        for task, reply in zip(mode_a, replies):
             if not reply.get("ok"):
                 errors.append(f"on {task}:\n{reply.get('error')}")
             results.append(reply.get("value"))
@@ -1354,28 +1367,30 @@ class TPUMesosScheduler:
             raise RemoteError("remote failure " + "\n".join(errors))
         return results
 
-    def _drain_replies(self, mode_a, call_id, generation, _fatal_dispatch):
-        """Collect one reply a task, reading every connection at once.
+    def _drain_replies(self, targets, call_id, generation, _fatal_dispatch):
+        """Collect one reply a task from its (task, connection) pair,
+        reading every connection at once.
 
         A blocking read rank by rank would sit on a survivor (which may
         run for hours) while a dead peer's EOF goes unseen; a selector
         surfaces any death — the socket's EOF, or the status thread
-        marking the cluster fatal or recovering — within a poll.  A
-        reply of another generation (a zombie of an earlier gang
-        flushing its last result) is logged and dropped, never matched
-        to a current call."""
-        replies: Dict[str, dict] = {}
+        marking the cluster fatal, recovering, or on another generation
+        than the dispatch's — within a poll.  A reply of another
+        generation (a zombie of an earlier gang flushing its last
+        result) is logged and dropped, never matched to a current
+        call.  The replies come back in the order of ``targets``."""
+        replies: Dict[int, dict] = {}
         sel = selectors.DefaultSelector()
-        framers = {task.id: wire.Framer(self.token) for task in mode_a}
+        framers = [wire.Framer(self.token) for _ in targets]
         try:
-            for task in mode_a:
+            for i, (task, conn) in enumerate(targets):
                 try:
-                    task.connection.setblocking(False)
-                    sel.register(task.connection, selectors.EVENT_READ, task)
+                    conn.setblocking(False)
+                    sel.register(conn, selectors.EVENT_READ, i)
                 except OSError as e:
                     raise _fatal_dispatch(
                         f"task {task} lost during dispatch: {e}") from e
-            while len(replies) < len(mode_a):
+            while len(replies) < len(targets):
                 events = sel.select(timeout=0.5)
                 with self._lock:
                     if self._fatal:
@@ -1384,8 +1399,16 @@ class TPUMesosScheduler:
                         raise ClusterError(
                             f"cluster re-forming (generation "
                             f"{self.generation}): {self._recover_reason}")
+                    if self.generation != generation:
+                        # A whole recovery ran while this call waited:
+                        # no task of the old gang will ever answer.
+                        raise ClusterError(
+                            f"cluster re-forming (generation "
+                            f"{self.generation}, the call's "
+                            f"{generation})")
                 for key, _ in events:
-                    task = key.data
+                    i = key.data
+                    task = targets[i][0]
                     try:
                         data = key.fileobj.recv(1 << 16)
                     except (BlockingIOError, InterruptedError):
@@ -1397,7 +1420,7 @@ class TPUMesosScheduler:
                         raise _fatal_dispatch(
                             f"task {task} died during dispatch (EOF)")
                     try:
-                        msgs = framers[task.id].feed(data)
+                        msgs = framers[i].feed(data)
                     except wire.WireError as e:
                         raise _fatal_dispatch(
                             f"bad frame from {task} during dispatch: {e}"
@@ -1410,24 +1433,23 @@ class TPUMesosScheduler:
                                 "gen %r (current %d)", task,
                                 reply.get("gen"), generation)
                             continue
-                        if (task.id in replies
+                        if (i in replies
                                 or not (isinstance(reply, dict)
                                         and reply.get("call_id") == call_id)):
                             raise _fatal_dispatch(
                                 f"bad reply from {task}: {reply!r}")
-                        replies[task.id] = reply
-                    if task.id in replies:
+                        replies[i] = reply
+                    if i in replies:
                         sel.unregister(key.fileobj)
         finally:
             sel.close()
-            for task in mode_a:
-                if task.connection is not None:
-                    try:
-                        task.connection.setblocking(True)
-                        task.connection.settimeout(None)
-                    except OSError:
-                        pass
-        return replies
+            for _, conn in targets:
+                try:
+                    conn.setblocking(True)
+                    conn.settimeout(None)
+                except OSError:
+                    pass
+        return [replies[i] for i in range(len(targets))]
 
     def finished(self) -> bool:
         """True when any job has fully TASK_FINISHED (reference semantics —

@@ -1,8 +1,8 @@
 """Authenticated control-plane wire protocol (port of
 ``tfmesos_tpu/wire.py``: the frames, the token contract, the blocking
 socket helpers and the event-loop ``WireConn`` / ``WireServer`` that
-serve the gateway and the registry; the HTTP ingress listeners of the
-JAX ``WireServer`` are not ported yet).
+serve the gateway and the registry, with the ingress listeners the
+HTTP/SSE edge rides).
 
 Frames are byte-compatible with the JAX package's both ways, so a port
 replica sits behind the JAX registry, router and gateway unchanged.
@@ -44,6 +44,7 @@ import selectors
 import socket
 import struct
 import threading
+import time
 import weakref
 from typing import Any, Callable, List, Optional
 
@@ -423,7 +424,18 @@ class WireConn:
     loop; past ``max_buffer`` of backlog the connection is dropped
     instead (a peer that cannot keep up with its own replies is as good
     as gone).  Handlers may stash per-connection state as plain
-    attributes (the registry keys heartbeat EOFs that way)."""
+    attributes (the registry keys heartbeat EOFs that way).
+
+    A connection accepted on an ingress listener (``add_ingress``)
+    carries a ``protocol`` object instead of the HMAC framer: raw socket
+    bytes go to ``protocol.data_received(data)`` (an exception drops the
+    connection), replies go out through ``send_bytes``, and on drop or
+    close the protocol's own ``on_close()`` fires instead of the
+    server's ``on_close`` hook (an ingress peer is never taken for a
+    wire peer: the registry keys replica EOFs off that hook).
+    ``deadline`` (a monotonic timestamp, tracked through
+    ``server._watch``) is the slow-loris bound: a connection past it is
+    swept closed by the loop."""
 
     def __init__(self, server: "WireServer", sock: socket.socket,
                  peer: str):
@@ -437,6 +449,8 @@ class WireConn:
         self._close_after_flush = False
         self._events = selectors.EVENT_READ
         self.drop_reason: Optional[str] = None
+        self.protocol: Optional[Any] = None
+        self.deadline: Optional[float] = None
 
     @property
     def closed(self) -> bool:
@@ -452,6 +466,12 @@ class WireConn:
         """Queue one raw binary frame (meta + body, HMAC-tagged)."""
         header, mv = _raw_parts(meta, body, self._server.token)
         return self._enqueue(header + bytes(mv))
+
+    def send_bytes(self, data: bytes) -> bool:
+        """Queue bytes verbatim (no framing, no HMAC): the reply path of
+        an ingress protocol (HTTP responses, SSE frames), with the same
+        buffering and overflow rule as ``send``."""
+        return self._enqueue(bytes(data))
 
     def _enqueue(self, frame: bytes) -> bool:
         hook = _chaos_send      # snapshot against a concurrent uninstall
@@ -529,8 +549,29 @@ class WireServer:
         self._plock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # Ingress listeners: (factory, host, port) asked for before
+        # start(); their sockets and addresses are filled in by start().
+        self._ingress: List[tuple] = []
+        self._ingress_socks: List[socket.socket] = []
+        self.ingress_addrs: List[str] = []
+        # Connections with a live slow-loris deadline (loop thread only).
+        self._timed: set = set()
         from tfmesos_tpu_torch.utils.logging import get_logger
         self.log = get_logger("tfmesos_tpu_torch.wire")
+
+    def add_ingress(self, factory: Callable[[WireConn], Any],
+                    host: str = "127.0.0.1", port: int = 0) -> None:
+        """Add a listener on the same event loop whose connections speak
+        a protocol of the caller's instead of the HMAC framing (the
+        HTTP/SSE edge).  ``factory(conn)`` runs at each accept and
+        returns the protocol object: raw bytes go to
+        ``protocol.data_received(data)`` (raise to drop the connection),
+        replies ride ``conn.send_bytes``, and ``protocol.on_close()``
+        (optional) fires when the connection dies.  Call before
+        ``start()``."""
+        if self._thread is not None:
+            raise RuntimeError("add_ingress must precede start()")
+        self._ingress.append((factory, host, int(port)))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -546,6 +587,15 @@ class WireServer:
         self._waker_r.setblocking(False)
         self._sel.register(self._listen, selectors.EVENT_READ, "listen")
         self._sel.register(self._waker_r, selectors.EVENT_READ, "waker")
+        for factory, host, port in self._ingress:
+            sock = bind_ephemeral(host, port=port)
+            sock.setblocking(False)
+            self._ingress_socks.append(sock)
+            self.ingress_addrs.append(sock_addr(
+                sock, advertise_host=adv if host in ("0.0.0.0", "::")
+                else host))
+            self._sel.register(sock, selectors.EVENT_READ,
+                               ("ingress", sock, factory))
         self._thread = threading.Thread(target=self._loop, name=self.name,
                                         daemon=True)
         self._thread.start()
@@ -588,6 +638,29 @@ class WireServer:
             self._pending_close.add(conn)
         self._wake()
 
+    def _watch(self, conn: WireConn) -> None:
+        """Track ``conn`` in the deadline sweep.  Thread-safe: a
+        keep-alive response that finishes on a gateway worker re-arms
+        the idle deadline from there.  The wake matters: with no timed
+        connection the loop waits on a 5 s backstop, far past the idle
+        deadline it must now keep."""
+        with self._plock:
+            self._timed.add(conn)
+        self._wake()
+
+    def _sweep_timed(self) -> None:
+        if not self._timed:
+            return
+        now = time.monotonic()
+        with self._plock:
+            timed = list(self._timed)
+        for conn in timed:
+            if conn._closed or conn.deadline is None:
+                self._timed.discard(conn)
+            elif now > conn.deadline:
+                self._timed.discard(conn)
+                self._close_conn(conn, "ingress deadline (slow peer)")
+
     # -- the loop ----------------------------------------------------------
 
     def _loop(self) -> None:
@@ -595,11 +668,15 @@ class WireServer:
         try:
             while not self._stop.is_set():
                 # The waker (and wake_listener's accept poke) end the
-                # wait; the timeout is only the backstop.
-                for key, mask in sel.select(timeout=5.0):
+                # wait; the timeout is only the backstop, shortened while
+                # ingress connections carry slow-loris deadlines.
+                timeout = 0.25 if self._timed else 5.0
+                for key, mask in sel.select(timeout=timeout):
                     tag = key.data
                     if tag == "listen":
                         self._accept_ready()
+                    elif isinstance(tag, tuple) and tag[0] == "ingress":
+                        self._accept_ready(listen=tag[1], factory=tag[2])
                     elif tag == "waker":
                         try:
                             while self._waker_r.recv(4096):
@@ -613,6 +690,7 @@ class WireServer:
                                 and not tag._closed:
                             self._flush(tag)
                 self._service_pending()
+                self._sweep_timed()
         finally:
             with self._plock:
                 conns = list(self._conns)
@@ -626,7 +704,8 @@ class WireServer:
                     conn._sock.close()
                 except OSError:
                     pass
-            for sock in (self._listen, self._waker_r, self._waker_w):
+            for sock in ([self._listen, self._waker_r, self._waker_w]
+                         + self._ingress_socks):
                 if sock is not None:
                     try:
                         sock.close()
@@ -649,10 +728,12 @@ class WireServer:
             if not conn._closed:
                 self._flush(conn)
 
-    def _accept_ready(self) -> None:
+    def _accept_ready(self, listen: Optional[socket.socket] = None,
+                      factory: Optional[Callable] = None) -> None:
+        listen = listen if listen is not None else self._listen
         while True:
             try:
-                sock, peer = self._listen.accept()
+                sock, peer = listen.accept()
             except BlockingIOError:
                 return
             except OSError:
@@ -661,6 +742,17 @@ class WireServer:
             _nodelay(sock)
             conn = WireConn(self, sock, f"{peer[0]}:{peer[1]}"
                             if isinstance(peer, tuple) else str(peer))
+            if factory is not None:
+                try:
+                    conn.protocol = factory(conn)
+                except Exception:
+                    self.log.exception("%s: ingress factory failed",
+                                       self.name)
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                    continue
             with self._plock:
                 self._conns.add(conn)
             try:
@@ -685,6 +777,17 @@ class WireServer:
             return
         if not data:
             self._close_conn(conn, "eof")
+            return
+        proto = conn.protocol
+        if proto is not None:
+            # An ingress connection: the protocol parses its own framing
+            # under its own byte bounds; raising is its rejection.
+            try:
+                proto.data_received(data)
+            except Exception as e:
+                self.log.warning("%s: dropping ingress connection from "
+                                 "%s: %s", self.name, conn.peer, e)
+                self._close_conn(conn, f"ingress error: {e}")
             return
         try:
             msgs = conn._framer.feed(data)
@@ -753,7 +856,18 @@ class WireServer:
             self._conns.discard(conn)
             self._pending.discard(conn)
             self._pending_close.discard(conn)
-        if self.on_close is not None:
+        self._timed.discard(conn)
+        if conn.protocol is not None:
+            # Ingress connections tell their own protocol, never the
+            # server's hook, which carries wire-peer meaning.
+            cb = getattr(conn.protocol, "on_close", None)
+            if cb is not None:
+                try:
+                    cb()
+                except Exception:
+                    self.log.exception("%s: ingress on_close failed",
+                                       self.name)
+        elif self.on_close is not None:
             try:
                 self.on_close(conn)
             except Exception:
