@@ -6751,6 +6751,15 @@ def child(argv, timeout: float):
     return p.stdout, p.stderr, secs
 
 
+def children(argvs, timeout: float):
+    """:func:`child` for several commands started together; their
+    (stdout, stderr, s) in order, each s that child's own wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        return list(pool.map(lambda argv: child(argv, timeout), argvs))
+
+
 def phase_surface(torch, np, train):
     """Phase 23: ``plus`` (a), ``tfrun`` over ``transformer_train`` (b),
     Mode A under the elastic policy with a killed rank (c),
@@ -7479,15 +7488,18 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
                 f"collectives, {coll / ms:.0%}) against one process's "
                 f"{head['ref_ms_per_step']:.1f}; rows 1-3 at 8 a step a "
                 f"rank")
-        # The same two runs through tfrun, as users start them: both
-        # ranks' losses equal, each step within MESH_DLOSS of one process.
-        for label in runs:
-            stdout, _, secs = child(
-                ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
-                 "--mesh", label, "--worker-logs", "*", "--",
-                 sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
-                 "--steps", str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV,
-                 "--mesh", label], 900)
+        # The same two runs through tfrun, as users start them, both
+        # launches at once (four ranks on the card): both ranks' losses
+        # equal, each step within MESH_DLOSS of one process.
+        t0 = time.perf_counter()
+        launched = children([
+            ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
+             "--mesh", label, "--worker-logs", "*", "--",
+             sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
+             "--steps", str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV,
+             "--mesh", label] for label in runs], 900)
+        out["d"]["tfrun_s"] = time.perf_counter() - t0
+        for label, (stdout, _, secs) in zip(runs, launched):
             got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
                                   r"(\[.*\])$", stdout, re.M))
             need(sorted(got) == ["0", "1"] and got["0"] == got["1"],
@@ -7500,8 +7512,10 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
             out["d"][label]["tfrun"] = {"s": secs, "losses": losses,
                                         "max_dloss": dl}
             say(f"  (d) tfrun -w 2 --mesh {label} transformer_train in "
-                f"{secs:.1f} s: both ranks' losses {losses} (max |dloss| "
-                f"{dl:.2e} against one process)")
+                f"{secs:.1f} s (beside the other launch): both ranks' "
+                f"losses {losses} (max |dloss| {dl:.2e} against one "
+                f"process)")
+        say(f"  (d) both tfrun launches done in {out['d']['tfrun_s']:.1f} s")
         # (e) Saved under dp1 x tp2, restored on one process.
         one = tr.setup(tr.parse_args([*MESH_TRAIN_ARGV, "--steps",
                                       str(MESH_TRAIN_STEPS)]), dev,

@@ -1,7 +1,7 @@
 """The port's ``tfserve`` (``python -m tfmesos_tpu_torch.cli``): its
 parser carries every flag of the JAX ``build_serve_parser`` with the
-same default, bad flags exit 2 with the JAX message, every flag and
-subcommand not ported yet exits 2 naming its ROADMAP item, ``--draft``
+same default, bad flags exit 2 with the JAX message, no flag or
+subcommand is refused (``simulate`` gives the JAX CLI's results), ``--draft``
 and ``--n-draft`` reach the replica command line as the JAX fleet puts
 them there, the control-loop flags (``--autoscale``, ``--min-replicas``,
 ``--max-replicas``, ``--models``, ``--warm-pool``, ``--model-budget``)
@@ -120,49 +120,33 @@ def _fleet_of(mod, argv):
                 "tfmesos_tpu_torch.", "tfmesos_tpu.") for c in cmds]}
 
 
-@pytest.mark.parametrize(
-    "flag,dest,default,item",
-    cli.NOT_PORTED_FLAGS + tuple((f, None, None, None)
-                                 for f in CONTROL_FLAGS),
-    ids=[f[0] for f in cli.NOT_PORTED_FLAGS] + list(CONTROL_FLAGS))
-def test_flags_not_ported_yet_exit_2(flag, dest, default, item, capsys):
-    """Each flag still waiting exits 2 naming its ROADMAP item; each
+@pytest.mark.parametrize("flag", list(CONTROL_FLAGS))
+def test_flags_not_ported_yet_exit_2(flag, capsys):
+    """No flag waits any more (the refusal table is gone): each
     control-loop flag, ``--gang-size``, and the edge and backend flags
     (``--gateway-processes``, ``--http-port``, ``--batch-lane``,
-    ``--master``; ported) builds the fleet the JAX ``tfserve`` builds."""
-    if flag in CONTROL_FLAGS:
-        assert flag not in {f[0] for f in cli.NOT_PORTED_FLAGS}
-        mine = _fleet_of(cli, CONTROL_FLAGS[flag])
-        assert mine == _fleet_of(jax_cli, CONTROL_FLAGS[flag])
-        want = {"--autoscale": ("autoscale", True),
-                "--min-replicas": ("min", 2), "--max-replicas": ("max", 3),
-                "--models": ("catalog", [("chat", 1, 0), ("code", 0, 7),
-                                         ("draft", 2, 2)]),
-                "--warm-pool": ("warm_pool", 2),
-                "--model-budget": ("budget", 3),
-                "--gang-size": ("gang", {"unified": 2}),
-                "--gateway-processes": ("gateway_processes", 2),
-                "--http-port": ("http_port", 8080),
-                "--batch-lane": ("classes", [
-                    "PriorityClass(name='gold', weight=4.0, rank=1, "
-                    "max_queue=None, model_quota=None, batch=False)",
-                    "PriorityClass(name='silver', weight=1.0, rank=0, "
-                    "max_queue=None, model_quota=None, batch=False)",
-                    "PriorityClass(name='batch', weight=1.0, rank=-1, "
-                    "max_queue=None, model_quota=None, batch=True)"]),
-                "--master": ("master", "127.0.0.1:5050")}[flag]
-        assert mine[want[0]] == want[1]
-        return
-    value = {bool: [], int: ["2"], float: ["8"]}.get(type(default))
-    if value is None:
-        value = ["loaded"] if dest == "kv_placement" else \
-            ["chat:1"] if dest == "models" else ["x"]
-    if dest in ("min_replicas", "max_replicas", "model_budget",
-                "http_port"):
-        value = ["2"]
-    rc, err = _run(cli.serve_main, [flag] + value, capsys)
-    assert rc == 2
-    assert err == [f"tfserve: not ported yet: {flag} (ROADMAP {item})"]
+    ``--master``) builds the fleet the JAX ``tfserve`` builds."""
+    assert not hasattr(cli, "NOT_PORTED_FLAGS")
+    mine = _fleet_of(cli, CONTROL_FLAGS[flag])
+    assert mine == _fleet_of(jax_cli, CONTROL_FLAGS[flag])
+    want = {"--autoscale": ("autoscale", True),
+            "--min-replicas": ("min", 2), "--max-replicas": ("max", 3),
+            "--models": ("catalog", [("chat", 1, 0), ("code", 0, 7),
+                                     ("draft", 2, 2)]),
+            "--warm-pool": ("warm_pool", 2),
+            "--model-budget": ("budget", 3),
+            "--gang-size": ("gang", {"unified": 2}),
+            "--gateway-processes": ("gateway_processes", 2),
+            "--http-port": ("http_port", 8080),
+            "--batch-lane": ("classes", [
+                "PriorityClass(name='gold', weight=4.0, rank=1, "
+                "max_queue=None, model_quota=None, batch=False)",
+                "PriorityClass(name='silver', weight=1.0, rank=0, "
+                "max_queue=None, model_quota=None, batch=False)",
+                "PriorityClass(name='batch', weight=1.0, rank=-1, "
+                "max_queue=None, model_quota=None, batch=True)"]),
+            "--master": ("master", "127.0.0.1:5050")}[flag]
+    assert mine[want[0]] == want[1]
 
 
 @pytest.mark.parametrize("argv", [["--draft"], ["--draft", "--n-draft", "2"]],
@@ -332,19 +316,20 @@ def _batch_runs(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize(
-    "sub", sorted(list(cli.NOT_PORTED_SUBCOMMANDS)
-                  + ["batch", "rollout", "swap-adapter"]))
+    "sub", ["batch", "rollout", "simulate", "swap-adapter"])
 def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
                                            monkeypatch):
-    """Each subcommand still waiting exits 2 naming its ROADMAP item;
-    ``rollout`` and ``swap-adapter`` (ported) answer as the JAX ones do
+    """No subcommand waits any more.  ``simulate`` runs from ``main``
+    and from ``serve``, to the JAX CLI's results but for the keys read
+    off the wall clock; ``rollout`` and ``swap-adapter`` answer as the
+    JAX ones do
     against the same gateway: no cluster token, success, the control
     plane's failure, a bad input, an unreachable gateway; so does
     ``batch`` (ported): no token, bad and missing prompts, a bad
     concurrency or file, prompts from a file, every request failing on
     a fleet with no replica, an unreachable gateway."""
+    assert not hasattr(cli, "NOT_PORTED_SUBCOMMANDS")
     if sub == "batch":
-        assert sub not in cli.NOT_PORTED_SUBCOMMANDS
         mine, theirs = _batch_runs(tmp_path, monkeypatch, capsys)
         assert mine == theirs
         assert [r[0] for r in mine] == [2, 2, 2, 2, 2, 2, 1, 1]
@@ -354,7 +339,6 @@ def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
                               (2, "unavailable", None)]
         return
     if sub in ("rollout", "swap-adapter"):
-        assert sub not in cli.NOT_PORTED_SUBCOMMANDS
         mine, theirs, swaps = _control_runs(tmp_path, monkeypatch, capsys,
                                             sub)
         assert mine == theirs
@@ -373,11 +357,15 @@ def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
             assert [r[0] for r in mine[2:]] == [1, 2, 2, 1]
             assert swaps == [("chat", "a1", 64)] * 2
         return
-    for argv in ([sub], ["serve", sub]):
-        rc, err = _run(cli.main, argv, capsys)
-        assert rc == 2
-        assert err == [f"tfserve: not ported yet: {sub} (ROADMAP "
-                       f"{cli.NOT_PORTED_SUBCOMMANDS[sub]})"]
+    from torch_jax_cases import timeless
+
+    args = [sub, "surge", "--requests", "200", "--seed", "4", "--json"]
+    assert jax_cli.serve_main(args) == 0
+    want = timeless(json.loads(capsys.readouterr().out))
+    for argv in (args, ["serve", *args]):
+        assert cli.main(argv) == 0
+        assert timeless(json.loads(capsys.readouterr().out)) == want
+    assert want["requests"] == 200 and want["autoscaler_trajectory"]
 
 
 def test_usage_and_tfrun(capsys):

@@ -6,8 +6,10 @@ The control-plane decisions run on a fake backend whose tasks are
 generation-aware threads.  The two end-to-end tests run real
 ``LocalBackend`` clusters training the tiny transformer data parallel
 over gloo on the CPU (``transformer_train.train_chunk``, dispatched to
-every rank); a worker is SIGKILLed directly where the JAX tests use a
-``FaultPlan`` (``chaos=`` is not ported, ROADMAP A.12 (f)).
+every rank).  In the elastic one a seeded ``FaultPlan`` on the scheduler
+and the backend SIGKILLs rank 1 at the third dispatch, as the JAX test
+does; the supervised one kills a rank by its pid, as the JAX
+supervisor test does.
 """
 
 import os
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from tfmesos_tpu_torch import ClusterError, Job, cluster, wire
+from tfmesos_tpu_torch.chaos import Fault, FaultPlan
 from tfmesos_tpu_torch.backends.local import LocalBackend
 from tfmesos_tpu_torch.scheduler import TPUMesosScheduler
 from tfmesos_tpu_torch.spec import Offer, TaskStatus
@@ -290,19 +293,23 @@ def _final_state(ckpt_dir, step):
 
 
 def test_e2e_kill_recover_resume_reaches_uninterrupted_loss(tmp_path):
-    """Two ranks train 3 chunks of 2 steps; rank 1 is SIGKILLed after
-    chunk 2.  The elastic scheduler re-forms the gang on its own, the
+    """Two ranks train 3 chunks of 2 steps; a ``FaultPlan`` SIGKILLs
+    rank 1 as the third chunk is dispatched.  The elastic scheduler
+    re-forms the gang on its own, the
     caller resumes from rank 0's last checkpoint, and the losses and the
     final state EQUAL an uninterrupted run's (the re-formed gang's, from
     step 0), bit for bit."""
     total, steps = 3, 2
     resumed, ref = str(tmp_path / "resumed"), str(tmp_path / "ref")
-    outs, recovered, killed = {}, 0, False
+    outs, recovered = {}, 0
+    plan = FaultPlan([Fault("kill_task", "scheduler.dispatch", nth=3,
+                            victim="worker:1")], seed=7)
     with cluster(Job(name="worker", num=2, cpus=0.5, mem=256.0),
-                 backend=LocalBackend(), quiet=True, start_timeout=120.0,
-                 extra_config={"device": "cpu"}, restart_policy="elastic",
-                 max_cluster_restarts=3, restart_backoff=0.05,
-                 restart_jitter=0.0, restart_seed=0) as c:
+                 backend=LocalBackend(chaos=plan), quiet=True,
+                 start_timeout=120.0, extra_config={"device": "cpu"},
+                 restart_policy="elastic", max_cluster_restarts=3,
+                 restart_backoff=0.05, restart_jitter=0.0, restart_seed=0,
+                 chaos=plan) as c:
         chunk = 0
         while chunk < total:
             try:
@@ -315,14 +322,12 @@ def test_e2e_kill_recover_resume_reaches_uninterrupted_loss(tmp_path):
                 continue
             outs[chunk] = out
             chunk += 1
-            if chunk == 2 and not killed:
-                os.kill(out[1]["pid"], signal.SIGKILL)
-                killed = True
         stats = c.restart_stats
         want = [c.run_all(CHUNK, TRAIN_ARGV, ref, i * steps, steps)
                 for i in range(total)]
     assert recovered == 1
     assert stats["generation"] == 1 and stats["cluster_restarts"] == 1
+    assert plan.fired == [("scheduler.dispatch", "3", "kill_task", 3)]
     assert outs[2][0]["pid"] != outs[1][0]["pid"]   # a new gang ran it
     for i in range(total):
         for rank in (0, 1):

@@ -14,8 +14,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tfmesos_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "tfmesos_tpu"}
 #: the front door's modules: the control plane (its autoscaler, model
-#: catalog and HTTP edge included), the scheduler and its backends, the
-#: node runtime and tfserve.
+#: catalog, HTTP edge, simulator and fault injection included), the
+#: scheduler and its backends, the node runtime and tfserve.
 FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.fleet.router",
               "tfmesos_tpu_torch.fleet.gateway",
@@ -31,6 +31,8 @@ FRONT_DOOR = ("tfmesos_tpu_torch.fleet.registry",
               "tfmesos_tpu_torch.backends.mesos",
               "tfmesos_tpu_torch.backends.zk",
               "tfmesos_tpu_torch.fleet.http",
+              "tfmesos_tpu_torch.fleet.sim",
+              "tfmesos_tpu_torch.fleet.workload", "tfmesos_tpu_torch.chaos",
               "tfmesos_tpu_torch.server", "tfmesos_tpu_torch.runtime",
               "tfmesos_tpu_torch.logpump", "tfmesos_tpu_torch.cli")
 
@@ -317,13 +319,55 @@ EDGE = ("tfmesos_tpu_torch.fleet.http", "tfmesos_tpu_torch.fleet.gateway",
 
 
 def test_only_simulate_is_still_refused():
-    from tfmesos_tpu_torch import cli
-    from tfmesos_tpu_torch.fleet import launcher
+    """Nothing of ``tfserve`` is refused any more: the refusal tables
+    are gone, ``FleetServer`` meets an unknown keyword with the JAX
+    fleet's ``TypeError``, and ``simulate`` runs, with JAX and the JAX
+    package blocked and without importing torch, to the JAX CLI's
+    results (but for the keys read off the wall clock)."""
+    import pytest
 
-    assert cli.NOT_PORTED_FLAGS == ()
-    assert cli.NOT_PORTED_SUBCOMMANDS == {"simulate": "A.12 (f)"}
-    assert launcher._NOT_PORTED == {}
-    assert "not ported" not in cli.build_parser().format_help()
+    from tfmesos_tpu.cli import serve_main as jax_serve_main
+    from tfmesos_tpu.fleet.launcher import FleetServer as JaxFleet
+    from tfmesos_tpu_torch import cli
+    from tfmesos_tpu_torch.fleet import catalog, launcher
+
+    for mod, names in ((cli, ("NOT_PORTED_FLAGS", "NOT_PORTED_SUBCOMMANDS",
+                              "_refused")),
+                       (launcher, ("_NOT_PORTED", "_refuse", "NotPorted")),
+                       (catalog, ("NotPorted",))):
+        assert not [n for n in names if hasattr(mod, n)], mod.__name__
+    assert cli.SUBCOMMANDS["simulate"] is cli.simulate_main
+    for parser in (cli.build_parser(), cli.build_serve_parser(),
+                   cli.build_simulate_parser()):
+        assert "not ported" not in parser.format_help()
+    for Fleet in (launcher.FleetServer, JaxFleet):
+        with pytest.raises(TypeError, match="no_such_option"):
+            Fleet(replicas=1, no_such_option=1)
+
+    argv = ["simulate", "soak-replay", "--seed", "3", "--json"]
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from tfmesos_tpu_torch import cli\n"
+        f"rc = cli.main({argv!r})\n"
+        "assert 'torch' not in sys.modules, 'the simulator imported torch'\n"
+        "sys.exit(rc)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+    import contextlib
+    import io
+
+    from torch_jax_cases import timeless
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jax_serve_main(argv) == 0
+    mine = timeless(json.loads(out.stdout))
+    assert mine == timeless(json.loads(buf.getvalue()))
+    assert mine["lost"] == 0 and mine["victim_isolated"]
 
 
 def test_edge_modules_and_the_gateway_entry_run_with_jax_blocked():

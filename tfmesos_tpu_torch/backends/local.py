@@ -31,7 +31,7 @@ class LocalBackend(ResourceBackend):
 
     def __init__(self, cpus: Optional[float] = None, mem: float = 1 << 20,
                  chips: int = 0, offer_interval: float = 0.05,
-                 inherit_env: bool = True):
+                 inherit_env: bool = True, chaos=None):
         # "cpus" here are scheduling slots, not a pinning claim: this backend
         # exists to run many-task dev clusters on small hosts, so advertise a
         # generous floor rather than the literal core count.
@@ -40,6 +40,10 @@ class LocalBackend(ResourceBackend):
         self.chips = chips
         self.offer_interval = offer_interval
         self.inherit_env = inherit_env
+        # Optional chaos.FaultPlan: launched pids register with it (so
+        # kill_task faults can SIGKILL by job:index name) and drop_agent
+        # faults execute through chaos_drop_agent below.
+        self.chaos = chaos
         self.log = get_logger("tfmesos_tpu_torch.local")
 
         self._scheduler = None
@@ -54,6 +58,8 @@ class LocalBackend(ResourceBackend):
 
     def start(self, scheduler) -> None:
         self._scheduler = scheduler
+        if self.chaos is not None:
+            self.chaos.bind_backend(self)
         scheduler.on_registered({"backend": "local", "cpus": self.cpus,
                                  "mem": self.mem, "chips": self.chips})
         self._offer_thread = threading.Thread(target=self._offer_loop,
@@ -111,6 +117,9 @@ class LocalBackend(ResourceBackend):
                 continue
             self._procs[task_id] = proc
             self.log.info("launched local task %s pid=%d", task_id[:8], proc.pid)
+            if self.chaos is not None:
+                self.chaos.observe_launch(info.get("name", task_id),
+                                          task_id, proc.pid)
             self._scheduler.on_status(TaskStatus(task_id, "TASK_RUNNING",
                                                  agent_id="local"))
             threading.Thread(target=self._watch, args=(task_id, proc, used),
@@ -140,6 +149,19 @@ class LocalBackend(ResourceBackend):
         proc = self._procs.get(task_id)
         if proc is not None and proc.poll() is None:
             _terminate(proc)
+
+    def chaos_drop_agent(self) -> None:
+        """Fault-injection entry (chaos.FaultPlan 'drop_agent'): the whole
+        agent vanishes — every task process group SIGKILLed at once, then
+        the agent-lost callback, exactly the order a real host loss
+        presents."""
+        for proc in list(self._procs.values()):
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
+        self._scheduler.on_agent_lost("local")
 
     def stop(self) -> None:
         self._shutdown.set()

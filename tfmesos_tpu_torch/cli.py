@@ -3,7 +3,7 @@
 ``parse_volumes``, ``LogCollector``, ``forward_map`` and ``main``, here
 ``run_main``; the serving entry ``build_serve_parser``, ``serve_main``
 and the ``submit``, ``batch``, ``metrics``, ``trace``, ``gateways``,
-``rollout`` and ``swap-adapter`` subcommands).
+``rollout``, ``swap-adapter`` and ``simulate`` subcommands).
 
     python -m tfmesos_tpu_torch.cli run -w 2 -s 0 [--worker-logs '*'] \
         [--mesh dp=-1] [--restarts N | --restart-policy elastic] \
@@ -19,6 +19,9 @@ and the ``submit``, ``batch``, ``metrics``, ``trace``, ``gateways``,
     python -m tfmesos_tpu_torch.cli rollout -g HOST:PORT --version v1
     python -m tfmesos_tpu_torch.cli swap-adapter -g HOST:PORT --model chat \
         --version a1 --npz delta.npz
+    python -m tfmesos_tpu_torch.cli simulate soak-replay
+    python -m tfmesos_tpu_torch.cli simulate steady \
+        --sweep breaker.latency_factor=2,8 [--replay trace.json] [--json]
 
 ``serve`` brings up a registry and a gateway in process (or
 ``--gateway-processes`` gateway processes, with ``--http-port`` the
@@ -27,9 +30,11 @@ HTTP/SSE edge on the first) and launches port replicas
 with ``--master``, on a Mesos cluster's agents, on the card unless
 ``--device cpu``.  ``--batch-lane`` adds the offline ``batch`` class
 that ``batch`` submits to.  It runs until SIGINT (ctrl-c), then stops
-the fleet and every replica process.  Every flag of the JAX ``tfserve``
-parses; the ``simulate`` subcommand is not ported yet and exits 2 with
-``tfserve: not ported yet: simulate (ROADMAP A.12 (f))``.
+the fleet and every replica process.  Every flag and subcommand of the
+JAX ``tfserve`` is here.  ``simulate`` runs a named fleet-simulator
+scenario (:mod:`tfmesos_tpu_torch.fleet.sim`) on the CPU: the port's own
+control plane on a virtual clock against simulated replicas, touching
+no card.
 
 ``run`` is ``tfrun``: it runs one command on every task of a ps/worker
 job spec as a Mode-B cluster (on this host, or on a Mesos master's
@@ -61,15 +66,8 @@ __all__ = ["build_parser", "parse_mesh", "parse_volumes", "LogCollector",
            "parse_model_spec", "serve_main", "submit_main", "batch_main",
            "build_batch_parser", "trace_main",
            "metrics_main", "gateways_main", "rollout_main",
-           "swap_adapter_main", "main", "NOT_PORTED_FLAGS",
-           "NOT_PORTED_SUBCOMMANDS"]
-
-#: tfserve flags whose machinery waits: (flag, args dest, the default
-#: that asks for nothing, ROADMAP item).  None is left.
-NOT_PORTED_FLAGS: tuple = ()
-
-#: tfserve subcommands whose machinery waits -> ROADMAP item.
-NOT_PORTED_SUBCOMMANDS = {"simulate": "A.12 (f)"}
+           "swap_adapter_main", "build_simulate_parser", "simulate_main",
+           "main"]
 
 
 # -- tfrun ---------------------------------------------------------------
@@ -320,12 +318,6 @@ def run_main(argv: Optional[List[str]] = None) -> int:
 
 
 # -- tfserve --------------------------------------------------------------
-
-
-def _refused(what: str, item: str) -> int:
-    print(f"tfserve: not ported yet: {what} (ROADMAP {item})",
-          file=sys.stderr)
-    return 2
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -621,11 +613,6 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "latency threshold; replicas apply it "
                         "hop-locally too)")
     p.add_argument("-v", "--verbose", action="store_true")
-    for action in p._actions:
-        item = next((i for f, _, _, i in NOT_PORTED_FLAGS
-                     if f in action.option_strings), None)
-        if item is not None:
-            action.help = f"(not ported yet, ROADMAP {item}) {action.help}"
     return p
 
 
@@ -1048,6 +1035,141 @@ def trace_main(argv: List[str]) -> int:
     return 0
 
 
+def build_simulate_parser() -> argparse.ArgumentParser:
+    """``tfserve simulate`` — run a named fleet-simulator scenario: the
+    port's control plane on a virtual clock against simulated replicas,
+    with optional policy-constant sweeps."""
+    from tfmesos_tpu_torch.fleet.sim import SCENARIOS
+
+    p = argparse.ArgumentParser(
+        prog="tfserve simulate",
+        description="Run a fleet-simulator scenario: the REAL "
+                    "admission/router/containment/autoscaler code on a "
+                    "virtual clock against simulated replicas, on the "
+                    "CPU.")
+    p.add_argument("scenario", choices=sorted(SCENARIOS),
+                   help="named scenario to run")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="override the scenario's replica count")
+    p.add_argument("--requests", type=int, default=None,
+                   help="override the scenario's request count")
+    p.add_argument("--seed", type=int, default=None,
+                   help="workload/chaos seed (scenarios are "
+                        "deterministic per seed)")
+    p.add_argument("--set", action="append", default=[], dest="sets",
+                   metavar="PATH=VALUE",
+                   help="fix one policy constant by path (e.g. "
+                        "breaker.latency_factor=8, "
+                        "autoscaler.queue_wait_hi_ms=200, "
+                        "admission.max_queue=256); repeatable")
+    p.add_argument("--sweep", type=str, default=None,
+                   metavar="PATH=V1,V2,...",
+                   help="run the scenario once per value of one "
+                        "policy constant and print a comparison table "
+                        "(e.g. breaker.latency_factor=2,4,8)")
+    p.add_argument("--replay", type=str, default=None, metavar="FILE",
+                   help="replay a recorded `tfserve trace -g GW "
+                        "--json` export as the workload; per-hop "
+                        "timings seed the replica latency model")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print raw result dict(s) as JSON")
+    return p
+
+
+_SIM_COLUMNS = (
+    ("requests", "requests"), ("completed", "completed"),
+    ("lost", "lost"), ("retry_amplification", "amplif"),
+    ("queue_wait_p99_ms", "qwait_p99"),
+    ("sim_events_per_sec", "events/s"), ("sim_seconds", "sim_s"),
+)
+
+
+def _sim_summary_lines(res: dict) -> List[str]:
+    lines = ["  " + "  ".join(f"{label}={res.get(key)}"
+                              for key, label in _SIM_COLUMNS)]
+    for cls, d in sorted((res.get("classes") or {}).items()):
+        lines.append(f"  class {cls:<14s} count={d.get('count'):>8} "
+                     f"p50={d.get('p50_ms')}ms p90={d.get('p90_ms')}ms "
+                     f"p99={d.get('p99_ms')}ms")
+    shed = res.get("shed") or {}
+    if any(any(v) for v in shed.values()):
+        lines.append("  shed (queue, rate, deadline) per class: "
+                     + " ".join(f"{k}={v}" for k, v in sorted(shed.items())))
+    traj = res.get("autoscaler_trajectory")
+    if traj:
+        lines.append(f"  autoscaler: {len(traj)} ticks, last={traj[-1]}")
+    for k in ("victim", "victim_isolated", "victim_alive_while_isolated",
+              "victim_trip_reason", "healed", "probes_conformant",
+              "migration_reruns"):
+        if k in res:
+            lines.append(f"  {k}={res[k]}")
+    return lines
+
+
+def simulate_main(argv: List[str]) -> int:
+    args = build_simulate_parser().parse_args(argv)
+    from tfmesos_tpu_torch.fleet.sim import parse_sweep, run_scenario, run_sweep
+    from tfmesos_tpu_torch.fleet.workload import (fit_replica_model,
+                                            load_trace_export,
+                                            replay_from_traces)
+
+    overrides = []
+    for spec in args.sets:
+        if "=" not in spec:
+            print(f"tfserve simulate: --set needs PATH=VALUE, got "
+                  f"{spec!r}", file=sys.stderr)
+            return 2
+        path, _, value = spec.partition("=")
+        overrides.append((path.strip(), value))
+    kwargs: Dict[str, object] = {}
+    if args.replicas is not None:
+        kwargs["replicas"] = args.replicas
+    if args.requests is not None:
+        kwargs["n_requests"] = args.requests
+    if args.seed is not None:
+        kwargs["seed"] = args.seed
+    if args.replay:
+        try:
+            records = load_trace_export(args.replay)
+        except (OSError, ValueError) as e:
+            print(f"tfserve simulate: cannot load trace export "
+                  f"{args.replay}: {e}", file=sys.stderr)
+            return 2
+        workload = replay_from_traces(records)
+        if not workload:
+            print(f"tfserve simulate: {args.replay} holds no replayable "
+                  f"trace records", file=sys.stderr)
+            return 2
+        kwargs["workload"] = workload
+        kwargs["n_requests"] = len(workload)
+        kwargs["model_fit"] = fit_replica_model(records)
+    try:
+        if args.sweep:
+            path, values = parse_sweep(args.sweep)
+            rows = run_sweep(args.scenario, path, values,
+                             overrides=overrides, **kwargs)
+            if args.as_json:
+                print(json.dumps({v: r for v, r in rows}))
+                return 0
+            print(f"sweep {path} over {args.scenario}:")
+            for value, res in rows:
+                print(f"{path}={value}")
+                for line in _sim_summary_lines(res):
+                    print(line)
+            return 0
+        res = run_scenario(args.scenario, overrides=overrides, **kwargs)
+    except ValueError as e:
+        print(f"tfserve simulate: {e}", file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps(res))
+        return 0
+    print(f"scenario {args.scenario} (wall {res.get('wall_s')}s):")
+    for line in _sim_summary_lines(res):
+        print(line)
+    return 0
+
+
 def build_gateways_parser() -> argparse.ArgumentParser:
     """``tfserve gateways`` — list a fleet's registered front doors
     (client-side discovery for multi-gateway failover)."""
@@ -1349,12 +1471,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in SUBCOMMANDS:
         return SUBCOMMANDS[argv[0]](argv[1:])
-    if argv and argv[0] in NOT_PORTED_SUBCOMMANDS:
-        return _refused(argv[0], NOT_PORTED_SUBCOMMANDS[argv[0]])
     args = build_serve_parser().parse_args(argv)
-    for flag, dest, default, item in NOT_PORTED_FLAGS:
-        if getattr(args, dest) != default:
-            return _refused(flag, item)
     try:
         roles = parse_role_spec(args.role)
         classes = parse_class_spec(args.classes)
@@ -1455,24 +1572,25 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 SUBCOMMANDS = {"submit": submit_main, "batch": batch_main,
                "trace": trace_main,
                "metrics": metrics_main, "gateways": gateways_main,
-               "rollout": rollout_main, "swap-adapter": swap_adapter_main}
+               "rollout": rollout_main, "swap-adapter": swap_adapter_main,
+               "simulate": simulate_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     """``python -m tfmesos_tpu_torch.cli run|serve|submit|batch|metrics|
-    trace|gateways|rollout|swap-adapter ...``: ``run`` is ``tfrun``, ``serve``
+    trace|gateways|rollout|swap-adapter|simulate ...``: ``run`` is
+    ``tfrun``, ``serve``
     is ``tfserve`` itself, the rest are its subcommands."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "run":
         return run_main(argv[1:])
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
-    if argv and (argv[0] in SUBCOMMANDS
-                 or argv[0] in NOT_PORTED_SUBCOMMANDS):
+    if argv and argv[0] in SUBCOMMANDS:
         return serve_main(argv)
     print("usage: python -m tfmesos_tpu_torch.cli "
           "{run,serve,submit,batch,metrics,trace,gateways,rollout,"
-          "swap-adapter} "
+          "swap-adapter,simulate} "
           "...", file=sys.stderr)
     return 2
 

@@ -41,11 +41,22 @@ same module names): online multi-replica inference over port replicas.
 * :mod:`~tfmesos_tpu_torch.fleet.catalog` — the model catalog, the
   warm pool's keys, the cross-model replica trader and the adapter
   delta's wire codec (the replica's ``swap_adapter`` op).
+* :mod:`~tfmesos_tpu_torch.fleet.gang` — gang replicas: one routable
+  replica over N member processes.
+* :mod:`~tfmesos_tpu_torch.fleet.http` — the HTTP/SSE edge on a
+  gateway's port; the gateway module is also the gateway process
+  (``python -m tfmesos_tpu_torch.fleet.gateway``) with its registry
+  sidecar.  ``FleetServer(batch_lane=True)`` adds the offline lane.
+* :mod:`~tfmesos_tpu_torch.fleet.sim` /
+  :mod:`~tfmesos_tpu_torch.fleet.workload` — the trace-driven fleet
+  simulator: the admission, router, containment, registry, autoscaler
+  and catalog code above on a virtual clock against simulated
+  replicas, with synthesized or trace-replayed workloads, named
+  scenarios (``tfserve simulate``) and policy-constant sweeps.
 
 The wire is byte-compatible with the JAX package's, so a port replica
 serves behind the JAX registry and gateway and a JAX replica behind the
-port's.  Not ported yet: gang replicas, gateway processes, the HTTP
-edge, the offline lane, the simulator (ROADMAP A.9, A.12).
+port's.
 """
 
 from __future__ import annotations
@@ -69,9 +80,15 @@ from tfmesos_tpu_torch.fleet.metrics import FleetMetrics
 from tfmesos_tpu_torch.fleet.registry import (DECODE, PREFILL, UNIFIED,
                                               ReplicaInfo, ReplicaRegistry)
 from tfmesos_tpu_torch.fleet.router import Router, RoutingError
+from tfmesos_tpu_torch.fleet.sim import (FleetSim, ReplicaModel, SimConfig,
+                                         SimEngine, VirtualClock,
+                                         run_scenario, run_sweep)
 from tfmesos_tpu_torch.fleet.tracing import (FlightRecorder, TraceBook,
                                              TraceContext, format_waterfall,
                                              new_trace_id)
+from tfmesos_tpu_torch.fleet.workload import (Request, SyntheticWorkload,
+                                              fit_replica_model,
+                                              replay_from_traces)
 
 __all__ = [
     "AdmissionController", "Overloaded", "RateLimited",
@@ -86,5 +103,9 @@ __all__ = [
     "ReplicaRegistry", "Router", "RoutingError",
     "FlightRecorder", "TraceBook", "TraceContext", "format_waterfall",
     "new_trace_id",
+    "FleetSim", "ReplicaModel", "SimConfig", "SimEngine",
+    "VirtualClock", "run_scenario", "run_sweep",
+    "Request", "SyntheticWorkload", "fit_replica_model",
+    "replay_from_traces",
     "UNIFIED", "PREFILL", "DECODE",
 ]

@@ -61,13 +61,9 @@ from tfmesos_tpu_torch.utils.logging import get_logger
 
 __all__ = ["ModelSpec", "ModelCatalog", "TraderConfig", "ModelTrader",
            "MODEL_ID_RE", "validate_model_id", "model_key", "split_key",
-           "filter_members", "POOL", "POOL_KEY", "NotPorted",
+           "filter_members", "POOL", "POOL_KEY",
            "pack_adapter", "unpack_adapter", "encode_adapter_fields",
            "decode_adapter_fields"]
-
-
-class NotPorted(ValueError):
-    """A fleet option whose machinery the port does not have yet."""
 
 
 #: the warm pool's reserved pseudo-model id.  Starts with ``_`` so it

@@ -78,7 +78,7 @@ from tfmesos_tpu_torch.fleet.autoscaler import (AutoscalerConfig,
                                                 FleetAutoscaler)
 from tfmesos_tpu_torch.fleet.catalog import (POOL, POOL_KEY, ModelCatalog,
                                              ModelSpec, ModelTrader,
-                                             NotPorted, TraderConfig,
+                                             TraderConfig,
                                              filter_members, model_key,
                                              pack_adapter, split_key)
 from tfmesos_tpu_torch.fleet.client import FleetClient
@@ -94,7 +94,7 @@ from tfmesos_tpu_torch.scheduler import (MAX_FAILURE_COUNT, ClusterError,
                                          TPUMesosScheduler)
 from tfmesos_tpu_torch.utils.logging import get_logger
 
-__all__ = ["FleetServer", "NotPorted", "RolloutError", "TIER_JOBS",
+__all__ = ["FleetServer", "RolloutError", "TIER_JOBS",
            "validate_kv_tier_dir", "validate_weights_version"]
 
 #: tier role -> the scheduler job name its Mode-B tasks launch under.
@@ -135,15 +135,6 @@ def validate_weights_version(version: str) -> str:
 
 class RolloutError(RuntimeError):
     """A blue-green rollout aborted (the old version kept serving)."""
-
-
-#: the JAX FleetServer's options that wait: name -> (what, ROADMAP item,
-#: the value that asks for nothing).  Passing any other value refuses.
-_NOT_PORTED: Dict[str, Tuple[str, str, object]] = {}
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotPorted(f"not ported yet: {what} (ROADMAP {item})")
 
 
 class FleetServer:
@@ -206,15 +197,7 @@ class FleetServer:
                  metrics_port: Optional[int] = None,
                  trace_sample: float = 0.05,
                  trace_slow_ms: float = 1000.0,
-                 quiet: bool = True, token: Optional[str] = None,
-                 **not_ported):
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"FleetServer got an unexpected keyword "
-                                f"argument {name!r}")
-            what, item, default = _NOT_PORTED[name]
-            if value != default:
-                _refuse(what, item)
+                 quiet: bool = True, token: Optional[str] = None):
         if min(replicas, prefill_replicas, decode_replicas) < 0:
             raise ValueError(
                 f"replica counts must be >= 0, got replicas={replicas} "

@@ -189,7 +189,7 @@ class ReplicaRegistry:
     def __init__(self, token: str = "", host: str = "127.0.0.1",
                  suspect_after: float = 1.5, dead_after: float = 3.0,
                  evict_after: float = 10.0, sweep_interval: float = 0.2,
-                 metrics=None, clock=time.monotonic):
+                 metrics=None, chaos=None, clock=time.monotonic):
         self.token = token
         self.host = host
         self.suspect_after = float(suspect_after)
@@ -197,6 +197,9 @@ class ReplicaRegistry:
         self.evict_after = float(evict_after)
         self.sweep_interval = float(sweep_interval)
         self.metrics = metrics
+        # Optional chaos.FaultPlan: consulted per heartbeat so tests can
+        # drop beats (simulated partitions) without touching the replica.
+        self.chaos = chaos
         self._clock = clock
         self.log = get_logger("tfmesos_tpu_torch.fleet.registry")
         self.addr: Optional[str] = None
@@ -389,6 +392,13 @@ class ReplicaRegistry:
         if not addr or op not in ("hello", "heartbeat", "drain"):
             self.log.warning("unexpected registry message: %r", msg)
             return None
+        # Beat-bearing messages only ("hello" IS the first beat — the
+        # table code below treats them identically); a "drain" is an
+        # operator intent, not liveness, and must neither count toward
+        # nor be swallowed by heartbeat faults.
+        if (op != "drain" and self.chaos is not None
+                and self.chaos.on_heartbeat(addr)):
+            return None         # chaos drop: the beat never arrived
         # Optional rollout-identity fields, parsed up front: the
         # generation fence must see ``gen`` before the beat can touch
         # the table, and the pinned-drain reset keys off the beat's

@@ -1,6 +1,5 @@
 """Load-aware request routing across the replica fleet (port of
-``tfmesos_tpu/fleet/router.py``, without the simulator's injectable
-clock and links, which are not ported yet).
+``tfmesos_tpu/fleet/router.py``).
 
 Replica choice is **prefix-affinity first, then
 least-outstanding-requests with power-of-two-choices sampling**:
@@ -153,7 +152,9 @@ class Router:
                  rng: Optional[random.Random] = None,
                  breakers: bool = True,
                  breaker_config: Optional[BreakerConfig] = None,
-                 retry_budget: Optional[RetryBudget] = None):
+                 retry_budget: Optional[RetryBudget] = None,
+                 clock=time.monotonic, sleep=time.sleep,
+                 link_factory=None):
         self.registry = registry
         self.metrics = metrics
         self.token = token
@@ -165,11 +166,23 @@ class Router:
         self._rng = rng or random.Random()
         self._links: Dict[str, MuxConnection] = {}
         self._lock = threading.Lock()
+        # Injectable time base: EVERY clock reading on the routing path
+        # (deadline checks, timeout slices, breaker latency samples,
+        # retry backoff) goes through these two, so the same code runs
+        # on time.monotonic in production and on the fleet simulator's
+        # virtual clock with no real sleeping.
+        self._clock = clock
+        self._sleep = sleep
+        # link_factory(addr) -> MuxConnection-shaped transport: the
+        # simulator substitutes virtual links; production dials TCP.
+        self._link_factory = link_factory or (
+            lambda addr: MuxConnection(
+                addr, self.token, connect_timeout=self.connect_timeout))
         # Failure containment (module docstring): per-replica circuit
         # breakers (None = disabled — the bench's control arm) and the
         # fleet-wide retry budget.
         self.breakers: Optional[BreakerBoard] = \
-            BreakerBoard(breaker_config) if breakers else None
+            BreakerBoard(breaker_config, clock=clock) if breakers else None
         self.budget = retry_budget or RetryBudget()
         # Blue-green rollout: when set, every tier's candidate set is
         # narrowed to replicas advertising THIS weights_version whenever
@@ -370,7 +383,7 @@ class Router:
                     probe: bool = False) -> None:
         if self.breakers is not None:
             self.breakers.record_success(
-                addr, (time.monotonic() - t0) * 1000.0, probe=probe)
+                addr, (self._clock() - t0) * 1000.0, probe=probe)
 
     def _breaker_fail(self, addr: str, probe: bool = False) -> None:
         if self.breakers is not None:
@@ -478,7 +491,7 @@ class Router:
             out["model"] = msg["_model"]
         if deadline is not None:
             out["deadline_ms"] = round(
-                max(1.0, (deadline - time.monotonic()) * 1000.0), 3)
+                max(1.0, (deadline - self._clock()) * 1000.0), 3)
         if tr is not None:
             out["trace_id"] = tr.trace_id
             if tr.detailed:
@@ -497,7 +510,7 @@ class Router:
         most of the budget for its decode phase."""
         if deadline is None:
             return self.request_timeout
-        rem = (deadline - time.monotonic()) * share
+        rem = (deadline - self._clock()) * share
         if not final_attempt:
             rem *= 0.5
         return min(self.request_timeout, max(0.05, rem))
@@ -649,8 +662,7 @@ class Router:
         # through that would stall every worker's pick()/route() on the
         # healthy replicas too.  A dial race just keeps the first link
         # registered and closes the loser.
-        link = MuxConnection(addr, self.token,
-                             connect_timeout=self.connect_timeout)
+        link = self._link_factory(addr)
         with self._lock:
             existing = self._links.get(addr)
             if existing is not None and not existing.closed:
@@ -733,7 +745,7 @@ class Router:
         self.log.warning("%s replica %s failed (%s); retrying on "
                          "another replica (attempt %d/%d)", what, addr, e,
                          attempt + 1, self.max_retries + 1)
-        time.sleep(self.backoff_s * (2 ** attempt))
+        self._sleep(self.backoff_s * (2 ** attempt))
         return True
 
     def _note_replica_error(self, addr: str, tried: set,
@@ -839,7 +851,7 @@ class Router:
 
         call = build_call(meta)
         for attempt in range(self.max_retries + 1):
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and self._clock() >= deadline:
                 return self._expired_reply("while resuming its "
                                            "migrated state")
             addr = self._pick_resume(tried, wv, model=art_model,
@@ -848,7 +860,7 @@ class Router:
                 break
             rprobe = self._breaker_dispatch(addr)
             att0 = tracing.cur_elapsed()
-            t0 = time.monotonic()
+            t0 = self._clock()
             timeout = self._call_timeout(deadline,
                                          attempt >= self.max_retries)
             try:
@@ -950,7 +962,7 @@ class Router:
                              meta.get("gen"))
             return None
         deadline = self._deadline_of(msg)
-        if deadline is not None and time.monotonic() >= deadline:
+        if deadline is not None and self._clock() >= deadline:
             return self._expired_reply("while resuming its migrated "
                                        "state")
         emit = msg.get("_emit")
@@ -962,7 +974,7 @@ class Router:
         if msg.get("stream"):
             call["stream"] = True
         rprobe = self._breaker_dispatch(addr)
-        t0 = time.monotonic()
+        t0 = self._clock()
         timeout = self._call_timeout(deadline, True)
         try:
             if emit is not None:
@@ -1040,7 +1052,7 @@ class Router:
         ``cancel`` op back down the same link (the frame's ``id`` is
         the replica-side call id) and swallow all further frames.
         Best-effort by design: an emitter without the probe, or a link
-        without :meth:`notify` (a test stub), passes through
+        without :meth:`notify` (sim/test stubs), passes through
         unchanged, and a lost cancel merely costs the tokens the
         request would have decoded anyway."""
         if emit is None:
@@ -1088,7 +1100,7 @@ class Router:
         A ``_trace`` context riding ``msg`` (the gateway attaches one
         per request) is ACTIVATED thread-locally for the whole routing
         loop: every attempt records a span with its outcome taxonomy,
-        deep helpers (breaker filter, budget charges)
+        deep helpers (breaker filter, budget charges, chaos firings)
         attribute themselves to it, and replica-piggybacked hop spans
         are stitched back in at each attempt's start offset."""
         tr = msg.get("_trace") if isinstance(msg, dict) else None
@@ -1120,11 +1132,12 @@ class Router:
         # forward as the internal `_emit` (stripped by _wire_msg); each
         # attempt's partial token frames pass straight through to it,
         # and the gateway's offset de-dup makes retries exactly-once.
-        # Passed only when streaming: unstreamed routing keeps the
-        # plain call.
+        # Passed only when streaming, at every call site: substituted
+        # links (the simulator's, test stubs) do not take on_partial,
+        # and unstreamed routing must not require them to.
         emit = msg.get("_emit") if isinstance(msg, dict) else None
         for attempt in range(self.max_retries + 1):
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and self._clock() >= deadline:
                 # Fail fast, at the loop head: the client has given up,
                 # and every further attempt (including the first) would
                 # be pure waste — this is what keeps retries from
@@ -1149,7 +1162,7 @@ class Router:
                 break       # nothing (left) to try
             probe = self._breaker_dispatch(addr)
             att0 = tracing.cur_elapsed()
-            t0 = time.monotonic()
+            t0 = self._clock()
             timeout = self._call_timeout(deadline,
                                          attempt >= self.max_retries)
             try:
@@ -1260,7 +1273,7 @@ class Router:
         routable replica of ``model``.  Returns the first pick, or
         ``None`` when the wait budget (the request deadline, capped at
         ``model_wait_s``) runs out."""
-        t0 = time.monotonic()
+        t0 = self._clock()
         self.metrics.inc("model_cold_waits")
         tracing.cur_event("router", "model_cold_start", model=model)
         try:
@@ -1272,13 +1285,13 @@ class Router:
         limit = t0 + self.model_wait_s
         if deadline is not None:
             limit = min(limit, deadline)
-        while time.monotonic() < limit:
+        while self._clock() < limit:
             addr = self.pick(prompt=prompt, session=session, model=model)
             if addr is not None:
                 self.metrics.observe("model_cold_wait_ms",
-                                     (time.monotonic() - t0) * 1000.0)
+                                     (self._clock() - t0) * 1000.0)
                 return addr
-            time.sleep(0.05)
+            self._sleep(0.05)
         return None
 
     # -- the disaggregated prefill -> transfer -> decode path --------------
@@ -1327,9 +1340,9 @@ class Router:
         last: Optional[BaseException] = None
         deadline = self._deadline_of(msg)
         ptried: set = set()
-        t0 = time.monotonic()
+        t0 = self._clock()
         for attempt in range(self.max_retries + 1):
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and self._clock() >= deadline:
                 return self._expired_reply("before prefill could "
                                            "run"), None
             paddr = self.pick_prefill(exclude=ptried, prompt=prompt,
@@ -1353,7 +1366,7 @@ class Router:
                 call["xfer"] = xfer
             pprobe = self._breaker_dispatch(paddr)
             patt0 = tracing.cur_elapsed()
-            tp = time.monotonic()
+            tp = self._clock()
             # The prefill phase spends at most a quarter of the
             # remaining budget: decode is the long phase, and a hung
             # prefill replica must leave it a real slice.
@@ -1417,7 +1430,7 @@ class Router:
             self._trace_attempt("prefill", patt0, paddr, "ok",
                                 reply=praw)
             self._breaker_ok(paddr, tp, pprobe)
-            ttft_ms = (time.monotonic() - t0) * 1000.0
+            ttft_ms = (self._clock() - t0) * 1000.0
             self.metrics.inc("disagg_prefills")
             if pushed:
                 out, derr = self._disagg_decode_pushed(msg, praw,
@@ -1436,7 +1449,7 @@ class Router:
                         out["decode_ms"] = round(dec_total - dec_ttft, 3)
                     out["ttft_ms"] = round(ttft_ms, 3)
                     out["total_ms"] = round(
-                        (time.monotonic() - t0) * 1000.0, 3)
+                        (self._clock() - t0) * 1000.0, 3)
                     self.metrics.inc("disagg_requests")
                     self.budget.on_success()
                 return out, None
@@ -1481,7 +1494,7 @@ class Router:
         # weights must only continue under the same (fresh prefill
         # artifacts carry no pin — the tier shares the fleet version).
         for attempt in range(self.max_retries + 1):
-            if deadline is not None and time.monotonic() >= deadline:
+            if deadline is not None and self._clock() >= deadline:
                 return self._expired_reply("before decode could "
                                            "run"), None
             daddr = self.pick_decode(exclude=dtried,
@@ -1494,7 +1507,7 @@ class Router:
             timeout = self._call_timeout(deadline,
                                          attempt >= self.max_retries)
             try:
-                tm = t0 = time.monotonic()
+                tm = t0 = self._clock()
                 if emit is not None:
                     dlink = self._link(daddr)
                     reply = dlink.call_raw(
@@ -1508,7 +1521,7 @@ class Router:
                         timeout=timeout)
                 self.metrics.observe(
                     "kv_decode_turnaround_ms",
-                    (time.monotonic() - t0) * 1000.0)
+                    (self._clock() - t0) * 1000.0)
                 # Counted only on a delivered transfer: a retried or
                 # failed send must not inflate the bench's KV-transfer
                 # throughput.
@@ -1620,7 +1633,7 @@ class Router:
         nbytes = pref.get("bytes")
         emit = msg.get("_emit")
         deadline = self._deadline_of(msg)
-        if deadline is not None and time.monotonic() >= deadline:
+        if deadline is not None and self._clock() >= deadline:
             return self._expired_reply("before decode could run"), None
         call = {"op": "generate", "kv_ref": xfer,
                 "prompt": msg.get("prompt"),
@@ -1633,7 +1646,7 @@ class Router:
         datt0 = tracing.cur_elapsed()
         timeout = self._call_timeout(deadline, True)
         try:
-            tm = t0 = time.monotonic()
+            tm = t0 = self._clock()
             if emit is not None:
                 dlink = self._link(daddr)
                 reply = dlink.call(
@@ -1643,7 +1656,7 @@ class Router:
                 reply = self._link(daddr).call(
                     self._wire_msg(call, deadline), timeout=timeout)
             self.metrics.observe("kv_decode_turnaround_ms",
-                                 (time.monotonic() - t0) * 1000.0)
+                                 (self._clock() - t0) * 1000.0)
             # The bytes moved peer-to-peer (the prefill replica's ack
             # counted them); recorded only once the referencing decode
             # call DELIVERED, mirroring the relay path's discipline.

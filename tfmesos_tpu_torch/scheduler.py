@@ -30,8 +30,9 @@ with no master, ``MesosBackend`` for a ``host:port``, ``http://`` or
   :meth:`add_gang` adds N tasks as one gang replica, placed
   all-or-nothing within an offer batch.
 
-The JAX scheduler's fault injection (``chaos=``, ROADMAP A.12 (f)) is
-not a parameter here.
+``chaos=`` takes a :class:`~tfmesos_tpu_torch.chaos.FaultPlan`: each
+SPMD dispatch counts as one ``scheduler.dispatch`` event, so "kill task
+i at dispatch N" replays a mid-training preemption exactly.
 """
 
 from __future__ import annotations
@@ -98,7 +99,8 @@ class TPUMesosScheduler:
                  restart_backoff_max: float = 30.0,
                  restart_jitter: float = 0.1,
                  restart_seed: Optional[int] = None,
-                 dynamic: bool = False):
+                 dynamic: bool = False,
+                 chaos=None):
         if restart_policy not in ("fail_fast", "elastic"):
             raise ValueError(f"restart_policy must be fail_fast|elastic, "
                              f"got {restart_policy!r}")
@@ -137,6 +139,7 @@ class TPUMesosScheduler:
         self.restart_jitter = float(restart_jitter)
         # Seedable jitter, so a recovery's timing replays exactly.
         self._restart_rng = random.Random(restart_seed)
+        self.chaos = chaos
 
         self.log = get_logger("tfmesos_tpu_torch.scheduler", quiet=quiet)
         # One token per bring-up by default; an explicit ``token`` lets
@@ -1315,6 +1318,10 @@ class TPUMesosScheduler:
             dispatchable = {rank: (t, t.connection)
                             for rank, t in enumerate(self.tasks)
                             if t.cmd is None and t.connection is not None}
+        if self.chaos is not None:
+            # Fault-injection trigger point: "kill task i at dispatch N"
+            # is the deterministic stand-in for a mid-training preemption.
+            self.chaos.event("scheduler.dispatch", key=str(call_id))
         spec = _func_spec(func)
         if ranks is None:
             targets = list(dispatchable.values())
