@@ -408,7 +408,11 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     reply's launch delta holds rows 1-3 at 8 a step and every other
     kernel at 0; (d) ``mnist_replica`` under ``tfrun -w 2 -s 1`` (three
     ranks), 50 steps: the output contract, and every rank's validation
-    cross entropy equal.  Prints the bring-up's seconds (to both ranks
+    cross entropy equal.  (a), (b) and (d) start together (their
+    process starts overlap), with phase 27's two launches, whose
+    one-process references this process computes while they run; then
+    (c) runs here, beside them (so phase 23's seconds and ms a step are
+    taken under phase 27's load).  Prints the bring-up's seconds (to both ranks
     answering, their process group formed), the kill to ``wait_ready``
     and to the new gang answering, ms a step for one rank and for two,
     and the gloo all-reduce of the flagship's gradients a step.
@@ -437,8 +441,10 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     request 0's stream, each rank's launches of this part exact (8
     flash_fwd a prefill, 8 paged a tick and a tail); (c) the same
     traffic on ``--mesh dp=2,tp=2`` over four ranks, 4 rows a data
-    shard, every shard's sub-pool recycled to its sink at the end; (d)
-    a Mode-A gang of two ranks training the flagship at phase 8's shape
+    shard, every shard's sub-pool recycled to its sink at the end ((b)'s
+    two launches and (c)'s start together, eight ranks on the card, and
+    each is checked as if alone: their ms a tick are taken under each
+    other's load); (d) a Mode-A gang of two ranks training the flagship at phase 8's shape
     for 4 steps through ``transformer_train``'s setup and loop over
     ``tp=2`` and ``fsdp=2``, then the same through ``tfrun -w 2 --mesh
     ... -- python -m tfmesos_tpu_torch.transformer_train``: every
@@ -490,6 +496,33 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     process holding a client's connection SIGKILLed under traffic:
     16/16 requests complete with every streamed token once, the
     failover gap, and the seconds until its lease expires.
+27. MoE, ep and sp (run right after 23, with whose launches its own
+    two start, before 23): (a) the flagship with 8 experts, each token to 2, the
+    dense top-k form: ``quantize_params`` over its tree in ONE int8
+    launch, every leaf bit-exact to the plain version (the experts
+    int8, the router fp); then phase 5's 16 requests through a warmed,
+    graphed ``ContinuousBatcher`` (rows 8, page 64, bucket 64): no graph
+    captured after warmup, exact launches (8 flash_fwd a prefill, 8
+    paged a tick), every stream held to the CPU float32 teacher-forced
+    argmax wherever the margin exceeds 0.25, ms a tick and TTFT; (b)
+    ``tfrun -w 4 --mesh sp=2,ep=2 -- python -m
+    tfmesos_tpu_torch.transformer_train --moe 8 --top-k 2`` (switch,
+    the ring over sp, experts over ep) at B 8, T 2048 for 4 steps, and
+    (c) ``tfrun -w 2 --mesh sp=2 ... --sp-impl ulysses --kv-heads 4``
+    (dense): every rank's losses equal, within 2e-2 of one process of
+    the same config and seed in this process, (b)'s overflow fraction
+    within 1e-2 of it; every rank's launches exact (the ring: flash_fwd
+    and the backward pair once a layer a step for each visible shard,
+    1 on sp rank 0 and 2 on sp rank 1; Ulysses: once), with each rank's
+    peak device memory.
+
+Phases 3 and 4 also hold rows 1-3 at a flagship sp=2 rank's ring steps
+(T/sp = 1024 at [8, 1024, 8, 64]): the causal step, the full step
+(``causal=False``), a windowed step at q_offset 1024 (window 1536), the
+full step's backward with float32 gradients (timed beside SDPA), and a
+rank's two steps merged by their logsumexps with each step's backward
+run from the global lse, against the plain versions and against
+``flash_attention`` over the whole T 2048.
 
 It prints each phase's seconds.
 
@@ -556,6 +589,10 @@ MIN_CHECKED = 10
 # gradients (the FMA kernels) differ only in summation order.
 BWD_REL_TOL = 2e-2
 BWD_F32_ATOL = 1e-4
+# Phases 3-4's ring steps: a flagship sp=2 rank's shard (phase 27 (b))
+# and the window of the windowed step.
+RING_T = 1024
+RING_WINDOW = 1536
 # Training: 20 measured steps after 2 warm-up steps; card bf16 vs CPU
 # float32 gradients at [1, 1024].
 TRAIN_STEPS = 20
@@ -752,7 +789,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/26] device")
+    say("[1/27] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -766,7 +803,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/26] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/27] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -941,10 +978,11 @@ def paged_case(torch, gen, label, rows, t, h, kv, ps, np_, d, pos, dtype,
 
 
 def _flash_case(torch, flash_rows, b, t, window, draw, kv=None, tk=None,
-               q_offset=0, h=8, d=64):
+               q_offset=0, h=8, d=64, causal=True, label=None):
     """One flash_fwd case on the card (inputs from ``draw``): the kernel
     against its plain version, timed beside SDPA and the bound; the row
-    goes to ``flash_rows``."""
+    goes to ``flash_rows``.  ``causal=False`` is a full (unmasked)
+    call, as a ring step past the first runs it."""
     import torch.nn.functional as F
 
     from tfmesos_tpu_torch.ops import attention as ta
@@ -954,11 +992,11 @@ def _flash_case(torch, flash_rows, b, t, window, draw, kv=None, tk=None,
     tk = t if tk is None else tk
     scale = 1.0 / math.sqrt(d)
     q, k, v = draw(b, t, h, d), draw(b, tk, kv, d), draw(b, tk, kv, d)
-    o_k, lse_k = ta.flash_forward(q, k, v, causal=True, window=window,
+    o_k, lse_k = ta.flash_forward(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
     route, rows = fwd_launched(torch, ta, q)
     o_p, lse_p = ta.flash_attention_reference(
-        q, k, v, causal=True, scale=scale, window=window,
+        q, k, v, causal=causal, scale=scale, window=window,
         q_offset=q_offset)
     torch.cuda.synchronize()
     err_o = float((o_k.float() - o_p.float()).abs().max())
@@ -967,16 +1005,20 @@ def _flash_case(torch, flash_rows, b, t, window, draw, kv=None, tk=None,
          f"flash_fwd [{b},{t},{h},{d}] kv={kv} tk={tk} window={window} "
          f"q_offset={q_offset}: o err {err_o} lse err {err_l}")
     ms = cuda_ms(torch, lambda: ta.flash_forward(
-        q, k, v, causal=True, window=window, q_offset=q_offset))
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
     enqueue = host_us(torch, lambda: ta.flash_forward(
-        q, k, v, causal=True, window=window, q_offset=q_offset))
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
     plain = cuda_ms(torch, lambda: ta.flash_attention_reference(
-        q, k, v, causal=True, scale=scale, window=window,
+        q, k, v, causal=causal, scale=scale, window=window,
         q_offset=q_offset))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     gqa = {"enable_gqa": True} if kv != h else {}
     allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
-    if window is None and q_offset == 0 and tk == t:
+    if not causal:
+        allow = torch.ones_like(allow)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **gqa))
+    elif window is None and q_offset == 0 and tk == t:
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, **gqa))
     else:
@@ -987,13 +1029,15 @@ def _flash_case(torch, flash_rows, b, t, window, draw, kv=None, tk=None,
     bytes_ = (2 * b * t * h * d + 2 * b * tk * kv * d) * 2 + b * h * t * 4
     bms, by = bound(bytes_, flops)
     row = {"shape": [b, t, h, d], "kv": kv, "tk": tk, "window": window,
-           "q_offset": q_offset, "route": route, "block_rows": rows,
+           "q_offset": q_offset, "causal": causal, "route": route,
+           "block_rows": rows, **({"case": label} if label else {}),
            "max_abs_err": err_o, "lse_err": err_l, "ms": ms,
            "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
            "bound_by": by, "host_us": enqueue}
     flash_rows.append(row)
-    say(f"  flash_fwd {row['shape']} kv={kv} tk={tk} window={window} "
-        f"q_offset={q_offset} [{route}, BQ {rows}]: kernel_ms {ms:.4f} "
+    say(f"  flash_fwd {label + ' ' if label else ''}{row['shape']} kv={kv} "
+        f"tk={tk} window={window} q_offset={q_offset} causal={causal} "
+        f"[{route}, BQ {rows}]: kernel_ms {ms:.4f} "
         f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms "
         f"{bms:.5f} ({by}) o_err {err_o:.2e} lse_err {err_l:.2e} "
         f"host_us {enqueue:.1f}")
@@ -1004,7 +1048,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/26] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/27] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -1053,6 +1097,21 @@ def phase_kernels(torch):
     gen_draft = torch.Generator().manual_seed(30)
     flash_case(1, 512, None, lambda *shape: torch.randn(
         shape, generator=gen_draft).to(dev, torch.bfloat16), h=4, d=32)
+    # A flagship sp=2 rank's ring steps (phase 27): T/sp = 1024 at
+    # [8, 1024, 8, 64], the own shard causal (step 0), a visible shard
+    # full (causal=False, step >= 1), and a windowed step (causal at
+    # q_offset 1024 over the previous shard), from a generator of their
+    # own.
+    gen_ring = torch.Generator().manual_seed(27)
+
+    def draw_ring(*shape):
+        return torch.randn(shape, generator=gen_ring).to(dev, torch.bfloat16)
+
+    flash_case(8, RING_T, None, draw_ring, label="ring step 0")
+    flash_case(8, RING_T, None, draw_ring, causal=False,
+               label="ring step 1")
+    flash_case(8, RING_T, RING_WINDOW, draw_ring, q_offset=RING_T,
+               label="ring windowed step 1")
     return flash_rows, paged_rows
 
 
@@ -1171,6 +1230,8 @@ def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
     if not time_it:
         return row
     allow = ~ta._causal_mask(t, tk, q_offset, window, dev)
+    if not causal:
+        allow = torch.ones_like(allow)
     pairs = b * h * int(allow.sum())            # visible (q, k) pairs
     qbytes, kbytes = b * t * h * d * 2, b * tk * kv * d * 2
     ins = 2 * qbytes + 2 * kbytes + 2 * b * h * t * 4
@@ -1195,7 +1256,7 @@ def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2).contiguous()
     row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
@@ -1218,10 +1279,82 @@ def _bwd_case(torch, gen, b, t, h, kv, d, window=None, q_offset=0,
     return row
 
 
+def ring_merge_check(torch, gen):
+    """A flagship sp=2 rank 1's ring at T/sp = 1024 in one process: the
+    kernels' step 0 (its own shard, causal) and step 1 (rank 0's shard,
+    full), merged by their logsumexps; then each step's backward pair
+    with the GLOBAL merged lse, the merged output and float32 gradients
+    (dk/dv of each shard), each against its plain version from the same
+    inputs, and the merged output and summed gradients against
+    ``flash_attention`` and its backward over the whole T 2048 (the
+    queries of the second half)."""
+    from tfmesos_tpu_torch.ops import attention as ta
+    from tfmesos_tpu_torch.parallel.ring_attention import _merge
+
+    dev = torch.device("cuda")
+    b, t, h, d = 8, RING_T, 8, 64
+    q, k, v, do = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+                   for s in ((b, 2 * t, h, d),) * 4)
+    q1, do1 = q[:, t:].contiguous(), do[:, t:].contiguous()
+    halves = [(k[:, :t].contiguous(), v[:, :t].contiguous()),
+              (k[:, t:].contiguous(), v[:, t:].contiguous())]
+    steps = [(halves[1], True), (halves[0], False)]     # own, then rank 0's
+    o, lse = None, None
+    for (ks, vs), causal in steps:
+        o_i, lse_i = ta.flash_forward(q1, ks, vs, causal=causal)
+        o, lse = ((o_i.float(), lse_i) if o is None
+                  else _merge(o, lse, o_i.float(), lse_i))
+    out = o.to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    delta = ta._bwd_delta(out, do1)
+    dq = 0
+    dkv = {}
+    errs = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for i, ((ks, vs), causal) in enumerate(steps):
+        args = (q1, ks, vs, do1, lse, delta, causal, scale, None, 0,
+                torch.float32)
+        got = (ta.flash_bwd_dq(*args),) + ta.flash_bwd_dkv(*args)
+        ref = ((ta._flash_bwd_dq_reference(*args),)
+               + ta._flash_bwd_dkv_reference(*args))
+        for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+            err = float((g_ - r_).abs().max())
+            tol = BWD_REL_TOL * max(1.0, float(r_.abs().max()))
+            need(g_.dtype == torch.float32 and err <= tol,
+                 f"ring step {i} {name} (global lse, float32): err {err} > "
+                 f"{tol}")
+            errs[name] = max(errs[name], err)
+        dq = dq + got[0]
+        dkv[1 - i] = got[1:]                 # step 0 holds shard 1
+    qf, kf, vf = (x.detach().requires_grad_() for x in (q, k, v))
+    whole = ta.flash_attention(qf, kf, vf, causal=True)
+    dwhole = torch.autograd.grad(whole, (qf, kf, vf),
+                                 torch.cat([torch.zeros_like(do1), do1], 1))
+    torch.cuda.synchronize()
+    e_o = float((out.float() - whole[:, t:].float()).abs().max())
+    e_dq = float((dq - dwhole[0][:, t:].float()).abs().max())
+    dk = torch.cat([dkv[0][0], dkv[1][0]], 1)
+    dv = torch.cat([dkv[0][1], dkv[1][1]], 1)
+    e_dk = float((dk - dwhole[1].float()).abs().max())
+    e_dv = float((dv - dwhole[2].float()).abs().max())
+    for name, err, ref in (("o", e_o, whole), ("dq", e_dq, dwhole[0]),
+                           ("dk", e_dk, dwhole[1]), ("dv", e_dv, dwhole[2])):
+        tol = BWD_REL_TOL * max(1.0, float(ref.float().abs().max()))
+        need(err <= tol, f"ring merge {name} vs flash_attention over T "
+             f"{2 * t}: err {err} > {tol}")
+    row = {"ring": True, "shape": [b, t, h, h, d], "steps": 2,
+           "step_errs": errs, "merged_vs_whole": {
+               "o": e_o, "dq": e_dq, "dk": e_dk, "dv": e_dv}}
+    say(f"  ring merge [8, {t}] x 2 steps (global lse, float32 grads): "
+        f"per-step err dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+        f"{errs['dv']:.2e} vs plain; merged vs flash_attention over T "
+        f"{2 * t}: o {e_o:.2e} dq {e_dq:.2e} dk {e_dk:.2e} dv {e_dv:.2e}")
+    return row
+
+
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/26] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/27] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1252,7 +1385,18 @@ def phase_backward(torch):
     for d in (16, 32):
         checks += [case(2, 300, 8, 8, d), case(1, 300, 8, 2, d),
                    case(1, 200, 4, 4, d, window=50, q_offset=37, tk=237)]
+    # A flagship sp=2 rank's ring-step backward (phase 27): the visible
+    # shard's full step at [8, 1024, 8, 64] with float32 gradients,
+    # timed; then the two halves' merged forward and their backward with
+    # the global lse, against flash_attention over the whole T 2048.
+    gen = torch.Generator().manual_seed(28)
+    timed.append(case(8, RING_T, 8, 8, 64, causal=False,
+                      out_dtype=torch.float32, time_it=True))
+    timed[-1]["case"] = "ring step 1"
+    checks.append(ring_merge_check(torch, gen))
     for r in checks:
+        if "ring" in r:
+            continue
         say(f"  flash_bwd check {r['shape']} tk={r['tk']} "
             f"causal={r['causal']} window={r['window']} "
             f"q_offset={r['q_offset']} {r['dtype']}->{r['out_dtype']} [dq "
@@ -1268,7 +1412,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/26] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/27] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1445,7 +1589,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/26] teacher-forced check vs float32 CPU forward "
+    say(f"[6/27] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1496,7 +1640,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/26] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/27] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1506,7 +1650,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/26] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/27] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1576,7 +1720,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/26] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/27] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2352,7 +2496,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/26] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/27] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2417,7 +2561,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/26] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/27] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2503,7 +2647,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/26] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/27] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2600,7 +2744,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/26] sampled serving and generation: phase 5's traffic at "
+    say("[13/27] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -2914,7 +3058,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/26] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/27] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -2993,7 +3137,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/26] export/import, preemption and rolling caches: flagship")
+    say("[15/27] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3239,7 +3383,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/26] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/27] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3495,7 +3639,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/26] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/27] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -4134,7 +4278,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/26] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/27] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4485,7 +4629,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/26] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/27] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5269,7 +5413,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/26] speculative decoding, the static prefix and weight swaps: "
+    say("[20/27] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5927,7 +6071,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/26] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/27] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6462,7 +6606,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/26] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/27] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6747,23 +6891,50 @@ def child(argv, timeout: float):
                        capture_output=True, text=True, timeout=timeout)
     secs = time.perf_counter() - t0
     need(p.returncode == 0, f"{' '.join(argv[:3])} exited {p.returncode}: "
-         f"{p.stderr[-3000:]}")
+         f"{p.stderr[-3000:]}\n(stdout) {p.stdout[-3000:]}")
     return p.stdout, p.stderr, secs
+
+
+def start_children(argvs, timeout: float):
+    """:func:`child` for several commands, all started at once: a future
+    each, in order, whose result is that child's (stdout, stderr, s),
+    s its own wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(len(argvs))
+    futures = [pool.submit(child, argv, timeout) for argv in argvs]
+    pool.shutdown(wait=False)
+    return futures
 
 
 def children(argvs, timeout: float):
     """:func:`child` for several commands started together; their
-    (stdout, stderr, s) in order, each s that child's own wall time."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(len(argvs)) as pool:
-        return list(pool.map(lambda argv: child(argv, timeout), argvs))
+    (stdout, stderr, s) in order."""
+    return [f.result() for f in start_children(argvs, timeout)]
 
 
-def phase_surface(torch, np, train):
+def surface_argvs():
+    """Phase 23's child launches: (a) ``plus`` over two Mode-A ranks,
+    (b) ``tfrun`` (Mode B) over two ranks of ``transformer_train``, (d)
+    ``mnist_replica`` under ``tfrun``."""
+    dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
+    return [["tfmesos_tpu_torch.plus", *dev],
+            ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
+             "--mesh", "dp=-1", "--worker-logs", "*", "--",
+             sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
+             "--steps", str(SURFACE_STEPS), *SURFACE_ARGV, *dev],
+            ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "1",
+             "--worker-logs", "*", "--", sys.executable, "-m",
+             "tfmesos_tpu_torch.mnist_replica", "--train_steps",
+             str(MNIST_STEPS), *dev]]
+
+
+def phase_surface(torch, np, train, launched):
     """Phase 23: ``plus`` (a), ``tfrun`` over ``transformer_train`` (b),
     Mode A under the elastic policy with a killed rank (c),
-    ``mnist_replica`` under ``tfrun`` (d)."""
+    ``mnist_replica`` under ``tfrun`` (d); ``launched`` the futures of
+    (a), (b) and (d) (:func:`surface_argvs`), started before this phase
+    together with phase 27's launches."""
     import os
     import shutil
     import signal
@@ -6776,65 +6947,20 @@ def phase_surface(torch, np, train):
                                                     CheckpointManager)
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[23/26] the reference's surface: plus, tfrun, Mode A under the "
+    say("[23/27] the reference's surface: plus, tfrun, Mode A under the "
         "elastic policy, mnist_replica (ranks share the card over gloo)")
     dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
     device = torch.device(SURFACE_DEVICE or "cuda")
     out = {}
 
-    # (a) plus over two Mode-A ranks.
-    stdout, stderr, secs = child(["tfmesos_tpu_torch.plus", *dev], 300)
-    need(stdout.strip().splitlines()[-1] == "42",
-         f"(a) plus printed {stdout!r}")
-    diag = [line for line in stderr.splitlines() if line.startswith("plus:")]
-    kind = device.type + (":0" if device.type == "cuda" else "")
-    need(diag == [f"plus: ['{kind}', '{kind}'] over gloo"],
-         f"(a) plus ran on {diag}")
-    out["a"] = {"printed": 42, "s": secs, "ranks": diag[0]}
-    say(f"  (a) plus printed 42 in {secs:.1f} s: {diag[0]}")
-
-    # (b) tfrun, Mode B: two ranks of transformer_train.
-    stdout, _, secs = child(
-        ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0", "--mesh",
-         "dp=-1", "--worker-logs", "*", "--", sys.executable, "-m",
-         "tfmesos_tpu_torch.transformer_train", "--steps",
-         str(SURFACE_STEPS), *SURFACE_ARGV, *dev], 900)
-    got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
-                          r"(\[.*\])$", stdout, re.M))
-    need(sorted(got) == ["0", "1"], f"(b) missing rank losses: {stdout}")
-    need(got["0"] == got["1"], f"(b) the ranks' losses differ: {got}")
-    losses = json.loads(got["0"])
-    tps = re.search(r"^\[worker:0\] tokens/sec: (\d+) \(per card: "
-                    r"(\d+)\)$", stdout, re.M)
-    need(tps is not None and "[worker:0] Training elapsed time" in stdout,
-         f"(b) rank 0's closing lines missing: {stdout[-2000:]}")
+    # (a), (b) and (d) are independent launches, already running beside
+    # phase 27's two; (c) runs in this process while they run; each is
+    # checked below as it was alone.  (b)'s one-process run is set up
+    # first: (c) all-reduces its gradients' size.
     args = tr.parse_args(["--steps", str(SURFACE_STEPS), *SURFACE_ARGV,
                           *dev])
     run = tr.setup(args, device, start_step=None)
     n_params = sum(p.numel() for p in flatten(run.params).values())
-    half = tr.local_batch(args, 2)
-    streams = [token_batches(half, run.seq_len, run.cfg.vocab_size,
-                             seed=tr.DATA_SEED + r) for r in (0, 1)]
-    ref, step_ms = [], []
-    for _ in range(SURFACE_STEPS):
-        batch = {"tokens": torch.from_numpy(np.concatenate(
-            [next(s)["tokens"] for s in streams])).to(device)}
-        t0 = time.perf_counter()
-        run.params, run.opt_state, m = run.step(run.params, run.opt_state,
-                                                batch)
-        ref.append(float(m["loss"]))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    del run, m, batch
-    gc.collect()
-    dl = max(abs(a - b) for a, b in zip(losses, ref))
-    need(len(losses) == SURFACE_STEPS and dl <= SURFACE_DLOSS,
-         f"(b) tfrun losses {losses} vs one process {ref}: |dloss| {dl}")
-    out["b"] = {"s": secs, "losses": losses, "one_process_losses": ref,
-                "max_dloss": dl, "tokens_per_s": int(tps.group(1)),
-                "one_process_ms_per_step": statistics.median(step_ms[1:])}
-    say(f"  (b) tfrun -w 2 in {secs:.1f} s: losses {losses}, one process "
-        f"{ref} (max |dloss| {dl:.2e}); {tps.group(1)} tokens/s over both "
-        f"ranks")
 
     # (c) Mode A under the elastic policy, rank 1 killed after chunk 2.
     root = tempfile.mkdtemp(prefix="chip-smoke-surface-")
@@ -6930,12 +7056,54 @@ def phase_surface(torch, np, train):
         f"from step {SURFACE_KILL_AFTER * S}; every chunk's losses and the "
         f"final state bit-identical to the uninterrupted run's")
 
-    # (d) mnist_replica under tfrun, three ranks.
-    stdout, _, secs = child(
-        ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "1",
-         "--worker-logs", "*", "--", sys.executable, "-m",
-         "tfmesos_tpu_torch.mnist_replica", "--train_steps",
-         str(MNIST_STEPS), *dev], 600)
+    (a_out, a_err, a_s), (b_out, _, b_s), (d_out, _, d_s) = [
+        f.result() for f in launched]
+    need(a_out.strip().splitlines()[-1] == "42",
+         f"(a) plus printed {a_out!r}")
+    diag = [line for line in a_err.splitlines() if line.startswith("plus:")]
+    kind = device.type + (":0" if device.type == "cuda" else "")
+    need(diag == [f"plus: ['{kind}', '{kind}'] over gloo"],
+         f"(a) plus ran on {diag}")
+    out["a"] = {"printed": 42, "s": a_s, "ranks": diag[0]}
+    say(f"  (a) plus printed 42 in {a_s:.1f} s: {diag[0]}")
+
+    stdout, secs = b_out, b_s
+    got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
+                          r"(\[.*\])$", stdout, re.M))
+    need(sorted(got) == ["0", "1"], f"(b) missing rank losses: {stdout}")
+    need(got["0"] == got["1"], f"(b) the ranks' losses differ: {got}")
+    losses = json.loads(got["0"])
+    tps = re.search(r"^\[worker:0\] tokens/sec: (\d+) \(per card: "
+                    r"(\d+)\)$", stdout, re.M)
+    need(tps is not None and "[worker:0] Training elapsed time" in stdout,
+         f"(b) rank 0's closing lines missing: {stdout[-2000:]}")
+    half = tr.local_batch(args, 2)
+    streams = [token_batches(half, run.seq_len, run.cfg.vocab_size,
+                             seed=tr.DATA_SEED + r) for r in (0, 1)]
+    ref, step_ms = [], []
+    for _ in range(SURFACE_STEPS):
+        batch = {"tokens": torch.from_numpy(np.concatenate(
+            [next(s)["tokens"] for s in streams])).to(device)}
+        t0 = time.perf_counter()
+        run.params, run.opt_state, m = run.step(run.params, run.opt_state,
+                                                batch)
+        ref.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del run, m, batch
+    gc.collect()
+    dl = max(abs(a - b) for a, b in zip(losses, ref))
+    need(len(losses) == SURFACE_STEPS and dl <= SURFACE_DLOSS,
+         f"(b) tfrun losses {losses} vs one process {ref}: |dloss| {dl}")
+    out["b"] = {"s": secs, "losses": losses, "one_process_losses": ref,
+                "max_dloss": dl, "tokens_per_s": int(tps.group(1)),
+                "one_process_ms_per_step": statistics.median(step_ms[1:])}
+    say(f"  (b) tfrun -w 2 in {secs:.1f} s: losses {losses}, one process "
+        f"{ref} (max |dloss| {dl:.2e}); {tps.group(1)} tokens/s over both "
+        f"ranks")
+
+    # (d) mnist_replica under tfrun, three ranks (started with (a) and
+    # (b)).
+    stdout, secs = d_out, d_s
     for i in (0, 1):
         for line in ("job name = worker", f"task index = {i}",
                      "Training begins @",
@@ -6967,6 +7135,225 @@ def phase_surface(torch, np, train):
         f"of {n_params} float32 gradients "
         f"{out['c']['allreduce_ms']:.1f}.  Two ranks on one card measure "
         f"no scaling, and gloo staging through host memory is not NCCL.")
+    say("  " + json.dumps(out))
+    return out
+
+
+# -- phase 27: MoE, ep and sp --------------------------------------------------
+
+# (a): the flagship with 8 experts, each token to 2 of them, the dense
+# top-k form (exact per token, so the margin rule holds a stream; the
+# switch form's capacity makes a row depend on its tick's other rows).
+MOE_SERVE = dict(n_experts=8, top_k=2, moe_impl="dense")
+# (b), (c): phase 8's shape, 4 steps, each held to one process of the
+# same config and seed: |dloss| within the mesh phase's bound, and the
+# switch overflow fraction within 1e-2 (a bf16 near-tie in the router
+# moves an assignment's slot, and one drop more or less changes the
+# fraction by 1 / 32768).
+MOE_STEPS = 4
+MOE_DLOSS = 2e-2
+MOE_DOVERFLOW = 1e-2
+MOE_TRAIN = {
+    "b": (4, "sp=2,ep=2", ["--moe", "8", "--top-k", "2"]),
+    "c": (2, "sp=2", ["--sp-impl", "ulysses", "--kv-heads", "4"]),
+}
+
+
+def moe_argv(key):
+    """(b) or (c)'s ``tfrun`` command over ``transformer_train``."""
+    n, mesh, extra = MOE_TRAIN[key]
+    return ["tfmesos_tpu_torch.cli", "run", "-w", str(n), "-s", "0",
+            "--mesh", mesh, "--worker-logs", "*", "--", sys.executable,
+            "-m", "tfmesos_tpu_torch.transformer_train", "--steps",
+            str(MOE_STEPS), *MESH_TRAIN_ARGV, *extra]
+
+
+def moe_rank_lines(stdout, n, what):
+    """Each rank's step losses, router metrics, kernel launches and peak
+    memory from a ``tfrun --worker-logs '*'`` run's output."""
+    def grab(tag):
+        got = dict(re.findall(rf"^\[worker:(\d)\] rank \d/{n} {tag}: "
+                              r"(.*)$", stdout, re.M))
+        return {int(r): v for r, v in got.items()}
+
+    losses, launches = grab("step losses"), grab("kernel launches")
+    need(sorted(losses) == list(range(n)) and sorted(launches)
+         == list(range(n)), f"{what}: missing rank lines: {stdout[-3000:]}")
+    moe = {r: json.loads(v) for r, v in grab("step moe metrics").items()}
+    mem = {r: float(v.split()[0]) for r, v in
+           grab("peak device memory").items()}
+    return ({r: json.loads(v) for r, v in losses.items()}, moe,
+            {r: json.loads(v) for r, v in launches.items()}, mem)
+
+
+def moe_references(torch):
+    """(b) and (c)'s one-process references (:func:`moe_one_process`)
+    while their launches run: each one's (losses, overflow, s)."""
+    refs = {}
+    for k, (_, _, extra) in MOE_TRAIN.items():
+        t0 = time.perf_counter()
+        refs[k] = moe_one_process(torch, extra) + (time.perf_counter() - t0,)
+    return refs
+
+
+def moe_one_process(torch, extra):
+    """The same config, seed and global batch in this process (no mesh):
+    each step's loss and router metrics."""
+    from tfmesos_tpu_torch import transformer_train as tr
+
+    args = tr.parse_args(["--steps", str(MOE_STEPS), *MESH_TRAIN_ARGV,
+                          *extra])
+    run = tr.setup(args, torch.device("cuda"), start_step=None)
+    stream = tr.data_stream(args, run.cfg, run.seq_len, 0, 0, 1)
+    losses, overflow = [], []
+    for _ in range(MOE_STEPS):
+        batch = {"tokens": torch.from_numpy(next(stream)["tokens"]).cuda()}
+        run.params, run.opt_state, m = run.step(run.params, run.opt_state,
+                                                batch)
+        losses.append(float(m["loss"]))
+        if "moe_overflow_frac" in m:
+            overflow.append(float(m["moe_overflow_frac"]))
+    del run, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, overflow
+
+
+def moe_train_check(key, result, ref):
+    """(b) or (c) from its launch's ``result`` and its one-process
+    ``ref`` (losses, overflow, seconds): every rank's losses equal (the
+    mesh's mean), within MOE_DLOSS of one process's, the overflow
+    fraction within MOE_DOVERFLOW; every rank's attention launches exact
+    (the ring's visible steps on an sp rank, Ulysses' one call over the
+    whole sequence)."""
+    n, mesh, extra = MOE_TRAIN[key]
+    stdout, _, secs = result
+    what = f"({key}) tfrun -w {n} --mesh {mesh} {' '.join(extra)}"
+    losses, moe, launches, mem = moe_rank_lines(stdout, n, what)
+    need(all(losses[r] == losses[0] for r in losses),
+         f"{what}: the ranks' losses differ: {losses}")
+    ref, ref_over, ref_s = ref
+    dl = max(abs(a - b) for a, b in zip(losses[0], ref))
+    need(len(losses[0]) == MOE_STEPS and dl <= MOE_DLOSS,
+         f"{what}: losses {losses[0]} vs one process {ref}: |dloss| {dl}")
+    out = {"s": secs, "losses": losses[0], "one_process_losses": ref,
+           "max_dloss": dl, "peak_gib_by_rank": mem,
+           "one_process_s": ref_s}
+    if "--moe" in extra:
+        over = moe[0]["moe_overflow_frac"]
+        do = max(abs(a - b) for a, b in zip(over, ref_over))
+        need(all(moe[r] == moe[0] for r in moe) and do <= MOE_DOVERFLOW,
+             f"{what}: overflow {over} vs one process {ref_over}")
+        out.update(moe_metrics=moe[0], one_process_overflow=ref_over,
+                   max_doverflow=do)
+    L = 8
+    total = collections.Counter()
+    for r, counts in launches.items():
+        sp_idx = r % 2                     # sp is the inner axis here
+        per = (sp_idx + 1) if "--sp-impl" not in extra else 1
+        want = MOE_STEPS * L * per
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            need(counts[k] == want, f"{what}: rank {r} launched {k} "
+                 f"{counts[k]} times, want {want} ({per} a layer a step)")
+        need(all(v == 0 for k, v in counts.items()
+                 if k not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+             f"{what}: rank {r} launched {counts}")
+        total.update(counts)
+    out["launches"] = dict(total)
+    tps = re.search(r"^\[worker:0\] tokens/sec: (\d+)", stdout, re.M)
+    out["tokens_per_s"] = int(tps.group(1)) if tps else None
+    say(f"  ({key}) {what} in {secs:.1f} s: losses {losses[0]}, one "
+        f"process {ref} (max |dloss| {dl:.2e})"
+        + (f"; overflow {out['moe_metrics']['moe_overflow_frac']} vs "
+           f"{ref_over}" if "moe_metrics" in out else "")
+        + f"; {out['tokens_per_s']} tokens/s over the ranks; peak GiB "
+        f"by rank {mem}; launches {dict(total)}")
+    return out
+
+
+def phase_moe(torch, np, reqs, launched, refs):
+    """Phase 27: (a) an MoE config served in this process; (b) tfrun
+    sp=2,ep=2 over transformer_train --moe 8 --top-k 2 (switch); (c)
+    tfrun sp=2 --sp-impl ulysses (dense); ``launched`` the futures of
+    (b) and (c) (:func:`moe_argv`), started before phase 23 together
+    with its launches, ``refs`` their :func:`moe_references`."""
+    from tfmesos_tpu_torch.convert import flatten
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.ops import quant as tq
+    from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
+
+    say("[27/27] MoE, ep and sp: the flagship with 8 experts (top 2) "
+        "served; tfrun sp=2,ep=2 --moe 8 and sp=2 --sp-impl ulysses "
+        "training (ranks share the card over gloo)")
+    out = {}
+    cfg = tt.TransformerConfig(vocab_size=8192, d_model=512, n_layers=8,
+                               n_heads=8, d_ff=1408, max_seq_len=1024,
+                               dtype=torch.bfloat16, **MOE_SERVE)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    card = _cuda(params)
+
+    # quantize_params over the MoE tree: one launch, bit-exact.
+    zero_launches()
+    q = tt.quantize_params(cfg, card)
+    torch.cuda.synchronize()
+    q_launches = read_launches()
+    need(q_launches["quant_int8"] == 1
+         and all(v == 0 for k, v in q_launches.items() if k != "quant_int8"),
+         f"(a) quantize_params over the MoE tree launched {q_launches}, "
+         f"not one quant_int8")
+    flat = flatten(card)
+    qflat = {k: v for k, v in flatten(q).items()}
+    n_leaves = 0
+    for name, leaf in flat.items():
+        if f"{name}/values" not in qflat:
+            continue
+        n_leaves += 1
+        rv, rs = tq.quantize_int8_reference(leaf.reshape(-1, leaf.shape[-1]))
+        need(torch.equal(qflat[f"{name}/values"].reshape(rv.shape), rv)
+             and torch.equal(qflat[f"{name}/scales"].reshape(rs.shape), rs),
+             f"(a) quantize_params {name} not bit-exact to its plain "
+             f"version")
+    need({"layers/e_gate/values", "layers/e_up/values",
+          "layers/e_down/values"} <= set(qflat)
+         and "layers/router" in qflat,
+         "(a) quantize_params left an expert leaf fp or took the router")
+    q_ms = cuda_ms(torch, lambda: tt.quantize_params(cfg, card), 3, 5)
+    del q, qflat
+    out["quantize"] = {"leaves": n_leaves, "launches": q_launches,
+                       "ms": q_ms}
+    say(f"  (a) quantize_params over the MoE tree: {n_leaves} leaves in "
+        f"one launch, bit-exact, {q_ms:.3f} ms")
+
+    batcher = ContinuousBatcher(cfg, card, rows=8, page_size=64,
+                                prefill_bucket=64, device="cuda")
+    warm = warm_batcher(batcher)
+    warmed = set(batcher._graphs.keys())
+    list(batcher.run([Request(np.arange(1, 9), 2)]))
+    comps, stats = serve_run(torch, cfg, batcher, reqs, int8=False)
+    no_new_graphs(batcher, warmed, "(a) MoE serving")
+    t0 = time.perf_counter()
+    checked, positions = fp32_margin(torch, cfg, params, comps,
+                                     "(a) MoE serving")
+    stats.update(warmup=warm, margin_checked=checked,
+                 margin_positions=positions,
+                 margin_check_s=time.perf_counter() - t0)
+    out["a"] = stats
+    say(f"  (a) served {stats['requests']} requests graphed: "
+        f"{stats['ms_per_tick']:.3f} ms a tick, TTFT mean "
+        f"{stats['ttft_ms_mean']:.3f} p50 {stats['ttft_ms_p50']:.3f} ms, "
+        f"{stats['decode_tok_per_s']:.0f} decode tokens/s; launches "
+        f"{stats['launches']}; no graph after warmup; {checked} of "
+        f"{positions} positions above the margin, all the CPU float32 "
+        f"argmax ({stats['margin_check_s']:.1f} s on the CPU)")
+    del batcher, card, comps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    results = [f.result() for f in launched]
+    say(f"  (waited {time.perf_counter() - t0:.1f} s for (b) and (c))")
+    for key, result in zip(MOE_TRAIN, results):
+        out[key] = moe_train_check(key, result, refs[key])
     say("  " + json.dumps(out))
     return out
 
@@ -7121,20 +7508,25 @@ def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir=None):
     return out
 
 
-def mesh_serve(axes: str, n: int, extra, reqs, refs, next_logits, int8,
-               label):
+def mesh_serve_argv(axes: str, n: int, extra):
     """``serve --continuous --mesh axes`` on phase 5's traffic under
-    ``tfrun -w n``: rank 0's streams against ``refs`` by the margin rule
+    ``tfrun -w n``."""
+    return ["tfmesos_tpu_torch.cli", "run", "-w", str(n), "-s", "0",
+            "--mesh", axes, "--worker-logs", "*", "--", sys.executable,
+            "-m", "tfmesos_tpu_torch.serve", "--mesh", axes,
+            *MESH_SERVE_ARGV, *extra]
+
+
+def mesh_serve(result, axes: str, n: int, reqs, refs, next_logits, int8,
+               label):
+    """The check of a :func:`mesh_serve_argv` launch from its child
+    ``result``: rank 0's streams against ``refs`` by the margin rule
     (every rank checked its digest against rank 0's), each rank's
     launches exact (rows 1 and 5 at 8 a prefill it ran and a tick, row
     6 at one commit each over an int8 pool, the merges at 8 a split
     tick), the graphs bypass named, and every data shard's sub-pool
     recycled to its sink."""
-    stdout, _, secs = child(
-        ["tfmesos_tpu_torch.cli", "run", "-w", str(n), "-s", "0", "--mesh",
-         axes, "--worker-logs", "*", "--", sys.executable, "-m",
-         "tfmesos_tpu_torch.serve", "--mesh", axes, *MESH_SERVE_ARGV,
-         *extra], 900)
+    stdout, _, secs = result
     comps = [json.loads(j) for j in re.findall(
         r"^\[worker:0\] (\{\"rid\".*\})$", stdout, re.M)]
     stats = {int(r): json.loads(j) for r, j in re.findall(
@@ -7364,7 +7756,7 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     from tfmesos_tpu_torch.ops import quant as tq
     from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
 
-    say("[24/26] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
+    say("[24/27] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
         "dp=2,tp=2, training over tp=2 and fsdp=2, a checkpoint across "
         "meshes (ranks share the card over gloo)")
     dev = torch.device("cuda")
@@ -7410,18 +7802,29 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
                      table=table)
     del kp, vp
 
-    # (b) and (c): serving over ranks, against phase 5's and 12's runs.
+    # (b) and (c): serving over ranks, against phase 5's and 12's runs;
+    # the three launches start together (eight ranks on the card) while
+    # this process computes the references, each checked as if alone.
+    serves = [("tp=2", 2, [], False, "tp=2 bf16"),
+              ("tp=2", 2, ["--int8", "--int8-kv"], True, "tp=2 int8"),
+              ("dp=2,tp=2", 4, [], False, "dp=2,tp=2 bf16")]
+    t0 = time.perf_counter()
+    launched = start_children([mesh_serve_argv(axes, n, extra)
+                               for axes, n, extra, _, _ in serves], 900)
     prompts = [r.prompt for r in reqs]
     ref, ref8 = streams(comps), streams(comps8)
     logits = full_logits(torch, cfg, params, prompts, ref)
     logits8 = full_logits(torch, cfg, tt.quantize_params(cfg, params),
                           prompts, ref8)
-    out["b"] = {"bf16": mesh_serve("tp=2", 2, [], reqs, ref, logits, False,
-                                   "tp=2 bf16"),
-                "int8": mesh_serve("tp=2", 2, ["--int8", "--int8-kv"], reqs,
-                                   ref8, logits8, True, "tp=2 int8")}
-    out["c"] = mesh_serve("dp=2,tp=2", 4, [], reqs, ref, logits, False,
-                          "dp=2,tp=2 bf16")
+    served = [mesh_serve(f.result(), axes, n, reqs,
+                         ref8 if int8 else ref, logits8 if int8 else logits,
+                         int8, label)
+              for f, (axes, n, _, int8, label) in zip(launched, serves)]
+    out["b"] = {"bf16": served[0], "int8": served[1]}
+    out["c"] = served[2]
+    out["serve_s"] = time.perf_counter() - t0
+    say(f"  (b), (c) the three serve launches done in "
+        f"{out['serve_s']:.1f} s (started together)")
 
     # (d) training over tp=2 and fsdp=2, (e) the checkpoint round trip.
     root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
@@ -7892,7 +8295,7 @@ def phase_gang(torch, np, cfg, params, reqs, comps, comps8, stats17):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models import transformer as tt
 
-    say("[25/26] gang replicas: FleetServer(gang_size=2) at phase 18's "
+    say("[25/27] gang replicas: FleetServer(gang_size=2) at phase 18's "
         "shape, leader and member each on the graphed one-device "
         "batcher; a member SIGKILL; gang KV artifacts")
     prompts = [r.prompt for r in reqs]
@@ -8197,7 +8600,7 @@ def phase_edge(torch, cfg, params, reqs, base, smi):
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_fake_mesos import FakeMesos, FakeZK
 
-    say("[26/26] the fleet's edges over a fake Mesos master and agent: "
+    say("[26/27] the fleet's edges over a fake Mesos master and agent: "
         "tfrun -m zk://, tfserve --master with gateway processes, the "
         "HTTP/SSE edge and the batch lane, a gateway SIGKILL")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
@@ -8675,7 +9078,19 @@ def main() -> int:
                     reqs, streams(comps))
     ckpt = timed("checkpointed training", phase_checkpointed, torch, np,
                  train)
-    surface = timed("surface", phase_surface, torch, np, train)
+    # Phase 23's launches and phase 27's (b) and (c) start together;
+    # this process computes (b) and (c)'s references, then phase 23 (c)
+    # while they run.
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = start_children(
+        surface_argvs() + [moe_argv(k) for k in MOE_TRAIN], 900)
+    say(f"(phase 23's launches and phase 27's {sorted(MOE_TRAIN)} "
+        f"started)")
+    moe_refs = timed("moe references", moe_references, torch)
+    surface = timed("surface", phase_surface, torch, np, train,
+                    launched[:3])
+    moe = timed("moe", phase_moe, torch, np, reqs, launched[3:], moe_refs)
     mesh = timed("mesh", phase_mesh, torch, np, cfg, params, reqs, comps,
                  comps8, {"flash": flash_rows, "bwd": bwd_rows,
                           "paged": paged_rows, "decode": decode_rows,
@@ -8758,7 +9173,15 @@ def main() -> int:
                  edge["b"]["launches"],
              "edge (c) batch lane (Mesos tasks)": edge["c"]["launches"],
              "edge (d) gateway SIGKILL (Mesos tasks)":
-                 edge["d"]["launches"]}
+                 edge["d"]["launches"],
+             "moe (a) quantize_params over the MoE tree":
+                 moe["quantize"]["launches"],
+             "moe (a) serve 8 experts top 2 (graphed)":
+                 moe["a"]["launches"],
+             "moe (b) train sp=2,ep=2 switch (processes)":
+                 moe["b"]["launches"],
+             "moe (c) train sp=2 ulysses (processes)":
+                 moe["c"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

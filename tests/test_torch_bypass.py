@@ -111,8 +111,8 @@ def test_batcher_refuses_unported_modes(kw):
     base = dict(rows=2, max_len=64, page_size=16, prefill_bucket=16)
     if "mesh" in kw:
         other = tmesh.RankMesh({kw["mesh"]: 2}, 0, "cpu", make_groups=False)
-        with pytest.raises(ValueError, match=r"data \(dp/fsdp\) x tp; got "
-                                             r"axes \['sp'\]"):
+        with pytest.raises(ValueError, match=r"data \(dp/fsdp\) x tp "
+                                             r"meshes; got axes \['sp'\]"):
             ts.ContinuousBatcher(cfg, params, device="cpu", **base,
                                  mesh=other)
         return

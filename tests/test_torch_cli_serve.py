@@ -377,10 +377,10 @@ def test_usage_and_tfrun(capsys):
     rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "tp=2",
                               "--", "true"], capsys)
     assert rc == 0
-    rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "sp=2",
+    rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "pp=2",
                               "--", "true"], capsys)
     assert rc == 2
-    assert err == ["tfrun: not ported yet: mesh axis sp (ROADMAP A.10)"]
+    assert err == ["tfrun: not ported yet: mesh axis pp (ROADMAP A.10)"]
     assert _run(cli.main, ["run", "-w", "1", "-s", "0", "--", "true"],
                 capsys)[0] == 0
 

@@ -177,8 +177,8 @@ def test_dcn_rank_grid_is_the_jax_hybrid_device_grid(axes):
 
 def test_dcn_axes_refusals_are_the_jax_ones():
     """-1 is refused on a dcn axis, the slice count must divide the
-    ranks and the ici axes must fill one slice; sp/pp/ep stay refused
-    under the prefix too."""
+    ranks and the ici axes must fill one slice; pp stays refused under
+    the prefix too, and sp and ep pass under it as they do without."""
     with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
         tmesh.check_axes({"dcn.dp": -1, "tp": 2})
     with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
@@ -187,8 +187,10 @@ def test_dcn_axes_refusals_are_the_jax_ones():
         tmesh.resolve_axes({"dcn.dp": 3, "tp": 2}, 8)
     with pytest.raises(ValueError, match="ranks per slice"):
         tmesh.resolve_axes({"dcn.dp": 2, "tp": 2}, 8)
-    with pytest.raises(ValueError, match=r"mesh axis sp \(ROADMAP A\.10\)"):
-        tmesh.check_axes({"dcn.sp": 2, "dp": 2})
+    with pytest.raises(ValueError, match=r"mesh axis pp \(ROADMAP A\.10\)"):
+        tmesh.check_axes({"dcn.pp": 2, "dp": 2})
+    assert tmesh.resolve_axes({"dcn.sp": 2, "ep": 2}, 4) == {"ep": 2,
+                                                             "sp": 2}
     assert tmesh.resolve_axes({"dcn.dp": 2, "dp": -1}, 8) == {"dp": 8}
     assert repr(tmesh.RankMesh({"dp": 4, "tp": 2}, 0, "cpu",
                                make_groups=False, dcn={"dp": 2})) == \
@@ -267,5 +269,21 @@ def test_dryrun_multichip_holds_four_ranks_to_one_process():
 
     out = dryrun_multichip(4, timeout=200.0)
     assert out["mesh"] == {"dp": 2, "tp": 2}
+    assert abs(out["loss"] - out["ref_loss"]) <= TOL
+    assert max(out["grad_err"], out["param_err"], out["norm_err"]) <= TOL
+
+
+@pytest.mark.parametrize("axis", ["sp", "ep"])
+def test_dryrun_multichip_sp_and_ep_factorizations(axis):
+    """The dry run's other factorizations over 4 gloo ranks: dp=2 x sp=2
+    (the ring) and dp=2 x ep=2 (a dense-MoE tiny model), one sharded
+    step within 1e-5 of one process."""
+    from tfmesos_tpu_torch.dryrun import (TOL, dryrun_multichip,
+                                          factorizations)
+
+    axes = {"dp": 2, axis: 2}
+    assert axes in factorizations(4)
+    out = dryrun_multichip(4, timeout=200.0, axes=axes)
+    assert out["mesh"] == axes
     assert abs(out["loss"] - out["ref_loss"]) <= TOL
     assert max(out["grad_err"], out["param_err"], out["norm_err"]) <= TOL

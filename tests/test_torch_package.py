@@ -52,7 +52,10 @@ TRAINING = ("tfmesos_tpu_torch.train.trainer",
 #: workloads tfrun and ``cluster()`` run.
 SURFACE = ("tfmesos_tpu_torch.parallel", "tfmesos_tpu_torch.parallel.mesh",
            "tfmesos_tpu_torch.parallel.collectives",
-           "tfmesos_tpu_torch.parallel.sharding", "tfmesos_tpu_torch.dryrun",
+           "tfmesos_tpu_torch.parallel.sharding",
+           "tfmesos_tpu_torch.parallel.moe",
+           "tfmesos_tpu_torch.parallel.ring_attention",
+           "tfmesos_tpu_torch.parallel.ulysses", "tfmesos_tpu_torch.dryrun",
            "tfmesos_tpu_torch.models.mlp", "tfmesos_tpu_torch.plus",
            "tfmesos_tpu_torch.mnist_replica", "tfmesos_tpu_torch.fleet.gang")
 
@@ -94,9 +97,9 @@ def test_public_surface_with_jax_blocked():
     JAX package's surface (``cluster`` and the rest) without importing
     torch; Mode A, the elastic policy and tfrun are no longer refused,
     nor are the tp, dp x fsdp and dcn. meshes, nor gangs (a static
-    scheduler refuses ``add_gang`` as JAX's does), nor a Mesos master;
-    what is still missing (the sp/pp/ep axes among it) is refused by
-    name."""
+    scheduler refuses ``add_gang`` as JAX's does), nor a Mesos master,
+    nor the sp and ep axes; what is still missing (the pp axis among
+    it) is refused by name."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'tfmesos_tpu'):\n"
@@ -122,7 +125,7 @@ def test_public_surface_with_jax_blocked():
         "print(type(t.TPUMesosScheduler([], dynamic=True,\n"
         "      master='127.0.0.1:5050').backend).__name__)\n"
         "for axis in ('sp', 'pp', 'ep'):\n"
-        "    print(refused(mesh.check_axes, {axis: 2}))\n"
+        "    print(refused(mesh.check_axes, {axis: 2}) or 'ok')\n"
         "print(mesh.check_axes({'dp': 2, 'fsdp': 2, 'tp': 2}))\n"
         "print(mesh.resolve_axes({'dcn.dp': 2, 'tp': 2}, 4))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -136,9 +139,9 @@ def test_public_surface_with_jax_blocked():
     assert lines[2:] == [
         "add_gang requires dynamic=True",
         "MesosBackend",
-        "not ported yet: mesh axis sp (ROADMAP A.10)",
+        "ok",
         "not ported yet: mesh axis pp (ROADMAP A.10)",
-        "not ported yet: mesh axis ep (ROADMAP A.10)",
+        "ok",
         "{'dp': 2, 'fsdp': 2, 'tp': 2}",
         "{'dp': 2, 'tp': 2}"]
 

@@ -73,11 +73,12 @@ def test_bad_mesh_and_volume():
 
 
 @pytest.mark.parametrize("mesh,item", [("tp=2", None),
-                                       ("dp=2,sp=2", "sp (ROADMAP A.10)"),
+                                       ("dp=2,pp=2", "pp (ROADMAP A.10)"),
+                                       ("sp=2", None),
                                        ("dcn.dp=2,dp=1", None)])
 def test_tfrun_refuses_a_later_mesh_axis(mesh, item, capfd):
-    """sp exits 2 naming its ROADMAP item; tp and dcn. axes (item None)
-    are ported and the job runs."""
+    """pp exits 2 naming its ROADMAP item; tp, sp and dcn. axes (item
+    None) are ported and the job runs."""
     rc = main(["run", "-w", "2", "-s", "0", "--mesh", mesh, "--", "true"])
     if item is None:
         assert rc == 0

@@ -508,10 +508,14 @@ def test_transformer_train_tiny_cpu(capsys):
 
 
 def test_transformer_train_refuses_later_slice_flags():
-    """The JAX example's MoE and pipeline flags are not flags here, and a
-    later model axis of ``--mesh`` is refused by name (the data axes and
-    tp are ported: a tp mesh wants its ranks)."""
-    for argv in (["--moe", "4"], ["--pp-schedule", "1f1b"]):
+    """The JAX example's pipeline flags are not flags here (its MoE and
+    sequence flags are), and a later model axis of ``--mesh`` is
+    refused by name (the data axes, tp, sp and ep are ported: a tp mesh
+    wants its ranks)."""
+    args = transformer_train.parse_args(["--moe", "4", "--top-k", "1",
+                                         "--sp-impl", "ulysses"])
+    assert (args.moe, args.top_k, args.sp_impl) == (4, 1, "ulysses")
+    for argv in (["--pp-schedule", "1f1b"], ["--virtual-stages", "2"]):
         with pytest.raises(SystemExit):
             transformer_train.parse_args(argv)
     assert transformer_train.parse_args(["--mesh", "dp=2"]).mesh == "dp=2"

@@ -121,8 +121,16 @@ def test_bf16_leaves_convert_through_float32():
 
 
 def test_moe_configs_are_refused():
-    with pytest.raises(NotImplementedError):
-        tt.TransformerConfig(n_experts=4)
+    """MoE configs are ported: the config builds with the JAX fields and
+    its params carry the expert leaves instead of the MLP's; only an
+    unknown ``moe_impl`` is refused."""
+    cfg = tt.TransformerConfig(vocab_size=64, d_model=16, n_layers=1,
+                               n_heads=2, d_ff=32, n_experts=4, top_k=2)
+    layers = tt.init_params(cfg, torch.Generator().manual_seed(0))["layers"]
+    assert layers["e_gate"].shape == (1, 4, 16, 32)
+    assert "w_gate" not in layers and layers["router"].shape == (1, 16, 4)
+    with pytest.raises(ValueError, match="moe_impl"):
+        tt.TransformerConfig(n_experts=4, moe_impl="sparse")
 
 
 def test_entry_runs_the_flagship_forward_shape_on_cpu():

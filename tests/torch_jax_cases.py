@@ -21,9 +21,12 @@ TESTS = Path(__file__).resolve().parent
 _JAX = re.compile(r"\btfmesos_tpu\b(?!_torch)")
 
 
-def port_module(name: str, deps=()) -> types.ModuleType:
+def port_module(name: str, deps=(), subs=()) -> types.ModuleType:
     """``tests/<name>`` with ``tfmesos_tpu`` read as ``tfmesos_tpu_torch``,
-    loaded as the module ``torch_port_<stem>``.
+    loaded as the module ``torch_port_<stem>``.  ``subs``: further
+    ``(pattern, replacement)`` rewrites of the source, applied after
+    that one (an import pointed at a bridge that carries the JAX file's
+    arrays to the port).
 
     ``deps`` names the JAX test files it imports from (``test_scheduler.py``
     for ``from test_scheduler import FakeBackend``): each is ported too,
@@ -32,6 +35,8 @@ def port_module(name: str, deps=()) -> types.ModuleType:
     import, stays as it is."""
     path = TESTS / name
     src = _JAX.sub("tfmesos_tpu_torch", path.read_text())
+    for pattern, repl in subs:
+        src = re.sub(pattern, repl, src)
     for dep in deps:
         stem = Path(dep).stem
         if f"torch_port_{stem}" not in sys.modules:
@@ -47,10 +52,10 @@ def port_module(name: str, deps=()) -> types.ModuleType:
     return mod
 
 
-def port_cases(name: str, deps=()) -> dict:
+def port_cases(name: str, deps=(), subs=()) -> dict:
     """The test functions and fixtures of :func:`port_module`\\ (name,
-    deps)."""
-    mod = port_module(name, deps)
+    deps, subs)."""
+    mod = port_module(name, deps, subs)
     return {k: v for k, v in vars(mod).items()
             if k.startswith("test_") or hasattr(v, "_pytestfixturefunction")
             or type(v).__name__ == "FixtureFunctionDefinition"}

@@ -11,6 +11,9 @@ built from the case's ``axes``; rank 0 writes each case's result to
 files the test wrote: ``params`` an npz of a params tree (from the JAX
 ``init_params`` through ``convert.py``), ``tokens`` a global batch.
 
+A case with ``ranks`` runs on a mesh over the first that many ranks
+(the others take part in making its groups, then wait).
+
 Case kinds:
 
 * ``train``: ``loss_fn(mesh=)`` on this rank's share of the batch, the
@@ -26,6 +29,15 @@ Case kinds:
   gathered over the data axes.
 * ``batcher``: ``ContinuousBatcher(mesh=)`` over the case's requests;
   the streams, each data shard's free pages and the graphs bypass.
+* ``attn``: ``attend(mesh=)`` (the ring or Ulysses) or the einsum
+  ring (``ring_attention_local``)
+  on this rank's shards of global q/k/v, its gradients from the
+  rank's shard of a global output gradient; the output and dq/dk/dv
+  gathered whole.
+* ``moe``: ``parallel.moe.switch_moe(mesh=)`` on this rank's data
+  shard of the tokens and its ep block of the experts: the output, the
+  aux, and the gradients of the tokens and of every weight (from a
+  global output gradient) gathered whole.
 * ``batcher_kv``: the KV surface of a tp-only mesh batcher with a KV
   tier: an export (packed, rank 0 writes it), the imports of the
   artifacts the test wrote, ``preempt_all`` after the first completion
@@ -49,10 +61,14 @@ def _cfg(kw):
     return transformer.TransformerConfig(dtype=torch.float32, **kw)
 
 
-def _gather_rows(x, mesh):
+def _gather_rows(x, mesh, seq_dim=None):
+    """``x`` gathered over the data axes on dim 0 (and over sp on
+    ``seq_dim``)."""
     from tfmesos_tpu_torch.parallel import collectives
     from tfmesos_tpu_torch.parallel.sharding import data_axes
 
+    if seq_dim is not None:
+        x = collectives.all_gather(x.contiguous(), mesh, "sp", seq_dim)
     return collectives.all_gather(x.contiguous(), mesh,
                                   data_axes(mesh) or (), 0)
 
@@ -79,7 +95,7 @@ def _train(case, mesh, out_dir):
     flat = convert.flatten(params)
     for v in flat.values():
         v.requires_grad_(True)
-    loss, _ = tt.loss_fn(cfg, params, batch, mesh=mesh)
+    loss, first = tt.loss_fn(cfg, params, batch, mesh=mesh)
     grads = sharded_grad_mean(
         list(torch.autograd.grad(loss, list(flat.values()))),
         _flat_specs(specs, list(flat)), mesh)
@@ -88,7 +104,7 @@ def _train(case, mesh, out_dir):
     with torch.no_grad():
         logits = _gather_rows(tt.forward(cfg, params,
                                          batch["tokens"][:, :-1],
-                                         mesh=mesh), mesh)
+                                         mesh=mesh), mesh, seq_dim=1)
     evaluated = make_eval_step(
         lambda p, b: tt.loss_fn(cfg, p, b, mesh=mesh), mesh=mesh)(params,
                                                                   batch)
@@ -104,7 +120,8 @@ def _train(case, mesh, out_dir):
                                  param_specs=specs)
         ckpt.save(1, {"params": params, "opt_state": state})
         ckpt.close()
-    return {"loss": np.asarray(float(loss.detach())),
+    aux = {f"metric/{k}": np.asarray(float(v)) for k, v in first.items()}
+    return {"loss": np.asarray(float(loss.detach())), **aux,
             "eval_loss": np.asarray(float(evaluated["loss"])),
             "step_loss": np.asarray(float(metrics["loss"])),
             "logits": logits.numpy(),
@@ -316,8 +333,67 @@ def _batcher_kv(case, mesh, out_dir):
     return out
 
 
-KINDS = {"train": _train, "restore": _restore, "decode": _decode,
-         "batcher": _batcher, "batcher_kv": _batcher_kv}
+def _attn(case, mesh, out_dir):
+    import torch
+
+    from tfmesos_tpu_torch.ops.attention import attend
+    from tfmesos_tpu_torch.parallel import ring_attention
+    from tfmesos_tpu_torch.parallel.sharding import batch_spec, cut
+
+    arrs = np.load(f"{out_dir}/{case['inputs']}")
+    spec = batch_spec(mesh, extra_dims=3)
+    q, k, v, do = (cut(torch.from_numpy(arrs[n]), spec, mesh).contiguous()
+                   for n in ("q", "k", "v", "do"))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    kw = dict(causal=case.get("causal", True), window=case.get("window"))
+    if case.get("impl") == "einsum":
+        o = ring_attention.ring_attention_local(q, k, v, mesh, **kw)
+    else:
+        o = attend(q, k, v, mesh, sp_impl=case.get("sp_impl", "ring"), **kw)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return {name: _gather_rows(t.detach(), mesh, seq_dim=1).numpy()
+            for name, t in zip(("o", "dq", "dk", "dv"), (o, *grads))}
+
+
+def _moe(case, mesh, out_dir):
+    import torch
+
+    from tfmesos_tpu_torch.parallel import collectives
+    from tfmesos_tpu_torch.parallel.moe import switch_moe
+    from tfmesos_tpu_torch.parallel.sharding import batch_spec, cut
+
+    arrs = {k: torch.from_numpy(v) for k, v in
+            np.load(f"{out_dir}/{case['inputs']}").items()}
+    x = cut(arrs["x"], batch_spec(mesh, 1), mesh).contiguous()
+    do = cut(arrs["do"], batch_spec(mesh, 1), mesh).contiguous()
+    ep = ("ep", None, None)
+    ws = [cut(arrs[n], ep, mesh).contiguous()
+          for n in ("w_gate", "w_up", "w_down")]
+    router = arrs["router"].clone()
+    leaves = [x, router, *ws]
+    for t in leaves:
+        t.requires_grad_(True)
+    out, aux = switch_moe(x, router, *ws, mesh,
+                          capacity_factor=case["capacity_factor"],
+                          top_k=case["top_k"], return_aux=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    data = ("dp",)
+    # The router is whole on every rank: its gradient sums over the
+    # data shards (each rank's covers its own tokens).
+    g_router = collectives.all_reduce_sum(grads[1], mesh, data)
+    res = {"out": _gather_rows(out.detach(), mesh).numpy(),
+           "dx": _gather_rows(grads[0], mesh).numpy(),
+           "drouter": g_router.numpy(),
+           **{f"aux/{k}": np.asarray(float(v)) for k, v in aux.items()}}
+    for name, g in zip(("w_gate", "w_up", "w_down"), grads[2:]):
+        g = collectives.all_reduce_sum(g, mesh, data)
+        res[f"d{name}"] = collectives.all_gather(g, mesh, "ep", 0).numpy()
+    return res
+
+
+KINDS = {"attn": _attn, "moe": _moe, "train": _train, "restore": _restore,
+         "decode": _decode, "batcher": _batcher, "batcher_kv": _batcher_kv}
 
 
 def run_cases(cases, world, out_dir, timeout=240.0):
@@ -354,9 +430,24 @@ def run_cases(cases, world, out_dir, timeout=240.0):
                 p.kill()
 
 
+def _case_mesh(case, rank, world):
+    """The case's mesh: over every rank, or over its first ``ranks``
+    (every rank takes part in making the groups: ``new_group`` is
+    collective over the world); None where this rank sits the case
+    out."""
+    from tfmesos_tpu_torch.parallel.mesh import (RankMesh, build_mesh,
+                                                 resolve_axes)
+
+    n = case.get("ranks", world)
+    if n == world:
+        return build_mesh(case["axes"], device_type="cpu")
+    mesh = RankMesh(resolve_axes(case["axes"], n),
+                    rank if rank < n else 0, "cpu")
+    return mesh if rank < n else None
+
+
 def main(rank, world, port, out_dir):
     from tfmesos_tpu_torch import runtime
-    from tfmesos_tpu_torch.parallel.mesh import build_mesh
 
     ctx = runtime.initialize(
         runtime.TaskContext(rank=rank, world_size=world,
@@ -364,7 +455,9 @@ def main(rank, world, port, out_dir):
     with open(f"{out_dir}/cases.json") as f:
         cases = json.load(f)
     for case in cases:
-        mesh = build_mesh(case["axes"], device_type="cpu")
+        mesh = _case_mesh(case, ctx.rank, world)
+        if mesh is None:
+            continue
         out = KINDS[case["kind"]](case, mesh, out_dir)
         if ctx.rank == 0:
             if case["kind"].startswith("batcher"):

@@ -43,8 +43,8 @@ output of the tasks ``--worker-logs`` names to its stdout, prefixed
 ``[job:index]``, and polls until the workers finish.  It exits 0 when
 they do, 1 with one line ``tfrun: cluster failed: ...`` when the
 cluster fails, and 2 on a bad flag, a missing ``-e`` file, or a mesh
-axis the port does not have yet (``--mesh`` takes ``dp``, ``fsdp`` and
-``tp``).
+axis the port does not have yet (``--mesh`` takes ``dp``, ``fsdp``,
+``ep``, ``sp`` and ``tp``; ``pp`` is refused by name).
 """
 
 from __future__ import annotations
@@ -141,9 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds the elastic restart budget counts over")
     p.add_argument("--mesh", type=str, default=None,
                    help="mesh axes handed to the tasks, e.g. dp=-1, "
-                        "fsdp=4, dp=2,tp=2 or dcn.dp=2,tp=2 (dp, fsdp and "
-                        "tp, each also as a dcn. axis across slices; sp, "
-                        "pp and ep are not ported yet)")
+                        "fsdp=4, dp=2,tp=2, sp=2,ep=2 or dcn.dp=2,tp=2 "
+                        "(dp, fsdp, ep, sp and tp, each also as a dcn. "
+                        "axis across slices; pp comes with ROADMAP "
+                        "A.10)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="command to run on every task (placeholders: "
                         "{ps_hosts} {worker_hosts} {job_name} {task_index} "

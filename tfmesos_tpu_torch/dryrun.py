@@ -1,11 +1,13 @@
 """The multi-rank dry run (port of ``__graft_entry__.dryrun_multichip``,
-its dp x tp part; sp and ep come with ROADMAP A.10).
+every factorization but pp).
 
     python -m tfmesos_tpu_torch.dryrun [N]
 
 :func:`dryrun_multichip` spawns ``n`` gloo ranks on the CPU, lays them
-out as dp x tp (tp 2 when it divides ``n``, dp the rest), and takes
-one sharded training step of the tiny transformer on every rank: the
+out as dp x tp (tp 2 when it divides ``n``, dp the rest) or as one of
+the other :func:`factorizations` — dp x sp (the sequence over the
+ring) and dp x ep (a dense-MoE tiny model, its experts over ep) — and
+takes one sharded training step of the tiny transformer on every rank: the
 params cut per ``partition_specs``, the global batch cut over dp, the
 vocab-parallel loss, the gradients averaged over dp, their global norm
 summed over the shards, an SGD update.  Rank 0 then holds the loss,
@@ -19,25 +21,34 @@ from __future__ import annotations
 
 import socket
 import sys
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 TOL = 1e-5
 
 
-def factor_mesh(n: int) -> Dict[str, int]:
-    """dp x tp over ``n`` ranks: tp 2 when it divides ``n``, else 1."""
-    tp = 2 if n % 2 == 0 else 1
-    return {"dp": n // tp, "tp": tp}
+def factor_mesh(n: int, axis: str = "tp") -> Dict[str, int]:
+    """dp x ``axis`` (tp, sp or ep) over ``n`` ranks: ``axis`` 2 when it
+    divides ``n``, else 1."""
+    k = 2 if n % 2 == 0 else 1
+    return {"dp": n // k, axis: k}
 
 
-def _tiny():
+def factorizations(n: int):
+    """The meshes the dry run covers over ``n`` ranks: dp x tp, dp x sp
+    and dp x ep."""
+    return [factor_mesh(n, a) for a in ("tp", "sp", "ep")]
+
+
+def _tiny(axes: Dict[str, int]):
     import torch
 
     from tfmesos_tpu_torch.models import transformer
 
+    moe = dict(n_experts=4, top_k=2) if axes.get("ep", 1) > 1 else {}
     return transformer.TransformerConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128,
-        max_seq_len=64, n_kv_heads=2, dtype=torch.float32, z_loss=1e-4)
+        max_seq_len=64, n_kv_heads=2, dtype=torch.float32, z_loss=1e-4,
+        **moe)
 
 
 def _inputs(cfg, n: int):
@@ -100,7 +111,7 @@ def _rank(rank: int, n: int, port: int, axes: Dict[str, int], q) -> None:
                                 init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=n)
         mesh = build_mesh(axes, device_type="cpu")
-        cfg = _tiny()
+        cfg = _tiny(axes)
         full, batch = _inputs(cfg, n)
         specs = transformer.partition_specs(cfg, mesh)
         loss, grads, norm, params = _step(
@@ -125,14 +136,17 @@ def _rank(rank: int, n: int, port: int, axes: Dict[str, int], q) -> None:
         q.put({"rank": rank, "error": f"{type(e).__name__}: {e}"})
 
 
-def dryrun_multichip(n: int, timeout: float = 600.0) -> Dict[str, Any]:
-    """One sharded training step over ``n`` gloo ranks on the CPU,
-    held to one process (see the module docstring).  Returns rank 0's
-    numbers and the mesh; raises ``RuntimeError`` on a failure or a
+def dryrun_multichip(n: int, timeout: float = 600.0,
+                     axes: Optional[Dict[str, int]] = None
+                     ) -> Dict[str, Any]:
+    """One sharded training step over ``n`` gloo ranks on the CPU, laid
+    out as ``axes`` (default dp x tp, :func:`factor_mesh`), held to one
+    process (see the module docstring).  Returns rank 0's numbers and
+    the mesh; raises ``RuntimeError`` on a failure or a
     disagreement."""
     import multiprocessing as mp
 
-    axes = factor_mesh(n)
+    axes = dict(axes or factor_mesh(n))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -164,4 +178,6 @@ def dryrun_multichip(n: int, timeout: float = 600.0) -> Dict[str, Any]:
 
 
 if __name__ == "__main__":
-    print(dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4))
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 4
+    for axes in factorizations(n):
+        print(dryrun_multichip(n, axes=axes))

@@ -1,8 +1,9 @@
 """Flagship decoder-only transformer, on one device or a mesh (port of
 ``tfmesos_tpu/models/transformer.py``: config, params and int8 weights
-``:42-262``, the trunk ``:581-743``, linear and paged caches and decode
-``:746-1076, 1248-1560``, sampling and ``generate`` ``:1563-1774``,
-the training loss ``:2103-2176``).
+``:42-262``, the feed-forward dispatch (``_zero_aux``, ``_moe_switch``,
+``_moe``, ``_ffn``) ``:263-415``, the trunk ``:581-743``, linear and
+paged caches and decode ``:746-1076, 1248-1560``, sampling and
+``generate`` ``:1563-1774``, the training loss ``:2103-2176``).
 
 Same parameter dict as the JAX package — stacked per-layer leaves
 ``layers/<name>`` of shape [L, ...] — with the same shapes and init
@@ -37,7 +38,13 @@ collectives the JAX package leaves to GSPMD are written out: Megatron
 tp (column-parallel q/k/v and gate/up, row-parallel ``wo`` and
 ``w_down`` each followed by one all-reduce, the vocab-parallel
 embedding and head), fsdp's shards gathered a layer at a time; the
-kernels run on the rank's heads.
+kernels run on the rank's heads.  ``ep`` cuts the experts of an MoE
+config (whole experts a rank; the dense top-k form computes its local
+experts and all-reduces over ep, the switch form moves tokens to their
+experts by all-to-all, ``parallel/moe.py``); ``sp`` cuts the sequence
+(a rank's tokens at their global positions; attention through
+``ops.attention.attend``: the ring or Ulysses).  Serving runs on data
+x tp meshes only, as in JAX.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ import torch.utils.checkpoint
 
 from tfmesos_tpu_torch import graphs
 from tfmesos_tpu_torch.ops import prng
-from tfmesos_tpu_torch.ops.attention import (_dequant_lane_major,
+from tfmesos_tpu_torch.ops.attention import (_dequant_lane_major, attend,
                                              flash_attention, flash_decode,
                                              flash_decode_paged)
 from tfmesos_tpu_torch.ops.layers import (cross_entropy_loss,
@@ -62,25 +69,34 @@ from tfmesos_tpu_torch.ops.quant import (QTensor, _paged_slots,
                                          _put_positions, commit_int8,
                                          quantize_tensors)
 from tfmesos_tpu_torch.parallel.collectives import (
-    broadcast_replicated_grad, gather_shards, psum_replicated_grad)
+    all_reduce_sum_grad, broadcast_replicated_grad, gather_shards,
+    psum_replicated_grad)
 from tfmesos_tpu_torch.parallel.sharding import (Spec, block, data_axes,
-                                                 filter_spec)
+                                                 filter_spec, token_axes)
 
 Params = Dict[str, Any]
 
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """Dense decoder-only transformer configuration (the JAX
-    ``TransformerConfig``'s dense fields).  ``n_kv_heads < n_heads`` is
-    grouped-query attention; ``window`` a sliding attention window
-    (``forward``, and rolling linear caches in decode — paged caches
-    refuse it, as in JAX).  Training:
-    ``fused_ce`` (None = auto, which is the fused head + cross entropy
-    on one device; False = materialize the logits), ``ce_chunk`` tokens
-    per fused chunk, ``z_loss`` the LM-head z-loss weight; ``remat``
-    recomputes each block's forward in the backward instead of keeping
-    its activations."""
+    """Decoder-only transformer configuration (the JAX
+    ``TransformerConfig`` without its pipeline fields).
+    ``n_kv_heads < n_heads`` is grouped-query attention; ``window`` a
+    sliding attention window (``forward``, and rolling linear caches in
+    decode — paged caches refuse it, as in JAX).  MoE: ``n_experts``
+    routed experts (0: the dense MLP), each token to ``top_k`` of them,
+    plus ``n_shared_experts`` always-on ones stored as one FFN of that
+    many times ``d_ff``; ``moe_impl`` ``"dense"`` (exact top-k, every
+    expert computing every token under the router's mask) or
+    ``"switch"`` (capacity ``capacity_factor`` and token dispatch,
+    ``parallel/moe.py``); the router's load-balance and z losses join
+    the training objective at ``router_aux_weight`` and
+    ``router_z_weight``.  ``sp_impl``: ``"ring"`` or ``"ulysses"`` over
+    an sp mesh.  Training: ``fused_ce`` (None = auto, which is the
+    fused head + cross entropy; False = materialize the logits),
+    ``ce_chunk`` tokens per fused chunk, ``z_loss`` the LM-head z-loss
+    weight; ``remat`` recomputes each block's forward in the backward
+    instead of keeping its activations."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -95,6 +111,13 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32    # master params
     remat: bool = False
     n_experts: int = 0
+    top_k: int = 2
+    n_shared_experts: int = 0
+    moe_impl: str = "dense"
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    sp_impl: str = "ring"
     fused_ce: Optional[bool] = None
     ce_chunk: int = 2048
     z_loss: float = 0.0
@@ -103,9 +126,9 @@ class TransformerConfig:
         if self.window is not None and self.window < 1:
             raise ValueError(f"window must be >= 1, got {self.window} "
                              f"(use None for full causal attention)")
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "MoE configs (n_experts > 0) are not ported yet")
+        if self.moe_impl not in ("dense", "switch"):
+            raise ValueError(f"moe_impl must be 'dense' or 'switch', got "
+                             f"{self.moe_impl!r}")
 
     @property
     def head_dim(self) -> int:
@@ -123,8 +146,14 @@ class TransformerConfig:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device: Union[str, torch.device] = "cpu") -> Params:
     """Random params with the JAX ``init_params`` layout, shapes and
-    scales, drawn on the CPU from ``generator`` (so a seed gives the
-    same weights on every device) and moved to ``device``."""
+    scales (the MoE leaves ``router``, ``e_*`` and ``s_*`` in place of
+    the MLP's with experts), drawn on the CPU from ``generator`` (so a
+    seed gives the same weights on every device) and moved to
+    ``device``."""
+    if cfg.n_shared_experts and not cfg.n_experts:
+        raise ValueError(
+            "n_shared_experts requires n_experts > 0 — without routed "
+            "experts there is nothing to share beside; widen d_ff instead")
     d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
     hd = cfg.n_heads * cfg.head_dim
     kvd = cfg.kv_heads * cfg.head_dim
@@ -143,10 +172,26 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         "wv": norm((l, d, kvd), 1 / math.sqrt(d)),
         "wo": norm((l, hd, d), 1 / math.sqrt(hd) / math.sqrt(2 * l)),
         "mlp_norm": ones((l, d)),
-        "w_gate": norm((l, d, f), 1 / math.sqrt(d)),
-        "w_up": norm((l, d, f), 1 / math.sqrt(d)),
-        "w_down": norm((l, f, d), 1 / math.sqrt(f) / math.sqrt(2 * l)),
     }
+    if cfg.n_experts:
+        e = cfg.n_experts
+        layers.update(
+            router=norm((l, d, e), 1 / math.sqrt(d)),
+            e_gate=norm((l, e, d, f), 1 / math.sqrt(d)),
+            e_up=norm((l, e, d, f), 1 / math.sqrt(d)),
+            e_down=norm((l, e, f, d), 1 / math.sqrt(f) / math.sqrt(2 * l)))
+        if cfg.n_shared_experts:
+            sf = cfg.n_shared_experts * f
+            layers.update(
+                s_gate=norm((l, d, sf), 1 / math.sqrt(d)),
+                s_up=norm((l, d, sf), 1 / math.sqrt(d)),
+                s_down=norm((l, sf, d),
+                            1 / math.sqrt(sf) / math.sqrt(2 * l)))
+    else:
+        layers.update(
+            w_gate=norm((l, d, f), 1 / math.sqrt(d)),
+            w_up=norm((l, d, f), 1 / math.sqrt(d)),
+            w_down=norm((l, f, d), 1 / math.sqrt(f) / math.sqrt(2 * l)))
     return {
         "embed": norm((cfg.vocab_size, d), 1.0),
         "layers": layers,
@@ -156,19 +201,30 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 
 
 #: Weight leaves quantize_params converts: the big matmul operands
-#: (norms are tiny and precision-critical).  The JAX set also names the
-#: MoE expert leaves, which come with the MoE configs.
-_QUANT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up",
-                         "w_down"})
+#: (norms are tiny and precision-critical; the router is tiny and
+#: decides routing).
+_QUANT_KEYS = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+     "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down"})
+
+
+def _quantizable(cfg: TransformerConfig, key: str) -> bool:
+    """Which layer leaves :func:`quantize_params` converts (the JAX
+    ``_quantizable``): switch-MoE expert weights stay fp, as the
+    capacity-dispatch path consumes raw arrays."""
+    if cfg.moe_impl == "switch" and key.startswith("e_"):
+        return False
+    return key in _QUANT_KEYS
 
 
 def quantize_params(cfg: TransformerConfig, params: Params) -> Params:
     """Weight-only int8 quantization (per-row absmax, ``ops/quant.py``):
-    the embedding table, the head and every per-layer projection become
-    :class:`QTensor` s (all of them in one ``quant_int8.cu`` launch on
-    the card); norms stay as they are.  The tree drops into ``forward``,
+    the embedding table, the head and every per-layer projection and
+    expert weight (:func:`_quantizable`) become :class:`QTensor` s, all
+    of them in one ``quant_int8.cu`` launch on the card; norms and the
+    router stay as they are.  The tree drops into ``forward``,
     ``decode_step``, ``generate`` and the batcher unchanged."""
-    keys = [k for k in params["layers"] if k in _QUANT_KEYS]
+    keys = [k for k in params["layers"] if _quantizable(cfg, k)]
     embed, *qlayers, head = quantize_tensors(
         [params["embed"], *(params["layers"][k] for k in keys),
          params["head"]])
@@ -197,6 +253,14 @@ def _qmm(x: torch.Tensor, w, dtype: torch.dtype):
     return x @ w.to(dtype)
 
 
+def _wt(w, dtype: torch.dtype) -> torch.Tensor:
+    """Weight-on-use for the einsum sites (the MoE experts): an int8
+    :class:`QTensor` dequantized in ``dtype``, a plain weight cast."""
+    if isinstance(w, QTensor):
+        return w.dequantize(dtype)
+    return w.to(dtype)
+
+
 def _embed_lookup(table, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Embedding gather; casting the gathered rows equals gathering the
@@ -218,6 +282,137 @@ def _mlp(cfg: TransformerConfig, lp: Params, h: torch.Tensor):
     return _qswiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.dtype)
 
 
+AUX_KEYS = ("load_balance_loss", "z_loss", "overflow_frac")
+
+
+def _zero_aux(device=None) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {k: z for k in AUX_KEYS}
+
+
+def _moe_axes(mesh) -> Tuple[str, ...]:
+    """The axes a dense MoE's partial products sum over: ep (each rank's
+    whole experts) and tp (each expert's FFN width)."""
+    return tuple(a for a in ("ep", "tp")
+                 if mesh is not None and mesh.axis_size(a) > 1)
+
+
+def _moe(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None,
+         want_aux: bool = True):
+    """Top-k routed MoE computed densely over the expert axis (the JAX
+    ``_moe``): every expert processes every token and the router's mask
+    zeroes the unrouted ones — exact top-k routing.  Returns (out, aux).
+
+    On a mesh the experts are this rank's block: whole experts over ep,
+    each expert's FFN width over tp (Megatron per expert).  The router
+    (replicated) picks over all E experts; the tokens and the mask fan
+    out through Megatron's *f* over ep and tp, the rank computes its
+    local experts' slice of the masked products, and one all-reduce
+    (*g*) over ep and tp sums the partials (the JAX manual form
+    ``:327-348``).  The aux statistics (assignment counts, router
+    probabilities, logsumexps) are summed over the mesh's token axes
+    first (data and sp), so the aux is the global batch's, as GSPMD
+    computes it; ``want_aux=False`` (decode) skips them (aux None)."""
+    e = cfg.n_experts
+    logits = (h @ lp["router"].to(cfg.dtype)).float()        # [B, T, E]
+    top_vals, top_idx = torch.topk(logits, cfg.top_k, dim=-1)
+    gates = torch.softmax(top_vals, dim=-1)                  # [B, T, k]
+    onehot = torch.nn.functional.one_hot(top_idx, e).float()  # [B,T,k,E]
+    mask = (onehot * gates[..., None]).sum(-2)               # [B, T, E]
+    axes = _moe_axes(mesh)
+    h_l, mask = h, mask
+    if axes:
+        h_l = broadcast_replicated_grad(h, mesh, axes)
+        mask = broadcast_replicated_grad(mask, mesh, axes)
+    if mesh is not None and mesh.axis_size("ep") > 1:
+        eg = lp["e_gate"]
+        e_loc = (eg.values if isinstance(eg, QTensor) else eg).shape[0]
+        lo = mesh.coord("ep") * e_loc
+        mask = mask[..., lo:lo + e_loc]
+    g = torch.nn.functional.silu(torch.einsum(
+        "btd,edf->btef", h_l, _wt(lp["e_gate"], cfg.dtype)))
+    u = torch.einsum("btd,edf->btef", h_l, _wt(lp["e_up"], cfg.dtype))
+    y = torch.einsum("btef,efd->bted", g * u, _wt(lp["e_down"], cfg.dtype))
+    out = torch.einsum("bted,bte->btd", y, mask.to(cfg.dtype))
+    if axes:
+        out = psum_replicated_grad(out, mesh, axes)
+    if not want_aux:
+        return out, None
+    n = logits.shape[0] * logits.shape[1]
+    stats = torch.cat([onehot.sum((0, 1, 2)),
+                       torch.softmax(logits, dim=-1).sum((0, 1)),
+                       (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
+                       torch.full((1,), float(n), device=logits.device)])
+    tok = token_axes(mesh)
+    if tok:
+        stats = all_reduce_sum_grad(stats, mesh, tok)
+    count = stats[-1]
+    f = stats[:e] / (count * cfg.top_k)
+    aux = {"load_balance_loss": e * torch.sum(f * stats[e:2 * e] / count),
+           "z_loss": stats[2 * e] / count,
+           "overflow_frac": torch.zeros((), dtype=torch.float32,
+                                        device=logits.device)}
+    return out, aux
+
+
+def _moe_switch(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                mesh=None):
+    """Switch MoE (the JAX ``_moe_switch``): the tokens flattened through
+    ``parallel.moe.switch_moe`` (top-k with capacity, all-to-all
+    dispatch over ep; the single-device reference without an ep or tp
+    axis — the same routing semantics either way).  Capacity is a
+    competition over a data shard's WHOLE sequence: under sp the tokens
+    are gathered over sp before routing and this rank's block cut after
+    (the JAX in-spec ``P(data_axes)`` replicates them over sp), so the
+    same tokens drop as in JAX.  Without ep ``switch_moe`` gathers them
+    over the data axes as well (JAX routes the global batch there); over
+    ep the aux metrics come back averaged over the data axes, as JAX
+    pmeans them."""
+    from tfmesos_tpu_torch.parallel.moe import switch_moe
+
+    sp = 1 if mesh is None else mesh.axis_size("sp")
+    if sp > 1:
+        h = gather_shards(h.contiguous(), mesh, "sp", 1)
+    b, t, d = h.shape
+    tp_axis = "tp" if mesh is not None and mesh.axis_size("tp") > 1 \
+        else None
+    out, aux = switch_moe(h.reshape(b * t, d), lp["router"].to(cfg.dtype),
+                          lp["e_gate"], lp["e_up"], lp["e_down"], mesh,
+                          capacity_factor=cfg.capacity_factor,
+                          top_k=cfg.top_k, return_aux=True, tp_axis=tp_axis)
+    out = out.reshape(b, t, d)
+    if sp > 1:
+        tl = t // sp
+        out = out[:, mesh.coord("sp") * tl:(mesh.coord("sp") + 1) * tl]
+    return out, aux
+
+
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None,
+         want_aux: bool = True):
+    """The block's feed-forward dispatch (the JAX ``_ffn``): the dense
+    MLP, the switch MoE or the dense top-k MoE, plus the shared experts'
+    always-on FFN — shared by the training and decode paths, so they
+    cannot drift.  ``h`` is the normed input, whole over tp; the output
+    comes back whole (each tp- or ep-cut product all-reduced once).
+    Returns (out, aux), aux None for the dense MLP (and for a dense
+    MoE without ``want_aux``): nothing to add to a tick's work."""
+    if not cfg.n_experts:
+        out = psum_replicated_grad(
+            _mlp(cfg, lp, broadcast_replicated_grad(h, mesh)), mesh)
+        return out, None
+    if cfg.moe_impl == "switch":
+        out, aux = _moe_switch(cfg, lp, h, mesh)
+    else:
+        out, aux = _moe(cfg, lp, h, mesh, want_aux)
+    if cfg.n_shared_experts:
+        # The shared weights replicate over ep; under tp their width is
+        # cut like the dense MLP's.
+        out = out + psum_replicated_grad(_qswiglu(
+            broadcast_replicated_grad(h, mesh), lp["s_gate"], lp["s_up"],
+            lp["s_down"], cfg.dtype), mesh)
+    return out, aux
+
+
 def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.axis_size("tp")
 
@@ -236,11 +431,14 @@ def _check_tp(cfg: TransformerConfig, mesh, what: str) -> int:
 
 
 def partition_specs(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
-    """The spec tree of the params (the JAX ``partition_specs``, dense
-    branch): Megatron tp (``wq/wk/wv/w_gate/w_up`` cut on their output
-    columns, ``wo/w_down`` on their input rows, the embedding on its
-    vocab rows and the head on its vocab columns), fsdp on the other
-    dim, norms whole; the layer-stack dim whole.  Axes of size 1 are
+    """The spec tree of the params (the JAX ``partition_specs``):
+    Megatron tp (``wq/wk/wv/w_gate/w_up`` cut on their output columns,
+    ``wo/w_down`` on their input rows, the embedding on its vocab rows
+    and the head on its vocab columns), fsdp on the other dim, norms
+    whole; the layer-stack dim whole.  MoE: the router over fsdp, the
+    experts' ``e_*`` over ep (whole experts), fsdp and tp (each
+    expert's FFN width, Megatron per expert), the shared ``s_*`` as the
+    dense MLP's.  Axes of size 1 are
     dropped, so on a mesh without tp or fsdp every leaf is whole.  An
     int8 leaf's scales follow its values (``parallel.sharding``)."""
     tp = _tp(mesh)
@@ -249,11 +447,20 @@ def partition_specs(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
             f"partition_specs: tp ({tp}) must divide the GQA kv projection "
             f"width ({cfg.kv_heads} kv heads x {cfg.head_dim})")
     col, row = (None, "fsdp", "tp"), (None, "tp", "fsdp")
+    layers = {"attn_norm": (None, None), "wq": col, "wk": col, "wv": col,
+              "wo": row, "mlp_norm": (None, None)}
+    if cfg.n_experts:
+        layers.update(router=(None, "fsdp", None),
+                      e_gate=(None, "ep", "fsdp", "tp"),
+                      e_up=(None, "ep", "fsdp", "tp"),
+                      e_down=(None, "ep", "tp", "fsdp"))
+        if cfg.n_shared_experts:
+            layers.update(s_gate=col, s_up=col, s_down=row)
+    else:
+        layers.update(w_gate=col, w_up=col, w_down=row)
     tree = {
         "embed": ("tp", "fsdp"),
-        "layers": {"attn_norm": (None, None), "wq": col, "wk": col,
-                   "wv": col, "wo": row, "mlp_norm": (None, None),
-                   "w_gate": col, "w_up": col, "w_down": row},
+        "layers": layers,
         "norm_f": (None,),
         "head": ("fsdp", "tp"),
     }
@@ -310,24 +517,28 @@ def _qkv(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
 
 
 def _finish_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-                  o: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Output projection, residual, MLP-norm, SwiGLU, residual.  Under tp
-    ``wo`` and ``w_down`` are row blocks whose partial products are
-    all-reduced once each (Megatron's *g*), and the MLP's input fans out
-    through *f*."""
+                  o: torch.Tensor, mesh=None, want_aux: bool = True):
+    """Output projection, residual, MLP-norm, the feed-forward dispatch
+    (:func:`_ffn`), residual; returns (x, aux).  Under tp ``wo`` is a
+    row block whose partial product is all-reduced once (Megatron's
+    *g*), as is the dense MLP's ``w_down``, whose input fans out through
+    *f*."""
     b, t, _ = x.shape
     x = x + psum_replicated_grad(_qmm(o.reshape(b, t, -1), lp["wo"],
                                       cfg.dtype), mesh)
-    h = broadcast_replicated_grad(
-        rms_norm(x, lp["mlp_norm"].to(cfg.dtype)), mesh)
-    return x + psum_replicated_grad(_mlp(cfg, lp, h), mesh)
+    ffn, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"].to(cfg.dtype)),
+                    mesh, want_aux)
+    return x + ffn, aux
 
 
 def _block(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor, mesh=None) -> torch.Tensor:
-    """One transformer block over a full sequence (causal attention)."""
+           positions: torch.Tensor, mesh=None):
+    """One transformer block over a full sequence (causal attention;
+    over sp, the ring or Ulysses through ``attend``); returns (x,
+    aux)."""
     q, k, v = _qkv(cfg, lp, x, positions, mesh)
-    o = flash_attention(q, k, v, causal=True, window=cfg.window)
+    o = attend(q, k, v, mesh, causal=True, sp_impl=cfg.sp_impl,
+               window=cfg.window)
     return _finish_block(cfg, lp, x, o, mesh)
 
 
@@ -397,8 +608,9 @@ def _specs(cfg: TransformerConfig, mesh):
 
 
 def forward_hidden(cfg: TransformerConfig, params: Params,
-                   tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-    """tokens [B, T] -> final-norm hidden states [B, T, d].  With
+                   tokens: torch.Tensor, mesh=None):
+    """tokens [B, T] -> (final-norm hidden states [B, T, d], the router
+    aux metrics averaged over the layers; zeros without experts).  With
     ``cfg.remat`` each block is a non-reentrant activation checkpoint:
     the backward re-runs its forward (attention kernel included) from
     the block's input, as ``jax.checkpoint`` does in the reference.
@@ -408,32 +620,46 @@ def forward_hidden(cfg: TransformerConfig, params: Params,
     batch; tp runs each block Megatron-style (:func:`_qkv`,
     :func:`_finish_block`) and fsdp gathers each layer's shards whole
     just before it runs (a remat block gathers again in its backward).
-    The hidden states are whole on every tp rank."""
+    Over sp ``tokens`` are this rank's block of the sequence: the
+    embedding and rope run at GLOBAL positions (the rank's offset
+    ``coord("sp") · T``).  The hidden states are whole on every tp and
+    ep rank."""
     b, t = tokens.shape
     specs = _specs(cfg, mesh)
     x = _embed(cfg, params, tokens, mesh, specs)
-    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    start = 0 if mesh is None else mesh.coord("sp") * t
+    positions = (start + torch.arange(t, device=tokens.device)).expand(b, t)
     lspecs = None if specs is None else specs["layers"]
 
     def block(x_, li):
-        return _block(cfg, x_, _layer(params, li, mesh, lspecs), positions,
-                      mesh)
+        x_, aux = _block(cfg, x_, _layer(params, li, mesh, lspecs),
+                         positions, mesh)
+        return (x_,) + (() if aux is None else
+                        tuple(aux[k] for k in AUX_KEYS))
 
+    sums = None
     for li in range(cfg.n_layers):
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, li,
-                                                  use_reentrant=False)
+            x, *aux = torch.utils.checkpoint.checkpoint(
+                block, x, li, use_reentrant=False)
         else:
-            x = block(x, li)
-    return rms_norm(x, params["norm_f"].to(cfg.dtype))
+            x, *aux = block(x, li)
+        if aux:
+            sums = aux if sums is None else [a + b
+                                             for a, b in zip(sums, aux)]
+    aux = (_zero_aux(tokens.device) if sums is None else
+           {k: v / cfg.n_layers for k, v in zip(AUX_KEYS, sums)})
+    return rms_norm(x, params["norm_f"].to(cfg.dtype)), aux
 
 
 def forward(cfg: TransformerConfig, params: Params,
-            tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+            tokens: torch.Tensor, mesh=None, return_aux: bool = False):
     """tokens [B, T] -> logits [B, T, V] in the compute dtype (whole on
-    every tp rank of a ``mesh``)."""
-    return _logits(cfg, params, forward_hidden(cfg, params, tokens, mesh),
-                   mesh, _specs(cfg, mesh))
+    every tp rank of a ``mesh``), with the per-layer-averaged router aux
+    metrics when ``return_aux``."""
+    x, aux = forward_hidden(cfg, params, tokens, mesh)
+    logits = _logits(cfg, params, x, mesh, _specs(cfg, mesh))
+    return (logits, aux) if return_aux else logits
 
 
 def _fused_ce_mode(cfg: TransformerConfig, params: Optional[Params] = None,
@@ -456,15 +682,20 @@ def loss_fn(cfg: TransformerConfig, params: Params,
             batch: Dict[str, torch.Tensor], mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token prediction: ``batch = {"tokens": [B, T+1]}`` ->
-    ``(loss, {"perplexity"})``, loss the float32 mean cross entropy of
-    positions 1..T given 0..T-1.
+    ``(loss, metrics)``, loss the float32 mean cross entropy of
+    positions 1..T given 0..T-1 and ``metrics`` its perplexity.  With
+    experts the router's losses join the objective
+    (``router_aux_weight · load_balance_loss + router_z_weight ·
+    z_loss``) and the metrics carry ``load_balance_loss``,
+    ``router_z_loss`` and ``moe_overflow_frac`` (the JAX ``loss_fn``).
 
-    On a ``mesh`` the batch is this rank's share and the loss the
-    GLOBAL batch's mean on every rank (its gradient is the rank's own
-    share's: the train step averages the gradients over the data
-    axes), through ``data_parallel_fused_cross_entropy`` on a data mesh
-    or ``vocab_parallel_cross_entropy`` with tp, as ``cfg.fused_ce``
-    says; z-loss on every path."""
+    On a ``mesh`` the batch is this rank's share (over sp its window of
+    the sequence, ``sharding.seq_window``) and the loss the GLOBAL
+    batch's mean on every rank (its gradient is the rank's own share's:
+    the train step averages the gradients over the data axes and sp),
+    through ``data_parallel_fused_cross_entropy`` without tp or
+    ``vocab_parallel_cross_entropy`` with it, as ``cfg.fused_ce`` says;
+    z-loss on every path."""
     from tfmesos_tpu_torch.ops.layers import (
         data_mean, data_parallel_fused_cross_entropy,
         vocab_parallel_cross_entropy)
@@ -474,28 +705,37 @@ def loss_fn(cfg: TransformerConfig, params: Params,
     mode = _fused_ce_mode(cfg, params, mesh)
     specs = _specs(cfg, mesh)
     if mode is None:
-        loss = data_mean(cross_entropy_loss(
-            forward(cfg, params, tokens[:, :-1], mesh), labels,
-            z_loss=cfg.z_loss), mesh)
-        return loss, {"perplexity": torch.exp(loss)}
-    x = forward_hidden(cfg, params, tokens[:, :-1], mesh)
-    # The master-dtype head: the op computes in x's dtype and
-    # accumulates dw in float32 at the param dtype.
-    head = params["head"] if specs is None else _unshard(
-        params["head"], specs["head"], mesh)
-    if mode == "tp":
-        loss = vocab_parallel_cross_entropy(x, head, labels, mesh,
-                                            z_loss=cfg.z_loss,
-                                            chunk=cfg.ce_chunk,
-                                            vocab=cfg.vocab_size)
-    elif mode == "dp":
-        loss = data_parallel_fused_cross_entropy(x, head, labels, mesh,
-                                                 cfg.z_loss, cfg.ce_chunk)
+        logits, aux = forward(cfg, params, tokens[:, :-1], mesh,
+                              return_aux=True)
+        loss = data_mean(cross_entropy_loss(logits, labels,
+                                            z_loss=cfg.z_loss), mesh)
     else:
-        loss = fused_linear_cross_entropy(x, head, labels,
-                                          z_loss=cfg.z_loss,
-                                          chunk=cfg.ce_chunk)
-    return loss, {"perplexity": torch.exp(loss)}
+        x, aux = forward_hidden(cfg, params, tokens[:, :-1], mesh)
+        # The master-dtype head: the op computes in x's dtype and
+        # accumulates dw in float32 at the param dtype.
+        head = params["head"] if specs is None else _unshard(
+            params["head"], specs["head"], mesh)
+        if mode == "tp":
+            loss = vocab_parallel_cross_entropy(x, head, labels, mesh,
+                                                z_loss=cfg.z_loss,
+                                                chunk=cfg.ce_chunk,
+                                                vocab=cfg.vocab_size)
+        elif mode == "dp":
+            loss = data_parallel_fused_cross_entropy(x, head, labels, mesh,
+                                                     cfg.z_loss,
+                                                     cfg.ce_chunk)
+        else:
+            loss = fused_linear_cross_entropy(x, head, labels,
+                                              z_loss=cfg.z_loss,
+                                              chunk=cfg.ce_chunk)
+    metrics = {"perplexity": torch.exp(loss)}
+    if cfg.n_experts:
+        loss = (loss + cfg.router_aux_weight * aux["load_balance_loss"]
+                + cfg.router_z_weight * aux["z_loss"])
+        metrics.update(load_balance_loss=aux["load_balance_loss"],
+                       router_z_loss=aux["z_loss"],
+                       moe_overflow_frac=aux["overflow_frac"])
+    return loss, metrics
 
 
 def entry(device: Union[str, torch.device, None] = None
@@ -826,7 +1066,7 @@ def _block_decode(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
         o = flash_decode_paged(q, cache["k"], cache["v"], pages,
                                positions[:, 0], layer=li, self_kv=(k, v),
                                round_self=isinstance(cache["k"], QTensor))
-    return _finish_block(cfg, lp, x, o, mesh), chunk
+    return _finish_block(cfg, lp, x, o, mesh, want_aux=False)[0], chunk
 
 
 def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
@@ -853,6 +1093,18 @@ def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
     s = s.masked_fill(bad, float("-inf"))
     probs = torch.softmax(s, dim=-1).to(vc.dtype)
     return torch.einsum("bkgtm,bkmd->btkgd", probs, vc).reshape(b, t, h, d)
+
+
+def _check_serving_mesh(mesh) -> None:
+    """Decode runs on data (dp/fsdp) x tp meshes, as in JAX
+    (``_check_sharded_paged``): an sp or ep mesh is refused with its
+    message."""
+    if mesh is None:
+        return
+    real = {a for a, n in mesh.axes.items() if n > 1}
+    if not real <= {"dp", "fsdp", "tp"}:
+        raise ValueError(f"sharded paged decode runs on data (dp/fsdp) x "
+                         f"tp meshes; got axes {sorted(real)}")
 
 
 def decode_step(cfg: TransformerConfig, params: Params,
@@ -892,6 +1144,7 @@ def decode_step(cfg: TransformerConfig, params: Params,
             pos = torch.full((b,), int(pos), dtype=torch.long, device=dev)
         pos = pos.to(dev).long().reshape(-1).expand(b)
         positions = pos[:, None] + offs[None]
+    _check_serving_mesh(mesh)
     specs = _specs(cfg, mesh)
     lspecs = None if specs is None else specs["layers"]
     x = _embed(cfg, params, tokens, mesh, specs)

@@ -1,7 +1,8 @@
 """Attention ops: plain PyTorch references and the wrappers of the
 hand-written Hopper kernels on the serving and training paths (port of
 ``tfmesos_tpu/ops/attention.py``: prefill and its gradient
-``:69-531``, decode ``:534-593, 831-1152``).
+``:69-531``, decode ``:534-593, 831-1152``, the model's entry point
+``attend`` ``:1218-1255``).
 
 Every wrapper follows one rule: a CPU tensor runs the plain PyTorch
 version of the kernel (same function, same signature); a CUDA tensor
@@ -244,6 +245,38 @@ def flash_attention(q, k, v, causal: bool = False,
     reads kv head h // g."""
     return flash_forward(q, k, v, causal=causal, scale=scale, window=window,
                          q_offset=q_offset)[0]
+
+
+def attend(q, k, v, mesh=None, causal: bool = True,
+           scale: Optional[float] = None, sp_impl: str = "ring",
+           window: Optional[int] = None) -> torch.Tensor:
+    """One attention entry point for model code (the JAX ``attend``):
+    sequence parallelism when ``mesh`` cuts the sequence over ``sp`` —
+    ring attention (``parallel/ring_attention.py``; GQA K/V broadcast up
+    to the q heads first, as the ring works per head) or Ulysses
+    (``parallel/ulysses.py``, ``sp_impl="ulysses"``; GQA K/V at their
+    own width when sp divides them) — else :func:`flash_attention` on
+    this rank's heads.  ``window`` composes with both sp paths."""
+    _check_gqa_heads(q, k, v)
+    if mesh is not None and mesh.axis_size("sp") > 1:
+        if sp_impl == "ulysses":
+            from tfmesos_tpu_torch.parallel.ulysses import ulysses_attention
+
+            return ulysses_attention(q, k, v, mesh, causal=causal,
+                                     scale=scale, window=window)
+        if sp_impl != "ring":
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got "
+                             f"{sp_impl!r}")
+        if k.shape[2] != q.shape[2]:
+            rep = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        from tfmesos_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh, causal=causal, scale=scale,
+                              window=window)
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           window=window)
 
 
 # -- backward ----------------------------------------------------------------

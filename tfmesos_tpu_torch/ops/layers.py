@@ -161,32 +161,21 @@ def fused_linear_cross_entropy(x: torch.Tensor, w: torch.Tensor,
 # -- over a mesh ----------------------------------------------------------
 
 
-class _DataMean(torch.autograd.Function):
-    """The loss of the global batch: this rank's loss averaged over the
-    data axes forward, identity backward (the gradient stays the rank's
-    own share's; the train step averages the gradients over the same
-    axes, which is the global batch's gradient)."""
-
-    @staticmethod
-    def forward(ctx, loss, mesh, axes):
-        from tfmesos_tpu_torch.parallel.collectives import all_reduce_mean
-
-        return all_reduce_mean(loss, mesh, axes)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
 def data_mean(loss: torch.Tensor, mesh) -> torch.Tensor:
     """``loss`` (this rank's share's mean) as the global batch's mean on
-    every rank (:class:`_DataMean`); itself without a data axis."""
-    from tfmesos_tpu_torch.parallel.sharding import data_axes
+    every rank, over ``sharding.token_axes`` (every share holds as many
+    tokens, so the mean of the means is the mean over the global token
+    count); itself without such an axis.  Identity backward
+    (``collectives.mean_replicated_grad``): the gradient stays the
+    rank's own share's, and the train step averages the gradients over
+    the same axes, which is the global batch's gradient."""
+    from tfmesos_tpu_torch.parallel.collectives import mean_replicated_grad
+    from tfmesos_tpu_torch.parallel.sharding import token_axes
 
-    axes = data_axes(mesh)
+    axes = token_axes(mesh)
     if axes is None:
         return loss
-    return _DataMean.apply(loss, mesh, axes)
+    return mean_replicated_grad(loss, mesh, axes)
 
 
 def data_parallel_fused_cross_entropy(x: torch.Tensor, w: torch.Tensor,

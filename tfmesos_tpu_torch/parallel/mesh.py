@@ -1,14 +1,16 @@
 """The mesh: the successor of the ps/worker ClusterSpec (port of
-``tfmesos_tpu/parallel/mesh.py``, its data and tensor axes).
+``tfmesos_tpu/parallel/mesh.py``, every axis but ``pp``).
 
 The JAX package turns the job counts into mesh axis sizes: ``dp`` (data
 parallel, the worker set), ``fsdp`` (parameter sharding, what ps jobs
-become) and ``tp`` (Megatron tensor parallelism), ``-1`` absorbing
-every device left.  The port lays the ranks out over the axes it has,
-one rank a device, in the JAX package's order with ``tp`` innermost
-(rank = row-major index over ``dp, fsdp, tp``), and makes one process
-group for every set of axes and every coordinate of the others, so a
-collective names the axes it runs over (``parallel/collectives.py``).
+become), ``ep`` (experts of an MoE model), ``sp`` (the sequence: ring
+or Ulysses attention) and ``tp`` (Megatron tensor parallelism), ``-1``
+absorbing every device left.  The port lays the ranks out over the axes
+it has, one rank a device, in the JAX package's order with ``tp``
+innermost (rank = row-major index over ``dp, fsdp, ep, sp, tp``), and
+makes one process group for every set of axes and every coordinate of
+the others, so a collective names the axes it runs over
+(``parallel/collectives.py``).
 
 Axes prefixed ``dcn.`` (``dcn.dp=2,dp=2,tp=2``) lay that part of an axis
 ACROSS slices, as the JAX ``build_hybrid_mesh`` does: the ranks split
@@ -16,8 +18,8 @@ into as many equal contiguous blocks ("slices") as the dcn sizes
 multiply to, the dcn axes lay out over the slices and the others within
 each slice, and an axis named both ways has size dcn x ici with the dcn
 index as its outer factor.  A rank's coordinates follow that layout, so
-its place in the grid is the device's in JAX's hybrid mesh.  ``sp``,
-``pp`` and ``ep`` above 1 are refused by name (ROADMAP A.10).
+its place in the grid is the device's in JAX's hybrid mesh.  ``pp``
+above 1 is refused by name (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ __all__ = ["DATA_AXES", "AXIS_ORDER", "MeshSpec", "RankMesh", "LocalMesh",
 
 DATA_AXES = ("dp", "fsdp")
 #: The axes the port builds, outermost first (the JAX ``AXIS_ORDER``
-#: without the axes it does not have yet).
-AXIS_ORDER = ("dp", "fsdp", "tp")
+#: without ``pp``, which the port does not have yet).
+AXIS_ORDER = ("dp", "fsdp", "ep", "sp", "tp")
 # The ROADMAP item that brings each axis the port does not have yet.
-LATER_AXES = {"sp": "A.10", "pp": "A.10", "ep": "A.10"}
+LATER_AXES = {"pp": "A.10"}
 
 Axes = Union[str, Sequence[str], None]
 
@@ -70,7 +72,8 @@ def split_dcn_axes(axes: Dict[str, int]):
 
 def check_axes(axes: Dict[str, int]) -> Dict[str, int]:
     """Return ``axes`` if the port can build them, else raise
-    ``ValueError``: an axis but dp, fsdp and tp whose size is not 1 (-1
+    ``ValueError``: an axis outside :data:`AXIS_ORDER` (``pp``) whose
+    size is not 1 (-1
     included: it would absorb devices) names its ROADMAP item, with or
     without the ``dcn.`` prefix, and a ``dcn.`` axis must have an
     explicit size."""

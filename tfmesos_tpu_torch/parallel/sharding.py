@@ -22,7 +22,8 @@ from tfmesos_tpu_torch.ops.quant import QTensor
 from tfmesos_tpu_torch.parallel import collectives
 from tfmesos_tpu_torch.parallel.mesh import DATA_AXES
 
-__all__ = ["Spec", "data_axes", "filter_spec", "spec_axes", "fsdp_spec",
+__all__ = ["Spec", "data_axes", "token_axes", "filter_spec", "spec_axes",
+           "fsdp_spec",
            "batch_spec", "block", "cut", "uncut", "place_tree", "gather_tree",
            "make_global_batch", "apply_rules"]
 
@@ -35,6 +36,17 @@ def data_axes(mesh) -> Optional[Tuple[str, ...]]:
     if mesh is None:
         return None
     return tuple(a for a in DATA_AXES if mesh.axis_size(a) > 1) or None
+
+
+def token_axes(mesh) -> Optional[Tuple[str, ...]]:
+    """The axes whose ranks hold distinct tokens: the data axes and
+    ``sp`` where above size 1, else None.  A loss is averaged over them
+    (each rank's share is an equal number of tokens) and so are the
+    gradients; ``ep`` and ``tp`` ranks hold the same tokens."""
+    if mesh is None:
+        return None
+    return tuple(a for a in DATA_AXES + ("sp",)
+                 if mesh.axis_size(a) > 1) or None
 
 
 def _dim_axes(entry) -> Tuple[str, ...]:
@@ -79,8 +91,14 @@ def fsdp_spec(shape: Sequence[int], mesh, axis: str = "fsdp",
 
 
 def batch_spec(mesh, extra_dims: int = 0) -> Spec:
-    """The leading (batch) dim over the data axes, the rest whole."""
-    return (data_axes(mesh),) + (None,) * extra_dims
+    """The leading (batch) dim over the data axes, the sequence dim (the
+    first extra one) over ``sp`` where above size 1, the rest whole
+    (the JAX ``batch_spec``)."""
+    dims = [data_axes(mesh)]
+    if extra_dims >= 1 and mesh is not None and mesh.axis_size("sp") > 1:
+        dims.append("sp")
+        extra_dims -= 1
+    return tuple(dims) + (None,) * extra_dims
 
 
 def block(n: int, parts: int) -> int:
@@ -157,18 +175,41 @@ def gather_tree(mesh, tree: Any, spec_tree: Any) -> Any:
     return _map(lambda x, s: uncut(x.detach(), s, mesh), tree, spec_tree)
 
 
+def seq_window(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This sp rank's window of a next-token batch leaf ([B, T+1] along
+    ``dim``): T cut over ``sp`` into T/sp positions, each window with
+    the one label after it (positions ``[i T/sp, (i+1) T/sp]``), so the
+    rank's inputs are its sequence shard and its labels the shard's
+    next tokens.  ``x`` itself without sp."""
+    n = 1 if mesh is None else mesh.axis_size("sp")
+    if n == 1:
+        return x
+    t = x.shape[dim] - 1
+    if t % n:
+        raise ValueError(f"sequence length {t} does not divide over "
+                         f"sp={n}")
+    return x.narrow(dim, mesh.coord("sp") * (t // n), t // n + 1)
+
+
 def make_global_batch(mesh, batch: Dict[str, Any],
                       batch_dim: int = 0) -> Dict[str, torch.Tensor]:
     """This rank's share of a GLOBAL batch every rank holds: each leaf's
     ``batch_dim`` cut over the data axes, the ranks of one data shard
-    (tp peers) holding the same block.  The JAX
-    ``make_global_batch`` assembles the global array from the
-    processes' shares; here the step takes the share itself."""
+    (tp and ep peers) holding the same block, and with ``sp`` the next
+    dim (a next-token batch's [.., T+1]) cut into this rank's
+    :func:`seq_window`.  The JAX ``make_global_batch`` assembles the
+    global array from the processes' shares; here the step takes the
+    share itself."""
     spec_of = lambda v: ((None,) * batch_dim + (data_axes(mesh),)
                          if v.ndim > batch_dim else ())
-    return {k: cut(torch.as_tensor(v), spec_of(torch.as_tensor(v)),
-                   mesh).contiguous()
-            for k, v in batch.items()}
+
+    def share(v):
+        v = cut(v, spec_of(v), mesh)
+        if v.ndim > batch_dim + 1:
+            v = seq_window(v, mesh, batch_dim + 1)
+        return v.contiguous()
+
+    return {k: share(torch.as_tensor(v)) for k, v in batch.items()}
 
 
 def apply_rules(path_specs: Dict[str, Spec], params: Any, mesh=None,

@@ -1240,10 +1240,12 @@ class ContinuousBatcher:
         self.n_shards, self._tp, self._shard = 1, 1, 0
         self._tp_mesh = None
         if mesh is not None:
-            real = {a for a, n in mesh.axes.items() if n > 1}
-            if not real <= {"dp", "fsdp", "tp"}:
-                raise ValueError(f"ContinuousBatcher meshes are data "
-                                 f"(dp/fsdp) x tp; got axes {sorted(real)}")
+            # An sp or ep mesh is refused with the JAX message
+            # (``_check_sharded_paged``): serving runs on data x tp.
+            from tfmesos_tpu_torch.models.transformer import (
+                _check_serving_mesh)
+
+            _check_serving_mesh(mesh)
             self.n_shards = mesh.axis_size(("dp", "fsdp"))
             self._tp = mesh.axis_size("tp")
             self._shard = mesh.coord(("dp", "fsdp"))

@@ -1,6 +1,6 @@
 """Train and eval steps and the step loop (port of
-``tfmesos_tpu/train/trainer.py``: one device, or a dp/fsdp x tp mesh of
-ranks).
+``tfmesos_tpu/train/trainer.py``: one device, or a mesh of ranks over
+dp/fsdp, ep, sp and tp).
 
 ``make_train_step`` keeps the JAX call shape,
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, and
@@ -9,9 +9,10 @@ equal microbatches, one optimizer update, then ``postprocess``;
 ``steps_per_call`` such steps in one call.  PyTorch updates in place,
 so the params and state that come back are the objects passed in.  With
 a data ``mesh`` of several ranks, each rank passes its own equal share
-of the global batch and the gradients are averaged over the mesh before
-the update, which is the JAX step's arithmetic on the global batch.
-With ``param_specs`` the params are each rank's blocks (tp and fsdp,
+of the global batch (over sp, its window of the sequence) and the
+gradients are averaged over the data axes and sp before the update,
+which is the JAX step's arithmetic on the global batch.
+With ``param_specs`` the params are each rank's blocks (tp, fsdp and ep,
 ``parallel.sharding.place_tree``), and so are the gradients and the
 AdamW state; the global-norm clip sums its squares over the shards.
 ``grads_fn`` belongs to the pipeline-parallel slice (ROADMAP A.10) and
@@ -30,7 +31,7 @@ import torch.distributed as dist
 
 from tfmesos_tpu_torch.convert import flatten, unflatten
 from tfmesos_tpu_torch.parallel import collectives
-from tfmesos_tpu_torch.parallel.sharding import data_axes, spec_axes
+from tfmesos_tpu_torch.parallel.sharding import spec_axes, token_axes
 from tfmesos_tpu_torch.train.optim import AdamW, OptState
 from tfmesos_tpu_torch.utils.logging import get_logger
 
@@ -46,11 +47,12 @@ class TrainState:
 
 def mesh_mean(tensors: List[torch.Tensor], mesh, axes=None
               ) -> List[torch.Tensor]:
-    """Each tensor averaged over ``mesh``'s ranks on ``axes`` (its data
-    axes by default: ``all_reduce(SUM) / size``), as fresh tensors, in
-    one collective per dtype however many leaves there are
+    """Each tensor averaged over ``mesh``'s ranks on ``axes`` (by default
+    the ranks of distinct tokens, ``sharding.token_axes``: the data axes
+    and sp; ``all_reduce(SUM) / size``), as fresh tensors, in one
+    collective per dtype however many leaves there are
     (``collectives.grad_sync``)."""
-    return collectives.grad_sync(tensors, mesh, axes or data_axes(mesh)
+    return collectives.grad_sync(tensors, mesh, axes or token_axes(mesh)
                                  or ())
 
 
@@ -69,15 +71,18 @@ def sharded_grad_mean(grads: List[torch.Tensor], specs: List[Any],
                       mesh) -> List[torch.Tensor]:
     """The global batch's gradient of each leaf block: a leaf cut over
     fsdp came out of its reduce-scatter summed over fsdp already, so it
-    is averaged over dp and divided by fsdp; every other leaf (whole, or
-    cut over tp only) is averaged over the data axes."""
+    is averaged over dp and sp and divided by fsdp; every other leaf
+    (whole, or cut over tp or ep) is averaged over the ranks of distinct
+    tokens (the data axes and sp).  ep ranks hold the same tokens and
+    come out with the same gradient of a whole leaf (``parallel/moe.py``
+    keeps an expert's gradient to one copy of its tokens)."""
     fsdp = mesh.axis_size("fsdp")
     sharded = [i for i, s in enumerate(specs)
                if fsdp > 1 and "fsdp" in spec_axes(s, mesh)]
     rest = [i for i in range(len(grads)) if i not in set(sharded)]
     out: List[Any] = list(grads)
-    for idx, axes, div in ((sharded, ("dp",), fsdp),
-                           (rest, data_axes(mesh) or (), 1)):
+    for idx, axes, div in ((sharded, ("dp", "sp"), fsdp),
+                           (rest, token_axes(mesh) or (), 1)):
         if not idx:
             continue
         for i, g in zip(idx, mesh_mean([grads[i] for i in idx], mesh,
@@ -240,7 +245,7 @@ def make_eval_step(loss_fn: Callable, mesh=None) -> Callable:
             loss, metrics = loss_fn(params, batch)
         out = dict(metrics)
         out["loss"] = loss
-        if mesh is not None and data_axes(mesh):
+        if mesh is not None and token_axes(mesh):
             keys = list(out)
             out = dict(zip(keys, mesh_mean([out[k] for k in keys], mesh)))
         return out

@@ -1,23 +1,30 @@
-"""Train the flagship transformer, on one device or data parallel over
-the ranks of a cluster (port of ``examples/transformer_train.py``'s
-dense path and its runtime half).
+"""Train the flagship transformer, on one device or over the ranks of a
+cluster (port of ``examples/transformer_train.py`` without its pipeline
+flags, and its runtime half).
 
     python -m tfmesos_tpu_torch.transformer_train [--tiny] [--device cpu] \\
         [--steps 50] [--batch_size 8] [--seq_len 2048] \\
         [--learning_rate 3e-4] [--warmup 0] [--lr-schedule constant] \\
-        [--grad-clip 0] [--kv-heads N] [--data FILE [--data-dtype uint16]] \\
+        [--grad-clip 0] [--kv-heads N] [--moe E [--top-k 1]] \\
+        [--sp-impl ring] [--data FILE [--data-dtype uint16]] \\
         [--ckpt-dir DIR [--ckpt-every 50]] [--mesh dp=-1]
     python -m tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh dp=-1 -- \\
         python -m tfmesos_tpu_torch.transformer_train --steps 100
     python -m tfmesos_tpu_torch.cli run -w 4 -s 0 -- \\
         python -m tfmesos_tpu_torch.transformer_train --mesh dp=2,tp=2
+    python -m tfmesos_tpu_torch.cli run -w 4 -s 0 --mesh sp=2,ep=2 -- \\
+        python -m tfmesos_tpu_torch.transformer_train --moe 8 --top-k 2
 
 The flagship config (vocab 8192, d512, 8 layers, 8 heads, d_ff 1408,
 bf16 compute over float32 master weights), weights seeded 0, trains on
 the seeded bigram token stream (seed 100) with AdamW (weight decay
 0.01), through the fused head + cross entropy and the hand-written
-attention kernels on the card.  ``--tiny`` is the CI model (vocab 256,
-d64, 2 layers, 4 heads, float32, at most 64 tokens).  ``--data`` reads
+attention kernels on the card.  ``--moe E`` swaps each block's MLP for
+E routed experts (``--top-k`` a token; the switch form with capacity
+and all-to-all dispatch over ``ep``, as the JAX example picks without
+pp), and the metrics carry the router's losses.  ``--tiny`` is the CI
+model (vocab 256, d64, 2 layers, 4 heads, float32, at most 64 tokens a
+sp rank).  ``--data`` reads
 a flat token file (``TokenFileDataset``) instead, refusing ids beyond
 the vocab.  ``--ckpt-dir`` saves params, optimizer state and step every
 ``--ckpt-every`` steps (asynchronously, and at the last step), and a
@@ -31,15 +38,23 @@ the env contract of a ``tfrun`` task; one rank when started by hand).
 ``batch_size // data shards`` rows of its own stream (seed 100 + its
 data index; a token file's strided windows), the tp ranks of a shard
 on the same rows, and the gradients are averaged over the data axes.
-With ``tp`` or ``fsdp`` in the mesh each rank holds only its blocks of
-the params and of the AdamW state (``partition_specs``: Megatron tp,
-fsdp gathered a layer at a time), the loss is vocab parallel under tp,
-and a checkpoint gathers the blocks for rank 0 to write (every rank
+With ``sp`` each rank of a data shard trains on its window of the
+sequence (``sharding.seq_window``; ``--sp-impl`` ring or Ulysses
+attention) and the gradients are averaged over sp too; ``ep`` ranks
+see the same rows and hold their block of the experts.
+With ``tp``, ``fsdp`` or ``ep`` in the mesh each rank holds only its
+blocks of the params and of the AdamW state (``partition_specs``:
+Megatron tp, fsdp gathered a layer at a time, whole experts over ep),
+the loss is vocab parallel under tp, and a checkpoint gathers the
+blocks for rank 0 to write (every rank
 restores its blocks).  Only rank 0 saves checkpoints.  Rank
 0 prints ``step N: loss=… ppl=…`` every 10 steps, then the elapsed time
 and the global tokens/sec; every rank then prints its steps' losses
 (``rank R/W step losses: [...]``: equal across ranks, the mean over
-the mesh).  Runs on the card unless ``--device cpu``.
+the mesh), with experts its steps' router metrics (``rank R/W step moe
+metrics: {...}``), its kernel launch counts (``rank R/W kernel
+launches: {...}``) and on the card its peak device memory.  Runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -52,6 +67,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 DATA_SEED = 100          # the example's stream seed of rank 0 (rank r: +r)
+#: The router metrics an MoE run's steps report (``loss_fn``'s).
+MOE_METRICS = ("load_balance_loss", "router_z_loss", "moe_overflow_frac")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -72,6 +89,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-heads", type=int, default=None, dest="kv_heads",
                    help="grouped-query attention: share each K/V head "
                         "across n_heads/kv_heads query heads")
+    p.add_argument("--moe", type=int, default=0,
+                   help="number of experts (0 = dense); the switch "
+                        "all-to-all path over the mesh's ep axis")
+    p.add_argument("--top-k", type=int, default=1, dest="top_k",
+                   help="experts per token")
+    p.add_argument("--sp-impl", choices=["ring", "ulysses"], default="ring",
+                   dest="sp_impl",
+                   help="sequence parallelism over the sp axis: the ring "
+                        "or Ulysses all-to-all (heads %% sp == 0)")
     p.add_argument("--data", type=str, default=None,
                    help="path to a flat token file (TokenFileDataset "
                         "format); default: the synthetic bigram stream")
@@ -85,8 +111,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "optimizer state AND the data stream position)")
     p.add_argument("--ckpt-every", type=int, default=50, dest="ckpt_every")
     p.add_argument("--mesh", type=str, default=None,
-                   help="mesh axes, e.g. dp=-1, fsdp=2, tp=2 or "
-                        "dp=2,tp=2 (default: the cluster's, else all dp)")
+                   help="mesh axes, e.g. dp=-1, fsdp=2, tp=2, "
+                        "dp=2,tp=2 or sp=2,ep=2 (default: the cluster's, "
+                        "else all dp)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -137,24 +164,25 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
     from tfmesos_tpu_torch.train import optim
     from tfmesos_tpu_torch.train.trainer import make_train_step
 
+    sp = 1 if mesh is None else mesh.axis_size("sp")
+    # The JAX example's rule: the switch form wherever pp is absent.
+    moe = dict(n_experts=args.moe, top_k=args.top_k, moe_impl="switch",
+               sp_impl=args.sp_impl, n_kv_heads=args.kv_heads)
     if args.tiny:
         cfg = transformer.TransformerConfig(
             vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128,
-            max_seq_len=args.seq_len, dtype=torch.float32,
-            n_kv_heads=args.kv_heads)
-        seq_len = min(args.seq_len, 64)
+            max_seq_len=args.seq_len, dtype=torch.float32, **moe)
+        seq_len = min(args.seq_len, 64 * sp)
     else:
         cfg = transformer.TransformerConfig(
             vocab_size=8192, d_model=512, n_layers=8, n_heads=8, d_ff=1408,
-            max_seq_len=args.seq_len, dtype=torch.bfloat16,
-            n_kv_heads=args.kv_heads)
+            max_seq_len=args.seq_len, dtype=torch.bfloat16, **moe)
         seq_len = args.seq_len
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      device)
     on_mesh = mesh if mesh is not None and mesh.size() > 1 else None
     specs = None
-    if on_mesh is not None and (mesh.axis_size("tp") > 1
-                                or mesh.axis_size("fsdp") > 1):
+    if on_mesh is not None and mesh.axis_size(("tp", "fsdp", "ep")) > 1:
         specs = transformer.partition_specs(cfg, mesh)
         params = place_tree(mesh, params, specs)
     if args.lr_schedule == "cosine" or args.warmup:
@@ -175,18 +203,32 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
     index, shards = data_shard(mesh, rank, world_size)
     batches = (None if start_step is None
                else data_stream(args, cfg, seq_len, start_step, index,
-                                shards))
+                                shards, mesh=mesh))
     return Run(cfg, params, opt.init(params), step, batches, device,
                local_batch(args, shards), seq_len, shards, specs)
 
 
 def data_stream(args: argparse.Namespace, cfg, seq_len: int,
                 start_step: int = 0, rank: int = 0,
-                world_size: int = 1) -> Iterator:
-    """Rank ``rank``'s stream from ``start_step``, its share of the
+                world_size: int = 1, mesh=None) -> Iterator:
+    """Data shard ``rank``'s stream from ``start_step``, its share of the
     global batch a step: the token file of ``--data`` (after one full
     scan refusing ids >= the vocab, which the embedding gather cannot
-    take), else the seeded bigram stream, seeded ``DATA_SEED + rank``."""
+    take), else the seeded bigram stream, seeded ``DATA_SEED + rank``.
+    Over an sp ``mesh`` each batch is cut to this rank's window of the
+    sequence (``sharding.seq_window``)."""
+    stream = _data_stream(args, cfg, seq_len, start_step, rank, world_size)
+    if mesh is None or mesh.axis_size("sp") == 1:
+        return stream
+    import torch
+
+    from tfmesos_tpu_torch.parallel.sharding import seq_window
+
+    return ({k: seq_window(torch.from_numpy(v), mesh).contiguous().numpy()
+             for k, v in batch.items()} for batch in stream)
+
+
+def _data_stream(args, cfg, seq_len, start_step, rank, world_size):
     from tfmesos_tpu_torch.train import data
 
     bs = local_batch(args, world_size)
@@ -213,18 +255,23 @@ def train(run: Run, steps: int,
     ``CheckpointManager``), ``(params, opt_state)`` is saved without
     waiting every ``ckpt_every`` global steps.  Returns the elapsed
     seconds (from the first step to the last loss on the host), the
-    global batch's tokens/sec and every step's loss as a float."""
+    global batch's tokens/sec, every step's loss as a float, and with
+    experts every step's router metrics (``moe``)."""
     import torch
 
     from tfmesos_tpu_torch.train.data import prefetch
 
     gen = prefetch(run.batches, run.device)
     losses: List[Any] = []
+    moe: Dict[str, List[Any]] = {}
     t0 = time.perf_counter()
     for i in range(start_step, steps):
         run.params, run.opt_state, metrics = run.step(
             run.params, run.opt_state, next(gen))
         losses.append(metrics["loss"])
+        for k in MOE_METRICS:
+            if k in metrics:
+                moe.setdefault(k, []).append(metrics[k])
         if log is not None and (i + 1) % 10 == 0:
             log(f"step {i + 1}: loss={float(metrics['loss']):.4f} "
                 f"ppl={float(metrics['perplexity']):.2f}")
@@ -234,6 +281,7 @@ def train(run: Run, steps: int,
     dt = time.perf_counter() - t0
     n = max(0, steps - start_step)
     return {"elapsed_s": dt, "losses": losses,
+            "moe": {k: torch.stack(v).tolist() for k, v in moe.items()},
             "tokens_per_s": (n * run.batch_size * run.world_size
                              * run.seq_len / dt)}
 
@@ -275,7 +323,7 @@ def train_chunk(ctx, argv: List[str], ckpt_dir: str, start: int,
                 (run.params, run.opt_state), step=start)
     index, shards = data_shard(mesh, ctx.rank, ctx.world_size)
     run.batches = data_stream(args, run.cfg, run.seq_len, start, index,
-                              shards)
+                              shards, mesh=mesh)
     before = {**attention.LAUNCHES, **quant.LAUNCHES}
     out = train(run, start + steps, log=None, start_step=start)
     after = {**attention.LAUNCHES, **quant.LAUNCHES}
@@ -287,6 +335,13 @@ def train_chunk(ctx, argv: List[str], ckpt_dir: str, start: int,
     return {"rank": ctx.rank, "pid": os.getpid(), "step": start + steps,
             "losses": out["losses"], "elapsed_s": out["elapsed_s"],
             "launches": {k: after[k] - before.get(k, 0) for k in after}}
+
+
+def _launches() -> Dict[str, int]:
+    """The hand-written kernels' launch counts of this process."""
+    from tfmesos_tpu_torch.ops import attention, quant
+
+    return {**attention.LAUNCHES, **quant.LAUNCHES}
 
 
 def main(argv=None) -> int:
@@ -340,7 +395,7 @@ def main(argv=None) -> int:
             ckpt = None
     index, shards = data_shard(mesh, ctx.rank, ctx.world_size)
     run.batches = data_stream(args, run.cfg, run.seq_len, start_step,
-                              index, shards)
+                              index, shards, mesh=mesh)
     out = train(run, args.steps,
                 log=(lambda s: print(s, flush=True)) if chief else None,
                 start_step=start_step, ckpt=ckpt, ckpt_every=args.ckpt_every)
@@ -354,6 +409,17 @@ def main(argv=None) -> int:
               f"{out['tokens_per_s'] / ctx.world_size:.0f})", flush=True)
     print(f"rank {ctx.rank}/{ctx.world_size} step losses: "
           f"{json.dumps(out['losses'])}", flush=True)
+    if out["moe"]:
+        print(f"rank {ctx.rank}/{ctx.world_size} step moe metrics: "
+              f"{json.dumps(out['moe'])}", flush=True)
+    print(f"rank {ctx.rank}/{ctx.world_size} kernel launches: "
+          f"{json.dumps(_launches())}", flush=True)
+    if str(device).startswith("cuda"):
+        import torch
+
+        print(f"rank {ctx.rank}/{ctx.world_size} peak device memory: "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} "
+              f"GiB", flush=True)
     runtime.shutdown()
     return 0
 
