@@ -441,13 +441,16 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     request 0's stream, each rank's launches of this part exact (8
     flash_fwd a prefill, 8 paged a tick and a tail); (c) the same
     traffic on ``--mesh dp=2,tp=2`` over four ranks, 4 rows a data
-    shard, every shard's sub-pool recycled to its sink at the end ((b)'s
-    two launches and (c)'s start together, eight ranks on the card, and
-    each is checked as if alone: their ms a tick are taken under each
-    other's load); (d) a Mode-A gang of two ranks training the flagship at phase 8's shape
+    shard, every shard's sub-pool recycled to its sink at the end; (d) a
+    Mode-A gang of two ranks training the flagship at phase 8's shape
     for 4 steps through ``transformer_train``'s setup and loop over
-    ``tp=2`` and ``fsdp=2``, then the same through ``tfrun -w 2 --mesh
-    ... -- python -m tfmesos_tpu_torch.transformer_train``: every
+    ``tp=2``, and ``tfrun -w 2 --mesh tp=2`` and ``fsdp=2 -- python -m
+    tfmesos_tpu_torch.transformer_train`` (fsdp=2 with ``--grads-out``
+    and ``--time-collectives``; (b)'s two launches, (c)'s and (d)'s two
+    start together with phase 28's four, twenty-two ranks on the card,
+    the gang runs beside them, and each is checked as if alone: their
+    ms a tick and a step are taken under each other's load; the
+    one-process references are made in this process meanwhile): every
     step's loss within 2e-2 of one process over the global batch (and
     both ranks' equal), every gathered gradient leaf of the
     first step at cosine >= 0.99 with one process's, rows 1-3 at 8 a
@@ -516,13 +519,36 @@ imports ``tfmesos_tpu_torch`` from beside this file (never JAX), and:
     1 on sp rank 0 and 2 on sp rank 1; Ulysses: once), with each rank's
     peak device memory.
 
+28. pipeline parallelism (started with phase 24's launches; the
+    card's memory in use sampled from ``nvidia-smi`` while they run):
+    ``tfrun -w 2 --mesh pp=2 -- python -m
+    tfmesos_tpu_torch.transformer_train`` at B 8, T 2048 for 4 steps
+    with ``--pp-schedule gpipe`` (a), ``1f1b`` (b) and ``circular
+    --virtual-stages 2`` (c), and ``tfrun -w 4 --mesh pp=2,ep=2``
+    ``--pp-schedule 1f1b --moe 8 --top-k 2`` (d, the dense top-k MoE),
+    each with ``--grads-out`` and ``--time-collectives``: every rank's
+    losses equal, each step within 2e-2 of one process of the same
+    config and seed in this process on the global batch ((d)'s averaged
+    over the pipeline's 2 microbatches: the router aux is a microbatch
+    estimator under pp), every gathered gradient leaf of the first step
+    at cosine >= 0.99 with one process's, (b)'s first-step loss within
+    1e-3 of (a)'s and its gradients at cosine >= 0.9999 (the same bf16
+    products on another timetable), each rank's launches of rows 1-3
+    exact as the timetable gives them (gpipe and circular: a rank's 4
+    layers x 2 microbatches a step, each; 1F1B: the forward twice that
+    on stage 0, whose chunk is not the last), each rank's memory after
+    the first step within 0.05 of its share of the params against one
+    process's, ms a step and its share in gloo collectives.
+
 Phases 3 and 4 also hold rows 1-3 at a flagship sp=2 rank's ring steps
 (T/sp = 1024 at [8, 1024, 8, 64]): the causal step, the full step
 (``causal=False``), a windowed step at q_offset 1024 (window 1536), the
 full step's backward with float32 gradients (timed beside SDPA), and a
 rank's two steps merged by their logsumexps with each step's backward
 run from the global lse, against the plain versions and against
-``flash_attention`` over the whole T 2048.
+``flash_attention`` over the whole T 2048; and at a flagship pp=2
+stage's microbatch [4, 2048, 8, 64] (the forward, and the backward
+pair timed beside SDPA).
 
 It prints each phase's seconds.
 
@@ -545,9 +571,11 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -789,7 +817,7 @@ def phase_device(torch):
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    say("[1/27] device")
+    say("[1/28] device")
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -803,7 +831,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build(clean=True)
     secs = time.perf_counter() - t0
-    say(f"[2/27] build: {len(build.sources())} kernels from a clean build "
+    say(f"[2/28] build: {len(build.sources())} kernels from a clean build "
         f"directory in {secs:.2f} s")
     for log in sorted(build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
@@ -1048,7 +1076,7 @@ def phase_kernels(torch):
 
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[3/27] kernels vs plain versions (bf16, CUDA-event medians)")
+    say("[3/28] kernels vs plain versions (bf16, CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -1112,6 +1140,12 @@ def phase_kernels(torch):
                label="ring step 1")
     flash_case(8, RING_T, RING_WINDOW, draw_ring, q_offset=RING_T,
                label="ring windowed step 1")
+    # A flagship pp=2 stage's call (phase 28): a microbatch of half the
+    # batch, [4, 2048, 8, 64], from a generator of its own.
+    gen_pp = torch.Generator().manual_seed(280)
+    flash_case(4, 2048, None, lambda *shape: torch.randn(
+        shape, generator=gen_pp).to(dev, torch.bfloat16),
+        label="pp microbatch")
     return flash_rows, paged_rows
 
 
@@ -1354,7 +1388,7 @@ def ring_merge_check(torch, gen):
 def phase_backward(torch):
     from tfmesos_tpu_torch.ops import attention as ta
 
-    say("[4/27] backward kernels vs plain versions (CUDA-event medians)")
+    say("[4/28] backward kernels vs plain versions (CUDA-event medians)")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -1394,6 +1428,11 @@ def phase_backward(torch):
                       out_dtype=torch.float32, time_it=True))
     timed[-1]["case"] = "ring step 1"
     checks.append(ring_merge_check(torch, gen))
+    # A flagship pp=2 stage's backward (phase 28): a microbatch of half
+    # the batch, [4, 2048, 8, 64], timed, from a generator of its own.
+    timed.append(_bwd_case(torch, torch.Generator().manual_seed(281), 4,
+                           2048, 8, 8, 64, time_it=True))
+    timed[-1]["case"] = "pp microbatch"
     for r in checks:
         if "ring" in r:
             continue
@@ -1412,7 +1451,7 @@ def phase_serve(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[5/27] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
+    say("[5/28] serve: flagship, rows 8, page 64, bucket 64, 16 requests")
     cfg, params = flagship_model(seed=0, max_len=1024)
     batcher = ContinuousBatcher(cfg, params, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -1589,7 +1628,7 @@ def profile(torch, fn):
 def phase_teacher_forced(torch, cfg, params, comps):
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say(f"[6/27] teacher-forced check vs float32 CPU forward "
+    say(f"[6/28] teacher-forced check vs float32 CPU forward "
         f"(margin {MARGIN})")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     checked = agree_all = 0
@@ -1640,7 +1679,7 @@ def phase_forward(torch):
              f"forward logits {tuple(logits.shape)}")
         need(bool(torch.isfinite(logits).all()), "non-finite logits")
         ms = cuda_ms(torch, lambda: fn(params, tokens), reps=3, n=5)
-    say(f"[7/27] forward [4, 1024] on the card: logits finite, "
+    say(f"[7/28] forward [4, 1024] on the card: logits finite, "
         f"{ms:.3f} ms per call")
     return ms
 
@@ -1650,7 +1689,7 @@ def phase_train(torch):
     from tfmesos_tpu_torch.train.data import token_batches
 
     args = tr.parse_args([])            # the example's defaults
-    say(f"[8/27] train: flagship, B {args.batch_size}, T {args.seq_len}, "
+    say(f"[8/28] train: flagship, B {args.batch_size}, T {args.seq_len}, "
         f"AdamW {args.learning_rate} (weight decay 0.01), weights seeded 0")
     run = tr.setup(args, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
@@ -1720,7 +1759,7 @@ def phase_train_vs_cpu(torch, cfg):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[9/27] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
+    say("[9/28] loss_fn + backward at [1, 1024]: card bf16 vs CPU float32")
     master = tt.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = torch.from_numpy(next(token_batches(
         1, 1024, cfg.vocab_size, seed=7))["tokens"])
@@ -2496,7 +2535,7 @@ def phase_generate_int8(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new = 8, 128, 256
-    say(f"[10/27] generate: flagship, int8 weights + int8 KV cache, batch "
+    say(f"[10/28] generate: flagship, int8 weights + int8 KV cache, batch "
         f"{batch}, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=plen + new, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2561,7 +2600,7 @@ def phase_generate_long(torch):
     from tfmesos_tpu_torch.models.presets import flagship_model
 
     batch, plen, new, max_len = 4, 1024, 64, 16384
-    say(f"[11/27] generate: flagship bf16, batch {batch} over a {max_len}-"
+    say(f"[11/28] generate: flagship bf16, batch {batch} over a {max_len}-"
         f"slot cache, prompt {plen}, {new} new tokens, greedy")
     cfg, params = flagship_model(seed=0, max_len=max_len, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
@@ -2647,7 +2686,7 @@ def phase_serve_int8(torch, np, reqs):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[12/27] serve int8: phase 5's 16 requests, int8 weights and an "
+    say("[12/28] serve int8: phase 5's 16 requests, int8 weights and an "
         "int8 page pool")
     cfg, params = flagship_model(seed=0, max_len=1024, device="cuda")
     qparams = tt.quantize_params(cfg, params)
@@ -2744,7 +2783,7 @@ def phase_sampled(torch, reqs):
     from tfmesos_tpu_torch.ops import prng
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[13/27] sampled serving and generation: phase 5's traffic at "
+    say("[13/28] sampled serving and generation: phase 5's traffic at "
         "temperature 0.8 with top-k 50 and with top-p 0.9 (bf16 and int8), "
         "int8 generate at temperature 0.8")
     out = {"chi2_p": check_prng(torch)}
@@ -3058,7 +3097,7 @@ def phase_prefix_chunked(torch, np):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.serving import ContinuousBatcher
 
-    say("[14/27] chunked prefill and the prefix cache: flagship, rows 8, "
+    say("[14/28] chunked prefill and the prefix cache: flagship, rows 8, "
         "page 64, bucket 64, 16 requests sharing a 512-token system prompt")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3137,7 +3176,7 @@ def phase_disagg_preempt_rolling(torch, np):
     from tfmesos_tpu_torch.models import transformer as tt
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[15/27] export/import, preemption and rolling caches: flagship")
+    say("[15/28] export/import, preemption and rolling caches: flagship")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
     qparams = tt.quantize_params(cfg, card)
@@ -3383,7 +3422,7 @@ def phase_schedule_modes(torch, np, reqs, base, base8, sync, sync8, bases14,
     from tfmesos_tpu_torch.models.transformer import forward
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[16/27] schedule modes: multi_step, overlap, pipeline_depth and "
+    say("[16/28] schedule modes: multi_step, overlap, pipeline_depth and "
         "the fused prefill tick, flagship, rows 8, page 64, bucket 64")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -3639,7 +3678,7 @@ def phase_replica(torch, np, cfg, params, reqs, base, stats5):
     from tfmesos_tpu_torch import wire
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[17/27] the replica: flagship, rows 8, page 64, bucket 64, "
+    say("[17/28] the replica: flagship, rows 8, page 64, bucket 64, "
         "--warmup, over TCP")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     token = wire.new_token()
@@ -4278,7 +4317,7 @@ def phase_front_door(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[18/27] the front door: FleetServer and tfserve, flagship, rows "
+    say("[18/28] the front door: FleetServer and tfserve, flagship, rows "
         "8, max_len 1024, page 64, bucket 64, --warmup, seed 0")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     ref = dict(enumerate(base))
@@ -4629,7 +4668,7 @@ def phase_sessions(torch, np):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models.presets import flagship_model
 
-    say("[19/27] the KV tier and sessions: flagship, rows 8, page 64, "
+    say("[19/28] the KV tier and sessions: flagship, rows 8, page 64, "
         "bucket 64, 8 conversations of 4 turns")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -5413,7 +5452,7 @@ def phase_spec(torch, np, reqs, base, stats5, base14, stats14):
     from tfmesos_tpu_torch.models.presets import flagship_model
     from tfmesos_tpu_torch.models.transformer import forward
 
-    say("[20/27] speculative decoding, the static prefix and weight swaps: "
+    say("[20/28] speculative decoding, the static prefix and weight swaps: "
         f"flagship, rows 8, page 64, bucket 64, n_draft {SPEC_N_DRAFT}")
     cfg, params = flagship_model(seed=0, max_len=1024)
     card = _cuda(params)
@@ -6071,7 +6110,7 @@ def phase_control(torch, np, cfg, params, reqs, base):
     from tfmesos_tpu_torch.fleet import (AutoscalerConfig, FleetServer,
                                          ModelSpec, TraderConfig)
 
-    say("[21/27] the control loops: autoscale, rollout, catalog; flagship, "
+    say("[21/28] the control loops: autoscale, rollout, catalog; flagship, "
         "rows 8, max_len 1024, page 64, bucket 64, --warmup")
     gc.collect()
     torch.cuda.empty_cache()
@@ -6606,7 +6645,7 @@ def phase_checkpointed(torch, np, train):
 
     args = tr.parse_args([])
     cuda = torch.device("cuda")
-    say(f"[22/27] checkpointed training: flagship, B {args.batch_size}, "
+    say(f"[22/28] checkpointed training: flagship, B {args.batch_size}, "
         f"T {args.seq_len}, AdamW {args.learning_rate}, weights seeded 0, "
         f"{CKPT_STEPS} steps, a save every {CKPT_EVERY}")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -6947,7 +6986,7 @@ def phase_surface(torch, np, train, launched):
                                                     CheckpointManager)
     from tfmesos_tpu_torch.train.data import token_batches
 
-    say("[23/27] the reference's surface: plus, tfrun, Mode A under the "
+    say("[23/28] the reference's surface: plus, tfrun, Mode A under the "
         "elastic policy, mnist_replica (ranks share the card over gloo)")
     dev = ["--device", SURFACE_DEVICE] if SURFACE_DEVICE else []
     device = torch.device(SURFACE_DEVICE or "cuda")
@@ -7282,7 +7321,7 @@ def phase_moe(torch, np, reqs, launched, refs):
     from tfmesos_tpu_torch.ops import quant as tq
     from tfmesos_tpu_torch.serving import ContinuousBatcher, Request
 
-    say("[27/27] MoE, ep and sp: the flagship with 8 experts (top 2) "
+    say("[27/28] MoE, ep and sp: the flagship with 8 experts (top 2) "
         "served; tfrun sp=2,ep=2 --moe 8 and sp=2 --sp-impl ulysses "
         "training (ranks share the card over gloo)")
     out = {}
@@ -7318,11 +7357,27 @@ def phase_moe(torch, np, reqs, launched, refs):
          and "layers/router" in qflat,
          "(a) quantize_params left an expert leaf fp or took the router")
     q_ms = cuda_ms(torch, lambda: tt.quantize_params(cfg, card), 3, 5)
+    # Its plain version (a reference call a leaf) and its bound: each
+    # float32 element read once, its int8 and each row's float32 scale
+    # written once (the bound of phase 4's nine flagship leaves).
+    rows = [leaf.reshape(-1, leaf.shape[-1]) for name, leaf in flat.items()
+            if f"{name}/values" in qflat]
     del q, qflat
+    plain_ms = cuda_ms(torch, lambda: [tq.quantize_int8_reference(x)
+                                       for x in rows], 3, 5)
+    bound_ms, bound_by = bound(sum(x.numel() * 5 + 4 * x.shape[0]
+                                   for x in rows),
+                               sum(5 * x.numel() for x in rows), F32_FLOPS)
     out["quantize"] = {"leaves": n_leaves, "launches": q_launches,
-                       "ms": q_ms}
-    say(f"  (a) quantize_params over the MoE tree: {n_leaves} leaves in "
-        f"one launch, bit-exact, {q_ms:.3f} ms")
+                       "ms": q_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "elements": sum(x.numel() for x in rows)}
+    del rows
+    say(f"  (a) quantize_params over the MoE tree: {n_leaves} leaves "
+        f"({out['quantize']['elements']} elements) in one launch, "
+        f"bit-exact, {q_ms:.3f} ms; plain_ms {plain_ms:.3f}, bound_ms "
+        f"{bound_ms:.5f} ({bound_by}), {bound_ms / q_ms:.0%} of the "
+        f"bound")
 
     batcher = ContinuousBatcher(cfg, card, rows=8, page_size=64,
                                 prefill_bucket=64, device="cuda")
@@ -7358,6 +7413,332 @@ def phase_moe(torch, np, reqs, launched, refs):
     return out
 
 
+# -- phase 28: pipeline parallelism (the pp axis) ---------------------------
+
+# Phase 8's shape (B 8, T 2048), 4 steps over ``tfrun``: the three
+# schedules on pp=2 and the dense top-k MoE over pp=2 x ep=2 on 1F1B.
+# Each is held to one process in this process: every step's loss within
+# MESH_DLOSS, every gathered gradient leaf of the first step (the
+# launch's ``--grads-out``) at cosine >= MESH_MIN_COS; the MoE's one
+# process averages its loss over the pipeline's 2 microbatches (the
+# router aux is a microbatch estimator under pp, as in JAX).
+PP_MICROBATCHES = 2             # the pipeline's default: pp
+PP_LAYERS_A_RANK = 4            # 8 layers over pp=2
+PP_TRAIN = {
+    "a": (2, "pp=2", ["--pp-schedule", "gpipe"]),
+    "b": (2, "pp=2", ["--pp-schedule", "1f1b"]),
+    "c": (2, "pp=2", ["--pp-schedule", "circular", "--virtual-stages",
+                      "2"]),
+    "d": (4, "pp=2,ep=2", ["--pp-schedule", "1f1b", "--moe", "8",
+                           "--top-k", "2"]),
+}
+# (b) against (a), the same math on another timetable: the same bf16
+# products (1F1B recomputes a chunk's forward from its stashed input,
+# bit for bit), float32 sums in another order (the loss tail chunks a
+# microbatch where gpipe's fused CE chunks the batch).
+PP_B_VS_A_DLOSS = 1e-3
+PP_B_VS_A_MIN_COS = 0.9999
+# A rank's memory after the first step (params and AdamW state) against
+# one process's: the share of the params it holds, +-0.05.
+PP_MEM_TOL = 0.05
+
+
+def pp_argv(key, grads_dir):
+    """(a)-(d)'s ``tfrun`` command over ``transformer_train``, its first
+    step's gradients written to ``grads_dir/<key>.npz``."""
+    n, mesh, extra = PP_TRAIN[key]
+    return ["tfmesos_tpu_torch.cli", "run", "-w", str(n), "-s", "0",
+            "--mesh", mesh, "--worker-logs", "*", "--", sys.executable,
+            "-m", "tfmesos_tpu_torch.transformer_train", "--steps",
+            str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV, *extra, "--grads-out",
+            f"{grads_dir}/{key}.npz", "--time-collectives"]
+
+
+class SmiMemory:
+    """The card's memory in use (``nvidia-smi``), sampled every
+    ``period`` s on a thread from :meth:`start` to :meth:`stop` (which
+    returns the largest sample, in MiB)."""
+
+    def __init__(self, period: float = 1.0):
+        import threading
+
+        self.period, self.samples = period, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def _poll(self):
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(float(out.stdout.strip()))
+            self._stop.wait(self.period)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=120)
+        return max(self.samples, default=None)
+
+
+def train_reference(torch, extra=(), shards: int = 1,
+                    microbatches: int = 1):
+    """One process of a ``transformer_train`` config (``extra``: its
+    flags; experts in the dense top-k form) over the global batch of
+    ``shards`` data shards' streams (the mesh's) in this process, its
+    loss the mean over ``microbatches`` equal blocks: each step's loss,
+    the first step's gradients (float32 on the host), its memory after
+    the first step (less what stays once the run is freed) and its ms
+    a step."""
+    import numpy as np
+
+    from tfmesos_tpu_torch import transformer_train as tr
+    from tfmesos_tpu_torch.convert import flatten
+    from tfmesos_tpu_torch.models import transformer as tt
+    from tfmesos_tpu_torch.train import optim
+    from tfmesos_tpu_torch.train.trainer import make_train_step
+
+    dev = torch.device("cuda")
+    args = tr.parse_args(["--steps", str(MESH_TRAIN_STEPS),
+                          *MESH_TRAIN_ARGV, *extra])
+    run = tr.setup(args, dev, start_step=None)
+    cfg = dataclasses.replace(run.cfg, moe_impl="dense")
+    opt = optim.adamw(args.learning_rate, weight_decay=0.01)
+    step = make_train_step(lambda p, b: tt.loss_fn(cfg, p, b), opt,
+                           grad_accum=microbatches)
+    state = opt.init(run.params)
+    streams = [tr.data_stream(args, cfg, run.seq_len, 0, i, shards)
+               for i in range(shards)]
+    batches = [{"tokens": torch.from_numpy(np.concatenate(
+        [next(s_)["tokens"] for s_ in streams])).to(dev)}
+        for _ in range(MESH_TRAIN_STEPS)]
+    grads = step.grads(run.params, batches[0])[0]
+    grads = {k: v.detach().float().cpu() for k, v in flatten(grads).items()}
+    losses, mem_first = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        run.params, state, m = step(run.params, state, batch)
+        losses.append(m["loss"])
+        if i == 0:
+            mem_first = torch.cuda.memory_allocated(dev)
+            losses[0] = float(losses[0])
+            t0 = time.perf_counter()
+    losses = [float(v) for v in losses]
+    ms = (time.perf_counter() - t0) / (MESH_TRAIN_STEPS - 1) * 1e3
+    del run, state, m, batches, step
+    gc.collect()
+    mem = mem_first - torch.cuda.memory_allocated(dev)
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grads": grads, "mem_bytes": mem,
+            "ms_per_step": ms}
+
+
+def train_references(torch, out_dir):
+    """The one-process references of phase 24 (d) and phase 28, while
+    their launches run: the flagship on phase 8's stream (phase 28 (a)-(c)
+    and 24 (d)'s tp=2, written to ``out_dir/dense.npz`` for its gang),
+    the MoE of 28 (d) over the pipeline's microbatches, and 24 (d)'s
+    fsdp=2 global batch (two data shards' streams)."""
+    import numpy as np
+
+    refs = {}
+    for label, kw in (("dense", {}),
+                      ("moe", dict(extra=["--moe", "8", "--top-k", "2"],
+                                   microbatches=PP_MICROBATCHES)),
+                      ("fsdp", dict(shards=2))):
+        t0 = time.perf_counter()
+        refs[label] = train_reference(torch, **kw)
+        refs[label]["s"] = time.perf_counter() - t0
+    dense = refs["dense"]
+    np.savez(f"{out_dir}/dense.npz", losses=np.asarray(dense["losses"]),
+             mem_bytes=np.asarray(dense["mem_bytes"]),
+             ms_per_step=np.asarray(dense["ms_per_step"]),
+             **{f"grad/{k}": v.numpy() for k, v in dense["grads"].items()})
+    return refs
+
+
+def tfrun_rank_lines(stdout, n, what):
+    """Each rank's losses, launches, params held, memory after the first
+    step, collectives' ms a step and peak memory from a ``tfrun
+    --worker-logs '*'`` run of ``transformer_train --time-collectives``
+    on the card."""
+    def grab(tag):
+        got = dict(re.findall(rf"^\[worker:(\d)\] rank \d/{n} {tag}: "
+                              r"(.*)$", stdout, re.M))
+        return {int(r): v for r, v in got.items()}
+
+    rows = {tag: grab(tag) for tag in (
+        "step losses", "kernel launches", "params held",
+        "memory after the first step", "collectives", "peak device memory")}
+    for tag, got in rows.items():
+        need(sorted(got) == list(range(n)), f"{what}: missing "
+             f"'{tag}' rank lines: {stdout[-3000:]}")
+    out = {}
+    for r in range(n):
+        held, _, total = rows["params held"][r].split()
+        coll = re.match(r"([\d.]+) ms a step of ([\d.]+)",
+                        rows["collectives"][r])
+        out[r] = {"losses": json.loads(rows["step losses"][r]),
+                  "launches": json.loads(rows["kernel launches"][r]),
+                  "held": int(held) / int(total),
+                  "mem_bytes": int(rows["memory after the first step"][r]
+                                   .split()[0]),
+                  "collective_ms": float(coll.group(1)),
+                  "ms_per_step": float(coll.group(2)),
+                  "peak_gib": float(rows["peak device memory"][r]
+                                    .split()[0])}
+    return out
+
+
+def grad_cosines(got, want):
+    """Each leaf's cosine between two flat gradient dicts (numpy and
+    torch leaves alike)."""
+    import numpy as np
+
+    cos = {}
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float64).ravel()
+        w = np.asarray(w, np.float64).ravel()
+        cos[k] = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)
+                                + 1e-30))
+    return cos
+
+
+def pp_launches_exact(counts, key, rank, what):
+    """Rows 1-3 on a rank as the timetable gives them: gpipe and
+    circular run each of a rank's layers once a microbatch forward and
+    once backward; 1F1B runs the forward twice on every chunk but the
+    last (its forward tick, then its backward's recompute), once on the
+    last chunk (its backward's recompute only)."""
+    n, _, extra = PP_TRAIN[key]
+    stage = rank // (n // 2)              # pp is the outer axis
+    base = PP_LAYERS_A_RANK * PP_MICROBATCHES * MESH_TRAIN_STEPS
+    twice = "1f1b" in extra and stage == 0
+    want = {"flash_fwd": base * (2 if twice else 1), "flash_bwd_dq": base,
+            "flash_bwd_dkv": base}
+    for k, v in counts.items():
+        need(v == want.get(k, 0), f"{what}: rank {rank} launched {k} {v} "
+             f"times, want {want.get(k, 0)}")
+
+
+def tfrun_train_check(what, n, result, ref, grads_path, launches_exact,
+                      mem_ok):
+    """A ``tfrun`` launch of ``transformer_train --grads-out
+    --time-collectives`` held to its one-process ``ref``: every rank's
+    losses equal, each step within MESH_DLOSS; every gathered gradient
+    leaf of the first step at cosine >= MESH_MIN_COS;
+    ``launches_exact(counts, rank)`` on each rank's launches and
+    ``mem_ok(share, held)`` on its memory after the first step over one
+    process's and the share of the params it holds.  Returns the
+    numbers and the first step's (loss, gradients)."""
+    import numpy as np
+
+    stdout, _, secs = result
+    ranks = tfrun_rank_lines(stdout, n, what)
+    losses = ranks[0]["losses"]
+    need(all(r["losses"] == losses for r in ranks.values()),
+         f"{what}: the ranks' losses differ: "
+         f"{[r['losses'] for r in ranks.values()]}")
+    dl = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    need(len(losses) == MESH_TRAIN_STEPS and dl <= MESH_DLOSS,
+         f"{what}: losses {losses} vs one process {ref['losses']}")
+    got = dict(np.load(grads_path))
+    first_loss = float(got.pop("loss"))
+    need(sorted(got) == sorted(ref["grads"]), f"{what}: gradient leaves "
+         f"{sorted(got)}")
+    cos = grad_cosines(got, ref["grads"])
+    need(min(cos.values()) >= MESH_MIN_COS,
+         f"{what}: gradient cosines {cos}")
+    for r, row in ranks.items():
+        launches_exact(row["launches"], r)
+        row["mem_share"] = row["mem_bytes"] / ref["mem_bytes"]
+        need(mem_ok(row["mem_share"], row["held"]),
+             f"{what}: rank {r}'s memory after the first step is "
+             f"{row['mem_share']:.3f} of one process's, its params "
+             f"{row['held']:.3f}")
+    ms = statistics.median(r["ms_per_step"] for r in ranks.values())
+    coll = statistics.median(r["collective_ms"] for r in ranks.values())
+    by_rank = [(r, row["launches"]) for r, row in ranks.items()]
+    out = {"s": secs, "losses": losses, "one_process_losses": ref["losses"],
+           "max_dloss": dl, "min_cosine": min(cos.values()),
+           "ms_per_step": ms, "collective_ms_per_step": coll,
+           "collective_share": coll / ms,
+           "one_process_ms_per_step": ref["ms_per_step"],
+           "held_share": {r: row["held"] for r, row in ranks.items()},
+           "mem_share": {r: row["mem_share"] for r, row in ranks.items()},
+           "peak_gib_by_rank": {r: row["peak_gib"]
+                                for r, row in ranks.items()},
+           "launches_by_rank": {r: row["launches"]
+                                for r, row in ranks.items()},
+           "launches": {k: sum(row["launches"][k] for row in
+                               ranks.values())
+                        for k in ranks[0]["launches"]}}
+    say(f"  {what} in {secs:.1f} s: losses {losses}, one process "
+        f"{[round(v, 4) for v in ref['losses']]} (max |dloss| {dl:.2e}); "
+        f"gradient cosines >= {min(cos.values()):.5f}; memory a rank "
+        f"{[round(x, 3) for x in out['mem_share'].values()]} of one "
+        f"process's (params held "
+        f"{[round(x, 3) for x in out['held_share'].values()]}); "
+        f"{ms:.1f} ms a step ({coll:.1f} in gloo collectives, "
+        f"{coll / ms:.0%}) against one process's "
+        f"{ref['ms_per_step']:.1f}; peak GiB by rank "
+        f"{out['peak_gib_by_rank']}; launches by rank "
+        f"{ {r: {k: v for k, v in c.items() if v} for r, c in by_rank} }")
+    return out, (first_loss, got)
+
+
+def phase_pipeline(torch, launched, refs, grads_dir, smi_mem):
+    """Phase 28: tfrun pp=2 over transformer_train on gpipe (a), 1F1B
+    (b) and circular with 2 virtual stages (c), and pp=2 x ep=2 with 8
+    experts, top 2, dense top-k, on 1F1B (d); ``launched`` their futures
+    (:func:`pp_argv`), started with phase 24's, ``refs`` their
+    :func:`train_references`, ``smi_mem`` the card's memory sampler that
+    ran beside them."""
+    import numpy as np
+
+    say("[28/28] pipeline parallelism: tfrun pp=2 over transformer_train "
+        "on gpipe, 1F1B and circular (2 virtual stages), and pp=2,ep=2 "
+        "with 8 experts (top 2, dense top-k) on 1F1B (ranks share the "
+        "card over gloo)")
+    t0 = time.perf_counter()
+    results = [f.result() for f in launched]
+    peak = smi_mem.stop()
+    say(f"  (waited {time.perf_counter() - t0:.1f} s for (a)-(d); the "
+        f"card's memory in use peaked at {peak} MiB while they ran)")
+    out, firsts = {"smi_peak_mib": peak}, {}
+    for key, result in zip(PP_TRAIN, results):
+        n, mesh, extra = PP_TRAIN[key]
+        out[key], firsts[key] = tfrun_train_check(
+            f"({key}) tfrun -w {n} --mesh {mesh} {' '.join(extra)}", n,
+            result, refs["moe" if "--moe" in extra else "dense"],
+            f"{grads_dir}/{key}.npz",
+            lambda counts, r, key=key, what=key: pp_launches_exact(
+                counts, key, r, f"({what})"),
+            lambda share, held: abs(share - held) <= PP_MEM_TOL)
+    # (b) against (a): the same model and batch on another timetable.
+    (la, ga), (lb, gb) = firsts["a"], firsts["b"]
+    cos = grad_cosines(gb, ga)
+    need(abs(la - lb) <= PP_B_VS_A_DLOSS
+         and min(cos.values()) >= PP_B_VS_A_MIN_COS,
+         f"(b) against (a): first-step loss {lb} vs {la}, gradient "
+         f"cosines {cos}")
+    worst = max(float(np.abs(gb[k] - ga[k]).max()
+                      / (np.abs(ga[k]).max() + 1e-30)) for k in ga)
+    out["b_vs_a"] = {"dloss": abs(la - lb), "min_cosine": min(cos.values()),
+                     "max_rel_err": worst}
+    say(f"  (b) against (a), first step: |dloss| {abs(la - lb):.2e}, "
+        f"gradient cosines >= {min(cos.values()):.6f}, max |dg| / max |g| "
+        f"a leaf {worst:.2e}")
+    say("  " + json.dumps(out))
+    return out
+
+
 # -- phase 24: the mesh (dp/fsdp x tp over ranks sharing the card) -----------
 
 # Serving (b, c): phase 5's traffic through ``serve --mesh`` under tfrun.
@@ -7377,7 +7758,8 @@ MESH_MIN_COS = 0.99
 MESH_FSDP_MEM = (0.4, 0.6)
 
 
-def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir=None):
+def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir: str,
+                    ref_path: str):
     """Dispatched to every rank of a Mode-A gang (phase 24 (d), (e)):
     ``transformer_train``'s run over the mesh ``mesh_spec`` (its
     params and AdamW state cut per ``partition_specs``), at phase 8's
@@ -7385,11 +7767,11 @@ def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir=None):
     averaged as the step averages them and gathered whole; then
     ``steps`` steps train (the first alone, to read
     ``torch.cuda.memory_allocated``), their launches counted and the
-    gloo collectives timed; with ``ckpt_dir`` the state is saved (rank
-    0 writes) and each whole leaf's digest returned.  Rank 0 then runs
-    one process over the global batch (every data shard's rows) and
-    returns each gradient leaf's cosine with the mesh's, both runs'
-    losses and memory."""
+    gloo collectives timed; the state is saved to ``ckpt_dir`` (rank 0
+    writes) and each whole leaf's digest returned.  Rank 0 then returns
+    each gradient leaf's cosine with one process's over the global
+    batch (``ref_path``: :func:`train_references`' npz, computed in the
+    driving process), and its losses and memory."""
     import hashlib
 
     import numpy as np
@@ -7460,51 +7842,25 @@ def mesh_train_rank(ctx, mesh_spec: str, steps: int, ckpt_dir=None):
            "launches": launches,
            "ms_per_step": rest["elapsed_s"] / (steps - 1) * 1e3,
            "collective_ms_per_step": spent[0] / (steps - 1) * 1e3}
-    if ckpt_dir is not None:
-        ckpt = CheckpointManager(ckpt_dir, mesh=mesh, param_specs=run.specs)
-        ckpt.save(steps, (run.params, run.opt_state))
-        ckpt.close()
-        out["digests"] = {k: hashlib.sha256(
-            v.float().cpu().numpy().tobytes()).hexdigest()
-            for k, v in flatten(sharding.gather_tree(
-                mesh, run.params, run.specs)).items()}
-    cfg, seq_len = run.cfg, run.seq_len
+    ckpt = CheckpointManager(ckpt_dir, mesh=mesh, param_specs=run.specs)
+    ckpt.save(steps, (run.params, run.opt_state))
+    ckpt.close()
+    out["digests"] = {k: hashlib.sha256(
+        v.float().cpu().numpy().tobytes()).hexdigest()
+        for k, v in flatten(sharding.gather_tree(
+            mesh, run.params, run.specs)).items()}
     del run, flat, first, batch
     gc.collect()
     torch.cuda.empty_cache()
     out["mem_bytes"] = mem - torch.cuda.memory_allocated(dev)
     if ctx.rank:
         return out
-    # One process over the global batch: every data shard's rows.
-    streams = [tr.data_stream(args, cfg, seq_len, 0, i, shards)
-               for i in range(shards)]
-    glob = [{"tokens": np.concatenate([next(s)["tokens"] for s in streams])}
-            for _ in range(steps)]
-    ref = tr.setup(tr.parse_args([*MESH_TRAIN_ARGV, "--steps", str(steps)]),
-                   dev, start_step=None)
-    rflat = flatten(ref.params)
-    rloss, _ = tt.loss_fn(ref.cfg, ref.params, {
-        "tokens": torch.from_numpy(glob[0]["tokens"]).to(dev)})
-    rgrads = torch.autograd.grad(rloss, list(rflat.values()))
-    cos = {}
-    for (k, g), r in zip(whole.items(), rgrads):
-        g, r = g.float().flatten(), r.float().cpu().flatten()
-        cos[k] = float(torch.dot(g, r) / (g.norm() * r.norm() + 1e-30))
-    del rgrads, rloss, whole
-    ref.params, ref.opt_state, m = ref.step(ref.params, ref.opt_state, {
-        "tokens": torch.from_numpy(glob[0]["tokens"]).to(dev)})
-    first_loss = float(m["loss"])
-    del m
-    gc.collect()
-    ref_mem = torch.cuda.memory_allocated(dev)
-    ref.batches = iter(glob[1:])
-    rrest = tr.train(ref, steps, log=None, start_step=1)
-    del ref, rflat
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["ref_mem_bytes"] = ref_mem - torch.cuda.memory_allocated(dev)
-    out.update(ref_losses=[first_loss] + rrest["losses"], cosines=cos,
-               ref_ms_per_step=rrest["elapsed_s"] / (steps - 1) * 1e3)
+    ref = np.load(ref_path)
+    out.update(cosines=grad_cosines(whole, {
+                   k: ref[f"grad/{k}"] for k in whole}),
+               ref_losses=[float(v) for v in ref["losses"]],
+               ref_mem_bytes=int(ref["mem_bytes"]),
+               ref_ms_per_step=float(ref["ms_per_step"]))
     return out
 
 
@@ -7741,10 +8097,16 @@ def mesh_kv_checks(rs, refs, next_logits, kv_logits):
     return out
 
 
-def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
+def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows,
+               train_dir, beside=(), smi=None):
     """Phase 24: the kernels at the per-rank shapes (a), ``serve --mesh``
     over tp=2 (b) and dp2 x tp2 (c), training over tp=2 and fsdp=2 (d)
-    and the checkpoint round trip (e)."""
+    and the checkpoint round trip (e).  ``beside``: another phase's
+    launches (phase 28's), started with (b)-(d)'s, their futures in
+    ``out["beside"]``, and ``smi`` its memory sampler, started with
+    them; the one-process references of both phases
+    (:func:`train_references`, written under ``train_dir``) are made here
+    while the launches run, in ``out["refs"]``."""
     import hashlib
     import shutil
     import tempfile
@@ -7756,7 +8118,7 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
     from tfmesos_tpu_torch.ops import quant as tq
     from tfmesos_tpu_torch.train.checkpoint import CheckpointManager
 
-    say("[24/27] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
+    say("[24/28] the mesh: per-rank kernel shapes, serve --mesh tp=2 and "
         "dp=2,tp=2, training over tp=2 and fsdp=2, a checkpoint across "
         "meshes (ranks share the card over gloo)")
     dev = torch.device("cuda")
@@ -7802,123 +8164,134 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
                      table=table)
     del kp, vp
 
-    # (b) and (c): serving over ranks, against phase 5's and 12's runs;
-    # the three launches start together (eight ranks on the card) while
-    # this process computes the references, each checked as if alone.
+    # (b) and (c): serving over ranks, against phase 5's and 12's runs,
+    # and (d)'s two tfrun training launches: all five start together
+    # (twelve ranks on the card, with ``beside``) while this process
+    # computes the references and runs (d)'s Mode-A gang, each checked as
+    # if alone (their ms a tick and a step are taken under each other's
+    # load).  tfrun's fsdp=2 run writes its first step's gradients and
+    # times its collectives (``--grads-out``, ``--time-collectives``):
+    # the gang trains tp=2 only.
     serves = [("tp=2", 2, [], False, "tp=2 bf16"),
               ("tp=2", 2, ["--int8", "--int8-kv"], True, "tp=2 int8"),
               ("dp=2,tp=2", 4, [], False, "dp=2,tp=2 bf16")]
-    t0 = time.perf_counter()
-    launched = start_children([mesh_serve_argv(axes, n, extra)
-                               for axes, n, extra, _, _ in serves], 900)
+    trains = {"tp=2": [],
+              "fsdp=2": ["--grads-out", f"{train_dir}/fsdp.npz",
+                         "--time-collectives"]}
+    t_launch = time.perf_counter()
+    launched = start_children(
+        [mesh_serve_argv(axes, n, extra) for axes, n, extra, _, _ in serves]
+        + [["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
+            "--mesh", label, "--worker-logs", "*", "--",
+            sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
+            "--steps", str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV,
+            "--mesh", label, *extra] for label, extra in trains.items()]
+        + list(beside), 900)
+    out["beside"] = launched[len(serves) + len(trains):]
     prompts = [r.prompt for r in reqs]
     ref, ref8 = streams(comps), streams(comps8)
     logits = full_logits(torch, cfg, params, prompts, ref)
     logits8 = full_logits(torch, cfg, tt.quantize_params(cfg, params),
                           prompts, ref8)
-    served = [mesh_serve(f.result(), axes, n, reqs,
-                         ref8 if int8 else ref, logits8 if int8 else logits,
-                         int8, label)
-              for f, (axes, n, _, int8, label) in zip(launched, serves)]
-    out["b"] = {"bf16": served[0], "int8": served[1]}
-    out["c"] = served[2]
-    out["serve_s"] = time.perf_counter() - t0
-    say(f"  (b), (c) the three serve launches done in "
-        f"{out['serve_s']:.1f} s (started together)")
+    if smi is not None:
+        smi.start()
+    out["refs"] = refs = train_references(torch, train_dir)
 
-    # (d) training over tp=2 and fsdp=2, (e) the checkpoint round trip.
+    # (d) training over tp=2 in a gang, (e) the checkpoint round trip.
     root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
     try:
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         with cluster(Job(name="worker", num=2, cpus=1.0, mem=1024.0),
                      quiet=True, start_timeout=300.0) as c:
-            up_s = time.perf_counter() - t0
-            runs = {"tp=2": c.run_all(mesh_train_rank, "tp=2",
-                                      MESH_TRAIN_STEPS, f"{root}/ck"),
-                    "fsdp=2": c.run_all(mesh_train_rank, "fsdp=2",
-                                        MESH_TRAIN_STEPS)}
-            # (b)'s KV surface over tp=2, after the training runs so that
-            # it leaves nothing in their memory readings.
+            up_s = time.perf_counter() - t1
+            rs = c.run_all(mesh_train_rank, "tp=2", MESH_TRAIN_STEPS,
+                           f"{root}/ck", f"{train_dir}/dense.npz")
+            # (b)'s KV surface over tp=2, after the training run so that
+            # it leaves nothing in its memory readings.
             t0 = time.perf_counter()
             kv = c.run_all(mesh_kv_rank,
                            [[int(t) for t in r.prompt] for r in reqs[:8]],
                            reqs[0].max_new_tokens)
             kv_s = time.perf_counter() - t0
+        served = [mesh_serve(f.result(), axes, n, reqs,
+                             ref8 if int8 else ref,
+                             logits8 if int8 else logits, int8, label)
+                  for f, (axes, n, _, int8, label) in zip(launched, serves)]
+        out["b"] = {"bf16": served[0], "int8": served[1]}
+        out["c"] = served[2]
+        out["serve_s"] = time.perf_counter() - t_launch
+        say(f"  (b), (c) the three serve launches done "
+            f"{out['serve_s']:.1f} s after they started (with (d)'s "
+            f"tfrun pair, beside (d)'s gang)")
         out["b"]["kv"] = mesh_kv_checks(
             kv, ref, logits, lambda hist, cold: full_logits(
                 torch, cfg, params, [hist], [cold]))
         out["b"]["kv"]["s"] = kv_s
         out["d"] = {"bring_up_s": up_s}
-        for label, rs in runs.items():
-            head = rs[0]
-            need(all(r["losses"] == head["losses"] for r in rs),
-                 f"(d) {label}: the ranks' losses differ")
-            dl = max(abs(a - b) for a, b in zip(head["losses"],
-                                                head["ref_losses"]))
-            need(dl <= MESH_DLOSS, f"(d) {label}: losses {head['losses']} "
-                 f"vs one process {head['ref_losses']}")
-            low = min(head["cosines"].values())
-            need(low >= MESH_MIN_COS, f"(d) {label}: gradient cosines "
-                 f"{head['cosines']}")
-            for r in rs:
-                train_launches_exact(r["launches"], 8, MESH_TRAIN_STEPS,
-                                     f"(d) {label} rank {r['rank']}")
-            share = [r["mem_bytes"] / head["ref_mem_bytes"] for r in rs]
-            if label == "fsdp=2":
-                need(all(MESH_FSDP_MEM[0] <= s <= MESH_FSDP_MEM[1]
-                         for s in share),
-                     f"(d) fsdp=2: a rank's memory is {share} of one "
-                     f"process's")
-            ms = statistics.median(r["ms_per_step"] for r in rs)
-            coll = statistics.median(r["collective_ms_per_step"]
-                                     for r in rs)
-            out["d"][label] = {
-                "losses": head["losses"], "ref_losses": head["ref_losses"],
-                "max_dloss": dl, "min_cosine": low,
-                "mem_share_of_one_process": share,
-                "mem_bytes": [r["mem_bytes"] for r in rs],
-                "ref_mem_bytes": head["ref_mem_bytes"], "ms_per_step": ms,
-                "ref_ms_per_step": head["ref_ms_per_step"],
-                "collective_ms_per_step": coll,
-                "collective_share": coll / ms,
-                "launches": {k: sum(r["launches"][k] for r in rs)
-                             for k in read_launches()}}
-            say(f"  (d) {label}: losses {head['losses']} vs one process "
-                f"{head['ref_losses']} (max |dloss| {dl:.2e}); gradient "
-                f"cosines >= {low:.5f}; memory a rank "
-                f"{[round(s, 3) for s in share]} of one process's; "
-                f"{ms:.1f} ms a step ({coll:.1f} of it in gloo "
-                f"collectives, {coll / ms:.0%}) against one process's "
-                f"{head['ref_ms_per_step']:.1f}; rows 1-3 at 8 a step a "
-                f"rank")
-        # The same two runs through tfrun, as users start them, both
-        # launches at once (four ranks on the card): both ranks' losses
-        # equal, each step within MESH_DLOSS of one process.
-        t0 = time.perf_counter()
-        launched = children([
-            ["tfmesos_tpu_torch.cli", "run", "-w", "2", "-s", "0",
-             "--mesh", label, "--worker-logs", "*", "--",
-             sys.executable, "-m", "tfmesos_tpu_torch.transformer_train",
-             "--steps", str(MESH_TRAIN_STEPS), *MESH_TRAIN_ARGV,
-             "--mesh", label] for label in runs], 900)
-        out["d"]["tfrun_s"] = time.perf_counter() - t0
-        for label, (stdout, _, secs) in zip(runs, launched):
-            got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
-                                  r"(\[.*\])$", stdout, re.M))
-            need(sorted(got) == ["0", "1"] and got["0"] == got["1"],
-                 f"(d) tfrun {label}: rank losses {got}: {stdout[-2000:]}")
-            losses = json.loads(got["0"])
-            ref = out["d"][label]["ref_losses"]
-            dl = max(abs(a - b) for a, b in zip(losses, ref))
-            need(len(losses) == MESH_TRAIN_STEPS and dl <= MESH_DLOSS,
-                 f"(d) tfrun {label}: losses {losses} vs one process {ref}")
-            out["d"][label]["tfrun"] = {"s": secs, "losses": losses,
-                                        "max_dloss": dl}
-            say(f"  (d) tfrun -w 2 --mesh {label} transformer_train in "
-                f"{secs:.1f} s (beside the other launch): both ranks' "
-                f"losses {losses} (max |dloss| {dl:.2e} against one "
-                f"process)")
-        say(f"  (d) both tfrun launches done in {out['d']['tfrun_s']:.1f} s")
+        head = rs[0]
+        need(all(r["losses"] == head["losses"] for r in rs),
+             "(d) tp=2: the ranks' losses differ")
+        dl = max(abs(a - b) for a, b in zip(head["losses"],
+                                            head["ref_losses"]))
+        need(dl <= MESH_DLOSS, f"(d) tp=2: losses {head['losses']} vs one "
+             f"process {head['ref_losses']}")
+        low = min(head["cosines"].values())
+        need(low >= MESH_MIN_COS, f"(d) tp=2: gradient cosines "
+             f"{head['cosines']}")
+        for r in rs:
+            train_launches_exact(r["launches"], 8, MESH_TRAIN_STEPS,
+                                 f"(d) tp=2 rank {r['rank']}")
+        share = [r["mem_bytes"] / head["ref_mem_bytes"] for r in rs]
+        ms = statistics.median(r["ms_per_step"] for r in rs)
+        coll = statistics.median(r["collective_ms_per_step"] for r in rs)
+        out["d"]["tp=2"] = {
+            "losses": head["losses"], "ref_losses": head["ref_losses"],
+            "max_dloss": dl, "min_cosine": low,
+            "mem_share_of_one_process": share,
+            "mem_bytes": [r["mem_bytes"] for r in rs],
+            "ref_mem_bytes": head["ref_mem_bytes"], "ms_per_step": ms,
+            "ref_ms_per_step": head["ref_ms_per_step"],
+            "collective_ms_per_step": coll, "collective_share": coll / ms,
+            "launches": {k: sum(r["launches"][k] for r in rs)
+                         for k in read_launches()}}
+        say(f"  (d) tp=2: losses {head['losses']} vs one process "
+            f"{head['ref_losses']} (max |dloss| {dl:.2e}); gradient "
+            f"cosines >= {low:.5f}; memory a rank "
+            f"{[round(s, 3) for s in share]} of one process's; "
+            f"{ms:.1f} ms a step ({coll:.1f} of it in gloo collectives, "
+            f"{coll / ms:.0%}) against one process's "
+            f"{head['ref_ms_per_step']:.1f}; rows 1-3 at 8 a step a rank")
+        # The two runs through tfrun, as users start them, launched with
+        # (b) and (c): tp=2's losses against one process (the gang held
+        # its gradients and memory); fsdp=2's held whole
+        # (:func:`tfrun_train_check`: under fsdp a rank's memory after
+        # the first step 0.4-0.6 of one process's).
+        tfrun = [f.result() for f in launched[len(serves):][:len(trains)]]
+        out["d"]["tfrun_s"] = time.perf_counter() - t_launch
+        stdout, _, secs = tfrun[0]
+        got = dict(re.findall(r"^\[worker:(\d)\] rank \d/2 step losses: "
+                              r"(\[.*\])$", stdout, re.M))
+        need(sorted(got) == ["0", "1"] and got["0"] == got["1"],
+             f"(d) tfrun tp=2: rank losses {got}: {stdout[-2000:]}")
+        losses = json.loads(got["0"])
+        dl = max(abs(a - b) for a, b in zip(losses, head["ref_losses"]))
+        need(len(losses) == MESH_TRAIN_STEPS and dl <= MESH_DLOSS,
+             f"(d) tfrun tp=2: losses {losses} vs one process "
+             f"{head['ref_losses']}")
+        out["d"]["tp=2"]["tfrun"] = {"s": secs, "losses": losses,
+                                     "max_dloss": dl}
+        say(f"  (d) tfrun -w 2 --mesh tp=2 transformer_train in {secs:.1f} "
+            f"s (beside the other launches): both ranks' losses {losses} "
+            f"(max |dloss| {dl:.2e} against one process)")
+        out["d"]["fsdp=2"], _ = tfrun_train_check(
+            "(d) tfrun -w 2 --mesh fsdp=2 transformer_train", 2, tfrun[1],
+            refs["fsdp"], f"{train_dir}/fsdp.npz",
+            lambda counts, r: train_launches_exact(
+                counts, 8, MESH_TRAIN_STEPS, f"(d) fsdp=2 rank {r}"),
+            lambda share, held: MESH_FSDP_MEM[0] <= share
+            <= MESH_FSDP_MEM[1])
+        say(f"  (d) both tfrun launches done {out['d']['tfrun_s']:.1f} s "
+            f"after the five launches started")
         # (e) Saved under dp1 x tp2, restored on one process.
         one = tr.setup(tr.parse_args([*MESH_TRAIN_ARGV, "--steps",
                                       str(MESH_TRAIN_STEPS)]), dev,
@@ -7929,7 +8302,7 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
         mine = {k: hashlib.sha256(v.detach().float().cpu().numpy()
                                   .tobytes()).hexdigest()
                 for k, v in flatten(one.params).items()}
-        need(mine == runs["tp=2"][0]["digests"],
+        need(mine == rs[0]["digests"],
              "(e) the restored params differ from the tp=2 ranks' state")
         out["e"] = {"leaves": len(mine), "equal": True,
                     "count": one.opt_state.count}
@@ -7943,7 +8316,8 @@ def phase_mesh(torch, np, cfg, params, reqs, comps, comps8, rows):
         shutil.rmtree(root, ignore_errors=True)
     say("  Two ranks on one card measure no scaling, and gloo staging "
         "through host memory is not NCCL.")
-    say("  " + json.dumps(out))
+    say("  " + json.dumps({k: v for k, v in out.items()
+                           if k not in ("beside", "refs")}))
     return out
 
 
@@ -8295,7 +8669,7 @@ def phase_gang(torch, np, cfg, params, reqs, comps, comps8, stats17):
     from tfmesos_tpu_torch.fleet.launcher import FleetServer
     from tfmesos_tpu_torch.models import transformer as tt
 
-    say("[25/27] gang replicas: FleetServer(gang_size=2) at phase 18's "
+    say("[25/28] gang replicas: FleetServer(gang_size=2) at phase 18's "
         "shape, leader and member each on the graphed one-device "
         "batcher; a member SIGKILL; gang KV artifacts")
     prompts = [r.prompt for r in reqs]
@@ -8600,7 +8974,7 @@ def phase_edge(torch, cfg, params, reqs, base, smi):
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_fake_mesos import FakeMesos, FakeZK
 
-    say("[26/27] the fleet's edges over a fake Mesos master and agent: "
+    say("[26/28] the fleet's edges over a fake Mesos master and agent: "
         "tfrun -m zk://, tfserve --master with gateway processes, the "
         "HTTP/SSE edge and the batch lane, a gateway SIGKILL")
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
@@ -9091,10 +9465,22 @@ def main() -> int:
     surface = timed("surface", phase_surface, torch, np, train,
                     launched[:3])
     moe = timed("moe", phase_moe, torch, np, reqs, launched[3:], moe_refs)
-    mesh = timed("mesh", phase_mesh, torch, np, cfg, params, reqs, comps,
-                 comps8, {"flash": flash_rows, "bwd": bwd_rows,
-                          "paged": paged_rows, "decode": decode_rows,
-                          "commit": commit_rows})
+    # Phase 28's launches start with phase 24's (b)-(d) (phase 23's and
+    # 27's leave no room on the card for them); phase 24 computes their
+    # references while they run.
+    train_dir = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        pp_smi = SmiMemory()
+        mesh = timed("mesh", phase_mesh, torch, np, cfg, params, reqs,
+                     comps, comps8, {"flash": flash_rows, "bwd": bwd_rows,
+                                     "paged": paged_rows,
+                                     "decode": decode_rows,
+                                     "commit": commit_rows}, train_dir,
+                     [pp_argv(k, train_dir) for k in PP_TRAIN], pp_smi)
+        pipeline = timed("pipeline", phase_pipeline, torch, mesh["beside"],
+                         mesh["refs"], train_dir, pp_smi)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
     gang = timed("gang", phase_gang, torch, np, cfg, params, reqs, comps,
                  comps8, replica["a"])
     edge = timed("edges", phase_edge, torch, cfg, params, reqs,
@@ -9163,7 +9549,7 @@ def main() -> int:
              "mesh (c) serve dp=2,tp=2 (processes)": mesh["c"]["launches"],
              "mesh (d) train tp=2 (processes)":
                  mesh["d"]["tp=2"]["launches"],
-             "mesh (d) train fsdp=2 (processes)":
+             "mesh (d) tfrun fsdp=2 (processes)":
                  mesh["d"]["fsdp=2"]["launches"],
              "gang (a) bf16 (processes)": gang["a"]["launches"],
              "gang (a) int8 (processes)": gang["a"]["int8"]["launches"],
@@ -9181,7 +9567,15 @@ def main() -> int:
              "moe (b) train sp=2,ep=2 switch (processes)":
                  moe["b"]["launches"],
              "moe (c) train sp=2 ulysses (processes)":
-                 moe["c"]["launches"]}
+                 moe["c"]["launches"],
+             "pipeline (a) train pp=2 gpipe (processes)":
+                 pipeline["a"]["launches"],
+             "pipeline (b) train pp=2 1f1b (processes)":
+                 pipeline["b"]["launches"],
+             "pipeline (c) train pp=2 circular v=2 (processes)":
+                 pipeline["c"]["launches"],
+             "pipeline (d) train pp=2,ep=2 1f1b moe (processes)":
+                 pipeline["d"]["launches"]}
 
     def launches_of(name):
         by_path = {p: counts[name] for p, counts in paths.items()}

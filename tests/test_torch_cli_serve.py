@@ -370,8 +370,12 @@ def test_subcommands_not_ported_yet_exit_2(sub, capsys, tmp_path,
 
 def test_usage_and_tfrun(capsys):
     """No subcommand is a usage error naming ``run``; ``run`` is tfrun
-    (ported: a Mode-B job runs to its end, with a tp mesh too, and an
-    axis not ported yet exits 2 naming its ROADMAP item)."""
+    (ported: a Mode-B job runs to its end, with a tp and a pp mesh too);
+    serving refuses a pp mesh with the JAX ``_check_sharded_paged``
+    message."""
+    from tfmesos_tpu_torch.models.transformer import _check_serving_mesh
+    from tfmesos_tpu_torch.parallel.mesh import RankMesh
+
     rc, err = _run(cli.main, [], capsys)
     assert rc == 2 and "{run,serve," in err[0]
     rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "tp=2",
@@ -379,8 +383,11 @@ def test_usage_and_tfrun(capsys):
     assert rc == 0
     rc, err = _run(cli.main, ["run", "-w", "1", "-s", "0", "--mesh", "pp=2",
                               "--", "true"], capsys)
-    assert rc == 2
-    assert err == ["tfrun: not ported yet: mesh axis pp (ROADMAP A.10)"]
+    assert rc == 0
+    with pytest.raises(ValueError, match=r"sharded paged decode runs on "
+                       r"data \(dp/fsdp\) x tp meshes; got axes \['pp'\]"):
+        _check_serving_mesh(RankMesh({"pp": 2}, 0, "cpu",
+                                     make_groups=False))
     assert _run(cli.main, ["run", "-w", "1", "-s", "0", "--", "true"],
                 capsys)[0] == 0
 

@@ -177,8 +177,9 @@ def test_dcn_rank_grid_is_the_jax_hybrid_device_grid(axes):
 
 def test_dcn_axes_refusals_are_the_jax_ones():
     """-1 is refused on a dcn axis, the slice count must divide the
-    ranks and the ici axes must fill one slice; pp stays refused under
-    the prefix too, and sp and ep pass under it as they do without."""
+    ranks and the ici axes must fill one slice; pp, sp and ep pass under
+    the prefix as they do without (``dcn.pp=2,dp=2`` resolves to JAX's
+    hybrid mesh shape), and an unknown axis is refused under it too."""
     with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
         tmesh.check_axes({"dcn.dp": -1, "tp": 2})
     with pytest.raises(ValueError, match="dcn axes need explicit sizes"):
@@ -187,8 +188,14 @@ def test_dcn_axes_refusals_are_the_jax_ones():
         tmesh.resolve_axes({"dcn.dp": 3, "tp": 2}, 8)
     with pytest.raises(ValueError, match="ranks per slice"):
         tmesh.resolve_axes({"dcn.dp": 2, "tp": 2}, 8)
-    with pytest.raises(ValueError, match=r"mesh axis pp \(ROADMAP A\.10\)"):
-        tmesh.check_axes({"dcn.pp": 2, "dp": 2})
+    assert tmesh.check_axes({"dcn.pp": 2, "dp": 2}) == {"dcn.pp": 2,
+                                                         "dp": 2}
+    jshape = dict(j_build_mesh({"dcn.pp": 2, "dp": 2},
+                               devices=jax.devices()[:4]).shape)
+    assert tmesh.resolve_axes({"dcn.pp": 2, "dp": 2}, 4) == {
+        a: s for a, s in jshape.items() if s > 1}
+    with pytest.raises(ValueError, match="unknown mesh axis xx"):
+        tmesh.check_axes({"dcn.xx": 2, "dp": 2})
     assert tmesh.resolve_axes({"dcn.sp": 2, "ep": 2}, 4) == {"ep": 2,
                                                              "sp": 2}
     assert tmesh.resolve_axes({"dcn.dp": 2, "dp": -1}, 8) == {"dp": 8}

@@ -55,7 +55,8 @@ SURFACE = ("tfmesos_tpu_torch.parallel", "tfmesos_tpu_torch.parallel.mesh",
            "tfmesos_tpu_torch.parallel.sharding",
            "tfmesos_tpu_torch.parallel.moe",
            "tfmesos_tpu_torch.parallel.ring_attention",
-           "tfmesos_tpu_torch.parallel.ulysses", "tfmesos_tpu_torch.dryrun",
+           "tfmesos_tpu_torch.parallel.ulysses",
+           "tfmesos_tpu_torch.parallel.pipeline", "tfmesos_tpu_torch.dryrun",
            "tfmesos_tpu_torch.models.mlp", "tfmesos_tpu_torch.plus",
            "tfmesos_tpu_torch.mnist_replica", "tfmesos_tpu_torch.fleet.gang")
 
@@ -140,7 +141,7 @@ def test_public_surface_with_jax_blocked():
         "add_gang requires dynamic=True",
         "MesosBackend",
         "ok",
-        "not ported yet: mesh axis pp (ROADMAP A.10)",
+        "ok",
         "ok",
         "{'dp': 2, 'fsdp': 2, 'tp': 2}",
         "{'dp': 2, 'tp': 2}"]

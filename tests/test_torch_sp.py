@@ -17,7 +17,7 @@ against the JAX package:
   dp=2 x sp=2 (dense MoE: router statistics over the global batch) and
   dp=2 (switch without ep: the tokens gathered over dp before routing,
   capacity a competition over the global batch as in JAX), against the JAX loss and step on one device;
-* ``tfrun --mesh sp=2`` accepted, ``pp=2`` refused by name.
+* ``tfrun --mesh sp=2`` and ``pp=2`` accepted.
 
 Inputs: numpy with a seed; params from the JAX ``init_params`` through
 ``convert.py``.  Tolerances (float32): attention outputs and gradients
@@ -201,13 +201,19 @@ def test_sp_ep_loss_grads_and_step_match_jax(ranks, name):
 
 def test_tfrun_accepts_sp_and_refuses_pp_by_name(capfd):
     """``tfrun --mesh sp=2,ep=2`` parses (the axes reach the tasks);
-    ``pp=2`` exits 2 naming its ROADMAP item."""
+    ``pp=2`` (ported since) runs its job too, and an unknown axis exits
+    2 naming it."""
     from tfmesos_tpu_torch import cli
 
     assert cli.parse_mesh("sp=2,ep=2") == {"sp": 2, "ep": 2}
     assert cli.parse_mesh("dp=2,sp=2") == {"dp": 2, "sp": 2}
+    assert cli.parse_mesh("pp=2,sp=2") == {"pp": 2, "sp": 2}
     rc = cli.main(["run", "-w", "2", "-s", "0", "--mesh", "pp=2", "--",
+                   "true"])
+    assert rc == 0
+    capfd.readouterr()
+    rc = cli.main(["run", "-w", "2", "-s", "0", "--mesh", "qq=2", "--",
                    "true"])
     assert rc == 2
     assert capfd.readouterr().err.strip() == (
-        "tfrun: not ported yet: mesh axis pp (ROADMAP A.10)")
+        "tfrun: unknown mesh axis qq (the axes: dp, fsdp, pp, ep, sp, tp)")

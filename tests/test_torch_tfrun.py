@@ -67,24 +67,26 @@ def test_bad_mesh_and_volume():
     with pytest.raises(ValueError):
         parse_volumes(["nodst"])
     assert parse_mesh("dp=4,tp=2") == {"dp": 4, "tp": 2}
-    with pytest.raises(ValueError,
-                       match=r"mesh axis pp \(ROADMAP A\.10\)"):
-        parse_mesh("dp=4,pp=2")
+    assert parse_mesh("dp=4,pp=2") == {"dp": 4, "pp": 2}
+    with pytest.raises(ValueError, match=r"unknown mesh axis zz"):
+        parse_mesh("dp=4,zz=2")
 
 
 @pytest.mark.parametrize("mesh,item", [("tp=2", None),
-                                       ("dp=2,pp=2", "pp (ROADMAP A.10)"),
+                                       ("dp=1,pp=2", None),
+                                       ("dp=2,zz=2", "zz (the axes: dp, "
+                                        "fsdp, pp, ep, sp, tp)"),
                                        ("sp=2", None),
                                        ("dcn.dp=2,dp=1", None)])
 def test_tfrun_refuses_a_later_mesh_axis(mesh, item, capfd):
-    """pp exits 2 naming its ROADMAP item; tp, sp and dcn. axes (item
-    None) are ported and the job runs."""
+    """An unknown axis exits 2 naming it; tp, sp, pp and dcn. axes
+    (item None) are ported and the job runs."""
     rc = main(["run", "-w", "2", "-s", "0", "--mesh", mesh, "--", "true"])
     if item is None:
         assert rc == 0
         return
     assert rc == 2
-    assert capfd.readouterr().err.strip() == (f"tfrun: not ported yet: "
+    assert capfd.readouterr().err.strip() == (f"tfrun: unknown "
                                               f"mesh axis {item}")
 
 

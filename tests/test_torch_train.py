@@ -508,20 +508,25 @@ def test_transformer_train_tiny_cpu(capsys):
 
 
 def test_transformer_train_refuses_later_slice_flags():
-    """The JAX example's pipeline flags are not flags here (its MoE and
-    sequence flags are), and a later model axis of ``--mesh`` is
-    refused by name (the data axes, tp, sp and ep are ported: a tp mesh
-    wants its ranks)."""
+    """The JAX example's flags are flags here, the pipeline's too
+    (``--pp-schedule`` takes gpipe, circular and 1f1b only), and every
+    model axis of ``--mesh`` is ported: a pp or tp mesh wants its ranks
+    and an unknown axis is refused by name."""
     args = transformer_train.parse_args(["--moe", "4", "--top-k", "1",
                                          "--sp-impl", "ulysses"])
     assert (args.moe, args.top_k, args.sp_impl) == (4, 1, "ulysses")
-    for argv in (["--pp-schedule", "1f1b"], ["--virtual-stages", "2"]):
-        with pytest.raises(SystemExit):
-            transformer_train.parse_args(argv)
+    args = transformer_train.parse_args(["--pp-schedule", "1f1b",
+                                         "--virtual-stages", "2"])
+    assert (args.pp_schedule, args.virtual_stages) == ("1f1b", 2)
+    with pytest.raises(SystemExit):
+        transformer_train.parse_args(["--pp-schedule", "zb"])
     assert transformer_train.parse_args(["--mesh", "dp=2"]).mesh == "dp=2"
-    with pytest.raises(SystemExit, match=r"mesh axis pp \(ROADMAP A\.10\)"):
+    with pytest.raises(SystemExit, match=r"wants 2 ranks, have 1"):
         transformer_train.main(["--tiny", "--device", "cpu", "--mesh",
                                 "dp=1,pp=2"])
+    with pytest.raises(SystemExit, match=r"unknown mesh axis qq"):
+        transformer_train.main(["--tiny", "--device", "cpu", "--mesh",
+                                "qq=2"])
     with pytest.raises(SystemExit, match=r"wants 2 ranks, have 1"):
         transformer_train.main(["--tiny", "--device", "cpu", "--mesh",
                                 "dp=1,tp=2"])

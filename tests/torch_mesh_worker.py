@@ -16,7 +16,8 @@ A case with ``ranks`` runs on a mesh over the first that many ranks
 
 Case kinds:
 
-* ``train``: ``loss_fn(mesh=)`` on this rank's share of the batch, the
+* ``train``: ``loss_fn(mesh=)`` on this rank's share of the batch (or
+  with ``1f1b`` ``train_step_1f1b``, also the step's ``grads_fn``), the
   gradients averaged as the train step averages them and gathered
   whole, the whole-vocab logits of ``forward(mesh=)`` gathered over
   the data axes, ``make_eval_step(mesh=)``'s loss; then one AdamW step
@@ -38,6 +39,7 @@ Case kinds:
   shard of the tokens and its ep block of the experts: the output, the
   aux, and the gradients of the tokens and of every weight (from a
   global output gradient) gathered whole.
+* ``pipe``: ``parallel.pipeline`` on a toy stage (``_pipe``).
 * ``batcher_kv``: the KV surface of a tp-only mesh batcher with a KV
   tier: an export (packed, rank 0 writes it), the imports of the
   artifacts the test wrote, ``preempt_all`` after the first completion
@@ -95,10 +97,19 @@ def _train(case, mesh, out_dir):
     flat = convert.flatten(params)
     for v in flat.values():
         v.requires_grad_(True)
-    loss, first = tt.loss_fn(cfg, params, batch, mesh=mesh)
-    grads = sharded_grad_mean(
-        list(torch.autograd.grad(loss, list(flat.values()))),
-        _flat_specs(specs, list(flat)), mesh)
+    grads_fn = None
+    if case.get("1f1b"):
+        def grads_fn(p, b):
+            loss_, g = tt.train_step_1f1b(cfg, p, b, mesh)
+            return g, loss_, {"perplexity": torch.exp(loss_)}
+
+        g, loss, first = grads_fn(params, batch)
+        grads = [convert.flatten(g)[k] for k in flat]
+    else:
+        loss, first = tt.loss_fn(cfg, params, batch, mesh=mesh)
+        grads = sharded_grad_mean(
+            list(torch.autograd.grad(loss, list(flat.values()))),
+            _flat_specs(specs, list(flat)), mesh)
     whole = convert.flatten(sharding.gather_tree(
         mesh, convert.unflatten(dict(zip(flat, grads))), specs))
     with torch.no_grad():
@@ -111,7 +122,8 @@ def _train(case, mesh, out_dir):
     opt = optim.adamw(1e-3, weight_decay=0.01,
                       max_norm=case.get("max_norm", 0.0))
     step = make_train_step(lambda p, b: tt.loss_fn(cfg, p, b, mesh=mesh),
-                           opt, mesh=mesh, param_specs=specs)
+                           opt, mesh=mesh, param_specs=specs,
+                           grads_fn=grads_fn)
     state = opt.init(params)
     params, state, metrics = step(params, state, batch)
     after = convert.flatten(sharding.gather_tree(mesh, params, specs))
@@ -392,8 +404,113 @@ def _moe(case, mesh, out_dir):
     return res
 
 
+def _pipe_stage(kind, mesh):
+    """The toy stage bodies of the pipeline cases (``tests/
+    test_torch_pipeline.py`` defines their JAX twins)."""
+    import torch
+
+    from tfmesos_tpu_torch.parallel import collectives
+
+    def tanh(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    if kind == "tanh":
+        return tanh
+    if kind == "aux":
+        return lambda p, h: (tanh(p, h), {"sq": (h ** 2).mean(),
+                                          "abs": h.abs().mean()})
+    if kind == "stage_aux":
+        return lambda p, h: (tanh(p, h), 0.1 * (h ** 2).mean())
+    if kind == "tp":
+        def tp(p, h):
+            hin = collectives.broadcast_replicated_grad(h, mesh, "tp")
+            return h + collectives.psum_replicated_grad(
+                torch.tanh(hin @ p["w1"]) @ p["w2"], mesh, "tp")
+        return tp
+    raise ValueError(kind)
+
+
+def _pipe(case, mesh, out_dir):
+    """``parallel.pipeline`` on a toy stage: this rank's chunks of the
+    global stacked params (round-robin over pp with ``v`` > 1), its
+    shares of ``x`` (and ``t``) over the data axes (and of the sequence
+    over sp with ``seq_axis``).  ``apply``: ``pipeline_apply`` and the
+    gradients of sum(out * g) (+ aux . g_aux, divided over the data
+    shards and sp, whose ranks each add their own share) by autograd,
+    summed over those axes; ``1f1b``: ``pipeline_train_1f1b``'s loss,
+    grads (tail grads) and dx.  Everything gathered whole."""
+    import torch
+
+    from tfmesos_tpu_torch.parallel import collectives, pipeline, sharding
+    from tfmesos_tpu_torch.parallel.sharding import data_axes
+
+    arrs = {k: torch.from_numpy(v) for k, v in
+            np.load(f"{out_dir}/{case['inputs']}").items()}
+    v = case.get("v", 1)
+    entry = sharding.Interleaved("pp", v) if v > 1 else "pp"
+    rest = {"w1": (None, "tp"), "w2": ("tp", None)}
+    names = [k for k in ("w", "b", "w1", "w2") if k in arrs]
+    specs = {k: (entry,) + rest.get(k, (None,) * (arrs[k].dim() - 1))
+             for k in names}
+    params = {k: sharding.cut(arrs[k], specs[k], mesh).clone()
+              .requires_grad_(True) for k in names}
+    seq = case.get("seq_axis")
+    rows = data_axes(mesh)
+    xspec = (rows,) + ((seq,) if seq else ())
+
+    def share(a):
+        return sharding.cut(a, xspec, mesh).clone()
+
+    x = share(arrs["x"]).requires_grad_(True)
+    stage = _pipe_stage(case["stage"], mesh)
+    m = case.get("m")
+    out = {}
+    if case["mode"] == "apply":
+        aux_keys = case.get("aux")
+        got = pipeline.pipeline_apply(
+            stage, params, x, mesh, num_microbatches=m,
+            schedule=case.get("schedule", "gpipe"), virtual_stages=v,
+            with_aux={k: 0.0 for k in aux_keys} if aux_keys else False,
+            seq_axis=seq)
+        y, aux = got if aux_keys else (got, {})
+        shards = mesh.axis_size(tuple(rows or ()) + ((seq,) if seq else ()))
+        obj = torch.sum(y * share(arrs["g"]))
+        for i, k in enumerate(sorted(aux)):
+            obj = obj + aux[k] * float(arrs["g_aux"][i]) / shards
+            out[f"aux/{k}"] = aux[k].detach().numpy()
+        grads = torch.autograd.grad(obj, list(params.values()) + [x])
+        sum_axes = tuple(rows or ()) + ((seq,) if seq else ())
+        gp = {k: collectives.all_reduce_sum(g, mesh, sum_axes)
+              for k, g in zip(params, grads)}
+        out["out"] = sharding.uncut(y.detach(), xspec, mesh).numpy()
+        dx = grads[-1]
+    else:
+        tail = ({"u": arrs["u"].clone()} if "u" in arrs else None)
+        stage_aux = case["stage"] == "stage_aux"
+        if tail is None:
+            loss_fn = lambda h, t: torch.mean((h - t) ** 2)  # noqa: E731
+        else:
+            loss_fn = lambda tl, h, t: torch.mean(  # noqa: E731
+                (h @ tl["u"] - t) ** 2)
+        got = pipeline.pipeline_train_1f1b(
+            stage, loss_fn, {k: p.detach() for k, p in params.items()},
+            x.detach(), share(arrs["t"]), mesh, num_microbatches=m,
+            tail_params=tail, stage_aux=stage_aux, virtual_stages=v)
+        if tail is None:
+            loss, gp, dx = got
+        else:
+            loss, gp, gtail, dx = got
+            out["tail/u"] = gtail["u"].numpy()
+        out["loss"] = loss.numpy()
+    for k, g in gp.items():
+        out[f"grad/{k}"] = sharding.uncut(g, specs[k], mesh).numpy()
+    out["dx"] = sharding.uncut(dx.detach(), xspec, mesh).numpy()
+    return out
+
+
 KINDS = {"attn": _attn, "moe": _moe, "train": _train, "restore": _restore,
-         "decode": _decode, "batcher": _batcher, "batcher_kv": _batcher_kv}
+         "decode": _decode, "batcher": _batcher, "batcher_kv": _batcher_kv,
+         "pipe": _pipe}
 
 
 def run_cases(cases, world, out_dir, timeout=240.0):

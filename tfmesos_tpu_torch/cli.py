@@ -42,9 +42,9 @@ agents with ``-m``), forwards the
 output of the tasks ``--worker-logs`` names to its stdout, prefixed
 ``[job:index]``, and polls until the workers finish.  It exits 0 when
 they do, 1 with one line ``tfrun: cluster failed: ...`` when the
-cluster fails, and 2 on a bad flag, a missing ``-e`` file, or a mesh
-axis the port does not have yet (``--mesh`` takes ``dp``, ``fsdp``,
-``ep``, ``sp`` and ``tp``; ``pp`` is refused by name).
+cluster fails, and 2 on a bad flag, a missing ``-e`` file, or an
+unknown mesh axis (``--mesh`` takes ``dp``, ``fsdp``, ``pp``, ``ep``,
+``sp`` and ``tp``).
 """
 
 from __future__ import annotations
@@ -141,10 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds the elastic restart budget counts over")
     p.add_argument("--mesh", type=str, default=None,
                    help="mesh axes handed to the tasks, e.g. dp=-1, "
-                        "fsdp=4, dp=2,tp=2, sp=2,ep=2 or dcn.dp=2,tp=2 "
-                        "(dp, fsdp, ep, sp and tp, each also as a dcn. "
-                        "axis across slices; pp comes with ROADMAP "
-                        "A.10)")
+                        "fsdp=4, dp=2,tp=2, pp=2, sp=2,ep=2 or "
+                        "dcn.dp=2,tp=2 (dp, fsdp, pp, ep, sp and tp, each "
+                        "also as a dcn. axis across slices)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="command to run on every task (placeholders: "
                         "{ps_hosts} {worker_hosts} {job_name} {task_index} "
@@ -154,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_mesh(spec: Optional[str]) -> Optional[Dict[str, int]]:
     """``"dp=4"`` -> ``{"dp": 4}``; ``ValueError`` for a malformed axis
-    or one the port does not have yet (``parallel.mesh.check_axes``)."""
+    or an unknown one (``parallel.mesh.check_axes``)."""
     from tfmesos_tpu_torch.parallel.mesh import check_axes
 
     if not spec:

@@ -1,9 +1,13 @@
 """Flagship decoder-only transformer, on one device or a mesh (port of
 ``tfmesos_tpu/models/transformer.py``: config, params and int8 weights
 ``:42-262``, the feed-forward dispatch (``_zero_aux``, ``_moe_switch``,
-``_moe``, ``_ffn``) ``:263-415``, the trunk ``:581-743``, linear and
-paged caches and decode ``:746-1076, 1248-1560``, sampling and
-``generate`` ``:1563-1774``, the training loss ``:2103-2176``).
+``_moe``, ``_ffn``) ``:263-415``, the in-stage forms
+(``_block_manual_tp`` ``:467``, ``_sp_gather_attention`` ``:524``,
+``_sp_attend`` ``:562``, ``_block`` ``:581``), the trunk ``:581-743``
+with its pipeline branch ``:642-735``, linear and paged caches and
+decode ``:746-1076, 1248-1560``, sampling and ``generate``
+``:1563-1774``, the training loss ``:2103-2176``, ``train_step_1f1b``
+``:2179-2386``).
 
 Same parameter dict as the JAX package — stacked per-layer leaves
 ``layers/<name>`` of shape [L, ...] — with the same shapes and init
@@ -43,8 +47,12 @@ config (whole experts a rank; the dense top-k form computes its local
 experts and all-reduces over ep, the switch form moves tokens to their
 experts by all-to-all, ``parallel/moe.py``); ``sp`` cuts the sequence
 (a rank's tokens at their global positions; attention through
-``ops.attention.attend``: the ring or Ulysses).  Serving runs on data
-x tp meshes only, as in JAX.
+``ops.attention.attend``: the ring or Ulysses).  ``pp`` cuts the layer
+stack into stages (``parallel/pipeline.py``): each rank holds its
+stage's layers, a stage's body runs JAX's in-stage forms (tp, ep and sp
+collectives written out inside the stage), and :func:`train_step_1f1b`
+is the fused 1F1B step.  Serving runs on data x tp meshes only, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -71,8 +79,9 @@ from tfmesos_tpu_torch.ops.quant import (QTensor, _paged_slots,
 from tfmesos_tpu_torch.parallel.collectives import (
     all_reduce_sum_grad, broadcast_replicated_grad, gather_shards,
     psum_replicated_grad)
-from tfmesos_tpu_torch.parallel.sharding import (Spec, block, data_axes,
-                                                 filter_spec, token_axes)
+from tfmesos_tpu_torch.parallel.sharding import (Interleaved, Spec, block,
+                                                 data_axes, filter_spec,
+                                                 token_axes)
 
 Params = Dict[str, Any]
 
@@ -80,7 +89,7 @@ Params = Dict[str, Any]
 @dataclass(frozen=True)
 class TransformerConfig:
     """Decoder-only transformer configuration (the JAX
-    ``TransformerConfig`` without its pipeline fields).
+    ``TransformerConfig``).
     ``n_kv_heads < n_heads`` is grouped-query attention; ``window`` a
     sliding attention window (``forward``, and rolling linear caches in
     decode — paged caches refuse it, as in JAX).  MoE: ``n_experts``
@@ -92,7 +101,10 @@ class TransformerConfig:
     ``parallel/moe.py``); the router's load-balance and z losses join
     the training objective at ``router_aux_weight`` and
     ``router_z_weight``.  ``sp_impl``: ``"ring"`` or ``"ulysses"`` over
-    an sp mesh.  Training: ``fused_ce`` (None = auto, which is the
+    an sp mesh.  ``pp_schedule`` (``"gpipe"`` or ``"circular"``) and
+    ``pp_virtual_stages`` (chunks a pp rank; circular only) run the
+    forward over a pp mesh (``n_layers`` must divide into pp x
+    virtual stages).  Training: ``fused_ce`` (None = auto, which is the
     fused head + cross entropy; False = materialize the logits),
     ``ce_chunk`` tokens per fused chunk, ``z_loss`` the LM-head z-loss
     weight; ``remat`` recomputes each block's forward in the backward
@@ -117,6 +129,8 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
     router_z_weight: float = 1e-3
+    pp_schedule: str = "gpipe"
+    pp_virtual_stages: int = 1
     sp_impl: str = "ring"
     fused_ce: Optional[bool] = None
     ce_chunk: int = 2048
@@ -297,6 +311,14 @@ def _moe_axes(mesh) -> Tuple[str, ...]:
                  if mesh is not None and mesh.axis_size(a) > 1)
 
 
+def _manual_mesh(mesh, ep_axis: Optional[str], tp_axis: Optional[str]):
+    """The mesh a stage body's manual collectives run over: ``mesh``
+    seen along the named ep / tp axes alone (no token axis: a stage's
+    statistics are its microbatch's), None when neither is named."""
+    axes = tuple(a for a in (ep_axis, tp_axis) if a)
+    return mesh.only(axes) if axes else None
+
+
 def _moe(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None,
          want_aux: bool = True):
     """Top-k routed MoE computed densely over the expert axis (the JAX
@@ -312,7 +334,10 @@ def _moe(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None,
     ``:327-348``).  The aux statistics (assignment counts, router
     probabilities, logsumexps) are summed over the mesh's token axes
     first (data and sp), so the aux is the global batch's, as GSPMD
-    computes it; ``want_aux=False`` (decode) skips them (aux None)."""
+    computes it; ``want_aux=False`` (decode) skips them (aux None).
+    Inside a pipeline stage ``mesh`` is seen along ep and tp alone
+    (:func:`_manual_mesh`, the JAX manual form ``_moe(ep_axis=,
+    tp_axis=)``): no token axis, the aux this microbatch's own."""
     e = cfg.n_experts
     logits = (h @ lp["router"].to(cfg.dtype)).float()        # [B, T, E]
     top_vals, top_idx = torch.topk(logits, cfg.top_k, dim=-1)
@@ -388,14 +413,47 @@ def _moe_switch(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
 
 
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor, mesh=None,
-         want_aux: bool = True):
+         want_aux: bool = True, ep_axis: Optional[str] = None,
+         tp_axis: Optional[str] = None, inbody_ad: bool = False):
     """The block's feed-forward dispatch (the JAX ``_ffn``): the dense
     MLP, the switch MoE or the dense top-k MoE, plus the shared experts'
     always-on FFN — shared by the training and decode paths, so they
     cannot drift.  ``h`` is the normed input, whole over tp; the output
     comes back whole (each tp- or ep-cut product all-reduced once).
     Returns (out, aux), aux None for the dense MLP (and for a dense
-    MoE without ``want_aux``): nothing to add to a tick's work."""
+    MoE without ``want_aux``): nothing to add to a tick's work.
+
+    ``ep_axis`` / ``tp_axis`` select the manual forms of a pipeline
+    stage's body: tokens replicated over ep and tp, experts cut over
+    them, the partial outputs summed (switch through
+    ``parallel.moe.switch_moe_replicated_local``: capacity a
+    competition over the microbatch's tokens).  ``inbody_ad`` (the 1F1B
+    step) refuses switch, as JAX does; the port's *f* / *g* carry their
+    own gradients, so it changes nothing else here."""
+    if ep_axis or tp_axis:
+        if cfg.n_experts and cfg.moe_impl == "switch":
+            if inbody_ad:
+                raise ValueError(
+                    "moe_impl='switch' does not support in-body AD (1F1B);"
+                    " use the dense top-k MoE or pp_schedule="
+                    "'gpipe'/'circular'")
+            from tfmesos_tpu_torch.parallel.moe import (
+                switch_moe_replicated_local)
+
+            b, t, d = h.shape
+            out, aux = switch_moe_replicated_local(
+                h.reshape(b * t, d), lp["router"].to(cfg.dtype),
+                lp["e_gate"], lp["e_up"], lp["e_down"], mesh,
+                ep_axis=ep_axis, capacity_factor=cfg.capacity_factor,
+                top_k=cfg.top_k, tp_axis=tp_axis)
+            out = out.reshape(b, t, d)
+            if cfg.n_shared_experts:
+                sub = _manual_mesh(mesh, None, tp_axis)
+                out = out + psum_replicated_grad(_qswiglu(
+                    broadcast_replicated_grad(h, sub), lp["s_gate"],
+                    lp["s_up"], lp["s_down"], cfg.dtype), sub)
+            return out, aux
+        mesh = _manual_mesh(mesh, ep_axis, tp_axis)
     if not cfg.n_experts:
         out = psum_replicated_grad(
             _mlp(cfg, lp, broadcast_replicated_grad(h, mesh)), mesh)
@@ -430,12 +488,31 @@ def _check_tp(cfg: TransformerConfig, mesh, what: str) -> int:
     return tp
 
 
+def _pp(mesh) -> int:
+    return 1 if mesh is None else mesh.axis_size("pp")
+
+
+def _layer_dim(cfg: TransformerConfig, mesh):
+    """The layer-stack dim's spec entry: whole, or over a pp axis the
+    rank's stage (its ``pp_virtual_stages`` chunks round-robin,
+    ``sharding.Interleaved``)."""
+    v = cfg.pp_virtual_stages
+    if _pp(mesh) == 1:
+        return None
+    return "pp" if v == 1 else Interleaved("pp", v)
+
+
 def partition_specs(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
     """The spec tree of the params (the JAX ``partition_specs``):
     Megatron tp (``wq/wk/wv/w_gate/w_up`` cut on their output columns,
     ``wo/w_down`` on their input rows, the embedding on its vocab rows
     and the head on its vocab columns), fsdp on the other dim, norms
-    whole; the layer-stack dim whole.  MoE: the router over fsdp, the
+    whole; the layer-stack dim whole, or over a pp axis cut into the
+    stages (rank d: its ``pp_virtual_stages`` chunks d, d + pp, …).
+    JAX keeps that dim whole in its spec and cuts it inside the
+    pipeline's ``shard_map``; the port places each rank's stage only
+    (ROADMAP C.3).  ``embed``, ``norm_f`` and ``head`` stay whole over
+    pp.  MoE: the router over fsdp, the
     experts' ``e_*`` over ep (whole experts), fsdp and tp (each
     expert's FFN width, Megatron per expert), the shared ``s_*`` as the
     dense MLP's.  Axes of size 1 are
@@ -446,14 +523,16 @@ def partition_specs(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
         raise ValueError(
             f"partition_specs: tp ({tp}) must divide the GQA kv projection "
             f"width ({cfg.kv_heads} kv heads x {cfg.head_dim})")
-    col, row = (None, "fsdp", "tp"), (None, "tp", "fsdp")
-    layers = {"attn_norm": (None, None), "wq": col, "wk": col, "wv": col,
-              "wo": row, "mlp_norm": (None, None)}
+    _pp_chunks(cfg, mesh)
+    li = _layer_dim(cfg, mesh)
+    col, row = (li, "fsdp", "tp"), (li, "tp", "fsdp")
+    layers = {"attn_norm": (li, None), "wq": col, "wk": col, "wv": col,
+              "wo": row, "mlp_norm": (li, None)}
     if cfg.n_experts:
-        layers.update(router=(None, "fsdp", None),
-                      e_gate=(None, "ep", "fsdp", "tp"),
-                      e_up=(None, "ep", "fsdp", "tp"),
-                      e_down=(None, "ep", "tp", "fsdp"))
+        layers.update(router=(li, "fsdp", None),
+                      e_gate=(li, "ep", "fsdp", "tp"),
+                      e_up=(li, "ep", "fsdp", "tp"),
+                      e_down=(li, "ep", "tp", "fsdp"))
         if cfg.n_shared_experts:
             layers.update(s_gate=col, s_up=col, s_down=row)
     else:
@@ -532,14 +611,111 @@ def _finish_block(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
 
 
 def _block(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor, mesh=None):
+           positions: torch.Tensor, mesh=None,
+           ep_axis: Optional[str] = None, sp_axis: Optional[str] = None,
+           inbody_ad: bool = False):
     """One transformer block over a full sequence (causal attention;
     over sp, the ring or Ulysses through ``attend``); returns (x,
+    aux).
+
+    ``ep_axis`` / ``sp_axis``: the block inside a pipeline stage (the
+    JAX ``_block(ep_axis=, sp_axis=, inbody_ad=)``): whole heads, the
+    experts cut over ``ep_axis`` (:func:`_ffn`'s manual form), and with
+    ``sp_axis`` the sequence cut over it (``positions`` global) and
+    attended by :func:`_sp_attend`; without either axis a stage runs
+    the plain block (``mesh`` None)."""
+    if ep_axis is None and sp_axis is None:
+        q, k, v = _qkv(cfg, lp, x, positions, mesh)
+        o = attend(q, k, v, mesh, causal=True, sp_impl=cfg.sp_impl,
+                   window=cfg.window)
+        return _finish_block(cfg, lp, x, o, mesh)
+    b, t, _ = x.shape
+    q, k, v = _qkv(cfg, lp, x, positions)
+    if sp_axis is not None:
+        o = _sp_attend(cfg, q, k, v, mesh, sp_axis, inbody_ad)
+    else:
+        o = attend(q, k, v, None, causal=True, window=cfg.window)
+    x = x + _qmm(o.reshape(b, t, -1), lp["wo"], cfg.dtype)
+    ffn, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"].to(cfg.dtype)),
+                    mesh if ep_axis else None, ep_axis=ep_axis,
+                    inbody_ad=inbody_ad)
+    return x + ffn, aux
+
+
+def _block_manual_tp(cfg: TransformerConfig, x: torch.Tensor, lp: Params,
+                     positions: torch.Tensor, mesh, tp_axis: str = "tp",
+                     ep_axis: Optional[str] = None, inbody_ad: bool = False,
+                     sp_axis: Optional[str] = None):
+    """The Megatron block inside a pipeline stage (the JAX
+    ``_block_manual_tp``): ``lp`` this rank's tp blocks (q/k/v on their
+    output columns, ``wo`` on its input rows, the FFN widths), the
+    normed input fanned out through *f* and each row-parallel product
+    summed through *g* over ``tp_axis``; with experts the FFN half is
+    :func:`_ffn`'s manual form over ep and tp, with ``sp_axis`` the
+    attention :func:`_sp_attend`'s on the local heads.  Returns (x,
     aux)."""
-    q, k, v = _qkv(cfg, lp, x, positions, mesh)
-    o = attend(q, k, v, mesh, causal=True, sp_impl=cfg.sp_impl,
-               window=cfg.window)
-    return _finish_block(cfg, lp, x, o, mesh)
+    b, t, _ = x.shape
+    tpm = mesh.only(tp_axis)
+    q, k, v = _qkv(cfg, lp, x, positions, tpm)
+    if sp_axis is not None:
+        o = _sp_attend(cfg, q, k, v, mesh, sp_axis, inbody_ad)
+    else:
+        o = attend(q, k, v, None, causal=True, window=cfg.window)
+    x = x + psum_replicated_grad(_qmm(o.reshape(b, t, -1), lp["wo"],
+                                      cfg.dtype), tpm)
+    ffn, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"].to(cfg.dtype)),
+                    mesh, ep_axis=ep_axis, tp_axis=tp_axis,
+                    inbody_ad=inbody_ad)
+    return x + ffn, aux
+
+
+def _sp_gather_attention(cfg: TransformerConfig, q: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor, mesh,
+                         axis: str) -> torch.Tensor:
+    """Sequence-parallel attention by K/V all-gather (the JAX
+    ``_sp_gather_attention``, the 1F1B step's form): the local query
+    shard attends the WHOLE gathered sequence with global-position
+    masks, in float32.  The narrow (kv-width) K/V are gathered and the
+    GQA groups broadcast after; the gather's backward sums each rank's
+    dK/dV over the axis and keeps this rank's block."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    tq = q.shape[1]
+    kg = gather_shards(k.contiguous(), mesh, axis, 1)      # [B, T, KV, D]
+    vg = gather_shards(v.contiguous(), mesh, axis, 1)
+    g = q.shape[2] // kg.shape[2]
+    if g > 1:
+        kg = kg.repeat_interleave(g, dim=2)
+        vg = vg.repeat_interleave(g, dim=2)
+    tk = kg.shape[1]
+    qpos = mesh.coord(axis) * tq + torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kg.float())
+    bad = kpos > qpos
+    if cfg.window is not None:
+        bad = bad | (kpos < qpos - (cfg.window - 1))
+    s = s.masked_fill(bad, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vg.float()).to(q.dtype)
+
+
+def _sp_attend(cfg: TransformerConfig, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, mesh, sp_axis: str,
+               inbody_ad: bool) -> torch.Tensor:
+    """A stage body's sequence-parallel attention (the JAX
+    ``_sp_attend``; q/k/v may be tp-local heads): the K/V-gather form
+    under ``inbody_ad`` (the 1F1B step), else the einsum ring
+    (``ring_attention_local``), GQA broadcast before its hops."""
+    if inbody_ad:
+        return _sp_gather_attention(cfg, q, k, v, mesh, sp_axis)
+    from tfmesos_tpu_torch.parallel.ring_attention import \
+        ring_attention_local
+
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    return ring_attention_local(q, k, v, mesh, axis=sp_axis, causal=True,
+                                window=cfg.window)
 
 
 def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
@@ -598,11 +774,111 @@ def _logits(cfg: TransformerConfig, params: Params, x: torch.Tensor,
                               cfg.vocab_size)
 
 
+def _pp_chunks(cfg: TransformerConfig, mesh) -> int:
+    """The pipeline's chunk count over ``mesh`` (pp x virtual stages),
+    after JAX's check that the layers divide into them."""
+    n_chunks = _pp(mesh) * cfg.pp_virtual_stages
+    if _pp(mesh) > 1 and cfg.n_layers % n_chunks:
+        raise ValueError(f"{cfg.n_layers} layers not divisible into "
+                         f"{n_chunks} pipeline chunks")
+    return n_chunks
+
+
+def _pipeline_trunk(cfg: TransformerConfig, params: Params,
+                    x: torch.Tensor, mesh, specs):
+    """The layer stack over a pp mesh (the JAX ``forward_hidden`` pp
+    branch ``:642-735``): the rank's layers [v·per, ...] seen as its v
+    chunks of ``per`` layers, run by ``parallel.pipeline.pipeline_apply``
+    on ``cfg.pp_schedule`` with pp microbatches.  A stage's body is the
+    block in JAX's in-stage forms (:func:`_block_manual_tp` with tp,
+    :func:`_block` with the ep and sp axes), each layer's fsdp shards
+    gathered as it runs, each block checkpointed under ``cfg.remat``.
+    ``x`` is the embedded input: over sp the rank's sequence shard (the
+    stages attend across shards) — or, for switch MoE, whose capacity
+    is a competition over the whole sequence, the whole sequence.
+    Returns (the last stage's output on every pp rank, the router aux
+    averaged over chunks x microbatches x data shards)."""
+    from tfmesos_tpu_torch.parallel.pipeline import pipeline_apply
+
+    v = cfg.pp_virtual_stages
+    per = cfg.n_layers // _pp_chunks(cfg, mesh)
+    tp = _tp(mesh)
+    ep_axis = "ep" if cfg.n_experts and mesh.axis_size("ep") > 1 else None
+    sp_axis = "sp" if _seq_in_stages(cfg, mesh) else None
+    lspecs = specs["layers"]
+    fsdp = mesh.axis_size("fsdp") > 1
+
+    def block(h, cp, i, pos):
+        lp = {k: w[i] for k, w in cp.items()}
+        if fsdp:
+            lp = {k: _unshard(w, lspecs[k][1:], mesh) for k, w in lp.items()}
+        if tp > 1:
+            h, aux = _block_manual_tp(cfg, h, lp, pos, mesh,
+                                      ep_axis=ep_axis, sp_axis=sp_axis)
+        else:
+            h, aux = _block(cfg, h, lp, pos,
+                            mesh if ep_axis or sp_axis else None,
+                            ep_axis=ep_axis, sp_axis=sp_axis)
+        return (h,) + (() if aux is None else
+                       tuple(aux[k] for k in AUX_KEYS))
+
+    def stage_fn(cp, h):
+        b, t = h.shape[:2]
+        start = mesh.coord("sp") * t if sp_axis else 0
+        pos = (start + torch.arange(t, device=h.device)).expand(b, t)
+        sums = None
+        for i in range(per):
+            if cfg.remat:
+                h, *aux = torch.utils.checkpoint.checkpoint(
+                    block, h, cp, i, pos, use_reentrant=False)
+            else:
+                h, *aux = block(h, cp, i, pos)
+            if aux:
+                sums = aux if sums is None else [a + b_
+                                                 for a, b_ in zip(sums, aux)]
+        if not cfg.n_experts:
+            return h
+        return h, {k: a / per for k, a in zip(AUX_KEYS, sums)}
+
+    stacked = {k: w.unflatten(0, (v, per))
+               for k, w in params["layers"].items()}
+    out = pipeline_apply(stage_fn, stacked, x, mesh,
+                         schedule=cfg.pp_schedule, virtual_stages=v,
+                         with_aux=AUX_KEYS if cfg.n_experts else False,
+                         seq_axis=sp_axis)
+    if cfg.n_experts:
+        return out
+    return out, _zero_aux(x.device)
+
+
+def _seq_in_stages(cfg: TransformerConfig, mesh) -> bool:
+    """Whether a pp mesh's stages see the sequence cut over sp (JAX's
+    rule: not for switch MoE, whose capacity drops tokens in a
+    competition over the whole sequence; the port's batches always cut
+    T over sp evenly, ``sharding.seq_window``)."""
+    return mesh.axis_size("sp") > 1 and not (
+        cfg.n_experts and cfg.moe_impl == "switch")
+
+
+def _check_pp(cfg: TransformerConfig, mesh) -> None:
+    """JAX's pp-branch checks, before the partition specs' own."""
+    if _pp(mesh) == 1:
+        return
+    _pp_chunks(cfg, mesh)
+    tp = _tp(mesh)
+    if tp > 1 and cfg.kv_heads % tp:
+        raise ValueError(
+            f"pp x tp needs tp ({tp}) to divide kv_heads "
+            f"({cfg.kv_heads}) so the local head grouping stays "
+            f"aligned; lower tp or raise kv_heads")
+
+
 def _specs(cfg: TransformerConfig, mesh):
     """The partition specs ``params`` are cut by on ``mesh`` (None
     without one)."""
     if mesh is None:
         return None
+    _check_pp(cfg, mesh)
     _check_tp(cfg, mesh, "forward")
     return partition_specs(cfg, mesh)
 
@@ -623,9 +899,24 @@ def forward_hidden(cfg: TransformerConfig, params: Params,
     Over sp ``tokens`` are this rank's block of the sequence: the
     embedding and rope run at GLOBAL positions (the rank's offset
     ``coord("sp") · T``).  The hidden states are whole on every tp and
-    ep rank."""
+    ep rank.  Over pp the layers run as a pipeline
+    (:func:`_pipeline_trunk`) and the output is the last stage's, on
+    every pp rank."""
     b, t = tokens.shape
     specs = _specs(cfg, mesh)
+    if _pp(mesh) > 1:
+        sp = mesh.axis_size("sp")
+        whole = sp > 1 and not _seq_in_stages(cfg, mesh)
+        if whole:
+            from tfmesos_tpu_torch.parallel.collectives import all_gather
+
+            tokens = all_gather(tokens.contiguous(), mesh, "sp", 1)
+        x, aux = _pipeline_trunk(cfg, params, _embed(cfg, params, tokens,
+                                                     mesh, specs),
+                                 mesh, specs)
+        if whole:
+            x = x[:, mesh.coord("sp") * t:(mesh.coord("sp") + 1) * t]
+        return rms_norm(x, params["norm_f"].to(cfg.dtype)), aux
     x = _embed(cfg, params, tokens, mesh, specs)
     start = 0 if mesh is None else mesh.coord("sp") * t
     positions = (start + torch.arange(t, device=tokens.device)).expand(b, t)
@@ -736,6 +1027,166 @@ def loss_fn(cfg: TransformerConfig, params: Params,
                        router_z_loss=aux["z_loss"],
                        moe_overflow_frac=aux["overflow_frac"])
     return loss, metrics
+
+
+def _fsdp_entries(spec: Spec, also: Tuple[str, ...] = ()) -> Spec:
+    """``spec`` with only its fsdp entries (and those of ``also``)."""
+    keep = {"fsdp", *also}
+    return tuple(e if isinstance(e, str) and e in keep else None
+                 for e in spec)
+
+
+def train_step_1f1b(cfg: TransformerConfig, params: Params,
+                    batch: Dict[str, torch.Tensor], mesh,
+                    num_microbatches: Optional[int] = None):
+    """One fused 1F1B forward+backward pass of the LM objective on a pp
+    mesh (the JAX ``train_step_1f1b``): returns ``(loss, grads)``,
+    ``grads`` float32 in ``params``' structure — this rank's blocks per
+    :func:`partition_specs`, each the GLOBAL batch's gradient (averaged
+    over the data axes already, never over pp).
+
+    ``parallel.pipeline.pipeline_train_1f1b`` runs the layers: a
+    stage's body is :func:`_block_manual_tp` under tp and :func:`_block`
+    otherwise, in their in-body forms (sp attention by K/V gather, the
+    stage's weights fanned over sp through *f*); MoE stages (dense top-k
+    only) carry their layers' router terms, normalized by ``n_layers``,
+    as a stage aux seeded with the loss's 1/m.  The embedding is
+    differentiated through the returned dx (its gradient summed over
+    the ranks of distinct tokens); the final norm and the head ride as
+    tail params of the loss stage: under tp the vocab-parallel CE
+    (``ops.layers.vocab_parallel_cross_entropy`` on the tp axis alone,
+    the JAX ``vocab_parallel_ce_inbody``'s math), a vocab that does not
+    divide over tp the fused CE on the whole head.  Leaves cut over fsdp
+    are gathered whole for the step and their gradients cut back, as
+    GSPMD gathers them at the JAX ``shard_map``'s edge."""
+    from tfmesos_tpu_torch.ops.layers import vocab_parallel_cross_entropy
+    from tfmesos_tpu_torch.parallel.collectives import all_reduce_sum
+    from tfmesos_tpu_torch.parallel.pipeline import pipeline_train_1f1b
+    from tfmesos_tpu_torch.parallel.sharding import cut, uncut
+
+    pp, tp = _pp(mesh), _tp(mesh)
+    ep, sp = mesh.axis_size("ep"), mesh.axis_size("sp")
+    if tp > 1 and cfg.kv_heads % tp:
+        raise ValueError(f"1f1b x tp needs tp ({tp}) to divide kv_heads "
+                         f"({cfg.kv_heads})")
+    if tp > 1 and cfg.d_ff % tp:
+        raise ValueError(f"1f1b x tp needs tp ({tp}) to divide d_ff "
+                         f"({cfg.d_ff}) for the Megatron FFN split")
+    if ep > 1 and not cfg.n_experts:
+        raise ValueError("an ep axis needs n_experts > 0")
+    if cfg.n_experts and cfg.n_experts % max(ep, 1):
+        raise ValueError(f"ep ({ep}) must divide n_experts "
+                         f"({cfg.n_experts})")
+    if cfg.n_experts and cfg.moe_impl == "switch":
+        raise ValueError("train_step_1f1b runs the dense top-k MoE "
+                         "(moe_impl='switch' assumes outer "
+                         "differentiation); use pp_schedule="
+                         "'gpipe'/'circular' for switch dispatch")
+    v = cfg.pp_virtual_stages
+    if v > 1 and pp < 2:
+        raise ValueError("pp_virtual_stages > 1 needs a real pp axis")
+    n_chunks = max(pp, 1) * v
+    if cfg.n_layers % n_chunks:
+        raise ValueError(f"{cfg.n_layers} layers not divisible into "
+                         f"{n_chunks} pipeline chunks "
+                         f"({pp} stages x {v} virtual)")
+    specs = partition_specs(cfg, mesh)
+    per = cfg.n_layers // n_chunks
+    ep_axis = "ep" if cfg.n_experts and ep > 1 else None
+    sp_axis = "sp" if sp > 1 else None
+    vocab_parallel_tail = tp > 1 and cfg.vocab_size % tp == 0
+    # What each leaf is gathered over for the step (and its gradient
+    # cut back over): fsdp, and tp for a head the replicated tail uses.
+    gather = {"embed": _fsdp_entries(specs["embed"]),
+              "norm_f": specs["norm_f"],
+              "head": _fsdp_entries(specs["head"],
+                                    () if vocab_parallel_tail else ("tp",)),
+              "layers": {k: _fsdp_entries(s_)
+                         for k, s_ in specs["layers"].items()}}
+
+    def whole(w, spec):
+        return uncut(w.detach(), spec, mesh)
+
+    stage_aux = bool(cfg.n_experts)
+    inbody = ep_axis is not None or sp_axis is not None
+
+    def block(h, cp, i, pos):
+        lp = {k: w[i] for k, w in cp.items()}
+        if tp > 1:
+            return _block_manual_tp(cfg, h, lp, pos, mesh, ep_axis=ep_axis,
+                                    inbody_ad=True, sp_axis=sp_axis)
+        return _block(cfg, h, lp, pos, mesh if inbody else None,
+                      ep_axis=ep_axis, sp_axis=sp_axis, inbody_ad=inbody)
+
+    def stage_fn(cp, h):
+        if sp_axis is not None:
+            # Weights whole over sp, used by each shard's own tokens:
+            # *f* sums their gradients over sp.
+            cp = {k: broadcast_replicated_grad(w, mesh, "sp")
+                  for k, w in cp.items()}
+        b, t = h.shape[:2]
+        start = mesh.coord("sp") * t if sp_axis else 0
+        pos = (start + torch.arange(t, device=h.device)).expand(b, t)
+        lb = z = 0.0
+        for i in range(per):
+            if cfg.remat:
+                h, aux = torch.utils.checkpoint.checkpoint(
+                    block, h, cp, i, pos, use_reentrant=False)
+            else:
+                h, aux = block(h, cp, i, pos)
+            if stage_aux:
+                lb = lb + aux["load_balance_loss"]
+                z = z + aux["z_loss"]
+        if not stage_aux:
+            return h
+        aux = (cfg.router_aux_weight * lb
+               + cfg.router_z_weight * z) / cfg.n_layers
+        if sp_axis is not None:
+            aux = psum_replicated_grad(aux, mesh, "sp") / sp
+        return h, aux.float()
+
+    def tail_loss(tail, h, tgt_mb):
+        if sp_axis is not None:
+            tail = {k: broadcast_replicated_grad(w, mesh, "sp")
+                    for k, w in tail.items()}
+        x = rms_norm(h, tail["norm_f"].to(cfg.dtype))
+        if vocab_parallel_tail:
+            loss = vocab_parallel_cross_entropy(
+                x, tail["head"], tgt_mb, mesh.only("tp"),
+                z_loss=cfg.z_loss, chunk=cfg.ce_chunk, vocab=cfg.vocab_size)
+        else:
+            loss = fused_linear_cross_entropy(x, tail["head"], tgt_mb,
+                                              z_loss=cfg.z_loss,
+                                              chunk=cfg.ce_chunk)
+        if sp_axis is not None:
+            loss = psum_replicated_grad(loss, mesh, "sp") / sp
+        return loss
+
+    tokens = batch["tokens"]
+    inp, tgt = tokens[:, :-1], tokens[:, 1:].long()
+    embed = whole(params["embed"], gather["embed"]).requires_grad_(True)
+    with torch.enable_grad():
+        x = _embed(cfg, {"embed": embed}, inp, mesh)
+    stacked = {k: whole(w, gather["layers"][k]).unflatten(0, (v, per))
+               for k, w in params["layers"].items()}
+    tail = {k: whole(params[k], gather[k]) for k in ("norm_f", "head")}
+    loss, g_stacked, g_tail, dx = pipeline_train_1f1b(
+        stage_fn, tail_loss, stacked, x.detach(), tgt, mesh,
+        num_microbatches=num_microbatches, tail_params=tail,
+        stage_aux=stage_aux, virtual_stages=v)
+    (g_embed,) = torch.autograd.grad(x, embed, dx.to(x.dtype))
+    # dx is each rank's tokens' share of the global gradient: the
+    # embedding's is the sum over the ranks of distinct tokens.
+    g_embed = all_reduce_sum(g_embed.float(), mesh, token_axes(mesh) or ())
+    back = lambda g, spec: cut(g, spec, mesh).contiguous()  # noqa: E731
+    grads = {
+        "embed": back(g_embed, gather["embed"]),
+        "layers": {k: back(g_stacked[k].flatten(0, 1), gather["layers"][k])
+                   for k in params["layers"]},
+        "norm_f": g_tail["norm_f"],
+        "head": back(g_tail["head"], gather["head"]),
+    }
+    return loss, {k: grads[k] for k in params}
 
 
 def entry(device: Union[str, torch.device, None] = None
@@ -1097,7 +1548,7 @@ def _rolling_decode(cfg: TransformerConfig, q: torch.Tensor,
 
 def _check_serving_mesh(mesh) -> None:
     """Decode runs on data (dp/fsdp) x tp meshes, as in JAX
-    (``_check_sharded_paged``): an sp or ep mesh is refused with its
+    (``_check_sharded_paged``): a pp, sp or ep mesh is refused with its
     message."""
     if mesh is None:
         return

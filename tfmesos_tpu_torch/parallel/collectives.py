@@ -35,6 +35,8 @@ collectives through host memory as well).
 :func:`all_reduce_sum_grad` is the all-reduce whose backward is the
 all-reduce again (the transpose of a sum every rank takes): router
 statistics summed over the ranks that hold distinct tokens.
+:class:`CollectiveTimer` times this process's collectives on the host
+(``transformer_train --time-collectives``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce_sum", "all_reduce_mean", "grad_sync", "all_gather",
+__all__ = ["CollectiveTimer", "all_reduce_sum", "all_reduce_mean",
+           "grad_sync", "all_gather",
            "reduce_scatter", "axis_index", "barrier",
            "BroadcastReplicatedGrad", "PsumReplicatedGrad", "GatherShards",
            "broadcast_replicated_grad", "psum_replicated_grad",
@@ -327,3 +330,51 @@ def mean_replicated_grad(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh is None or mesh.axis_size(axes) == 1:
         return x
     return MeanReplicatedGrad.apply(x, mesh, axes)
+
+
+class CollectiveTimer:
+    """While entered, the host seconds this process spends in the
+    mesh's collectives (``seconds``): every ``torch.distributed``
+    all-reduce and all-gather and every point-to-point exchange of this
+    module (the ring hop, the all-to-all), each timed from a device
+    sync before it to its return (gloo stages a CUDA tensor through host
+    memory, so the call blocks until the transfer is done).  A
+    diagnostic: the syncs it adds slow the step it measures."""
+
+    _PATCHED = (("dist", "all_reduce"), ("dist", "all_gather"),
+                ("module", "_shift"), ("module", "_all_to_all"))
+
+    def __init__(self, device=None):
+        self.device = device
+        self.seconds = 0.0
+        self._saved = []
+
+    def _wrap(self, fn):
+        import time
+
+        def call(*a, **k):
+            if self.device is not None and torch.device(
+                    self.device).type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return call
+
+    def __enter__(self):
+        import sys
+
+        owners = {"dist": dist, "module": sys.modules[__name__]}
+        for owner, name in self._PATCHED:
+            obj = owners[owner]
+            fn = getattr(obj, name)
+            self._saved.append((obj, name, fn))
+            setattr(obj, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+        self._saved.clear()

@@ -1,13 +1,14 @@
 """The mesh: the successor of the ps/worker ClusterSpec (port of
-``tfmesos_tpu/parallel/mesh.py``, every axis but ``pp``).
+``tfmesos_tpu/parallel/mesh.py``).
 
 The JAX package turns the job counts into mesh axis sizes: ``dp`` (data
 parallel, the worker set), ``fsdp`` (parameter sharding, what ps jobs
-become), ``ep`` (experts of an MoE model), ``sp`` (the sequence: ring
-or Ulysses attention) and ``tp`` (Megatron tensor parallelism), ``-1``
-absorbing every device left.  The port lays the ranks out over the axes
-it has, one rank a device, in the JAX package's order with ``tp``
-innermost (rank = row-major index over ``dp, fsdp, ep, sp, tp``), and
+become), ``pp`` (pipeline stages, ``parallel/pipeline.py``), ``ep``
+(experts of an MoE model), ``sp`` (the sequence: ring or Ulysses
+attention) and ``tp`` (Megatron tensor parallelism), ``-1`` absorbing
+every device left.  The port lays the ranks out over the axes, one rank
+a device, in the JAX package's order with ``tp`` innermost (rank =
+row-major index over ``dp, fsdp, pp, ep, sp, tp``), and
 makes one process group for every set of axes and every coordinate of
 the others, so a collective names the axes it runs over
 (``parallel/collectives.py``).
@@ -18,8 +19,7 @@ into as many equal contiguous blocks ("slices") as the dcn sizes
 multiply to, the dcn axes lay out over the slices and the others within
 each slice, and an axis named both ways has size dcn x ici with the dcn
 index as its outer factor.  A rank's coordinates follow that layout, so
-its place in the grid is the device's in JAX's hybrid mesh.  ``pp``
-above 1 is refused by name (ROADMAP A.10).
+its place in the grid is the device's in JAX's hybrid mesh.
 """
 
 from __future__ import annotations
@@ -34,11 +34,8 @@ __all__ = ["DATA_AXES", "AXIS_ORDER", "MeshSpec", "RankMesh", "LocalMesh",
            "build_mesh"]
 
 DATA_AXES = ("dp", "fsdp")
-#: The axes the port builds, outermost first (the JAX ``AXIS_ORDER``
-#: without ``pp``, which the port does not have yet).
-AXIS_ORDER = ("dp", "fsdp", "ep", "sp", "tp")
-# The ROADMAP item that brings each axis the port does not have yet.
-LATER_AXES = {"pp": "A.10"}
+#: The axes, outermost first (the JAX ``AXIS_ORDER``).
+AXIS_ORDER = ("dp", "fsdp", "pp", "ep", "sp", "tp")
 
 Axes = Union[str, Sequence[str], None]
 
@@ -72,19 +69,17 @@ def split_dcn_axes(axes: Dict[str, int]):
 
 def check_axes(axes: Dict[str, int]) -> Dict[str, int]:
     """Return ``axes`` if the port can build them, else raise
-    ``ValueError``: an axis outside :data:`AXIS_ORDER` (``pp``) whose
-    size is not 1 (-1
-    included: it would absorb devices) names its ROADMAP item, with or
-    without the ``dcn.`` prefix, and a ``dcn.`` axis must have an
-    explicit size."""
+    ``ValueError``: an axis outside :data:`AXIS_ORDER` whose size is not
+    1 (-1 included: it would absorb devices), with or without the
+    ``dcn.`` prefix, and a ``dcn.`` axis without an explicit size."""
     ici, dcn = split_dcn_axes(axes)
     if any(s == -1 for s in dcn.values()):
         raise ValueError("dcn axes need explicit sizes (no -1 wildcard): "
                          "the slice count is what they must match")
     for name, size in list(ici.items()) + list(dcn.items()):
         if name not in AXIS_ORDER and size != 1:
-            raise ValueError(f"not ported yet: mesh axis {name} (ROADMAP "
-                             f"{LATER_AXES.get(name, 'A.10')})")
+            raise ValueError(f"unknown mesh axis {name} (the axes: "
+                             f"{', '.join(AXIS_ORDER)})")
     return axes
 
 

@@ -1,7 +1,8 @@
 """Expert parallelism: top-k MoE with capacity and a real all-to-all data
 path (port of ``tfmesos_tpu/parallel/moe.py``: ``_routing`` ``:38``,
 ``_expert_ffn`` ``:81``, ``_capacity`` ``:89``, ``switch_moe_reference``
-``:94``, ``switch_moe_local`` ``:113``, ``switch_moe`` ``:196``).
+``:94``, ``switch_moe_local`` ``:113``, ``switch_moe_replicated_local``
+``:156``, ``switch_moe`` ``:196``).
 
 Semantics, the JAX package's: each token takes its top-k experts; an
 assignment lands if it arrives within the expert's capacity, with slot
@@ -24,7 +25,10 @@ cumsum, exactly the JAX float cumsum's values).
 
 Over the ``ep`` axes (:func:`switch_moe_local`) expert blocks travel by
 two all-to-all hops (``parallel.collectives.all_to_all``): to the
-experts' owners and back.  The expert FFNs are plain batched products,
+experts' owners and back.  Inside a pipeline stage the tokens are
+replicated over ep instead (:func:`switch_moe_replicated_local`): each
+rank computes the slots of its own experts and the partial outputs are
+summed.  The expert FFNs are plain batched products,
 as the JAX package computes them outside any Pallas kernel.
 """
 
@@ -39,7 +43,7 @@ import torch
 from tfmesos_tpu_torch.parallel import collectives
 
 __all__ = ["Routing", "switch_moe_reference", "switch_moe_local",
-           "switch_moe"]
+           "switch_moe_replicated_local", "switch_moe"]
 
 
 @dataclass
@@ -214,6 +218,46 @@ def switch_moe_local(x, router_w, w_gate, w_up, w_down, mesh,
     aux = {k: collectives.mean_replicated_grad(v, mesh, axis)
            for k, v in aux.items()}
     return combined.to(x.dtype), aux
+
+
+def switch_moe_replicated_local(x, router_w, w_gate, w_up, w_down, mesh,
+                                ep_axis: Optional[str] = None,
+                                capacity_factor: float = 1.25,
+                                top_k: int = 1,
+                                tp_axis: Optional[str] = None):
+    """Capacity MoE for ep-REPLICATED tokens, the pipeline-stage layout
+    (the JAX ``switch_moe_replicated_local``): every rank of ``ep_axis``
+    holds every token of the microbatch and routes them all (the router
+    whole), computes the capacity slots of its LOCAL experts only
+    ([E/ep, d, f], cut over ``tp_axis`` too: e_gate / e_up on their
+    output columns, e_down on its input rows), and the partial outputs
+    are summed over both axes.  The tokens and gates fan out through
+    Megatron's *f* over the axes and the sum is *g*, so every gradient
+    is one process's.  Capacity is a competition over ``x``'s tokens.
+    Without either axis, :func:`switch_moe_reference`.  Returns (out,
+    aux), aux the same on every rank of the axes."""
+    axes = tuple(a for a in (ep_axis, tp_axis) if a)
+    if not axes:
+        return switch_moe_reference(x, router_w, w_gate, w_up, w_down,
+                                    capacity_factor, top_k=top_k,
+                                    return_aux=True)
+    n = x.shape[0]
+    e_loc = w_gate.shape[0]
+    ep = mesh.axis_size(ep_axis) if ep_axis else 1
+    e = e_loc * ep
+    capacity = _capacity(n, e, capacity_factor, top_k)
+    route, aux = _routing(x, router_w, e, capacity, top_k)
+    lo = mesh.coord(ep_axis) * e_loc if ep_axis else 0
+    mine = (route.expert >= lo) & (route.expert < lo + e_loc)
+    local = Routing((route.expert - lo).clamp(0, e_loc - 1), route.slot,
+                    route.keep & mine,
+                    collectives.broadcast_replicated_grad(route.gates, mesh,
+                                                          axes),
+                    e_loc, capacity)
+    xe = collectives.broadcast_replicated_grad(x, mesh, axes)
+    out = _expert_ffn(_dispatch(xe, local), w_gate, w_up, w_down, x.dtype)
+    out = collectives.psum_replicated_grad(_combine(out, local), mesh, axes)
+    return out.to(x.dtype), aux
 
 
 def switch_moe(x, router_w, w_gate, w_up, w_down, mesh=None,

@@ -8,7 +8,9 @@ axis names (the dim is cut over all of them, row-major) — the JAX
 a global array and lets GSPMD slice it, a rank here holds its own block
 of each leaf as a plain tensor: :func:`place_tree` cuts it from the full
 leaf every rank holds (params from a shared seed, a checkpoint), and
-:func:`gather_tree` is its inverse.
+:func:`gather_tree` is its inverse.  An :class:`Interleaved` entry cuts
+a pipeline's layer stack round-robin, as the JAX circular and
+interleaved 1F1B schedules place their chunks.
 """
 
 from __future__ import annotations
@@ -22,12 +24,31 @@ from tfmesos_tpu_torch.ops.quant import QTensor
 from tfmesos_tpu_torch.parallel import collectives
 from tfmesos_tpu_torch.parallel.mesh import DATA_AXES
 
-__all__ = ["Spec", "data_axes", "token_axes", "filter_spec", "spec_axes",
+__all__ = ["Spec", "Interleaved", "data_axes", "token_axes", "filter_spec",
+           "spec_axes",
            "fsdp_spec",
            "batch_spec", "block", "cut", "uncut", "place_tree", "gather_tree",
            "make_global_batch", "apply_rules"]
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+
+
+class Interleaved(tuple):
+    """The spec entry of a layer-stack dim cut over the pipeline axis
+    ``axis`` (S ranks) in ``chunks`` virtual stages a rank: the dim is
+    S·chunks equal chunks and rank d holds chunks d, d + S, …, in that
+    order (its lap order: the JAX schedules' permutation
+    ``[c] -> [(c % S)·v + c // S]``, ``parallel/pipeline.py:581``).
+    As a tuple it is ``(axis,)``, so the axis helpers read it as a cut
+    over ``axis``."""
+
+    def __new__(cls, axis: str, chunks: int):
+        entry = super().__new__(cls, (axis,))
+        entry.chunks = int(chunks)
+        return entry
+
+    def __reduce__(self):
+        return (Interleaved, (self[0], self.chunks))
 
 
 def data_axes(mesh) -> Optional[Tuple[str, ...]]:
@@ -59,6 +80,9 @@ def filter_spec(spec: Spec, mesh) -> Spec:
     """``spec`` with every axis of size 1 on ``mesh`` dropped (the JAX
     ``_filter_spec``)."""
     def keep(entry):
+        if isinstance(entry, Interleaved):
+            return entry if mesh is not None and mesh.axis_size(
+                entry[0]) > 1 else None
         kept = tuple(a for a in _dim_axes(entry)
                      if mesh is not None and mesh.axis_size(a) > 1)
         if not kept:
@@ -117,6 +141,11 @@ def cut(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         n = 1 if mesh is None else mesh.axis_size(axes)
         if n == 1:
             continue
+        if isinstance(entry, Interleaved):
+            per = x.shape[d] // (n * entry.chunks)
+            x = x.unflatten(d, (entry.chunks, n, per)).select(
+                d + 1, mesh.coord(axes)).flatten(d, d + 1)
+            continue
         b = block(x.shape[d], n)
         start = min(mesh.coord(axes) * b, x.shape[d])
         x = x.narrow(d, start, min(b, x.shape[d] - start))
@@ -130,6 +159,12 @@ def uncut(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
         axes = _dim_axes(entry)
         if mesh is None or mesh.axis_size(axes) == 1:
+            continue
+        if isinstance(entry, Interleaved):
+            n = mesh.axis_size(axes)
+            x = collectives.all_gather(x.contiguous(), mesh, axes, dim=d)
+            x = x.unflatten(d, (n, entry.chunks, -1)).transpose(
+                d, d + 1).flatten(d, d + 2)
             continue
         sizes = collectives.all_gather(
             torch.tensor([x.shape[d]], device=x.device), mesh, axes)

@@ -1,6 +1,6 @@
 """Train and eval steps and the step loop (port of
 ``tfmesos_tpu/train/trainer.py``: one device, or a mesh of ranks over
-dp/fsdp, ep, sp and tp).
+dp/fsdp, pp, ep, sp and tp).
 
 ``make_train_step`` keeps the JAX call shape,
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, and
@@ -14,9 +14,10 @@ gradients are averaged over the data axes and sp before the update,
 which is the JAX step's arithmetic on the global batch.
 With ``param_specs`` the params are each rank's blocks (tp, fsdp and ep,
 ``parallel.sharding.place_tree``), and so are the gradients and the
-AdamW state; the global-norm clip sums its squares over the shards.
-``grads_fn`` belongs to the pipeline-parallel slice (ROADMAP A.10) and
-is not an argument here.
+AdamW state; the global-norm clip sums its squares over the shards
+(a layer leaf cut over pp over the stages, a leaf whole over pp
+once).  ``grads_fn`` replaces the autograd pass for a schedule autograd
+cannot express (the 1F1B pipeline step, ``transformer.train_step_1f1b``).
 """
 
 from __future__ import annotations
@@ -111,7 +112,8 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                     postprocess: Optional[Callable] = None,
                     steps_per_call: int = 1, grad_accum: int = 1,
                     scan_unroll: int = 1, mesh=None,
-                    param_specs=None) -> Callable:
+                    param_specs=None,
+                    grads_fn: Optional[Callable] = None) -> Callable:
     """Build the train step.
 
     ``loss_fn(params, batch) -> (loss, metrics)``; ``optimizer`` an
@@ -144,7 +146,22 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     same arithmetic as that many calls.  ``scan_unroll`` must divide
     ``steps_per_call``, as for the JAX step, whose scan it unrolls; the
     steps here are a Python loop, so it changes no arithmetic and no
-    launch."""
+    launch.
+
+    ``grads_fn(params, batch) -> (grads, loss, metrics)`` replaces the
+    autograd pass of ``loss_fn`` (ignored then) for schedules autograd
+    cannot express — ``transformer.train_step_1f1b``'s fused 1F1B
+    pipeline pass.  Its grads, loss and metrics are the global batch's
+    (the JAX contract: such a pass averages over the data axes itself,
+    never over pp), so the step averages nothing more; the clip is as
+    above.  Exclusive with ``grad_accum`` (such passes microbatch
+    internally).  With ``steps_per_call`` 1 the step's
+    ``grads(params, batch)`` returns ``(grads, loss, metrics)`` as the
+    update would take them, updating nothing."""
+    if grads_fn is not None and grad_accum != 1:
+        raise ValueError("grads_fn and grad_accum are exclusive: a custom "
+                         "gradient pass (e.g. the 1F1B pipeline step) does "
+                         "its own microbatching")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if steps_per_call < 1:
@@ -155,6 +172,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
                          f"steps_per_call ({steps_per_call})")
 
     def grads_and_metrics(params, batch):
+        if grads_fn is not None:
+            grads, loss, metrics = grads_fn(params, batch)
+            return grads, loss.detach(), {k: v.detach()
+                                          for k, v in metrics.items()}
         flat = flatten(params)
         names, leaves = list(flat), list(flat.values())
         if grad_accum == 1:
@@ -187,11 +208,19 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
     specs: Optional[List[Any]] = None
     sumsq = None
 
-    def one_step(params, opt_state: OptState, batch):
+    def reduced_grads(params, batch):
+        """The step's gradients, loss and metrics as the update takes
+        them (the global batch's), and the clip's keywords."""
         nonlocal specs, sumsq
         grads, loss, metrics = grads_and_metrics(params, batch)
         kw = {}
-        if reduce:
+        if reduce and grads_fn is not None:
+            if getattr(optimizer, "max_norm", 0) > 0 and sharded:
+                if sumsq is None:
+                    specs = _flat_specs(param_specs, list(flatten(grads)))
+                    sumsq = sharded_sumsq(specs, mesh)
+                kw["sumsq"] = sumsq
+        elif reduce:
             flat = flatten(grads)
             names, keys = list(flat), list(metrics)
             gs = list(flat.values())
@@ -209,6 +238,10 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
             grads = unflatten(dict(zip(names, mean)))
             loss = mean[len(names)]
             metrics = dict(zip(keys, mean[len(names) + 1:]))
+        return grads, loss, metrics, kw
+
+    def one_step(params, opt_state: OptState, batch):
+        grads, loss, metrics, kw = reduced_grads(params, batch)
         opt_state = optimizer.update(grads, opt_state, **kw)
         if postprocess is not None:
             with torch.no_grad():
@@ -218,6 +251,7 @@ def make_train_step(loss_fn: Callable, optimizer: AdamW,
         return params, opt_state, metrics
 
     if steps_per_call == 1:
+        one_step.grads = lambda p, b: reduced_grads(p, b)[:3]
         return one_step
 
     def step(params, opt_state: OptState, batch):

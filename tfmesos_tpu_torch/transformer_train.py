@@ -1,12 +1,13 @@
 """Train the flagship transformer, on one device or over the ranks of a
-cluster (port of ``examples/transformer_train.py`` without its pipeline
-flags, and its runtime half).
+cluster (port of ``examples/transformer_train.py`` and its runtime
+half).
 
     python -m tfmesos_tpu_torch.transformer_train [--tiny] [--device cpu] \\
         [--steps 50] [--batch_size 8] [--seq_len 2048] \\
         [--learning_rate 3e-4] [--warmup 0] [--lr-schedule constant] \\
         [--grad-clip 0] [--kv-heads N] [--moe E [--top-k 1]] \\
-        [--sp-impl ring] [--data FILE [--data-dtype uint16]] \\
+        [--sp-impl ring] [--pp-schedule gpipe] [--virtual-stages 1] \\
+        [--data FILE [--data-dtype uint16]] \\
         [--ckpt-dir DIR [--ckpt-every 50]] [--mesh dp=-1]
     python -m tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh dp=-1 -- \\
         python -m tfmesos_tpu_torch.transformer_train --steps 100
@@ -14,6 +15,8 @@ flags, and its runtime half).
         python -m tfmesos_tpu_torch.transformer_train --mesh dp=2,tp=2
     python -m tfmesos_tpu_torch.cli run -w 4 -s 0 --mesh sp=2,ep=2 -- \\
         python -m tfmesos_tpu_torch.transformer_train --moe 8 --top-k 2
+    python -m tfmesos_tpu_torch.cli run -w 2 -s 0 --mesh pp=2 -- \\
+        python -m tfmesos_tpu_torch.transformer_train --pp-schedule 1f1b
 
 The flagship config (vocab 8192, d512, 8 layers, 8 heads, d_ff 1408,
 bf16 compute over float32 master weights), weights seeded 0, trains on
@@ -21,10 +24,15 @@ the seeded bigram token stream (seed 100) with AdamW (weight decay
 0.01), through the fused head + cross entropy and the hand-written
 attention kernels on the card.  ``--moe E`` swaps each block's MLP for
 E routed experts (``--top-k`` a token; the switch form with capacity
-and all-to-all dispatch over ``ep``, as the JAX example picks without
-pp), and the metrics carry the router's losses.  ``--tiny`` is the CI
-model (vocab 256, d64, 2 layers, 4 heads, float32, at most 64 tokens a
-sp rank).  ``--data`` reads
+and all-to-all dispatch over ``ep``, and the dense top-k form under
+1F1B on a real pp axis, the JAX example's rule), and the metrics carry
+the router's losses.  Over ``pp`` the layers run as a pipeline:
+``--pp-schedule gpipe`` or ``circular`` (with ``--virtual-stages``
+chunks a rank) through autograd, ``1f1b`` through ``make_train_step``'s
+``grads_fn`` (``transformer.train_step_1f1b``; a forward-only pass
+keeps gpipe).  ``--tiny`` is the CI model (vocab 256, d64, 4 heads,
+float32, 2 layers or pp x virtual stages, at most 64 tokens a sp
+rank).  ``--data`` reads
 a flat token file (``TokenFileDataset``) instead, refusing ids beyond
 the vocab.  ``--ckpt-dir`` saves params, optimizer state and step every
 ``--ckpt-every`` steps (asynchronously, and at the last step), and a
@@ -40,11 +48,13 @@ data index; a token file's strided windows), the tp ranks of a shard
 on the same rows, and the gradients are averaged over the data axes.
 With ``sp`` each rank of a data shard trains on its window of the
 sequence (``sharding.seq_window``; ``--sp-impl`` ring or Ulysses
-attention) and the gradients are averaged over sp too; ``ep`` ranks
-see the same rows and hold their block of the experts.
-With ``tp``, ``fsdp`` or ``ep`` in the mesh each rank holds only its
-blocks of the params and of the AdamW state (``partition_specs``:
-Megatron tp, fsdp gathered a layer at a time, whole experts over ep),
+attention) and the gradients are averaged over sp too; ``ep`` and
+``pp`` ranks see the same rows, and hold their block of the experts
+and their stage's layers.
+With ``tp``, ``fsdp``, ``pp`` or ``ep`` in the mesh each rank holds
+only its blocks of the params and of the AdamW state
+(``partition_specs``: Megatron tp, fsdp gathered a layer at a time,
+a stage's layers over pp, whole experts over ep),
 the loss is vocab parallel under tp, and a checkpoint gathers the
 blocks for rank 0 to write (every rank
 restores its blocks).  Only rank 0 saves checkpoints.  Rank
@@ -53,13 +63,18 @@ and the global tokens/sec; every rank then prints its steps' losses
 (``rank R/W step losses: [...]``: equal across ranks, the mean over
 the mesh), with experts its steps' router metrics (``rank R/W step moe
 metrics: {...}``), its kernel launch counts (``rank R/W kernel
-launches: {...}``) and on the card its peak device memory.  Runs on
-the card unless ``--device cpu``.
+launches: {...}``), the params it holds (``params held: N of M``), on
+the card its peak device memory and the memory allocated after the
+first step (less what stays once the run is freed), and with
+``--time-collectives`` the host ms a step in collectives.
+``--grads-out`` writes the first step's gradients, gathered whole,
+before training.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -94,6 +109,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "all-to-all path over the mesh's ep axis")
     p.add_argument("--top-k", type=int, default=1, dest="top_k",
                    help="experts per token")
+    p.add_argument("--pp-schedule", choices=["gpipe", "circular", "1f1b"],
+                   default="gpipe", dest="pp_schedule",
+                   help="pipeline schedule when the mesh has a pp axis "
+                        "(1f1b: the fused forward+backward step with an "
+                        "O(pp) activation stash)")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   dest="virtual_stages",
+                   help="interleaved chunks per pp rank (circular, 1f1b)")
     p.add_argument("--sp-impl", choices=["ring", "ulysses"], default="ring",
                    dest="sp_impl",
                    help="sequence parallelism over the sp axis: the ring "
@@ -114,6 +137,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="mesh axes, e.g. dp=-1, fsdp=2, tp=2, "
                         "dp=2,tp=2 or sp=2,ep=2 (default: the cluster's, "
                         "else all dp)")
+    p.add_argument("--grads-out", type=str, default=None, dest="grads_out",
+                   help="before training, write the first step's "
+                        "gradients (the global batch's, gathered whole) "
+                        "to this .npz (rank 0); that pass's kernel "
+                        "launches are not counted")
+    p.add_argument("--time-collectives", action="store_true",
+                   dest="time_collectives",
+                   help="time the steps' collectives on the host (each "
+                        "after a device sync) and print their ms a step")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -134,6 +166,7 @@ class Run:
     seq_len: int
     world_size: int = 1          # data shards (ranks of distinct rows)
     specs: Optional[Dict] = None  # partition specs of cut params
+    numel: tuple = (0, 0)        # params held by this rank, in all
 
 
 def local_batch(args: argparse.Namespace, world_size: int) -> int:
@@ -165,12 +198,24 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
     from tfmesos_tpu_torch.train.trainer import make_train_step
 
     sp = 1 if mesh is None else mesh.axis_size("sp")
-    # The JAX example's rule: the switch form wherever pp is absent.
-    moe = dict(n_experts=args.moe, top_k=args.top_k, moe_impl="switch",
-               sp_impl=args.sp_impl, n_kv_heads=args.kv_heads)
+    pp = 1 if mesh is None else mesh.axis_size("pp")
+    one_f_one_b = args.pp_schedule == "1f1b" and pp > 1
+    # The JAX example's rules: 1F1B differentiates inside the stages,
+    # which the dense top-k MoE supports (switch elsewhere); forward-only
+    # passes keep gpipe (circular over interleaved virtual stages: their
+    # layout).
+    fwd = args.pp_schedule
+    if fwd == "1f1b":
+        fwd = "circular" if args.virtual_stages > 1 else "gpipe"
+    moe = dict(n_experts=args.moe, top_k=args.top_k,
+               moe_impl="dense" if one_f_one_b else "switch",
+               sp_impl=args.sp_impl, n_kv_heads=args.kv_heads,
+               pp_schedule=fwd,
+               pp_virtual_stages=args.virtual_stages)
     if args.tiny:
         cfg = transformer.TransformerConfig(
-            vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+            vocab_size=256, d_model=64,
+            n_layers=max(2, pp * args.virtual_stages), n_heads=4, d_ff=128,
             max_seq_len=args.seq_len, dtype=torch.float32, **moe)
         seq_len = min(args.seq_len, 64 * sp)
     else:
@@ -181,8 +226,10 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      device)
     on_mesh = mesh if mesh is not None and mesh.size() > 1 else None
+    total = sum(v.numel() for v in _leaves(params))
     specs = None
-    if on_mesh is not None and mesh.axis_size(("tp", "fsdp", "ep")) > 1:
+    if on_mesh is not None and mesh.axis_size(("tp", "fsdp", "pp",
+                                                 "ep")) > 1:
         specs = transformer.partition_specs(cfg, mesh)
         params = place_tree(mesh, params, specs)
     if args.lr_schedule == "cosine" or args.warmup:
@@ -197,15 +244,27 @@ def setup(args: argparse.Namespace, device, start_step: Optional[int] = 0,
     else:
         lr = args.learning_rate
     opt = optim.adamw(lr, weight_decay=0.01, max_norm=args.grad_clip)
+    grads_fn = None
+    if one_f_one_b:
+        def grads_fn(p_, b_):
+            loss, grads = transformer.train_step_1f1b(cfg, p_, b_, mesh)
+            return grads, loss, {"perplexity": torch.exp(loss)}
     step = make_train_step(
         lambda p_, b_: transformer.loss_fn(cfg, p_, b_, mesh=on_mesh), opt,
-        mesh=mesh, param_specs=specs)
+        mesh=mesh, param_specs=specs, grads_fn=grads_fn)
     index, shards = data_shard(mesh, rank, world_size)
     batches = (None if start_step is None
                else data_stream(args, cfg, seq_len, start_step, index,
                                 shards, mesh=mesh))
     return Run(cfg, params, opt.init(params), step, batches, device,
-               local_batch(args, shards), seq_len, shards, specs)
+               local_batch(args, shards), seq_len, shards, specs,
+               (sum(v.numel() for v in _leaves(params)), total))
+
+
+def _leaves(tree) -> List[Any]:
+    from tfmesos_tpu_torch.convert import flatten
+
+    return list(flatten(tree).values())
 
 
 def data_stream(args: argparse.Namespace, cfg, seq_len: int,
@@ -256,7 +315,8 @@ def train(run: Run, steps: int,
     waiting every ``ckpt_every`` global steps.  Returns the elapsed
     seconds (from the first step to the last loss on the host), the
     global batch's tokens/sec, every step's loss as a float, and with
-    experts every step's router metrics (``moe``)."""
+    experts every step's router metrics (``moe``) and on the card the
+    device memory allocated after the first step (``mem_first``)."""
     import torch
 
     from tfmesos_tpu_torch.train.data import prefetch
@@ -264,10 +324,13 @@ def train(run: Run, steps: int,
     gen = prefetch(run.batches, run.device)
     losses: List[Any] = []
     moe: Dict[str, List[Any]] = {}
+    mem_first = None
     t0 = time.perf_counter()
     for i in range(start_step, steps):
         run.params, run.opt_state, metrics = run.step(
             run.params, run.opt_state, next(gen))
+        if mem_first is None and str(run.device).startswith("cuda"):
+            mem_first = torch.cuda.memory_allocated(run.device)
         losses.append(metrics["loss"])
         for k in MOE_METRICS:
             if k in metrics:
@@ -280,7 +343,7 @@ def train(run: Run, steps: int,
     losses = torch.stack(losses).tolist() if losses else []  # drains it
     dt = time.perf_counter() - t0
     n = max(0, steps - start_step)
-    return {"elapsed_s": dt, "losses": losses,
+    return {"elapsed_s": dt, "losses": losses, "mem_first": mem_first,
             "moe": {k: torch.stack(v).tolist() for k, v in moe.items()},
             "tokens_per_s": (n * run.batch_size * run.world_size
                              * run.seq_len / dt)}
@@ -335,6 +398,27 @@ def train_chunk(ctx, argv: List[str], ckpt_dir: str, start: int,
     return {"rank": ctx.rank, "pid": os.getpid(), "step": start + steps,
             "losses": out["losses"], "elapsed_s": out["elapsed_s"],
             "launches": {k: after[k] - before.get(k, 0) for k in after}}
+
+
+def write_first_grads(run: Run, path: str, mesh, batch) -> None:
+    """``--grads-out``: the gradients of the step on ``batch`` (this
+    rank's numpy share) as the update would take them (``step.grads``:
+    the global batch's), gathered whole, written by rank 0 as an npz
+    of float32 leaves (``layers/wq``, ...) and the loss."""
+    import numpy as np
+    import torch
+
+    from tfmesos_tpu_torch.convert import flatten
+    from tfmesos_tpu_torch.parallel.sharding import gather_tree
+
+    batch = {k: torch.from_numpy(v).to(run.device) for k, v in batch.items()}
+    grads, loss, _ = run.step.grads(run.params, batch)
+    if run.specs is not None:
+        grads = gather_tree(mesh, grads, run.specs)
+    if mesh.rank == 0:
+        np.savez(path, loss=np.asarray(float(loss)),
+                 **{k: v.detach().float().cpu().numpy()
+                    for k, v in flatten(grads).items()})
 
 
 def _launches() -> Dict[str, int]:
@@ -394,11 +478,23 @@ def main(argv=None) -> int:
             ckpt.close()
             ckpt = None
     index, shards = data_shard(mesh, ctx.rank, ctx.world_size)
+    if args.grads_out:
+        from tfmesos_tpu_torch import graphs
+
+        write_first_grads(run, args.grads_out, mesh, next(data_stream(
+            args, run.cfg, run.seq_len, start_step, index, shards,
+            mesh=mesh)))
+        graphs.zero_launches()
     run.batches = data_stream(args, run.cfg, run.seq_len, start_step,
                               index, shards, mesh=mesh)
-    out = train(run, args.steps,
-                log=(lambda s: print(s, flush=True)) if chief else None,
-                start_step=start_step, ckpt=ckpt, ckpt_every=args.ckpt_every)
+    from tfmesos_tpu_torch.parallel.collectives import CollectiveTimer
+
+    timer = CollectiveTimer(device)
+    with timer if args.time_collectives else contextlib.nullcontext():
+        out = train(run, args.steps,
+                    log=(lambda s: print(s, flush=True)) if chief else None,
+                    start_step=start_step, ckpt=ckpt,
+                    ckpt_every=args.ckpt_every)
     if ckpt is not None:
         if start_step < args.steps and args.steps % args.ckpt_every:
             ckpt.save(args.steps, (run.params, run.opt_state), wait=False)
@@ -414,12 +510,29 @@ def main(argv=None) -> int:
               f"{json.dumps(out['moe'])}", flush=True)
     print(f"rank {ctx.rank}/{ctx.world_size} kernel launches: "
           f"{json.dumps(_launches())}", flush=True)
+    print(f"rank {ctx.rank}/{ctx.world_size} params held: "
+          f"{run.numel[0]} of {run.numel[1]}", flush=True)
+    n = args.steps - start_step
+    if args.time_collectives and n:
+        print(f"rank {ctx.rank}/{ctx.world_size} collectives: "
+              f"{timer.seconds / n * 1e3:.1f} ms a step of "
+              f"{out['elapsed_s'] / n * 1e3:.1f}", flush=True)
     if str(device).startswith("cuda"):
+        import gc
+
         import torch
 
         print(f"rank {ctx.rank}/{ctx.world_size} peak device memory: "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} "
               f"GiB", flush=True)
+        if out["mem_first"] is not None:
+            # What stays allocated once the run is freed (the libraries'
+            # workspaces) is not the run's.
+            run.params = run.opt_state = run.step = None
+            gc.collect()
+            kept = out["mem_first"] - torch.cuda.memory_allocated(device)
+            print(f"rank {ctx.rank}/{ctx.world_size} memory after the "
+                  f"first step: {kept} bytes", flush=True)
     runtime.shutdown()
     return 0
 
